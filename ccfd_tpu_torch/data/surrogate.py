@@ -1,0 +1,133 @@
+"""Deterministic, Kaggle-shaped surrogate of ``creditcard.csv``.
+
+The port's own copy of ccfd_tpu/data/surrogate.py (numpy only). The Kaggle
+credit-card-fraud table (284,807 rows, 492 frauds, ``Time, V1..V28, Amount,
+Class``) is not redistributable, so the canonical in-repo dataset is this
+surrogate: a generator matched to the real table's published summary
+statistics (the PCA variance ladder, the fraud-class mean shifts, three
+fraud sub-populations, heavy-tailed amounts, a day-night time cycle),
+deterministic in a fixed seed. The committed checkpoint was trained on it.
+"""
+from __future__ import annotations
+
+import hashlib
+
+import numpy as np
+
+from ccfd_tpu_torch.data.ccfd import Dataset
+
+SURROGATE_VERSION = "v1"
+SURROGATE_SEED = 20260730
+KAGGLE_ROWS = 284_807
+KAGGLE_FRAUDS = 492  # 0.17275%
+
+# Per-component std of V1..V28 in the real table (public dataset card).
+_LADDER = np.array([
+    1.959, 1.651, 1.516, 1.416, 1.380, 1.332, 1.237, 1.194, 1.099, 1.089,
+    1.021, 0.999, 0.995, 0.959, 0.915, 0.876, 0.850, 0.838, 0.814, 0.771,
+    0.735, 0.726, 0.624, 0.606, 0.521, 0.482, 0.404, 0.330,
+], np.float32)
+
+# Fraud-class mean shift per component (public EDA consensus, raw units).
+_FRAUD_SHIFT = np.array([
+    -4.77, 3.63, -7.03, 4.54, -3.15, -1.40, -5.57, 0.57, -2.58, -5.68,
+    3.80, -6.26, -0.11, -6.97, -0.09, -4.14, -6.67, -2.25, 0.68, 0.37,
+    0.71, 0.014, -0.04, -0.105, 0.042, 0.051, 0.17, 0.075,
+], np.float32)
+
+_MAX_AMOUNT = 25_691.16  # real table max
+
+
+def _time_column(rng: np.random.Generator, n: int, night_weight: float) -> np.ndarray:
+    """Seconds over two days with a day-night cycle: a flat base plus a
+    daytime bulge; ``night_weight`` lifts the 01:30-07:00 trough (frauds
+    skew relatively more nocturnal than licit traffic)."""
+    day = rng.integers(0, 2, size=n) * 86_400.0
+    # rejection-free mixture: base uniform vs daytime Gaussian bulges
+    bulge = rng.random(n) >= night_weight
+    tod = np.where(
+        bulge,
+        np.clip(rng.normal(14 * 3600, 4.5 * 3600, size=n), 0, 86_399),
+        rng.uniform(0, 86_400, size=n),
+    )
+    return np.sort((day + tod).astype(np.float32))
+
+
+def _licit_amounts(rng: np.random.Generator, n: int) -> np.ndarray:
+    """Lognormal body (median ~22) + a 1.5% Pareto tail lifting the mean
+    toward the real ~88 with max capped at the real 25,691."""
+    body = np.exp(rng.normal(np.log(22.0), 1.35, size=n))
+    tail = rng.random(n) < 0.015
+    pareto = (rng.pareto(1.1, size=n) + 1.0) * 150.0
+    out = np.where(tail, pareto, body)
+    return np.clip(out, 0.0, _MAX_AMOUNT).astype(np.float32)
+
+
+def _fraud_amounts(rng: np.random.Generator, n: int) -> np.ndarray:
+    """Mostly small charges (median ~9, card-testing behavior), rare large."""
+    small = np.exp(rng.normal(np.log(9.2), 1.2, size=n))
+    big = rng.random(n) < 0.06
+    out = np.where(big, np.exp(rng.normal(np.log(350.0), 1.0, size=n)), small)
+    return np.clip(out, 0.0, 2_125.87).astype(np.float32)  # real fraud max
+
+
+def kaggle_surrogate(
+    n: int = KAGGLE_ROWS, seed: int = SURROGATE_SEED
+) -> Dataset:
+    """The canonical committed dataset: deterministic in ``seed``; defaults
+    reproduce the fingerprint asserted by tests/test_surrogate.py."""
+    rng = np.random.default_rng(seed)
+    n_fraud = max(1, round(n * KAGGLE_FRAUDS / KAGGLE_ROWS))
+    n_licit = n - n_fraud
+
+    # --- licit: PCA-ladder Gaussians with a small heavy-tail mixture ------
+    v_licit = rng.normal(0.0, 1.0, size=(n_licit, 28)).astype(np.float32)
+    heavy = rng.random(n_licit) < 0.02
+    v_licit[heavy] *= 3.0  # kurtosis: rare licit outliers (future FPs)
+    v_licit *= _LADDER[None, :]
+
+    # --- fraud: strong + stealth + tail-signature modes -------------------
+    # weights/shifts tuned so the model families land clustered in the
+    # real table's band (see BASELINE.md's AUC table) rather than a
+    # linearly-separable toy's ~1.0: the stealth
+    # mode caps every model, the tail-signature mode (visible to nonlinear
+    # models, only 0.3-aligned with the main fraud direction) keeps
+    # capacity from being pure overfitting risk
+    v_fraud = rng.normal(0.0, 1.0, size=(n_fraud, 28)).astype(np.float32)
+    u = rng.random(n_fraud)
+    stealth = u < 0.40
+    mode_c = u > 0.85  # 15%: the tail-signature sub-population
+    scale = np.where(stealth[:, None], 1.25, 2.2).astype(np.float32)
+    scale = np.where(mode_c[:, None], 1.5, scale)
+    shift = _FRAUD_SHIFT[None, :] * np.where(stealth[:, None], 0.15, 0.9)
+    c_shift = 0.3 * _FRAUD_SHIFT + np.concatenate(
+        [np.zeros(21, np.float32), 2.5 * _LADDER[21:]]
+    )
+    shift = np.where(mode_c[:, None], c_shift[None, :], shift).astype(np.float32)
+    v_fraud = v_fraud * _LADDER[None, :] * scale + shift
+
+    t_licit = _time_column(rng, n_licit, night_weight=0.25)
+    t_fraud = _time_column(rng, n_fraud, night_weight=0.45)
+    a_licit = _licit_amounts(rng, n_licit)
+    a_fraud = _fraud_amounts(rng, n_fraud)
+
+    X = np.concatenate([
+        np.concatenate([t_licit[:, None], v_licit, a_licit[:, None]], axis=1),
+        np.concatenate([t_fraud[:, None], v_fraud, a_fraud[:, None]], axis=1),
+    ]).astype(np.float32)
+    y = np.concatenate([
+        np.zeros(n_licit, np.int32), np.ones(n_fraud, np.int32)
+    ])
+    # deterministic interleave (the real table is Time-ordered, not
+    # class-blocked; consumers shuffle for training anyway)
+    order = np.argsort(X[:, 0], kind="stable")
+    return Dataset(X=np.ascontiguousarray(X[order]), y=np.ascontiguousarray(y[order]))
+
+
+def fingerprint(ds: Dataset) -> str:
+    """Stable content hash: drift in the generator (numpy version, edits)
+    is a test failure, not a silent dataset change."""
+    h = hashlib.sha256()
+    h.update(ds.X.astype("<f4").tobytes())
+    h.update(ds.y.astype("<i4").tobytes())
+    return h.hexdigest()

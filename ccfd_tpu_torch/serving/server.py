@@ -1,0 +1,218 @@
+"""REST serving layer with the Seldon wire contract, backed by the port's
+scorer. The port of ccfd_tpu/serving/server.py's ``PredictionServer``.
+
+- ``POST /api/v0.1/predictions`` — the Seldon REST contract. Request:
+  ``{"data": {"names": [...], "ndarray": [[...], ...]}}``; the response
+  mirrors the shape with ``names: ["proba_0", "proba_1"]`` and one
+  probability row per input row.
+- ``POST /predict`` — the jBPM prediction-service endpoint.
+- Bearer-token auth when ``SELDON_TOKEN`` is configured.
+- ``GET /prometheus`` (and ``/metrics``) —
+  ``seldon_api_executor_client_requests_seconds_{count,sum,bucket}``, the
+  status-coded request counter, the per-request gauges
+  ``proba_1``/``Amount``/``V17``/``V10``, the batcher's dispatch counters
+  and ``ccfd_kernel_launches{kernel=...}``, the process's launches of each
+  CUDA kernel.
+- ``GET /health/status`` — Seldon-style readiness.
+
+Transport: the Python ``FastHTTPServer`` only, decoding bodies with
+``json.loads``. The reference's C++ front and native payload decode are a
+later slice of the port.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+from typing import Any
+
+import numpy as np
+
+from ccfd_tpu_torch.config import Config
+from ccfd_tpu_torch.data.ccfd import FEATURE_NAMES
+from ccfd_tpu_torch.metrics.prom import Registry
+from ccfd_tpu_torch.ops import fused_mlp
+from ccfd_tpu_torch.serving.batcher import DynamicBatcher
+from ccfd_tpu_torch.serving.scorer import Scorer
+from ccfd_tpu_torch.utils.fasthttp import FastHTTPServer
+
+_AMOUNT_COL = FEATURE_NAMES.index("Amount")
+_V17_COL = FEATURE_NAMES.index("V17")
+_V10_COL = FEATURE_NAMES.index("V10")
+
+
+class PredictionServer:
+    def __init__(
+        self,
+        scorer: Scorer,
+        cfg: Config | None = None,
+        registry: Registry | None = None,
+    ):
+        self.scorer = scorer
+        self.cfg = cfg or Config()
+        self.registry = registry or Registry()
+        r = self.registry
+        self._h_latency = r.histogram(
+            "seldon_api_executor_client_requests_seconds",
+            "request latency by endpoint",
+        )
+        self._c_requests = r.counter(
+            "seldon_api_executor_server_requests_total", "requests by code"
+        )
+        self._g_proba = r.gauge("proba_1", "last scored fraud probability")
+        self._g_amount = r.gauge("Amount", "last scored transaction amount")
+        self._g_v17 = r.gauge("V17", "last scored V17")
+        self._g_v10 = r.gauge("V10", "last scored V10")
+        self._g_launches = r.gauge(
+            "ccfd_kernel_launches", "CUDA kernel launches in this process")
+        self._httpd: FastHTTPServer | None = None
+        # dynamic batching: concurrent requests coalesce into one dispatch;
+        # the adaptive policy adds no latency for a lone sequential client
+        self.batcher: DynamicBatcher | None = None
+        if self.cfg.dynamic_batching:
+            self._c_dispatches = r.counter(
+                "serving_batcher_dispatches_total", "coalesced device dispatches"
+            )
+            self._c_batched_rows = r.counter(
+                "serving_batcher_rows_total", "rows through the batcher"
+            )
+            self.batcher = self._make_batcher()
+
+    def _make_batcher(self) -> DynamicBatcher:
+        def on_dispatch(n_rows: int) -> None:
+            self._c_dispatches.inc()
+            self._c_batched_rows.inc(n_rows)
+
+        return DynamicBatcher(
+            self.scorer.score,
+            max_batch=max(self.scorer.batch_sizes),
+            deadline_ms=self.cfg.batch_deadline_ms,
+            on_dispatch=on_dispatch,
+            workers=self.cfg.batch_workers,
+        )
+
+    # -- scoring ----------------------------------------------------------
+    def _score_matrix(self, x: np.ndarray) -> np.ndarray:
+        if self.batcher is not None:
+            proba = self.batcher.score(x)
+        else:
+            proba = self.scorer.score(x)
+        if x.shape[0]:
+            self._g_proba.set(float(proba[-1]))
+            self._g_amount.set(float(x[-1, _AMOUNT_COL]))
+            self._g_v17.set(float(x[-1, _V17_COL]))
+            self._g_v10.set(float(x[-1, _V10_COL]))
+        return np.asarray(proba, np.float64)
+
+    @staticmethod
+    def _response_dict(proba: np.ndarray, model: str) -> dict:
+        return {
+            "data": {
+                "names": ["proba_0", "proba_1"],
+                "ndarray": np.stack([1.0 - proba, proba], axis=1).tolist(),
+            },
+            "meta": {"model": model},
+        }
+
+    def predict_ndarray(self, names: list[str], rows: list[list[float]]) -> dict:
+        proba = self._score_matrix(self.rows_matrix(names, rows))
+        return self._response_dict(proba, self.scorer.spec.name)
+
+    def rows_matrix(self, names: list[str], rows: list[list[float]]) -> np.ndarray:
+        """The request's rows as an (n, F) float32 matrix in canonical
+        feature order. Raises ``TypeError``/``ValueError`` for rows that do
+        not convert: the client's fault, where a scoring error is not."""
+        nf = self.scorer.num_features
+        if names and names != list(FEATURE_NAMES):
+            idx = {n: j for j, n in enumerate(FEATURE_NAMES)}
+            x = np.zeros((len(rows), nf), np.float32)
+            for i, row in enumerate(rows):
+                for name, v in zip(names, row):
+                    j = idx.get(name)
+                    if j is not None:
+                        x[i, j] = float(v)
+        else:
+            # uniform canonical-order rows convert in ONE numpy call; the
+            # ragged/odd-width fallback keeps the lenient contract
+            try:
+                x = np.asarray(rows, np.float32)
+            except ValueError:
+                x = None
+            if x is None or x.ndim != 2 or x.shape[1] != nf:
+                x = np.zeros((len(rows), nf), np.float32)
+                for i, row in enumerate(rows):
+                    x[i, : len(row)] = np.asarray(row, np.float32)[:nf]
+        return x
+
+    # -- HTTP plumbing (FastHTTPServer handler contract) -------------------
+    def _json(self, code: int, obj: Any) -> tuple[int, str, bytes]:
+        self._c_requests.inc(labels={"code": str(code)})
+        return code, "application/json", json.dumps(obj).encode()
+
+    def _authorized(self, headers: dict) -> bool:
+        token = self.cfg.seldon_token
+        if not token:
+            return True
+        auth = headers.get(b"authorization", b"").decode("latin-1")
+        return auth == f"Bearer {token}"
+
+    def _http_handler(
+        self, method: str, path: str, headers: dict, body: bytes
+    ) -> tuple[int, str, bytes]:
+        if method == "GET":
+            if path in ("/prometheus", "/metrics"):
+                self._c_requests.inc(labels={"code": "200"})
+                self._g_launches.set(fused_mlp.launches.value,
+                                     labels={"kernel": "fused_mlp_bf16"})
+                return 200, "text/plain", self.registry.render().encode()
+            if path in ("/health/status", "/health", "/healthz"):
+                return self._json(
+                    200, {"status": "ok", "model": self.scorer.spec.name}
+                )
+            return self._json(404, {"error": "not found"})
+        if method != "POST":
+            return self._json(405, {"error": "method not allowed"})
+
+        t0 = time.perf_counter()
+        if not self._authorized(headers):
+            return self._json(401, {"error": "unauthorized"})
+        path = path.rstrip("/")
+        if not (path.endswith("/predictions") or path == "/predict"):
+            return self._json(404, {"error": "not found"})
+        try:
+            payload = json.loads(body or b"{}")
+        except ValueError:
+            return self._json(400, {"error": "malformed JSON body"})
+        data = payload.get("data", {}) if isinstance(payload, dict) else {}
+        rows = data.get("ndarray") if isinstance(data, dict) else None
+        if rows is None or not isinstance(rows, list):
+            return self._json(400, {"error": "missing data.ndarray in request"})
+        try:
+            x = self.rows_matrix(data.get("names") or [], rows)
+        except (TypeError, ValueError) as e:
+            return self._json(400, {"error": f"bad ndarray: {e}"})
+        # a scorer or kernel error propagates: the transport answers 500
+        out = self._response_dict(self._score_matrix(x), self.scorer.spec.name)
+        self._h_latency.observe(time.perf_counter() - t0, labels={"endpoint": path})
+        return self._json(200, out)
+
+    def start(self, host: str | None = None, port: int | None = None) -> int:
+        """Start serving on a background thread; returns the bound port."""
+        if self.cfg.dynamic_batching and self.batcher is None:
+            # stop() tears the batcher down; a restarted server needs a
+            # fresh one or every predict would fail on the stopped worker
+            self.batcher = self._make_batcher()
+        host = host if host is not None else self.cfg.serve_host
+        port = port if port is not None else self.cfg.serve_port
+        self._httpd = FastHTTPServer(
+            (host, port), self._http_handler, name="ccfd-serving"
+        ).start()
+        return self._httpd.server_address[1]
+
+    def stop(self) -> None:
+        if self._httpd is not None:
+            self._httpd.stop()
+            self._httpd = None
+        if self.batcher is not None:
+            self.batcher.stop()
+            self.batcher = None

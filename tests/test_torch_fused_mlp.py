@@ -1,0 +1,149 @@
+"""Kernel B1's plain PyTorch version vs the JAX Pallas kernel.
+
+The JAX kernel runs with ``interpret=True`` on the CPU, as tests/test_ops.py
+runs it. The plain version repeats the kernel's arithmetic with the same
+rounding points, so they agree to 1e-5 in probability (7.4e-7 measured on
+the committed checkpoint); logits are compared too because the committed
+checkpoint saturates most probabilities. The CUDA kernel itself is held
+against the plain version on the card (tests/test_torch_kernels_cuda.py,
+chip_smoke.py).
+"""
+
+import sys
+import threading
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ccfd_tpu.ops import fused_mlp as jax_fused
+from ccfd_tpu_torch.data.surrogate import kaggle_surrogate
+from ccfd_tpu_torch.ops import fused_mlp
+from ccfd_tpu_torch.params import from_jax_params, load_params, to_numpy
+from tests.torch_helpers import mlp_tree
+
+
+@pytest.fixture(scope="module")
+def rows():
+    return kaggle_surrogate(n=2048, seed=5).X
+
+
+def _jax_kernel(tree, x: np.ndarray, tile: int) -> np.ndarray:
+    kp = jax_fused.fold_for_kernel(tree)
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    return np.asarray(jax_fused.fused_mlp_score(kp, xb, tile=tile, interpret=True))
+
+
+def _port(tree, x: np.ndarray):
+    kp = fused_mlp.pack_for_kernel(
+        fused_mlp.fold_for_kernel(from_jax_params(tree)), "cpu")
+    p, z = fused_mlp.fused_mlp_score(
+        kp, torch.from_numpy(x).to(torch.bfloat16), with_logits=True)
+    return p.numpy(), z.numpy()
+
+
+def _assert_logits_close(z: np.ndarray, ref_p: np.ndarray) -> None:
+    """The JAX kernel returns only p: recover its logits where p is not
+    saturated (so the inverse sigmoid is well conditioned) and compare."""
+    ok = (ref_p > 1e-4) & (ref_p < 1 - 1e-4)
+    assert ok.sum() >= 8
+    ref_z = np.log(ref_p[ok].astype(np.float64)) - np.log1p(-ref_p[ok].astype(np.float64))
+    np.testing.assert_allclose(z[ok], ref_z, rtol=0, atol=2e-3)
+
+
+def test_fold_matches_reference(rows):
+    tree = mlp_tree(rows, hidden=256, seed=1)
+    tree["norm"]["sigma"][4] = 0.0  # the zero-sigma guard folds as 1
+    ref = jax_fused.fold_for_kernel(tree)
+    got = fused_mlp.fold_for_kernel(from_jax_params(tree))
+    assert tuple(got["w1"].shape) == (32, 256)
+    np.testing.assert_allclose(got["w1"][:30].numpy(), np.asarray(ref["w1"])[:30], rtol=1e-6)
+    assert torch.count_nonzero(got["w1"][30:]).item() == 0
+    np.testing.assert_allclose(got["b1"].numpy(), np.asarray(ref["b1"]), rtol=1e-6)
+    for k in ("w2", "b2", "w3", "b3"):
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(ref[k]))
+
+
+def test_plain_version_matches_jax_kernel_on_random_params(rows):
+    tree = mlp_tree(rows, hidden=256, seed=2)
+    x = rows[:256]
+    ref = _jax_kernel(tree, x, tile=256)
+    p, z = _port(tree, x)
+    assert 0.01 < np.median(p) < 0.99
+    np.testing.assert_allclose(p, ref, rtol=0, atol=1e-5)
+    _assert_logits_close(z, ref)
+
+
+def test_plain_version_matches_jax_kernel_on_checkpoint(rows):
+    tree = to_numpy(load_params())
+    x = rows[:256]
+    ref = _jax_kernel(tree, x, tile=256)
+    p, z = _port(tree, x)
+    np.testing.assert_allclose(p, ref, rtol=0, atol=1e-5)
+    _assert_logits_close(z, ref)
+
+
+def test_ragged_batch_matches_jax_kernel_on_padded_batch(rows):
+    tree = mlp_tree(rows, hidden=256, seed=3)
+    padded = np.zeros((128, 30), np.float32)
+    padded[:100] = rows[:100]
+    ref = _jax_kernel(tree, padded, tile=128)[:100]
+    p, _ = _port(tree, rows[:100])
+    assert p.shape == (100,)
+    np.testing.assert_allclose(p, ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("hidden", [8, 40, 272, 512])
+def test_unsupported_hidden_raises(rows, hidden):
+    tree = mlp_tree(rows, hidden=hidden, seed=4)
+    folded = fused_mlp.fold_for_kernel(from_jax_params(tree))
+    with pytest.raises(ValueError, match="multiple of 16"):
+        fused_mlp.pack_for_kernel(folded, "cpu")
+
+
+def test_fold_rejects_wrong_depth(rows):
+    tree = mlp_tree(rows, hidden=32, depth=2)
+    with pytest.raises(ValueError, match="3-layer"):
+        fused_mlp.fold_for_kernel(from_jax_params(tree))
+
+
+def test_pack_gives_kernel_types(rows):
+    kp = fused_mlp.pack_for_kernel(
+        fused_mlp.fold_for_kernel(from_jax_params(mlp_tree(rows, hidden=64))), "cpu")
+    want = {"w1": ((32, 64), torch.bfloat16), "b1": ((64,), torch.float32),
+            "w2": ((64, 64), torch.bfloat16), "b2": ((64,), torch.float32),
+            "w3": ((64,), torch.bfloat16), "b3": ((1,), torch.float32)}
+    assert {k: (tuple(v.shape), v.dtype) for k, v in kp.items()} == want
+    assert all(v.is_contiguous() for v in kp.values())
+
+
+def test_cpu_tensor_takes_plain_version_without_counting(rows):
+    kp = fused_mlp.pack_for_kernel(
+        fused_mlp.fold_for_kernel(from_jax_params(mlp_tree(rows, hidden=64))), "cpu")
+    x = torch.from_numpy(rows[:10]).to(torch.bfloat16)
+    before = fused_mlp.launches.value
+    p = fused_mlp.fused_mlp_score(kp, x)
+    assert fused_mlp.launches.value == before
+    torch.testing.assert_close(p, fused_mlp.fused_mlp_reference(kp, x)[0], rtol=0, atol=0)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fused_mlp.fused_mlp_score(kp, x.to("meta"))
+
+
+def test_launch_counter_loses_no_increment():
+    counter = fused_mlp.LaunchCounter()
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda: [counter.inc() for _ in range(5000)])
+                   for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert counter.value == 16 * 5000
+    counter.reset()
+    assert counter.value == 0

@@ -1,0 +1,34 @@
+"""Shared inputs for the PyTorch port's tests (tests/test_torch_*.py).
+
+Inputs are made with numpy from a seed and handed to both the JAX reference
+and the port, so the two see the same numbers.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+# the port's CPU tests run small matmuls: one intra-op thread keeps them
+# from oversubscribing the cores that parallel test workers share
+torch.set_num_threads(1)
+
+
+def mlp_tree(X: np.ndarray, hidden: int = 256, seed: int = 0,
+             depth: int = 3) -> dict:
+    """Seeded MLP params in the reference's pytree layout (numpy float32):
+    He-scaled weights, small random biases, the normalizer fitted to ``X``
+    so probabilities spread over (0, 1) instead of saturating."""
+    rng = np.random.default_rng(seed)
+    dims = [X.shape[1]] + [hidden] * (depth - 1) + [1]
+    layers = [
+        {"w": (rng.normal(size=(dims[i], dims[i + 1]))
+               * np.sqrt(2.0 / dims[i])).astype(np.float32),
+         "b": (0.1 * rng.normal(size=dims[i + 1])).astype(np.float32)}
+        for i in range(depth)
+    ]
+    return {
+        "norm": {"mu": X.mean(0).astype(np.float32),
+                 "sigma": X.std(0).astype(np.float32)},
+        "layers": layers,
+    }
