@@ -1,7 +1,9 @@
 """Model registry: name -> (init, apply), as ccfd_tpu/models/registry.py.
 
-The port serves ``mlp`` only so far; the other families of the reference
-(logreg, gbt, mlp_q8, seq) are queued in ROADMAP.md.
+The port serves ``mlp`` (bf16, kernel B1) and ``mlp_q8`` (int8, kernels
+B2 and B3; registered by ``ops/quant.py::register``, whose ``init``
+quantizes a seeded MLP). The other families of the reference (logreg, gbt,
+seq) are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -25,6 +27,10 @@ _REGISTRY: dict[str, ModelSpec] = {
 }
 
 
+def register_model(spec: ModelSpec) -> None:
+    _REGISTRY[spec.name] = spec
+
+
 def get_model(name: str) -> ModelSpec:
     try:
         return _REGISTRY[name]
@@ -32,3 +38,12 @@ def get_model(name: str) -> ModelSpec:
         raise KeyError(
             f"model {name!r} is not ported yet (the port serves "
             f"{sorted(_REGISTRY)}); see ROADMAP.md for the queue") from None
+
+
+def _register_builtin() -> None:
+    from ccfd_tpu_torch.ops import quant
+
+    quant.register()
+
+
+_register_builtin()

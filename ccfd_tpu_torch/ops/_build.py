@@ -7,8 +7,9 @@ with a plain C interface (no PyTorch headers, so a build takes seconds):
          -Xcompiler -fPIC -Xptxas -v -o build/ccfd_tpu_torch/<name>-<hash>.so
 
 The library name carries a hash of the source and the flags, so an edited
-source never loads a stale build. What ``-Xptxas -v`` printed (registers,
-shared memory, spills per kernel) is kept in ``ptxas_log``.
+source never loads a stale build. ``build`` starts one nvcc per source not
+built yet, all at once, and waits for them all. What ``-Xptxas -v`` printed
+(registers, shared memory, spills per kernel) is kept in ``ptxas_log``.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+SOURCES = ("fused_mlp", "fused_mlp_q8")  # every kernel library of the port
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -57,26 +59,42 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
+def build(names: "tuple[str, ...] | list[str]" = SOURCES) -> None:
+    """Compile each ``ops/csrc/<name>.cu`` not built yet, one nvcc each,
+    all started together. Raises ``RuntimeError`` with the compiler's
+    output when a build fails (after every nvcc has ended)."""
+    with _lock:
+        todo = [(n, _target(n)) for n in names if not _target(n).exists()]
+        if not todo:
+            return
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = nvcc_path()
+        procs = []
+        for name, target in todo:
+            tmp = target.with_suffix(f".{os.getpid()}.tmp")
+            proc = subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            procs.append((name, target, tmp, proc))
+        failed = []
+        for name, target, tmp, proc in procs:
+            out, _ = proc.communicate()
+            ptxas_log[name] = out
+            if proc.returncode != 0:
+                failed.append(f"{name}: nvcc exited {proc.returncode}\n{out}")
+            else:
+                os.replace(tmp, target)
+        if failed:
+            raise RuntimeError("kernel build failed: " + "\n".join(failed))
+
+
 def load(name: str) -> ctypes.CDLL:
     """Compile ``ops/csrc/<name>.cu`` (where not built yet) and load it.
 
     Raises ``RuntimeError`` with the compiler's output when the build
     fails."""
+    build([name])
     with _lock:
-        if name in _loaded:
-            return _loaded[name]
-        target = _target(name)
-        if not target.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = target.with_suffix(f".{os.getpid()}.tmp")
-            out = subprocess.run(
-                [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            ptxas_log[name] = out.stdout
-            if out.returncode != 0:
-                raise RuntimeError(
-                    f"kernel build failed: {name}: nvcc exited "
-                    f"{out.returncode}\n{out.stdout}")
-            os.replace(tmp, target)
-        _loaded[name] = ctypes.CDLL(str(target))
+        if name not in _loaded:
+            _loaded[name] = ctypes.CDLL(str(_target(name)))
         return _loaded[name]

@@ -23,39 +23,18 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 from typing import Any, Mapping
 
 import numpy as np
 import torch
 
+from ccfd_tpu_torch.ops.launches import LaunchCounter
+
 K_PAD = 32  # layer-1 depth: features zero-padded to two 16-deep MMA steps
 MAX_HIDDEN = 256  # W2 must fit in one block's shared memory
 INPUT_DTYPE = torch.bfloat16  # wire format for rows
 
-
-class LaunchCounter:
-    """Thread-safe count of kernel launches."""
-
-    def __init__(self) -> None:
-        self._lock = threading.Lock()
-        self._n = 0
-
-    def inc(self) -> None:
-        with self._lock:
-            self._n += 1
-
-    def reset(self) -> None:
-        with self._lock:
-            self._n = 0
-
-    @property
-    def value(self) -> int:
-        with self._lock:
-            return self._n
-
-
-launches = LaunchCounter()
+launches = LaunchCounter("fused_mlp_bf16")
 
 
 def check_hidden(hidden: int) -> None:

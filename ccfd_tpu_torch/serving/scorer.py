@@ -1,28 +1,38 @@
-"""Row scorer on the card: bucketed dispatch through kernel B1 and
-hot-swappable params. The port of ccfd_tpu/serving/scorer.py's ``Scorer``.
+"""Row scorer on the card: bucketed dispatch through kernels B1, B2 and B3
+and hot-swappable params. The port of ccfd_tpu/serving/scorer.py's
+``Scorer``.
 
 - **Fixed batch shapes.** Every request batch pads up to a configured
   bucket (CCFD_BATCH_SIZES), as in the reference, so each launch has one of
   a handful of shapes (the per-bucket dispatch counts read off that grid).
-- **The kernel path.** For ``mlp`` in bf16 every dispatch goes through
-  ``ops.fused_mlp.fused_mlp_score``: on the card that is the CUDA kernel,
-  on the CPU (``device="cpu"``, the tests) its plain PyTorch version. Rows
-  are cast to the bf16 wire on the host with torch (round to nearest even,
-  the same bits as the reference's ml_dtypes cast), written into a pinned
-  staging buffer taken per call, copied to the card with
-  ``non_blocking=True``, scored, and copied back into a pinned buffer.
-  Per-call buffers come from PyTorch's caching host allocator, which keeps
-  a block out of reuse until the copies that read it have finished, so the
-  batcher's concurrent workers never share one.
+- **The kernel paths.** The model picks the kernel module; on the card a
+  wrapper launches its CUDA kernel, on the CPU (``device="cpu"``, the
+  tests) it runs the kernel's plain PyTorch version.
+  - ``mlp`` in bf16: ``ops.fused_mlp`` (B1). Rows are cast to the bf16
+    wire on the host with torch (round to nearest even, the same bits as
+    the reference's ml_dtypes cast).
+  - ``mlp_q8``: ``ops.fused_mlp_q8``, always. On the default int8 wire
+    (``q8_wire="int8"``, CCFD_Q8_WIRE) each chunk is zero-padded to its
+    bucket, normalized and quantized on the host
+    (``prequantize_rows_numpy``, the model's own first requantization) and
+    ships as int8 rows plus one f32 scale per row, 34 B/row, through B3.
+    With ``q8_wire="f32"`` f32 rows go through B2.
+  Staged rows go into pinned buffers taken per call, are copied to the
+  card with ``non_blocking=True``, scored, and copied back into a pinned
+  buffer. Per-call buffers come from PyTorch's caching host allocator,
+  which keeps a block out of reuse until the copies that read it have
+  finished, so the batcher's concurrent workers never share one.
 - **Every request dispatches to the device.** The reference's host latency
   tier (small requests scored in numpy on accelerator backends), its
   dispatch deadline with host fallback, and its drop to the XLA graph on a
-  kernel error are not carried over: each of them would let a request skip
-  the kernel without a trace. A kernel that fails to build or launch fails
-  ``warmup`` and the request.
+  kernel error or on params the kernel does not take are not carried over:
+  each of them would let a request skip the kernel without a trace. A
+  kernel that fails to build or launch fails ``warmup`` and the request;
+  params a kernel does not take fail the constructor or ``swap_params``.
 - **Double-buffered params.** ``swap_params`` stages fresh device tensors
   (and refolds the kernel weights) before flipping the references under
-  the lock; an in-flight call keeps the tensors it snapshotted.
+  the lock; an in-flight call keeps the tensors it snapshotted. Params
+  that do not fold raise before the flip, and the old ones keep serving.
 """
 
 from __future__ import annotations
@@ -37,13 +47,14 @@ import torch
 from ccfd_tpu_torch.data.ccfd import NUM_FEATURES
 from ccfd_tpu_torch.device import resolve
 from ccfd_tpu_torch.models.registry import ModelSpec, get_model
-from ccfd_tpu_torch.ops import fused_mlp
+from ccfd_tpu_torch.ops import fused_mlp, fused_mlp_q8
 
 _DTYPES = {
     "float32": torch.float32,
     "bfloat16": torch.bfloat16,
     "float16": torch.float16,
 }
+_Q8_WIRES = ("int8", "f32")
 
 
 class Scorer:
@@ -56,55 +67,70 @@ class Scorer:
         num_features: int = NUM_FEATURES,
         seed: int = 0,
         device: "str | torch.device | None" = None,
+        q8_wire: str = "int8",
     ):
         self.device = resolve(device)
         self.spec: ModelSpec = get_model(model_name)
         self.num_features = num_features
         self.batch_sizes = tuple(sorted({int(b) for b in batch_sizes}))
         self.compute_dtype = _DTYPES.get(compute_dtype, torch.float32)
-        # the kernel is on whenever the model is the MLP in bf16, on every
-        # device: on the CPU its wrapper runs the plain version
-        self._use_kernel = (self.spec.name == "mlp"
-                            and self.compute_dtype == torch.bfloat16)
+        if q8_wire not in _Q8_WIRES:
+            raise ValueError(f"q8_wire must be one of {_Q8_WIRES}, not {q8_wire!r}")
+        # the kernel module, on every device (on the CPU a wrapper runs
+        # its plain version): B2/B3 for mlp_q8 always, B1 for the MLP in
+        # bf16; None serves the model's plain torch graph
+        self._q8 = self.spec.name == "mlp_q8"
+        self._kmod = fused_mlp_q8 if self._q8 else (
+            fused_mlp if self.spec.name == "mlp"
+            and self.compute_dtype == torch.bfloat16 else None)
+        self.int8_wire = self._q8 and q8_wire == "int8"
         if params is None:
             params = self.spec.init(torch.Generator().manual_seed(seed),
                                     num_features)
         self._lock = threading.Lock()
         # per-bucket dispatch tally for the executable inventory
         self._dispatch_counts: dict[int, int] = {}
-        self._params, self._kernel_params = self._stage(params)
+        self._live = self._stage(params)
 
     # -- params ------------------------------------------------------------
-    def _stage(self, params: Any) -> tuple[dict, dict | None]:
-        """Fresh device copies of ``params`` and, on the kernel path, the
-        folded kernel weights; committed before return. ``params`` may hold
-        tensors or numpy arrays."""
+    def _stage(self, params: Any) -> tuple[dict, dict | None, dict | None]:
+        """Fresh device copies of ``params`` and, on a kernel path, the
+        folded kernel weights and (int8 wire) the host normalizer the rows
+        are quantized with; committed before return. ``params`` may hold
+        tensors or numpy arrays. Raises ``ValueError`` for params the
+        kernel does not take."""
         def put(a: Any) -> torch.Tensor:
-            return torch.as_tensor(a).to(self.device, torch.float32, copy=True)
+            t = torch.as_tensor(a)
+            dtype = torch.float32 if t.is_floating_point() else t.dtype
+            return t.to(self.device, dtype, copy=True)
 
         staged = {
             "norm": {k: put(v) for k, v in params["norm"].items()},
             "layers": [{k: put(v) for k, v in layer.items()}
                        for layer in params["layers"]],
         }
-        kp = None
-        if self._use_kernel:
-            kp = fused_mlp.pack_for_kernel(fused_mlp.fold_for_kernel(staged),
-                                           self.device)
+        kp = host_norm = None
+        if self._kmod is not None:
+            folded = self._kmod.fold_for_kernel(staged)
+            kp = self._kmod.pack_for_kernel(folded, self.device)
+            if self.int8_wire:
+                # the SAME normalizer the kernel weights were folded with
+                host_norm = {k: folded[k].numpy() for k in ("mu", "sigma")}
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
-        return staged, kp
+        return staged, kp, host_norm
 
     @property
     def params(self) -> dict:
-        return self._params
+        return self._live[0]
 
     def swap_params(self, new_params: Any) -> None:
         """Publish new params without pausing serving: stage everything,
-        then flip the references under the lock."""
-        staged, kp = self._stage(new_params)
+        then flip the references under the lock. Params that do not fold
+        raise here, before the flip."""
+        live = self._stage(new_params)
         with self._lock:
-            self._params, self._kernel_params = staged, kp
+            self._live = live
 
     # -- inventory -----------------------------------------------------------
     def bucket(self, n: int) -> int:
@@ -115,7 +141,7 @@ class Scorer:
 
     @property
     def fused(self) -> bool:
-        return self._kernel_params is not None
+        return self._live[1] is not None
 
     def dispatch_total(self) -> int:
         with self._lock:
@@ -130,37 +156,52 @@ class Scorer:
             "model": self.spec.name,
             "batch_sizes": list(self.batch_sizes),
             "fused": self.fused,
+            "int8_wire": self.int8_wire,
             "device": str(self.device),
             "dispatches": {str(b): int(n) for b, n in sorted(counts.items())},
         }
 
     # -- dispatch ------------------------------------------------------------
-    def _launch(self, params: dict, kp: dict | None, chunk: np.ndarray,
-                b: int) -> tuple:
+    def _launch(self, live: tuple, chunk: np.ndarray, b: int) -> tuple:
         """Stage one chunk padded to bucket ``b``, score it, and queue the
         copy back; returns what ``_collect`` needs."""
+        params, kp, host_norm = live
         take = chunk.shape[0]
         pin = self.device.type == "cuda"
-        wire = fused_mlp.INPUT_DTYPE if kp is not None else torch.float32
-        xh = torch.empty((b, self.num_features), dtype=wire, pin_memory=pin)
-        xh[:take].copy_(torch.from_numpy(chunk))  # host cast to the wire
-        xh[take:].zero_()
-        xd = xh.to(self.device, non_blocking=True)
-        if kp is not None:
-            out = fused_mlp.fused_mlp_score(kp, xd)
+        if self.int8_wire:
+            # the rows are padded BEFORE the host quantizes them, as the
+            # reference does; padded rows quantize to zeros
+            padded = np.zeros((b, self.num_features), np.float32)
+            padded[:take] = chunk
+            q, s = fused_mlp_q8.prequantize_rows_numpy(host_norm, padded)
+            staging = tuple(torch.from_numpy(a).pin_memory() if pin else torch.from_numpy(a)
+                            for a in (q, s))
+            qd, sd = (t.to(self.device, non_blocking=True) for t in staging)
+            out = fused_mlp_q8.fused_mlp_q8_score_preq(kp, qd, sd)
         else:
-            out = self.spec.apply(params, xd, self.compute_dtype)
+            wire = self._kmod.INPUT_DTYPE if self._kmod is not None else torch.float32
+            xh = torch.empty((b, self.num_features), dtype=wire, pin_memory=pin)
+            xh[:take].copy_(torch.from_numpy(chunk))  # host cast to the wire
+            xh[take:].zero_()
+            staging = (xh,)
+            xd = xh.to(self.device, non_blocking=True)
+            if self._q8:
+                out = fused_mlp_q8.fused_mlp_q8_score(kp, xd)
+            elif kp is not None:
+                out = fused_mlp.fused_mlp_score(kp, xd)
+            else:
+                out = self.spec.apply(params, xd, self.compute_dtype)
         oh = torch.empty((b,), dtype=torch.float32, pin_memory=pin)
         oh.copy_(out, non_blocking=True)
         done = None
         if pin:
             done = torch.cuda.Event()
             done.record(torch.cuda.current_stream(self.device))
-        return xh, oh, take, done
+        return staging, oh, take, done
 
     @staticmethod
     def _collect(pending: tuple) -> np.ndarray:
-        _xh, oh, take, done = pending
+        _staging, oh, take, done = pending
         if done is not None:
             done.synchronize()
         return oh[:take].numpy().copy()
@@ -170,10 +211,10 @@ class Scorer:
         kernel (nvcc, first use) and raises if it does not build or
         launch."""
         with self._lock:
-            params, kp = self._params, self._kernel_params
+            live = self._live
         for b in self.batch_sizes:
             zeros = np.zeros((b, self.num_features), np.float32)
-            self._collect(self._launch(params, kp, zeros, b))
+            self._collect(self._launch(live, zeros, b))
 
     def score_pipelined(self, x: np.ndarray, depth: int = 2) -> np.ndarray:
         """Bulk scoring with ``depth`` dispatches in flight: the next
@@ -187,7 +228,9 @@ class Scorer:
             raise ValueError(
                 f"expected (n, {self.num_features}) rows, got {x.shape}")
         with self._lock:
-            params, kp = self._params, self._kernel_params
+            # one snapshot: a concurrent swap must not pair a new
+            # quantization grid with the old kernel weights
+            live = self._live
         largest = self.batch_sizes[-1]
         pending: deque = deque()
         chunks: list[np.ndarray] = []
@@ -197,7 +240,7 @@ class Scorer:
             b = self.bucket(take)
             with self._lock:  # batcher workers share this scorer
                 self._dispatch_counts[b] = self._dispatch_counts.get(b, 0) + 1
-            pending.append(self._launch(params, kp, x[start:start + take], b))
+            pending.append(self._launch(live, x[start:start + take], b))
             if len(pending) >= depth:
                 chunks.append(self._collect(pending.popleft()))
             start += take

@@ -31,7 +31,7 @@ import numpy as np
 from ccfd_tpu_torch.config import Config
 from ccfd_tpu_torch.data.ccfd import FEATURE_NAMES
 from ccfd_tpu_torch.metrics.prom import Registry
-from ccfd_tpu_torch.ops import fused_mlp
+from ccfd_tpu_torch.ops import fused_mlp, fused_mlp_q8
 from ccfd_tpu_torch.serving.batcher import DynamicBatcher
 from ccfd_tpu_torch.serving.scorer import Scorer
 from ccfd_tpu_torch.utils.fasthttp import FastHTTPServer
@@ -39,6 +39,9 @@ from ccfd_tpu_torch.utils.fasthttp import FastHTTPServer
 _AMOUNT_COL = FEATURE_NAMES.index("Amount")
 _V17_COL = FEATURE_NAMES.index("V17")
 _V10_COL = FEATURE_NAMES.index("V10")
+# every CUDA kernel of the port, by its gauge label: B1, B2, B3
+KERNEL_LAUNCHES = (fused_mlp.launches, fused_mlp_q8.launches,
+                   fused_mlp_q8.launches_preq)
 
 
 class PredictionServer:
@@ -162,8 +165,9 @@ class PredictionServer:
         if method == "GET":
             if path in ("/prometheus", "/metrics"):
                 self._c_requests.inc(labels={"code": "200"})
-                self._g_launches.set(fused_mlp.launches.value,
-                                     labels={"kernel": "fused_mlp_bf16"})
+                for counter in KERNEL_LAUNCHES:
+                    self._g_launches.set(counter.value,
+                                         labels={"kernel": counter.kernel})
                 return 200, "text/plain", self.registry.render().encode()
             if path in ("/health/status", "/health", "/healthz"):
                 return self._json(

@@ -1,24 +1,35 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (an H100).
 
-Drives the port's serving path on the card and holds its CUDA kernel
-against the kernel's plain PyTorch version:
+Drives the port's serving paths on the card and holds each CUDA kernel
+against its plain PyTorch version. The kernels: B1 ``fused_mlp_bf16``
+(model ``mlp``), B2 ``fused_mlp_q8`` (``mlp_q8`` on the f32 wire) and B3
+``fused_mlp_q8_preq`` (``mlp_q8`` on the default int8 wire).
 
   device   the card's name and count, and nvidia-smi's name and power limit
-  build    nvcc builds every kernel from ccfd_tpu_torch/ops/csrc (what
-           -Xptxas -v reports is printed)
-  parity   kernel vs plain version on the card, H=256, on the committed
-           checkpoint and on seeded random params, B in {1,16,100,1024,16384}
-  serve    the port's Seldon REST server on the card (the code path of
-           `python -m ccfd_tpu_torch serve`): POSTs of 1, 16, 300 and 5,000
-           surrogate rows, a concurrent burst, and 5,000 rows after
-           swap_params to seeded random params; each answer held against
-           the plain version in p and in the logit recovered from p; the
-           kernel's launches over this REST traffic alone must equal the
-           scorer's dispatches; then the per-layer split of a request and a
-           /prometheus scrape
-  timing   the kernel and its plain version at B=16 and B=16384 (CUDA
-           events over warm launches), beside the roofline bound
+  build    nvcc builds every kernel library from ccfd_tpu_torch/ops/csrc,
+           one nvcc per source, all at once (what -Xptxas -v reports is
+           printed)
+  parity   each kernel vs its plain version on the card, H=256, on the
+           committed checkpoint (quantized for B2/B3) and on seeded random
+           params, B in {1,16,100,1024,16384}; B3 also vs B2 on the same rows
+  serve    the port's Seldon REST server on the card, one path after the
+           other, each with every launch count set to 0 just before it and
+           read just after:
+           - bf16 (`python -m ccfd_tpu_torch serve`, kernel B1);
+           - int8 (`CCFD_MODEL=mlp_q8 ... serve`, kernel B3);
+           - f32 wire (`CCFD_MODEL=mlp_q8 CCFD_Q8_WIRE=f32 ... serve`, B2).
+           POSTs of 1, 16, 300 and 5,000 surrogate rows, a concurrent burst,
+           200 sequential 16-row POSTs (p50/p99), and 5,000 rows after
+           swap_params to seeded random params; each answer held against the
+           plain version in p and in the logit recovered from p; the path's
+           kernel launches must equal the scorer's dispatches and the other
+           kernels must not launch; then the per-layer split of a request
+           (JSON decode, host prequantize on the int8 wire, Scorer.score,
+           JSON reply) and a /prometheus scrape
+  timing   each kernel and its plain version at B=16 and B=16384 (CUDA
+           events over warm launches, and torch.profiler's device time by
+           the kernel's own name), beside the roofline bound
 
 Run from the repository root:  python3 chip_smoke.py
 It exits non-zero on any failure. On success its last two lines are a JSON
@@ -29,6 +40,7 @@ object describing each kernel and then
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -38,12 +50,45 @@ PHASES = ("device", "build", "parity", "serve", "timing")
 SEED = 7
 PARITY_BATCHES = (1, 16, 100, 1024, 16384)
 REST_ROWS = (1, 16, 300, 5000)
-TOL_P = 1e-3  # summation order differs, and a bf16 rounding of h may flip one ulp
-# a flipped bf16 rounding of one h element moves z by 2^-8 of that element's
-# term; the bar allows a few such flips relative to the logit's scale
-TOL_Z_REL = 1e-2
+TIMING_BATCHES = (16, 16384)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, NVIDIA data sheet
+INT8_OPS = 1979e12  # dense int8 tensor-core peak, NVIDIA data sheet
+# the CUDA cores: 132 SMs x 128 f32 lanes at the 1.98 GHz boost clock
+CUDA_CORE_INSTR_PER_S = 132 * 128 * 1.98e9
+# an IEEE f32 division (div.rn) is a reciprocal estimate plus Newton and
+# fix-up steps on the CUDA cores: taken as 10 instructions (an estimate)
+DIV_INSTR = 10
+
+
+KERNELS = {
+    "fused_mlp_bf16": {
+        "source": "ccfd_tpu_torch/ops/csrc/fused_mlp.cu",
+        "replaces": "ccfd_tpu/ops/fused_mlp.py:83",
+        # summation order differs, and a bf16 rounding of h may flip one
+        # ulp; a flipped rounding of one h element moves z by 2^-8 of its
+        # term, so z's bar allows a few flips relative to the logit's scale
+        "tol_p": 1e-3, "tol_z_rel": 1e-2,
+    },
+    "fused_mlp_q8": {
+        "source": "ccfd_tpu_torch/ops/csrc/fused_mlp_q8.cu",
+        "replaces": "ccfd_tpu/ops/fused_mlp_q8.py:124",
+        # the reference's own bar (tests/test_fused_q8.py:33); kernel and
+        # plain version round at the same points and sum integers exactly;
+        # z recovered from a float32 p carries ~6e-4 near p = 1 - 1e-4
+        "tol_p": 1e-5, "tol_z_rel": 1e-3,
+    },
+    "fused_mlp_q8_preq": {
+        "source": "ccfd_tpu_torch/ops/csrc/fused_mlp_q8.cu",
+        "replaces": "ccfd_tpu/ops/fused_mlp_q8.py:275",
+        "tol_p": 1e-5, "tol_z_rel": 1e-3,
+    },
+}
+TOL_B3_VS_B2 = 1e-6  # the reference's bar (tests/test_fused_q8.py:93)
+# the device kernel each wrapper launches, as torch.profiler names it
+DEVICE_NAMES = {"fused_mlp_bf16": "fused_mlp_bf16_kernel",
+                "fused_mlp_q8": "fused_mlp_q8_kernel",
+                "fused_mlp_q8_preq": "fused_mlp_q8_preq_kernel"}
 
 
 def log(phase: str, msg: str) -> None:
@@ -67,39 +112,65 @@ class Smoke:
         self.dev = torch.device("cuda:0")
         self.rows = kaggle_surrogate(n=20_000).X  # what the checkpoint saw
         self.card = ""
-        self.report: dict = {
-            "name": "fused_mlp_bf16", "route": "cuda",
-            "source": "ccfd_tpu_torch/ops/csrc/fused_mlp.cu",
-            "replaces": "ccfd_tpu/ops/fused_mlp.py:83",
-            "launches": None, "max_abs_err": None, "ms": None,
-            "plain_ms": None, "bound_ms": None, "bound_by": None,
-            "library_ms": None,
-        }
+        self.reports = {
+            name: {"name": name, "route": "cuda", "source": k["source"],
+                   "replaces": k["replaces"], "launches": None, "max_abs_err": None,
+                   "ms": None, "plain_ms": None, "bound_ms": None, "bound_by": None,
+                   "library_ms": None}
+            for name, k in KERNELS.items()}
 
     # -- helpers ---------------------------------------------------------
     def params(self, which: str) -> dict:
+        """The f32 MLP: the committed checkpoint, or seeded random params
+        whose probabilities spread over (0, 1)."""
         from ccfd_tpu_torch.models import mlp
         from ccfd_tpu_torch.params import load_params
 
         if which == "checkpoint":
             return load_params()
-        # seeded random params whose probabilities spread over (0, 1)
         g = self.torch.Generator().manual_seed(SEED)
         return mlp.set_normalizer(mlp.init(g, hidden=256),
                                   self.rows.mean(0), self.rows.std(0))
+
+    def q8_params(self, which: str) -> dict:
+        from ccfd_tpu_torch.ops import quant
+
+        return quant.quantize_mlp(self.params(which))
 
     def kernel_params(self, which: str) -> dict:
         from ccfd_tpu_torch.ops.fused_mlp import fold_for_kernel, pack_for_kernel
 
         return pack_for_kernel(fold_for_kernel(self.params(which)), self.dev)
 
-    def x_rows(self, b: int):
-        """The first ``b`` surrogate rows (b <= 20,000) as bf16 on the card."""
-        return self.torch.from_numpy(self.rows[:b]).to(self.torch.bfloat16).to(self.dev)
+    def q8_kernel_params(self, which: str) -> dict:
+        from ccfd_tpu_torch.ops.fused_mlp_q8 import fold_for_kernel, pack_for_kernel
 
-    def device_ms(self, fn, n: int = 50) -> float | None:
-        """Mean device time of the kernel per launch from a torch.profiler
-        trace, or None when the trace holds no device events for it."""
+        return pack_for_kernel(fold_for_kernel(self.q8_params(which)), self.dev)
+
+    def x_rows(self, b: int, dtype=None):
+        """The first ``b`` surrogate rows (b <= 20,000) on the card, bf16
+        unless ``dtype`` says otherwise."""
+        dtype = dtype or self.torch.bfloat16
+        return self.torch.from_numpy(self.rows[:b]).to(dtype).to(self.dev)
+
+    def preq_rows(self, kp: dict, x_np):
+        """B3's inputs: the host's int8 rows and scales, on the card."""
+        from ccfd_tpu_torch.ops.fused_mlp_q8 import prequantize_rows_numpy
+
+        host = {k: kp[k].cpu() for k in ("mu", "sigma")}
+        q, s = prequantize_rows_numpy(host, x_np)
+        return (self.torch.from_numpy(q).to(self.dev),
+                self.torch.from_numpy(s).to(self.dev))
+
+    def counters(self) -> dict:
+        from ccfd_tpu_torch.serving.server import KERNEL_LAUNCHES
+
+        return {c.kernel: c for c in KERNEL_LAUNCHES}
+
+    def device_ms(self, fn, kernel: str, n: int = 50) -> float | None:
+        """Mean device time per launch of the device kernel named
+        ``kernel`` from a torch.profiler trace, or None when the trace
+        holds no device events for it."""
         from torch.profiler import ProfilerActivity, profile
 
         torch = self.torch
@@ -110,12 +181,32 @@ class Smoke:
                 fn()
             torch.cuda.synchronize()
         for ev in prof.key_averages():
-            if "fused_mlp_bf16_kernel" in ev.key and ev.count:
+            if kernel in ev.key and ev.count:
                 total = getattr(ev, "device_time_total", None)
                 if total is None:
                     total = getattr(ev, "cuda_time_total", 0.0)
                 return total / ev.count / 1e3 if total else None
         return None
+
+    def compare(self, name: str, what: str, p, z, p_ref, z_ref) -> float:
+        """Hold one kernel output against its plain version; returns max|dp|."""
+        torch = self.torch
+        tol_p, tol_z = KERNELS[name]["tol_p"], KERNELS[name]["tol_z_rel"]
+        dp = (p - p_ref).abs().max().item()
+        dz = (z - z_ref).abs().max().item()
+        zscale = max(1.0, z_ref.abs().max().item())
+        flips = int(((p >= 0.5) != (p_ref >= 0.5)).sum().item())
+        spread = (p_ref.min().item(), p_ref.median().item(), p_ref.max().item())
+        log("parity", f"{name} {what}: max|dp|={dp:.3e} max|dz|={dz:.3e} "
+            f"flips@0.5={flips} p[min,med,max]=({spread[0]:.3e},"
+            f"{spread[1]:.3e},{spread[2]:.3e})")
+        if not (torch.isfinite(p).all() and torch.isfinite(z).all()):
+            raise AssertionError(f"non-finite {name} output ({what})")
+        if dp > tol_p or dz > tol_z * zscale or flips:
+            raise AssertionError(
+                f"{name} disagrees with its plain version ({what}): |dp|={dp} "
+                f"(tol {tol_p}), |dz|={dz} (tol {tol_z * zscale}), flips={flips}")
+        return dp
 
     # -- phases ----------------------------------------------------------
     def device(self) -> None:
@@ -130,56 +221,97 @@ class Smoke:
         from ccfd_tpu_torch.ops import _build
 
         t0 = time.perf_counter()
-        _build.load("fused_mlp")
-        log("build", f"fused_mlp built and loaded in {time.perf_counter() - t0:.3f} s")
-        for line in _build.ptxas_log.get("fused_mlp", "").splitlines():
-            if line.strip():
-                log("build", f"ptxas: {line.strip()}")
+        _build.build(_build.SOURCES)
+        for name in _build.SOURCES:
+            _build.load(name)
+        log("build", f"{', '.join(_build.SOURCES)} built in parallel and loaded "
+            f"in {time.perf_counter() - t0:.3f} s")
+        for name in _build.SOURCES:
+            for line in _build.ptxas_log.get(name, "").splitlines():
+                if line.strip():
+                    log("build", f"{name} ptxas: {line.strip()}")
 
     def parity(self) -> None:
+        from ccfd_tpu_torch.ops import fused_mlp_q8 as q8
         from ccfd_tpu_torch.ops.fused_mlp import fused_mlp_reference, fused_mlp_score
 
         torch = self.torch
-        worst = 0.0
+        worst = dict.fromkeys(KERNELS, 0.0)
+        worst_b3_b2 = 0.0
         for which in ("checkpoint", "random"):
             kp = self.kernel_params(which)
+            kq = self.q8_kernel_params(which)
             for b in PARITY_BATCHES:
                 x = self.x_rows(b)
                 p, z = fused_mlp_score(kp, x, with_logits=True)
                 p_ref, z_ref = fused_mlp_reference(kp, x)
                 torch.cuda.synchronize()
-                dp = (p - p_ref).abs().max().item()
-                dz = (z - z_ref).abs().max().item()
-                zscale = max(1.0, z_ref.abs().max().item())
-                flips = int(((p >= 0.5) != (p_ref >= 0.5)).sum().item())
-                spread = (p_ref.min().item(), p_ref.median().item(), p_ref.max().item())
-                log("parity", f"{which} B={b}: max|dp|={dp:.3e} max|dz|={dz:.3e} "
-                    f"flips@0.5={flips} p[min,med,max]=({spread[0]:.3e},"
-                    f"{spread[1]:.3e},{spread[2]:.3e})")
-                if not (torch.isfinite(p).all() and torch.isfinite(z).all()):
-                    raise AssertionError(f"non-finite kernel output ({which}, B={b})")
-                if dp > TOL_P or dz > TOL_Z_REL * zscale or flips:
-                    raise AssertionError(
-                        f"kernel disagrees with its plain version ({which}, B={b}): "
-                        f"|dp|={dp} (tol {TOL_P}), |dz|={dz} "
-                        f"(tol {TOL_Z_REL * zscale}), flips={flips}")
-                worst = max(worst, dp)
-        self.report["max_abs_err"] = worst
-        log("parity", f"ok: max|dp|={worst:.3e} <= {TOL_P}")
+                dp = self.compare("fused_mlp_bf16", f"{which} B={b}", p, z, p_ref, z_ref)
+                worst["fused_mlp_bf16"] = max(worst["fused_mlp_bf16"], dp)
+
+                xf = self.x_rows(b, torch.float32)
+                q, s = self.preq_rows(kq, self.rows[:b])
+                p2, z2 = q8.fused_mlp_q8_score(kq, xf, with_logits=True)
+                p3, z3 = q8.fused_mlp_q8_score_preq(kq, q, s, with_logits=True)
+                r2 = q8.fused_mlp_q8_reference(kq, xf)
+                r3 = q8.fused_mlp_q8_preq_reference(kq, q, s)
+                torch.cuda.synchronize()
+                dp2 = self.compare("fused_mlp_q8", f"{which} B={b}", p2, z2, *r2)
+                dp3 = self.compare("fused_mlp_q8_preq", f"{which} B={b}", p3, z3, *r3)
+                d32 = (p3 - p2).abs().max().item()
+                log("parity", f"B3 vs B2 {which} B={b}: max|dp|={d32:.3e} "
+                    f"max|dz|={(z3 - z2).abs().max().item():.3e}")
+                if d32 > TOL_B3_VS_B2:
+                    raise AssertionError(f"B3 disagrees with B2 ({which}, B={b}): {d32}")
+                worst["fused_mlp_q8"] = max(worst["fused_mlp_q8"], dp2)
+                worst["fused_mlp_q8_preq"] = max(worst["fused_mlp_q8_preq"], dp3)
+                worst_b3_b2 = max(worst_b3_b2, d32)
+        for name, w in worst.items():
+            self.reports[name]["max_abs_err"] = w
+            log("parity", f"ok: {name} max|dp|={w:.3e} <= {KERNELS[name]['tol_p']}")
+        log("parity", f"ok: B3 vs B2 max|dp|={worst_b3_b2:.3e} <= {TOL_B3_VS_B2}")
 
     def serve(self) -> None:
+        from ccfd_tpu_torch.ops import fused_mlp, fused_mlp_q8
+
+        def bf16_plain(which: str):
+            kp = self.kernel_params(which)
+
+            def plain(x):
+                xd = self.torch.from_numpy(x).to(self.torch.bfloat16).to(self.dev)
+                return fused_mlp.fused_mlp_reference(kp, xd)
+            return plain
+
+        def q8_plain(which: str):
+            kq = self.q8_kernel_params(which)
+
+            def plain(x):
+                q, s = self.preq_rows(kq, x)
+                return fused_mlp_q8.fused_mlp_q8_preq_reference(kq, q, s)
+            return plain
+
+        self.serve_path("fused_mlp_bf16", {}, bf16_plain, self.params("random"))
+        self.serve_path("fused_mlp_q8_preq", {"CCFD_MODEL": "mlp_q8"}, q8_plain,
+                        self.q8_params("random"))
+        self.serve_path("fused_mlp_q8", {"CCFD_MODEL": "mlp_q8", "CCFD_Q8_WIRE": "f32"},
+                        q8_plain, self.q8_params("random"))
+
+    def serve_path(self, kernel: str, env: dict, plain_of, swap_to: dict) -> None:
+        """One serving path over REST: ``build_server`` with the config
+        ``env`` gives (the code path of ``serve`` under that environment),
+        every request held against the plain version ``plain_of(which)``,
+        and the path's kernel launches held against the dispatches."""
         import http.client
 
         import numpy as np
 
         from ccfd_tpu_torch.cli import build_server
         from ccfd_tpu_torch.config import Config
-        from ccfd_tpu_torch.ops import fused_mlp
+        from ccfd_tpu_torch.ops.fused_mlp_q8 import fold_for_kernel, prequantize_rows_numpy
 
-        torch = self.torch
-        # the plain version's weights: the checkpoint the server loads, and
-        # the random params swapped in for the last REST check
-        kps = {w: self.kernel_params(w) for w in ("checkpoint", "random")}
+        tol_p, tol_z_rel = KERNELS[kernel]["tol_p"], KERNELS[kernel]["tol_z_rel"]
+        plains = {w: plain_of(w) for w in ("checkpoint", "random")}
+        tag = f"serve {kernel}"
 
         def post(conn, x: np.ndarray) -> tuple[np.ndarray, float]:
             body = json.dumps({"data": {"names": [], "ndarray": x.tolist()}})
@@ -202,41 +334,44 @@ class Smoke:
         def check(x: np.ndarray, p: np.ndarray, what: str,
                   which: str = "checkpoint") -> tuple[float, float, int]:
             """max |dp| and max |dz| against the plain version. The checkpoint
-            saturates the sigmoid (median p ~ 3.5e-5), so |dp| alone says
+            saturates the sigmoid (median p ~ 3e-5), so |dp| alone says
             little: the logit is recovered from p wherever p is not
             saturated (float32 p holds log(p/(1-p)) to ~1e-3 there)."""
-            xd = torch.from_numpy(x).to(torch.bfloat16).to(self.dev)
-            p_ref, z_ref = (t.double().cpu().numpy()
-                            for t in fused_mlp.fused_mlp_reference(kps[which], xd))
+            p_ref, z_ref = (t.double().cpu().numpy() for t in plains[which](x))
             dp = float(np.abs(p - p_ref).max())
             live = (p_ref > 1e-6) & (p_ref < 1 - 1e-4) & (p > 0) & (p < 1)
             z = np.log(p[live]) - np.log1p(-p[live])
             dz = float(np.abs(z - z_ref[live]).max()) if live.any() else 0.0
-            tol_z = TOL_Z_REL * max(1.0, float(np.abs(z_ref).max()))
-            if not np.isfinite(p).all() or dp > TOL_P or dz > tol_z:
+            tol_z = tol_z_rel * max(1.0, float(np.abs(z_ref).max()))
+            if not np.isfinite(p).all() or dp > tol_p or dz > tol_z:
                 raise AssertionError(
-                    f"{what}: |dp|={dp} (tol {TOL_P}), |dz|={dz} (tol {tol_z}) "
+                    f"{what}: |dp|={dp} (tol {tol_p}), |dz|={dz} (tol {tol_z}) "
                     f"over {int(live.sum())} unsaturated rows, vs plain")
             return dp, dz, int(live.sum())
 
-        cfg = Config.from_env()  # the defaults: mlp, bf16, buckets 16..16384
+        cfg = Config.from_env({**os.environ, **env})  # what `serve` reads
         t0 = time.perf_counter()
         srv = build_server(cfg, device="cuda")  # what `serve` runs
         scorer = srv.scorer
-        if not scorer.fused:
-            raise AssertionError("the scorer is not on the kernel path")
-        log("serve", f"server built and warmed ({len(scorer.batch_sizes)} buckets) "
-            f"in {time.perf_counter() - t0:.3f} s")
+        grid = scorer.executable_grid()
+        if not scorer.fused or grid["int8_wire"] != (kernel == "fused_mlp_q8_preq"):
+            raise AssertionError(f"the scorer is not on the {kernel} path: {grid}")
+        log(tag, f"{' '.join(f'{k}={v}' for k, v in env.items()) or 'default env'}: "
+            f"model {grid['model']}, int8_wire {grid['int8_wire']}, server built and "
+            f"warmed ({len(scorer.batch_sizes)} buckets) in "
+            f"{time.perf_counter() - t0:.3f} s")
+        counters = self.counters()
         port = srv.start("127.0.0.1", 0)
         try:
-            fused_mlp.launches.reset()
+            for c in counters.values():
+                c.reset()
             d0 = scorer.dispatch_total()
             conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
             for n in REST_ROWS:
                 x = self.rows[:n]
                 p, dt = post(conn, x)
                 dp, dz, live = check(x, p, f"POST {n} rows")
-                log("serve", f"POST {n} rows: {dt * 1e3:.3f} ms, vs plain max|dp| "
+                log(tag, f"POST {n} rows: {dt * 1e3:.3f} ms, vs plain max|dp| "
                     f"{dp:.3e}, max|dz| {dz:.3e} over {live} unsaturated rows")
             # concurrent clients: the batcher's workers score at once
             errs: list = []
@@ -258,74 +393,93 @@ class Smoke:
                 t.join(timeout=120)
             if errs or any(t.is_alive() for t in threads):
                 raise AssertionError(f"concurrent clients failed: {errs[:3]}")
-            log("serve", "8 concurrent clients x 8 requests of 16 rows: all agree with plain")
+            log(tag, "8 concurrent clients x 8 requests of 16 rows: all agree with plain")
             # sequential latency of a small request, the REST front's common case
             lat = []
             for i in range(200):
                 x = self.rows[i * 16:(i + 1) * 16]
                 lat.append(post(conn, x)[1])
             lat_ms = np.sort(np.asarray(lat)) * 1e3
-            log("serve", f"200 sequential POSTs of 16 rows: p50 {lat_ms[99]:.3f} ms, "
+            log(tag, f"200 sequential POSTs of 16 rows: p50 {lat_ms[99]:.3f} ms, "
                 f"p99 {lat_ms[197]:.3f} ms, max {lat_ms[-1]:.3f} ms on {self.card}")
             # a publish, then REST answers whose probabilities spread over (0, 1)
-            scorer.swap_params(self.params("random"))
+            scorer.swap_params(swap_to)
             x = self.rows[:5000]
             p, dt = post(conn, x)
             dp, dz, live = check(x, p, "POST 5000 rows, random params", "random")
-            log("serve", f"swap_params to seeded random params, POST 5000 rows: "
+            log(tag, f"swap_params to seeded random params, POST 5000 rows: "
                 f"{dt * 1e3:.3f} ms, vs plain max|dp| {dp:.3e}, max|dz| {dz:.3e} "
                 f"over {live} unsaturated rows, p[min,med,max]=({p.min():.3e},"
                 f"{np.median(p):.3e},{p.max():.3e})")
-            # the counts of the REST traffic alone, read before the direct
-            # Scorer.score calls below
-            launched = fused_mlp.launches.value
+            # the counts of this path's REST traffic alone, read before the
+            # direct Scorer.score calls below
+            launched = {k: c.value for k, c in counters.items()}
             dispatched = scorer.dispatch_total() - d0
-            # where a request's time goes: the scorer alone (pad, host cast,
-            # H2D, kernel, D2H) against the JSON work of the REST front
+            # where a request's time goes: the scorer alone (pad, host cast
+            # or host prequantize, H2D, kernel, D2H) against the JSON work
             for n in (16, 5000):
                 x = self.rows[:n]
                 body = json.dumps({"data": {"ndarray": x.tolist()}}).encode()
-                t_score, t_parse, t_reply = [], [], []
+                b = scorer.bucket(n)
+                norm = fold_for_kernel(scorer.params) if scorer.int8_wire else None
+                t_parse, t_preq, t_score, t_reply = [], [], [], []
                 for _ in range(30):
                     t1 = time.perf_counter()
                     rows = np.asarray(json.loads(body)["data"]["ndarray"], np.float32)
                     t2 = time.perf_counter()
                     p = scorer.score(rows)
                     t3 = time.perf_counter()
-                    json.dumps(srv._response_dict(np.asarray(p, np.float64), "mlp")).encode()
+                    json.dumps(srv._response_dict(np.asarray(p, np.float64),
+                                                  grid["model"])).encode()
                     t4 = time.perf_counter()
+                    if norm is not None:  # the part of score the int8 wire adds
+                        padded = np.zeros((b, rows.shape[1]), np.float32)
+                        padded[:n] = rows
+                        prequantize_rows_numpy(norm, padded)
+                    t5 = time.perf_counter()
                     t_parse.append(t2 - t1)
                     t_score.append(t3 - t2)
                     t_reply.append(t4 - t3)
+                    t_preq.append(t5 - t4)
                 med = {k: float(np.median(v)) * 1e3 for k, v in
-                       (("parse", t_parse), ("score", t_score), ("reply", t_reply))}
-                log("serve", f"{n} rows, median of 30: JSON decode {med['parse']:.3f} ms, "
-                    f"Scorer.score {med['score']:.3f} ms, JSON reply {med['reply']:.3f} ms "
-                    f"on {self.card}")
+                       (("parse", t_parse), ("preq", t_preq), ("score", t_score),
+                        ("reply", t_reply))}
+                wire = (f"{b * (rows.shape[1] + 4)} B of int8 rows + scales, of which host "
+                        f"prequantize (pad to {b} + normalize + quantize) "
+                        f"{med['preq']:.3f} ms" if norm is not None else
+                        f"{b * rows.shape[1] * (2 if kernel == 'fused_mlp_bf16' else 4)} "
+                        f"B of rows on the wire")
+                log(tag, f"{n} rows, median of 30: JSON decode {med['parse']:.3f} ms, "
+                    f"Scorer.score {med['score']:.3f} ms ({wire}), JSON reply "
+                    f"{med['reply']:.3f} ms on {self.card}")
             conn.request("GET", "/prometheus")
             resp = conn.getresponse()
             scrape = resp.read().decode()
             conn.close()
         finally:
             srv.stop()
-        for series in ('seldon_api_executor_client_requests_seconds_count{endpoint="/api/v0.1/predictions"}',
-                       "proba_1 ", 'ccfd_kernel_launches{kernel="fused_mlp_bf16"}'):
-            if resp.status != 200 or series not in scrape:
-                raise AssertionError(f"/prometheus lacks {series!r}")
-        log("serve", f"REST traffic: kernel launches {launched}, scorer dispatches "
+        series = ['seldon_api_executor_client_requests_seconds_count{endpoint="/api/v0.1/predictions"}',
+                  "proba_1 "] + [f'ccfd_kernel_launches{{kernel="{k}"}}' for k in KERNELS]
+        for s in series:
+            if resp.status != 200 or s not in scrape:
+                raise AssertionError(f"/prometheus lacks {s!r}")
+        log(tag, f"REST traffic: launches {launched}, scorer dispatches "
             f"{dispatched}; grid after the split timing "
             f"{scorer.executable_grid()['dispatches']}")
-        if launched <= 0 or launched != dispatched:
+        others = {k: v for k, v in launched.items() if k != kernel and v}
+        if launched[kernel] <= 0 or launched[kernel] != dispatched or others:
             raise AssertionError(
-                f"REST path did not go through the kernel: {launched} launches "
-                f"for {dispatched} dispatches")
-        self.report["launches"] = launched
+                f"REST path did not go through {kernel} alone: {launched} "
+                f"launches for {dispatched} dispatches")
+        self.reports[kernel]["launches"] = launched[kernel]
 
     def timing(self) -> None:
+        from ccfd_tpu_torch.ops import fused_mlp_q8 as q8
         from ccfd_tpu_torch.ops.fused_mlp import fused_mlp_reference, fused_mlp_score
 
         torch = self.torch
         kp = self.kernel_params("checkpoint")
+        kq = self.q8_kernel_params("checkpoint")
         hidden, feats = kp["w2"].shape[0], self.rows.shape[1]
 
         def time_ms(fn, n: int) -> float:
@@ -341,31 +495,59 @@ class Smoke:
             end.synchronize()
             return start.elapsed_time(end) / n
 
-        for b in (16, 16384):
-            x = self.x_rows(b)
+        def nbytes(*ts) -> int:
+            return sum(t.numel() * t.element_size() for t in ts)
+
+        for b in TIMING_BATCHES:
             n = 1000 if b <= 1024 else 300
-            ms = time_ms(lambda: fused_mlp_score(kp, x), n)
-            plain_ms = time_ms(lambda: fused_mlp_reference(kp, x), n)
-            ms2 = time_ms(lambda: fused_mlp_score(kp, x), n)
+            x = self.x_rows(b)
+            xf = self.x_rows(b, torch.float32)
+            q, s = self.preq_rows(kq, self.rows[:b])
+            out = b * 4
             ops = 2.0 * b * (feats * hidden + hidden * hidden + hidden)
-            weight_bytes = sum(t.numel() * t.element_size() for t in kp.values())
-            nbytes = b * feats * 2 + weight_bytes + b * 4
-            t_ops, t_bytes = ops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-            bound_ms = max(t_ops, t_bytes)
-            bound_by = "operations" if t_ops >= t_bytes else "bytes"
-            kernel_ms = min(ms, ms2)
-            log("timing", f"B={b}: kernel {ms:.6f} / {ms2:.6f} ms, plain {plain_ms:.6f} ms, "
-                f"bound {bound_ms:.6f} ms ({bound_by}: {ops:.4e} op, {nbytes} B), "
-                f"roofline share {bound_ms / kernel_ms:.4f}, over {n} launches "
-                f"on {self.card}")
-            dev_ms = self.device_ms(lambda: fused_mlp_score(kp, x))
-            log("timing", f"B={b}: kernel device time (torch.profiler) "
-                + (f"{dev_ms:.6f} ms, roofline share {bound_ms / dev_ms:.4f}"
-                   if dev_ms else "not measured (no device events)")
-                + f" on {self.card}")
-            if b == 16384:
-                self.report.update(ms=kernel_ms, plain_ms=plain_ms,
-                                   bound_ms=bound_ms, bound_by=bound_by)
+            cases = {
+                # kernel: (launch, plain, bytes in + out, operations' peak)
+                "fused_mlp_bf16": (lambda: fused_mlp_score(kp, x),
+                                   lambda: fused_mlp_reference(kp, x),
+                                   nbytes(x, *kp.values()) + out, BF16_FLOPS),
+                "fused_mlp_q8": (lambda: q8.fused_mlp_q8_score(kq, xf),
+                                 lambda: q8.fused_mlp_q8_reference(kq, xf),
+                                 nbytes(xf, *kq.values()) + out, INT8_OPS),
+                "fused_mlp_q8_preq": (
+                    lambda: q8.fused_mlp_q8_score_preq(kq, q, s),
+                    lambda: q8.fused_mlp_q8_preq_reference(kq, q, s),
+                    nbytes(q, s, *(v for k, v in kq.items() if k not in ("mu", "sigma")))
+                    + out, INT8_OPS),
+            }
+            # IEEE divisions a row's requantizations take: B2 normalizes F
+            # features and quantizes F + 2H values, with one scale per layer
+            divs = {"fused_mlp_q8": feats + feats + 2 * hidden + 3,
+                    "fused_mlp_q8_preq": 2 * hidden + 2}
+            for name, (launch, plain, nbyte, peak) in cases.items():
+                ms = time_ms(launch, n)
+                plain_ms = time_ms(plain, n)
+                ms2 = time_ms(launch, n)
+                t_ops, t_bytes = ops / peak * 1e3, nbyte / HBM_BYTES_PER_S * 1e3
+                bound_ms = max(t_ops, t_bytes)
+                bound_by = "operations" if t_ops >= t_bytes else "bytes"
+                kernel_ms = min(ms, ms2)
+                log("timing", f"{name} B={b}: kernel {ms:.6f} / {ms2:.6f} ms, plain "
+                    f"{plain_ms:.6f} ms, bound {bound_ms:.6f} ms ({bound_by}: "
+                    f"{ops:.4e} op, {nbyte} B), roofline share "
+                    f"{bound_ms / kernel_ms:.4f}, over {n} launches on {self.card}")
+                if name in divs:
+                    div_ms = b * divs[name] * DIV_INSTR / CUDA_CORE_INSTR_PER_S * 1e3
+                    log("timing", f"{name} B={b}: {divs[name]} IEEE divisions a row, "
+                        f"at {DIV_INSTR} CUDA-core instructions each (an estimate): "
+                        f"{div_ms:.6f} ms, {div_ms / t_ops:.2f}x the tensor-core time")
+                dev_ms = self.device_ms(launch, DEVICE_NAMES[name])
+                log("timing", f"{name} B={b}: kernel device time (torch.profiler) "
+                    + (f"{dev_ms:.6f} ms, roofline share {bound_ms / dev_ms:.4f}"
+                       if dev_ms else "not measured (no device events)")
+                    + f" on {self.card}")
+                if b == TIMING_BATCHES[-1]:
+                    self.reports[name].update(ms=kernel_ms, plain_ms=plain_ms,
+                                              bound_ms=bound_ms, bound_by=bound_by)
 
 
 def main() -> int:
@@ -378,7 +560,7 @@ def main() -> int:
     smoke = Smoke()
     for p in PHASES:
         getattr(smoke, p)()
-    print(json.dumps({"kernels": [smoke.report]}), flush=True)
+    print(json.dumps({"kernels": list(smoke.reports.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

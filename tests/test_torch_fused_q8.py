@@ -1,0 +1,208 @@
+"""Kernels B2 and B3: their plain PyTorch versions vs the JAX Pallas kernels.
+
+The JAX kernels run with ``interpret=True`` on the CPU, tile 256, as
+tests/test_fused_q8.py runs them. The plain versions follow the rounding
+points of the served graph: true divisions and ``((acc * s) * scale) + b``
+without a fused multiply-add. Tolerances are the reference's own: 1e-5 in
+probability against the JAX kernels, 1e-6 for B3 against B2, and the host
+prequantization bit for bit. Interpret mode runs the kernel body under
+XLA's jit, whose rounding differs on about 1 row in 1,000 (see
+tests/test_torch_quant.py); those rows are held against the op-by-op JAX
+graph instead, and counted. The CUDA kernels themselves are held against
+the plain versions on the card (tests/test_torch_kernels_q8_cuda.py,
+chip_smoke.py).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ccfd_tpu.ops import fused_mlp_q8 as jax_fused
+from ccfd_tpu.ops import quant as jax_quant
+from ccfd_tpu_torch.data.surrogate import kaggle_surrogate
+from ccfd_tpu_torch.ops import fused_mlp_q8, quant
+from ccfd_tpu_torch.params import load_params, to_numpy
+from tests.torch_helpers import assert_matches_jax, mlp_tree
+
+TREES = ["seed0", "seed1", "seed2", "seed3", "checkpoint"]
+
+
+@pytest.fixture(scope="module")
+def rows():
+    return kaggle_surrogate(n=2048, seed=5).X
+
+
+def _tree(rows, which: str) -> dict:
+    if which == "checkpoint":
+        return to_numpy(load_params())
+    return mlp_tree(rows, hidden=256, seed=int(which[4:]))
+
+
+def _kps(tree):
+    """(JAX kernel params, the port's packed kernel params on the CPU, the
+    JAX int8 tree)."""
+    jqp = jax_quant.quantize_mlp(tree)
+    kp = fused_mlp_q8.pack_for_kernel(
+        fused_mlp_q8.fold_for_kernel(quant.quantize_mlp(tree)), "cpu")
+    return jax_fused.fold_for_kernel(jqp), kp, jqp
+
+
+def _eager_apply(jqp, x) -> np.ndarray:
+    with jax.disable_jit():
+        return np.asarray(jax_quant.apply(jqp, jnp.asarray(x)))
+
+
+def _jax_b2(jkp, x, tile=256):
+    return np.asarray(jax_fused.fused_mlp_q8_score(jkp, jnp.asarray(x), tile=tile,
+                                                    interpret=True))
+
+
+def _jax_b3(jkp, q, s, tile=256):
+    return np.asarray(jax_fused.fused_mlp_q8_score_preq(
+        jkp, jnp.asarray(q), jnp.asarray(s), tile=tile, interpret=True))
+
+
+@pytest.mark.parametrize("which", TREES)
+def test_plain_b2_and_b3_match_jax_kernels(rows, which):
+    jkp, kp, jqp = _kps(_tree(rows, which))
+    x = rows[:512]
+    eager = _eager_apply(jqp, x)
+    p2, z2 = fused_mlp_q8.fused_mlp_q8_score(kp, torch.from_numpy(x), with_logits=True)
+    assert p2.shape == (512,) and p2.dtype == torch.float32
+    assert_matches_jax(p2.numpy(), eager, _jax_b2(jkp, x))
+    with jax.disable_jit():
+        z_eager = np.asarray(jax_quant.logits(jqp, jnp.asarray(x)))
+    np.testing.assert_allclose(z2.numpy(), z_eager, rtol=0, atol=1e-5)
+
+    q, s = fused_mlp_q8.prequantize_rows_numpy(kp, x)
+    p3, z3 = fused_mlp_q8.fused_mlp_q8_score_preq(
+        kp, torch.from_numpy(q), torch.from_numpy(s), with_logits=True)
+    assert_matches_jax(p3.numpy(), eager, _jax_b3(jkp, q, s))
+    torch.testing.assert_close(p3, p2, rtol=0, atol=1e-6)
+    torch.testing.assert_close(z3, z2, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("which", ["seed1", "checkpoint"])
+def test_prequantize_equals_reference_bit_for_bit(rows, which):
+    jkp, kp, _ = _kps(_tree(rows, which))
+    q, s = fused_mlp_q8.prequantize_rows_numpy(kp, rows)
+    rq, rs = jax_fused.prequantize_rows_numpy(jkp, rows)
+    assert q.dtype == np.int8 and q.shape == (2048, 30) and s.shape == (2048, 1)
+    assert q.tobytes() == rq.tobytes() and s.tobytes() == rs.tobytes()
+
+
+def test_parity_survives_large_magnitude_normalizers(rows):
+    """The reference's regression (tests/test_fused_q8.py:36-55): with a
+    huge mu and a doubled sigma, a reciprocal multiply in place of the
+    division flips quantization steps (4e-3 in p there)."""
+    tree = mlp_tree(rows, hidden=256, seed=12)
+    tree["norm"]["mu"] = tree["norm"]["mu"] + 3.0
+    tree["norm"]["sigma"] = tree["norm"]["sigma"] * 2.0
+    jkp, kp, jqp = _kps(tree)
+    x = rows[:256]
+    eager = _eager_apply(jqp, x)
+    full = fused_mlp_q8.fused_mlp_q8_score(kp, torch.from_numpy(x)).numpy()
+    assert_matches_jax(full, eager, _jax_b2(jkp, x))
+    q, s = fused_mlp_q8.prequantize_rows_numpy(kp, x)
+    rq, rs = jax_fused.prequantize_rows_numpy(jkp, x)
+    assert q.tobytes() == rq.tobytes() and s.tobytes() == rs.tobytes()
+    preq = fused_mlp_q8.fused_mlp_q8_score_preq(
+        kp, torch.from_numpy(q), torch.from_numpy(s)).numpy()
+    assert_matches_jax(preq, eager, _jax_b3(jkp, q, s))
+
+
+def test_ragged_batch_matches_jax_kernel_on_padded_batch(rows):
+    jkp, kp, _ = _kps(_tree(rows, "seed3"))
+    padded = np.zeros((128, 30), np.float32)
+    padded[:100] = rows[:100]
+    ref = _jax_b2(jkp, padded, tile=128)[:100]
+    p = fused_mlp_q8.fused_mlp_q8_score(kp, torch.from_numpy(rows[:100])).numpy()
+    assert p.shape == (100,)
+    np.testing.assert_allclose(p, ref, rtol=0, atol=1e-5)
+
+
+def test_fold_lays_out_the_kernel_weights(rows):
+    tree = _tree(rows, "seed0")
+    qp = quant.quantize_mlp(tree)
+    got = fused_mlp_q8.fold_for_kernel(qp)
+    w1q, w2q = qp["layers"][0]["wq"], qp["layers"][1]["wq"]
+    assert tuple(got["w1t"].shape) == (256, 32) and got["w1t"].dtype == torch.int8
+    assert torch.equal(got["w1t"][:, :30], w1q.t())
+    assert torch.count_nonzero(got["w1t"][:, 30:]).item() == 0
+    assert torch.equal(got["w2t"], w2q.t())
+    assert torch.equal(got["w3"], qp["layers"][2]["wq"].reshape(256))
+    for i, (s, b) in enumerate((("s1", "b1"), ("s2", "b2"), ("s3", "b3"))):
+        assert torch.equal(got[s], qp["layers"][i]["scale"].reshape(-1))
+        assert torch.equal(got[b], qp["layers"][i]["b"].reshape(-1))
+    np.testing.assert_array_equal(got["sigma"].numpy(), tree["norm"]["sigma"])
+
+
+def _bad(rows, kind: str) -> dict:
+    if kind == "unquantized":
+        return to_numpy(load_params())
+    if kind == "depth2":
+        return quant.quantize_mlp(mlp_tree(rows, hidden=64, depth=2))
+    if kind == "features40":
+        wide = np.concatenate([rows, rows[:, :10]], axis=1)
+        return quant.quantize_mlp(mlp_tree(wide, hidden=64))
+    if kind == "last1152":  # the reference's case: a last layer over the bound
+        qp = quant.quantize_mlp(mlp_tree(rows, hidden=64))
+        qp["layers"][2] = {"wq": torch.ones((1152, 1), dtype=torch.int8),
+                           "scale": torch.ones(1), "b": torch.zeros(1)}
+        return qp
+    return quant.quantize_mlp(mlp_tree(rows, hidden=int(kind[6:])))
+
+
+@pytest.mark.parametrize("kind,match", [
+    ("unquantized", "3-layer quantized"),
+    ("depth2", "3-layer quantized"),
+    ("last1152", "1040"),
+    ("features40", "at most 32 features"),
+    ("hidden48", "multiple of 32"),
+    ("hidden16", "multiple of 32"),
+    ("hidden320", r"\[32, 288\]"),
+])
+def test_fold_refuses_what_the_kernels_do_not_take(rows, kind, match):
+    with pytest.raises(ValueError, match=match):
+        fused_mlp_q8.fold_for_kernel(_bad(rows, kind))
+
+
+def test_shared_memory_sets_the_widest_hidden_layer():
+    assert fused_mlp_q8.MAX_HIDDEN == 288
+    assert fused_mlp_q8.smem_bytes(288) <= fused_mlp_q8.SMEM_LIMIT
+    assert fused_mlp_q8.smem_bytes(320) > fused_mlp_q8.SMEM_LIMIT
+    assert fused_mlp_q8.smem_bytes(256) == 174_848  # the CUDA source's figure
+    fused_mlp_q8.fold_for_kernel(quant.quantize_mlp(
+        mlp_tree(np.ones((4, 30), np.float32), hidden=288)))
+
+
+def test_pack_gives_kernel_types(rows):
+    kp = fused_mlp_q8.pack_for_kernel(
+        fused_mlp_q8.fold_for_kernel(quant.quantize_mlp(mlp_tree(rows, hidden=64))), "cpu")
+    f32, i8 = torch.float32, torch.int8
+    want = {"mu": ((30,), f32), "sigma": ((30,), f32),
+            "w1t": ((64, 32), i8), "s1": ((64,), f32), "b1": ((64,), f32),
+            "w2t": ((64, 64), i8), "s2": ((64,), f32), "b2": ((64,), f32),
+            "w3": ((64,), i8), "s3": ((1,), f32), "b3": ((1,), f32)}
+    assert {k: (tuple(v.shape), v.dtype) for k, v in kp.items()} == want
+    assert all(v.is_contiguous() for v in kp.values())
+
+
+def test_cpu_tensors_take_plain_versions_without_counting(rows):
+    kp = fused_mlp_q8.pack_for_kernel(
+        fused_mlp_q8.fold_for_kernel(quant.quantize_mlp(mlp_tree(rows, hidden=64))), "cpu")
+    x = torch.from_numpy(rows[:10])
+    q, s = (torch.from_numpy(a) for a in fused_mlp_q8.prequantize_rows_numpy(kp, rows[:10]))
+    before = (fused_mlp_q8.launches.value, fused_mlp_q8.launches_preq.value)
+    p = fused_mlp_q8.fused_mlp_q8_score(kp, x)
+    p3 = fused_mlp_q8.fused_mlp_q8_score_preq(kp, q, s)
+    assert (fused_mlp_q8.launches.value, fused_mlp_q8.launches_preq.value) == before
+    torch.testing.assert_close(p, fused_mlp_q8.fused_mlp_q8_reference(kp, x)[0], rtol=0, atol=0)
+    torch.testing.assert_close(
+        p3, fused_mlp_q8.fused_mlp_q8_preq_reference(kp, q, s)[0], rtol=0, atol=0)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fused_mlp_q8.fused_mlp_q8_score(kp, x.to("meta"))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fused_mlp_q8.fused_mlp_q8_score_preq(kp, q.to("meta"), s.to("meta"))

@@ -37,6 +37,8 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert "ccfd_tpu_torch.serving.server" in res["mods"]
     assert "ccfd_tpu_torch.ops.fused_mlp" in res["mods"]
+    assert "ccfd_tpu_torch.ops.fused_mlp_q8" in res["mods"]
+    assert "ccfd_tpu_torch.ops.quant" in res["mods"]
     bad = [n for n in res["loaded"] if _forbidden(n)]
     assert bad == [], bad
     assert "torch" in res["loaded"]

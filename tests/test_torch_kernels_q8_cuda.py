@@ -1,0 +1,145 @@
+"""Kernels B2 and B3 on the card vs their plain PyTorch versions (marker
+``cuda``).
+
+Skips where there is no CUDA card; the skip is decided inside the fixture,
+never at import. On the card:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels_q8_cuda.py
+
+Tolerances are the reference's (tests/test_fused_q8.py): 1e-5 in
+probability against the plain version with zero flips at p = 0.5, 1e-6
+for B3 against B2. The kernels and the plain versions round at the same
+points (IEEE divisions, no fused multiply-add, exact integer sums), so
+they agree far inside those bars.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from ccfd_tpu_torch.data.surrogate import kaggle_surrogate
+from ccfd_tpu_torch.models import mlp
+from ccfd_tpu_torch.ops import fused_mlp_q8, quant
+from ccfd_tpu_torch.params import load_params
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    return torch.device("cuda:0")
+
+
+@pytest.fixture(scope="module")
+def rows():
+    return kaggle_surrogate(n=20_000).X
+
+
+def _qp(rows, hidden, seed):
+    g = torch.Generator().manual_seed(seed)
+    return quant.quantize_mlp(
+        mlp.set_normalizer(mlp.init(g, hidden=hidden), rows.mean(0), rows.std(0)))
+
+
+def _kp(qp, dev):
+    return fused_mlp_q8.pack_for_kernel(fused_mlp_q8.fold_for_kernel(qp), dev)
+
+
+def _both(kp, x_np, dev):
+    """B2 and B3 on the card, and their plain versions on the same inputs."""
+    x = torch.from_numpy(x_np).to(dev)
+    host_norm = {k: kp[k].cpu() for k in ("mu", "sigma")}
+    q_np, s_np = fused_mlp_q8.prequantize_rows_numpy(host_norm, x_np)
+    q, s = torch.from_numpy(q_np).to(dev), torch.from_numpy(s_np).to(dev)
+    before = (fused_mlp_q8.launches.value, fused_mlp_q8.launches_preq.value)
+    p2, z2 = fused_mlp_q8.fused_mlp_q8_score(kp, x, with_logits=True)
+    p3, z3 = fused_mlp_q8.fused_mlp_q8_score_preq(kp, q, s, with_logits=True)
+    assert (fused_mlp_q8.launches.value, fused_mlp_q8.launches_preq.value) == (
+        before[0] + 1, before[1] + 1)
+    r2 = fused_mlp_q8.fused_mlp_q8_reference(kp, x)
+    r3 = fused_mlp_q8.fused_mlp_q8_preq_reference(kp, q, s)
+    torch.cuda.synchronize()
+    return (p2, z2), (p3, z3), r2, r3
+
+
+@pytest.mark.parametrize("hidden", [32, 64, 256, 288])
+@pytest.mark.parametrize("batch", [1, 63, 64, 100, 4096])
+def test_kernels_match_plain_versions(dev, rows, hidden, batch):
+    kp = _kp(_qp(rows, hidden, seed=hidden), dev)
+    (p2, z2), (p3, z3), (r2p, r2z), (r3p, r3z) = _both(kp, rows[:batch], dev)
+    for p, z, rp, rz in ((p2, z2, r2p, r2z), (p3, z3, r3p, r3z)):
+        assert p.shape == (batch,) and torch.isfinite(p).all()
+        assert (p - rp).abs().max().item() <= 1e-5
+        assert (z - rz).abs().max().item() <= 1e-4 * max(1.0, rz.abs().max().item())
+        assert torch.equal(p >= 0.5, rp >= 0.5)
+    assert (p3 - p2).abs().max().item() <= 1e-6
+
+
+def test_kernels_on_the_committed_q8_model(dev, rows):
+    kp = _kp(quant.quantize_mlp(load_params()), dev)
+    (p2, z2), (p3, _z3), (r2p, r2z), _ = _both(kp, rows[:16384], dev)
+    assert (p2 - r2p).abs().max().item() <= 1e-5
+    assert (z2 - r2z).abs().max().item() <= 1e-4 * max(1.0, r2z.abs().max().item())
+    assert (p3 - p2).abs().max().item() <= 1e-6
+
+
+def test_large_magnitude_normalizers(dev, rows):
+    g = torch.Generator().manual_seed(12)
+    qp = quant.quantize_mlp(mlp.set_normalizer(
+        mlp.init(g), rows.mean(0) + 3.0, rows.std(0) * 2.0))
+    kp = _kp(qp, dev)
+    (p2, _), (p3, _), (r2p, _), (r3p, _) = _both(kp, rows[:4096], dev)
+    assert (p2 - r2p).abs().max().item() <= 1e-5
+    assert (p3 - r3p).abs().max().item() <= 1e-5
+
+
+def test_rows_are_independent_of_the_batch(dev, rows):
+    kp = _kp(quant.quantize_mlp(load_params()), dev)
+    x = torch.from_numpy(rows[:1000]).to(dev)
+    whole = fused_mlp_q8.fused_mlp_q8_score(kp, x)
+    part = fused_mlp_q8.fused_mlp_q8_score(kp, x[:77].contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(whole[:77], part)
+
+
+def test_wrappers_check_inputs(dev, rows):
+    kp = _kp(quant.quantize_mlp(load_params()), dev)
+    x = torch.from_numpy(rows[:8]).to(dev)
+    with pytest.raises(ValueError, match="float32"):
+        fused_mlp_q8.fused_mlp_q8_score(kp, x.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_mlp_q8.fused_mlp_q8_score(kp, x.t().contiguous().t())
+    with pytest.raises(ValueError, match="pack_for_kernel"):
+        fused_mlp_q8.fused_mlp_q8_score({**kp, "w2t": kp["w2t"].float()}, x)
+    with pytest.raises(ValueError, match="pack_for_kernel"):
+        fused_mlp_q8.fused_mlp_q8_score(_kp(quant.quantize_mlp(load_params()), "cpu"), x)
+    q = torch.zeros((8, 30), dtype=torch.int8, device=dev)
+    s = torch.ones((8, 1), device=dev)
+    with pytest.raises(ValueError, match="int8"):
+        fused_mlp_q8.fused_mlp_q8_score_preq(kp, q.float(), s)
+    with pytest.raises(ValueError, match="rows"):
+        fused_mlp_q8.fused_mlp_q8_score_preq(kp, q, s[:4])
+    with pytest.raises(ValueError, match="one device"):
+        fused_mlp_q8.fused_mlp_q8_score_preq(kp, q, s.cpu())
+    before = fused_mlp_q8.launches.value
+    assert fused_mlp_q8.fused_mlp_q8_score(kp, x[:0]).shape == (0,)
+    assert fused_mlp_q8.launches.value == before
+
+
+@pytest.mark.parametrize("wire", ["int8", "f32"])
+def test_scorer_on_the_card_goes_through_the_kernel(dev, rows, wire):
+    from ccfd_tpu_torch.serving.scorer import Scorer
+
+    qp = quant.quantize_mlp(load_params())
+    s = Scorer(model_name="mlp_q8", params=qp, device=dev, q8_wire=wire)
+    s.warmup()
+    counter = fused_mlp_q8.launches_preq if wire == "int8" else fused_mlp_q8.launches
+    other = fused_mlp_q8.launches if wire == "int8" else fused_mlp_q8.launches_preq
+    before, other_before = counter.value, other.value
+    got = s.score(rows[:5000])
+    assert counter.value - before == s.dispatch_total() == 1
+    assert other.value == other_before
+    cpu = Scorer(model_name="mlp_q8", params=qp, device="cpu", q8_wire=wire).score(rows[:5000])
+    np.testing.assert_allclose(got, cpu, rtol=0, atol=1e-5)

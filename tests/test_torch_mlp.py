@@ -76,6 +76,11 @@ def test_set_normalizer_guards_zero_std(rows):
 
 
 def test_registry_serves_mlp_only():
+    """The ported families only: ``mlp`` and (slice 2) ``mlp_q8``; the
+    others name the queue they wait in."""
+    from ccfd_tpu_torch.ops import quant
+
     assert get_model("mlp").apply is mlp.apply
+    assert get_model("mlp_q8").apply is quant.apply
     with pytest.raises(KeyError, match="ROADMAP.md"):
-        get_model("mlp_q8")
+        get_model("gbt")

@@ -32,3 +32,13 @@ def mlp_tree(X: np.ndarray, hidden: int = 256, seed: int = 0,
                  "sigma": X.std(0).astype(np.float32)},
         "layers": layers,
     }
+
+
+def assert_matches_jax(got: np.ndarray, eager: np.ndarray, jitted: np.ndarray) -> None:
+    """1e-5 against the op-by-op JAX graph on every row, and against the
+    jitted one on every row where the jitted graph agrees with its own
+    op-by-op evaluation (at most 1% of rows do not)."""
+    np.testing.assert_allclose(got, eager, rtol=0, atol=1e-5)
+    same = np.abs(jitted - eager) <= 1e-6
+    assert same.mean() >= 0.99
+    np.testing.assert_allclose(got[same], jitted[same], rtol=0, atol=1e-5)
