@@ -6,8 +6,9 @@ with a plain C interface (no PyTorch headers, so a build takes seconds):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o build/ccfd_tpu_torch/<name>-<hash>.so
 
-The library name carries a hash of the source and the flags, so an edited
-source never loads a stale build. ``build`` starts one nvcc per source not
+The library name carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source never loads a stale
+build. ``build`` starts one nvcc per source not
 built yet, all at once, and waits for them all. What ``-Xptxas -v`` printed
 (registers, shared memory, spills per kernel) is kept in ``ptxas_log``.
 """
@@ -55,6 +56,7 @@ def nvcc_path() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

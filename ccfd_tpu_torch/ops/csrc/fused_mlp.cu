@@ -4,221 +4,443 @@
 // (entry fused_mlp_score). It computes what that kernel computes, with the
 // same rounding points:
 //
-//   h1 = bf16_rn(relu(x @ W1 + b1))        x (B, F<=32) bf16, W1 (32, H) bf16
+//   h1 = bf16_rn(relu(x @ W1 + b1))        x (B, F<=128) bf16, W1 (F, H) bf16
 //   h2 = bf16_rn(relu(h1 @ W2 + b2))       W2 (H, H) bf16, f32 accumulation
-//   z  = sum_j f32(h2_j) * f32(w3_j) + b3  w3 (H) bf16, an f32 reduce
+//   z  = sum_j f32(h2_j) * f32(w3_j) + b3  w3 (H) bf16, an f32 reduce in a
+//                                          fixed column order
 //   p  = sigmoid(z)
 //
 // The standardizer is folded into W1/b1 on the host (ops/fused_mlp.py
-// fold_for_kernel), and W1's K is zero-padded to 32: the TPU padded to its
-// 128-lane width, here 32 is two 16-deep tensor-core steps.
+// fold_for_kernel). Any H up to 1,024 and any F up to 128 (the reference's
+// lane bound): the host zero-pads F to a multiple of 64 and H to a multiple
+// of 128, which is exact (padded weights, biases and w3 entries are 0, so a
+// padded column of h is relu(0) = 0 and adds 0 to z).
 //
 // What bounds it: at H = 256 a row costs 2 * (30*256 + 256*256 + 256) =
 // 146,432 operations against 60 bytes of input and 4 of output, about
 // 2,300 operations per byte, far above the H100's ~295 bf16 operations per
-// byte of HBM. So it is bound by the tensor cores, not the memory.
+// byte of HBM: the tensor cores set the bound (2.4 us at B = 16384). The
+// weights (160 KB at H = 256, 2.1 MB at H = 1,024) are read from L2, not
+// HBM, once per block or once per row tile.
 //
-// Design (a simple first version; wgmma and TMA are later work):
-// - one block of 8 warps scores a 64-row tile; the ragged last tile is
-//   masked, so any batch size is accepted;
-// - W1 (16 KB at H=256), W2 (128 KB) and the 64 x H bf16 activation tile
-//   (32 KB) sit in dynamic shared memory with the staging buffers and
-//   biases: 199,680 bytes of the 232,448 a block may have, so one block
-//   per SM;
-// - products are nvcuda::wmma bf16 16x16x16 with f32 accumulators; each
-//   warp owns output tiles in turn, stages its f32 accumulator in a
-//   per-warp 16x16 scratch, and applies bias, relu and the bf16 rounding
-//   there;
-// - layer 3 never materialises h2: each 16x16 tile of h2 reduces against
-//   w3 into a per-(row, column tile) partial, and the partials of a row are
-//   summed in a fixed order, so the result does not depend on scheduling;
-// - x rows are 60 bytes, so they are read element by element (no 16-byte
-//   vector loads); weights are read as 16-byte vectors.
+// Design:
+// - a persistent grid of min(tiles, SMs) blocks, each walking 64-row tiles;
+// - warp specialisation: one producer warp issues asynchronous bulk copies
+//   (cp.async.bulk, completing on mbarriers), two consumer warpgroups run
+//   wgmma. Nothing copies weights thread by thread;
+// - the host packs W1^T and W2^T once per publish into a stream of chunks
+//   (ops/fused_mlp.py pack_stream): each chunk is up to 256 output columns
+//   x 64 inputs (32 KB) in exactly the shared-memory layout wgmma reads,
+//   K-major with the 128-byte swizzle. The producer streams them through a
+//   ring of stages, one bulk copy each, in the order the consumers use them.
+//   Where the whole stream fits in the ring (H <= 256 at F <= 64), each
+//   block copies it once and keeps it resident: on later tiles the producer
+//   only re-arms the stages;
+// - the x tile (64 rows of F bf16, 128 * F contiguous bytes) comes in with
+//   one bulk copy; the ragged last tile copies what exists (rounded down to
+//   16 bytes, the rest read directly) and zeroes the rest. The consumers
+//   spread it into the swizzled, zero-padded A operand of layer 1;
+// - products are wgmma m64n128k16 bf16 -> f32: warpgroup w owns columns
+//   [128w, 128w + 128) of each 256-column part. Layer 1's epilogue adds b1,
+//   applies relu, rounds to bf16 and writes h1 into the swizzled layout
+//   layer 2's A operand reads (a 64 x H tile: 128 KB at H = 1,024). Layer
+//   2's epilogue rounds h2 to bf16, multiplies by w3 and sums each row's
+//   columns in a fixed order into a per-(row, part, warpgroup) partial; the
+//   partials are summed in a fixed order, so a row's result does not depend
+//   on the batch or on which block scored it;
+// - shared memory: the ring, h1, the two x tiles, the partials and the
+//   barriers; 232,448 bytes at most, set once per library load.
 //
-// Entry: ccfd_fused_mlp_bf16, a plain C function bound with ctypes. It
-// returns cudaGetLastError() after the launch; 1 (cudaErrorInvalidValue)
-// for a shape it does not take.
+// Entries: ccfd_fused_mlp_bf16 (the launch) and ccfd_fused_mlp_bf16_plan
+// (the layout the launch uses, which ops/fused_mlp.py mirrors), plain C
+// functions bound with ctypes. The launch returns cudaGetLastError(); 1
+// (cudaErrorInvalidValue) for a shape it does not take.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
+
+#include <mutex>
+
+#include "hopper.cuh"
 
 namespace {
 
-using namespace nvcuda;
-
 constexpr int kTileRows = 64;
-constexpr int kK1 = 32;  // layer-1 depth: features zero-padded to 32
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kMaxHidden = 256;
+constexpr int kKBlock = 64;                 // bf16 in one 128-byte swizzle row
+constexpr int kPart = 256;                  // output columns of one chunk
+constexpr int kHalf = 128;                  // columns one warpgroup owns in a part
+constexpr int kStageBytes = kPart * 128;    // one chunk: 256 rows x 128 bytes
+constexpr int kAtomBytes = kTileRows * 128;  // a 64-row x 64-input A block
+constexpr int kMaxFeatures = 128;
+constexpr int kMaxHidden = 1024;
+constexpr int kMaxParts = kMaxHidden / kPart;
+constexpr int kMaxStages = 8;
+constexpr int kConsumers = 256;  // two warpgroups
+constexpr int kConsumerWarps = kConsumers / 32;
+constexpr int kThreads = kConsumers + 32;  // and one producer warp
+constexpr size_t kSmemLimit = 232448;
 
-struct Smem {
-  // byte offsets into the dynamic shared memory, all multiples of 32
-  size_t w1, w2, x, h1, stage, partial, b1, b2, w3, total;
+struct Layout {
+  int k1p, hp, parts, k1b, hb, chunks, stages;
+  // byte offsets into the dynamic shared memory
+  size_t ring, h1, xa, xraw, partial, bars, total;
 };
 
-__host__ __device__ inline Smem smem_layout(int hidden) {
-  Smem s;
-  size_t off = 0;
-  s.w1 = off;      off += sizeof(__nv_bfloat16) * kK1 * hidden;
-  s.w2 = off;      off += sizeof(__nv_bfloat16) * hidden * hidden;
-  s.x = off;       off += sizeof(__nv_bfloat16) * kTileRows * kK1;
-  s.h1 = off;      off += sizeof(__nv_bfloat16) * kTileRows * hidden;
-  s.stage = off;   off += sizeof(float) * kWarps * 16 * 16;
-  s.partial = off; off += sizeof(float) * kTileRows * (hidden / 16);
-  s.b1 = off;      off += sizeof(float) * hidden;
-  s.b2 = off;      off += sizeof(float) * hidden;
-  s.w3 = off;      off += sizeof(float) * hidden;
-  s.total = off;
-  return s;
+__host__ __device__ inline size_t align128(size_t n) { return (n + 127) / 128 * 128; }
+
+__host__ __device__ inline Layout make_layout(int features, int hidden) {
+  Layout L;
+  L.k1p = (features + kKBlock - 1) / kKBlock * kKBlock;
+  L.hp = (hidden + kHalf - 1) / kHalf * kHalf;
+  L.parts = (L.hp + kPart - 1) / kPart;
+  L.k1b = L.k1p / kKBlock;
+  L.hb = L.hp / kKBlock;
+  L.chunks = L.parts * (L.k1b + L.hb);
+  const size_t h1 = static_cast<size_t>(kTileRows) * L.hp * 2;
+  const size_t xa = static_cast<size_t>(kTileRows) * L.k1p * 2;
+  const size_t xraw = align128(static_cast<size_t>(kTileRows) * features * 2);
+  const size_t partial = sizeof(float) * kTileRows * 2 * kMaxParts;
+  const size_t bars = 256;  // 2 * kMaxStages + 2 mbarriers
+  const size_t fixed = h1 + xa + xraw + partial + bars;
+  const int fit = fixed < kSmemLimit ? static_cast<int>((kSmemLimit - fixed) / kStageBytes) : 0;
+  L.stages = L.chunks < kMaxStages ? L.chunks : kMaxStages;
+  if (fit < L.stages) L.stages = fit;
+  // swizzled regions first, each a multiple of 1,024 bytes
+  L.ring = 0;
+  L.h1 = L.ring + static_cast<size_t>(L.stages) * kStageBytes;
+  L.xa = L.h1 + h1;
+  L.xraw = L.xa + xa;
+  L.partial = L.xraw + xraw;
+  L.bars = L.partial + partial;
+  L.total = L.bars + bars;
+  return L;
 }
 
-// 16-byte vector copy of n_bytes (a multiple of 16) from global to shared
-__device__ inline void copy16(void* dst, const void* src, size_t n_bytes) {
-  const uint4* s = reinterpret_cast<const uint4*>(src);
-  uint4* d = reinterpret_cast<uint4*>(dst);
-  for (size_t i = threadIdx.x; i < n_bytes / 16; i += kThreads) d[i] = s[i];
+// wgmma shared-memory descriptor: K-major, 128-byte swizzle, 8-row atoms
+// 1,024 bytes apart (SBO), leading offset unused (1), base offset 0 (every
+// operand block starts 1,024-aligned)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
 }
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep the compiler from moving reads or writes of the accumulators across
+// the asynchronous product's issue and wait
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 128 f32, the warpgroup's fragment) += A (64 x 16) * B (16 x 128),
+// both bf16 from shared memory through their descriptors
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// byte offset of element (row, k) in a swizzled 64-row operand whose K runs
+// in blocks of 64 (one 1,024-aligned block of rows x 128 bytes per 64 k)
+__device__ __forceinline__ uint32_t a_offset(int row, int k, int rows) {
+  return static_cast<uint32_t>((k / kKBlock) * rows * 128 + row * 128 +
+                               ((((k % kKBlock) / 8) ^ (row % 8)) * 16) + (k % 8) * 2);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
 fused_mlp_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                      const __nv_bfloat16* __restrict__ w1,
-                      const float* __restrict__ b1,
-                      const __nv_bfloat16* __restrict__ w2,
-                      const float* __restrict__ b2,
-                      const __nv_bfloat16* __restrict__ w3,
-                      const float* __restrict__ b3,
-                      float* __restrict__ proba,
-                      float* __restrict__ logits,
-                      int batch, int features, int hidden) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Smem L = smem_layout(hidden);
-  __nv_bfloat16* w1s = reinterpret_cast<__nv_bfloat16*>(smem + L.w1);
-  __nv_bfloat16* w2s = reinterpret_cast<__nv_bfloat16*>(smem + L.w2);
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem + L.x);
-  __nv_bfloat16* h1s = reinterpret_cast<__nv_bfloat16*>(smem + L.h1);
-  float* stage_all = reinterpret_cast<float*>(smem + L.stage);
+                      const unsigned char* __restrict__ wstream,
+                      const float* __restrict__ vec,  // (3, hp): b1, b2, w3
+                      const float* __restrict__ b3, float* __restrict__ proba,
+                      float* __restrict__ logits, int batch, int features, int hidden) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const Layout L = make_layout(features, hidden);
+  if (hopper::smem_addr(smem) % 1024 != 0) __trap();  // the swizzle needs it
+  unsigned char* ring = smem + L.ring;
+  unsigned char* h1 = smem + L.h1;
+  unsigned char* xa = smem + L.xa;
   float* partial = reinterpret_cast<float*>(smem + L.partial);
-  float* b1s = reinterpret_cast<float*>(smem + L.b1);
-  float* b2s = reinterpret_cast<float*>(smem + L.b2);
-  float* w3s = reinterpret_cast<float*>(smem + L.w3);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);
+  uint64_t* empty = full + kMaxStages;
+  uint64_t* xfull = empty + kMaxStages;
+  uint64_t* xempty = xfull + 1;
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int row0 = blockIdx.x * kTileRows;
-  const int col_tiles = hidden / 16;
-  float* stage = stage_all + warp * 256;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tiles = (batch + kTileRows - 1) / kTileRows;
+  const bool resident = L.stages == L.chunks;
 
-  // ---- stage weights and the x tile in shared memory ----
-  copy16(w1s, w1, sizeof(__nv_bfloat16) * kK1 * hidden);
-  copy16(w2s, w2, sizeof(__nv_bfloat16) * hidden * hidden);
-  for (int i = threadIdx.x; i < hidden; i += kThreads) {
-    b1s[i] = b1[i];
-    b2s[i] = b2[i];
-    w3s[i] = __bfloat162float(w3[i]);
-  }
-  for (int i = threadIdx.x; i < kTileRows * kK1; i += kThreads) {
-    const int r = i / kK1, k = i % kK1;
-    const int row = row0 + r;
-    xs[i] = (row < batch && k < features)
-                ? x[static_cast<size_t>(row) * features + k]
-                : __float2bfloat16_rn(0.0f);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L.stages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kConsumerWarps);
+    }
+    hopper::mbar_init(xfull, 1);
+    hopper::mbar_init(xempty, kConsumerWarps);
+    hopper::mbar_init_fence();
   }
   __syncthreads();
 
-  // ---- layer 1: h1 = bf16(relu(x @ W1 + b1)) ----
-  for (int t = warp; t < 4 * col_tiles; t += kWarps) {
-    const int rt = t / col_tiles, ct = t % col_tiles;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int k = 0; k < kK1; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-      wmma::load_matrix_sync(a, xs + rt * 16 * kK1 + k, kK1);
-      wmma::load_matrix_sync(b, w1s + k * hidden + ct * 16, hidden);
-      wmma::mma_sync(acc, a, b, acc);
+  if (warp == kConsumerWarps) {
+    // ---- producer: the x tile, then the weight chunks, tile after tile ----
+    if (lane != 0) return;
+    int stage = 0;
+    uint32_t phase = 0, xphase = 0;
+    for (int tile = blockIdx.x, it = 0; tile < tiles; tile += gridDim.x, ++it) {
+      const int row0 = tile * kTileRows;
+      const int rows = min(kTileRows, batch - row0);
+      const uint32_t xbytes = (static_cast<uint32_t>(rows) * features * 2) & ~15u;
+      hopper::mbar_wait(xempty, xphase ^ 1);
+      hopper::mbar_arrive_expect_tx(xfull, xbytes);
+      if (xbytes) {
+        hopper::bulk_g2s(smem + L.xraw, x + static_cast<size_t>(row0) * features, xbytes,
+                         xfull);
+      }
+      xphase ^= 1;
+      const unsigned char* src = wstream;
+      for (int layer = 0; layer < 2; ++layer) {
+        const int kblocks = layer == 0 ? L.k1b : L.hb;
+        for (int p = 0; p < L.parts; ++p) {
+          const uint32_t bytes = static_cast<uint32_t>(min(kPart, L.hp - p * kPart)) * 128;
+          for (int kb = 0; kb < kblocks; ++kb) {
+            hopper::mbar_wait(&empty[stage], phase ^ 1);
+            if (resident && it > 0) {
+              hopper::mbar_arrive(&full[stage]);  // the chunk is still there
+            } else {
+              hopper::mbar_arrive_expect_tx(&full[stage], bytes);
+              hopper::bulk_g2s(ring + static_cast<size_t>(stage) * kStageBytes, src, bytes,
+                               &full[stage]);
+            }
+            src += bytes;
+            if (++stage == L.stages) {
+              stage = 0;
+              phase ^= 1;
+            }
+          }
+        }
+      }
     }
-    wmma::store_matrix_sync(stage, acc, 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32) {
-      const int r = e / 16, c = ct * 16 + e % 16;
-      const float v = fmaxf(stage[e] + b1s[c], 0.0f);
-      h1s[(rt * 16 + r) * hidden + c] = __float2bfloat16_rn(v);
-    }
-    __syncwarp();
+    return;
   }
-  __syncthreads();
 
-  // ---- layer 2 + the layer-3 reduce, tile by tile ----
-  for (int t = warp; t < 4 * col_tiles; t += kWarps) {
-    const int rt = t / col_tiles, ct = t % col_tiles;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int k = 0; k < hidden; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-      wmma::load_matrix_sync(a, h1s + rt * 16 * hidden + k, hidden);
-      wmma::load_matrix_sync(b, w2s + k * hidden + ct * 16, hidden);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(stage, acc, 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32) {
-      const int c = ct * 16 + e % 16;
-      const float v = fmaxf(stage[e] + b2s[c], 0.0f);
-      stage[e] = __bfloat162float(__float2bfloat16_rn(v)) * w3s[c];
-    }
-    __syncwarp();
-    if (lane < 16) {
-      float s = 0.0f;
-      for (int c = 0; c < 16; ++c) s += stage[lane * 16 + c];
-      partial[(rt * 16 + lane) * col_tiles + ct] = s;
-    }
-    __syncwarp();
-  }
-  __syncthreads();
+  // ---- consumers: two warpgroups ----
+  const int tid = threadIdx.x;
+  const int wg = warp / 4;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = (warp % 4) * 16 + g, r1 = r0 + 8;  // this thread's fragment rows
+  const uint32_t ring_addr = hopper::smem_addr(ring);
+  const uint32_t h1_addr = hopper::smem_addr(h1);
+  const uint32_t xa_addr = hopper::smem_addr(xa);
+  const unsigned short* xg = reinterpret_cast<const unsigned short*>(x);
+  const unsigned short* xs = reinterpret_cast<const unsigned short*>(smem + L.xraw);
+  int stage = 0;
+  uint32_t phase = 0, xphase = 0;
+  float acc[64];
 
-  // ---- sum each row's partials in column order, + b3, sigmoid ----
-  if (threadIdx.x < kTileRows) {
-    const int row = row0 + threadIdx.x;
-    if (row < batch) {
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int row0 = tile * kTileRows;
+    const int rows = min(kTileRows, batch - row0);
+    const int xelems = static_cast<int>(((static_cast<uint32_t>(rows) * features * 2) & ~15u) / 2);
+
+    // the x tile into layer 1's swizzled A operand, zero-padded
+    hopper::mbar_wait(xfull, xphase);
+    xphase ^= 1;
+    const int groups = L.k1p / 8;
+    for (int i = tid; i < kTileRows * groups; i += kConsumers) {
+      const int r = i / groups, k0 = (i % groups) * 8;
+      uint32_t w[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t pair = 0;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int k = k0 + 2 * j + e;
+          uint32_t v = 0;
+          if (r < rows && k < features) {
+            const int idx = r * features + k;
+            v = idx < xelems ? xs[idx] : xg[static_cast<size_t>(row0) * features + idx];
+          }
+          pair |= v << (16 * e);
+        }
+        w[j] = pair;
+      }
+      *reinterpret_cast<uint4*>(xa + a_offset(r, k0, kTileRows)) =
+          make_uint4(w[0], w[1], w[2], w[3]);
+    }
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(xempty);
+    hopper::fence_proxy_async();
+    hopper::named_sync(kConsumers);
+
+    for (int layer = 0; layer < 2; ++layer) {
+      const int kblocks = layer == 0 ? L.k1b : L.hb;
+      const uint32_t a_addr = layer == 0 ? xa_addr : h1_addr;
+      for (int p = 0; p < L.parts; ++p) {
+        const bool mine = min(kPart, L.hp - p * kPart) > wg * kHalf;
+#pragma unroll
+        for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+        for (int kb = 0; kb < kblocks; ++kb) {
+          hopper::mbar_wait(&full[stage], phase);
+          if (mine) {
+            const uint32_t b_addr = ring_addr + stage * kStageBytes + wg * kHalf * 128;
+            fence_acc(acc);
+            wgmma_fence();
+#pragma unroll
+            for (int s = 0; s < kKBlock / 16; ++s) {
+              wgmma_m64n128k16(acc, sw128_desc(a_addr + kb * kAtomBytes + s * 32),
+                               sw128_desc(b_addr + s * 32));
+            }
+            wgmma_commit();
+            wgmma_wait_all();
+            fence_acc(acc);
+          }
+          __syncwarp();
+          if (lane == 0) hopper::mbar_arrive(&empty[stage]);
+          if (++stage == L.stages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+        if (!mine) continue;
+        const int col0 = p * kPart + wg * kHalf + 2 * t;
+        if (layer == 0) {
+          // h1 = bf16(relu(acc + b1)) into layer 2's A operand
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            const int col = col0 + j * 8;
+            const float2 b = __ldg(reinterpret_cast<const float2*>(vec + col));
+            const __nv_bfloat162 top = __floats2bfloat162_rn(fmaxf(acc[4 * j] + b.x, 0.0f),
+                                                             fmaxf(acc[4 * j + 1] + b.y, 0.0f));
+            const __nv_bfloat162 bot = __floats2bfloat162_rn(
+                fmaxf(acc[4 * j + 2] + b.x, 0.0f), fmaxf(acc[4 * j + 3] + b.y, 0.0f));
+            *reinterpret_cast<__nv_bfloat162*>(h1 + a_offset(r0, col, kTileRows)) = top;
+            *reinterpret_cast<__nv_bfloat162*>(h1 + a_offset(r1, col, kTileRows)) = bot;
+          }
+        } else {
+          // h2 = bf16(relu(acc + b2)); each row's sum of h2 * w3 over this
+          // warpgroup's columns, in column order, then over the 4 lanes
+          float s0 = 0.0f, s1 = 0.0f;
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            const int col = col0 + j * 8;
+            const float2 b = __ldg(reinterpret_cast<const float2*>(vec + L.hp + col));
+            const float2 w = __ldg(reinterpret_cast<const float2*>(vec + 2 * L.hp + col));
+            const float2 top = __bfloat1622float2(__floats2bfloat162_rn(
+                fmaxf(acc[4 * j] + b.x, 0.0f), fmaxf(acc[4 * j + 1] + b.y, 0.0f)));
+            const float2 bot = __bfloat1622float2(__floats2bfloat162_rn(
+                fmaxf(acc[4 * j + 2] + b.x, 0.0f), fmaxf(acc[4 * j + 3] + b.y, 0.0f)));
+            s0 = __fadd_rn(s0, __fmul_rn(top.x, w.x));
+            s0 = __fadd_rn(s0, __fmul_rn(top.y, w.y));
+            s1 = __fadd_rn(s1, __fmul_rn(bot.x, w.x));
+            s1 = __fadd_rn(s1, __fmul_rn(bot.y, w.y));
+          }
+          s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
+          s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
+          s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
+          s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
+          if (t == 0) {
+            partial[r0 * 2 * kMaxParts + 2 * p + wg] = s0;
+            partial[r1 * 2 * kMaxParts + 2 * p + wg] = s1;
+          }
+        }
+      }
+      if (layer == 0) hopper::fence_proxy_async();
+      hopper::named_sync(kConsumers);
+    }
+
+    // each row's partials in (part, warpgroup) order, + b3, sigmoid
+    if (tid < rows) {
       float z = 0.0f;
-      for (int ct = 0; ct < col_tiles; ++ct)
-        z += partial[threadIdx.x * col_tiles + ct];
+      for (int p = 0; p < L.parts; ++p) {
+        const int prow = min(kPart, L.hp - p * kPart);
+        for (int w = 0; w * kHalf < prow; ++w) z += partial[tid * 2 * kMaxParts + 2 * p + w];
+      }
       z += b3[0];
-      proba[row] = 1.0f / (1.0f + expf(-z));
-      if (logits != nullptr) logits[row] = z;
+      proba[row0 + tid] = 1.0f / (1.0f + expf(-z));
+      if (logits != nullptr) logits[row0 + tid] = z;
     }
   }
+}
+
+std::once_flag g_once;
+cudaError_t g_init_err = cudaSuccess;
+int g_sms = 0;
+
+// the shared-memory attribute and the SM count, once per library load
+cudaError_t init_once() {
+  std::call_once(g_once, [] {
+    g_init_err = cudaFuncSetAttribute(fused_mlp_bf16_kernel,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      static_cast<int>(kSmemLimit));
+    int dev = 0;
+    if (g_init_err == cudaSuccess) g_init_err = cudaGetDevice(&dev);
+    if (g_init_err == cudaSuccess)
+      g_init_err = cudaDeviceGetAttribute(&g_sms, cudaDevAttrMultiProcessorCount, dev);
+  });
+  return g_init_err;
+}
+
+bool takes(int features, int hidden) {
+  if (features <= 0 || features > kMaxFeatures || hidden <= 0 || hidden > kMaxHidden)
+    return false;
+  const Layout L = make_layout(features, hidden);
+  return L.stages >= 2 && L.total <= kSmemLimit;
 }
 
 }  // namespace
 
-extern "C" int ccfd_fused_mlp_bf16(const void* x, const void* w1, const void* b1,
-                                   const void* w2, const void* b2, const void* w3,
-                                   const void* b3, void* proba, void* logits,
-                                   int batch, int features, int hidden,
-                                   void* stream) {
-  if (batch <= 0 || features <= 0 || features > kK1 || hidden < 16 ||
-      hidden > kMaxHidden || hidden % 16 != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const Smem L = smem_layout(hidden);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_mlp_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(L.total));
+// out: k1p, hp, chunks, stages, resident, shared-memory bytes; returns 0, or
+// 1 for a shape the kernel does not take
+extern "C" int ccfd_fused_mlp_bf16_plan(int features, int hidden, int* out) {
+  if (!takes(features, hidden)) return static_cast<int>(cudaErrorInvalidValue);
+  const Layout L = make_layout(features, hidden);
+  out[0] = L.k1p;
+  out[1] = L.hp;
+  out[2] = L.chunks;
+  out[3] = L.stages;
+  out[4] = L.stages == L.chunks;
+  out[5] = static_cast<int>(L.total);
+  return 0;
+}
+
+extern "C" int ccfd_fused_mlp_bf16(const void* x, const void* wstream, const void* vec,
+                                   const void* b3, void* proba, void* logits, int batch,
+                                   int features, int hidden, void* stream) {
+  if (batch <= 0 || !takes(features, hidden)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = init_once();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (batch + kTileRows - 1) / kTileRows;
-  fused_mlp_bf16_kernel<<<blocks, kThreads, L.total,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(w1), static_cast<const float*>(b1),
-      static_cast<const __nv_bfloat16*>(w2), static_cast<const float*>(b2),
-      static_cast<const __nv_bfloat16*>(w3), static_cast<const float*>(b3),
-      static_cast<float*>(proba), static_cast<float*>(logits), batch, features,
-      hidden);
+  const Layout L = make_layout(features, hidden);
+  const int tiles = (batch + kTileRows - 1) / kTileRows;
+  const int blocks = tiles < g_sms ? tiles : g_sms;
+  fused_mlp_bf16_kernel<<<blocks, kThreads, L.total, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const unsigned char*>(wstream),
+      static_cast<const float*>(vec), static_cast<const float*>(b3),
+      static_cast<float*>(proba), static_cast<float*>(logits), batch, features, hidden);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,14 +4,14 @@
 //   B2  _kernel       (entry fused_mlp_q8_score)       -> fused_mlp_q8_kernel
 //   B3  _kernel_preq  (entry fused_mlp_q8_score_preq)  -> fused_mlp_q8_preq_kernel
 // Both compute the served int8 graph (ccfd_tpu/ops/quant.py logits) with
-// its rounding points:
+// its rounding points, in one device function q8_body<kPreq>:
 //
 //   B2 only:  h0 = x - mu, h = h0 / sigma             IEEE division by raw sigma
 //   before each layer, per row:
 //             s = max(amax(|h|) / 127, 1e-8)          IEEE division
 //             q = clamp(rint(h / s), -127, 127)       rint: half to even
 //   B3 starts here, with q and s of layer 1 computed on the host
-//   (ops/fused_mlp_q8.py prequantize_rows_numpy) and 34 bytes a row on the wire.
+//   (ops/fused_mlp_q8.py prequantize_rows_numpy) and F + 4 bytes a row on the wire.
 //   layers 1, 2:  acc = q @ Wq (int8 x int8 -> int32 on the tensor cores)
 //                 h = relu(((float)acc * s) * scale + b)
 //   layer 3:      z = ((float)(q . w3q) * s) * s3 + b3   the int32 dot is exact,
@@ -24,84 +24,154 @@
 // (the reference measured up to 4e-3 in p from one such ulp). The library is
 // built without --use_fast_math.
 //
+// Widths: F up to 128 (the reference's lane bound) and H up to 1,040 (its
+// bound for the integer-exact layer-3 sum). The host zero-pads F to a
+// multiple of 32 and H to a multiple of 64, which is exact: a padded input
+// is 0; a padded column has zero weights, scale and bias, so h = relu(0) = 0,
+// which never raises a row's max (h >= 0 after relu) and quantizes to 0, and
+// its w3 entry is 0.
+//
 // What bounds them: a row costs 2 * (30*256 + 256*256 + 256) = 146,944 int8
 // operations at H = 256, against 124 bytes of f32 rows and output (B2) or 38
 // bytes (B3). At B = 16384 that is 2.41e9 operations, 1.22 us at the H100's
 // 1,979 int8 TOP/s, against 0.63 us (B2) or 0.21 us (B3) of HBM traffic, so
-// the tensor cores set the bound there; at B = 16 the ~78 KB of weights do.
-// Each row also needs ~570 (B2) or ~515 (B3) IEEE divisions on the CUDA cores
-// for its requantizations, which chip_smoke.py's timing holds against the
-// tensor-core bound.
+// the tensor cores set the bound. Each row also needs ~575 (B2) or ~515 (B3)
+// requantizations (h / s, rounded) on the CUDA cores, an estimated 2.8 us at
+// B = 16384 as IEEE divisions, which chip_smoke.py's timing holds against
+// the measured time. A requantization here is one multiply by 1/s and a
+// round; the true division runs only where the product lies within 1e-4 of
+// a half-integer (quantize below), and gives the same integer bit for bit.
 //
-// Design (a simple first version; wgmma, TMA and persistent blocks are later
-// work):
-// - one block of 8 warps scores a 64-row tile; the ragged last tile is
-//   masked, so any batch size is accepted;
-// - W1^T (H x 32, K zero-padded to one 32-deep MMA step), W2^T (H x H), w3,
-//   the scales and biases, the int8 row tiles and the 64 x H f32 activation
-//   tile sit in dynamic shared memory: 174,848 bytes at H = 256; row strides
-//   are padded by 16 bytes (8 floats) so the fragment loads and the
-//   epilogue's stores hit distinct banks;
-// - a row's requantization needs its max over all H columns before any of
-//   its elements is quantized, so a block owns whole rows and keeps the
-//   tile's f32 activations in shared memory across the reduction: the
-//   epilogue of each product writes h and takes each row's max (h >= 0 after
-//   relu, so the float bits order like unsigned ints for atomicMax); layer
-//   1's normalized input is signed, so its max is taken over fabsf;
-// - products are mma.sync.m16n8k32 s8 x s8 -> s32: warp w owns the 16-row
-//   slab w % 4 and every other 32-column group, starting at group w / 4;
-// - layer 3 quantizes and dots each row against w3 in one pass, one warp per
-//   8 rows, with an exact integer warp sum.
+// Why mma.sync and not wgmma: the products are a small share of the work
+// next to the requantization passes, wgmma takes 64-row tiles only, and the
+// widest models need 32-row tiles (the f32 activation tile below); so
+// wgmma's rate buys nothing here yet.
 //
-// Entries: ccfd_fused_mlp_q8 (B2) and ccfd_fused_mlp_q8_preq (B3), plain C
-// functions bound with ctypes. Each returns cudaGetLastError() after the
-// launch; 1 (cudaErrorInvalidValue) for a shape it does not take.
+// Design:
+// - a persistent grid of min(tiles, SMs) blocks, each walking row tiles of
+//   R rows: 64 where shared memory allows (H <= ~600 at F = 30), else 32.
+//   A row's requantization needs its max over all H columns before
+//   any of its elements is quantized, so a block owns whole rows and keeps
+//   the tile's f32 activations (R x (H + 8) floats) in shared memory;
+// - warp specialisation: one producer warp issues asynchronous bulk copies
+//   (cp.async.bulk, completing on mbarriers), sixteen consumer warps
+//   compute (one block fills an SM's shared memory, so the block brings the
+//   warps that hide the passes' latencies). Nothing copies weights thread
+//   by thread;
+// - the host packs W1^T and W2^T (output-major, the tensor cores' "col"
+//   operand) once per publish into a stream of chunks (ops/fused_mlp_q8.py
+//   pack_stream), each in the exact shared-memory layout the fragment loads
+//   read, row strides padded by 16 bytes against bank conflicts: layer 1 as
+//   groups of 64 output rows x all of K, layer 2 as 64 output rows x a
+//   K-slice of up to 256. The producer streams them through a ring of
+//   17,408-byte stages in the order the consumers use them. Where the whole
+//   stream fits in the ring (H <= 256 at F = 30), each block copies it once
+//   and keeps it resident: on later tiles the producer only re-arms stages;
+// - the row tile (f32 rows for B2; int8 rows and scales for B3) comes in
+//   with bulk copies; the ragged last tile copies what exists (rounded down
+//   to 16 bytes, the rest read directly) and zeroes the rest;
+// - products are mma.sync.m16n8k32 s8 x s8 -> s32 on ldmatrix fragments:
+//   warp w owns the 16-row slab w % (R / 16) and an R / 4-column share of
+//   each 64-column group; each product's epilogue writes h and takes each
+//   row's max (the float's bits order like unsigned ints for atomicMax,
+//   h >= +0 after relu; layer 1's normalized input is signed, so its max is
+//   taken in the warp over fabsf);
+// - every requantization pass runs over all 512 consumer threads, two rows
+//   a warp and four columns a lane at a time; layer 3 quantizes and dots
+//   each row against w3 in one pass (__dp4a), with an exact integer warp
+//   sum. Rows past the batch in a ragged tile are skipped.
+//
+// Entries: ccfd_fused_mlp_q8 (B2), ccfd_fused_mlp_q8_preq (B3) and
+// ccfd_fused_mlp_q8_plan (the layout both use, which ops/fused_mlp_q8.py
+// mirrors), plain C functions bound with ctypes. The launches return
+// cudaGetLastError(); 1 (cudaErrorInvalidValue) for a shape they do not take.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kTileRows = 64;
-constexpr int kK1 = 32;        // layer-1 depth: features zero-padded to 32
-constexpr int kLd1 = kK1 + 16;  // padded row stride (bytes) of the layer-1 operands
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
+constexpr int kGroup = 64;        // output columns of one weight chunk row group
+constexpr int kSlice = 256;       // layer-2 K-slice of one chunk
+constexpr int kStageBytes = kGroup * (kSlice + 16);
+constexpr int kMaxFeatures = 128;
+constexpr int kMaxHidden = 1040;  // the reference's integer-exact layer-3 bound
+constexpr int kMaxStages = 8;
+constexpr int kConsumers = 512;
+constexpr int kConsumerWarps = kConsumers / 32;
+constexpr int kThreads = kConsumers + 32;  // and one producer warp
 constexpr size_t kSmemLimit = 232448;
 
-struct Smem {
-  // byte offsets into the dynamic shared memory, each aligned to 128
-  size_t w1t, w2t, hq, xq, hf, w3, vec, sx, amax, total;
-  int ldh;  // row stride (bytes) of the int8 layer-2 operands
-  int ldf;  // row stride (floats) of the f32 activation tile
+struct Layout {
+  int k1p, hp, ld1, ldh, ldf, groups, g1, c1, slices, chunks, rows, stages;
+  // byte offsets into the dynamic shared memory, each a multiple of 128
+  size_t ring, hf, hq, xq, xraw, sraw, sx, rcp, amax, bars, total;
 };
 
 __host__ __device__ inline size_t align128(size_t n) { return (n + 127) / 128 * 128; }
 
-__host__ __device__ inline Smem smem_layout(int hidden) {
-  Smem s;
-  s.ldh = hidden + 16;
-  s.ldf = hidden + 8;
+__host__ __device__ inline Layout layout_for_rows(int features, int hidden, int rows) {
+  Layout L;
+  L.k1p = (features + 31) / 32 * 32;
+  L.hp = (hidden + kGroup - 1) / kGroup * kGroup;
+  L.ld1 = L.k1p + 16;
+  L.ldh = L.hp + 16;
+  L.ldf = (L.hp > L.k1p ? L.hp : L.k1p) + 8;
+  L.groups = L.hp / kGroup;
+  L.g1 = kStageBytes / (kGroup * L.ld1);  // layer-1 groups a stage holds
+  if (L.g1 > L.groups) L.g1 = L.groups;
+  L.c1 = (L.groups + L.g1 - 1) / L.g1;
+  L.slices = (L.hp + kSlice - 1) / kSlice;
+  L.chunks = L.c1 + L.groups * L.slices;
+  L.rows = rows;
   size_t off = 0;
-  s.w1t = off;  off += align128(static_cast<size_t>(hidden) * kLd1);
-  s.w2t = off;  off += align128(static_cast<size_t>(hidden) * s.ldh);
-  s.hq = off;   off += align128(static_cast<size_t>(kTileRows) * s.ldh);
-  s.xq = off;   off += align128(static_cast<size_t>(kTileRows) * kLd1);
-  s.hf = off;   off += align128(sizeof(float) * kTileRows * s.ldf);
-  s.w3 = off;   off += align128(hidden);
-  s.vec = off;  off += align128(sizeof(float) * 4 * hidden);  // s1, b1, s2, b2
-  s.sx = off;   off += align128(sizeof(float) * kTileRows);
-  s.amax = off; off += align128(sizeof(unsigned) * kTileRows);
-  s.total = off;
-  return s;
+  const size_t hf = align128(sizeof(float) * rows * L.ldf);
+  const size_t hq = align128(static_cast<size_t>(rows) * L.ldh);
+  const size_t xq = align128(static_cast<size_t>(rows) * L.ld1);
+  const size_t xraw = align128(sizeof(float) * rows * features);
+  const size_t sraw = align128(sizeof(float) * rows);
+  const size_t fixed = hf + hq + xq + xraw + 4 * sraw + 256;
+  const int fit = fixed < kSmemLimit ? static_cast<int>((kSmemLimit - fixed) / kStageBytes) : 0;
+  L.stages = L.chunks < kMaxStages ? L.chunks : kMaxStages;
+  if (fit < L.stages) L.stages = fit;
+  L.ring = off;  off += static_cast<size_t>(L.stages) * kStageBytes;
+  L.hf = off;    off += hf;
+  L.hq = off;    off += hq;
+  L.xq = off;    off += xq;
+  L.xraw = off;  off += xraw;   // B2: f32 rows; B3: int8 rows
+  L.sraw = off;  off += sraw;   // B3: the rows' scales
+  L.sx = off;    off += sraw;
+  L.rcp = off;   off += sraw;
+  L.amax = off;  off += sraw;
+  L.bars = off;  off += 256;    // 2 * kMaxStages + 2 mbarriers
+  L.total = off;
+  return L;
 }
 
-__device__ inline unsigned ld32(const int8_t* p) {
-  return *reinterpret_cast<const unsigned*>(p);
+// the most rows (64 or 32) whose tile and a two-stage ring fit; 32 rows
+// take every width up to the bound
+__host__ __device__ inline Layout make_layout(int features, int hidden) {
+  Layout L = layout_for_rows(features, hidden, 64);
+  if (L.stages < 2) L = layout_for_rows(features, hidden, 32);
+  return L;
+}
+
+// four 8x8 matrices of 16-bit elements (8 rows x 16 bytes each) from shared
+// memory; lane l gives the address of row l % 8 of matrix l / 8, and
+// receives row l / 4, 4-byte word l % 4 of each matrix
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(hopper::smem_addr(row)));
 }
 
 // d += a (16x32, row-major) * b (32x8, col-major), int8 in, int32 sums
-__device__ inline void mma_s8(int (&d)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
+__device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4],
+                                       const unsigned (&b)[2]) {
   asm volatile(
       "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
@@ -109,280 +179,561 @@ __device__ inline void mma_s8(int (&d)[4], const unsigned (&a)[4], const unsigne
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-__device__ inline float row_scale(unsigned amax_bits) {
+__device__ __forceinline__ float row_scale(unsigned amax_bits) {
   return fmaxf(__fdiv_rn(__uint_as_float(amax_bits), 127.0f), 1e-8f);
 }
 
-__device__ inline int quantize(float h, float s) {
-  const float q = rintf(__fdiv_rn(h, s));
+// clamp(rint(h / s), -127, 127) with h / s the IEEE quotient, bit for bit,
+// for |h| <= 127 s (every element of the row whose scale s is): t = h * rcp
+// with rcp = 1/s rounded lies within 3 * 2^-24 * 127.01 < 2.3e-5 of the
+// rounded quotient, so where no half-integer is within 1e-4 of t both round
+// to the same integer; near one, the true division decides
+// t = h * rcp, rcp = 1/s rounded, lies within 3 * 2^-24 * 127.01 < 2.3e-5 of
+// the rounded quotient h / s wherever |h| <= 127 s (every element of the row
+// whose scale s is). Unless t lies within 1e-4 of a half-integer, both round
+// to the same integer; near one, the true division decides. So quantize()
+// is clamp(rint(h / s), -127, 127) with the IEEE quotient, bit for bit.
+__device__ __forceinline__ bool near_tie(float t, float q) {
+  return fabsf(__fsub_rn(t, q)) >= 0.5f - 1e-4f;  // q = rint(t): t - q is exact
+}
+
+__device__ __forceinline__ int clamp_q(float q) {
   return static_cast<int>(fminf(fmaxf(q, -127.0f), 127.0f));
 }
 
-// rows * row_bytes from global (rows packed) to shared (stride ld), 16 B a copy
-__device__ inline void copy_rows(int8_t* dst, int ld, const int8_t* src, int row_bytes,
-                                 int rows) {
-  const int vecs = row_bytes / 16;
-  for (int i = threadIdx.x; i < rows * vecs; i += kThreads) {
-    const int r = i / vecs, v = i % vecs;
-    reinterpret_cast<uint4*>(dst + static_cast<size_t>(r) * ld)[v] =
-        reinterpret_cast<const uint4*>(src + static_cast<size_t>(r) * row_bytes)[v];
+__device__ __noinline__ int quantize_exact(float h, float s) {
+  return clamp_q(rintf(__fdiv_rn(h, s)));
+}
+
+__device__ __forceinline__ int quantize(float h, float s, float rcp) {
+  const float t = __fmul_rn(h, rcp);
+  const float q = rintf(t);
+  if (__builtin_expect(near_tie(t, q), 0)) return quantize_exact(h, s);
+  return clamp_q(q);
+}
+
+// four consecutive columns at once, packed into one int8x4 word
+__device__ __forceinline__ unsigned quantize4(float4 h, float s, float rcp) {
+  const float t[4] = {__fmul_rn(h.x, rcp), __fmul_rn(h.y, rcp), __fmul_rn(h.z, rcp),
+                      __fmul_rn(h.w, rcp)};
+  float q[4];
+  bool tie = false;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    q[i] = rintf(t[i]);
+    tie |= near_tie(t[i], q[i]);
+  }
+  int v[4];
+  if (__builtin_expect(tie, 0)) {
+    v[0] = quantize_exact(h.x, s);
+    v[1] = quantize_exact(h.y, s);
+    v[2] = quantize_exact(h.z, s);
+    v[3] = quantize_exact(h.w, s);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = clamp_q(q[i]);
+  }
+  // the low byte of each, in column order
+  return __byte_perm(__byte_perm(v[0], v[1], 0x0040), __byte_perm(v[2], v[3], 0x0040),
+                     0x5410);
+}
+
+// rows [0, rows) of the f32 tile (stride ldf) into int8 (stride ld), n
+// columns (a multiple of 64): each warp takes two rows at a time (r and
+// r + 16), four columns a lane per step, so independent work is in flight
+__device__ __forceinline__ void requantize(const float* hf, int ldf, int8_t* dst, int ld,
+                                           int n, int rows, const float* sx,
+                                           const float* rcp, int warp, int lane) {
+  for (int r = warp; r < rows; r += 2 * kConsumerWarps) {
+    const int r2 = r + kConsumerWarps < rows ? r + kConsumerWarps : r;
+    const float s = sx[r], rc = rcp[r], s2 = sx[r2], rc2 = rcp[r2];
+    const float4* a = reinterpret_cast<const float4*>(hf + r * ldf);
+    const float4* b = reinterpret_cast<const float4*>(hf + r2 * ldf);
+    unsigned* oa = reinterpret_cast<unsigned*>(dst + r * ld);
+    unsigned* ob = reinterpret_cast<unsigned*>(dst + r2 * ld);
+#pragma unroll 2
+    for (int v = lane; v < n / 4; v += 32) {
+      const float4 ha = a[v], hb = b[v];
+      oa[v] = quantize4(ha, s, rc);
+      ob[v] = quantize4(hb, s2, rc2);  // r2 == r on a lone last row: the same word twice
+    }
   }
 }
 
-// One int8 dense layer of the tile: hf = relu(((float)(A @ Bt^T) * sx) * scale
-// + bias), and each row's max into amax. A is 64 x K int8 (stride lda), Bt is
-// hidden x K int8 (W transposed, stride ldb), K a multiple of 32.
-__device__ inline void dense_s8(const int8_t* A, int lda, const int8_t* Bt, int ldb,
-                                int K, int hidden, const float* scale, const float* bias,
-                                float* hf, int ldf, const float* sx, unsigned* amax) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = (warp % 4) * 16 + g, r1 = r0 + 8;
-  const float sx0 = sx[r0], sx1 = sx[r1];
-  float m0 = 0.0f, m1 = 0.0f;
-  for (int n0 = (warp / 4) * 32; n0 < hidden; n0 += 64) {
-    int acc[4][4] = {};
-    for (int k0 = 0; k0 < K; k0 += 32) {
-      unsigned a[4];
-      a[0] = ld32(A + r0 * lda + k0 + 4 * t);
-      a[1] = ld32(A + r1 * lda + k0 + 4 * t);
-      a[2] = ld32(A + r0 * lda + k0 + 16 + 4 * t);
-      a[3] = ld32(A + r1 * lda + k0 + 16 + 4 * t);
+// acc[j] += A (this warp's 16-row slab from row r0 - g, K bytes) x Bt (nj
+// column blocks of 8 from its row 0), int8 with row strides lda, ldb (each
+// a multiple of 16), K a multiple of 32. The fragments come in with
+// ldmatrix: A's four 8x8 byte-pair matrices are its rows 0-7 / 8-15 at
+// k0 / k0 + 16, the m16n8k32 A fragment's registers in order; a pair of
+// column blocks j, j + 1 is B's four (rows of j at k0, k0 + 16, then j + 1)
+__device__ __forceinline__ void mma_slab(int (&acc)[4][4], const int8_t* A, int lda,
+                                         const int8_t* Bt, int ldb, int K, int nj, int r0,
+                                         int g, int t) {
+  const int lane = 4 * g + t, m = lane / 8, i = lane % 8;
+  const int8_t* arow = A + (r0 - g + i + 8 * (m & 1)) * lda + 16 * (m >> 1);
+  const int8_t* brow[2];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int8_t* brow = Bt + (n0 + j * 8 + g) * ldb + k0 + 4 * t;
-        const unsigned b[2] = {ld32(brow), ld32(brow + 16)};
-        mma_s8(acc[j], a, b);
-      }
-    }
+  for (int jp = 0; jp < 2; ++jp) {
+    const int j = min(2 * jp + (m >> 1), nj - 1);  // a lone block loads twice
+    brow[jp] = Bt + (8 * j + i) * ldb + 16 * (m & 1);
+  }
+#pragma unroll 4
+  for (int k0 = 0; k0 < K; k0 += 32) {
+    unsigned a[4];
+    ldmatrix_x4(a, arow + k0);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = i < 2 ? r0 : r1;
-        const int col = n0 + j * 8 + 2 * t + (i & 1);
-        float h = __fmul_rn(static_cast<float>(acc[j][i]), i < 2 ? sx0 : sx1);
-        h = __fadd_rn(__fmul_rn(h, scale[col]), bias[col]);
-        h = h > 0.0f ? h : 0.0f;  // relu to +0, never -0: the row max is taken on the bits
-        hf[row * ldf + col] = h;
-        if (i < 2) m0 = fmaxf(m0, h); else m1 = fmaxf(m1, h);
+    for (int jp = 0; jp < 2; ++jp) {
+      if (2 * jp < nj) {
+        unsigned b[4];
+        ldmatrix_x4(b, brow[jp] + k0);
+        const unsigned b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
+        mma_s8(acc[2 * jp], a, b0);
+        if (2 * jp + 1 < nj) mma_s8(acc[2 * jp + 1], a, b1);
       }
     }
   }
-  // the row's max over this warp's columns: the 4 lanes of a group share rows
+}
+
+// the scale and bias of this thread's columns of a group (col0 + 8j, +1),
+// loaded before the group's products so their latency hides behind them
+struct Epilogue {
+  float2 scale[4], bias[4];
+};
+
+__device__ __forceinline__ Epilogue load_epilogue(const float* __restrict__ scale,
+                                                  const float* __restrict__ bias, int col0,
+                                                  int nj) {
+  Epilogue e;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (j < nj) {
+      e.scale[j] = __ldg(reinterpret_cast<const float2*>(scale + col0 + j * 8));
+      e.bias[j] = __ldg(reinterpret_cast<const float2*>(bias + col0 + j * 8));
+    }
+  }
+  return e;
+}
+
+// one group's epilogue: h = relu(((float)acc * sx) * scale + bias) into the
+// f32 tile, and the running row maxima m0, m1
+__device__ __forceinline__ void dequant(const int (&acc)[4][4], int nj, int col0,
+                                        const Epilogue& e, float* hf, int ldf, int r0,
+                                        float sx0, float sx1, float& m0, float& m1) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (j >= nj) continue;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = i < 2 ? r0 : r0 + 8;
+      const int col = col0 + j * 8 + (i & 1);
+      float h = __fmul_rn(static_cast<float>(acc[j][i]), i < 2 ? sx0 : sx1);
+      h = __fadd_rn(__fmul_rn(h, (i & 1) ? e.scale[j].y : e.scale[j].x),
+                    (i & 1) ? e.bias[j].y : e.bias[j].x);
+      h = h > 0.0f ? h : 0.0f;  // relu to +0, never -0: the row max is taken on the bits
+      hf[row * ldf + col] = h;
+      if (i < 2) m0 = fmaxf(m0, h); else m1 = fmaxf(m1, h);
+    }
+  }
+}
+
+// the row maxima of this warp's columns into amax: the 4 lanes of a group share rows
+__device__ __forceinline__ void publish_max(float m0, float m1, unsigned* amax, int r0,
+                                            int t) {
   m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 1));
   m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 2));
   m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 1));
   m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 2));
   if (t == 0) {
     atomicMax(&amax[r0], __float_as_uint(m0));
-    atomicMax(&amax[r1], __float_as_uint(m1));
+    atomicMax(&amax[r0 + 8], __float_as_uint(m1));
   }
 }
 
-// each row's scale from its max, and the max reset for the next reduction
-__device__ inline void take_row_scales(float* sx, unsigned* amax) {
-  if (threadIdx.x < kTileRows) {
+// each row's scale and its reciprocal from its max, and the max reset for
+// the next reduction
+__device__ __forceinline__ void take_row_scales(float* sx, float* rcp, unsigned* amax,
+                                                int rows) {
+  if (static_cast<int>(threadIdx.x) < rows) {
     sx[threadIdx.x] = row_scale(amax[threadIdx.x]);
+    rcp[threadIdx.x] = __frcp_rn(sx[threadIdx.x]);
     amax[threadIdx.x] = 0u;
   }
+}
+
+// bytes of weight chunk c in the stream (the order the consumers read them)
+__device__ __forceinline__ uint32_t chunk_bytes(const Layout& L, int c) {
+  if (c < L.c1) {
+    const int n = min(L.g1, L.groups - c * L.g1);
+    return static_cast<uint32_t>(n * kGroup * L.ld1);
+  }
+  const int s = (c - L.c1) % L.slices;
+  return static_cast<uint32_t>(kGroup * (min(kSlice, L.hp - s * kSlice) + 16));
 }
 
 template <bool kPreq>
 __device__ __forceinline__ void q8_body(
     const float* __restrict__ x, const float* __restrict__ mu,
     const float* __restrict__ sigma, const int8_t* __restrict__ q_in,
-    const float* __restrict__ s_in, const int8_t* __restrict__ w1t,
-    const float* __restrict__ s1, const float* __restrict__ b1,
-    const int8_t* __restrict__ w2t, const float* __restrict__ s2,
-    const float* __restrict__ b2, const int8_t* __restrict__ w3,
-    const float* __restrict__ s3, const float* __restrict__ b3,
-    float* __restrict__ proba, float* __restrict__ logits, int batch, int features,
-    int hidden) {
+    const float* __restrict__ s_in, const unsigned char* __restrict__ wstream,
+    const float* __restrict__ vec,  // (4, hp): s1, b1, s2, b2
+    const int8_t* __restrict__ w3, const float* __restrict__ s3,
+    const float* __restrict__ b3, float* __restrict__ proba, float* __restrict__ logits,
+    int batch, int features, int hidden) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const Smem L = smem_layout(hidden);
-  int8_t* w1s = reinterpret_cast<int8_t*>(smem + L.w1t);
-  int8_t* w2s = reinterpret_cast<int8_t*>(smem + L.w2t);
+  const Layout L = make_layout(features, hidden);
+  const int R = L.rows;
+  unsigned char* ring = smem + L.ring;
+  float* hf = reinterpret_cast<float*>(smem + L.hf);
   int8_t* hq = reinterpret_cast<int8_t*>(smem + L.hq);
   int8_t* xq = reinterpret_cast<int8_t*>(smem + L.xq);
-  float* hf = reinterpret_cast<float*>(smem + L.hf);
-  int8_t* w3s = reinterpret_cast<int8_t*>(smem + L.w3);
-  float* s1s = reinterpret_cast<float*>(smem + L.vec);
-  float* b1s = s1s + hidden;
-  float* s2s = b1s + hidden;
-  float* b2s = s2s + hidden;
   float* sx = reinterpret_cast<float*>(smem + L.sx);
+  float* rcp = reinterpret_cast<float*>(smem + L.rcp);
   unsigned* amax = reinterpret_cast<unsigned*>(smem + L.amax);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);
+  uint64_t* empty = full + kMaxStages;
+  uint64_t* xfull = empty + kMaxStages;
+  uint64_t* xempty = xfull + 1;
 
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tiles = (batch + R - 1) / R;
+  const bool resident = L.stages == L.chunks;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L.stages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kConsumerWarps);
+    }
+    hopper::mbar_init(xfull, 1);
+    hopper::mbar_init(xempty, kConsumerWarps);
+    hopper::mbar_init_fence();
+  }
+  if (static_cast<int>(threadIdx.x) < R) amax[threadIdx.x] = 0u;
+  __syncthreads();
+
+  if (warp == kConsumerWarps) {
+    // ---- producer: the row tile, then the weight chunks, tile after tile ----
+    if (lane != 0) return;
+    int stage = 0;
+    uint32_t phase = 0, xphase = 0;
+    for (int tile = blockIdx.x, it = 0; tile < tiles; tile += gridDim.x, ++it) {
+      const int row0 = tile * R;
+      const uint32_t rows = static_cast<uint32_t>(min(R, batch - row0));
+      hopper::mbar_wait(xempty, xphase ^ 1);
+      if constexpr (kPreq) {
+        const uint32_t qb = (rows * features) & ~15u, sb = (rows * 4) & ~15u;
+        hopper::mbar_arrive_expect_tx(xfull, qb + sb);
+        if (qb) hopper::bulk_g2s(smem + L.xraw, q_in + static_cast<size_t>(row0) * features, qb, xfull);
+        if (sb) hopper::bulk_g2s(smem + L.sraw, s_in + row0, sb, xfull);
+      } else {
+        const uint32_t xb = (rows * features * 4) & ~15u;
+        hopper::mbar_arrive_expect_tx(xfull, xb);
+        if (xb) hopper::bulk_g2s(smem + L.xraw, x + static_cast<size_t>(row0) * features, xb, xfull);
+      }
+      xphase ^= 1;
+      const unsigned char* src = wstream;
+      for (int c = 0; c < L.chunks; ++c) {
+        const uint32_t bytes = chunk_bytes(L, c);
+        hopper::mbar_wait(&empty[stage], phase ^ 1);
+        if (resident && it > 0) {
+          hopper::mbar_arrive(&full[stage]);  // the chunk is still there
+        } else {
+          hopper::mbar_arrive_expect_tx(&full[stage], bytes);
+          hopper::bulk_g2s(ring + static_cast<size_t>(stage) * kStageBytes, src, bytes,
+                           &full[stage]);
+        }
+        src += bytes;
+        if (++stage == L.stages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: sixteen warps ----
   const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int row0 = blockIdx.x * kTileRows;
+  const int g = lane >> 2, t = lane & 3;
+  const int nslab = R / 16;                 // 16-row slabs in the tile
+  const int share = kGroup / (kConsumerWarps / nslab);  // a warp's columns of a group
+  const int nj = share / 8;
+  const int r0 = (warp % nslab) * 16 + g;
+  const int cw = (warp / nslab) * share;    // the warp's first column in a group
+  const float* s1 = vec;
+  const float* b1 = vec + L.hp;
+  const float* s2 = vec + 2 * L.hp;
+  const float* b2 = vec + 3 * L.hp;
+  int stage = 0;
+  uint32_t phase = 0, xphase = 0;
 
-  // ---- stage the weights ----
-  copy_rows(w1s, kLd1, w1t, kK1, hidden);
-  copy_rows(w2s, L.ldh, w2t, hidden, hidden);
-  for (int i = tid; i < hidden; i += kThreads) {
-    w3s[i] = w3[i];
-    s1s[i] = s1[i];
-    b1s[i] = b1[i];
-    s2s[i] = s2[i];
-    b2s[i] = b2[i];
-  }
-  if (tid < kTileRows) amax[tid] = 0u;
-
-  // ---- layer 1's int8 input tile ----
-  if constexpr (kPreq) {
-    for (int i = tid; i < kTileRows * kK1; i += kThreads) {
-      const int r = i / kK1, k = i % kK1, row = row0 + r;
-      xq[r * kLd1 + k] = (row < batch && k < features)
-                             ? q_in[static_cast<size_t>(row) * features + k]
-                             : static_cast<int8_t>(0);
+  auto next_stage = [&]() {
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[stage]);
+    if (++stage == L.stages) {
+      stage = 0;
+      phase ^= 1;
     }
-    if (tid < kTileRows) sx[tid] = row0 + tid < batch ? s_in[row0 + tid] : 0.0f;
-  } else {
-    __syncthreads();  // amax zeroed
-    float* hn = hf;   // the normalized 64 x 32 input, stride kK1
-    for (int i = tid; i < kTileRows * kK1; i += kThreads) {
-      const int r = i / kK1, k = i % kK1, row = row0 + r;
-      float v = 0.0f;
-      if (row < batch && k < features)
-        v = __fdiv_rn(__fsub_rn(x[static_cast<size_t>(row) * features + k], mu[k]),
-                      sigma[k]);
-      hn[i] = v;
-      atomicMax(&amax[r], __float_as_uint(fabsf(v)));
-    }
-    __syncthreads();
-    take_row_scales(sx, amax);
-    __syncthreads();
-    for (int i = tid; i < kTileRows * kK1; i += kThreads) {
-      const int r = i / kK1, k = i % kK1;
-      xq[r * kLd1 + k] = static_cast<int8_t>(quantize(hn[i], sx[r]));
-    }
-  }
-  __syncthreads();
+  };
 
-  // ---- layer 1 ----
-  dense_s8(xq, kLd1, w1s, kLd1, kK1, hidden, s1s, b1s, hf, L.ldf, sx, amax);
-  __syncthreads();
-  take_row_scales(sx, amax);
-  __syncthreads();
-  for (int i = tid; i < kTileRows * hidden; i += kThreads) {
-    const int r = i / hidden, c = i % hidden;
-    hq[r * L.ldh + c] = static_cast<int8_t>(quantize(hf[r * L.ldf + c], sx[r]));
-  }
-  __syncthreads();
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int row0 = tile * R;
+    const int rows = min(R, batch - row0);
 
-  // ---- layer 2 ----
-  dense_s8(hq, L.ldh, w2s, L.ldh, hidden, hidden, s2s, b2s, hf, L.ldf, sx, amax);
-  __syncthreads();
-  take_row_scales(sx, amax);
-  __syncthreads();
-
-  // ---- layer 3: quantize each row and dot it with w3, one warp per 8 rows ----
-  for (int rr = 0; rr < kTileRows / kWarps; ++rr) {
-    const int r = warp * (kTileRows / kWarps) + rr;
-    const float s = sx[r];
-    int acc = 0;
-    for (int c = lane; c < hidden; c += 32)
-      acc += quantize(hf[r * L.ldf + c], s) * static_cast<int>(w3s[c]);
+    // ---- layer 1's int8 input tile (rows past the batch are skipped here
+    // and below: nothing of theirs is stored) ----
+    hopper::mbar_wait(xfull, xphase);
+    xphase ^= 1;
+    if constexpr (kPreq) {
+      const int8_t* qs = reinterpret_cast<const int8_t*>(smem + L.xraw);
+      const float* ss = reinterpret_cast<const float*>(smem + L.sraw);
+      const int qn = (rows * features) & ~15, sn = ((rows * 4) & ~15) / 4;
+      for (int r = warp; r < rows; r += kConsumerWarps) {
+        for (int k = lane; k < L.k1p; k += 32) {
+          const int idx = r * features + k;
+          xq[r * L.ld1 + k] =
+              k < features
+                  ? (idx < qn ? qs[idx] : q_in[static_cast<size_t>(row0) * features + idx])
+                  : static_cast<int8_t>(0);
+        }
+      }
+      if (tid < rows) sx[tid] = tid < sn ? ss[tid] : s_in[row0 + tid];
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(xempty);
+    } else {
+      // normalize, take the row's max over |h| in the warp, quantize
+      const float* xs = reinterpret_cast<const float*>(smem + L.xraw);
+      const int xn = ((rows * features * 4) & ~15) / 4;
+      float mu_k[kMaxFeatures / 32], sigma_k[kMaxFeatures / 32];  // this lane's features
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    const int row = row0 + r;
-    if (lane == 0 && row < batch) {
-      const float z = __fadd_rn(
-          __fmul_rn(__fmul_rn(static_cast<float>(acc), s), s3[0]), b3[0]);
-      proba[row] = 1.0f / (1.0f + expf(-z));
-      if (logits != nullptr) logits[row] = z;
+      for (int j = 0; j < kMaxFeatures / 32; ++j) {
+        const int k = lane + 32 * j;
+        mu_k[j] = k < features ? __ldg(mu + k) : 0.0f;
+        sigma_k[j] = k < features ? __ldg(sigma + k) : 1.0f;
+      }
+      for (int r = warp; r < rows; r += kConsumerWarps) {
+        float m = 0.0f;
+#pragma unroll
+        for (int j = 0; j < kMaxFeatures / 32; ++j) {
+          const int k = lane + 32 * j, idx = r * features + k;
+          if (k >= L.k1p) continue;
+          float v = 0.0f;
+          if (k < features) {
+            const float xv = idx < xn ? xs[idx] : x[static_cast<size_t>(row0) * features + idx];
+            v = __fdiv_rn(__fsub_rn(xv, mu_k[j]), sigma_k[j]);
+          }
+          hf[r * L.ldf + k] = v;
+          m = fmaxf(m, fabsf(v));
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+        const float s = row_scale(__float_as_uint(m));
+        const float rc = __frcp_rn(s);
+        if (lane == 0) sx[r] = s;
+        __syncwarp();
+        for (int k = lane; k < L.k1p; k += 32)
+          xq[r * L.ld1 + k] = static_cast<int8_t>(quantize(hf[r * L.ldf + k], s, rc));
+      }
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(xempty);
     }
+    hopper::named_sync(kConsumers);
+
+    // ---- layer 1: chunks of up to g1 groups of 64 columns x all of K ----
+    const bool live = r0 - g < rows;  // this warp's slab holds rows of the batch
+    float m0 = 0.0f, m1 = 0.0f;
+    float sx0 = sx[r0], sx1 = sx[r0 + 8];
+    for (int c = 0; c < L.c1; ++c) {
+      hopper::mbar_wait(&full[stage], phase);
+      const int8_t* chunk = reinterpret_cast<const int8_t*>(ring + static_cast<size_t>(stage) * kStageBytes);
+      const int ng = min(L.g1, L.groups - c * L.g1);
+      for (int gi = 0; gi < ng && live; ++gi) {
+        const int col0 = (c * L.g1 + gi) * kGroup + cw + 2 * t;
+        const Epilogue e = load_epilogue(s1, b1, col0, nj);
+        int acc[4][4] = {};
+        mma_slab(acc, xq, L.ld1, chunk + (gi * kGroup + cw) * L.ld1, L.ld1, L.k1p, nj, r0, g, t);
+        dequant(acc, nj, col0, e, hf, L.ldf, r0, sx0, sx1, m0, m1);
+      }
+      next_stage();
+    }
+    publish_max(m0, m1, amax, r0, t);
+    hopper::named_sync(kConsumers);
+    take_row_scales(sx, rcp, amax, R);
+    hopper::named_sync(kConsumers);
+    requantize(hf, L.ldf, hq, L.ldh, L.hp, rows, sx, rcp, warp, lane);
+    hopper::named_sync(kConsumers);
+
+    // ---- layer 2: per group of 64 columns, the K-slices in order ----
+    m0 = 0.0f;
+    m1 = 0.0f;
+    sx0 = sx[r0];
+    sx1 = sx[r0 + 8];
+    for (int grp = 0; grp < L.groups; ++grp) {
+      const int col0 = grp * kGroup + cw + 2 * t;
+      const Epilogue e = load_epilogue(s2, b2, col0, live ? nj : 0);
+      int acc[4][4] = {};
+      for (int s = 0; s < L.slices; ++s) {
+        hopper::mbar_wait(&full[stage], phase);
+        const int8_t* chunk = reinterpret_cast<const int8_t*>(ring + static_cast<size_t>(stage) * kStageBytes);
+        const int ks = min(kSlice, L.hp - s * kSlice);
+        if (live)
+          mma_slab(acc, hq + s * kSlice, L.ldh, chunk + cw * (ks + 16), ks + 16, ks, nj, r0, g, t);
+        next_stage();
+      }
+      if (live) dequant(acc, nj, col0, e, hf, L.ldf, r0, sx0, sx1, m0, m1);
+    }
+    publish_max(m0, m1, amax, r0, t);
+    hopper::named_sync(kConsumers);
+    take_row_scales(sx, rcp, amax, R);
+    hopper::named_sync(kConsumers);
+
+    // ---- layer 3: quantize each row and dot it with w3, two rows per warp
+    // at a time (r and r + 16) ----
+    const int* w3v = reinterpret_cast<const int*>(w3);
+    for (int r = warp; r < rows; r += 2 * kConsumerWarps) {
+      const int rr[2] = {r, r + kConsumerWarps};
+      const bool two = rr[1] < rows;
+      int acc[2] = {0, 0};
+#pragma unroll 2
+      for (int v = lane; v < L.hp / 4; v += 32) {
+        const int w = __ldg(w3v + v);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int row = two ? rr[i] : r;
+          const float4 h = reinterpret_cast<const float4*>(hf + row * L.ldf)[v];
+          acc[i] = __dp4a(static_cast<int>(quantize4(h, sx[row], rcp[row])), w, acc[i]);
+        }
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        acc[0] += __shfl_xor_sync(0xffffffffu, acc[0], off);
+        acc[1] += __shfl_xor_sync(0xffffffffu, acc[1], off);
+      }
+      if (lane < (two ? 2 : 1)) {  // lane 0 writes row r, lane 1 row r + 16
+        const int row = lane == 0 ? rr[0] : rr[1];
+        const int dot = lane == 0 ? acc[0] : acc[1];
+        const float z = __fadd_rn(
+            __fmul_rn(__fmul_rn(static_cast<float>(dot), sx[row]), s3[0]), b3[0]);
+        proba[row0 + row] = 1.0f / (1.0f + expf(-z));
+        if (logits != nullptr) logits[row0 + row] = z;
+      }
+    }
+    hopper::named_sync(kConsumers);  // the tile's f32 activations are free again
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 fused_mlp_q8_kernel(const float* __restrict__ x, const float* __restrict__ mu,
-                    const float* __restrict__ sigma, const int8_t* __restrict__ w1t,
-                    const float* __restrict__ s1, const float* __restrict__ b1,
-                    const int8_t* __restrict__ w2t, const float* __restrict__ s2,
-                    const float* __restrict__ b2, const int8_t* __restrict__ w3,
+                    const float* __restrict__ sigma, const unsigned char* __restrict__ wstream,
+                    const float* __restrict__ vec, const int8_t* __restrict__ w3,
                     const float* __restrict__ s3, const float* __restrict__ b3,
                     float* __restrict__ proba, float* __restrict__ logits, int batch,
                     int features, int hidden) {
-  q8_body<false>(x, mu, sigma, nullptr, nullptr, w1t, s1, b1, w2t, s2, b2, w3, s3, b3,
-                 proba, logits, batch, features, hidden);
+  q8_body<false>(x, mu, sigma, nullptr, nullptr, wstream, vec, w3, s3, b3, proba, logits,
+                 batch, features, hidden);
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 fused_mlp_q8_preq_kernel(const int8_t* __restrict__ q, const float* __restrict__ s,
-                         const int8_t* __restrict__ w1t, const float* __restrict__ s1,
-                         const float* __restrict__ b1, const int8_t* __restrict__ w2t,
-                         const float* __restrict__ s2, const float* __restrict__ b2,
-                         const int8_t* __restrict__ w3, const float* __restrict__ s3,
-                         const float* __restrict__ b3, float* __restrict__ proba,
-                         float* __restrict__ logits, int batch, int features,
-                         int hidden) {
-  q8_body<true>(nullptr, nullptr, nullptr, q, s, w1t, s1, b1, w2t, s2, b2, w3, s3, b3,
-                proba, logits, batch, features, hidden);
+                         const unsigned char* __restrict__ wstream,
+                         const float* __restrict__ vec, const int8_t* __restrict__ w3,
+                         const float* __restrict__ s3, const float* __restrict__ b3,
+                         float* __restrict__ proba, float* __restrict__ logits, int batch,
+                         int features, int hidden) {
+  q8_body<true>(nullptr, nullptr, nullptr, q, s, wstream, vec, w3, s3, b3, proba, logits,
+                batch, features, hidden);
 }
 
-// the checks both entries share; returns the launch's shared memory or 0
-size_t launch_smem(const void* kernel, int batch, int features, int hidden,
-                   cudaError_t* err) {
+std::once_flag g_once;
+cudaError_t g_init_err = cudaSuccess;
+int g_sms = 0;
+
+// the shared-memory attribute of both kernels and the SM count, once per
+// library load
+cudaError_t init_once() {
+  std::call_once(g_once, [] {
+    const void* kernels[] = {reinterpret_cast<const void*>(fused_mlp_q8_kernel),
+                             reinterpret_cast<const void*>(fused_mlp_q8_preq_kernel)};
+    for (const void* k : kernels) {
+      if (g_init_err == cudaSuccess)
+        g_init_err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                          static_cast<int>(kSmemLimit));
+    }
+    int dev = 0;
+    if (g_init_err == cudaSuccess) g_init_err = cudaGetDevice(&dev);
+    if (g_init_err == cudaSuccess)
+      g_init_err = cudaDeviceGetAttribute(&g_sms, cudaDevAttrMultiProcessorCount, dev);
+  });
+  return g_init_err;
+}
+
+bool takes(int features, int hidden) {
+  if (features <= 0 || features > kMaxFeatures || hidden <= 0 || hidden > kMaxHidden)
+    return false;
+  const Layout L = make_layout(features, hidden);
+  return L.stages >= 2 && L.total <= kSmemLimit;
+}
+
+// the checks both launches share; returns the grid, or 0 with *err set
+int launch_grid(int batch, int features, int hidden, size_t* smem, cudaError_t* err) {
   *err = cudaSuccess;
-  if (batch <= 0 || features <= 0 || features > kK1 || hidden < 32 ||
-      hidden % 32 != 0) {
+  if (batch <= 0 || !takes(features, hidden)) {
     *err = cudaErrorInvalidValue;
     return 0;
   }
-  const Smem L = smem_layout(hidden);
-  if (L.total > kSmemLimit) {
-    *err = cudaErrorInvalidValue;
-    return 0;
-  }
-  *err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(L.total));
-  return *err == cudaSuccess ? L.total : 0;
+  *err = init_once();
+  if (*err != cudaSuccess) return 0;
+  const Layout L = make_layout(features, hidden);
+  *smem = L.total;
+  const int tiles = (batch + L.rows - 1) / L.rows;
+  return tiles < g_sms ? tiles : g_sms;
 }
 
 }  // namespace
 
+// out: k1p, hp, rows, chunks, stages, resident, shared-memory bytes; returns
+// 0, or 1 for a shape the kernels do not take
+extern "C" int ccfd_fused_mlp_q8_plan(int features, int hidden, int* out) {
+  if (!takes(features, hidden)) return static_cast<int>(cudaErrorInvalidValue);
+  const Layout L = make_layout(features, hidden);
+  out[0] = L.k1p;
+  out[1] = L.hp;
+  out[2] = L.rows;
+  out[3] = L.chunks;
+  out[4] = L.stages;
+  out[5] = L.stages == L.chunks;
+  out[6] = static_cast<int>(L.total);
+  return 0;
+}
+
 extern "C" int ccfd_fused_mlp_q8(const void* x, const void* mu, const void* sigma,
-                                 const void* w1t, const void* s1, const void* b1,
-                                 const void* w2t, const void* s2, const void* b2,
-                                 const void* w3, const void* s3, const void* b3,
-                                 void* proba, void* logits, int batch, int features,
-                                 int hidden, void* stream) {
+                                 const void* wstream, const void* vec, const void* w3,
+                                 const void* s3, const void* b3, void* proba, void* logits,
+                                 int batch, int features, int hidden, void* stream) {
   cudaError_t err;
-  const size_t smem = launch_smem(reinterpret_cast<const void*>(fused_mlp_q8_kernel),
-                                  batch, features, hidden, &err);
+  size_t smem = 0;
+  const int blocks = launch_grid(batch, features, hidden, &smem, &err);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (batch + kTileRows - 1) / kTileRows;
   fused_mlp_q8_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(mu),
-      static_cast<const float*>(sigma), static_cast<const int8_t*>(w1t),
-      static_cast<const float*>(s1), static_cast<const float*>(b1),
-      static_cast<const int8_t*>(w2t), static_cast<const float*>(s2),
-      static_cast<const float*>(b2), static_cast<const int8_t*>(w3),
+      static_cast<const float*>(sigma), static_cast<const unsigned char*>(wstream),
+      static_cast<const float*>(vec), static_cast<const int8_t*>(w3),
       static_cast<const float*>(s3), static_cast<const float*>(b3),
       static_cast<float*>(proba), static_cast<float*>(logits), batch, features, hidden);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int ccfd_fused_mlp_q8_preq(const void* q, const void* s, const void* w1t,
-                                      const void* s1, const void* b1, const void* w2t,
-                                      const void* s2, const void* b2, const void* w3,
-                                      const void* s3, const void* b3, void* proba,
-                                      void* logits, int batch, int features, int hidden,
-                                      void* stream) {
+extern "C" int ccfd_fused_mlp_q8_preq(const void* q, const void* s, const void* wstream,
+                                      const void* vec, const void* w3, const void* s3,
+                                      const void* b3, void* proba, void* logits, int batch,
+                                      int features, int hidden, void* stream) {
   cudaError_t err;
-  const size_t smem = launch_smem(
-      reinterpret_cast<const void*>(fused_mlp_q8_preq_kernel), batch, features, hidden,
-      &err);
+  size_t smem = 0;
+  const int blocks = launch_grid(batch, features, hidden, &smem, &err);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (batch + kTileRows - 1) / kTileRows;
   fused_mlp_q8_preq_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(q), static_cast<const float*>(s),
-      static_cast<const int8_t*>(w1t), static_cast<const float*>(s1),
-      static_cast<const float*>(b1), static_cast<const int8_t*>(w2t),
-      static_cast<const float*>(s2), static_cast<const float*>(b2),
+      static_cast<const unsigned char*>(wstream), static_cast<const float*>(vec),
       static_cast<const int8_t*>(w3), static_cast<const float*>(s3),
       static_cast<const float*>(b3), static_cast<float*>(proba),
       static_cast<float*>(logits), batch, features, hidden);

@@ -4,14 +4,18 @@ Replaces the Pallas TPU kernel ``ccfd_tpu/ops/fused_mlp.py::_kernel``
 (entry ``fused_mlp_score``, ``pallas_call`` at its line 138). The CUDA
 source is ``ops/csrc/fused_mlp.cu``; its head says what bounds the kernel
 on the H100 (the tensor cores: ~2,300 operations per input byte at H=256)
-and how the simple first design keeps weights and activations in shared
-memory.
+and how the design streams host-packed weight chunks through a ring of
+shared-memory stages into ``wgmma``.
 
 - ``fold_for_kernel`` folds the standardizer into W1/b1 exactly as the
-  reference does, and zero-pads the feature dim to 32 (the reference pads
-  to the TPU's 128-lane width; the tensor cores need a multiple of 16).
+  reference does, and zero-pads the feature dim to a multiple of 16 (the
+  bf16 MMA depth; the reference pads to the TPU's 128-lane width).
 - ``pack_for_kernel`` puts the folded weights in the kernel's types on a
-  device, once per params publish: W1, W2, w3 in bf16, biases in f32.
+  device, once per params publish: the plain version's W1, W2, w3 in bf16
+  and biases in f32, and the kernel's own operands: the weight stream
+  (``pack_stream``, W1^T and W2^T in wgmma's swizzled shared-memory layout)
+  and the epilogue vectors b1, b2, w3 zero-padded to the kernel's width.
+- ``plan`` mirrors the CUDA source's shared-memory layout.
 - ``fused_mlp_reference`` is the plain PyTorch version of the kernel's
   arithmetic, with the same rounding points.
 - ``fused_mlp_score`` is the wrapper: the plain version for a CPU tensor,
@@ -30,18 +34,93 @@ import torch
 
 from ccfd_tpu_torch.ops.launches import LaunchCounter
 
-K_PAD = 32  # layer-1 depth: features zero-padded to two 16-deep MMA steps
-MAX_HIDDEN = 256  # W2 must fit in one block's shared memory
+MMA_K = 16  # bf16 MMA depth: fold pads the feature dim to a multiple of it
+MAX_FEATURES = 128  # the reference's lane bound (ccfd_tpu/ops/fused_mlp.py LANE)
+MAX_HIDDEN = 1024  # layer 2's 64-row h1 tile and a two-stage ring fill shared memory
 INPUT_DTYPE = torch.bfloat16  # wire format for rows
+# the CUDA source's geometry (ops/csrc/fused_mlp.cu)
+TILE_ROWS = 64
+K_BLOCK = 64  # bf16 inputs in one 128-byte swizzle row
+PART = 256  # output columns of one weight chunk
+HALF = 128  # output columns one consumer warpgroup owns in a part
+STAGE_BYTES = PART * 128
+MAX_STAGES = 8
+SMEM_LIMIT = 232_448
 
 launches = LaunchCounter("fused_mlp_bf16")
 
 
-def check_hidden(hidden: int) -> None:
-    if hidden % 16 or not 16 <= hidden <= MAX_HIDDEN:
+def check_shapes(features: int, hidden: int) -> None:
+    """Raise ``ValueError`` for a model the kernel does not take."""
+    if not 0 < features <= MAX_FEATURES:
         raise ValueError(
-            f"fused_mlp kernel takes a hidden width that is a multiple of 16 "
-            f"in [16, {MAX_HIDDEN}], not {hidden}")
+            f"fused kernel takes at most {MAX_FEATURES} features, not {features}")
+    if not 0 < hidden <= MAX_HIDDEN:
+        raise ValueError(
+            f"fused_mlp kernel takes a hidden width of at most {MAX_HIDDEN} "
+            f"(a 64-row h1 tile and two 32 KB weight stages in one block's "
+            f"shared memory), not {hidden}")
+
+
+@functools.cache
+def plan(features: int, hidden: int) -> dict[str, int]:
+    """The kernel's padded widths and shared-memory layout, as
+    ``make_layout`` in the CUDA source computes them: F padded to a
+    multiple of 64 (``k1p``), H to a multiple of 128 (``hp``); the chunks a
+    tile streams, the ring's stages (``resident`` when every chunk has its
+    own), and the dynamic shared memory of one block."""
+    k1p = -(-features // K_BLOCK) * K_BLOCK
+    hp = -(-hidden // HALF) * HALF
+    parts = -(-hp // PART)
+    chunks = parts * (k1p // K_BLOCK + hp // K_BLOCK)
+    fixed = (TILE_ROWS * hp * 2 + TILE_ROWS * k1p * 2
+             + -(-(TILE_ROWS * features * 2) // 128) * 128
+             + 4 * TILE_ROWS * 2 * (MAX_HIDDEN // PART) + 256)
+    stages = min(chunks, MAX_STAGES, max(0, (SMEM_LIMIT - fixed) // STAGE_BYTES))
+    return {"k1p": k1p, "hp": hp, "chunks": chunks, "stages": stages,
+            "resident": int(stages == chunks), "smem": fixed + stages * STAGE_BYTES}
+
+
+def stream_offset(layer: int, k, n, features: int, hidden: int):
+    """Byte offset in the packed stream of W_layer[k, n] (input k, output
+    n; layer 1 or 2): chunks of up to 256 output rows x 64 inputs, parts
+    in order, K blocks in order within a part; inside a chunk row n holds
+    its 64 inputs as eight 16-byte groups, group c at position c ^ (n % 8)
+    (the 128-byte swizzle; ``a_offset`` in the CUDA source). ``k`` and
+    ``n`` may be ints or numpy arrays."""
+    p = plan(features, hidden)
+    kp = p["k1p"] if layer == 1 else p["hp"]
+    base = 0 if layer == 1 else p["hp"] * p["k1p"] * 2
+    part, nl = np.divmod(n, PART)
+    rows = np.minimum(PART, p["hp"] - part * PART)
+    kb, kk = np.divmod(k, K_BLOCK)
+    return (base + part * PART * kp * 2 + kb * rows * 128 + nl * 128
+            + ((kk // 8) ^ (nl % 8)) * 16 + (kk % 8) * 2)
+
+
+def pack_stream(w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """W1 (F', H) and W2 (H, H), any float type -> the kernel's weight
+    stream, uint8 on the CPU: W1^T and W2^T in bf16, zero-padded to
+    (hp, k1p) and (hp, hp), cut into chunks and swizzled as
+    ``stream_offset`` says."""
+    features, hidden = w1.shape[0], w2.shape[0]
+    p = plan(features, hidden)
+    hp = p["hp"]
+    n = torch.arange(PART)[:, None]
+    swz = torch.arange(8)[None, :] ^ (n % 8)  # the group at each position
+
+    def layer(w: torch.Tensor, kp: int) -> list[torch.Tensor]:
+        wt = torch.zeros((hp, kp), dtype=torch.bfloat16)
+        wt[: w.shape[1], : w.shape[0]] = w.t().to(torch.bfloat16)
+        out = []
+        for p0 in range(0, hp, PART):
+            rows = min(PART, hp - p0)
+            blk = wt[p0:p0 + rows].reshape(rows, kp // K_BLOCK, 8, 8).transpose(0, 1)
+            out.append(blk[:, n[:rows], swz[:rows]].reshape(-1))
+        return out
+
+    w = torch.cat(layer(w1, p["k1p"]) + layer(w2, hp))
+    return w.contiguous().view(torch.uint8)
 
 
 def fold_for_kernel(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
@@ -50,7 +129,9 @@ def fold_for_kernel(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     With s = 1/sigma, (x - mu) * s @ W1 + b1 == x @ (s[:, None] * W1) +
     (b1 - (mu * s) @ W1). Computed on the host in numpy float32, as the
     reference does, so the folded weights match it to f32 rounding; W1 is
-    returned (32, H), rows past the feature count exactly zero."""
+    returned (F', H) with F' the feature count rounded up to 16, rows past
+    the feature count exactly zero. Refuses a model the kernel does not
+    take with a ``ValueError`` that names the limit."""
     def n(a: Any) -> np.ndarray:
         if isinstance(a, torch.Tensor):
             return a.detach().to("cpu", torch.float32).numpy()
@@ -64,9 +145,8 @@ def fold_for_kernel(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     s = 1.0 / np.where(sigma == 0.0, 1.0, sigma)
     w1 = n(layers[0]["w"])
     b1 = n(layers[0]["b"])
-    if w1.shape[0] > K_PAD:
-        raise ValueError(f"fused kernel takes at most {K_PAD} features, not {w1.shape[0]}")
-    w1_folded = np.zeros((K_PAD, w1.shape[1]), np.float32)
+    check_shapes(w1.shape[0], w1.shape[1])
+    w1_folded = np.zeros((-(-w1.shape[0] // MMA_K) * MMA_K, w1.shape[1]), np.float32)
     w1_folded[: w1.shape[0]] = s[:, None] * w1
     b1_folded = b1 - (mu * s) @ w1
     return {
@@ -81,17 +161,24 @@ def fold_for_kernel(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
 
 def pack_for_kernel(folded: Mapping[str, torch.Tensor],
                     device: "str | torch.device") -> dict[str, torch.Tensor]:
-    """Folded weights -> the kernel's operands on ``device``: w1 (32, H),
-    w2 (H, H) and w3 (H,) in bf16 (round to nearest even, as the reference
-    kernel's in-body casts), b1, b2 (H,) and b3 (1,) in f32. Fresh tensors,
+    """Folded weights -> the operands on ``device``. The plain version's:
+    w1 (F', H), w2 (H, H) and w3 (H,) in bf16 (round to nearest even, as the
+    reference kernel's in-body casts), b1, b2 (H,) and b3 (1,) in f32. The
+    kernel's: ``stream`` (``pack_stream`` of the same bf16 W1 and W2) and
+    ``vec`` (3, hp) f32 holding b1, b2 and w3 zero-padded. Fresh tensors,
     so a publish never aliases the caller's."""
     hidden = folded["w2"].shape[0]
-    check_hidden(hidden)
+    check_shapes(folded["w1"].shape[0], hidden)
     bf16, f32 = torch.bfloat16, torch.float32
+    hp = plan(folded["w1"].shape[0], hidden)["hp"]
 
     def put(a: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         return a.to(dtype).contiguous().to(device, copy=True)
 
+    vec = torch.zeros((3, hp), dtype=f32)
+    vec[0, :hidden] = folded["b1"].reshape(hidden)
+    vec[1, :hidden] = folded["b2"].reshape(hidden)
+    vec[2, :hidden] = folded["w3"].reshape(hidden).to(bf16).to(f32)
     return {
         "w1": put(folded["w1"], bf16),
         "b1": put(folded["b1"].reshape(hidden), f32),
@@ -99,6 +186,8 @@ def pack_for_kernel(folded: Mapping[str, torch.Tensor],
         "b2": put(folded["b2"].reshape(hidden), f32),
         "w3": put(folded["w3"].reshape(hidden), bf16),
         "b3": put(folded["b3"].reshape(1), f32),
+        "stream": put(pack_stream(folded["w1"], folded["w2"]), torch.uint8),
+        "vec": put(vec, f32),
     }
 
 
@@ -120,18 +209,32 @@ def fused_mlp_reference(kp: Mapping[str, torch.Tensor],
 
 @functools.cache
 def _kernel_entry():
-    """The bound C entry and CUDA's error-string lookup; builds the kernel
-    library on first use."""
+    """The bound C entries (launch, plan) and CUDA's error-string lookup;
+    builds the kernel library on first use."""
     from ccfd_tpu_torch.ops import _build
 
     lib = _build.load("fused_mlp")
+    p, i = ctypes.c_void_p, ctypes.c_int
     fn = lib.ccfd_fused_mlp_bf16
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn.argtypes = [p] * 6 + [i] * 3 + [p]
+    fn.restype = i
+    plan_fn = lib.ccfd_fused_mlp_bf16_plan
+    plan_fn.argtypes = [i, i, ctypes.POINTER(ctypes.c_int)]
+    plan_fn.restype = i
     err = lib.ccfd_cuda_error_string
-    err.argtypes = [ctypes.c_int]
+    err.argtypes = [i]
     err.restype = ctypes.c_char_p
-    return fn, err
+    return fn, plan_fn, err
+
+
+def kernel_plan(features: int, hidden: int) -> dict[str, int]:
+    """``plan`` as the built CUDA library computes it (needs nvcc; the card
+    is not touched): ``chip_smoke.py`` holds it against ``plan``."""
+    _fn, plan_fn, _err = _kernel_entry()
+    out = (ctypes.c_int * 6)()
+    if plan_fn(features, hidden, out) != 0:
+        raise ValueError(f"the kernel does not take F={features}, H={hidden}")
+    return dict(zip(("k1p", "hp", "chunks", "stages", "resident", "smem"), out))
 
 
 def _check_cuda_args(kp: Mapping[str, torch.Tensor], x: torch.Tensor) -> int:
@@ -139,14 +242,18 @@ def _check_cuda_args(kp: Mapping[str, torch.Tensor], x: torch.Tensor) -> int:
         raise ValueError(
             f"x must be a contiguous (B, F) bfloat16 tensor, got {x.dtype} "
             f"{tuple(x.shape)} contiguous={x.is_contiguous()}")
-    if not 0 < x.shape[1] <= K_PAD:
-        raise ValueError(f"x has {x.shape[1]} features; the kernel takes 1..{K_PAD}")
-    hidden = kp["w2"].shape[0]
-    check_hidden(hidden)
-    want = {
-        "w1": ((K_PAD, hidden), torch.bfloat16), "b1": ((hidden,), torch.float32),
-        "w2": ((hidden, hidden), torch.bfloat16), "b2": ((hidden,), torch.float32),
-        "w3": ((hidden,), torch.bfloat16), "b3": ((1,), torch.float32),
+    features, hidden = x.shape[1], kp["w2"].shape[0]
+    check_shapes(features, hidden)
+    p = plan(features, hidden)
+    if kp["w1"].shape[0] < features:
+        raise ValueError(f"x has {features} features; the weights take {kp['w1'].shape[0]}")
+    want = {  # the plain version's operands, then the kernel's own
+        "w1": ((kp["w1"].shape[0], hidden), torch.bfloat16),
+        "b1": ((hidden,), torch.float32), "w2": ((hidden, hidden), torch.bfloat16),
+        "b2": ((hidden,), torch.float32), "w3": ((hidden,), torch.bfloat16),
+        "b3": ((1,), torch.float32),
+        "stream": (((p["k1p"] + p["hp"]) * p["hp"] * 2,), torch.uint8),
+        "vec": ((3, p["hp"]), torch.float32),
     }
     for name, (shape, dtype) in want.items():
         t = kp[name]
@@ -161,7 +268,7 @@ def _check_cuda_args(kp: Mapping[str, torch.Tensor], x: torch.Tensor) -> int:
 
 def fused_mlp_score(kp: Mapping[str, torch.Tensor], x: torch.Tensor,
                     with_logits: bool = False):
-    """(B, F<=32) bf16 rows -> (B,) float32 proba (and logits when
+    """(B, F<=128) bf16 rows -> (B,) float32 proba (and logits when
     ``with_logits``). Any B: the kernel masks the ragged last tile.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
@@ -172,14 +279,15 @@ def fused_mlp_score(kp: Mapping[str, torch.Tensor], x: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"fused_mlp_score runs on cuda or cpu, not {x.device}")
     hidden = _check_cuda_args(kp, x)
+    if x.data_ptr() % 16:  # a row slice at any offset: the tiles are bulk-copied
+        x = x.clone()
     batch, features = x.shape
     proba = torch.empty(batch, dtype=torch.float32, device=x.device)
     z = torch.empty(batch, dtype=torch.float32, device=x.device) if with_logits else None
     if batch:
-        fn, err = _kernel_entry()
+        fn, _plan, err = _kernel_entry()
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), kp["w1"].data_ptr(), kp["b1"].data_ptr(),
-                kp["w2"].data_ptr(), kp["b2"].data_ptr(), kp["w3"].data_ptr(),
+        rc = fn(x.data_ptr(), kp["stream"].data_ptr(), kp["vec"].data_ptr(),
                 kp["b3"].data_ptr(), proba.data_ptr(),
                 z.data_ptr() if z is not None else None,
                 batch, features, hidden, stream)

@@ -14,13 +14,16 @@ Replaces the Pallas TPU kernels of ``ccfd_tpu/ops/fused_mlp_q8.py``:
   per row on the wire instead of 120 bytes. The default int8 wire.
 
 The CUDA source is ``ops/csrc/fused_mlp_q8.cu``; its head says what bounds
-the kernels and how the first design works. This module holds what
-surrounds them:
+the kernels and how the design streams host-packed weight chunks through a
+ring of shared-memory stages. This module holds what surrounds them:
 
 - ``fold_for_kernel`` checks a quantized tree against the reference's
-  limits and the kernels' own, and lays the weights out for the kernels
-  (W transposed to output-major, layer 1's depth zero-padded to 32);
-- ``pack_for_kernel`` puts them on a device, once per params publish;
+  limits, and lays the weights out for the plain versions (W transposed to
+  output-major, layer 1's depth zero-padded to a multiple of 32);
+- ``pack_for_kernel`` puts them on a device, once per params publish, with
+  the kernels' own operands: the weight stream (``pack_stream``), the
+  scales and biases zero-padded to the kernels' width, and w3 likewise;
+- ``plan`` mirrors the CUDA source's shared-memory layout;
 - ``prequantize_rows_numpy`` is B3's host half, bit for bit the
   reference's;
 - ``fused_mlp_q8_reference`` and ``fused_mlp_q8_preq_reference`` are the
@@ -43,42 +46,109 @@ import torch
 from ccfd_tpu_torch.ops.launches import LaunchCounter
 from ccfd_tpu_torch.ops.quant import EPS, host_array, int_matmul, quantize_rows
 
-K_PAD = 32  # layer-1 depth: features zero-padded to one 32-deep int8 MMA step
-TILE_ROWS = 64  # rows per block
-SMEM_LIMIT = 232_448  # dynamic shared memory one block may have on Hopper
+MMA_K = 32  # int8 MMA depth: fold pads layer 1's depth to a multiple of it
+MAX_FEATURES = 128  # the reference's lane bound (ccfd_tpu/ops/fused_mlp.py LANE)
 # the integer-exact f32 layer-3 sum of the reference holds while
 # hidden * 127^2 < 2^24 (fused_mlp_q8.py:86-98 of the reference)
 MAX_EXACT_HIDDEN = 1040
 INPUT_DTYPE = torch.float32  # the f32 wire's rows
+# the CUDA source's geometry (ops/csrc/fused_mlp_q8.cu)
+GROUP = 64  # output columns of one chunk row group
+SLICE = 256  # layer-2 K-slice of one chunk
+STAGE_BYTES = GROUP * (SLICE + 16)
+MAX_STAGES = 8
+SMEM_LIMIT = 232_448  # dynamic shared memory one block may have on Hopper
 
 launches = LaunchCounter("fused_mlp_q8")  # B2
 launches_preq = LaunchCounter("fused_mlp_q8_preq")  # B3
 
 
-def smem_bytes(hidden: int) -> int:
-    """Dynamic shared memory of one block at ``hidden``: the same layout as
-    ``smem_layout`` in the CUDA source, each part aligned to 128 bytes."""
-    ldh, ldf, ld1 = hidden + 16, hidden + 8, K_PAD + 16
-    parts = (hidden * ld1, hidden * ldh, TILE_ROWS * ldh, TILE_ROWS * ld1,
-             4 * TILE_ROWS * ldf, hidden, 4 * 4 * hidden, 4 * TILE_ROWS,
-             4 * TILE_ROWS)
-    return sum(-(-p // 128) * 128 for p in parts)
+def _a128(n: int) -> int:
+    return -(-n // 128) * 128
 
 
-# the widest hidden layer whose block fits in shared memory (288 on Hopper)
-MAX_HIDDEN = max(h for h in range(32, 2048, 32) if smem_bytes(h) <= SMEM_LIMIT)
+def _plan_rows(features: int, hidden: int, rows: int) -> dict[str, int]:
+    k1p = -(-features // 32) * 32
+    hp = -(-hidden // GROUP) * GROUP
+    ld1 = k1p + 16
+    groups = hp // GROUP
+    g1 = min(groups, STAGE_BYTES // (GROUP * ld1))
+    c1 = -(-groups // g1)
+    slices = -(-hp // SLICE)
+    chunks = c1 + groups * slices
+    sraw = _a128(4 * rows)
+    fixed = (_a128(4 * rows * (max(hp, k1p) + 8)) + _a128(rows * (hp + 16))
+             + _a128(rows * ld1) + _a128(4 * rows * features) + 4 * sraw + 256)
+    stages = min(chunks, MAX_STAGES, max(0, (SMEM_LIMIT - fixed) // STAGE_BYTES))
+    return {"k1p": k1p, "hp": hp, "rows": rows, "chunks": chunks, "stages": stages,
+            "resident": int(stages == chunks), "smem": fixed + stages * STAGE_BYTES,
+            "ld1": ld1, "g1": g1, "slices": slices}
+
+
+@functools.cache
+def plan(features: int, hidden: int) -> dict[str, int]:
+    """The kernels' padded widths and shared-memory layout, as
+    ``make_layout`` in the CUDA source computes them: F padded to a
+    multiple of 32 (``k1p``), H to a multiple of 64 (``hp``); the most rows
+    per tile (64 or 32) whose f32 activation tile, int8 tiles and a
+    two-stage ring fit; the chunks a tile streams, the ring's stages
+    (``resident`` when every chunk has its own), and the dynamic shared
+    memory of one block."""
+    for rows in (64, 32):
+        p = _plan_rows(features, hidden, rows)
+        if p["stages"] >= 2:
+            break
+    return p
+
+
+def stream_offset(layer: int, k, n, features: int, hidden: int):
+    """Byte offset in the packed stream of Wq_layer[k, n] (input k, output
+    n; layer 1 or 2). Layer 1 is W1^T with rows of ``k1p + 16`` bytes
+    (streamed in chunks of whole 64-row groups); layer 2 is W2^T cut into
+    64-row groups, each group's K in slices of up to 256 with rows of
+    ``slice + 16`` bytes, groups in order, slices in order within a group.
+    ``k`` and ``n`` may be ints or numpy arrays."""
+    p = plan(features, hidden)
+    if layer == 1:
+        return n * p["ld1"] + k
+    grp, nl = np.divmod(n, GROUP)
+    s, kk = np.divmod(k, SLICE)
+    ks = np.minimum(SLICE, p["hp"] - s * SLICE)
+    return (p["hp"] * p["ld1"] + grp * GROUP * (p["hp"] + 16 * p["slices"])
+            + s * GROUP * (SLICE + 16) + nl * (ks + 16) + kk)
+
+
+def pack_stream(w1t: torch.Tensor, w2t: torch.Tensor, features: int) -> torch.Tensor:
+    """W1^T (H, F') and W2^T (H, H) int8 -> the kernels' weight stream,
+    int8 on the CPU, zero-padded and laid out as ``stream_offset`` says."""
+    hidden = w2t.shape[0]
+    p = plan(features, hidden)
+    hp, ld1 = p["hp"], p["ld1"]
+    l1 = torch.zeros((hp, ld1), dtype=torch.int8)
+    l1[:hidden, : w1t.shape[1]] = w1t
+    w2p = torch.zeros((hp, hp), dtype=torch.int8)
+    w2p[:hidden, :hidden] = w2t
+    out = [l1.reshape(-1)]
+    for g0 in range(0, hp, GROUP):
+        for k0 in range(0, hp, SLICE):
+            ks = min(SLICE, hp - k0)
+            blk = torch.zeros((GROUP, ks + 16), dtype=torch.int8)
+            blk[:, :ks] = w2p[g0:g0 + GROUP, k0:k0 + ks]
+            out.append(blk.reshape(-1))
+    return torch.cat(out)
 
 
 def check_shapes(features: int, hidden: int) -> None:
-    """Raise ``ValueError`` for a model the kernels do not take."""
-    if not 0 < features <= K_PAD:
+    """Raise ``ValueError`` for a model the kernels do not take: what the
+    reference refuses (more than 128 features, a layer-3 input wider than
+    1,040)."""
+    if not 0 < features <= MAX_FEATURES:
         raise ValueError(
-            f"fused q8 kernel takes at most {K_PAD} features, not {features}")
-    if hidden % 32 or not 32 <= hidden <= MAX_HIDDEN:
+            f"fused q8 kernel takes at most {MAX_FEATURES} features, not {features}")
+    if not 0 < hidden <= MAX_EXACT_HIDDEN:
         raise ValueError(
-            f"fused q8 kernel takes a hidden width that is a multiple of 32 "
-            f"in [32, {MAX_HIDDEN}] (what one block's shared memory holds), "
-            f"not {hidden}")
+            f"fused q8 kernel: last-layer input width {hidden} > "
+            f"{MAX_EXACT_HIDDEN} breaks the integer-exact layer-3 sum (2^24 bound)")
 
 
 def fold_for_kernel(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
@@ -87,15 +157,16 @@ def fold_for_kernel(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
 
     Refuses, each with a ``ValueError`` naming the limit: a tree that is
     not quantized, a depth other than 3, a last layer wider than 1,040
-    inputs (the reference's bound for its integer-exact layer-3 sum), more
-    than 32 features, and a hidden width the kernels do not take.
+    inputs (the reference's bound for its integer-exact layer-3 sum), and
+    more than 128 features (the reference's lane bound).
 
     The normalizer is not folded into the int8 weights (per-input scaling
     would break the per-output-channel grid): mu and sigma ride along and
     the kernel divides by sigma, as the served graph does. Layout:
-    ``w1t`` (H, 32) and ``w2t`` (H, H) int8 are W transposed (output-major,
-    the tensor cores' "col" operand), ``w1t``'s columns past the feature
-    count zero; ``w3`` (H,) int8; ``s*``/``b*`` float32."""
+    ``w1t`` (H, F') and ``w2t`` (H, H) int8 are W transposed (output-major,
+    the tensor cores' "col" operand), F' the feature count rounded up to
+    32, ``w1t``'s columns past the feature count zero; ``w3`` (H,) int8;
+    ``s*``/``b*`` float32."""
     n = host_array
     layers = params["layers"]
     if len(layers) != 3 or any("wq" not in layer for layer in layers):
@@ -118,7 +189,7 @@ def fold_for_kernel(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
         raise ValueError(
             f"fused q8 kernel: inconsistent shapes mu {mu.shape}, sigma "
             f"{sigma.shape}, w1 {w1.shape}, w2 {w2.shape}, w3 {w3.shape}")
-    w1t = np.zeros((hidden, K_PAD), np.int8)
+    w1t = np.zeros((hidden, -(-features // MMA_K) * MMA_K), np.int8)
     w1t[:, :features] = w1.T
     vec = {f"{k}{i + 1}": torch.from_numpy(n(layers[i][name]).reshape(-1).copy())
            for i in range(3) for k, name in (("s", "scale"), ("b", "b"))}
@@ -133,22 +204,37 @@ def fold_for_kernel(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
 
 
 def _want(features: int, hidden: int) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
+    """Every operand's shape and type: the plain versions' and then the
+    kernels' own (``stream``, ``vec`` = s1, b1, s2, b2 and ``w3p``, padded)."""
     f32, i8 = torch.float32, torch.int8
+    p = plan(features, hidden)
+    stream = p["hp"] * p["ld1"] + p["hp"] * (p["hp"] + 16 * p["slices"])
     return {
         "mu": ((features,), f32), "sigma": ((features,), f32),
-        "w1t": ((hidden, K_PAD), i8), "s1": ((hidden,), f32), "b1": ((hidden,), f32),
+        "w1t": ((hidden, -(-features // MMA_K) * MMA_K), i8),
+        "s1": ((hidden,), f32), "b1": ((hidden,), f32),
         "w2t": ((hidden, hidden), i8), "s2": ((hidden,), f32), "b2": ((hidden,), f32),
         "w3": ((hidden,), i8), "s3": ((1,), f32), "b3": ((1,), f32),
+        "stream": ((stream,), i8), "vec": ((4, p["hp"]), f32), "w3p": ((p["hp"],), i8),
     }
 
 
 def pack_for_kernel(folded: Mapping[str, torch.Tensor],
                     device: "str | torch.device") -> dict[str, torch.Tensor]:
-    """Folded weights -> the kernels' operands on ``device``: fresh
-    contiguous tensors, so a publish never aliases the caller's."""
+    """Folded weights -> the operands on ``device``: fresh contiguous
+    tensors, so a publish never aliases the caller's."""
     features, hidden = folded["mu"].shape[0], folded["w2t"].shape[0]
     check_shapes(features, hidden)
-    return {k: folded[k].to(dtype).contiguous().to(device, copy=True)
+    hp = plan(features, hidden)["hp"]
+    vec = torch.zeros((4, hp), dtype=torch.float32)
+    for i, k in enumerate(("s1", "b1", "s2", "b2")):
+        vec[i, :hidden] = folded[k]
+    w3p = torch.zeros(hp, dtype=torch.int8)
+    w3p[:hidden] = folded["w3"]
+    kernel = {"stream": pack_stream(folded["w1t"], folded["w2t"], features),
+              "vec": vec, "w3p": w3p}
+    return {k: (kernel[k] if k in kernel else folded[k]).to(dtype).contiguous()
+            .to(device, copy=True)
             for k, (_shape, dtype) in _want(features, hidden).items()}
 
 
@@ -204,22 +290,35 @@ def fused_mlp_q8_preq_reference(kp: Mapping[str, torch.Tensor], q: torch.Tensor,
 
 @functools.cache
 def _kernel_entries():
-    """The two bound C entries and CUDA's error-string lookup; builds the
-    kernel library on first use."""
+    """The bound C entries (B2, B3, plan) and CUDA's error-string lookup;
+    builds the kernel library on first use."""
     from ccfd_tpu_torch.ops import _build
 
     lib = _build.load("fused_mlp_q8")
     p, i = ctypes.c_void_p, ctypes.c_int
     full = lib.ccfd_fused_mlp_q8
-    full.argtypes = [p] * 14 + [i] * 3 + [p]
+    full.argtypes = [p] * 10 + [i] * 3 + [p]
     full.restype = i
     preq = lib.ccfd_fused_mlp_q8_preq
-    preq.argtypes = [p] * 13 + [i] * 3 + [p]
+    preq.argtypes = [p] * 9 + [i] * 3 + [p]
     preq.restype = i
+    plan_fn = lib.ccfd_fused_mlp_q8_plan
+    plan_fn.argtypes = [i, i, ctypes.POINTER(ctypes.c_int)]
+    plan_fn.restype = i
     err = lib.ccfd_q8_cuda_error_string
     err.argtypes = [i]
     err.restype = ctypes.c_char_p
-    return full, preq, err
+    return full, preq, plan_fn, err
+
+
+def kernel_plan(features: int, hidden: int) -> dict[str, int]:
+    """``plan`` as the built CUDA library computes it (needs nvcc; the card
+    is not touched): ``chip_smoke.py`` holds it against ``plan``."""
+    plan_fn = _kernel_entries()[2]
+    out = (ctypes.c_int * 7)()
+    if plan_fn(features, hidden, out) != 0:
+        raise ValueError(f"the kernels do not take F={features}, H={hidden}")
+    return dict(zip(("k1p", "hp", "rows", "chunks", "stages", "resident", "smem"), out))
 
 
 def _check_weights(kp: Mapping[str, torch.Tensor], device: torch.device) -> tuple[int, int]:
@@ -236,12 +335,16 @@ def _check_weights(kp: Mapping[str, torch.Tensor], device: torch.device) -> tupl
     return features, hidden
 
 
-def _check_rows(t: torch.Tensor, what: str, dtype: torch.dtype, width: int) -> None:
+def _check_rows(t: torch.Tensor, what: str, dtype: torch.dtype,
+                width: int) -> torch.Tensor:
+    """``t`` checked, and copied when it does not start 16-byte aligned (a
+    row slice at any offset): the kernels bulk-copy its tiles."""
     if (t.dtype != dtype or t.dim() != 2 or t.shape[1] != width
             or not t.is_contiguous()):
         raise ValueError(
             f"{what} must be a contiguous (B, {width}) {dtype} tensor, got "
             f"{t.dtype} {tuple(t.shape)} contiguous={t.is_contiguous()}")
+    return t.clone() if t.data_ptr() % 16 else t
 
 
 def _outputs(batch: int, device: torch.device, with_logits: bool):
@@ -258,7 +361,7 @@ def _raise_on(rc: int, err, which: str) -> None:
 
 def fused_mlp_q8_score(kp: Mapping[str, torch.Tensor], x: torch.Tensor,
                        with_logits: bool = False):
-    """B2: (B, F<=32) f32 rows -> (B,) float32 proba (and logits when
+    """B2: (B, F<=128) f32 rows -> (B,) float32 proba (and logits when
     ``with_logits``). Any B: the kernel masks the ragged last tile.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
@@ -269,17 +372,15 @@ def fused_mlp_q8_score(kp: Mapping[str, torch.Tensor], x: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"fused_mlp_q8_score runs on cuda or cpu, not {x.device}")
     features, hidden = _check_weights(kp, x.device)
-    _check_rows(x, "x", INPUT_DTYPE, features)
+    x = _check_rows(x, "x", INPUT_DTYPE, features)
     batch = x.shape[0]
     proba, z = _outputs(batch, x.device, with_logits)
     if batch:
-        full, _preq, err = _kernel_entries()
+        full, _preq, _plan, err = _kernel_entries()
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = full(x.data_ptr(), kp["mu"].data_ptr(), kp["sigma"].data_ptr(),
-                  kp["w1t"].data_ptr(), kp["s1"].data_ptr(), kp["b1"].data_ptr(),
-                  kp["w2t"].data_ptr(), kp["s2"].data_ptr(), kp["b2"].data_ptr(),
-                  kp["w3"].data_ptr(), kp["s3"].data_ptr(), kp["b3"].data_ptr(),
-                  proba.data_ptr(), z.data_ptr() if z is not None else None,
+                  kp["stream"].data_ptr(), kp["vec"].data_ptr(), kp["w3p"].data_ptr(),
+                  kp["s3"].data_ptr(), kp["b3"].data_ptr(), proba.data_ptr(), z.data_ptr() if z is not None else None,
                   batch, features, hidden, stream)
         _raise_on(rc, err, "fused_mlp_q8")
         launches.inc()
@@ -288,7 +389,7 @@ def fused_mlp_q8_score(kp: Mapping[str, torch.Tensor], x: torch.Tensor,
 
 def fused_mlp_q8_score_preq(kp: Mapping[str, torch.Tensor], q: torch.Tensor,
                             s: torch.Tensor, with_logits: bool = False):
-    """B3: (B, F<=32) int8 rows and their (B, 1) f32 scales (from
+    """B3: (B, F<=128) int8 rows and their (B, 1) f32 scales (from
     ``prequantize_rows_numpy``) -> (B,) float32 proba (and logits).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
@@ -301,20 +402,19 @@ def fused_mlp_q8_score_preq(kp: Mapping[str, torch.Tensor], q: torch.Tensor,
             f"fused_mlp_q8_score_preq runs on cuda or cpu, with q and s on one "
             f"device, not {q.device} and {s.device}")
     features, hidden = _check_weights(kp, q.device)
-    _check_rows(q, "q", torch.int8, features)
-    _check_rows(s, "s", torch.float32, 1)
+    q = _check_rows(q, "q", torch.int8, features)
+    s = _check_rows(s, "s", torch.float32, 1)
     batch = q.shape[0]
     if s.shape[0] != batch:
         raise ValueError(f"q has {batch} rows but s has {s.shape[0]}")
     proba, z = _outputs(batch, q.device, with_logits)
     if batch:
-        _full, preq, err = _kernel_entries()
+        _full, preq, _plan, err = _kernel_entries()
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = preq(q.data_ptr(), s.data_ptr(),
-                  kp["w1t"].data_ptr(), kp["s1"].data_ptr(), kp["b1"].data_ptr(),
-                  kp["w2t"].data_ptr(), kp["s2"].data_ptr(), kp["b2"].data_ptr(),
-                  kp["w3"].data_ptr(), kp["s3"].data_ptr(), kp["b3"].data_ptr(),
-                  proba.data_ptr(), z.data_ptr() if z is not None else None,
+        rc = preq(q.data_ptr(), s.data_ptr(), kp["stream"].data_ptr(),
+                  kp["vec"].data_ptr(), kp["w3p"].data_ptr(), kp["s3"].data_ptr(),
+                  kp["b3"].data_ptr(), proba.data_ptr(),
+                  z.data_ptr() if z is not None else None,
                   batch, features, hidden, stream)
         _raise_on(rc, err, "fused_mlp_q8_preq")
         launches_preq.inc()

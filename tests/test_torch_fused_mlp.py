@@ -94,12 +94,69 @@ def test_ragged_batch_matches_jax_kernel_on_padded_batch(rows):
     np.testing.assert_allclose(p, ref, rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("hidden", [8, 40, 272, 512])
-def test_unsupported_hidden_raises(rows, hidden):
-    tree = mlp_tree(rows, hidden=hidden, seed=4)
-    folded = fused_mlp.fold_for_kernel(from_jax_params(tree))
-    with pytest.raises(ValueError, match="multiple of 16"):
-        fused_mlp.pack_for_kernel(folded, "cpu")
+def _wide(rows: np.ndarray, features: int) -> np.ndarray:
+    """``rows`` widened (or cut) to ``features`` columns by repeating them."""
+    reps = -(-features // rows.shape[1])
+    return np.ascontiguousarray(np.concatenate([rows] * reps, axis=1)[:, :features])
+
+
+@pytest.mark.parametrize("features,hidden", [
+    (30, 8), (30, 40), (30, 272), (30, 512), (30, 1024), (40, 48), (128, 256)])
+def test_plain_version_matches_jax_kernel_at_lifted_widths(rows, features, hidden):
+    """Every width the reference's kernel serves: any H up to 1,024 and F
+    up to its 128-lane bound."""
+    x = _wide(rows[:64], features)
+    tree = mlp_tree(x, hidden=hidden, seed=4)
+    ref = _jax_kernel(tree, x, tile=64)
+    p, z = _port(tree, x)
+    np.testing.assert_allclose(p, ref, rtol=0, atol=1e-5)
+    assert np.isfinite(z).all()
+
+
+@pytest.mark.parametrize("features,hidden,match", [
+    (129, 64, "at most 128 features"), (30, 1025, "at most 1024"),
+    (30, 2048, "at most 1024")])
+def test_widths_past_the_limits_raise(rows, features, hidden, match):
+    tree = mlp_tree(_wide(rows[:8], features), hidden=hidden, seed=4)
+    with pytest.raises(ValueError, match=match):
+        fused_mlp.fold_for_kernel(from_jax_params(tree))
+
+
+@pytest.mark.parametrize("features,hidden", [(30, 256), (40, 48), (128, 1024), (16, 272)])
+def test_stream_lays_out_the_weights_as_the_kernel_reads_them(features, hidden):
+    """Each W element sits at the offset of the source's swizzle formula,
+    and undoing the layout gives W back."""
+    rng = np.random.default_rng(features * hidden)
+    w1 = torch.from_numpy(rng.normal(size=(-(-features // 16) * 16, hidden)).astype(np.float32))
+    w2 = torch.from_numpy(rng.normal(size=(hidden, hidden)).astype(np.float32))
+    stream = fused_mlp.pack_stream(w1, w2)
+    plan = fused_mlp.plan(features, hidden)
+    assert stream.dtype == torch.uint8
+    assert stream.numel() == (plan["k1p"] + plan["hp"]) * plan["hp"] * 2
+    as_bf16 = stream.view(torch.bfloat16)
+    for layer, w in ((1, w1), (2, w2)):
+        k, n = np.meshgrid(np.arange(w.shape[0]), np.arange(w.shape[1]), indexing="ij")
+        off = fused_mlp.stream_offset(layer, k, n, features, hidden)
+        assert (off % 2 == 0).all()
+        got = as_bf16[torch.from_numpy(off // 2)]
+        assert torch.equal(got, w.to(torch.bfloat16))
+    # every other byte of the stream is padding, and zero
+    assert torch.count_nonzero(as_bf16).item() == (
+        torch.count_nonzero(w1.to(torch.bfloat16)) + torch.count_nonzero(w2.to(torch.bfloat16)))
+
+
+def test_plan_fits_every_width_in_shared_memory():
+    """The layout the CUDA source computes (``make_layout``): every F up to
+    128 and H up to 1,024 fits one block with at least two ring stages, and
+    the served model (F=30, H=256) keeps its weights resident."""
+    for features in (1, 16, 30, 64, 65, 128):
+        for hidden in range(1, fused_mlp.MAX_HIDDEN + 1):
+            p = fused_mlp.plan(features, hidden)
+            assert p["stages"] >= 2 and p["smem"] <= fused_mlp.SMEM_LIMIT
+    served = fused_mlp.plan(30, 256)
+    assert served == {"k1p": 64, "hp": 256, "chunks": 5, "stages": 5,
+                      "resident": 1, "smem": 210_944}
+    assert fused_mlp.plan(128, 1024)["stages"] == 2
 
 
 def test_fold_rejects_wrong_depth(rows):
@@ -113,7 +170,9 @@ def test_pack_gives_kernel_types(rows):
         fused_mlp.fold_for_kernel(from_jax_params(mlp_tree(rows, hidden=64))), "cpu")
     want = {"w1": ((32, 64), torch.bfloat16), "b1": ((64,), torch.float32),
             "w2": ((64, 64), torch.bfloat16), "b2": ((64,), torch.float32),
-            "w3": ((64,), torch.bfloat16), "b3": ((1,), torch.float32)}
+            "w3": ((64,), torch.bfloat16), "b3": ((1,), torch.float32),
+            "stream": (((64 + 128) * 128 * 2,), torch.uint8),
+            "vec": ((3, 128), torch.float32)}
     assert {k: (tuple(v.shape), v.dtype) for k, v in kp.items()} == want
     assert all(v.is_contiguous() for v in kp.values())
 

@@ -139,14 +139,19 @@ def test_fold_lays_out_the_kernel_weights(rows):
     np.testing.assert_array_equal(got["sigma"].numpy(), tree["norm"]["sigma"])
 
 
+def _wide(rows: np.ndarray, features: int) -> np.ndarray:
+    """``rows`` widened to ``features`` columns by repeating them."""
+    reps = -(-features // rows.shape[1])
+    return np.ascontiguousarray(np.concatenate([rows] * reps, axis=1)[:, :features])
+
+
 def _bad(rows, kind: str) -> dict:
     if kind == "unquantized":
         return to_numpy(load_params())
     if kind == "depth2":
         return quant.quantize_mlp(mlp_tree(rows, hidden=64, depth=2))
-    if kind == "features40":
-        wide = np.concatenate([rows, rows[:, :10]], axis=1)
-        return quant.quantize_mlp(mlp_tree(wide, hidden=64))
+    if kind == "features129":
+        return quant.quantize_mlp(mlp_tree(_wide(rows, 129), hidden=64))
     if kind == "last1152":  # the reference's case: a last layer over the bound
         qp = quant.quantize_mlp(mlp_tree(rows, hidden=64))
         qp["layers"][2] = {"wq": torch.ones((1152, 1), dtype=torch.int8),
@@ -159,23 +164,66 @@ def _bad(rows, kind: str) -> dict:
     ("unquantized", "3-layer quantized"),
     ("depth2", "3-layer quantized"),
     ("last1152", "1040"),
-    ("features40", "at most 32 features"),
-    ("hidden48", "multiple of 32"),
-    ("hidden16", "multiple of 32"),
-    ("hidden320", r"\[32, 288\]"),
+    ("features129", "at most 128 features"),
+    ("hidden1088", "1040"),
 ])
 def test_fold_refuses_what_the_kernels_do_not_take(rows, kind, match):
     with pytest.raises(ValueError, match=match):
         fused_mlp_q8.fold_for_kernel(_bad(rows, kind))
 
 
-def test_shared_memory_sets_the_widest_hidden_layer():
-    assert fused_mlp_q8.MAX_HIDDEN == 288
-    assert fused_mlp_q8.smem_bytes(288) <= fused_mlp_q8.SMEM_LIMIT
-    assert fused_mlp_q8.smem_bytes(320) > fused_mlp_q8.SMEM_LIMIT
-    assert fused_mlp_q8.smem_bytes(256) == 174_848  # the CUDA source's figure
-    fused_mlp_q8.fold_for_kernel(quant.quantize_mlp(
-        mlp_tree(np.ones((4, 30), np.float32), hidden=288)))
+@pytest.mark.parametrize("features,hidden", [
+    (40, 64), (30, 16), (30, 48), (30, 320), (30, 1040), (128, 256)])
+def test_plain_b2_and_b3_match_jax_kernels_at_lifted_widths(rows, features, hidden):
+    """Every width the reference's kernels serve: F up to its 128-lane
+    bound, any H up to its integer-exact bound of 1,040."""
+    x = _wide(rows[:64], features)
+    tree = mlp_tree(x, hidden=hidden, seed=hidden)
+    jkp, kp, jqp = _kps(tree)
+    eager = _eager_apply(jqp, x)
+    p2 = fused_mlp_q8.fused_mlp_q8_score(kp, torch.from_numpy(x)).numpy()
+    assert_matches_jax(p2, eager, _jax_b2(jkp, x, tile=64))
+    q, s = fused_mlp_q8.prequantize_rows_numpy(kp, x)
+    p3 = fused_mlp_q8.fused_mlp_q8_score_preq(kp, torch.from_numpy(q), torch.from_numpy(s))
+    assert_matches_jax(p3.numpy(), eager, _jax_b3(jkp, q, s, tile=64))
+    np.testing.assert_allclose(p3.numpy(), p2, rtol=0, atol=1e-6)
+
+
+def test_plan_fits_every_width_in_shared_memory():
+    """The layout the CUDA source computes (``make_layout``): every F up to
+    128 and H up to 1,040 fits one block with at least two ring stages;
+    the served model (F=30, H=256) scores 64-row tiles with its weights
+    resident, and the widest models 32-row tiles."""
+    for features in (1, 30, 32, 33, 64, 128):
+        for hidden in range(16, fused_mlp_q8.MAX_EXACT_HIDDEN + 1):
+            p = fused_mlp_q8.plan(features, hidden)
+            assert p["stages"] >= 2 and p["smem"] <= fused_mlp_q8.SMEM_LIMIT
+            assert p["rows"] in (64, 32)
+    served = fused_mlp_q8.plan(30, 256)
+    assert (served["rows"], served["chunks"], served["stages"], served["resident"],
+            served["smem"]) == (64, 5, 5, 1, 184_064)
+    assert fused_mlp_q8.plan(30, 1040)["rows"] == 32
+    assert fused_mlp_q8.plan(128, 1040)["smem"] == 232_192
+
+
+@pytest.mark.parametrize("features,hidden", [(30, 256), (40, 48), (128, 1040), (30, 600)])
+def test_stream_lays_out_the_weights_as_the_kernels_read_them(features, hidden):
+    """Each W element sits at the offset of the source's layout, and the
+    rest of the stream is zero padding."""
+    rng = np.random.default_rng(features + hidden)
+    w1t = torch.from_numpy(rng.integers(-127, 128, (hidden, -(-features // 32) * 32),
+                                        dtype=np.int8))
+    w1t[:, features:] = 0
+    w2t = torch.from_numpy(rng.integers(-127, 128, (hidden, hidden), dtype=np.int8))
+    stream = fused_mlp_q8.pack_stream(w1t, w2t, features)
+    assert stream.dtype == torch.int8
+    assert tuple(stream.shape) == fused_mlp_q8._want(features, hidden)["stream"][0]
+    for layer, wt in ((1, w1t), (2, w2t)):
+        n, k = np.meshgrid(np.arange(wt.shape[0]), np.arange(wt.shape[1]), indexing="ij")
+        off = fused_mlp_q8.stream_offset(layer, k, n, features, hidden)
+        assert torch.equal(stream[torch.from_numpy(off)], wt)
+    assert torch.count_nonzero(stream).item() == (
+        torch.count_nonzero(w1t) + torch.count_nonzero(w2t)).item()
 
 
 def test_pack_gives_kernel_types(rows):
@@ -185,7 +233,9 @@ def test_pack_gives_kernel_types(rows):
     want = {"mu": ((30,), f32), "sigma": ((30,), f32),
             "w1t": ((64, 32), i8), "s1": ((64,), f32), "b1": ((64,), f32),
             "w2t": ((64, 64), i8), "s2": ((64,), f32), "b2": ((64,), f32),
-            "w3": ((64,), i8), "s3": ((1,), f32), "b3": ((1,), f32)}
+            "w3": ((64,), i8), "s3": ((1,), f32), "b3": ((1,), f32),
+            "stream": ((64 * 48 + 64 * 80,), i8), "vec": ((4, 64), f32),
+            "w3p": ((64,), i8)}
     assert {k: (tuple(v.shape), v.dtype) for k, v in kp.items()} == want
     assert all(v.is_contiguous() for v in kp.values())
 

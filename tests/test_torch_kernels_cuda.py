@@ -5,8 +5,10 @@ never at import. On the card:
 
     python -m pytest -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerance 1e-3 in probability: the kernel sums in another order than the
-plain version, and a bf16 rounding of h may then flip one ulp.
+Tolerance 1e-3 in probability up to H=256: the kernel sums in another
+order than the plain version, and a bf16 rounding of h may then flip one
+ulp. Wider, the flips grow with H and add to z like a random walk, so the
+bar grows as sqrt(H / 256) (chip_smoke.py b1_tol_p).
 """
 
 import numpy as np
@@ -39,23 +41,76 @@ def _kp(params, dev):
 
 def _random_params(rows, hidden, seed=0):
     g = torch.Generator().manual_seed(seed)
-    return mlp.set_normalizer(mlp.init(g, hidden=hidden), rows.mean(0), rows.std(0))
+    return mlp.set_normalizer(mlp.init(g, num_features=rows.shape[1], hidden=hidden),
+                              rows.mean(0), rows.std(0))
 
 
-@pytest.mark.parametrize("hidden", [16, 64, 256])
-@pytest.mark.parametrize("batch", [1, 63, 64, 100, 4096])
-def test_kernel_matches_plain_version(dev, rows, hidden, batch):
-    kp = _kp(_random_params(rows, hidden, seed=hidden), dev)
-    x = torch.from_numpy(rows[:batch]).to(torch.bfloat16).to(dev)
+def _wide(rows, features):
+    reps = -(-features // rows.shape[1])
+    return np.ascontiguousarray(np.concatenate([rows] * reps, axis=1)[:, :features])
+
+
+def _check(kp, x, tol_p=None):
+    if tol_p is None:
+        tol_p = 1e-3 * max(1.0, kp["w2"].shape[0] / 256) ** 0.5
     before = fused_mlp.launches.value
     p, z = fused_mlp.fused_mlp_score(kp, x, with_logits=True)
     assert fused_mlp.launches.value == before + 1
     p_ref, z_ref = fused_mlp.fused_mlp_reference(kp, x)
     torch.cuda.synchronize()
-    assert p.shape == (batch,) and torch.isfinite(p).all()
-    assert (p - p_ref).abs().max().item() <= 1e-3
+    assert p.shape == (x.shape[0],) and torch.isfinite(p).all()
+    assert (p - p_ref).abs().max().item() <= tol_p
     assert (z - z_ref).abs().max().item() <= 1e-2 * max(1.0, z_ref.abs().max().item())
     assert torch.equal(p >= 0.5, p_ref >= 0.5)
+
+
+@pytest.mark.parametrize("hidden", [16, 48, 256, 272, 1024])
+@pytest.mark.parametrize("batch", [1, 16, 63, 64, 100, 4096, 16384])
+def test_kernel_matches_plain_version(dev, rows, hidden, batch):
+    kp = _kp(_random_params(rows, hidden, seed=hidden), dev)
+    _check(kp, torch.from_numpy(rows[:batch]).to(torch.bfloat16).to(dev))
+
+
+@pytest.mark.parametrize("features,hidden", [(128, 256), (128, 1024), (40, 48)])
+@pytest.mark.parametrize("batch", [1, 100, 16384])
+def test_kernel_at_wide_features(dev, rows, features, hidden, batch):
+    """Bar 2e-3: the tensor cores accumulate each 16-deep step less
+    precisely than the plain version's f32 multiply-adds. Against an f64
+    evaluation with the same rounding points, the kernel lay up to twice as
+    far as the plain version on the card: 1.0e-3 against 4.7e-4 at F=40,
+    H=48; 1.5e-3 against 1.1e-3 at F=128, H=1024 (16,384 rows)."""
+    x = _wide(rows[:batch], features)
+    kp = _kp(_random_params(x, hidden, seed=features), dev)
+    _check(kp, torch.from_numpy(x).to(torch.bfloat16).to(dev), tol_p=2e-3)
+
+
+@pytest.mark.parametrize("hidden", [256, 1024])
+def test_rows_do_not_depend_on_the_tiles_a_block_walks(dev, rows, hidden):
+    """The same rows at B and at B + 64 x SMs: in the second launch every
+    block walks one more tile, and each row's result is bit for bit the same."""
+    kp = _kp(_random_params(rows, hidden, seed=3), dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    x = torch.from_numpy(rows[:1000 + 64 * sms]).to(torch.bfloat16).to(dev)
+    few = fused_mlp.fused_mlp_score(kp, x[:1000].contiguous())
+    many = fused_mlp.fused_mlp_score(kp, x)
+    torch.cuda.synchronize()
+    assert torch.equal(few, many[:1000])
+
+
+def test_a_row_slice_at_any_offset_scores_the_same(dev, rows):
+    """Rows that start at an offset the bulk copies cannot take (77 rows of
+    60 bytes in) are copied first and score as the whole batch does."""
+    kp = _kp(load_params(), dev)
+    x = torch.from_numpy(rows[:1000]).to(torch.bfloat16).to(dev)
+    whole = fused_mlp.fused_mlp_score(kp, x)
+    part = fused_mlp.fused_mlp_score(kp, x[77:300])
+    torch.cuda.synchronize()
+    assert x[77:300].data_ptr() % 16 and torch.equal(whole[77:300], part)
+
+
+def test_plan_of_the_built_kernel_matches_the_python_mirror(dev):
+    for features, hidden in ((30, 256), (30, 1024), (128, 1024), (1, 1), (40, 48), (65, 300)):
+        assert fused_mlp.kernel_plan(features, hidden) == fused_mlp.plan(features, hidden)
 
 
 def test_kernel_on_checkpoint(dev, rows):

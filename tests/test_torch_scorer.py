@@ -127,8 +127,20 @@ def test_default_device_is_the_card_and_raises_without_one(data):
 
 def test_unsupported_hidden_width_raises(data):
     X, _ = data
-    with pytest.raises(ValueError, match="multiple of 16"):
-        Scorer(params=mlp_tree(X, hidden=40), device="cpu")
+    with pytest.raises(ValueError, match="at most 1024"):
+        Scorer(params=mlp_tree(X, hidden=1025), device="cpu")
+
+
+@pytest.mark.parametrize("hidden", [40, 512])
+def test_serves_a_wide_model_like_the_jax_scorer(data, hidden):
+    """Hidden widths the reference serves and the port once refused."""
+    X, _ = data
+    tree = mlp_tree(X, hidden=hidden, seed=13)
+    ref = JaxScorer(model_name="mlp", params=tree, batch_sizes=(16, 128),
+                    use_fused=True, host_tier_rows=0).score(X[:100])
+    s = Scorer(params=from_jax_params(tree), batch_sizes=(16, 128), device="cpu")
+    assert s.fused
+    np.testing.assert_allclose(s.score(X[:100]), ref, rtol=0, atol=1e-5)
 
 
 def test_warmup_runs_every_bucket_without_counting(data):

@@ -98,7 +98,7 @@ def test_swap_params_refolds_the_quantization_grid(data):
     new["norm"]["sigma"] = new["norm"]["sigma"] * 2.0
     s.swap_params(quant.quantize_mlp(new))
     np.testing.assert_allclose(s.score(X[:64]), _jax_apply(new, X[:64]), rtol=0, atol=1e-5)
-    for bad in (new, quant.quantize_mlp(mlp_tree(X, hidden=40))):  # f32 tree; hidden 40
+    for bad in (new, quant.quantize_mlp(mlp_tree(X, hidden=1088))):  # f32 tree; too wide
         with pytest.raises(ValueError):
             s.swap_params(bad)
     np.testing.assert_allclose(s.score(X[:64]), _jax_apply(new, X[:64]), rtol=0, atol=1e-5)
