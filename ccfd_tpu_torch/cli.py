@@ -4,6 +4,10 @@
                                  [--host H] [--port N]
   python -m ccfd_tpu_torch quantize --out PATH [--params PATH]
                                     [--test-frac F] [--device cuda|cpu]
+  python -m ccfd_tpu_torch demo [--transactions N] [--rate R]
+                                [--reply-timeout S] [--drain-s S]
+                                [--wire-format dict|csv] [--seed N]
+                                [--params PATH] [--device cuda|cpu]
 
 ``serve`` is the Seldon-contract REST scorer of the reference's
 ``python -m ccfd_tpu serve``: it serves the committed checkpoint
@@ -22,15 +26,27 @@ sample of the training dataset (the Kaggle-shaped surrogate, or the CSV at
 CCFD_CSV; CCFD_SURROGATE_ROWS shrinks the surrogate). The f32 side runs the
 served ``mlp`` graph on ``--device`` (the card by default), the int8 side
 the host-tier forward, as the reference does.
+
+``demo`` is the reference's ``python -m ccfd_tpu demo``: the decision
+pipeline in one process, producer -> bus -> router -> Scorer -> rules ->
+process engine -> notification service (``build_pipeline``). It serves
+params instead of training them (the committed checkpoint, or
+``--params``), so the summary has no ``retrain_swaps``; the transactions
+are the checkpoint's own training distribution (the Kaggle-shaped
+surrogate), or the CSV at CCFD_CSV; ``backend`` names the torch device.
+CCFD_FUSED_DECISION=1 wires the decision plane (serving/fused.py) into the
+router, as the reference's operator does; CCFD_MODEL picks the model.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
 import time
+from typing import Any
 
 from ccfd_tpu_torch.config import Config
 
@@ -41,20 +57,185 @@ def build_server(cfg: Config, device: str | None = None,
     listening): params from ``params_path`` (default: the committed
     checkpoint; quantized when the model is ``mlp_q8`` and they are f32),
     a ``Scorer`` on ``device`` (default: the card)."""
-    from ccfd_tpu_torch.ops import quant
-    from ccfd_tpu_torch.params import DEFAULT_PARAMS, load_params
     from ccfd_tpu_torch.serving.scorer import Scorer
     from ccfd_tpu_torch.serving.server import PredictionServer
 
-    params = load_params(params_path or DEFAULT_PARAMS)
-    if cfg.model_name == "mlp_q8" and not quant.is_quantized(params):
-        params = quant.quantize_mlp(params)
+    params = served_params(cfg, params_path)
     scorer = Scorer(model_name=cfg.model_name, params=params,
                     batch_sizes=cfg.batch_sizes,
                     compute_dtype=cfg.compute_dtype, device=device,
                     q8_wire=cfg.q8_wire)
     scorer.warmup()
     return PredictionServer(scorer, cfg)
+
+
+def served_params(cfg: Config, params_path: str | None = None) -> dict:
+    """The params ``serve`` and ``demo`` serve: ``params_path`` (default:
+    the committed checkpoint), quantized when the model is ``mlp_q8`` and
+    they are f32."""
+    from ccfd_tpu_torch.ops import quant
+    from ccfd_tpu_torch.params import DEFAULT_PARAMS, load_params
+
+    params = load_params(params_path or DEFAULT_PARAMS)
+    if cfg.model_name == "mlp_q8" and not quant.is_quantized(params):
+        params = quant.quantize_mlp(params)
+    return params
+
+
+@dataclasses.dataclass
+class Pipeline:
+    """The decision pipeline ``build_pipeline`` wires, with its registries
+    and, when armed, the decision plane (``decision``)."""
+
+    cfg: Config
+    broker: Any
+    scorer: Any
+    engine: Any
+    router: Any
+    notify: Any
+    producer: Any
+    decision: Any
+    reg_router: Any
+    reg_kie: Any
+    reg_notify: Any
+    _threads: list = dataclasses.field(default_factory=list)
+
+    def start(self, poll_timeout_s: float = 0.02) -> None:
+        """The router's pipelined loop and the notification service, each
+        on its own thread."""
+        self._threads = [self.router.start(poll_timeout_s=poll_timeout_s),
+                         self.notify.start(poll_timeout_s=poll_timeout_s)]
+
+    def stop(self, timeout_s: float = 30.0) -> None:
+        """Stop both loops and wait for them (the router routes the batch it
+        has in flight first)."""
+        self.router.stop()
+        self.notify.stop()
+        for t in self._threads:
+            t.join(timeout=timeout_s)
+        alive = [t.name for t in self._threads if t.is_alive()]
+        self._threads = []
+        if alive:
+            raise RuntimeError(f"pipeline threads did not stop: {alive}")
+
+    def summary(self) -> dict:
+        """The reference demo's summary counters."""
+        rr, kie = self.reg_router, self.reg_kie
+        out = rr.counter("transaction_outgoing_total")
+        return {
+            "transactions": int(rr.counter("transaction_incoming_total").value()),
+            "fraud_routed": int(out.value({"type": "fraud"})),
+            "standard_routed": int(out.value({"type": "standard"})),
+            "notifications": int(rr.counter("notifications_outgoing_total").value()),
+            "approved_amount_n": kie.histogram("fraud_approved_amount").count(),
+            "rejected_amount_n": kie.histogram("fraud_rejected_amount").count(),
+            "low_amount_auto_n": kie.histogram("fraud_approved_low_amount").count(),
+            "investigations_n": kie.histogram("fraud_investigation_amount").count(),
+            "open_tasks": len(self.engine.tasks()),
+        }
+
+
+def build_pipeline(cfg: Config, dataset: Any = None, device: str | None = None,
+                   params: Any = None, clock: Any = None, seed: int = 0) -> Pipeline:
+    """What ``demo`` runs, not yet started: an in-memory ``Broker``, the
+    three registries, a warmed-up ``Scorer`` on ``device`` (default: the
+    card) serving ``params`` (default: ``served_params(cfg)``), the engine
+    with the fraud and standard processes and a ``ScorerPredictionService``
+    over the same scorer, the ``Router`` (the rules of CCFD_RULES, else
+    the FRAUD_THRESHOLD rule; the decision plane when CCFD_FUSED_DECISION
+    is set), the seeded ``NotificationService`` and a ``Producer`` over
+    ``dataset``. ``clock`` (default: wall clock) drives the engine's
+    timers. Raises ``NotImplementedError`` naming any knob set to a part of
+    the reference this port does not have yet."""
+    from ccfd_tpu_torch.bus.broker import Broker
+    from ccfd_tpu_torch.metrics.prom import Registry
+    from ccfd_tpu_torch.notify.service import NotificationService
+    from ccfd_tpu_torch.process.fraud import build_engine
+    from ccfd_tpu_torch.process.prediction import ScorerPredictionService
+    from ccfd_tpu_torch.producer.producer import Producer
+    from ccfd_tpu_torch.router.router import Router
+    from ccfd_tpu_torch.router.rules import RuleSet, default_rules
+    from ccfd_tpu_torch.serving.fused import FusedDecisionScorer
+    from ccfd_tpu_torch.serving.scorer import Scorer
+
+    unported = cfg.unported()
+    if unported:
+        raise NotImplementedError(
+            "not ported yet, unset to run the pipeline: " + "; ".join(unported))
+    broker = Broker()
+    reg_router, reg_kie, reg_notify = Registry(), Registry(), Registry()
+    scorer = Scorer(model_name=cfg.model_name,
+                    params=served_params(cfg) if params is None else params,
+                    batch_sizes=cfg.batch_sizes, compute_dtype=cfg.compute_dtype,
+                    device=device, q8_wire=cfg.q8_wire)
+    scorer.warmup()
+    engine = build_engine(cfg, broker, reg_kie, clock=clock,
+                          prediction_service=ScorerPredictionService(scorer.score))
+    # one RuleSet instance for the plane and the router (the router
+    # disarms a plane compiled from another)
+    rules = (RuleSet.from_file(cfg.rules_file) if cfg.rules_file
+             else default_rules(cfg.fraud_threshold))
+    decision = None
+    if cfg.fused_decision:
+        fds = FusedDecisionScorer(scorer, rules, registry=reg_router,
+                                  strict=cfg.fused_decision_strict)
+        if fds.enabled:  # refused: the warning said why; staged
+            fds.warmup()
+            scorer.add_prepublish_hook(fds.prepublish)
+            decision = fds
+    router = Router(cfg, broker, scorer.score, engine, reg_router, rules=rules,
+                    decision_fn=decision)
+    notify = NotificationService(cfg, broker, reg_notify, seed=seed)
+    producer = Producer(cfg, broker, dataset)
+    return Pipeline(cfg=cfg, broker=broker, scorer=scorer, engine=engine,
+                    router=router, notify=notify, producer=producer,
+                    decision=decision, reg_router=reg_router, reg_kie=reg_kie,
+                    reg_notify=reg_notify)
+
+
+def run_demo(pipe: Pipeline, transactions: int, rate: float | None = None,
+             wire_format: str = "dict", drain_s: float = 30.0) -> float:
+    """The reference demo's run: start the loops, produce ``transactions``
+    rows, wait until the router has consumed them all (at most
+    ``drain_s``), then one reply timeout and a second more so the engine's
+    timers fire; stop. Returns the wall time in seconds."""
+    pipe.start(poll_timeout_s=0.02)
+    try:
+        t0 = time.perf_counter()
+        pipe.producer.run(limit=transactions, rate_per_s=rate, wire_format=wire_format)
+        incoming = pipe.reg_router.counter("transaction_incoming_total")
+        deadline = time.monotonic() + drain_s
+        while time.monotonic() < deadline and incoming.value() < transactions:
+            time.sleep(0.1)
+        time.sleep(pipe.cfg.customer_reply_timeout_s + 1.0)
+        return time.perf_counter() - t0
+    finally:
+        pipe.stop()
+
+
+def demo_dataset(transactions: int):
+    """The demo's transactions: the CSV at CCFD_CSV, else the Kaggle-shaped
+    surrogate the committed checkpoint was trained on."""
+    from ccfd_tpu_torch.data.ccfd import load_dataset
+    from ccfd_tpu_torch.data.surrogate import kaggle_surrogate
+
+    if os.environ.get("CCFD_CSV"):
+        return load_dataset()
+    return kaggle_surrogate(n=max(transactions, 4000))
+
+
+def cmd_demo(args: argparse.Namespace) -> int:
+    cfg = dataclasses.replace(Config.from_env(), customer_reply_timeout_s=args.reply_timeout)
+    ds = demo_dataset(args.transactions)
+    print(f"[demo] dataset: {ds.n} rows; building the pipeline...", file=sys.stderr)
+    pipe = build_pipeline(cfg, ds, device=args.device, seed=args.seed,
+                          params=served_params(cfg, args.params))
+    elapsed = run_demo(pipe, args.transactions, rate=args.rate,
+                       wire_format=args.wire_format, drain_s=args.drain_s)
+    summary = pipe.summary()
+    summary.update(wall_s=round(elapsed, 2), backend=str(pipe.scorer.device))
+    print(json.dumps(summary))
+    return 0
 
 
 def cmd_serve(args: argparse.Namespace) -> int:
@@ -145,6 +326,20 @@ def build_parser() -> argparse.ArgumentParser:
     q.add_argument("--device", choices=("cuda", "cpu"), default=None,
                    help="where the f32 evidence forward runs (default: the card)")
     q.set_defaults(fn=cmd_quantize)
+    d = sub.add_parser("demo", help="run the decision pipeline in-process")
+    d.add_argument("--transactions", type=int, default=2000)
+    d.add_argument("--rate", type=float, default=None,
+                   help="rows a second (default: as fast as the bus takes them)")
+    d.add_argument("--reply-timeout", type=float, default=2.0,
+                   help="seconds a flagged customer has to reply")
+    d.add_argument("--drain-s", type=float, default=30.0)
+    d.add_argument("--wire-format", choices=("dict", "csv"), default="dict")
+    d.add_argument("--seed", type=int, default=0, help="the customers' replies")
+    d.add_argument("--params", default=None,
+                   help=".npz of MLP or int8 MLP params (default: the committed checkpoint)")
+    d.add_argument("--device", choices=("cuda", "cpu"), default=None,
+                   help="where to score (default: the card)")
+    d.set_defaults(fn=cmd_demo)
     return ap
 
 

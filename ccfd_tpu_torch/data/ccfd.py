@@ -76,6 +76,20 @@ def load_csv(path: str, limit: int | None = None) -> Dataset:
         return parse_csv_rows(iter(csv.reader(f)), limit=limit)
 
 
+def load_csv_bytes(data: bytes, limit: int | None = None) -> Dataset:
+    """Parse an in-memory creditcard.csv."""
+    lines = data.decode("utf-8").splitlines()
+    return parse_csv_rows(iter(csv.reader(lines)), limit=limit)
+
+
+def to_csv_bytes(ds: Dataset) -> bytes:
+    """Serialize a Dataset back to the Kaggle wire format."""
+    out = [",".join(FEATURE_NAMES + (LABEL_NAME,))]
+    for i in range(ds.n):
+        out.append(",".join(repr(float(v)) for v in ds.X[i]) + f",{int(ds.y[i])}")
+    return ("\n".join(out) + "\n").encode()
+
+
 def load_dataset(
     path: str | None = None, n_synthetic: int = 20000, seed: int = 0
 ) -> Dataset:
@@ -89,3 +103,11 @@ def load_dataset(
             )
         return load_csv(path)
     return synthetic_dataset(n=n_synthetic, seed=seed)
+
+
+def iter_transactions(ds: Dataset) -> Iterator[dict]:
+    """Yield transactions as dicts, the wire format the producer emits."""
+    for i in range(ds.n):
+        row = {name: float(ds.X[i, j]) for j, name in enumerate(FEATURE_NAMES)}
+        row["id"] = i
+        yield row

@@ -1,18 +1,23 @@
 """Minimal thread-safe Prometheus metrics with text exposition.
 
 The port's copy of the reference's ccfd_tpu/metrics/prom.py, cut to what
-the REST scorer uses: Counter, Gauge and Histogram with labels, rendered in
-the Prometheus text format, with no global state (each service owns a
-Registry). Each metric admits at most ``labelset_limit`` distinct label
-sets; further ones fold into one overflow series, counted in
-``ccfd_metric_labelsets_dropped_total{metric=...}``.
+the REST scorer and the decision pipeline use: Counter, Gauge and Histogram
+with labels (read back with ``value``, ``count``, ``sum`` and ``quantile``;
+``observe_many`` for a batch; the last exemplar per histogram cell), the
+KIE board's ``AMOUNT_BUCKETS``, rendered in the Prometheus text format,
+with no global state (each service owns a Registry). Each metric admits at
+most ``labelset_limit`` distinct label sets; further ones fold into one
+overflow series, counted in ``ccfd_metric_labelsets_dropped_total{metric=...}``.
 """
 
 from __future__ import annotations
 
 import math
 import threading
+import time
 from typing import Iterable, Mapping, Sequence
+
+import numpy as np
 
 LabelKey = tuple[tuple[str, str], ...]
 
@@ -87,6 +92,15 @@ class _ScalarMetric(_Metric):
             key = self._admit(key, self._values)
             self._values[key] = self._values.get(key, 0.0) + amount
 
+    def value(self, labels: Mapping[str, str] | None = None) -> float:
+        with self._lock:
+            return self._values.get(_labelkey(labels), 0.0)
+
+    def total(self) -> float:
+        """Sum across every label set."""
+        with self._lock:
+            return sum(self._values.values())
+
     def render(self) -> Iterable[str]:
         with self._lock:
             items = sorted(self._values.items())
@@ -117,6 +131,12 @@ DEFAULT_BUCKETS = (
     2.5, 5.0, 10.0, math.inf,
 )
 
+# Amount histograms on the KIE board span transaction amounts, not seconds
+AMOUNT_BUCKETS = (
+    1.0, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0, 500.0, 1000.0, 2500.0,
+    5000.0, 10000.0, math.inf,
+)
+
 
 class Histogram(_Metric):
     kind = "histogram"
@@ -135,16 +155,72 @@ class Histogram(_Metric):
         self.buckets = tuple(b)
         self._counts: dict[LabelKey, list[int]] = {}
         self._sums: dict[LabelKey, float] = {}
+        # last exemplar per (labelset, bucket): (labels, value, unix time)
+        self._exemplars: dict[LabelKey, dict[int, tuple[dict, float, float]]] = {}
 
-    def observe(self, value: float, labels: Mapping[str, str] | None = None) -> None:
+    def observe(self, value: float, labels: Mapping[str, str] | None = None,
+                exemplar: Mapping[str, str] | None = None) -> None:
         key = _labelkey(labels)
         with self._lock:
             key = self._admit(key, self._counts)
             counts = self._counts.setdefault(key, [0] * len(self.buckets))
+            bucket_i = len(self.buckets) - 1
             for i, ub in enumerate(self.buckets):
                 if value <= ub:
                     counts[i] += 1
+                    bucket_i = min(bucket_i, i)
             self._sums[key] = self._sums.get(key, 0.0) + float(value)
+            if exemplar:
+                self._exemplars.setdefault(key, {})[bucket_i] = (
+                    dict(exemplar), float(value), time.time())
+
+    def observe_many(self, values, labels: Mapping[str, str] | None = None) -> None:
+        """Vectorized observe: one numpy pass per batch (the router observes
+        every transaction of a micro-batch at once)."""
+        arr = np.sort(np.asarray(values, dtype=np.float64))
+        if arr.size == 0:
+            return
+        cums = [int(np.searchsorted(arr, ub, side="right")) if ub != math.inf
+                else int(arr.size) for ub in self.buckets]
+        key = _labelkey(labels)
+        with self._lock:
+            key = self._admit(key, self._counts)
+            counts = self._counts.setdefault(key, [0] * len(self.buckets))
+            for i, c in enumerate(cums):
+                counts[i] += c
+            self._sums[key] = self._sums.get(key, 0.0) + float(arr.sum())
+
+    def count(self, labels: Mapping[str, str] | None = None) -> int:
+        with self._lock:
+            counts = self._counts.get(_labelkey(labels))
+            return counts[-1] if counts else 0
+
+    def sum(self, labels: Mapping[str, str] | None = None) -> float:
+        with self._lock:
+            return self._sums.get(_labelkey(labels), 0.0)
+
+    def exemplars(self, labels: Mapping[str, str] | None = None) -> dict:
+        """bucket index -> (exemplar labels, value, unix time)."""
+        with self._lock:
+            return dict(self._exemplars.get(_labelkey(labels), {}))
+
+    def quantile(self, q: float, labels: Mapping[str, str] | None = None) -> float:
+        """Bucket-interpolated quantile (what histogram_quantile() computes)."""
+        with self._lock:
+            counts = list(self._counts.get(_labelkey(labels), []))
+        if not counts or counts[-1] == 0:
+            return float("nan")
+        rank = q * counts[-1]
+        prev_ub, prev_c = 0.0, 0
+        for ub, c in zip(self.buckets, counts):
+            if c >= rank:
+                if ub == math.inf:
+                    return prev_ub
+                span = c - prev_c
+                frac = (rank - prev_c) / span if span else 1.0
+                return prev_ub + (ub - prev_ub) * frac
+            prev_ub, prev_c = ub, c
+        return prev_ub
 
     def render(self) -> Iterable[str]:
         with self._lock:

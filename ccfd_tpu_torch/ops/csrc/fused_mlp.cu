@@ -11,9 +11,9 @@
 //   p  = sigmoid(z)
 //
 // The standardizer is folded into W1/b1 on the host (ops/fused_mlp.py
-// fold_for_kernel). Any H up to 1,024 and any F up to 128 (the reference's
-// lane bound): the host zero-pads F to a multiple of 64 and H to a multiple
-// of 128, which is exact (padded weights, biases and w3 entries are 0, so a
+// fold_for_kernel). Any H and any F up to 128 (the reference's lane
+// bound): the host zero-pads F to a multiple of 64 and H to a multiple of
+// 128, which is exact (padded weights, biases and w3 entries are 0, so a
 // padded column of h is relu(0) = 0 and adds 0 to z).
 //
 // What bounds it: at H = 256 a row costs 2 * (30*256 + 256*256 + 256) =
@@ -48,8 +48,19 @@
 //   columns in a fixed order into a per-(row, part, warpgroup) partial; the
 //   partials are summed in a fixed order, so a row's result does not depend
 //   on the batch or on which block scored it;
-// - shared memory: the ring, h1, the two x tiles, the partials and the
-//   barriers; 232,448 bytes at most, set once per library load.
+// - wider than H = 1,024 the h1 tile no longer fits beside two stages
+//   ("wide" layout). Layer 1's epilogue then writes h1, in bf16 and already
+//   swizzled, to a per-block scratch in global memory that the wrapper
+//   allocates (64 x H x 2 bytes a block: 512 KB at H = 4,096); the consumers
+//   fence it for the async proxy and arrive on an mbarrier, and the
+//   producer, once that barrier completes, streams each 64-column K block
+//   of h1 (8 KB) through the ring beside the W2 chunk it multiplies: a
+//   stage is then 32 KB of chunk + 8 KB of A block. Each warpgroup keeps a
+//   running sum of its columns' h2 * w3 over the parts, in part order. The
+//   h1 blocks are read once per part (H / 256 times a tile), from L2;
+// - shared memory: the ring, h1 (not in the wide layout), the two x tiles,
+//   the partials and the barriers; 232,448 bytes at most, set once per
+//   library load.
 //
 // Entries: ccfd_fused_mlp_bf16 (the launch) and ccfd_fused_mlp_bf16_plan
 // (the layout the launch uses, which ops/fused_mlp.py mirrors), plain C
@@ -73,8 +84,8 @@ constexpr int kHalf = 128;                  // columns one warpgroup owns in a p
 constexpr int kStageBytes = kPart * 128;    // one chunk: 256 rows x 128 bytes
 constexpr int kAtomBytes = kTileRows * 128;  // a 64-row x 64-input A block
 constexpr int kMaxFeatures = 128;
-constexpr int kMaxHidden = 1024;
-constexpr int kMaxParts = kMaxHidden / kPart;
+constexpr int kMaxResidentH1 = 1024;  // widest H whose h1 tile stays in shared memory
+constexpr int kMaxParts = kMaxResidentH1 / kPart;  // partial slots of a row
 constexpr int kMaxStages = 8;
 constexpr int kConsumers = 256;  // two warpgroups
 constexpr int kConsumerWarps = kConsumers / 32;
@@ -83,6 +94,8 @@ constexpr size_t kSmemLimit = 232448;
 
 struct Layout {
   int k1p, hp, parts, k1b, hb, chunks, stages;
+  bool wide;      // h1 goes through global scratch and the ring
+  size_t sbytes;  // one ring stage: a chunk, and in the wide layout an h1 block
   // byte offsets into the dynamic shared memory
   size_t ring, h1, xa, xraw, partial, bars, total;
 };
@@ -97,18 +110,20 @@ __host__ __device__ inline Layout make_layout(int features, int hidden) {
   L.k1b = L.k1p / kKBlock;
   L.hb = L.hp / kKBlock;
   L.chunks = L.parts * (L.k1b + L.hb);
-  const size_t h1 = static_cast<size_t>(kTileRows) * L.hp * 2;
+  L.wide = hidden > kMaxResidentH1;
+  L.sbytes = kStageBytes + (L.wide ? kAtomBytes : 0);
+  const size_t h1 = L.wide ? 0 : static_cast<size_t>(kTileRows) * L.hp * 2;
   const size_t xa = static_cast<size_t>(kTileRows) * L.k1p * 2;
   const size_t xraw = align128(static_cast<size_t>(kTileRows) * features * 2);
   const size_t partial = sizeof(float) * kTileRows * 2 * kMaxParts;
-  const size_t bars = 256;  // 2 * kMaxStages + 2 mbarriers
+  const size_t bars = 256;  // 2 * kMaxStages + 3 mbarriers
   const size_t fixed = h1 + xa + xraw + partial + bars;
-  const int fit = fixed < kSmemLimit ? static_cast<int>((kSmemLimit - fixed) / kStageBytes) : 0;
+  const int fit = fixed < kSmemLimit ? static_cast<int>((kSmemLimit - fixed) / L.sbytes) : 0;
   L.stages = L.chunks < kMaxStages ? L.chunks : kMaxStages;
   if (fit < L.stages) L.stages = fit;
   // swizzled regions first, each a multiple of 1,024 bytes
   L.ring = 0;
-  L.h1 = L.ring + static_cast<size_t>(L.stages) * kStageBytes;
+  L.h1 = L.ring + static_cast<size_t>(L.stages) * L.sbytes;
   L.xa = L.h1 + h1;
   L.xraw = L.xa + xa;
   L.partial = L.xraw + xraw;
@@ -178,7 +193,9 @@ fused_mlp_bf16_kernel(const __nv_bfloat16* __restrict__ x,
                       const unsigned char* __restrict__ wstream,
                       const float* __restrict__ vec,  // (3, hp): b1, b2, w3
                       const float* __restrict__ b3, float* __restrict__ proba,
-                      float* __restrict__ logits, int batch, int features, int hidden) {
+                      float* __restrict__ logits,
+                      unsigned char* __restrict__ h1_scratch,  // wide layout only
+                      int batch, int features, int hidden) {
   extern __shared__ __align__(1024) unsigned char smem[];
   const Layout L = make_layout(features, hidden);
   if (hopper::smem_addr(smem) % 1024 != 0) __trap();  // the swizzle needs it
@@ -190,6 +207,10 @@ fused_mlp_bf16_kernel(const __nv_bfloat16* __restrict__ x,
   uint64_t* empty = full + kMaxStages;
   uint64_t* xfull = empty + kMaxStages;
   uint64_t* xempty = xfull + 1;
+  uint64_t* h1full = xempty + 1;  // wide: this tile's h1 is in the scratch
+  // wide: this block's h1 tile in global memory, laid out as in shared memory
+  unsigned char* h1g =
+      L.wide ? h1_scratch + static_cast<size_t>(blockIdx.x) * kTileRows * L.hp * 2 : nullptr;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int tiles = (batch + kTileRows - 1) / kTileRows;
@@ -202,6 +223,7 @@ fused_mlp_bf16_kernel(const __nv_bfloat16* __restrict__ x,
     }
     hopper::mbar_init(xfull, 1);
     hopper::mbar_init(xempty, kConsumerWarps);
+    hopper::mbar_init(h1full, kConsumerWarps);
     hopper::mbar_init_fence();
   }
   __syncthreads();
@@ -210,7 +232,7 @@ fused_mlp_bf16_kernel(const __nv_bfloat16* __restrict__ x,
     // ---- producer: the x tile, then the weight chunks, tile after tile ----
     if (lane != 0) return;
     int stage = 0;
-    uint32_t phase = 0, xphase = 0;
+    uint32_t phase = 0, xphase = 0, hphase = 0;
     for (int tile = blockIdx.x, it = 0; tile < tiles; tile += gridDim.x, ++it) {
       const int row0 = tile * kTileRows;
       const int rows = min(kTileRows, batch - row0);
@@ -225,6 +247,11 @@ fused_mlp_bf16_kernel(const __nv_bfloat16* __restrict__ x,
       const unsigned char* src = wstream;
       for (int layer = 0; layer < 2; ++layer) {
         const int kblocks = layer == 0 ? L.k1b : L.hb;
+        const bool h1_blocks = layer == 1 && L.wide;
+        if (h1_blocks) {  // the consumers have written this tile's h1
+          hopper::mbar_wait(h1full, hphase);
+          hphase ^= 1;
+        }
         for (int p = 0; p < L.parts; ++p) {
           const uint32_t bytes = static_cast<uint32_t>(min(kPart, L.hp - p * kPart)) * 128;
           for (int kb = 0; kb < kblocks; ++kb) {
@@ -232,9 +259,13 @@ fused_mlp_bf16_kernel(const __nv_bfloat16* __restrict__ x,
             if (resident && it > 0) {
               hopper::mbar_arrive(&full[stage]);  // the chunk is still there
             } else {
-              hopper::mbar_arrive_expect_tx(&full[stage], bytes);
-              hopper::bulk_g2s(ring + static_cast<size_t>(stage) * kStageBytes, src, bytes,
-                               &full[stage]);
+              unsigned char* dst = ring + static_cast<size_t>(stage) * L.sbytes;
+              hopper::mbar_arrive_expect_tx(&full[stage], bytes + (h1_blocks ? kAtomBytes : 0));
+              hopper::bulk_g2s(dst, src, bytes, &full[stage]);
+              if (h1_blocks) {
+                hopper::bulk_g2s(dst + kStageBytes, h1g + static_cast<size_t>(kb) * kAtomBytes,
+                                 kAtomBytes, &full[stage]);
+              }
             }
             src += bytes;
             if (++stage == L.stages) {
@@ -297,9 +328,11 @@ fused_mlp_bf16_kernel(const __nv_bfloat16* __restrict__ x,
     hopper::fence_proxy_async();
     hopper::named_sync(kConsumers);
 
+    float zw0 = 0.0f, zw1 = 0.0f;  // wide: this warpgroup's running sums of h2 * w3
     for (int layer = 0; layer < 2; ++layer) {
       const int kblocks = layer == 0 ? L.k1b : L.hb;
       const uint32_t a_addr = layer == 0 ? xa_addr : h1_addr;
+      const bool h1_blocks = layer == 1 && L.wide;
       for (int p = 0; p < L.parts; ++p) {
         const bool mine = min(kPart, L.hp - p * kPart) > wg * kHalf;
 #pragma unroll
@@ -307,13 +340,15 @@ fused_mlp_bf16_kernel(const __nv_bfloat16* __restrict__ x,
         for (int kb = 0; kb < kblocks; ++kb) {
           hopper::mbar_wait(&full[stage], phase);
           if (mine) {
-            const uint32_t b_addr = ring_addr + stage * kStageBytes + wg * kHalf * 128;
+            const uint32_t s_addr = ring_addr + stage * static_cast<uint32_t>(L.sbytes);
+            const uint32_t b_addr = s_addr + wg * kHalf * 128;
+            // the A block: in shared memory, or (wide) the h1 block beside the chunk
+            const uint32_t ak_addr = h1_blocks ? s_addr + kStageBytes : a_addr + kb * kAtomBytes;
             fence_acc(acc);
             wgmma_fence();
 #pragma unroll
             for (int s = 0; s < kKBlock / 16; ++s) {
-              wgmma_m64n128k16(acc, sw128_desc(a_addr + kb * kAtomBytes + s * 32),
-                               sw128_desc(b_addr + s * 32));
+              wgmma_m64n128k16(acc, sw128_desc(ak_addr + s * 32), sw128_desc(b_addr + s * 32));
             }
             wgmma_commit();
             wgmma_wait_all();
@@ -329,7 +364,9 @@ fused_mlp_bf16_kernel(const __nv_bfloat16* __restrict__ x,
         if (!mine) continue;
         const int col0 = p * kPart + wg * kHalf + 2 * t;
         if (layer == 0) {
-          // h1 = bf16(relu(acc + b1)) into layer 2's A operand
+          // h1 = bf16(relu(acc + b1)) into layer 2's A operand (wide: its
+          // copy in global memory, in the same layout)
+          unsigned char* h1w = L.wide ? h1g : h1;
 #pragma unroll
           for (int j = 0; j < 16; ++j) {
             const int col = col0 + j * 8;
@@ -338,8 +375,8 @@ fused_mlp_bf16_kernel(const __nv_bfloat16* __restrict__ x,
                                                              fmaxf(acc[4 * j + 1] + b.y, 0.0f));
             const __nv_bfloat162 bot = __floats2bfloat162_rn(
                 fmaxf(acc[4 * j + 2] + b.x, 0.0f), fmaxf(acc[4 * j + 3] + b.y, 0.0f));
-            *reinterpret_cast<__nv_bfloat162*>(h1 + a_offset(r0, col, kTileRows)) = top;
-            *reinterpret_cast<__nv_bfloat162*>(h1 + a_offset(r1, col, kTileRows)) = bot;
+            *reinterpret_cast<__nv_bfloat162*>(h1w + a_offset(r0, col, kTileRows)) = top;
+            *reinterpret_cast<__nv_bfloat162*>(h1w + a_offset(r1, col, kTileRows)) = bot;
           }
         } else {
           // h2 = bf16(relu(acc + b2)); each row's sum of h2 * w3 over this
@@ -363,22 +400,40 @@ fused_mlp_bf16_kernel(const __nv_bfloat16* __restrict__ x,
           s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
           s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
           s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
-          if (t == 0) {
+          if (L.wide) {
+            zw0 += s0;
+            zw1 += s1;
+          } else if (t == 0) {
             partial[r0 * 2 * kMaxParts + 2 * p + wg] = s0;
             partial[r1 * 2 * kMaxParts + 2 * p + wg] = s1;
           }
         }
       }
-      if (layer == 0) hopper::fence_proxy_async();
+      if (layer == 0 && L.wide) {
+        // h1's global stores before the producer's bulk copies read them
+        __threadfence();
+        hopper::fence_proxy_async_all();
+        __syncwarp();
+        if (lane == 0) hopper::mbar_arrive(h1full);
+      } else if (layer == 0) {
+        hopper::fence_proxy_async();
+      } else if (L.wide && t == 0) {
+        partial[r0 * 2 * kMaxParts + wg] = zw0;
+        partial[r1 * 2 * kMaxParts + wg] = zw1;
+      }
       hopper::named_sync(kConsumers);
     }
 
     // each row's partials in (part, warpgroup) order, + b3, sigmoid
     if (tid < rows) {
       float z = 0.0f;
-      for (int p = 0; p < L.parts; ++p) {
-        const int prow = min(kPart, L.hp - p * kPart);
-        for (int w = 0; w * kHalf < prow; ++w) z += partial[tid * 2 * kMaxParts + 2 * p + w];
+      if (L.wide) {
+        z = partial[tid * 2 * kMaxParts] + partial[tid * 2 * kMaxParts + 1];
+      } else {
+        for (int p = 0; p < L.parts; ++p) {
+          const int prow = min(kPart, L.hp - p * kPart);
+          for (int w = 0; w * kHalf < prow; ++w) z += partial[tid * 2 * kMaxParts + 2 * p + w];
+        }
       }
       z += b3[0];
       proba[row0 + tid] = 1.0f / (1.0f + expf(-z));
@@ -406,16 +461,15 @@ cudaError_t init_once() {
 }
 
 bool takes(int features, int hidden) {
-  if (features <= 0 || features > kMaxFeatures || hidden <= 0 || hidden > kMaxHidden)
-    return false;
+  if (features <= 0 || features > kMaxFeatures || hidden <= 0) return false;
   const Layout L = make_layout(features, hidden);
   return L.stages >= 2 && L.total <= kSmemLimit;
 }
 
 }  // namespace
 
-// out: k1p, hp, chunks, stages, resident, shared-memory bytes; returns 0, or
-// 1 for a shape the kernel does not take
+// out: k1p, hp, chunks, stages, resident, wide, shared-memory bytes; returns
+// 0, or 1 for a shape the kernel does not take
 extern "C" int ccfd_fused_mlp_bf16_plan(int features, int hidden, int* out) {
   if (!takes(features, hidden)) return static_cast<int>(cudaErrorInvalidValue);
   const Layout L = make_layout(features, hidden);
@@ -424,23 +478,39 @@ extern "C" int ccfd_fused_mlp_bf16_plan(int features, int hidden, int* out) {
   out[2] = L.chunks;
   out[3] = L.stages;
   out[4] = L.stages == L.chunks;
-  out[5] = static_cast<int>(L.total);
+  out[5] = L.wide;
+  out[6] = static_cast<int>(L.total);
   return 0;
 }
 
+// the blocks a launch of ``batch`` rows runs (0 before the first launch
+// has read the SM count): the wide layout's scratch holds one h1 tile each
+extern "C" int ccfd_fused_mlp_bf16_blocks(int batch) {
+  if (init_once() != cudaSuccess) return 0;
+  const int tiles = (batch + kTileRows - 1) / kTileRows;
+  return tiles < g_sms ? tiles : g_sms;
+}
+
+// h1_scratch: the wide layout's per-block h1 tiles, scratch_bytes long (at
+// least blocks * 64 * hp * 2); unused, and may be null, up to H = 1,024
 extern "C" int ccfd_fused_mlp_bf16(const void* x, const void* wstream, const void* vec,
-                                   const void* b3, void* proba, void* logits, int batch,
-                                   int features, int hidden, void* stream) {
+                                   const void* b3, void* proba, void* logits, void* h1_scratch,
+                                   long long scratch_bytes, int batch, int features, int hidden,
+                                   void* stream) {
   if (batch <= 0 || !takes(features, hidden)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = init_once();
   if (err != cudaSuccess) return static_cast<int>(err);
   const Layout L = make_layout(features, hidden);
   const int tiles = (batch + kTileRows - 1) / kTileRows;
   const int blocks = tiles < g_sms ? tiles : g_sms;
+  if (L.wide && (h1_scratch == nullptr ||
+                 scratch_bytes < static_cast<long long>(blocks) * kTileRows * L.hp * 2))
+    return static_cast<int>(cudaErrorInvalidValue);
   fused_mlp_bf16_kernel<<<blocks, kThreads, L.total, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const unsigned char*>(wstream),
       static_cast<const float*>(vec), static_cast<const float*>(b3),
-      static_cast<float*>(proba), static_cast<float*>(logits), batch, features, hidden);
+      static_cast<float*>(proba), static_cast<float*>(logits),
+      static_cast<unsigned char*>(h1_scratch), batch, features, hidden);
   return static_cast<int>(cudaGetLastError());
 }
 

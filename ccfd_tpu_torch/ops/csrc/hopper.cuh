@@ -74,6 +74,12 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// the same for writes to any state space, global memory included (an h1
+// tile that a later bulk copy reads back)
+__device__ __forceinline__ void fence_proxy_async_all() {
+  asm volatile("fence.proxy.async;\n" ::: "memory");
+}
+
 // a barrier over the ``threads`` consumer threads only (id 1; id 0 is
 // __syncthreads), so the producer warp never has to join
 __device__ __forceinline__ void named_sync(uint32_t threads) {

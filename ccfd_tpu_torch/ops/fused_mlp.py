@@ -5,7 +5,9 @@ Replaces the Pallas TPU kernel ``ccfd_tpu/ops/fused_mlp.py::_kernel``
 source is ``ops/csrc/fused_mlp.cu``; its head says what bounds the kernel
 on the H100 (the tensor cores: ~2,300 operations per input byte at H=256)
 and how the design streams host-packed weight chunks through a ring of
-shared-memory stages into ``wgmma``.
+shared-memory stages into ``wgmma``. Wider than H=1,024 (the "wide"
+layout) layer 1 writes h1 to a per-block scratch in global memory that the
+wrapper allocates, and layer 2 streams it back through the ring.
 
 - ``fold_for_kernel`` folds the standardizer into W1/b1 exactly as the
   reference does, and zero-pads the feature dim to a multiple of 16 (the
@@ -36,7 +38,7 @@ from ccfd_tpu_torch.ops.launches import LaunchCounter
 
 MMA_K = 16  # bf16 MMA depth: fold pads the feature dim to a multiple of it
 MAX_FEATURES = 128  # the reference's lane bound (ccfd_tpu/ops/fused_mlp.py LANE)
-MAX_HIDDEN = 1024  # layer 2's 64-row h1 tile and a two-stage ring fill shared memory
+MAX_RESIDENT_H1 = 1024  # widest H whose 64-row h1 tile stays in shared memory
 INPUT_DTYPE = torch.bfloat16  # wire format for rows
 # the CUDA source's geometry (ops/csrc/fused_mlp.cu)
 TILE_ROWS = 64
@@ -44,6 +46,7 @@ K_BLOCK = 64  # bf16 inputs in one 128-byte swizzle row
 PART = 256  # output columns of one weight chunk
 HALF = 128  # output columns one consumer warpgroup owns in a part
 STAGE_BYTES = PART * 128
+ATOM_BYTES = TILE_ROWS * 128  # a 64-row x 64-input block of an A operand
 MAX_STAGES = 8
 SMEM_LIMIT = 232_448
 
@@ -51,15 +54,13 @@ launches = LaunchCounter("fused_mlp_bf16")
 
 
 def check_shapes(features: int, hidden: int) -> None:
-    """Raise ``ValueError`` for a model the kernel does not take."""
+    """Raise ``ValueError`` for a model the kernel does not take: more
+    features than the reference's 128-lane bound (any hidden width goes)."""
     if not 0 < features <= MAX_FEATURES:
         raise ValueError(
             f"fused kernel takes at most {MAX_FEATURES} features, not {features}")
-    if not 0 < hidden <= MAX_HIDDEN:
-        raise ValueError(
-            f"fused_mlp kernel takes a hidden width of at most {MAX_HIDDEN} "
-            f"(a 64-row h1 tile and two 32 KB weight stages in one block's "
-            f"shared memory), not {hidden}")
+    if hidden <= 0:
+        raise ValueError(f"hidden width must be positive, not {hidden}")
 
 
 @functools.cache
@@ -68,17 +69,22 @@ def plan(features: int, hidden: int) -> dict[str, int]:
     ``make_layout`` in the CUDA source computes them: F padded to a
     multiple of 64 (``k1p``), H to a multiple of 128 (``hp``); the chunks a
     tile streams, the ring's stages (``resident`` when every chunk has its
-    own), and the dynamic shared memory of one block."""
+    own), ``wide`` when h1 goes through global scratch (H > 1,024; a stage
+    then also holds one 8 KB block of h1), and the dynamic shared memory of
+    one block."""
     k1p = -(-features // K_BLOCK) * K_BLOCK
     hp = -(-hidden // HALF) * HALF
     parts = -(-hp // PART)
     chunks = parts * (k1p // K_BLOCK + hp // K_BLOCK)
-    fixed = (TILE_ROWS * hp * 2 + TILE_ROWS * k1p * 2
+    wide = hidden > MAX_RESIDENT_H1
+    sbytes = STAGE_BYTES + (ATOM_BYTES if wide else 0)
+    fixed = ((0 if wide else TILE_ROWS * hp * 2) + TILE_ROWS * k1p * 2
              + -(-(TILE_ROWS * features * 2) // 128) * 128
-             + 4 * TILE_ROWS * 2 * (MAX_HIDDEN // PART) + 256)
-    stages = min(chunks, MAX_STAGES, max(0, (SMEM_LIMIT - fixed) // STAGE_BYTES))
+             + 4 * TILE_ROWS * 2 * (MAX_RESIDENT_H1 // PART) + 256)
+    stages = min(chunks, MAX_STAGES, max(0, (SMEM_LIMIT - fixed) // sbytes))
     return {"k1p": k1p, "hp": hp, "chunks": chunks, "stages": stages,
-            "resident": int(stages == chunks), "smem": fixed + stages * STAGE_BYTES}
+            "resident": int(stages == chunks), "wide": int(wide),
+            "smem": fixed + stages * sbytes}
 
 
 def stream_offset(layer: int, k, n, features: int, hidden: int):
@@ -216,25 +222,28 @@ def _kernel_entry():
     lib = _build.load("fused_mlp")
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = lib.ccfd_fused_mlp_bf16
-    fn.argtypes = [p] * 6 + [i] * 3 + [p]
+    fn.argtypes = [p] * 7 + [ctypes.c_longlong] + [i] * 3 + [p]
     fn.restype = i
     plan_fn = lib.ccfd_fused_mlp_bf16_plan
     plan_fn.argtypes = [i, i, ctypes.POINTER(ctypes.c_int)]
     plan_fn.restype = i
+    blocks_fn = lib.ccfd_fused_mlp_bf16_blocks
+    blocks_fn.argtypes = [i]
+    blocks_fn.restype = i
     err = lib.ccfd_cuda_error_string
     err.argtypes = [i]
     err.restype = ctypes.c_char_p
-    return fn, plan_fn, err
+    return fn, plan_fn, blocks_fn, err
 
 
 def kernel_plan(features: int, hidden: int) -> dict[str, int]:
     """``plan`` as the built CUDA library computes it (needs nvcc; the card
     is not touched): ``chip_smoke.py`` holds it against ``plan``."""
-    _fn, plan_fn, _err = _kernel_entry()
-    out = (ctypes.c_int * 6)()
+    _fn, plan_fn, _blocks, _err = _kernel_entry()
+    out = (ctypes.c_int * 7)()
     if plan_fn(features, hidden, out) != 0:
         raise ValueError(f"the kernel does not take F={features}, H={hidden}")
-    return dict(zip(("k1p", "hp", "chunks", "stages", "resident", "smem"), out))
+    return dict(zip(("k1p", "hp", "chunks", "stages", "resident", "wide", "smem"), out))
 
 
 def _check_cuda_args(kp: Mapping[str, torch.Tensor], x: torch.Tensor) -> int:
@@ -285,11 +294,21 @@ def fused_mlp_score(kp: Mapping[str, torch.Tensor], x: torch.Tensor,
     proba = torch.empty(batch, dtype=torch.float32, device=x.device)
     z = torch.empty(batch, dtype=torch.float32, device=x.device) if with_logits else None
     if batch:
-        fn, _plan, err = _kernel_entry()
+        fn, _plan, blocks_fn, err = _kernel_entry()
+        scratch = None
+        p = plan(features, hidden)
+        if p["wide"]:  # one h1 tile per block, in global memory
+            blocks = blocks_fn(batch)
+            if blocks <= 0:
+                raise RuntimeError("fused_mlp kernel: CUDA initialisation failed")
+            scratch = torch.empty(blocks * TILE_ROWS * p["hp"] * 2, dtype=torch.uint8,
+                                  device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), kp["stream"].data_ptr(), kp["vec"].data_ptr(),
                 kp["b3"].data_ptr(), proba.data_ptr(),
                 z.data_ptr() if z is not None else None,
+                scratch.data_ptr() if scratch is not None else None,
+                scratch.numel() if scratch is not None else 0,
                 batch, features, hidden, stream)
         if rc != 0:
             raise RuntimeError(

@@ -1,0 +1,514 @@
+"""Stream decision router: the reference's Camel/Fuse router, batched.
+
+The port's copy of the core of ccfd_tpu/router/router.py. The reference's
+router consumes transactions from Kafka one message at a time, POSTs each
+to Seldon, applies a Drools rule against ``FRAUD_THRESHOLD`` and starts a
+"fraud" or "standard" process on the KIE server; it also forwards customer
+responses from the response topic as process signals.
+
+Here **the bus poll is the micro-batch**: each ``step()`` drains up to
+``max_batch`` records within a poll deadline, decodes them into one
+(B, 30) matrix and makes a single scorer dispatch (on the card, one launch
+of the served kernel per bucket-sized chunk); the salience-ordered rules
+then run vectorized over the returned probabilities, and the batch's
+process starts go to the engine one call per fired rule. With a decision
+plane (``decision_fn``, serving/fused.py) one dispatch returns the
+probabilities and the fired rule indices together and the host rules pass
+is skipped.
+
+Business counters keep the reference's names: ``transaction_incoming_total``,
+``transaction_outgoing_total{type}``, ``notifications_outgoing_total``,
+``notifications_incoming_total{response}``, and the router's own
+``router_*`` series. A scorer failure in the run loop drops that batch,
+counted in ``router_score_errors_total``, as in the reference.
+
+Not ported yet: the degradation ladder (host tier, rules-only tier, the
+circuit breaker), overload admission, the heal gate, audit and replay, the
+tracer and stage profiler, commit-after-route, and ``ParallelRouter``.
+"""
+
+from __future__ import annotations
+
+import logging
+import operator
+import threading
+import time
+from typing import Any, Callable, Mapping
+
+import numpy as np
+
+from ccfd_tpu_torch.bus.broker import Broker
+from ccfd_tpu_torch.config import Config
+from ccfd_tpu_torch.data.ccfd import FEATURE_NAMES
+from ccfd_tpu_torch.metrics.prom import Registry
+from ccfd_tpu_torch.process.engine import Engine
+from ccfd_tpu_torch.process.fraud import CUSTOMER_RESPONSE_SIGNAL
+from ccfd_tpu_torch.router.rules import RuleSet, default_rules
+
+
+_SCHEMA_GETTER = operator.itemgetter(*FEATURE_NAMES)
+_ZERO_ROW = (0.0,) * len(FEATURE_NAMES)
+
+
+class InflightBudget:
+    """Consumed-but-unrouted row budget. ``reserve`` grants up to ``n``
+    rows and the caller sheds the rest; ``release`` returns rows once they
+    are routed (or dropped). With a ``registry`` the limit and its use
+    export as ``ccfd_inflight_limit`` / ``ccfd_inflight_used`` gauges."""
+
+    __slots__ = ("limit", "_n", "_mu", "_g_limit", "_g_used", "_stage")
+
+    def __init__(self, limit: int, registry=None, stage: str = "router"):
+        self.limit = int(limit)
+        self._n = 0
+        self._mu = threading.Lock()
+        self._stage = {"stage": stage}
+        self._g_limit = self._g_used = None
+        if registry is not None:
+            self._g_limit = registry.gauge(
+                "ccfd_inflight_limit", "in-flight row budget per stage")
+            self._g_used = registry.gauge(
+                "ccfd_inflight_used", "in-flight rows reserved per stage")
+            self._set_gauges_locked()
+
+    def _set_gauges_locked(self) -> None:
+        if self._g_limit is not None:
+            self._g_limit.set(self.limit, labels=self._stage)
+            self._g_used.set(self._n, labels=self._stage)
+
+    def reserve(self, n: int) -> int:
+        """Take up to ``n`` rows from the budget; returns rows granted."""
+        with self._mu:
+            take = min(n, max(0, self.limit - self._n))
+            self._n += take
+            self._set_gauges_locked()
+            return take
+
+    def release(self, n: int) -> None:
+        with self._mu:
+            self._n = max(0, self._n - n)
+            self._set_gauges_locked()
+
+
+def _decode_row_lenient(tx: Any, out_row: np.ndarray) -> int:
+    """Field-by-field decode for rows the fast path rejected; returns #bad."""
+    if not (type(tx) is dict or isinstance(tx, Mapping)):
+        return 1
+    bad = 0
+    for j, name in enumerate(FEATURE_NAMES):
+        v = tx.get(name)
+        if v is None:
+            continue
+        try:
+            out_row[j] = float(v)
+        except (TypeError, ValueError):
+            bad += 1
+    return bad
+
+
+def decode_features(values: list[Mapping[str, Any]]) -> tuple[np.ndarray, int]:
+    """Transaction dicts -> ((B, 30) float32 matrix in schema order, #bad fields).
+
+    Well-formed transactions carry the full schema, so one ``itemgetter``
+    call per row pulls all 30 fields and ONE ``np.asarray`` converts the
+    batch. Malformed rows (missing fields, non-numeric values,
+    non-mappings) take a field-by-field lenient decode: a bad field decodes
+    to 0.0 instead of raising, so a poison pill cannot stop the loop."""
+    n = len(values)
+    rows: list[tuple] = []
+    slow: list[int] = []
+    for i, tx in enumerate(values):
+        try:
+            rows.append(_SCHEMA_GETTER(tx))
+        except (KeyError, TypeError):
+            rows.append(_ZERO_ROW)
+            slow.append(i)
+    try:
+        out = np.asarray(rows, np.float32)
+        if out.shape != (n, len(FEATURE_NAMES)):
+            raise ValueError("ragged rows")
+    except (TypeError, ValueError):
+        # some row carried an unparseable value: redo per row, diverting
+        # failures to the lenient path
+        out = np.zeros((n, len(FEATURE_NAMES)), np.float32)
+        fast_ok = set(range(n)) - set(slow)
+        slow = list(slow)
+        for i in sorted(fast_ok):
+            try:
+                out[i] = np.asarray(rows[i], np.float32)
+            except (TypeError, ValueError):
+                slow.append(i)
+    bad = 0
+    for i in slow:
+        out[i] = 0.0
+        bad += _decode_row_lenient(values[i], out[i])
+    return out, bad
+
+
+def decode_csv(data: bytes, n_features: int = len(FEATURE_NAMES)) -> tuple[np.ndarray, int]:
+    """Newline-separated CSV float rows -> ((B, F) float32, #bad rows). A row
+    with the wrong field count or a field that is not a number decodes to
+    zeros and counts as bad. (The reference's numpy decoder; its native C++
+    one is not ported yet.)"""
+    if not data:
+        return np.zeros((0, n_features), np.float32), 0
+    lines = data.decode("utf-8", errors="replace").splitlines()
+    out = np.zeros((len(lines), n_features), np.float32)
+    bad = 0
+    for i, line in enumerate(lines):
+        parts = line.split(",")
+        if len(parts) != n_features:
+            bad += 1
+            continue
+        try:
+            out[i] = [float(p) for p in parts]
+        except ValueError:
+            out[i] = 0.0
+            bad += 1
+    return out, bad
+
+
+def decode_records(records) -> tuple[np.ndarray, list[Mapping[str, Any]], int]:
+    """Bus records -> ((B, 30) matrix, per-row tx dicts, #malformed fields).
+
+    Two wire formats share a batch: dict transactions and raw CSV lines
+    (one record, one row; an embedded newline keeps the first line and
+    counts the rest as bad). Rows keep their arrival order; a poison pill
+    decodes to an all-zero row rather than crashing the loop."""
+    n = len(records)
+    x = np.zeros((n, len(FEATURE_NAMES)), np.float32)
+    txs: list[Mapping[str, Any]] = [{}] * n
+    bad = 0
+    dict_rows: list[int] = []
+    dict_vals: list[Mapping[str, Any]] = []
+    csv_rows: list[int] = []
+    csv_lines: list[bytes] = []
+    for i, rec in enumerate(records):
+        v = rec.value
+        tv = type(v)
+        if tv is dict:
+            dict_rows.append(i)
+            dict_vals.append(v)
+        elif tv is bytes or tv is str or isinstance(v, (bytes, str)):
+            raw = v.encode() if isinstance(v, str) else v
+            if raw.find(b"\n") >= 0:
+                lines = raw.splitlines() or [b""]
+                bad += len(lines) - 1
+                raw = lines[0]
+            csv_rows.append(i)
+            csv_lines.append(raw)
+        elif isinstance(v, Mapping):  # non-dict mappings: same dict path
+            dict_rows.append(i)
+            dict_vals.append(v)
+        else:  # poison pill: score as all-zeros rather than crash the loop
+            bad += 1
+    if dict_vals:
+        xd, bad_fields = decode_features(dict_vals)
+        bad += bad_fields
+        if len(dict_vals) == n:  # homogeneous batch: no row scatter needed
+            x = xd
+            txs = dict_vals
+        else:
+            x[dict_rows] = xd
+            for j, i in enumerate(dict_rows):
+                txs[i] = dict_vals[j]
+    if csv_lines:
+        xc, bad_csv = decode_csv(b"\n".join(csv_lines) + b"\n", len(FEATURE_NAMES))
+        bad += bad_csv
+        amount_col = FEATURE_NAMES.index("Amount")
+        if xc.shape[0] == n and len(csv_lines) == n:
+            x = np.ascontiguousarray(xc, np.float32)
+        else:
+            for j, i in enumerate(csv_rows):
+                if j < xc.shape[0]:
+                    x[i] = xc[j]
+        amounts = (x[:, amount_col][csv_rows].tolist() if len(csv_rows) != n
+                   else x[:, amount_col].tolist())
+        for i, amt in zip(csv_rows, amounts):
+            txs[i] = {"id": records[i].key, "Amount": amt}
+    return x, txs, bad
+
+
+class Router:
+    def __init__(
+        self,
+        cfg: Config,
+        broker: Broker,
+        score_fn: Callable[[np.ndarray], np.ndarray],
+        engine: Engine,
+        registry: Registry | None = None,
+        max_batch: int = 4096,
+        rules: RuleSet | None = None,
+        decision_fn: Any = None,
+    ):
+        self.cfg = cfg
+        self.broker = broker
+        self.score = score_fn
+        self._score2 = lambda x: (np.asarray(self.score(x)), None)
+        self.engine = engine
+        self.registry = registry or Registry()
+        self.max_batch = max_batch
+        # precedence: explicit arg > CCFD_RULES file > the threshold rule
+        if rules is None:
+            rules = (RuleSet.from_file(cfg.rules_file) if cfg.rules_file
+                     else default_rules(cfg.fraud_threshold))
+        self.rules = rules
+        # the decision plane replaces the score seam: (proba, fired). Its
+        # plan must have been compiled from THIS router's rule base, or the
+        # fired indices would index a different rule table
+        if decision_fn is not None:
+            if decision_fn.rules is not self.rules:
+                logging.getLogger("ccfd_tpu_torch.router").warning(
+                    "decision_fn was compiled against a different RuleSet "
+                    "than this router serves; fused decisions disarmed — "
+                    "pass the same RuleSet instance to both")
+                decision_fn = None
+            else:
+                self._score2 = decision_fn.decide
+        self._decision_fn = decision_fn
+        # fail fast on a rule naming a process the engine does not have
+        known = set(engine.definitions())
+        missing = {r.process for r in rules.rules} - known
+        if missing:
+            raise ValueError(
+                f"rules reference unregistered processes {sorted(missing)}; "
+                f"engine has {sorted(known)}")
+        self._tx_consumer = broker.consumer("router", (cfg.kafka_topic,))
+        self._resp_consumer = broker.consumer(
+            "router-responses", (cfg.customer_response_topic,))
+        self._notif_watcher = broker.consumer(
+            "router-notifications", (cfg.customer_notification_topic,))
+
+        r = self.registry
+        self._c_in = r.counter("transaction_incoming_total", "transactions consumed")
+        self._c_out = r.counter("transaction_outgoing_total", "process starts by type")
+        self._c_notif_out = r.counter(
+            "notifications_outgoing_total", "customer notifications observed")
+        self._c_notif_in = r.counter(
+            "notifications_incoming_total", "customer responses by result")
+        self._h_batch = r.histogram("router_batch_size", "scoring batch sizes",
+                                    buckets=(1, 8, 64, 256, 1024, 4096, 16384))
+        self._c_decode_err = r.counter(
+            "transaction_decode_errors_total", "malformed transaction fields")
+        self._h_score_s = r.histogram("router_score_seconds", "scorer dispatch latency")
+        # wall time from a record's PRODUCE timestamp to its process-start
+        # decision: queueing + micro-batching + scoring + rules + engine
+        self._h_decision_s = r.histogram(
+            "router_decision_seconds", "producer->process-start decision latency")
+        self._c_rule = r.counter("router_rule_fired_total", "rule activations")
+        self._c_start_err = r.counter(
+            "router_process_start_errors_total", "failed process starts")
+        self._c_signal_err = r.counter(
+            "router_signal_errors_total", "failed signal forwards")
+        self._c_score_err = r.counter(
+            "router_score_errors_total", "scorer failures: transactions dropped")
+        self._c_shed = r.counter(
+            "router_shed_total",
+            "transactions dropped by bounded-in-flight load shedding (oldest first)")
+        self._c_worker_batch = r.counter(
+            "router_worker_batches_total", "scoring batches per router loop")
+        self._budget = InflightBudget(2 * max_batch, registry=r)
+        self._worker_labels = {"worker": "0"}
+        self._stop = threading.Event()
+
+    # -- loop stages (composed by step() and the pipelined run loop) -------
+    def _drain_signals(self) -> None:
+        """Notification-counter drain + customer-response signal forwarding."""
+        for _rec in self._notif_watcher.poll(self.max_batch, 0.0):
+            self._c_notif_out.inc()
+        for rec in self._resp_consumer.poll(self.max_batch, 0.0):
+            payload = rec.value or {}
+            approved = bool(payload.get("approved"))
+            self._c_notif_in.inc(
+                labels={"response": "approved" if approved else "non_approved"})
+            pid = payload.get("process_id")
+            if pid is not None:
+                try:
+                    self.engine.signal(int(pid), CUSTOMER_RESPONSE_SIGNAL, payload)
+                except Exception:  # noqa: BLE001 - the rest must still forward
+                    self._c_signal_err.inc()
+
+    def _poll_batch(self, poll_timeout_s: float) -> list:
+        """Size x deadline micro-batching: after the first records arrive,
+        keep accumulating until the batch fills or ``batch_deadline_ms``
+        elapses."""
+        cap = self.max_batch
+        records = self._tx_consumer.poll(cap, poll_timeout_s)
+        if records:
+            deadline_s = self.cfg.batch_deadline_ms / 1e3
+            if deadline_s > 0 and len(records) < cap:
+                deadline = time.perf_counter() + deadline_s
+                while len(records) < cap:
+                    remaining = deadline - time.perf_counter()
+                    if remaining <= 0:
+                        break
+                    more = self._tx_consumer.poll(cap - len(records), remaining)
+                    if not more:
+                        break
+                    records.extend(more)
+        return records
+
+    def _decode_batch(self, records: list) -> tuple[np.ndarray, list, np.ndarray]:
+        n = len(records)
+        self._c_in.inc(n)
+        self._h_batch.observe(n)
+        self._c_worker_batch.inc(labels=self._worker_labels)
+        x, txs, bad = decode_records(records)
+        if bad:
+            self._c_decode_err.inc(bad)
+        # produce timestamps ride along for the decision latency
+        ts = np.fromiter((r.timestamp for r in records), np.float64, n)
+        return x, txs, ts
+
+    def _admit(self, records: list) -> list:
+        """Bounded in-flight: drop the OLDEST consumed records when a poll
+        would push consumed-but-unrouted work past the budget. Shed records
+        still count as incoming; ``router_shed_total`` counts the drops. The
+        survivors' rows stay reserved until they are routed."""
+        granted = self._budget.reserve(len(records))
+        if granted == len(records):
+            return records
+        shed = len(records) - granted
+        self._c_in.inc(shed)
+        self._c_shed.inc(shed)
+        return records[shed:] if granted else []
+
+    def _timed_score(self, x: np.ndarray) -> tuple:
+        t0 = time.perf_counter()
+        proba, fired = self._score2(x)
+        self._h_score_s.observe(time.perf_counter() - t0)
+        return proba, fired
+
+    # -- one synchronous cycle (used by tests and the run loop) ------------
+    def step(self, poll_timeout_s: float = 0.0) -> int:
+        """Route one poll's worth of work; returns #transactions scored. A
+        scorer failure raises here (``run`` drops and counts the batch)."""
+        self._drain_signals()
+        records = self._poll_batch(poll_timeout_s)
+        if not records:
+            return 0
+        records = self._admit(records)
+        if not records:
+            return 0
+        try:
+            x, txs, ts = self._decode_batch(records)
+            proba, fired = self._timed_score(x)
+            return self._route_inner(x, txs, proba, ts, fired)
+        finally:
+            self._budget.release(len(records))
+
+    def _route_inner(self, x: np.ndarray, txs: list, proba: np.ndarray,
+                     ts: np.ndarray | None, fired: np.ndarray | None = None) -> int:
+        if fired is None:
+            fired = self.rules.evaluate(x, proba)
+        # group the micro-batch by fired rule: one batched process start per
+        # (rule, process) instead of one engine call per transaction
+        groups: dict[int, list[dict]] = {}
+        rules = self.rules.rules
+        for tx, p, ridx in zip(txs, proba.tolist(), fired.tolist()):
+            variables = {"transaction": tx, "proba": p, "customer_id": tx.get("id")}
+            set_vars = rules[ridx].set_vars
+            if set_vars:
+                variables.update(set_vars)
+            g = groups.get(ridx)
+            if g is None:
+                groups[ridx] = [variables]
+            else:
+                g.append(variables)
+        for ridx, vars_list in groups.items():
+            rule = rules[ridx]
+            try:
+                # a fresh dict per transaction: the engine adopts it uncopied
+                pids = self.engine.start_process_batch(rule.process, vars_list,
+                                                       copy_vars=False)
+            except Exception:  # noqa: BLE001 - the other groups must still start
+                self._c_start_err.inc(len(vars_list), labels={"type": rule.process})
+                continue
+            n_err = sum(1 for p in pids if p is None)
+            if n_err:
+                self._c_start_err.inc(n_err, labels={"type": rule.process})
+            n_ok = len(pids) - n_err
+            if n_ok:
+                self._c_out.inc(n_ok, labels={"type": rule.process})
+                self._c_rule.inc(n_ok, labels={"rule": rule.name})
+        if ts is not None and len(ts):
+            # produce stamps are wall-clock record timestamps
+            self._h_decision_s.observe_many(time.time() - ts)
+        return len(txs)
+
+    # -- daemon loop -------------------------------------------------------
+    def reset(self) -> None:
+        """Re-arm after stop() so the next run() loops."""
+        self._stop.clear()
+
+    def run(self, poll_timeout_s: float = 0.05) -> None:
+        """Overlap the device dispatch with everything else: batch k scores
+        on a dedicated thread while the loop routes batch k-1's results
+        into the engine and polls batch k+1. A scorer failure drops that
+        batch (``router_score_errors_total``), not the loop."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        def finish(pending: tuple) -> None:
+            pfut, px, ptxs, pts = pending
+            try:
+                try:
+                    proba, fired = pfut.result()
+                except Exception:  # noqa: BLE001 - counted: the batch is dropped
+                    self._c_score_err.inc(len(ptxs))
+                    return
+                self._route_inner(px, ptxs, proba, pts, fired)
+            finally:
+                self._budget.release(len(ptxs))
+
+        ex = ThreadPoolExecutor(1, thread_name_prefix="ccfd-router-score")
+        pending: tuple | None = None  # (future, x, txs, ts)
+        try:
+            while not self._stop.is_set():
+                self._drain_signals()
+                # with a batch in flight, do not sleep on an empty topic
+                records = self._poll_batch(0.0 if pending is not None else poll_timeout_s)
+                if records:
+                    records = self._admit(records)
+                fut = None
+                if records:
+                    try:
+                        x, txs, ts = self._decode_batch(records)
+                        fut = ex.submit(self._timed_score, x)
+                    except BaseException:
+                        self._budget.release(len(records))
+                        raise
+                done, pending = pending, ((fut, x, txs, ts) if fut is not None else None)
+                if done is not None:
+                    try:
+                        finish(done)
+                    except BaseException:
+                        # the loop is going down: the batch just submitted
+                        # can never be routed; release and count it
+                        if pending is not None:
+                            ptxs = pending[2]
+                            pending = None
+                            self._budget.release(len(ptxs))
+                            self._c_score_err.inc(len(ptxs))
+                        raise
+        finally:
+            try:
+                if pending is not None:
+                    finish(pending)
+            finally:
+                ex.shutdown()
+
+    def start(self, poll_timeout_s: float = 0.05) -> threading.Thread:
+        self.reset()
+        t = threading.Thread(target=self.run, args=(poll_timeout_s,),
+                             daemon=True, name="ccfd-router")
+        t.start()
+        return t
+
+    def stop(self) -> None:
+        self._stop.set()
+
+    def close(self) -> None:
+        self.stop()
+        self._tx_consumer.close()
+        self._resp_consumer.close()
+        self._notif_watcher.close()

@@ -33,6 +33,10 @@ and hot-swappable params. The port of ccfd_tpu/serving/scorer.py's
   (and refolds the kernel weights) before flipping the references under
   the lock; an in-flight call keeps the tensors it snapshotted. Params
   that do not fold raise before the flip, and the old ones keep serving.
+  Prepublish hooks (``add_prepublish_hook``: the decision plane,
+  serving/fused.py) run every bucket against the staged params between
+  the staging and the flip; a hook that raises fails the swap before the
+  flip, as params that do not fold do.
 """
 
 from __future__ import annotations
@@ -90,6 +94,7 @@ class Scorer:
         self._lock = threading.Lock()
         # per-bucket dispatch tally for the executable inventory
         self._dispatch_counts: dict[int, int] = {}
+        self._prepublish_hooks: list[Any] = []
         self._live = self._stage(params)
 
     # -- params ------------------------------------------------------------
@@ -125,12 +130,24 @@ class Scorer:
         return self._live[0]
 
     def swap_params(self, new_params: Any) -> None:
-        """Publish new params without pausing serving: stage everything,
-        then flip the references under the lock. Params that do not fold
+        """Publish new params without pausing serving: stage everything, run
+        the prepublish hooks on the staged params, then flip the references
+        under the lock. Params that do not fold, or a hook that raises,
         raise here, before the flip."""
         live = self._stage(new_params)
         with self._lock:
+            hooks = list(self._prepublish_hooks)
+        for hook in hooks:
+            hook(live)
+        with self._lock:
             self._live = live
+
+    def add_prepublish_hook(self, fn: Any) -> None:
+        """``fn(staged)`` runs inside every ``swap_params`` after staging and
+        before the flip; ``staged`` is the (params, kernel params, host
+        normalizer) tuple the flip will install."""
+        with self._lock:
+            self._prepublish_hooks.append(fn)
 
     # -- inventory -----------------------------------------------------------
     def bucket(self, n: int) -> int:

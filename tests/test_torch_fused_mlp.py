@@ -101,21 +101,46 @@ def _wide(rows: np.ndarray, features: int) -> np.ndarray:
 
 
 @pytest.mark.parametrize("features,hidden", [
-    (30, 8), (30, 40), (30, 272), (30, 512), (30, 1024), (40, 48), (128, 256)])
+    (30, 8), (30, 40), (30, 272), (30, 512), (30, 1024), (40, 48), (128, 256),
+    (30, 1025), (30, 2048), (30, 4096)])
 def test_plain_version_matches_jax_kernel_at_lifted_widths(rows, features, hidden):
-    """Every width the reference's kernel serves: any H up to 1,024 and F
-    up to its 128-lane bound."""
+    """Every width the reference's kernel serves: any H (past 1,024 the
+    kernel's wide layout) and F up to its 128-lane bound.
+
+    Past H=1,024 two f32 summation orders flip a bf16 rounding of h now
+    and then: at H=2,048 the JAX kernel itself lies 8.1e-5 in p from an f64
+    evaluation with the same rounding points on 2 of these 64 rows, and the
+    port 4.8e-6. There the port is held to 1e-5 against the JAX kernel on
+    every row where the JAX kernel lies within 1e-5 of the f64 evaluation
+    (at least 95% of rows), and to 1e-5 against the f64 evaluation on every
+    row."""
     x = _wide(rows[:64], features)
     tree = mlp_tree(x, hidden=hidden, seed=4)
     ref = _jax_kernel(tree, x, tile=64)
     p, z = _port(tree, x)
-    np.testing.assert_allclose(p, ref, rtol=0, atol=1e-5)
     assert np.isfinite(z).all()
+    if hidden <= fused_mlp.MAX_RESIDENT_H1:
+        np.testing.assert_allclose(p, ref, rtol=0, atol=1e-5)
+        return
+    p64 = _f64_kernel(tree, x)
+    agree = np.abs(ref - p64) <= 1e-5
+    assert agree.mean() >= 0.95
+    np.testing.assert_allclose(p[agree], ref[agree], rtol=0, atol=1e-5)
+    np.testing.assert_allclose(p, p64, rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("features,hidden,match", [
-    (129, 64, "at most 128 features"), (30, 1025, "at most 1024"),
-    (30, 2048, "at most 1024")])
+def _f64_kernel(tree, x: np.ndarray) -> np.ndarray:
+    """B1's arithmetic in float64 with its rounding points (bf16 operands,
+    h rounded to bf16 after each relu): p with no summation-order noise."""
+    kp = fused_mlp.pack_for_kernel(fused_mlp.fold_for_kernel(from_jax_params(tree)), "cpu")
+    d = lambda t: t.double()  # noqa: E731
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    h = torch.relu(d(xb) @ d(kp["w1"][: x.shape[1]]) + d(kp["b1"])).to(torch.bfloat16)
+    h = torch.relu(d(h) @ d(kp["w2"]) + d(kp["b2"])).to(torch.bfloat16)
+    return torch.sigmoid((d(h) * d(kp["w3"])).sum(1) + d(kp["b3"])).numpy()
+
+
+@pytest.mark.parametrize("features,hidden,match", [(129, 64, "at most 128 features")])
 def test_widths_past_the_limits_raise(rows, features, hidden, match):
     tree = mlp_tree(_wide(rows[:8], features), hidden=hidden, seed=4)
     with pytest.raises(ValueError, match=match):
@@ -147,16 +172,25 @@ def test_stream_lays_out_the_weights_as_the_kernel_reads_them(features, hidden):
 
 def test_plan_fits_every_width_in_shared_memory():
     """The layout the CUDA source computes (``make_layout``): every F up to
-    128 and H up to 1,024 fits one block with at least two ring stages, and
-    the served model (F=30, H=256) keeps its weights resident."""
+    128 and any H fits one block with at least two ring stages; h1 stays in
+    shared memory up to H=1,024 and goes through the ring (wide) past it,
+    each stage then one 32 KB chunk and one 8 KB h1 block; the served model
+    (F=30, H=256) keeps its weights resident."""
+    widths = list(range(1, 1200)) + [2048, 2049, 4096, 8192, 65536]
     for features in (1, 16, 30, 64, 65, 128):
-        for hidden in range(1, fused_mlp.MAX_HIDDEN + 1):
+        for hidden in widths:
             p = fused_mlp.plan(features, hidden)
             assert p["stages"] >= 2 and p["smem"] <= fused_mlp.SMEM_LIMIT
+            assert p["wide"] == (hidden > fused_mlp.MAX_RESIDENT_H1)
+            assert p["resident"] == 0 or not p["wide"]
     served = fused_mlp.plan(30, 256)
     assert served == {"k1p": 64, "hp": 256, "chunks": 5, "stages": 5,
-                      "resident": 1, "smem": 210_944}
+                      "resident": 1, "wide": 0, "smem": 210_944}
     assert fused_mlp.plan(128, 1024)["stages"] == 2
+    wide = fused_mlp.plan(30, 4096)
+    assert wide["wide"] == 1 and wide["stages"] == 5
+    assert wide["smem"] == 5 * (fused_mlp.STAGE_BYTES + fused_mlp.ATOM_BYTES) + (
+        64 * 64 * 2 + 64 * 30 * 2 + 4 * 64 * 2 * 4 + 256)
 
 
 def test_fold_rejects_wrong_depth(rows):

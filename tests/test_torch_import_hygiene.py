@@ -39,6 +39,11 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
     assert "ccfd_tpu_torch.ops.fused_mlp" in res["mods"]
     assert "ccfd_tpu_torch.ops.fused_mlp_q8" in res["mods"]
     assert "ccfd_tpu_torch.ops.quant" in res["mods"]
+    for m in ("router.router", "router.rules", "bus.broker", "process.engine",
+              "process.fraud", "process.prediction", "process.clock", "process.dmn",
+              "producer.producer", "notify.service", "ops.fused_decision",
+              "serving.fused", "cli"):
+        assert f"ccfd_tpu_torch.{m}" in res["mods"], m
     bad = [n for n in res["loaded"] if _forbidden(n)]
     assert bad == [], bad
     assert "torch" in res["loaded"]

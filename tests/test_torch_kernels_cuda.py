@@ -64,7 +64,7 @@ def _check(kp, x, tol_p=None):
     assert torch.equal(p >= 0.5, p_ref >= 0.5)
 
 
-@pytest.mark.parametrize("hidden", [16, 48, 256, 272, 1024])
+@pytest.mark.parametrize("hidden", [16, 48, 256, 272, 1024, 1152, 2048, 4096])
 @pytest.mark.parametrize("batch", [1, 16, 63, 64, 100, 4096, 16384])
 def test_kernel_matches_plain_version(dev, rows, hidden, batch):
     kp = _kp(_random_params(rows, hidden, seed=hidden), dev)
@@ -84,7 +84,18 @@ def test_kernel_at_wide_features(dev, rows, features, hidden, batch):
     _check(kp, torch.from_numpy(x).to(torch.bfloat16).to(dev), tol_p=2e-3)
 
 
-@pytest.mark.parametrize("hidden", [256, 1024])
+@pytest.mark.parametrize("batch", [1, 100, 1000])
+def test_wide_layout_at_wide_features(dev, rows, batch):
+    """F=128 with H=2,048: the widest x tile beside the wide layout's
+    ring. At 16,384 rows of these random params one row lies close enough
+    to p = 0.5 for the two summation orders to put it on either side (run
+    on the card), so the case stops at 1,000 rows."""
+    x = _wide(rows[:batch], 128)
+    kp = _kp(_random_params(x, 2048, seed=128), dev)
+    _check(kp, torch.from_numpy(x).to(torch.bfloat16).to(dev), tol_p=2e-3)
+
+
+@pytest.mark.parametrize("hidden", [256, 1024, 2048])
 def test_rows_do_not_depend_on_the_tiles_a_block_walks(dev, rows, hidden):
     """The same rows at B and at B + 64 x SMs: in the second launch every
     block walks one more tile, and each row's result is bit for bit the same."""
@@ -109,7 +120,8 @@ def test_a_row_slice_at_any_offset_scores_the_same(dev, rows):
 
 
 def test_plan_of_the_built_kernel_matches_the_python_mirror(dev):
-    for features, hidden in ((30, 256), (30, 1024), (128, 1024), (1, 1), (40, 48), (65, 300)):
+    for features, hidden in ((30, 256), (30, 1024), (128, 1024), (1, 1), (40, 48), (65, 300),
+                             (30, 1025), (30, 4096), (128, 2048)):
         assert fused_mlp.kernel_plan(features, hidden) == fused_mlp.plan(features, hidden)
 
 

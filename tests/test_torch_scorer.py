@@ -126,12 +126,16 @@ def test_default_device_is_the_card_and_raises_without_one(data):
 
 
 def test_unsupported_hidden_width_raises(data):
+    """B1 takes any hidden width (past 1,024 in its wide layout); what it
+    refuses, as the reference does, is more than 128 features."""
     X, _ = data
-    with pytest.raises(ValueError, match="at most 1024"):
-        Scorer(params=mlp_tree(X, hidden=1025), device="cpu")
+    wide = np.concatenate([X] * 5, axis=1)[:, :129]
+    with pytest.raises(ValueError, match="at most 128 features"):
+        Scorer(params=mlp_tree(wide, hidden=64), num_features=129, device="cpu")
+    assert Scorer(params=mlp_tree(X, hidden=1025), device="cpu").fused
 
 
-@pytest.mark.parametrize("hidden", [40, 512])
+@pytest.mark.parametrize("hidden", [40, 512, 1025])
 def test_serves_a_wide_model_like_the_jax_scorer(data, hidden):
     """Hidden widths the reference serves and the port once refused."""
     X, _ = data
