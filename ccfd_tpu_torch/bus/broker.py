@@ -13,8 +13,9 @@ the same semantics in one process:
 - manual commit (``auto_commit=False``), fenced by the group's rebalance
   epoch (``StaleEpochError``).
 
-Records are retained for the broker's lifetime. The durable segment log,
-retention, the Kafka adapter and the bus server are not ported yet
+Records are retained for the broker's lifetime. ``bus/server.py`` serves
+this broker over HTTP (``python -m ccfd_tpu_torch bus``). The durable
+segment log, retention and the Kafka adapter are not ported yet
 (config.Config.unported names the knobs that would select them).
 """
 
@@ -104,6 +105,31 @@ class Broker:
     def end_offsets(self, topic: str) -> list[int]:
         with self._lock:
             return [len(p) for p in self._topic(topic).partitions]
+
+    def beginning_offsets(self, topic: str) -> list[int]:
+        """Per-partition log-start offset: 0, since nothing is trimmed."""
+        with self._lock:
+            return [0] * self._topic(topic).n_partitions
+
+    def health_snapshot(self) -> dict:
+        """One locked view for the bus server's health gauges: per-topic end
+        and start offsets, and per-group committed offsets, with a group
+        member's assigned but never-committed partitions at the log start."""
+        with self._lock:
+            topics = {name: [len(p) for p in t.partitions]
+                      for name, t in self._topics.items()}
+            begins = {name: [0] * len(ends) for name, ends in topics.items()}
+            groups = {g: dict(tps) for g, tps in self._groups.items()}
+            for g, members in self._members.items():
+                tps = groups.setdefault(g, {})
+                for m in members:
+                    for tp in m._assignment:
+                        tps.setdefault(tp, 0)
+        return {"topics": topics, "begins": begins, "groups": groups}
+
+    def close(self) -> None:
+        """No-op: a memory-only broker holds no files (the bus server calls
+        it on stop, as it does on the reference's durable broker)."""
 
     # -- produce ----------------------------------------------------------
     def produce(self, topic: str, value: Any, key: Any = None,

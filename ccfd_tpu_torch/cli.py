@@ -8,6 +8,14 @@
                                 [--reply-timeout S] [--drain-s S]
                                 [--wire-format dict|csv] [--seed N]
                                 [--params PATH] [--device cuda|cpu]
+  python -m ccfd_tpu_torch bus [--host H] [--port 9092]
+  python -m ccfd_tpu_torch engine [--host H] [--port 8090]
+  python -m ccfd_tpu_torch router [--metrics-port 8091] [--workers N]
+                                  [--params PATH] [--device cuda|cpu]
+  python -m ccfd_tpu_torch notify [--reply-prob P] [--approve-prob P]
+                                  [--seed N] [--metrics-port 8080]
+  python -m ccfd_tpu_torch producer [--limit N] [--rate R]
+                                    [--wire-format dict|csv]
 
 ``serve`` is the Seldon-contract REST scorer of the reference's
 ``python -m ccfd_tpu serve``: it serves the committed checkpoint
@@ -35,7 +43,24 @@ params instead of training them (the committed checkpoint, or
 are the checkpoint's own training distribution (the Kaggle-shaped
 surrogate), or the CSV at CCFD_CSV; ``backend`` names the torch device.
 CCFD_FUSED_DECISION=1 wires the decision plane (serving/fused.py) into the
-router, as the reference's operator does; CCFD_MODEL picks the model.
+router, as the reference's operator does; CCFD_MODEL picks the model. The
+demo runs its own in-memory bus, as the reference's does.
+
+``bus``, ``engine``, ``router``, ``notify`` and ``producer`` are the
+reference's service roles, each its own process, wired by the reference's
+environment: ``BROKER_URL=http://host:port`` (the ``bus`` role; anything
+else is an in-process bus), ``KIE_SERVER_URL=http://host:port`` (the
+``engine`` role, which the router requires) and, for the router's scorer,
+``SELDON_URL`` (an http:// URL: a ``serve`` process over the Seldon REST
+contract; anything else: a local ``Scorer`` on ``--device``, the card by
+default). The router role is the production wiring: the degradation
+ladder on (its host tier the family's numpy forward of the served params),
+overload control on (CCFD_OVERLOAD), tracing at CCFD_TRACE_SAMPLE, and a
+``ParallelRouter`` when CCFD_ROUTER_WORKERS (or ``--workers``) is not 1;
+its metrics and traces are served on ``--metrics-port`` (/prometheus,
+/traces), as notify's are. Knobs that select an unported part
+(``Config.unported``), ``bus --dir`` and ``engine --state-file`` are
+refused by name.
 """
 
 from __future__ import annotations
@@ -238,6 +263,248 @@ def cmd_demo(args: argparse.Namespace) -> int:
     return 0
 
 
+def _refuse_unported(cfg: Config) -> None:
+    unported = cfg.unported()
+    if unported:
+        raise NotImplementedError(
+            "not ported yet, unset to run this role: " + "; ".join(unported))
+
+
+def _tracing_for(cfg: Config, registry, component: str):
+    """(tracer, sink) for a role, or (None, None) when CCFD_TRACE_SAMPLE=0.
+    The tracer lands spans in the role's scraped registry; the sink's own
+    sampler metrics live in a "tracing" registry the role also exports."""
+    if cfg.trace_sample <= 0:
+        return None, None
+    from ccfd_tpu_torch.metrics.prom import Registry
+    from ccfd_tpu_torch.observability.trace import SpanSink, Tracer
+
+    sink = SpanSink(sample=cfg.trace_sample, slow_s=cfg.trace_slow_ms / 1e3,
+                    registry=Registry())
+    return Tracer(registry, component=component, sink=sink), sink
+
+
+def _broker_for(cfg: Config):
+    """BROKER_URL decides the transport: http:// -> a RemoteBroker against a
+    ``bus`` process; anything else -> an in-process Broker (kafka:// is
+    refused by ``Config.unported``)."""
+    from ccfd_tpu_torch.bus.broker import Broker
+    from ccfd_tpu_torch.bus.client import broker_from_url
+
+    remote = broker_from_url(cfg.broker_url)
+    return remote if remote is not None else Broker()
+
+
+def _sigterm_as_interrupt() -> None:
+    """SIGTERM ends a role as SIGINT does (KeyboardInterrupt), so it stops
+    its servers on either."""
+    import signal
+
+    def interrupt(signum, frame):  # noqa: ARG001
+        raise KeyboardInterrupt
+
+    signal.signal(signal.SIGTERM, interrupt)
+
+
+def _serve_forever() -> None:
+    _sigterm_as_interrupt()
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        pass
+
+
+def cmd_bus(args: argparse.Namespace) -> int:
+    """The networked bus (the reference's Kafka-cluster role), in memory."""
+    from ccfd_tpu_torch.bus.broker import Broker
+    from ccfd_tpu_torch.bus.server import BrokerServer
+    from ccfd_tpu_torch.metrics.prom import Registry
+
+    cfg = Config.from_env()
+    if args.dir:
+        raise NotImplementedError("bus --dir (the durable bus log) is not ported yet")
+    _refuse_unported(cfg)
+    registry = Registry()
+    tracer, _sink = _tracing_for(cfg, registry, "bus")
+    srv = BrokerServer(Broker(), registry=registry, tracer=tracer)
+    port = srv.start(args.host, args.port)
+    print(f"[bus] listening on {args.host}:{port} (memory)", file=sys.stderr, flush=True)
+    _serve_forever()
+    srv.stop()
+    return 0
+
+
+def cmd_engine(args: argparse.Namespace) -> int:
+    """The KIE-shaped engine server (the reference's ccd-service on :8090)."""
+    from ccfd_tpu_torch.process.fraud import build_engine
+    from ccfd_tpu_torch.process.server import EngineServer
+
+    cfg = Config.from_env()
+    if args.state_file:
+        raise NotImplementedError(
+            "engine --state-file (engine persistence) is not ported yet")
+    _refuse_unported(cfg)
+    engine = build_engine(cfg, _broker_for(cfg))
+    tracer, _sink = _tracing_for(cfg, engine.registry, "kie")
+    srv = EngineServer(engine, tracer=tracer)
+    port = srv.start(args.host, args.port)
+    print(f"[engine] KIE REST on {args.host}:{port} "
+          f"definitions={list(engine.definitions())}", file=sys.stderr, flush=True)
+    _serve_forever()
+    srv.stop()
+    return 0
+
+
+def build_router(cfg: Config, device: str | None = None, params_path: str | None = None,
+                 workers: int | None = None):
+    """What the ``router`` role runs, not yet started: (router, registry,
+    trace sink, exporter collectors). The bus from BROKER_URL, the engine
+    REST client on KIE_SERVER_URL, the scorer (a ``SeldonClient`` when
+    SELDON_URL is http://, else a warmed ``Scorer`` on ``device``), the
+    ladder's host tier (the family's numpy forward of the served params),
+    ``OverloadControl`` when CCFD_OVERLOAD is on, the tracer, and a single
+    ``Router`` for one worker, else a ``ParallelRouter``."""
+    from ccfd_tpu_torch.metrics.prom import Registry
+    from ccfd_tpu_torch.process.client import EngineRestClient
+    from ccfd_tpu_torch.router.router import Router
+
+    _refuse_unported(cfg)
+    registry = Registry()
+    broker = _broker_for(cfg)
+    tracer, sink = _tracing_for(cfg, registry, "router")
+    collectors = []
+    if cfg.seldon_url.startswith("http"):
+        from ccfd_tpu_torch.models.registry import get_model
+        from ccfd_tpu_torch.params import to_numpy
+        from ccfd_tpu_torch.serving.client import SeldonClient
+
+        score_fn = SeldonClient(cfg, tracer=tracer).score
+        # the remote scorer's params, held on the host for the ladder's host
+        # tier (the reference's role has none here and falls to rules)
+        host_params = to_numpy(served_params(cfg, params_path))
+        apply_numpy = get_model(cfg.model_name).apply_numpy
+
+        def host_score_fn(x):
+            return apply_numpy(host_params, x)
+        on_card = False
+    else:
+        from ccfd_tpu_torch.serving.scorer import Scorer
+        from ccfd_tpu_torch.serving.server import publish_launches
+
+        scorer = Scorer(model_name=cfg.model_name, params=served_params(cfg, params_path),
+                        batch_sizes=cfg.batch_sizes, compute_dtype=cfg.compute_dtype,
+                        device=device, q8_wire=cfg.q8_wire)
+        scorer.warmup()
+        score_fn, host_score_fn = scorer.score, scorer.host_score
+        on_card = scorer.device.type == "cuda"
+        g_launches = registry.gauge(
+            "ccfd_kernel_launches", "CUDA kernel launches in this process")
+        g_dispatches = registry.gauge(
+            "ccfd_scorer_dispatches", "the Scorer's bucket dispatches in this process")
+
+        def publish() -> None:
+            publish_launches(g_launches)
+            g_dispatches.set(scorer.dispatch_total())
+        collectors.append(publish)
+    engine = EngineRestClient(cfg.kie_server_url, timeout_s=cfg.seldon_timeout_ms / 1000.0,
+                              retries=cfg.client_retries, tracer=tracer)
+    workers = cfg.router_workers if workers is None else workers
+    overload = None
+    if cfg.overload_enabled:
+        from ccfd_tpu_torch.runtime.overload import OverloadControl
+
+        n_eff = workers if workers > 0 else max(1, len(broker.end_offsets(cfg.kafka_topic)))
+        overload = OverloadControl.from_config(cfg, registry, max_batch=4096,
+                                               workers=n_eff, on_card=on_card)
+    if workers == 1:
+        router = Router(cfg, broker, score_fn, engine, registry=registry,
+                        host_score_fn=host_score_fn, degrade=True, tracer=tracer,
+                        overload=overload)
+    else:
+        from ccfd_tpu_torch.router.parallel import ParallelRouter
+
+        router = ParallelRouter(cfg, broker, score_fn, engine, registry=registry,
+                                workers=workers, host_score_fn=host_score_fn,
+                                degrade=True, tracer=tracer, coalesce=cfg.router_coalesce,
+                                overload=overload)
+    return router, registry, sink, collectors
+
+
+def cmd_router(args: argparse.Namespace) -> int:
+    """The decision router (the reference's ccd-fuse): remote bus, remote or
+    local scorer, remote engine; metrics on --metrics-port."""
+    from ccfd_tpu_torch.metrics.exporter import MetricsExporter
+
+    cfg = Config.from_env()
+    if not cfg.kie_server_url.startswith("http"):
+        print("[router] the router role needs KIE_SERVER_URL=http://... "
+              "(run `python -m ccfd_tpu_torch engine`)", file=sys.stderr)
+        return 2
+    router, registry, sink, collectors = build_router(cfg, args.device, args.params,
+                                                      args.workers)
+    regs = {"router": registry}
+    if sink is not None:
+        regs["tracing"] = sink.registry
+    exporter = MetricsExporter(regs, host="0.0.0.0", port=args.metrics_port, sink=sink,
+                               collectors=collectors).start()
+    print(f"[router] consuming {cfg.kafka_topic!r} from {cfg.broker_url}; metrics on "
+          f":{exporter.endpoint.rsplit(':', 1)[1]}/prometheus", file=sys.stderr, flush=True)
+    _sigterm_as_interrupt()
+    try:
+        router.run(poll_timeout_s=0.05)
+    except KeyboardInterrupt:
+        router.close()
+    exporter.stop()
+    return 0
+
+
+def cmd_notify(args: argparse.Namespace) -> int:
+    """The notification service (the reference's notification-service)."""
+    from ccfd_tpu_torch.metrics.exporter import MetricsExporter
+    from ccfd_tpu_torch.metrics.prom import Registry
+    from ccfd_tpu_torch.notify.service import NotificationService
+
+    cfg = Config.from_env()
+    _refuse_unported(cfg)
+    registry = Registry()
+    tracer, sink = _tracing_for(cfg, registry, "notify")
+    svc = NotificationService(cfg, _broker_for(cfg), registry, reply_prob=args.reply_prob,
+                              approve_prob=args.approve_prob, seed=args.seed, tracer=tracer)
+    regs = {"notify": registry}
+    if sink is not None:
+        regs["tracing"] = sink.registry
+    exporter = MetricsExporter(regs, host="0.0.0.0", port=args.metrics_port,
+                               sink=sink).start()
+    print(f"[notify] consuming {cfg.customer_notification_topic!r} from {cfg.broker_url}; "
+          f"metrics on :{exporter.endpoint.rsplit(':', 1)[1]}/prometheus",
+          file=sys.stderr, flush=True)
+    _sigterm_as_interrupt()
+    try:
+        svc.run(poll_timeout_s=0.05)
+    except KeyboardInterrupt:
+        svc.stop()
+    exporter.stop()
+    return 0
+
+
+def cmd_producer(args: argparse.Namespace) -> int:
+    """The transaction producer (the reference's ProducerDeployment): the CSV
+    at CCFD_CSV or the synthetic stream, onto the producer topic."""
+    from ccfd_tpu_torch.metrics.prom import Registry
+    from ccfd_tpu_torch.producer.producer import Producer
+
+    cfg = Config.from_env()
+    _refuse_unported(cfg)
+    registry = Registry()
+    tracer, _sink = _tracing_for(cfg, registry, "producer")
+    n = Producer(cfg, _broker_for(cfg), registry=registry, tracer=tracer).run(
+        limit=args.limit, rate_per_s=args.rate, wire_format=args.wire_format)
+    print(f"[producer] streamed {n} rows to {cfg.producer_topic!r}", file=sys.stderr,
+          flush=True)
+    return 0
+
+
 def cmd_serve(args: argparse.Namespace) -> int:
     cfg = Config.from_env()
     srv = build_server(cfg, device=args.device, params_path=args.params)
@@ -340,6 +607,39 @@ def build_parser() -> argparse.ArgumentParser:
     d.add_argument("--device", choices=("cuda", "cpu"), default=None,
                    help="where to score (default: the card)")
     d.set_defaults(fn=cmd_demo)
+    bus = sub.add_parser("bus", help="networked bus (the Kafka-cluster role)")
+    bus.add_argument("--host", default="0.0.0.0")
+    bus.add_argument("--port", type=int, default=9092)
+    bus.add_argument("--dir", default=None, help="durable segment-log dir (not ported)")
+    bus.set_defaults(fn=cmd_bus)
+    en = sub.add_parser("engine", help="KIE-shaped process engine server")
+    en.add_argument("--host", default="0.0.0.0")
+    en.add_argument("--port", type=int, default=8090)
+    en.add_argument("--state-file", default=None, help="engine persistence (not ported)")
+    en.add_argument("--save-interval-s", type=float, default=5.0)
+    en.set_defaults(fn=cmd_engine)
+    ro = sub.add_parser("router", help="the decision router role")
+    ro.add_argument("--metrics-port", type=int, default=8091)
+    ro.add_argument("--workers", type=int, default=None,
+                    help="partition-parallel worker loops sharing one coalesced scorer "
+                    "dispatch (default: CCFD_ROUTER_WORKERS; 1 = a single router, "
+                    "0 = one per bus partition)")
+    ro.add_argument("--params", default=None,
+                    help=".npz of MLP or int8 MLP params (default: the committed checkpoint)")
+    ro.add_argument("--device", choices=("cuda", "cpu"), default=None,
+                    help="where the local scorer scores (default: the card)")
+    ro.set_defaults(fn=cmd_router)
+    no = sub.add_parser("notify", help="the notification service role")
+    no.add_argument("--reply-prob", type=float, default=0.8)
+    no.add_argument("--approve-prob", type=float, default=0.7)
+    no.add_argument("--seed", type=int, default=0)
+    no.add_argument("--metrics-port", type=int, default=8080)
+    no.set_defaults(fn=cmd_notify)
+    pr = sub.add_parser("producer", help="the transaction producer role")
+    pr.add_argument("--limit", type=int, default=None)
+    pr.add_argument("--rate", type=float, default=None)
+    pr.add_argument("--wire-format", choices=("dict", "csv"), default="csv")
+    pr.set_defaults(fn=cmd_producer)
     return ap
 
 

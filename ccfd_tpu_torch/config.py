@@ -14,6 +14,15 @@ as ccfd_tpu/config.py, with the same defaults:
                                                         (the REST batcher and
                                                         the router's poll)
     SELDON_TOKEN, CCFD_SERVE_HOST, CCFD_SERVE_PORT      REST front
+    BROKER_URL                                          the bus: http:// for a
+                                                        `bus` role, anything
+                                                        else in-process
+    KIE_SERVER_URL                                      the engine REST (the
+                                                        `router` role)
+    SELDON_URL, SELDON_ENDPOINT, SELDON_TIMEOUT,
+    SELDON_POOL_SIZE, CCFD_CLIENT_RETRIES               the router's remote
+                                                        scorer (http:// = a
+                                                        `serve` role)
     KAFKA_TOPIC, CUSTOMER_NOTIFICATION_TOPIC,
     CUSTOMER_RESPONSE_TOPIC, topic (the producer's)     bus topics
     FRAUD_THRESHOLD, CCFD_RULES                         the router's rules
@@ -21,13 +30,26 @@ as ccfd_tpu/config.py, with the same defaults:
     CCFD_LOW_PROBA, CONFIDENCE_THRESHOLD                the fraud process
     CCFD_LABELS_TOPIC                                   resolved-case labels
     CCFD_FUSED_DECISION, CCFD_FUSED_DECISION_STRICT     the decision plane
+    CCFD_TRACE_SAMPLE, CCFD_TRACE_SLOW_MS               tracing (0 = off)
+    CCFD_ROUTER_WORKERS, CCFD_ROUTER_COALESCE           ParallelRouter
+    CCFD_OVERLOAD, CCFD_OVERLOAD_TARGET_MS,
+    CCFD_OVERLOAD_SERVE_TARGET_MS,
+    CCFD_OVERLOAD_MIN_INFLIGHT, CCFD_OVERLOAD_MAX_INFLIGHT,
+    CCFD_OVERLOAD_CODEL_TARGET_MS,
+    CCFD_OVERLOAD_DISPATCH_DEADLINE_MS                  overload control
 
-Knobs that select a part of the reference this port does not have yet are
-read too, so that setting one is refused by name rather than ignored
+Knobs that select a part of the reference this port does not have are read
+too, so that setting one is refused by name rather than ignored
 (``unported``): the durable bus log (CCFD_BUS_DIR), bus retention
-(CCFD_BUS_RETENTION_RECORDS, CCFD_BUS_RETENTION_OVERRIDES), a remote bus or
-Kafka (BROKER_URL, bootstrap), the engine's audit stream (CCFD_AUDIT_TOPIC)
-and the object-store source of the producer (s3endpoint).
+(CCFD_BUS_RETENTION_RECORDS, CCFD_BUS_RETENTION_OVERRIDES), Kafka
+(BROKER_URL=kafka://..., bootstrap), the engine's audit stream
+(CCFD_AUDIT_TOPIC), the producer's object-store source (s3endpoint), fault
+injection (CCFD_FAULTS), the batcher's overload queue policies
+(CCFD_OVERLOAD_SERVE_CODEL_TARGET_MS, CCFD_OVERLOAD_REST_QUEUE_ROWS), and
+the Scorer's two ways round the kernel: the host latency tier
+(CCFD_HOST_TIER_ROWS > 0) and the in-scorer wedge deadline with host
+fallback (CCFD_DISPATCH_DEADLINE_MS > 0). Their auto value (-1) resolves to
+off in the port.
 """
 
 from __future__ import annotations
@@ -39,6 +61,10 @@ from typing import Mapping, Sequence
 
 def _flag(value: str) -> bool:
     return value.strip().lower() in ("1", "true", "yes", "on")
+
+
+def _on_unless_off(value: str) -> bool:
+    return value.strip().lower() not in ("0", "false", "no", "off")
 
 
 @dataclass(frozen=True)
@@ -54,11 +80,19 @@ class Config:
     serve_host: str = "0.0.0.0"
     serve_port: int = 8000
     # --- bus / topics (reference router.yaml:54-62) ---
+    broker_url: str = "inproc://local"
     kafka_topic: str = "odh-demo"
     customer_notification_topic: str = "ccd-customer-outgoing"
     customer_response_topic: str = "ccd-customer-response"
     producer_topic: str = "odh-demo"
     labels_topic: str = "ccd-labels"
+    # --- service endpoints (reference router.yaml:63-68) ---
+    kie_server_url: str = "inproc://engine"
+    seldon_url: str = "inproc://scorer"
+    seldon_endpoint: str = "api/v0.1/predictions"  # URL path, not a model
+    seldon_timeout_ms: int = 5000
+    seldon_pool_size: int = 5
+    client_retries: int = 2
     # --- decision thresholds (reference router.yaml:69-70) ---
     fraud_threshold: float = 0.5
     rules_file: str = ""  # JSON rule base (CCFD_RULES) -> router/rules.py
@@ -71,19 +105,46 @@ class Config:
     # reference ---
     fused_decision: bool = False
     fused_decision_strict: bool = False
+    # --- tracing (observability/trace.py): the tail sampler's keep rate for
+    # unflagged traces (0 turns tracing off in the roles) and the bar above
+    # which a trace is always kept ---
+    trace_sample: float = 0.02
+    trace_slow_ms: float = 100.0
+    # --- router fan-out (router/parallel.py): 1 = one Router, 0 = one
+    # worker per bus partition, >1 explicit ---
+    router_workers: int = 1
+    router_coalesce: bool = True
+    # --- overload control (runtime/overload.py) ---
+    overload_enabled: bool = True
+    overload_target_ms: float = 50.0        # the router's AIMD latency budget
+    overload_serve_target_ms: float = 25.0  # the REST gate's
+    overload_min_inflight: int = 0          # 0 = auto: one router max_batch
+    overload_max_inflight: int = 0          # 0 = auto: 4x the initial limit
+    overload_codel_target_ms: float = 0.0   # bus sojourn deadline; 0 = off
+    # router dispatch watchdog: -1 = auto (SELDON_TIMEOUT when the router
+    # scores on the card, off on the CPU), 0 = off
+    overload_dispatch_deadline_ms: float = -1.0
     # --- parts of the reference not ported yet: set, they are refused ---
-    broker_url: str = "inproc://local"
     bus_log_dir: str = ""
     bus_retention_records: int = 0
     bus_retention_overrides: str = ""
     bootstrap: str = "odh-message-bus-kafka-brokers:9092"
     audit_topic: str = ""
     s3_endpoint: str = ""
+    faults_spec: str = ""
+    overload_serve_codel_target_ms: float = 0.0
+    overload_rest_queue_rows: int = 0
+    host_tier_rows: int = -1        # -1 = auto, which is off in the port
+    dispatch_deadline_ms: float = -1.0  # -1 = auto, which is off in the port
 
     @staticmethod
     def from_env(env: Mapping[str, str] | None = None) -> "Config":
         e = dict(os.environ if env is None else env)
         sizes = e.get("CCFD_BATCH_SIZES", "")
+
+        def num(key: str, field: str, conv=float):
+            return conv(e.get(key, str(getattr(Config, field))))
+
         return Config(
             seldon_token=e.get("SELDON_TOKEN", Config.seldon_token),
             model_name=e.get("CCFD_MODEL", Config.model_name),
@@ -91,16 +152,12 @@ class Config:
             batch_sizes=tuple(int(s) for s in sizes.split(",")) if sizes else Config.batch_sizes,
             # as the reference: any value but "f32" keeps the int8 wire
             q8_wire="f32" if e.get("CCFD_Q8_WIRE", "int8") == "f32" else "int8",
-            batch_deadline_ms=float(
-                e.get("CCFD_BATCH_DEADLINE_MS", str(Config.batch_deadline_ms))
-            ),
-            batch_workers=int(
-                e.get("CCFD_BATCH_WORKERS", str(Config.batch_workers))
-            ),
-            dynamic_batching=e.get("CCFD_DYNAMIC_BATCHING", "1").strip().lower()
-            not in ("0", "false", "no", "off"),
+            batch_deadline_ms=num("CCFD_BATCH_DEADLINE_MS", "batch_deadline_ms"),
+            batch_workers=num("CCFD_BATCH_WORKERS", "batch_workers", int),
+            dynamic_batching=_on_unless_off(e.get("CCFD_DYNAMIC_BATCHING", "1")),
             serve_host=e.get("CCFD_SERVE_HOST", Config.serve_host),
-            serve_port=int(e.get("CCFD_SERVE_PORT", str(Config.serve_port))),
+            serve_port=num("CCFD_SERVE_PORT", "serve_port", int),
+            broker_url=e.get("BROKER_URL", Config.broker_url),
             kafka_topic=e.get("KAFKA_TOPIC", Config.kafka_topic),
             customer_notification_topic=e.get(
                 "CUSTOMER_NOTIFICATION_TOPIC", Config.customer_notification_topic),
@@ -108,43 +165,91 @@ class Config:
                 "CUSTOMER_RESPONSE_TOPIC", Config.customer_response_topic),
             producer_topic=e.get("topic", Config.producer_topic),
             labels_topic=e.get("CCFD_LABELS_TOPIC", Config.labels_topic),
-            fraud_threshold=float(e.get("FRAUD_THRESHOLD", str(Config.fraud_threshold))),
+            kie_server_url=e.get("KIE_SERVER_URL", Config.kie_server_url),
+            seldon_url=e.get("SELDON_URL", Config.seldon_url),
+            seldon_endpoint=e.get("SELDON_ENDPOINT", Config.seldon_endpoint),
+            seldon_timeout_ms=num("SELDON_TIMEOUT", "seldon_timeout_ms", int),
+            seldon_pool_size=num("SELDON_POOL_SIZE", "seldon_pool_size", int),
+            client_retries=num("CCFD_CLIENT_RETRIES", "client_retries", int),
+            fraud_threshold=num("FRAUD_THRESHOLD", "fraud_threshold"),
             rules_file=e.get("CCFD_RULES", Config.rules_file),
-            confidence_threshold=float(
-                e.get("CONFIDENCE_THRESHOLD", str(Config.confidence_threshold))),
-            customer_reply_timeout_s=float(
-                e.get("CCFD_REPLY_TIMEOUT_S", str(Config.customer_reply_timeout_s))),
-            low_amount_threshold=float(
-                e.get("CCFD_LOW_AMOUNT", str(Config.low_amount_threshold))),
-            low_proba_threshold=float(
-                e.get("CCFD_LOW_PROBA", str(Config.low_proba_threshold))),
+            confidence_threshold=num("CONFIDENCE_THRESHOLD", "confidence_threshold"),
+            customer_reply_timeout_s=num("CCFD_REPLY_TIMEOUT_S", "customer_reply_timeout_s"),
+            low_amount_threshold=num("CCFD_LOW_AMOUNT", "low_amount_threshold"),
+            low_proba_threshold=num("CCFD_LOW_PROBA", "low_proba_threshold"),
             fused_decision=_flag(e.get("CCFD_FUSED_DECISION", "0")),
             fused_decision_strict=_flag(e.get("CCFD_FUSED_DECISION_STRICT", "0")),
-            broker_url=e.get("BROKER_URL", Config.broker_url),
+            trace_sample=num("CCFD_TRACE_SAMPLE", "trace_sample"),
+            trace_slow_ms=num("CCFD_TRACE_SLOW_MS", "trace_slow_ms"),
+            router_workers=num("CCFD_ROUTER_WORKERS", "router_workers", int),
+            router_coalesce=_on_unless_off(e.get("CCFD_ROUTER_COALESCE", "1")),
+            overload_enabled=_on_unless_off(e.get("CCFD_OVERLOAD", "1")),
+            overload_target_ms=num("CCFD_OVERLOAD_TARGET_MS", "overload_target_ms"),
+            overload_serve_target_ms=num("CCFD_OVERLOAD_SERVE_TARGET_MS",
+                                         "overload_serve_target_ms"),
+            overload_min_inflight=num("CCFD_OVERLOAD_MIN_INFLIGHT",
+                                      "overload_min_inflight", int),
+            overload_max_inflight=num("CCFD_OVERLOAD_MAX_INFLIGHT",
+                                      "overload_max_inflight", int),
+            overload_codel_target_ms=num("CCFD_OVERLOAD_CODEL_TARGET_MS",
+                                         "overload_codel_target_ms"),
+            overload_dispatch_deadline_ms=num("CCFD_OVERLOAD_DISPATCH_DEADLINE_MS",
+                                              "overload_dispatch_deadline_ms"),
             bus_log_dir=e.get("CCFD_BUS_DIR", Config.bus_log_dir),
-            bus_retention_records=int(
-                e.get("CCFD_BUS_RETENTION_RECORDS", Config.bus_retention_records)),
+            bus_retention_records=num("CCFD_BUS_RETENTION_RECORDS",
+                                      "bus_retention_records", int),
             bus_retention_overrides=e.get(
                 "CCFD_BUS_RETENTION_OVERRIDES", Config.bus_retention_overrides),
             bootstrap=e.get("bootstrap", Config.bootstrap),
             audit_topic=e.get("CCFD_AUDIT_TOPIC", Config.audit_topic),
             s3_endpoint=e.get("s3endpoint", Config.s3_endpoint),
+            faults_spec=e.get("CCFD_FAULTS", Config.faults_spec),
+            overload_serve_codel_target_ms=num("CCFD_OVERLOAD_SERVE_CODEL_TARGET_MS",
+                                               "overload_serve_codel_target_ms"),
+            overload_rest_queue_rows=num("CCFD_OVERLOAD_REST_QUEUE_ROWS",
+                                         "overload_rest_queue_rows", int),
+            host_tier_rows=num("CCFD_HOST_TIER_ROWS", "host_tier_rows", int),
+            dispatch_deadline_ms=num("CCFD_DISPATCH_DEADLINE_MS", "dispatch_deadline_ms"),
         )
+
+    def watchdog_deadline_ms(self, on_card: bool) -> float:
+        """The router's dispatch watchdog deadline: CCFD_OVERLOAD_DISPATCH_
+        DEADLINE_MS when set (>= 0); else CCFD_DISPATCH_DEADLINE_MS when set
+        (the only value the port takes there is 0); else, as the reference's
+        auto, SELDON_TIMEOUT when the router scores on the card and off on
+        the CPU."""
+        if self.overload_dispatch_deadline_ms >= 0:
+            return self.overload_dispatch_deadline_ms
+        if self.dispatch_deadline_ms >= 0:
+            return self.dispatch_deadline_ms
+        return float(self.seldon_timeout_ms) if on_card else 0.0
 
     def unported(self) -> list[str]:
         """The environment variables set to select a part of the reference
-        the port does not have yet (the pipeline refuses to start on any)."""
+        the port does not have yet (the pipeline and the roles refuse to
+        start on any)."""
         out = []
         if self.bus_log_dir:
             out.append("CCFD_BUS_DIR (the durable bus log)")
         if self.bus_retention_records or self.bus_retention_overrides:
             out.append("CCFD_BUS_RETENTION_RECORDS/_OVERRIDES (bus retention)")
-        if self.broker_url != Config.broker_url:
-            out.append("BROKER_URL (a remote bus)")
+        if self.broker_url.startswith("kafka://"):
+            out.append("BROKER_URL=kafka://... (the Kafka adapter)")
         if self.bootstrap != Config.bootstrap:
             out.append("bootstrap (the Kafka adapter)")
         if self.audit_topic:
             out.append("CCFD_AUDIT_TOPIC (the engine's audit stream)")
         if self.s3_endpoint:
             out.append("s3endpoint (the producer's object-store source)")
+        if self.faults_spec:
+            out.append("CCFD_FAULTS (fault injection)")
+        if self.overload_serve_codel_target_ms > 0 or self.overload_rest_queue_rows > 0:
+            out.append("CCFD_OVERLOAD_SERVE_CODEL_TARGET_MS/CCFD_OVERLOAD_REST_QUEUE_ROWS "
+                       "(the batcher's overload queue policies)")
+        if self.host_tier_rows > 0:
+            out.append("CCFD_HOST_TIER_ROWS > 0 (the Scorer's host latency tier: "
+                       "requests that skip the kernel)")
+        if self.dispatch_deadline_ms > 0:
+            out.append("CCFD_DISPATCH_DEADLINE_MS > 0 (the Scorer's wedge deadline "
+                       "with host fallback: requests that skip the kernel)")
         return out

@@ -5,11 +5,13 @@ The port's copy of ccfd_tpu/notify/service.py. Subscribes to
 seeded generator whether the customer replies and whether they approve,
 and publishes replies to ``ccd-customer-response``. No reply simulates the
 silent customer, which arms the engine's DMN timer path. Deterministic in
-the seed.
+the seed. With a tracer each handled notification resumes the trace on the
+record (``notify.handle``) and stamps the reply it produces.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Any
 
@@ -22,9 +24,11 @@ from ccfd_tpu_torch.metrics.prom import Registry
 
 class NotificationService:
     def __init__(self, cfg: Config, broker: Broker, registry: Registry | None = None,
-                 reply_prob: float = 0.8, approve_prob: float = 0.7, seed: int = 0):
+                 reply_prob: float = 0.8, approve_prob: float = 0.7, seed: int = 0,
+                 tracer=None):
         self.cfg = cfg
         self.broker = broker
+        self.tracer = tracer
         self.registry = registry or Registry()
         self.reply_prob = reply_prob
         self.approve_prob = approve_prob
@@ -48,13 +52,23 @@ class NotificationService:
             approved = bool(self._rng.random() < self.approve_prob)
             self._c_replied.inc(
                 labels={"response": "approved" if approved else "non_approved"})
-            self.broker.produce(
-                self.cfg.customer_response_topic,
-                {"process_id": msg.get("process_id"),
-                 "customer_id": msg.get("customer_id"),
-                 "approved": approved},
-                key=msg.get("process_id"),
-            )
+            span_cm: Any = contextlib.nullcontext()
+            if self.tracer is not None:
+                from ccfd_tpu_torch.observability import trace as _trace
+
+                span_cm = self.tracer.span(
+                    "notify.handle",
+                    parent=_trace.extract_context(getattr(rec, "headers", None)))
+            with span_cm:
+                headers = _trace.inject_headers() if self.tracer is not None else None
+                self.broker.produce(
+                    self.cfg.customer_response_topic,
+                    {"process_id": msg.get("process_id"),
+                     "customer_id": msg.get("customer_id"),
+                     "approved": approved},
+                    key=msg.get("process_id"),
+                    headers=headers or None,
+                )
         return len(records)
 
     def run(self, poll_timeout_s: float = 0.05) -> None:

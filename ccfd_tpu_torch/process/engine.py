@@ -168,6 +168,12 @@ class Engine:
         self._completed = self.registry.counter(
             "process_instances_completed_total", "process completions by status")
 
+    @property
+    def state_lock(self) -> threading.RLock:
+        """The lock over instance and task state; the REST server holds it
+        while it serializes ``vars`` dicts the engine mutates in place."""
+        return self._lock
+
     # -- definitions ------------------------------------------------------
     def definitions(self) -> tuple[str, ...]:
         """Registered process-definition ids (the router validates its rule
@@ -302,6 +308,10 @@ class Engine:
             inst.vars["signal_payload"] = payload
             self._run_from(inst, node.on_signal)
             return True
+
+    def instance(self, pid: int) -> Instance:
+        with self._lock:
+            return self._instances[pid]
 
     def instances(self, status: str | None = None) -> list[Instance]:
         with self._lock:

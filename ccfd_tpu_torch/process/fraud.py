@@ -96,6 +96,11 @@ def build_engine(
         return float(inst.vars.get("transaction", {}).get("Amount", 0.0))
 
     def notify(engine_: Engine, inst: Instance) -> None:
+        # process starts run on the router's (or the engine server's) traced
+        # thread: the record inherits that trace, so notify's reply leg
+        # stays on it; outside any span no header is stamped
+        from ccfd_tpu_torch.observability.trace import inject_headers
+
         broker.produce(
             cfg.customer_notification_topic,
             {
@@ -105,6 +110,7 @@ def build_engine(
                 "transaction": inst.vars.get("transaction", {}),
             },
             key=inst.pid,
+            headers=inject_headers() or None,
         )
 
     def on_reply(engine_: Engine, inst: Instance) -> str:

@@ -4,8 +4,11 @@ The port's copy of ccfd_tpu/producer/producer.py. The reference streams
 ``creditcard.csv`` rows to topic ``odh-demo``; here the source is a
 ``Dataset`` (the caller's, else the CSV at CCFD_CSV or the synthetic
 stream) and the sink is the bus. An optional rate limit emulates live
-traffic. The object-store source (``s3endpoint``) and trace headers are not
-ported yet.
+traffic. With a tracer each produced batch opens a root span
+(``producer.batch``; ``producer.produce`` a record when paced) whose
+context rides the records as a ``traceparent`` header: the head of the
+trace the router, engine and notify resume. The object-store source
+(``s3endpoint``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -20,9 +23,10 @@ from ccfd_tpu_torch.metrics.prom import Registry
 
 class Producer:
     def __init__(self, cfg: Config, broker: Broker, dataset: Dataset | None = None,
-                 registry: Registry | None = None):
+                 registry: Registry | None = None, tracer=None):
         self.cfg = cfg
         self.broker = broker
+        self.tracer = tracer
         if dataset is None and cfg.s3_endpoint:
             raise NotImplementedError(
                 "s3endpoint is set: the producer's object-store source is not ported yet")
@@ -72,12 +76,28 @@ class Producer:
                 time.sleep(next_emit - now)
             next_emit += interval
             # the producer's own `topic` variable names the sink topic
-            self.broker.produce(self.cfg.producer_topic, value, key=key)
+            if self.tracer is not None:
+                from ccfd_tpu_torch.observability.trace import inject_headers
+
+                with self.tracer.span("producer.produce"):
+                    self.broker.produce(self.cfg.producer_topic, value, key=key,
+                                        headers=inject_headers())
+            else:
+                self.broker.produce(self.cfg.producer_topic, value, key=key)
             self._c_rows.inc()
             produced += 1
         return produced
 
     def _produce_chunk(self, values: list, keys: list) -> int:
-        n = self.broker.produce_batch(self.cfg.producer_topic, values, keys)
+        """One batched produce; traced, one root span whose context stamps
+        every record of the batch."""
+        if self.tracer is None:
+            n = self.broker.produce_batch(self.cfg.producer_topic, values, keys)
+        else:
+            from ccfd_tpu_torch.observability.trace import inject_headers
+
+            with self.tracer.span("producer.batch", attrs={"rows": len(values)}):
+                n = self.broker.produce_batch(self.cfg.producer_topic, values, keys,
+                                              headers=inject_headers())
         self._c_rows.inc(len(values))
         return n

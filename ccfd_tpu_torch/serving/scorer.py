@@ -52,6 +52,7 @@ from ccfd_tpu_torch.data.ccfd import NUM_FEATURES
 from ccfd_tpu_torch.device import resolve
 from ccfd_tpu_torch.models.registry import ModelSpec, get_model
 from ccfd_tpu_torch.ops import fused_mlp, fused_mlp_q8
+from ccfd_tpu_torch.params import to_numpy
 
 _DTYPES = {
     "float32": torch.float32,
@@ -96,6 +97,9 @@ class Scorer:
         self._dispatch_counts: dict[int, int] = {}
         self._prepublish_hooks: list[Any] = []
         self._live = self._stage(params)
+        # the host copy the router's host tier forwards through
+        # (``host_score``); refreshed by every swap
+        self._host_params = to_numpy(params)
 
     # -- params ------------------------------------------------------------
     def _stage(self, params: Any) -> tuple[dict, dict | None, dict | None]:
@@ -135,12 +139,14 @@ class Scorer:
         under the lock. Params that do not fold, or a hook that raises,
         raise here, before the flip."""
         live = self._stage(new_params)
+        host = to_numpy(new_params)
         with self._lock:
             hooks = list(self._prepublish_hooks)
         for hook in hooks:
             hook(live)
         with self._lock:
             self._live = live
+            self._host_params = host
 
     def add_prepublish_hook(self, fn: Any) -> None:
         """``fn(staged)`` runs inside every ``swap_params`` after staging and
@@ -269,3 +275,21 @@ class Scorer:
         """(n, F) float32 -> (n,) float32 proba_1: the synchronous latency
         path, one chunk in flight."""
         return self.score_pipelined(x, depth=1)
+
+    # -- the router's host tier ------------------------------------------------
+    @property
+    def has_host_forward(self) -> bool:
+        """True: both served families have a numpy forward."""
+        return self.spec.apply_numpy is not None
+
+    def host_score(self, x: np.ndarray) -> np.ndarray:
+        """(n, F) -> (n,) proba_1 by the family's numpy forward over the
+        host copy of the params, never touching the card. Only the router's
+        degradation ladder calls it, after the scorer edge failed or while
+        its breaker is open, and counts every row it scores
+        (``router_degraded_total{tier="host"}``); ``score`` never falls back
+        to it."""
+        with self._lock:
+            host_params = self._host_params
+        return np.asarray(self.spec.apply_numpy(host_params, np.asarray(x, np.float32)),
+                          np.float32)

@@ -14,6 +14,13 @@ scorer. The port of ccfd_tpu/serving/server.py's ``PredictionServer``.
   and ``ccfd_kernel_launches{kernel=...}``, the process's launches of each
   CUDA kernel.
 - ``GET /health/status`` — Seldon-style readiness.
+- Overload admission (CCFD_OVERLOAD, on by default, as in the reference):
+  each predict reserves its rows against an adaptive serving budget
+  (``runtime/overload.py::AdmissionGate``) by the priority in its
+  ``x-ccfd-priority`` header (bulk refused at 50% utilization, normal at
+  90%, critical at 100%); a refusal answers 429 with ``Retry-After``,
+  counted in ``ccfd_admission_total`` and ``ccfd_shed_total``. The
+  batcher's CoDel and bounded priority queue are not ported.
 
 Transport: the Python ``FastHTTPServer`` only, decoding bodies with
 ``json.loads``. The reference's C++ front and native payload decode are a
@@ -44,6 +51,13 @@ KERNEL_LAUNCHES = (fused_mlp.launches, fused_mlp_q8.launches,
                    fused_mlp_q8.launches_preq)
 
 
+def publish_launches(gauge) -> None:
+    """Set ``ccfd_kernel_launches{kernel=...}`` to each kernel's launches
+    in this process (the REST server and the router role's exporter)."""
+    for counter in KERNEL_LAUNCHES:
+        gauge.set(counter.value, labels={"kernel": counter.kernel})
+
+
 class PredictionServer:
     def __init__(
         self,
@@ -68,6 +82,14 @@ class PredictionServer:
         self._g_v10 = r.gauge("V10", "last scored V10")
         self._g_launches = r.gauge(
             "ccfd_kernel_launches", "CUDA kernel launches in this process")
+        self._g_dispatches = r.gauge(
+            "ccfd_scorer_dispatches", "the Scorer's bucket dispatches in this process")
+        self.admission = None
+        if self.cfg.overload_enabled:
+            from ccfd_tpu_torch.runtime.overload import AdmissionGate
+
+            self.admission = AdmissionGate.from_config(
+                self.cfg, r, max_rows=max(self.scorer.batch_sizes))
         self._httpd: FastHTTPServer | None = None
         # dynamic batching: concurrent requests coalesce into one dispatch;
         # the adaptive policy adds no latency for a lone sequential client
@@ -152,6 +174,14 @@ class PredictionServer:
         self._c_requests.inc(labels={"code": str(code)})
         return code, "application/json", json.dumps(obj).encode()
 
+    def _reject_overload(self, retry_after_s: float):
+        """429 with the retry-after hint as a header and in the body."""
+        self._c_requests.inc(labels={"code": "429"})
+        body = json.dumps({"error": "overloaded",
+                           "retry_after_s": round(float(retry_after_s), 3)}).encode()
+        retry = str(max(1, int(-(-retry_after_s // 1))))  # ceil, >= 1 s
+        return 429, "application/json", body, {"Retry-After": retry}
+
     def _authorized(self, headers: dict) -> bool:
         token = self.cfg.seldon_token
         if not token:
@@ -165,9 +195,8 @@ class PredictionServer:
         if method == "GET":
             if path in ("/prometheus", "/metrics"):
                 self._c_requests.inc(labels={"code": "200"})
-                for counter in KERNEL_LAUNCHES:
-                    self._g_launches.set(counter.value,
-                                         labels={"kernel": counter.kernel})
+                publish_launches(self._g_launches)
+                self._g_dispatches.set(self.scorer.dispatch_total())
                 return 200, "text/plain", self.registry.render().encode()
             if path in ("/health/status", "/health", "/healthz"):
                 return self._json(
@@ -195,8 +224,23 @@ class PredictionServer:
             x = self.rows_matrix(data.get("names") or [], rows)
         except (TypeError, ValueError) as e:
             return self._json(400, {"error": f"bad ndarray: {e}"})
-        # a scorer or kernel error propagates: the transport answers 500
-        out = self._response_dict(self._score_matrix(x), self.scorer.spec.name)
+        gate = self.admission
+        if gate is not None:
+            from ccfd_tpu_torch.runtime.overload import parse_priority
+
+            n_rows = x.shape[0]
+            if not gate.try_admit(n_rows, parse_priority(headers.get(b"x-ccfd-priority"))):
+                return self._reject_overload(gate.retry_after_s)
+        t_sc = time.perf_counter()
+        try:
+            # a scorer or kernel error propagates: the transport answers 500
+            proba = self._score_matrix(x)
+        finally:
+            if gate is not None:
+                gate.release(n_rows)
+        if gate is not None:
+            gate.observe(time.perf_counter() - t_sc)
+        out = self._response_dict(proba, self.scorer.spec.name)
         self._h_latency.observe(time.perf_counter() - t0, labels={"endpoint": path})
         return self._json(200, out)
 

@@ -15,7 +15,9 @@ connection closed.
 
 Handler contract: ``handler(method: str, path: str, headers:
 dict[bytes, bytes], body: bytes) -> (status: int, content_type: str,
-body: bytes)``. Header names arrive lowercased.
+body: bytes)``, or a 4-tuple whose last item is a ``{header: value}`` dict
+of extra response headers (the overload gate's 429 carries
+``Retry-After`` this way). Header names arrive lowercased.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ Handler = Callable[[str, str, dict, bytes], tuple[int, str, bytes]]
 _REASONS = {
     200: b"OK", 201: b"Created", 400: b"Bad Request", 401: b"Unauthorized",
     404: b"Not Found", 405: b"Method Not Allowed", 413: b"Payload Too Large",
-    500: b"Internal Server Error",
+    429: b"Too Many Requests", 500: b"Internal Server Error",
+    503: b"Service Unavailable",
 }
 _MAX_HEAD = 64 * 1024
 _MAX_BODY = 256 * 1024 * 1024
@@ -148,13 +151,17 @@ class FastHTTPServer:
                     buf += chunk
                 body, buf = buf[:clen], buf[clen:]
                 # --- dispatch ---
+                extra = None
                 try:
-                    status, ctype, resp = self._handler(method, path, headers, body)
+                    res = self._handler(method, path, headers, body)
+                    status, ctype, resp = res[0], res[1], res[2]
+                    if len(res) > 3:  # optional extra response headers
+                        extra = res[3]
                 except Exception:  # noqa: BLE001 - a handler bug 500s the
                     # request; it must not kill the connection thread silently
                     status, ctype, resp = 500, "text/plain", b"internal error"
                 close = headers.get(b"connection", b"").lower() == b"close"
-                self._respond(conn, status, ctype, resp, close=close)
+                self._respond(conn, status, ctype, resp, close=close, extra=extra)
                 if close:
                     return
         except OSError:
@@ -168,13 +175,16 @@ class FastHTTPServer:
     @staticmethod
     def _respond(
         conn: socket.socket, status: int, ctype: str, body: bytes,
-        close: bool = False,
+        close: bool = False, extra: dict | None = None,
     ) -> None:
-        head = b"HTTP/1.1 %d %s\r\nContent-Type: %s\r\nContent-Length: %d%s\r\n\r\n" % (
+        more = b"".join(b"\r\n%s: %s" % (str(k).encode("latin-1"), str(v).encode("latin-1"))
+                        for k, v in (extra or {}).items())
+        head = b"HTTP/1.1 %d %s\r\nContent-Type: %s\r\nContent-Length: %d%s%s\r\n\r\n" % (
             status,
             _REASONS.get(status, b"OK"),
             ctype.encode("latin-1"),
             len(body),
+            more,
             b"\r\nConnection: close" if close else b"",
         )
         conn.sendall(head + body)

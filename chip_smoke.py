@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (an H100).
 
-Drives the port's paths on the card (the REST scorer, the decision plane
-and the decision pipeline of ``python -m ccfd_tpu_torch demo``) and holds
-each CUDA kernel against its plain PyTorch version. The kernels: B1
+Drives the port's paths on the card (the REST scorer, the decision plane,
+the decision pipeline of ``python -m ccfd_tpu_torch demo``, and the
+service roles as separate processes) and holds each CUDA kernel against
+its plain PyTorch version. B1's ``launches`` in the kernels line sum the
+demo and services phases (in each role process, its dispatches, read off
+its scrape). The kernels: B1
 ``fused_mlp_bf16`` (model ``mlp``), B2 ``fused_mlp_q8`` (``mlp_q8`` on the
 f32 wire) and B3 ``fused_mlp_q8_preq`` (``mlp_q8`` on the default int8
 wire).
@@ -64,6 +67,30 @@ wire).
            dispatches (router and prediction service) plus the plane's;
            transactions/s, the router's decision and score-stage p50/p99 and
            the dispatches per bucket are printed
+  services the reference's service roles as processes, `python -m
+           ccfd_tpu_torch bus|engine|router|notify|producer` on free
+           loopback ports (BROKER_URL, KIE_SERVER_URL), the router with its
+           production wiring (degradation ladder, overload control, tracing
+           at 2%), every figure read off the roles' /prometheus and the
+           engine's /rest/metrics; the producer streams the checkpoint's
+           surrogate rows on its default CSV wire:
+           (a) one router worker on the card, 20,000 rows: every row
+               routed once and started in the engine, no score error,
+               degraded row or shed; B1's launches in the router process =
+               its Scorer's dispatches + one warmup launch per bucket;
+               tx/s, decision and score-stage p50/p99 and the tracer's
+               router.batch/decode/score/route span quantiles;
+           (b) the same with CCFD_ROUTER_WORKERS=0 (a worker per
+               partition, coalescing on): every worker made batches and
+               the coalesced dispatches are no more than the batches;
+           (c) the ladder: the router on SELDON_URL -> a `serve` process
+               on the card; 4,000 rows, then the serve process is killed,
+               4,000 rows more at 2,000/s, then it is restarted and 6,000
+               rows stream at 2,000/s: the rows the serve processes scored plus the
+               host tier's equal the rows produced, the host tier took
+               every row produced while serve was down, the breaker
+               opened and closed, and each serve process's B1 launches =
+               its dispatches + its warmup
   timing   each kernel and its plain version at B=16 and B=16384 at the
            served H=256, beside the roofline bound: the kernel's device
            time from CUDA events around a CUDA graph of back-to-back
@@ -82,12 +109,18 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
+import signal
+import socket
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+import urllib.request
 
-PHASES = ("device", "build", "parity", "serve", "decision", "demo", "timing")
+PHASES = ("device", "build", "parity", "serve", "decision", "demo", "services", "timing")
+REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 7
 PARITY_BATCHES = (1, 16, 100, 1024, 16384)
 # (name, features, hidden): random-params parity cases beyond the served H=256
@@ -115,6 +148,13 @@ JSON_RULES = [
 DEMO_PARTS = (("dict", 20_000), ("csv", 5_000))  # then the swap and 5,000 dict rows
 DEMO_AFTER_SWAP = 5_000
 DEMO_REPLY_TIMEOUT_S = 2.0
+SERVICES_ROWS = 20_000  # the producer role's default dataset, on its default CSV wire
+TX_TOPIC = "odh-demo"  # the producer's and the router's topic (Config's default)
+# rows before the serve process dies, then paced rows while it is down (many
+# small batches, so the breaker's window sees the failures) and after its
+# restart (until the breaker has closed)
+LADDER_PARTS = (4_000, 4_000)
+LADDER_RATE_ROWS, LADDER_RATE = 6_000, 2_000.0
 TIMING_BATCHES = (16, 16384)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, NVIDIA data sheet
@@ -177,6 +217,195 @@ def nvidia_smi_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=30, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def scrape(url: str) -> dict:
+    """A Prometheus text scrape as {"name{labels}": value}."""
+    with urllib.request.urlopen(url, timeout=10) as r:
+        text = r.read().decode()
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            key, _, val = line.rpartition(" ")
+            out[key] = float(val)
+    return out
+
+
+def hist_quantile(m: dict, name: str, q: float, labels: str = "") -> float:
+    """Bucket-interpolated quantile of a scraped histogram (what
+    histogram_quantile computes), over the series whose labels hold
+    ``labels``."""
+    cells = []
+    for key, v in m.items():
+        if key.startswith(name + "_bucket{") and labels in key:
+            le = key.split('le="', 1)[1].split('"', 1)[0]
+            cells.append((float("inf") if le == "+Inf" else float(le), v))
+    cells.sort()
+    if not cells or cells[-1][1] == 0:
+        return float("nan")
+    rank = q * cells[-1][1]
+    prev_ub, prev_c = 0.0, 0.0
+    for ub, c in cells:
+        if c >= rank:
+            if ub == float("inf"):
+                return prev_ub
+            return prev_ub + (ub - prev_ub) * ((rank - prev_c) / (c - prev_c) if c > prev_c
+                                               else 1.0)
+        prev_ub, prev_c = ub, c
+    return prev_ub
+
+
+def launches_of(m: dict) -> float:
+    return m.get('ccfd_kernel_launches{kernel="fused_mlp_bf16"}', 0.0)
+
+
+def check_conservation(tag: str, m: dict, kie: dict, produced: int,
+                       healthy: bool = True) -> None:
+    """Every produced row consumed and started in exactly one process, the
+    engine's starts equal to the router's; on a healthy run no score error,
+    degraded row or shed."""
+    incoming = m.get("transaction_incoming_total", 0.0)
+    fraud = m.get('transaction_outgoing_total{type="fraud"}', 0.0)
+    standard = m.get('transaction_outgoing_total{type="standard"}', 0.0)
+    started = sum(v for k, v in kie.items() if k.startswith("process_instances_started_total"))
+    degraded = sum(v for k, v in m.items() if k.startswith("router_degraded_total"))
+    fails = []
+    if not incoming == produced == fraud + standard == started:
+        fails.append(f"produced {produced}, incoming {incoming}, routed {fraud} fraud + "
+                     f"{standard} standard, engine starts {started}")
+    counts = {c: m.get(c, 0.0) for c in ("router_shed_total", "router_score_errors_total",
+                                         "router_process_start_errors_total")}
+    counts["router_degraded_total"] = degraded
+    bad = {c: v for c, v in counts.items()
+           if v and (healthy or c in ("router_shed_total", "router_process_start_errors_total"))}
+    if bad:
+        fails.append(f"nonzero {bad}")
+    if fails:
+        raise AssertionError(f"{tag}: " + "; ".join(fails))
+    log("services", f"{tag}: produced {produced} = incoming {incoming:.0f} = routed "
+        f"{fraud:.0f} fraud + {standard:.0f} standard = engine starts {started:.0f}; "
+        + ", ".join(f"{c} {v:.0f}" for c, v in counts.items()))
+
+
+class Roles:
+    """One part's service roles, each ``python -m ccfd_tpu_torch <role>`` on
+    free loopback ports, wired by BROKER_URL and KIE_SERVER_URL. Leaving
+    the block stops every process it started (SIGTERM, then SIGKILL), and
+    on an error prints the tail of each role's log."""
+
+    def __init__(self, card: str, csv: str) -> None:
+        self.card = card
+        self.bport, self.kport, self.rport, self.nport = (free_port() for _ in range(4))
+        self.burl = f"http://127.0.0.1:{self.bport}"
+        self.kurl = f"http://127.0.0.1:{self.kport}"
+        self.rurl = f"http://127.0.0.1:{self.rport}"
+        self.env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        self.env.update(PYTHONPATH=REPO, BROKER_URL=f"http://127.0.0.1:{self.bport}",
+                        KIE_SERVER_URL=self.kurl, CCFD_CSV=csv)
+        self.dir = tempfile.mkdtemp(prefix="ccfd_roles_")
+        self.procs: dict = {}
+
+    def __enter__(self) -> "Roles":
+        return self
+
+    def stop(self) -> None:
+        """SIGTERM every process still running, SIGKILL what outlives 20 s."""
+        for p in self.procs.values():
+            if p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+        for p in self.procs.values():
+            try:
+                p.wait(timeout=20)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self.stop()
+        if exc_type is not None:
+            for name in self.procs:
+                with open(os.path.join(self.dir, f"{name}.log"), errors="replace") as f:
+                    tail = f.read()[-3000:]
+                print(f"--- {name} log (tail) ---\n{tail}", flush=True)
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+    def spawn(self, name: str, role: str, *args: str, extra_env: dict | None = None):
+        log_file = open(os.path.join(self.dir, f"{name}.log"), "w")
+        p = subprocess.Popen([sys.executable, "-m", "ccfd_tpu_torch", role, *args], cwd=REPO,
+                             env={**self.env, **(extra_env or {})}, stdout=log_file,
+                             stderr=subprocess.STDOUT)
+        log_file.close()
+        self.procs[name] = p
+        return p
+
+    @staticmethod
+    def wait(url: str, proc, timeout: float) -> None:
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            if proc.poll() is not None:
+                raise AssertionError(f"{proc.args[3:]} exited {proc.returncode}")
+            try:
+                urllib.request.urlopen(url, timeout=2).read()
+                return
+            except OSError:
+                time.sleep(0.05)
+        raise AssertionError(f"{url} did not come up in {timeout} s")
+
+    def backbone(self) -> None:
+        """bus, then engine and notify."""
+        bus = self.spawn("bus", "bus", "--host", "127.0.0.1", "--port", str(self.bport))
+        self.wait(f"{self.burl}/health/status", bus, 60)
+        engine = self.spawn("engine", "engine", "--host", "127.0.0.1", "--port",
+                            str(self.kport))
+        notify = self.spawn("notify", "notify", "--metrics-port", str(self.nport),
+                            "--seed", str(SEED))
+        self.wait(f"{self.kurl}/health/status", engine, 60)
+        self.wait(f"http://127.0.0.1:{self.nport}/prometheus", notify, 60)
+
+    def bus_rows(self) -> int:
+        with urllib.request.urlopen(f"{self.burl}/topics/{TX_TOPIC}/offsets", timeout=10) as r:
+            return sum(json.loads(r.read()))
+
+    def produce(self, n: int, rate: float | None = None) -> float:
+        """The producer role: ``n`` rows of its default dataset on its
+        default (CSV) wire, paced at ``rate`` rows/s when given. Returns the
+        host clock when its first row reached the bus (the producer's own
+        start-up and dataset load come before it)."""
+        args = ["producer", "--limit", str(n)] + (["--rate", str(rate)] if rate else [])
+        base = self.bus_rows()
+        proc = subprocess.Popen([sys.executable, "-m", "ccfd_tpu_torch", *args], cwd=REPO,
+                                env=self.env, stdout=subprocess.DEVNULL,
+                                stderr=subprocess.PIPE, text=True)
+        first = None
+        while first is None and proc.poll() is None:
+            if self.bus_rows() > base:
+                first = time.perf_counter()
+            else:
+                time.sleep(0.002)
+        err = proc.communicate(timeout=600)[1]
+        if proc.returncode != 0 or f"streamed {n} rows" not in err:
+            raise AssertionError(f"producer exited {proc.returncode}: {err[-2000:]}")
+        return first if first is not None else time.perf_counter()
+
+    def settled(self, total: int, t0: float) -> float:
+        """Seconds from ``t0`` until the router has consumed and disposed of
+        ``total`` rows (read off its exporter every 20 ms)."""
+        deadline = time.monotonic() + 180
+        while time.monotonic() < deadline:
+            m = scrape(f"{self.rurl}/prometheus")
+            done = sum(v for k, v in m.items() if k.startswith((
+                "transaction_outgoing_total", "router_shed_total",
+                "router_process_start_errors_total")))
+            if m.get("transaction_incoming_total", 0.0) >= total and done >= total:
+                return time.perf_counter() - t0
+            time.sleep(0.02)
+        raise AssertionError(f"{total} rows not routed after 180 s: {m}")
 
 
 class Smoke:
@@ -828,6 +1057,174 @@ class Smoke:
             f"scorer dispatches {staged_d} + plane {plane_d} + prepublish {warm_d}")
         return launched
 
+    def services(self) -> None:
+        """The reference's service roles as processes: (a) one router
+        worker, (b) one per partition with coalescing, (c) the ladder over
+        a killed and restarted ``serve``. Each part has its own roles; the
+        processes that reach the card (two routers, the serve process and
+        the third router) start at once, since each takes seconds to import
+        torch and reach the card, and the parts then run one after the
+        other, each part's roles stopped before the next part runs."""
+        import contextlib
+
+        from ccfd_tpu_torch.data.ccfd import to_csv_bytes
+        from ccfd_tpu_torch.data.surrogate import kaggle_surrogate
+
+        with contextlib.ExitStack() as stack:
+            # the producer streams the checkpoint's own training distribution
+            # (the Kaggle-shaped surrogate, as the demo phase does), so the
+            # fraud process, its notifications and the replies run too
+            data = tempfile.mkdtemp(prefix="ccfd_rows_")
+            stack.callback(shutil.rmtree, data, ignore_errors=True)
+            csv = os.path.join(data, "transactions.csv")
+            with open(csv, "wb") as f:
+                f.write(to_csv_bytes(kaggle_surrogate(n=SERVICES_ROWS)))
+            a, b, c = (stack.enter_context(Roles(self.card, csv)) for _ in range(3))
+            for roles in (a, b, c):
+                roles.backbone()
+            sport = free_port()
+            a.spawn("router", "router", "--metrics-port", str(a.rport), "--device", "cuda")
+            b.spawn("router", "router", "--metrics-port", str(b.rport), "--device", "cuda",
+                    extra_env={"CCFD_ROUTER_WORKERS": "0"})
+            c.spawn("serve1", "serve", "--host", "127.0.0.1", "--port", str(sport),
+                    "--device", "cuda")
+            c.spawn("router", "router", "--metrics-port", str(c.rport),
+                    extra_env={"SELDON_URL": f"http://127.0.0.1:{sport}"})
+            # all up before any part is measured: a process still starting
+            # would take CPU from the part under measurement
+            t0 = time.perf_counter()
+            for roles in (a, b, c):
+                roles.wait(f"{roles.rurl}/prometheus", roles.procs["router"], 180)
+            c.wait(f"http://127.0.0.1:{sport}/health/status", c.procs["serve1"], 180)
+            log("services", f"the roles of three parts, four of them on the card, up in "
+                f"{time.perf_counter() - t0:.3f} s")
+            t0 = time.perf_counter()
+            one = self.services_run("a", a, SERVICES_ROWS)
+            a.stop()
+            log("services", f"part (a) took {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            fan = self.services_run("b", b, SERVICES_ROWS)
+            b.stop()
+            log("services", f"part (b) took {time.perf_counter() - t0:.1f} s")
+            log("services", f"fan-out: {fan['tx_s']:.1f} tx/s with 3 workers against "
+                f"{one['tx_s']:.1f} with one ({fan['tx_s'] / one['tx_s']:.3f}x) on "
+                f"{self.card}")
+            t0 = time.perf_counter()
+            ladder = self.services_ladder(c, sport)
+            c.stop()
+            log("services", f"part (c) took {time.perf_counter() - t0:.1f} s")
+        self.reports["fused_mlp_bf16"]["launches"] += one["b1"] + fan["b1"] + ladder
+
+    def services_run(self, part: str, roles: "Roles", rows: int) -> dict:
+        """Part (a) or (b) on its started roles (the router on the card):
+        the producer's ``rows`` CSV rows; returns tx/s and B1's launches."""
+        from ccfd_tpu_torch.config import Config
+
+        tag = f"services ({part})"
+        warm = len(Config.from_env().batch_sizes)  # the Scorer's warmup launches
+        roles.wait(f"{roles.rurl}/prometheus", roles.procs["router"], 180)
+        before = scrape(f"{roles.rurl}/prometheus")
+        elapsed = roles.settled(rows, roles.produce(rows))
+        m = scrape(f"{roles.rurl}/prometheus")
+        kie = scrape(f"{roles.kurl}/rest/metrics")
+        tx_s = rows / elapsed
+        check_conservation(tag, m, kie, rows)
+        b1, disp = launches_of(m), m["ccfd_scorer_dispatches"]
+        if b1 - disp != warm or disp <= 0 or launches_of(before) != warm:
+            raise AssertionError(f"{tag}: B1 launches {b1} != scorer dispatches {disp} + "
+                                 f"{warm} warmup launches")
+        others = {k: v for k, v in m.items() if k.startswith("ccfd_kernel_launches")
+                  and "fused_mlp_bf16" not in k and v}
+        if others:
+            raise AssertionError(f"{tag}: other kernels launched: {others}")
+        workers = {k: v for k, v in m.items() if k.startswith("router_worker_batches_total")}
+        fan = {}
+        if part == "b":
+            coalesced = m.get("router_coalesced_dispatches_total", 0.0)
+            if len(workers) != 3 or not all(workers.values()) or not (
+                    0 < coalesced <= sum(workers.values())):
+                raise AssertionError(f"{tag}: worker batches {workers}, coalesced "
+                                     f"dispatches {coalesced}")
+            fan = {"coalesced_dispatches": coalesced,
+                   "coalesced_rows": m.get("router_coalesced_rows_total")}
+        spans = {s: (hist_quantile(m, "trace_span_seconds", 0.5, f'span="{s}"'),
+                     hist_quantile(m, "trace_span_seconds", 0.99, f'span="{s}"'))
+                 for s in ("router.batch", "router.decode", "router.score", "router.route")}
+        log("services", f"{tag}: {rows} CSV rows routed in {elapsed:.3f} s from the first "
+            f"row on the bus to the last process start: {tx_s:.1f} transactions/s end to "
+            f"end on {self.card}; router decision latency p50 "
+            f"{hist_quantile(m, 'router_decision_seconds', 0.5) * 1e3:.3f} ms p99 "
+            f"{hist_quantile(m, 'router_decision_seconds', 0.99) * 1e3:.3f} ms, score stage "
+            f"p50 {hist_quantile(m, 'router_score_seconds', 0.5) * 1e3:.3f} ms p99 "
+            f"{hist_quantile(m, 'router_score_seconds', 0.99) * 1e3:.3f} ms")
+        log("services", f"{tag}: span p50 / p99 ms (every span timed; "
+            f"{m.get('trace_span_seconds_count{span=\"router.batch\"}', 0):.0f} batches): "
+            + ", ".join(f"{s} {a * 1e3:.3f} / {b * 1e3:.3f}" for s, (a, b) in spans.items()))
+        log("services", f"ok: {tag}: worker batches {workers}{' ' + str(fan) if fan else ''}; "
+            f"B1 launches {b1:.0f} = scorer dispatches {disp:.0f} + {warm} warmup; "
+            f"inflight limit {m.get('ccfd_inflight_limit{stage=\"router\"}')}")
+        return {"tx_s": tx_s, "b1": int(disp)}
+
+    def services_ladder(self, roles: "Roles", sport: int) -> int:
+        """Part (c) on its started roles: the router on SELDON_URL -> the
+        ``serve`` process on the card at ``sport``; the serve process is
+        killed after the stream's first part, the second part is produced
+        while it is down, then it is restarted and the third part streams
+        at a fixed rate until the breaker has closed. Returns B1's launches
+        on the path."""
+        from ccfd_tpu_torch.config import Config
+
+        tag = "services (c)"
+        warm = len(Config.from_env().batch_sizes)
+        n1, n2 = LADDER_PARTS
+        surl = f"http://127.0.0.1:{sport}"
+        serve = roles.procs["serve1"]
+        roles.wait(f"{surl}/health/status", serve, 180)
+        roles.wait(f"{roles.rurl}/prometheus", roles.procs["router"], 180)
+        roles.settled(n1, roles.produce(n1))
+        s1 = scrape(f"{surl}/prometheus")
+        serve.kill()  # the scorer edge dies
+        serve.wait(30)
+        roles.settled(n1 + n2, roles.produce(n2, rate=LADDER_RATE))
+        down = scrape(f"{roles.rurl}/prometheus")
+        serve2 = roles.spawn("serve2", "serve", "--host", "127.0.0.1", "--port",
+                             str(sport), "--device", "cuda")
+        roles.wait(f"{surl}/health/status", serve2, 180)
+        total = n1 + n2 + LADDER_RATE_ROWS
+        roles.settled(total, roles.produce(LADDER_RATE_ROWS, rate=LADDER_RATE))
+        m = scrape(f"{roles.rurl}/prometheus")
+        s2 = scrape(f"{surl}/prometheus")
+        kie = scrape(f"{roles.kurl}/rest/metrics")
+        check_conservation(tag, m, kie, total, healthy=False)
+        host = m.get('router_degraded_total{tier="host"}', 0.0)
+        rules = m.get('router_degraded_total{tier="rules"}', 0.0)
+        r1, r2 = s1["serving_batcher_rows_total"], s2["serving_batcher_rows_total"]
+        opens = m.get('ccfd_breaker_transitions_total{edge="scorer",to="open"}', 0.0)
+        closes = m.get('ccfd_breaker_transitions_total{edge="scorer",to="closed"}', 0.0)
+        fails = []
+        if r1 != n1:
+            fails.append(f"the card scored {r1} of the first {n1} rows")
+        if down.get('router_degraded_total{tier="host"}', 0.0) != n2:
+            fails.append(f"{down.get('router_degraded_total{tier=\"host\"}')} rows on the "
+                         f"host tier while the edge was down, not {n2}")
+        if rules or not host or r1 + r2 + host != total:
+            fails.append(f"rows: card {r1} + {r2}, host {host}, rules {rules}, of {total}")
+        if not opens or not closes or m['ccfd_breaker_state{edge="scorer"}'] != 0:
+            fails.append(f"breaker: {opens} opens, {closes} closes, state "
+                         f"{m['ccfd_breaker_state{edge=\"scorer\"}']}")
+        b1 = [launches_of(s) for s in (s1, s2)]
+        disp = [s["ccfd_scorer_dispatches"] for s in (s1, s2)]
+        if any(b - d != warm for b, d in zip(b1, disp)) or not r2:
+            fails.append(f"serve B1 launches {b1} != dispatches {disp} + warmup")
+        if fails:
+            raise AssertionError(f"{tag}: " + "; ".join(fails))
+        log("services", f"ok: {tag}: {total} rows routed; the card scored {r1:.0f} (serve "
+            f"1) + {r2:.0f} (serve 2 after the restart), the host tier {host:.0f} (score "
+            f"errors {m.get('router_score_errors_total', 0):.0f}, the rest refused by the "
+            f"open breaker), the rules tier 0; breaker opened {opens:.0f} times and closed "
+            f"{closes:.0f}; serve B1 launches {b1} = dispatches {disp} + warmup")
+        return int(sum(disp))
+
     def timing(self) -> None:
         from ccfd_tpu_torch.ops import fused_mlp_q8 as q8
         from ccfd_tpu_torch.ops.fused_mlp import fused_mlp_reference, fused_mlp_score
@@ -965,7 +1362,9 @@ def main() -> int:
         return 1
     smoke = Smoke()
     for p in PHASES:
+        t0 = time.perf_counter()
         getattr(smoke, p)()
+        log(p, f"phase took {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(smoke.reports.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -42,7 +42,11 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
     for m in ("router.router", "router.rules", "bus.broker", "process.engine",
               "process.fraud", "process.prediction", "process.clock", "process.dmn",
               "producer.producer", "notify.service", "ops.fused_decision",
-              "serving.fused", "cli"):
+              "serving.fused", "cli", "runtime.breaker", "runtime.overload",
+              "observability.trace", "observability.memory", "router.parallel",
+              "serving.dispatch", "serving.client", "utils.httpclient",
+              "utils.httpserver", "bus.server", "bus.client", "process.server",
+              "process.client", "metrics.exporter"):
         assert f"ccfd_tpu_torch.{m}" in res["mods"], m
     bad = [n for n in res["loaded"] if _forbidden(n)]
     assert bad == [], bad

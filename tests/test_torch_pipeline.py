@@ -194,8 +194,10 @@ def test_both_pipelines_route_every_transaction_alike(data, ref_scorer, wire, pl
 def test_pipeline_refuses_the_knobs_it_does_not_port(data):
     ds, tree = data
     for env in ({"CCFD_BUS_DIR": "/tmp/bus"}, {"CCFD_AUDIT_TOPIC": "audit"},
-                {"BROKER_URL": "http://bus:8080"}, {"bootstrap": "kafka:9092"},
-                {"s3endpoint": "http://s3"}, {"CCFD_BUS_RETENTION_RECORDS": "100"}):
+                {"BROKER_URL": "kafka://bus:9092"}, {"bootstrap": "kafka:9092"},
+                {"s3endpoint": "http://s3"}, {"CCFD_BUS_RETENTION_RECORDS": "100"},
+                {"CCFD_FAULTS": "scorer:error=0.5"}, {"CCFD_HOST_TIER_ROWS": "256"},
+                {"CCFD_DISPATCH_DEADLINE_MS": "100"}):
         with pytest.raises(NotImplementedError, match=next(iter(env))):
             build_pipeline(Config.from_env(env), ds, device="cpu", params=tree)
 
@@ -223,7 +225,10 @@ def test_pipelined_run_loop_drops_and_counts_a_failing_batch(data):
         import time
 
         deadline = time.monotonic() + 30
-        while time.monotonic() < deadline and rr.counter("transaction_incoming_total").value() < 100:
+        # the loop counts a batch in before its scoring thread calls the
+        # scorer: wait for both
+        while time.monotonic() < deadline and (
+                rr.counter("transaction_incoming_total").value() < 100 or not calls):
             time.sleep(0.01)
         first = calls[0]
         pipe.producer.run(limit=50)

@@ -1,0 +1,231 @@
+"""The five service roles as separate processes on the CPU.
+
+``python -m ccfd_tpu_torch bus | engine | router --device cpu | notify |
+producer``, each its own subprocess on free loopback ports, wired by the
+reference's environment (BROKER_URL, KIE_SERVER_URL), route 2,000
+transactions of a seeded dataset (CCFD_CSV) scored by seeded params
+(``router --params``). Silent customers (``notify --reply-prob 0``) make the
+fraud process's outcome depend on the DMN alone, so the run is
+deterministic: every transaction is routed, with no score error, degraded
+row or shed, and the routed counts and the engine's KIE histogram counts
+equal ``cli.build_pipeline``'s on the same data, params and seed.
+"""
+
+import os
+import signal
+import socket
+import subprocess
+import sys
+import time
+import urllib.request
+from pathlib import Path
+
+import pytest
+
+from ccfd_tpu_torch.cli import build_pipeline
+from ccfd_tpu_torch.config import Config
+from ccfd_tpu_torch.data.ccfd import load_csv, to_csv_bytes
+from ccfd_tpu_torch.data.surrogate import kaggle_surrogate
+from ccfd_tpu_torch.params import load_params, save_params
+from tests.torch_helpers import mlp_tree
+
+REPO = Path(__file__).resolve().parents[1]
+N = 2000
+REPLY_TIMEOUT_S = 0.5
+KIE = ("fraud_approved_amount", "fraud_rejected_amount", "fraud_approved_low_amount",
+       "fraud_investigation_amount")
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _scrape(url: str) -> dict[str, float]:
+    with urllib.request.urlopen(url, timeout=5) as r:
+        text = r.read().decode()
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            key, _, val = line.rpartition(" ")
+            out[key] = float(val)
+    return out
+
+
+def _decided(count) -> float:
+    """Fraud instances the DMN has decided: with every customer silent each
+    one ends on its reply timer in exactly one of the KIE histograms, and a
+    loaded host may fire the timers late, so both runs wait for all of them."""
+    return sum(count(h) for h in KIE)
+
+
+def _wait_http(url: str, proc, timeout: float = 60.0) -> None:
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if proc.poll() is not None:
+            raise AssertionError(f"{proc.args} exited {proc.returncode}")
+        try:
+            urllib.request.urlopen(url, timeout=1).read()
+            return
+        except OSError:
+            time.sleep(0.1)
+    raise AssertionError(f"{url} did not come up")
+
+
+@pytest.fixture(scope="module")
+def inputs(tmp_path_factory):
+    d = tmp_path_factory.mktemp("roles")
+    ds = kaggle_surrogate(n=N, seed=13)
+    csv = d / "tx.csv"
+    csv.write_bytes(to_csv_bytes(ds))
+    npz = d / "params.npz"
+    save_params(mlp_tree(ds.X, hidden=64, seed=4), npz)
+    return csv, npz
+
+
+def test_five_roles_route_as_the_in_process_pipeline(inputs):
+    csv, npz = inputs
+    bus, kie, rport, nport = (_free_port() for _ in range(4))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=str(REPO), CCFD_CSV=str(csv), BROKER_URL=f"http://127.0.0.1:{bus}",
+               KIE_SERVER_URL=f"http://127.0.0.1:{kie}",
+               CCFD_REPLY_TIMEOUT_S=str(REPLY_TIMEOUT_S), JAX_PLATFORMS="cpu")
+    role = [sys.executable, "-m", "ccfd_tpu_torch"]
+    procs = []
+
+    def spawn(*args):
+        p = subprocess.Popen(role + list(args), cwd=str(REPO), env=env,
+                             stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+        procs.append(p)
+        return p
+
+    try:
+        b = spawn("bus", "--host", "127.0.0.1", "--port", str(bus))
+        _wait_http(f"http://127.0.0.1:{bus}/health/status", b)
+        e = spawn("engine", "--host", "127.0.0.1", "--port", str(kie))
+        n = spawn("notify", "--metrics-port", str(nport), "--reply-prob", "0", "--seed", "1")
+        r = spawn("router", "--metrics-port", str(rport), "--device", "cpu",
+                  "--params", str(npz))
+        _wait_http(f"http://127.0.0.1:{kie}/health/status", e)
+        _wait_http(f"http://127.0.0.1:{nport}/prometheus", n)
+        _wait_http(f"http://127.0.0.1:{rport}/prometheus", r, timeout=120.0)
+        out = subprocess.run(role + ["producer", "--limit", str(N)], cwd=str(REPO), env=env,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode == 0, out.stderr
+        assert f"streamed {N} rows" in out.stderr
+        deadline = time.monotonic() + 90
+        while time.monotonic() < deadline:
+            m = _scrape(f"http://127.0.0.1:{rport}/prometheus")
+            k = _scrape(f"http://127.0.0.1:{kie}/rest/metrics")
+            fraud = m.get('transaction_outgoing_total{type="fraud"}', 0.0)
+            routed = sum(v for key, v in m.items() if key.startswith("transaction_outgoing_total"))
+            if routed >= N and _decided(lambda h: k.get(f"{h}_count", 0.0)) >= fraud:
+                break
+            time.sleep(0.1)
+        notes = _scrape(f"http://127.0.0.1:{nport}/prometheus")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+        for p in procs:
+            try:
+                p.wait(timeout=20)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+    got = {
+        "in": m["transaction_incoming_total"],
+        "fraud": m.get('transaction_outgoing_total{type="fraud"}', 0.0),
+        "standard": m.get('transaction_outgoing_total{type="standard"}', 0.0),
+        "kie": {h: k.get(f"{h}_count", 0.0) for h in KIE},
+    }
+    for c in ("router_score_errors_total", "router_shed_total",
+              "router_process_start_errors_total"):
+        assert m.get(c, 0.0) == 0.0, c
+    assert not any(key.startswith("router_degraded_total") and v for key, v in m.items())
+    assert m['router_worker_batches_total{worker="0"}'] > 0
+    assert m['ccfd_scorer_dispatches'] > 0 and m["ccfd_breaker_state{edge=\"scorer\"}"] == 0
+    assert notes["notifications_sent_total"] == got["fraud"]
+
+    # the in-process pipeline on the same data, params and seed
+    cfg = Config.from_env({"CCFD_REPLY_TIMEOUT_S": str(REPLY_TIMEOUT_S)})
+    pipe = build_pipeline(cfg, load_csv(str(csv)), device="cpu", params=load_params(npz),
+                          seed=1)
+    pipe.notify.reply_prob = 0.0
+    pipe.start(poll_timeout_s=0.02)
+    try:
+        pipe.producer.run(limit=N, wire_format="csv")
+        deadline = time.monotonic() + 90
+        while time.monotonic() < deadline:
+            s = pipe.summary()
+            if (s["fraud_routed"] + s["standard_routed"] >= N
+                    and _decided(lambda h: pipe.reg_kie.histogram(h).count()) >= s["fraud_routed"]):
+                break
+            time.sleep(0.1)
+    finally:
+        pipe.stop()
+    s = pipe.summary()
+    want = {"in": s["transactions"], "fraud": s["fraud_routed"],
+            "standard": s["standard_routed"],
+            "kie": {h: pipe.reg_kie.histogram(h).count() for h in KIE}}
+    assert got == want
+    assert got["in"] == N and got["fraud"] and got["standard"]
+    assert got["kie"]["fraud_investigation_amount"] and got["kie"]["fraud_approved_low_amount"]
+
+
+@pytest.mark.parametrize("argv,env,match", [
+    (["bus", "--dir", "/tmp/bus"], {}, "bus --dir"),
+    (["engine", "--state-file", "/tmp/engine.json"], {}, "engine --state-file"),
+    (["router"], {"CCFD_FAULTS": "scorer:error=0.5"}, "CCFD_FAULTS"),
+    (["router"], {"CCFD_HOST_TIER_ROWS": "256"}, "CCFD_HOST_TIER_ROWS"),
+    (["router"], {"CCFD_DISPATCH_DEADLINE_MS": "50"}, "CCFD_DISPATCH_DEADLINE_MS"),
+    (["router"], {"BROKER_URL": "kafka://bootstrap:9092"}, "BROKER_URL"),
+    (["notify"], {"CCFD_BUS_DIR": "/tmp/bus"}, "CCFD_BUS_DIR"),
+    (["producer"], {"CCFD_AUDIT_TOPIC": "audit"}, "CCFD_AUDIT_TOPIC"),
+])
+def test_roles_refuse_unported_knobs_by_name(monkeypatch, argv, env, match):
+    from ccfd_tpu_torch.cli import main
+
+    monkeypatch.setenv("KIE_SERVER_URL", "http://127.0.0.1:1")
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(NotImplementedError, match=match):
+        main(argv)
+
+
+def test_router_role_needs_the_engine_rest_and_the_card(monkeypatch):
+    import torch
+
+    from ccfd_tpu_torch.cli import build_router, main
+
+    monkeypatch.delenv("KIE_SERVER_URL", raising=False)
+    assert main(["router"]) == 2  # no KIE_SERVER_URL: refused before any scoring
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; the default resolves to it")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_router(Config(kie_server_url="http://127.0.0.1:1"))
+
+
+def test_config_reads_the_roles_knobs_as_the_reference():
+    from ccfd_tpu.config import Config as RefConfig
+
+    env = {"BROKER_URL": "http://bus:9092", "KIE_SERVER_URL": "http://kie:8090",
+           "SELDON_URL": "http://scorer:8000", "SELDON_ENDPOINT": "predict",
+           "SELDON_TIMEOUT": "750", "SELDON_POOL_SIZE": "3", "CCFD_CLIENT_RETRIES": "4",
+           "CCFD_TRACE_SAMPLE": "0.5", "CCFD_TRACE_SLOW_MS": "20",
+           "CCFD_ROUTER_WORKERS": "0", "CCFD_ROUTER_COALESCE": "off", "CCFD_OVERLOAD": "0",
+           "CCFD_OVERLOAD_TARGET_MS": "30", "CCFD_OVERLOAD_SERVE_TARGET_MS": "10",
+           "CCFD_OVERLOAD_MIN_INFLIGHT": "100", "CCFD_OVERLOAD_MAX_INFLIGHT": "900",
+           "CCFD_OVERLOAD_CODEL_TARGET_MS": "250", "CCFD_OVERLOAD_DISPATCH_DEADLINE_MS": "80"}
+    fields = ("broker_url", "kie_server_url", "seldon_url", "seldon_endpoint",
+              "seldon_timeout_ms", "seldon_pool_size", "client_retries", "trace_sample",
+              "trace_slow_ms", "router_workers", "router_coalesce", "overload_enabled",
+              "overload_target_ms", "overload_serve_target_ms", "overload_min_inflight",
+              "overload_max_inflight", "overload_codel_target_ms",
+              "overload_dispatch_deadline_ms", "host_tier_rows", "dispatch_deadline_ms")
+    for e in (env, {}):
+        got, want = Config.from_env(e), RefConfig.from_env(e)
+        for f in fields:
+            assert getattr(got, f) == getattr(want, f), f
+    assert Config.from_env(env).unported() == []
