@@ -23,6 +23,11 @@
 unless ``--params`` names another ``.npz``, on the card unless
 ``--device cpu`` is given. The knobs of ``config.Config`` come from the
 environment (CCFD_MODEL, CCFD_DTYPE, CCFD_BATCH_SIZES, CCFD_Q8_WIRE, ...).
+It answers through the C++ REST front (``serving/native_front.py``) unless
+CCFD_NATIVE_FRONT=0 selects the Python server; its start-up line names the
+payload decoder and the transport. Deviation: it serves the committed
+checkpoint where the reference's ``serve`` without a ``train`` checkpoint
+serves ``PRNGKey(0)`` params.
 With ``CCFD_MODEL=mlp_q8`` it serves int8 params: those of a q8 ``.npz``
 (``quantize``'s output), or ``quantize_mlp`` of an f32 one, which for the
 committed checkpoint equals the reference's ``checkpoints_q8/step_1200``.
@@ -54,13 +59,20 @@ else is an in-process bus), ``KIE_SERVER_URL=http://host:port`` (the
 ``SELDON_URL`` (an http:// URL: a ``serve`` process over the Seldon REST
 contract; anything else: a local ``Scorer`` on ``--device``, the card by
 default). The router role is the production wiring: the degradation
-ladder on (its host tier the family's numpy forward of the served params),
-overload control on (CCFD_OVERLOAD), tracing at CCFD_TRACE_SAMPLE, and a
+ladder on (its host tier the local Scorer's numpy forward; on SELDON_URL
+there is none, as in the reference, and a failed edge falls to the rules
+tier), overload control on (CCFD_OVERLOAD), tracing at CCFD_TRACE_SAMPLE, and a
 ``ParallelRouter`` when CCFD_ROUTER_WORKERS (or ``--workers``) is not 1;
 its metrics and traces are served on ``--metrics-port`` (/prometheus,
-/traces), as notify's are. Knobs that select an unported part
+/traces), as notify's are. The router decodes the CSV wire with the native
+decoder (``native.decode_csv``). Knobs that select an unported part
 (``Config.unported``), ``bus --dir`` and ``engine --state-file`` are
-refused by name.
+refused by name, by ``serve`` as by the roles.
+
+``demo``, ``serve`` and the ``bus``, ``engine``, ``router`` and ``notify``
+roles raise Python's gen-0 GC threshold before their hot loops start, as
+the reference does (``utils/gctune.py``; CCFD_GC_THRESHOLD=0 opts out), and
+their start-up lines print it.
 """
 
 from __future__ import annotations
@@ -81,17 +93,27 @@ def build_server(cfg: Config, device: str | None = None,
     """The warmed-up ``PredictionServer`` that ``serve`` runs (not yet
     listening): params from ``params_path`` (default: the committed
     checkpoint; quantized when the model is ``mlp_q8`` and they are f32),
-    a ``Scorer`` on ``device`` (default: the card)."""
-    from ccfd_tpu_torch.serving.scorer import Scorer
+    a ``Scorer`` on ``device`` (default: the card). Raises
+    ``NotImplementedError`` naming any knob set to an unported part."""
     from ccfd_tpu_torch.serving.server import PredictionServer
 
-    params = served_params(cfg, params_path)
-    scorer = Scorer(model_name=cfg.model_name, params=params,
-                    batch_sizes=cfg.batch_sizes,
-                    compute_dtype=cfg.compute_dtype, device=device,
-                    q8_wire=cfg.q8_wire)
+    _refuse_unported(cfg, "serve")
+    return PredictionServer(make_scorer(cfg, served_params(cfg, params_path), device), cfg)
+
+
+def make_scorer(cfg: Config, params: Any, device: Any = None):
+    """A warmed-up ``Scorer`` on ``device`` (default: the card) with the
+    config's model, buckets, wire and dispatch deadline (off unless the
+    environment sets it)."""
+    from ccfd_tpu_torch.device import resolve
+    from ccfd_tpu_torch.serving.scorer import Scorer
+
+    dev = resolve(device)
+    scorer = Scorer(model_name=cfg.model_name, params=params, batch_sizes=cfg.batch_sizes,
+                    compute_dtype=cfg.compute_dtype, device=dev, q8_wire=cfg.q8_wire,
+                    dispatch_deadline_ms=cfg.scorer_dispatch_deadline_ms(dev.type == "cuda"))
     scorer.warmup()
-    return PredictionServer(scorer, cfg)
+    return scorer
 
 
 def served_params(cfg: Config, params_path: str | None = None) -> dict:
@@ -181,19 +203,11 @@ def build_pipeline(cfg: Config, dataset: Any = None, device: str | None = None,
     from ccfd_tpu_torch.router.router import Router
     from ccfd_tpu_torch.router.rules import RuleSet, default_rules
     from ccfd_tpu_torch.serving.fused import FusedDecisionScorer
-    from ccfd_tpu_torch.serving.scorer import Scorer
 
-    unported = cfg.unported()
-    if unported:
-        raise NotImplementedError(
-            "not ported yet, unset to run the pipeline: " + "; ".join(unported))
+    _refuse_unported(cfg, "the pipeline")
     broker = Broker()
     reg_router, reg_kie, reg_notify = Registry(), Registry(), Registry()
-    scorer = Scorer(model_name=cfg.model_name,
-                    params=served_params(cfg) if params is None else params,
-                    batch_sizes=cfg.batch_sizes, compute_dtype=cfg.compute_dtype,
-                    device=device, q8_wire=cfg.q8_wire)
-    scorer.warmup()
+    scorer = make_scorer(cfg, served_params(cfg) if params is None else params, device)
     engine = build_engine(cfg, broker, reg_kie, clock=clock,
                           prediction_service=ScorerPredictionService(scorer.score))
     # one RuleSet instance for the plane and the router (the router
@@ -255,6 +269,7 @@ def cmd_demo(args: argparse.Namespace) -> int:
     print(f"[demo] dataset: {ds.n} rows; building the pipeline...", file=sys.stderr)
     pipe = build_pipeline(cfg, ds, device=args.device, seed=args.seed,
                           params=served_params(cfg, args.params))
+    _tune_gc()  # before the hot loops start
     elapsed = run_demo(pipe, args.transactions, rate=args.rate,
                        wire_format=args.wire_format, drain_s=args.drain_s)
     summary = pipe.summary()
@@ -263,11 +278,22 @@ def cmd_demo(args: argparse.Namespace) -> int:
     return 0
 
 
-def _refuse_unported(cfg: Config) -> None:
+def _refuse_unported(cfg: Config, what: str = "this role") -> None:
     unported = cfg.unported()
     if unported:
         raise NotImplementedError(
-            "not ported yet, unset to run this role: " + "; ".join(unported))
+            f"not ported yet, unset to run {what}: " + "; ".join(unported))
+
+
+def _tune_gc() -> int:
+    """The reference's service GC tuning (utils/gctune.py); returns the
+    gen-0 threshold now in force, for the start-up line."""
+    import gc
+
+    from ccfd_tpu_torch.utils.gctune import tune_for_service
+
+    tune_for_service()
+    return gc.get_threshold()[0]
 
 
 def _tracing_for(cfg: Config, registry, component: str):
@@ -329,7 +355,8 @@ def cmd_bus(args: argparse.Namespace) -> int:
     tracer, _sink = _tracing_for(cfg, registry, "bus")
     srv = BrokerServer(Broker(), registry=registry, tracer=tracer)
     port = srv.start(args.host, args.port)
-    print(f"[bus] listening on {args.host}:{port} (memory)", file=sys.stderr, flush=True)
+    print(f"[bus] listening on {args.host}:{port} (memory) gc_threshold={_tune_gc()}",
+          file=sys.stderr, flush=True)
     _serve_forever()
     srv.stop()
     return 0
@@ -350,7 +377,8 @@ def cmd_engine(args: argparse.Namespace) -> int:
     srv = EngineServer(engine, tracer=tracer)
     port = srv.start(args.host, args.port)
     print(f"[engine] KIE REST on {args.host}:{port} "
-          f"definitions={list(engine.definitions())}", file=sys.stderr, flush=True)
+          f"definitions={list(engine.definitions())} gc_threshold={_tune_gc()}",
+          file=sys.stderr, flush=True)
     _serve_forever()
     srv.stop()
     return 0
@@ -362,9 +390,10 @@ def build_router(cfg: Config, device: str | None = None, params_path: str | None
     trace sink, exporter collectors). The bus from BROKER_URL, the engine
     REST client on KIE_SERVER_URL, the scorer (a ``SeldonClient`` when
     SELDON_URL is http://, else a warmed ``Scorer`` on ``device``), the
-    ladder's host tier (the family's numpy forward of the served params),
-    ``OverloadControl`` when CCFD_OVERLOAD is on, the tracer, and a single
-    ``Router`` for one worker, else a ``ParallelRouter``."""
+    ladder's host tier (the local Scorer's numpy forward; none on
+    SELDON_URL, as in the reference, so a failed edge falls to the rules
+    tier), ``OverloadControl`` when CCFD_OVERLOAD is on, the tracer, and a
+    single ``Router`` for one worker, else a ``ParallelRouter``."""
     from ccfd_tpu_torch.metrics.prom import Registry
     from ccfd_tpu_torch.process.client import EngineRestClient
     from ccfd_tpu_torch.router.router import Router
@@ -375,37 +404,27 @@ def build_router(cfg: Config, device: str | None = None, params_path: str | None
     tracer, sink = _tracing_for(cfg, registry, "router")
     collectors = []
     if cfg.seldon_url.startswith("http"):
-        from ccfd_tpu_torch.models.registry import get_model
-        from ccfd_tpu_torch.params import to_numpy
         from ccfd_tpu_torch.serving.client import SeldonClient
 
         score_fn = SeldonClient(cfg, tracer=tracer).score
-        # the remote scorer's params, held on the host for the ladder's host
-        # tier (the reference's role has none here and falls to rules)
-        host_params = to_numpy(served_params(cfg, params_path))
-        apply_numpy = get_model(cfg.model_name).apply_numpy
-
-        def host_score_fn(x):
-            return apply_numpy(host_params, x)
+        host_score_fn = None  # the ladder falls from the remote edge to rules
         on_card = False
     else:
-        from ccfd_tpu_torch.serving.scorer import Scorer
-        from ccfd_tpu_torch.serving.server import publish_launches
+        from ccfd_tpu_torch.serving.server import DeadlineCounters, publish_launches
 
-        scorer = Scorer(model_name=cfg.model_name, params=served_params(cfg, params_path),
-                        batch_sizes=cfg.batch_sizes, compute_dtype=cfg.compute_dtype,
-                        device=device, q8_wire=cfg.q8_wire)
-        scorer.warmup()
+        scorer = make_scorer(cfg, served_params(cfg, params_path), device)
         score_fn, host_score_fn = scorer.score, scorer.host_score
         on_card = scorer.device.type == "cuda"
         g_launches = registry.gauge(
             "ccfd_kernel_launches", "CUDA kernel launches in this process")
         g_dispatches = registry.gauge(
             "ccfd_scorer_dispatches", "the Scorer's bucket dispatches in this process")
+        deadline = DeadlineCounters(registry, scorer)
 
         def publish() -> None:
             publish_launches(g_launches)
             g_dispatches.set(scorer.dispatch_total())
+            deadline.sync()
         collectors.append(publish)
     engine = EngineRestClient(cfg.kie_server_url, timeout_s=cfg.seldon_timeout_ms / 1000.0,
                               retries=cfg.client_retries, tracer=tracer)
@@ -448,8 +467,13 @@ def cmd_router(args: argparse.Namespace) -> int:
         regs["tracing"] = sink.registry
     exporter = MetricsExporter(regs, host="0.0.0.0", port=args.metrics_port, sink=sink,
                                collectors=collectors).start()
-    print(f"[router] consuming {cfg.kafka_topic!r} from {cfg.broker_url}; metrics on "
-          f":{exporter.endpoint.rsplit(':', 1)[1]}/prometheus", file=sys.stderr, flush=True)
+    scorer = (f"remote {cfg.seldon_url}" if cfg.seldon_url.startswith("http")
+              else "local Scorer")
+    print(f"[router] consuming {cfg.kafka_topic!r} from {cfg.broker_url} "
+          f"(bus transport {'http' if cfg.broker_url.startswith('http') else 'in-process'}); "
+          f"decoder=native (CSV wire); scorer={scorer}; gc_threshold={_tune_gc()}; "
+          f"metrics on :{exporter.endpoint.rsplit(':', 1)[1]}/prometheus",
+          file=sys.stderr, flush=True)
     _sigterm_as_interrupt()
     try:
         router.run(poll_timeout_s=0.05)
@@ -477,8 +501,8 @@ def cmd_notify(args: argparse.Namespace) -> int:
     exporter = MetricsExporter(regs, host="0.0.0.0", port=args.metrics_port,
                                sink=sink).start()
     print(f"[notify] consuming {cfg.customer_notification_topic!r} from {cfg.broker_url}; "
-          f"metrics on :{exporter.endpoint.rsplit(':', 1)[1]}/prometheus",
-          file=sys.stderr, flush=True)
+          f"metrics on :{exporter.endpoint.rsplit(':', 1)[1]}/prometheus "
+          f"gc_threshold={_tune_gc()}", file=sys.stderr, flush=True)
     _sigterm_as_interrupt()
     try:
         svc.run(poll_timeout_s=0.05)
@@ -508,12 +532,15 @@ def cmd_producer(args: argparse.Namespace) -> int:
 def cmd_serve(args: argparse.Namespace) -> int:
     cfg = Config.from_env()
     srv = build_server(cfg, device=args.device, params_path=args.params)
+    gc0 = _tune_gc()
     host = args.host if args.host is not None else cfg.serve_host
     port = srv.start(host, args.port if args.port is not None else cfg.serve_port)
     grid = srv.scorer.executable_grid()
     print(f"[serve] model={cfg.model_name} device={srv.scorer.device} "
           f"kernel={'on' if grid['fused'] else 'off'} "
-          f"int8_wire={'on' if grid['int8_wire'] else 'off'} listening on "
+          f"int8_wire={'on' if grid['int8_wire'] else 'off'} decoder=native "
+          f"transport={srv.transport} dispatch_deadline_ms={grid['dispatch_deadline_ms']} "
+          f"gc_threshold={gc0} listening on "
           f"{host}:{port}", file=sys.stderr, flush=True)
     try:
         while True:

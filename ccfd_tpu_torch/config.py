@@ -14,6 +14,16 @@ as ccfd_tpu/config.py, with the same defaults:
                                                         (the REST batcher and
                                                         the router's poll)
     SELDON_TOKEN, CCFD_SERVE_HOST, CCFD_SERVE_PORT      REST front
+    CCFD_NATIVE_FRONT                                   the REST transport: the
+                                                        C++ epoll front (1, the
+                                                        reference's default) or
+                                                        the Python server (0)
+    CCFD_DISPATCH_DEADLINE_MS                           the Scorer's dispatch
+                                                        deadline (below)
+    CCFD_GC_THRESHOLD                                   the services' gen-0 GC
+                                                        threshold (read by
+                                                        utils/gctune.py, as the
+                                                        reference reads it)
     BROKER_URL                                          the bus: http:// for a
                                                         `bus` role, anything
                                                         else in-process
@@ -45,11 +55,26 @@ too, so that setting one is refused by name rather than ignored
 (BROKER_URL=kafka://..., bootstrap), the engine's audit stream
 (CCFD_AUDIT_TOPIC), the producer's object-store source (s3endpoint), fault
 injection (CCFD_FAULTS), the batcher's overload queue policies
-(CCFD_OVERLOAD_SERVE_CODEL_TARGET_MS, CCFD_OVERLOAD_REST_QUEUE_ROWS), and
-the Scorer's two ways round the kernel: the host latency tier
-(CCFD_HOST_TIER_ROWS > 0) and the in-scorer wedge deadline with host
-fallback (CCFD_DISPATCH_DEADLINE_MS > 0). Their auto value (-1) resolves to
-off in the port.
+(CCFD_OVERLOAD_SERVE_CODEL_TARGET_MS, CCFD_OVERLOAD_REST_QUEUE_ROWS), the
+SeldonDeployment-shaped inference graph (CCFD_GRAPH_CR), and the two ways
+the reference scores small requests round the kernel: the Scorer's host
+latency tier (CCFD_HOST_TIER_ROWS > 0) and the REST front's in-IO-thread
+host model (CCFD_INLINE_ROWS > 0). Their auto value (-1, or unset) is off
+in the port.
+
+**The Scorer's dispatch deadline is off unless the environment sets it**,
+where the reference arms it by default on an accelerator.
+``scorer_dispatch_deadline_ms`` resolves CCFD_DISPATCH_DEADLINE_MS:
+
+    unset or empty   off
+    0                off
+    > 0              the deadline in milliseconds
+    -1               the reference's auto, asked for explicitly:
+                     SELDON_TIMEOUT on the card, off on the CPU
+
+A dispatch past it answers 503 (serving/scorer.py). The router's dispatch
+watchdog keeps its own resolution (``watchdog_deadline_ms``), where an
+unset CCFD_DISPATCH_DEADLINE_MS still means auto.
 """
 
 from __future__ import annotations
@@ -79,6 +104,10 @@ class Config:
     dynamic_batching: bool = True  # serving-side request coalescing
     serve_host: str = "0.0.0.0"
     serve_port: int = 8000
+    native_front: bool = True  # C++ REST front; False = the Python server
+    # the Scorer's dispatch deadline (the module docstring: None = unset =
+    # off, -1 = the reference's auto, > 0 explicit)
+    dispatch_deadline_ms: float | None = None
     # --- bus / topics (reference router.yaml:54-62) ---
     broker_url: str = "inproc://local"
     kafka_topic: str = "odh-demo"
@@ -134,8 +163,9 @@ class Config:
     faults_spec: str = ""
     overload_serve_codel_target_ms: float = 0.0
     overload_rest_queue_rows: int = 0
-    host_tier_rows: int = -1        # -1 = auto, which is off in the port
-    dispatch_deadline_ms: float = -1.0  # -1 = auto, which is off in the port
+    graph_cr: str = ""
+    host_tier_rows: int = -1  # -1 = auto, which is off in the port
+    inline_rows: int = -1  # -1 = auto, which is off in the port
 
     @staticmethod
     def from_env(env: Mapping[str, str] | None = None) -> "Config":
@@ -144,6 +174,10 @@ class Config:
 
         def num(key: str, field: str, conv=float):
             return conv(e.get(key, str(getattr(Config, field))))
+
+        def opt(key: str, conv=float):
+            value = e.get(key, "").strip()
+            return conv(value) if value else None
 
         return Config(
             seldon_token=e.get("SELDON_TOKEN", Config.seldon_token),
@@ -157,6 +191,8 @@ class Config:
             dynamic_batching=_on_unless_off(e.get("CCFD_DYNAMIC_BATCHING", "1")),
             serve_host=e.get("CCFD_SERVE_HOST", Config.serve_host),
             serve_port=num("CCFD_SERVE_PORT", "serve_port", int),
+            native_front=_on_unless_off(e.get("CCFD_NATIVE_FRONT", "1")),
+            dispatch_deadline_ms=opt("CCFD_DISPATCH_DEADLINE_MS"),
             broker_url=e.get("BROKER_URL", Config.broker_url),
             kafka_topic=e.get("KAFKA_TOPIC", Config.kafka_topic),
             customer_notification_topic=e.get(
@@ -208,21 +244,32 @@ class Config:
                                                "overload_serve_codel_target_ms"),
             overload_rest_queue_rows=num("CCFD_OVERLOAD_REST_QUEUE_ROWS",
                                          "overload_rest_queue_rows", int),
+            graph_cr=e.get("CCFD_GRAPH_CR", Config.graph_cr),
             host_tier_rows=num("CCFD_HOST_TIER_ROWS", "host_tier_rows", int),
-            dispatch_deadline_ms=num("CCFD_DISPATCH_DEADLINE_MS", "dispatch_deadline_ms"),
+            inline_rows=int(e.get("CCFD_INLINE_ROWS", "").strip() or Config.inline_rows),
         )
 
     def watchdog_deadline_ms(self, on_card: bool) -> float:
         """The router's dispatch watchdog deadline: CCFD_OVERLOAD_DISPATCH_
         DEADLINE_MS when set (>= 0); else CCFD_DISPATCH_DEADLINE_MS when set
-        (the only value the port takes there is 0); else, as the reference's
-        auto, SELDON_TIMEOUT when the router scores on the card and off on
-        the CPU."""
+        (>= 0); else (unset or -1), as the reference's auto, SELDON_TIMEOUT
+        when the router scores on the card and off on the CPU."""
         if self.overload_dispatch_deadline_ms >= 0:
             return self.overload_dispatch_deadline_ms
-        if self.dispatch_deadline_ms >= 0:
+        if self.dispatch_deadline_ms is not None and self.dispatch_deadline_ms >= 0:
             return self.dispatch_deadline_ms
         return float(self.seldon_timeout_ms) if on_card else 0.0
+
+    def scorer_dispatch_deadline_ms(self, on_card: bool) -> float:
+        """What ``Scorer(dispatch_deadline_ms=)`` takes: 0 (off) when unset;
+        auto (< 0) resolves to SELDON_TIMEOUT on the card and off on the
+        CPU; else the value."""
+        ms = self.dispatch_deadline_ms
+        if ms is None:
+            return 0.0
+        if ms < 0:
+            return float(self.seldon_timeout_ms) if on_card else 0.0
+        return float(ms)
 
     def unported(self) -> list[str]:
         """The environment variables set to select a part of the reference
@@ -246,10 +293,12 @@ class Config:
         if self.overload_serve_codel_target_ms > 0 or self.overload_rest_queue_rows > 0:
             out.append("CCFD_OVERLOAD_SERVE_CODEL_TARGET_MS/CCFD_OVERLOAD_REST_QUEUE_ROWS "
                        "(the batcher's overload queue policies)")
+        if self.graph_cr:
+            out.append("CCFD_GRAPH_CR (the SeldonDeployment inference graph)")
         if self.host_tier_rows > 0:
             out.append("CCFD_HOST_TIER_ROWS > 0 (the Scorer's host latency tier: "
                        "requests that skip the kernel)")
-        if self.dispatch_deadline_ms > 0:
-            out.append("CCFD_DISPATCH_DEADLINE_MS > 0 (the Scorer's wedge deadline "
-                       "with host fallback: requests that skip the kernel)")
+        if self.inline_rows > 0:
+            out.append("CCFD_INLINE_ROWS > 0 (the REST front's in-IO-thread host model: "
+                       "requests that skip the kernel)")
         return out

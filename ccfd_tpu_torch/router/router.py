@@ -58,6 +58,7 @@ from typing import Any, Callable, Mapping
 
 import numpy as np
 
+from ccfd_tpu_torch import native
 from ccfd_tpu_torch.bus.broker import Broker
 from ccfd_tpu_torch.config import Config
 from ccfd_tpu_torch.data.ccfd import FEATURE_NAMES
@@ -199,26 +200,11 @@ def decode_features(values: list[Mapping[str, Any]]) -> tuple[np.ndarray, int]:
 
 
 def decode_csv(data: bytes, n_features: int = len(FEATURE_NAMES)) -> tuple[np.ndarray, int]:
-    """Newline-separated CSV float rows -> ((B, F) float32, #bad rows). A row
-    with the wrong field count or a field that is not a number decodes to
-    zeros and counts as bad. (The reference's numpy decoder; its native C++
-    one is not ported yet.)"""
-    if not data:
-        return np.zeros((0, n_features), np.float32), 0
-    lines = data.decode("utf-8", errors="replace").splitlines()
-    out = np.zeros((len(lines), n_features), np.float32)
-    bad = 0
-    for i, line in enumerate(lines):
-        parts = line.split(",")
-        if len(parts) != n_features:
-            bad += 1
-            continue
-        try:
-            out[i] = [float(p) for p in parts]
-        except ValueError:
-            out[i] = 0.0
-            bad += 1
-    return out, bad
+    """Newline-separated CSV float rows -> ((B, F) float32, #bad rows), by
+    the native decoder (``native.decode_csv``, the reference's C++ one). A
+    row with the wrong field count or a field that is not a number decodes
+    to zeros and counts as bad."""
+    return native.decode_csv(data, n_features)
 
 
 def decode_records(records) -> tuple[np.ndarray, list[Mapping[str, Any]], int]:

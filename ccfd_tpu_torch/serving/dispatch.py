@@ -1,21 +1,25 @@
-"""Deadline-bounded dispatch: the router's dispatch watchdog.
+"""Deadline-bounded dispatch: the router's dispatch watchdog and the
+Scorer's wedge deadline.
 
-The port's copy of ``DeviceDispatcher`` and ``ScorerTimeout`` from
-ccfd_tpu/serving/dispatch.py. Work runs on a small pool of sacrificial
-threads; the caller waits at most a deadline and gets :class:`ScorerTimeout`
-on expiry. A wedged worker cannot be cancelled: it is leaked (daemonized,
-its ticket abandoned), and the pool stops growing at ``max_threads``.
+The port's copy of ``DeviceDispatcher``, ``ScorerTimeout`` and
+``WedgeMonitor`` from ccfd_tpu/serving/dispatch.py. Work runs on a small
+pool of sacrificial threads; the caller waits at most a deadline and gets
+:class:`ScorerTimeout` on expiry. A wedged worker cannot be cancelled: it
+is leaked (daemonized, its ticket abandoned), and the pool stops growing at
+``max_threads``.
 
-The port uses it only through ``OverloadControl.bounded_dispatch``, where a
-timeout falls into the router's counted degradation ladder. The Scorer's
-own wedge fallback (``WedgeMonitor``, CCFD_DISPATCH_DEADLINE_MS) is not
-ported: it would let a request skip the kernel inside the Scorer.
+Two users: ``OverloadControl.bounded_dispatch``, where a timeout falls into
+the router's counted degradation ladder, and the Scorer's dispatch
+deadline (CCFD_DISPATCH_DEADLINE_MS, off unless set), where a timeout marks
+the device wedged and ``score`` raises the timeout to its caller: 503 from
+the REST server, a counted degraded tier in the router's ladder.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
+import time
 from typing import Any, Callable
 
 
@@ -85,3 +89,70 @@ class DeviceDispatcher:
             return ticket.result
         ticket.abandoned = True
         raise ScorerTimeout(f"device dispatch exceeded {deadline_s:.3f}s")
+
+
+class WedgeMonitor:
+    """Whether the device is believed wedged, with a prober that clears the
+    mark once a cheap device round trip (``probe_fn``) completes within the
+    deadline again, so serving returns to the card without manual action.
+    The probe runs through the same :class:`DeviceDispatcher`, so a still
+    wedged device costs at most one sacrificial thread a probe interval."""
+
+    def __init__(
+        self,
+        dispatcher: DeviceDispatcher,
+        probe_fn: Callable[[], Any],
+        deadline_s: float,
+        probe_interval_s: float = 10.0,
+    ):
+        self._dispatcher = dispatcher
+        self._probe_fn = probe_fn
+        self._deadline_s = float(deadline_s)
+        self._probe_interval_s = float(probe_interval_s)
+        self._lock = threading.Lock()
+        self._wedged_since: float | None = None
+        self._prober: threading.Thread | None = None
+
+    @property
+    def wedged(self) -> bool:
+        with self._lock:
+            return self._wedged_since is not None
+
+    @property
+    def wedged_for_s(self) -> float:
+        with self._lock:
+            if self._wedged_since is None:
+                return 0.0
+            return time.monotonic() - self._wedged_since
+
+    def mark_wedged(self) -> None:
+        with self._lock:
+            first = self._wedged_since is None
+            if first:
+                self._wedged_since = time.monotonic()
+            # _prober is None exactly when no prober loop will make another
+            # pass: the loop only exits under this lock after nulling it
+            start_prober = first and self._prober is None
+            if start_prober:
+                self._prober = threading.Thread(
+                    target=self._probe_loop, name="ccfd-wedge-probe", daemon=True)
+                self._prober.start()
+
+    def _clear(self) -> None:
+        with self._lock:
+            self._wedged_since = None
+
+    def _probe_loop(self) -> None:
+        while True:
+            with self._lock:
+                if self._wedged_since is None:
+                    # exit is atomic with nulling the handle: a concurrent
+                    # mark_wedged either sees _prober set or spawns a new one
+                    self._prober = None
+                    return
+            try:
+                self._dispatcher.call(self._probe_fn, self._deadline_s)
+            except Exception:  # noqa: BLE001 - a timeout or a failing probe is not recovery
+                time.sleep(self._probe_interval_s)
+                continue
+            self._clear()

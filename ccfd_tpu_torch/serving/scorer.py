@@ -23,12 +23,21 @@ and hot-swappable params. The port of ccfd_tpu/serving/scorer.py's
   which keeps a block out of reuse until the copies that read it have
   finished, so the batcher's concurrent workers never share one.
 - **Every request dispatches to the device.** The reference's host latency
-  tier (small requests scored in numpy on accelerator backends), its
-  dispatch deadline with host fallback, and its drop to the XLA graph on a
+  tier (small requests scored in numpy on accelerator backends), its host
+  fallback while the device is wedged, and its drop to the XLA graph on a
   kernel error or on params the kernel does not take are not carried over:
-  each of them would let a request skip the kernel without a trace. A
-  kernel that fails to build or launch fails ``warmup`` and the request;
-  params a kernel does not take fail the constructor or ``swap_params``.
+  each of them would let a request skip the kernel. A kernel that fails to
+  build or launch fails ``warmup`` and the request; params a kernel does
+  not take fail the constructor or ``swap_params``.
+- **The dispatch deadline** (``dispatch_deadline_ms`` > 0; off unless the
+  environment sets it, config.py): ``score`` runs its device round trip on
+  a ``DeviceDispatcher`` thread and waits at most the deadline (times the
+  request's chunks). A timeout (``dispatch_timeouts``) marks the device
+  wedged (``WedgeMonitor``, which probes for recovery) and raises
+  ``ScorerTimeout``, as does every ``score`` while the device is wedged, so
+  no new work queues behind the hang. The REST server answers it with 503
+  and the router's degradation ladder counts the batch on its own tiers.
+  ``warmup`` and ``score_pipelined`` are not bounded.
 - **Double-buffered params.** ``swap_params`` stages fresh device tensors
   (and refolds the kernel weights) before flipping the references under
   the lock; an in-flight call keeps the tensors it snapshotted. Params
@@ -53,6 +62,7 @@ from ccfd_tpu_torch.device import resolve
 from ccfd_tpu_torch.models.registry import ModelSpec, get_model
 from ccfd_tpu_torch.ops import fused_mlp, fused_mlp_q8
 from ccfd_tpu_torch.params import to_numpy
+from ccfd_tpu_torch.serving.dispatch import DeviceDispatcher, ScorerTimeout, WedgeMonitor
 
 _DTYPES = {
     "float32": torch.float32,
@@ -73,6 +83,7 @@ class Scorer:
         seed: int = 0,
         device: "str | torch.device | None" = None,
         q8_wire: str = "int8",
+        dispatch_deadline_ms: float = 0.0,
     ):
         self.device = resolve(device)
         self.spec: ModelSpec = get_model(model_name)
@@ -100,6 +111,16 @@ class Scorer:
         # the host copy the router's host tier forwards through
         # (``host_score``); refreshed by every swap
         self._host_params = to_numpy(params)
+        # -- the dispatch deadline (module docstring) --
+        self.dispatch_deadline_s = max(0.0, float(dispatch_deadline_ms)) / 1e3
+        self.dispatch_timeouts = 0
+        self._dispatcher = self._wedge = None
+        if self.dispatch_deadline_s > 0:
+            self._dispatcher = DeviceDispatcher()
+            probe_x = np.zeros((self.batch_sizes[0], num_features), np.float32)
+            self._wedge = WedgeMonitor(
+                self._dispatcher, lambda: self.score_pipelined(probe_x, depth=1),
+                deadline_s=self.dispatch_deadline_s)
 
     # -- params ------------------------------------------------------------
     def _stage(self, params: Any) -> tuple[dict, dict | None, dict | None]:
@@ -181,6 +202,7 @@ class Scorer:
             "fused": self.fused,
             "int8_wire": self.int8_wire,
             "device": str(self.device),
+            "dispatch_deadline_ms": self.dispatch_deadline_s * 1e3,
             "dispatches": {str(b): int(n) for b, n in sorted(counts.items())},
         }
 
@@ -273,8 +295,27 @@ class Scorer:
 
     def score(self, x: np.ndarray) -> np.ndarray:
         """(n, F) float32 -> (n,) float32 proba_1: the synchronous latency
-        path, one chunk in flight."""
-        return self.score_pipelined(x, depth=1)
+        path, one chunk in flight, within the dispatch deadline where one
+        is set (module docstring)."""
+        if self._dispatcher is None:
+            return self.score_pipelined(x, depth=1)
+        if self._wedge.wedged:
+            raise ScorerTimeout(f"device wedged for {self._wedge.wedged_for_s:.1f}s")
+        # the deadline is for one bucketed dispatch: a request of many chunks
+        # gets one deadline a chunk
+        n_chunks = max(1, -(-len(x) // self.batch_sizes[-1]))
+        try:
+            return self._dispatcher.call(lambda: self.score_pipelined(x, depth=1),
+                                         self.dispatch_deadline_s * n_chunks)
+        except ScorerTimeout:
+            with self._lock:
+                self.dispatch_timeouts += 1
+            self._wedge.mark_wedged()
+            raise
+
+    @property
+    def wedged(self) -> bool:
+        return self._wedge is not None and self._wedge.wedged
 
     # -- the router's host tier ------------------------------------------------
     @property

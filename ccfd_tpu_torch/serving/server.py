@@ -21,25 +21,40 @@ scorer. The port of ccfd_tpu/serving/server.py's ``PredictionServer``.
   90%, critical at 100%); a refusal answers 429 with ``Retry-After``,
   counted in ``ccfd_admission_total`` and ``ccfd_shed_total``. The
   batcher's CoDel and bounded priority queue are not ported.
+- A ``ScorerTimeout`` (the Scorer's dispatch deadline expired, or the
+  device is still marked wedged) answers 503, as in the reference.
+  ``DeadlineCounters`` folds the Scorer's ``dispatch_timeouts`` into
+  ``ccfd_dispatch_timeouts_total`` at scrape time, beside the
+  ``ccfd_device_wedged`` gauge; both read 0 unless CCFD_DISPATCH_DEADLINE_MS
+  arms the deadline (config.py).
 
-Transport: the Python ``FastHTTPServer`` only, decoding bodies with
-``json.loads``. The reference's C++ front and native payload decode are a
-later slice of the port.
+Decode: the canonical payload's matrix parses natively
+(``native.decode_ndarray_json``, C++ strtof straight into float32); a
+``names`` key, ragged or non-numeric rows, bad JSON and oversize bodies
+bail to ``json.loads``, with the same status codes.
+
+Transport: the C++ epoll front (``serving/native_front.py``) when
+``cfg.native_front`` is on (CCFD_NATIVE_FRONT, default 1, as in the
+reference), else the Python ``FastHTTPServer``. There is no silent
+fallback: a front that cannot build or bind raises.
 """
 
 from __future__ import annotations
 
 import json
+import threading
 import time
 from typing import Any
 
 import numpy as np
 
+from ccfd_tpu_torch import native
 from ccfd_tpu_torch.config import Config
 from ccfd_tpu_torch.data.ccfd import FEATURE_NAMES
 from ccfd_tpu_torch.metrics.prom import Registry
 from ccfd_tpu_torch.ops import fused_mlp, fused_mlp_q8
 from ccfd_tpu_torch.serving.batcher import DynamicBatcher
+from ccfd_tpu_torch.serving.dispatch import ScorerTimeout
 from ccfd_tpu_torch.serving.scorer import Scorer
 from ccfd_tpu_torch.utils.fasthttp import FastHTTPServer
 
@@ -56,6 +71,31 @@ def publish_launches(gauge) -> None:
     in this process (the REST server and the router role's exporter)."""
     for counter in KERNEL_LAUNCHES:
         gauge.set(counter.value, labels={"kernel": counter.kernel})
+
+
+class DeadlineCounters:
+    """The Scorer's dispatch deadline on a registry: its timeouts folded
+    into ``ccfd_dispatch_timeouts_total`` at scrape time (``sync``), and the
+    wedge flag as ``ccfd_device_wedged``. The serving process and the
+    router role use it."""
+
+    def __init__(self, registry: Registry, scorer: Scorer):
+        self._scorer = scorer
+        self._timeouts = registry.counter("ccfd_dispatch_timeouts_total",
+                                          "device dispatches past the Scorer's deadline")
+        self._timeouts.inc(0)  # rendered at 0 from the start
+        self._wedged = registry.gauge("ccfd_device_wedged",
+                                      "1 while the Scorer believes the device wedged")
+        self._synced = 0
+        self._lock = threading.Lock()  # concurrent scrapes fold each delta once
+
+    def sync(self) -> None:
+        with self._lock:
+            n = self._scorer.dispatch_timeouts
+            if n > self._synced:
+                self._timeouts.inc(n - self._synced)
+                self._synced = n
+        self._wedged.set(1.0 if self._scorer.wedged else 0.0)
 
 
 class PredictionServer:
@@ -84,13 +124,14 @@ class PredictionServer:
             "ccfd_kernel_launches", "CUDA kernel launches in this process")
         self._g_dispatches = r.gauge(
             "ccfd_scorer_dispatches", "the Scorer's bucket dispatches in this process")
+        self.deadline_counters = DeadlineCounters(r, scorer)
         self.admission = None
         if self.cfg.overload_enabled:
             from ccfd_tpu_torch.runtime.overload import AdmissionGate
 
             self.admission = AdmissionGate.from_config(
                 self.cfg, r, max_rows=max(self.scorer.batch_sizes))
-        self._httpd: FastHTTPServer | None = None
+        self._httpd: Any = None  # the NativeFront or the FastHTTPServer
         # dynamic batching: concurrent requests coalesce into one dispatch;
         # the adaptive policy adds no latency for a lone sequential client
         self.batcher: DynamicBatcher | None = None
@@ -197,6 +238,7 @@ class PredictionServer:
                 self._c_requests.inc(labels={"code": "200"})
                 publish_launches(self._g_launches)
                 self._g_dispatches.set(self.scorer.dispatch_total())
+                self.deadline_counters.sync()
                 return 200, "text/plain", self.registry.render().encode()
             if path in ("/health/status", "/health", "/healthz"):
                 return self._json(
@@ -212,18 +254,22 @@ class PredictionServer:
         path = path.rstrip("/")
         if not (path.endswith("/predictions") or path == "/predict"):
             return self._json(404, {"error": "not found"})
-        try:
-            payload = json.loads(body or b"{}")
-        except ValueError:
-            return self._json(400, {"error": "malformed JSON body"})
-        data = payload.get("data", {}) if isinstance(payload, dict) else {}
-        rows = data.get("ndarray") if isinstance(data, dict) else None
-        if rows is None or not isinstance(rows, list):
-            return self._json(400, {"error": "missing data.ndarray in request"})
-        try:
-            x = self.rows_matrix(data.get("names") or [], rows)
-        except (TypeError, ValueError) as e:
-            return self._json(400, {"error": f"bad ndarray: {e}"})
+        # the canonical payload parses natively; anything unusual (a names
+        # key, ragged or non-numeric rows, bad JSON) takes json.loads
+        x = native.decode_ndarray_json(body, self.scorer.num_features)
+        if x is None:
+            try:
+                payload = json.loads(body or b"{}")
+            except ValueError:
+                return self._json(400, {"error": "malformed JSON body"})
+            data = payload.get("data", {}) if isinstance(payload, dict) else {}
+            rows = data.get("ndarray") if isinstance(data, dict) else None
+            if rows is None or not isinstance(rows, list):
+                return self._json(400, {"error": "missing data.ndarray in request"})
+            try:
+                x = self.rows_matrix(data.get("names") or [], rows)
+            except (TypeError, ValueError) as e:
+                return self._json(400, {"error": f"bad ndarray: {e}"})
         gate = self.admission
         if gate is not None:
             from ccfd_tpu_torch.runtime.overload import parse_priority
@@ -235,6 +281,10 @@ class PredictionServer:
         try:
             # a scorer or kernel error propagates: the transport answers 500
             proba = self._score_matrix(x)
+        except ScorerTimeout as e:
+            # the dispatch deadline expired or the device is wedged: a
+            # bounded 503, not a hung request
+            return self._json(503, {"error": f"scoring unavailable: {e}"})
         finally:
             if gate is not None:
                 gate.release(n_rows)
@@ -244,14 +294,28 @@ class PredictionServer:
         self._h_latency.observe(time.perf_counter() - t0, labels={"endpoint": path})
         return self._json(200, out)
 
+    @property
+    def transport(self) -> str:
+        """The transport ``start`` selects: "native-front" or "python"."""
+        return "native-front" if self.cfg.native_front else "python"
+
     def start(self, host: str | None = None, port: int | None = None) -> int:
-        """Start serving on a background thread; returns the bound port."""
+        """Start serving on background threads; returns the bound port.
+        The C++ front when ``cfg.native_front`` is on, else the Python
+        server; a front that cannot build or bind raises."""
         if self.cfg.dynamic_batching and self.batcher is None:
             # stop() tears the batcher down; a restarted server needs a
             # fresh one or every predict would fail on the stopped worker
             self.batcher = self._make_batcher()
         host = host if host is not None else self.cfg.serve_host
         port = port if port is not None else self.cfg.serve_port
+        if self.cfg.native_front:
+            from ccfd_tpu_torch.serving.native_front import NativeFront
+
+            front = NativeFront(self)
+            bound = front.start(port, host=host)
+            self._httpd = front
+            return bound
         self._httpd = FastHTTPServer(
             (host, port), self._http_handler, name="ccfd-serving"
         ).start()

@@ -14,8 +14,10 @@ wire).
   device   the card's name and count, and nvidia-smi's name and power limit
   build    nvcc builds every kernel library from ccfd_tpu_torch/ops/csrc,
            one nvcc per source, all at once (what -Xptxas -v reports is
-           printed: registers, shared memory, spills); each library's
-           layout plan is held against its Python mirror
+           printed: registers, shared memory, spills), while g++ builds the
+           native host library (ccfd_tpu_torch/native: the CSV and payload
+           decoders and the REST front; its time is printed); each kernel
+           library's layout plan is held against its Python mirror
   parity   each kernel vs its plain version on the card (B1 within
            b1_tol_p, no flip at p = 0.5; in its wide layout also within the
            bar of an f64 evaluation with its rounding points, and a flip at
@@ -27,9 +29,10 @@ wire).
            4096 for B1, the last two in its wide layout, and H=1040 for
            B2/B3; F=128 with H=256); B3 also vs B2 on the same rows. B2 and
            B3 must equal their plain versions and each other bit for bit
-  serve    the port's Seldon REST server on the card, one path after the
-           other, each with every launch count set to 0 just before it and
-           read just after:
+  serve    the port's Seldon REST server on the card through its default
+           transport, the C++ REST front, one path after the other, each
+           with every launch count set to 0 just before it and read just
+           after:
            - bf16 (`python -m ccfd_tpu_torch serve`, kernel B1);
            - int8 (`CCFD_MODEL=mlp_q8 ... serve`, kernel B3);
            - f32 wire (`CCFD_MODEL=mlp_q8 CCFD_Q8_WIRE=f32 ... serve`, B2).
@@ -37,10 +40,16 @@ wire).
            200 sequential 16-row POSTs (p50/p99), and 5,000 rows after
            swap_params to seeded random params; each answer held against the
            plain version in p and in the logit recovered from p; the path's
-           kernel launches must equal the scorer's dispatches and the other
-           kernels must not launch; then the per-layer split of a request
-           (JSON decode, host prequantize on the int8 wire, Scorer.score,
-           JSON reply) and a /prometheus scrape
+           kernel launches must equal the scorer's dispatches, the other
+           kernels must not launch, and the dispatch deadline's counters
+           (ccfd_dispatch_timeouts_total, ccfd_device_wedged) read 0; then
+           the per-layer split of a request (native and JSON decode, host
+           prequantize on the int8 wire, Scorer.score, JSON reply) and a
+           /prometheus scrape. Each path is served twice more on the same
+           200 sequential requests, launches = dispatches each time: with
+           CCFD_NATIVE_FRONT=0 (the Python transport), and with
+           CCFD_DISPATCH_DEADLINE_MS=1000, where every request's dispatch
+           runs on the deadline's dispatcher thread and none times out
   decision the decision plane (serving/fused.py FusedDecisionScorer) over
            a Scorer on each kernel (B1; B3 on the int8 wire; B2 on the f32
            wire) with two rule bases (the FRAUD_THRESHOLD default and a JSON
@@ -66,7 +75,9 @@ wire).
            both DMN outcomes; B1's launches must equal the scorer's
            dispatches (router and prediction service) plus the plane's;
            transactions/s, the router's decision and score-stage p50/p99 and
-           the dispatches per bucket are printed
+           the dispatches per bucket are printed; and the router's CSV
+           decode (decode_records, the router.decode span's work) of a
+           4,096-row batch through the native decoder against the plain one
   services the reference's service roles as processes, `python -m
            ccfd_tpu_torch bus|engine|router|notify|producer` on free
            loopback ports (BROKER_URL, KIE_SERVER_URL), the router with its
@@ -84,13 +95,16 @@ wire).
                partition, coalescing on): every worker made batches and
                the coalesced dispatches are no more than the batches;
            (c) the ladder: the router on SELDON_URL -> a `serve` process
-               on the card; 4,000 rows, then the serve process is killed,
-               4,000 rows more at 2,000/s, then it is restarted and 6,000
-               rows stream at 2,000/s: the rows the serve processes scored plus the
-               host tier's equal the rows produced, the host tier took
-               every row produced while serve was down, the breaker
-               opened and closed, and each serve process's B1 launches =
-               its dispatches + its warmup
+               on the card (its C++ REST front); 4,000 rows, then the serve
+               process is killed, 4,000 rows more at 2,000/s, then it is
+               restarted and 6,000 rows stream at 2,000/s: the rows the
+               serve processes scored plus the rules tier's equal the rows
+               produced, the rules tier took every row produced while serve
+               was down and the host tier none (the reference's role has no
+               host tier on SELDON_URL), the breaker opened and closed, and
+               each serve process's B1 launches = its dispatches + its warmup;
+           every role's start-up line shows its gen-0 GC threshold (the
+           reference's service tuning), printed per role
   timing   each kernel and its plain version at B=16 and B=16384 at the
            served H=256, beside the roofline bound: the kernel's device
            time from CUDA events around a CUDA graph of back-to-back
@@ -156,6 +170,9 @@ TX_TOPIC = "odh-demo"  # the producer's and the router's topic (Config's default
 LADDER_PARTS = (4_000, 4_000)
 LADDER_RATE_ROWS, LADDER_RATE = 6_000, 2_000.0
 TIMING_BATCHES = (16, 16384)
+SEQ_POSTS = 200  # sequential 16-row POSTs a serving run times
+DEADLINE_MS = 1000  # the serve phase's run with the dispatch deadline armed
+DEADLINE_SERIES = ("ccfd_dispatch_timeouts_total", "ccfd_device_wedged")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, NVIDIA data sheet
 INT8_OPS = 1979e12  # dense int8 tensor-core peak, NVIDIA data sheet
@@ -356,6 +373,18 @@ class Roles:
             except OSError:
                 time.sleep(0.05)
         raise AssertionError(f"{url} did not come up in {timeout} s")
+
+    def gc_thresholds(self) -> dict:
+        """Each role's gen-0 GC threshold, from its start-up line (None
+        where the line lacks it)."""
+        import re
+
+        out = {}
+        for name in self.procs:
+            with open(os.path.join(self.dir, f"{name}.log"), errors="replace") as f:
+                found = re.search(r"gc_threshold=(\d+)", f.read())
+            out[name] = int(found.group(1)) if found else None
+        return out
 
     def backbone(self) -> None:
         """bus, then engine and notify."""
@@ -562,14 +591,22 @@ class Smoke:
         print(self.card, flush=True)
 
     def build(self) -> None:
+        from ccfd_tpu_torch import native
         from ccfd_tpu_torch.ops import _build, fused_mlp, fused_mlp_q8
 
         t0 = time.perf_counter()
+        host = threading.Thread(target=native.lib)  # g++ beside the nvccs
+        host.start()
         _build.build(_build.SOURCES)
         for name in _build.SOURCES:
             _build.load(name)
+        host.join()
+        native.lib()  # raises here with g++'s output if its build failed
         log("build", f"{', '.join(_build.SOURCES)} built in parallel and loaded "
             f"in {time.perf_counter() - t0:.3f} s")
+        log("build", f"native host library ({' '.join(native.SOURCES)}) built by "
+            f"{native.compiler()} {' '.join(native.flags())} in "
+            f"{native.build_seconds:.3f} s: {native.library_path().name}")
         for name in _build.SOURCES:
             for line in _build.ptxas_log.get(name, "").splitlines():
                 if line.strip():
@@ -676,13 +713,16 @@ class Smoke:
 
     def serve_path(self, kernel: str, env: dict, plain_of, swap_to: dict) -> None:
         """One serving path over REST: ``build_server`` with the config
-        ``env`` gives (the code path of ``serve`` under that environment),
-        every request held against the plain version ``plain_of(which)``,
-        and the path's kernel launches held against the dispatches."""
+        ``env`` gives (the code path of ``serve`` under that environment,
+        through its default transport, the C++ front), every request held
+        against the plain version ``plain_of(which)``, and the path's kernel
+        launches held against the dispatches; then the same path on the
+        Python transport and with the dispatch deadline armed."""
         import http.client
 
         import numpy as np
 
+        from ccfd_tpu_torch import native
         from ccfd_tpu_torch.cli import build_server
         from ccfd_tpu_torch.config import Config
         from ccfd_tpu_torch.ops.fused_mlp_q8 import fold_for_kernel, prequantize_rows_numpy
@@ -692,7 +732,9 @@ class Smoke:
         tag = f"serve {kernel}"
 
         def post(conn, x: np.ndarray) -> tuple[np.ndarray, float]:
-            body = json.dumps({"data": {"names": [], "ndarray": x.tolist()}})
+            # the canonical Seldon payload, which the native front decodes in
+            # C++ (a names key, even an empty one, takes the Python route)
+            body = json.dumps({"data": {"ndarray": x.tolist()}})
             t0 = time.perf_counter()
             conn.request("POST", "/api/v0.1/predictions", body,
                          {"Content-Type": "application/json"})
@@ -727,6 +769,27 @@ class Smoke:
                     f"over {int(live.sum())} unsaturated rows, vs plain")
             return dp, dz, int(live.sum())
 
+        def sequential(conn, n: int) -> tuple[list, np.ndarray]:
+            """``n`` sequential 16-row POSTs: (answers, sorted latencies ms)."""
+            got, lat = [], []
+            for i in range(n):
+                x = self.rows[i * 16:(i + 1) * 16]
+                p, dt = post(conn, x)
+                got.append((x, p))
+                lat.append(dt)
+            return got, np.sort(np.asarray(lat)) * 1e3
+
+        def quantiles(lat_ms: np.ndarray) -> str:
+            return (f"p50 {np.percentile(lat_ms, 50):.3f} ms, p99 "
+                    f"{np.percentile(lat_ms, 99):.3f} ms, max {lat_ms[-1]:.3f} ms")
+
+        def deadline_zero(m: dict, what: str) -> dict:
+            """The dispatch deadline's counters: each present and 0."""
+            got = {c: m.get(c) for c in DEADLINE_SERIES}
+            if any(v != 0.0 for v in got.values()):
+                raise AssertionError(f"{what}: dispatch deadline counters {got}, want 0")
+            return got
+
         cfg = Config.from_env({**os.environ, **env})  # what `serve` reads
         t0 = time.perf_counter()
         srv = build_server(cfg, device="cuda")  # what `serve` runs
@@ -734,10 +797,13 @@ class Smoke:
         grid = scorer.executable_grid()
         if not scorer.fused or grid["int8_wire"] != (kernel == "fused_mlp_q8_preq"):
             raise AssertionError(f"the scorer is not on the {kernel} path: {grid}")
+        if srv.transport != "native-front" or grid["dispatch_deadline_ms"]:
+            raise AssertionError(f"{tag}: not the default serving path: transport "
+                                 f"{srv.transport}, {grid}")
         log(tag, f"{' '.join(f'{k}={v}' for k, v in env.items()) or 'default env'}: "
-            f"model {grid['model']}, int8_wire {grid['int8_wire']}, server built and "
-            f"warmed ({len(scorer.batch_sizes)} buckets) in "
-            f"{time.perf_counter() - t0:.3f} s")
+            f"model {grid['model']}, int8_wire {grid['int8_wire']}, transport "
+            f"{srv.transport}, server built and warmed ({len(scorer.batch_sizes)} buckets) "
+            f"in {time.perf_counter() - t0:.3f} s")
         counters = self.counters()
         port = srv.start("127.0.0.1", 0)
         try:
@@ -751,7 +817,7 @@ class Smoke:
                 dp, dz, live = check(x, p, f"POST {n} rows")
                 log(tag, f"POST {n} rows: {dt * 1e3:.3f} ms, vs plain max|dp| "
                     f"{dp:.3e}, max|dz| {dz:.3e} over {live} unsaturated rows")
-            # concurrent clients: the batcher's workers score at once
+            # concurrent clients: the front's scorer threads score at once
             errs: list = []
 
             def client(i: int) -> None:
@@ -773,13 +839,11 @@ class Smoke:
                 raise AssertionError(f"concurrent clients failed: {errs[:3]}")
             log(tag, "8 concurrent clients x 8 requests of 16 rows: all agree with plain")
             # sequential latency of a small request, the REST front's common case
-            lat = []
-            for i in range(200):
-                x = self.rows[i * 16:(i + 1) * 16]
-                lat.append(post(conn, x)[1])
-            lat_ms = np.sort(np.asarray(lat)) * 1e3
-            log(tag, f"200 sequential POSTs of 16 rows: p50 {lat_ms[99]:.3f} ms, "
-                f"p99 {lat_ms[197]:.3f} ms, max {lat_ms[-1]:.3f} ms on {self.card}")
+            seq, lat_native = sequential(conn, SEQ_POSTS)
+            for x, p in seq:
+                check(x, p, "sequential 16-row POST")
+            log(tag, f"native front: {SEQ_POSTS} sequential POSTs of 16 rows: "
+                f"{quantiles(lat_native)} on {self.card}")
             # a publish, then REST answers whose probabilities spread over (0, 1)
             scorer.swap_params(swap_to)
             x = self.rows[:5000]
@@ -794,13 +858,14 @@ class Smoke:
             launched = {k: c.value for k, c in counters.items()}
             dispatched = scorer.dispatch_total() - d0
             # where a request's time goes: the scorer alone (pad, host cast
-            # or host prequantize, H2D, kernel, D2H) against the JSON work
+            # or host prequantize, H2D, kernel, D2H) against the decode and
+            # reply work
             for n in (16, 5000):
                 x = self.rows[:n]
                 body = json.dumps({"data": {"ndarray": x.tolist()}}).encode()
                 b = scorer.bucket(n)
                 norm = fold_for_kernel(scorer.params) if scorer.int8_wire else None
-                t_parse, t_preq, t_score, t_reply = [], [], [], []
+                t_nat, t_parse, t_preq, t_score, t_reply = [], [], [], [], []
                 for _ in range(30):
                     t1 = time.perf_counter()
                     rows = np.asarray(json.loads(body)["data"]["ndarray"], np.float32)
@@ -815,41 +880,116 @@ class Smoke:
                         padded[:n] = rows
                         prequantize_rows_numpy(norm, padded)
                     t5 = time.perf_counter()
+                    native.decode_ndarray_json(body, rows.shape[1])
+                    t6 = time.perf_counter()
                     t_parse.append(t2 - t1)
                     t_score.append(t3 - t2)
                     t_reply.append(t4 - t3)
                     t_preq.append(t5 - t4)
+                    t_nat.append(t6 - t5)
                 med = {k: float(np.median(v)) * 1e3 for k, v in
                        (("parse", t_parse), ("preq", t_preq), ("score", t_score),
-                        ("reply", t_reply))}
+                        ("reply", t_reply), ("native", t_nat))}
                 wire = (f"{b * (rows.shape[1] + 4)} B of int8 rows + scales, of which host "
                         f"prequantize (pad to {b} + normalize + quantize) "
                         f"{med['preq']:.3f} ms" if norm is not None else
                         f"{b * rows.shape[1] * (2 if kernel == 'fused_mlp_bf16' else 4)} "
                         f"B of rows on the wire")
-                log(tag, f"{n} rows, median of 30: JSON decode {med['parse']:.3f} ms, "
+                log(tag, f"{n} rows, median of 30: native payload decode "
+                    f"{med['native']:.3f} ms (JSON decode {med['parse']:.3f} ms), "
                     f"Scorer.score {med['score']:.3f} ms ({wire}), JSON reply "
                     f"{med['reply']:.3f} ms on {self.card}")
             conn.request("GET", "/prometheus")
             resp = conn.getresponse()
-            scrape = resp.read().decode()
+            text = resp.read().decode()
             conn.close()
         finally:
             srv.stop()
         series = ['seldon_api_executor_client_requests_seconds_count{endpoint="/api/v0.1/predictions"}',
                   "proba_1 "] + [f'ccfd_kernel_launches{{kernel="{k}"}}' for k in KERNELS]
         for s in series:
-            if resp.status != 200 or s not in scrape:
+            if resp.status != 200 or s not in text:
                 raise AssertionError(f"/prometheus lacks {s!r}")
-        log(tag, f"REST traffic: launches {launched}, scorer dispatches "
-            f"{dispatched}; grid after the split timing "
-            f"{scorer.executable_grid()['dispatches']}")
+        m = {ln.rpartition(" ")[0]: float(ln.rpartition(" ")[2]) for ln in text.splitlines()
+             if ln and not ln.startswith("#")}
+        zeros = deadline_zero(m, tag)
+        queued = {q: m.get(f'ccfd_front_requests_total{{queue="{q}"}}', 0.0)
+                  for q in ("predict", "misc")}
+        n_posts = len(REST_ROWS) + 8 * 8 + SEQ_POSTS + 1
+        if queued["predict"] != n_posts or queued["misc"] != 1:
+            # every POST decoded in C++, the scrape alone the Python route
+            raise AssertionError(f"{tag}: the native front queued {queued} for {n_posts} "
+                                 f"POSTs")
+        log(tag, f"REST traffic: {n_posts} POSTs, queued by the front {queued}; launches "
+            f"{launched}, scorer dispatches {dispatched}; grid after the split timing "
+            f"{scorer.executable_grid()['dispatches']}; dispatch deadline counters {zeros}")
         others = {k: v for k, v in launched.items() if k != kernel and v}
         if launched[kernel] <= 0 or launched[kernel] != dispatched or others:
             raise AssertionError(
                 f"REST path did not go through {kernel} alone: {launched} "
                 f"launches for {dispatched} dispatches")
         self.reports[kernel]["launches"] = launched[kernel]
+
+        # the same requests on the Python transport (CCFD_NATIVE_FRONT=0)
+        srv = build_server(Config.from_env({**os.environ, **env, "CCFD_NATIVE_FRONT": "0"}),
+                           device="cuda")
+        if srv.transport != "python":
+            raise AssertionError(f"{tag}: CCFD_NATIVE_FRONT=0 served by {srv.transport}")
+        port = srv.start("127.0.0.1", 0)
+        try:
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+            for c in counters.values():
+                c.reset()
+            d0 = srv.scorer.dispatch_total()
+            seq, lat_python = sequential(conn, SEQ_POSTS)
+            launched = {k: c.value for k, c in counters.items()}
+            dispatched = srv.scorer.dispatch_total() - d0
+            for x, p in seq:
+                check(x, p, "sequential 16-row POST, Python transport")
+            conn.close()
+            m = scrape(f"http://127.0.0.1:{port}/prometheus")
+        finally:
+            srv.stop()
+        deadline_zero(m, f"{tag} Python transport")
+        if launched[kernel] != dispatched or dispatched != SEQ_POSTS or any(
+                v for k, v in launched.items() if k != kernel):
+            raise AssertionError(f"{tag} Python transport: launches {launched} for "
+                                 f"{dispatched} dispatches")
+        log(tag, f"{SEQ_POSTS} sequential POSTs of 16 rows, same requests: native front "
+            f"{quantiles(lat_native)}; Python transport (CCFD_NATIVE_FRONT=0) "
+            f"{quantiles(lat_python)}; launches {launched[kernel]} = dispatches "
+            f"{dispatched} on {self.card}")
+
+        # the dispatch deadline armed: each request's dispatch runs on the
+        # deadline's dispatcher thread, on the card, and none times out
+        srv = build_server(Config.from_env({**os.environ, **env,
+                                            "CCFD_DISPATCH_DEADLINE_MS": str(DEADLINE_MS)}),
+                           device="cuda")
+        if srv.scorer.executable_grid()["dispatch_deadline_ms"] != DEADLINE_MS:
+            raise AssertionError(f"{tag}: deadline {srv.scorer.executable_grid()}")
+        port = srv.start("127.0.0.1", 0)
+        try:
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+            for c in counters.values():
+                c.reset()
+            d0 = srv.scorer.dispatch_total()
+            seq, lat_deadline = sequential(conn, SEQ_POSTS)
+            launched = {k: c.value for k, c in counters.items()}
+            dispatched = srv.scorer.dispatch_total() - d0
+            for x, p in seq:
+                check(x, p, "sequential 16-row POST, dispatch deadline armed")
+            conn.close()
+            m = scrape(f"http://127.0.0.1:{port}/prometheus")
+        finally:
+            srv.stop()
+        deadline_zero(m, f"{tag} dispatch deadline")
+        if launched[kernel] != dispatched or dispatched != SEQ_POSTS or any(
+                v for k, v in launched.items() if k != kernel):
+            raise AssertionError(f"{tag} dispatch deadline: launches {launched} for "
+                                 f"{dispatched} dispatches")
+        log(tag, f"CCFD_DISPATCH_DEADLINE_MS={DEADLINE_MS}: {SEQ_POSTS} sequential 16-row "
+            f"POSTs on the native front, {quantiles(lat_deadline)}; launches "
+            f"{launched[kernel]} = dispatches {dispatched}, no timeout, on {self.card}")
 
     def json_rules(self):
         """The decision phase's JSON rule base, its == bound an Amount the
@@ -957,6 +1097,44 @@ class Smoke:
                 c.reset()
             total += self.demo_run(pipe, tag)
         self.reports["fused_mlp_bf16"]["launches"] = total
+        self.demo_decode()
+
+    def demo_decode(self) -> None:
+        """The router's CSV decode of one 4,096-row micro-batch on the
+        producer's wire (``decode_records``: the work the router.decode span
+        times in the roles), through the native decoder and through its
+        plain version, host clock, 50 calls each."""
+        import numpy as np
+
+        from ccfd_tpu_torch import native
+        from ccfd_tpu_torch.bus.broker import Record
+        from ccfd_tpu_torch.router import router as router_mod
+
+        recs = [Record(TX_TOPIC, 0, i, i, ",".join(repr(float(v)) for v in row).encode(), 0.0)
+                for i, row in enumerate(self.rows[:4096])]
+        times = {}
+        real = native.decode_csv
+        try:
+            for name, fn in (("native", real), ("plain", native._decode_csv_numpy)):
+                native.decode_csv = fn  # what decode_records calls
+                lat = []
+                for _ in range(50):
+                    t0 = time.perf_counter()
+                    x, _txs, bad = router_mod.decode_records(recs)
+                    lat.append(time.perf_counter() - t0)
+                if bad or x.shape != (4096, 30):
+                    raise AssertionError(f"decode_records ({name}): {bad} bad rows, {x.shape}")
+                times[name] = (np.percentile(lat, 50) * 1e3, np.percentile(lat, 99) * 1e3, x)
+        finally:
+            native.decode_csv = real
+        dx = float(np.abs(times["native"][2] - times["plain"][2]).max())
+        if not np.allclose(times["native"][2], times["plain"][2], rtol=1e-5, atol=1e-6):
+            raise AssertionError(f"native CSV decode disagrees with the plain one: {dx}")
+        log("demo", f"router CSV decode of a 4,096-row batch (decode_records, host clock, "
+            f"50 calls): native p50 {times['native'][0]:.3f} ms p99 {times['native'][1]:.3f} "
+            f"ms; plain p50 {times['plain'][0]:.3f} ms p99 {times['plain'][1]:.3f} ms "
+            f"({times['plain'][0] / times['native'][0]:.1f}x); max |dx| {dx:.3e} on "
+            f"{self.card}")
 
     def demo_run(self, pipe, tag: str) -> int:
         """One run of the pipeline; returns B1's launches in it."""
@@ -1098,6 +1276,19 @@ class Smoke:
             c.wait(f"http://127.0.0.1:{sport}/health/status", c.procs["serve1"], 180)
             log("services", f"the roles of three parts, four of them on the card, up in "
                 f"{time.perf_counter() - t0:.3f} s")
+            import gc
+
+            try:  # what the reference's service tuning sets
+                want_gc = int(os.environ.get("CCFD_GC_THRESHOLD", "").strip() or 100_000)
+            except ValueError:
+                want_gc = 100_000
+            if want_gc <= 0:
+                want_gc = gc.get_threshold()[0]  # opted out: Python's default
+            for part, roles in zip("abc", (a, b, c)):
+                got = roles.gc_thresholds()
+                log("services", f"part ({part}) roles' gc.get_threshold()[0]: {got}")
+                if any(v != want_gc for v in got.values()):
+                    raise AssertionError(f"part ({part}): gc thresholds {got}, want {want_gc}")
             t0 = time.perf_counter()
             one = self.services_run("a", a, SERVICES_ROWS)
             a.stop()
@@ -1196,6 +1387,8 @@ class Smoke:
         s2 = scrape(f"{surl}/prometheus")
         kie = scrape(f"{roles.kurl}/rest/metrics")
         check_conservation(tag, m, kie, total, healthy=False)
+        log("services", f"{tag}: restarted serve's gc.get_threshold()[0]: "
+            f"{roles.gc_thresholds()['serve2']}")
         host = m.get('router_degraded_total{tier="host"}', 0.0)
         rules = m.get('router_degraded_total{tier="rules"}', 0.0)
         r1, r2 = s1["serving_batcher_rows_total"], s2["serving_batcher_rows_total"]
@@ -1204,10 +1397,10 @@ class Smoke:
         fails = []
         if r1 != n1:
             fails.append(f"the card scored {r1} of the first {n1} rows")
-        if down.get('router_degraded_total{tier="host"}', 0.0) != n2:
-            fails.append(f"{down.get('router_degraded_total{tier=\"host\"}')} rows on the "
-                         f"host tier while the edge was down, not {n2}")
-        if rules or not host or r1 + r2 + host != total:
+        if down.get('router_degraded_total{tier="rules"}', 0.0) != n2:
+            fails.append(f"{down.get('router_degraded_total{tier=\"rules\"}')} rows on the "
+                         f"rules tier while the edge was down, not {n2}")
+        if host or not rules or r1 + r2 + rules != total:
             fails.append(f"rows: card {r1} + {r2}, host {host}, rules {rules}, of {total}")
         if not opens or not closes or m['ccfd_breaker_state{edge="scorer"}'] != 0:
             fails.append(f"breaker: {opens} opens, {closes} closes, state "
@@ -1219,10 +1412,16 @@ class Smoke:
         if fails:
             raise AssertionError(f"{tag}: " + "; ".join(fails))
         log("services", f"ok: {tag}: {total} rows routed; the card scored {r1:.0f} (serve "
-            f"1) + {r2:.0f} (serve 2 after the restart), the host tier {host:.0f} (score "
+            f"1) + {r2:.0f} (serve 2 after the restart), the rules tier {rules:.0f} (score "
             f"errors {m.get('router_score_errors_total', 0):.0f}, the rest refused by the "
-            f"open breaker), the rules tier 0; breaker opened {opens:.0f} times and closed "
-            f"{closes:.0f}; serve B1 launches {b1} = dispatches {disp} + warmup")
+            f"open breaker), the host tier 0; breaker opened {opens:.0f} times and closed "
+            f"{closes:.0f}; serve B1 launches {b1} = dispatches {disp} + warmup; the serve "
+            f"processes' dispatch deadline counters "
+            f"{[{k: s.get(k) for k in DEADLINE_SERIES} for s in (s1, s2)]}")
+        for s in (s1, s2):
+            if any(s.get(k) != 0.0 for k in DEADLINE_SERIES):
+                raise AssertionError(f"{tag}: a serve process's dispatch deadline counters: "
+                                     f"{ {k: s.get(k) for k in DEADLINE_SERIES} }")
         return int(sum(disp))
 
     def timing(self) -> None:

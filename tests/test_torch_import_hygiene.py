@@ -46,7 +46,8 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
               "observability.trace", "observability.memory", "router.parallel",
               "serving.dispatch", "serving.client", "utils.httpclient",
               "utils.httpserver", "bus.server", "bus.client", "process.server",
-              "process.client", "metrics.exporter"):
+              "process.client", "metrics.exporter", "native", "serving.native_front",
+              "utils.gctune"):
         assert f"ccfd_tpu_torch.{m}" in res["mods"], m
     bad = [n for n in res["loaded"] if _forbidden(n)]
     assert bad == [], bad
@@ -71,3 +72,32 @@ def test_no_source_file_names_jax_or_the_reference():
     bad = [(str(f.relative_to(REPO)), name) for f in files
            for name in _named_modules(f) if _forbidden(name)]
     assert bad == [], bad
+
+
+def test_the_native_build_names_nothing_of_the_reference():
+    """The port's native library builds from its own sources: the g++
+    command names only files under ccfd_tpu_torch/native and the build
+    directory, and the sources include system headers only. Run in a
+    subprocess with the port alone on the path."""
+    code = (
+        "import json\n"
+        "from ccfd_tpu_torch import native\n"
+        "print(json.dumps({'cmd': native.build_command(native.library_path()),\n"
+        "                  'srcs': [str(native.HERE / s) for s in native.SOURCES]}))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    paths = [a for a in res["cmd"] if "/" in a and not a.startswith("-")]
+    assert paths and all(
+        Path(a).resolve().is_relative_to(PORT / "native")
+        or Path(a).resolve().is_relative_to(REPO / "build" / "ccfd_tpu_torch")
+        or a == res["cmd"][0] for a in paths), paths
+    assert not any((REPO / "ccfd_tpu") in Path(a).resolve().parents for a in paths)
+    for src in res["srcs"]:
+        includes = [ln for ln in Path(src).read_text().splitlines()
+                    if ln.startswith("#include")]
+        assert includes and all("<" in ln and '"' not in ln for ln in includes), includes

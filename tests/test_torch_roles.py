@@ -178,8 +178,9 @@ def test_five_roles_route_as_the_in_process_pipeline(inputs):
     (["bus", "--dir", "/tmp/bus"], {}, "bus --dir"),
     (["engine", "--state-file", "/tmp/engine.json"], {}, "engine --state-file"),
     (["router"], {"CCFD_FAULTS": "scorer:error=0.5"}, "CCFD_FAULTS"),
-    (["router"], {"CCFD_HOST_TIER_ROWS": "256"}, "CCFD_HOST_TIER_ROWS"),
-    (["router"], {"CCFD_DISPATCH_DEADLINE_MS": "50"}, "CCFD_DISPATCH_DEADLINE_MS"),
+    (["router"], {"CCFD_GRAPH_CR": "graph.json"}, "CCFD_GRAPH_CR"),
+    (["serve", "--device", "cpu"], {"CCFD_OVERLOAD_REST_QUEUE_ROWS": "64"},
+     "CCFD_OVERLOAD_REST_QUEUE_ROWS"),
     (["router"], {"BROKER_URL": "kafka://bootstrap:9092"}, "BROKER_URL"),
     (["notify"], {"CCFD_BUS_DIR": "/tmp/bus"}, "CCFD_BUS_DIR"),
     (["producer"], {"CCFD_AUDIT_TOPIC": "audit"}, "CCFD_AUDIT_TOPIC"),
@@ -224,8 +225,154 @@ def test_config_reads_the_roles_knobs_as_the_reference():
               "overload_target_ms", "overload_serve_target_ms", "overload_min_inflight",
               "overload_max_inflight", "overload_codel_target_ms",
               "overload_dispatch_deadline_ms", "host_tier_rows", "dispatch_deadline_ms")
+    env.update(CCFD_DISPATCH_DEADLINE_MS="50")
     for e in (env, {}):
         got, want = Config.from_env(e), RefConfig.from_env(e)
         for f in fields:
+            if not e and f == "dispatch_deadline_ms":
+                # unset is off in the port, auto (-1) in the reference
+                assert got.dispatch_deadline_ms is None and want.dispatch_deadline_ms == -1
+                continue
             assert getattr(got, f) == getattr(want, f), f
     assert Config.from_env(env).unported() == []
+
+
+# -- the repairs: serve refuses the unported knobs (C1), the services tune
+# the GC as the reference does (C2), the router on SELDON_URL falls to the
+# rules tier as the reference's role does (C3)
+
+UNPORTED = [("CCFD_BUS_DIR", "/tmp/bus"), ("CCFD_BUS_RETENTION_RECORDS", "100"),
+            ("BROKER_URL", "kafka://bus:9092"), ("bootstrap", "kafka:9092"),
+            ("CCFD_AUDIT_TOPIC", "audit"), ("s3endpoint", "http://s3"),
+            ("CCFD_FAULTS", "scorer:error=0.5"), ("CCFD_OVERLOAD_SERVE_CODEL_TARGET_MS", "5"),
+            ("CCFD_OVERLOAD_REST_QUEUE_ROWS", "64"), ("CCFD_GRAPH_CR", "graph.json"),
+            ("CCFD_HOST_TIER_ROWS", "256"), ("CCFD_INLINE_ROWS", "64")]
+
+
+@pytest.mark.parametrize("key,value", UNPORTED)
+def test_serve_refuses_each_unported_knob_by_name(key, value):
+    import re
+
+    from ccfd_tpu_torch.cli import build_server
+
+    cfg = Config.from_env({key: value, "CCFD_BATCH_SIZES": "16"})
+    with pytest.raises(NotImplementedError, match=re.escape(key) + ".*") as err:
+        build_server(cfg, device="cpu")
+    assert "unset to run serve" in str(err.value)
+
+
+def _reference_gen0(monkeypatch, env: dict) -> int:
+    """The gen-0 threshold the reference's tune_for_service sets under
+    ``env`` (gc's setters stubbed, so this process is not tuned), or
+    Python's default where it opts out."""
+    import gc
+
+    from ccfd_tpu.utils import gctune as ref_gctune
+
+    set_to = []
+    monkeypatch.delenv("CCFD_GC_THRESHOLD", raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.setattr(gc, "collect", lambda *a: 0)
+    monkeypatch.setattr(gc, "freeze", lambda: None)
+    monkeypatch.setattr(gc, "set_threshold", lambda *a: set_to.append(a[0]))
+    applied = ref_gctune.tune_for_service()
+    if applied:
+        return set_to[-1]
+    fresh = subprocess.run([sys.executable, "-c", "import gc; print(gc.get_threshold()[0])"],
+                           capture_output=True, text=True, timeout=60)
+    return int(fresh.stdout)
+
+
+@pytest.mark.parametrize("role,env", [
+    ("bus", {}), ("engine", {}), ("notify", {}), ("serve", {}),
+    ("bus", {"CCFD_GC_THRESHOLD": "0"}), ("serve", {"CCFD_GC_THRESHOLD": "50000"}),
+])
+def test_the_services_tune_gc_as_the_reference(monkeypatch, role, env):
+    want = _reference_gen0(monkeypatch, env)
+    port = _free_port()
+    args = {"bus": ["--host", "127.0.0.1", "--port", str(port)],
+            "engine": ["--host", "127.0.0.1", "--port", str(port)],
+            "notify": ["--metrics-port", str(port)],
+            "serve": ["--device", "cpu", "--host", "127.0.0.1", "--port", str(port)]}[role]
+    penv = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "CCFD_GC_THRESHOLD")}
+    penv.update(PYTHONPATH=str(REPO), CCFD_BATCH_SIZES="16", **env)
+    p = subprocess.Popen([sys.executable, "-m", "ccfd_tpu_torch", role, *args], cwd=str(REPO),
+                         env=penv, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    try:
+        line = ""
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline and not line.startswith(f"[{role}]"):
+            line = p.stderr.readline()
+            if not line and p.poll() is not None:
+                break
+        assert line.startswith(f"[{role}]"), f"{role} printed no start-up line"
+        assert f"gc_threshold={want}" in line, line
+    finally:
+        p.send_signal(signal.SIGTERM)
+        try:
+            p.wait(timeout=20)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+
+
+def test_router_on_seldon_url_falls_to_rules_as_the_reference():
+    """Both packages' router roles from the same env, SELDON_URL on a port
+    nothing listens on (every scorer call refused): no host tier, so every
+    row goes to the rules tier, with the same routes on both sides."""
+    from ccfd_tpu.bus.broker import Broker as RefBroker
+    from ccfd_tpu.config import Config as RefConfig
+    from ccfd_tpu.metrics.prom import Registry as RefRegistry
+    from ccfd_tpu.process.client import EngineRestClient as RefEngineClient
+    from ccfd_tpu.router.router import Router as RefRouter
+    from ccfd_tpu.serving.client import SeldonClient as RefSeldonClient
+    from ccfd_tpu_torch.bus.broker import Broker
+    from ccfd_tpu_torch.cli import build_router
+    from ccfd_tpu_torch.data.ccfd import iter_transactions
+    from ccfd_tpu_torch.metrics.prom import Registry
+    from ccfd_tpu_torch.process.fraud import build_engine
+    from ccfd_tpu_torch.process.server import EngineServer
+
+    txs = list(iter_transactions(kaggle_surrogate(n=300, seed=23)))
+    env = {"SELDON_URL": f"http://127.0.0.1:{_free_port()}", "CCFD_TRACE_SAMPLE": "0",
+           "CCFD_OVERLOAD": "0", "CCFD_CLIENT_RETRIES": "0", "SELDON_TIMEOUT": "2000"}
+    servers, results = [], {}
+    try:
+        for side in ("ref", "port"):
+            engine = build_engine(Config(), Broker(), Registry())
+            srv = EngineServer(engine)
+            servers.append(srv)
+            e = {**env, "KIE_SERVER_URL": f"http://127.0.0.1:{srv.start('127.0.0.1', 0)}"}
+            if side == "port":
+                cfg = Config.from_env(e)
+                router, reg, _sink, _collectors = build_router(cfg)
+            else:  # the reference's router role, as its cmd_router wires it
+                cfg = RefConfig.from_env(e)
+                reg = RefRegistry()
+                engine_client = RefEngineClient(cfg.kie_server_url,
+                                                timeout_s=cfg.seldon_timeout_ms / 1000.0,
+                                                retries=cfg.client_retries)
+                router = RefRouter(cfg, RefBroker(), RefSeldonClient(cfg).score,
+                                   engine_client, registry=reg, host_score_fn=None,
+                                   degrade=True)
+            for i in range(0, len(txs), 50):
+                chunk = txs[i:i + 50]
+                router.broker.produce_batch(cfg.kafka_topic, chunk, [t["id"] for t in chunk])
+                while router.step():
+                    pass
+            routes = {inst.vars["transaction"]["id"]: inst.definition.id
+                      for inst in engine.instances() if "transaction" in inst.vars}
+            c = reg.counter
+            results[side] = (
+                routes,
+                {t: c("router_degraded_total").value({"tier": t}) for t in ("host", "rules")},
+                {t: c("transaction_outgoing_total").value({"type": t})
+                 for t in ("fraud", "standard")})
+    finally:
+        for srv in servers:
+            srv.stop()
+    assert results["port"] == results["ref"]
+    routes, tiers, out = results["port"]
+    assert tiers == {"host": 0, "rules": len(txs)} and len(routes) == len(txs)
+    assert sum(out.values()) == len(txs)
