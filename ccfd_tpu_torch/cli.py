@@ -1,13 +1,19 @@
 """Command-line entry points of the port.
 
+  python -m ccfd_tpu_torch train [--steps 500] [--checkpoint-dir DIR]
+                                 [--test-frac F] [--device cuda|cpu]
   python -m ccfd_tpu_torch serve [--device cuda|cpu] [--params PATH]
+                                 [--checkpoint-dir DIR]
+                                 [--train [--train-steps 300]]
                                  [--host H] [--port N]
   python -m ccfd_tpu_torch quantize --out PATH [--params PATH]
+                                    [--checkpoint-dir DIR]
                                     [--test-frac F] [--device cuda|cpu]
   python -m ccfd_tpu_torch demo [--transactions N] [--rate R]
                                 [--reply-timeout S] [--drain-s S]
                                 [--wire-format dict|csv] [--seed N]
-                                [--params PATH] [--device cuda|cpu]
+                                [--train-steps 200] [--params PATH]
+                                [--device cuda|cpu]
   python -m ccfd_tpu_torch bus [--host H] [--port 9092]
   python -m ccfd_tpu_torch engine [--host H] [--port 8090]
   python -m ccfd_tpu_torch router [--metrics-port 8091] [--workers N]
@@ -17,39 +23,69 @@
   python -m ccfd_tpu_torch producer [--limit N] [--rate R]
                                     [--wire-format dict|csv]
 
-``serve`` is the Seldon-contract REST scorer of the reference's
-``python -m ccfd_tpu serve``: it serves the committed checkpoint
-(``assets/mlp_step_1200.npz``, the reference's ``checkpoints/step_1200``)
-unless ``--params`` names another ``.npz``, on the card unless
-``--device cpu`` is given. The knobs of ``config.Config`` come from the
-environment (CCFD_MODEL, CCFD_DTYPE, CCFD_BATCH_SIZES, CCFD_Q8_WIRE, ...).
-It answers through the C++ REST front (``serving/native_front.py``) unless
-CCFD_NATIVE_FRONT=0 selects the Python server; its start-up line names the
-payload decoder and the transport. Deviation: it serves the committed
-checkpoint where the reference's ``serve`` without a ``train`` checkpoint
-serves ``PRNGKey(0)`` params.
-With ``CCFD_MODEL=mlp_q8`` it serves int8 params: those of a q8 ``.npz``
-(``quantize``'s output), or ``quantize_mlp`` of an f32 one, which for the
-committed checkpoint equals the reference's ``checkpoints_q8/step_1200``.
+``train`` is the reference's ``cmd_train`` for the MLP family: the dataset
+of ``training_dataset`` (the CSV at CCFD_CSV, else the Kaggle-shaped
+surrogate; CCFD_SURROGATE_ROWS shrinks it), a held-out split from
+``default_rng(0)``, ``fit_mlp`` in float32 on ``--device`` (the card by
+default), the held-out ``auc_mlp``, and a ``CheckpointManager`` step at
+``--steps`` in ``--checkpoint-dir``. It prints the reference's JSON keys;
+``auc_sklearn_logreg`` is null, as the reference prints it without
+scikit-learn (the port does not import it). ``--family hgb`` (the tree
+family, ROADMAP A13) and ``--from-store`` (the object store, A14) are
+refused by name.
 
-``quantize`` is the reference's ``cmd_quantize``: f32 ``.npz`` in, q8
-``.npz`` out, and one JSON line of evidence that quantization kept the
-model's quality: the f32-to-int8 delta (AUC and probability) on a seeded
-sample of the training dataset (the Kaggle-shaped surrogate, or the CSV at
-CCFD_CSV; CCFD_SURROGATE_ROWS shrinks the surrogate). The f32 side runs the
-served ``mlp`` graph on ``--device`` (the card by default), the int8 side
-the host-tier forward, as the reference does.
+``serve`` is the Seldon-contract REST scorer of the reference's
+``python -m ccfd_tpu serve``, on the card unless ``--device cpu`` is given.
+It serves ``--params`` (an ``.npz``) when given; with ``--train``, an MLP
+``fit_mlp`` trains for ``--train-steps`` on ``load_dataset()`` first, as the
+reference's does; otherwise, for the MLP, the newest ``train`` step in
+``--checkpoint-dir``; without one, the committed checkpoint
+(``assets/mlp_step_1200.npz``, the reference's ``checkpoints/step_1200``).
+The knobs of ``config.Config`` come from the environment (CCFD_MODEL,
+CCFD_DTYPE, CCFD_BATCH_SIZES, CCFD_Q8_WIRE, ...). It answers through the C++
+REST front (``serving/native_front.py``) unless CCFD_NATIVE_FRONT=0 selects
+the Python server; its start-up line names the payload decoder and the
+transport. With ``CCFD_MODEL=mlp_q8`` it serves int8 params: those of a q8
+``.npz`` (``quantize``'s output), or ``quantize_mlp`` of an f32 one, which
+for the committed checkpoint equals the reference's
+``checkpoints_q8/step_1200``.
+
+Deviations in where params come from. The default ``--checkpoint-dir`` of
+``train``, ``serve`` and ``quantize`` is ``./checkpoints_torch``, where the
+reference's is ``./checkpoints``: that directory holds the reference's
+orbax steps, which the port does not read (``parallel/checkpoint.py``
+reads and writes the reference's npz form). Where the reference's ``serve``
+without a ``train`` step serves ``PRNGKey(0)`` params, the port serves the
+committed checkpoint. The port's ``fit_mlp`` draws its init from a seeded
+``torch.Generator`` (``parallel/train.py``), so its trained params differ
+from the reference's, drawn from the same distribution.
+
+``quantize`` is the reference's ``cmd_quantize``: f32 params in (``--params``,
+else the newest step in ``--checkpoint-dir``, else the committed
+checkpoint), a q8 ``.npz`` out, and one JSON line of evidence that
+quantization kept the model's quality: the f32-to-int8 delta (AUC and
+probability) on a seeded sample of the training dataset. The f32 side runs
+the served ``mlp`` graph on ``--device`` (the card by default), the int8
+side the host-tier forward, as the reference does.
 
 ``demo`` is the reference's ``python -m ccfd_tpu demo``: the decision
 pipeline in one process, producer -> bus -> router -> Scorer -> rules ->
-process engine -> notification service (``build_pipeline``). It serves
-params instead of training them (the committed checkpoint, or
-``--params``), so the summary has no ``retrain_swaps``; the transactions
-are the checkpoint's own training distribution (the Kaggle-shaped
-surrogate), or the CSV at CCFD_CSV; ``backend`` names the torch device.
+process engine -> notification service (``build_pipeline``), with the
+online trainer beside the router. Without ``--params`` it does what the
+reference's does: ``load_dataset(n_synthetic=max(transactions, 4000))``
+(the CSV at CCFD_CSV instead), ``fit_mlp`` for ``--train-steps`` in float32
+on the card, then serves the result; with ``--params`` it serves that file
+on the Kaggle-shaped surrogate's rows. Either way an ``OnlineTrainer``
+(``TrainConfig()``: bf16) trains on the labels of resolved fraud cases
+every 0.5 s and hot-swaps its params into the Scorer (CCFD_RETRAIN_BATCH,
+CCFD_RETRAIN_MIN_LABELS); the summary counts them in ``retrain_swaps``.
+The int8 model's params are not trainable, so under ``CCFD_MODEL=mlp_q8``
+the demo serves the quantized params without a trainer (the reference's
+demo serves only the MLP). ``backend`` names the torch device.
 CCFD_FUSED_DECISION=1 wires the decision plane (serving/fused.py) into the
-router, as the reference's operator does; CCFD_MODEL picks the model. The
-demo runs its own in-memory bus, as the reference's does.
+router, as the reference's operator does; every swap then runs the plane's
+prepublish grid. The demo runs its own in-memory bus, as the reference's
+does.
 
 ``bus``, ``engine``, ``router``, ``notify`` and ``producer`` are the
 reference's service roles, each its own process, wired by the reference's
@@ -88,17 +124,24 @@ from typing import Any
 from ccfd_tpu_torch.config import Config
 
 
+DEFAULT_CHECKPOINT_DIR = "./checkpoints_torch"
+RETRAIN_INTERVAL_S = 0.5  # the demo's OnlineTrainer poll, as the reference's
+
+
 def build_server(cfg: Config, device: str | None = None,
-                 params_path: str | None = None):
+                 params_path: str | None = None, checkpoint_dir: str | None = None,
+                 params: Any = None):
     """The warmed-up ``PredictionServer`` that ``serve`` runs (not yet
-    listening): params from ``params_path`` (default: the committed
-    checkpoint; quantized when the model is ``mlp_q8`` and they are f32),
-    a ``Scorer`` on ``device`` (default: the card). Raises
-    ``NotImplementedError`` naming any knob set to an unported part."""
+    listening): a ``Scorer`` on ``device`` (default: the card) serving
+    ``params`` when given, else ``served_params(cfg, params_path,
+    checkpoint_dir)``. Raises ``NotImplementedError`` naming any knob set
+    to an unported part."""
     from ccfd_tpu_torch.serving.server import PredictionServer
 
     _refuse_unported(cfg, "serve")
-    return PredictionServer(make_scorer(cfg, served_params(cfg, params_path), device), cfg)
+    if params is None:
+        params = served_params(cfg, params_path, checkpoint_dir)
+    return PredictionServer(make_scorer(cfg, params, device), cfg)
 
 
 def make_scorer(cfg: Config, params: Any, device: Any = None):
@@ -116,17 +159,56 @@ def make_scorer(cfg: Config, params: Any, device: Any = None):
     return scorer
 
 
-def served_params(cfg: Config, params_path: str | None = None) -> dict:
-    """The params ``serve`` and ``demo`` serve: ``params_path`` (default:
-    the committed checkpoint), quantized when the model is ``mlp_q8`` and
-    they are f32."""
-    from ccfd_tpu_torch.ops import quant
+def served_params(cfg: Config, params_path: str | None = None,
+                  checkpoint_dir: str | None = None) -> dict:
+    """The params ``serve`` and ``demo --params`` serve: ``params_path``
+    when given; else, for the MLP, the newest step in ``checkpoint_dir``
+    when it holds one; else the committed checkpoint. Quantized when the
+    model is ``mlp_q8`` and they are f32."""
     from ccfd_tpu_torch.params import DEFAULT_PARAMS, load_params
 
-    params = load_params(params_path or DEFAULT_PARAMS)
+    params = None
+    if params_path:
+        params = load_params(params_path)
+    elif cfg.model_name == "mlp":
+        restored = restore_mlp_checkpoint(checkpoint_dir)
+        params = restored[0] if restored is not None else None
+    return for_model(cfg, load_params(DEFAULT_PARAMS) if params is None else params)
+
+
+def for_model(cfg: Config, params: Any) -> Any:
+    """``params`` as the configured model takes them: f32 MLP params are
+    quantized for ``mlp_q8``."""
+    from ccfd_tpu_torch.ops import quant
+
     if cfg.model_name == "mlp_q8" and not quant.is_quantized(params):
-        params = quant.quantize_mlp(params)
+        return quant.quantize_mlp(params)
     return params
+
+
+def restore_mlp_checkpoint(checkpoint_dir: str | None) -> tuple[dict, int] | None:
+    """(params, step): the newest ``train`` step in ``checkpoint_dir`` as
+    MLP params (CPU tensors); None when the directory does not exist or
+    holds no step. Creates no directory."""
+    from ccfd_tpu_torch.params import MLP_LIKE
+    from ccfd_tpu_torch.parallel.checkpoint import CheckpointManager
+
+    if not checkpoint_dir or not os.path.isdir(checkpoint_dir):
+        return None
+    mgr = CheckpointManager(checkpoint_dir)
+    if mgr.latest_step() is None:
+        return None
+    params, step = mgr.restore(MLP_LIKE)
+    print(f"[checkpoint] restored step={step} from {checkpoint_dir}", file=sys.stderr)
+    return params, step
+
+
+def train_mlp(X: Any, y: Any, steps: int, device: Any = None) -> dict:
+    """``fit_mlp`` in float32 on ``device`` (default: the card): how the
+    reference's ``train``, ``serve --train`` and ``demo`` train."""
+    from ccfd_tpu_torch.parallel.train import TrainConfig, fit_mlp
+
+    return fit_mlp(X, y, steps=steps, tc=TrainConfig(compute_dtype="float32"), device=device)
 
 
 @dataclasses.dataclass
@@ -145,19 +227,27 @@ class Pipeline:
     reg_router: Any
     reg_kie: Any
     reg_notify: Any
+    trainer: Any = None
+    reg_retrain: Any = None
     _threads: list = dataclasses.field(default_factory=list)
 
     def start(self, poll_timeout_s: float = 0.02) -> None:
-        """The router's pipelined loop and the notification service, each
-        on its own thread."""
+        """The router's pipelined loop, the notification service and, when
+        there is one, the online trainer (every RETRAIN_INTERVAL_S while it
+        has no new labels, as the reference's demo), each on its own
+        thread."""
         self._threads = [self.router.start(poll_timeout_s=poll_timeout_s),
                          self.notify.start(poll_timeout_s=poll_timeout_s)]
+        if self.trainer is not None:
+            self._threads.append(self.trainer.start(interval_s=RETRAIN_INTERVAL_S))
 
     def stop(self, timeout_s: float = 30.0) -> None:
-        """Stop both loops and wait for them (the router routes the batch it
-        has in flight first)."""
+        """Stop every loop and wait for them (the router routes the batch it
+        has in flight first; the trainer finishes its round)."""
         self.router.stop()
         self.notify.stop()
+        if self.trainer is not None:
+            self.trainer.stop()
         for t in self._threads:
             t.join(timeout=timeout_s)
         alive = [t.name for t in self._threads if t.is_alive()]
@@ -179,12 +269,14 @@ class Pipeline:
             "low_amount_auto_n": kie.histogram("fraud_approved_low_amount").count(),
             "investigations_n": kie.histogram("fraud_investigation_amount").count(),
             "open_tasks": len(self.engine.tasks()),
+            "retrain_swaps": int(self.reg_retrain.counter("retrain_param_swaps_total").value())
+            if self.reg_retrain is not None else 0,
         }
 
 
 def build_pipeline(cfg: Config, dataset: Any = None, device: str | None = None,
                    params: Any = None, clock: Any = None, seed: int = 0) -> Pipeline:
-    """What ``demo`` runs, not yet started: an in-memory ``Broker``, the
+    """The decision pipeline, not yet started: an in-memory ``Broker``, the
     three registries, a warmed-up ``Scorer`` on ``device`` (default: the
     card) serving ``params`` (default: ``served_params(cfg)``), the engine
     with the fraud and standard processes and a ``ScorerPredictionService``
@@ -192,8 +284,9 @@ def build_pipeline(cfg: Config, dataset: Any = None, device: str | None = None,
     the FRAUD_THRESHOLD rule; the decision plane when CCFD_FUSED_DECISION
     is set), the seeded ``NotificationService`` and a ``Producer`` over
     ``dataset``. ``clock`` (default: wall clock) drives the engine's
-    timers. Raises ``NotImplementedError`` naming any knob set to a part of
-    the reference this port does not have yet."""
+    timers. No online trainer (``build_demo`` adds one). Raises
+    ``NotImplementedError`` naming any knob set to a part of the reference
+    this port does not have yet."""
     from ccfd_tpu_torch.bus.broker import Broker
     from ccfd_tpu_torch.metrics.prom import Registry
     from ccfd_tpu_torch.notify.service import NotificationService
@@ -253,8 +346,8 @@ def run_demo(pipe: Pipeline, transactions: int, rate: float | None = None,
 
 
 def demo_dataset(transactions: int):
-    """The demo's transactions: the CSV at CCFD_CSV, else the Kaggle-shaped
-    surrogate the committed checkpoint was trained on."""
+    """The transactions ``demo --params`` serves: the CSV at CCFD_CSV, else
+    the Kaggle-shaped surrogate the committed checkpoint was trained on."""
     from ccfd_tpu_torch.data.ccfd import load_dataset
     from ccfd_tpu_torch.data.surrogate import kaggle_surrogate
 
@@ -263,12 +356,42 @@ def demo_dataset(transactions: int):
     return kaggle_surrogate(n=max(transactions, 4000))
 
 
+def build_demo(cfg: Config, transactions: int, train_steps: int = 200,
+               params_path: str | None = None, device: str | None = None,
+               seed: int = 0) -> Pipeline:
+    """What ``demo`` runs, not yet started: with ``params_path``, that file
+    on ``demo_dataset``'s rows; else, as the reference's demo,
+    ``train_mlp`` for ``train_steps`` on ``load_dataset(n_synthetic=
+    max(transactions, 4000))`` on ``device`` (default: the card), served on
+    the same rows. Then ``build_pipeline`` and, for the MLP, an
+    ``OnlineTrainer`` (``TrainConfig()``) over clones of the Scorer's params
+    that publishes into it (``Pipeline.trainer``; the int8 model's params
+    are not trainable, so ``mlp_q8`` has none)."""
+    from ccfd_tpu_torch.data.ccfd import load_dataset
+    from ccfd_tpu_torch.metrics.prom import Registry
+    from ccfd_tpu_torch.parallel.online import OnlineTrainer
+
+    _refuse_unported(cfg, "the pipeline")  # before the training, not after
+    if params_path:
+        ds = demo_dataset(transactions)
+        params = served_params(cfg, params_path)
+        print(f"[demo] dataset: {ds.n} rows; serving {params_path}", file=sys.stderr)
+    else:
+        ds = load_dataset(n_synthetic=max(transactions, 4000))
+        print(f"[demo] dataset: {ds.n} rows; training flagship MLP...", file=sys.stderr)
+        params = for_model(cfg, train_mlp(ds.X, ds.y, train_steps, device))
+    pipe = build_pipeline(cfg, ds, device=device, seed=seed, params=params)
+    if pipe.scorer.spec.name == "mlp":
+        pipe.reg_retrain = Registry()
+        pipe.trainer = OnlineTrainer(cfg, pipe.broker, pipe.scorer, pipe.scorer.params,
+                                     registry=pipe.reg_retrain)
+    return pipe
+
+
 def cmd_demo(args: argparse.Namespace) -> int:
     cfg = dataclasses.replace(Config.from_env(), customer_reply_timeout_s=args.reply_timeout)
-    ds = demo_dataset(args.transactions)
-    print(f"[demo] dataset: {ds.n} rows; building the pipeline...", file=sys.stderr)
-    pipe = build_pipeline(cfg, ds, device=args.device, seed=args.seed,
-                          params=served_params(cfg, args.params))
+    pipe = build_demo(cfg, args.transactions, args.train_steps, args.params, args.device,
+                      args.seed)
     _tune_gc()  # before the hot loops start
     elapsed = run_demo(pipe, args.transactions, rate=args.rate,
                        wire_format=args.wire_format, drain_s=args.drain_s)
@@ -531,7 +654,19 @@ def cmd_producer(args: argparse.Namespace) -> int:
 
 def cmd_serve(args: argparse.Namespace) -> int:
     cfg = Config.from_env()
-    srv = build_server(cfg, device=args.device, params_path=args.params)
+    params = None
+    if args.train:
+        if cfg.model_name != "mlp":
+            print(f"[serve] --train trains the MLP; CCFD_MODEL={cfg.model_name!r} params "
+                  "would not match: unset --train or set CCFD_MODEL=mlp", file=sys.stderr)
+            return 2
+        from ccfd_tpu_torch.data.ccfd import load_dataset
+
+        _refuse_unported(cfg, "serve")  # before the training, not after
+        ds = load_dataset()
+        params = train_mlp(ds.X, ds.y, args.train_steps, args.device)
+    srv = build_server(cfg, device=args.device, params_path=args.params,
+                       checkpoint_dir=args.checkpoint_dir, params=params)
     gc0 = _tune_gc()
     host = args.host if args.host is not None else cfg.serve_host
     port = srv.start(host, args.port if args.port is not None else cfg.serve_port)
@@ -551,16 +686,70 @@ def cmd_serve(args: argparse.Namespace) -> int:
 
 
 def training_dataset():
-    """The dataset ``quantize`` samples, as the reference's
-    ``_training_dataset``: the CSV at CCFD_CSV, else the Kaggle-shaped
-    surrogate (CCFD_SURROGATE_ROWS rows when set, else the full table)."""
+    """(dataset, source) that ``train`` and ``quantize`` run on, as the
+    reference's ``_training_dataset``: the CSV at CCFD_CSV, else the
+    Kaggle-shaped surrogate (CCFD_SURROGATE_ROWS rows when set, else the
+    full table)."""
     from ccfd_tpu_torch.data.ccfd import load_dataset
-    from ccfd_tpu_torch.data.surrogate import kaggle_surrogate
+    from ccfd_tpu_torch.data.surrogate import SURROGATE_VERSION, kaggle_surrogate
 
     if os.environ.get("CCFD_CSV"):
-        return load_dataset()
+        return load_dataset(), os.environ["CCFD_CSV"]
     rows = int(os.environ.get("CCFD_SURROGATE_ROWS", "0") or 0)
-    return kaggle_surrogate(n=rows) if rows > 0 else kaggle_surrogate()
+    if rows > 0:
+        return kaggle_surrogate(n=rows), f"surrogate:{SURROGATE_VERSION}:n={rows}"
+    return kaggle_surrogate(), f"surrogate:{SURROGATE_VERSION}"
+
+
+def held_out_split(n: int, test_frac: float):
+    """(test, train) row indices: the reference's held-out split, a
+    ``default_rng(0)`` permutation whose first ``test_frac`` is held out."""
+    import numpy as np
+
+    order = np.random.default_rng(0).permutation(n)
+    n_test = max(1, int(n * test_frac))
+    return order[:n_test], order[n_test:]
+
+
+def cmd_train(args: argparse.Namespace) -> int:
+    """Offline training of the MLP: held-out AUC, then a checkpoint step
+    that ``serve`` and ``quantize`` read by default."""
+    import torch
+
+    from ccfd_tpu_torch.device import resolve
+    from ccfd_tpu_torch.models import mlp
+    from ccfd_tpu_torch.parallel.checkpoint import CheckpointManager
+    from ccfd_tpu_torch.utils.metrics_math import roc_auc
+
+    if args.family != "mlp":
+        raise NotImplementedError(
+            f"train --family {args.family} (the tree family, ROADMAP A13) is not ported yet")
+    if args.from_store:
+        raise NotImplementedError(
+            "train --from-store (the object store, ROADMAP A14) is not ported yet")
+    dev = resolve(args.device)
+    ds, source = training_dataset()
+    test, train = held_out_split(ds.n, args.test_frac)
+    t0 = time.perf_counter()
+    params = train_mlp(ds.X[train], ds.y[train], args.steps, dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    fit_s = time.perf_counter() - t0
+    proba = mlp.apply(params, torch.from_numpy(ds.X[test]).to(dev)).cpu().numpy()
+    auc_mlp = roc_auc(ds.y[test], proba)
+    path = CheckpointManager(args.checkpoint_dir).save(args.steps, params)
+    print(f"[train] fit_mlp: {args.steps} steps of 1024 rows in {fit_s:.3f} s "
+          f"({args.steps / fit_s:.1f} steps/s) on {dev}", file=sys.stderr)
+    print(json.dumps({
+        "checkpoint": path, "rows": int(ds.n), "steps": args.steps,
+        "source": source, "test_rows": int(len(test)),
+        "auc_mlp": round(auc_mlp, 5),
+        # the reference's logistic-regression baseline needs scikit-learn,
+        # which the port does not import: null, as the reference prints it
+        # without scikit-learn
+        "auc_sklearn_logreg": None,
+    }))
+    return 0
 
 
 def cmd_quantize(args: argparse.Namespace) -> int:
@@ -570,26 +759,33 @@ def cmd_quantize(args: argparse.Namespace) -> int:
     from ccfd_tpu_torch.device import resolve
     from ccfd_tpu_torch.models import mlp
     from ccfd_tpu_torch.ops import quant
-    from ccfd_tpu_torch.params import DEFAULT_PARAMS, load_params, save_params
+    from ccfd_tpu_torch.params import DEFAULT_PARAMS, load_params, save_params, to_device
     from ccfd_tpu_torch.utils.metrics_math import roc_auc
 
-    src = args.params or DEFAULT_PARAMS
     dev = resolve(args.device)
-    params = load_params(src)
+    src, step, params = args.params, None, None
+    if not src:
+        restored = restore_mlp_checkpoint(args.checkpoint_dir)
+        if restored is not None:
+            params, step = restored
+            src = os.path.join(args.checkpoint_dir, f"step_{step}")
+        else:
+            src = DEFAULT_PARAMS
+    if params is None:
+        params = load_params(src)
     if quant.is_quantized(params):
         print(f"[quantize] {src} already holds int8 params", file=sys.stderr)
         return 2
     qp = quant.quantize_mlp(params)
 
-    ds = training_dataset()
-    rng = np.random.default_rng(0)
-    te = rng.permutation(ds.n)[: max(1, int(ds.n * args.test_frac))]
-    on_dev = load_params(src, device=dev)
-    p32 = mlp.apply(on_dev, torch.from_numpy(ds.X[te]).to(dev)).cpu().numpy()
+    ds, _source = training_dataset()
+    te = held_out_split(ds.n, args.test_frac)[0]
+    p32 = mlp.apply(to_device(params, dev), torch.from_numpy(ds.X[te]).to(dev)).cpu().numpy()
     p8 = quant.apply_numpy(qp, ds.X[te])
     save_params(qp, args.out)
     print(json.dumps({
         "source": str(src),
+        "source_step": step,
         "eval_rows": int(len(te)),
         "auc_f32": round(roc_auc(ds.y[te], p32), 6),
         "auc_int8": round(roc_auc(ds.y[te], p8), 6),
@@ -604,17 +800,36 @@ def cmd_quantize(args: argparse.Namespace) -> int:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="ccfd_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
+    t = sub.add_parser("train", help="offline-train the flagship MLP and write a checkpoint")
+    t.add_argument("--steps", type=int, default=500)
+    t.add_argument("--checkpoint-dir", default=DEFAULT_CHECKPOINT_DIR)
+    t.add_argument("--family", choices=("mlp", "hgb"), default="mlp",
+                   help="hgb (the tree family) is not ported")
+    t.add_argument("--from-store", action="store_true",
+                   help="read the CSV from the object store (not ported)")
+    t.add_argument("--test-frac", type=float, default=0.2)
+    t.add_argument("--device", choices=("cuda", "cpu"), default=None,
+                   help="where to train (default: the card)")
+    t.set_defaults(fn=cmd_train)
     s = sub.add_parser("serve", help="Seldon-contract REST scorer")
     s.add_argument("--device", choices=("cuda", "cpu"), default=None,
                    help="where to score (default: the card)")
-    s.add_argument("--params", default=None,
-                   help=".npz of MLP or int8 MLP params (default: the committed checkpoint)")
+    src = s.add_mutually_exclusive_group()
+    src.add_argument("--params", default=None,
+                     help=".npz of MLP or int8 MLP params (default: the newest step in "
+                     "--checkpoint-dir, else the committed checkpoint)")
+    src.add_argument("--train", action="store_true", help="train the MLP before serving")
+    s.add_argument("--train-steps", type=int, default=300)
+    s.add_argument("--checkpoint-dir", default=DEFAULT_CHECKPOINT_DIR,
+                   help="serve the newest `train` step there when present (the MLP)")
     s.add_argument("--host", default=None, help="bind address (CCFD_SERVE_HOST)")
     s.add_argument("--port", type=int, default=None, help="port (CCFD_SERVE_PORT)")
     s.set_defaults(fn=cmd_serve)
     q = sub.add_parser("quantize", help="int8-quantize f32 MLP params (mlp_q8)")
     q.add_argument("--params", default=None,
-                   help="f32 .npz to quantize (default: the committed checkpoint)")
+                   help="f32 .npz to quantize (default: the newest step in "
+                   "--checkpoint-dir, else the committed checkpoint)")
+    q.add_argument("--checkpoint-dir", default=DEFAULT_CHECKPOINT_DIR)
     q.add_argument("--out", required=True, help="where to write the int8 .npz")
     q.add_argument("--test-frac", type=float, default=0.2)
     q.add_argument("--device", choices=("cuda", "cpu"), default=None,
@@ -629,8 +844,9 @@ def build_parser() -> argparse.ArgumentParser:
     d.add_argument("--drain-s", type=float, default=30.0)
     d.add_argument("--wire-format", choices=("dict", "csv"), default="dict")
     d.add_argument("--seed", type=int, default=0, help="the customers' replies")
+    d.add_argument("--train-steps", type=int, default=200)
     d.add_argument("--params", default=None,
-                   help=".npz of MLP or int8 MLP params (default: the committed checkpoint)")
+                   help=".npz of MLP or int8 MLP params to serve (default: train the MLP)")
     d.add_argument("--device", choices=("cuda", "cpu"), default=None,
                    help="where to score (default: the card)")
     d.set_defaults(fn=cmd_demo)

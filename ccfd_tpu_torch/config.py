@@ -39,6 +39,8 @@ as ccfd_tpu/config.py, with the same defaults:
     CCFD_REPLY_TIMEOUT_S, CCFD_LOW_AMOUNT,
     CCFD_LOW_PROBA, CONFIDENCE_THRESHOLD                the fraud process
     CCFD_LABELS_TOPIC                                   resolved-case labels
+    CCFD_RETRAIN_BATCH, CCFD_RETRAIN_MIN_LABELS         the online trainer
+                                                        (parallel/online.py)
     CCFD_FUSED_DECISION, CCFD_FUSED_DECISION_STRICT     the decision plane
     CCFD_TRACE_SAMPLE, CCFD_TRACE_SLOW_MS               tracing (0 = off)
     CCFD_ROUTER_WORKERS, CCFD_ROUTER_COALESCE           ParallelRouter
@@ -56,7 +58,8 @@ too, so that setting one is refused by name rather than ignored
 (CCFD_AUDIT_TOPIC), the producer's object-store source (s3endpoint), fault
 injection (CCFD_FAULTS), the batcher's overload queue policies
 (CCFD_OVERLOAD_SERVE_CODEL_TARGET_MS, CCFD_OVERLOAD_REST_QUEUE_ROWS), the
-SeldonDeployment-shaped inference graph (CCFD_GRAPH_CR), and the two ways
+SeldonDeployment-shaped inference graph (CCFD_GRAPH_CR), the model
+lifecycle's lineage store (CCFD_LIFECYCLE_DIR), and the two ways
 the reference scores small requests round the kernel: the Scorer's host
 latency tier (CCFD_HOST_TIER_ROWS > 0) and the REST front's in-IO-thread
 host model (CCFD_INLINE_ROWS > 0). Their auto value (-1, or unset) is off
@@ -115,6 +118,9 @@ class Config:
     customer_response_topic: str = "ccd-customer-response"
     producer_topic: str = "odh-demo"
     labels_topic: str = "ccd-labels"
+    # --- online retrain (parallel/online.py) ---
+    retrain_batch: int = 1024
+    retrain_min_labels: int = 256
     # --- service endpoints (reference router.yaml:63-68) ---
     kie_server_url: str = "inproc://engine"
     seldon_url: str = "inproc://scorer"
@@ -164,6 +170,7 @@ class Config:
     overload_serve_codel_target_ms: float = 0.0
     overload_rest_queue_rows: int = 0
     graph_cr: str = ""
+    lifecycle_dir: str = ""
     host_tier_rows: int = -1  # -1 = auto, which is off in the port
     inline_rows: int = -1  # -1 = auto, which is off in the port
 
@@ -201,6 +208,8 @@ class Config:
                 "CUSTOMER_RESPONSE_TOPIC", Config.customer_response_topic),
             producer_topic=e.get("topic", Config.producer_topic),
             labels_topic=e.get("CCFD_LABELS_TOPIC", Config.labels_topic),
+            retrain_batch=num("CCFD_RETRAIN_BATCH", "retrain_batch", int),
+            retrain_min_labels=num("CCFD_RETRAIN_MIN_LABELS", "retrain_min_labels", int),
             kie_server_url=e.get("KIE_SERVER_URL", Config.kie_server_url),
             seldon_url=e.get("SELDON_URL", Config.seldon_url),
             seldon_endpoint=e.get("SELDON_ENDPOINT", Config.seldon_endpoint),
@@ -245,6 +254,7 @@ class Config:
             overload_rest_queue_rows=num("CCFD_OVERLOAD_REST_QUEUE_ROWS",
                                          "overload_rest_queue_rows", int),
             graph_cr=e.get("CCFD_GRAPH_CR", Config.graph_cr),
+            lifecycle_dir=e.get("CCFD_LIFECYCLE_DIR", Config.lifecycle_dir),
             host_tier_rows=num("CCFD_HOST_TIER_ROWS", "host_tier_rows", int),
             inline_rows=int(e.get("CCFD_INLINE_ROWS", "").strip() or Config.inline_rows),
         )
@@ -295,6 +305,8 @@ class Config:
                        "(the batcher's overload queue policies)")
         if self.graph_cr:
             out.append("CCFD_GRAPH_CR (the SeldonDeployment inference graph)")
+        if self.lifecycle_dir:
+            out.append("CCFD_LIFECYCLE_DIR (the model lifecycle's lineage store)")
         if self.host_tier_rows > 0:
             out.append("CCFD_HOST_TIER_ROWS > 0 (the Scorer's host latency tier: "
                        "requests that skip the kernel)")

@@ -10,6 +10,13 @@ float32 accumulation, + b, relu, back to the compute dtype; the last layer
 accumulates in f32 too. A product of two bf16 values is exact in f32, so an
 f32 matmul of the bf16-rounded operands is the reference's
 ``preferred_element_type=float32`` dot up to summation order.
+
+``logits`` is differentiable and ``loss_fn`` trains through it
+(``parallel/train.py``). Under autograd the casts round the gradients where
+the reference's transposed dots do: the cotangent of a bf16 operand is
+rounded to bf16 and converted back to f32. The normalizer is detached, as
+the reference stops its gradient: it is data, not a weight. ``apply`` runs
+under ``no_grad``.
 """
 
 from __future__ import annotations
@@ -70,7 +77,10 @@ def _dot_f32(h: torch.Tensor, w: torch.Tensor, compute_dtype: torch.dtype) -> to
 
 def logits(params: Params, x: torch.Tensor,
            compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    h = (x.float() - params["norm"]["mu"]) / params["norm"]["sigma"]
+    # the normalizer is data statistics, not a trainable parameter
+    mu = params["norm"]["mu"].detach()
+    sigma = params["norm"]["sigma"].detach()
+    h = (x.float() - mu) / sigma
     h = h.to(compute_dtype)
     layers = params["layers"]
     for layer in layers[:-1]:
@@ -86,6 +96,15 @@ def apply(params: Params, x: torch.Tensor,
           compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """proba_1 per row: (B, F) -> (B,)."""
     return torch.sigmoid(logits(params, x, compute_dtype))
+
+
+def loss_fn(params: Params, x: torch.Tensor, y: torch.Tensor,
+            pos_weight: float = 1.0,
+            compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Weighted binary cross-entropy on the logits (numerically stable)."""
+    from ccfd_tpu_torch.models.losses import weighted_bce_from_logits
+
+    return weighted_bce_from_logits(logits(params, x, compute_dtype), y, pos_weight)
 
 
 def apply_numpy(params: Params, x: np.ndarray) -> np.ndarray:

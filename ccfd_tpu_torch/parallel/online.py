@@ -1,0 +1,207 @@
+"""Online retraining: process-engine labels -> SGD on the device -> hot swap.
+
+The port of ccfd_tpu/parallel/online.py's ``OnlineTrainer``:
+
+1. consume label events from the bus (published by the fraud process on
+   resolution, ``process/fraud.py`` ``record``), all-or-nothing per
+   record;
+2. keep a reservoir of the last ``buffer_size`` labels; once
+   ``retrain_min_labels`` are buffered and new ones arrived, run
+   ``steps_per_round`` train steps on ``retrain_batch``-row batches
+   sampled from it (``parallel/train.py``);
+3. publish the result into the serving Scorer with ``swap_params``, which
+   stages fresh device copies (and, with the decision plane, runs its
+   prepublish grid) before flipping: serving never pauses, and the
+   Scorer's tensors never alias the trainer's.
+
+Sampling uses a seeded rng that ``reset()`` re-seeds, so a re-run on the
+same label stream reproduces the same candidates. The trainer trains on
+the device its params lie on (the Scorer's, in the demo); the loss is read
+back once a round, for ``retrain_last_loss``.
+
+Not ported: the lifecycle's governed rollout (``lifecycle=``: shadow,
+canary, gated promotion; ROADMAP A12's lifecycle half, which comes with
+the platform operator) and the sharded step (``mesh=``, ``partitioner=``;
+ROADMAP A15).
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Any
+
+import numpy as np
+import torch
+
+from ccfd_tpu_torch.config import Config
+from ccfd_tpu_torch.data.ccfd import FEATURE_NAMES
+from ccfd_tpu_torch.metrics.prom import Registry
+from ccfd_tpu_torch.parallel.train import (
+    TrainConfig,
+    detached,
+    init_state,
+    make_train_step,
+    refuse_sharding,
+)
+
+
+class OnlineTrainer:
+    def __init__(
+        self,
+        cfg: Config,
+        broker: Any,
+        scorer: Any,
+        params: Any,
+        tc: TrainConfig | None = None,
+        mesh: Any = None,
+        registry: Registry | None = None,
+        checkpoints: Any = None,
+        buffer_size: int = 65536,
+        steps_per_round: int = 8,
+        seed: int = 0,
+        rng: np.random.Generator | None = None,
+        lifecycle: Any = None,
+        partitioner: Any = None,
+    ):
+        if lifecycle is not None:
+            raise NotImplementedError(
+                "lifecycle=: the governed rollout (shadow, canary, gated promotion) "
+                "is not ported yet (ROADMAP A12's lifecycle half); the trainer "
+                "publishes with Scorer.swap_params")
+        refuse_sharding(mesh, partitioner)
+        self.cfg = cfg
+        self.broker = broker
+        self.scorer = scorer
+        self.tc = tc or TrainConfig()
+        self.registry = registry or Registry()
+        self.checkpoints = checkpoints
+        self.buffer_size = buffer_size
+        self.steps_per_round = steps_per_round
+        self.seed = seed
+        # an injected rng is the caller's to manage; the default is seeded
+        # here and re-seeded by reset()
+        self._rng_injected = rng is not None
+        self._rng = rng if rng is not None else np.random.default_rng(seed)
+        self.labels_seen = 0  # lifetime label count
+
+        self._consumer = broker.consumer("online-trainer", (cfg.labels_topic,))
+        self._X = np.zeros((0, len(FEATURE_NAMES)), np.float32)
+        self._y = np.zeros((0,), np.float32)
+        # init_state clones: the step updates in place and must never
+        # alias the tensors the serving Scorer holds
+        self._state = init_state(params, self.tc)
+        self._new_labels = 0
+        # rebase request (any thread -> trainer thread): applied at the top
+        # of the next step(), never mid-round
+        self._rebase_params: Any = None
+        self._step_fn = make_train_step(self.tc)
+        self._stop = threading.Event()
+
+        r = self.registry
+        self._c_labels = r.counter("retrain_labels_total", "labels consumed by class")
+        self._c_steps = r.counter("retrain_steps_total", "optimizer steps run")
+        self._c_swaps = r.counter("retrain_param_swaps_total", "serving hot swaps")
+        self._g_loss = r.gauge("retrain_last_loss", "loss of last retrain step")
+
+    @property
+    def device(self) -> torch.device:
+        return self._state["params"]["layers"][0]["w"].device
+
+    @property
+    def params(self) -> dict:
+        """The trainer's current params (detached views of its state)."""
+        return detached(self._state["params"])
+
+    # -- label ingestion ---------------------------------------------------
+    def _ingest(self, max_records: int = 4096) -> int:
+        records = self._consumer.poll(max_records, 0.0)
+        if not records:
+            return 0
+        rows, labels = [], []
+        for rec in records:
+            msg = rec.value or {}
+            tx = msg.get("transaction") or {}
+            try:  # parse the whole record before appending anything: a partial
+                # failure must not desynchronize the (X, y) pairing
+                row = [float(tx.get(n, 0.0) or 0.0) for n in FEATURE_NAMES]
+                label = float(msg.get("label", 0))
+            except (TypeError, ValueError):
+                continue
+            rows.append(row)
+            labels.append(label)
+            self._c_labels.inc(labels={"class": "fraud" if label > 0.5 else "legit"})
+        if not rows:
+            return 0
+        self._X = np.concatenate([self._X, np.asarray(rows, np.float32)])[-self.buffer_size:]
+        self._y = np.concatenate([self._y, np.asarray(labels, np.float32)])[-self.buffer_size:]
+        self.labels_seen += len(rows)
+        return len(rows)
+
+    # -- rebase ------------------------------------------------------------
+    def rebase(self, params: Any) -> None:
+        """Re-base the training state onto ``params`` at the next
+        ``step()`` (staged here from any thread, applied on the trainer's).
+        ``params`` are copied now, so the caller may change them after."""
+        dev = self.device
+        self._rebase_params = {
+            "norm": {k: torch.as_tensor(v).detach().to(dev, torch.float32, copy=True)
+                     for k, v in params["norm"].items()},
+            "layers": [{k: torch.as_tensor(v).detach().to(dev, torch.float32, copy=True)
+                        for k, v in layer.items()} for layer in params["layers"]],
+        }
+
+    # -- one retrain round -------------------------------------------------
+    def step(self) -> bool:
+        """Ingest labels; train and swap only when new labels arrived and
+        the buffer is warm. Returns whether a swap happened (so the run loop
+        sleeps instead of re-training a stale buffer in a tight loop)."""
+        pending = self._rebase_params
+        if pending is not None:
+            self._rebase_params = None
+            self._state = init_state(pending, self.tc)
+        self._new_labels += self._ingest()
+        if len(self._y) < self.cfg.retrain_min_labels or self._new_labels == 0:
+            return False
+        self._new_labels = 0
+        batch = min(self.cfg.retrain_batch, len(self._y))
+        loss = None
+        for _ in range(self.steps_per_round):
+            idx = self._rng.integers(0, len(self._y), size=batch)
+            self._state, loss = self._step_fn(
+                self._state, torch.from_numpy(self._X[idx]), torch.from_numpy(self._y[idx]))
+            self._c_steps.inc()
+        if loss is not None:
+            self._g_loss.set(float(loss))
+        new_params = self.params
+        self.scorer.swap_params(new_params)
+        self._c_swaps.inc()
+        if self.checkpoints is not None:
+            self.checkpoints.save(int(self._state["step"]), new_params)
+        return True
+
+    # -- daemon ------------------------------------------------------------
+    def reset(self) -> None:
+        """Re-arm after stop(); re-seeds the default rng so a restarted loop
+        replays the same sampling stream (an injected rng is the caller's)."""
+        self._stop.clear()
+        if not self._rng_injected:
+            self._rng = np.random.default_rng(self.seed)
+
+    def run(self, interval_s: float = 1.0) -> None:
+        while not self._stop.is_set():
+            if not self.step():
+                self._stop.wait(interval_s)
+
+    def start(self, interval_s: float = 1.0) -> threading.Thread:
+        self.reset()
+        t = threading.Thread(target=self.run, args=(interval_s,), daemon=True,
+                             name="ccfd-retrain")
+        t.start()
+        return t
+
+    def stop(self) -> None:
+        self._stop.set()
+
+    def close(self) -> None:
+        self.stop()
+        self._consumer.close()

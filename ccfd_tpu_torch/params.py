@@ -23,6 +23,11 @@ import torch
 
 DEFAULT_PARAMS = Path(__file__).resolve().parent / "assets" / "mlp_step_1200.npz"
 
+# the MLP's param tree with placeholder leaves: the structure a checkpoint
+# restore rebuilds (parallel/checkpoint.py)
+MLP_LIKE = {"norm": {"mu": None, "sigma": None},
+            "layers": [{"w": None, "b": None} for _ in range(3)]}
+
 # per-layer leaves of each tree, with their dtype
 _F32_LEAVES = {"w": np.float32, "b": np.float32}
 _Q8_LEAVES = {"wq": np.int8, "scale": np.float32, "b": np.float32}
@@ -76,6 +81,13 @@ def to_numpy(params: Mapping[str, Any]) -> dict:
         return np.array(a, dt)
 
     return _convert(params, n)
+
+
+def to_device(tree: Mapping[str, Any], device: "str | torch.device") -> dict:
+    """The same param tree with every tensor on ``device``."""
+    return {"norm": {k: v.to(device) for k, v in tree["norm"].items()},
+            "layers": [{k: v.to(device) for k, v in layer.items()}
+                       for layer in tree["layers"]]}
 
 
 def flatten(tree: Mapping[str, Any]) -> dict[str, np.ndarray]:

@@ -1,0 +1,287 @@
+"""Checksummed, atomic durable artifacts: what the checkpoint's npz form needs.
+
+The port's copy of the part of ccfd_tpu/runtime/durability.py that
+``parallel/checkpoint.py`` reads and writes through:
+
+- :func:`atomic_write_bytes`: unique tmp + write + fsync + rename (+ a
+  directory fsync), so a crash mid-write leaves the previous bytes and an
+  orphan ``*.tmp`` for :func:`sweep_tmp`;
+- :func:`frame` / :func:`parse_frame`: the payload under a one-line sha256
+  header, ``CCFDSUM1 <sha256hex> <len>\\n<payload>``, byte for byte the
+  reference's framing, so either side verifies the other's files;
+- :func:`write_artifact` / :func:`read_artifact`: the framed write with
+  generation retention (``<path>.g<seq>``) and the verified read that
+  quarantines a corrupt file (``*.corrupt``) and falls back to the newest
+  retained generation that verifies;
+- :func:`verify_file`: the peek that changes nothing on disk;
+- :func:`note` / :func:`counts`: the process-wide tally of integrity events
+  (``corrupt``, ``fallback``, ``write_errors``, ``verified``,
+  ``unverified``, ``tmp_swept``) per artifact.
+
+Not ported here: the reference's storage fault draws inside
+``atomic_write_bytes`` (fault injection, ROADMAP A6), the registry binding,
+the flight-recorder hook, concatenated-frame scans, JSON interchange
+sidecars, directory manifests and the rules-tier pin (ROADMAP A8).
+"""
+
+from __future__ import annotations
+
+import hashlib
+import itertools
+import logging
+import os
+import threading
+
+log = logging.getLogger(__name__)
+
+MAGIC = b"CCFDSUM1 "
+
+
+class CorruptArtifactError(Exception):
+    """No verifiable copy of a durable artifact exists (the main file and
+    every retained generation failed verification)."""
+
+
+_mu = threading.Lock()
+_counts: dict[tuple[str, str], int] = {}  # (metric, artifact|"") -> n
+_tmp_seq = itertools.count()
+DEFAULT_RETAIN = 3
+
+
+def note(metric: str, n: int = 1, artifact: str = "") -> None:
+    """Count one integrity event."""
+    if n <= 0:
+        return
+    with _mu:
+        _counts[(metric, artifact)] = _counts.get((metric, artifact), 0) + n
+
+
+def counts() -> dict[str, dict[str, int]]:
+    """{metric: {artifact: n}} snapshot of every tally so far."""
+    with _mu:
+        out: dict[str, dict[str, int]] = {}
+        for (metric, artifact), n in _counts.items():
+            out.setdefault(metric, {})[artifact] = n
+        return out
+
+
+def atomic_write_bytes(path: str, data: bytes, fsync: bool = True) -> None:
+    """Unique tmp + write + fsync + rename. Raises OSError on failure; a
+    failed write never touches the previous artifact, though it may leave
+    an orphan ``*.tmp`` for the start-up sweep."""
+    d = os.path.dirname(os.path.abspath(path))
+    os.makedirs(d, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.{next(_tmp_seq)}.tmp"
+    fd = os.open(tmp, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+    try:
+        os.write(fd, data)
+        if fsync:
+            os.fsync(fd)
+    finally:
+        os.close(fd)
+    os.replace(tmp, path)
+    if fsync:
+        # the rename itself must survive a host crash: sync the directory
+        try:
+            dfd = os.open(d, os.O_RDONLY)
+            try:
+                os.fsync(dfd)
+            finally:
+                os.close(dfd)
+        except OSError:  # pragma: no cover - platform-dependent
+            pass
+
+
+def frame(payload: bytes) -> bytes:
+    """``CCFDSUM1 <sha256hex> <len>\\n<payload>``: self-verifying in one
+    file."""
+    h = hashlib.sha256(payload).hexdigest()
+    return MAGIC + h.encode() + (" %d\n" % len(payload)).encode() + payload
+
+
+def parse_frame(data: bytes) -> tuple[bytes | None, bool]:
+    """-> (payload, framed). ``(data, False)`` for a legacy (unframed)
+    file; ``(None, True)`` for a framed file that fails verification
+    (torn, truncated, bit-flipped)."""
+    if not data.startswith(MAGIC):
+        return data, False
+    nl = data.find(b"\n", len(MAGIC))
+    if nl < 0:
+        return None, True
+    try:
+        hexdigest, length = data[len(MAGIC):nl].split()
+        length = int(length)
+    except ValueError:
+        return None, True
+    payload = data[nl + 1:]
+    if (len(payload) != length
+            or hashlib.sha256(payload).hexdigest() != hexdigest.decode(
+                "ascii", "replace")):
+        return None, True
+    return payload, True
+
+
+def _generations(path: str) -> list[tuple[int, str]]:
+    """Retained generations of ``path``, ascending ``[(seq, path)]``."""
+    d = os.path.dirname(os.path.abspath(path))
+    base = os.path.basename(path) + ".g"
+    out: list[tuple[int, str]] = []
+    try:
+        names = os.listdir(d)
+    except OSError:
+        return out
+    for name in names:
+        if name.startswith(base):
+            tail = name[len(base):]
+            if tail.isdigit():
+                out.append((int(tail), os.path.join(d, name)))
+    return sorted(out)
+
+
+def write_artifact(path: str, payload: bytes, artifact: str = "artifact",
+                   retain: int | None = None, fsync: bool = True,
+                   best_effort: bool = True) -> bool:
+    """Framed, checksummed, atomic write + generation retention (a full
+    second copy at ``<path>.g<seq>``, the newest ``retain`` kept). Returns
+    False (and counts ``write_errors``) when the write failed and
+    ``best_effort``: the previous artifact stays the last-good state."""
+    data = frame(payload)
+    try:
+        atomic_write_bytes(path, data, fsync=fsync)
+    except OSError as e:
+        note("write_errors", artifact=artifact)
+        log.error("durable write of %s (%s) failed: %s; keeping last-good",
+                  path, artifact, e)
+        if not best_effort:
+            raise
+        return False
+    r = DEFAULT_RETAIN if retain is None else max(0, int(retain))
+    if r > 0:
+        try:
+            gens = _generations(path)
+            seq = (gens[-1][0] + 1) if gens else 1
+            atomic_write_bytes(f"{path}.g{seq:08d}", data, fsync=fsync)
+            for _s, p in _generations(path)[:-r]:
+                try:
+                    os.unlink(p)
+                except OSError:
+                    pass
+        except OSError as e:
+            note("write_errors", artifact=artifact)
+            log.warning("generation retention for %s failed: %s", path, e)
+    return True
+
+
+def _quarantine(path: str, artifact: str) -> None:
+    dest = path + ".corrupt"
+    try:
+        os.replace(path, dest)
+    except OSError:
+        dest = "<unmovable>"
+    note("corrupt", artifact=artifact)
+    log.error("corrupt %s artifact %s quarantined to %s", artifact, path, dest)
+
+
+def read_artifact(path: str, artifact: str = "artifact",
+                  fallback: bool = True, quarantine: bool = True) -> bytes:
+    """Verified read. A framed file that fails its sha256 is quarantined
+    (``*.corrupt``) and the newest verifiable retained generation is
+    served instead (counted ``fallback``). Raises FileNotFoundError when
+    nothing was ever written, and :class:`CorruptArtifactError` when data
+    existed but no copy verifies. ``quarantine=False`` peeks without
+    touching disk state; ``fallback=False`` raises on the main file's
+    verdict alone (artifacts with their own retention, e.g. checkpoint
+    step dirs)."""
+    data: bytes | None = None
+    read_failed = False
+    try:
+        with open(path, "rb") as f:
+            data = f.read()
+    except FileNotFoundError:
+        pass
+    except OSError as e:
+        # an unreadable main file is treated like a failed checksum
+        read_failed = True
+        log.error("%s artifact %s unreadable (%s)", artifact, path, e)
+    if data is not None:
+        payload, framed = parse_frame(data)
+        if payload is not None:
+            note("verified" if framed else "unverified", artifact=artifact)
+            return payload
+    if data is not None or read_failed:
+        if quarantine:
+            _quarantine(path, artifact)
+        else:
+            note("corrupt", artifact=artifact)
+    if not fallback:
+        if data is None and not read_failed:
+            raise FileNotFoundError(path)
+        raise CorruptArtifactError(
+            f"{artifact} artifact {path} failed verification")
+    gens = _generations(path)
+    for seq, gp in reversed(gens):
+        try:
+            with open(gp, "rb") as f:
+                gdata = f.read()
+        except OSError:
+            continue
+        payload, framed = parse_frame(gdata)
+        if payload is not None and framed:
+            note("fallback", artifact=artifact)
+            log.warning("%s artifact %s served from last-good generation g%d",
+                        artifact, path, seq)
+            return payload
+        # a corrupt generation must not be re-tried on every read
+        note("corrupt", artifact=artifact)
+        if quarantine:
+            try:
+                os.replace(gp, gp + ".corrupt")
+            except OSError:
+                pass
+    if data is None and not read_failed and not gens:
+        raise FileNotFoundError(path)
+    raise CorruptArtifactError(
+        f"no verifiable copy of {artifact} artifact {path}")
+
+
+def verify_file(path: str) -> bool | None:
+    """Peek verification: None when missing, True for a verified frame or
+    a legacy unframed file (nothing to check against), False when a frame
+    fails its checksum. Never mutates disk state."""
+    try:
+        with open(path, "rb") as f:
+            data = f.read()
+    except FileNotFoundError:
+        return None
+    except OSError:
+        return False
+    payload, _framed = parse_frame(data)
+    return payload is not None
+
+
+def sweep_tmp(*dirs: str) -> int:
+    """Remove orphaned ``*.tmp`` files a crash mid-write left behind.
+    Start-up only: live writers use unique tmp names and rename within the
+    same call, so any ``*.tmp`` present when a component constructs is
+    debris. Counted as ``tmp_swept``."""
+    n = 0
+    for d in dirs:
+        if not d:
+            continue
+        try:
+            names = os.listdir(d)
+        except OSError:
+            continue
+        for name in names:
+            if not name.endswith(".tmp"):
+                continue
+            try:
+                os.unlink(os.path.join(d, name))
+                n += 1
+            except OSError:
+                pass
+    if n:
+        note("tmp_swept", n)
+        log.warning("start-up sweep removed %d orphaned tmp file(s) from %s",
+                    n, ", ".join(d for d in dirs if d))
+    return n

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (an H100).
 
-Drives the port's paths on the card (the REST scorer, the decision plane,
-the decision pipeline of ``python -m ccfd_tpu_torch demo``, and the
-service roles as separate processes) and holds each CUDA kernel against
-its plain PyTorch version. B1's ``launches`` in the kernels line sum the
-demo and services phases (in each role process, its dispatches, read off
-its scrape). The kernels: B1
+Drives the port's paths on the card (training and the checkpoint round
+trip into serving, the REST scorer, the decision plane, the decision
+pipeline of ``python -m ccfd_tpu_torch demo`` with and without its online
+trainer, and the service roles as separate processes) and holds each CUDA
+kernel against its plain PyTorch version. Each kernel's ``launches`` in the
+kernels line sum the runs of the paths through it (train, serve, demo and
+services; in each role process, its dispatches, read off its scrape). The
+kernels: B1
 ``fused_mlp_bf16`` (model ``mlp``), B2 ``fused_mlp_q8`` (``mlp_q8`` on the
 f32 wire) and B3 ``fused_mlp_q8_preq`` (``mlp_q8`` on the default int8
 wire).
@@ -29,6 +31,31 @@ wire).
            4096 for B1, the last two in its wide layout, and H=1040 for
            B2/B3; F=128 with H=256); B3 also vs B2 on the same rows. B2 and
            B3 must equal their plain versions and each other bit for bit
+  train    (a) `python -m ccfd_tpu_torch train --steps 500` on the card on the
+           full Kaggle-shaped surrogate (284,807 rows): its JSON (the
+           reference's keys, auc_sklearn_logreg null), wall time and
+           steps/s, and the held-out AUC of its checkpoint within 0.01 of
+           the committed checkpoint's on the same split, both served by the
+           port; the train step's time at batch 1,024 (CUDA events around
+           100 steps, and the card's busy time from a device-only trace),
+           f32 and bf16, with TF32 off; (b) the same step on the card and
+           on the CPU from one init over the same 20 batches, params within
+           TRAIN_TOL; (c) `serve --checkpoint-dir` of that checkpoint
+           through B1, `quantize --checkpoint-dir` and CCFD_MODEL=mlp_q8
+           `serve` of its output through B3 and, with CCFD_Q8_WIRE=f32, B2:
+           200 sequential 16-row POSTs each, every answer held against the
+           plain version, launches = dispatches; (d) the demo's trained
+           path (cli.build_demo: the MLP trained on the card, then served)
+           with its online trainer, staged and with CCFD_FUSED_DECISION=1,
+           CCFD_RETRAIN_MIN_LABELS=8: two bursts of 10,000 of its own rows,
+           each followed by the trainer's next hot swap; every transaction
+           routed, at least two swaps, the Scorer serving exactly the
+           trainer's last params, B1 on them against its plain version at
+           B=16 and 16,384, and B1's launches = scorer dispatches + plane
+           dispatches + the swaps' prepublish launches; tx/s per burst, the
+           router's score-stage p99, retrain_steps_total, retrain_last_loss
+           and the card's idle share over the second burst (device-only
+           trace)
   serve    the port's Seldon REST server on the card through its default
            transport, the C++ REST front, one path after the other, each
            with every launch count set to 0 just before it and read just
@@ -67,7 +94,8 @@ wire).
            before it: 20,000 surrogate transactions on the dict wire, then
            5,000 on the CSV wire, then a swap_params to seeded random params
            (the checkpoint routes 26 of these rows to fraud, too few to
-           reach every branch of the fraud process) and 5,000 more, as fast
+           reach every branch of the fraud process) and 5,000 more, without
+           the online trainer (the train phase runs it), as fast
            as the bus takes them (the last part under a device-only
            torch.profiler trace: the card's busy time and idle share), 2 s
            reply timeout. Every transaction must
@@ -121,6 +149,7 @@ object describing each kernel and then
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -133,7 +162,8 @@ import threading
 import time
 import urllib.request
 
-PHASES = ("device", "build", "parity", "serve", "decision", "demo", "services", "timing")
+PHASES = ("device", "build", "parity", "train", "serve", "decision", "demo", "services",
+          "timing")
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 7
 PARITY_BATCHES = (1, 16, 100, 1024, 16384)
@@ -169,6 +199,26 @@ TX_TOPIC = "odh-demo"  # the producer's and the router's topic (Config's default
 # restart (until the breaker has closed)
 LADDER_PARTS = (4_000, 4_000)
 LADDER_RATE_ROWS, LADDER_RATE = 6_000, 2_000.0
+# the train phase: `train`'s default steps and fit_mlp's batch; the steps
+# timed on the card; the steps run on the card and on the CPU from one init
+TRAIN_STEPS = 500
+TRAIN_BATCH = 1024
+TIMED_TRAIN_STEPS = 100
+COMPARE_STEPS = 20
+# card against CPU after COMPARE_STEPS steps, max |d param|: the two sides
+# sum in different orders (cuBLAS with TF32 off against the CPU's BLAS),
+# and in bf16 a gradient element may round to the other side of a bf16
+# boundary (2^-8 of it); a step moves a weight by lr (1e-3) times its
+# momentum trace, so each such flip moves it by ~1e-6 or less
+TRAIN_TOL = {"float32": 1e-5, "bfloat16": 1e-4}
+AUC_BAR = 0.01  # |held-out AUC of `train`'s step - the committed checkpoint's|
+TRAIN_KEYS = {"checkpoint", "rows", "steps", "source", "test_rows", "auc_mlp",
+              "auc_sklearn_logreg"}  # what the reference's `train` prints
+# the demo with online retrain: two bursts of the demo's own rows, each
+# followed by the trainer's next swap; the trainer's bar, lowered so that a
+# burst's labels (the fraud cases the customers answer) clear it
+RETRAIN_PARTS = (10_000, 10_000)
+RETRAIN_MIN_LABELS = 8
 TIMING_BATCHES = (16, 16384)
 SEQ_POSTS = 200  # sequential 16-row POSTs a serving run times
 DEADLINE_MS = 1000  # the serve phase's run with the dispatch deadline armed
@@ -276,6 +326,103 @@ def hist_quantile(m: dict, name: str, q: float, labels: str = "") -> float:
                                                else 1.0)
         prev_ub, prev_c = ub, c
     return prev_ub
+
+
+def post(conn, x) -> tuple:
+    """One Seldon POST of the rows ``x``: (proba_1, seconds)."""
+    import numpy as np
+
+    # the canonical Seldon payload, which the native front decodes in C++ (a
+    # names key, even an empty one, takes the Python route)
+    body = json.dumps({"data": {"ndarray": x.tolist()}})
+    t0 = time.perf_counter()
+    conn.request("POST", "/api/v0.1/predictions", body, {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    out = json.loads(resp.read())
+    dt = time.perf_counter() - t0
+    if resp.status != 200:
+        raise AssertionError(f"POST {len(x)} rows -> HTTP {resp.status}: {out}")
+    data = out["data"]
+    if data["names"] != ["proba_0", "proba_1"] or len(data["ndarray"]) != len(x):
+        raise AssertionError(f"bad Seldon response shape: {str(out)[:200]}")
+    arr = np.asarray(data["ndarray"], np.float64)
+    if not np.allclose(arr.sum(1), 1.0, atol=1e-6):
+        raise AssertionError("proba_0 + proba_1 != 1")
+    return arr[:, 1], dt
+
+
+def rest_check(kernel: str, plain, x, p, what: str) -> tuple:
+    """max |dp| and max |dz| of REST answers ``p`` against the plain version
+    ``plain(x)`` -> (p, z), and the rows compared in z. A checkpoint
+    saturates the sigmoid (median p ~ 3e-5), so |dp| alone says little:
+    the logit is recovered from p wherever p is not saturated (float32 p
+    holds log(p/(1-p)) to ~1e-3 there)."""
+    import numpy as np
+
+    tol_p, tol_z_rel = KERNELS[kernel]["tol_p"], KERNELS[kernel]["tol_z_rel"]
+    p_ref, z_ref = (t.double().cpu().numpy() for t in plain(x))
+    dp = float(np.abs(p - p_ref).max())
+    live = (p_ref > 1e-6) & (p_ref < 1 - 1e-4) & (p > 0) & (p < 1)
+    z = np.log(p[live]) - np.log1p(-p[live])
+    dz = float(np.abs(z - z_ref[live]).max()) if live.any() else 0.0
+    tol_z = tol_z_rel * max(1.0, float(np.abs(z_ref).max()))
+    if not np.isfinite(p).all() or dp > tol_p or dz > tol_z:
+        raise AssertionError(
+            f"{what}: |dp|={dp} (tol {tol_p}), |dz|={dz} (tol {tol_z}) "
+            f"over {int(live.sum())} unsaturated rows, vs plain")
+    return dp, dz, int(live.sum())
+
+
+def sequential_posts(conn, rows, n: int) -> tuple:
+    """``n`` sequential 16-row POSTs of ``rows``: (answers, sorted
+    latencies ms)."""
+    import numpy as np
+
+    got, lat = [], []
+    for i in range(n):
+        x = rows[i * 16:(i + 1) * 16]
+        p, dt = post(conn, x)
+        got.append((x, p))
+        lat.append(dt)
+    return got, np.sort(np.asarray(lat)) * 1e3
+
+
+def quantiles(lat_ms) -> str:
+    import numpy as np
+
+    return (f"p50 {np.percentile(lat_ms, 50):.3f} ms, p99 "
+            f"{np.percentile(lat_ms, 99):.3f} ms, max {lat_ms[-1]:.3f} ms")
+
+
+def same_params(a: dict, b: dict) -> bool:
+    """Two MLP param trees hold the same values, bit for bit, wherever their
+    tensors lie."""
+    def leaves(t: dict) -> list:
+        return [t["norm"][k] for k in sorted(t["norm"])] + [
+            layer[k] for layer in t["layers"] for k in sorted(layer)]
+
+    return len(a["layers"]) == len(b["layers"]) and all(
+        x.shape == y.shape and bool((x.cpu() == y.cpu()).all())
+        for x, y in zip(leaves(a), leaves(b)))
+
+
+def pipe_settled(pipe, n: int, what: str) -> float:
+    """Seconds until the in-process pipeline has consumed ``n`` transactions
+    and disposed of each (routed, or a score or start error)."""
+    rr = pipe.reg_router
+    incoming = rr.counter("transaction_incoming_total")
+    out = rr.counter("transaction_outgoing_total")
+    score_err = rr.counter("router_score_errors_total")
+    start_err = rr.counter("router_process_start_errors_total")
+    t0 = time.perf_counter()
+    deadline = time.monotonic() + 120
+    while time.monotonic() < deadline:
+        done = out.total() + score_err.value() + start_err.total()
+        if incoming.value() >= n and done >= n:
+            return time.perf_counter() - t0
+        time.sleep(0.002)
+    raise AssertionError(f"{what}: {incoming.value()} of {n} consumed, {out.total()} routed "
+                         f"after 120 s")
 
 
 def launches_of(m: dict) -> float:
@@ -450,7 +597,7 @@ class Smoke:
         self.card = ""
         self.reports = {
             name: {"name": name, "route": "cuda", "source": k["source"],
-                   "replaces": k["replaces"], "launches": None, "max_abs_err": None,
+                   "replaces": k["replaces"], "launches": 0, "max_abs_err": None,
                    "ms": None, "plain_ms": None, "bound_ms": None, "bound_by": None,
                    "library_ms": None}
             for name, k in KERNELS.items()}
@@ -686,6 +833,397 @@ class Smoke:
             log("parity", f"ok: {name} max|dp|={w:.3e} <= {bar}")
         log("parity", "ok: B3 bit-equal to B2 at every case")
 
+    def train(self) -> None:
+        """(a) `train` on the card and its held-out AUC against the committed
+        checkpoint's; the train step's device time; (b) the train step on
+        the card against the CPU; (c) the trained step served through B1,
+        then quantized and served through B3 and B2; (d) the demo's trained
+        path with the online trainer hot-swapping B1's params."""
+        torch = self.torch
+        if torch.backends.cuda.matmul.allow_tf32 or \
+                torch.get_float32_matmul_precision() != "highest":
+            raise AssertionError("TF32 is on for float32 matmuls: the f32 path would "
+                                 "round its operands to 10 mantissa bits")
+        log("train", "TF32 off for float32 matmuls (allow_tf32 False, precision 'highest')")
+        tmp = tempfile.mkdtemp(prefix="ccfd_train_")
+        try:
+            ck = os.path.join(tmp, "checkpoints_torch")
+            self.train_command(ck)
+            self.train_step_timing()
+            self.train_card_vs_cpu()
+            self.train_served(ck, os.path.join(tmp, "q8.npz"))
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        self.train_demo()
+
+    def train_command(self, ck: str) -> None:
+        """(a) ``python -m ccfd_tpu_torch train`` on the full surrogate."""
+        from ccfd_tpu_torch.cli import held_out_split
+        from ccfd_tpu_torch.data.surrogate import kaggle_surrogate
+        from ccfd_tpu_torch.models import mlp
+        from ccfd_tpu_torch.parallel.checkpoint import CheckpointManager
+        from ccfd_tpu_torch.params import MLP_LIKE, load_params, to_device
+        from ccfd_tpu_torch.utils.metrics_math import roc_auc
+
+        torch = self.torch
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("PYTHONPATH", "CCFD_SURROGATE_ROWS", "CCFD_CSV")}
+        env["PYTHONPATH"] = REPO
+        cmd = ["train", "--steps", str(TRAIN_STEPS), "--checkpoint-dir", ck]
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "ccfd_tpu_torch", *cmd], cwd=REPO,
+                             env=env, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if out.returncode != 0:
+            raise AssertionError(f"train exited {out.returncode}: {out.stderr[-3000:]}")
+        doc = json.loads(out.stdout.strip().splitlines()[-1])
+        fit = [ln for ln in out.stderr.splitlines() if ln.startswith("[train] fit_mlp")]
+        log("train", f"python -m ccfd_tpu_torch {' '.join(cmd)}: {json.dumps(doc)}")
+        log("train", f"the command took {wall:.3f} s (process start, the surrogate, fit, "
+            f"held-out AUC, checkpoint): {TRAIN_STEPS / wall:.1f} steps/s over the whole "
+            f"command; {fit[0] if fit else 'no fit line'} on {self.card}")
+        if (set(doc) != TRAIN_KEYS or doc["auc_sklearn_logreg"] is not None
+                or doc["steps"] != TRAIN_STEPS or doc["rows"] != 284_807 or not fit
+                or doc["checkpoint"] != os.path.join(ck, f"step_{TRAIN_STEPS}")):
+            raise AssertionError(f"train printed {doc}")
+        # the held-out AUC of the trained step and of the committed
+        # checkpoint, served by the port on the same split
+        ds = kaggle_surrogate()
+        test = held_out_split(ds.n, 0.2)[0]
+        x = torch.from_numpy(ds.X[test]).to(self.dev)
+        trained, step = CheckpointManager(ck).restore(MLP_LIKE)
+        auc = {name: roc_auc(ds.y[test], mlp.apply(to_device(p, self.dev), x).cpu().numpy())
+               for name, p in (("trained", trained), ("committed", load_params()))}
+        log("train", f"held-out AUC on {len(test)} rows, served by the port on the card: "
+            f"step {step} of `train` {auc['trained']:.6f}, the committed checkpoint "
+            f"{auc['committed']:.6f} (|d| {abs(auc['trained'] - auc['committed']):.6f}, "
+            f"bar {AUC_BAR})")
+        if abs(auc["trained"] - doc["auc_mlp"]) > 1e-4 or \
+                abs(auc["trained"] - auc["committed"]) > AUC_BAR:
+            raise AssertionError(f"held-out AUC {auc} against train's {doc['auc_mlp']}")
+
+    def train_batches(self, n: int, seed: int = SEED) -> list:
+        """``n`` class-balanced batches of TRAIN_BATCH surrogate rows (CPU
+        tensors), drawn as fit_mlp draws them."""
+        import numpy as np
+
+        torch = self.torch
+        rng = np.random.default_rng(seed)
+        pos, neg = np.flatnonzero(self.labels == 1), np.flatnonzero(self.labels == 0)
+        n_pos = TRAIN_BATCH // 4
+        out = []
+        for _ in range(n):
+            idx = np.concatenate([rng.choice(pos, n_pos), rng.choice(neg, TRAIN_BATCH - n_pos)])
+            out.append((torch.from_numpy(self.rows[idx]),
+                        torch.from_numpy(self.labels[idx].astype(np.float32))))
+        return out
+
+    def train_step_timing(self) -> None:
+        """The train step on the card at full width (30 -> 256 -> 256 -> 1),
+        batch 1,024, f32 and bf16: CUDA events around TIMED_TRAIN_STEPS
+        steps on batches already on the card, and the card's busy time over
+        the same steps from a device-only trace; then fit_mlp's rate over as
+        many steps."""
+        from torch.profiler import ProfilerActivity, profile
+
+        from ccfd_tpu_torch.parallel.train import (
+            TrainConfig,
+            fit_mlp,
+            init_state,
+            make_train_step,
+        )
+        from ccfd_tpu_torch.params import to_device
+
+        torch = self.torch
+        batches = [(x.to(self.dev), y.to(self.dev))
+                   for x, y in self.train_batches(TIMED_TRAIN_STEPS)]
+        # forward and backward: 3 matmul passes of 2 * B * (F*H + H*H + H)
+        flop = 3 * 2.0 * TRAIN_BATCH * (30 * 256 + 256 * 256 + 256)
+        for dtype in ("float32", "bfloat16"):
+            tc = TrainConfig(compute_dtype=dtype)
+            state = init_state(to_device(self.params("random"), self.dev), tc)
+            step = make_train_step(tc)
+            for x, y in batches[:10]:
+                state, loss = step(state, x, y)
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            for x, y in batches:
+                state, loss = step(state, x, y)
+            end.record()
+            end.synchronize()
+            wall = (time.perf_counter() - t0) / len(batches) * 1e3
+            ms = start.elapsed_time(end) / len(batches)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for x, y in batches:
+                    state, loss = step(state, x, y)
+                torch.cuda.synchronize()
+            busy = sum(getattr(e, "self_device_time_total", None)
+                       or getattr(e, "self_cuda_time_total", 0.0)
+                       for e in prof.key_averages()) / 1e3 / len(batches)
+            top = sorted(((getattr(e, "self_device_time_total", None)
+                           or getattr(e, "self_cuda_time_total", 0.0), e.key)
+                          for e in prof.key_averages()), reverse=True)[:4]
+            log("train", f"train step {dtype}, batch {TRAIN_BATCH}, H=256: {ms:.6f} ms a step "
+                f"(CUDA events around {len(batches)} steps; host clock {wall:.6f}); device "
+                f"busy {busy:.6f} ms a step (torch.profiler), top kernels "
+                + "; ".join(f"{k[:48]} {t / 1e3 / len(batches):.6f} ms" for t, k in top)
+                + f"; {flop:.4e} flop a step, {flop / 67e12 * 1e3:.6f} ms at the f32 peak "
+                f"(67 TFLOP/s), loss {float(loss):.6f} on {self.card}"
+                if busy else f"train step {dtype}: {ms:.6f} ms a step (CUDA events); device "
+                f"busy time not measured (no device events in the trace)")
+        # fit_mlp in this warm process: the step plus the numpy batch draw
+        # and its copy to the card, without a fresh process's first use of
+        # each CUDA kernel, which the `train` command's fit time includes
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit_mlp(self.rows, self.labels, steps=TIMED_TRAIN_STEPS,
+                tc=TrainConfig(compute_dtype="float32"), device=self.dev)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        log("train", f"fit_mlp (float32) in this warm process: {TIMED_TRAIN_STEPS} steps of "
+            f"{TRAIN_BATCH} rows in {fit_s:.3f} s, {TIMED_TRAIN_STEPS / fit_s:.1f} steps/s, "
+            f"host clock, on {self.card}")
+
+    def train_card_vs_cpu(self) -> None:
+        """(b) the same train step on the card and on the CPU, from one init
+        over the same COMPARE_STEPS batches."""
+        from ccfd_tpu_torch.parallel.train import (
+            TrainConfig,
+            detached,
+            init_state,
+            make_train_step,
+            trainable,
+        )
+        from ccfd_tpu_torch.params import to_device
+
+        torch = self.torch
+        batches = self.train_batches(COMPARE_STEPS, seed=SEED + 1)
+        init = self.params("random")
+        for dtype in ("float32", "bfloat16"):
+            tc = TrainConfig(compute_dtype=dtype)
+            got, losses = {}, {}
+            for side, dev in (("card", self.dev), ("cpu", torch.device("cpu"))):
+                state = init_state(to_device(init, dev), tc)
+                step = make_train_step(tc)
+                for x, y in batches:
+                    state, loss = step(state, x, y)
+                got[side] = [t.cpu() for t in trainable(detached(state["params"]))]
+                losses[side] = float(loss)
+            d = max((a - b).abs().max().item() for a, b in zip(got["card"], got["cpu"]))
+            moved = max((a - b.cpu()).abs().max().item()
+                        for a, b in zip(got["cpu"], trainable(init)))
+            log("train", f"{dtype} train step, card against CPU after {COMPARE_STEPS} steps "
+                f"from one init: max |d param| {d:.3e} (bar {TRAIN_TOL[dtype]}; the params "
+                f"moved up to {moved:.3e}), last loss {losses['card']:.6f} / "
+                f"{losses['cpu']:.6f}")
+            if not d <= TRAIN_TOL[dtype] or not moved > TRAIN_TOL[dtype]:
+                raise AssertionError(f"{dtype} train step: card and CPU differ by {d}")
+
+    def train_served(self, ck: str, q8: str) -> None:
+        """(c) the trained step through the three kernels over REST: `serve
+        --checkpoint-dir` (B1), then `quantize --checkpoint-dir` and
+        CCFD_MODEL=mlp_q8 `serve` on the int8 wire (B3) and the f32 wire
+        (B2); each SEQ_POSTS sequential 16-row POSTs, launches = dispatches,
+        answers held against the plain version."""
+        import io
+
+        from ccfd_tpu_torch import cli
+        from ccfd_tpu_torch.config import Config
+        from ccfd_tpu_torch.ops import fused_mlp, fused_mlp_q8
+        from ccfd_tpu_torch.parallel.checkpoint import CheckpointManager
+        from ccfd_tpu_torch.params import MLP_LIKE, load_params
+
+        torch = self.torch
+        step, _ = CheckpointManager(ck).restore(MLP_LIKE)
+        srv = cli.build_server(Config.from_env(), device="cuda", checkpoint_dir=ck)
+        if not same_params(srv.scorer.params, step):
+            raise AssertionError("serve --checkpoint-dir does not serve the trained step")
+        kp = fused_mlp.pack_for_kernel(fused_mlp.fold_for_kernel(step), self.dev)
+
+        def b1_plain(x):
+            xd = torch.from_numpy(x).to(torch.bfloat16).to(self.dev)
+            return fused_mlp.fused_mlp_reference(kp, xd)
+
+        self.served_run("fused_mlp_bf16", "serve --checkpoint-dir", srv, b1_plain)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["quantize", "--checkpoint-dir", ck, "--out", q8])
+        doc = json.loads(out.getvalue().strip().splitlines()[-1])
+        log("train", f"quantize --checkpoint-dir: {json.dumps(doc)}")
+        if rc != 0 or doc["source_step"] != TRAIN_STEPS:
+            raise AssertionError(f"quantize --checkpoint-dir exited {rc}: {doc}")
+        kq = fused_mlp_q8.pack_for_kernel(fused_mlp_q8.fold_for_kernel(load_params(q8)),
+                                          self.dev)
+
+        def q8_plain(x):
+            q, s = self.preq_rows(kq, x)
+            return fused_mlp_q8.fused_mlp_q8_preq_reference(kq, q, s)
+
+        for kernel, env in (("fused_mlp_q8_preq", {"CCFD_MODEL": "mlp_q8"}),
+                            ("fused_mlp_q8", {"CCFD_MODEL": "mlp_q8", "CCFD_Q8_WIRE": "f32"})):
+            srv = cli.build_server(Config.from_env({**os.environ, **env}), device="cuda",
+                                   params_path=q8)
+            self.served_run(kernel, f"{' '.join(f'{k}={v}' for k, v in env.items())} serve "
+                            f"--params <quantize's output>", srv, q8_plain)
+
+    def served_run(self, kernel: str, what: str, srv, plain) -> None:
+        """SEQ_POSTS sequential 16-row POSTs to ``srv`` on its default
+        transport: every answer against ``plain``, the kernel's launches
+        equal to the scorer's dispatches, no other kernel launched."""
+        import http.client
+
+        grid = srv.scorer.executable_grid()
+        if not srv.scorer.fused or grid["int8_wire"] != (kernel == "fused_mlp_q8_preq"):
+            raise AssertionError(f"{what}: the scorer is not on the {kernel} path: {grid}")
+        counters = self.counters()
+        port = srv.start("127.0.0.1", 0)
+        try:
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+            for c in counters.values():
+                c.reset()
+            d0 = srv.scorer.dispatch_total()
+            seq, lat = sequential_posts(conn, self.rows, SEQ_POSTS)
+            launched = {k: c.value for k, c in counters.items()}
+            dispatched = srv.scorer.dispatch_total() - d0
+            conn.close()
+        finally:
+            srv.stop()
+        worst = max(rest_check(kernel, plain, x, p, f"{what}, 16-row POST")[0] for x, p in seq)
+        if launched[kernel] != dispatched or dispatched != SEQ_POSTS or any(
+                v for k, v in launched.items() if k != kernel):
+            raise AssertionError(f"{what}: launches {launched} for {dispatched} dispatches")
+        self.reports[kernel]["launches"] += launched[kernel]
+        log("train", f"{what} ({kernel}, {srv.transport}): {SEQ_POSTS} sequential POSTs of 16 "
+            f"rows, {quantiles(lat)}; max |dp| vs plain {worst:.3e}; launches "
+            f"{launched[kernel]} = dispatches {dispatched} on {self.card}")
+
+    def train_demo(self) -> None:
+        """(d) the demo's trained path (`cli.build_demo` without params: the
+        MLP trained on the card) with the online trainer, staged and with
+        CCFD_FUSED_DECISION=1: RETRAIN_PARTS bursts of its own rows, each
+        followed by the trainer's next hot swap into B1."""
+        import dataclasses
+
+        from torch.profiler import ProfilerActivity, profile
+
+        from ccfd_tpu_torch.cli import build_demo
+        from ccfd_tpu_torch.config import Config
+        from ccfd_tpu_torch.data.ccfd import Dataset
+        from ccfd_tpu_torch.ops.fused_mlp import (
+            fold_for_kernel,
+            fused_mlp_reference,
+            fused_mlp_score,
+            pack_for_kernel,
+        )
+        from ccfd_tpu_torch.ops.fused_mlp import launches as b1_launches
+        from ccfd_tpu_torch.producer.producer import Producer
+
+        torch = self.torch
+        total = sum(RETRAIN_PARTS)
+        for armed in (False, True):
+            tag = f"retrain demo {'plane' if armed else 'staged'}"
+            env = {**os.environ, "CCFD_FUSED_DECISION": "1" if armed else "0",
+                   "CCFD_RETRAIN_MIN_LABELS": str(RETRAIN_MIN_LABELS)}
+            cfg = dataclasses.replace(Config.from_env(env),
+                                      customer_reply_timeout_s=DEMO_REPLY_TIMEOUT_S)
+            t0 = time.perf_counter()
+            pipe = build_demo(cfg, total, device=str(self.dev), seed=SEED)
+            plane, trainer = pipe.decision, pipe.trainer
+            if trainer is None or (plane is not None) != armed:
+                raise AssertionError(f"{tag}: trainer {trainer}, plane {plane}")
+            ds = pipe.producer.dataset
+            log("train", f"{tag}: CCFD_RETRAIN_MIN_LABELS={cfg.retrain_min_labels}, "
+                f"retrain batch {cfg.retrain_batch}, trainer {trainer.tc.compute_dtype} on "
+                f"{trainer.device}; dataset {ds.n} rows ({int(ds.y.sum())} fraud), the MLP "
+                f"trained and the pipeline built in {time.perf_counter() - t0:.3f} s")
+            swaps = pipe.reg_retrain.counter("retrain_param_swaps_total")
+            for c in self.counters().values():
+                c.reset()
+            d0 = (pipe.scorer.dispatch_total(), plane.dispatch_total() if plane else 0,
+                  plane.warm_dispatches if plane else 0)
+            produced, busy, window = 0, 0.0, 0.0
+            pipe.start(poll_timeout_s=0.02)
+            try:
+                for i, n in enumerate(RETRAIN_PARTS):
+                    part = Producer(cfg, pipe.broker, Dataset(X=ds.X[produced:produced + n],
+                                                              y=ds.y[produced:produced + n]))
+                    traced = i == len(RETRAIN_PARTS) - 1
+                    with (profile(activities=[ProfilerActivity.CUDA]) if traced
+                          else contextlib.nullcontext()) as prof:
+                        t0 = time.perf_counter()
+                        produced += part.run(limit=n)
+                        dt = (time.perf_counter() - t0) + pipe_settled(pipe, produced, tag)
+                        deadline = time.monotonic() + 30
+                        while swaps.value() < i + 1 and time.monotonic() < deadline:
+                            time.sleep(0.01)
+                        waited = time.perf_counter() - t0
+                    log("train", f"{tag}: part {i + 1}, {n} transactions routed in {dt:.3f} s: "
+                        f"{n / dt:.1f} transactions/s end to end; swap {i + 1} at "
+                        f"{waited:.3f} s; on {self.card}")
+                    if traced:
+                        window = waited
+                        busy = sum(getattr(e, "self_device_time_total", None)
+                                   or getattr(e, "self_cuda_time_total", 0.0)
+                                   for e in prof.key_averages()) / 1e6
+                time.sleep(DEMO_REPLY_TIMEOUT_S + 1.0)  # the no-reply timers fire
+            finally:
+                pipe.stop()
+            launched = b1_launches.value
+            others = {k: c.value for k, c in self.counters().items()
+                      if k != "fused_mlp_bf16" and c.value}
+            staged_d = pipe.scorer.dispatch_total() - d0[0]
+            plane_d = plane.dispatch_total() - d0[1] if plane is not None else 0
+            warm_d = plane.warm_dispatches - d0[2] if plane is not None else 0
+            summary = pipe.summary()
+            rr, reg = pipe.reg_router, pipe.reg_retrain
+            score_h = rr.histogram("router_score_seconds")
+            log("train", f"{tag}: summary {json.dumps(summary)}")
+            log("train", f"{tag}: retrain_steps_total "
+                f"{reg.counter('retrain_steps_total').value():.0f}, retrain_last_loss "
+                f"{reg.gauge('retrain_last_loss').value():.6f}, labels "
+                f"{trainer.labels_seen}; router score stage p50 "
+                f"{score_h.quantile(0.5) * 1e3:.3f} ms p99 {score_h.quantile(0.99) * 1e3:.3f} "
+                f"ms ({score_h.count()} batches); the last part under a device-only trace "
+                + (f"({window:.3f} s to its swap): device busy {busy * 1e3:.3f} ms, idle "
+                   f"share {1 - busy / window:.4f}" if busy else "held no device events")
+                + f" on {self.card}")
+            # the Scorer serves exactly what the trainer last published
+            live = pipe.scorer.params
+            same = same_params(live, trainer.params)
+            fails = []
+            routed = summary["fraud_routed"] + summary["standard_routed"]
+            if summary["transactions"] != produced or routed != produced:
+                fails.append(f"{produced} produced, {summary['transactions']} incoming, "
+                             f"{routed} routed")
+            if rr.counter("router_score_errors_total").value() or \
+                    rr.counter("router_process_start_errors_total").total():
+                fails.append("score or start errors")
+            if summary["retrain_swaps"] < 2 or not same:
+                fails.append(f"retrain_swaps {summary['retrain_swaps']}, the Scorer serves "
+                             f"the trainer's last params: {same}")
+            if launched != staged_d + plane_d + warm_d or others or not launched:
+                fails.append(f"B1 launches {launched} != scorer dispatches {staged_d} + plane "
+                             f"{plane_d} + prepublish {warm_d}; other kernels {others}")
+            if fails:
+                raise AssertionError(f"{tag}: " + "; ".join(fails))
+            log("train", f"ok: {tag}: {produced} transactions routed, "
+                f"{summary['retrain_swaps']} swaps; B1 launches {launched} = scorer dispatches "
+                f"{staged_d} + plane {plane_d} + prepublish {warm_d} "
+                f"({summary['retrain_swaps']} swaps x the plane's buckets)" if plane else
+                f"ok: {tag}: {produced} transactions routed, {summary['retrain_swaps']} swaps; "
+                f"B1 launches {launched} = scorer dispatches {staged_d}")
+            self.reports["fused_mlp_bf16"]["launches"] += launched
+            # B1 on the retrained params against its plain version
+            kp = pack_for_kernel(fold_for_kernel(live), self.dev)
+            for b in (16, 16384):
+                x = torch.from_numpy(ds.X[:b]).to(torch.bfloat16).to(self.dev)
+                p, z = fused_mlp_score(kp, x, with_logits=True)
+                self.compare("fused_mlp_bf16", f"{tag} retrained params B={b}", p, z,
+                             *fused_mlp_reference(kp, x), b1_tol_p(256))
+
     def serve(self) -> None:
         from ccfd_tpu_torch.ops import fused_mlp, fused_mlp_q8
 
@@ -727,61 +1265,15 @@ class Smoke:
         from ccfd_tpu_torch.config import Config
         from ccfd_tpu_torch.ops.fused_mlp_q8 import fold_for_kernel, prequantize_rows_numpy
 
-        tol_p, tol_z_rel = KERNELS[kernel]["tol_p"], KERNELS[kernel]["tol_z_rel"]
         plains = {w: plain_of(w) for w in ("checkpoint", "random")}
         tag = f"serve {kernel}"
 
-        def post(conn, x: np.ndarray) -> tuple[np.ndarray, float]:
-            # the canonical Seldon payload, which the native front decodes in
-            # C++ (a names key, even an empty one, takes the Python route)
-            body = json.dumps({"data": {"ndarray": x.tolist()}})
-            t0 = time.perf_counter()
-            conn.request("POST", "/api/v0.1/predictions", body,
-                         {"Content-Type": "application/json"})
-            resp = conn.getresponse()
-            out = json.loads(resp.read())
-            dt = time.perf_counter() - t0
-            if resp.status != 200:
-                raise AssertionError(f"POST {len(x)} rows -> HTTP {resp.status}: {out}")
-            data = out["data"]
-            if data["names"] != ["proba_0", "proba_1"] or len(data["ndarray"]) != len(x):
-                raise AssertionError(f"bad Seldon response shape: {str(out)[:200]}")
-            arr = np.asarray(data["ndarray"], np.float64)
-            if not np.allclose(arr.sum(1), 1.0, atol=1e-6):
-                raise AssertionError("proba_0 + proba_1 != 1")
-            return arr[:, 1], dt
-
         def check(x: np.ndarray, p: np.ndarray, what: str,
                   which: str = "checkpoint") -> tuple[float, float, int]:
-            """max |dp| and max |dz| against the plain version. The checkpoint
-            saturates the sigmoid (median p ~ 3e-5), so |dp| alone says
-            little: the logit is recovered from p wherever p is not
-            saturated (float32 p holds log(p/(1-p)) to ~1e-3 there)."""
-            p_ref, z_ref = (t.double().cpu().numpy() for t in plains[which](x))
-            dp = float(np.abs(p - p_ref).max())
-            live = (p_ref > 1e-6) & (p_ref < 1 - 1e-4) & (p > 0) & (p < 1)
-            z = np.log(p[live]) - np.log1p(-p[live])
-            dz = float(np.abs(z - z_ref[live]).max()) if live.any() else 0.0
-            tol_z = tol_z_rel * max(1.0, float(np.abs(z_ref).max()))
-            if not np.isfinite(p).all() or dp > tol_p or dz > tol_z:
-                raise AssertionError(
-                    f"{what}: |dp|={dp} (tol {tol_p}), |dz|={dz} (tol {tol_z}) "
-                    f"over {int(live.sum())} unsaturated rows, vs plain")
-            return dp, dz, int(live.sum())
+            return rest_check(kernel, plains[which], x, p, what)
 
         def sequential(conn, n: int) -> tuple[list, np.ndarray]:
-            """``n`` sequential 16-row POSTs: (answers, sorted latencies ms)."""
-            got, lat = [], []
-            for i in range(n):
-                x = self.rows[i * 16:(i + 1) * 16]
-                p, dt = post(conn, x)
-                got.append((x, p))
-                lat.append(dt)
-            return got, np.sort(np.asarray(lat)) * 1e3
-
-        def quantiles(lat_ms: np.ndarray) -> str:
-            return (f"p50 {np.percentile(lat_ms, 50):.3f} ms, p99 "
-                    f"{np.percentile(lat_ms, 99):.3f} ms, max {lat_ms[-1]:.3f} ms")
+            return sequential_posts(conn, self.rows, n)
 
         def deadline_zero(m: dict, what: str) -> dict:
             """The dispatch deadline's counters: each present and 0."""
@@ -928,7 +1420,7 @@ class Smoke:
             raise AssertionError(
                 f"REST path did not go through {kernel} alone: {launched} "
                 f"launches for {dispatched} dispatches")
-        self.reports[kernel]["launches"] = launched[kernel]
+        self.reports[kernel]["launches"] += launched[kernel]
 
         # the same requests on the Python transport (CCFD_NATIVE_FRONT=0)
         srv = build_server(Config.from_env({**os.environ, **env, "CCFD_NATIVE_FRONT": "0"}),
@@ -1096,7 +1588,7 @@ class Smoke:
             for c in self.counters().values():
                 c.reset()
             total += self.demo_run(pipe, tag)
-        self.reports["fused_mlp_bf16"]["launches"] = total
+        self.reports["fused_mlp_bf16"]["launches"] += total
         self.demo_decode()
 
     def demo_decode(self) -> None:
@@ -1140,23 +1632,12 @@ class Smoke:
         """One run of the pipeline; returns B1's launches in it."""
         from ccfd_tpu_torch.ops.fused_mlp import launches as b1_launches
 
-        rr, kie = pipe.reg_router, pipe.reg_kie
-        incoming = rr.counter("transaction_incoming_total")
-        out = rr.counter("transaction_outgoing_total")
+        rr = pipe.reg_router
         score_err = rr.counter("router_score_errors_total")
         start_err = rr.counter("router_process_start_errors_total")
 
         def settled(n: int, what: str) -> float:
-            """Seconds until ``n`` transactions are consumed and disposed."""
-            t0 = time.perf_counter()
-            deadline = time.monotonic() + 120
-            while time.monotonic() < deadline:
-                done = (out.total() + score_err.value() + start_err.total())
-                if incoming.value() >= n and done >= n:
-                    return time.perf_counter() - t0
-                time.sleep(0.002)
-            raise AssertionError(f"{tag}: {what}: {incoming.value()} of {n} consumed, "
-                                 f"{out.total()} routed after 120 s")
+            return pipe_settled(pipe, n, f"{tag}: {what}")
 
         plane = pipe.decision
         d0 = (pipe.scorer.dispatch_total(), plane.dispatch_total() if plane else 0,

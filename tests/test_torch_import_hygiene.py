@@ -1,4 +1,5 @@
-"""The PyTorch port imports neither JAX nor the JAX package.
+"""The PyTorch port imports neither JAX nor the JAX package, nor what the
+reference trains and checkpoints with (optax, orbax, scikit-learn).
 
 Imports run in a subprocess: this test process already holds jax
 (tests/conftest.py). ``ccfd_tpu_torch`` starts with ``ccfd_tpu``, so the
@@ -16,9 +17,11 @@ REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "ccfd_tpu_torch"
 
 
+FORBIDDEN = ("jax", "ccfd_tpu", "optax", "orbax", "sklearn")
+
+
 def _forbidden(name: str) -> bool:
-    return (name in ("jax", "ccfd_tpu")
-            or name.startswith("jax.") or name.startswith("ccfd_tpu."))
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
 
 
 def test_importing_every_module_loads_no_jax_and_no_reference():
@@ -47,7 +50,8 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
               "serving.dispatch", "serving.client", "utils.httpclient",
               "utils.httpserver", "bus.server", "bus.client", "process.server",
               "process.client", "metrics.exporter", "native", "serving.native_front",
-              "utils.gctune"):
+              "utils.gctune", "models.losses", "parallel.train", "parallel.online",
+              "parallel.checkpoint", "runtime.durability"):
         assert f"ccfd_tpu_torch.{m}" in res["mods"], m
     bad = [n for n in res["loaded"] if _forbidden(n)]
     assert bad == [], bad

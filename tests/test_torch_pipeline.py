@@ -247,7 +247,8 @@ def test_demo_prints_the_summary_on_the_cpu(capsys):
     doc = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert set(doc) == {"transactions", "fraud_routed", "standard_routed", "notifications",
                         "approved_amount_n", "rejected_amount_n", "low_amount_auto_n",
-                        "investigations_n", "open_tasks", "wall_s", "backend"}
+                        "investigations_n", "open_tasks", "retrain_swaps", "wall_s",
+                        "backend"}
     assert doc["transactions"] == 300 and doc["backend"] == "cpu"
     assert doc["fraud_routed"] + doc["standard_routed"] == 300
 
