@@ -3,9 +3,12 @@
   python -m ccfd_tpu_torch train [--steps 500] [--checkpoint-dir DIR]
                                  [--test-frac F] [--device cuda|cpu]
   python -m ccfd_tpu_torch serve [--device cuda|cpu] [--params PATH]
-                                 [--checkpoint-dir DIR]
+                                 [--checkpoint-dir DIR] [--gbt-dir DIR]
                                  [--train [--train-steps 300]]
                                  [--host H] [--port N]
+  python -m ccfd_tpu_torch score [--input CSV] [--output PATH] [--depth 2]
+                                 [--checkpoint-dir DIR] [--quantized-dir DIR]
+                                 [--gbt-dir DIR] [--device cuda|cpu]
   python -m ccfd_tpu_torch quantize --out PATH [--params PATH]
                                     [--checkpoint-dir DIR]
                                     [--test-frac F] [--device cuda|cpu]
@@ -30,8 +33,10 @@ surrogate; CCFD_SURROGATE_ROWS shrinks it), a held-out split from
 default), the held-out ``auc_mlp``, and a ``CheckpointManager`` step at
 ``--steps`` in ``--checkpoint-dir``. It prints the reference's JSON keys;
 ``auc_sklearn_logreg`` is null, as the reference prints it without
-scikit-learn (the port does not import it). ``--family hgb`` (the tree
-family, ROADMAP A13) and ``--from-store`` (the object store, A14) are
+scikit-learn (the port does not import it). ``--family hgb`` exits 2 with
+the reference's message for a missing scikit-learn (the port fits no tree
+ensemble: ``checkpoints_gbt/params.npz`` is the reference's ``train
+--family hgb`` output), and ``--from-store`` (the object store, A14) is
 refused by name.
 
 ``serve`` is the Seldon-contract REST scorer of the reference's
@@ -49,6 +54,27 @@ transport. With ``CCFD_MODEL=mlp_q8`` it serves int8 params: those of a q8
 ``.npz`` (``quantize``'s output), or ``quantize_mlp`` of an f32 one, which
 for the committed checkpoint equals the reference's
 ``checkpoints_q8/step_1200``.
+
+The model is any registered one (``CCFD_MODEL``: ``mlp``, ``mlp_q8``,
+``logreg``, ``modelfull``, ``gbt``, ``gbt_mxu``). ``CCFD_GRAPH_CR`` names a
+SeldonDeployment-shaped CR (``deploy/model/graph_ensemble.json``) that
+``serve`` and ``score`` load and serve in its place, as the reference's do
+(``serving/graph.py``); ``serve --train`` with a graph exits 2. Params, by
+model (``served_params``): the MLP family as above; ``gbt`` the newest
+``train --family hgb`` artifact in ``--gbt-dir`` (default
+``./checkpoints_gbt``), else the registry's empty ensemble; ``logreg``,
+``modelfull``, ``gbt_mxu`` and graphs their seeded init, as the reference
+serves them with ``params=None``.
+
+``score`` is the reference's ``cmd_score``: offline bulk scoring, the rows
+of ``--input`` (else CCFD_CSV, else the synthetic stream) through
+``Scorer.score_pipelined`` with ``--depth`` dispatches in flight, the
+probabilities written to ``--output`` as the reference's CSV, and its JSON
+line (``rows``, ``seconds``, ``tx_s``, ``flagged_fraud``,
+``fraud_threshold``, ``mean_proba``, ``output``, ``checkpoint``). It reads
+the model and its params as ``serve`` does; for ``mlp_q8``,
+``--quantized-dir`` names a directory of int8 checkpoint steps in the npz
+form.
 
 Deviations in where params come from. The default ``--checkpoint-dir`` of
 ``train``, ``serve`` and ``quantize`` is ``./checkpoints_torch``, where the
@@ -105,6 +131,10 @@ decoder (``native.decode_csv``). Knobs that select an unported part
 (``Config.unported``), ``bus --dir`` and ``engine --state-file`` are
 refused by name, by ``serve`` as by the roles.
 
+The router role scores ``CCFD_MODEL`` with what ``serve`` would serve for
+it (where the reference's role serves the seeded init of every model) and
+does not load ``CCFD_GRAPH_CR``, as the reference's role does not.
+
 ``demo``, ``serve`` and the ``bus``, ``engine``, ``router`` and ``notify``
 roles raise Python's gen-0 GC threshold before their hot loops start, as
 the reference does (``utils/gctune.py``; CCFD_GC_THRESHOLD=0 opts out), and
@@ -125,23 +155,38 @@ from ccfd_tpu_torch.config import Config
 
 
 DEFAULT_CHECKPOINT_DIR = "./checkpoints_torch"
+GBT_DIR = "./checkpoints_gbt"  # the reference's `train --family hgb` writes here
+MLP_FAMILY = ("mlp", "mlp_q8")
 RETRAIN_INTERVAL_S = 0.5  # the demo's OnlineTrainer poll, as the reference's
 
 
 def build_server(cfg: Config, device: str | None = None,
                  params_path: str | None = None, checkpoint_dir: str | None = None,
-                 params: Any = None):
+                 params: Any = None, gbt_dir: str | None = None):
     """The warmed-up ``PredictionServer`` that ``serve`` runs (not yet
-    listening): a ``Scorer`` on ``device`` (default: the card) serving
+    listening): a ``Scorer`` on ``device`` (default: the card) for the
+    config's model, or the CCFD_GRAPH_CR graph (``with_graph``), serving
     ``params`` when given, else ``served_params(cfg, params_path,
-    checkpoint_dir)``. Raises ``NotImplementedError`` naming any knob set
-    to an unported part."""
+    checkpoint_dir, gbt_dir)``. Raises ``NotImplementedError`` naming any
+    knob set to an unported part."""
     from ccfd_tpu_torch.serving.server import PredictionServer
 
     _refuse_unported(cfg, "serve")
+    cfg = with_graph(cfg)
     if params is None:
-        params = served_params(cfg, params_path, checkpoint_dir)
+        params = served_params(cfg, params_path, checkpoint_dir, gbt_dir)
     return PredictionServer(make_scorer(cfg, params, device), cfg)
+
+
+def with_graph(cfg: Config) -> Config:
+    """``cfg`` with CCFD_GRAPH_CR's graph loaded, registered and in place of
+    CCFD_MODEL, as the reference's ``serve`` and ``score`` do; ``cfg`` as
+    it is when no CR is set."""
+    if not cfg.graph_cr:
+        return cfg
+    from ccfd_tpu_torch.serving.graph import load_graph_cr
+
+    return dataclasses.replace(cfg, model_name=load_graph_cr(cfg.graph_cr).name)
 
 
 def make_scorer(cfg: Config, params: Any, device: Any = None):
@@ -160,18 +205,38 @@ def make_scorer(cfg: Config, params: Any, device: Any = None):
 
 
 def served_params(cfg: Config, params_path: str | None = None,
-                  checkpoint_dir: str | None = None) -> dict:
-    """The params ``serve`` and ``demo --params`` serve: ``params_path``
-    when given; else, for the MLP, the newest step in ``checkpoint_dir``
-    when it holds one; else the committed checkpoint. Quantized when the
-    model is ``mlp_q8`` and they are f32."""
+                  checkpoint_dir: str | None = None, gbt_dir: str | None = None,
+                  quantized_dir: str | None = None) -> dict | None:
+    """The params ``serve``, ``score``, the router role and ``demo
+    --params`` serve for the config's model:
+
+    - ``mlp`` and ``mlp_q8``: ``params_path`` when given; else for the MLP
+      the newest step in ``checkpoint_dir``, for ``mlp_q8`` the newest step
+      in ``quantized_dir``, when it holds one; else the committed
+      checkpoint. Quantized when the model is ``mlp_q8`` and they are f32.
+    - ``gbt``: the newest ``train --family hgb`` artifact in ``gbt_dir``
+      (default ``./checkpoints_gbt``), None when there is none;
+    - any other model (``logreg``, ``modelfull``, ``gbt_mxu``, a graph):
+      None.
+
+    None means the Scorer's seeded init (the registry's), as the reference
+    passes ``params=None``. ``params_path`` holds MLP params: for another
+    model it raises ``ValueError``."""
     from ccfd_tpu_torch.params import DEFAULT_PARAMS, load_params
+
+    if cfg.model_name not in MLP_FAMILY:
+        if params_path:
+            raise ValueError(f"--params holds MLP or int8 MLP params, not params of "
+                             f"CCFD_MODEL={cfg.model_name!r}")
+        return restore_gbt_params(gbt_dir) if cfg.model_name == "gbt" else None
+    from ccfd_tpu_torch.params import MLP_LIKE, Q8_LIKE
 
     params = None
     if params_path:
         params = load_params(params_path)
-    elif cfg.model_name == "mlp":
-        restored = restore_mlp_checkpoint(checkpoint_dir)
+    else:
+        restored = (restore_checkpoint(checkpoint_dir, MLP_LIKE) if cfg.model_name == "mlp"
+                    else restore_checkpoint(quantized_dir, Q8_LIKE))
         params = restored[0] if restored is not None else None
     return for_model(cfg, load_params(DEFAULT_PARAMS) if params is None else params)
 
@@ -186,11 +251,11 @@ def for_model(cfg: Config, params: Any) -> Any:
     return params
 
 
-def restore_mlp_checkpoint(checkpoint_dir: str | None) -> tuple[dict, int] | None:
-    """(params, step): the newest ``train`` step in ``checkpoint_dir`` as
-    MLP params (CPU tensors); None when the directory does not exist or
-    holds no step. Creates no directory."""
-    from ccfd_tpu_torch.params import MLP_LIKE
+def restore_checkpoint(checkpoint_dir: str | None, like: dict) -> tuple[dict, int] | None:
+    """(params, step): the newest step in ``checkpoint_dir`` as params
+    structured like ``like`` (``params.MLP_LIKE`` for a ``train`` step,
+    ``Q8_LIKE`` for int8 ones; CPU tensors); None when the directory does
+    not exist or holds no step. Creates no directory."""
     from ccfd_tpu_torch.parallel.checkpoint import CheckpointManager
 
     if not checkpoint_dir or not os.path.isdir(checkpoint_dir):
@@ -198,9 +263,39 @@ def restore_mlp_checkpoint(checkpoint_dir: str | None) -> tuple[dict, int] | Non
     mgr = CheckpointManager(checkpoint_dir)
     if mgr.latest_step() is None:
         return None
-    params, step = mgr.restore(MLP_LIKE)
+    params, step = mgr.restore(like)
     print(f"[checkpoint] restored step={step} from {checkpoint_dir}", file=sys.stderr)
     return params, step
+
+
+def restore_gbt_params(gbt_dir: str | None) -> dict | None:
+    """The ``train --family hgb`` artifact (``<gbt_dir>/params.npz``, default
+    ``./checkpoints_gbt``) as gbt params, through the verified read (a
+    corrupt file is quarantined and the newest retained generation that
+    verifies is read); None when there is none or none is readable, as the
+    reference's ``_restore_gbt_params``."""
+    import io
+    import zipfile
+
+    import numpy as np
+    import torch
+
+    from ccfd_tpu_torch.runtime.durability import CorruptArtifactError, read_artifact
+
+    path = os.path.join(gbt_dir or GBT_DIR, "params.npz")
+    try:
+        raw = read_artifact(path, artifact="gbt_params")
+        with np.load(io.BytesIO(raw)) as z:
+            params = {k: torch.from_numpy(z[k])
+                      for k in ("feature", "threshold", "leaf", "base")}
+    except FileNotFoundError:
+        return None
+    except (OSError, ValueError, KeyError, zipfile.BadZipFile, CorruptArtifactError) as e:
+        print(f"[checkpoint] unreadable gbt params at {path} ({e!r}); "
+              "serving fresh init", file=sys.stderr)
+        return None
+    print(f"[checkpoint] restored gbt params from {path}", file=sys.stderr)
+    return params
 
 
 def train_mlp(X: Any, y: Any, steps: int, device: Any = None) -> dict:
@@ -372,6 +467,9 @@ def build_demo(cfg: Config, transactions: int, train_steps: int = 200,
     from ccfd_tpu_torch.parallel.online import OnlineTrainer
 
     _refuse_unported(cfg, "the pipeline")  # before the training, not after
+    if not params_path and cfg.model_name not in MLP_FAMILY:
+        raise ValueError(f"demo trains the MLP; CCFD_MODEL={cfg.model_name!r} params would "
+                         "not match: set CCFD_MODEL=mlp or mlp_q8, or pass --params")
     if params_path:
         ds = demo_dataset(transactions)
         params = served_params(cfg, params_path)
@@ -536,7 +634,8 @@ def build_router(cfg: Config, device: str | None = None, params_path: str | None
         from ccfd_tpu_torch.serving.server import DeadlineCounters, publish_launches
 
         scorer = make_scorer(cfg, served_params(cfg, params_path), device)
-        score_fn, host_score_fn = scorer.score, scorer.host_score
+        score_fn = scorer.score
+        host_score_fn = scorer.host_score if scorer.has_host_forward else None
         on_card = scorer.device.type == "cuda"
         g_launches = registry.gauge(
             "ccfd_kernel_launches", "CUDA kernel launches in this process")
@@ -655,6 +754,10 @@ def cmd_producer(args: argparse.Namespace) -> int:
 def cmd_serve(args: argparse.Namespace) -> int:
     cfg = Config.from_env()
     params = None
+    if args.train and cfg.graph_cr:
+        print("[serve] --train trains the MLP; a CCFD_GRAPH_CR graph has graph-shaped "
+              "params — unset --train or unset CCFD_GRAPH_CR", file=sys.stderr)
+        return 2
     if args.train:
         if cfg.model_name != "mlp":
             print(f"[serve] --train trains the MLP; CCFD_MODEL={cfg.model_name!r} params "
@@ -666,12 +769,13 @@ def cmd_serve(args: argparse.Namespace) -> int:
         ds = load_dataset()
         params = train_mlp(ds.X, ds.y, args.train_steps, args.device)
     srv = build_server(cfg, device=args.device, params_path=args.params,
-                       checkpoint_dir=args.checkpoint_dir, params=params)
+                       checkpoint_dir=args.checkpoint_dir, params=params,
+                       gbt_dir=args.gbt_dir)
     gc0 = _tune_gc()
     host = args.host if args.host is not None else cfg.serve_host
     port = srv.start(host, args.port if args.port is not None else cfg.serve_port)
     grid = srv.scorer.executable_grid()
-    print(f"[serve] model={cfg.model_name} device={srv.scorer.device} "
+    print(f"[serve] model={grid['model']} device={srv.scorer.device} "
           f"kernel={'on' if grid['fused'] else 'off'} "
           f"int8_wire={'on' if grid['int8_wire'] else 'off'} decoder=native "
           f"transport={srv.transport} dispatch_deadline_ms={grid['dispatch_deadline_ms']} "
@@ -721,9 +825,10 @@ def cmd_train(args: argparse.Namespace) -> int:
     from ccfd_tpu_torch.parallel.checkpoint import CheckpointManager
     from ccfd_tpu_torch.utils.metrics_math import roc_auc
 
-    if args.family != "mlp":
-        raise NotImplementedError(
-            f"train --family {args.family} (the tree family, ROADMAP A13) is not ported yet")
+    if args.family == "hgb":
+        print("[train] --family hgb needs scikit-learn (the port does not import it)",
+              file=sys.stderr)
+        return 2
     if args.from_store:
         raise NotImplementedError(
             "train --from-store (the object store, ROADMAP A14) is not ported yet")
@@ -759,13 +864,19 @@ def cmd_quantize(args: argparse.Namespace) -> int:
     from ccfd_tpu_torch.device import resolve
     from ccfd_tpu_torch.models import mlp
     from ccfd_tpu_torch.ops import quant
-    from ccfd_tpu_torch.params import DEFAULT_PARAMS, load_params, save_params, to_device
+    from ccfd_tpu_torch.params import (
+        DEFAULT_PARAMS,
+        MLP_LIKE,
+        load_params,
+        save_params,
+        to_device,
+    )
     from ccfd_tpu_torch.utils.metrics_math import roc_auc
 
     dev = resolve(args.device)
     src, step, params = args.params, None, None
     if not src:
-        restored = restore_mlp_checkpoint(args.checkpoint_dir)
+        restored = restore_checkpoint(args.checkpoint_dir, MLP_LIKE)
         if restored is not None:
             params, step = restored
             src = os.path.join(args.checkpoint_dir, f"step_{step}")
@@ -797,6 +908,41 @@ def cmd_quantize(args: argparse.Namespace) -> int:
     return 0
 
 
+def cmd_score(args: argparse.Namespace) -> int:
+    """Offline bulk scoring: CSV rows in, probabilities out, through the
+    Scorer's pipelined bucketed dispatch; the reference's JSON line."""
+    import numpy as np
+
+    from ccfd_tpu_torch.data.ccfd import load_dataset
+
+    cfg = Config.from_env()
+    _refuse_unported(cfg, "score")
+    cfg = with_graph(cfg)
+    ds = load_dataset(path=args.input or None)
+    params = served_params(cfg, checkpoint_dir=args.checkpoint_dir, gbt_dir=args.gbt_dir,
+                           quantized_dir=args.quantized_dir)
+    scorer = make_scorer(cfg, params, args.device)
+    t0 = time.perf_counter()
+    proba = scorer.score_pipelined(ds.X, depth=args.depth)
+    elapsed = time.perf_counter() - t0
+    if args.output:
+        with open(args.output, "w") as f:
+            f.write("proba_1\n")
+            f.write("\n".join(repr(float(p)) for p in proba) + "\n")
+    print(json.dumps({
+        "rows": int(ds.n),
+        "seconds": round(elapsed, 3),
+        "tx_s": round(ds.n / max(elapsed, 1e-9), 1),
+        "flagged_fraud": int((proba >= cfg.fraud_threshold).sum()),
+        "fraud_threshold": cfg.fraud_threshold,
+        # the mean of no rows is NaN, which is not JSON
+        "mean_proba": round(float(np.mean(proba)), 6) if ds.n else None,
+        "output": args.output or None,
+        "checkpoint": params is not None,
+    }))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="ccfd_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -804,7 +950,7 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--steps", type=int, default=500)
     t.add_argument("--checkpoint-dir", default=DEFAULT_CHECKPOINT_DIR)
     t.add_argument("--family", choices=("mlp", "hgb"), default="mlp",
-                   help="hgb (the tree family) is not ported")
+                   help="hgb needs scikit-learn, which the port does not import (exit 2)")
     t.add_argument("--from-store", action="store_true",
                    help="read the CSV from the object store (not ported)")
     t.add_argument("--test-frac", type=float, default=0.2)
@@ -822,6 +968,9 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--train-steps", type=int, default=300)
     s.add_argument("--checkpoint-dir", default=DEFAULT_CHECKPOINT_DIR,
                    help="serve the newest `train` step there when present (the MLP)")
+    s.add_argument("--gbt-dir", default=GBT_DIR,
+                   help="tree params dir used when CCFD_MODEL=gbt "
+                   "(written by the reference's `train --family hgb`)")
     s.add_argument("--host", default=None, help="bind address (CCFD_SERVE_HOST)")
     s.add_argument("--port", type=int, default=None, help="port (CCFD_SERVE_PORT)")
     s.set_defaults(fn=cmd_serve)
@@ -835,6 +984,21 @@ def build_parser() -> argparse.ArgumentParser:
     q.add_argument("--device", choices=("cuda", "cpu"), default=None,
                    help="where the f32 evidence forward runs (default: the card)")
     q.set_defaults(fn=cmd_quantize)
+    sc = sub.add_parser("score", help="offline bulk scoring: CSV -> probabilities")
+    sc.add_argument("--input", default="", help="creditcard.csv path (default: "
+                    "CCFD_CSV, else the synthetic stream)")
+    sc.add_argument("--output", default="", help="write proba_1 CSV here")
+    sc.add_argument("--depth", type=int, default=2, help="pipelined dispatch depth")
+    sc.add_argument("--checkpoint-dir", default=DEFAULT_CHECKPOINT_DIR,
+                    help="the newest `train` step there when present (the MLP)")
+    sc.add_argument("--quantized-dir", default=None,
+                    help="int8 checkpoint dir (npz steps) used when CCFD_MODEL=mlp_q8 "
+                    "(default: the committed checkpoint, quantized)")
+    sc.add_argument("--gbt-dir", default=GBT_DIR,
+                    help="tree params dir used when CCFD_MODEL=gbt")
+    sc.add_argument("--device", choices=("cuda", "cpu"), default=None,
+                    help="where to score (default: the card)")
+    sc.set_defaults(fn=cmd_score)
     d = sub.add_parser("demo", help="run the decision pipeline in-process")
     d.add_argument("--transactions", type=int, default=2000)
     d.add_argument("--rate", type=float, default=None,

@@ -4,6 +4,10 @@ Only the knobs the port reads, parsed from the same environment variables
 as ccfd_tpu/config.py, with the same defaults:
 
     CCFD_MODEL, CCFD_DTYPE, CCFD_BATCH_SIZES            scorer
+    CCFD_GRAPH_CR                                       a SeldonDeployment CR
+                                                        that `serve` and
+                                                        `score` serve in place
+                                                        of CCFD_MODEL
     CCFD_Q8_WIRE                                        mlp_q8 rows on the
                                                         wire: int8 (default,
                                                         kernel B3) or f32
@@ -58,8 +62,7 @@ too, so that setting one is refused by name rather than ignored
 (CCFD_AUDIT_TOPIC), the producer's object-store source (s3endpoint), fault
 injection (CCFD_FAULTS), the batcher's overload queue policies
 (CCFD_OVERLOAD_SERVE_CODEL_TARGET_MS, CCFD_OVERLOAD_REST_QUEUE_ROWS), the
-SeldonDeployment-shaped inference graph (CCFD_GRAPH_CR), the model
-lifecycle's lineage store (CCFD_LIFECYCLE_DIR), and the two ways
+model lifecycle's lineage store (CCFD_LIFECYCLE_DIR), and the two ways
 the reference scores small requests round the kernel: the Scorer's host
 latency tier (CCFD_HOST_TIER_ROWS > 0) and the REST front's in-IO-thread
 host model (CCFD_INLINE_ROWS > 0). Their auto value (-1, or unset) is off
@@ -303,8 +306,6 @@ class Config:
         if self.overload_serve_codel_target_ms > 0 or self.overload_rest_queue_rows > 0:
             out.append("CCFD_OVERLOAD_SERVE_CODEL_TARGET_MS/CCFD_OVERLOAD_REST_QUEUE_ROWS "
                        "(the batcher's overload queue policies)")
-        if self.graph_cr:
-            out.append("CCFD_GRAPH_CR (the SeldonDeployment inference graph)")
         if self.lifecycle_dir:
             out.append("CCFD_LIFECYCLE_DIR (the model lifecycle's lineage store)")
         if self.host_tier_rows > 0:

@@ -25,3 +25,17 @@ def resolve(device: "str | torch.device | None" = None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev!s}: use 'cuda' or 'cpu'")
     return dev
+
+
+def require_full_f32(t: torch.Tensor, what: str) -> None:
+    """Raise when a float32 matmul on ``t``'s device would run in TF32.
+
+    TF32 keeps 10 mantissa bits of each operand: the tree family's
+    selection matmul would flip split decisions, and the f32 dot of
+    ``logreg`` and of the graph's ``hash_split`` router would lose about
+    three digits. On the CPU there is no TF32."""
+    if t.is_cuda and (torch.backends.cuda.matmul.allow_tf32
+                      or torch.get_float32_matmul_precision() != "highest"):
+        raise RuntimeError(
+            f"{what} needs full float32 matmuls on the card: TF32 is on "
+            "(torch.backends.cuda.matmul.allow_tf32 / set_float32_matmul_precision)")

@@ -154,4 +154,5 @@ def register(base_params: Params | None = None) -> None:
             p = mlp.set_normalizer(p, np.zeros(f, np.float32), np.ones(f, np.float32))
         return quantize_mlp(p)
 
-    register_model(ModelSpec("mlp_q8", init, apply, apply_numpy))
+    register_model(ModelSpec("mlp_q8", init, apply, logits, trainable=False,
+                             apply_numpy=apply_numpy))

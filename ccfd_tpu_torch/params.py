@@ -1,11 +1,18 @@
-"""Carry MLP weights between the JAX reference and the port.
+"""Carry model params between the JAX reference and the port.
 
-The reference's MLP params are a pytree (ccfd_tpu/models/mlp.py):
+A param tree is nested dicts and lists whose leaves are tensors (or numpy
+arrays, or Python scalars). The MLP's (ccfd_tpu/models/mlp.py) is
 ``{"norm": {"mu", "sigma"}, "layers": [{"w", "b"} x depth]}``; its int8
-params (ccfd_tpu/ops/quant.py) hold ``{"wq", "scale", "b"}`` per layer. On
-disk the port reads an ``.npz`` whose keys flatten either tree:
-``norm/mu``, ``norm/sigma``, then ``layers/{i}/w``, ``layers/{i}/b`` (f32)
-or ``layers/{i}/wq`` (int8, kept int8), ``layers/{i}/scale``,
+params (ccfd_tpu/ops/quant.py) hold ``{"wq", "scale", "b"}`` per layer;
+``logreg``/``modelfull`` hold ``{"w", "b"}``, the tree family ``{"feature",
+"threshold", "leaf", "base"}``, and an inference graph ``{node name: that
+node's params}``. Floating leaves are float32 in the port; integer leaves
+keep their type (int8 ``wq``, int32 ``feature``). ``to_numpy``,
+``to_device`` and ``flatten`` take any such tree.
+
+On disk the port reads an ``.npz`` whose keys flatten the MLP or int8
+tree: ``norm/mu``, ``norm/sigma``, then ``layers/{i}/w``, ``layers/{i}/b``
+(f32) or ``layers/{i}/wq`` (int8, kept int8), ``layers/{i}/scale``,
 ``layers/{i}/b``. ``load_params`` tells the two apart by their keys. The
 committed ``assets/mlp_step_1200.npz`` is the reference's
 ``checkpoints/step_1200`` written that way (tools/export_torch_params.py);
@@ -23,40 +30,31 @@ import torch
 
 DEFAULT_PARAMS = Path(__file__).resolve().parent / "assets" / "mlp_step_1200.npz"
 
-# the MLP's param tree with placeholder leaves: the structure a checkpoint
-# restore rebuilds (parallel/checkpoint.py)
+# the MLP's and the int8 MLP's param trees with placeholder leaves: the
+# structures a checkpoint restore rebuilds (parallel/checkpoint.py)
 MLP_LIKE = {"norm": {"mu": None, "sigma": None},
             "layers": [{"w": None, "b": None} for _ in range(3)]}
+Q8_LIKE = {"norm": {"mu": None, "sigma": None},
+           "layers": [{"wq": None, "scale": None, "b": None} for _ in range(3)]}
 
 # per-layer leaves of each tree, with their dtype
 _F32_LEAVES = {"w": np.float32, "b": np.float32}
 _Q8_LEAVES = {"wq": np.int8, "scale": np.float32, "b": np.float32}
 
 
-def _leaves(layer: Mapping[str, Any]) -> dict:
-    return _Q8_LEAVES if "wq" in layer else _F32_LEAVES
-
-
-def _convert(tree: Mapping[str, Any], conv) -> dict:
-    return {
-        "norm": {k: conv(tree["norm"][k], np.float32) for k in ("mu", "sigma")},
-        "layers": [{k: conv(layer[k], dt) for k, dt in _leaves(layer).items()}
-                   for layer in tree["layers"]],
-    }
+def _mlp_tree(tree: Mapping[str, Any], leaves: dict) -> dict:
+    """The MLP-shaped ``tree`` cut to the normalizer and ``leaves`` per
+    layer, each leaf a numpy array of its dtype."""
+    return {"norm": {k: np.asarray(tree["norm"][k], np.float32) for k in ("mu", "sigma")},
+            "layers": [{k: np.asarray(layer[k], dt) for k, dt in leaves.items()}
+                       for layer in tree["layers"]]}
 
 
 def from_jax_params(tree: Mapping[str, Any],
                     device: "str | torch.device" = "cpu") -> dict:
     """The reference's MLP pytree (numpy arrays or anything ``np.asarray``
     takes) -> the port's params: float32 tensors on ``device``."""
-    def t(a: Any) -> torch.Tensor:
-        return torch.tensor(np.asarray(a, np.float32), device=device)
-
-    return {
-        "norm": {"mu": t(tree["norm"]["mu"]), "sigma": t(tree["norm"]["sigma"])},
-        "layers": [{"w": t(layer["w"]), "b": t(layer["b"])}
-                   for layer in tree["layers"]],
-    }
+    return to_device(_mlp_tree(tree, _F32_LEAVES), device)
 
 
 def from_jax_q8_params(tree: Mapping[str, Any],
@@ -64,40 +62,75 @@ def from_jax_q8_params(tree: Mapping[str, Any],
     """The reference's int8 pytree (ops/quant.py quantize_mlp) -> the
     port's: ``wq`` int8, ``scale``, ``b`` and the normalizer float32, on
     ``device``."""
-    def t(a: Any, dt: Any) -> torch.Tensor:
-        return torch.tensor(np.asarray(a, dt), device=device)
-
-    return _convert({"norm": tree["norm"],
-                     "layers": [{k: layer[k] for k in _Q8_LEAVES}
-                                for layer in tree["layers"]]}, t)
+    return to_device(_mlp_tree(tree, _Q8_LEAVES), device)
 
 
-def to_numpy(params: Mapping[str, Any]) -> dict:
-    """The port's params (either tree) -> the same tree of host numpy
-    arrays: float32, and int8 for ``wq``."""
-    def n(a: Any, dt: Any) -> np.ndarray:
-        if isinstance(a, torch.Tensor):
-            a = a.detach().cpu().numpy()
-        return np.array(a, dt)
-
-    return _convert(params, n)
-
-
-def to_device(tree: Mapping[str, Any], device: "str | torch.device") -> dict:
-    """The same param tree with every tensor on ``device``."""
-    return {"norm": {k: v.to(device) for k, v in tree["norm"].items()},
-            "layers": [{k: v.to(device) for k, v in layer.items()}
-                       for layer in tree["layers"]]}
+def tree_map(fn: Any, tree: Any) -> Any:
+    """``fn`` applied to every leaf of a tree of dicts and lists, the
+    structure kept (dict order too)."""
+    if isinstance(tree, Mapping):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
 
 
-def flatten(tree: Mapping[str, Any]) -> dict[str, np.ndarray]:
-    """Param tree -> ``{"norm/mu": ..., "layers/0/w": ...}`` numpy arrays."""
-    tree = to_numpy(tree)
-    flat = {"norm/mu": tree["norm"]["mu"], "norm/sigma": tree["norm"]["sigma"]}
-    for i, layer in enumerate(tree["layers"]):
-        for k, v in layer.items():
-            flat[f"layers/{i}/{k}"] = v
+def host_leaf(a: Any) -> np.ndarray:
+    """One leaf as a fresh host numpy array: floats float32, integers (int8
+    ``wq``, int32 ``feature``) their own type."""
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu().numpy()
+    a = np.asarray(a)
+    return np.array(a, np.float32 if a.dtype.kind == "f" else a.dtype)
+
+
+def tensor_leaf(a: Any, device: "str | torch.device" = "cpu", copy: bool = False) -> torch.Tensor:
+    """One leaf as a tensor on ``device``: floats float32, integers their
+    own type; the same tensor when nothing changes, unless ``copy``."""
+    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(host_leaf(a))
+    return t.to(device, torch.float32 if t.is_floating_point() else t.dtype, copy=copy)
+
+
+def to_numpy(params: Any) -> dict:
+    """The port's params (any tree) -> the same tree of host numpy arrays."""
+    return tree_map(host_leaf, params)
+
+
+def to_device(tree: Any, device: "str | torch.device") -> dict:
+    """The same param tree with every leaf a tensor on ``device``."""
+    return tree_map(lambda a: tensor_leaf(a, device), tree)
+
+
+def flatten(tree: Any) -> dict[str, np.ndarray]:
+    """Param tree -> ``{"norm/mu": ..., "layers/0/w": ...}`` numpy arrays:
+    each leaf under the path of its dict keys and list indices."""
+    flat: dict[str, np.ndarray] = {}
+
+    def walk(node: Any, path: str) -> None:
+        if isinstance(node, Mapping):
+            for k, v in node.items():
+                walk(v, f"{path}/{k}" if path else str(k))
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, f"{path}/{i}" if path else str(i))
+        else:
+            flat[path] = host_leaf(node)
+
+    walk(tree, "")
     return flat
+
+
+def from_jax_model_params(name: str, tree: Any,
+                          device: "str | torch.device" = "cpu") -> dict:
+    """The reference's params of model ``name`` (a pytree of numpy arrays,
+    or anything ``np.asarray`` takes) -> the port's, on ``device``. For
+    ``mlp_q8``, ``from_jax_q8_params``; for any other model (``mlp``,
+    ``logreg``, ``modelfull``, ``gbt``, ``gbt_mxu``, or an inference graph's
+    ``{node: params}``) the same tree with floats float32 and integers
+    (``feature``, a q8 node's ``wq``) of their own type."""
+    if name == "mlp_q8":
+        return from_jax_q8_params(tree, device)
+    return to_device(tree, device)
 
 
 def save_params(tree: Mapping[str, Any], path: "str | Path") -> None:

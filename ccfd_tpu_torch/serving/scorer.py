@@ -1,6 +1,6 @@
-"""Row scorer on the card: bucketed dispatch through kernels B1, B2 and B3
-and hot-swappable params. The port of ccfd_tpu/serving/scorer.py's
-``Scorer``.
+"""Row scorer on the card: bucketed dispatch of any registered model
+(kernels B1, B2 and B3 for the MLP family) and hot-swappable params. The
+port of ccfd_tpu/serving/scorer.py's ``Scorer``.
 
 - **Fixed batch shapes.** Every request batch pads up to a configured
   bucket (CCFD_BATCH_SIZES), as in the reference, so each launch has one of
@@ -17,6 +17,11 @@ and hot-swappable params. The port of ccfd_tpu/serving/scorer.py's
     (``prequantize_rows_numpy``, the model's own first requantization) and
     ships as int8 rows plus one f32 scale per row, 34 B/row, through B3.
     With ``q8_wire="f32"`` f32 rows go through B2.
+  - any other model (``mlp`` in another dtype, ``logreg``/``modelfull``,
+    ``gbt``, ``gbt_mxu``, an inference graph): its torch ``apply`` on f32
+    rows, as the reference runs it under XLA. Its params may be any tree
+    (``params.py``), a graph's ``{node: params}`` included; ``fused`` and
+    ``int8_wire`` are off.
   Staged rows go into pinned buffers taken per call, are copied to the
   card with ``non_blocking=True``, scored, and copied back into a pinned
   buffer. Per-call buffers come from PyTorch's caching host allocator,
@@ -61,7 +66,7 @@ from ccfd_tpu_torch.data.ccfd import NUM_FEATURES
 from ccfd_tpu_torch.device import resolve
 from ccfd_tpu_torch.models.registry import ModelSpec, get_model
 from ccfd_tpu_torch.ops import fused_mlp, fused_mlp_q8
-from ccfd_tpu_torch.params import to_numpy
+from ccfd_tpu_torch.params import tensor_leaf, to_numpy, tree_map
 from ccfd_tpu_torch.serving.dispatch import DeviceDispatcher, ScorerTimeout, WedgeMonitor
 
 _DTYPES = {
@@ -101,8 +106,7 @@ class Scorer:
             and self.compute_dtype == torch.bfloat16 else None)
         self.int8_wire = self._q8 and q8_wire == "int8"
         if params is None:
-            params = self.spec.init(torch.Generator().manual_seed(seed),
-                                    num_features)
+            params = self.spec.init(torch.Generator().manual_seed(seed))
         self._lock = threading.Lock()
         # per-bucket dispatch tally for the executable inventory
         self._dispatch_counts: dict[int, int] = {}
@@ -127,18 +131,9 @@ class Scorer:
         """Fresh device copies of ``params`` and, on a kernel path, the
         folded kernel weights and (int8 wire) the host normalizer the rows
         are quantized with; committed before return. ``params`` may hold
-        tensors or numpy arrays. Raises ``ValueError`` for params the
-        kernel does not take."""
-        def put(a: Any) -> torch.Tensor:
-            t = torch.as_tensor(a)
-            dtype = torch.float32 if t.is_floating_point() else t.dtype
-            return t.to(self.device, dtype, copy=True)
-
-        staged = {
-            "norm": {k: put(v) for k, v in params["norm"].items()},
-            "layers": [{k: put(v) for k, v in layer.items()}
-                       for layer in params["layers"]],
-        }
+        tensors or numpy arrays, in any tree. Raises ``ValueError`` for
+        params the kernel does not take."""
+        staged = tree_map(lambda a: tensor_leaf(a, self.device, copy=True), params)
         kp = host_norm = None
         if self._kmod is not None:
             folded = self._kmod.fold_for_kernel(staged)
@@ -320,7 +315,8 @@ class Scorer:
     # -- the router's host tier ------------------------------------------------
     @property
     def has_host_forward(self) -> bool:
-        """True: both served families have a numpy forward."""
+        """True when the model has a numpy forward (every registry model;
+        not an inference graph)."""
         return self.spec.apply_numpy is not None
 
     def host_score(self, x: np.ndarray) -> np.ndarray:

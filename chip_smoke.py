@@ -4,8 +4,10 @@
 Drives the port's paths on the card (training and the checkpoint round
 trip into serving, the REST scorer, the decision plane, the decision
 pipeline of ``python -m ccfd_tpu_torch demo`` with and without its online
-trainer, and the service roles as separate processes) and holds each CUDA
-kernel against its plain PyTorch version. Each kernel's ``launches`` in the
+trainer, the service roles as separate processes, and the reference's
+other Seldon models: logreg/modelfull, the tree family, the inference
+graph and the ``score`` command) and holds each CUDA kernel against its
+plain PyTorch version. Each kernel's ``launches`` in the
 kernels line sum the runs of the paths through it (train, serve, demo and
 services; in each role process, its dispatches, read off its scrape). The
 kernels: B1
@@ -133,6 +135,33 @@ wire).
                each serve process's B1 launches = its dispatches + its warmup;
            every role's start-up line shows its gen-0 GC threshold (the
            reference's service tuning), printed per role
+  models   the reference's other Seldon models, torch code on the card (no
+           hand kernel: the reference leaves them to XLA):
+           (a) card against CPU, the same port function, B=16 and 16,384:
+               logreg (bf16 and f32, the IRLS fit of the surrogate rows) and
+               graph_ensemble.json (bf16 and f32) within 1e-5 in p; gbt and
+               gbt_mxu on the committed ensemble (checkpoints_gbt) and a
+               seeded depth-8 one (quantile thresholds, dead slots), on rows
+               1% of which hold a NaN or +/-inf cell: every leaf index equal
+               to the CPU's, z within 1e-5 a tree, gbt_mxu within 1e-6 of
+               gbt on the card; a hash_split ROUTER graph: the card's arms
+               against the numpy mirror and the CPU, a differing row
+               excused only within 4 float32 ulps of |h| of a boundary (the
+               count and each margin printed), p on the rows routed alike;
+           (b) CCFD_MODEL=gbt (what `serve` builds) on the reference's
+               held-out split of the full surrogate: AUC within 1e-4 of the
+               reference's recorded auc_hgb_served;
+           (c) `serve` with CCFD_MODEL=modelfull, gbt and CCFD_GRAPH_CR on
+               the C++ front, 200 sequential 16-row POSTs each against the
+               CPU (1e-5), p50/p99, no hand-kernel launch;
+           (d) `score` with CCFD_MODEL=gbt over 20,000 rows on the card and
+               the CPU: rows, tx/s, the proba files within 1e-5;
+           (e) device ms a call at B=16 and 16,384 (a CUDA graph of
+               back-to-back calls: each function captures) for logreg,
+               gbt, gbt_mxu, the ensemble graph and its mlp node, beside a
+               bound from bytes and operations; gbt_mxu's peak memory; and
+               B1 on the ensemble's mlp node params, the yardstick for
+               that node
   timing   each kernel and its plain version at B=16 and B=16384 at the
            served H=256, beside the roofline bound: the kernel's device
            time from CUDA events around a CUDA graph of back-to-back
@@ -163,7 +192,7 @@ import time
 import urllib.request
 
 PHASES = ("device", "build", "parity", "train", "serve", "decision", "demo", "services",
-          "timing")
+          "models", "timing")
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 7
 PARITY_BATCHES = (1, 16, 100, 1024, 16384)
@@ -223,7 +252,37 @@ TIMING_BATCHES = (16, 16384)
 SEQ_POSTS = 200  # sequential 16-row POSTs a serving run times
 DEADLINE_MS = 1000  # the serve phase's run with the dispatch deadline armed
 DEADLINE_SERIES = ("ccfd_dispatch_timeouts_total", "ccfd_device_wedged")
+# the models phase (the reference's other Seldon models): card against CPU
+# on the same port function. logreg and graphs sum 30 (or the mlp node's)
+# products in another order: 1e-5 in p. A tree ensemble reaches the same
+# leaves on both devices and sums T float32 leaf values in another order:
+# 1e-5 of z a tree; the gather-free evaluation sums like the gather form on
+# one device (models/trees.py): 1e-6.
+MODEL_BATCHES = (16, 16384)
+MODEL_TOL_P = 1e-5
+TREE_TOL_Z = 1e-5  # times the number of trees
+MXU_TOL_Z = 1e-6
+NONFINITE_ROWS = 0.01  # share of the tree rows given a NaN or +/-inf cell
+SEEDED_TREES = 64  # the seeded depth-8 ensemble (data-quantile thresholds)
+DEAD_SLOTS = 0.25  # share of its internal slots left dead (threshold +inf)
+# `python -m ccfd_tpu train --family hgb` (the reference, full surrogate,
+# depth 8) printed auc_hgb_served 0.9641 for checkpoints_gbt/params.npz
+RECORDED_AUC_HGB = 0.9641
+AUC_HGB_BAR = 1e-4
+SCORE_ROWS = 20_000
+GRAPH_CR = "deploy/model/graph_ensemble.json"
+# a hash_split ROUTER over the committed ensemble and a clipped logreg
+ROUTED_CR = {"metadata": {"name": "smoke-routed"}, "spec": {"predictors": [{"graph": {
+    "name": "ab", "type": "ROUTER", "implementation": "hash_split",
+    "parameters": [{"name": "weights", "value": "[0.7, 0.3]", "type": "JSON"}],
+    "children": [
+        {"name": "trees", "type": "MODEL", "implementation": "gbt"},
+        {"name": "clipped", "type": "TRANSFORMER", "implementation": "clip",
+         "parameters": [{"name": "lo", "value": "-50", "type": "FLOAT"},
+                        {"name": "hi", "value": "500", "type": "FLOAT"}],
+         "children": [{"name": "modelfull", "type": "MODEL"}]}]}}]}}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+F32_FLOPS = 67e12  # float32 outside the tensor cores, NVIDIA data sheet
 BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, NVIDIA data sheet
 INT8_OPS = 1979e12  # dense int8 tensor-core peak, NVIDIA data sheet
 # the CUDA cores: 132 SMs x 128 f32 lanes at the 1.98 GHz boost clock
@@ -1904,6 +1963,387 @@ class Smoke:
                 raise AssertionError(f"{tag}: a serve process's dispatch deadline counters: "
                                      f"{ {k: s.get(k) for k in DEADLINE_SERIES} }")
         return int(sum(disp))
+
+    # -- the models phase ------------------------------------------------
+    def models(self) -> None:
+        """The reference's other Seldon models on the card: parity card
+        against CPU, the committed tree ensemble's held-out AUC, REST and
+        `score` on the card (no hand kernel on these paths), and device
+        times."""
+        from ccfd_tpu_torch import cli
+        from ccfd_tpu_torch.models import logreg
+
+        torch = self.torch
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("TF32 is on: the models' float32 products would round")
+        self.m_logreg = logreg.fit_numpy(self.rows.astype("float64"), self.labels)
+        self.m_trees = {"artifact": cli.restore_gbt_params(os.path.join(REPO, "checkpoints_gbt")),
+                        "seeded depth-8": self.seeded_trees()}
+        if self.m_trees["artifact"] is None:
+            raise AssertionError("checkpoints_gbt/params.npz is missing or unreadable")
+        self.models_parity()
+        self.models_auc()
+        self.models_rest()
+        self.models_score()
+        self.models_timing()
+
+    def seeded_trees(self) -> dict:
+        """SEEDED_TREES depth-8 trees: split features drawn at random,
+        thresholds at data quantiles, DEAD_SLOTS of the internal slots dead."""
+        import numpy as np
+
+        rng = np.random.default_rng(SEED)
+        n_int, torch = 255, self.torch
+        feat = rng.integers(0, self.rows.shape[1], (SEEDED_TREES, n_int)).astype(np.int32)
+        ranks = (rng.uniform(0.02, 0.98, feat.shape) * (len(self.rows) - 1)).astype(np.int64)
+        thr = np.sort(self.rows, axis=0)[ranks, feat]  # each node's column at a quantile
+        thr = np.where(rng.random(thr.shape) < DEAD_SLOTS, np.inf, thr).astype(np.float32)
+        return {"feature": torch.from_numpy(feat), "threshold": torch.from_numpy(thr),
+                "leaf": torch.from_numpy(rng.normal(0, 0.1, (SEEDED_TREES, 256)).astype(
+                    np.float32)), "base": torch.tensor(-2.0)}
+
+    def model_rows(self, nonfinite: bool = False):
+        """MODEL_BATCHES[-1] surrogate rows; with ``nonfinite`` a seeded
+        NONFINITE_ROWS of them carry a NaN, +inf or -inf cell."""
+        import numpy as np
+
+        x = self.rows[:MODEL_BATCHES[-1]].copy()
+        if nonfinite:
+            rng = np.random.default_rng(SEED + 1)
+            rows = rng.choice(len(x), int(len(x) * NONFINITE_ROWS), replace=False)
+            rows[:4] = (1, 5, 9, 13)  # some in the smallest batch too
+            cols = rng.integers(0, x.shape[1], len(rows))
+            x[rows, cols] = rng.choice(np.array([np.nan, np.inf, -np.inf], np.float32),
+                                       len(rows))
+        return x
+
+    def graph_params(self, spec) -> dict:
+        """A graph's seeded init, with the committed checkpoint in an
+        ``mlp`` node, the fitted logreg in ``modelfull`` and the committed
+        ensemble in ``trees``, so every node's output spreads."""
+        from ccfd_tpu_torch.params import load_params
+
+        p = spec.init(self.torch.Generator().manual_seed(SEED))
+        for node, value in (("mlp", load_params()), ("modelfull", self.m_logreg),
+                            ("trees", self.m_trees["artifact"])):
+            if node in p:
+                p[node] = value
+        return p
+
+    def models_parity(self) -> None:
+        import numpy as np
+
+        from ccfd_tpu_torch.models import logreg, trees
+        from ccfd_tpu_torch.params import to_device
+        from ccfd_tpu_torch.serving import graph
+
+        torch, dev = self.torch, self.dev
+
+        def both(x):
+            return torch.from_numpy(x), torch.from_numpy(x).to(dev)
+
+        def check(name: str, what: str, got, want, tol: float) -> float:
+            d = (got.double() - want.double()).abs().max().item()
+            log("models", f"{name} {what}: card vs CPU max|d|={d:.3e} (bar {tol:.1e})")
+            if not d <= tol or not torch.isfinite(got).all():
+                raise AssertionError(f"{name} {what}: card and CPU differ by {d} (bar {tol})")
+            return d
+
+        x_fin = self.model_rows()
+        lr_cpu, lr_card = self.m_logreg, to_device(self.m_logreg, dev)
+        for dt in (torch.bfloat16, torch.float32):
+            for b in MODEL_BATCHES:
+                xc, xd = both(x_fin[:b])
+                check("logreg", f"{str(dt)[6:]} B={b}", logreg.apply(lr_card, xd, dt).cpu(),
+                      logreg.apply(lr_cpu, xc, dt), MODEL_TOL_P)
+        x_nf = self.model_rows(nonfinite=True)
+        for which, tp in self.m_trees.items():
+            t = tp["leaf"].shape[0]
+            card = to_device(tp, dev)
+            for b in MODEL_BATCHES:
+                xc, xd = both(x_nf[:b])
+                what = f"{which} (T={t}, D={trees.depth_of(tp)}) B={b}"
+                leaves = trees.leaf_indices(tp, xc)
+                for name, fn in (("gbt", trees.leaf_indices), ("gbt_mxu", trees.leaf_indices_mxu)):
+                    got = fn(card, xd).cpu()
+                    if not torch.equal(got, leaves):
+                        raise AssertionError(f"{name} {what}: {(got != leaves).sum().item()} "
+                                             "leaf indices differ from the CPU's")
+                z_cpu = trees.logits(tp, xc)
+                z_card, z_mxu = trees.logits(card, xd).cpu(), trees.logits_mxu(card, xd).cpu()
+                check("gbt", what + ", z", z_card, z_cpu, TREE_TOL_Z * t)
+                check("gbt_mxu", what + ", z", z_mxu, z_cpu, TREE_TOL_Z * t)
+                d = (z_mxu - z_card).abs().max().item()
+                log("models", f"gbt_mxu {what}: every leaf index equal to the CPU's; z vs gbt "
+                    f"on the card max|d|={d:.3e} (bar {MXU_TOL_Z:.0e}); rows with a "
+                    f"non-finite cell {int((~torch.isfinite(xc)).any(1).sum())}")
+                if not d <= MXU_TOL_Z:
+                    raise AssertionError(f"gbt_mxu vs gbt on the card ({what}): {d}")
+        spec = graph.load_graph_cr(os.path.join(REPO, GRAPH_CR))
+        gp = self.graph_params(spec)
+        gp_card = to_device(gp, dev)
+        for dt in (torch.bfloat16, torch.float32):
+            for b in MODEL_BATCHES:
+                xc, xd = both(x_fin[:b])
+                check(spec.name, f"{str(dt)[6:]} B={b}", spec.apply(gp_card, xd, dt).cpu(),
+                      spec.apply(gp, xc, dt), MODEL_TOL_P)
+        self.models_hash_split(x_fin, both, check)
+
+    def models_hash_split(self, x_fin, both, check) -> None:
+        """The hash_split ROUTER graph: the card's arms against the port's
+        numpy mirror (a row may differ only where u lies within
+        HASH_SPLIT_MARGIN_ULPS of a boundary), then p against the CPU on
+        the rows the card and the CPU route alike."""
+        import numpy as np
+
+        from ccfd_tpu_torch.params import to_device
+        from ccfd_tpu_torch.serving import graph
+
+        torch = self.torch
+        g = graph.InferenceGraph.from_cr(ROUTED_CR)
+        spec = g.as_model_spec()
+        gp = self.graph_params(spec)
+        gp_card = to_device(gp, self.dev)
+        weights = [0.7, 0.3]
+        for b in MODEL_BATCHES:
+            x = x_fin[:b]
+            xc, xd = both(x)
+            arms = {"card": graph.hash_split_arms(xd, gp_card["ab"]["cum"]).cpu().numpy(),
+                    "cpu": graph.hash_split_arms(xc, gp["ab"]["cum"]).numpy(),
+                    "numpy": graph.hash_split_arms_numpy(x, weights)}
+            margin = graph.hash_split_margin_ulps(x, weights)
+            for a, bb in (("card", "numpy"), ("card", "cpu")):
+                differ = np.flatnonzero(arms[a] != arms[bb])
+                log("models", f"hash_split B={b}: {len(differ)} rows whose arm on the {a} "
+                    f"differs from the {bb}'s; their u lies "
+                    f"{[round(float(m), 3) for m in margin[differ]]} f32 ulps of |h| "
+                    f"from a boundary (bar {graph.HASH_SPLIT_MARGIN_ULPS}; arm shares "
+                    f"{np.bincount(arms['card'], minlength=2) / b})")
+                if (margin[differ] > graph.HASH_SPLIT_MARGIN_ULPS).any():
+                    raise AssertionError(f"hash_split B={b}: a {a} arm differs from the "
+                                         f"{bb}'s away from a boundary: {margin[differ]}")
+            same = torch.from_numpy(arms["card"] == arms["cpu"])
+            check(spec.name, f"float32 B={b}, the {int(same.sum())} rows routed alike",
+                  spec.apply(gp_card, xd, torch.float32).cpu()[same],
+                  spec.apply(gp, xc, torch.float32)[same], MODEL_TOL_P)
+
+    def models_auc(self) -> None:
+        """CCFD_MODEL=gbt on the card (what `serve` builds) on the
+        reference's held-out split of the full surrogate."""
+        from ccfd_tpu_torch import cli
+        from ccfd_tpu_torch.config import Config
+        from ccfd_tpu_torch.data.surrogate import kaggle_surrogate
+        from ccfd_tpu_torch.utils.metrics_math import roc_auc
+
+        ds = kaggle_surrogate()
+        test, _train = cli.held_out_split(ds.n, 0.2)
+        cfg = Config.from_env({**os.environ, "CCFD_MODEL": "gbt"})
+        scorer = cli.make_scorer(cfg, cli.served_params(
+            cfg, gbt_dir=os.path.join(REPO, "checkpoints_gbt")), self.dev)
+        t0 = time.perf_counter()
+        p = scorer.score_pipelined(ds.X[test])
+        dt = time.perf_counter() - t0
+        auc = roc_auc(ds.y[test], p)
+        log("models", f"gbt held-out AUC on the card {auc:.6f} over {len(test)} rows "
+            f"(scored in {dt:.3f} s) against the recorded auc_hgb_served {RECORDED_AUC_HGB} "
+            f"(|d| {abs(auc - RECORDED_AUC_HGB):.2e}, bar {AUC_HGB_BAR:.0e})")
+        if abs(auc - RECORDED_AUC_HGB) > AUC_HGB_BAR:
+            raise AssertionError(f"gbt held-out AUC {auc} != recorded {RECORDED_AUC_HGB}")
+
+    def models_rest(self) -> None:
+        """`serve` with CCFD_MODEL=modelfull, gbt and CCFD_GRAPH_CR on the
+        card through the C++ front: SEQ_POSTS sequential 16-row POSTs, each
+        answer against the model's torch function on the CPU; no hand
+        kernel launched (the counts set to 0 just before, read just after)."""
+        import http.client
+
+        from ccfd_tpu_torch import cli
+        from ccfd_tpu_torch.config import Config
+        from ccfd_tpu_torch.params import to_device
+
+        torch = self.torch
+        counters = self.counters()
+        for label, env in (("modelfull", {"CCFD_MODEL": "modelfull"}),
+                           ("gbt", {"CCFD_MODEL": "gbt"}),
+                           ("graph", {"CCFD_GRAPH_CR": os.path.join(REPO, GRAPH_CR)})):
+            srv = cli.build_server(Config.from_env({**os.environ, **env}), device=self.dev)
+            scorer = srv.scorer
+            if srv.transport != "native-front" or scorer.fused or scorer.device != self.dev:
+                raise AssertionError(f"serve {label}: {srv.transport} {scorer.executable_grid()}")
+            plain = to_device(scorer.params, "cpu")
+            port = srv.start("127.0.0.1", 0)
+            try:
+                conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+                for c in counters.values():
+                    c.reset()
+                d0 = scorer.dispatch_total()
+                seq, lat = sequential_posts(conn, self.rows, SEQ_POSTS)
+                launched = {k: c.value for k, c in counters.items()}
+                dispatched = scorer.dispatch_total() - d0
+                conn.close()
+            finally:
+                srv.stop()
+            worst = max(float((torch.from_numpy(p) - scorer.spec.apply(
+                plain, torch.from_numpy(x), scorer.compute_dtype).double()).abs().max())
+                for x, p in seq)
+            log("models", f"serve {' '.join(f'{k}={v}' for k, v in env.items())} (model "
+                f"{scorer.spec.name}, {srv.transport}): {SEQ_POSTS} sequential POSTs of 16 rows, "
+                f"{quantiles(lat)}; max|dp| vs the CPU {worst:.3e}; dispatches {dispatched}, "
+                f"hand-kernel launches {launched} on {self.card}")
+            if worst > MODEL_TOL_P or dispatched != SEQ_POSTS or any(launched.values()):
+                raise AssertionError(f"serve {label}: |dp| {worst}, dispatches {dispatched}, "
+                                     f"launches {launched}")
+
+    def models_score(self) -> None:
+        """`python -m ccfd_tpu_torch score` with CCFD_MODEL=gbt over
+        SCORE_ROWS surrogate rows on the card and on the CPU."""
+        import io
+
+        import numpy as np
+
+        from ccfd_tpu_torch import cli
+        from ccfd_tpu_torch.data.ccfd import FEATURE_NAMES
+
+        tmp = tempfile.mkdtemp(prefix="ccfd_score_")
+        old = os.environ.get("CCFD_MODEL")
+        counters = self.counters()
+        try:
+            csv = os.path.join(tmp, "rows.csv")
+            with open(csv, "w") as f:
+                f.write(",".join(FEATURE_NAMES + ("Class",)) + "\n")
+                for row, y in zip(self.rows[:SCORE_ROWS], self.labels[:SCORE_ROWS]):
+                    f.write(",".join(repr(float(v)) for v in row) + f",{int(y)}\n")
+            os.environ["CCFD_MODEL"] = "gbt"
+            docs, probas = {}, {}
+            for device in (self.dev.type, "cpu"):
+                out = io.StringIO()
+                for c in counters.values():
+                    c.reset()
+                with contextlib.redirect_stdout(out):
+                    rc = cli.main(["score", "--input", csv, "--output",
+                                   os.path.join(tmp, f"{device}.csv"), "--device", device,
+                                   "--gbt-dir", os.path.join(REPO, "checkpoints_gbt")])
+                docs[device] = json.loads(out.getvalue().strip().splitlines()[-1])
+                launched = {k: c.value for k, c in counters.items()}
+                with open(os.path.join(tmp, f"{device}.csv")) as f:
+                    probas[device] = np.array(f.read().split()[1:], np.float64)
+                log("models", f"score CCFD_MODEL=gbt --device {device}: rc {rc}, "
+                    f"{json.dumps(docs[device])}; hand-kernel launches {launched}")
+                if rc != 0 or docs[device]["rows"] != SCORE_ROWS or not docs[device][
+                        "checkpoint"] or any(launched.values()):
+                    raise AssertionError(f"score --device {device}: {docs[device]}")
+            card = self.dev.type
+            d = float(np.abs(probas[card] - probas["cpu"]).max())
+            log("models", f"score: the card's proba file vs the CPU's max|dp| {d:.3e} over "
+                f"{len(probas[card])} rows (bar {MODEL_TOL_P:.0e}); {docs[card]['tx_s']} "
+                f"tx/s on the card ({docs[card]['seconds']} s) on {self.card}")
+            if len(probas[card]) != SCORE_ROWS or not d <= MODEL_TOL_P or \
+                    docs[card]["flagged_fraud"] != docs["cpu"]["flagged_fraud"]:
+                raise AssertionError(f"score: card and CPU files differ by {d}")
+        finally:
+            if old is None:
+                os.environ.pop("CCFD_MODEL", None)
+            else:
+                os.environ["CCFD_MODEL"] = old
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    def models_timing(self) -> None:
+        """Device ms a call at MODEL_BATCHES for each model (a CUDA graph of
+        back-to-back calls), beside a bound from its bytes and
+        operations; the peak memory of gbt_mxu; and B1 on the ensemble's
+        ``mlp`` node params, the yardstick for that node."""
+        from ccfd_tpu_torch.models import logreg, mlp, trees
+        from ccfd_tpu_torch.ops.fused_mlp import fold_for_kernel, fused_mlp_score, pack_for_kernel
+        from ccfd_tpu_torch.params import flatten, to_device
+        from ccfd_tpu_torch.serving import graph
+
+        torch, dev = self.torch, self.dev
+
+        def device_ms(fn, n: int) -> tuple[float, str]:
+            """Device ms a call: ``n`` calls captured in one CUDA graph (every
+            model's function captures: no host sync inside), replayed 3
+            times between two events."""
+            for _ in range(3):
+                fn()
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                fn()
+            torch.cuda.current_stream().wait_stream(side)
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                for _ in range(n):
+                    fn()
+            g.replay()
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(3):
+                g.replay()
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end) / (3 * n), f"CUDA graph of {n} calls"
+
+        def nbytes(tree) -> int:
+            return sum(a.nbytes for a in flatten(tree).values())
+
+        spec = graph.load_graph_cr(os.path.join(REPO, GRAPH_CR))
+        gp = to_device(self.graph_params(spec), dev)
+        art = to_device(self.m_trees["artifact"], dev)
+        lr = to_device(self.m_logreg, dev)
+        t_, n_int = art["feature"].shape
+        depth = trees.depth_of(art)
+        h = gp["mlp"]["layers"][0]["w"].shape[1]
+        kp = pack_for_kernel(fold_for_kernel(gp["mlp"]), dev)
+        f = self.rows.shape[1]
+        mlp_flops = 2 * (f * h + h * h + h)
+        times = {}
+        for b in MODEL_BATCHES:
+            xd = torch.from_numpy(self.rows[:b]).to(dev)
+            xb = xd.to(torch.bfloat16)
+            n = 20 if b <= 16 else 5
+            cases = {
+                "logreg bf16": (lambda: logreg.apply(lr, xd, torch.bfloat16), nbytes(lr), 2 * f),
+                "logreg f32": (lambda: logreg.apply(lr, xd, torch.float32), nbytes(lr), 2 * f),
+                "gbt": (lambda: trees.apply(art, xd), nbytes(art), 2 * t_ * depth),
+                "gbt_mxu": (lambda: trees.apply_mxu(art, xd), nbytes(art),
+                            2 * f * t_ * n_int),
+                f"{spec.name} bf16": (lambda: spec.apply(gp, xd, torch.bfloat16), nbytes(gp),
+                                      mlp_flops + 2 * f),
+                "mlp node bf16 (torch)": (lambda: mlp.apply(gp["mlp"], xd, torch.bfloat16),
+                                          nbytes(gp["mlp"]), mlp_flops),
+                "B1 on the mlp node": (lambda: fused_mlp_score(kp, xb), nbytes(gp["mlp"]),
+                                       mlp_flops),
+            }
+            for name, (fn, pbytes, ops_row) in cases.items():
+                ms, how = device_ms(fn, n)
+                xbytes = b * f * (2 if name.startswith("B1") else 4)
+                t_bytes = (xbytes + pbytes + 4 * b) / HBM_BYTES_PER_S * 1e3
+                peak = BF16_FLOPS if name.startswith("B1") else F32_FLOPS
+                t_ops = b * ops_row / peak * 1e3
+                bound = max(t_bytes, t_ops)
+                by = "bytes" if t_bytes >= t_ops else "operations"
+                times[f"{name} B={b}"] = {"ms": ms, "bound_ms": bound, "bound_by": by,
+                                          "bytes_ms": t_bytes, "how": how}
+                log("models", f"{name} B={b}: {ms:.6f} ms a call ({how}); bound "
+                    f"{bound:.6f} ms ({by}; bytes alone {t_bytes:.6f} ms), {ms / t_bytes:.1f}x "
+                    f"its bytes bound on {self.card}")
+        xd = torch.from_numpy(self.rows[:MODEL_BATCHES[-1]]).to(dev)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        trees.apply_mxu(art, xd)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        log("models", f"gbt_mxu B={MODEL_BATCHES[-1]} (T={t_}, D={depth}): peak device memory "
+            f"{peak / 2**20:.1f} MiB above the inputs; one (B, T*(2^D-1)) float32 temporary "
+            f"is {MODEL_BATCHES[-1] * t_ * n_int * 4 / 2**20:.1f} MiB")
+        slow = max(times, key=lambda k: times[k]["ms"] / times[k]["bytes_ms"]
+                   if k.endswith(f"B={MODEL_BATCHES[-1]}") else 0.0)
+        log("models", f"slowest against its bytes bound at B={MODEL_BATCHES[-1]}: {slow} "
+            f"({times[slow]['ms'] / times[slow]['bytes_ms']:.1f}x)")
+        log("models", "times " + json.dumps(times))
 
     def timing(self) -> None:
         from ccfd_tpu_torch.ops import fused_mlp_q8 as q8

@@ -13,6 +13,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "ccfd_tpu_torch"
 
@@ -51,7 +53,8 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
               "utils.httpserver", "bus.server", "bus.client", "process.server",
               "process.client", "metrics.exporter", "native", "serving.native_front",
               "utils.gctune", "models.losses", "parallel.train", "parallel.online",
-              "parallel.checkpoint", "runtime.durability"):
+              "parallel.checkpoint", "runtime.durability", "models.logreg",
+              "models.trees", "models.registry", "serving.graph"):
         assert f"ccfd_tpu_torch.{m}" in res["mods"], m
     bad = [n for n in res["loaded"] if _forbidden(n)]
     assert bad == [], bad
@@ -105,3 +108,22 @@ def test_the_native_build_names_nothing_of_the_reference():
         includes = [ln for ln in Path(src).read_text().splitlines()
                     if ln.startswith("#include")]
         assert includes and all("<" in ln and '"' not in ln for ln in includes), includes
+
+
+@pytest.mark.parametrize("mod", ["models.logreg", "models.trees", "models.registry",
+                                 "serving.graph"])
+def test_the_model_modules_import_alone_without_the_reference(mod):
+    """Each model module loads by itself, with no JAX, reference or
+    scikit-learn module (the converters read fitted estimators' attributes)."""
+    code = (
+        "import importlib, json, sys\n"
+        f"importlib.import_module('ccfd_tpu_torch.{mod}')\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert [n for n in loaded if _forbidden(n)] == []

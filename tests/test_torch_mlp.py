@@ -76,11 +76,15 @@ def test_set_normalizer_guards_zero_std(rows):
 
 
 def test_registry_serves_mlp_only():
-    """The ported families only: ``mlp`` and (slice 2) ``mlp_q8``; the
-    others name the queue they wait in."""
+    """The ported families only: ``mlp``, ``mlp_q8``, ``logreg``/``modelfull``
+    and ``gbt``/``gbt_mxu``; the others (the seq family) name the queue they
+    wait in."""
+    from ccfd_tpu_torch.models import logreg, trees
     from ccfd_tpu_torch.ops import quant
 
     assert get_model("mlp").apply is mlp.apply
     assert get_model("mlp_q8").apply is quant.apply
+    assert get_model("modelfull").apply is logreg.apply
+    assert get_model("gbt_mxu").apply is trees.apply_mxu
     with pytest.raises(KeyError, match="ROADMAP.md"):
-        get_model("gbt")
+        get_model("seq")

@@ -178,7 +178,7 @@ def test_five_roles_route_as_the_in_process_pipeline(inputs):
     (["bus", "--dir", "/tmp/bus"], {}, "bus --dir"),
     (["engine", "--state-file", "/tmp/engine.json"], {}, "engine --state-file"),
     (["router"], {"CCFD_FAULTS": "scorer:error=0.5"}, "CCFD_FAULTS"),
-    (["router"], {"CCFD_GRAPH_CR": "graph.json"}, "CCFD_GRAPH_CR"),
+    (["router"], {"CCFD_LIFECYCLE_DIR": "/tmp/lc"}, "CCFD_LIFECYCLE_DIR"),
     (["serve", "--device", "cpu"], {"CCFD_OVERLOAD_REST_QUEUE_ROWS": "64"},
      "CCFD_OVERLOAD_REST_QUEUE_ROWS"),
     (["router"], {"BROKER_URL": "kafka://bootstrap:9092"}, "BROKER_URL"),
@@ -245,7 +245,7 @@ UNPORTED = [("CCFD_BUS_DIR", "/tmp/bus"), ("CCFD_BUS_RETENTION_RECORDS", "100"),
             ("BROKER_URL", "kafka://bus:9092"), ("bootstrap", "kafka:9092"),
             ("CCFD_AUDIT_TOPIC", "audit"), ("s3endpoint", "http://s3"),
             ("CCFD_FAULTS", "scorer:error=0.5"), ("CCFD_OVERLOAD_SERVE_CODEL_TARGET_MS", "5"),
-            ("CCFD_OVERLOAD_REST_QUEUE_ROWS", "64"), ("CCFD_GRAPH_CR", "graph.json"),
+            ("CCFD_OVERLOAD_REST_QUEUE_ROWS", "64"), ("CCFD_LIFECYCLE_DIR", "/tmp/lc"),
             ("CCFD_HOST_TIER_ROWS", "256"), ("CCFD_INLINE_ROWS", "64")]
 
 
