@@ -235,13 +235,16 @@ class RemoteConsumer:
                 pass
 
 
-def broker_from_url(broker_url: str):
-    """``http://host:port`` -> a :class:`RemoteBroker`; ``kafka://`` is
-    refused by name (the Kafka adapter is not ported); anything else ->
-    None (the caller builds the in-process Broker)."""
+def broker_from_url(broker_url: str, **kafka_kwargs):
+    """The one seam the roles use: ``http://host:port`` -> a
+    :class:`RemoteBroker`; ``kafka://bootstrap`` -> a ``KafkaAdapter`` on
+    that bootstrap (``kafka_kwargs``, e.g. ``registry=``, go to it; it
+    raises without kafka-python); anything else -> None (the caller builds
+    the in-process Broker)."""
     if broker_url.startswith("http://"):
         return RemoteBroker(broker_url)
     if broker_url.startswith("kafka://"):
-        raise NotImplementedError(
-            "BROKER_URL=kafka://...: the Kafka adapter is not ported yet")
+        from ccfd_tpu_torch.bus.kafka_adapter import KafkaAdapter
+
+        return KafkaAdapter(broker_url[len("kafka://"):], **kafka_kwargs)
     return None

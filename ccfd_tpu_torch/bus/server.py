@@ -113,11 +113,29 @@ class BrokerServer:
                                        "log start offset by topic/partition")
         self._g_retained = r.gauge("bus_topic_retained_records",
                                    "retained records by topic/partition")
+        # counters published as deltas of the broker's lifetime tallies at
+        # scrape time, so a crash_restart reads as a flat spot, not a reset
+        self._c_trimmed = r.counter("bus_records_trimmed_total",
+                                    "records deleted by retention")
+        self._c_oor = r.counter("bus_offset_out_of_range_resets_total",
+                                "fetches/rewinds clamped to the log start")
+        self._last_trimmed = 0
+        self._last_oor = 0
 
     def refresh_health_gauges(self) -> None:
-        """Per-topic end offsets and per-group backlog, at scrape time."""
+        """Per-topic end and start offsets, per-group backlog and the
+        retention counters, at scrape time."""
         snap = self.broker.health_snapshot()
         topics, groups, all_begins = snap["topics"], snap["groups"], snap["begins"]
+        # the delta fold under the server lock: two scrapes racing the
+        # read-inc-update would count a delta twice
+        with self._lock:
+            cur = int(self.broker.records_trimmed)
+            self._c_trimmed.inc(max(0, cur - self._last_trimmed))
+            self._last_trimmed = cur
+            cur = int(self.broker.oor_resets)
+            self._c_oor.inc(max(0, cur - self._last_oor))
+            self._last_oor = cur
         for name, ends in topics.items():
             begins = all_begins.get(name)
             for p, end in enumerate(ends):

@@ -17,14 +17,17 @@
                                 [--wire-format dict|csv] [--seed N]
                                 [--train-steps 200] [--params PATH]
                                 [--device cuda|cpu]
-  python -m ccfd_tpu_torch bus [--host H] [--port 9092]
+  python -m ccfd_tpu_torch bus [--host H] [--port 9092] [--dir D]
   python -m ccfd_tpu_torch engine [--host H] [--port 8090]
+                                  [--state-file S [--save-interval-s 5]]
   python -m ccfd_tpu_torch router [--metrics-port 8091] [--workers N]
                                   [--params PATH] [--device cuda|cpu]
   python -m ccfd_tpu_torch notify [--reply-prob P] [--approve-prob P]
                                   [--seed N] [--metrics-port 8080]
   python -m ccfd_tpu_torch producer [--limit N] [--rate R]
                                     [--wire-format dict|csv]
+  python -m ccfd_tpu_torch audit [--topic T] [--group G] [--limit N]
+                                 [--follow]
 
 ``train`` is the reference's ``cmd_train`` for the MLP family: the dataset
 of ``training_dataset`` (the CSV at CCFD_CSV, else the Kaggle-shaped
@@ -110,8 +113,9 @@ the demo serves the quantized params without a trainer (the reference's
 demo serves only the MLP). ``backend`` names the torch device.
 CCFD_FUSED_DECISION=1 wires the decision plane (serving/fused.py) into the
 router, as the reference's operator does; every swap then runs the plane's
-prepublish grid. The demo runs its own in-memory bus, as the reference's
-does.
+prepublish grid. The demo runs its own in-process bus, durable under
+CCFD_BUS_DIR and retained under CCFD_BUS_RETENTION_*, and its engine
+streams audit events under CCFD_AUDIT_TOPIC, as the reference's does.
 
 ``bus``, ``engine``, ``router``, ``notify`` and ``producer`` are the
 reference's service roles, each its own process, wired by the reference's
@@ -120,16 +124,37 @@ else is an in-process bus), ``KIE_SERVER_URL=http://host:port`` (the
 ``engine`` role, which the router requires) and, for the router's scorer,
 ``SELDON_URL`` (an http:// URL: a ``serve`` process over the Seldon REST
 contract; anything else: a local ``Scorer`` on ``--device``, the card by
-default). The router role is the production wiring: the degradation
-ladder on (its host tier the local Scorer's numpy forward; on SELDON_URL
-there is none, as in the reference, and a failed edge falls to the rules
-tier), overload control on (CCFD_OVERLOAD), tracing at CCFD_TRACE_SAMPLE, and a
+default). ``BROKER_URL=kafka://bootstrap:9092`` puts every role on a Kafka
+cluster through ``bus/kafka_adapter.py`` (it needs kafka-python, and
+raises the reference's error when it is absent); an in-process bus is
+durable under CCFD_BUS_DIR (CCFD_BUS_FSYNC fsyncs every append) and
+retained under CCFD_BUS_RETENTION_RECORDS/_OVERRIDES, as the reference's.
+
+``bus --dir D`` keeps the bus's topics, records and committed group
+offsets in a segment log under D (``bus/log.py``), byte for byte the
+reference's, so a bus SIGKILLed and restarted on D serves the same offsets.
+``engine --state-file S`` loads S at start when it exists (a corrupt file
+is quarantined and the newest retained generation that verifies loads),
+saves it every ``--save-interval-s`` and on SIGTERM or SIGINT, and prints
+the load and the last save with their times and sizes. With
+CCFD_AUDIT_TOPIC the engine streams its audit events onto that topic,
+keyed by pid, and ``audit`` tails them (one JSON event a line; ``--follow``
+keeps consuming; ``audit <tx_id>``, the reference's decision provenance
+plane, is refused by name). CCFD_FAULTS arms the router role's standing
+fault plan (``runtime/faults.py``): a ``scorer`` injector around the
+``SeldonClient`` or the local score function, an ``engine`` injector around
+``start_process``, ``start_process_batch`` and ``signal``, counted in
+``faults_injected_total{edge,kind}``.
+
+The router role is the production wiring: the degradation ladder on (its
+host tier the local Scorer's numpy forward; on SELDON_URL there is none,
+as in the reference, and a failed edge falls to the rules tier), overload
+control on (CCFD_OVERLOAD), tracing at CCFD_TRACE_SAMPLE, and a
 ``ParallelRouter`` when CCFD_ROUTER_WORKERS (or ``--workers``) is not 1;
 its metrics and traces are served on ``--metrics-port`` (/prometheus,
 /traces), as notify's are. The router decodes the CSV wire with the native
 decoder (``native.decode_csv``). Knobs that select an unported part
-(``Config.unported``), ``bus --dir`` and ``engine --state-file`` are
-refused by name, by ``serve`` as by the roles.
+(``Config.unported``) are refused by name, by ``serve`` as by the roles.
 
 The router role scores ``CCFD_MODEL`` with what ``serve`` would serve for
 it (where the reference's role serves the seeded init of every model) and
@@ -371,7 +396,8 @@ class Pipeline:
 
 def build_pipeline(cfg: Config, dataset: Any = None, device: str | None = None,
                    params: Any = None, clock: Any = None, seed: int = 0) -> Pipeline:
-    """The decision pipeline, not yet started: an in-memory ``Broker``, the
+    """The decision pipeline, not yet started: an in-process ``Broker``
+    (``local_broker``: durable under CCFD_BUS_DIR), the
     three registries, a warmed-up ``Scorer`` on ``device`` (default: the
     card) serving ``params`` (default: ``served_params(cfg)``), the engine
     with the fraud and standard processes and a ``ScorerPredictionService``
@@ -382,7 +408,6 @@ def build_pipeline(cfg: Config, dataset: Any = None, device: str | None = None,
     timers. No online trainer (``build_demo`` adds one). Raises
     ``NotImplementedError`` naming any knob set to a part of the reference
     this port does not have yet."""
-    from ccfd_tpu_torch.bus.broker import Broker
     from ccfd_tpu_torch.metrics.prom import Registry
     from ccfd_tpu_torch.notify.service import NotificationService
     from ccfd_tpu_torch.process.fraud import build_engine
@@ -393,7 +418,7 @@ def build_pipeline(cfg: Config, dataset: Any = None, device: str | None = None,
     from ccfd_tpu_torch.serving.fused import FusedDecisionScorer
 
     _refuse_unported(cfg, "the pipeline")
-    broker = Broker()
+    broker = local_broker(cfg)
     reg_router, reg_kie, reg_notify = Registry(), Registry(), Registry()
     scorer = make_scorer(cfg, served_params(cfg) if params is None else params, device)
     engine = build_engine(cfg, broker, reg_kie, clock=clock,
@@ -531,15 +556,27 @@ def _tracing_for(cfg: Config, registry, component: str):
     return Tracer(registry, component=component, sink=sink), sink
 
 
-def _broker_for(cfg: Config):
-    """BROKER_URL decides the transport: http:// -> a RemoteBroker against a
-    ``bus`` process; anything else -> an in-process Broker (kafka:// is
-    refused by ``Config.unported``)."""
+def local_broker(cfg: Config, log_dir: str | None = None):
+    """An in-process Broker as the config asks for it: durable in
+    ``log_dir`` (default CCFD_BUS_DIR; none: in memory), fsync per append
+    under CCFD_BUS_FSYNC, retention under CCFD_BUS_RETENTION_*."""
     from ccfd_tpu_torch.bus.broker import Broker
+
+    return Broker(log_dir=log_dir or cfg.bus_log_dir or None, fsync=cfg.bus_fsync,
+                  retention_records=cfg.bus_retention_records or None,
+                  retention_overrides=cfg.parsed_retention_overrides())
+
+
+def _broker_for(cfg: Config, registry=None):
+    """BROKER_URL decides the transport: http:// -> a RemoteBroker against a
+    ``bus`` process; kafka:// -> the Kafka adapter (its produce counters
+    into ``registry`` when given); anything else -> ``local_broker``."""
     from ccfd_tpu_torch.bus.client import broker_from_url
 
-    remote = broker_from_url(cfg.broker_url)
-    return remote if remote is not None else Broker()
+    kwargs = ({"registry": registry}
+              if registry is not None and cfg.broker_url.startswith("kafka://") else {})
+    remote = broker_from_url(cfg.broker_url, **kwargs)
+    return remote if remote is not None else local_broker(cfg)
 
 
 def _sigterm_as_interrupt() -> None:
@@ -563,44 +600,66 @@ def _serve_forever() -> None:
 
 
 def cmd_bus(args: argparse.Namespace) -> int:
-    """The networked bus (the reference's Kafka-cluster role), in memory."""
-    from ccfd_tpu_torch.bus.broker import Broker
+    """The networked bus (the reference's Kafka-cluster role), durable when
+    --dir (or CCFD_BUS_DIR) is given."""
     from ccfd_tpu_torch.bus.server import BrokerServer
     from ccfd_tpu_torch.metrics.prom import Registry
 
     cfg = Config.from_env()
-    if args.dir:
-        raise NotImplementedError("bus --dir (the durable bus log) is not ported yet")
     _refuse_unported(cfg)
+    log_dir = args.dir or cfg.bus_log_dir or None
+    t0 = time.perf_counter()
+    broker = local_broker(cfg, log_dir)
+    opened_ms = (time.perf_counter() - t0) * 1e3
     registry = Registry()
     tracer, _sink = _tracing_for(cfg, registry, "bus")
-    srv = BrokerServer(Broker(), registry=registry, tracer=tracer)
+    srv = BrokerServer(broker, registry=registry, tracer=tracer)
     port = srv.start(args.host, args.port)
-    print(f"[bus] listening on {args.host}:{port} (memory) gc_threshold={_tune_gc()}",
+    where = (f"durable: {log_dir}, fsync={'on' if cfg.bus_fsync else 'off'}, "
+             f"opened and replayed in {opened_ms:.3f} ms" if log_dir else "memory")
+    print(f"[bus] listening on {args.host}:{port} ({where}) gc_threshold={_tune_gc()}",
           file=sys.stderr, flush=True)
     _serve_forever()
     srv.stop()
+    broker.close()
     return 0
 
 
 def cmd_engine(args: argparse.Namespace) -> int:
-    """The KIE-shaped engine server (the reference's ccd-service on :8090)."""
+    """The KIE-shaped engine server (the reference's ccd-service on :8090),
+    persistent with --state-file: loaded at start, saved every
+    --save-interval-s and on SIGTERM or SIGINT."""
     from ccfd_tpu_torch.process.fraud import build_engine
     from ccfd_tpu_torch.process.server import EngineServer
 
     cfg = Config.from_env()
-    if args.state_file:
-        raise NotImplementedError(
-            "engine --state-file (engine persistence) is not ported yet")
     _refuse_unported(cfg)
     engine = build_engine(cfg, _broker_for(cfg))
+    state = args.state_file
+    if state and os.path.exists(state):
+        t0 = time.perf_counter()
+        engine.load(state)
+        print(f"[engine] loaded {state} in {(time.perf_counter() - t0) * 1e3:.3f} ms: "
+              f"{len(engine.instances('active'))} active instances, "
+              f"{len(engine.tasks())} open tasks", file=sys.stderr, flush=True)
     tracer, _sink = _tracing_for(cfg, engine.registry, "kie")
     srv = EngineServer(engine, tracer=tracer)
     port = srv.start(args.host, args.port)
     print(f"[engine] KIE REST on {args.host}:{port} "
-          f"definitions={list(engine.definitions())} gc_threshold={_tune_gc()}",
-          file=sys.stderr, flush=True)
-    _serve_forever()
+          f"definitions={list(engine.definitions())} gc_threshold={_tune_gc()}"
+          + (f" state_file={state}" if state else ""), file=sys.stderr, flush=True)
+    _sigterm_as_interrupt()
+    try:
+        while True:
+            time.sleep(args.save_interval_s if state else 3600)
+            if state:
+                engine.save(state)
+    except KeyboardInterrupt:
+        if state:
+            t0 = time.perf_counter()
+            engine.save(state)
+            print(f"[engine] saved {state} ({os.path.getsize(state)} bytes) in "
+                  f"{(time.perf_counter() - t0) * 1e3:.3f} ms", file=sys.stderr, flush=True)
     srv.stop()
     return 0
 
@@ -613,7 +672,8 @@ def build_router(cfg: Config, device: str | None = None, params_path: str | None
     SELDON_URL is http://, else a warmed ``Scorer`` on ``device``), the
     ladder's host tier (the local Scorer's numpy forward; none on
     SELDON_URL, as in the reference, so a failed edge falls to the rules
-    tier), ``OverloadControl`` when CCFD_OVERLOAD is on, the tracer, and a
+    tier), CCFD_FAULTS's ``scorer`` and ``engine`` injectors around those
+    edges, ``OverloadControl`` when CCFD_OVERLOAD is on, the tracer, and a
     single ``Router`` for one worker, else a ``ParallelRouter``."""
     from ccfd_tpu_torch.metrics.prom import Registry
     from ccfd_tpu_torch.process.client import EngineRestClient
@@ -621,13 +681,19 @@ def build_router(cfg: Config, device: str | None = None, params_path: str | None
 
     _refuse_unported(cfg)
     registry = Registry()
-    broker = _broker_for(cfg)
+    broker = _broker_for(cfg, registry)
     tracer, sink = _tracing_for(cfg, registry, "router")
+    fault_plan = None
+    if cfg.faults_spec:
+        from ccfd_tpu_torch.runtime.faults import FaultPlan
+
+        fault_plan = FaultPlan.from_string(cfg.faults_spec)
+    scorer_faults = fault_plan.injector("scorer", registry) if fault_plan else None
     collectors = []
     if cfg.seldon_url.startswith("http"):
         from ccfd_tpu_torch.serving.client import SeldonClient
 
-        score_fn = SeldonClient(cfg, tracer=tracer).score
+        score_fn = SeldonClient(cfg, faults=scorer_faults, tracer=tracer).score
         host_score_fn = None  # the ladder falls from the remote edge to rules
         on_card = False
     else:
@@ -635,6 +701,8 @@ def build_router(cfg: Config, device: str | None = None, params_path: str | None
 
         scorer = make_scorer(cfg, served_params(cfg, params_path), device)
         score_fn = scorer.score
+        if scorer_faults is not None:
+            score_fn = scorer_faults.wrap_fn(score_fn)
         host_score_fn = scorer.host_score if scorer.has_host_forward else None
         on_card = scorer.device.type == "cuda"
         g_launches = registry.gauge(
@@ -650,6 +718,10 @@ def build_router(cfg: Config, device: str | None = None, params_path: str | None
         collectors.append(publish)
     engine = EngineRestClient(cfg.kie_server_url, timeout_s=cfg.seldon_timeout_ms / 1000.0,
                               retries=cfg.client_retries, tracer=tracer)
+    engine_faults = fault_plan.injector("engine", registry) if fault_plan else None
+    if engine_faults is not None:
+        engine = engine_faults.wrap(
+            engine, methods=("start_process", "start_process_batch", "signal"))
     workers = cfg.router_workers if workers is None else workers
     overload = None
     if cfg.overload_enabled:
@@ -749,6 +821,43 @@ def cmd_producer(args: argparse.Namespace) -> int:
     print(f"[producer] streamed {n} rows to {cfg.producer_topic!r}", file=sys.stderr,
           flush=True)
     return 0
+
+
+def cmd_audit(args: argparse.Namespace) -> int:
+    """Tail the engine's audit stream (CCFD_AUDIT_TOPIC): one JSON event a
+    line. ``--follow`` keeps consuming; otherwise it drains what is there
+    and exits. With a tx id it would be the reference's decision
+    provenance plane, which is not ported."""
+    if args.tx_id:
+        raise NotImplementedError(
+            "audit <tx_id> (the decision provenance plane, ROADMAP A9) is not ported yet")
+    cfg = Config.from_env()
+    _refuse_unported(cfg, "audit")
+    topic = args.topic or cfg.audit_topic
+    if not topic:
+        # without CCFD_AUDIT_TOPIC the engine emits nothing: say so
+        print("[audit] CCFD_AUDIT_TOPIC is unset (the engine's audit stream is OFF); "
+              "tailing the default topic 'ccd-audit'", file=sys.stderr)
+        topic = "ccd-audit"
+    consumer = _broker_for(cfg).consumer(args.group, (topic,))
+    printed = 0
+    try:
+        while True:
+            # poll at most what the limit leaves: a poll commits what it
+            # returns, and events fetched past the limit would be skipped
+            want = min(1024, args.limit - printed) if args.limit else 1024
+            recs = consumer.poll(want, 0.5 if args.follow else 0.0)
+            for rec in recs:
+                print(json.dumps(rec.value))
+                printed += 1
+                if args.limit and printed >= args.limit:
+                    return 0
+            if not recs and not args.follow:
+                return 0
+    except KeyboardInterrupt:
+        return 0
+    finally:
+        consumer.close()
 
 
 def cmd_serve(args: argparse.Namespace) -> int:
@@ -1017,12 +1126,15 @@ def build_parser() -> argparse.ArgumentParser:
     bus = sub.add_parser("bus", help="networked bus (the Kafka-cluster role)")
     bus.add_argument("--host", default="0.0.0.0")
     bus.add_argument("--port", type=int, default=9092)
-    bus.add_argument("--dir", default=None, help="durable segment-log dir (not ported)")
+    bus.add_argument("--dir", default=None,
+                     help="durable segment-log dir (default: CCFD_BUS_DIR; none: memory)")
     bus.set_defaults(fn=cmd_bus)
     en = sub.add_parser("engine", help="KIE-shaped process engine server")
     en.add_argument("--host", default="0.0.0.0")
     en.add_argument("--port", type=int, default=8090)
-    en.add_argument("--state-file", default=None, help="engine persistence (not ported)")
+    en.add_argument("--state-file", default=None,
+                    help="engine snapshot: loaded at start, saved every --save-interval-s "
+                    "and on SIGTERM/SIGINT")
     en.add_argument("--save-interval-s", type=float, default=5.0)
     en.set_defaults(fn=cmd_engine)
     ro = sub.add_parser("router", help="the decision router role")
@@ -1047,6 +1159,15 @@ def build_parser() -> argparse.ArgumentParser:
     pr.add_argument("--rate", type=float, default=None)
     pr.add_argument("--wire-format", choices=("dict", "csv"), default="csv")
     pr.set_defaults(fn=cmd_producer)
+    au = sub.add_parser("audit", help="tail the engine's audit event stream")
+    au.add_argument("tx_id", nargs="?", default=None,
+                    help="a transaction to reconstruct (the provenance plane: not ported)")
+    au.add_argument("--topic", default="", help="default: CCFD_AUDIT_TOPIC")
+    au.add_argument("--group", default="audit-tail",
+                    help="consumer group (offsets persist per group)")
+    au.add_argument("--follow", action="store_true", help="keep consuming")
+    au.add_argument("--limit", type=int, default=0, help="stop after N events")
+    au.set_defaults(fn=cmd_audit)
     return ap
 
 

@@ -29,8 +29,25 @@ as ccfd_tpu/config.py, with the same defaults:
                                                         utils/gctune.py, as the
                                                         reference reads it)
     BROKER_URL                                          the bus: http:// for a
-                                                        `bus` role, anything
-                                                        else in-process
+                                                        `bus` role, kafka://
+                                                        for a Kafka cluster
+                                                        (bus/kafka_adapter.py),
+                                                        anything else
+                                                        in-process
+    bootstrap                                           the Kafka bootstrap
+                                                        (read, unused: the
+                                                        kafka:// URL carries
+                                                        it, as in the
+                                                        reference)
+    CCFD_BUS_DIR, CCFD_BUS_FSYNC                        the in-process bus's
+                                                        durable segment log
+                                                        (bus/log.py) and its
+                                                        fsync per append
+    CCFD_BUS_RETENTION_RECORDS,
+    CCFD_BUS_RETENTION_OVERRIDES                        bus retention: records
+                                                        kept per partition,
+                                                        "topic:cap,..." (0 =
+                                                        keep everything)
     KIE_SERVER_URL                                      the engine REST (the
                                                         `router` role)
     SELDON_URL, SELDON_ENDPOINT, SELDON_TIMEOUT,
@@ -43,6 +60,11 @@ as ccfd_tpu/config.py, with the same defaults:
     CCFD_REPLY_TIMEOUT_S, CCFD_LOW_AMOUNT,
     CCFD_LOW_PROBA, CONFIDENCE_THRESHOLD                the fraud process
     CCFD_LABELS_TOPIC                                   resolved-case labels
+    CCFD_AUDIT_TOPIC                                    the engine's audit
+                                                        stream ("" = off)
+    CCFD_FAULTS                                         the router role's
+                                                        standing fault plan
+                                                        (runtime/faults.py)
     CCFD_RETRAIN_BATCH, CCFD_RETRAIN_MIN_LABELS         the online trainer
                                                         (parallel/online.py)
     CCFD_FUSED_DECISION, CCFD_FUSED_DECISION_STRICT     the decision plane
@@ -56,11 +78,8 @@ as ccfd_tpu/config.py, with the same defaults:
 
 Knobs that select a part of the reference this port does not have are read
 too, so that setting one is refused by name rather than ignored
-(``unported``): the durable bus log (CCFD_BUS_DIR), bus retention
-(CCFD_BUS_RETENTION_RECORDS, CCFD_BUS_RETENTION_OVERRIDES), Kafka
-(BROKER_URL=kafka://..., bootstrap), the engine's audit stream
-(CCFD_AUDIT_TOPIC), the producer's object-store source (s3endpoint), fault
-injection (CCFD_FAULTS), the batcher's overload queue policies
+(``unported``): the producer's object-store source (s3endpoint), the
+batcher's overload queue policies
 (CCFD_OVERLOAD_SERVE_CODEL_TARGET_MS, CCFD_OVERLOAD_REST_QUEUE_ROWS), the
 model lifecycle's lineage store (CCFD_LIFECYCLE_DIR), and the two ways
 the reference scores small requests round the kernel: the Scorer's host
@@ -162,14 +181,19 @@ class Config:
     # router dispatch watchdog: -1 = auto (SELDON_TIMEOUT when the router
     # scores on the card, off on the CPU), 0 = off
     overload_dispatch_deadline_ms: float = -1.0
-    # --- parts of the reference not ported yet: set, they are refused ---
-    bus_log_dir: str = ""
+    # --- durability, Kafka, audit and faults (the reference's roles) ---
+    bus_log_dir: str = ""  # durable segment-log dir (CCFD_BUS_DIR); "" = memory
+    bus_fsync: bool = False  # fsync per append (CCFD_BUS_FSYNC=1)
+    # per-partition retained-record cap; 0 = keep everything
     bus_retention_records: int = 0
-    bus_retention_overrides: str = ""
+    bus_retention_overrides: str = ""  # "topic:cap,topic2:0"
     bootstrap: str = "odh-message-bus-kafka-brokers:9092"
-    audit_topic: str = ""
-    s3_endpoint: str = ""
+    audit_topic: str = ""  # "" = the engine's audit stream is off
+    # the router role's standing fault plan,
+    # "edge:latency=50,jitter=20,error=0.1;edge2:blackhole"; "" = none
     faults_spec: str = ""
+    # --- parts of the reference not ported yet: set, they are refused ---
+    s3_endpoint: str = ""
     overload_serve_codel_target_ms: float = 0.0
     overload_rest_queue_rows: int = 0
     graph_cr: str = ""
@@ -244,6 +268,7 @@ class Config:
             overload_dispatch_deadline_ms=num("CCFD_OVERLOAD_DISPATCH_DEADLINE_MS",
                                               "overload_dispatch_deadline_ms"),
             bus_log_dir=e.get("CCFD_BUS_DIR", Config.bus_log_dir),
+            bus_fsync=e.get("CCFD_BUS_FSYNC", "") in ("1", "true", "yes"),
             bus_retention_records=num("CCFD_BUS_RETENTION_RECORDS",
                                       "bus_retention_records", int),
             bus_retention_overrides=e.get(
@@ -284,25 +309,30 @@ class Config:
             return float(self.seldon_timeout_ms) if on_card else 0.0
         return float(ms)
 
+    def parsed_retention_overrides(self) -> dict[str, int | None]:
+        """``"topic:cap,topic2:0"`` -> {topic: cap, topic2: None}, the form
+        ``Broker(retention_overrides=)`` takes (0 = keep everything for
+        that topic). A malformed entry raises here, at config time."""
+        out: dict[str, int | None] = {}
+        for item in self.bus_retention_overrides.split(","):
+            item = item.strip()
+            if not item:
+                continue
+            topic, sep, cap = item.partition(":")
+            if not sep or not topic:
+                raise ValueError(
+                    f"CCFD_BUS_RETENTION_OVERRIDES entry {item!r}: expected topic:records")
+            n = int(cap)
+            out[topic] = n if n > 0 else None
+        return out
+
     def unported(self) -> list[str]:
         """The environment variables set to select a part of the reference
         the port does not have yet (the pipeline and the roles refuse to
         start on any)."""
         out = []
-        if self.bus_log_dir:
-            out.append("CCFD_BUS_DIR (the durable bus log)")
-        if self.bus_retention_records or self.bus_retention_overrides:
-            out.append("CCFD_BUS_RETENTION_RECORDS/_OVERRIDES (bus retention)")
-        if self.broker_url.startswith("kafka://"):
-            out.append("BROKER_URL=kafka://... (the Kafka adapter)")
-        if self.bootstrap != Config.bootstrap:
-            out.append("bootstrap (the Kafka adapter)")
-        if self.audit_topic:
-            out.append("CCFD_AUDIT_TOPIC (the engine's audit stream)")
         if self.s3_endpoint:
             out.append("s3endpoint (the producer's object-store source)")
-        if self.faults_spec:
-            out.append("CCFD_FAULTS (fault injection)")
         if self.overload_serve_codel_target_ms > 0 or self.overload_rest_queue_rows > 0:
             out.append("CCFD_OVERLOAD_SERVE_CODEL_TARGET_MS/CCFD_OVERLOAD_REST_QUEUE_ROWS "
                        "(the batcher's overload queue policies)")

@@ -1,22 +1,23 @@
 """The port's native (C++) host path, loaded with ctypes: the port of
 ccfd_tpu/native/__init__.py.
 
-Two sources, copies of the reference's, build into one library:
+Three sources, copies of the reference's, build into one library:
 
 - ``decode.cpp``: ``decode_csv`` (the router's CSV wire), ``decode_ndarray_json``
   (the canonical Seldon predict payload, for the REST handler) and
   ``pad_batch``;
 - ``httpfront.cpp``: the epoll REST front that ``serving/native_front.py``
   drives (``lib()`` hands it the loaded library), without the reference's
-  in-front host model.
+  in-front host model;
+- ``log.cpp``: ``frame_records`` and ``scan_records``, the durable bus
+  log's ``[u32 len][u32 crc32][payload]`` framing and its replay scan
+  (``bus/log.py``).
 
-The reference's ``log.cpp`` (segment-log framing) belongs to the durable
-bus log, which is not ported.
-
-**The build.** g++ (or ``$CXX``) compiles both sources at first use::
+**The build.** g++ (or ``$CXX``) compiles the sources at first use::
 
     g++ -O3 -march=$CCFD_NATIVE_MARCH|native -shared -fPIC -pthread
-        decode.cpp httpfront.cpp -o build/ccfd_tpu_torch/ccfd_native-<hash>.so
+        decode.cpp httpfront.cpp log.cpp
+        -o build/ccfd_tpu_torch/ccfd_native-<hash>.so
 
 as the reference does. The file name carries a hash of the sources, the
 compiler, the flags and the target they resolve to (the compiler's
@@ -29,9 +30,10 @@ here a failed build raises ``RuntimeError`` with the compiler's output.
 ``build_seconds`` holds how long this process's build took (0.0 when it
 found the library built).
 
-The plain versions of the three functions (``_decode_csv_numpy``,
-``_decode_ndarray_json_numpy``, ``_pad_batch_numpy``) have the same
-semantics and are the tests' reference; nothing in the port calls them.
+The plain versions of the functions (``_decode_csv_numpy``,
+``_decode_ndarray_json_numpy``, ``_pad_batch_numpy``, ``_frame_records_py``,
+``_scan_records_py``) have the same semantics and are the tests' reference;
+nothing in the port calls them.
 ``strtof`` rounds a decimal once where ``float()`` and a float32 cast round
 twice, so the two agree to the reference's test bar (rtol 1e-5, atol 1e-6),
 not bit for bit.
@@ -39,10 +41,12 @@ not bit for bit.
 
 from __future__ import annotations
 
+import binascii
 import ctypes
 import hashlib
 import json
 import os
+import struct
 import subprocess
 import threading
 import time
@@ -53,7 +57,7 @@ import numpy as np
 from ccfd_tpu_torch.ops._build import BUILD_DIR
 
 HERE = Path(__file__).resolve().parent
-SOURCES = ("decode.cpp", "httpfront.cpp")
+SOURCES = ("decode.cpp", "httpfront.cpp", "log.cpp")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -153,6 +157,13 @@ def _declare(lib: ctypes.CDLL) -> None:
         "ccfd_front_stats": (None, [ctypes.c_void_p, ctypes.POINTER(c_long)]),
         "ccfd_front_stop": (None, [ctypes.c_void_p]),
         "ccfd_front_destroy": (None, [ctypes.c_void_p]),
+        "ccfd_log_frame": (ctypes.c_size_t, [ctypes.c_char_p,
+                                             ctypes.POINTER(ctypes.c_uint32), c_int,
+                                             ctypes.POINTER(ctypes.c_uint8)]),
+        "ccfd_log_scan": (c_int, [ctypes.c_char_p, ctypes.c_size_t,
+                                  ctypes.POINTER(ctypes.c_uint64),
+                                  ctypes.POINTER(ctypes.c_uint32), c_int,
+                                  ctypes.POINTER(ctypes.c_size_t)]),
     }
     for name, (res, args) in sig.items():
         fn = getattr(lib, name)
@@ -223,6 +234,52 @@ def pad_batch(x: np.ndarray, bucket_rows: int) -> np.ndarray:
     return out
 
 
+def frame_records(payloads: list[bytes]) -> bytes:
+    """Frame payloads as ``[u32 len][u32 crc32][payload]...`` (one buffer)."""
+    if not payloads:
+        return b""
+    concat = b"".join(payloads)
+    lens = (ctypes.c_uint32 * len(payloads))(*[len(p) for p in payloads])
+    out = ctypes.create_string_buffer(len(concat) + 8 * len(payloads))
+    n = lib().ccfd_log_frame(concat, lens, len(payloads),
+                             ctypes.cast(out, ctypes.POINTER(ctypes.c_uint8)))
+    return out.raw[:n]
+
+
+def scan_records(buf: bytes) -> tuple[list[bytes], int, bool]:
+    """Replay a segment buffer -> (payloads, valid_prefix_len, corrupt).
+
+    Stops at the first torn or corrupt frame; ``valid_prefix_len`` is where
+    a recovering writer truncates. ``corrupt`` tells a bad CRC or an
+    insane length from a clean partial tail."""
+    native = lib()
+    out: list[bytes] = []
+    pos = 0
+    corrupt = False
+    chunk = 4096
+    offs = (ctypes.c_uint64 * chunk)()
+    lens = (ctypes.c_uint32 * chunk)()
+    consumed = ctypes.c_size_t(0)
+    # one copy up front, then chunked scans by pointer offset: re-slicing
+    # the bytes per chunk would make a large segment's replay O(n^2)
+    base = ctypes.create_string_buffer(buf, len(buf))
+    addr = ctypes.addressof(base)
+    while pos < len(buf):
+        n = native.ccfd_log_scan(ctypes.c_char_p(addr + pos), len(buf) - pos, offs, lens,
+                                 chunk, ctypes.byref(consumed))
+        got = n if n >= 0 else -n - 1  # corruption encodes -(valid + 1)
+        for i in range(got):
+            off = pos + offs[i]
+            out.append(buf[off: off + lens[i]])
+        pos += consumed.value
+        if n < 0:
+            corrupt = True
+            break
+        if n < chunk:  # a clean end (EOF or a partial tail)
+            break
+    return out, pos, corrupt
+
+
 # ---------------------------------------------------------------------------
 # plain versions (identical semantics; the tests' reference)
 
@@ -278,3 +335,28 @@ def _pad_batch_numpy(x: np.ndarray, bucket_rows: int) -> np.ndarray:
     out = np.zeros((bucket_rows, x.shape[1]), np.float32)
     out[: min(len(x), bucket_rows)] = x[:bucket_rows]
     return out
+
+
+def _frame_records_py(payloads: list[bytes]) -> bytes:
+    parts = []
+    for p in payloads:
+        parts.append(struct.pack("<II", len(p), binascii.crc32(p)))
+        parts.append(p)
+    return b"".join(parts)
+
+
+def _scan_records_py(buf: bytes) -> tuple[list[bytes], int, bool]:
+    out: list[bytes] = []
+    pos = 0
+    while pos + 8 <= len(buf):
+        plen, want = struct.unpack_from("<II", buf, pos)
+        if plen > 1 << 30:
+            return out, pos, True
+        if pos + 8 + plen > len(buf):
+            break
+        payload = buf[pos + 8: pos + 8 + plen]
+        if binascii.crc32(payload) != want:
+            return out, pos, True
+        out.append(payload)
+        pos += 8 + plen
+    return out, pos, False

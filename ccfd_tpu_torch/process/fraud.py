@@ -18,9 +18,9 @@ standard process: approve immediately.
 
 The four amount histograms are the KIE metrics contract. A resolution with
 a ground-truth label (approve: 0, cancel: 1) is published on the labels
-topic, as the reference does for its online retrainer. Not ported yet: the
-audit stream onto the bus (CCFD_AUDIT_TOPIC; ``build_engine`` refuses it)
-and the trace headers on the notification record.
+topic, as the reference does for its online retrainer. With
+CCFD_AUDIT_TOPIC set, the engine's audit stream goes onto that topic, keyed
+by pid. Not ported yet: the trace headers on the notification record.
 """
 
 from __future__ import annotations
@@ -57,15 +57,24 @@ def build_engine(
     clock: Clock | None = None,
     prediction_service=None,
 ) -> Engine:
-    if cfg.audit_topic:
-        raise NotImplementedError(
-            "CCFD_AUDIT_TOPIC is set: the engine's audit stream is not ported yet")
     registry = registry or Registry()
+    # CCFD_AUDIT_TOPIC turns the engine's audit stream onto the bus on
+    audit_sink = None
+    if cfg.audit_topic:
+        # keyed by pid: one instance's whole history lands on one partition,
+        # in state-change order; ``batch`` lets the engine flush a whole
+        # micro-batch of events in one produce_batch
+        def audit_sink(ev):
+            broker.produce(cfg.audit_topic, ev, key=ev["pid"])
+
+        audit_sink.batch = lambda evs: broker.produce_batch(
+            cfg.audit_topic, evs, keys=[e["pid"] for e in evs])
     engine = Engine(
         clock=clock,
         registry=registry,
         prediction_service=prediction_service,
         confidence_threshold=cfg.confidence_threshold,
+        audit_sink=audit_sink,
     )
 
     h_invest = registry.histogram(

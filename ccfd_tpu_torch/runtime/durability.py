@@ -1,7 +1,9 @@
-"""Checksummed, atomic durable artifacts: what the checkpoint's npz form needs.
+"""Checksummed, atomic durable artifacts: the one seam every persistent
+writer and reader of the port goes through.
 
-The port's copy of the part of ccfd_tpu/runtime/durability.py that
-``parallel/checkpoint.py`` reads and writes through:
+The port's copy of ccfd_tpu/runtime/durability.py, for the checkpoint's npz
+form (``parallel/checkpoint.py``), the bus's segment log (``bus/log.py``)
+and the engine's snapshots (``process/engine.py``):
 
 - :func:`atomic_write_bytes`: unique tmp + write + fsync + rename (+ a
   directory fsync), so a crash mid-write leaves the previous bytes and an
@@ -13,24 +15,38 @@ The port's copy of the part of ccfd_tpu/runtime/durability.py that
   generation retention (``<path>.g<seq>``) and the verified read that
   quarantines a corrupt file (``*.corrupt``) and falls back to the newest
   retained generation that verifies;
-- :func:`verify_file`: the peek that changes nothing on disk;
-- :func:`note` / :func:`counts`: the process-wide tally of integrity events
-  (``corrupt``, ``fallback``, ``write_errors``, ``verified``,
-  ``unverified``, ``tmp_swept``) per artifact.
+- :func:`write_json_artifact` / :func:`read_json_artifact`: the same for a
+  JSON document (the engine's snapshot);
+- :func:`scan_frames`: the streaming scan of concatenated frames, which
+  stops at the first bad one (an append-only file's valid prefix);
+- :func:`verify_file` and :func:`has_generations`: peeks that change
+  nothing on disk;
+- :func:`sweep_tmp`: the start-up sweep of orphan ``*.tmp`` files;
+- :func:`configure`: the module defaults (retained generations, fsync,
+  the sweep), which per-call arguments override;
+- :func:`note` / :func:`counts` / :func:`bind_registry`: the process-wide
+  tally of integrity events (``corrupt``, ``fallback``, ``write_errors``,
+  ``verified``, ``unverified``, ``tmp_swept``, ``log_truncated_records``)
+  per artifact, replayed into the ``ccfd_storage_*`` counters of a
+  registry once one is bound.
 
-Not ported here: the reference's storage fault draws inside
-``atomic_write_bytes`` (fault injection, ROADMAP A6), the registry binding,
-the flight-recorder hook, concatenated-frame scans, JSON interchange
-sidecars, directory manifests and the rules-tier pin (ROADMAP A8).
+Still to port, with the platform operator that arms them (ROADMAP A6,
+A7): the storage fault draws inside ``atomic_write_bytes`` (``torn_write``,
+``rename_lost``, ``bitrot``, ``enospc``, ``fsync_fail``, ``slow_disk``),
+``StoragePinGate`` and ``ComposedHealGate`` (the rules-tier pin while no
+params generation verifies), the flight-recorder hook, JSON interchange
+sidecars and directory manifests.
 """
 
 from __future__ import annotations
 
 import hashlib
 import itertools
+import json
 import logging
 import os
 import threading
+from typing import Any
 
 log = logging.getLogger(__name__)
 
@@ -42,18 +58,78 @@ class CorruptArtifactError(Exception):
     every retained generation failed verification)."""
 
 
-_mu = threading.Lock()
+# metric short names labelled by artifact; the others have no labels
+_ARTIFACT_METRICS = ("corrupt", "fallback", "write_errors", "verified", "unverified")
+_HELP = {
+    "corrupt": ("ccfd_storage_corrupt_total",
+                "corrupt durable artifacts detected (and quarantined)"),
+    "fallback": ("ccfd_storage_fallback_total",
+                 "reads served from a last-good retained generation"),
+    "write_errors": ("ccfd_storage_write_errors_total",
+                     "durable writes that failed (artifact kept last-good)"),
+    "verified": ("ccfd_storage_verified_reads_total",
+                 "artifact reads with a matching sha256 frame"),
+    "unverified": ("ccfd_storage_unverified_reads_total",
+                   "legacy (unframed) artifact reads accepted unverified"),
+    "tmp_swept": ("ccfd_storage_tmp_swept_total",
+                  "orphaned *.tmp files removed by the startup sweep"),
+    "log_truncated_records": ("ccfd_storage_log_truncated_records_total",
+                              "valid bus-log records dropped past a mid-file corrupt frame"),
+}
+
+_mu = threading.RLock()
 _counts: dict[tuple[str, str], int] = {}  # (metric, artifact|"") -> n
+_prom: dict[str, Any] = {}
 _tmp_seq = itertools.count()
-DEFAULT_RETAIN = 3
+_defaults = {"retain": 3, "fsync": True, "sweep": True}
+
+
+def configure(retain: int | None = None, fsync: bool | None = None,
+              sweep: bool | None = None) -> None:
+    """Set the module defaults; per-call arguments still win."""
+    if retain is not None:
+        _defaults["retain"] = max(0, int(retain))
+    if fsync is not None:
+        _defaults["fsync"] = bool(fsync)
+    if sweep is not None:
+        _defaults["sweep"] = bool(sweep)
+
+
+def default_retain() -> int:
+    return int(_defaults["retain"])
+
+
+def bind_registry(registry) -> None:
+    """Attach a scraped registry: creates the ``ccfd_storage_*`` counters
+    and replays the tallies collected before binding. The tallies span the
+    process, so a second binding replays the full history into its
+    registry."""
+    with _mu:
+        _prom.clear()
+        for short, (name, help_) in _HELP.items():
+            _prom[short] = registry.counter(name, help_)
+        for (short, artifact), n in _counts.items():
+            _inc(short, n, artifact)
+
+
+def _inc(metric: str, n: int, artifact: str) -> None:
+    c = _prom.get(metric)
+    if c is None or n <= 0:
+        return
+    if metric in _ARTIFACT_METRICS:
+        c.inc(n, labels={"artifact": artifact})
+    else:
+        c.inc(n)
 
 
 def note(metric: str, n: int = 1, artifact: str = "") -> None:
-    """Count one integrity event."""
+    """Count one integrity event (``bus/log.py`` counts mid-file log
+    corruption here)."""
     if n <= 0:
         return
     with _mu:
         _counts[(metric, artifact)] = _counts.get((metric, artifact), 0) + n
+        _inc(metric, n, artifact)
 
 
 def counts() -> dict[str, dict[str, int]]:
@@ -65,10 +141,11 @@ def counts() -> dict[str, dict[str, int]]:
         return out
 
 
-def atomic_write_bytes(path: str, data: bytes, fsync: bool = True) -> None:
+def atomic_write_bytes(path: str, data: bytes, fsync: bool | None = None) -> None:
     """Unique tmp + write + fsync + rename. Raises OSError on failure; a
     failed write never touches the previous artifact, though it may leave
     an orphan ``*.tmp`` for the start-up sweep."""
+    fsync = _defaults["fsync"] if fsync is None else bool(fsync)
     d = os.path.dirname(os.path.abspath(path))
     os.makedirs(d, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.{next(_tmp_seq)}.tmp"
@@ -121,6 +198,37 @@ def parse_frame(data: bytes) -> tuple[bytes | None, bool]:
     return payload, True
 
 
+def scan_frames(data: bytes) -> tuple[list[tuple[int, bytes]], int, bool]:
+    """Streaming scan of concatenated :func:`frame` blocks (append-only
+    logs) -> ``([(start_offset, payload), ...], valid_prefix_bytes,
+    torn)``. It stops at the first bad frame: in an append-only file
+    everything after it postdates the corruption, so the caller truncates
+    to the valid prefix."""
+    frames: list[tuple[int, bytes]] = []
+    pos = 0
+    n = len(data)
+    while pos < n:
+        if not data.startswith(MAGIC, pos):
+            return frames, pos, True
+        nl = data.find(b"\n", pos + len(MAGIC))
+        if nl < 0:
+            return frames, pos, True
+        try:
+            hexdigest, length = data[pos + len(MAGIC):nl].split()
+            length = int(length)
+        except ValueError:
+            return frames, pos, True
+        end = nl + 1 + length
+        if end > n:
+            return frames, pos, True
+        payload = data[nl + 1:end]
+        if hashlib.sha256(payload).hexdigest() != hexdigest.decode("ascii", "replace"):
+            return frames, pos, True
+        frames.append((pos, payload))
+        pos = end
+    return frames, pos, False
+
+
 def _generations(path: str) -> list[tuple[int, str]]:
     """Retained generations of ``path``, ascending ``[(seq, path)]``."""
     d = os.path.dirname(os.path.abspath(path))
@@ -138,8 +246,12 @@ def _generations(path: str) -> list[tuple[int, str]]:
     return sorted(out)
 
 
+def has_generations(path: str) -> bool:
+    return bool(_generations(path))
+
+
 def write_artifact(path: str, payload: bytes, artifact: str = "artifact",
-                   retain: int | None = None, fsync: bool = True,
+                   retain: int | None = None, fsync: bool | None = None,
                    best_effort: bool = True) -> bool:
     """Framed, checksummed, atomic write + generation retention (a full
     second copy at ``<path>.g<seq>``, the newest ``retain`` kept). Returns
@@ -155,7 +267,7 @@ def write_artifact(path: str, payload: bytes, artifact: str = "artifact",
         if not best_effort:
             raise
         return False
-    r = DEFAULT_RETAIN if retain is None else max(0, int(retain))
+    r = _defaults["retain"] if retain is None else max(0, int(retain))
     if r > 0:
         try:
             gens = _generations(path)
@@ -259,11 +371,27 @@ def verify_file(path: str) -> bool | None:
     return payload is not None
 
 
-def sweep_tmp(*dirs: str) -> int:
-    """Remove orphaned ``*.tmp`` files a crash mid-write left behind.
-    Start-up only: live writers use unique tmp names and rename within the
-    same call, so any ``*.tmp`` present when a component constructs is
-    debris. Counted as ``tmp_swept``."""
+def write_json_artifact(path: str, doc: Any, artifact: str = "artifact",
+                        retain: int | None = None, fsync: bool | None = None,
+                        best_effort: bool = True, **dump_kw: Any) -> bool:
+    return write_artifact(path, json.dumps(doc, **dump_kw).encode(), artifact=artifact,
+                          retain=retain, fsync=fsync, best_effort=best_effort)
+
+
+def read_json_artifact(path: str, artifact: str = "artifact",
+                       fallback: bool = True, quarantine: bool = True) -> Any:
+    return json.loads(read_artifact(path, artifact=artifact, fallback=fallback,
+                                    quarantine=quarantine))
+
+
+def sweep_tmp(*dirs: str, enabled: bool | None = None) -> int:
+    """Remove orphaned ``*.tmp`` files a crash mid-write left behind (the
+    bus log's offsets compaction tmp, say). Start-up only: live writers use
+    unique tmp names and rename within the same call, so any ``*.tmp``
+    present when a component constructs is debris. Counted as
+    ``tmp_swept``. ``enabled`` overrides the module default."""
+    if not (_defaults["sweep"] if enabled is None else enabled):
+        return 0
     n = 0
     for d in dirs:
         if not d:

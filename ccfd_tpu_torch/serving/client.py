@@ -8,7 +8,11 @@ timeout, ``SELDON_POOL_SIZE`` the connection pool and ``CCFD_CLIENT_RETRIES``
 the transport retries (exponential backoff with jitter). ``score`` is a
 plain ``(B, 30) -> (B,)`` function, interchangeable with ``Scorer.score``.
 An optional breaker refuses before dialing while its circuit is open; the
-router's degradation ladder keeps its own breaker on this edge.
+router's degradation ladder keeps its own breaker on this edge. An optional
+``FaultInjector`` (``runtime/faults.py``, the router role's ``scorer`` edge
+under CCFD_FAULTS) perturbs every attempt: its delay and error draws before
+the POST, its corruption after the response, which then fails that attempt
+as a transport error.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ from ccfd_tpu_torch.utils.httpclient import _NodelayHTTPConnection
 
 
 class SeldonClient:
-    def __init__(self, cfg: Config, breaker=None, tracer=None):
+    def __init__(self, cfg: Config, breaker=None, faults=None, tracer=None):
         self.cfg = cfg
         self._tracer = tracer  # each POST an rpc.scorer span with traceparent
         u = urllib.parse.urlparse(cfg.seldon_url)
@@ -42,6 +46,7 @@ class SeldonClient:
         self._path = "/" + cfg.seldon_endpoint.lstrip("/")
         self._timeout = cfg.seldon_timeout_ms / 1000.0
         self._breaker = breaker
+        self._faults = faults
         self._rng = random.Random(0)  # deterministic backoff jitter
         self._pool: "queue.Queue[http.client.HTTPConnection]" = queue.Queue()
         for _ in range(max(1, cfg.seldon_pool_size)):
@@ -86,6 +91,7 @@ class SeldonClient:
             for attempt in range(attempts):
                 t0 = time.monotonic()
                 try:
+                    corrupt = self._faults.before() if self._faults is not None else False
                     conn.request("POST", self._path, payload, headers)
                     resp = conn.getresponse()
                     data = resp.read()
@@ -96,6 +102,9 @@ class SeldonClient:
                             f"prediction server returned {resp.status}: {data[:200]!r}")
                     try:
                         out = json.loads(data)
+                        if self._faults is not None:
+                            # InjectedFault is an OSError: the transport path
+                            out = self._faults.after(out, corrupt)
                     except ValueError:
                         if self._breaker is not None:
                             self._breaker.record_failure(time.monotonic() - t0)

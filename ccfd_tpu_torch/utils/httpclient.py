@@ -7,6 +7,13 @@ cannot have processed it: a refused connection, or an error while sending
 the request. A failure while reading the response may mean the request was
 processed, so it is not re-sent.
 
+A pooled keep-alive connection whose server went away while it sat idle
+(a restarted engine or bus) is found before it is used: a socket that
+reads as ready while no request is in flight holds the peer's close, and
+the connection is reopened instead of carrying a process start or a
+produce into a dead socket, where the reference's copy loses that request
+(ROADMAP C6).
+
 An optional per-edge ``CircuitBreaker`` (runtime/breaker.py) gates each
 request (an open circuit raises ``CircuitOpenError`` without dialing) and
 records transport errors and 5xx answers as failures; retries back off
@@ -21,6 +28,7 @@ import http.client
 import json
 import queue
 import random
+import select
 import socket
 import time
 import urllib.parse
@@ -39,6 +47,20 @@ class _NodelayHTTPConnection(http.client.HTTPConnection):
             self.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
         except OSError:  # pragma: no cover
             pass
+
+
+def dropped(conn: http.client.HTTPConnection) -> bool:
+    """True when an idle pooled connection's peer has closed it: its socket
+    is readable with no request in flight (EOF, or bytes nobody asked
+    for). A connection not opened yet is not dropped."""
+    sock = conn.sock
+    if sock is None:
+        return False
+    try:
+        readable, _, _ = select.select([sock], [], [], 0)
+    except (OSError, ValueError):
+        return True
+    return bool(readable)
 
 
 class PooledHTTPClient:
@@ -117,6 +139,8 @@ class PooledHTTPClient:
                     else time.monotonic() + self._retry_budget_s)
         for attempt in range(self._retries + 1):
             conn = self._pool.get()
+            if dropped(conn):
+                conn.close()  # the next request opens a fresh socket
             sent = False
             returned = False
             t0 = time.monotonic()

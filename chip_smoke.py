@@ -133,6 +133,43 @@ wire).
                was down and the host tier none (the reference's role has no
                host tier on SELDON_URL), the breaker opened and closed, and
                each serve process's B1 launches = its dispatches + its warmup;
+           (d) the durable roles' crash drill: `bus --dir D`, `engine
+               --state-file S --save-interval-s 1` (2 s reply timeout), the
+               router on the card (one worker, a rule base that also sends
+               amounts of 500 and more to the fraud process, so the engine
+               holds open processes and investigator tasks) and notify;
+               4,000 rows; the bus SIGKILLed and restarted on the same port
+               and D: the topic's end offsets and the router group's
+               committed offsets equal to theirs before the kill, the router
+               and notify having exited on the dead bus as the reference's
+               roles do (their restart policy brings them back: the drill
+               restarts them); 4,000 rows; the engine SIGTERMed and
+               restarted on S: its active instances and open tasks (REST)
+               equal to theirs before the stop; 4,000 rows; then the bus
+               killed once more and restarted with CCFD_BUS_FSYNC=1 for a
+               last 4,000-row burst. Every row routed once and started once
+               (summed over the processes' lifetimes), no score error,
+               degraded row or shed, each router process's B1 launches = its
+               dispatches + its warmup; the bus's reopen time (to its health
+               answer, and the replay its start-up line reports), the
+               engine's save and load ms and snapshot bytes, and tx/s of
+               each burst, with fsync and without, against part (a)'s
+               memory bus;
+           (e) the router's edges under CCFD_FAULTS="scorer:error=0.1,
+               corrupt=0.05;engine:latency=1,jitter=2" (and
+               CCFD_CLIENT_RETRIES=0, so every injected fault reaches the
+               ladder): the router on SELDON_URL -> a `serve` process on the
+               card, 10,000 rows at 2,000/s: every row routed once and started once,
+               the rules tier took exactly the rows whose scorer call failed
+               or was refused, the host tier none (the reference's role has
+               none on SELDON_URL; a local Scorer's router would send them
+               to its host tier), the rows the card scored lie between the
+               rows routed on its answers and those plus the failed calls'
+               (an injected error fires before the POST; a corruption after
+               the kernel ran), faults_injected_total > 0 for scorer/error,
+               scorer/corrupt and engine/latency, every probability the
+               engine holds finite, serve's B1 launches = its dispatches +
+               its warmup, and the breaker's transitions printed;
            every role's start-up line shows its gen-0 GC threshold (the
            reference's service tuning), printed per role
   models   the reference's other Seldon models, torch code on the card (no
@@ -180,6 +217,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import shutil
 import signal
@@ -228,6 +266,23 @@ TX_TOPIC = "odh-demo"  # the producer's and the router's topic (Config's default
 # restart (until the breaker has closed)
 LADDER_PARTS = (4_000, 4_000)
 LADDER_RATE_ROWS, LADDER_RATE = 6_000, 2_000.0
+# part (d): each burst's rows; the engine's reply timeout, so a silent
+# customer's case reaches the DMN and an investigator task within a burst's
+# quiet time; the rule base (the default threshold rule, and amounts of 500
+# and more to the fraud process as well: an issuer's large-amount rule)
+DURABLE_ROWS = 4_000
+DURABLE_REPLY_TIMEOUT_S = 2.0
+DURABLE_RULES = [
+    {"name": "fraud", "process": "fraud", "salience": 10,
+     "when": [{"field": "proba", "op": ">=", "value": 0.5}]},
+    {"name": "large_amount", "process": "fraud", "salience": 10,
+     "when": [{"field": "Amount", "op": ">=", "value": 500.0}]},
+    {"name": "standard", "process": "standard"},
+]
+# part (e): rows, paced (many small batches, so the plan draws on many
+# scorer calls), and the router's standing fault plan
+FAULT_ROWS, FAULT_RATE = 10_000, 2_000.0
+FAULT_PLAN = "scorer:error=0.1,corrupt=0.05;engine:latency=1,jitter=2"
 # the train phase: `train`'s default steps and fit_mlp's batch; the steps
 # timed on the card; the steps run on the card and on the CPU from one init
 TRAIN_STEPS = 500
@@ -592,16 +647,46 @@ class Roles:
             out[name] = int(found.group(1)) if found else None
         return out
 
-    def backbone(self) -> None:
+    def backbone(self, bus_args: tuple = (), engine_args: tuple = (),
+                 engine_env: dict | None = None) -> None:
         """bus, then engine and notify."""
-        bus = self.spawn("bus", "bus", "--host", "127.0.0.1", "--port", str(self.bport))
+        self.spawn_bus("bus", *bus_args)
+        self.spawn_engine("engine", *engine_args, extra_env=engine_env)
+        self.spawn_notify("notify")
+
+    def spawn_bus(self, name: str, *args: str, extra_env: dict | None = None) -> float:
+        """The bus role under ``name``; returns the seconds to its health
+        answer."""
+        t0 = time.perf_counter()
+        bus = self.spawn(name, "bus", "--host", "127.0.0.1", "--port", str(self.bport), *args,
+                         extra_env=extra_env)
         self.wait(f"{self.burl}/health/status", bus, 60)
-        engine = self.spawn("engine", "engine", "--host", "127.0.0.1", "--port",
-                            str(self.kport))
-        notify = self.spawn("notify", "notify", "--metrics-port", str(self.nport),
-                            "--seed", str(SEED))
+        return time.perf_counter() - t0
+
+    def spawn_engine(self, name: str, *args: str, extra_env: dict | None = None) -> None:
+        engine = self.spawn(name, "engine", "--host", "127.0.0.1", "--port", str(self.kport),
+                            *args, extra_env=extra_env)
         self.wait(f"{self.kurl}/health/status", engine, 60)
+
+    def spawn_notify(self, name: str) -> None:
+        notify = self.spawn(name, "notify", "--metrics-port", str(self.nport),
+                            "--seed", str(SEED))
         self.wait(f"http://127.0.0.1:{self.nport}/prometheus", notify, 60)
+
+    def log_text(self, name: str) -> str:
+        with open(os.path.join(self.dir, f"{name}.log"), errors="replace") as f:
+            return f.read()
+
+    def exited(self, name: str, timeout: float) -> int:
+        """The exit code of ``name``, waited for up to ``timeout`` s."""
+        try:
+            return self.procs[name].wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"{name} still running after {timeout} s") from None
+
+    def get(self, url: str):
+        with urllib.request.urlopen(url, timeout=60) as r:
+            return json.loads(r.read())
 
     def bus_rows(self) -> int:
         with urllib.request.urlopen(f"{self.burl}/topics/{TX_TOPIC}/offsets", timeout=10) as r:
@@ -1778,11 +1863,13 @@ class Smoke:
     def services(self) -> None:
         """The reference's service roles as processes: (a) one router
         worker, (b) one per partition with coalescing, (c) the ladder over
-        a killed and restarted ``serve``. Each part has its own roles; the
-        processes that reach the card (two routers, the serve process and
-        the third router) start at once, since each takes seconds to import
-        torch and reach the card, and the parts then run one after the
-        other, each part's roles stopped before the next part runs."""
+        a killed and restarted ``serve``, (d) the durable bus and engine
+        through a bus crash and an engine restart, (e) the router's edges
+        under a fault plan. Each part has its own roles; the processes that
+        reach the card (four routers and two serve processes) start at
+        once, since each takes seconds to import torch and reach the card,
+        and the parts then run one after the other, each part's roles
+        stopped before the next part runs."""
         import contextlib
 
         from ccfd_tpu_torch.data.ccfd import to_csv_bytes
@@ -1797,10 +1884,18 @@ class Smoke:
             csv = os.path.join(data, "transactions.csv")
             with open(csv, "wb") as f:
                 f.write(to_csv_bytes(kaggle_surrogate(n=SERVICES_ROWS)))
-            a, b, c = (stack.enter_context(Roles(self.card, csv)) for _ in range(3))
-            for roles in (a, b, c):
+            a, b, c, d, e = (stack.enter_context(Roles(self.card, csv)) for _ in range(5))
+            for roles in (a, b, c, e):
                 roles.backbone()
-            sport = free_port()
+            d.backbone(bus_args=("--dir", os.path.join(d.dir, "bus")),
+                       engine_args=("--state-file", os.path.join(d.dir, "engine.json"),
+                                    "--save-interval-s", "1"),
+                       engine_env={"CCFD_REPLY_TIMEOUT_S": str(DURABLE_REPLY_TIMEOUT_S)})
+            rules = os.path.join(d.dir, "rules.json")
+            with open(rules, "w") as f:
+                json.dump(DURABLE_RULES, f)
+            d.env["CCFD_RULES"] = rules  # the router's, and its restarts'
+            sport, eport = free_port(), free_port()
             a.spawn("router", "router", "--metrics-port", str(a.rport), "--device", "cuda")
             b.spawn("router", "router", "--metrics-port", str(b.rport), "--device", "cuda",
                     extra_env={"CCFD_ROUTER_WORKERS": "0"})
@@ -1808,13 +1903,20 @@ class Smoke:
                     "--device", "cuda")
             c.spawn("router", "router", "--metrics-port", str(c.rport),
                     extra_env={"SELDON_URL": f"http://127.0.0.1:{sport}"})
+            d.spawn("router", "router", "--metrics-port", str(d.rport), "--device", "cuda")
+            e.spawn("serve", "serve", "--host", "127.0.0.1", "--port", str(eport),
+                    "--device", "cuda")
+            e.spawn("router", "router", "--metrics-port", str(e.rport),
+                    extra_env={"SELDON_URL": f"http://127.0.0.1:{eport}",
+                               "CCFD_FAULTS": FAULT_PLAN, "CCFD_CLIENT_RETRIES": "0"})
             # all up before any part is measured: a process still starting
             # would take CPU from the part under measurement
             t0 = time.perf_counter()
-            for roles in (a, b, c):
+            for roles in (a, b, c, d, e):
                 roles.wait(f"{roles.rurl}/prometheus", roles.procs["router"], 180)
             c.wait(f"http://127.0.0.1:{sport}/health/status", c.procs["serve1"], 180)
-            log("services", f"the roles of three parts, four of them on the card, up in "
+            e.wait(f"http://127.0.0.1:{eport}/health/status", e.procs["serve"], 180)
+            log("services", f"the roles of five parts, six of them on the card, up in "
                 f"{time.perf_counter() - t0:.3f} s")
             import gc
 
@@ -1824,7 +1926,7 @@ class Smoke:
                 want_gc = 100_000
             if want_gc <= 0:
                 want_gc = gc.get_threshold()[0]  # opted out: Python's default
-            for part, roles in zip("abc", (a, b, c)):
+            for part, roles in zip("abcde", (a, b, c, d, e)):
                 got = roles.gc_thresholds()
                 log("services", f"part ({part}) roles' gc.get_threshold()[0]: {got}")
                 if any(v != want_gc for v in got.values()):
@@ -1844,7 +1946,20 @@ class Smoke:
             ladder = self.services_ladder(c, sport)
             c.stop()
             log("services", f"part (c) took {time.perf_counter() - t0:.1f} s")
-        self.reports["fused_mlp_bf16"]["launches"] += one["b1"] + fan["b1"] + ladder
+            t0 = time.perf_counter()
+            durable = self.services_durable(d)
+            d.stop()
+            log("services", f"part (d) took {time.perf_counter() - t0:.1f} s")
+            log("services", "tx/s of a 4,000-row burst on the durable bus (after each "
+                f"start): {[round(x, 1) for x in durable['tx_s']]}, with "
+                f"CCFD_BUS_FSYNC=1: {durable['tx_s_fsync']:.1f}; part (a)'s memory bus "
+                f"(20,000 rows): {one['tx_s']:.1f}; on {self.card}")
+            t0 = time.perf_counter()
+            faulted = self.services_faults(e, eport)
+            e.stop()
+            log("services", f"part (e) took {time.perf_counter() - t0:.1f} s")
+        self.reports["fused_mlp_bf16"]["launches"] += (one["b1"] + fan["b1"] + ladder
+                                                       + durable["b1"] + faulted)
 
     def services_run(self, part: str, roles: "Roles", rows: int) -> dict:
         """Part (a) or (b) on its started roles (the router on the card):
@@ -1963,6 +2078,169 @@ class Smoke:
                 raise AssertionError(f"{tag}: a serve process's dispatch deadline counters: "
                                      f"{ {k: s.get(k) for k in DEADLINE_SERIES} }")
         return int(sum(disp))
+
+    def services_durable(self, roles: "Roles") -> dict:
+        """Part (d) on its started roles (the bus on ``--dir``, the engine on
+        ``--state-file``, the router on the card): three bursts around a bus
+        crash and an engine restart, then a second bus crash into
+        CCFD_BUS_FSYNC=1 and a last burst. Returns each burst's tx/s and
+        B1's launches."""
+        import re
+
+        from ccfd_tpu_torch.config import Config
+
+        tag = "services (d)"
+        warm = len(Config.from_env().batch_sizes)
+        n = DURABLE_ROWS
+        quiet = DURABLE_REPLY_TIMEOUT_S + 2.0  # every reply and reply timer done
+        names = {"bus": "bus", "engine": "engine", "router": "router", "notify": "notify"}
+        routers, engines, tx_s = [], [], []
+        seen = {"router": 0}  # rows the current router process has routed
+
+        def burst() -> float:
+            roles.wait(f"{roles.rurl}/prometheus", roles.procs[names["router"]], 180)
+            first = roles.produce(n)
+            seen["router"] += n
+            elapsed = roles.settled(seen["router"], first)
+            time.sleep(quiet)
+            return n / elapsed
+
+        def offsets() -> tuple:
+            return (roles.get(f"{roles.burl}/topics/{TX_TOPIC}/offsets"),
+                    roles.get(f"{roles.burl}/groups/router/topics/{TX_TOPIC}/offsets"))
+
+        def crash_bus(k: int, fsync: bool) -> None:
+            """SIGKILL the bus; the router and notify fail their next poll and
+            exit; restart the bus on its port and dir, then them."""
+            routers.append(scrape(f"{roles.rurl}/prometheus"))
+            want = offsets()
+            roles.procs[names["bus"]].kill()
+            roles.procs[names["bus"]].wait(30)
+            rcs = {r: roles.exited(names[r], 60) for r in ("router", "notify")}
+            if not all(rcs.values()):
+                raise AssertionError(f"{tag}: {rcs}: the roles outlived the bus")
+            names["bus"] = f"bus{k}"
+            up_s = roles.spawn_bus(names["bus"], "--dir", os.path.join(roles.dir, "bus"),
+                                   extra_env={"CCFD_BUS_FSYNC": "1" if fsync else "0"})
+            got = offsets()
+            line = re.search(r"opened and replayed in ([0-9.]+) ms",
+                             roles.log_text(names["bus"]))
+            log("services", f"{tag}: bus SIGKILLed under the router (which exited "
+                f"{rcs['router']}) and restarted on its dir{' with CCFD_BUS_FSYNC=1' if fsync else ''}: "
+                f"health in {up_s * 1e3:.3f} ms, the log opened and replayed in "
+                f"{line.group(1) if line else '?'} ms; {TX_TOPIC} end offsets {got[0]}, "
+                f"the router group's committed {got[1]}")
+            if got != want:
+                raise AssertionError(f"{tag}: after the bus restart offsets {got}, before {want}")
+            names["router"], names["notify"] = f"router{k}", f"notify{k}"
+            seen["router"] = 0
+            roles.spawn(names["router"], "router", "--metrics-port", str(roles.rport),
+                        "--device", "cuda")
+            roles.spawn_notify(names["notify"])
+
+        tx_s.append(burst())
+        crash_bus(2, fsync=False)
+        tx_s.append(burst())
+        # the engine: SIGTERM (it saves), restart on its state file
+        views = ("instances?status=active", "tasks?status=open")
+        before = [roles.get(f"{roles.kurl}/rest/{v}") for v in views]
+        engines.append(scrape(f"{roles.kurl}/rest/metrics"))
+        roles.procs["engine"].send_signal(signal.SIGTERM)
+        if roles.exited("engine", 60) != 0:
+            raise AssertionError(f"{tag}: the engine exited {roles.procs['engine'].returncode}")
+        state = os.path.join(roles.dir, "engine.json")
+        saved = re.search(r"saved \S+ \((\d+) bytes\) in ([0-9.]+) ms",
+                          roles.log_text("engine"))
+        roles.spawn_engine("engine2", "--state-file", state, "--save-interval-s", "1",
+                           extra_env={"CCFD_REPLY_TIMEOUT_S": str(DURABLE_REPLY_TIMEOUT_S)})
+        loaded = re.search(r"loaded \S+ in ([0-9.]+) ms", roles.log_text("engine2"))
+        after = [roles.get(f"{roles.kurl}/rest/{v}") for v in views]
+        if not saved or not loaded or after != before:
+            raise AssertionError(f"{tag}: engine restart: saved {bool(saved)}, loaded "
+                                 f"{bool(loaded)}, {len(before[0])} active / "
+                                 f"{len(before[1])} open tasks before, {len(after[0])} / "
+                                 f"{len(after[1])} after")
+        if not before[0] or not before[1]:
+            raise AssertionError(f"{tag}: no live engine state to carry: {before}")
+        log("services", f"{tag}: engine SIGTERMed and restarted on its state file: "
+            f"{len(before[0])} active fraud processes and {len(before[1])} open "
+            f"investigator tasks before = after; saved {saved.group(1)} bytes in "
+            f"{saved.group(2)} ms, loaded in {loaded.group(1)} ms")
+        tx_s.append(burst())
+        crash_bus(3, fsync=True)
+        tx_s_fsync = burst()
+        routers.append(scrape(f"{roles.rurl}/prometheus"))
+        engines.append(scrape(f"{roles.kurl}/rest/metrics"))
+
+        def total(ms: list) -> dict:
+            out: dict = {}
+            for m in ms:
+                for k, v in m.items():
+                    out[k] = out.get(k, 0.0) + v
+            return out
+
+        produced = 4 * n
+        check_conservation(tag, total(routers), total(engines), produced)
+        disp = [m["ccfd_scorer_dispatches"] for m in routers]
+        b1 = [launches_of(m) for m in routers]
+        if any(x - y != warm or y <= 0 for x, y in zip(b1, disp)):
+            raise AssertionError(f"{tag}: the routers' B1 launches {b1} != their dispatches "
+                                 f"{disp} + {warm} warmup launches each")
+        log("services", f"ok: {tag}: {produced} rows through three router processes "
+            f"and two engine processes, each routed and started once; the routers' B1 "
+            f"launches {b1} = dispatches {disp} + {warm} warmup each")
+        return {"tx_s": tx_s, "tx_s_fsync": tx_s_fsync, "b1": int(sum(disp))}
+
+    def services_faults(self, roles: "Roles", sport: int) -> int:
+        """Part (e) on its started roles: the router on SELDON_URL -> the
+        ``serve`` process on the card at ``sport``, under FAULT_PLAN with no
+        client retries. Returns B1's launches on the path."""
+        from ccfd_tpu_torch.config import Config
+
+        tag = "services (e)"
+        warm = len(Config.from_env().batch_sizes)
+        surl = f"http://127.0.0.1:{sport}"
+        first = roles.produce(FAULT_ROWS, rate=FAULT_RATE)
+        elapsed = roles.settled(FAULT_ROWS, first)
+        m = scrape(f"{roles.rurl}/prometheus")
+        srv = scrape(f"{surl}/prometheus")
+        kie = scrape(f"{roles.kurl}/rest/metrics")
+        check_conservation(tag, m, kie, FAULT_ROWS, healthy=False)
+        host = m.get('router_degraded_total{tier="host"}', 0.0)
+        rules = m.get('router_degraded_total{tier="rules"}', 0.0)
+        errors = m.get("router_score_errors_total", 0.0)
+        answered = m["transaction_incoming_total"] - rules - host
+        card = srv["serving_batcher_rows_total"]
+        injected = {k: m.get(f'faults_injected_total{{edge="{e}",kind="{kind}"}}', 0.0)
+                    for k, e, kind in (("scorer/error", "scorer", "error"),
+                                       ("scorer/corrupt", "scorer", "corrupt"),
+                                       ("engine/latency", "engine", "latency"))}
+        breaker = {k: v for k, v in m.items() if k.startswith("ccfd_breaker_transitions_total")}
+        probas = [i["vars"].get("proba") for i in roles.get(f"{roles.kurl}/rest/instances")]
+        b1, disp = launches_of(srv), srv["ccfd_scorer_dispatches"]
+        fails = []
+        if host or answered + rules != FAULT_ROWS or not answered <= card <= answered + errors:
+            fails.append(f"rows: answered by the card {answered}, rules {rules}, host {host}, "
+                         f"scored on the card {card}, failed calls' rows {errors}")
+        if not all(injected.values()):
+            fails.append(f"faults_injected_total {injected}")
+        bad = [p for p in probas if p is None or not math.isfinite(p)]
+        if bad or not probas:
+            fails.append(f"{len(bad)} of {len(probas)} engine probabilities not finite")
+        if b1 - disp != warm or disp <= 0:
+            fails.append(f"serve B1 launches {b1} != dispatches {disp} + {warm} warmup")
+        if fails:
+            raise AssertionError(f"{tag}: " + "; ".join(fails))
+        log("services", f"ok: {tag}: {FAULT_ROWS} rows routed in {elapsed:.3f} s "
+            f"at {FAULT_RATE:.0f}/s under {FAULT_PLAN!r}: "
+            f"{answered:.0f} on the card's answers + {rules:.0f} on the rules tier (score "
+            f"errors {errors:.0f}, {rules - errors:.0f} refused by the open breaker), the "
+            f"host tier 0; "
+            f"the card scored {card:.0f} rows (the corrupted answers' rows among them); "
+            f"injected {injected}; breaker transitions {breaker}; {len(probas)} engine "
+            f"probabilities all finite; serve B1 launches {b1:.0f} = dispatches {disp:.0f} "
+            f"+ {warm} warmup")
+        return int(disp)
 
     # -- the models phase ------------------------------------------------
     def models(self) -> None:

@@ -54,7 +54,8 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
               "process.client", "metrics.exporter", "native", "serving.native_front",
               "utils.gctune", "models.losses", "parallel.train", "parallel.online",
               "parallel.checkpoint", "runtime.durability", "models.logreg",
-              "models.trees", "models.registry", "serving.graph"):
+              "models.trees", "models.registry", "serving.graph", "bus.log",
+              "bus.kafka_adapter", "runtime.faults"):
         assert f"ccfd_tpu_torch.{m}" in res["mods"], m
     bad = [n for n in res["loaded"] if _forbidden(n)]
     assert bad == [], bad
@@ -127,3 +128,23 @@ def test_the_model_modules_import_alone_without_the_reference(mod):
     assert out.returncode == 0, out.stderr
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert [n for n in loaded if _forbidden(n)] == []
+
+
+@pytest.mark.parametrize("mod", ["bus.log", "bus.kafka_adapter", "runtime.faults",
+                                 "runtime.durability"])
+def test_the_durable_and_fault_modules_import_alone(mod):
+    """The slice's modules load by themselves with nothing of JAX or the
+    reference, and the Kafka adapter does not import kafka-python until a
+    KafkaAdapter is built."""
+    code = (
+        "import importlib, json, sys\n"
+        f"importlib.import_module('ccfd_tpu_torch.{mod}')\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert [n for n in loaded if _forbidden(n) or n == "kafka" or n.startswith("kafka.")] == []

@@ -197,7 +197,8 @@ def test_the_library_builds_from_the_ports_sources_into_build():
     cmd = native.build_command(path)
     srcs = [a for a in cmd if a.endswith(".cpp")]
     assert [p.rsplit("/", 2)[-2:] for p in srcs] == [["native", "decode.cpp"],
-                                                       ["native", "httpfront.cpp"]]
+                                                       ["native", "httpfront.cpp"],
+                                                       ["native", "log.cpp"]]
     assert all("/ccfd_tpu_torch/native/" in p for p in srcs)
     assert not any("/ccfd_tpu/" in a for a in cmd)
     assert {"-O3", "-shared", "-fPIC", "-pthread"} <= set(cmd)

@@ -156,5 +156,6 @@ def test_broker_from_url_refuses_kafka():
     assert port_client.broker_from_url("inproc://local") is None
     assert isinstance(port_client.broker_from_url("http://127.0.0.1:1"),
                       port_client.RemoteBroker)
-    with pytest.raises(NotImplementedError, match="kafka"):
+    # kafka:// is the Kafka adapter, which needs kafka-python (absent here)
+    with pytest.raises(RuntimeError, match="kafka-python is not installed"):
         port_client.broker_from_url("kafka://bootstrap:9092")

@@ -175,15 +175,16 @@ def test_five_roles_route_as_the_in_process_pipeline(inputs):
 
 
 @pytest.mark.parametrize("argv,env,match", [
-    (["bus", "--dir", "/tmp/bus"], {}, "bus --dir"),
-    (["engine", "--state-file", "/tmp/engine.json"], {}, "engine --state-file"),
-    (["router"], {"CCFD_FAULTS": "scorer:error=0.5"}, "CCFD_FAULTS"),
     (["router"], {"CCFD_LIFECYCLE_DIR": "/tmp/lc"}, "CCFD_LIFECYCLE_DIR"),
     (["serve", "--device", "cpu"], {"CCFD_OVERLOAD_REST_QUEUE_ROWS": "64"},
      "CCFD_OVERLOAD_REST_QUEUE_ROWS"),
-    (["router"], {"BROKER_URL": "kafka://bootstrap:9092"}, "BROKER_URL"),
-    (["notify"], {"CCFD_BUS_DIR": "/tmp/bus"}, "CCFD_BUS_DIR"),
-    (["producer"], {"CCFD_AUDIT_TOPIC": "audit"}, "CCFD_AUDIT_TOPIC"),
+    (["producer"], {"s3endpoint": "http://s3"}, "s3endpoint"),
+    (["bus", "--port", "0"], {"CCFD_OVERLOAD_SERVE_CODEL_TARGET_MS": "5"},
+     "CCFD_OVERLOAD_SERVE_CODEL_TARGET_MS"),
+    (["engine", "--port", "0"], {"CCFD_LIFECYCLE_DIR": "/tmp/lc"}, "CCFD_LIFECYCLE_DIR"),
+    (["notify"], {"CCFD_INLINE_ROWS": "64"}, "CCFD_INLINE_ROWS"),
+    (["audit", "tx-1"], {}, "provenance plane"),
+    (["audit"], {"s3endpoint": "http://s3"}, "s3endpoint"),
 ])
 def test_roles_refuse_unported_knobs_by_name(monkeypatch, argv, env, match):
     from ccfd_tpu_torch.cli import main
@@ -241,10 +242,7 @@ def test_config_reads_the_roles_knobs_as_the_reference():
 # the GC as the reference does (C2), the router on SELDON_URL falls to the
 # rules tier as the reference's role does (C3)
 
-UNPORTED = [("CCFD_BUS_DIR", "/tmp/bus"), ("CCFD_BUS_RETENTION_RECORDS", "100"),
-            ("BROKER_URL", "kafka://bus:9092"), ("bootstrap", "kafka:9092"),
-            ("CCFD_AUDIT_TOPIC", "audit"), ("s3endpoint", "http://s3"),
-            ("CCFD_FAULTS", "scorer:error=0.5"), ("CCFD_OVERLOAD_SERVE_CODEL_TARGET_MS", "5"),
+UNPORTED = [("s3endpoint", "http://s3"), ("CCFD_OVERLOAD_SERVE_CODEL_TARGET_MS", "5"),
             ("CCFD_OVERLOAD_REST_QUEUE_ROWS", "64"), ("CCFD_LIFECYCLE_DIR", "/tmp/lc"),
             ("CCFD_HOST_TIER_ROWS", "256"), ("CCFD_INLINE_ROWS", "64")]
 
@@ -376,3 +374,192 @@ def test_router_on_seldon_url_falls_to_rules_as_the_reference():
     routes, tiers, out = results["port"]
     assert tiers == {"host": 0, "rules": len(txs)} and len(routes) == len(txs)
     assert sum(out.values()) == len(txs)
+
+
+# -- slice 9: the durable bus, engine persistence, the Kafka adapter, the
+# audit stream and CCFD_FAULTS on the roles
+
+SLICE9 = {"CCFD_BUS_DIR": "/tmp/bus", "CCFD_BUS_FSYNC": "1",
+          "CCFD_BUS_RETENTION_RECORDS": "100", "CCFD_BUS_RETENTION_OVERRIDES": "ccd-audit:0",
+          "BROKER_URL": "kafka://bus:9092", "bootstrap": "kafka:9092",
+          "CCFD_AUDIT_TOPIC": "ccd-audit", "CCFD_FAULTS": "scorer:error=0.5"}
+
+
+def test_config_takes_this_slices_knobs_as_the_reference():
+    from ccfd_tpu.config import Config as RefConfig
+
+    got, want = Config.from_env(SLICE9), RefConfig.from_env(SLICE9)
+    for f in ("bus_log_dir", "bus_fsync", "bus_retention_records", "bus_retention_overrides",
+              "broker_url", "bootstrap", "audit_topic", "faults_spec"):
+        assert getattr(got, f) == getattr(want, f), f
+    assert got.parsed_retention_overrides() == want.parsed_retention_overrides()
+    assert got.unported() == []
+    # what is left names only parts still to port
+    left = Config.from_env({**SLICE9, "s3endpoint": "http://s3",
+                            "CCFD_LIFECYCLE_DIR": "/tmp/lc"}).unported()
+    assert [x.split(" ")[0] for x in left] == ["s3endpoint", "CCFD_LIFECYCLE_DIR"]
+
+
+@pytest.mark.parametrize("argv", [["notify"], ["producer", "--limit", "1"],
+                                  ["engine", "--port", "0"], ["audit"]])
+def test_roles_on_kafka_raise_the_references_error(monkeypatch, argv):
+    """BROKER_URL=kafka:// is the Kafka adapter on every role; without
+    kafka-python it fails as the reference's does, not as unported."""
+    from ccfd_tpu_torch.cli import main
+
+    monkeypatch.setenv("BROKER_URL", "kafka://bootstrap:9092")
+    with pytest.raises(RuntimeError, match="kafka-python is not installed"):
+        main(argv)
+
+
+def _spawn_bus(port: int, d: str | None, log, fsync: bool = False):
+    env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "CCFD_BUS_DIR")}
+    env.update(PYTHONPATH=str(REPO), CCFD_BUS_FSYNC="1" if fsync else "0")
+    p = subprocess.Popen([sys.executable, "-m", "ccfd_tpu_torch", "bus", "--host",
+                          "127.0.0.1", "--port", str(port)] + (["--dir", d] if d else []),
+                         cwd=str(REPO), env=env, stdout=log, stderr=subprocess.STDOUT)
+    _wait_http(f"http://127.0.0.1:{port}/health/status", p)
+    return p
+
+
+def test_durable_bus_role_keeps_its_offsets_across_sigkill(tmp_path):
+    """``bus --dir`` SIGKILLed and restarted on the same port and dir
+    serves the same end offsets and committed group offsets, and the
+    reference's Broker replays the directory the role wrote to the same
+    state."""
+    from ccfd_tpu.bus.broker import Broker as RefBroker
+    from ccfd_tpu_torch.bus.client import RemoteBroker, RemoteBusError
+
+    port, d = _free_port(), str(tmp_path / "bus")
+    url = f"http://127.0.0.1:{port}"
+    with open(tmp_path / "bus.log", "w") as log:
+        p = _spawn_bus(port, d, log, fsync=True)
+        try:
+            rb = RemoteBroker(url)
+            rb.produce_batch("odh-demo", [f"0.0,{i}.5,{i}" for i in range(500)],
+                             keys=[str(i) for i in range(500)])
+            c = rb.consumer("router", ["odh-demo"])
+            while c.poll(97):
+                pass
+            m = rb.consumer("tail", ["ccd-audit"], auto_commit=False)
+            rb.produce_batch("ccd-audit", [{"pid": i} for i in range(40)],
+                             keys=list(range(40)))
+            m.poll(25)
+            m.commit()
+            before = (rb.end_offsets("odh-demo"), rb.committed_offsets("router", "odh-demo"),
+                      rb.committed_offsets("tail", "ccd-audit"), rb.end_offsets("ccd-audit"))
+            p.kill()
+            p.wait(10)
+            with pytest.raises(RemoteBusError):
+                c.poll(10)  # the bus is gone: the client's poll fails
+            p = _spawn_bus(port, d, log)
+            after = (rb.end_offsets("odh-demo"), rb.committed_offsets("router", "odh-demo"),
+                     rb.committed_offsets("tail", "ccd-audit"), rb.end_offsets("ccd-audit"))
+            assert after == before
+            assert sum(before[0]) == 500 and before[1] == before[0]
+            assert sum(before[2]) == 25
+            # the old consumer's id died with the bus: it registers anew
+            # and resumes at the group's committed offset
+            rb.produce("odh-demo", "1.0,2.0", key="x")
+            assert [r.value for r in c.poll(10, timeout_s=2.0)] == ["1.0,2.0"]
+        finally:
+            p.send_signal(signal.SIGTERM)
+            p.wait(20)
+    assert "durable: " + d in open(tmp_path / "bus.log").read()
+    ref = RefBroker(log_dir=d)
+    try:
+        grown = [a - b for a, b in zip(ref.end_offsets("odh-demo"), before[0])]
+        assert sorted(grown) == [0, 0, 1]  # the one record produced after the restart
+        assert ref.committed_offsets("tail", "ccd-audit") == before[2]
+    finally:
+        ref.close()
+
+
+def test_routers_on_a_killed_bus_fail_as_the_reference(tmp_path):
+    """The bus role is SIGKILLed under the routers: the reference's router
+    loop and the port's both fail their next poll with RemoteBusError (the
+    role exits; its restart policy brings it back), neither idles."""
+    from ccfd_tpu.bus.client import RemoteBroker as RefRemote
+    from ccfd_tpu.config import Config as RefConfig
+    from ccfd_tpu.router.router import Router as RefRouter
+    from ccfd_tpu_torch.bus.client import RemoteBroker
+    from ccfd_tpu_torch.router.router import Router
+
+    class Engine:
+        def definitions(self):
+            return ("fraud", "standard")
+
+    port = _free_port()
+    url = f"http://127.0.0.1:{port}"
+    with open(tmp_path / "bus.log", "w") as log:
+        p = _spawn_bus(port, None, log)
+    score = lambda x: [0.0] * len(x)  # noqa: E731
+    ref = RefRouter(RefConfig(), RefRemote(url), score, Engine(), degrade=True)
+    mine = Router(Config(), RemoteBroker(url), score, Engine(), degrade=True)
+    assert ref.step() == 0 and mine.step() == 0
+    p.kill()
+    p.wait(10)
+    errors = []
+    for r in (ref, mine):
+        with pytest.raises(ConnectionError) as e:
+            r.step()
+        errors.append(type(e.value).__name__)
+    assert errors == ["RemoteBusError", "RemoteBusError"]
+
+
+def test_audit_tails_the_engine_stream_as_the_reference(tmp_path, capsys, monkeypatch):
+    """An engine with CCFD_AUDIT_TOPIC on a durable in-process bus; then
+    ``audit`` of the port and of the reference on copies of that dir print
+    the same lines, and --limit stops where asked."""
+    import shutil
+
+    from ccfd_tpu.cli import main as ref_main
+    from ccfd_tpu_torch.cli import local_broker, main
+    from ccfd_tpu_torch.process.clock import ManualClock
+    from ccfd_tpu_torch.process.fraud import build_engine
+
+    d = str(tmp_path / "bus")
+    cfg = Config.from_env({"CCFD_BUS_DIR": d, "CCFD_AUDIT_TOPIC": "ccd-audit"})
+    broker = local_broker(cfg)
+    clock = ManualClock()
+    engine = build_engine(cfg, broker, clock=clock)
+    for i in range(12):
+        engine.start_process("fraud" if i % 3 else "standard",
+                             {"transaction": {"id": i, "Amount": 10.0 * i}, "proba": 0.9})
+    clock.advance(60.0)
+    broker.close()
+    shutil.copytree(d, str(tmp_path / "ref"))
+    outs = []
+    for fn, where in ((main, d), (ref_main, str(tmp_path / "ref"))):
+        monkeypatch.setenv("CCFD_BUS_DIR", where)
+        monkeypatch.setenv("CCFD_AUDIT_TOPIC", "ccd-audit")
+        assert fn(["audit"]) == 0
+        outs.append(capsys.readouterr().out.splitlines())
+    assert outs[0] == outs[1] and len(outs[0]) > 24
+    monkeypatch.setenv("CCFD_BUS_DIR", d)
+    assert main(["audit", "--group", "other", "--limit", "5"]) == 0
+    assert capsys.readouterr().out.splitlines() == outs[0][:5]
+    assert main(["audit", "--group", "other"]) == 0  # the group resumes after the 5
+    assert capsys.readouterr().out.splitlines() == outs[0][5:]
+
+
+def test_demo_pipeline_takes_the_durable_bus_and_the_audit_topic(tmp_path):
+    from ccfd_tpu_torch.cli import build_pipeline
+    from ccfd_tpu_torch.data.surrogate import kaggle_surrogate
+    from tests.torch_helpers import mlp_tree
+
+    ds = kaggle_surrogate(n=200, seed=3)
+    d = str(tmp_path / "bus")
+    cfg = Config.from_env({"CCFD_BUS_DIR": d, "CCFD_AUDIT_TOPIC": "ccd-audit",
+                           "CCFD_BUS_RETENTION_OVERRIDES": "ccd-audit:0",
+                           "CCFD_BATCH_SIZES": "16,128"})
+    pipe = build_pipeline(cfg, ds, device="cpu", params=mlp_tree(ds.X, hidden=16, seed=1))
+    pipe.producer.run(limit=100)
+    while pipe.router.step():
+        pass
+    assert pipe.broker._log is not None and os.path.isdir(d)
+    # a start for each of the 100, an end for each standard one
+    standard = pipe.reg_router.counter("transaction_outgoing_total").value(
+        {"type": "standard"})
+    assert sum(pipe.broker.end_offsets("ccd-audit")) == 100 + standard
+    pipe.broker.close()
