@@ -48,6 +48,13 @@ class Record(NamedTuple):
     headers: Any = None
 
 
+# Group name under which runtime/recovery.py pins its last durable cut:
+# retention treats the pin as any other committed position, so records at
+# or above the last checkpoint cut can never be deleted and a crash
+# restore can always replay from the cut.
+RETENTION_PIN_GROUP = "__ccfd_cut_pin__"
+
+
 class _Partition:
     """One partition's in-memory tail: a record list plus the offset of
     its first element.

@@ -28,6 +28,11 @@
                                     [--wire-format dict|csv]
   python -m ccfd_tpu_torch audit [--topic T] [--group G] [--limit N]
                                  [--follow]
+  python -m ccfd_tpu_torch up [-f CR.yaml] [--exit-after-producer]
+                              [--drain-s 120] [--device cuda|cpu]
+  python -m ccfd_tpu_torch manifests [-f CR.yaml] --out DIR
+  python -m ccfd_tpu_torch store serve|put|ls [--root D] [--host H]
+                                 [--port 9000] [--endpoint URL] [--file F]
 
 ``train`` is the reference's ``cmd_train`` for the MLP family: the dataset
 of ``training_dataset`` (the CSV at CCFD_CSV, else the Kaggle-shaped
@@ -39,7 +44,7 @@ default), the held-out ``auc_mlp``, and a ``CheckpointManager`` step at
 scikit-learn (the port does not import it). ``--family hgb`` exits 2 with
 the reference's message for a missing scikit-learn (the port fits no tree
 ensemble: ``checkpoints_gbt/params.npz`` is the reference's ``train
---family hgb`` output), and ``--from-store`` (the object store, A14) is
+--family hgb`` output), and ``--from-store`` (training on the store, A14) is
 refused by name.
 
 ``serve`` is the Seldon-contract REST scorer of the reference's
@@ -160,7 +165,26 @@ The router role scores ``CCFD_MODEL`` with what ``serve`` would serve for
 it (where the reference's role serves the seeded init of every model) and
 does not load ``CCFD_GRAPH_CR``, as the reference's role does not.
 
-``demo``, ``serve`` and the ``bus``, ``engine``, ``router`` and ``notify``
+``up`` is the reference's operator entry (``platform/operator.py``): the
+platform CR (default: the port's, ``ccfd_tpu_torch/assets/platform_cr.yaml``,
+which is the reference's ``deploy/platform_cr.yaml`` with the blocks the
+port does not have switched off) brought up in the reference's run-book
+order, the scorer on the card unless ``--device cpu``. A CR that leaves a
+component the port does not have on is refused with one error naming each
+and the ROADMAP item that ports it. With ``--exit-after-producer`` it waits
+(within ``--drain-s``) for the producer to finish and the router to
+dispose of every produced row, then 2 s for timers and signals, prints every
+registry (after a scrape-time refresh), the stage profile and the device
+snapshot, and exits 0; without it, it serves until SIGTERM or SIGINT. Its
+ready line names the served model, device, kernel and the params' sha256
+(``params.digest``).
+``manifests`` writes the reference's k8s documents for the port
+(``platform/k8s.py``: the port's command, image and ``nvidia.com/gpu``).
+``store`` is the reference's object-store command: ``serve`` the S3-shaped
+store, ``put`` the dataset (or ``--file``) as ``filename`` in ``s3bucket``,
+``ls`` the bucket; the producer reads from it when ``s3endpoint`` is set.
+
+``demo``, ``serve``, ``up`` and the ``bus``, ``engine``, ``router`` and ``notify``
 roles raise Python's gen-0 GC threshold before their hot loops start, as
 the reference does (``utils/gctune.py``; CCFD_GC_THRESHOLD=0 opts out), and
 their start-up lines print it.
@@ -860,6 +884,115 @@ def cmd_audit(args: argparse.Namespace) -> int:
         consumer.close()
 
 
+PORT_CR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets",
+                       "platform_cr.yaml")
+
+
+def cmd_up(args: argparse.Namespace) -> int:
+    """The operator entry: CR file -> running platform (the reference's
+    run-book, README.md:44-537, as one command)."""
+    from ccfd_tpu_torch.platform.operator import Platform, PlatformSpec, refuse
+
+    spec = PlatformSpec.from_yaml(args.file)
+    refuse(spec)  # before anything starts
+    if args.exit_after_producer and not spec.component("producer").enabled:
+        print("[up] --exit-after-producer given but producer is disabled in the CR",
+              file=sys.stderr)
+        return 2
+    _sigterm_as_interrupt()
+    platform = Platform(spec, device=args.device)
+    try:
+        platform.up()
+        print(json.dumps(platform.status(), indent=2), file=sys.stderr)
+        sc = platform.scorer
+        if sc is not None:
+            from ccfd_tpu_torch.params import digest
+
+            grid = sc.executable_grid()
+            served = (f"scorer {grid['model']} on {sc.device}, kernel {grid['kernel']}, "
+                      f"params sha256 {digest(sc.params)}")
+        else:
+            served = "no local scorer"
+        print(f"[up] platform ready: {served}; gc_threshold={_tune_gc()}",
+              file=sys.stderr, flush=True)
+        if args.exit_after_producer:
+            t0 = time.monotonic()
+            platform.wait_producer(timeout_s=args.drain_s)
+            routed = platform.wait_routed(max(0.0, args.drain_s - (time.monotonic() - t0)))
+            print(f"[up] producer done; router {'drained' if routed else 'NOT drained'} "
+                  f"after {time.monotonic() - t0:.3f} s", file=sys.stderr, flush=True)
+            time.sleep(2.0)  # let timers and signals drain
+        else:
+            while True:
+                time.sleep(3600)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        if platform.exporter is not None:
+            platform.exporter.refresh()  # the scrape-time gauges, current
+        for name, reg in platform.registries.items():
+            print(f"--- {name} ---", file=sys.stderr)
+            print(reg.render(), file=sys.stderr)
+        # the planner's inputs at exit: the stage profile and the device
+        # snapshot, one JSON line each
+        if platform.profiler is not None:
+            print(f"--- profile ---\n{json.dumps(platform.profiler.snapshot())}",
+                  file=sys.stderr)
+        if platform.device_telemetry is not None:
+            print(f"--- device ---\n{json.dumps(platform.device_telemetry.snapshot())}",
+                  file=sys.stderr)
+        platform.down()
+    return 0
+
+
+def cmd_manifests(args: argparse.Namespace) -> int:
+    """Per-service k8s manifests from the platform CR (the reference's
+    deploy/*.yaml topology for the port's image and commands)."""
+    from ccfd_tpu_torch.platform.k8s import write_manifests
+    from ccfd_tpu_torch.platform.operator import PlatformSpec
+
+    spec = PlatformSpec.from_yaml(args.file)
+    print(json.dumps({"written": write_manifests(spec, args.out)}))
+    return 0
+
+
+def cmd_store(args: argparse.Namespace) -> int:
+    """Object-store operations: the reference run-book's Ceph/S3 steps
+    (README.md:136-343: serve the store, upload the CSV, `aws s3 ls`)."""
+    from ccfd_tpu_torch.store.client import S3Client
+    from ccfd_tpu_torch.store.objectstore import Credentials, ObjectStore
+    from ccfd_tpu_torch.store.server import StoreServer
+
+    cfg = Config.from_env()
+    creds = Credentials(cfg.access_key_id or "ccfd-access",
+                        cfg.secret_access_key or "ccfd-secret")
+    if args.action == "serve":
+        store = ObjectStore(root=args.root)
+        store.add_credentials(creds)
+        store.create_bucket(cfg.s3_bucket)
+        srv = StoreServer(store, host=args.host, port=args.port).start()
+        print(json.dumps({"endpoint": srv.endpoint, "bucket": cfg.s3_bucket}), flush=True)
+        _serve_forever()
+        srv.stop()
+        return 0
+    # an explicit --endpoint beats the s3endpoint env var
+    client = S3Client(args.endpoint or cfg.s3_endpoint or "http://127.0.0.1:9000", creds)
+    if args.action == "put":
+        if args.file:
+            with open(args.file, "rb") as f:
+                data = f.read()
+        else:  # the synthetic (or CCFD_CSV) dataset as creditcard.csv
+            from ccfd_tpu_torch.data.ccfd import load_dataset, to_csv_bytes
+
+            data = to_csv_bytes(load_dataset())
+        client.create_bucket(cfg.s3_bucket)
+        client.put(cfg.s3_bucket, cfg.filename, data)
+        print(json.dumps({"bucket": cfg.s3_bucket, "key": cfg.filename, "bytes": len(data)}))
+    elif args.action == "ls":
+        print(json.dumps({"bucket": cfg.s3_bucket, "keys": client.list(cfg.s3_bucket)}))
+    return 0
+
+
 def cmd_serve(args: argparse.Namespace) -> int:
     cfg = Config.from_env()
     params = None
@@ -940,7 +1073,8 @@ def cmd_train(args: argparse.Namespace) -> int:
         return 2
     if args.from_store:
         raise NotImplementedError(
-            "train --from-store (the object store, ROADMAP A14) is not ported yet")
+            "train --from-store (training on the object store's CSV, ROADMAP A14) is not "
+            "ported yet; the store itself is (`store`, the producer's s3endpoint)")
     dev = resolve(args.device)
     ds, source = training_dataset()
     test, train = held_out_split(ds.n, args.test_frac)
@@ -1168,6 +1302,26 @@ def build_parser() -> argparse.ArgumentParser:
     au.add_argument("--follow", action="store_true", help="keep consuming")
     au.add_argument("--limit", type=int, default=0, help="stop after N events")
     au.set_defaults(fn=cmd_audit)
+    up = sub.add_parser("up", help="bring up the platform from a CR file")
+    up.add_argument("-f", "--file", default=PORT_CR)
+    up.add_argument("--exit-after-producer", action="store_true")
+    up.add_argument("--drain-s", type=float, default=120.0)
+    up.add_argument("--device", choices=("cuda", "cpu"), default=None,
+                    help="where the scorer scores (default: the card)")
+    up.set_defaults(fn=cmd_up)
+    mf = sub.add_parser("manifests", help="emit k8s manifests from the CR")
+    mf.add_argument("-f", "--file", default=PORT_CR)
+    mf.add_argument("-o", "--out", required=True, help="directory to write the manifests to")
+    mf.set_defaults(fn=cmd_manifests)
+    st = sub.add_parser("store", help="S3-shaped object store (serve/put/ls)")
+    st.add_argument("action", choices=("serve", "put", "ls"))
+    st.add_argument("--root", default=None, help="persistence dir (serve)")
+    st.add_argument("--host", default="127.0.0.1")
+    st.add_argument("--port", type=int, default=9000)
+    st.add_argument("--endpoint", default=None,
+                    help="store endpoint (overrides the s3endpoint env)")
+    st.add_argument("--file", default=None, help="local file to upload (put)")
+    st.set_defaults(fn=cmd_store)
     return ap
 
 

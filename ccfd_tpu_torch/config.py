@@ -75,11 +75,29 @@ as ccfd_tpu/config.py, with the same defaults:
     CCFD_OVERLOAD_MIN_INFLIGHT, CCFD_OVERLOAD_MAX_INFLIGHT,
     CCFD_OVERLOAD_CODEL_TARGET_MS,
     CCFD_OVERLOAD_DISPATCH_DEADLINE_MS                  overload control
+    s3endpoint, s3bucket, filename, ACCESS_KEY_ID,
+    SECRET_ACCESS_KEY                                   the object store: the
+                                                        producer's source and
+                                                        the `store` command
+    CCFD_SLO, CCFD_SLO_INTERVAL_S,
+    CCFD_SLO_E2E_TARGET_MS, CCFD_SLO_REST_TARGET_MS,
+    CCFD_SLO_OBJECTIVE, CCFD_SLO_MAX_ERROR_RATE,
+    CCFD_SLO_WINDOWS, CCFD_SLO_FAST_BURN,
+    CCFD_SLO_TRANSPORT_FLOOR_MS                         the operator's stage
+                                                        profiler and SLO
+                                                        engine
+    CCFD_DEVICE                                         the operator's device
+                                                        telemetry
+    CCFD_STORAGE_RETAIN, CCFD_STORAGE_FSYNC,
+    CCFD_STORAGE_SWEEP                                  the operator's
+                                                        durability block
+    CCFD_MESH_DEVICES                                   the operator's mesh
+                                                        block (1 only)
 
 Knobs that select a part of the reference this port does not have are read
 too, so that setting one is refused by name rather than ignored
-(``unported``): the producer's object-store source (s3endpoint), the
-batcher's overload queue policies
+(``unported``): the device and storage fault plans (CCFD_DEVICE_FAULTS,
+CCFD_STORAGE_FAULTS; ROADMAP A6), the batcher's overload queue policies
 (CCFD_OVERLOAD_SERVE_CODEL_TARGET_MS, CCFD_OVERLOAD_REST_QUEUE_ROWS), the
 model lifecycle's lineage store (CCFD_LIFECYCLE_DIR), and the two ways
 the reference scores small requests round the kernel: the Scorer's host
@@ -192,8 +210,33 @@ class Config:
     # the router role's standing fault plan,
     # "edge:latency=50,jitter=20,error=0.1;edge2:blackhole"; "" = none
     faults_spec: str = ""
-    # --- parts of the reference not ported yet: set, they are refused ---
+    # --- the object store (store/; the producer's source when s3endpoint
+    # is set, reference ProducerDeployment.yaml:77-97) ---
     s3_endpoint: str = ""
+    s3_bucket: str = "ccdata"
+    filename: str = "creditcard.csv"
+    access_key_id: str = ""
+    secret_access_key: str = ""
+    # --- the operator's planes (platform/operator.py) ---
+    slo_enabled: bool = True
+    slo_interval_s: float = 5.0
+    slo_e2e_target_ms: float = 50.0
+    slo_rest_target_ms: float = 25.0
+    slo_objective: float = 0.99
+    slo_max_error_rate: float = 0.01
+    slo_windows: str = "300,3600,21600"
+    slo_fast_burn: float = 14.4
+    # the budget ledger's static transport layer: the reference's default,
+    # not a measurement on the card
+    slo_transport_floor_ms: float = 0.072
+    device_enabled: bool = True
+    storage_retain: int = 3
+    storage_fsync: bool = True
+    storage_sweep: bool = True
+    mesh_devices: int = 1
+    # --- parts of the reference not ported yet: set, they are refused ---
+    device_faults_spec: str = ""
+    storage_faults_spec: str = ""
     overload_serve_codel_target_ms: float = 0.0
     overload_rest_queue_rows: int = 0
     graph_cr: str = ""
@@ -276,6 +319,27 @@ class Config:
             bootstrap=e.get("bootstrap", Config.bootstrap),
             audit_topic=e.get("CCFD_AUDIT_TOPIC", Config.audit_topic),
             s3_endpoint=e.get("s3endpoint", Config.s3_endpoint),
+            s3_bucket=e.get("s3bucket", Config.s3_bucket),
+            filename=e.get("filename", Config.filename),
+            access_key_id=e.get("ACCESS_KEY_ID", Config.access_key_id),
+            secret_access_key=e.get("SECRET_ACCESS_KEY", Config.secret_access_key),
+            slo_enabled=_on_unless_off(e.get("CCFD_SLO", "1")),
+            slo_interval_s=num("CCFD_SLO_INTERVAL_S", "slo_interval_s"),
+            slo_e2e_target_ms=num("CCFD_SLO_E2E_TARGET_MS", "slo_e2e_target_ms"),
+            slo_rest_target_ms=num("CCFD_SLO_REST_TARGET_MS", "slo_rest_target_ms"),
+            slo_objective=num("CCFD_SLO_OBJECTIVE", "slo_objective"),
+            slo_max_error_rate=num("CCFD_SLO_MAX_ERROR_RATE", "slo_max_error_rate"),
+            slo_windows=e.get("CCFD_SLO_WINDOWS", Config.slo_windows),
+            slo_fast_burn=num("CCFD_SLO_FAST_BURN", "slo_fast_burn"),
+            slo_transport_floor_ms=num("CCFD_SLO_TRANSPORT_FLOOR_MS",
+                                       "slo_transport_floor_ms"),
+            device_enabled=_on_unless_off(e.get("CCFD_DEVICE", "1")),
+            storage_retain=num("CCFD_STORAGE_RETAIN", "storage_retain", int),
+            storage_fsync=_on_unless_off(e.get("CCFD_STORAGE_FSYNC", "1")),
+            storage_sweep=_on_unless_off(e.get("CCFD_STORAGE_SWEEP", "1")),
+            mesh_devices=num("CCFD_MESH_DEVICES", "mesh_devices", int),
+            device_faults_spec=e.get("CCFD_DEVICE_FAULTS", Config.device_faults_spec),
+            storage_faults_spec=e.get("CCFD_STORAGE_FAULTS", Config.storage_faults_spec),
             faults_spec=e.get("CCFD_FAULTS", Config.faults_spec),
             overload_serve_codel_target_ms=num("CCFD_OVERLOAD_SERVE_CODEL_TARGET_MS",
                                                "overload_serve_codel_target_ms"),
@@ -331,8 +395,6 @@ class Config:
         the port does not have yet (the pipeline and the roles refuse to
         start on any)."""
         out = []
-        if self.s3_endpoint:
-            out.append("s3endpoint (the producer's object-store source)")
         if self.overload_serve_codel_target_ms > 0 or self.overload_rest_queue_rows > 0:
             out.append("CCFD_OVERLOAD_SERVE_CODEL_TARGET_MS/CCFD_OVERLOAD_REST_QUEUE_ROWS "
                        "(the batcher's overload queue policies)")
@@ -344,4 +406,8 @@ class Config:
         if self.inline_rows > 0:
             out.append("CCFD_INLINE_ROWS > 0 (the REST front's in-IO-thread host model: "
                        "requests that skip the kernel)")
+        if self.device_faults_spec:
+            out.append("CCFD_DEVICE_FAULTS (the device fault plans, ROADMAP A6)")
+        if self.storage_faults_spec:
+            out.append("CCFD_STORAGE_FAULTS (the storage fault plans, ROADMAP A6)")
         return out

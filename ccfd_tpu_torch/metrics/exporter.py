@@ -1,23 +1,37 @@
-"""Prometheus scrape endpoint over a role's metric registries.
+"""Prometheus scrape endpoint over the port's metric registries.
 
-The port's copy of ccfd_tpu/metrics/exporter.py, for the standalone roles:
-the router on :8091 (reference README.md:503-507) and notify on :8080.
+The port's copy of ccfd_tpu/metrics/exporter.py: the standalone roles (the
+router on :8091, reference README.md:503-507, and notify on :8080) and the
+platform operator, which serves every component registry from one port.
 
     GET /prometheus | /metrics  every registry, merged family-wise
-    GET /prometheus/<name>      one registry (router, notify, tracing, ...)
+    GET /prometheus/<name>      one registry (router, notify, slo, ...)
     GET /rest/metrics           the "kie" registry (the reference KIE path)
     GET /traces                 retained-trace summaries (JSON)
     GET /traces/<id>            one retained trace's spans (JSON)
+    GET /profile                the live StageProfile document (JSON,
+                                observability/profile.py)
     GET /memory                 memory evidence (JSON); ?trace=1 arms
                                 tracemalloc
+    GET /healthz                the readiness verdict (strict JSON): 200
+                                healthy / 503 degraded, from the ``health``
+                                composer (the operator's); 404 without one
+    GET /debug/device           the device-telemetry snapshot (JSON):
+                                torch.cuda memory, H2D accounting, the
+                                executable inventory (observability/device.py)
+    GET /debug/profile?seconds=N   an on-demand torch.profiler capture of N
+                                seconds (clamped to 60): {"trace_dir",
+                                "seconds", "device_us"}; one capture at a
+                                time ({"error": ...} while busy)
 
 Metric paths answer ``text/plain; version=0.0.4``; unknown paths 404; HEAD
 mirrors GET with no body. Every scrape refreshes the ``process`` registry's
 ``ccfd_process_rss_bytes`` and ``ccfd_component_objects{component}`` gauges,
-and first calls each ``collectors`` callable (the router role publishes its
-kernel launches and scorer dispatches this way). Not ported: OpenMetrics
-negotiation, and the /profile, /incidents, /decisions, /capacity, /healthz
-and /debug planes.
+the profiler's stage gauges and the telemetry's memory gauges, and first
+calls each ``collectors`` callable (the router role and the operator
+publish kernel launches and scorer dispatches this way). Not ported:
+OpenMetrics negotiation, and the /incidents, /decisions and /capacity
+planes (their components are refused by the operator).
 """
 
 from __future__ import annotations
@@ -98,9 +112,16 @@ class MetricsExporter:
     def __init__(self, registries: dict[str, Registry], host: str = "127.0.0.1",
                  port: int = 0, sink=None,
                  memory_probes: dict[str, Callable[[], float]] | None = None,
-                 collectors: list[Callable[[], None]] | None = None):
+                 collectors: list[Callable[[], None]] | None = None,
+                 profiler=None, telemetry=None,
+                 health: Callable[[], dict] | None = None):
         self._registries = dict(registries)
         self._sink = sink  # observability.trace.SpanSink (or None)
+        self._profiler = profiler  # observability.profile.StageProfiler
+        self._telemetry = telemetry  # observability.device.DeviceTelemetry
+        self._health = health  # callable -> readiness doc (healthz())
+        self._capture_lock = threading.Lock()  # one device capture at a time
+        self._lock = threading.Lock()
         self._collectors = list(collectors or ())
         self._memory_probes = dict(memory_probes or {})
         self._process_registry = Registry()
@@ -120,14 +141,20 @@ class MetricsExporter:
 
             def _answer(self, head_only: bool) -> None:
                 path = self.path.split("?")[0].rstrip("/")
-                body, ctype = exporter.respond(path, self.path.partition("?")[2])
+                if path == "/healthz":
+                    # the one path whose status code is the verdict
+                    body, status = exporter.healthz()
+                    ctype = "application/json"
+                else:
+                    body, ctype = exporter.respond(path, self.path.partition("?")[2])
+                    status = 200
                 if body is None:
                     self.send_response(404)
                     self.send_header("Content-Length", "0")
                     self.end_headers()
                     return
                 data = body.encode()
-                self.send_response(200)
+                self.send_response(status)
                 self.send_header("Content-Type", ctype)
                 self.send_header("Content-Length", str(len(data)))
                 self.end_headers()
@@ -143,20 +170,54 @@ class MetricsExporter:
         self._httpd = FrameworkHTTPServer((host, port), Handler)
         self._thread: threading.Thread | None = None
 
-    def _refresh(self) -> None:
+    def add(self, name: str, registry: Registry) -> None:
+        with self._lock:
+            self._registries[name] = registry
+
+    def add_probe(self, component: str, count_fn: Callable[[], float]) -> None:
+        """Register a live-object-count callable for the memory surface."""
+        with self._lock:
+            self._memory_probes[component] = count_fn
+
+    def refresh(self) -> None:
+        """What every scrape does first: the RSS and object-count gauges, the
+        collectors, the profiler's and the telemetry's gauges."""
         self._g_rss.set(rss_bytes())
-        for name, fn in self._memory_probes.items():
+        with self._lock:
+            probes = dict(self._memory_probes)
+            collectors = list(self._collectors)
+        for name, fn in probes.items():
             try:
                 self._g_objects.set(float(fn()), labels={"component": name})
             except Exception:  # noqa: BLE001 - a dead probe reads -1, not a 500
                 self._g_objects.set(-1.0, labels={"component": name})
-        for fn in self._collectors:
+        for fn in collectors:
             fn()
+        if self._profiler is not None:
+            try:
+                self._profiler.refresh_gauges()
+            except Exception:  # noqa: BLE001 - a profiler bug must not 500
+                pass
+        if self._telemetry is not None:
+            try:
+                self._telemetry.refresh()
+            except Exception:  # noqa: BLE001 - telemetry must not 500
+                pass
 
     def respond(self, path: str, query: str = "") -> tuple[str | None, str]:
         """-> (body or None for 404, content type)."""
         if path == "/traces" or path.startswith("/traces/"):
             return self._traces(path), "application/json"
+        if path == "/profile":
+            if self._profiler is None:
+                return None, "application/json"
+            return json.dumps(self._profiler.snapshot()), "application/json"
+        if path == "/debug/device":
+            if self._telemetry is None:
+                return None, "application/json"
+            return json.dumps(self._telemetry.snapshot()), "application/json"
+        if path == "/debug/profile":
+            return self._device_capture(query), "application/json"
         if path == "/memory":
             from urllib.parse import parse_qs
 
@@ -164,12 +225,60 @@ class MetricsExporter:
 
             if parse_qs(query or "").get("trace") == ["1"]:
                 ensure_tracemalloc()
-            return json.dumps(memory_report(self._memory_probes)), "application/json"
+            with self._lock:
+                probes = dict(self._memory_probes)
+            return json.dumps(memory_report(probes)), "application/json"
         return self.render_path(path), _TEXT_CTYPE
 
+    def healthz(self) -> tuple[str | None, int]:
+        """The /healthz verdict -> (body, status): None/404 without a
+        health composer, else its document with 200 healthy / 503
+        degraded."""
+        if self._health is None:
+            return None, 404
+        try:
+            doc = self._health()
+        except Exception as e:  # noqa: BLE001 - a probe bug reads degraded
+            doc = {"healthy": False, "sources": {},
+                   "causes": [f"health composer error: {e!r}"[:200]]}
+        return json.dumps(doc), (200 if doc.get("healthy") else 503)
+
+    def _device_capture(self, query: str) -> str | None:
+        """/debug/profile?seconds=N: a torch.profiler capture of ~N seconds
+        (clamped to [0.05, 60]) into a new temp dir; one at a time. 404s
+        (None) unless both the profiler and the device plane are armed, as
+        in the reference."""
+        if self._profiler is None or self._telemetry is None:
+            return None
+        import tempfile
+        import time as _time
+        from urllib.parse import parse_qs
+
+        q = parse_qs(query or "")
+        try:
+            seconds = float((q.get("seconds") or ["3"])[0])
+        except ValueError:
+            seconds = 3.0
+        seconds = min(max(seconds, 0.05), 60.0)
+        if not self._capture_lock.acquire(blocking=False):
+            return json.dumps({"error": "device capture already in progress"})
+        try:
+            logdir = tempfile.mkdtemp(prefix="ccfd_device_trace_")
+            with self._profiler.profile_device(logdir):
+                _time.sleep(seconds)
+            with open(f"{logdir}/device_time.json") as f:
+                device_us = json.load(f)["device_us"]
+            return json.dumps({"trace_dir": logdir, "seconds": seconds,
+                               "device_us": device_us})
+        except Exception as e:  # noqa: BLE001 - a debug endpoint must not 500
+            return json.dumps({"error": repr(e)[:200]})
+        finally:
+            self._capture_lock.release()
+
     def render_path(self, path: str) -> str | None:
-        self._refresh()
-        regs = self._registries
+        self.refresh()
+        with self._lock:
+            regs = dict(self._registries)
         if path in ("", "/prometheus", "/metrics"):
             return _merge_renders([r.render() for r in regs.values()])
         if path == "/rest/metrics":

@@ -2,7 +2,8 @@
 
 The port's copy of the reference's ccfd_tpu/metrics/prom.py, cut to what
 the REST scorer and the decision pipeline use: Counter, Gauge and Histogram
-with labels (read back with ``value``, ``count``, ``sum`` and ``quantile``;
+with labels (read back with ``value``, ``count``, ``sum``, ``quantile``,
+``count_le``/``total_count``/``total_count_le`` and ``Registry.get``;
 ``observe_many`` for a batch; the last exemplar per histogram cell), the
 KIE board's ``AMOUNT_BUCKETS``, rendered in the Prometheus text format,
 with no global state (each service owns a Registry). Each metric admits at
@@ -100,6 +101,12 @@ class _ScalarMetric(_Metric):
         """Sum across every label set."""
         with self._lock:
             return sum(self._values.values())
+
+    def items(self) -> list[tuple[LabelKey, float]]:
+        """Every (labelkey, value) pair (the stage profiler's overload
+        section reads the in-flight gauges this way)."""
+        with self._lock:
+            return list(self._values.items())
 
     def render(self) -> Iterable[str]:
         with self._lock:
@@ -199,6 +206,38 @@ class Histogram(_Metric):
         with self._lock:
             return self._sums.get(_labelkey(labels), 0.0)
 
+    def count_le(self, value: float, labels: Mapping[str, str] | None = None) -> float:
+        """Interpolated cumulative count of observations <= ``value``, the
+        inverse of :meth:`quantile` (the SLO engine's good events)."""
+        with self._lock:
+            counts = list(self._counts.get(_labelkey(labels), []))
+        return self._count_le_of(counts, value)
+
+    def _count_le_of(self, counts: list, value: float) -> float:
+        if not counts:
+            return 0.0
+        prev_ub, prev_c = 0.0, 0
+        for ub, c in zip(self.buckets, counts):
+            if value <= ub:
+                if ub == math.inf:
+                    return float(prev_c)
+                span = ub - prev_ub
+                frac = (value - prev_ub) / span if span > 0 else 1.0
+                return prev_c + (c - prev_c) * frac
+            prev_ub, prev_c = ub, c
+        return float(counts[-1])
+
+    def total_count(self) -> int:
+        """Observation count summed across every label set."""
+        with self._lock:
+            return sum(c[-1] for c in self._counts.values())
+
+    def total_count_le(self, value: float) -> float:
+        """:meth:`count_le` summed across every label set."""
+        with self._lock:
+            all_counts = [list(c) for c in self._counts.values()]
+        return sum(self._count_le_of(c, value) for c in all_counts)
+
     def exemplars(self, labels: Mapping[str, str] | None = None) -> dict:
         """bucket index -> (exemplar labels, value, unix time)."""
         with self._lock:
@@ -267,6 +306,12 @@ class Registry:
         return self._get_or_make(
             name, lambda: Histogram(name, help_, buckets, labelset_limit),
             Histogram)
+
+    def get(self, name: str) -> "_Metric | None":
+        """A registered metric by name, or None (the SLO engine resolves its
+        sources across registries this way)."""
+        with self._lock:
+            return self._metrics.get(name)
 
     def _get_or_make(self, name, factory, cls):
         with self._lock:

@@ -132,6 +132,9 @@ def build() -> Path:
                            f"{proc.returncode}\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, target)  # atomic: concurrent builds each write their own tmp
     build_seconds = time.perf_counter() - t0
+    from ccfd_tpu_torch.observability.profile import record_build
+
+    record_build(build_seconds)  # the stage profiler's build attribution
     return target
 
 

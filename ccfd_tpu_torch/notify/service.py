@@ -84,6 +84,10 @@ class NotificationService:
     def stop(self) -> None:
         self._stop.set()
 
+    def reset(self) -> None:
+        """Re-arm after stop() (a supervisor's respawn)."""
+        self._stop.clear()
+
     def close(self) -> None:
         self.stop()
         self._consumer.close()

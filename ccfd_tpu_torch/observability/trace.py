@@ -17,8 +17,10 @@ The port's copy of ccfd_tpu/observability/trace.py:
   deterministic crc32 fraction (``CCFD_TRACE_SAMPLE``) of the rest.
 
 Span context is per thread (``contextvars``); code that hops threads (the
-router's score worker) passes ``parent=`` explicitly. Not ported: span
-listeners (the stage profiler), the debug ring and the device profile.
+router's score worker) passes ``parent=`` explicitly. Span listeners
+(``SpanSink.add_listener``: the stage profiler's span ingestion) see every
+finished span before sampling. Not ported: the debug ring and the device
+profile.
 """
 
 from __future__ import annotations
@@ -194,6 +196,9 @@ class SpanSink:
         self.max_retained = int(max_retained)
         self.decision_window_s = float(decision_window_s)
         self._lock = threading.Lock()
+        # span listeners (the stage profiler): every finished span, before
+        # sampling
+        self._listeners: list = []
         self._pending: "collections.OrderedDict[str, _TraceBuf]" = collections.OrderedDict()
         self._retained: "collections.OrderedDict[str, list[Span]]" = collections.OrderedDict()
         r = registry if registry is not None else Registry()
@@ -203,8 +208,21 @@ class SpanSink:
         self._c_dropped = r.counter("ccfd_traces_dropped_total", "tail-sampled traces dropped")
         self._g_retained = r.gauge("ccfd_traces_retained", "traces currently held for /traces")
         self._g_pending = r.gauge("ccfd_traces_pending", "traces awaiting a sampling decision")
+        self._c_listener_err = r.counter(
+            "ccfd_trace_listener_errors_total",
+            "span-listener callbacks that raised (the span still lands)")
+
+    def add_listener(self, fn) -> None:
+        """Subscribe ``fn(span)`` to every finished span (unsampled); a
+        raising listener is counted, never a lost span."""
+        self._listeners.append(fn)
 
     def add(self, span: Span) -> None:
+        for fn in self._listeners:
+            try:
+                fn(span)
+            except Exception:  # noqa: BLE001 - a listener bug must not drop spans
+                self._c_listener_err.inc()
         self._c_spans.inc(labels={"component": span.component})
         with self._lock:
             retained = self._retained.get(span.trace_id)

@@ -11,6 +11,9 @@ The library name carries a hash of the source, the shared headers
 build. ``build`` starts one nvcc per source not
 built yet, all at once, and waits for them all. What ``-Xptxas -v`` printed
 (registers, shared memory, spills per kernel) is kept in ``ptxas_log``.
+Each nvcc run that succeeds counts as one build in the stage profiler
+(``observability/profile.py::record_build``), the port's counterpart of the
+reference's XLA compile events.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -71,6 +75,7 @@ def build(names: "tuple[str, ...] | list[str]" = SOURCES) -> None:
             return
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         nvcc = nvcc_path()
+        t0 = time.perf_counter()
         procs = []
         for name, target in todo:
             tmp = target.with_suffix(f".{os.getpid()}.tmp")
@@ -86,6 +91,9 @@ def build(names: "tuple[str, ...] | list[str]" = SOURCES) -> None:
                 failed.append(f"{name}: nvcc exited {proc.returncode}\n{out}")
             else:
                 os.replace(tmp, target)
+                from ccfd_tpu_torch.observability.profile import record_build
+
+                record_build(time.perf_counter() - t0)
         if failed:
             raise RuntimeError("kernel build failed: " + "\n".join(failed))
 

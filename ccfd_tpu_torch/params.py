@@ -101,6 +101,21 @@ def to_device(tree: Any, device: "str | torch.device") -> dict:
     return tree_map(lambda a: tensor_leaf(a, device), tree)
 
 
+def digest(tree: Any) -> str:
+    """sha256 (16 hex) over a param tree's flattened paths, dtypes, shapes
+    and bytes: two processes serve the same params exactly when the
+    digests are equal (``up`` prints the served params'; the smoke holds
+    the REST answers against the params it digests)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for path, a in sorted(flatten(tree).items()):
+        a = np.ascontiguousarray(a)
+        h.update(f"{path}:{a.dtype}:{a.shape};".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()[:16]
+
+
 def flatten(tree: Any) -> dict[str, np.ndarray]:
     """Param tree -> ``{"norm/mu": ..., "layers/0/w": ...}`` numpy arrays:
     each leaf under the path of its dict keys and list indices."""

@@ -7,8 +7,11 @@ stream) and the sink is the bus. An optional rate limit emulates live
 traffic. With a tracer each produced batch opens a root span
 (``producer.batch``; ``producer.produce`` a record when paced) whose
 context rides the records as a ``traceparent`` header: the head of the
-trace the router, engine and notify resume. The object-store source
-(``s3endpoint``) is not ported yet.
+trace the router, engine and notify resume. With ``s3endpoint`` set and
+no dataset given, the rows come from the object store
+(:func:`dataset_from_store`: ``filename`` in ``s3bucket``, the
+``ACCESS_KEY_ID``/``SECRET_ACCESS_KEY`` pair), as the reference
+producer's data path, with the store edge's fault injector and breaker.
 """
 
 from __future__ import annotations
@@ -17,20 +20,38 @@ import time
 
 from ccfd_tpu_torch.bus.broker import Broker
 from ccfd_tpu_torch.config import Config
-from ccfd_tpu_torch.data.ccfd import Dataset, iter_transactions, load_dataset
+from ccfd_tpu_torch.data.ccfd import Dataset, iter_transactions, load_csv_bytes, load_dataset
 from ccfd_tpu_torch.metrics.prom import Registry
+
+
+def dataset_from_store(cfg: Config, limit: int | None = None, faults=None, breaker=None,
+                       tracer=None) -> Dataset:
+    """Fetch ``filename`` from ``s3bucket`` at ``s3endpoint``: the reference
+    producer's data path (ProducerDeployment.yaml:90-95), credentials from
+    the ``keysecret`` pair. ``faults``/``breaker`` guard the
+    producer-store edge (runtime/faults.py, runtime/breaker.py)."""
+    from ccfd_tpu_torch.store.client import S3Client
+    from ccfd_tpu_torch.store.objectstore import Credentials
+
+    client = S3Client(cfg.s3_endpoint, Credentials(cfg.access_key_id, cfg.secret_access_key),
+                      faults=faults, breaker=breaker, tracer=tracer)
+    return load_csv_bytes(client.get(cfg.s3_bucket, cfg.filename), limit=limit)
 
 
 class Producer:
     def __init__(self, cfg: Config, broker: Broker, dataset: Dataset | None = None,
-                 registry: Registry | None = None, tracer=None):
+                 registry: Registry | None = None, store_faults=None, store_breaker=None,
+                 tracer=None):
         self.cfg = cfg
         self.broker = broker
         self.tracer = tracer
-        if dataset is None and cfg.s3_endpoint:
-            raise NotImplementedError(
-                "s3endpoint is set: the producer's object-store source is not ported yet")
-        self.dataset = dataset if dataset is not None else load_dataset()
+        if dataset is not None:
+            self.dataset = dataset
+        elif cfg.s3_endpoint:
+            self.dataset = dataset_from_store(cfg, faults=store_faults, breaker=store_breaker,
+                                              tracer=tracer)
+        else:
+            self.dataset = load_dataset()
         self.registry = registry or Registry()
         self._c_rows = self.registry.counter("producer_rows_total", "rows produced")
 

@@ -20,7 +20,12 @@ The workers share the control plane:
 - **one circuit breaker** on the scorer edge, with the ladder on;
 - **one engine** (its own lock serializes the starts);
 - **a group-wide pause barrier**: every worker's hold is requested first,
-  then all acks are awaited.
+  then all acks are awaited;
+- **one stage profiler and one heal gate** (``profiler``, ``heal_gate`` /
+  ``set_heal_gate``), handed to every worker; the coalescing batcher also
+  feeds the profiler's ``router.coalesce.batcher`` (queue) and
+  ``router.coalesce.dispatch`` stages, which the reference's leaves
+  unprofiled.
 """
 
 from __future__ import annotations
@@ -57,6 +62,8 @@ class ParallelRouter:
         coalesce: bool = True,
         overload: Any = None,
         decision_fn: Any = None,
+        profiler: Any = None,
+        heal_gate: Any = None,
     ):
         self.cfg = cfg
         self.broker = broker
@@ -104,7 +111,9 @@ class ParallelRouter:
             # pads it to a bucket); two batcher workers overlap dispatches
             self.batcher = DynamicBatcher(score_fn, max_batch=max_batch * workers,
                                           deadline_ms=cfg.batch_deadline_ms,
-                                          on_dispatch=on_dispatch, workers=2)
+                                          on_dispatch=on_dispatch, workers=2,
+                                          profiler=profiler,
+                                          profile_stage="router.coalesce")
             worker_score = self.batcher.score
 
         self.workers = [
@@ -112,7 +121,7 @@ class ParallelRouter:
                    rules=rules, host_score_fn=host_score_fn, breaker=self._breaker,
                    degrade=degrade, max_inflight=self.max_inflight, tracer=tracer,
                    inflight_budget=self._budget, worker_id=i, overload=overload,
-                   decision_fn=decision_fn)
+                   decision_fn=decision_fn, profiler=profiler, heal_gate=heal_gate)
             for i in range(workers)
         ]
         self._stop = threading.Event()
@@ -150,6 +159,10 @@ class ParallelRouter:
     def swap_engine(self, engine: Any) -> None:
         for w in self.workers:
             w.swap_engine(engine)
+
+    def set_heal_gate(self, gate: Any) -> None:
+        for w in self.workers:
+            w.set_heal_gate(gate)
 
     # -- daemon loop -------------------------------------------------------
     def reset(self) -> None:

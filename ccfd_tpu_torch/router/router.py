@@ -43,8 +43,21 @@ its expiry falling into the ladder. Without it a static in-flight budget
 the producer's trace from the record headers as ``router.batch`` with
 ``router.decode``, ``router.score`` and ``router.route`` children.
 
-Not ported: the heal gate, audit and replay, the stage profiler,
-commit-after-route and history-aware (``score_with_ids``) scorers.
+**Stage profiler** (``profiler``, observability/profile.py): per
+micro-batch the router feeds the bus queueing delay (``bus``: the poll time
+minus the records' produce timestamps), the decode and route service times
+(``router.decode``, ``router.route``) and the scorer round trip
+(``router.score``, dispatch), batch-size-conditioned, as the reference's.
+
+**Heal gate** (``heal_gate`` / ``set_heal_gate``): an object with
+``device_allowed()`` (and optionally ``host_allowed()``), checked before
+the breaker: while the device is not allowed the ladder skips the scorer
+edge, and the host tier too where ``host_allowed()`` is false (the storage
+pin of runtime/durability.py), down to the rules tier. Without the ladder
+a closed gate sends the batch to the rules tier.
+
+Not ported: audit and replay, commit-after-route and history-aware
+(``score_with_ids``) scorers.
 """
 
 from __future__ import annotations
@@ -287,8 +300,12 @@ class Router:
         worker_id: int | None = None,
         overload: Any = None,
         decision_fn: Any = None,
+        profiler: Any = None,
+        heal_gate: Any = None,
     ):
         self.cfg = cfg
+        self._profiler = profiler
+        self._heal_gate = heal_gate
         self.broker = broker
         self.score = score_fn
         self.tracer = tracer
@@ -479,15 +496,22 @@ class Router:
         self._c_worker_batch.inc(labels=self._worker_labels)
         span_cm = (self.tracer.span("router.decode", parent=batch_span.context)
                    if batch_span is not None else _NULL_CM)
+        t0 = time.perf_counter()
         with span_cm:
             x, txs, bad = decode_records(records)
         if bad:
             self._c_decode_err.inc(bad)
         # produce timestamps ride along for the decision latency
         ts = np.fromiter((r.timestamp for r in records), np.float64, n)
-        if batch_span is not None:
+        if self._profiler is not None or batch_span is not None:
             # bus queueing delay: mean wait of the batch's rows on the topic
-            batch_span.attrs["queue_s"] = max(0.0, time.time() - float(ts.mean()))
+            queue_s = max(0.0, time.time() - float(ts.mean()))
+            if batch_span is not None:
+                batch_span.attrs["queue_s"] = queue_s
+            if self._profiler is not None:
+                self._profiler.observe("bus", queue_s=queue_s, rows=n)
+                self._profiler.observe("router.decode", service_s=time.perf_counter() - t0,
+                                       batch=n, rows=n)
         return x, txs, ts
 
     # -- admission -----------------------------------------------------------
@@ -528,9 +552,18 @@ class Router:
     def _score_tiered(self, x: np.ndarray, txs: list, span=None) -> tuple:
         """scorer -> host numpy forward -> rules-only. Never raises. Returns
         ``(proba, fired)``; the lower tiers return fired=None, so the host
-        rule base decides their rows."""
+        rule base decides their rows. A closed heal gate skips the scorer
+        edge (before the breaker, so not even a half-open probe reaches the
+        device), and the host tier too where its ``host_allowed`` is false."""
         br = self._breaker
-        if br is None or br.allow():
+        gate = self._heal_gate
+        host_blocked = False
+        if gate is not None and not gate.device_allowed():
+            if span is not None:
+                span.attrs["quarantined"] = True
+            host_ok = getattr(gate, "host_allowed", None)
+            host_blocked = callable(host_ok) and not host_ok()
+        elif br is None or br.allow():
             t0 = time.perf_counter()
             try:
                 ov = self._overload
@@ -558,7 +591,7 @@ class Router:
                 self._c_score_err.inc(len(txs))
         elif span is not None:
             span.attrs["breaker_open"] = True
-        if self._host_score is not None:
+        if self._host_score is not None and not host_blocked:
             try:
                 proba = np.asarray(self._host_score(x), np.float32)
                 if proba.shape == (len(txs),) and np.isfinite(proba).all():
@@ -573,15 +606,27 @@ class Router:
             span.attrs["degraded"] = "rules"
         return self._rules_proba(x), None
 
+    def _score_direct(self, x: np.ndarray, txs: list, span=None) -> tuple:
+        """The non-ladder path; a closed heal gate still binds: the rules
+        tier decides the batch, counted."""
+        gate = self._heal_gate
+        if gate is not None and not gate.device_allowed():
+            if span is not None:
+                span.attrs["quarantined"] = True
+                span.attrs["degraded"] = "rules"
+            self._c_degraded.inc(len(txs), labels={"tier": "rules"})
+            return self._rules_proba(x), None
+        return self._score2(x)
+
     def _score_batch(self, x: np.ndarray, txs: list, batch_span=None) -> tuple:
         if batch_span is not None:
             with self.tracer.span("router.score", parent=batch_span.context) as sp:
                 if self._degrade:
                     return self._score_tiered(x, txs, span=sp)
-                return self._score2(x)
+                return self._score_direct(x, txs, span=sp)
         if self._degrade:
             return self._score_tiered(x, txs)
-        return self._score2(x)
+        return self._score_direct(x, txs)
 
     def _timed_score(self, x: np.ndarray, txs: list, batch_span=None) -> tuple:
         """Score one batch and record the stage latency (histogram, with the
@@ -594,6 +639,9 @@ class Router:
             exemplar={"trace_id": batch_span.trace_id} if batch_span is not None else None)
         if self._overload is not None:
             self._overload.observe_stage(score_s)
+        if self._profiler is not None:
+            self._profiler.observe("router.score", dispatch_s=score_s,
+                                   batch=len(txs), rows=len(txs))
         return proba, fired
 
     # -- one synchronous cycle (used by tests and the run loop) ------------
@@ -626,16 +674,22 @@ class Router:
     def _route(self, x: np.ndarray, txs: list, proba: np.ndarray,
                ts: np.ndarray | None, batch_span=None,
                fired: np.ndarray | None = None) -> int:
-        if batch_span is None:
-            return self._route_inner(x, txs, proba, ts, fired)
-        route_sp = self.tracer.start("router.route", parent=batch_span.context)
+        t0 = time.perf_counter()
         try:
-            # activated on this thread: the engine's notification produce
-            # (process/fraud.py) reads the current context to join the trace
-            with self.tracer.activate(route_sp.context):
-                return self._route_inner(x, txs, proba, ts, fired, route_sp)
+            if batch_span is None:
+                return self._route_inner(x, txs, proba, ts, fired)
+            route_sp = self.tracer.start("router.route", parent=batch_span.context)
+            try:
+                # activated on this thread: the engine's notification produce
+                # (process/fraud.py) reads the current context to join the trace
+                with self.tracer.activate(route_sp.context):
+                    return self._route_inner(x, txs, proba, ts, fired, route_sp)
+            finally:
+                self.tracer.finish(route_sp)
         finally:
-            self.tracer.finish(route_sp)
+            if self._profiler is not None:
+                self._profiler.observe("router.route", service_s=time.perf_counter() - t0,
+                                       batch=len(txs), rows=len(txs))
 
     def _route_inner(self, x: np.ndarray, txs: list, proba: np.ndarray,
                      ts: np.ndarray | None, fired: np.ndarray | None = None,
@@ -722,6 +776,11 @@ class Router:
                     "stale consumer %s failed to close during recycle", attr,
                     exc_info=True)
             setattr(self, attr, self.broker.consumer(group, topics))
+
+    def set_heal_gate(self, gate: Any) -> None:
+        """Arm (or, with None, disarm) the heal gate after construction; the
+        next batch sees it."""
+        self._heal_gate = gate
 
     def swap_engine(self, engine: Any) -> None:
         """Point the router at a replacement engine (router paused or

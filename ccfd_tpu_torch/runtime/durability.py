@@ -30,12 +30,18 @@ and the engine's snapshots (``process/engine.py``):
   per artifact, replayed into the ``ccfd_storage_*`` counters of a
   registry once one is bound.
 
-Still to port, with the platform operator that arms them (ROADMAP A6,
+- :func:`write_json_interchange`: a plain JSON document with a
+  ``<path>.sha256`` sidecar (the stage profile's artifact);
+- :class:`StoragePinGate` and :class:`ComposedHealGate`: the router's
+  heal-gate seam (``device_allowed``/``host_allowed``), which the platform
+  operator arms with the storage pin (the rules tier while no params
+  generation verifies).
+
+Still to port, with the parts of the operator that arm them (ROADMAP A6,
 A7): the storage fault draws inside ``atomic_write_bytes`` (``torn_write``,
-``rename_lost``, ``bitrot``, ``enospc``, ``fsync_fail``, ``slow_disk``),
-``StoragePinGate`` and ``ComposedHealGate`` (the rules-tier pin while no
-params generation verifies), the flight-recorder hook, JSON interchange
-sidecars and directory manifests.
+``rename_lost``, ``bitrot``, ``enospc``, ``fsync_fail``, ``slow_disk``;
+CCFD_STORAGE_FAULTS is refused by name), the flight-recorder hook and
+directory manifests.
 """
 
 from __future__ import annotations
@@ -413,3 +419,99 @@ def sweep_tmp(*dirs: str, enabled: bool | None = None) -> int:
         log.warning("start-up sweep removed %d orphaned tmp file(s) from %s",
                     n, ", ".join(d for d in dirs if d))
     return n
+
+
+def write_json_interchange(path: str, doc: Any, artifact: str = "interchange",
+                           best_effort: bool = True, **dump_kw: Any) -> bool:
+    """Crash-safe write for documents external readers ``json.load``
+    directly: the body stays plain JSON; integrity rides a
+    ``<path>.sha256`` sidecar written after the body (the stale sidecar is
+    removed first), so every crash window leaves either the old pair or a
+    new body whose missing sidecar reads as unverified."""
+    dump_kw.setdefault("indent", 1)
+    body = (json.dumps(doc, **dump_kw) + "\n").encode()
+    try:
+        try:
+            os.unlink(path + ".sha256")
+        except FileNotFoundError:
+            pass
+        atomic_write_bytes(path, body)
+        atomic_write_bytes(path + ".sha256",
+                           hashlib.sha256(body).hexdigest().encode() + b"\n")
+    except OSError as e:
+        note("write_errors", artifact=artifact)
+        log.error("interchange write of %s failed: %s", path, e)
+        if not best_effort:
+            raise
+        return False
+    return True
+
+
+class StoragePinGate:
+    """Heal-gate-shaped pin (``device_allowed`` + ``host_allowed``): while
+    it is pinned the router serves from the rules tier only, since the host
+    tier would forward the very same unverified params. ``pin``/``unpin``
+    are the surface a params restore arms (the lifecycle's, ROADMAP A12);
+    the operator binds the gate to the router whether or not anything pins
+    it, as the reference's does."""
+
+    def __init__(self, registry=None):
+        self._mu = threading.Lock()
+        self._pinned = False
+        self.reason: str | None = None
+        self.pins = 0
+        self._g = None
+        if registry is not None:
+            self._g = registry.gauge(
+                "ccfd_storage_pinned",
+                "1 while serving is pinned to the rules tier because no "
+                "durable params generation verifies")
+            self._g.set(0)
+
+    @property
+    def pinned(self) -> bool:
+        with self._mu:
+            return self._pinned
+
+    def pin(self, reason: str) -> None:
+        with self._mu:
+            if not self._pinned:
+                self.pins += 1
+            self._pinned = True
+            self.reason = reason
+            if self._g is not None:
+                self._g.set(1)
+        log.error("storage pin: serving pinned to the rules tier (%s)", reason)
+
+    def unpin(self) -> None:
+        with self._mu:
+            was = self._pinned
+            self._pinned = False
+            self.reason = None
+            if self._g is not None:
+                self._g.set(0)
+        if was:
+            log.warning("storage pin cleared: verified params published")
+
+    # the router's heal-gate surface
+    def device_allowed(self) -> bool:
+        return not self.pinned
+
+    def host_allowed(self) -> bool:
+        return not self.pinned
+
+
+class ComposedHealGate:
+    """AND-composition of heal-gate-shaped objects (the storage pin and,
+    once ported, the device heal supervisor, ROADMAP A7). ``host_allowed``
+    consults only the gates that define it."""
+
+    def __init__(self, *gates: Any):
+        self.gates = tuple(g for g in gates if g is not None)
+
+    def device_allowed(self) -> bool:
+        return all(g.device_allowed() for g in self.gates)
+
+    def host_allowed(self) -> bool:
+        return all(g.host_allowed() for g in self.gates
+                   if callable(getattr(g, "host_allowed", None)))

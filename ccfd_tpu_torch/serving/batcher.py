@@ -19,6 +19,10 @@ slice). Policy (adaptive, not a fixed delay):
 
 This composes with the Scorer's shape bucketing: the batcher decides WHEN
 to dispatch, the scorer pads the result to a bucket.
+
+With a ``profiler`` (observability/profile.py) each coalesced dispatch
+feeds ``<profile_stage>.batcher`` (the row-weighted queue sojourn) and
+``<profile_stage>.dispatch`` (the score call), as the reference's does.
 """
 
 from __future__ import annotations
@@ -39,8 +43,13 @@ class DynamicBatcher:
         deadline_ms: float = 2.0,
         on_dispatch: Callable[[int], None] | None = None,
         workers: int = 1,
+        profiler: "object | None" = None,
+        profile_stage: str = "rest",
     ):
         self._score = score_fn
+        self._profiler = profiler
+        self._stage_queue = f"{profile_stage}.batcher"
+        self._stage_dispatch = f"{profile_stage}.dispatch"
         self.max_batch = max_batch
         self.deadline_s = max(0.0, deadline_ms) / 1e3
         self._on_dispatch = on_dispatch
@@ -130,6 +139,11 @@ class DynamicBatcher:
     def _dispatch(self, batch: list) -> None:
         xs = [x for x, _f, _e in batch]
         n_rows = int(sum(x.shape[0] for x in xs))
+        t0 = time.perf_counter()
+        if self._profiler is not None:
+            # queue sojourn up to dispatch assembly, row-weighted mean
+            wait = sum((t0 - e) * x.shape[0] for x, _f, e in batch) / max(1, n_rows)
+            self._profiler.observe(self._stage_queue, queue_s=wait, rows=n_rows)
         try:
             proba = self._score(np.concatenate(xs) if len(xs) > 1 else xs[0])
         except Exception as e:  # noqa: BLE001 - fail the batch, not the worker
@@ -137,6 +151,10 @@ class DynamicBatcher:
                 if not f.cancelled():
                     f.set_exception(e)
             return
+        if self._profiler is not None:
+            self._profiler.observe(self._stage_dispatch,
+                                   dispatch_s=time.perf_counter() - t0,
+                                   batch=n_rows, rows=n_rows)
         if self._on_dispatch is not None:
             self._on_dispatch(n_rows)
         off = 0
@@ -145,6 +163,11 @@ class DynamicBatcher:
             if not f.cancelled():
                 f.set_result(np.asarray(proba[off : off + n]))
             off += n
+
+    def qsize(self) -> int:
+        """Requests currently queued (the operator's memory probe)."""
+        with self._cv:
+            return len(self._queue)
 
     def stop(self) -> None:
         with self._cv:

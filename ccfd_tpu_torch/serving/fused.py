@@ -33,18 +33,25 @@ Contracts:
 - **Swaps run the grid before publishing**: ``prepublish`` (a Scorer
   prepublish hook) runs every bucket against the staged params before the
   flip, and raises, failing the swap, if one does not run.
+
+With a ``profiler`` (observability/profile.py) each ``decide`` feeds the
+``fused.decide`` stage's dispatch time, as the reference's does; the
+staging copies are timed on the base Scorer's ``telemetry``.
 """
 
 from __future__ import annotations
 
 import logging
 import threading
+import time
 from collections import deque
 from typing import Any
 
 import numpy as np
 import torch
 
+from ccfd_tpu_torch.observability.device import settle_copies, timed_copy
+from ccfd_tpu_torch.observability.profile import compile_stage
 from ccfd_tpu_torch.ops import fused_mlp, fused_mlp_q8
 from ccfd_tpu_torch.ops.fused_decision import (
     UnvectorizableRuleSet,
@@ -64,11 +71,13 @@ class FusedDecisionScorer:
     (the router then evaluates the rules on the host)."""
 
     def __init__(self, scorer: Any, rules: RuleSet, *, registry: Any = None,
-                 strict: bool = False):
+                 strict: bool = False, profiler: Any = None):
         self._base = scorer
+        self._profiler = profiler  # observability/profile.StageProfiler
         self.rules = rules
         self._lock = threading.Lock()
         self._dispatch_counts: dict[int, int] = {}
+        self._warmed: set[int] = set()
         self.enabled = False
         self.host_syncs = 0  # device->host copies of packed verdicts
         self.staged_fallbacks = 0
@@ -135,7 +144,9 @@ class FusedDecisionScorer:
             if self._plan.needs_features:
                 host.append(torch.from_numpy(padded))
             staging = tuple(h.pin_memory() if pin else h for h in host)
-            qd, sd, *rest = (h.to(dev, non_blocking=True) for h in staging)
+            moved = [timed_copy(base.telemetry, h, dev) for h in staging]
+            copies = tuple(tok for _d, tok in moved)
+            qd, sd, *rest = (d for d, _tok in moved)
             xd = rest[0] if rest else torch.zeros((b, n_feat), dtype=torch.float32,
                                                   device=dev)
             out = self._decide_preq(kp, qd, sd, xd)
@@ -144,19 +155,22 @@ class FusedDecisionScorer:
             xh[:take].copy_(torch.from_numpy(chunk))
             xh[take:].zero_()
             staging = (xh,)
-            out = self._decide_rows(live, xh.to(dev, non_blocking=True))
+            xd, tok = timed_copy(base.telemetry, xh, dev)
+            copies = (tok,)
+            out = self._decide_rows(live, xd)
         oh = torch.empty((b, 2), dtype=torch.float32, pin_memory=pin)
         oh.copy_(out, non_blocking=True)
         done = None
         if pin:
             done = torch.cuda.Event()
             done.record(torch.cuda.current_stream(dev))
-        return staging, oh, take, done
+        return staging, oh, take, done, copies
 
     def _collect(self, pending: tuple) -> np.ndarray:
-        _staging, oh, take, done = pending
+        _staging, oh, take, done, copies = pending
         if done is not None:
             done.synchronize()
+        settle_copies(self._base.telemetry, copies)
         with self._lock:
             self.host_syncs += 1
         return oh[:take].numpy().copy()
@@ -175,6 +189,7 @@ class FusedDecisionScorer:
         base = self._base
         with base._lock:  # one snapshot for every chunk of the call
             live = base._live
+        t0 = time.perf_counter()
         largest = base.batch_sizes[-1]
         pending: deque = deque()
         chunks: list[np.ndarray] = []
@@ -192,6 +207,9 @@ class FusedDecisionScorer:
             chunks.append(self._collect(pending.popleft()))
         if self._c_decide:
             self._c_decide.inc(n)
+        if self._profiler is not None:
+            self._profiler.observe("fused.decide", dispatch_s=time.perf_counter() - t0,
+                                   batch=n, rows=n)
         packed = chunks[0] if len(chunks) == 1 else np.concatenate(chunks)
         proba = np.ascontiguousarray(packed[:, 0], np.float32)
         fired = packed[:, 1].astype(np.int64)  # small ints: exact in float32
@@ -213,7 +231,10 @@ class FusedDecisionScorer:
         if self.enabled:
             with self._base._lock:
                 live = self._base._live
-            self._run_grid(live)
+            with compile_stage("fused.warm"):
+                self._run_grid(live)
+            with self._lock:
+                self._warmed.update(self._base.batch_sizes)
 
     def prepublish(self, staged: tuple) -> None:
         """Scorer prepublish hook: every bucket against the staged params,
@@ -226,10 +247,11 @@ class FusedDecisionScorer:
         for b in base.batch_sizes:
             with self._lock:
                 self.warm_dispatches += 1
-            _staging, _oh, _take, done = self._launch(
+            _staging, _oh, _take, done, copies = self._launch(
                 live, np.zeros((b, base.num_features), np.float32), b)
             if done is not None:
                 done.synchronize()
+            settle_copies(base.telemetry, copies)
 
     # -- observability -------------------------------------------------------
     def dispatch_total(self) -> int:
@@ -241,9 +263,12 @@ class FusedDecisionScorer:
         health: what is serving verdicts."""
         with self._lock:
             counts = dict(self._dispatch_counts)
+            warmed = sorted(self._warmed)
         return {
             "model": self._base.spec.name,
+            "kernel": self._base.kernel_name,
             "batch_sizes": list(self._base.batch_sizes),
+            "warmed": warmed,
             "forward": self.forward_kind,
             "rules": self._plan.n_rules if self._plan is not None else 0,
             "needs_features": bool(self._plan is not None and self._plan.needs_features),

@@ -22,7 +22,10 @@ histogram from the C++ enqueue time (CLOCK_MONOTONIC, the clock of
 last scored row; the C++ side's 401s fold into the registry at scrape
 time, as do the requests it queued by queue
 (``ccfd_front_requests_total{queue="predict"|"misc"}``: decoded in C++, or
-the Python route).
+the Python route). With the server's stage ``profiler`` each take feeds
+``rest.batcher`` (the C++ queue's sojourn), ``rest.dispatch`` (the score
+call) and each request ``rest`` (end to end in the front), the stages the
+reference's batcher and spans fill on its Python transport.
 
 Every canonical request goes to the takers and the Scorer: the reference's
 in-IO-thread host model (small requests scored in C++ on a host copy of
@@ -162,6 +165,15 @@ class NativeFront:
                         continue
             x = rows_buf[:total]
             t_sc = time.monotonic()
+            prof = srv.profiler
+            if prof is not None:
+                # the take's queue sojourn (enqueue in C++ to the take),
+                # row-weighted: the rest.batcher stage of the reference's
+                # batcher, which this front replaces
+                t_ms = t_sc * 1e3
+                wait = sum((t_ms - enq[i]) * counts[i] for i in range(n_reqs))
+                prof.observe("rest.batcher", queue_s=max(0.0, wait / 1e3 / max(1, total)),
+                             rows=total)
             status, err = 200, b""
             try:
                 proba = np.ascontiguousarray(srv.scorer.score(x), np.float32)
@@ -183,15 +195,24 @@ class NativeFront:
                 continue
             if gate is not None:
                 gate.observe(time.monotonic() - t_sc)
+            if prof is not None:
+                prof.observe("rest.dispatch", dispatch_s=time.monotonic() - t_sc,
+                             batch=total, rows=total)
             self._lib.ccfd_front_respond(handle, ids, counts, n_reqs,
                                          proba.ctypes.data_as(_FP), model)
             if self._on_dispatch is not None:
                 self._on_dispatch(total)
             now_ms = time.monotonic() * 1e3
             for i in range(n_reqs):
+                lat_s = max(0.0, (now_ms - enq[i]) / 1e3)
                 srv._h_latency.observe(
-                    max(0.0, (now_ms - enq[i]) / 1e3),
+                    lat_s,
                     labels={"endpoint": "/predict" if tags[i] else "/api/v0.1/predictions"})
+                if prof is not None:
+                    # the request end to end in the front: the "rest"
+                    # stage the reference fills from its serving.predict
+                    # spans, which the C++ front never opens
+                    prof.observe("rest", service_s=lat_s)
             srv._c_requests.inc(n_reqs, labels={"code": "200"})
             if total:
                 srv._g_proba.set(float(proba[total - 1]))

@@ -26,7 +26,11 @@ port of ccfd_tpu/serving/scorer.py's ``Scorer``.
   card with ``non_blocking=True``, scored, and copied back into a pinned
   buffer. Per-call buffers come from PyTorch's caching host allocator,
   which keeps a block out of reuse until the copies that read it have
-  finished, so the batcher's concurrent workers never share one.
+  finished, so the batcher's concurrent workers never share one. With a
+  ``telemetry`` plane (observability/device.py) every staging copy is
+  bracketed by CUDA events and its bytes and time recorded once the
+  dispatch has synchronized (two copies on the int8 wire, q and scale, as
+  the reference's two puts).
 - **Every request dispatches to the device.** The reference's host latency
   tier (small requests scored in numpy on accelerator backends), its host
   fallback while the device is wedged, and its drop to the XLA graph on a
@@ -65,6 +69,8 @@ import torch
 from ccfd_tpu_torch.data.ccfd import NUM_FEATURES
 from ccfd_tpu_torch.device import resolve
 from ccfd_tpu_torch.models.registry import ModelSpec, get_model
+from ccfd_tpu_torch.observability.device import settle_copies, timed_copy
+from ccfd_tpu_torch.observability.profile import compile_stage
 from ccfd_tpu_torch.ops import fused_mlp, fused_mlp_q8
 from ccfd_tpu_torch.params import tensor_leaf, to_numpy, tree_map
 from ccfd_tpu_torch.serving.dispatch import DeviceDispatcher, ScorerTimeout, WedgeMonitor
@@ -89,8 +95,10 @@ class Scorer:
         device: "str | torch.device | None" = None,
         q8_wire: str = "int8",
         dispatch_deadline_ms: float = 0.0,
+        telemetry: Any = None,
     ):
         self.device = resolve(device)
+        self.telemetry = telemetry  # observability/device.DeviceTelemetry
         self.spec: ModelSpec = get_model(model_name)
         self.num_features = num_features
         self.batch_sizes = tuple(sorted({int(b) for b in batch_sizes}))
@@ -108,8 +116,10 @@ class Scorer:
         if params is None:
             params = self.spec.init(torch.Generator().manual_seed(seed))
         self._lock = threading.Lock()
-        # per-bucket dispatch tally for the executable inventory
+        # per-bucket dispatch tally and warmed buckets for the executable
+        # inventory
         self._dispatch_counts: dict[int, int] = {}
+        self._warmed: set[int] = set()
         self._prepublish_hooks: list[Any] = []
         self._live = self._stage(params)
         # the host copy the router's host tier forwards through
@@ -182,6 +192,15 @@ class Scorer:
     def fused(self) -> bool:
         return self._live[1] is not None
 
+    @property
+    def kernel_name(self) -> str | None:
+        """The hand kernel this scorer launches (the launch counter's name:
+        B1 ``fused_mlp_bf16``, B2 ``fused_mlp_q8``, B3
+        ``fused_mlp_q8_preq``), None on a plain torch graph."""
+        if self._q8:
+            return "fused_mlp_q8_preq" if self.int8_wire else "fused_mlp_q8"
+        return "fused_mlp_bf16" if self._kmod is not None else None
+
     def dispatch_total(self) -> int:
         with self._lock:
             return sum(self._dispatch_counts.values())
@@ -191,9 +210,12 @@ class Scorer:
         bucket."""
         with self._lock:
             counts = dict(self._dispatch_counts)
+            warmed = sorted(self._warmed)
         return {
             "model": self.spec.name,
+            "kernel": self.kernel_name,
             "batch_sizes": list(self.batch_sizes),
+            "warmed": warmed,
             "fused": self.fused,
             "int8_wire": self.int8_wire,
             "device": str(self.device),
@@ -216,7 +238,9 @@ class Scorer:
             q, s = fused_mlp_q8.prequantize_rows_numpy(host_norm, padded)
             staging = tuple(torch.from_numpy(a).pin_memory() if pin else torch.from_numpy(a)
                             for a in (q, s))
-            qd, sd = (t.to(self.device, non_blocking=True) for t in staging)
+            (qd, tq), (sd, ts) = (timed_copy(self.telemetry, t, self.device)
+                                  for t in staging)
+            copies = (tq, ts)
             out = fused_mlp_q8.fused_mlp_q8_score_preq(kp, qd, sd)
         else:
             wire = self._kmod.INPUT_DTYPE if self._kmod is not None else torch.float32
@@ -224,7 +248,8 @@ class Scorer:
             xh[:take].copy_(torch.from_numpy(chunk))  # host cast to the wire
             xh[take:].zero_()
             staging = (xh,)
-            xd = xh.to(self.device, non_blocking=True)
+            xd, tx = timed_copy(self.telemetry, xh, self.device)
+            copies = (tx,)
             if self._q8:
                 out = fused_mlp_q8.fused_mlp_q8_score(kp, xd)
             elif kp is not None:
@@ -237,13 +262,13 @@ class Scorer:
         if pin:
             done = torch.cuda.Event()
             done.record(torch.cuda.current_stream(self.device))
-        return staging, oh, take, done
+        return staging, oh, take, done, copies
 
-    @staticmethod
-    def _collect(pending: tuple) -> np.ndarray:
-        _staging, oh, take, done = pending
+    def _collect(self, pending: tuple) -> np.ndarray:
+        _staging, oh, take, done, copies = pending
         if done is not None:
             done.synchronize()
+        settle_copies(self.telemetry, copies)
         return oh[:take].numpy().copy()
 
     def warmup(self) -> None:
@@ -254,7 +279,10 @@ class Scorer:
             live = self._live
         for b in self.batch_sizes:
             zeros = np.zeros((b, self.num_features), np.float32)
-            self._collect(self._launch(live, zeros, b))
+            with compile_stage("scorer.warm"):
+                self._collect(self._launch(live, zeros, b))
+            with self._lock:
+                self._warmed.add(b)
 
     def score_pipelined(self, x: np.ndarray, depth: int = 2) -> np.ndarray:
         """Bulk scoring with ``depth`` dispatches in flight: the next

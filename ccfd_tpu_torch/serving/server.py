@@ -104,8 +104,13 @@ class PredictionServer:
         scorer: Scorer,
         cfg: Config | None = None,
         registry: Registry | None = None,
+        profiler=None,
     ):
         self.scorer = scorer
+        # stage profiler (observability/profile.py): the batcher (Python
+        # transport) and the native front's scorer threads feed the REST
+        # path's rest.batcher / rest.dispatch stages
+        self.profiler = profiler
         self.cfg = cfg or Config()
         self.registry = registry or Registry()
         r = self.registry
@@ -155,6 +160,7 @@ class PredictionServer:
             deadline_ms=self.cfg.batch_deadline_ms,
             on_dispatch=on_dispatch,
             workers=self.cfg.batch_workers,
+            profiler=self.profiler,
         )
 
     # -- scoring ----------------------------------------------------------

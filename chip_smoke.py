@@ -170,8 +170,50 @@ wire).
                scorer/corrupt and engine/latency, every probability the
                engine holds finite, serve's B1 launches = its dispatches +
                its warmup, and the breaker's transitions printed;
+           (f) three `router` processes on the card (one worker each) in
+               one consumer group over the bus's partitions, 20,000 rows:
+               every row routed and started once, each process took rows,
+               each process's B1 launches = its dispatches + its warmup;
+               tx/s against part (a)'s one worker and part (b)'s three
+               threads (the fan-out);
            every role's start-up line shows its gen-0 GC threshold (the
            reference's service tuning), printed per role
+  platform the platform operator (platform/operator.py, platform/k8s.py):
+           (1) `manifests`: the port's documents for its CR against the
+               reference's (deploy/k8s, its own `manifests` output for
+               deploy/platform_cr.yaml): the same files, every document
+               equal but for the container command, the image and the
+               scorer's nvidia.com/gpu limit;
+           (2) `python -m ccfd_tpu_torch up -f <the port's CR>
+               --exit-after-producer` as a process on the card (free
+               ports, the store seeding the dataset, bus log and recovery
+               cut in a temp dir, scorer mlp trained 200 steps on the card
+               and on REST, engine crash recovery, 20,000 transactions):
+               while it runs, 50 16-row POSTs within b1_tol_p of B1's plain
+               version on the served params (retrained here from the same
+               seed; the params' sha256 equal to the one `up` prints),
+               /healthz 200 and healthy, /profile with the bus, router.*
+               and REST stages (queue, service and dispatch parts each),
+               /debug/device with cuda:0's memory, H2D bytes and copies and
+               B1's bucket inventory, the SLO burn-rate gauges; after it
+               exits 0, from its final registries: incoming = routed =
+               engine starts = 20,000, B1 launches = dispatches + warmup,
+               and no build while serving;
+           (3) an in-process Platform on the card (the port's CR, REST on):
+               an engine failure injected mid-stream (supervisor.
+               inject_failure) restores the last cut and re-drives the gap,
+               then down() and up() again on the same log dir and cut file
+               restore the saved cut at bring-up: every one of 30,000
+               transactions started exactly once (the engine's next_pid),
+               the restored cut equal to the saved one; the restore ms and
+               the cut's bytes; REST answers against the plain version on
+               the live kernel params; B1 launches = dispatches + warmup;
+           (4) the operator pipeline with the producer at 2,000/s and at
+               8,000/s for 10 s each (memory bus, the seeded MLP on B1):
+               decision p50/p99 against the 10 ms limit, the profiler's bus
+               queue, decode and route service and score dispatch, the H2D
+               copies' device time apart from host work, and the card's
+               busy share from a device-only torch.profiler trace
   models   the reference's other Seldon models, torch code on the card (no
            hand kernel: the reference leaves them to XLA):
            (a) card against CPU, the same port function, B=16 and 16,384:
@@ -230,7 +272,7 @@ import time
 import urllib.request
 
 PHASES = ("device", "build", "parity", "train", "serve", "decision", "demo", "services",
-          "models", "timing")
+          "platform", "models", "timing")
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 7
 PARITY_BATCHES = (1, 16, 100, 1024, 16384)
@@ -283,6 +325,15 @@ DURABLE_RULES = [
 # scorer calls), and the router's standing fault plan
 FAULT_ROWS, FAULT_RATE = 10_000, 2_000.0
 FAULT_PLAN = "scorer:error=0.1,corrupt=0.05;engine:latency=1,jitter=2"
+# the platform phase: the port's CR, `up -f` of it, its crash drill and
+# its fixed-rate runs
+PORT_CR = "ccfd_tpu_torch/assets/platform_cr.yaml"
+PLATFORM_ROWS = 20_000
+PLATFORM_TRAIN_STEPS = 200
+PLATFORM_POSTS = 50  # 16-row POSTs while `up` serves
+RECOVERY_ROWS = (20_000, 10_000)  # before and after the engine failure
+FIXED_RATES = (2_000, 8_000)  # producer rows/s
+FIXED_SECONDS = 10
 # the train phase: `train`'s default steps and fit_mlp's batch; the steps
 # timed on the card; the steps run on the card and on the CPU from one init
 TRAIN_STEPS = 500
@@ -1884,8 +1935,8 @@ class Smoke:
             csv = os.path.join(data, "transactions.csv")
             with open(csv, "wb") as f:
                 f.write(to_csv_bytes(kaggle_surrogate(n=SERVICES_ROWS)))
-            a, b, c, d, e = (stack.enter_context(Roles(self.card, csv)) for _ in range(5))
-            for roles in (a, b, c, e):
+            a, b, c, d, e, f3 = (stack.enter_context(Roles(self.card, csv)) for _ in range(6))
+            for roles in (a, b, c, e, f3):
                 roles.backbone()
             d.backbone(bus_args=("--dir", os.path.join(d.dir, "bus")),
                        engine_args=("--state-file", os.path.join(d.dir, "engine.json"),
@@ -1909,14 +1960,20 @@ class Smoke:
             e.spawn("router", "router", "--metrics-port", str(e.rport),
                     extra_env={"SELDON_URL": f"http://127.0.0.1:{eport}",
                                "CCFD_FAULTS": FAULT_PLAN, "CCFD_CLIENT_RETRIES": "0"})
+            f_ports = [f3.rport, free_port(), free_port()]
+            for i, port in enumerate(f_ports):
+                f3.spawn(f"router{i}", "router", "--metrics-port", str(port), "--device",
+                         "cuda", extra_env={"CCFD_ROUTER_WORKERS": "1"})
             # all up before any part is measured: a process still starting
             # would take CPU from the part under measurement
             t0 = time.perf_counter()
             for roles in (a, b, c, d, e):
                 roles.wait(f"{roles.rurl}/prometheus", roles.procs["router"], 180)
+            for i, port in enumerate(f_ports):
+                f3.wait(f"http://127.0.0.1:{port}/prometheus", f3.procs[f"router{i}"], 180)
             c.wait(f"http://127.0.0.1:{sport}/health/status", c.procs["serve1"], 180)
             e.wait(f"http://127.0.0.1:{eport}/health/status", e.procs["serve"], 180)
-            log("services", f"the roles of five parts, six of them on the card, up in "
+            log("services", f"the roles of six parts, nine of them on the card, up in "
                 f"{time.perf_counter() - t0:.3f} s")
             import gc
 
@@ -1926,7 +1983,7 @@ class Smoke:
                 want_gc = 100_000
             if want_gc <= 0:
                 want_gc = gc.get_threshold()[0]  # opted out: Python's default
-            for part, roles in zip("abcde", (a, b, c, d, e)):
+            for part, roles in zip("abcdef", (a, b, c, d, e, f3)):
                 got = roles.gc_thresholds()
                 log("services", f"part ({part}) roles' gc.get_threshold()[0]: {got}")
                 if any(v != want_gc for v in got.values()):
@@ -1958,8 +2015,17 @@ class Smoke:
             faulted = self.services_faults(e, eport)
             e.stop()
             log("services", f"part (e) took {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            procs3 = self.services_routers(f3, f_ports)
+            f3.stop()
+            log("services", f"part (f) took {time.perf_counter() - t0:.1f} s")
+            log("services", f"fan-out: {procs3['tx_s']:.1f} tx/s with three router processes "
+                f"against {fan['tx_s']:.1f} with three threads in one (part (b)) and "
+                f"{one['tx_s']:.1f} with one worker ({procs3['tx_s'] / one['tx_s']:.3f}x one "
+                f"worker, {procs3['tx_s'] / fan['tx_s']:.3f}x the threads) on {self.card}")
         self.reports["fused_mlp_bf16"]["launches"] += (one["b1"] + fan["b1"] + ladder
-                                                       + durable["b1"] + faulted)
+                                                       + durable["b1"] + faulted
+                                                       + procs3["b1"])
 
     def services_run(self, part: str, roles: "Roles", rows: int) -> dict:
         """Part (a) or (b) on its started roles (the router on the card):
@@ -2243,6 +2309,552 @@ class Smoke:
         return int(disp)
 
     # -- the models phase ------------------------------------------------
+    def services_routers(self, roles: "Roles", ports: list) -> dict:
+        """Part (f) on its started roles: three `router` processes on the
+        card in one consumer group (one worker each) share the transaction
+        topic's partitions; the producer's SERVICES_ROWS CSV rows. Returns
+        tx/s and B1's launches."""
+        from ccfd_tpu_torch.config import Config
+
+        tag = "services (f)"
+        warm = len(Config.from_env().batch_sizes)
+        urls = [f"http://127.0.0.1:{p}" for p in ports]
+        for i, url in enumerate(urls):
+            roles.wait(f"{url}/prometheus", roles.procs[f"router{i}"], 180)
+        rows = SERVICES_ROWS
+        first = roles.produce(rows)
+        deadline = time.monotonic() + 180
+        while True:
+            ms = [scrape(f"{u}/prometheus") for u in urls]
+            incoming = sum(m.get("transaction_incoming_total", 0.0) for m in ms)
+            done = sum(v for m in ms for k, v in m.items() if k.startswith((
+                "transaction_outgoing_total", "router_shed_total",
+                "router_process_start_errors_total")))
+            if incoming >= rows and done >= rows:
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{tag}: {incoming} of {rows} consumed after 180 s")
+            time.sleep(0.02)
+        elapsed = time.perf_counter() - first
+        kie = scrape(f"{roles.kurl}/rest/metrics")
+        routed = sum(v for m in ms for k, v in m.items()
+                     if k.startswith("transaction_outgoing_total"))
+        started = sum(v for k, v in kie.items() if k.startswith("process_instances_started"))
+        per = [m.get("transaction_incoming_total", 0.0) for m in ms]
+        b1 = [launches_of(m) for m in ms]
+        disp = [m.get("ccfd_scorer_dispatches", 0.0) for m in ms]
+        bad = {k: v for m in ms for k, v in m.items() if v and k.startswith((
+            "router_shed_total", "router_score_errors_total", "router_degraded_total",
+            "router_process_start_errors_total"))}
+        if not incoming == routed == started == rows or not all(per) or bad:
+            raise AssertionError(f"{tag}: produced {rows}, incoming {per}, routed {routed}, "
+                                 f"engine starts {started}, {bad}")
+        if any(b - d != warm or not d for b, d in zip(b1, disp)):
+            raise AssertionError(f"{tag}: B1 launches {b1} != dispatches {disp} + {warm}")
+        tx_s = rows / elapsed
+        log("services", f"ok: {tag}: three router processes on one consumer group took "
+            f"{[int(x) for x in per]} of {rows} CSV rows, routed and started once, in "
+            f"{elapsed:.3f} s: {tx_s:.1f} transactions/s end to end; each process's B1 "
+            f"launches = its dispatches {[int(d) for d in disp]} + {warm} warmup on "
+            f"{self.card}")
+        return {"tx_s": tx_s, "b1": int(sum(disp))}
+
+    # -- platform: the operator (``up -f``, ``manifests``) on the card -------
+    def platform(self) -> None:
+        """The platform operator: (1) ``manifests`` against the reference's
+        documents, (2) ``up -f`` of the port's CR as a process on the card,
+        (3) an in-process Platform through an engine crash and a full bounce,
+        (4) the operator pipeline at fixed arrival rates."""
+        self.platform_manifests()
+        b1 = self.platform_up()
+        b1 += self.platform_recovery()
+        b1 += self.platform_fixed_rate()
+        self.reports["fused_mlp_bf16"]["launches"] += b1
+
+    def platform_cr(self, tmp: str, **blocks) -> dict:
+        """The port's CR on free ports with its state under ``tmp``, each
+        block of ``blocks`` updated."""
+        import yaml
+
+        with open(os.path.join(REPO, PORT_CR)) as f:
+            cr = yaml.safe_load(f)
+        s = cr["spec"]
+        s["scorer"].update(port=free_port())
+        s["monitoring"]["port"] = free_port()
+        s["health"]["port"] = free_port()
+        s["bus"]["log_dir"] = os.path.join(tmp, "buslog")
+        s["engine"]["checkpoint_file"] = os.path.join(tmp, "cut.json")
+        for name, opts in blocks.items():
+            s.setdefault(name, {}).update(opts)
+        return cr
+
+    def platform_manifests(self) -> None:
+        """(1) The port's ``build_manifests`` of its CR against the
+        reference's documents for ``deploy/platform_cr.yaml`` (its own
+        ``manifests`` output, checked in under deploy/k8s): the same files,
+        each document equal once the three port fields are mapped back."""
+        import copy
+
+        import yaml
+
+        from ccfd_tpu_torch.config import Config
+        from ccfd_tpu_torch.platform.k8s import build_manifests
+        from ccfd_tpu_torch.platform.operator import PlatformSpec
+
+        port = build_manifests(PlatformSpec.from_yaml(os.path.join(REPO, PORT_CR),
+                                                      cfg=Config()), Config())
+        ref_dir = os.path.join(REPO, "deploy", "k8s")
+        names = sorted(n for n in os.listdir(ref_dir) if n.endswith(".yaml"))
+        if sorted(port) != names:
+            raise AssertionError(f"platform manifests: files {sorted(port)} != {names}")
+        mapped = {"command": 0, "image": 0, "limits": 0}
+        for name in names:
+            with open(os.path.join(ref_dir, name)) as f:
+                ref = [d for d in yaml.safe_load_all(f) if d is not None]
+            got = copy.deepcopy(port[name])
+            for doc, want in zip(got, ref):
+                pods = [d.get("spec", {}).get("template", {}).get("spec", {})
+                        for d in (doc, want)]
+                for c, w in zip(pods[0].get("containers", []), pods[1].get("containers", [])):
+                    if c.get("image") == "ccfd-tpu-torch:latest":
+                        c["image"] = w.get("image")
+                        mapped["image"] += 1
+                    cmd, wcmd = c.get("command", []), w.get("command", [])
+                    # the same command but for the module the image runs
+                    if (cmd[2:3] == ["ccfd_tpu_torch"] and len(cmd) == len(wcmd)
+                            and cmd[:2] + cmd[3:] == wcmd[:2] + wcmd[3:]):
+                        c["command"] = wcmd
+                        mapped["command"] += 1
+                    if c.get("resources", {}).get("limits") == {"nvidia.com/gpu": 1}:
+                        c["resources"]["limits"] = w.get("resources", {}).get("limits")
+                        mapped["limits"] += 1
+            if got != ref:
+                raise AssertionError(f"platform manifests: {name} differs from the "
+                                     "reference's beyond the command, image and GPU limit")
+        if mapped["limits"] != 1 or mapped["image"] != mapped["command"] or not mapped["image"]:
+            raise AssertionError(f"platform manifests: mapped fields {mapped}")
+        log("platform", f"ok: manifests: {len(names)} files, every document the reference's "
+            f"but {mapped['command']} commands, {mapped['image']} images and the scorer's "
+            "nvidia.com/gpu limit")
+
+    def platform_up(self) -> int:
+        """(2) ``python -m ccfd_tpu_torch up -f <CR> --exit-after-producer``
+        as a process on the card: the store seeds the dataset, the scorer
+        trains ``train_steps`` on the card and serves B1 in the router and
+        REST lanes, the engine recovers from its checkpoint file; while it
+        runs, 16-row POSTs are held against B1's plain version on the
+        served params (retrained here from the same seed, the params'
+        sha256 compared with the one `up` prints), and /healthz, /profile,
+        /debug/device, /prometheus/slo and the build counter are read;
+        after it exits, conservation from its final registries. Returns
+        B1's launches."""
+        from ccfd_tpu_torch.config import Config
+        from ccfd_tpu_torch.data.ccfd import load_dataset
+        from ccfd_tpu_torch.ops import fused_mlp
+        from ccfd_tpu_torch.params import digest
+        from ccfd_tpu_torch.parallel.train import TrainConfig, fit_mlp
+
+        tag = "platform (2) up"
+        tmp = tempfile.mkdtemp(prefix="ccfd_up_")
+        cr = self.platform_cr(tmp, scorer={"model": "mlp", "train_steps": PLATFORM_TRAIN_STEPS,
+                                           "rest": True},
+                              engine={"crash_recovery": True},
+                              # an SLO tick every 0.5 s: the gauges exist
+                              # before the burst is over
+                              slo={"interval_s": 0.5},
+                              producer={"transactions": PLATFORM_ROWS})
+        s = cr["spec"]
+        path = os.path.join(tmp, "cr.json")  # JSON is YAML
+        with open(path, "w") as f:
+            json.dump(cr, f)
+        env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "CCFD_CSV")}
+        env["PYTHONPATH"] = REPO
+        err_path = os.path.join(tmp, "up.log")
+        t0 = time.perf_counter()
+        with open(err_path, "w") as err:
+            proc = subprocess.Popen([sys.executable, "-m", "ccfd_tpu_torch", "up", "-f", path,
+                                     "--exit-after-producer", "--drain-s", "180"],
+                                    cwd=tmp, env=env, stdout=subprocess.DEVNULL, stderr=err)
+        mon = f"http://127.0.0.1:{s['monitoring']['port']}"
+        try:
+            Roles.wait(f"http://127.0.0.1:{s['health']['port']}/readyz", proc, 300)
+            ready_s = time.perf_counter() - t0
+            live = self.platform_live(mon, s["scorer"]["port"])
+            code = proc.wait(timeout=300)
+        except BaseException:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            with open(err_path, errors="replace") as f:
+                print(f"--- up log (tail) ---\n{f.read()[-4000:]}", flush=True)
+            raise
+        wall = time.perf_counter() - t0
+        with open(err_path, errors="replace") as f:
+            text = f.read()
+        if code != 0 or "router drained" not in text:
+            print(f"--- up log (tail) ---\n{text[-4000:]}", flush=True)
+            raise AssertionError(f"{tag}: exited {code}")
+        blocks = self.platform_blocks(text)
+        # the served params: the same fit_mlp from the same seed on the card
+        ds = load_dataset()
+        params = fit_mlp(ds.X, ds.y, steps=PLATFORM_TRAIN_STEPS,
+                         tc=TrainConfig(compute_dtype="float32"), device=self.dev)
+        served = text.split("params sha256 ", 1)[1].split(";", 1)[0]
+        if digest(params) != served:
+            raise AssertionError(f"{tag}: retrained params {digest(params)} are not the "
+                                 f"served {served}")
+        kp = fused_mlp.pack_for_kernel(fused_mlp.fold_for_kernel(params), self.dev)
+
+        def plain(x):
+            return fused_mlp.fused_mlp_reference(
+                kp, self.torch.from_numpy(x).to(self.torch.bfloat16).to(self.dev))
+
+        worst = max(rest_check("fused_mlp_bf16", plain, x, p, f"{tag}: POST")[0]
+                    for x, p in live["posts"])
+        r, kie, seldon, slo = (blocks[k] for k in ("router", "kie", "seldon", "slo"))
+        fraud = r.get('transaction_outgoing_total{type="fraud"}', 0.0)
+        standard = r.get('transaction_outgoing_total{type="standard"}', 0.0)
+        started = sum(v for k, v in kie.items() if k.startswith("process_instances_started"))
+        incoming = r.get("transaction_incoming_total", 0.0)
+        b1 = launches_of(seldon)
+        disp = seldon.get("ccfd_scorer_dispatches", 0.0)
+        warm = len(Config.from_env().batch_sizes)
+        builds = (live["builds"], slo.get("ccfd_build_events_total", 0.0))
+        fails = []
+        if not incoming == fraud + standard == started == PLATFORM_ROWS:
+            fails.append(f"incoming {incoming}, routed {fraud} + {standard}, starts {started}")
+        if b1 != disp + warm or not disp:
+            fails.append(f"B1 launches {b1} != dispatches {disp} + {warm} warmup")
+        if builds[1] != builds[0]:
+            fails.append(f"builds while serving: {builds}")
+        if fails:
+            raise AssertionError(f"{tag}: " + "; ".join(fails))
+        prof = blocks["profile"]["stages"]
+        log("platform", f"ok: {tag}: ready in {ready_s:.3f} s (the scorer trained "
+            f"{PLATFORM_TRAIN_STEPS} steps on the card first), exited 0 after {wall:.3f} s; "
+            f"{PLATFORM_ROWS} transactions: incoming {incoming:.0f} = routed {fraud:.0f} fraud "
+            f"+ {standard:.0f} standard = engine starts {started:.0f}; B1 launches {b1:.0f} = "
+            f"dispatches {disp:.0f} + {warm} warmup; builds {builds[0]:.0f} at ready, "
+            f"{builds[1]:.0f} at exit; {len(live['posts'])} 16-row POSTs within b1_tol_p of "
+            f"plain (max |dp| {worst:.3e}) on params sha256 {served}")
+        log("platform", f"{tag}: the profile at exit (p50 / p99 ms): "
+            + "; ".join(f"{st} {c} {prof[st][c]['p50_ms']} / {prof[st][c]['p99_ms']}"
+                        for st, c in (("bus", "queue"), ("router.decode", "service"),
+                                      ("router.score", "dispatch"), ("router.route", "service"),
+                                      ("rest.batcher", "queue"), ("rest.dispatch", "dispatch"))
+                        if prof.get(st, {}).get(c, {}).get("count"))
+            + f" on {self.card}")
+        shutil.rmtree(tmp, ignore_errors=True)
+        return int(b1)
+
+    def platform_live(self, mon: str, sport: int) -> dict:
+        """What (2) reads while the platform runs: the build counter at
+        ready, 16-row POSTs, /healthz, /profile, /debug/device and the SLO
+        gauges."""
+        import http.client
+
+        from ccfd_tpu_torch.config import Config
+
+        builds = scrape(f"{mon}/prometheus/slo").get("ccfd_build_events_total", 0.0)
+        conn = http.client.HTTPConnection("127.0.0.1", sport, timeout=60)
+        posts = []
+        for i in range(PLATFORM_POSTS):
+            x = self.rows[i * 16:(i + 1) * 16]
+            posts.append((x, post(conn, x)[0]))
+        conn.close()
+        want = ("bus", "router.decode", "router.score", "router.route", "rest.batcher",
+                "rest.dispatch", "rest")
+        deadline = time.monotonic() + 30
+        while True:  # until every stage has fed and the SLO engine ticked
+            with urllib.request.urlopen(f"{mon}/profile", timeout=30) as r:
+                prof = json.loads(r.read())
+            slo = scrape(f"{mon}/prometheus/slo")
+            if (all(st in prof["stages"] for st in want)
+                    and any(k.startswith("ccfd_slo_burn_rate{") for k in slo)) \
+                    or time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+        with urllib.request.urlopen(f"{mon}/healthz", timeout=30) as r:
+            health = (r.status, json.loads(r.read()))
+        with urllib.request.urlopen(f"{mon}/debug/device", timeout=30) as r:
+            dev = json.loads(r.read())
+        fails = []
+        if health[0] != 200 or not health[1]["healthy"]:
+            fails.append(f"/healthz {health}")
+        stages = prof["stages"]
+        for st in want:
+            if st not in stages or not {"queue", "service", "dispatch"} <= set(stages[st]):
+                fails.append(f"/profile lacks {st}")
+        mem = dev["memory"].get("cuda:0", {})
+        sc = dev["executables"].get("scorer", {})
+        if not (mem.get("bytes_in_use", 0) > 0 and dev["h2d"]["bytes_total"] > 0
+                and dev["h2d"]["transfer"]["count"] > 0):
+            fails.append(f"/debug/device memory {mem}, h2d {dev['h2d']}")
+        if sc.get("kernel") != "fused_mlp_bf16" or sc.get("warmed") != list(
+                Config.from_env().batch_sizes):
+            fails.append(f"/debug/device inventory {sc}")
+        if not any(k.startswith("ccfd_slo_burn_rate{") for k in slo):
+            fails.append("no ccfd_slo_burn_rate on /prometheus/slo")
+        if fails:
+            raise AssertionError("platform (2) live: " + "; ".join(fails))
+        log("platform", f"ok: platform (2) live: /healthz 200 {sorted(health[1]['sources'])}; "
+            f"/profile stages {sorted(stages)}; /debug/device cuda:0 bytes_in_use "
+            f"{mem['bytes_in_use']}, bytes_limit {mem.get('bytes_limit')}, H2D "
+            f"{dev['h2d']['bytes_total']} bytes in {dev['h2d']['transfer']['count']} copies "
+            f"(p50 {dev['h2d']['transfer'].get('p50_ms')} ms); inventory {sc['kernel']} x "
+            f"{sc['warmed']}; {sum(1 for k in slo if k.startswith('ccfd_slo_burn_rate{'))} "
+            f"burn-rate series on {self.card}")
+        return {"builds": builds, "posts": posts}
+
+    @staticmethod
+    def platform_blocks(text: str) -> dict:
+        """`up`'s exit dump -> {registry: {"name{labels}": value}}, and the
+        profile and device documents."""
+        out: dict = {}
+        cur = None
+        for line in text.splitlines():
+            if line.startswith("--- ") and line.endswith(" ---"):
+                cur = line[4:-4]
+                out[cur] = {}
+            elif cur in ("profile", "device") and line.startswith("{"):
+                out[cur] = json.loads(line)
+            elif cur is not None and line and not line.startswith("#") and " " in line:
+                key, _, val = line.rpartition(" ")
+                try:
+                    out[cur][key] = float(val)
+                except ValueError:
+                    pass
+        return out
+
+    def platform_recovery(self) -> int:
+        """(3) An in-process Platform on the card (the port's CR, the scorer
+        on REST, crash recovery with a 0.5 s checkpoint interval): an engine
+        failure injected mid-stream restores the last cut and re-drives the
+        gap; after ``down()`` a second Platform on the same log dir and
+        checkpoint file restores the saved cut at bring-up. Every
+        transaction is started exactly once (the surviving engine's
+        ``next_pid``). Returns B1's launches."""
+        import http.client
+
+        from ccfd_tpu_torch.config import Config
+        from ccfd_tpu_torch.data.ccfd import Dataset, iter_transactions
+        from ccfd_tpu_torch.data.surrogate import kaggle_surrogate
+        from ccfd_tpu_torch.ops.fused_mlp import fused_mlp_reference
+        from ccfd_tpu_torch.platform.operator import Platform, PlatformSpec
+        from ccfd_tpu_torch.runtime.durability import read_json_artifact
+
+        tag = "platform (3) recovery"
+        tmp = tempfile.mkdtemp(prefix="ccfd_recovery_")
+        cr = self.platform_cr(tmp, store={"enabled": False}, producer={"enabled": False},
+                              retrain={"enabled": False},
+                              scorer={"model": "mlp", "train_steps": 0, "rest": True},
+                              engine={"crash_recovery": True, "rest": True, "rest_port": 0,
+                                      "checkpoint_interval_s": 0.5})
+        cfg = Config.from_env()
+        n1, n2 = RECOVERY_ROWS
+        ds = kaggle_surrogate(n=n1 + n2, seed=SEED)
+        rows = list(iter_transactions(Dataset(X=ds.X, y=ds.y)))
+        cut_path = cr["spec"]["engine"]["checkpoint_file"]
+        counters = self.counters()
+        for c in counters.values():
+            c.reset()
+
+        def wait(pred, what: str, timeout: float = 120.0) -> None:
+            deadline = time.monotonic() + timeout
+            while not pred():
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"{tag}: {what} not reached in {timeout} s")
+                time.sleep(0.01)
+
+        p = Platform(PlatformSpec.from_cr(cr, cfg=cfg)).up(wait_ready_s=120)
+        dispatched = 0
+        try:
+            incoming = p.registries["router"].counter("transaction_incoming_total")
+
+            def stream() -> None:  # the first burst over ~2 s, 500 rows a batch
+                for i in range(0, n1, 500):
+                    part = rows[i:i + 500]
+                    p.broker.produce_batch(cfg.kafka_topic, part, [r["id"] for r in part])
+                    time.sleep(0.05)
+
+            producer = threading.Thread(target=stream, daemon=True)
+            producer.start()
+            wait(lambda: incoming.value() >= n1 // 2 and p.recovery.checkpoints > 0,
+                 "a checkpoint with half the first burst routed")
+            old = p.engine
+            t0 = time.perf_counter()
+            if not p.supervisor.inject_failure("engine", "smoke"):
+                raise AssertionError(f"{tag}: the engine service was not running")
+            wait(lambda: p.recovery.restores == 1 and p.engine is not old, "the restore")
+            crash_ms = (time.perf_counter() - t0) * 1e3
+            restore_ms = p.recovery.last_restore_s * 1e3
+            mid = incoming.value()  # rows consumed when the restore landed
+            producer.join()
+            p.broker.produce_batch(cfg.kafka_topic, rows[n1:], [r["id"] for r in rows[n1:]])
+            wait(lambda: p.engine.snapshot()["next_pid"] - 1 >= n1 + n2, "every start")
+            k = p.recovery.checkpoints
+            wait(lambda: p.recovery.checkpoints >= k + 2, "two more checkpoints")
+            # REST through the same scorer: B1 against its plain version on
+            # the live kernel params
+            kp = p.scorer._live[1]
+            conn = http.client.HTTPConnection("127.0.0.1", p.prediction_port, timeout=60)
+            worst = 0.0
+            for i in range(20):
+                x = self.rows[i * 16:(i + 1) * 16]
+                got = post(conn, x)[0]
+                worst = max(worst, rest_check("fused_mlp_bf16", lambda z: fused_mlp_reference(
+                    kp, self.torch.from_numpy(z).to(self.torch.bfloat16).to(self.dev)),
+                    x, got, f"{tag}: POST")[0])
+            conn.close()
+            next_pid = p.engine.snapshot()["next_pid"]
+            start_errors = p.registries["router"].counter(
+                "router_process_start_errors_total").total()
+            dispatched += p.scorer.dispatch_total()
+        finally:
+            p.down()
+        saved = read_json_artifact(cut_path, artifact="recovery_cut", quarantine=False)
+        cut_bytes = os.path.getsize(cut_path)
+        p2 = Platform(PlatformSpec.from_cr(cr, cfg=cfg)).up(wait_ready_s=120)
+        try:
+            boot = p2.recovery._last
+            boot_ms = p2.recovery.last_restore_s * 1e3
+            same = (boot["snap"] == saved["snap"] and boot["offsets"] == saved["offsets"])
+            boot_pid = p2.engine.snapshot()["next_pid"]
+            restores2 = p2.recovery.restores
+            dispatched += p2.scorer.dispatch_total()
+        finally:
+            p2.down()
+        launched = counters["fused_mlp_bf16"].value
+        warm = 2 * len(cfg.batch_sizes)
+        fails = []
+        if next_pid - 1 != n1 + n2:
+            fails.append(f"the engine started {next_pid - 1} processes for {n1 + n2} rows")
+        if restores2 != 1 or not same or boot_pid != next_pid:
+            fails.append(f"the bounce: {restores2} restores, cut equal {same}, next_pid "
+                         f"{boot_pid} (before {next_pid})")
+        if launched != dispatched + warm:
+            fails.append(f"B1 launches {launched} != dispatches {dispatched} + {warm} warmup")
+        if fails:
+            raise AssertionError(f"{tag}: " + "; ".join(fails))
+        log("platform", f"ok: {tag}: an engine failure injected mid-stream (after a "
+            f"checkpoint; {mid:.0f} of {n1} rows consumed at the restore) restored its cut in "
+            f"{restore_ms:.3f} ms (the "
+            f"service back {crash_ms:.3f} ms after the kill); {n1 + n2} transactions, each "
+            f"started exactly once (next_pid {next_pid}; {start_errors:.0f} starts into the "
+            f"stopped engine re-driven); the bounce restored the saved cut ({cut_bytes} bytes "
+            f"on disk) at bring-up in {boot_ms:.3f} ms, equal to what was saved; 20 POSTs "
+            f"max |dp| {worst:.3e}; B1 launches {launched} = dispatches {dispatched} + {warm} "
+            f"warmup on {self.card}")
+        shutil.rmtree(tmp, ignore_errors=True)
+        return int(launched)
+
+    def platform_fixed_rate(self) -> int:
+        """(4) The operator pipeline (the port's CR: store and retrain off,
+        the scorer's seeded MLP on B1, a memory bus) with the producer at a
+        fixed rate for FIXED_SECONDS: decision p50/p99 against the 10 ms
+        limit, the profiler's router stages (queueing, service, dispatch),
+        the H2D copies' device time, and the card's busy share from a
+        device-only torch.profiler trace over the run. Returns B1's
+        launches."""
+        from torch.profiler import ProfilerActivity, profile
+
+        from ccfd_tpu_torch.config import Config
+        from ccfd_tpu_torch.data.ccfd import to_csv_bytes
+        from ccfd_tpu_torch.data.surrogate import kaggle_surrogate
+        from ccfd_tpu_torch.platform.operator import Platform, PlatformSpec
+
+        tmp = tempfile.mkdtemp(prefix="ccfd_rate_")
+        csv = os.path.join(tmp, "rows.csv")
+        most = max(FIXED_RATES) * FIXED_SECONDS
+        with open(csv, "wb") as f:
+            f.write(to_csv_bytes(kaggle_surrogate(n=most, seed=SEED)))
+        counters = self.counters()
+        launched = 0
+        old_csv = os.environ.get("CCFD_CSV")
+        os.environ["CCFD_CSV"] = csv  # the producer's dataset
+        try:
+            for rate in FIXED_RATES:
+                tag = f"platform (4) {rate}/s"
+                n = rate * FIXED_SECONDS
+                cr = self.platform_cr(tmp, store={"enabled": False}, retrain={"enabled": False},
+                                      bus={"log_dir": None},
+                                      engine={"crash_recovery": False},
+                                      scorer={"model": "mlp", "train_steps": 0, "rest": False},
+                                      producer={"transactions": n, "rate": rate})
+                cfg = Config.from_env()
+                for c in counters.values():
+                    c.reset()
+                p = Platform(PlatformSpec.from_cr(cr, cfg=cfg))
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    p.up(wait_ready_s=120)
+                    try:
+                        t1 = time.perf_counter()
+                        if not p.wait_producer(FIXED_SECONDS * 3 + 60):
+                            raise AssertionError(f"{tag}: the producer did not finish")
+                        produced_s = time.perf_counter() - t1
+                        if not p.wait_routed(120):
+                            raise AssertionError(f"{tag}: the router did not drain")
+                        window = time.perf_counter() - t1
+                        rr = p.registries["router"]
+                        dec = rr.histogram("router_decision_seconds")
+                        incoming = rr.counter("transaction_incoming_total").value()
+                        routed = rr.counter("transaction_outgoing_total").total()
+                        doc = p.profiler.snapshot()["stages"]
+                        h2d = p.device_telemetry.h2d_digest().to_dict()
+                        h2d_bytes = p.device_telemetry.h2d_bytes()
+                        dispatched = p.scorer.dispatch_total()
+                        warm = len(p.scorer.batch_sizes)
+                    finally:
+                        p.down()
+                events = prof.key_averages()
+                busy = sum(getattr(e, "self_device_time_total", None)
+                           or getattr(e, "self_cuda_time_total", 0.0) for e in events) / 1e6
+                # the copies' own device time, from the trace's memcpy rows
+                # (the telemetry's CUDA events also hold the stream's idle
+                # time while the host enqueues the copy)
+                htod = [e for e in events if "HtoD" in e.key]
+                htod_us = sum(getattr(e, "self_device_time_total", None)
+                              or getattr(e, "self_cuda_time_total", 0.0) for e in htod)
+                htod_n = sum(e.count for e in htod)
+                b1 = counters["fused_mlp_bf16"].value
+                launched += b1
+                if incoming != n or routed != n or b1 != dispatched + warm:
+                    raise AssertionError(f"{tag}: {n} produced, {incoming} incoming, {routed} "
+                                         f"routed; B1 {b1} != {dispatched} + {warm}")
+                p50, p99 = dec.quantile(0.5) * 1e3, dec.quantile(0.99) * 1e3
+
+                def q(st, c):
+                    d = doc.get(st, {}).get(c, {})
+                    return f"{d.get('p50_ms')} / {d.get('p99_ms')}" if d.get("count") else "-"
+
+                log("platform", f"ok: {tag}: {n} transactions produced in {produced_s:.3f} s "
+                    f"({n / produced_s:.1f}/s achieved of the {rate}/s asked), "
+                    f"all routed {window:.3f} s after the first; decision p50 {p50:.3f} ms, "
+                    f"p99 {p99:.3f} ms against the 10 ms limit "
+                    f"({'met' if p99 < 10 else 'missed'}); router stages p50 / p99 ms: bus "
+                    f"queue {q('bus', 'queue')}, decode service "
+                    f"{q('router.decode', 'service')}, score dispatch "
+                    f"{q('router.score', 'dispatch')}, route service "
+                    f"{q('router.route', 'service')}; H2D {h2d.get('count', 0)} copies, "
+                    f"{h2d_bytes} bytes, CUDA-event brackets p50 {h2d.get('p50_ms')} ms p99 "
+                    f"{h2d.get('p99_ms')} ms (sum {h2d.get('sum_s', 0) * 1e3:.3f} ms), the "
+                    f"trace's HtoD copies {htod_n}, {htod_us:.3f} us of device time"
+                    + (f" ({htod_us / htod_n:.3f} us a copy)" if htod_n else "") + "; "
+                    + (f"the card busy {busy * 1e3:.3f} ms (device-only trace from "
+                       f"bring-up, {time.perf_counter() - t0:.3f} s): busy share over the "
+                       f"routed window {busy / window:.5f}" if busy else
+                       "the card's busy share not measured (no device events in the trace)")
+                    + f"; B1 launches {b1} = dispatches {dispatched} + {warm} warmup on "
+                    f"{self.card}")
+        finally:
+            if old_csv is None:
+                os.environ.pop("CCFD_CSV", None)
+            else:
+                os.environ["CCFD_CSV"] = old_csv
+            shutil.rmtree(tmp, ignore_errors=True)
+        return int(launched)
+
     def models(self) -> None:
         """The reference's other Seldon models on the card: parity card
         against CPU, the committed tree ensemble's held-out AUC, REST and

@@ -193,7 +193,7 @@ def test_both_pipelines_route_every_transaction_alike(data, ref_scorer, wire, pl
 
 def test_pipeline_refuses_the_knobs_it_does_not_port(data):
     ds, tree = data
-    for env in ({"s3endpoint": "http://s3"}, {"CCFD_LIFECYCLE_DIR": "/tmp/lc"},
+    for env in ({"CCFD_STORAGE_FAULTS": "bitrot"}, {"CCFD_LIFECYCLE_DIR": "/tmp/lc"},
                 {"CCFD_OVERLOAD_REST_QUEUE_ROWS": "64"}):
         with pytest.raises(NotImplementedError, match=next(iter(env))):
             build_pipeline(Config.from_env(env), ds, device="cpu", params=tree)

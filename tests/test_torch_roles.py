@@ -178,13 +178,13 @@ def test_five_roles_route_as_the_in_process_pipeline(inputs):
     (["router"], {"CCFD_LIFECYCLE_DIR": "/tmp/lc"}, "CCFD_LIFECYCLE_DIR"),
     (["serve", "--device", "cpu"], {"CCFD_OVERLOAD_REST_QUEUE_ROWS": "64"},
      "CCFD_OVERLOAD_REST_QUEUE_ROWS"),
-    (["producer"], {"s3endpoint": "http://s3"}, "s3endpoint"),
+    (["producer"], {"CCFD_DEVICE_FAULTS": "oom"}, "CCFD_DEVICE_FAULTS"),
     (["bus", "--port", "0"], {"CCFD_OVERLOAD_SERVE_CODEL_TARGET_MS": "5"},
      "CCFD_OVERLOAD_SERVE_CODEL_TARGET_MS"),
     (["engine", "--port", "0"], {"CCFD_LIFECYCLE_DIR": "/tmp/lc"}, "CCFD_LIFECYCLE_DIR"),
     (["notify"], {"CCFD_INLINE_ROWS": "64"}, "CCFD_INLINE_ROWS"),
     (["audit", "tx-1"], {}, "provenance plane"),
-    (["audit"], {"s3endpoint": "http://s3"}, "s3endpoint"),
+    (["audit"], {"CCFD_STORAGE_FAULTS": "bitrot"}, "CCFD_STORAGE_FAULTS"),
 ])
 def test_roles_refuse_unported_knobs_by_name(monkeypatch, argv, env, match):
     from ccfd_tpu_torch.cli import main
@@ -242,7 +242,7 @@ def test_config_reads_the_roles_knobs_as_the_reference():
 # the GC as the reference does (C2), the router on SELDON_URL falls to the
 # rules tier as the reference's role does (C3)
 
-UNPORTED = [("s3endpoint", "http://s3"), ("CCFD_OVERLOAD_SERVE_CODEL_TARGET_MS", "5"),
+UNPORTED = [("CCFD_STORAGE_FAULTS", "bitrot"), ("CCFD_OVERLOAD_SERVE_CODEL_TARGET_MS", "5"),
             ("CCFD_OVERLOAD_REST_QUEUE_ROWS", "64"), ("CCFD_LIFECYCLE_DIR", "/tmp/lc"),
             ("CCFD_HOST_TIER_ROWS", "256"), ("CCFD_INLINE_ROWS", "64")]
 
@@ -395,9 +395,9 @@ def test_config_takes_this_slices_knobs_as_the_reference():
     assert got.parsed_retention_overrides() == want.parsed_retention_overrides()
     assert got.unported() == []
     # what is left names only parts still to port
-    left = Config.from_env({**SLICE9, "s3endpoint": "http://s3",
+    left = Config.from_env({**SLICE9, "CCFD_DEVICE_FAULTS": "oom",
                             "CCFD_LIFECYCLE_DIR": "/tmp/lc"}).unported()
-    assert [x.split(" ")[0] for x in left] == ["s3endpoint", "CCFD_LIFECYCLE_DIR"]
+    assert [x.split(" ")[0] for x in left] == ["CCFD_LIFECYCLE_DIR", "CCFD_DEVICE_FAULTS"]
 
 
 @pytest.mark.parametrize("argv", [["notify"], ["producer", "--limit", "1"],
