@@ -28,6 +28,11 @@
                                     [--wire-format dict|csv]
   python -m ccfd_tpu_torch audit [--topic T] [--group G] [--limit N]
                                  [--follow]
+  python -m ccfd_tpu_torch investigate [--engine-url URL] [--rate 50]
+                                       [--trust 0.9] [--fraud-rate 0.05]
+                                       [--seed N] [--metrics-port 8082]
+  python -m ccfd_tpu_torch tasks [--engine-url URL] [--status open]
+                                 [--complete TASK_ID --outcome approved|rejected]
   python -m ccfd_tpu_torch up [-f CR.yaml] [--exit-after-producer]
                               [--drain-s 120] [--device cuda|cpu]
   python -m ccfd_tpu_torch manifests [-f CR.yaml] --out DIR
@@ -183,6 +188,15 @@ ready line names the served model, device, kernel and the params' sha256
 ``store`` is the reference's object-store command: ``serve`` the S3-shaped
 store, ``put`` the dataset (or ``--file``) as ``filename`` in ``s3bucket``,
 ``ls`` the bucket; the producer reads from it when ``s3endpoint`` is set.
+
+``investigate`` and ``tasks`` are the reference's investigator commands
+over the engine's KIE-shaped REST contract (``--engine-url``, else
+KIE_SERVER_URL): ``investigate`` runs the seeded, rate-limited
+``InvestigatorService`` (``process/investigator.py``) against the open-task
+queue and serves its counters on ``--metrics-port``; ``tasks`` prints the
+tasks of ``--status`` as one JSON line, and ``--complete ID --outcome
+approved|rejected`` completes one (approved = legitimate, rejected =
+fraud), the human decision the user-task model learns from.
 
 ``demo``, ``serve``, ``up`` and the ``bus``, ``engine``, ``router`` and ``notify``
 roles raise Python's gen-0 GC threshold before their hot loops start, as
@@ -847,6 +861,78 @@ def cmd_producer(args: argparse.Namespace) -> int:
     return 0
 
 
+def _engine_client(cfg: Config, url: str):
+    from ccfd_tpu_torch.process.client import EngineRestClient
+
+    return EngineRestClient(url, timeout_s=cfg.seldon_timeout_ms / 1000.0,
+                            retries=cfg.client_retries)
+
+
+def cmd_investigate(args: argparse.Namespace) -> int:
+    """Investigator simulation working the engine's task queue over the
+    KIE-shaped REST contract: seeded verdicts, rate-limited, trusting
+    confident console pre-fills; the decisions train the user-task model."""
+    from ccfd_tpu_torch.metrics.exporter import MetricsExporter
+    from ccfd_tpu_torch.process.investigator import InvestigatorService
+
+    cfg = Config.from_env()
+    url = args.engine_url or cfg.kie_server_url
+    svc = InvestigatorService(
+        _engine_client(cfg, url), rate_per_s=args.rate, trust_threshold=args.trust,
+        base_fraud_rate=args.fraud_rate, seed=args.seed)
+    exporter = MetricsExporter({"investigator": svc.registry}, host="0.0.0.0",
+                               port=args.metrics_port).start()
+    print(f"[investigate] working {url} at <= {args.rate}/s; metrics on "
+          f":{exporter.endpoint.rsplit(':', 1)[1]}/prometheus", file=sys.stderr, flush=True)
+    _sigterm_as_interrupt()
+    try:
+        svc.run()
+    except KeyboardInterrupt:
+        svc.stop()
+    exporter.stop()
+    return 0
+
+
+def cmd_tasks(args: argparse.Namespace) -> int:
+    """The investigator's CLI: list and complete user tasks on the engine.
+    Completing with --outcome approved/rejected is the decision the
+    user-task model learns from."""
+    cfg = Config.from_env()
+    url = args.engine_url or cfg.kie_server_url
+    if not url.startswith("http"):
+        print(f"[tasks] KIE_SERVER_URL={url!r} is not an http engine endpoint; "
+              "start one with `python -m ccfd_tpu_torch engine` and point "
+              "--engine-url at it", file=sys.stderr)
+        return 2
+    client = _engine_client(cfg, url)
+    if args.complete is not None:
+        # the engine's completion payload is the boolean is_fraud verdict
+        # (truthy cancels the transaction): map the investigator's words
+        # explicitly, since the raw string "approved" is truthy
+        verdicts = {"approved": False, "rejected": True, "false": False, "true": True}
+        if args.outcome is None or args.outcome.lower() not in verdicts:
+            print("[tasks] --complete requires --outcome approved|rejected "
+                  "(approved = legitimate transaction, rejected = confirmed fraud)",
+                  file=sys.stderr)
+            return 2
+        is_fraud = verdicts[args.outcome.lower()]
+        try:
+            client.complete_task(args.complete, is_fraud)
+        except (RuntimeError, OSError) as e:
+            print(f"[tasks] engine error: {e}", file=sys.stderr)
+            return 2
+        print(json.dumps({"completed": args.complete, "outcome": args.outcome.lower(),
+                          "is_fraud": is_fraud}))
+        return 0
+    try:
+        views = client.tasks(args.status)
+    except (RuntimeError, OSError) as e:
+        print(f"[tasks] engine error: {e}", file=sys.stderr)
+        return 2
+    print(json.dumps({"status": args.status, "count": len(views), "tasks": views}))
+    return 0
+
+
 def cmd_audit(args: argparse.Namespace) -> int:
     """Tail the engine's audit stream (CCFD_AUDIT_TOPIC): one JSON event a
     line. ``--follow`` keeps consuming; otherwise it drains what is there
@@ -909,7 +995,9 @@ def cmd_up(args: argparse.Namespace) -> int:
             from ccfd_tpu_torch.params import digest
 
             grid = sc.executable_grid()
-            served = (f"scorer {grid['model']} on {sc.device}, kernel {grid['kernel']}, "
+            # the seq family is torch code: its grid names no kernel
+            served = (f"scorer {grid['model']} on {sc.device}, kernel "
+                      f"{grid.get('kernel', 'none (torch code)')}, "
                       f"params sha256 {digest(sc.params)}")
         else:
             served = "no local scorer"
@@ -1302,6 +1390,26 @@ def build_parser() -> argparse.ArgumentParser:
     au.add_argument("--follow", action="store_true", help="keep consuming")
     au.add_argument("--limit", type=int, default=0, help="stop after N events")
     au.set_defaults(fn=cmd_audit)
+    inv = sub.add_parser("investigate",
+                         help="investigator simulation over the KIE REST contract")
+    inv.add_argument("--engine-url", default="",
+                     help="engine REST base (default: KIE_SERVER_URL)")
+    inv.add_argument("--rate", type=float, default=50.0,
+                     help="max task completions per second")
+    inv.add_argument("--trust", type=float, default=0.9,
+                     help="follow the console pre-fill at/above this prediction confidence")
+    inv.add_argument("--fraud-rate", type=float, default=0.05,
+                     help="independent-verdict fraud probability")
+    inv.add_argument("--seed", type=int, default=0)
+    inv.add_argument("--metrics-port", type=int, default=8082)
+    inv.set_defaults(fn=cmd_investigate)
+    tk = sub.add_parser("tasks", help="investigator workflow: list/complete engine user tasks")
+    tk.add_argument("--engine-url", default="",
+                    help="engine REST base (default: KIE_SERVER_URL)")
+    tk.add_argument("--status", default="open")
+    tk.add_argument("--complete", type=int, default=None, metavar="TASK_ID")
+    tk.add_argument("--outcome", default=None, help="approved | rejected (with --complete)")
+    tk.set_defaults(fn=cmd_tasks)
     up = sub.add_parser("up", help="bring up the platform from a CR file")
     up.add_argument("-f", "--file", default=PORT_CR)
     up.add_argument("--exit-after-producer", action="store_true")

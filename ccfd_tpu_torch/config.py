@@ -75,6 +75,17 @@ as ccfd_tpu/config.py, with the same defaults:
     CCFD_OVERLOAD_MIN_INFLIGHT, CCFD_OVERLOAD_MAX_INFLIGHT,
     CCFD_OVERLOAD_CODEL_TARGET_MS,
     CCFD_OVERLOAD_DISPATCH_DEADLINE_MS                  overload control
+    CCFD_OVERLOAD_SERVE_CODEL_TARGET_MS,
+    CCFD_OVERLOAD_REST_QUEUE_ROWS                       the REST batcher's
+                                                        CoDel target and
+                                                        bounded priority
+                                                        queue (0 = off; the
+                                                        Python transport only)
+    CCFD_SEQ_STRIPES, CCFD_SEQ_INFLIGHT,
+    CCFD_SEQ_LEN_BUCKETS                                the seq family's
+                                                        history store and
+                                                        scorer
+                                                        (serving/history.py)
     s3endpoint, s3bucket, filename, ACCESS_KEY_ID,
     SECRET_ACCESS_KEY                                   the object store: the
                                                         producer's source and
@@ -97,8 +108,7 @@ as ccfd_tpu/config.py, with the same defaults:
 Knobs that select a part of the reference this port does not have are read
 too, so that setting one is refused by name rather than ignored
 (``unported``): the device and storage fault plans (CCFD_DEVICE_FAULTS,
-CCFD_STORAGE_FAULTS; ROADMAP A6), the batcher's overload queue policies
-(CCFD_OVERLOAD_SERVE_CODEL_TARGET_MS, CCFD_OVERLOAD_REST_QUEUE_ROWS), the
+CCFD_STORAGE_FAULTS; ROADMAP A6), the
 model lifecycle's lineage store (CCFD_LIFECYCLE_DIR), and the two ways
 the reference scores small requests round the kernel: the Scorer's host
 latency tier (CCFD_HOST_TIER_ROWS > 0) and the REST front's in-IO-thread
@@ -189,6 +199,14 @@ class Config:
     # worker per bus partition, >1 explicit ---
     router_workers: int = 1
     router_coalesce: bool = True
+    # --- sequence serving (serving/history.py) ---
+    seq_stripes: int = 8  # HistoryStore stripe count
+    # dispatches in flight before the scoring loop waits on the oldest;
+    # 0 = the synchronous chunk loop
+    seq_inflight: int = 2
+    # short-sequence ladder, off by default (empty): cold rows' scores
+    # differ between rungs, as the attention has no padding mask
+    seq_len_buckets: Sequence[int] = ()
     # --- overload control (runtime/overload.py) ---
     overload_enabled: bool = True
     overload_target_ms: float = 50.0        # the router's AIMD latency budget
@@ -196,6 +214,9 @@ class Config:
     overload_min_inflight: int = 0          # 0 = auto: one router max_batch
     overload_max_inflight: int = 0          # 0 = auto: 4x the initial limit
     overload_codel_target_ms: float = 0.0   # bus sojourn deadline; 0 = off
+    # the REST batcher's CoDel target and bounded queue (0 = off)
+    overload_serve_codel_target_ms: float = 0.0
+    overload_rest_queue_rows: int = 0
     # router dispatch watchdog: -1 = auto (SELDON_TIMEOUT when the router
     # scores on the card, off on the CPU), 0 = off
     overload_dispatch_deadline_ms: float = -1.0
@@ -237,8 +258,6 @@ class Config:
     # --- parts of the reference not ported yet: set, they are refused ---
     device_faults_spec: str = ""
     storage_faults_spec: str = ""
-    overload_serve_codel_target_ms: float = 0.0
-    overload_rest_queue_rows: int = 0
     graph_cr: str = ""
     lifecycle_dir: str = ""
     host_tier_rows: int = -1  # -1 = auto, which is off in the port
@@ -248,6 +267,7 @@ class Config:
     def from_env(env: Mapping[str, str] | None = None) -> "Config":
         e = dict(os.environ if env is None else env)
         sizes = e.get("CCFD_BATCH_SIZES", "")
+        seq_lb = e.get("CCFD_SEQ_LEN_BUCKETS", "")
 
         def num(key: str, field: str, conv=float):
             return conv(e.get(key, str(getattr(Config, field))))
@@ -341,6 +361,10 @@ class Config:
             device_faults_spec=e.get("CCFD_DEVICE_FAULTS", Config.device_faults_spec),
             storage_faults_spec=e.get("CCFD_STORAGE_FAULTS", Config.storage_faults_spec),
             faults_spec=e.get("CCFD_FAULTS", Config.faults_spec),
+            seq_stripes=num("CCFD_SEQ_STRIPES", "seq_stripes", int),
+            seq_inflight=num("CCFD_SEQ_INFLIGHT", "seq_inflight", int),
+            seq_len_buckets=(tuple(int(s) for s in seq_lb.split(",") if s.strip())
+                             if seq_lb else Config.seq_len_buckets),
             overload_serve_codel_target_ms=num("CCFD_OVERLOAD_SERVE_CODEL_TARGET_MS",
                                                "overload_serve_codel_target_ms"),
             overload_rest_queue_rows=num("CCFD_OVERLOAD_REST_QUEUE_ROWS",
@@ -395,9 +419,6 @@ class Config:
         the port does not have yet (the pipeline and the roles refuse to
         start on any)."""
         out = []
-        if self.overload_serve_codel_target_ms > 0 or self.overload_rest_queue_rows > 0:
-            out.append("CCFD_OVERLOAD_SERVE_CODEL_TARGET_MS/CCFD_OVERLOAD_REST_QUEUE_ROWS "
-                       "(the batcher's overload queue policies)")
         if self.lifecycle_dir:
             out.append("CCFD_LIFECYCLE_DIR (the model lifecycle's lineage store)")
         if self.host_tier_rows > 0:

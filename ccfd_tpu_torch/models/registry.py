@@ -13,11 +13,13 @@ node by name. The port serves:
   evaluation of the same tree params); their ``init`` is an empty 50-tree
   depth-4 ensemble and takes no feature count;
 - an inference graph registered under its CR's name
-  (``serving/graph.py::InferenceGraph.as_model_spec``).
+  (``serving/graph.py::InferenceGraph.as_model_spec``);
+- the seq family, ``seq`` and ``seq_q8`` (registered by
+  ``ops/seq_quant.py::register``), over (B, L, F) histories: served by
+  ``serving/history.py::SeqScorer``, not by the row ``Scorer``.
 
 ``init(generator)`` takes a seeded ``torch.Generator``; ``apply(params, x,
-compute_dtype)`` returns proba_1 (B,). The seq family of the reference is
-queued in ROADMAP.md.
+compute_dtype)`` returns proba_1 (B,).
 """
 
 from __future__ import annotations
@@ -61,7 +63,7 @@ def _empty_ensemble(generator: Any = None, n_trees: int = 50, depth: int = 4) ->
 
 
 def _register_builtin() -> None:
-    from ccfd_tpu_torch.ops import quant
+    from ccfd_tpu_torch.ops import quant, seq_quant
 
     for name in ("logreg", "modelfull"):
         register_model(ModelSpec(name, logreg.init, logreg.apply, logreg.logits,
@@ -73,6 +75,7 @@ def _register_builtin() -> None:
     register_model(ModelSpec("gbt_mxu", _empty_ensemble, trees.apply_mxu, trees.logits_mxu,
                              trainable=False, apply_numpy=trees.apply_numpy))
     quant.register()
+    seq_quant.register()
 
 
 _register_builtin()

@@ -28,9 +28,12 @@ The port of ccfd_tpu/observability/device.py on ``torch.cuda``:
   plane's) rendered into one document.
 
 One instance per platform (operator ``device:`` block, CCFD_DEVICE=0 kill
-switch). Not carried over: the reference's process-default plane
-(``set_default``, for its bench harness), ``peak_memory_bytes`` and the
-put sampling (``sample_every``: the port's events need no host sync).
+switch). ``set_default`` installs a process-default plane: a ``Scorer`` or
+``SeqScorer`` built with ``telemetry=None`` records into it, as the
+reference's do. ``peak_memory_bytes`` is the largest allocator peak
+(``torch.cuda.max_memory_allocated``) over this process's devices. Not
+carried over: the put sampling (``sample_every``: the port's events need
+no host sync).
 """
 
 from __future__ import annotations
@@ -44,6 +47,19 @@ from ccfd_tpu_torch.observability.profile import LatencyDigest
 # H2D copies are µs..ms scale; the default request-latency ladder starts at
 # 5 ms and would fold every transfer into the first bucket
 H2D_BUCKETS = (25e-6, 1e-4, 5e-4, 1e-3, 5e-3, 0.025, 0.1, 0.5, 2.5)
+
+_DEFAULT: "DeviceTelemetry | None" = None
+
+
+def set_default(telemetry: "DeviceTelemetry | None") -> None:
+    """Install a process-default telemetry plane (scorers built with
+    ``telemetry=None`` pick it up). Pass None to clear."""
+    global _DEFAULT
+    _DEFAULT = telemetry
+
+
+def get_default() -> "DeviceTelemetry | None":
+    return _DEFAULT
 
 
 class DeviceTelemetry:
@@ -147,6 +163,13 @@ class DeviceTelemetry:
             entry["live_buffer_bytes"] = entry["bytes_in_use"]
             out[f"cuda:{i}"] = entry
         return out
+
+    def peak_memory_bytes(self) -> int | None:
+        """The largest allocator peak over this process's CUDA devices;
+        None without CUDA."""
+        peaks = [e["peak_bytes_in_use"] for e in self.device_memory().values()
+                 if "peak_bytes_in_use" in e]
+        return max(peaks) if peaks else None
 
     def refresh(self, mem: Mapping[str, Mapping[str, int]] | None = None) -> None:
         """Refresh the memory gauges (the exporter scrape is the sampling

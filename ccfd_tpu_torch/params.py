@@ -140,12 +140,44 @@ def from_jax_model_params(name: str, tree: Any,
     """The reference's params of model ``name`` (a pytree of numpy arrays,
     or anything ``np.asarray`` takes) -> the port's, on ``device``. For
     ``mlp_q8``, ``from_jax_q8_params``; for any other model (``mlp``,
-    ``logreg``, ``modelfull``, ``gbt``, ``gbt_mxu``, or an inference graph's
-    ``{node: params}``) the same tree with floats float32 and integers
-    (``feature``, a q8 node's ``wq``) of their own type."""
+    ``logreg``, ``modelfull``, ``gbt``, ``gbt_mxu``, ``seq``, ``seq_q8``,
+    the user-task model's ``{"w", "b", "mean", "scale"}`` as ``usertask``,
+    or an inference graph's ``{node: params}``) the same tree with floats
+    float32 and integers (``feature``, a q8 node's ``wq``, ``seq_q8``'s
+    int8 ``wq``) of their own type."""
     if name == "mlp_q8":
         return from_jax_q8_params(tree, device)
     return to_device(tree, device)
+
+
+def unflatten(flat: Mapping[str, Any]) -> dict:
+    """``flatten``'s inverse: ``{"blocks/0/qkv/w": a, ...}`` -> the nested
+    tree, a path part of digits a list index."""
+    tree: dict = {}
+    for path, leaf in flat.items():
+        parts = path.split("/")
+        node = tree
+        for part, nxt in zip(parts[:-1], parts[1:]):
+            node = node.setdefault(part, {})
+        node[parts[-1]] = leaf
+
+    def listify(node: Any) -> Any:
+        if not isinstance(node, dict):
+            return node
+        out = {k: listify(v) for k, v in node.items()}
+        if out and all(k.isdigit() for k in out):
+            return [out[str(i)] for i in range(len(out))]
+        return out
+
+    return listify(tree)
+
+
+def load_tree(path: "str | Path", device: "str | torch.device" = "cpu") -> dict:
+    """Any tree written by ``save_params`` (e.g. ``assets/seq_init.npz``)
+    as tensors on ``device``: floats float32, integers their own type."""
+    with np.load(path) as z:
+        flat = {k: z[k] for k in z.files}
+    return to_device(unflatten(flat), device)
 
 
 def save_params(tree: Mapping[str, Any], path: "str | Path") -> None:

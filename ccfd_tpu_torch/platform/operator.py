@@ -15,10 +15,17 @@ crash), with health probes and one Prometheus exporter:
    2  bus (in process, durable with ``log_dir``; or a client of ``url``:
       ``http://`` for a ``bus`` role, ``kafka://`` for a cluster)
    3  scorer (``train_steps`` of ``fit_mlp`` on the card first; the REST
-      front with ``rest``)
-   4  engine (``state_file``, ``rest``), 5 notify, 6 router (the decision
+      front with ``rest``); for ``model: seq|seq_q8`` the history-aware
+      ``SeqScorer`` on the committed ``assets/seq_init.npz`` (the
+      reference's ``seq.init(PRNGKey(0))`` with its normalizer), which the
+      router feeds records and the REST front does not serve
+   4  engine (``state_file``, ``rest``; ``usertask_model``: the learned
+      user-task model as its prediction service and task listener, saved
+      to ``usertask_state_file``), 5 notify, 6 router (the decision
       plane with ``scorer.fused_decision``), 6b crash recovery
-      (``engine.crash_recovery``: the ``CheckpointCoordinator``)
+      (``engine.crash_recovery``: the ``CheckpointCoordinator``; a seq
+      scorer's histories join the cut as ``history``), 6c the
+      investigator (re-pointed at a restored engine)
    7  retrain (the ``OnlineTrainer``, publishing by ``swap_params``),
       7c the SLO engine
    8  monitoring (the exporter: /prometheus, /profile, /healthz,
@@ -30,7 +37,9 @@ the CPU, as every entry point of the port. The components and options the
 port does not have are refused by name, all at once, before anything
 starts (``refused``): the reference builds them only here, and the port
 never skips one with a warning, clamps it or moves it to the CPU where the
-reference would.
+reference would: the online retrain under a seq scorer (the reference
+skips it with a warning) and the decision plane without a row scorer are
+refused.
 """
 
 from __future__ import annotations
@@ -69,7 +78,6 @@ _OFF_BY_DEFAULT = ("producer", "store", "chaos", "investigator", "fleet", "repla
 REFUSED_COMPONENTS: Mapping[str, str] = {
     "lifecycle": "A12 (the model lifecycle: shadow, canary, gated promotion)",
     "analytics": "A14 (batch analytics and the drift monitor)",
-    "investigator": "A11 (the investigator simulation)",
     "incident": "A14 (the incident flight recorder)",
     "heal": "A7 (the device heal supervisor)",
     "audit": "A9 (the decision provenance plane)",
@@ -79,7 +87,12 @@ REFUSED_COMPONENTS: Mapping[str, str] = {
     "chaos": "A6 (the chaos monkey and its device and storage fault storms)",
 }
 # scorer models the operator serves (every other is refused or unknown)
-SCORER_MODELS = ("mlp", "mlp_q8", "logreg", "modelfull", "gbt", "gbt_mxu")
+SCORER_MODELS = ("mlp", "mlp_q8", "logreg", "modelfull", "gbt", "gbt_mxu", "seq", "seq_q8")
+SEQ_MODELS = ("seq", "seq_q8")
+# the reference operator's seq params: seq.init(PRNGKey(0)) normalized on
+# synthetic_dataset(n=4096, fraud_rate=0.01, seed=0), exported as an npz
+SEQ_INIT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "assets", "seq_init.npz")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,17 +133,22 @@ class PlatformSpec:
         it; [] when the platform can come up."""
         out = [f"{name} ({item})" for name, item in REFUSED_COMPONENTS.items()
                if self.component(name).enabled]
-        if self.component("engine").enabled and self.component("engine").opt(
-                "usertask_model", False):
-            out.append("engine.usertask_model (A11 (the user-task model))")
-        model = self.component("scorer").opt("model", self.cfg.model_name)
-        if self.component("scorer").enabled and model in ("seq", "seq_q8"):
-            out.append(f"scorer.model: {model} (A15 (the seq family))")
+        scorer = self.component("scorer")
+        model = scorer.opt("model", self.cfg.model_name)
+        if scorer.enabled and model in SEQ_MODELS:
+            if self.component("retrain").enabled:
+                # the online trainer's step is the MLP's: the reference
+                # skips retrain with a warning under a seq scorer
+                out.append(f"retrain with scorer.model: {model} (the online trainer "
+                           "trains the MLP family; disable retrain)")
+            if bool(scorer.opt("fused_decision", self.cfg.fused_decision)):
+                out.append(f"scorer.fused_decision with scorer.model: {model} (a seq "
+                           "scorer has no fusable decision program)")
         mesh = self.component("mesh")
         if mesh.enabled:
             n = int(mesh.opt("devices", self.cfg.mesh_devices))
             if n != 1:
-                out.append(f"mesh.devices: {n} (A15 (multi-GPU serving); "
+                out.append(f"mesh.devices: {n} (A15b (multi-GPU serving); "
                            "1 is the single-device platform)")
         if self.cfg.graph_cr:
             out.append("CCFD_GRAPH_CR (the operator's scorer serves scorer.model; "
@@ -178,6 +196,9 @@ class Platform:
         self._overload = None   # runtime/overload.OverloadControl (router)
         self.router = None
         self.recovery = None  # CheckpointCoordinator when crash_recovery on
+        self.investigator = None  # process/investigator.InvestigatorService
+        self.usertask_model = None  # process/usertask_model.OnlineUserTaskModel
+        self._usertask_state_file = None
         self._engine_factory = None
         self._engine_state_file = None
         self._producer_done = threading.Event()
@@ -313,6 +334,11 @@ class Platform:
                 and self.engine is not None and self.router is not None):
             self._up_crash_recovery()
 
+        # 6c. the investigator simulation (the demo's Business Central
+        # humans): drains the task queue and feeds the user-task model
+        if spec.component("investigator").enabled and self.engine is not None:
+            self._up_investigator()
+
         # 7. online retrain: the OnlineTrainer's direct swap (the governed
         # rollout is the lifecycle's, refused above)
         if spec.component("retrain").enabled and self.scorer is not None:
@@ -436,6 +462,9 @@ class Platform:
         if model not in SCORER_MODELS:
             raise ValueError(f"scorer.model {model!r}: the operator serves "
                              f"{', '.join(SCORER_MODELS)}")
+        if model in SEQ_MODELS:
+            self._up_seq_scorer(model)
+            return
         params = None
         if c.opt("train_steps", 0):
             from ccfd_tpu_torch.data.ccfd import load_dataset
@@ -471,6 +500,36 @@ class Platform:
             self.prediction_port = self.prediction_server.start(
                 self.prediction_host, int(c.opt("port", 0)))
 
+    def _up_seq_scorer(self, model: str) -> None:
+        """The history-aware seq family, streamed through the router
+        (history lives where the stream is); the REST front stays row-based,
+        as in the reference."""
+        from ccfd_tpu_torch.device import resolve
+        from ccfd_tpu_torch.params import load_tree
+        from ccfd_tpu_torch.serving.history import SeqScorer
+
+        c = self.spec.component("scorer")
+        cfg = self.cfg
+        params = load_tree(SEQ_INIT)
+        if model == "seq_q8":
+            from ccfd_tpu_torch.ops.seq_quant import quantize_seq
+
+            params = quantize_seq(params)
+        self.scorer = SeqScorer(
+            params, length=int(c.opt("history_length", 64)), batch_sizes=cfg.batch_sizes,
+            compute_dtype=c.opt("dtype", cfg.compute_dtype),
+            max_customers=int(c.opt("max_customers", 20_000)),
+            registry=self._registry("seldon"),
+            stripes=int(c.opt("seq_stripes", cfg.seq_stripes)),
+            inflight=int(c.opt("seq_inflight", cfg.seq_inflight)),
+            len_buckets=tuple(c.opt("seq_len_buckets", cfg.seq_len_buckets)),
+            telemetry=self.device_telemetry, device=resolve(self.device))
+        self.scorer.warmup()
+        if self.device_telemetry is not None:
+            self.device_telemetry.register_executable_source(
+                "seq", self.scorer.executable_grid)
+        self._publish_launches(self._registry("seldon"))
+
     def _publish_launches(self, registry) -> None:
         """Scrape-time ``ccfd_kernel_launches{kernel}`` (every hand kernel's
         launches in this process) and ``ccfd_scorer_dispatches`` (the
@@ -494,13 +553,33 @@ class Platform:
         from ccfd_tpu_torch.process.prediction import ScorerPredictionService
 
         c = self.spec.component("engine")
-        pred = ScorerPredictionService(self.scorer.score) if self.scorer is not None else None
+        listener = None
+        if c.opt("usertask_model", False):
+            # the learned user-task model (the reference system's second
+            # Seldon model): trains on investigator decisions and replaces
+            # the fraud-scorer-backed prediction service
+            from ccfd_tpu_torch.process.usertask_model import OnlineUserTaskModel
+
+            self.usertask_model = OnlineUserTaskModel(
+                min_examples=int(c.opt("usertask_min_examples", 32)), device=self.device)
+            self._usertask_state_file = c.opt("usertask_state_file", "") or None
+            if self._usertask_state_file and os.path.exists(self._usertask_state_file):
+                try:
+                    self.usertask_model.load(self._usertask_state_file)
+                except Exception:  # noqa: BLE001 - unusable beyond every generation
+                    logging.getLogger(__name__).exception(
+                        "usertask state %s unusable; starting cold", self._usertask_state_file)
+            pred = self.usertask_model
+            listener = self.usertask_model.observe
+        else:
+            pred = (ScorerPredictionService(self.scorer.score)
+                    if self.scorer is not None else None)
 
         def engine_factory():
             # crash recovery rebuilds with the same wiring; the shared
             # registry keeps counters cumulative across engine epochs
             return build_engine(self.cfg, self.broker, self._registry("kie"),
-                                prediction_service=pred)
+                                prediction_service=pred, task_listener=listener)
 
         self._engine_factory = engine_factory
         self.engine = engine_factory()
@@ -512,7 +591,7 @@ class Platform:
             except Exception:  # noqa: BLE001 - corrupt beyond every generation
                 logging.getLogger(__name__).exception(
                     "engine state %s unusable; starting cold", state_file)
-        if state_file:
+        if state_file or self._usertask_state_file:
             # periodic checkpoint: a crash between saves loses at most
             # save_interval_s of process state
             from ccfd_tpu_torch.runtime.supervisor import RestartPolicy
@@ -557,14 +636,19 @@ class Platform:
         router_tracer = self._tracer("router")
         host_score_fn = None
         if self.scorer is not None:
-            score_fn = self.scorer.score
-            if self.scorer.has_host_forward:
+            from ccfd_tpu_torch.serving.history import SeqScorer
+
+            # a history-aware scorer goes in as the OBJECT, so the router
+            # detects score_with_ids and feeds it the decoded records
+            seq = isinstance(self.scorer, SeqScorer)
+            score_fn = self.scorer if seq else self.scorer.score
+            if getattr(self.scorer, "has_host_forward", False):
                 # the ladder's host tier: a numpy forward, counted per row
                 host_score_fn = self.scorer.host_score
             if self.fault_plan is not None:
                 inj = self.fault_plan.injector("scorer", reg)
                 if inj is not None:
-                    score_fn = inj.wrap_fn(score_fn)
+                    score_fn = inj.wrap(score_fn) if seq else inj.wrap_fn(score_fn)
         else:  # remote scorer over the Seldon REST contract
             from ccfd_tpu_torch.serving.client import SeldonClient
 
@@ -666,16 +750,41 @@ class Platform:
             self.engine = engine
             if self.engine_server is not None:
                 self.engine_server.engine = engine
+            if self.investigator is not None:
+                self.investigator.engine = engine
 
         self.recovery = CheckpointCoordinator(
             self.router, self.broker, self._engine_factory,
             interval_s=float(c.opt("checkpoint_interval_s", 5.0)), on_swap=on_swap,
             path=c.opt("checkpoint_file", "") or None)
+        from ccfd_tpu_torch.serving.history import SeqScorer
+
+        if isinstance(self.scorer, SeqScorer):
+            # per-customer histories are pipeline state: they reset to the
+            # cut before a rewind replays records, or the replay would
+            # append every transaction a second time
+            self.recovery.register_state("history", self.scorer.store.snapshot,
+                                         self.scorer.store.restore)
         # full-process recovery: the services have not started, so a
         # persisted cut restores here and the gap re-drives after start
         self.recovery.restore_from_disk()
         attach_engine_service(self.supervisor, self.recovery)
         self.recovery.start()
+
+    def _up_investigator(self) -> None:
+        from ccfd_tpu_torch.process.investigator import InvestigatorService
+        from ccfd_tpu_torch.runtime.supervisor import RestartPolicy
+
+        c = self.spec.component("investigator")
+        svc = InvestigatorService(
+            self.engine, self._registry("investigator"),
+            rate_per_s=float(c.opt("rate_per_s", 50.0)),
+            trust_threshold=float(c.opt("trust_threshold", 0.9)),
+            base_fraud_rate=float(c.opt("base_fraud_rate", 0.05)),
+            seed=int(c.opt("seed", 0)))
+        self.investigator = svc
+        self.supervisor.add_thread_service("investigator", svc.run, svc.stop,
+                                           policy=RestartPolicy.ALWAYS, reset=svc.reset)
 
     def _up_retrain(self) -> None:
         from ccfd_tpu_torch.parallel.online import OnlineTrainer
@@ -811,6 +920,12 @@ class Platform:
                 logging.getLogger(__name__).exception(
                     "engine state save to %s failed; process state will NOT survive a "
                     "restart", self._engine_state_file)
+        if self._usertask_state_file and self.usertask_model is not None:
+            try:
+                self.usertask_model.save(self._usertask_state_file)
+            except Exception:  # noqa: BLE001
+                logging.getLogger(__name__).exception(
+                    "user-task model save to %s failed", self._usertask_state_file)
 
     def down(self) -> None:
         if self.recovery is not None:
@@ -830,7 +945,7 @@ class Platform:
             except Exception:  # noqa: BLE001
                 pass
         if self.engine is not None:
-            if self._engine_state_file:
+            if self._engine_state_file or self._usertask_state_file:
                 self._save_engine_state()
             # silence the engine's timers: a torn-down platform's reply
             # timeouts must not fire into its closed bus (or score on its

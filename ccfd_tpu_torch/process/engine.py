@@ -30,9 +30,9 @@ machine:
   the checksummed artifact of ``runtime/durability.py``, with the
   reference's generation naming, so either package loads the other's
   snapshot. ``shutdown`` silences a decommissioned engine.
-
-The reference's ``task_listener`` (the user-task model's training hook)
-is not ported.
+- ``task_listener`` (the user-task model's training hook) is called once
+  per human ``complete_task``, after the audit flush; never for an
+  auto-completion.
 """
 
 from __future__ import annotations
@@ -184,6 +184,7 @@ class Engine:
         registry: Registry | None = None,
         prediction_service: PredictionService | None = None,
         confidence_threshold: float = 1.0,
+        task_listener: Callable[[Task], None] | None = None,
         completed_retention: int = 10_000,
         audit_sink: Callable[[dict[str, Any]], None] | None = None,
         audit_evict: bool = True,
@@ -193,6 +194,10 @@ class Engine:
         self.registry = registry or Registry()
         self.prediction_service = prediction_service
         self.confidence_threshold = confidence_threshold
+        # fired once per HUMAN complete_task (never for prediction-service
+        # auto-completions): the user-task model trains on investigator
+        # decisions only
+        self.task_listener = task_listener
         # Audit stream (jBPM's AuditService analog): lifecycle events —
         # process_started/process_completed, task_created/task_completed,
         # signal, timer_fired — reach this sink in state-change order.
@@ -635,6 +640,16 @@ class Engine:
                 self._run_from(inst, node.next)
         finally:
             self._flush_audit()
+        if self.task_listener is not None:
+            try:
+                self.task_listener(t)
+            except Exception:  # noqa: BLE001
+                # the task is completed and the process advanced; a broken
+                # observer must not fail the investigator's complete_task
+                import logging
+
+                logging.getLogger(__name__).exception(
+                    "task listener failed for task %d", t.task_id)
 
     # -- persistence (jBPM keeps process state in its engine store;
     #    here in snapshots and the checksummed state file) ---------------

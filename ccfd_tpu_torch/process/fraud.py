@@ -56,6 +56,7 @@ def build_engine(
     registry: Registry | None = None,
     clock: Clock | None = None,
     prediction_service=None,
+    task_listener=None,
 ) -> Engine:
     registry = registry or Registry()
     # CCFD_AUDIT_TOPIC turns the engine's audit stream onto the bus on
@@ -74,6 +75,7 @@ def build_engine(
         registry=registry,
         prediction_service=prediction_service,
         confidence_threshold=cfg.confidence_threshold,
+        task_listener=task_listener,
         audit_sink=audit_sink,
     )
 

@@ -14,7 +14,9 @@ The workers share the control plane:
   (on the card, one launch per bucket-sized chunk);
   ``router_coalesced_dispatches_total`` / ``router_coalesced_rows_total``
   against ``router_worker_batches_total{worker}`` show the fan-in. The
-  decision plane bypasses the batcher (its decide is the dispatch);
+  decision plane bypasses the batcher (its decide is the dispatch), and so
+  do history-aware scorers (``score_with_ids``): their per-customer state
+  keys on the decoded records, which the batcher does not carry;
 - **one in-flight budget** (or the overload plane's adaptive one): N
   workers cannot hold N times the bound;
 - **one circuit breaker** on the scorer edge, with the ladder on;
@@ -92,7 +94,8 @@ class ParallelRouter:
 
         self.batcher = None
         worker_score: Any = score_fn
-        if coalesce and workers > 1 and decision_fn is None:
+        if (coalesce and workers > 1 and decision_fn is None
+                and not callable(getattr(score_fn, "score_with_ids", None))):
             from ccfd_tpu_torch.serving.batcher import DynamicBatcher
 
             c_disp = self.registry.counter(

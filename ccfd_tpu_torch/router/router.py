@@ -56,8 +56,11 @@ edge, and the host tier too where ``host_allowed()`` is false (the storage
 pin of runtime/durability.py), down to the rules tier. Without the ladder
 a closed gate sends the batch to the rules tier.
 
-Not ported: audit and replay, commit-after-route and history-aware
-(``score_with_ids``) scorers.
+**History-aware scorers**: a ``score_fn`` with ``score_with_ids(txs, x)``
+(``serving/history.py::SeqScorer``) gets the decoded records with the
+feature matrix, as in the reference.
+
+Not ported: audit and replay, and commit-after-route.
 """
 
 from __future__ import annotations
@@ -309,7 +312,15 @@ class Router:
         self.broker = broker
         self.score = score_fn
         self.tracer = tracer
-        self._score2 = lambda x: (np.asarray(self.score(x)), None)
+        # history-aware scorers (serving/history.py SeqScorer) score each
+        # transaction against its customer's history: they expose
+        # score_with_ids(txs, x), and the router feeds them the decoded
+        # records alongside the feature matrix; plain scorers get (x,)
+        score_with_ids = getattr(score_fn, "score_with_ids", None)
+        if callable(score_with_ids):
+            self._score2 = lambda x, txs: (np.asarray(score_with_ids(txs, x)), None)
+        else:
+            self._score2 = lambda x, txs: (np.asarray(self.score(x)), None)
         self.engine = engine
         self.registry = registry or Registry()
         self.max_batch = max_batch
@@ -329,7 +340,8 @@ class Router:
                     "pass the same RuleSet instance to both")
                 decision_fn = None
             else:
-                self._score2 = decision_fn.decide
+                dec = decision_fn.decide
+                self._score2 = lambda x, txs: dec(x)
         self._decision_fn = decision_fn
         self._check_rule_targets(engine)
         self._consumer_specs = (
@@ -569,9 +581,9 @@ class Router:
                 ov = self._overload
                 if ov is not None and ov.dispatch_deadline_s > 0:
                     # the dispatch watchdog: a hung dispatch raises here
-                    proba, fired = ov.bounded_dispatch(lambda: self._score2(x))
+                    proba, fired = ov.bounded_dispatch(lambda: self._score2(x, txs))
                 else:
-                    proba, fired = self._score2(x)
+                    proba, fired = self._score2(x, txs)
                 lat = time.perf_counter() - t0
                 # a reply of the wrong shape or with non-finite values is an
                 # edge failure, not a decision
@@ -616,7 +628,7 @@ class Router:
                 span.attrs["degraded"] = "rules"
             self._c_degraded.inc(len(txs), labels={"tier": "rules"})
             return self._rules_proba(x), None
-        return self._score2(x)
+        return self._score2(x, txs)
 
     def _score_batch(self, x: np.ndarray, txs: list, batch_span=None) -> tuple:
         if batch_span is not None:

@@ -155,6 +155,15 @@ class AdaptiveInflightBudget(InflightBudget):
                     self._set_gauges_locked()
 
 
+class OverloadShed(RuntimeError):
+    """Work refused or dropped by the overload plane. Carries the
+    retry-after hint the REST fronts surface on a 429."""
+
+    def __init__(self, msg: str, retry_after_s: float = 0.1):
+        super().__init__(msg)
+        self.retry_after_s = float(retry_after_s)
+
+
 class DeadlinePolicy:
     """Drop-from-front when sojourn exceeds ``target_s`` times the class's
     scale (bulk 1x, normal 2x, critical 4x)."""

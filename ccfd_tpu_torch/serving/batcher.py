@@ -1,8 +1,7 @@
 """Dynamic request batching: concurrent predicts coalesce into one dispatch.
 
-The port's copy of ccfd_tpu/serving/batcher.py without the overload policy
-(CoDel shedding and the bounded priority queue come with the overload
-slice). Policy (adaptive, not a fixed delay):
+The port's copy of ccfd_tpu/serving/batcher.py. Policy (adaptive, not a
+fixed delay):
 
 - The worker blocks until at least one request is queued, then drains
   whatever else is ALREADY waiting — a lone sequential client therefore
@@ -23,6 +22,23 @@ to dispatch, the scorer pads the result to a bucket.
 With a ``profiler`` (observability/profile.py) each coalesced dispatch
 feeds ``<profile_stage>.batcher`` (the row-weighted queue sojourn) and
 ``<profile_stage>.dispatch`` (the score call), as the reference's does.
+
+Overload policy (runtime/overload.py; both knobs default off, an
+unbounded FIFO queue):
+
+- ``codel`` (a ``DeadlinePolicy``) drops stale requests FROM THE FRONT at
+  dispatch-assembly time: a request whose queue sojourn exceeds its
+  priority class's target fails with ``OverloadShed`` (the REST front maps
+  it to 429 + retry-after) instead of reaching the device.
+- ``max_queue_rows`` bounds the queue with priority-aware eviction: an
+  arrival past the bound evicts queued LOWER-priority work (front first)
+  to make room, or, when the arrival is itself the cheapest, is refused
+  synchronously with ``OverloadShed``. A lone request larger than the
+  bound is admitted into an empty queue.
+
+``on_shed(rows, priority)`` is called once per shed decision. Entries are
+``(x, future, enqueue_ts, priority)``; ``dispatches``, ``rows`` and
+``shed_rows`` count the batcher's work.
 """
 
 from __future__ import annotations
@@ -43,20 +59,36 @@ class DynamicBatcher:
         deadline_ms: float = 2.0,
         on_dispatch: Callable[[int], None] | None = None,
         workers: int = 1,
+        codel: "object | None" = None,
+        max_queue_rows: int = 0,
+        on_shed: Callable[[int, int], None] | None = None,
         profiler: "object | None" = None,
         profile_stage: str = "rest",
     ):
         self._score = score_fn
+        # stage profiler (observability/profile.py): per coalesced
+        # dispatch, feed the queue-sojourn / device-dispatch split under
+        # "<profile_stage>.batcher" / "<profile_stage>.dispatch" — the
+        # measured layers of the REST latency-budget ledger
         self._profiler = profiler
         self._stage_queue = f"{profile_stage}.batcher"
         self._stage_dispatch = f"{profile_stage}.dispatch"
         self.max_batch = max_batch
         self.deadline_s = max(0.0, deadline_ms) / 1e3
         self._on_dispatch = on_dispatch
-        # entries: (x, future, enqueue_ts)
-        self._queue: list[tuple[np.ndarray, Future, float]] = []
+        # entries: (x, future, enqueue_ts, priority)
+        self._queue: list[tuple[np.ndarray, Future, float, int]] = []
+        self._queued_rows = 0
+        self._codel = codel
+        self._max_queue_rows = int(max_queue_rows)
+        self._on_shed = on_shed  # (rows, priority) per shed decision
         self._cv = threading.Condition()
+        self._stats_mu = threading.Lock()  # shed_rows: updated from both
+        # submit (client) threads and worker threads, with/without _cv
         self._stop = False
+        self.dispatches = 0  # observability: how many score calls happened
+        self.rows = 0
+        self.shed_rows = 0
         self._threads = [
             threading.Thread(target=self._run, daemon=True, name=f"ccfd-batcher-{i}")
             for i in range(max(1, workers))
@@ -65,20 +97,93 @@ class DynamicBatcher:
             t.start()
 
     # -- client side -------------------------------------------------------
-    def submit(self, x: np.ndarray) -> "Future[np.ndarray]":
-        """Enqueue a (n, F) request; the future resolves to its (n,) slice."""
+    def submit(self, x: np.ndarray, priority: int = 1) -> "Future[np.ndarray]":
+        """Enqueue a (n, F) request; the future resolves to its (n,) slice.
+        Raises :class:`~ccfd_tpu_torch.runtime.overload.OverloadShed` when the
+        bounded queue refuses the request (overload admission)."""
         x = np.ascontiguousarray(x, np.float32)
         f: "Future[np.ndarray]" = Future()
+        n = x.shape[0]
+        shed: list[tuple[np.ndarray, Future, float, int]] = []
         with self._cv:
             if self._stop:
                 raise RuntimeError("batcher is stopped")
-            self._queue.append((x, f, time.perf_counter()))
+            if (self._max_queue_rows
+                    and self._queued_rows + n > self._max_queue_rows):
+                if self._queued_rows == 0:
+                    pass  # idle-pass (the gate's rule): a lone oversize
+                    # request runs alone rather than starving forever
+                else:
+                    # feasibility FIRST: evicting queued serviceable work
+                    # is only justified when it actually makes the
+                    # arrival fit — otherwise refuse the arrival and
+                    # destroy nothing
+                    evictable = sum(
+                        e[0].shape[0] for e in self._queue
+                        if e[3] < priority)
+                    if (self._queued_rows - evictable + n
+                            > self._max_queue_rows):
+                        self._shed_arrival(n, priority)
+                    shed = self._evict_locked(n, priority)
+            self._queue.append((x, f, time.perf_counter(), priority))
+            self._queued_rows += n
             self._cv.notify()
+        self._fail_shed(shed)
         return f
 
-    def score(self, x: np.ndarray) -> np.ndarray:
+    def _shed_arrival(self, n: int, priority: int):
+        """Refuse the arriving request itself (counted, synchronous)."""
+        with self._stats_mu:
+            self.shed_rows += n
+        if self._on_shed is not None:
+            self._on_shed(n, priority)
+        from ccfd_tpu_torch.runtime.overload import OverloadShed
+
+        raise OverloadShed("serving batcher queue full")
+
+    def _evict_locked(self, need_rows: int, priority: int):
+        """Caller holds ``self._cv``. Pop queued entries of LOWER priority
+        (front first — the oldest, closest to going stale anyway) until
+        ``need_rows`` fit; returns the evictees for the caller to fail
+        outside the lock."""
+        shed = []
+        i = 0
+        while (self._queued_rows + need_rows > self._max_queue_rows
+               and i < len(self._queue)):
+            if self._queue[i][3] < priority:
+                entry = self._queue.pop(i)
+                self._queued_rows -= entry[0].shape[0]
+                shed.append(entry)
+            else:
+                i += 1
+        return shed
+
+    def _fail_shed(self, shed) -> None:
+        if not shed:
+            return
+        from ccfd_tpu_torch.runtime.overload import OverloadShed
+
+        for x, f, _enq, pri in shed:
+            # dedicated stats lock: submit threads and batcher workers
+            # both shed, and a lost += here would undercount the shed
+            # accounting the SLO harness gates on
+            with self._stats_mu:
+                self.shed_rows += x.shape[0]
+            if self._on_shed is not None:
+                self._on_shed(x.shape[0], pri)
+            if not f.done():
+                f.set_exception(OverloadShed(
+                    "shed from the serving queue for higher-priority work"))
+
+    def score(self, x: np.ndarray, priority: int = 1) -> np.ndarray:
         """Synchronous convenience: submit + wait."""
-        return self.submit(x).result()
+        return self.submit(x, priority=priority).result()
+
+    def qsize(self) -> int:
+        """Requests currently queued (not yet taken by a worker) — the
+        public depth surface monitoring probes read."""
+        with self._cv:
+            return len(self._queue)
 
     # -- worker ------------------------------------------------------------
     def _take_first(self) -> list:
@@ -87,6 +192,7 @@ class DynamicBatcher:
                 self._cv.wait()
             batch = self._queue
             self._queue = []
+            self._queued_rows = 0
             return batch
 
     def _drain_locked(self, room: int) -> list:
@@ -100,29 +206,53 @@ class DynamicBatcher:
             if x.shape[0] > room:
                 break
             take.append(self._queue.pop(0))
+            self._queued_rows -= x.shape[0]
             room -= x.shape[0]
         return take
+
+    def _shed_stale(self, batch: list) -> list:
+        """CoDel-style deadline policy at dispatch assembly: entries whose
+        queue sojourn exceeds their class target drop FROM THE FRONT (the
+        queue is FIFO, so stale entries are the head) and fail with
+        OverloadShed; fresh work behind them still makes the dispatch."""
+        if self._codel is None or not batch:
+            return batch
+        now = time.perf_counter()
+        # head-first cheap check: fresh head == fresh batch
+        if now - batch[0][2] <= self._codel.target_s:
+            return batch
+        kept: list = []
+        shed: list = []
+        for entry in batch:
+            if self._codel.should_drop(now - entry[2], entry[3]):
+                shed.append(entry)
+            else:
+                kept.append(entry)
+        self._fail_shed(shed)
+        return kept
 
     def _run(self) -> None:
         while True:
             batch = self._take_first()
             if self._stop and not batch:
                 return
-            size = sum(x.shape[0] for x, _f, _e in batch)
+            size = sum(x.shape[0] for x, _f, _e, _p in batch)
             # company in the queue at grab time = concurrency: keep
             # collecting toward the deadline. Lone request: dispatch now.
             if len(batch) > 1 and self.deadline_s > 0:
                 deadline = time.perf_counter() + self.deadline_s
                 # grace: how long to wait for the NEXT arrival before
-                # giving up, so merged requests are not parked for the
-                # whole deadline once arrivals dry up
+                # giving up. Waiting out the whole deadline after arrivals
+                # dry up just parks every merged request for the residual —
+                # with a bounded client pool the queue drains in one sweep
+                # and nothing else is coming for a full round trip.
                 grace = self.deadline_s / 8.0
                 with self._cv:
                     while size < self.max_batch and not self._stop:
                         more = self._drain_locked(self.max_batch - size)
                         if more:
                             batch.extend(more)
-                            size += sum(x.shape[0] for x, _f, _e in more)
+                            size += sum(x.shape[0] for x, _f, _e, _p in more)
                             continue
                         if self._queue:
                             break  # head doesn't fit: give it its own dispatch
@@ -133,41 +263,44 @@ class DynamicBatcher:
                             timeout=min(grace, remaining)
                         ):
                             break
+            batch = self._shed_stale(batch)
             if batch:
                 self._dispatch(batch)
 
     def _dispatch(self, batch: list) -> None:
-        xs = [x for x, _f, _e in batch]
+        xs = [x for x, _f, _e, _p in batch]
         n_rows = int(sum(x.shape[0] for x in xs))
         t0 = time.perf_counter()
         if self._profiler is not None:
-            # queue sojourn up to dispatch assembly, row-weighted mean
-            wait = sum((t0 - e) * x.shape[0] for x, _f, e in batch) / max(1, n_rows)
-            self._profiler.observe(self._stage_queue, queue_s=wait, rows=n_rows)
+            # queue sojourn up to dispatch assembly, row-weighted mean —
+            # the "batcher_wait" layer of the REST budget ledger
+            wait = sum((t0 - e) * x.shape[0]
+                       for x, _f, e, _p in batch) / max(1, n_rows)
+            self._profiler.observe(self._stage_queue, queue_s=wait,
+                                   rows=n_rows)
         try:
             proba = self._score(np.concatenate(xs) if len(xs) > 1 else xs[0])
         except Exception as e:  # noqa: BLE001 - fail the batch, not the worker
-            for _x, f, _e2 in batch:
+            for _x, f, _e2, _p in batch:
                 if not f.cancelled():
                     f.set_exception(e)
             return
         if self._profiler is not None:
-            self._profiler.observe(self._stage_dispatch,
-                                   dispatch_s=time.perf_counter() - t0,
-                                   batch=n_rows, rows=n_rows)
+            self._profiler.observe(
+                self._stage_dispatch,
+                dispatch_s=time.perf_counter() - t0,
+                batch=n_rows, rows=n_rows)
+        with self._cv:  # workers share the stats; += alone would race
+            self.dispatches += 1
+            self.rows += n_rows
         if self._on_dispatch is not None:
             self._on_dispatch(n_rows)
         off = 0
-        for x, f, _e in batch:
+        for x, f, _e, _p in batch:
             n = x.shape[0]
             if not f.cancelled():
                 f.set_result(np.asarray(proba[off : off + n]))
             off += n
-
-    def qsize(self) -> int:
-        """Requests currently queued (the operator's memory probe)."""
-        with self._cv:
-            return len(self._queue)
 
     def stop(self) -> None:
         with self._cv:
@@ -179,6 +312,7 @@ class DynamicBatcher:
         with self._cv:
             leftovers = self._queue
             self._queue = []
-        for _x, f, _e in leftovers:
+            self._queued_rows = 0
+        for _x, f, _e, _p in leftovers:
             if not f.done():
                 f.set_exception(RuntimeError("batcher stopped"))

@@ -30,7 +30,8 @@ port of ccfd_tpu/serving/scorer.py's ``Scorer``.
   ``telemetry`` plane (observability/device.py) every staging copy is
   bracketed by CUDA events and its bytes and time recorded once the
   dispatch has synchronized (two copies on the int8 wire, q and scale, as
-  the reference's two puts).
+  the reference's two puts); ``telemetry=None`` takes the process default
+  (``observability/device.set_default``), as in the reference.
 - **Every request dispatches to the device.** The reference's host latency
   tier (small requests scored in numpy on accelerator backends), its host
   fallback while the device is wedged, and its drop to the XLA graph on a
@@ -98,8 +99,21 @@ class Scorer:
         telemetry: Any = None,
     ):
         self.device = resolve(device)
+        if telemetry is None:
+            # the process default (observability/device.set_default), as
+            # the reference's Scorer resolves it
+            from ccfd_tpu_torch.observability import device as _device
+
+            telemetry = _device.get_default()
         self.telemetry = telemetry  # observability/device.DeviceTelemetry
         self.spec: ModelSpec = get_model(model_name)
+        if self.spec.name in ("seq", "seq_q8"):
+            # the reference's row Scorer fails on these at its first
+            # dispatch; the port names the layer that serves them
+            raise ValueError(
+                f"model {model_name!r} scores (B, L, F) histories: it serves through "
+                "serving/history.py::SeqScorer (the operator's scorer.model), not the "
+                "row Scorer")
         self.num_features = num_features
         self.batch_sizes = tuple(sorted({int(b) for b in batch_sizes}))
         self.compute_dtype = _DTYPES.get(compute_dtype, torch.float32)

@@ -19,8 +19,15 @@ scorer. The port of ccfd_tpu/serving/server.py's ``PredictionServer``.
   (``runtime/overload.py::AdmissionGate``) by the priority in its
   ``x-ccfd-priority`` header (bulk refused at 50% utilization, normal at
   90%, critical at 100%); a refusal answers 429 with ``Retry-After``,
-  counted in ``ccfd_admission_total`` and ``ccfd_shed_total``. The
-  batcher's CoDel and bounded priority queue are not ported.
+  counted in ``ccfd_admission_total`` and ``ccfd_shed_total``.
+- The batcher's overload queue (Python transport only, as in the
+  reference): CCFD_OVERLOAD_SERVE_CODEL_TARGET_MS > 0 drops requests whose
+  queue sojourn passed their class's target (bulk 1x, normal 2x, critical
+  4x) at dispatch assembly, and CCFD_OVERLOAD_REST_QUEUE_ROWS > 0 bounds
+  the queue, evicting lower-priority work first; a shed request answers
+  429, and its rows count in ``ccfd_shed_total{priority, stage="batcher"}``.
+  The native front's C++ queue takes the batcher's place and admits every
+  canonical request at normal priority, without these policies.
 - A ``ScorerTimeout`` (the Scorer's dispatch deadline expired, or the
   device is still marked wedged) answers 503, as in the reference.
   ``DeadlineCounters`` folds the Scorer's ``dispatch_timeouts`` into
@@ -154,19 +161,41 @@ class PredictionServer:
             self._c_dispatches.inc()
             self._c_batched_rows.inc(n_rows)
 
+        codel = None
+        max_queue_rows = 0
+        on_shed = None
+        if self.cfg.overload_enabled:
+            # CoDel-style queue policy + priority-aware bounded queue; both
+            # default off through their Config knobs
+            from ccfd_tpu_torch.runtime import overload
+
+            if self.cfg.overload_serve_codel_target_ms > 0:
+                codel = overload.DeadlinePolicy(self.cfg.overload_serve_codel_target_ms / 1e3)
+            max_queue_rows = self.cfg.overload_rest_queue_rows
+            if codel is not None or max_queue_rows:
+                c_shed = overload._shed_counter(self.registry)
+
+                def on_shed(rows: int, priority: int) -> None:
+                    c_shed.inc(rows, labels={
+                        "priority": overload.PRIORITY_NAMES.get(priority, "normal"),
+                        "stage": "batcher"})
+
         return DynamicBatcher(
             self.scorer.score,
             max_batch=max(self.scorer.batch_sizes),
             deadline_ms=self.cfg.batch_deadline_ms,
             on_dispatch=on_dispatch,
             workers=self.cfg.batch_workers,
+            codel=codel,
+            max_queue_rows=max_queue_rows,
+            on_shed=on_shed,
             profiler=self.profiler,
         )
 
     # -- scoring ----------------------------------------------------------
-    def _score_matrix(self, x: np.ndarray) -> np.ndarray:
+    def _score_matrix(self, x: np.ndarray, priority: int = 1) -> np.ndarray:
         if self.batcher is not None:
-            proba = self.batcher.score(x)
+            proba = self.batcher.score(x, priority=priority)
         else:
             proba = self.scorer.score(x)
         if x.shape[0]:
@@ -186,8 +215,9 @@ class PredictionServer:
             "meta": {"model": model},
         }
 
-    def predict_ndarray(self, names: list[str], rows: list[list[float]]) -> dict:
-        proba = self._score_matrix(self.rows_matrix(names, rows))
+    def predict_ndarray(self, names: list[str], rows: list[list[float]],
+                        priority: int = 1) -> dict:
+        proba = self._score_matrix(self.rows_matrix(names, rows), priority=priority)
         return self._response_dict(proba, self.scorer.spec.name)
 
     def rows_matrix(self, names: list[str], rows: list[list[float]]) -> np.ndarray:
@@ -276,21 +306,26 @@ class PredictionServer:
                 x = self.rows_matrix(data.get("names") or [], rows)
             except (TypeError, ValueError) as e:
                 return self._json(400, {"error": f"bad ndarray: {e}"})
-        gate = self.admission
-        if gate is not None:
-            from ccfd_tpu_torch.runtime.overload import parse_priority
+        from ccfd_tpu_torch.runtime.overload import OverloadShed, parse_priority
 
+        gate = self.admission
+        pri = 1
+        if gate is not None:
+            pri = parse_priority(headers.get(b"x-ccfd-priority"))
             n_rows = x.shape[0]
-            if not gate.try_admit(n_rows, parse_priority(headers.get(b"x-ccfd-priority"))):
+            if not gate.try_admit(n_rows, pri):
                 return self._reject_overload(gate.retry_after_s)
         t_sc = time.perf_counter()
         try:
             # a scorer or kernel error propagates: the transport answers 500
-            proba = self._score_matrix(x)
+            proba = self._score_matrix(x, priority=pri)
         except ScorerTimeout as e:
             # the dispatch deadline expired or the device is wedged: a
             # bounded 503, not a hung request
             return self._json(503, {"error": f"scoring unavailable: {e}"})
+        except OverloadShed as e:
+            # the batcher's queue policy shed the request
+            return self._reject_overload(e.retry_after_s)
         finally:
             if gate is not None:
                 gate.release(n_rows)

@@ -6,8 +6,9 @@ trip into serving, the REST scorer, the decision plane, the decision
 pipeline of ``python -m ccfd_tpu_torch demo`` with and without its online
 trainer, the service roles as separate processes, and the reference's
 other Seldon models: logreg/modelfull, the tree family, the inference
-graph and the ``score`` command) and holds each CUDA kernel against its
-plain PyTorch version. Each kernel's ``launches`` in the
+graph and the ``score`` command, the seq family with its history store, the
+user-task model and the investigator) and holds each CUDA kernel against
+its plain PyTorch version. Each kernel's ``launches`` in the
 kernels line sum the runs of the paths through it (train, serve, demo and
 services; in each role process, its dispatches, read off its scrape). The
 kernels: B1
@@ -78,7 +79,17 @@ wire).
            200 sequential requests, launches = dispatches each time: with
            CCFD_NATIVE_FRONT=0 (the Python transport), and with
            CCFD_DISPATCH_DEADLINE_MS=1000, where every request's dispatch
-           runs on the deadline's dispatcher thread and none times out
+           runs on the deadline's dispatcher thread and none times out;
+           (e) `serve` on B1 with CCFD_NATIVE_FRONT=0,
+           CCFD_OVERLOAD_SERVE_CODEL_TARGET_MS=2,
+           CCFD_OVERLOAD_REST_QUEUE_ROWS=4096 and one batcher worker under
+           1,920 16-row POSTs from 32 clients in turn bulk, normal and
+           critical (x-ccfd-priority): every answer held against B1's plain
+           version, launches = dispatches, the batcher shed bulk rows, and
+           no inversion (a dropped request of one class while a request of
+           a lower class that waited at least as long was kept, or an
+           arrival refused while lower-class rows were queued); the
+           per-class answers, 429s and p50/p99, and the sheds by stage
   decision the decision plane (serving/fused.py FusedDecisionScorer) over
            a Scorer on each kernel (B1; B3 on the int8 wire; B2 on the f32
            wire) with two rule bases (the FRAUD_THRESHOLD default and a JSON
@@ -214,6 +225,50 @@ wire).
                queue, decode and route service and score dispatch, the H2D
                copies' device time apart from host work, and the card's
                busy share from a device-only torch.profiler trace
+  seq      the seq family (models/seq.py, ops/seq_quant.py,
+           serving/history.py), torch code on the card (the reference leaves
+           it to XLA; no hand kernel):
+           (a) apply_serving of assets/seq_init.npz (the reference operator's
+               params) for seq in f32 (TF32 off) and bf16 and seq_q8, B in
+               {1,16,128,1024,4096} at L=64 and L in {1,8} at B=1,024
+               (pos_length 64), against the port's CPU path on the same
+               rows within SEQ_TOL, and on the reference's golden rows
+               (assets/seq_golden.npz) within the same bars; seq_q8's int32
+               accumulators for every dense layer bit-equal to the CPU's;
+           (b) for seq (bf16) and seq_q8 at each shape of (a) and B=16,384:
+               ms a call (CUDA events around 100 calls), the bound (dense
+               operations over the bf16 or int8 peak and the attention's
+               over the bf16 peak, against bytes over the memory rate) and
+               its share, and the card's busy share from a device-only trace;
+           (c) the operator (the port's CR: scorer.model seq, then seq_q8,
+               history_length 64; retrain, producer and investigator off;
+               engine crash recovery on a durable bus): 20,000 records of
+               1,000 seeded customers keyed by customer, an engine failure
+               after 10,000: every transaction started once, no hand-kernel
+               launch, /debug/device's seq grid, the store after the restore
+               equal to one pass of the records without the failure, the
+               served p of 64 sampled customers against the CPU on the
+               histories the store holds; tx/s, decision p50/p99 against 10
+               ms, history assembly against dispatch, the card's busy share
+  tasks    (a) the user-task model on the card and on the CPU from one
+               init over 200 seeded human completions: after every fit the
+               params and the confidence within 1e-5 (TF32 off); predict
+               p50/p99 and fit ms by bucket;
+           (b) the operator (the port's CR) with the investigator,
+               engine.usertask_model and usertask_state_file, 20,000
+               producer transactions and then 5,000 more once the model
+               trained, under TASK_ENV (FRAUD_THRESHOLD=0.0 and more, named
+               there): investigations opened, the investigator's completions
+               by outcome, the model trained on the human decisions only
+               (no auto-closed task observed), tasks of the second wave
+               auto-closed and pre-filled, B1's launches = the router's
+               dispatches (the prediction service is the model, not B1),
+               and down() then up() on the state file restoring trained and
+               the params bit for bit;
+           (c) while (b)'s first queue is open: `python -m ccfd_tpu_torch
+               tasks` lists the open tasks, `tasks --complete ID --outcome
+               rejected` completes one, `investigate` works the queue for 5
+               s over the engine REST and completes tasks
   models   the reference's other Seldon models, torch code on the card (no
            hand kernel: the reference leaves them to XLA):
            (a) card against CPU, the same port function, B=16 and 16,384:
@@ -272,7 +327,7 @@ import time
 import urllib.request
 
 PHASES = ("device", "build", "parity", "train", "serve", "decision", "demo", "services",
-          "platform", "models", "timing")
+          "platform", "seq", "tasks", "models", "timing")
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 7
 PARITY_BATCHES = (1, 16, 100, 1024, 16384)
@@ -387,6 +442,46 @@ ROUTED_CR = {"metadata": {"name": "smoke-routed"}, "spec": {"predictors": [{"gra
          "parameters": [{"name": "lo", "value": "-50", "type": "FLOAT"},
                         {"name": "hi", "value": "500", "type": "FLOAT"}],
          "children": [{"name": "modelfull", "type": "MODEL"}]}]}}]}}
+# serve (e): the batcher's CoDel target and bounded queue on the Python
+# transport, one batcher worker, under a burst of OVERLOAD_CLIENTS clients
+OVERLOAD_ENV = {"CCFD_NATIVE_FRONT": "0", "CCFD_OVERLOAD_SERVE_CODEL_TARGET_MS": "2",
+                "CCFD_OVERLOAD_REST_QUEUE_ROWS": "4096", "CCFD_BATCH_WORKERS": "1"}
+OVERLOAD_CLIENTS = 32
+OVERLOAD_POSTS = 60  # 16-row POSTs a client
+PRIORITIES = ("bulk", "normal", "critical")
+# seq: (a) and (b)'s shapes, the operator's stream
+SEQ_L = 64  # the operator's history_length and every forward's pos_length
+SEQ_B = (1, 16, 128, 1024, 4096)
+SEQ_SHORT_L = (1, 8)  # short windows of a 64-long history
+SEQ_SHORT_B = 1024
+SEQ_CPU_ROWS = 256  # of each (a) batch, scored on the CPU too
+# card vs the port's CPU path (and vs the reference's golden p), max |dp|:
+# f32 with TF32 off, summation order only; bf16, a bf16 rounding of a sum
+# near its boundary flips between the two orders; seq_q8, an ulp apart
+# before a token's rint(h / s) moves it to the next integer
+SEQ_TOL = {"f32": 1e-4, "bf16": 2e-2, "q8": 3e-2}
+SEQ_CALLS = 100
+SEQ_OP_ROWS = 20_000
+SEQ_CUSTOMERS = 1_000
+SEQ_SAMPLED = 64
+# tasks: the user-task model and the investigator
+TASK_COMPLETIONS = 200
+TASK_PREDICTS = 500
+TASK_ROWS = 20_000
+TASK_SECOND_ROWS = 5_000  # after the model's first fit
+TASK_SETTLE_S = 2.0
+TASK_MIN_TASKS = 200
+TASK_RATE = 400.0  # the investigator's completions a second
+TASK_INVESTIGATE_S = 5
+# FRAUD_THRESHOLD=0.0 routes every transaction to the fraud process; a
+# customer who does not reply within 1 s goes to the DMN, which opens an
+# investigation unless the amount is under CCFD_LOW_AMOUNT=75 and p under
+# CCFD_LOW_PROBA=1.01 (so the amount alone decides: ~380 of the first
+# 20,000 surrogate rows; the reference's 200 would open ~46); the model
+# auto-closes a task at CONFIDENCE_THRESHOLD=0.6 (its weighted loss keeps
+# its confidence near the class balance)
+TASK_ENV = {"FRAUD_THRESHOLD": "0.0", "CCFD_LOW_AMOUNT": "75", "CCFD_LOW_PROBA": "1.01",
+            "CONFIDENCE_THRESHOLD": "0.6", "CCFD_REPLY_TIMEOUT_S": "1.0"}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12  # float32 outside the tensor cores, NVIDIA data sheet
 BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, NVIDIA data sheet
@@ -1443,6 +1538,7 @@ class Smoke:
                         self.q8_params("random"))
         self.serve_path("fused_mlp_q8", {"CCFD_MODEL": "mlp_q8", "CCFD_Q8_WIRE": "f32"},
                         q8_plain, self.q8_params("random"))
+        self.serve_overload()
 
     def serve_path(self, kernel: str, env: dict, plain_of, swap_to: dict) -> None:
         """One serving path over REST: ``build_server`` with the config
@@ -3361,6 +3457,729 @@ class Smoke:
         wide = cases(kp, kq_wide, b)
         for name in ("fused_mlp_q8", "fused_mlp_q8_preq"):
             run(name, wide[name], b, 1040, "H=1040", profile=False)
+
+    # -- serve (e): the batcher's CoDel and bounded priority queue ---------
+    def serve_overload(self) -> None:
+        """(e) ``serve`` on the Python transport with CoDel and the bounded
+        priority queue armed (OVERLOAD_ENV), under a burst of 16-row POSTs
+        from OVERLOAD_CLIENTS clients in mixed classes: every answer held
+        against B1's plain version, B1's launches = the scorer's
+        dispatches, bulk shed by the batcher, and no shed of a class while
+        a lower class's rows that waited as long stayed queued or were kept
+        (an inversion). Returns B1's launches."""
+        import http.client
+
+        import numpy as np
+
+        from ccfd_tpu_torch.cli import build_server
+        from ccfd_tpu_torch.config import Config
+        from ccfd_tpu_torch.ops import fused_mlp
+
+        tag = "serve (e) overload"
+        kp = self.kernel_params("checkpoint")
+
+        def plain(x):
+            return fused_mlp.fused_mlp_reference(
+                kp, self.torch.from_numpy(x).to(self.torch.bfloat16).to(self.dev))
+
+        srv = build_server(Config.from_env({**os.environ, **OVERLOAD_ENV}), device="cuda")
+        b = srv.batcher
+        if srv.transport != "python" or b._codel is None or b._max_queue_rows != 4096:
+            raise AssertionError(f"{tag}: not the Python transport with CoDel and the bound")
+        inv = {"older_lower_kept": 0, "fresher_lower_kept": 0, "assemblies_shedding": 0,
+               "refused_over_lower": 0}
+        shed_stale = b._shed_stale
+        codel_drop = threading.local()
+
+        def watched_shed_stale(batch):
+            codel_drop.on = True
+            try:
+                kept = shed_stale(batch)
+            finally:
+                codel_drop.on = False
+            ids = {id(e) for e in kept}
+            dropped = [e for e in batch if id(e) not in ids]
+            if dropped:
+                inv["assemblies_shedding"] += 1
+            for d in dropped:  # entry: (x, future, enqueue_ts, priority)
+                for k in kept:
+                    if k[3] < d[3]:
+                        inv["older_lower_kept" if k[2] <= d[2] else "fresher_lower_kept"] += 1
+            return kept
+
+        b._shed_stale = watched_shed_stale
+        on_shed = b._on_shed
+
+        def watched_on_shed(rows, pri):
+            # an arrival refused by the bound: lower-class rows still queued
+            # would be an inversion (the condition is an RLock); CoDel's
+            # drops are judged above, by their sojourns
+            if not getattr(codel_drop, "on", False):
+                with b._cv:
+                    if any(e[3] < pri for e in b._queue):
+                        inv["refused_over_lower"] += 1
+            on_shed(rows, pri)
+
+        b._on_shed = watched_on_shed
+        counters = self.counters()
+        port = srv.start("127.0.0.1", 0)
+        results: list = []
+        errs: list = []
+        go = threading.Event()
+
+        def client(i: int) -> None:
+            try:
+                conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+                go.wait()
+                for j in range(OVERLOAD_POSTS):
+                    pri = PRIORITIES[(i + j) % len(PRIORITIES)]
+                    x = self.rows[((i * OVERLOAD_POSTS + j) * 16) % 19_984:][:16]
+                    body = json.dumps({"data": {"ndarray": x.tolist()}})
+                    t0 = time.perf_counter()
+                    conn.request("POST", "/api/v0.1/predictions", body,
+                                 {"Content-Type": "application/json", "x-ccfd-priority": pri})
+                    resp = conn.getresponse()
+                    out = json.loads(resp.read())
+                    results.append((pri, resp.status, time.perf_counter() - t0, x, out))
+                conn.close()
+            except Exception as e:  # noqa: BLE001 - re-raised below
+                errs.append(e)
+
+        try:
+            for c in counters.values():
+                c.reset()
+            d0 = srv.scorer.dispatch_total()
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(OVERLOAD_CLIENTS)]
+            for t in threads:
+                t.start()
+            t0 = time.perf_counter()
+            go.set()
+            for t in threads:
+                t.join(timeout=300)
+            wall = time.perf_counter() - t0
+            launched = {k: c.value for k, c in counters.items()}
+            dispatched = srv.scorer.dispatch_total() - d0
+            m = scrape(f"http://127.0.0.1:{port}/prometheus")
+        finally:
+            srv.stop()
+        if errs or any(t.is_alive() for t in threads):
+            raise AssertionError(f"{tag}: clients failed: {errs[:3]}")
+        answered = {p: 0 for p in PRIORITIES}
+        refused = {p: 0 for p in PRIORITIES}
+        lat = {p: [] for p in PRIORITIES}
+        dp_max = 0.0
+        for pri, status, dt, x, out in results:
+            if status == 200:
+                p = np.asarray(out["data"]["ndarray"], np.float64)[:, 1]
+                dp_max = max(dp_max, rest_check("fused_mlp_bf16", plain, x, p,
+                                                f"{tag} {pri} answer")[0])
+                answered[pri] += 1
+                lat[pri].append(dt * 1e3)
+            elif status == 429:
+                refused[pri] += 1
+            else:
+                raise AssertionError(f"{tag}: HTTP {status}: {out}")
+        shed = {(p, s): m.get(f'ccfd_shed_total{{priority="{p}",stage="{s}"}}', 0.0)
+                for p in PRIORITIES for s in ("batcher", "rest")}
+        n = OVERLOAD_CLIENTS * OVERLOAD_POSTS
+        log(tag, f"{n} POSTs of 16 rows from {OVERLOAD_CLIENTS} clients in {wall:.3f} s "
+            f"({n * 16 / wall:.1f} rows/s); answered {answered}, 429 {refused}; rows shed "
+            f"by the batcher {({p: shed[(p, 'batcher')] for p in PRIORITIES})}, by the REST "
+            f"gate {({p: shed[(p, 'rest')] for p in PRIORITIES})}; answers vs plain max|dp| "
+            f"{dp_max:.3e}; launches {launched}, dispatches {dispatched}; inversions "
+            f"{inv} on {self.card}")
+        for p in PRIORITIES:
+            if lat[p]:
+                log(tag, f"{p}: {answered[p]} answered, latency {quantiles(np.sort(lat[p]))}")
+        if sum(answered.values()) + sum(refused.values()) != n:
+            raise AssertionError(f"{tag}: {len(results)} answers for {n} POSTs")
+        if shed[("bulk", "batcher")] <= 0:
+            raise AssertionError(f"{tag}: the batcher shed no bulk rows: the burst did not "
+                                 "pass what the path serves")
+        if inv["older_lower_kept"] or inv["refused_over_lower"]:
+            raise AssertionError(f"{tag}: priority inversions {inv}")
+        others = {k: v for k, v in launched.items() if k != "fused_mlp_bf16" and v}
+        if launched["fused_mlp_bf16"] != dispatched or not dispatched or others:
+            raise AssertionError(f"{tag}: launches {launched} for {dispatched} dispatches")
+        self.reports["fused_mlp_bf16"]["launches"] += launched["fused_mlp_bf16"]
+
+    # -- seq: the history-aware family (torch code, no hand kernel) --------
+    def seq(self) -> None:
+        """The seq family on the card: (a) parity against the port's CPU
+        path and the reference's golden rows, (b) timing against the bound,
+        (c) the operator with ``scorer.model: seq`` and ``seq_q8``."""
+        self.seq_parity()
+        self.seq_timing()
+        for model in ("seq", "seq_q8"):
+            self.seq_operator(model)
+
+    def seq_histories(self, b: int, length: int, seed: int = SEED):
+        """``b`` (length, 30) histories of surrogate rows, each of a seeded
+        depth (1 and full included) with zero left-pad."""
+        import numpy as np
+
+        rng = np.random.default_rng(seed + b + length)
+        x = self.rows[rng.integers(0, len(self.rows), size=(b, length))].astype(np.float32)
+        depth = rng.integers(1, length + 1, size=b)
+        depth[0] = 1
+        depth[-1] = length
+        for i, d in enumerate(depth):
+            x[i, : length - d] = 0.0
+        return x
+
+    def seq_variants(self) -> dict:
+        """name -> (apply, params on the card, params on the CPU, dtype, bar)."""
+        from ccfd_tpu_torch.models import seq as seq_mod
+        from ccfd_tpu_torch.ops import seq_quant
+        from ccfd_tpu_torch.params import load_tree
+        from ccfd_tpu_torch.platform.operator import SEQ_INIT
+
+        torch = self.torch
+        cpu = load_tree(SEQ_INIT)
+        q8 = seq_quant.quantize_seq(cpu)
+        card, q8_card = load_tree(SEQ_INIT, self.dev), seq_quant.quantize_seq(cpu, self.dev)
+        return {
+            "seq f32": (seq_mod.apply_serving, card, cpu, torch.float32, SEQ_TOL["f32"]),
+            "seq bf16": (seq_mod.apply_serving, card, cpu, torch.bfloat16, SEQ_TOL["bf16"]),
+            "seq_q8 bf16": (seq_quant.apply_serving, q8_card, q8, torch.bfloat16,
+                            SEQ_TOL["q8"]),
+        }
+
+    def seq_parity(self) -> None:
+        import numpy as np
+
+        from ccfd_tpu_torch.ops import seq_quant
+
+        torch = self.torch
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            variants = self.seq_variants()
+            cases = [(b, SEQ_L) for b in SEQ_B] + [(SEQ_SHORT_B, lb) for lb in SEQ_SHORT_L]
+            for name, (apply, card, cpu, dt, bar) in variants.items():
+                worst = 0.0
+                for b, length in cases:
+                    x = self.seq_histories(b, length)
+                    got = apply(card, torch.from_numpy(x).to(self.dev), dt,
+                                pos_length=SEQ_L).cpu()
+                    # rows are independent: the CPU scores the first
+                    # SEQ_CPU_ROWS of the card's batch
+                    want = apply(cpu, torch.from_numpy(x[:SEQ_CPU_ROWS]), dt, pos_length=SEQ_L)
+                    whole = torch.isfinite(got).all() and got.shape == (b,)
+                    d = (got[:SEQ_CPU_ROWS] - want).abs().max().item() if whole else math.inf
+                    worst = max(worst, d)
+                    if d > bar:
+                        raise AssertionError(f"seq (a) {name} B={b} L={length}: card vs CPU "
+                                             f"max|dp| {d:.3e} (bar {bar:.0e})")
+                log("seq", f"(a) {name}: card vs the port's CPU path, B in {SEQ_B} at L="
+                    f"{SEQ_L} and L in {SEQ_SHORT_L} at B={SEQ_SHORT_B} (pos_length {SEQ_L}; "
+                    f"the CPU on the first {SEQ_CPU_ROWS} rows of each batch): "
+                    f"max|dp| {worst:.3e} (bar {bar:.0e}) on {self.card}")
+            # the reference's own numbers, from the golden file
+            g = np.load(os.path.join(REPO, "ccfd_tpu_torch", "assets", "seq_golden.npz"))
+            xg = torch.from_numpy(g["x"]).to(self.dev)
+            for name, key in (("seq f32", "p_seq_f32"), ("seq bf16", "p_seq_bf16"),
+                              ("seq_q8 bf16", "p_seq_q8_bf16")):
+                apply, card, _cpu, dt, bar = variants[name]
+                got = apply(card, xg, dt, pos_length=SEQ_L).cpu().numpy()
+                d = float(np.abs(got - g[key]).max())
+                log("seq", f"(a) {name} on the reference's golden rows ({len(got)} histories, "
+                    f"depths 1..{int(g['depth'].max())}): max|dp| {d:.3e} (bar {bar:.0e})")
+                if d > bar:
+                    raise AssertionError(f"seq (a) {name}: the card is {d:.3e} from the "
+                                         "reference's golden p")
+            # seq_q8's int32 sums: the card's equal the CPU's bit for bit, for
+            # every dense layer's weights and the embed's real rows
+            _, q8_card, q8_cpu, _, _ = variants["seq_q8 bf16"]
+            rng = np.random.default_rng(SEED)
+            layers = {"embed": (q8_cpu["embed"], q8_card["embed"]),
+                      "head": (q8_cpu["head"], q8_card["head"])}
+            for i, (bc, bd) in enumerate(zip(q8_cpu["blocks"], q8_card["blocks"])):
+                for k in ("qkv", "proj", "mlp_in", "mlp_out"):
+                    layers[f"blocks/{i}/{k}"] = (bc[k], bd[k])
+            x = self.seq_histories(256, SEQ_L)
+            h = (torch.from_numpy(x) - q8_cpu["norm"]["mu"]) / q8_cpu["norm"]["sigma"]
+            qe, _ = seq_quant._rowquant_tokens(h)
+            n_acc = 0
+            for name, (lc, ld) in layers.items():
+                k = lc["wq"].shape[0]
+                q = (qe.reshape(-1, k) if name == "embed" else torch.from_numpy(
+                    rng.integers(-127, 128, size=(4096, k), dtype=np.int8)))
+                want = seq_quant._int_acc(q, lc["wq"])
+                got = seq_quant._int_acc(q.to(self.dev), ld["wq"]).cpu()
+                n_acc += want.numel()
+                if got.dtype != torch.int32 or not torch.equal(got, want):
+                    raise AssertionError(f"seq (a) seq_q8 {name}: the card's int32 sums "
+                                         "differ from the CPU's")
+            log("seq", f"(a) seq_q8: int32 accumulators of {len(layers)} dense layers "
+                f"({n_acc} sums, the embed's on real rows) bit-equal to the CPU's")
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+
+    @staticmethod
+    def seq_work(b: int, length: int, q8: bool) -> tuple:
+        """(dense ops, attention ops, bytes) of one readout forward: dense
+        products at 2 ops a multiply-add, the attention's QK and PV, the
+        rows in and p out and the weights read once."""
+        d, f, h4 = 128, 30, 512
+        dense = 2 * b * length * f * d  # embed
+        attn = 0
+        for last in (False, True):
+            lq = 1 if last else length
+            dense += 2 * b * length * d * 2 * d + 2 * b * lq * d * d  # k, v; q
+            attn += 2 * 2 * b * lq * length * d  # scores and P.V
+            dense += 2 * b * lq * d * d + 2 * 2 * b * lq * d * h4  # proj; mlp
+        dense += 2 * b * d  # head
+        weights = f * d + 2 * (3 * d * d + d * d + 2 * d * h4) + d
+        nbytes = b * length * f * 4 + b * 4 + weights * (1 if q8 else 4)
+        return dense, attn, nbytes
+
+    def seq_timing(self) -> None:
+        """(b) Each (L, B) shape of (a) and B=16,384 for seq (bf16) and
+        seq_q8: CUDA events around SEQ_CALLS calls of ``apply_serving`` on
+        histories already on the card, beside the bound (operations over
+        the bf16 or int8 dense peak, the attention at the bf16 peak,
+        against bytes over the memory rate), and the card's busy share
+        over the calls from a device-only trace."""
+        from torch.profiler import ProfilerActivity, profile
+
+        torch = self.torch
+        variants = self.seq_variants()
+        shapes = [(b, SEQ_L) for b in SEQ_B + (16384,)] + [(SEQ_SHORT_B, lb)
+                                                           for lb in SEQ_SHORT_L]
+        for name in ("seq bf16", "seq_q8 bf16"):
+            apply, card, _cpu, dt, _bar = variants[name]
+            q8 = name.startswith("seq_q8")
+            for b, length in shapes:
+                xs = torch.from_numpy(self.seq_histories(b, length)).to(self.dev)
+
+                def call(xs=xs, apply=apply, card=card, dt=dt):
+                    return apply(card, xs, dt, pos_length=SEQ_L)
+
+                call()
+                torch.cuda.synchronize()
+                n = SEQ_CALLS if b <= 4096 else SEQ_CALLS // 5
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                    enable_timing=True)
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    e0.record()
+                    for _ in range(n):
+                        call()
+                    e1.record()
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                ms = e0.elapsed_time(e1) / n
+                busy = sum(getattr(e, "self_device_time_total", None)
+                           or getattr(e, "self_cuda_time_total", 0.0)
+                           for e in prof.key_averages()) / 1e3  # ms
+                dense, attn, nbytes = self.seq_work(b, length, q8)
+                t_ops = (dense / (INT8_OPS if q8 else BF16_FLOPS)
+                         + attn / BF16_FLOPS) * 1e3
+                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                bound = max(t_ops, t_bytes)
+                by = "operations" if t_ops >= t_bytes else "bytes"
+                log("seq", f"(b) {name} L={length} B={b}: {ms:.6f} ms a call (CUDA events "
+                    f"around {n} calls), bound {bound:.6f} ms ({by}: {dense + attn:.4e} op, "
+                    f"{nbytes} B), share {bound / ms:.4f}; the card busy "
+                    + (f"{busy / (wall * 1e3):.4f} of the calls' wall time ({busy / n:.6f} ms "
+                       f"a call of device time)" if busy else "not measured (no device "
+                       "events)") + f" on {self.card}")
+
+    def seq_operator(self, model: str) -> None:
+        """(c) The operator (the port's CR, what ``up -f`` builds) with
+        ``scorer.model: <model>``, history_length 64, retrain, producer and
+        the investigator off, engine crash recovery on a durable bus:
+        SEQ_OP_ROWS records from a seeded pool of SEQ_CUSTOMERS customers,
+        an engine failure injected mid-stream; every transaction started
+        once, no hand-kernel launch, /debug/device's seq grid, the served p
+        of sampled customers against the CPU on the store's histories, and
+        the store after the restore against a pass without the failure."""
+        import numpy as np
+        from torch.profiler import ProfilerActivity, profile
+
+        from ccfd_tpu_torch.config import Config
+        from ccfd_tpu_torch.data.ccfd import FEATURE_NAMES
+        from ccfd_tpu_torch.models import seq as seq_mod
+        from ccfd_tpu_torch.ops import seq_quant
+        from ccfd_tpu_torch.params import to_device
+        from ccfd_tpu_torch.platform.operator import Platform, PlatformSpec
+        from ccfd_tpu_torch.serving.history import HistoryStore
+
+        torch = self.torch
+        tag = f"seq (c) {model}"
+        tmp = tempfile.mkdtemp(prefix="ccfd_seq_")
+        cr = self.platform_cr(tmp, scorer={"model": model, "history_length": SEQ_L,
+                                           "train_steps": 0},
+                              retrain={"enabled": False}, producer={"enabled": False},
+                              investigator={"enabled": False}, store={"enabled": False},
+                              engine={"crash_recovery": True, "checkpoint_interval_s": 0.5})
+        cust = np.random.default_rng(SEED).integers(0, SEQ_CUSTOMERS, size=SEQ_OP_ROWS)
+        rows = self.rows[np.arange(SEQ_OP_ROWS) % len(self.rows)]
+        records = [{**{f: float(rows[i, j]) for j, f in enumerate(FEATURE_NAMES)},
+                    "id": i, "customer_id": int(cust[i])} for i in range(SEQ_OP_ROWS)]
+        counters = self.counters()
+        p = Platform(PlatformSpec.from_cr(cr, cfg=Config.from_env()))
+        p.up(wait_ready_s=120)
+        served: dict = {}
+        try:
+            scorer = p.scorer
+            score = scorer.score
+
+            def recording_score(x, ids=None):
+                out = score(x, ids)
+                for k, v in zip(ids or [], out):
+                    served[k] = float(v)
+                return out
+
+            scorer.score = recording_score
+            for c in counters.values():
+                c.reset()
+            cfg = p.cfg
+            half = SEQ_OP_ROWS // 2
+
+            def produce(i: int, end: int) -> None:
+                # keyed by customer: one customer's records stay in order on
+                # one partition
+                chunk = records[i:min(i + 1000, end)]
+                p.broker.produce_batch(cfg.kafka_topic, chunk,
+                                       keys=[r["customer_id"] for r in chunk])
+
+            old = p.engine
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for i in range(0, half, 1000):
+                    produce(i, half)
+                self.seq_wait(lambda: p.recovery.checkpoints > 0, tag, "a checkpoint")
+                if not p.supervisor.inject_failure("engine", "seq smoke"):
+                    raise AssertionError(f"{tag}: the engine failure was not injected")
+                self.seq_wait(lambda: p.recovery.restores >= 1 and p.engine is not old, tag,
+                              "the restore")
+                for i in range(half, SEQ_OP_ROWS, 1000):
+                    produce(i, SEQ_OP_ROWS)
+                self.seq_wait(lambda: p.engine.snapshot()["next_pid"] - 1 >= SEQ_OP_ROWS, tag,
+                              "every start")
+                window = time.perf_counter() - t0
+            started = p.engine.snapshot()["next_pid"] - 1
+            rr = p.registries["router"]
+            dec = rr.histogram("router_decision_seconds")
+            sreg = p.registries["seldon"]
+            asm, disp = (sreg.histogram(h).sum() for h in ("seq_assembly_seconds",
+                                                            "seq_dispatch_seconds"))
+            snap = scorer.store.snapshot()
+            dev_doc = json.loads(urllib.request.urlopen(
+                p.exporter.endpoint + "/debug/device", timeout=10).read())
+            grid = dev_doc["executables"]["seq"]
+            restores, stale = p.recovery.restores, sreg.counter("seq_stale_commits_total").value()
+            launched = {k: c.value for k, c in counters.items()}
+        finally:
+            p.down()
+        busy = sum(getattr(e, "self_device_time_total", None)
+                   or getattr(e, "self_cuda_time_total", 0.0)
+                   for e in prof.key_averages()) / 1e6
+        if started != SEQ_OP_ROWS or any(launched.values()):
+            raise AssertionError(f"{tag}: {started} starts for {SEQ_OP_ROWS} records; hand "
+                                 f"kernel launches {launched} (want none)")
+        if grid["model"] != model or not any(e.get("dispatches") for e in grid["grid"]):
+            raise AssertionError(f"{tag}: /debug/device seq grid {grid}")
+        # the store after the failure against one pass of the same records
+        want = HistoryStore(length=SEQ_L, max_customers=20_000)
+        x = np.asarray([[r[f] for f in FEATURE_NAMES] for r in records], np.float32)
+        _, tok = want.prepare([r["customer_id"] for r in records], x)
+        want.commit(tok)
+        ws = want.snapshot()["customers"]
+        # per customer (the partitions interleave customers, so the LRU
+        # order may differ; no customer is evicted at this cap)
+        got_d = {k: (f, np.asarray(b).tobytes()) for k, b, f in snap["customers"]}
+        same = got_d == {k: (f, np.asarray(b).tobytes()) for k, b, f in ws}
+        if not same:
+            raise AssertionError(f"{tag}: the store after the engine failure differs from a "
+                                 "pass of the same records without it")
+        # sampled customers: the served p of each one's last transaction
+        # against the CPU on the history the store holds for it
+        variants = self.seq_variants()
+        _a, _card, cpu, dt, bar = variants["seq_q8 bf16" if model == "seq_q8" else "seq bf16"]
+        apply = seq_quant.apply_serving if model == "seq_q8" else seq_mod.apply_serving
+        rng = np.random.default_rng(SEED)
+        picks = rng.choice(len(snap["customers"]), size=SEQ_SAMPLED, replace=False)
+        hist = np.stack([np.asarray(snap["customers"][i][1]) for i in picks])
+        want_p = apply(to_device(cpu, "cpu"), torch.from_numpy(hist), dt,
+                       pos_length=SEQ_L).numpy()
+        got_p = np.asarray([served[snap["customers"][i][0]] for i in picks])
+        d = float(np.abs(got_p - want_p).max())
+        depth = np.asarray([snap["customers"][i][2] for i in picks])
+        if d > bar:
+            raise AssertionError(f"{tag}: served p of {SEQ_SAMPLED} customers {d:.3e} from "
+                                 f"the CPU on their histories (bar {bar:.0e})")
+        log(tag, f"{SEQ_OP_ROWS} records from {SEQ_CUSTOMERS} customers, an engine failure "
+            f"after {half} ({restores} restore, {stale:.0f} stale commits): {started} starts, "
+            f"no hand-kernel launch ({launched}); the store after the restore equals a pass "
+            f"without the failure ({len(ws)} customers, depths "
+            f"{min(e[2] for e in ws)}..{max(e[2] for e in ws)}); served p of {SEQ_SAMPLED} "
+            f"sampled customers (depths {depth.min()}..{depth.max()}) vs the CPU max|dp| "
+            f"{d:.3e} (bar {bar:.0e}); /debug/device seq grid "
+            f"{[(e['l_bucket'], e['b_bucket'], e.get('dispatches')) for e in grid['grid']]}")
+        log(tag, f"{SEQ_OP_ROWS / window:.1f} tx/s over {window:.3f} s (the failure and "
+            f"its replay included); decision p50 {dec.quantile(0.5) * 1e3:.3f} ms p99 "
+            f"{dec.quantile(0.99) * 1e3:.3f} ms against the 10 ms limit; history assembly "
+            f"{asm:.3f} s against dispatch {disp:.3f} s (assembly share "
+            f"{asm / max(asm + disp, 1e-9):.4f}); the card busy "
+            + (f"{busy:.3f} s, {busy / window:.4f} of the window" if busy
+               else "not measured (no device events)") + f" on {self.card}")
+
+    @staticmethod
+    def seq_wait(pred, tag: str, what: str, timeout: float = 180.0) -> None:
+        deadline = time.monotonic() + timeout
+        while not pred():
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{tag}: timed out waiting for {what}")
+            time.sleep(0.02)
+
+    # -- tasks: the user-task model and the investigator -------------------
+    def tasks(self) -> None:
+        """(a) The user-task model on the card against the CPU, (b) the
+        operator with the investigator and the model on, bounced on its
+        state file, (c) the ``tasks`` and ``investigate`` commands against
+        (b)'s engine REST."""
+        self.tasks_model()
+        b1 = self.tasks_operator()
+        self.reports["fused_mlp_bf16"]["launches"] += b1
+
+    def tasks_model(self) -> None:
+        import numpy as np
+
+        from ccfd_tpu_torch.process.engine import Task
+        from ccfd_tpu_torch.process.usertask_model import OnlineUserTaskModel
+
+        torch = self.torch
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            cpu = OnlineUserTaskModel(warmup=False, device="cpu", seed=SEED)
+            card = OnlineUserTaskModel(device=self.dev, seed=SEED)
+            card.warmup_join(60)
+            card.set_params(cpu.params)  # one carried init
+            rng = np.random.default_rng(SEED)
+            fits: dict = {}
+            worst = {"params": 0.0, "predict": 0.0}
+            probe = Task(task_id=0, pid=0, name="probe",
+                         vars={"transaction": {"Amount": 900.0, "V17": -1.0}, "proba": 0.7})
+            for i in range(TASK_COMPLETIONS):
+                amount, v17 = float(rng.uniform(0, 2000)), float(rng.normal())
+                t = Task(task_id=i + 1, pid=i + 1, name="fraud-investigation",
+                         vars={"transaction": {"Amount": amount, "V17": v17, "Time": float(i)},
+                               "proba": float(rng.uniform())})
+                t.status, t.outcome = "completed", (amount > 1000) != (rng.uniform() < 0.1)
+                before = cpu.last_loss
+                cpu.observe(t)
+                t0 = time.perf_counter()
+                card.observe(t)
+                dt = time.perf_counter() - t0
+                if cpu.last_loss is not before:  # a fit ran
+                    n = 1
+                    while n < card.n_examples:
+                        n *= 2
+                    fits.setdefault(n, []).append(dt * 1e3)
+                if card.trained:
+                    for k, v in card.params.items():
+                        worst["params"] = max(worst["params"],
+                                              float(np.abs(v - cpu.params[k]).max()))
+                    worst["predict"] = max(worst["predict"],
+                                           abs(card.predict(probe)[1] - cpu.predict(probe)[1]))
+            if not card.trained or worst["params"] > 1e-5 or worst["predict"] > 1e-5:
+                raise AssertionError(f"tasks (a): card vs CPU {worst} (bar 1e-5)")
+            lat = []
+            for _ in range(TASK_PREDICTS):
+                t0 = time.perf_counter()
+                card.predict(probe)
+                lat.append((time.perf_counter() - t0) * 1e3)
+            log("tasks", f"(a) user-task model, {TASK_COMPLETIONS} human completions on the "
+                f"card and the CPU from one init: after every fit max|d param| "
+                f"{worst['params']:.3e}, max|d confidence| {worst['predict']:.3e} (bar 1e-5); "
+                f"predict on the card {quantiles(np.sort(lat))}; fit ms by bucket "
+                + ", ".join(f"{b}: {np.median(v):.3f} ({len(v)} fits)"
+                            for b, v in sorted(fits.items())) + f" on {self.card}")
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+
+    def tasks_operator(self) -> int:
+        """(b) The operator (the port's CR) with the investigator on,
+        ``engine.usertask_model`` and its state file, and TASK_ROWS producer
+        transactions, then a second wave of TASK_SECOND_ROWS once the model
+        has trained: the investigator's completions by outcome, the model
+        trained on human decisions only (no auto-closed task observed), the
+        second wave's tasks suggested or auto-closed, B1's launches equal to
+        the router's dispatches; (c) the commands while the first wave's
+        queue is open; then down() and up() on the same state file. Returns
+        B1's launches."""
+        import numpy as np
+
+        from ccfd_tpu_torch.config import Config
+        from ccfd_tpu_torch.data.ccfd import FEATURE_NAMES
+        from ccfd_tpu_torch.platform.operator import Platform, PlatformSpec
+
+        tag = "tasks (b)"
+        tmp = tempfile.mkdtemp(prefix="ccfd_tasks_")
+        state = os.path.join(tmp, "usertask.npz")
+        rest_port = free_port()
+        cr = self.platform_cr(tmp, scorer={"model": "mlp", "train_steps": 0, "rest": False},
+                              retrain={"enabled": False}, store={"enabled": False},
+                              bus={"log_dir": None},
+                              engine={"crash_recovery": False, "usertask_model": True,
+                                      "usertask_state_file": state, "rest": True,
+                                      "rest_port": rest_port},
+                              investigator={"enabled": True, "rate_per_s": TASK_RATE},
+                              producer={"transactions": TASK_ROWS})
+        cfg = Config.from_env({**os.environ, **TASK_ENV})
+        counters = self.counters()
+        self._cli_completed = 0
+        p = Platform(PlatformSpec.from_cr(cr, cfg=cfg))
+        p.up(wait_ready_s=120)
+        try:
+            scorer, model, engine = p.scorer, p.usertask_model, p.engine
+            url = f"http://127.0.0.1:{rest_port}"
+            if model.device.type != self.dev.type or engine.prediction_service is not model:
+                raise AssertionError(f"{tag}: the user-task model is not the card's "
+                                     "prediction service")
+            auto, suggested, observed = set(), [], set()
+            predict, listener = model.predict, engine.task_listener
+
+            def watched_predict(task):
+                out = predict(task)
+                if out[1] >= cfg.confidence_threshold:
+                    auto.add(task.task_id)  # the engine auto-closes this task
+                elif out[0] is not None:
+                    suggested.append(task.task_id)  # pre-filled for the human
+                return out
+
+            def watched_listener(task):
+                observed.add(task.task_id)
+                listener(task)
+
+            model.predict, engine.task_listener = watched_predict, watched_listener
+            for c in counters.values():
+                c.reset()
+            d0 = scorer.dispatch_total()
+            # the in-process investigator slowed to one completion a second
+            # while the commands work the queue, then back to its rate
+            p.investigator.rate_per_s = 1.0
+            self.seq_wait(lambda: len(engine.tasks("open")) >= 20, tag, "open tasks")
+            self.tasks_cli(url)
+            p.investigator.rate_per_s = TASK_RATE
+            self.seq_wait(p.wait_producer, tag, "the producer")
+            kie = p.registries["kie"]
+            opened = kie.histogram("fraud_investigation_amount")
+            for wave, n in (("first", TASK_ROWS), ("second", TASK_ROWS + TASK_SECOND_ROWS)):
+                if wave == "second":
+                    self.seq_wait(lambda: model.trained, tag, "the model's first fit")
+                    rows = self.rows[:TASK_SECOND_ROWS]
+                    recs = [{**{f: float(r[j]) for j, f in enumerate(FEATURE_NAMES)},
+                             "id": TASK_ROWS + i} for i, r in enumerate(rows)]
+                    for i in range(0, len(recs), 1000):
+                        p.broker.produce_batch(p.cfg.kafka_topic, recs[i:i + 1000])
+                if not p.wait_routed(180):
+                    raise AssertionError(f"{tag}: the router did not drain the {wave} wave")
+                time.sleep(TASK_SETTLE_S)  # the no-reply timers open the tasks
+                self.seq_wait(lambda: not engine.tasks("open"), tag,
+                              f"the {wave} wave's queue drained", 300)
+                if wave == "first":
+                    first_opened = opened.count()
+            inv = p.registries["investigator"].counter("investigator_tasks_completed_total")
+            by = {o: inv.value({"outcome": o}) for o in ("approved", "cancelled")}
+            launched = {k: c.value for k, c in counters.items()}
+            dispatched = scorer.dispatch_total() - d0
+            routed = p.registries["router"].counter("transaction_outgoing_total").total()
+            total_opened = opened.count()
+        finally:
+            p.down()
+        # what down() saved (the investigator stops first): the bounce must
+        # restore exactly this
+        n_examples, trained, params = model.n_examples, model.trained, model.params
+        log(tag, f"{' '.join(f'{k}={v}' for k, v in TASK_ENV.items())}: {TASK_ROWS} + "
+            f"{TASK_SECOND_ROWS} transactions routed ({routed:.0f}), {first_opened} + "
+            f"{total_opened - first_opened} investigations opened; investigator completions "
+            f"{by} (+ {self._cli_completed} by the commands); the model trained {trained} "
+            f"on {n_examples} human decisions ({len(observed)} observed), auto-closed "
+            f"{len(auto)} tasks and pre-filled {len(suggested)}, none of the auto-closed "
+            f"observed: {not (auto & observed)}; B1 launches {launched}, router dispatches "
+            f"{dispatched} on {self.card}")
+        if first_opened < TASK_MIN_TASKS or not (by["approved"] and by["cancelled"]):
+            raise AssertionError(f"{tag}: {first_opened} investigations, completions {by}")
+        if (not trained or not auto or not suggested or auto & observed
+                or n_examples != len(observed)):
+            raise AssertionError(f"{tag}: trained {trained}, {len(auto)} auto-closed, "
+                                 f"{len(suggested)} pre-filled, {len(auto & observed)} "
+                                 f"auto-closed observed, {n_examples} examples for "
+                                 f"{len(observed)} human completions")
+        others = {k: v for k, v in launched.items() if k != "fused_mlp_bf16" and v}
+        if launched["fused_mlp_bf16"] != dispatched or others or not dispatched:
+            raise AssertionError(f"{tag}: B1 launches {launched} for {dispatched} router "
+                                 "dispatches (the prediction service must not score on B1)")
+        # down() saved the model: up() on the same state file restores it
+        p = Platform(PlatformSpec.from_cr(cr, cfg=cfg))
+        p.up(wait_ready_s=120)
+        try:
+            m = p.usertask_model
+            same = m.trained and m.n_examples == n_examples and all(
+                np.array_equal(v, params[k]) for k, v in m.params.items())
+        finally:
+            p.down()
+        if not same:
+            raise AssertionError(f"{tag}: the bounce did not restore the user-task model")
+        log(tag, f"down() and up() on {os.path.basename(state)}: trained, {n_examples} "
+            "examples and the params restored bit for bit")
+        return launched["fused_mlp_bf16"]
+
+    def tasks_cli(self, url: str) -> None:
+        """(c) ``tasks`` lists the open tasks and completes one; ``investigate``
+        works the queue for TASK_INVESTIGATE_S and completes tasks."""
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env["PYTHONPATH"] = REPO
+        cmd = [sys.executable, "-m", "ccfd_tpu_torch"]
+        out = subprocess.run(cmd + ["tasks", "--engine-url", url], env=env, cwd=REPO,
+                             capture_output=True, text=True, timeout=120)
+        listed = json.loads(out.stdout.strip().splitlines()[-1]) if out.returncode == 0 else {}
+        if not listed.get("count"):
+            raise AssertionError(f"tasks (c): `tasks` exited {out.returncode}: {out.stderr[-800:]}")
+        # the newest open task: the in-process investigator works from the
+        # oldest
+        first = max(t["task_id"] for t in listed["tasks"])
+        out = subprocess.run(cmd + ["tasks", "--engine-url", url, "--complete", str(first),
+                                    "--outcome", "rejected"], env=env, cwd=REPO,
+                             capture_output=True, text=True, timeout=120)
+        done = json.loads(out.stdout.strip().splitlines()[-1]) if out.returncode == 0 else {}
+        # the in-process investigator may take the task first: the engine's
+        # error then, and the CLI exits 2
+        self._cli_completed = 1
+        if out.returncode != 0 or done != {"completed": first, "outcome": "rejected",
+                                           "is_fraud": True}:
+            raise AssertionError(f"tasks (c): `tasks --complete` exited {out.returncode}: "
+                                 f"{out.stdout[-400:]} {out.stderr[-800:]}")
+        mport = free_port()
+        proc = subprocess.Popen(cmd + ["investigate", "--engine-url", url, "--rate", "50",
+                                       "--metrics-port", str(mport), "--seed", str(SEED)],
+                                env=env, cwd=REPO, stdout=subprocess.DEVNULL,
+                                stderr=subprocess.PIPE, text=True)
+        try:
+            time.sleep(TASK_INVESTIGATE_S)
+            m = scrape(f"http://127.0.0.1:{mport}/prometheus")
+        finally:
+            proc.send_signal(signal.SIGTERM)
+            try:
+                err = proc.communicate(timeout=30)[1]
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                err = proc.communicate()[1]
+        by = {o: m.get(f'investigator_tasks_completed_total{{outcome="{o}"}}', 0.0)
+              for o in ("approved", "cancelled")}
+        self._cli_completed += int(sum(by.values()))
+        if not sum(by.values()) or proc.returncode != 0:
+            raise AssertionError(f"tasks (c): `investigate` completed {by}, exit "
+                                 f"{proc.returncode}: {err[-800:]}")
+        log("tasks", f"(c) `tasks` listed {listed['count']} open tasks and completed task "
+            f"{first} as rejected (exit {out.returncode}); `investigate` completed {by} in "
+            f"{TASK_INVESTIGATE_S} s against the engine REST")
 
 
 def main() -> int:

@@ -55,7 +55,10 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
               "utils.gctune", "models.losses", "parallel.train", "parallel.online",
               "parallel.checkpoint", "runtime.durability", "models.logreg",
               "models.trees", "models.registry", "serving.graph", "bus.log",
-              "bus.kafka_adapter", "runtime.faults"):
+              "bus.kafka_adapter", "runtime.faults", "process.usertask_model",
+              "process.investigator", "serving.batcher", "data.sequences",
+              "ops.ring_attention", "models.seq", "ops.seq_quant", "serving.history",
+              "observability.device"):
         assert f"ccfd_tpu_torch.{m}" in res["mods"], m
     bad = [n for n in res["loaded"] if _forbidden(n)]
     assert bad == [], bad

@@ -76,15 +76,19 @@ def test_set_normalizer_guards_zero_std(rows):
 
 
 def test_registry_serves_mlp_only():
-    """The ported families only: ``mlp``, ``mlp_q8``, ``logreg``/``modelfull``
-    and ``gbt``/``gbt_mxu``; the others (the seq family) name the queue they
-    wait in."""
-    from ccfd_tpu_torch.models import logreg, trees
-    from ccfd_tpu_torch.ops import quant
+    """The ported families: ``mlp``, ``mlp_q8``, ``logreg``/``modelfull``,
+    ``gbt``/``gbt_mxu`` and, since A15a, ``seq``/``seq_q8`` (neither
+    trainable, as the reference registers them); an unknown name names the
+    queue in ROADMAP.md."""
+    from ccfd_tpu_torch.models import logreg, seq, trees
+    from ccfd_tpu_torch.ops import quant, seq_quant
 
     assert get_model("mlp").apply is mlp.apply
     assert get_model("mlp_q8").apply is quant.apply
     assert get_model("modelfull").apply is logreg.apply
     assert get_model("gbt_mxu").apply is trees.apply_mxu
+    assert get_model("seq").apply is seq.apply and not get_model("seq").trainable
+    assert get_model("seq_q8").apply is seq_quant.apply
+    assert not get_model("seq_q8").trainable
     with pytest.raises(KeyError, match="ROADMAP.md"):
-        get_model("seq")
+        get_model("seq_sharded")

@@ -202,16 +202,28 @@ def test_port_cr_differs_only_in_the_refused_blocks_enabled():
     assert PlatformSpec.from_yaml(str(PORT_CR), cfg=Config()).refused() == []
 
 
+# investigator, engine.usertask_model, scorer.model: seq|seq_q8 and the
+# batcher's queue policies are served since A11, A13 and A15a: their cases
+# keep their ids and now pair the served part with one still refused (the
+# investigator and the user-task model beside fleet and lifecycle, seq under
+# retrain and seq_q8 under the decision plane, which the port refuses where
+# the reference skips them with a warning, the queue rows beside
+# CCFD_LIFECYCLE_DIR)
 REFUSALS = [(name, {name: {"enabled": True}}, {}, name) for name in REFUSED_COMPONENTS] + [
-    ("engine.usertask_model", {"engine": {"usertask_model": True}}, {}, "usertask_model"),
+    ("investigator", {"investigator": {"enabled": True}, "fleet": {"enabled": True}}, {},
+     "fleet"),
+    ("engine.usertask_model", {"engine": {"usertask_model": True},
+                               "lifecycle": {"enabled": True}}, {}, "lifecycle"),
     ("mesh.devices", {"mesh": {"devices": 2}}, {}, "mesh.devices: 2"),
     ("mesh.devices=0", {"mesh": {"devices": 0}}, {}, "mesh.devices: 0"),
-    ("seq", {"scorer": {"model": "seq"}}, {}, "scorer.model: seq"),
-    ("seq_q8", {"scorer": {"model": "seq_q8"}}, {}, "scorer.model: seq_q8"),
+    ("seq", {"scorer": {"model": "seq"}, "retrain": {"enabled": True}}, {},
+     "retrain with scorer.model: seq"),
+    ("seq_q8", {"scorer": {"model": "seq_q8", "fused_decision": True}}, {},
+     "scorer.fused_decision with scorer.model: seq_q8"),
     ("CCFD_DEVICE_FAULTS", {}, {"CCFD_DEVICE_FAULTS": "oom"}, "CCFD_DEVICE_FAULTS"),
     ("CCFD_STORAGE_FAULTS", {}, {"CCFD_STORAGE_FAULTS": "bitrot"}, "CCFD_STORAGE_FAULTS"),
-    ("overload.rest_queue_rows", {"overload": {"rest_queue_rows": 64}}, {},
-     "CCFD_OVERLOAD_REST_QUEUE_ROWS"),
+    ("overload.rest_queue_rows", {"overload": {"rest_queue_rows": 64}},
+     {"CCFD_LIFECYCLE_DIR": "/tmp/lc"}, "CCFD_LIFECYCLE_DIR"),
 ]
 
 
@@ -237,7 +249,7 @@ def test_the_references_cr_is_refused_with_every_name_at_once(tmp_path):
     msg = str(err.value)
     on = [n for n in REFUSED_COMPONENTS
           if yaml.safe_load(REF_CR.read_text())["spec"].get(n, {}).get("enabled")]
-    assert len(on) == 7 and all(f"{n} (" in msg for n in on)
+    assert len(on) == 6 and all(f"{n} (" in msg for n in on)
     # the default-on blocks are refused when absent too
     with pytest.raises(NotImplementedError, match="lifecycle.*heal"):
         Platform(PlatformSpec.from_cr({"spec": {}}, cfg=Config()), device="cpu").up()

@@ -176,11 +176,11 @@ def test_five_roles_route_as_the_in_process_pipeline(inputs):
 
 @pytest.mark.parametrize("argv,env,match", [
     (["router"], {"CCFD_LIFECYCLE_DIR": "/tmp/lc"}, "CCFD_LIFECYCLE_DIR"),
-    (["serve", "--device", "cpu"], {"CCFD_OVERLOAD_REST_QUEUE_ROWS": "64"},
-     "CCFD_OVERLOAD_REST_QUEUE_ROWS"),
+    (["serve", "--device", "cpu"], {"CCFD_HOST_TIER_ROWS": "64"},
+     "CCFD_HOST_TIER_ROWS"),
     (["producer"], {"CCFD_DEVICE_FAULTS": "oom"}, "CCFD_DEVICE_FAULTS"),
-    (["bus", "--port", "0"], {"CCFD_OVERLOAD_SERVE_CODEL_TARGET_MS": "5"},
-     "CCFD_OVERLOAD_SERVE_CODEL_TARGET_MS"),
+    (["bus", "--port", "0"], {"CCFD_STORAGE_FAULTS": "enospc"},
+     "CCFD_STORAGE_FAULTS"),
     (["engine", "--port", "0"], {"CCFD_LIFECYCLE_DIR": "/tmp/lc"}, "CCFD_LIFECYCLE_DIR"),
     (["notify"], {"CCFD_INLINE_ROWS": "64"}, "CCFD_INLINE_ROWS"),
     (["audit", "tx-1"], {}, "provenance plane"),
@@ -242,8 +242,8 @@ def test_config_reads_the_roles_knobs_as_the_reference():
 # the GC as the reference does (C2), the router on SELDON_URL falls to the
 # rules tier as the reference's role does (C3)
 
-UNPORTED = [("CCFD_STORAGE_FAULTS", "bitrot"), ("CCFD_OVERLOAD_SERVE_CODEL_TARGET_MS", "5"),
-            ("CCFD_OVERLOAD_REST_QUEUE_ROWS", "64"), ("CCFD_LIFECYCLE_DIR", "/tmp/lc"),
+UNPORTED = [("CCFD_STORAGE_FAULTS", "bitrot"), ("CCFD_DEVICE_FAULTS", "oom"),
+            ("CCFD_DEVICE_FAULTS", "device_hang:ms=5"), ("CCFD_LIFECYCLE_DIR", "/tmp/lc"),
             ("CCFD_HOST_TIER_ROWS", "256"), ("CCFD_INLINE_ROWS", "64")]
 
 
