@@ -28,6 +28,7 @@
                                     [--wire-format dict|csv]
   python -m ccfd_tpu_torch audit [--topic T] [--group G] [--limit N]
                                  [--follow]
+  python -m ccfd_tpu_torch audit TX_ID [--url URL] [--dir D] [--json]
   python -m ccfd_tpu_torch investigate [--engine-url URL] [--rate 50]
                                        [--trust 0.9] [--fraud-rate 0.05]
                                        [--seed N] [--metrics-port 8082]
@@ -149,8 +150,11 @@ saves it every ``--save-interval-s`` and on SIGTERM or SIGINT, and prints
 the load and the last save with their times and sizes. With
 CCFD_AUDIT_TOPIC the engine streams its audit events onto that topic,
 keyed by pid, and ``audit`` tails them (one JSON event a line; ``--follow``
-keeps consuming; ``audit <tx_id>``, the reference's decision provenance
-plane, is refused by name). CCFD_FAULTS arms the router role's standing
+keeps consuming). ``audit <tx_id>`` reconstructs one decision of the
+provenance plane (observability/audit.py): from a live exporter with
+``--url``, else offline, read-only, from the audit segments under ``--dir``
+(CCFD_AUDIT_DIR); the lineage and incident joins are reported absent by
+name (ROADMAP A12, A14). CCFD_FAULTS arms the router role's standing
 fault plan (``runtime/faults.py``): a ``scorer`` injector around the
 ``SeldonClient`` or the local score function, an ``engine`` injector around
 ``start_process``, ``start_process_batch`` and ``signal``, counted in
@@ -933,15 +937,92 @@ def cmd_tasks(args: argparse.Namespace) -> int:
     return 0
 
 
+def _audit_fetch_json(url: str):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=10) as resp:
+            return json.loads(resp.read().decode())
+    except (urllib.error.URLError, OSError, ValueError):
+        return None
+
+
+# the reconstruction's joins whose planes are not ported: reported absent
+# by name, never faked
+_ABSENT_JOINS = {
+    "lineage": "the model lifecycle's version lineage (ROADMAP A12) is not ported",
+    "incident": "the incident flight recorder (ROADMAP A14) is not ported",
+}
+
+
+def cmd_audit_reconstruct(args: argparse.Namespace, cfg: Config) -> int:
+    """``audit <tx_id>``: the decision record stamped at the route seam,
+    read from the live exporter with ``--url`` (``/decisions/<tx_id>``) or
+    OFFLINE from the audit segments under ``--dir`` (CCFD_AUDIT_DIR),
+    read-only, as the reference's. The trace join asks the live exporter
+    for the kept trace; the lineage and incident joins name their planes as
+    absent."""
+    doc: dict = {"tx_id": args.tx_id}
+    record = None
+    base = args.url.rstrip("/") if args.url else ""
+    if base:
+        record = _audit_fetch_json(f"{base}/decisions/{args.tx_id}")
+    if record is None:
+        audit_dir = args.dir or cfg.audit_dir
+        if audit_dir:
+            from ccfd_tpu_torch.observability.audit import AuditLog
+
+            # readonly: an inspection command never truncates the live log
+            # out from under a running platform
+            record = AuditLog(dir=audit_dir, readonly=True,
+                              max_records=cfg.audit_ring).get(args.tx_id)
+    if record is None:
+        print(f"[audit] no decision record for {args.tx_id!r} (checked "
+              + (f"{base}/decisions and " if base else "")
+              + f"dir={args.dir or cfg.audit_dir or '<unset>'})", file=sys.stderr)
+        return 2
+    doc["record"] = record
+    for join, why in _ABSENT_JOINS.items():
+        doc[join] = {"absent": why}
+    trace_id = record.get("trace")
+    if trace_id and base:
+        tr = _audit_fetch_json(f"{base}/traces/{trace_id}")
+        doc["trace"] = ({"trace_id": trace_id, "spans": len(tr.get("spans", [])),
+                         "kept": True}
+                        if tr is not None else {"trace_id": trace_id, "kept": False})
+    elif trace_id:
+        doc["trace"] = {"trace_id": trace_id, "kept": None}
+    if args.json:
+        print(json.dumps(doc, indent=1, default=str))
+        return 0
+    r = record
+    print(f"decision tx={r.get('tx')} uid={r.get('uid')} seq={r.get('seq')}")
+    print(f"  score: proba={r.get('proba')} threshold={r.get('threshold')} "
+          f"-> rule={r.get('rule')} branch={r.get('branch')} pid={r.get('pid')}")
+    cause = f" ({r['cause']})" if r.get("cause") else ""
+    print(f"  served by: {r.get('tier', '?')} tier{cause}  priority={r.get('priority')}"
+          + (f"  events={r['events']}" if r.get("events") else ""))
+    print(f"  model: version={r.get('version')} hash={r.get('hash')}")
+    for join in _ABSENT_JOINS:
+        print(f"  {join}: absent ({doc[join]['absent']})")
+    trc = doc.get("trace")
+    if trc:
+        kept = {True: "kept", False: "not retained",
+                None: "offline (query --url for spans)"}[trc.get("kept")]
+        print(f"  trace: {trc['trace_id']} [{kept}]")
+    return 0
+
+
 def cmd_audit(args: argparse.Namespace) -> int:
-    """Tail the engine's audit stream (CCFD_AUDIT_TOPIC): one JSON event a
-    line. ``--follow`` keeps consuming; otherwise it drains what is there
-    and exits. With a tx id it would be the reference's decision
-    provenance plane, which is not ported."""
-    if args.tx_id:
-        raise NotImplementedError(
-            "audit <tx_id> (the decision provenance plane, ROADMAP A9) is not ported yet")
+    """With a tx id: reconstruct that decision (the provenance plane,
+    observability/audit.py; ``cmd_audit_reconstruct``). Without one: tail
+    the engine's audit stream (CCFD_AUDIT_TOPIC), one JSON event a line;
+    ``--follow`` keeps consuming, otherwise it drains what is there and
+    exits."""
     cfg = Config.from_env()
+    if args.tx_id:
+        return cmd_audit_reconstruct(args, cfg)
     _refuse_unported(cfg, "audit")
     topic = args.topic or cfg.audit_topic
     if not topic:
@@ -1381,9 +1462,17 @@ def build_parser() -> argparse.ArgumentParser:
     pr.add_argument("--rate", type=float, default=None)
     pr.add_argument("--wire-format", choices=("dict", "csv"), default="csv")
     pr.set_defaults(fn=cmd_producer)
-    au = sub.add_parser("audit", help="tail the engine's audit event stream")
+    au = sub.add_parser("audit", help="reconstruct one decision by tx id (the decision "
+                        "provenance plane), or tail the engine's audit event stream")
     au.add_argument("tx_id", nargs="?", default=None,
-                    help="a transaction to reconstruct (the provenance plane: not ported)")
+                    help="transaction id (or partition:offset uid) to reconstruct; "
+                    "omit to tail the engine's audit stream")
+    au.add_argument("--dir", default="", help="audit log dir (default: CCFD_AUDIT_DIR)")
+    au.add_argument("--url", default="",
+                    help="live exporter endpoint: fetch the record (and the kept trace) "
+                    "over HTTP before the on-disk segments")
+    au.add_argument("--json", action="store_true",
+                    help="emit the full reconstruction document as JSON")
     au.add_argument("--topic", default="", help="default: CCFD_AUDIT_TOPIC")
     au.add_argument("--group", default="audit-tail",
                     help="consumer group (offsets persist per group)")

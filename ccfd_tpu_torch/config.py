@@ -105,11 +105,31 @@ as ccfd_tpu/config.py, with the same defaults:
     CCFD_MESH_DEVICES                                   the operator's mesh
                                                         block (1 only)
 
+    CCFD_HEAL, CCFD_HEAL_INTERVAL_S,
+    CCFD_HEAL_CANARY_DEADLINE_MS,
+    CCFD_HEAL_SUSPECT_STRIKES,
+    CCFD_HEAL_PROBATION_CANARIES,
+    CCFD_HEAL_PARITY_TOL, CCFD_HEAL_OOM_RATIO,
+    CCFD_HEAL_COMPILE_STORM_PER_S,
+    CCFD_HEAL_BACKOFF_BASE_S, CCFD_HEAL_BACKOFF_CAP_S,
+    CCFD_HEAL_FLAP_WINDOW_S                             the operator's device
+                                                        heal supervisor
+                                                        (runtime/heal.py)
+    CCFD_DEVICE_FAULTS, CCFD_STORAGE_FAULTS             the standing device and
+                                                        storage fault plans
+                                                        (runtime/faults.py);
+                                                        only the operator
+                                                        installs them, as in
+                                                        the reference
+    CCFD_AUDIT, CCFD_AUDIT_DIR, CCFD_AUDIT_RING,
+    CCFD_AUDIT_SEGMENT_BYTES, CCFD_AUDIT_SEGMENTS,
+    CCFD_AUDIT_FLUSH_INTERVAL_S                         the operator's decision
+                                                        provenance plane
+                                                        (observability/audit.py)
+
 Knobs that select a part of the reference this port does not have are read
 too, so that setting one is refused by name rather than ignored
-(``unported``): the device and storage fault plans (CCFD_DEVICE_FAULTS,
-CCFD_STORAGE_FAULTS; ROADMAP A6), the
-model lifecycle's lineage store (CCFD_LIFECYCLE_DIR), and the two ways
+(``unported``): the model lifecycle's lineage store (CCFD_LIFECYCLE_DIR), and the two ways
 the reference scores small requests round the kernel: the Scorer's host
 latency tier (CCFD_HOST_TIER_ROWS > 0) and the REST front's in-IO-thread
 host model (CCFD_INLINE_ROWS > 0). Their auto value (-1, or unset) is off
@@ -255,9 +275,32 @@ class Config:
     storage_fsync: bool = True
     storage_sweep: bool = True
     mesh_devices: int = 1
-    # --- parts of the reference not ported yet: set, they are refused ---
+    # --- the device heal supervisor (runtime/heal.py; CR block `heal:`),
+    # on by default with a local scorer; CCFD_HEAL=0 is the kill switch ---
+    heal_enabled: bool = True
+    heal_interval_s: float = 5.0           # supervision tick
+    heal_canary_deadline_ms: float = 250.0  # one canary dispatch's deadline
+    heal_suspect_strikes: int = 2          # strike ticks before quarantine
+    heal_probation_canaries: int = 3       # passes before the warm flip
+    heal_parity_tol: float = 0.05          # max |device - host| in p
+    heal_oom_ratio: float = 0.92           # bytes_in_use / bytes_limit
+    heal_compile_storm_per_s: float = 2.0  # serving-label builds a second
+    heal_backoff_base_s: float = 0.5       # heal-ladder backoff
+    heal_backoff_cap_s: float = 30.0
+    heal_flap_window_s: float = 60.0       # re-quarantine = a flap
+    # the device and storage fault plans (runtime/faults.py): standing
+    # plans only the operator installs; "" = none
     device_faults_spec: str = ""
     storage_faults_spec: str = ""
+    # --- the decision provenance plane (observability/audit.py; CR block
+    # `audit:`); CCFD_AUDIT=0 is the kill switch ---
+    audit_enabled: bool = True
+    audit_dir: str = ""                    # "" = the ring only
+    audit_ring: int = 65536
+    audit_segment_bytes: int = 4 * 1024 * 1024
+    audit_segments: int = 8
+    audit_flush_interval_s: float = 0.25
+    # --- parts of the reference not ported yet: set, they are refused ---
     graph_cr: str = ""
     lifecycle_dir: str = ""
     host_tier_rows: int = -1  # -1 = auto, which is off in the port
@@ -358,8 +401,30 @@ class Config:
             storage_fsync=_on_unless_off(e.get("CCFD_STORAGE_FSYNC", "1")),
             storage_sweep=_on_unless_off(e.get("CCFD_STORAGE_SWEEP", "1")),
             mesh_devices=num("CCFD_MESH_DEVICES", "mesh_devices", int),
+            heal_enabled=_on_unless_off(e.get("CCFD_HEAL", "1")),
+            heal_interval_s=num("CCFD_HEAL_INTERVAL_S", "heal_interval_s"),
+            heal_canary_deadline_ms=num("CCFD_HEAL_CANARY_DEADLINE_MS",
+                                        "heal_canary_deadline_ms"),
+            heal_suspect_strikes=num("CCFD_HEAL_SUSPECT_STRIKES", "heal_suspect_strikes",
+                                     int),
+            heal_probation_canaries=num("CCFD_HEAL_PROBATION_CANARIES",
+                                        "heal_probation_canaries", int),
+            heal_parity_tol=num("CCFD_HEAL_PARITY_TOL", "heal_parity_tol"),
+            heal_oom_ratio=num("CCFD_HEAL_OOM_RATIO", "heal_oom_ratio"),
+            heal_compile_storm_per_s=num("CCFD_HEAL_COMPILE_STORM_PER_S",
+                                         "heal_compile_storm_per_s"),
+            heal_backoff_base_s=num("CCFD_HEAL_BACKOFF_BASE_S", "heal_backoff_base_s"),
+            heal_backoff_cap_s=num("CCFD_HEAL_BACKOFF_CAP_S", "heal_backoff_cap_s"),
+            heal_flap_window_s=num("CCFD_HEAL_FLAP_WINDOW_S", "heal_flap_window_s"),
             device_faults_spec=e.get("CCFD_DEVICE_FAULTS", Config.device_faults_spec),
             storage_faults_spec=e.get("CCFD_STORAGE_FAULTS", Config.storage_faults_spec),
+            audit_enabled=_on_unless_off(e.get("CCFD_AUDIT", "1")),
+            audit_dir=e.get("CCFD_AUDIT_DIR", Config.audit_dir),
+            audit_ring=num("CCFD_AUDIT_RING", "audit_ring", int),
+            audit_segment_bytes=num("CCFD_AUDIT_SEGMENT_BYTES", "audit_segment_bytes", int),
+            audit_segments=num("CCFD_AUDIT_SEGMENTS", "audit_segments", int),
+            audit_flush_interval_s=num("CCFD_AUDIT_FLUSH_INTERVAL_S",
+                                       "audit_flush_interval_s"),
             faults_spec=e.get("CCFD_FAULTS", Config.faults_spec),
             seq_stripes=num("CCFD_SEQ_STRIPES", "seq_stripes", int),
             seq_inflight=num("CCFD_SEQ_INFLIGHT", "seq_inflight", int),
@@ -427,8 +492,4 @@ class Config:
         if self.inline_rows > 0:
             out.append("CCFD_INLINE_ROWS > 0 (the REST front's in-IO-thread host model: "
                        "requests that skip the kernel)")
-        if self.device_faults_spec:
-            out.append("CCFD_DEVICE_FAULTS (the device fault plans, ROADMAP A6)")
-        if self.storage_faults_spec:
-            out.append("CCFD_STORAGE_FAULTS (the storage fault plans, ROADMAP A6)")
         return out

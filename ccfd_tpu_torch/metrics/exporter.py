@@ -23,6 +23,14 @@ platform operator, which serves every component registry from one port.
                                 seconds (clamped to 60): {"trace_dir",
                                 "seconds", "device_us"}; one capture at a
                                 time ({"error": ...} while busy)
+    GET /decisions              decision-record summaries (JSON), newest
+                                first; ?since=<unix_ts>&until=<unix_ts>
+                                bracket decide time, ?limit=N bounds the
+                                page (observability/audit.py)
+    GET /decisions/<tx_id>      one full decision record by transaction id
+                                (or "partition:offset" uid); unknown ids
+                                404, and both endpoints 404 when the audit
+                                plane is off (CCFD_AUDIT=0)
 
 Metric paths answer ``text/plain; version=0.0.4``; unknown paths 404; HEAD
 mirrors GET with no body. Every scrape refreshes the ``process`` registry's
@@ -30,8 +38,8 @@ mirrors GET with no body. Every scrape refreshes the ``process`` registry's
 the profiler's stage gauges and the telemetry's memory gauges, and first
 calls each ``collectors`` callable (the router role and the operator
 publish kernel launches and scorer dispatches this way). Not ported:
-OpenMetrics negotiation, and the /incidents, /decisions and /capacity
-planes (their components are refused by the operator).
+OpenMetrics negotiation, and the /incidents and /capacity planes (their
+components are refused by the operator; ROADMAP A14).
 """
 
 from __future__ import annotations
@@ -114,8 +122,9 @@ class MetricsExporter:
                  memory_probes: dict[str, Callable[[], float]] | None = None,
                  collectors: list[Callable[[], None]] | None = None,
                  profiler=None, telemetry=None,
-                 health: Callable[[], dict] | None = None):
+                 health: Callable[[], dict] | None = None, audit=None):
         self._registries = dict(registries)
+        self._audit = audit  # observability.audit.AuditLog (or None)
         self._sink = sink  # observability.trace.SpanSink (or None)
         self._profiler = profiler  # observability.profile.StageProfiler
         self._telemetry = telemetry  # observability.device.DeviceTelemetry
@@ -218,6 +227,8 @@ class MetricsExporter:
             return json.dumps(self._telemetry.snapshot()), "application/json"
         if path == "/debug/profile":
             return self._device_capture(query), "application/json"
+        if path == "/decisions" or path.startswith("/decisions/"):
+            return self._decisions(path, query), "application/json"
         if path == "/memory":
             from urllib.parse import parse_qs
 
@@ -229,6 +240,38 @@ class MetricsExporter:
                 probes = dict(self._memory_probes)
             return json.dumps(memory_report(probes)), "application/json"
         return self.render_path(path), _TEXT_CTYPE
+
+    def _decisions(self, path: str, query: str) -> str | None:
+        """Decision-provenance queries (observability/audit.py). With the
+        plane off (CCFD_AUDIT=0: no AuditLog wired) BOTH endpoints 404, the
+        kill-switch contract."""
+        if self._audit is None:
+            return None
+        if path.rstrip("/") == "/decisions":
+            from urllib.parse import parse_qs
+
+            q = parse_qs(query or "")
+            since = until = None
+            try:
+                if q.get("since"):
+                    since = float(q["since"][0])
+            except ValueError:
+                since = None
+            try:
+                if q.get("until"):
+                    until = float(q["until"][0])
+            except ValueError:
+                until = None
+            try:
+                limit = int((q.get("limit") or ["256"])[0])
+            except ValueError:
+                limit = 256
+            return json.dumps(
+                {"decisions": self._audit.list(since=since, until=until, limit=limit)})
+        rec = self._audit.get(path[len("/decisions/"):])
+        if rec is None:
+            return None
+        return json.dumps(rec)
 
     def healthz(self) -> tuple[str | None, int]:
         """The /healthz verdict -> (body, status): None/404 without a

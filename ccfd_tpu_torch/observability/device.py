@@ -141,13 +141,12 @@ class DeviceTelemetry:
     @staticmethod
     def device_memory() -> dict[str, dict[str, int]]:
         """Per-device memory stats of this process's CUDA devices, {} when
-        CUDA is not available."""
+        CUDA is not available, with the injected ``device_oom`` pressure
+        laid over them while a device-fault plan carries it."""
         import torch
 
         out: dict[str, dict[str, int]] = {}
-        if not torch.cuda.is_available():
-            return out
-        for i in range(torch.cuda.device_count()):
+        for i in range(torch.cuda.device_count() if torch.cuda.is_available() else 0):
             entry: dict[str, int] = {}
             try:
                 stats = torch.cuda.memory_stats(i)
@@ -162,6 +161,21 @@ class DeviceTelemetry:
             entry["free_bytes"] = int(free)
             entry["live_buffer_bytes"] = entry["bytes_in_use"]
             out[f"cuda:{i}"] = entry
+        # injected allocator pressure (runtime/faults.py device_oom): the
+        # synthetic bytes ride the keys the allocator reports, so the heal
+        # supervisor's math is the same; on a process without CUDA the
+        # overlay stands for the CPU device (``cpu:0``), so the signal is
+        # drillable there too
+        from ccfd_tpu_torch.runtime.faults import device_oom_overlay
+
+        ratio = device_oom_overlay()
+        if ratio is not None:
+            if not out:
+                out["cpu:0"] = {"live_buffer_bytes": 0}
+            limit = 16 * 1024**3  # a plausible size; only the RATIO matters
+            for entry in out.values():
+                entry.setdefault("bytes_limit", limit)
+                entry["bytes_in_use"] = int(ratio * entry.get("bytes_limit", limit))
         return out
 
     def peak_memory_bytes(self) -> int | None:
@@ -219,14 +233,22 @@ def timed_copy(telemetry: "DeviceTelemetry | None", host, device) -> tuple:
     ``(device tensor, token)``. With telemetry, a CUDA event pair
     brackets the copy on the current stream (on the CPU the host clock);
     pass the tokens to :func:`settle_copies` once the stream has
-    synchronized. A copy that raises counts as a failure and re-raises.
-    Without telemetry the token is None and nothing is timed."""
+    synchronized. A copy that raises counts as a failure and re-raises,
+    an injected ``put_fail`` (runtime/faults.py) included. Without
+    telemetry the token is None and nothing is timed."""
+    from ccfd_tpu_torch.runtime.faults import device_seam
+
     if telemetry is None:
+        device_seam("put")
         return host.to(device, non_blocking=True), None
     import torch
 
     nbytes = host.numel() * host.element_size()
     try:
+        # the device-fault staging seam (runtime/faults.py put_fail): an
+        # injected failure raises here, before the copy, so it counts in
+        # h2d_failures() as a real failed copy does and adds no bytes
+        device_seam("put")
         if device.type == "cuda":
             ev0 = torch.cuda.Event(enable_timing=True)
             ev1 = torch.cuda.Event(enable_timing=True)

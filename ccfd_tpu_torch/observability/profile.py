@@ -251,6 +251,19 @@ def record_build(secs: float) -> None:
         target._record_compile(float(secs))
 
 
+def record_synthetic_build(secs: float) -> None:
+    """Feed one synthetic build of ``secs`` to the armed profiler: the
+    injection point of the ``compile_stall`` device fault
+    (runtime/faults.py), so a drill moves the same build-storm signal
+    (``compile_counts()``, ``ccfd_build_*``) a real nvcc or g++ run would.
+    Billed to the active :func:`compile_stage` label; not a compiler run,
+    so :func:`builds_total` stays put. A no-op with no armed profiler, as
+    the reference's ``record_synthetic_compile``."""
+    target = _BUILD_TARGET() if _BUILD_TARGET is not None else None
+    if target is not None:
+        target._record_compile(float(secs))
+
+
 def builds_total() -> int:
     """Compiler runs in this process so far (armed profiler or not)."""
     with _BUILDS_MU:

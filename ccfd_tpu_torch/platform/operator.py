@@ -7,10 +7,17 @@ and ``Platform`` brings the components up in the reference's run-book
 order, every long-lived service under the ``Supervisor`` (restart on
 crash), with health probes and one Prometheus exporter:
 
-   0  the edge fault plan (CCFD_FAULTS), the durability block (the
-      ``StoragePinGate`` the router's heal-gate seam binds), overload
-      control, tracing (and the trace-correlated JSON logs), the stage
-      profiler and the device telemetry plane
+   0  the fault plans: edge (CR ``chaos.faults`` with chaos on, or
+      CCFD_FAULTS), device (``chaos.device_faults`` or CCFD_DEVICE_FAULTS)
+      and storage (``chaos.storage_faults`` or CCFD_STORAGE_FAULTS), the
+      last two installed process-wide; a CR plan under
+      ``chaos.fault_interval_s`` starts inactive and the chaos monkey
+      duty-cycles it. Then the durability block (the ``StoragePinGate``
+      the router's heal-gate seam binds), overload control, tracing (and
+      the trace-correlated JSON logs), the stage profiler, the device
+      telemetry plane, and 0f the decision provenance plane (``audit``:
+      one ``AuditLog`` shared by every router worker, its flusher a
+      supervised service)
    1  store (the S3-shaped object store, seeded with the dataset)
    2  bus (in process, durable with ``log_dir``; or a client of ``url``:
       ``http://`` for a ``bus`` role, ``kafka://`` for a cluster)
@@ -27,10 +34,14 @@ crash), with health probes and one Prometheus exporter:
       scorer's histories join the cut as ``history``), 6c the
       investigator (re-pointed at a restored engine)
    7  retrain (the ``OnlineTrainer``, publishing by ``swap_params``),
-      7c the SLO engine
+      7c the SLO engine, 7e the device heal supervisor (``heal``: default
+      on with a local scorer, CCFD_HEAL=0 kills it; the router's gate is
+      the storage pin composed with it)
    8  monitoring (the exporter: /prometheus, /profile, /healthz,
       /debug/device, /debug/profile) and health (/healthz, /readyz)
-   9  the supervisor starts, readiness is awaited, then the producer.
+   9  the supervisor starts, readiness is awaited, then the producer;
+  10  chaos (opt-in): the monkey's seeded kills of supervised services and
+      its fault storms.
 
 The scorer serves on the card (``device=None``) unless the caller names
 the CPU, as every entry point of the port. The components and options the
@@ -79,12 +90,9 @@ REFUSED_COMPONENTS: Mapping[str, str] = {
     "lifecycle": "A12 (the model lifecycle: shadow, canary, gated promotion)",
     "analytics": "A14 (batch analytics and the drift monitor)",
     "incident": "A14 (the incident flight recorder)",
-    "heal": "A7 (the device heal supervisor)",
-    "audit": "A9 (the decision provenance plane)",
     "capacity": "A14 (the capacity observatory)",
     "fleet": "A10 (the multi-host fleet)",
     "replay": "A9 (bulk replay and backtest)",
-    "chaos": "A6 (the chaos monkey and its device and storage fault storms)",
 }
 # scorer models the operator serves (every other is refused or unknown)
 SCORER_MODELS = ("mlp", "mlp_q8", "logreg", "modelfull", "gbt", "gbt_mxu", "seq", "seq_q8")
@@ -187,6 +195,13 @@ class Platform:
         self.exporter = None
         self.health_server = None
         self.fault_plan = None  # runtime/faults.FaultPlan when configured
+        self.device_fault_plan = None  # runtime/faults.DeviceFaultPlan
+        self.storage_fault_plan = None  # runtime/faults.StorageFaultPlan
+        self._device_storm_driven = False
+        self._storage_storm_driven = False
+        self.chaos = None  # runtime/chaos.ChaosMonkey when chaos is on
+        self.heal = None  # runtime/heal.DeviceSupervisor when heal is on
+        self.audit = None  # observability/audit.AuditLog when audit is on
         self.trace_sink = None  # observability/trace.SpanSink when enabled
         self.profiler = None    # observability/profile.StageProfiler
         self.slo = None         # observability/slo.SLOEngine when enabled
@@ -216,12 +231,12 @@ class Platform:
         spec, cfg = self.spec, self.cfg
         self.supervisor = Supervisor()
 
-        # 0. network fault plan: the CCFD_FAULTS env (the chaos block, the
-        # CR's other source, is refused); edges wire up below
-        if cfg.faults_spec:
-            from ccfd_tpu_torch.runtime.faults import FaultPlan
-
-            self.fault_plan = FaultPlan.from_string(cfg.faults_spec)
+        # 0. fault plans (runtime/faults.py), the reference's opt-in rules:
+        # a CR plan only with the chaos block on (chaos is always opt-in),
+        # else the env's standing plan. A CR plan under a storm interval
+        # (chaos.fault_interval_s) starts inactive and the monkey drives
+        # its duty cycle (step 10); a standing env plan stays ACTIVE.
+        self._up_fault_plans()
 
         # 0b. durability: the CR block overlays the CCFD_STORAGE_* knobs, the
         # ccfd_storage_* counters land in a scraped registry, and the
@@ -299,6 +314,14 @@ class Platform:
 
             self.device_telemetry = DeviceTelemetry(registry=self._registry("device"))
 
+        # 0f. the decision provenance plane: ONE AuditLog every router
+        # worker stamps into, built before the router; its flusher is a
+        # supervised service. CCFD_AUDIT=0 (or audit.enabled: false) kills
+        # it: nothing stamped, /decisions 404s
+        aud_spec = spec.component("audit")
+        if aud_spec.enabled and cfg.audit_enabled:
+            self._up_audit(aud_spec)
+
         # 1. store (Ceph/S3, reference README.md:136-269): serves the dataset
         if spec.component("store").enabled:
             self._up_store()
@@ -357,6 +380,12 @@ class Platform:
                 "slo", lambda: self.slo.run(interval_s=interval), self.slo.stop,
                 policy=RestartPolicy.ALWAYS, reset=self.slo.reset)
 
+        # 7e. the device heal supervisor: default on with a local scorer;
+        # CCFD_HEAL=0 (or heal.enabled: false) kills the plane
+        heal_spec = spec.component("heal")
+        if heal_spec.enabled and cfg.heal_enabled and self.scorer is not None:
+            self._up_heal(heal_spec)
+
         # 8. monitoring (README.md:487-537)
         if spec.component("monitoring").enabled:
             from ccfd_tpu_torch.metrics.exporter import MetricsExporter
@@ -366,7 +395,8 @@ class Platform:
                 self.registries, host=mon.opt("host", "127.0.0.1"),
                 port=int(mon.opt("port", 0)), sink=self.trace_sink,
                 collectors=self._collectors, profiler=self.profiler,
-                telemetry=self.device_telemetry, health=self._health_verdict).start()
+                telemetry=self.device_telemetry, health=self._health_verdict,
+                audit=self.audit).start()
             self._wire_memory_probes()
 
         if spec.component("health").enabled:
@@ -385,6 +415,11 @@ class Platform:
         # 9. producer last (README.md:461-485): starts the traffic
         if spec.component("producer").enabled:
             self._up_producer()
+
+        # 10. chaos (opt-in): seeded kills of supervised services and the
+        # fault storms, so the recovery machinery is exercised, not trusted
+        if spec.component("chaos").enabled:
+            self._up_chaos()
         self._up = True
         return self
 
@@ -406,6 +441,124 @@ class Platform:
         from ccfd_tpu_torch.observability.trace import Tracer
 
         return Tracer(self._registry(component), component=component, sink=self.trace_sink)
+
+    def _up_fault_plans(self) -> None:
+        from ccfd_tpu_torch.runtime import faults
+
+        cfg = self.cfg
+        chaos = self.spec.component("chaos")
+        seed = int(chaos.opt("seed", 0))
+        storm = chaos.opt("fault_interval_s", None) if chaos.enabled else None
+        edge_text = (chaos.opt("faults", "") if chaos.enabled else "") or cfg.faults_spec
+        if edge_text:
+            self.fault_plan = faults.FaultPlan.from_string(
+                edge_text, seed=seed, active=storm is None)
+        # the device plan: installed process-wide, because its seams (the
+        # scorers' launch and staging copies, the telemetry overlay) sit
+        # inside helpers no injector proxy can wrap. Only a CR plan under a
+        # storm interval is the monkey's to duty-cycle
+        cr_dev = chaos.opt("device_faults", "") if chaos.enabled else ""
+        self._device_storm_driven = bool(cr_dev) and storm is not None
+        if cr_dev or cfg.device_faults_spec:
+            self.device_fault_plan = faults.DeviceFaultPlan.from_string(
+                cr_dev or cfg.device_faults_spec, seed=seed,
+                active=not self._device_storm_driven)
+            faults.install_device_faults(self.device_fault_plan)
+        # the storage plan: drawn inside durability.atomic_write_bytes and
+        # the audit log's append, so also process-wide
+        cr_sto = chaos.opt("storage_faults", "") if chaos.enabled else ""
+        self._storage_storm_driven = bool(cr_sto) and storm is not None
+        if cr_sto or cfg.storage_faults_spec:
+            self.storage_fault_plan = faults.StorageFaultPlan.from_string(
+                cr_sto or cfg.storage_faults_spec, seed=seed,
+                active=not self._storage_storm_driven)
+            faults.install_storage_faults(self.storage_fault_plan)
+
+    def _up_audit(self, c: ComponentSpec) -> None:
+        from ccfd_tpu_torch.observability.audit import AuditLog
+        from ccfd_tpu_torch.runtime.supervisor import RestartPolicy
+
+        cfg = self.cfg
+        self.audit = AuditLog(
+            dir=(c.opt("dir", cfg.audit_dir) or None),
+            max_records=int(c.opt("ring", cfg.audit_ring)),
+            segment_bytes=int(c.opt("segment_bytes", cfg.audit_segment_bytes)),
+            retain_segments=int(c.opt("segments", cfg.audit_segments)),
+            registry=self._registry("audit"))
+        flush_s = float(c.opt("flush_interval_s", cfg.audit_flush_interval_s))
+        audit = self.audit
+        self.supervisor.add_thread_service(
+            "audit", lambda: audit.run(interval_s=flush_s), audit.stop,
+            policy=RestartPolicy.ALWAYS, reset=audit.reset)
+
+    def _up_heal(self, c: ComponentSpec) -> None:
+        """The DeviceSupervisor over the local scorer: canaries bounded by
+        the router's dispatch watchdog, quarantine pins the router's ladder
+        to the host tier (the gate sits above the breaker), and the
+        re-promotion is warm. The router's gate composes it with the storage
+        pin: an unverifiable-params pin blocks the host tier too, the
+        supervisor only the card. No flight recorder (ROADMAP A14) and no
+        lifecycle champion restore (A12): the respawn rung re-publishes the
+        scorer's own params."""
+        from ccfd_tpu_torch.runtime.heal import DeviceSupervisor
+        from ccfd_tpu_torch.runtime.supervisor import RestartPolicy
+
+        cfg = self.cfg
+        self.heal = DeviceSupervisor(
+            self.scorer,
+            registry=self._registry("heal"),
+            breaker=getattr(self.router, "_breaker", None),
+            telemetry=self.device_telemetry,
+            profiler=self.profiler,
+            recorder=None,
+            overload=self._overload,
+            canary_rows=int(c.opt("canary_rows", 16)),
+            canary_deadline_ms=float(c.opt("canary_deadline_ms",
+                                           cfg.heal_canary_deadline_ms)),
+            suspect_strikes=int(c.opt("suspect_strikes", cfg.heal_suspect_strikes)),
+            probation_canaries=int(c.opt("probation_canaries",
+                                         cfg.heal_probation_canaries)),
+            parity_tol=float(c.opt("parity_tol", cfg.heal_parity_tol)),
+            oom_ratio=float(c.opt("oom_ratio", cfg.heal_oom_ratio)),
+            compile_storm_per_s=float(c.opt("compile_storm_per_s",
+                                            cfg.heal_compile_storm_per_s)),
+            backoff_base_s=float(c.opt("backoff_base_s", cfg.heal_backoff_base_s)),
+            backoff_cap_s=float(c.opt("backoff_cap_s", cfg.heal_backoff_cap_s)),
+            flap_window_s=float(c.opt("flap_window_s", cfg.heal_flap_window_s)))
+        if self.router is not None:
+            if self.storage_gate is not None:
+                from ccfd_tpu_torch.runtime.durability import ComposedHealGate
+
+                self.router.set_heal_gate(ComposedHealGate(self.storage_gate, self.heal))
+            else:
+                self.router.set_heal_gate(self.heal)
+        interval = float(c.opt("interval_s", cfg.heal_interval_s))
+        heal = self.heal
+        self.supervisor.add_thread_service(
+            "heal", lambda: heal.run(interval_s=interval), heal.stop,
+            policy=RestartPolicy.ALWAYS, reset=heal.reset)
+
+    def _up_chaos(self) -> None:
+        from ccfd_tpu_torch.runtime.chaos import ChaosMonkey
+
+        c = self.spec.component("chaos")
+        targets = c.opt("targets", None)
+        self.chaos = ChaosMonkey(
+            self.supervisor,
+            interval_s=float(c.opt("interval_s", 30.0)),
+            seed=int(c.opt("seed", 0)),
+            # targets: [] is a valid choice: storms only, no kills
+            targets=list(targets) if targets is not None else None,
+            registry=self._registry("chaos"),
+            fault_plan=self.fault_plan,
+            device_fault_plan=(self.device_fault_plan
+                               if self._device_storm_driven else None),
+            storage_fault_plan=(self.storage_fault_plan
+                                if self._storage_storm_driven else None),
+            fault_interval_s=(float(c.opt("fault_interval_s"))
+                              if c.opt("fault_interval_s") else None),
+            fault_duration_s=float(c.opt("fault_duration_s", 2.0)),
+        ).start()
 
     def _up_store(self) -> None:
         from ccfd_tpu_torch.data.ccfd import load_dataset, to_csv_bytes
@@ -720,7 +873,8 @@ class Platform:
             degrade=bool(c.opt("degrade", True)),
             max_inflight=(int(c.opt("max_inflight"))
                           if c.opt("max_inflight") is not None else None),
-            tracer=router_tracer, overload=overload, profiler=self.profiler)
+            tracer=router_tracer, overload=overload, profiler=self.profiler,
+            audit=self.audit)
         if workers == 1:
             router = Router(cfg, self.broker, score_fn, engine, reg, **common)
         else:
@@ -882,12 +1036,15 @@ class Platform:
             out["endpoints"]["metrics"] = self.exporter.endpoint
         if self.health_server:
             out["endpoints"]["health"] = self.health_server.endpoint
+        if self.heal is not None:
+            out["heal"] = self.heal.status()
         return out
 
     def _health_verdict(self) -> dict[str, Any]:
         """The exporter's /healthz verdict: every health-bearing plane that
         is up contributes a source with a cause string (the supervisor, the
-        storage pin, the scorer edge's breaker)."""
+        storage pin, the device heal supervisor, the scorer edge's
+        breaker)."""
         sources: dict[str, dict[str, Any]] = {}
 
         def add(name: str, healthy: bool, cause: str) -> None:
@@ -901,6 +1058,13 @@ class Platform:
                 err = st.get("last_error") or ""
                 bad.append(f"{name}={st.get('state')}" + (f" ({err})" if err else ""))
             add("supervisor", not bad, "; ".join(bad) if bad else "all services ready")
+        if self.heal is not None:
+            hst = self.heal.status()
+            state = str(hst.get("state", ""))
+            reasons = hst.get("reasons") or []
+            add("device", state != "quarantined",
+                f"state={state}" + (f" ({'; '.join(str(r) for r in reasons)})"
+                                    if reasons and state != "healthy" else ""))
         if self.storage_gate is not None:
             add("storage", not self.storage_gate.pinned,
                 (f"pinned to rules tier: {self.storage_gate.reason}"
@@ -928,10 +1092,31 @@ class Platform:
                     "user-task model save to %s failed", self._usertask_state_file)
 
     def down(self) -> None:
+        # chaos first: injecting failures into services being torn down
+        # would race the orderly shutdown
+        if self.chaos is not None:
+            self.chaos.stop()
+        from ccfd_tpu_torch.runtime import faults
+
+        if self.device_fault_plan is not None:
+            # installed PROCESS-wide: a torn-down platform must not leave
+            # standing device faults for the next one in the process
+            faults.install_device_faults(None)
+            self.device_fault_plan = None
+        if self.storage_fault_plan is not None:
+            faults.install_storage_faults(None)
+            self.storage_fault_plan = None
         if self.recovery is not None:
             self.recovery.stop()
         if self.supervisor:
             self.supervisor.stop()
+        if self.audit is not None:
+            # the supervised flusher's shutdown already lands the tail; this
+            # covers a platform torn down before the supervisor ran
+            try:
+                self.audit.flush()
+            except Exception:  # noqa: BLE001 - teardown must not raise
+                pass
         if self._broker_is_client and self.broker is not None:
             try:
                 self.broker.close()

@@ -23,11 +23,11 @@ The workers share the control plane:
 - **one engine** (its own lock serializes the starts);
 - **a group-wide pause barrier**: every worker's hold is requested first,
   then all acks are awaited;
-- **one stage profiler and one heal gate** (``profiler``, ``heal_gate`` /
-  ``set_heal_gate``), handed to every worker; the coalescing batcher also
-  feeds the profiler's ``router.coalesce.batcher`` (queue) and
-  ``router.coalesce.dispatch`` stages, which the reference's leaves
-  unprofiled.
+- **one stage profiler, one heal gate and one audit log** (``profiler``,
+  ``heal_gate`` / ``set_heal_gate``, ``audit``), handed to every worker;
+  the coalescing batcher also feeds the profiler's
+  ``router.coalesce.batcher`` (queue) and ``router.coalesce.dispatch``
+  stages, which the reference's leaves unprofiled.
 """
 
 from __future__ import annotations
@@ -66,6 +66,7 @@ class ParallelRouter:
         decision_fn: Any = None,
         profiler: Any = None,
         heal_gate: Any = None,
+        audit: Any = None,
     ):
         self.cfg = cfg
         self.broker = broker
@@ -124,7 +125,8 @@ class ParallelRouter:
                    rules=rules, host_score_fn=host_score_fn, breaker=self._breaker,
                    degrade=degrade, max_inflight=self.max_inflight, tracer=tracer,
                    inflight_budget=self._budget, worker_id=i, overload=overload,
-                   decision_fn=decision_fn, profiler=profiler, heal_gate=heal_gate)
+                   decision_fn=decision_fn, profiler=profiler, heal_gate=heal_gate,
+                   audit=audit)
             for i in range(workers)
         ]
         self._stop = threading.Event()

@@ -60,7 +60,16 @@ a closed gate sends the batch to the rules tier.
 (``serving/history.py::SeqScorer``) gets the decoded records with the
 feature matrix, as in the reference.
 
-Not ported: audit and replay, and commit-after-route.
+**Decision provenance** (``audit``, observability/audit.py): armed, the
+route seam stamps one record per successfully started transaction (tx id,
+bus coordinate, produce time, p, rule, branch, engine pid, priority) with
+the tier that produced the score (``device``, ``host`` or ``rules``) and,
+on a degraded tier, its cause (``quarantine``, ``storage_pin``,
+``breaker_open``, ``score_error``, ``watchdog_timeout``). A failed start is
+not recorded. One ``AuditLog`` is shared by every ``ParallelRouter``
+worker.
+
+Not ported: replay (ROADMAP A9) and commit-after-route (A10).
 """
 
 from __future__ import annotations
@@ -305,10 +314,24 @@ class Router:
         decision_fn: Any = None,
         profiler: Any = None,
         heal_gate: Any = None,
+        audit: Any = None,
     ):
         self.cfg = cfg
         self._profiler = profiler
         self._heal_gate = heal_gate
+        # the decision provenance plane (observability/audit.py AuditLog):
+        # armed, the route seam stamps one record per routed transaction;
+        # the tier that produced the score rides a per-batch meta dict, so
+        # the pipelined loop's concurrent score and route stages never
+        # cross batches. None costs one attribute read per batch.
+        self._audit = audit
+        self._rec_pri = self._pri_names = None
+        if audit is not None:
+            # lazy: runtime/overload.py imports this module
+            from ccfd_tpu_torch.runtime.overload import PRIORITY_NAMES, record_priority
+
+            self._pri_names = PRIORITY_NAMES
+            self._rec_pri = record_priority
         self.broker = broker
         self.score = score_fn
         self.tracer = tracer
@@ -526,6 +549,22 @@ class Router:
                                        batch=n, rows=n)
         return x, txs, ts
 
+    # -- decision provenance -------------------------------------------------
+    def _audit_meta(self, records: list) -> dict | None:
+        """Per-batch audit context, built while the bus records (the only
+        carriers of partition/offset and priority headers) are in scope; it
+        rides WITH the batch through score and route."""
+        if self._audit is None:
+            return None
+        names, pri = self._pri_names, self._rec_pri
+        return {
+            "uids": [f"{r.partition}:{r.offset}" for r in records],
+            "pris": [names[pri(r)] for r in records],
+            "events": [],
+            "tier": "device",
+            "cause": None,
+        }
+
     # -- admission -----------------------------------------------------------
     def _shed_oldest(self, records: list) -> list:
         """Bounded in-flight: drop the OLDEST consumed records when a poll
@@ -561,12 +600,14 @@ class Router:
         risky = x[:, self._amount_idx] >= self.cfg.low_amount_threshold
         return np.where(risky, thr, np.float32(0.0)).astype(np.float32)
 
-    def _score_tiered(self, x: np.ndarray, txs: list, span=None) -> tuple:
+    def _score_tiered(self, x: np.ndarray, txs: list, span=None, meta=None) -> tuple:
         """scorer -> host numpy forward -> rules-only. Never raises. Returns
         ``(proba, fired)``; the lower tiers return fired=None, so the host
         rule base decides their rows. A closed heal gate skips the scorer
         edge (before the breaker, so not even a half-open probe reaches the
-        device), and the host tier too where its ``host_allowed`` is false."""
+        device), and the host tier too where its ``host_allowed`` is false.
+        ``meta`` (the audit plane armed) records the tier that produced the
+        batch's scores and why the ladder fell."""
         br = self._breaker
         gate = self._heal_gate
         host_blocked = False
@@ -575,6 +616,8 @@ class Router:
                 span.attrs["quarantined"] = True
             host_ok = getattr(gate, "host_allowed", None)
             host_blocked = callable(host_ok) and not host_ok()
+            if meta is not None:
+                meta["cause"] = "storage_pin" if host_blocked else "quarantine"
         elif br is None or br.allow():
             t0 = time.perf_counter()
             try:
@@ -597,12 +640,23 @@ class Router:
                 if br is not None:
                     br.record_success(lat)
                 return proba, fired
-            except Exception:  # noqa: BLE001 - counted; falls down the ladder
+            except Exception as e:  # noqa: BLE001 - counted; falls down the ladder
                 if br is not None:
                     br.record_failure(time.perf_counter() - t0)
                 self._c_score_err.inc(len(txs))
-        elif span is not None:
-            span.attrs["breaker_open"] = True
+                if meta is not None:
+                    # a watchdog kill is its own event class: the record says
+                    # the decision fell because the dispatch was killed
+                    ev = ("watchdog_timeout" if type(e).__name__ == "ScorerTimeout"
+                          else "score_error")
+                    meta["events"].append(ev)
+                    meta["cause"] = meta["cause"] or ev
+        else:
+            if span is not None:
+                span.attrs["breaker_open"] = True
+            if meta is not None:
+                meta["events"].append("breaker_open")
+                meta["cause"] = meta["cause"] or "breaker_open"
         if self._host_score is not None and not host_blocked:
             try:
                 proba = np.asarray(self._host_score(x), np.float32)
@@ -610,15 +664,19 @@ class Router:
                     self._c_degraded.inc(len(txs), labels={"tier": "host"})
                     if span is not None:
                         span.attrs["degraded"] = "host"
+                    if meta is not None:
+                        meta["tier"] = "host"
                     return proba, None
             except Exception:  # noqa: BLE001 - counted; falls to the rules tier
                 self._c_host_err.inc(len(txs))
         self._c_degraded.inc(len(txs), labels={"tier": "rules"})
         if span is not None:
             span.attrs["degraded"] = "rules"
+        if meta is not None:
+            meta["tier"] = "rules"
         return self._rules_proba(x), None
 
-    def _score_direct(self, x: np.ndarray, txs: list, span=None) -> tuple:
+    def _score_direct(self, x: np.ndarray, txs: list, span=None, meta=None) -> tuple:
         """The non-ladder path; a closed heal gate still binds: the rules
         tier decides the batch, counted."""
         gate = self._heal_gate
@@ -626,25 +684,28 @@ class Router:
             if span is not None:
                 span.attrs["quarantined"] = True
                 span.attrs["degraded"] = "rules"
+            if meta is not None:
+                meta["tier"] = "rules"
+                meta["cause"] = "quarantine"
             self._c_degraded.inc(len(txs), labels={"tier": "rules"})
             return self._rules_proba(x), None
         return self._score2(x, txs)
 
-    def _score_batch(self, x: np.ndarray, txs: list, batch_span=None) -> tuple:
+    def _score_batch(self, x: np.ndarray, txs: list, batch_span=None, meta=None) -> tuple:
         if batch_span is not None:
             with self.tracer.span("router.score", parent=batch_span.context) as sp:
                 if self._degrade:
-                    return self._score_tiered(x, txs, span=sp)
-                return self._score_direct(x, txs, span=sp)
+                    return self._score_tiered(x, txs, span=sp, meta=meta)
+                return self._score_direct(x, txs, span=sp, meta=meta)
         if self._degrade:
-            return self._score_tiered(x, txs)
-        return self._score_direct(x, txs)
+            return self._score_tiered(x, txs, meta=meta)
+        return self._score_direct(x, txs, meta=meta)
 
-    def _timed_score(self, x: np.ndarray, txs: list, batch_span=None) -> tuple:
+    def _timed_score(self, x: np.ndarray, txs: list, batch_span=None, meta=None) -> tuple:
         """Score one batch and record the stage latency (histogram, with the
         trace id as exemplar, and the AIMD feedback)."""
         t0 = time.perf_counter()
-        proba, fired = self._score_batch(x, txs, batch_span)
+        proba, fired = self._score_batch(x, txs, batch_span, meta)
         score_s = time.perf_counter() - t0
         self._h_score_s.observe(
             score_s,
@@ -669,11 +730,12 @@ class Router:
         if not records:
             return 0
         batch_sp = None
+        meta = self._audit_meta(records)
         try:
             batch_sp = self._begin_batch_span(records)
             x, txs, ts = self._decode_batch(records, batch_sp)
-            proba, fired = self._timed_score(x, txs, batch_sp)
-            return self._route(x, txs, proba, ts, batch_sp, fired)
+            proba, fired = self._timed_score(x, txs, batch_sp, meta)
+            return self._route(x, txs, proba, ts, batch_sp, fired, meta)
         except BaseException:
             if batch_sp is not None:  # a crashed batch: keep its trace
                 batch_sp.status = "error"
@@ -685,17 +747,18 @@ class Router:
 
     def _route(self, x: np.ndarray, txs: list, proba: np.ndarray,
                ts: np.ndarray | None, batch_span=None,
-               fired: np.ndarray | None = None) -> int:
+               fired: np.ndarray | None = None, meta=None) -> int:
         t0 = time.perf_counter()
         try:
             if batch_span is None:
-                return self._route_inner(x, txs, proba, ts, fired)
+                return self._route_inner(x, txs, proba, ts, fired, None, meta)
             route_sp = self.tracer.start("router.route", parent=batch_span.context)
             try:
                 # activated on this thread: the engine's notification produce
                 # (process/fraud.py) reads the current context to join the trace
                 with self.tracer.activate(route_sp.context):
-                    return self._route_inner(x, txs, proba, ts, fired, route_sp)
+                    return self._route_inner(x, txs, proba, ts, fired, route_sp, meta,
+                                             batch_span.trace_id)
             finally:
                 self.tracer.finish(route_sp)
         finally:
@@ -705,14 +768,23 @@ class Router:
 
     def _route_inner(self, x: np.ndarray, txs: list, proba: np.ndarray,
                      ts: np.ndarray | None, fired: np.ndarray | None = None,
-                     route_sp=None) -> int:
+                     route_sp=None, meta=None, trace_id: str | None = None) -> int:
         if fired is None:
             fired = self.rules.evaluate(x, proba)
         # group the micro-batch by fired rule: one batched process start per
         # (rule, process) instead of one engine call per transaction
         groups: dict[int, list[dict]] = {}
         rules = self.rules.rules
-        for tx, p, ridx in zip(txs, proba.tolist(), fired.tolist()):
+        plist = proba.tolist()
+        # the audit plane armed: each group's original row indices, so a
+        # successful start stamps THAT row's tx, uid, priority and
+        # timestamp; only successful starts are recorded (routed ==
+        # recorded; a failed start counts in router_process_start_errors_total)
+        gidx: dict[int, list[int]] | None = (
+            {} if (self._audit is not None and meta is not None) else None)
+        audit_rows: list[dict] = []
+        ts_list = ts.tolist() if gidx is not None and ts is not None else None
+        for i, (tx, p, ridx) in enumerate(zip(txs, plist, fired.tolist())):
             variables = {"transaction": tx, "proba": p, "customer_id": tx.get("id")}
             set_vars = rules[ridx].set_vars
             if set_vars:
@@ -722,6 +794,12 @@ class Router:
                 groups[ridx] = [variables]
             else:
                 g.append(variables)
+            if gidx is not None:
+                gi = gidx.get(ridx)
+                if gi is None:
+                    gidx[ridx] = [i]
+                else:
+                    gi.append(i)
         for ridx, vars_list in groups.items():
             rule = rules[ridx]
             try:
@@ -741,6 +819,33 @@ class Router:
                 self._c_rule.inc(n_ok, labels={"rule": rule.name})
                 if route_sp is not None and "fraud" in rule.process:
                     route_sp.attrs["fraud"] = True  # always tail-sampled keep
+                if gidx is not None:
+                    idx_list = gidx[ridx]
+                    for j, pid in enumerate(pids):
+                        if pid is None:
+                            continue
+                        i = idx_list[j]
+                        row = {
+                            "tx": txs[i].get("id"),
+                            "uid": meta["uids"][i],
+                            "ts": ts_list[i] if ts_list is not None else None,
+                            "proba": plist[i],
+                            "rule": rule.name,
+                            "branch": rule.process,
+                            "pid": pid,
+                            "priority": meta["pris"][i],
+                        }
+                        audit_rows.append(row)
+        if audit_rows:
+            self._audit.record_batch(
+                audit_rows,
+                tier=meta.get("tier", "device"),
+                cause=meta.get("cause"),
+                events=tuple(meta.get("events", ())),
+                worker=self.worker_id,
+                trace_id=trace_id,
+                threshold=self.cfg.fraud_threshold,
+            )
         if ts is not None and len(ts):
             # produce stamps are wall-clock record timestamps
             self._h_decision_s.observe_many(time.time() - ts)
@@ -814,7 +919,7 @@ class Router:
         from concurrent.futures import ThreadPoolExecutor
 
         def finish(pending: tuple) -> None:
-            pfut, px, ptxs, pts, psp = pending
+            pfut, px, ptxs, pts, psp, pmeta = pending
             try:
                 try:
                     proba, fired = pfut.result()
@@ -823,7 +928,7 @@ class Router:
                     if psp is not None:
                         psp.status = "error"
                     return
-                self._route(px, ptxs, proba, pts, psp, fired)
+                self._route(px, ptxs, proba, pts, psp, fired, pmeta)
             except BaseException:
                 if psp is not None:
                     psp.status = "error"
@@ -834,7 +939,7 @@ class Router:
                     self.tracer.finish(psp)
 
         ex = ThreadPoolExecutor(1, thread_name_prefix="ccfd-router-score")
-        pending: tuple | None = None  # (future, x, txs, ts, batch span)
+        pending: tuple | None = None  # (future, x, txs, ts, batch span, audit meta)
         try:
             while not self._stop.is_set():
                 if self._pause_req.is_set():
@@ -853,10 +958,11 @@ class Router:
                 fut = None
                 if records:
                     batch_sp = None
+                    meta = self._audit_meta(records)
                     try:
                         batch_sp = self._begin_batch_span(records)
                         x, txs, ts = self._decode_batch(records, batch_sp)
-                        fut = ex.submit(self._timed_score, x, txs, batch_sp)
+                        fut = ex.submit(self._timed_score, x, txs, batch_sp, meta)
                     except BaseException:
                         self._budget.release(len(records))
                         if batch_sp is not None:
@@ -864,7 +970,7 @@ class Router:
                             self.tracer.finish(batch_sp)
                         raise
                 done, pending = pending, (
-                    (fut, x, txs, ts, batch_sp) if fut is not None else None)
+                    (fut, x, txs, ts, batch_sp, meta) if fut is not None else None)
                 if done is not None:
                     try:
                         finish(done)

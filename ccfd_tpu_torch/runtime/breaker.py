@@ -183,6 +183,22 @@ class CircuitBreaker:
                 return _STATE_NAMES[HALF_OPEN]
             return _STATE_NAMES[self._state]
 
+    def force_close(self) -> None:
+        """Deliberate external close, for a caller holding stronger evidence
+        than a half-open probe could gather (the heal ladder's warm
+        re-promotion: N consecutive canaries with host parity). Clears the
+        outcome window, the reopen backoff and any pending cooldown: from
+        OPEN, ``record_success`` changes nothing, and the residual cooldown
+        would both refuse the healed edge and read as fresh quarantine
+        evidence."""
+        with self._mu:
+            self._window.clear()
+            self._consecutive_opens = 0
+            self._open_until = 0.0
+            self._probes_inflight = 0
+            self._probe_successes = 0
+            self._set_state(CLOSED)
+
     def call(self, fn: Callable[..., Any], *args: Any, **kwargs: Any) -> Any:
         """Gate, time and record one call. Raises :class:`CircuitOpenError`
         when the breaker refuses."""

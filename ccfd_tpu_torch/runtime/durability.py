@@ -7,7 +7,9 @@ and the engine's snapshots (``process/engine.py``):
 
 - :func:`atomic_write_bytes`: unique tmp + write + fsync + rename (+ a
   directory fsync), so a crash mid-write leaves the previous bytes and an
-  orphan ``*.tmp`` for :func:`sweep_tmp`;
+  orphan ``*.tmp`` for :func:`sweep_tmp`; the one seam where the storage
+  fault plan (runtime/faults.py, ``CCFD_STORAGE_FAULTS``) injects, in the
+  reference's draw order; :func:`flip_bytes` corrupts a landed file;
 - :func:`frame` / :func:`parse_frame`: the payload under a one-line sha256
   header, ``CCFDSUM1 <sha256hex> <len>\\n<payload>``, byte for byte the
   reference's framing, so either side verifies the other's files;
@@ -35,23 +37,23 @@ and the engine's snapshots (``process/engine.py``):
 - :class:`StoragePinGate` and :class:`ComposedHealGate`: the router's
   heal-gate seam (``device_allowed``/``host_allowed``), which the platform
   operator arms with the storage pin (the rules tier while no params
-  generation verifies).
+  generation verifies) composed with the device heal supervisor
+  (runtime/heal.py; it closes the card only, so the host tier serves).
 
-Still to port, with the parts of the operator that arm them (ROADMAP A6,
-A7): the storage fault draws inside ``atomic_write_bytes`` (``torn_write``,
-``rename_lost``, ``bitrot``, ``enospc``, ``fsync_fail``, ``slow_disk``;
-CCFD_STORAGE_FAULTS is refused by name), the flight-recorder hook and
-directory manifests.
+Still to port (ROADMAP A14): the flight-recorder hook and directory
+manifests.
 """
 
 from __future__ import annotations
 
+import errno
 import hashlib
 import itertools
 import json
 import logging
 import os
 import threading
+import time
 from typing import Any
 
 log = logging.getLogger(__name__)
@@ -147,21 +149,83 @@ def counts() -> dict[str, dict[str, int]]:
         return out
 
 
-def atomic_write_bytes(path: str, data: bytes, fsync: bool | None = None) -> None:
-    """Unique tmp + write + fsync + rename. Raises OSError on failure; a
-    failed write never touches the previous artifact, though it may leave
-    an orphan ``*.tmp`` for the start-up sweep."""
+def _storage_plan():
+    from ccfd_tpu_torch.runtime import faults
+
+    return faults.storage_faults()
+
+
+def _flip_byte(path: str) -> None:
+    """In-place single-byte corruption of a landed file (the ``bitrot``
+    injection; also the helper drills and tests corrupt artifacts with)."""
+    try:
+        size = os.path.getsize(path)
+        if size == 0:
+            return
+        off = size // 2
+        with open(path, "r+b") as f:
+            f.seek(off)
+            b = f.read(1)
+            f.seek(off)
+            f.write(bytes([b[0] ^ 0xFF]) if b else b"\xff")
+    except OSError:
+        log.exception("bitrot injection failed for %s", path)
+
+
+def flip_bytes(path: str) -> None:
+    """Deliberately corrupt an on-disk artifact (drills and tests)."""
+    _flip_byte(path)
+
+
+def atomic_write_bytes(path: str, data: bytes, fsync: bool | None = None,
+                       artifact: str = "artifact") -> None:
+    """Unique tmp + write + fsync + rename. Raises OSError on failure
+    (injected or real); a failed write never touches the previous
+    artifact, though it may leave an orphan ``*.tmp`` for the start-up
+    sweep, exactly what a crash mid-write leaves.
+
+    The installed storage-fault plan (runtime/faults.py) is drawn here in
+    the reference's order, one draw a kind a write: ``slow_disk``,
+    ``enospc``, ``torn_write``, ``fsync_fail`` (only when syncing),
+    ``rename_lost``, ``bitrot``. ``artifact`` is taken for parity with
+    the reference's signature and, as there, read by nothing: no write
+    is accounted per artifact."""
     fsync = _defaults["fsync"] if fsync is None else bool(fsync)
     d = os.path.dirname(os.path.abspath(path))
     os.makedirs(d, exist_ok=True)
+    plan = _storage_plan()
+
+    def draw(kind: str):
+        return plan.draw(kind) if plan is not None else None
+
+    s = draw("slow_disk")
+    if s is not None:
+        time.sleep(s.ms / 1e3)
+    if draw("enospc") is not None:
+        raise OSError(errno.ENOSPC, "injected ENOSPC", path)
     tmp = f"{path}.{os.getpid()}.{next(_tmp_seq)}.tmp"
+    torn = draw("torn_write")
     fd = os.open(tmp, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
     try:
+        if torn is not None:
+            # the crash-mid-write case: a prefix lands, the process dies
+            # before the rename; the artifact keeps its previous bytes and
+            # the orphan tmp waits for the sweep
+            os.write(fd, data[: max(0, int(len(data) * torn.frac))])
+            raise OSError(errno.EIO, "injected torn write", tmp)
         os.write(fd, data)
         if fsync:
+            if draw("fsync_fail") is not None:
+                raise OSError(errno.EIO, "injected fsync failure", tmp)
             os.fsync(fd)
     finally:
         os.close(fd)
+    if draw("rename_lost") is not None:
+        # the metadata-lost case: data written and synced but the rename
+        # never lands (journal lost on a power cut); the caller believes the
+        # write succeeded, the artifact keeps its previous bytes, the tmp is
+        # crash debris for the sweep
+        return
     os.replace(tmp, path)
     if fsync:
         # the rename itself must survive a host crash: sync the directory
@@ -173,6 +237,10 @@ def atomic_write_bytes(path: str, data: bytes, fsync: bool | None = None) -> Non
                 os.close(dfd)
         except OSError:  # pragma: no cover - platform-dependent
             pass
+    if draw("bitrot") is not None:
+        # latent media corruption surfacing after a successful write: the
+        # read side's quarantine and last-good fallback must catch it
+        _flip_byte(path)
 
 
 def frame(payload: bytes) -> bytes:
@@ -265,7 +333,7 @@ def write_artifact(path: str, payload: bytes, artifact: str = "artifact",
     ``best_effort``: the previous artifact stays the last-good state."""
     data = frame(payload)
     try:
-        atomic_write_bytes(path, data, fsync=fsync)
+        atomic_write_bytes(path, data, fsync=fsync, artifact=artifact)
     except OSError as e:
         note("write_errors", artifact=artifact)
         log.error("durable write of %s (%s) failed: %s; keeping last-good",
@@ -278,7 +346,8 @@ def write_artifact(path: str, payload: bytes, artifact: str = "artifact",
         try:
             gens = _generations(path)
             seq = (gens[-1][0] + 1) if gens else 1
-            atomic_write_bytes(f"{path}.g{seq:08d}", data, fsync=fsync)
+            atomic_write_bytes(f"{path}.g{seq:08d}", data, fsync=fsync,
+                               artifact=artifact)
             for _s, p in _generations(path)[:-r]:
                 try:
                     os.unlink(p)
@@ -435,9 +504,10 @@ def write_json_interchange(path: str, doc: Any, artifact: str = "interchange",
             os.unlink(path + ".sha256")
         except FileNotFoundError:
             pass
-        atomic_write_bytes(path, body)
+        atomic_write_bytes(path, body, artifact=artifact)
         atomic_write_bytes(path + ".sha256",
-                           hashlib.sha256(body).hexdigest().encode() + b"\n")
+                           hashlib.sha256(body).hexdigest().encode() + b"\n",
+                           artifact=artifact)
     except OSError as e:
         note("write_errors", artifact=artifact)
         log.error("interchange write of %s failed: %s", path, e)
@@ -502,9 +572,12 @@ class StoragePinGate:
 
 
 class ComposedHealGate:
-    """AND-composition of heal-gate-shaped objects (the storage pin and,
-    once ported, the device heal supervisor, ROADMAP A7). ``host_allowed``
-    consults only the gates that define it."""
+    """AND-composition of heal-gate-shaped objects: the operator hands the
+    router ONE gate built from the storage pin and (when the heal component
+    is up) the DeviceSupervisor. ``host_allowed`` consults only the gates
+    that define it: the storage pin blocks the host tier too, the
+    supervisor only the card, so the host tier stays the heal ladder's
+    fallback."""
 
     def __init__(self, *gates: Any):
         self.gates = tuple(g for g in gates if g is not None)

@@ -25,11 +25,15 @@ Injected failures raise :class:`InjectedFault` (a ``ConnectionError``), so
 every client's transport-error handling — retries, breakers, the router's
 tier ladder — engages exactly as it would for the real thing.
 
-Still to port, with the platform operator and the heal gate that arm them
-(ROADMAP A6, A7): the device fault plans (``device_hang``,
-``compile_stall``, ``device_oom``, ``put_fail``), the storage fault plans
-that ``runtime/durability.py`` draws from, and the ChaosMonkey's storm
-schedule.
+Below the edges, the same module carries the reference's two other fault
+classes, seeded and drawn in the reference's order so one seed gives the
+same draws on either side: the DEVICE class (``device_hang``,
+``compile_stall``, ``device_oom``, ``put_fail``; ``CCFD_DEVICE_FAULTS``),
+consulted at the scorers' launch and staging seams, and the STORAGE class
+(``torn_write``, ``rename_lost``, ``bitrot``, ``enospc``, ``fsync_fail``,
+``slow_disk``; ``CCFD_STORAGE_FAULTS``), drawn inside
+``runtime/durability.py::atomic_write_bytes`` and the audit log's append.
+Only the platform operator installs them (or the ChaosMonkey's storms).
 """
 
 from __future__ import annotations
@@ -297,3 +301,372 @@ class FaultInjector:
 
         return MethodProxy(obj, self.run,
                            frozenset(methods) if methods else None)
+
+
+# ---------------------------------------------------------------------------
+# Device faults: the accelerator itself as a fallible component.
+#
+# The edge faults above perturb RPC hops; the failure taxonomy the heal
+# ladder (runtime/heal.py) defends against lives BELOW every edge — the
+# card wedges mid-launch, the allocator runs out of memory, kernels are
+# rebuilt in a storm, a host->device staging copy fails. These inject at the
+# three seams the serving stack owns (all drillable on the CPU):
+#
+# - ``dispatch`` — before each kernel launch of the scorers
+#   (Scorer._launch / score_pipelined, the decision plane, SeqScorer's
+#   chunk loop): ``device_hang`` stalls the dispatch past its watchdog
+#   deadline; ``compile_stall`` stalls AND bills a synthetic build to the
+#   active compile_stage label (observability/profile.py
+#   record_synthetic_build), so the build-storm signal the
+#   DeviceSupervisor watches actually moves.
+# - ``put`` — the staging copy (observability/device.py timed_copy, under
+#   Scorer's and SeqScorer's host->device copies): ``put_fail`` raises,
+#   and the telemetry plane counts the failure (ccfd_h2d_put_failures_total
+#   — the supervisor's put-failure signal).
+# - telemetry — ``device_oom`` overlays allocator pressure onto
+#   DeviceTelemetry.device_memory() (bytes_in_use ~= bytes_limit), the
+#   OOM-pressure signal, drillable where the CPU reports no allocator.
+#
+# A plan installs process-wide (install_device_faults) because the seams
+# sit inside dispatch helpers no injector proxy can wrap; the activation
+# toggle has the FaultPlan interface, so the ChaosMonkey schedules
+# device-fault storms with the same machinery that drives edge storms.
+# ---------------------------------------------------------------------------
+
+DEVICE_FAULT_KINDS = ("device_hang", "compile_stall", "device_oom",
+                      "put_fail")
+
+
+class DeviceFaultSpec:
+    """Parameters for one device-fault kind. Times in milliseconds.
+
+    - ``device_hang``: every dispatch stalls ``hang_ms`` (default 400 —
+      comfortably past the CI-scale watchdog deadlines the drills use).
+    - ``compile_stall``: every dispatch stalls ``stall_ms`` and records a
+      synthetic build of that duration (a rebuild storm).
+    - ``device_oom``: reported allocator pressure ``oom_ratio`` of
+      bytes_limit (default 0.99 — past any sane quarantine threshold).
+    - ``put_fail``: a staging put raises with probability ``rate``
+      (default 1.0).
+    """
+
+    __slots__ = ("hang_ms", "stall_ms", "oom_ratio", "rate")
+
+    def __init__(self, hang_ms: float = 400.0, stall_ms: float = 50.0,
+                 oom_ratio: float = 0.99, rate: float = 1.0):
+        if not 0.0 <= rate <= 1.0:
+            raise ValueError(f"rate {rate} outside [0, 1]")
+        if not 0.0 <= oom_ratio <= 1.0:
+            raise ValueError(f"oom_ratio {oom_ratio} outside [0, 1]")
+        for name, v in (("hang_ms", hang_ms), ("stall_ms", stall_ms)):
+            if v < 0:
+                raise ValueError(f"{name} must be >= 0, got {v}")
+        self.hang_ms = float(hang_ms)
+        self.stall_ms = float(stall_ms)
+        self.oom_ratio = float(oom_ratio)
+        self.rate = float(rate)
+
+    @staticmethod
+    def parse(body: str) -> "DeviceFaultSpec":
+        """``"ms=400"`` / ``"ratio=0.95,rate=0.5"`` -> DeviceFaultSpec.
+        ``ms`` sets both hang and stall times (one knob per kind in
+        practice); empty body takes every default."""
+        kw: dict[str, float] = {}
+        for item in body.split(","):
+            item = item.strip()
+            if not item:
+                continue
+            key, sep, val = item.partition("=")
+            key = key.strip()
+            if not sep:
+                raise ValueError(
+                    f"device-fault option {item!r}: expected key=value")
+            if key == "ms":
+                kw["hang_ms"] = kw["stall_ms"] = float(val)
+            elif key == "ratio":
+                kw["oom_ratio"] = float(val)
+            elif key == "rate":
+                kw["rate"] = float(val)
+            else:
+                raise ValueError(
+                    f"unknown device-fault option {key!r}; "
+                    f"known: ms, ratio, rate")
+        return DeviceFaultSpec(**kw)
+
+
+class DeviceFaultPlan:
+    """Active device-fault kinds + the FaultPlan activation interface
+    (``activate``/``deactivate``/``active``/``activations``) so storm
+    schedulers drive device faults exactly like edge faults."""
+
+    def __init__(self, kinds: Mapping[str, DeviceFaultSpec] | None = None,
+                 seed: int = 0, active: bool = True):
+        for k in (kinds or {}):
+            if k not in DEVICE_FAULT_KINDS:
+                raise ValueError(
+                    f"unknown device fault {k!r}; known: "
+                    f"{DEVICE_FAULT_KINDS}")
+        self.kinds = dict(kinds or {})
+        self._rng = random.Random(seed)
+        self._active = threading.Event()
+        if active:
+            self._active.set()
+        self.activations = 0
+        self.injected: dict[str, int] = {}
+        self._oom_counted_epoch = -1  # activation epoch last counted
+
+    @staticmethod
+    def from_string(text: str, seed: int = 0,
+                    active: bool = True) -> "DeviceFaultPlan":
+        """``"device_hang:ms=400;put_fail"`` -> DeviceFaultPlan (the
+        CCFD_DEVICE_FAULTS syntax). Empty text means an empty plan."""
+        kinds: dict[str, DeviceFaultSpec] = {}
+        for part in text.split(";"):
+            part = part.strip()
+            if not part:
+                continue
+            kind, _sep, body = part.partition(":")
+            kinds[kind.strip()] = DeviceFaultSpec.parse(body)
+        return DeviceFaultPlan(kinds, seed=seed, active=active)
+
+    @property
+    def active(self) -> bool:
+        return self._active.is_set()
+
+    def activate(self) -> None:
+        self.activations += 1
+        self._active.set()
+
+    def deactivate(self) -> None:
+        self._active.clear()
+
+    def spec(self, kind: str) -> DeviceFaultSpec | None:
+        """The kind's spec while the plan is ACTIVE, else None."""
+        if not self._active.is_set():
+            return None
+        return self.kinds.get(kind)
+
+    def _count(self, kind: str) -> None:
+        self.injected[kind] = self.injected.get(kind, 0) + 1
+
+
+_DEVICE_PLAN: DeviceFaultPlan | None = None
+
+
+def install_device_faults(plan: DeviceFaultPlan | None) -> None:
+    """Install (or, with None, clear) the process-wide device-fault plan
+    the scorer seams consult. Process-wide because the seams live inside
+    dispatch helpers built long before any injector could wrap them."""
+    global _DEVICE_PLAN
+    _DEVICE_PLAN = plan
+
+
+def device_faults() -> DeviceFaultPlan | None:
+    return _DEVICE_PLAN
+
+
+def device_seam(seam: str) -> None:
+    """Fault hook the scorer seams call: ``dispatch`` before each device
+    dispatch, ``put`` before each staging put. No-op (one None check) with
+    no active plan. ``put_fail`` raises :class:`InjectedFault` so the
+    caller's transport-error handling (breaker, ladder, telemetry failure
+    count) engages exactly as for a real staging failure."""
+    plan = _DEVICE_PLAN
+    if plan is None or not plan.active:
+        return
+    if seam == "dispatch":
+        s = plan.spec("device_hang")
+        if s is not None:
+            plan._count("device_hang")
+            time.sleep(s.hang_ms / 1e3)
+        s = plan.spec("compile_stall")
+        if s is not None:
+            plan._count("compile_stall")
+            # a rebuild storm: the dispatch pays a build it shouldn't,
+            # and the build-attribution plane must SEE it (that rate is
+            # the signal the DeviceSupervisor quarantines on)
+            from ccfd_tpu_torch.observability.profile import (
+                record_synthetic_build,
+            )
+
+            record_synthetic_build(s.stall_ms / 1e3)
+            time.sleep(s.stall_ms / 1e3)
+    elif seam == "put":
+        s = plan.spec("put_fail")
+        if s is not None and plan._rng.random() < s.rate:
+            plan._count("put_fail")
+            raise InjectedFault("staging put failed (injected put_fail)")
+
+
+# ---------------------------------------------------------------------------
+# Storage faults: the DISK as a fallible component.
+#
+# The device class above injects at the scorer seams; the storage class
+# injects at the durable-state seam every persistent writer/reader now
+# shares (runtime/durability.py atomic_write_bytes). The taxonomy is the
+# classic storage failure set, each drillable on the CPU:
+#
+# - ``torn_write``  — the process dies mid-write: a prefix lands in the
+#   tmp file, the rename never happens (orphan tmp for the startup
+#   sweep; the artifact keeps its previous bytes).
+# - ``rename_lost`` — data written and fsynced but the rename's metadata
+#   never commits (power cut before the journal): the caller believes
+#   the write succeeded, the artifact silently keeps its OLD contents.
+# - ``bitrot``      — latent media corruption after a successful write:
+#   the landed file gets a flipped byte, which the checksummed read side
+#   must quarantine and recover from (last-good generation).
+# - ``enospc``      — the volume is full: the write raises ENOSPC.
+# - ``fsync_fail``  — the sync fails (dying disk, thin-provisioned
+#   volume): the write raises EIO before the rename.
+# - ``slow_disk``   — degraded I/O: every write stalls ``ms``.
+#
+# Same activation surface as the other plans, so the ChaosMonkey storm-
+# schedules storage degradation windows with the machinery that already
+# drives edge and device storms (CCFD_STORAGE_FAULTS env / CR
+# ``chaos.storage_faults``).
+# ---------------------------------------------------------------------------
+
+STORAGE_FAULT_KINDS = ("torn_write", "rename_lost", "bitrot", "enospc",
+                       "fsync_fail", "slow_disk")
+
+
+class StorageFaultSpec:
+    """Parameters for one storage-fault kind.
+
+    - ``rate`` probability the fault fires per write (default 1.0)
+    - ``ms``   added latency for ``slow_disk`` (default 25)
+    - ``frac`` fraction of the payload a ``torn_write`` lands (default
+      0.5 — enough bytes that a frame header parses but the checksum
+      cannot)
+    """
+
+    __slots__ = ("rate", "ms", "frac")
+
+    def __init__(self, rate: float = 1.0, ms: float = 25.0,
+                 frac: float = 0.5):
+        if not 0.0 <= rate <= 1.0:
+            raise ValueError(f"rate {rate} outside [0, 1]")
+        if not 0.0 <= frac <= 1.0:
+            raise ValueError(f"frac {frac} outside [0, 1]")
+        if ms < 0:
+            raise ValueError(f"ms must be >= 0, got {ms}")
+        self.rate = float(rate)
+        self.ms = float(ms)
+        self.frac = float(frac)
+
+    @staticmethod
+    def parse(body: str) -> "StorageFaultSpec":
+        """``"rate=0.5,ms=10,frac=0.3"`` -> StorageFaultSpec; empty body
+        takes every default."""
+        kw: dict[str, float] = {}
+        for item in body.split(","):
+            item = item.strip()
+            if not item:
+                continue
+            key, sep, val = item.partition("=")
+            key = key.strip()
+            if not sep:
+                raise ValueError(
+                    f"storage-fault option {item!r}: expected key=value")
+            if key not in ("rate", "ms", "frac"):
+                raise ValueError(
+                    f"unknown storage-fault option {key!r}; "
+                    f"known: rate, ms, frac")
+            kw[key] = float(val)
+        return StorageFaultSpec(**kw)
+
+
+class StorageFaultPlan:
+    """Active storage-fault kinds + the FaultPlan activation interface,
+    so storm schedulers drive disk degradation exactly like edge and
+    device faults."""
+
+    def __init__(self, kinds: Mapping[str, StorageFaultSpec] | None = None,
+                 seed: int = 0, active: bool = True):
+        for k in (kinds or {}):
+            if k not in STORAGE_FAULT_KINDS:
+                raise ValueError(
+                    f"unknown storage fault {k!r}; known: "
+                    f"{STORAGE_FAULT_KINDS}")
+        self.kinds = dict(kinds or {})
+        self._rng = random.Random(seed)
+        self._mu = threading.Lock()
+        self._active = threading.Event()
+        if active:
+            self._active.set()
+        self.activations = 0
+        self.injected: dict[str, int] = {}
+
+    @staticmethod
+    def from_string(text: str, seed: int = 0,
+                    active: bool = True) -> "StorageFaultPlan":
+        """``"bitrot;torn_write:rate=0.5"`` -> StorageFaultPlan (the
+        CCFD_STORAGE_FAULTS syntax). Empty text means an empty plan."""
+        kinds: dict[str, StorageFaultSpec] = {}
+        for part in text.split(";"):
+            part = part.strip()
+            if not part:
+                continue
+            kind, _sep, body = part.partition(":")
+            kinds[kind.strip()] = StorageFaultSpec.parse(body)
+        return StorageFaultPlan(kinds, seed=seed, active=active)
+
+    @property
+    def active(self) -> bool:
+        return self._active.is_set()
+
+    def activate(self) -> None:
+        self.activations += 1
+        self._active.set()
+
+    def deactivate(self) -> None:
+        self._active.clear()
+
+    def draw(self, kind: str) -> StorageFaultSpec | None:
+        """The kind's spec when the plan is active AND its rate draw
+        fires — one call per write per kind (runtime/durability.py)."""
+        if not self._active.is_set():
+            return None
+        s = self.kinds.get(kind)
+        if s is None:
+            return None
+        with self._mu:
+            if self._rng.random() >= s.rate:
+                return None
+            self.injected[kind] = self.injected.get(kind, 0) + 1
+        return s
+
+
+_STORAGE_PLAN: StorageFaultPlan | None = None
+
+
+def install_storage_faults(plan: StorageFaultPlan | None) -> None:
+    """Install (or, with None, clear) the process-wide storage-fault plan
+    the durability seam consults. Process-wide for the same reason the
+    device plan is: the seam sits inside constructors and module-level
+    helpers no injector proxy could wrap."""
+    global _STORAGE_PLAN
+    _STORAGE_PLAN = plan
+
+
+def storage_faults() -> StorageFaultPlan | None:
+    return _STORAGE_PLAN
+
+
+def device_oom_overlay() -> float | None:
+    """The injected allocator-pressure ratio, or None. Consulted by
+    DeviceTelemetry.device_memory() so the OOM signal is drillable on
+    devices that report no allocator stats (the CPU)."""
+    plan = _DEVICE_PLAN
+    if plan is None:
+        return None
+    s = plan.spec("device_oom")
+    if s is None:
+        return None
+    # one injection per activation window, not per read: device_memory()
+    # runs on every scrape / bench meter / heal tick, and a read-rate
+    # artifact would make injected[] counts incomparable across kinds
+    if plan._oom_counted_epoch != plan.activations:
+        plan._oom_counted_epoch = plan.activations
+        plan._count("device_oom")
+    return s.oom_ratio

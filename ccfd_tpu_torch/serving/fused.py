@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from ccfd_tpu_torch.observability.device import settle_copies, timed_copy
+from ccfd_tpu_torch.runtime.faults import device_seam
 from ccfd_tpu_torch.observability.profile import compile_stage
 from ccfd_tpu_torch.ops import fused_mlp, fused_mlp_q8
 from ccfd_tpu_torch.ops.fused_decision import (
@@ -197,6 +198,9 @@ class FusedDecisionScorer:
         while start < n:
             take = min(n - start, largest)
             b = base.bucket(take)
+            # the same fault seam as the staged dispatch: an injected
+            # device_hang or compile_stall rides the plane too
+            device_seam("dispatch")
             with self._lock:
                 self._dispatch_counts[b] = self._dispatch_counts.get(b, 0) + 1
             pending.append(self._launch(live, x[start:start + take], b))

@@ -32,11 +32,14 @@ routing tier, which sees every transaction in arrival order.
   the params are the int8 tree (``swap_params`` re-binds on that). The
   forward is torch code (the reference leaves it to XLA): it launches
   none of the port's hand kernels.
+- **Fault seams.** ``device_seam("dispatch")`` before each (L, B) launch
+  and ``device_seam("put")`` before each history copy (runtime/faults.py),
+  as the reference's: the heal ladder drills the seq path too.
 
 Not carried over here: a ``mesh``, a ``partitioner`` and ``seq_parallel``
 other than ``none`` (the sharded seq path, ROADMAP A15b) are refused by
 name; the challenger slot, the shadow tap and the canary gate wait for the
-model lifecycle (A12); the device fault seam for the fault plans (A6).
+model lifecycle (A12).
 """
 from __future__ import annotations
 
@@ -51,6 +54,8 @@ import torch
 
 from ccfd_tpu_torch.data.ccfd import NUM_FEATURES
 from ccfd_tpu_torch.device import resolve
+from ccfd_tpu_torch.observability.device import settle_copies, timed_copy
+from ccfd_tpu_torch.runtime.faults import device_seam
 
 DEFAULT_STRIPES = 8
 # short-sequence ladder OFF by default: bucketed windows attend fewer
@@ -602,16 +607,19 @@ class SeqScorer:
         """Copy ``sub`` to the device and launch the forward; on the card
         the first ``m`` probabilities are copied back into a pinned buffer
         without blocking and an event is recorded after the copy."""
-        xs = torch.from_numpy(sub).to(self.device, non_blocking=True)
+        # the row scorer's staging copy: the put_fail seam, the failure
+        # count and the copy's bytes and time (observability/device.py)
+        xs, tok = timed_copy(self.telemetry, torch.from_numpy(sub), self.device)
         proba = apply_fn(params, xs)
         self.dispatches += 1
         if self.device.type != "cuda":
-            return None, proba[:m]
+            settle_copies(self.telemetry, (tok,))
+            return None, proba[:m], None
         host = torch.empty((m,), dtype=torch.float32, pin_memory=True)
         host.copy_(proba[:m], non_blocking=True)
         ev = torch.cuda.Event()
         ev.record()
-        return ev, host
+        return ev, host, tok
 
     def score(self, x: np.ndarray, ids: list | None = None) -> np.ndarray:
         """Router-compatible scorer: (B, F) rows -> (B,) probabilities,
@@ -694,11 +702,13 @@ class SeqScorer:
                         params, apply_fn = self.params, self._apply
                     t_asm += time.perf_counter() - t0
                     t0 = time.perf_counter()
-                    ev, proba = self._launch(apply_fn, params, sub, m)
+                    # the device-fault dispatch seam (runtime/faults.py):
+                    # device_hang and compile_stall drill the heal ladder
+                    # through the seq path's own dispatch loop
+                    device_seam("dispatch")
+                    ev, proba, tok = self._launch(apply_fn, params, sub, m)
                     t_disp += time.perf_counter() - t0
-                    if self.telemetry is not None:
-                        self.telemetry.record_h2d(sub.nbytes)
-                    pending.append((ev, proba, sub_idx + start))
+                    pending.append((ev, proba, tok, sub_idx + start))
                     if self._c_bucket is not None:
                         self._c_bucket.inc(labels={"l_bucket": str(lb), "b_bucket": str(bucket)})
                         self._c_bucket_rows.inc(m, labels={"l_bucket": str(lb)})
@@ -725,10 +735,11 @@ class SeqScorer:
     def _resolve(self, pending: deque, out: np.ndarray) -> float:
         """Wait for the oldest group and scatter its rows; returns the
         blocking wait (the dispatch time the overlap failed to hide)."""
-        ev, proba, idx = pending.popleft()
+        ev, proba, tok, idx = pending.popleft()
         t0 = time.perf_counter()
         if ev is not None:
             ev.synchronize()
+            settle_copies(self.telemetry, (tok,))
         out[idx] = proba.numpy()
         dt = time.perf_counter() - t0
         if self._g_inflight is not None:

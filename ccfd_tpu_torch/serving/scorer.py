@@ -56,6 +56,13 @@ port of ccfd_tpu/serving/scorer.py's ``Scorer``.
   serving/fused.py) run every bucket against the staged params between
   the staging and the flip; a hook that raises fails the swap before the
   flip, as params that do not fold do.
+- **Fault seams** (runtime/faults.py, as the reference's):
+  ``device_seam("dispatch")`` before each launch of ``score_pipelined``
+  (``device_hang``, ``compile_stall``) and ``device_seam("put")`` inside
+  each staging copy (``observability/device.py::timed_copy``,
+  ``put_fail``). ``warmup`` launches every bucket without the dispatch
+  seam, as the reference's warmup does; the heal supervisor's canary goes
+  through ``score_pipelined``.
 """
 
 from __future__ import annotations
@@ -74,6 +81,7 @@ from ccfd_tpu_torch.observability.device import settle_copies, timed_copy
 from ccfd_tpu_torch.observability.profile import compile_stage
 from ccfd_tpu_torch.ops import fused_mlp, fused_mlp_q8
 from ccfd_tpu_torch.params import tensor_leaf, to_numpy, tree_map
+from ccfd_tpu_torch.runtime.faults import device_seam
 from ccfd_tpu_torch.serving.dispatch import DeviceDispatcher, ScorerTimeout, WedgeMonitor
 
 _DTYPES = {
@@ -320,6 +328,11 @@ class Scorer:
         while start < n:
             take = min(n - start, largest)
             b = self.bucket(take)
+            # the device-fault dispatch seam (runtime/faults.py):
+            # device_hang stalls this dispatch past its watchdog,
+            # compile_stall bills a synthetic build; the taxonomy the heal
+            # ladder drills
+            device_seam("dispatch")
             with self._lock:  # batcher workers share this scorer
                 self._dispatch_counts[b] = self._dispatch_counts.get(b, 0) + 1
             pending.append(self._launch(live, x[start:start + take], b))
@@ -349,6 +362,14 @@ class Scorer:
                 self.dispatch_timeouts += 1
             self._wedge.mark_wedged()
             raise
+
+    def drop_device_state(self) -> None:
+        """Forget the per-bucket state this scorer keeps about the card (the
+        warmed set): the heal ladder's reinit rung calls it after emptying
+        the allocator's cache, and its warm step warms every bucket again.
+        The params stay staged."""
+        with self._lock:
+            self._warmed.clear()
 
     @property
     def wedged(self) -> bool:

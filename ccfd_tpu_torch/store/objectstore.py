@@ -144,7 +144,7 @@ class ObjectStore:
                 from ccfd_tpu_torch.runtime.durability import atomic_write_bytes
 
                 p = self._path(bucket, key)
-                atomic_write_bytes(p, data)
+                atomic_write_bytes(p, data, artifact="object")
         return ObjectInfo(key, len(data), _etag(data), now)
 
     def get(self, bucket: str, key: str) -> bytes:

@@ -7,7 +7,8 @@ pipeline of ``python -m ccfd_tpu_torch demo`` with and without its online
 trainer, the service roles as separate processes, and the reference's
 other Seldon models: logreg/modelfull, the tree family, the inference
 graph and the ``score`` command, the seq family with its history store, the
-user-task model and the investigator) and holds each CUDA kernel against
+user-task model and the investigator, and the card as a fallible component:
+the heal supervisor, the fault plans, the chaos monkey and the audit plane) and holds each CUDA kernel against
 its plain PyTorch version. Each kernel's ``launches`` in the
 kernels line sum the runs of the paths through it (train, serve, demo and
 services; in each role process, its dispatches, read off its scrape). The
@@ -269,6 +270,44 @@ wire).
                tasks` lists the open tasks, `tasks --complete ID --outcome
                rejected` completes one, `investigate` works the queue for 5
                s over the engine REST and completes tasks
+  heal     the card as a fallible component (runtime/heal.py, runtime/faults.py,
+           runtime/chaos.py, observability/audit.py), each part with every
+           launch count set to 0 just before it and read just after:
+           (a) the drill on B1 in process: bus -> router (ladder on, the
+               dispatch watchdog, the profiler, an AuditLog with a
+               directory, the gate: the storage pin composed with a
+               DeviceSupervisor ticking every 0.2 s, canary deadline 250
+               ms) -> a Scorer on the card (the committed checkpoint) ->
+               engine; 2,000 transactions on the device tier; device_hang
+               :ms=400 on with no traffic: healthy -> suspect ->
+               quarantined; 2,000 transactions all on the host tier
+               (cause quarantine; no router dispatch, B1 launched only for
+               the canaries); the fault off: the ladder, the warm step
+               (every bucket, under heal.warm) and the probation canaries
+               with host parity, healthy; 2,000 transactions on the device
+               tier with no build billed to a serving label and the host
+               counter still; ccfd_device_health, and `audit <tx_id>`
+               offline on the directory equal to /decisions/<tx_id>; B1
+               launches = dispatches + a bucket a warm step; the canary's
+               wall and B1's device time in it, the audit plane's cost
+               (4,000-row bursts with it on and off, the stamping a row, a
+               flush and its bytes a record);
+           (b) at the tick() surface on the card: put_fail through
+               h2d_failures() (no H2D bytes), device_oom:ratio=0.99 and
+               compile_stall (a build storm on a serving label) each
+               quarantine and heal once the fault is off; one
+               hang-and-heal cycle on mlp_q8 on each wire (B3, then B2),
+               launches = dispatches + warmups;
+           (c) the port's CR in process with chaos on: the monkey kills the
+               router every 2 s and runs device_hang storms (2 s every 2
+               s) under 10,000 producer transactions at 1,000/s: every one
+               started once, at least one quarantine and one re-promotion,
+               one audit record a routed transaction, B1 launches =
+               dispatches + warmups, tx/s; and the engine's state file
+               under CCFD_STORAGE_FAULTS=bitrot: a platform saves cleanly,
+               a second saves under the plan and stops without its
+               shutdown save, a third quarantines the file to *.corrupt
+               and loads the last good generation
   models   the reference's other Seldon models, torch code on the card (no
            hand kernel: the reference leaves them to XLA):
            (a) card against CPU, the same port function, B=16 and 16,384:
@@ -327,7 +366,7 @@ import time
 import urllib.request
 
 PHASES = ("device", "build", "parity", "train", "serve", "decision", "demo", "services",
-          "platform", "seq", "tasks", "models", "timing")
+          "platform", "seq", "tasks", "heal", "models", "timing")
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 7
 PARITY_BATCHES = (1, 16, 100, 1024, 16384)
@@ -482,6 +521,21 @@ TASK_INVESTIGATE_S = 5
 # its confidence near the class balance)
 TASK_ENV = {"FRAUD_THRESHOLD": "0.0", "CCFD_LOW_AMOUNT": "75", "CCFD_LOW_PROBA": "1.01",
             "CONFIDENCE_THRESHOLD": "0.6", "CCFD_REPLY_TIMEOUT_S": "1.0"}
+# the heal phase (runtime/heal.py, runtime/chaos.py, observability/audit.py)
+HEAL_ROWS = 2_000  # transactions before, during and after the quarantine
+HEAL_BURST = 4_000  # each of the audit-on and audit-off bursts
+HEAL_INTERVAL_S = 0.2  # the supervisor's tick, and its backoff base
+HEAL_CANARY_MS = 250.0  # the canary's deadline (the reference's default)
+HEAL_HANG = "device_hang:ms=400"
+HEAL_CANARIES = 50  # canaries timed for the wall and device time
+AUDIT_ROWS = 4_096  # rows a record_batch when the stamping is timed
+AUDIT_ROUNDS = 2  # bursts with the audit plane on, and as many off, in turns
+CHAOS_ROWS = 10_000
+CHAOS_RATE = 1_000  # producer rows/s
+CHAOS_KILL_S = 2.0  # the monkey kills the router this often
+CHAOS_STORM_EVERY_S = 2.0
+CHAOS_STORM_S = 2.0
+BITROT_ROWS = 1_000
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12  # float32 outside the tensor cores, NVIDIA data sheet
 BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, NVIDIA data sheet
@@ -687,6 +741,21 @@ def pipe_settled(pipe, n: int, what: str) -> float:
 
 def launches_of(m: dict) -> float:
     return m.get('ccfd_kernel_launches{kernel="fused_mlp_bf16"}', 0.0)
+
+
+def settled_launches(dispatches, counter, extra: int, timeout_s: float = 2.0) -> tuple:
+    """(dispatches, launches) of a platform read after its ``down()``, once
+    every counted dispatch has launched. The heal supervisor's canary
+    counts its dispatch just before it launches, at any tick while the
+    platform is up, and a canary abandoned past its deadline launches when
+    its hang ends; ``down()`` stops new ticks. ``extra`` is the launches
+    that no dispatch counts (the warm steps)."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        d, n = dispatches(), counter.value
+        if n == d + extra or time.monotonic() > deadline:
+            return d, n
+        time.sleep(0.01)
 
 
 def check_conservation(tag: str, m: dict, kie: dict, produced: int,
@@ -2763,7 +2832,6 @@ class Smoke:
                 time.sleep(0.01)
 
         p = Platform(PlatformSpec.from_cr(cr, cfg=cfg)).up(wait_ready_s=120)
-        dispatched = 0
         try:
             incoming = p.registries["router"].counter("transaction_incoming_total")
 
@@ -2805,7 +2873,6 @@ class Smoke:
             next_pid = p.engine.snapshot()["next_pid"]
             start_errors = p.registries["router"].counter(
                 "router_process_start_errors_total").total()
-            dispatched += p.scorer.dispatch_total()
         finally:
             p.down()
         saved = read_json_artifact(cut_path, artifact="recovery_cut", quarantine=False)
@@ -2817,11 +2884,12 @@ class Smoke:
             same = (boot["snap"] == saved["snap"] and boot["offsets"] == saved["offsets"])
             boot_pid = p2.engine.snapshot()["next_pid"]
             restores2 = p2.recovery.restores
-            dispatched += p2.scorer.dispatch_total()
         finally:
             p2.down()
-        launched = counters["fused_mlp_bf16"].value
         warm = 2 * len(cfg.batch_sizes)
+        dispatched, launched = settled_launches(
+            lambda: p.scorer.dispatch_total() + p2.scorer.dispatch_total(),
+            counters["fused_mlp_bf16"], warm)
         fails = []
         if next_pid - 1 != n1 + n2:
             fails.append(f"the engine started {next_pid - 1} processes for {n1 + n2} rows")
@@ -2899,10 +2967,11 @@ class Smoke:
                         doc = p.profiler.snapshot()["stages"]
                         h2d = p.device_telemetry.h2d_digest().to_dict()
                         h2d_bytes = p.device_telemetry.h2d_bytes()
-                        dispatched = p.scorer.dispatch_total()
                         warm = len(p.scorer.batch_sizes)
                     finally:
                         p.down()
+                dispatched, b1 = settled_launches(p.scorer.dispatch_total,
+                                                  counters["fused_mlp_bf16"], warm)
                 events = prof.key_averages()
                 busy = sum(getattr(e, "self_device_time_total", None)
                            or getattr(e, "self_cuda_time_total", 0.0) for e in events) / 1e6
@@ -2913,7 +2982,6 @@ class Smoke:
                 htod_us = sum(getattr(e, "self_device_time_total", None)
                               or getattr(e, "self_cuda_time_total", 0.0) for e in htod)
                 htod_n = sum(e.count for e in htod)
-                b1 = counters["fused_mlp_bf16"].value
                 launched += b1
                 if incoming != n or routed != n or b1 != dispatched + warm:
                     raise AssertionError(f"{tag}: {n} produced, {incoming} incoming, {routed} "
@@ -2950,6 +3018,610 @@ class Smoke:
                 os.environ["CCFD_CSV"] = old_csv
             shutil.rmtree(tmp, ignore_errors=True)
         return int(launched)
+
+    # -- heal: the card as a fallible component -----------------------------
+    def heal(self) -> None:
+        """(a) The heal drill on B1 in process, (b) the other signals at the
+        supervisor's tick() surface and a hang-and-heal cycle on B3 and B2,
+        (c) the operator with chaos on: the monkey's router kills and a
+        device-hang storm, and the engine's state file under bitrot."""
+        self.heal_drill()
+        self.heal_signals()
+        self.heal_operator()
+        self.heal_bitrot()
+
+    def heal_pipeline(self, tmp: str) -> dict:
+        """The drill's pieces: bus -> router (ladder on, the watchdog, the
+        profiler, the audit log with a directory, the gate: the storage pin
+        composed with the supervisor) -> a Scorer on the card (B1, the
+        committed checkpoint) -> engine, and the exporter."""
+        from ccfd_tpu_torch.bus.broker import Broker
+        from ccfd_tpu_torch.config import Config
+        from ccfd_tpu_torch.metrics.exporter import MetricsExporter
+        from ccfd_tpu_torch.metrics.prom import Registry
+        from ccfd_tpu_torch.observability.audit import AuditLog
+        from ccfd_tpu_torch.observability.device import DeviceTelemetry
+        from ccfd_tpu_torch.observability.profile import StageProfiler
+        from ccfd_tpu_torch.process.fraud import build_engine
+        from ccfd_tpu_torch.router.router import Router
+        from ccfd_tpu_torch.runtime.durability import ComposedHealGate, StoragePinGate
+        from ccfd_tpu_torch.runtime.heal import DeviceSupervisor
+        from ccfd_tpu_torch.runtime.overload import OverloadControl
+        from ccfd_tpu_torch.serving.scorer import Scorer
+
+        cfg = Config.from_env()
+        regs = {n: Registry() for n in ("router", "heal", "device", "slo", "audit", "kie")}
+        tele = DeviceTelemetry(registry=regs["device"])
+        prof = StageProfiler(registry=regs["slo"])
+        prof.arm_compile_listener()
+        scorer = Scorer(model_name="mlp", params=self.params("checkpoint"),
+                        batch_sizes=cfg.batch_sizes, device=self.dev, telemetry=tele)
+        scorer.warmup()
+        router_calls = [0]
+
+        def router_score(x):
+            router_calls[0] += 1
+            return scorer.score(x)
+
+        broker = Broker(default_partitions=2)
+        ov = OverloadControl.from_config(cfg, regs["router"], max_batch=4096, on_card=True)
+        audit = AuditLog(dir=os.path.join(tmp, "audit"), registry=regs["audit"])
+        engine = build_engine(cfg, broker, regs["kie"], None)
+        router = Router(cfg, broker, router_score, engine, regs["router"],
+                        host_score_fn=scorer.host_score, degrade=True, overload=ov,
+                        profiler=prof, audit=audit)
+        # as the operator wires it: the supervisor watches the router's
+        # scorer-edge breaker, and the router's gate is the storage pin
+        # composed with the supervisor
+        sup = DeviceSupervisor(scorer, registry=regs["heal"], breaker=router._breaker,
+                               telemetry=tele, profiler=prof, overload=ov,
+                               canary_deadline_ms=HEAL_CANARY_MS,
+                               backoff_base_s=HEAL_INTERVAL_S, backoff_cap_s=1.0)
+        router.set_heal_gate(ComposedHealGate(StoragePinGate(), sup))
+        exporter = MetricsExporter(regs, profiler=prof, telemetry=tele, audit=audit).start()
+        return {"cfg": cfg, "regs": regs, "tele": tele, "prof": prof, "scorer": scorer,
+                "router_calls": router_calls, "broker": broker, "audit": audit, "sup": sup,
+                "engine": engine, "router": router, "exporter": exporter}
+
+    def heal_drill(self) -> None:
+        """(a) Baseline traffic on the device tier; ``device_hang`` on with
+        no traffic flowing until the supervisor quarantines; traffic on the
+        host tier (cause quarantine) while B1 launches only for the
+        canaries; the fault off, the warm probation and the flip; traffic on
+        the device tier again with no build on a serving label; the health
+        gauge, ``/decisions/<tx_id>`` against ``audit <tx_id>`` offline; then
+        the canary's wall and device time, the audit plane's cost."""
+        import contextlib
+        import gc
+        import io
+
+        from ccfd_tpu_torch import cli
+        from ccfd_tpu_torch.data.ccfd import Dataset, iter_transactions
+        from ccfd_tpu_torch.data.surrogate import kaggle_surrogate
+        from ccfd_tpu_torch.observability.profile import builds_total
+        from ccfd_tpu_torch.runtime import faults
+        from ccfd_tpu_torch.runtime.heal import NON_SERVING_COMPILE_STAGES
+        from ccfd_tpu_torch.utils.gctune import tune_for_service
+
+        tag = "heal (a)"
+        tmp = tempfile.mkdtemp(prefix="ccfd_heal_")
+        n = HEAL_ROWS
+        ds = kaggle_surrogate(n=3 * n + 4 * AUDIT_ROUNDS * HEAL_BURST, seed=SEED)
+        rows = list(iter_transactions(Dataset(X=ds.X, y=ds.y)))
+        pl = self.heal_pipeline(tmp)
+        cfg, regs, scorer, sup, audit, router = (pl[k] for k in (
+            "cfg", "regs", "scorer", "sup", "audit", "router"))
+        rr = regs["router"]
+        out_c = rr.counter("transaction_outgoing_total")
+        degraded = rr.counter("router_degraded_total")
+        warm_ms = []
+        warmup = scorer.warmup
+
+        def timed_warmup():
+            t = time.perf_counter()
+            warmup()
+            warm_ms.append((time.perf_counter() - t) * 1e3)
+
+        scorer.warmup = timed_warmup
+        counters = self.counters()
+        for c in counters.values():
+            c.reset()
+        builds0 = builds_total()
+        threads = [threading.Thread(target=sup.run, args=(HEAL_INTERVAL_S,), daemon=True),
+                   threading.Thread(target=audit.run, args=(0.25,), daemon=True)]
+        for t in threads:
+            t.start()
+        rt = router.start(poll_timeout_s=0.02)
+        done = [0, 0]  # routed, stamped
+
+        def burst(part: list) -> float:
+            """Produce ``part`` and wait until it is routed and (the audit
+            plane armed) stamped: the route seam stamps a batch after its
+            starts are counted."""
+            t = time.perf_counter()
+            pl["broker"].produce_batch(cfg.kafka_topic, part, [r["id"] for r in part])
+            done[0] += len(part)
+            done[1] += len(part) if router._audit is not None else 0
+            self.heal_wait(lambda: out_c.total() >= done[0]
+                           and audit.counts()["recorded"] >= done[1],
+                           f"{tag}: {done[0]} routed")
+            return time.perf_counter() - t
+
+        def tiers(part: list) -> dict:
+            got: dict = {}
+            for r in part:
+                rec = audit.get(r["id"])
+                key = (rec["tier"], rec.get("cause")) if rec else None
+                got[key] = got.get(key, 0) + 1
+            return got
+
+        def serving_builds() -> int:
+            return sum(v for s, v in pl["prof"].compile_counts().items()
+                       if s not in NON_SERVING_COMPILE_STAGES)
+
+        b1 = counters["fused_mlp_bf16"]
+        offset = b1.value - scorer.dispatch_total()
+
+        def quiet() -> tuple:
+            """(dispatches, B1 launches) at a moment when every counted
+            dispatch has launched: a canary counts its dispatch just before
+            its launch, and a hung one wakes when it will."""
+            for _ in range(400):
+                d, launches = scorer.dispatch_total(), b1.value
+                if launches - d == offset:
+                    return d, launches
+                time.sleep(0.005)
+            raise AssertionError(f"{tag}: B1 launches {b1.value} never matched the "
+                                 f"dispatches {scorer.dispatch_total()}")
+
+        try:
+            burst(rows[:n])
+            base = tiers(rows[:n])
+            if base != {("device", None): n} or sup.state != "healthy":
+                raise AssertionError(f"{tag}: baseline {base}, state {sup.state}")
+            # the fault on with no traffic: a hung dispatch of live traffic
+            # would trip the breaker first
+            plan = faults.DeviceFaultPlan.from_string(HEAL_HANG)
+            t0 = time.perf_counter()
+            faults.install_device_faults(plan)
+            states = [sup.state]
+            self.heal_wait(lambda: states.append(sup.state) or sup.state == "quarantined",
+                           f"{tag}: the quarantine", 30)
+            to_quarantine = time.perf_counter() - t0
+            seen = [s for i, s in enumerate(states) if i == 0 or s != states[i - 1]]
+            calls0, (disp0, l0) = pl["router_calls"][0], quiet()
+            host0 = degraded.value({"tier": "host"})
+            burst(rows[n:2 * n])
+            calls1, (disp1, l1) = pl["router_calls"][0], quiet()
+            held = sup.state
+            host_rows = degraded.value({"tier": "host"}) - host0
+            during = tiers(rows[n:2 * n])
+            # the fault off: the ladder, the warm probation and the flip
+            t1 = time.perf_counter()
+            faults.install_device_faults(None)
+            self.heal_wait(lambda: sup.state == "healthy", f"{tag}: the re-promotion", 60)
+            to_healthy = time.perf_counter() - t1
+            time.sleep(2 * HEAL_INTERVAL_S)
+            serving0, host1 = serving_builds(), degraded.value({"tier": "host"})
+            calls2 = pl["router_calls"][0]
+            burst(rows[2 * n:3 * n])
+            after = tiers(rows[2 * n:3 * n])
+            serving1 = serving_builds()
+            host2 = degraded.value({"tier": "host"})
+            calls3 = pl["router_calls"][0]
+            # the audit plane's cost on the same router: bursts with it on
+            # and off in turns, under this process's collector and then
+            # under the services' tuning (utils/gctune.py, as `up` runs),
+            # with the collections each side paid
+            cost = {}
+            old_gc = gc.get_threshold()
+            for tuned in (False, True):
+                if tuned:
+                    tune_for_service()
+                t_on = t_off = 0.0
+                coll = {True: [0, 0, 0], False: [0, 0, 0]}
+                for k in range(2 * AUDIT_ROUNDS):
+                    lo = 3 * n + (2 * AUDIT_ROUNDS * tuned + k) * HEAL_BURST
+                    on = k % 2 == 0
+                    router._audit = audit if on else None
+                    g0 = [st["collections"] for st in gc.get_stats()]
+                    dt = burst(rows[lo:lo + HEAL_BURST])
+                    coll[on] = [c + st["collections"] - g for c, st, g in
+                                zip(coll[on], gc.get_stats(), g0)]
+                    t_on, t_off = (t_on + dt, t_off) if on else (t_on, t_off + dt)
+                cost[tuned] = (AUDIT_ROUNDS * HEAL_BURST / t_on,
+                               AUDIT_ROUNDS * HEAL_BURST / t_off, coll[True], coll[False])
+            gc.unfreeze()
+            gc.set_threshold(*old_gc)
+            router._audit = audit
+        finally:
+            faults.install_device_faults(None)
+            router.stop()
+            rt.join(timeout=10)
+            sup.stop()
+            audit.stop()
+            for t in threads:
+                t.join(timeout=10)
+        launched = b1.value
+        dispatched = scorer.dispatch_total()
+        hs = sup.status()
+        probations = regs["heal"].counter("ccfd_heal_transitions_total").value(
+            {"to": "probation"})
+        warm = len(scorer.batch_sizes)
+        health = scrape(f"{pl['exporter'].endpoint}/prometheus")
+        gauge = health.get(f'ccfd_device_health{{device="{sup.device}",state="healthy"}}')
+        tx = rows[n + 7]["id"]
+        with urllib.request.urlopen(f"{pl['exporter'].endpoint}/decisions/{tx}",
+                                    timeout=10) as r:
+            live = json.loads(r.read())
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["audit", str(tx), "--dir", os.path.join(tmp, "audit"), "--json"])
+        offline = json.loads(buf.getvalue())
+        fails = []
+        if seen[-3:] != ["healthy", "suspect", "quarantined"]:
+            fails.append(f"states on the way to quarantine {seen}")
+        if held != "quarantined" or during != {("host", "quarantine"): n} or host_rows != n:
+            fails.append(f"while quarantined: state {held}, records {during}, host tier "
+                         f"{host_rows}")
+        if calls1 != calls0 or l1 - l0 != disp1 - disp0:
+            fails.append(f"while quarantined: router dispatches {calls1 - calls0}, B1 "
+                         f"launches {l1 - l0} for {disp1 - disp0} canary dispatches")
+        if after != {("device", None): n} or host2 != host1 or calls3 == calls2:
+            fails.append(f"after the flip: records {after}, host tier {host1} -> {host2}")
+        if serving1 != serving0 or serving0 != 0 or builds_total() != builds0:
+            fails.append(f"builds on serving labels {serving0} -> {serving1}, compiler runs "
+                         f"{builds_total() - builds0}")
+        # the counts were set to 0 after the scorer's own warmup: B1
+        # launches once a dispatch (router, canaries) and once a bucket a
+        # warm step
+        if launched != dispatched + warm * probations:
+            fails.append(f"B1 launches {launched} != dispatches {dispatched} + {warm} x "
+                         f"{probations} warm steps")
+        if not launched or not hs["repromotions"] or not probations or len(warm_ms) != probations:
+            fails.append(f"launches {launched}, status {hs}, warm steps {warm_ms}")
+        if gauge != 1.0:
+            fails.append(f"ccfd_device_health healthy = {gauge}")
+        if rc != 0 or offline["record"] != live or live.get("cause") != "quarantine":
+            fails.append(f"audit {tx}: rc {rc}, offline {offline.get('record')} != {live}")
+        if audit.counts()["recorded"] != 3 * n + 2 * AUDIT_ROUNDS * HEAL_BURST:
+            fails.append(f"audit recorded {audit.counts()} for the routed rows")
+        pl["exporter"].stop()
+        router.close()
+        if fails:
+            raise AssertionError(f"{tag}: " + "; ".join(fails))
+        self.reports["fused_mlp_bf16"]["launches"] += launched
+        # the numbers: the canary's wall and B1's device time inside it,
+        # the stamping a row, the flush
+        import numpy as np
+
+        from ccfd_tpu_torch.observability.audit import AuditLog
+
+        walls = []
+        for _ in range(HEAL_CANARIES):
+            t = time.perf_counter()
+            sup._device_dispatch()
+            walls.append((time.perf_counter() - t) * 1e3)
+        dev_ms = self.device_ms(lambda: scorer.score_pipelined(sup._probe_x, depth=1),
+                                DEVICE_NAMES["fused_mlp_bf16"])
+        stamp = AuditLog(clock=time.time)
+        recs = [{"tx": i, "uid": f"0:{i}", "ts": 1.0, "proba": 0.5, "rule": "standard",
+                 "branch": "standard", "pid": i, "priority": "normal"}
+                for i in range(AUDIT_ROWS)]
+        t = time.perf_counter()
+        for k in range(5):
+            stamp.record_batch([dict(r, uid=f"{k}:{r['pid']}") for r in recs],
+                               threshold=0.5, worker=0)
+        stamp_us = (time.perf_counter() - t) / (5 * AUDIT_ROWS) * 1e6
+        flushed = AuditLog(dir=os.path.join(tmp, "flush"), clock=time.time)
+        flushed.record_batch([dict(r) for r in recs], threshold=0.5, worker=0)
+        t = time.perf_counter()
+        landed = flushed.flush()
+        flush_ms = (time.perf_counter() - t) * 1e3
+        seg_bytes = sum(os.path.getsize(os.path.join(tmp, "flush", f))
+                        for f in os.listdir(os.path.join(tmp, "flush")))
+        walls_a = np.asarray(walls)
+        log("heal", f"ok: {tag}: {n} baseline transactions on the device tier; "
+            f"{HEAL_HANG} on with no traffic: {' -> '.join(seen[-3:])} in "
+            f"{to_quarantine:.3f} s; {n} transactions while quarantined all on the host tier "
+            f"(cause quarantine; router dispatches 0, B1 launches {l1 - l0} = the canaries' "
+            f"{disp1 - disp0} dispatches); the fault off -> healthy in {to_healthy:.3f} s "
+            f"({hs['quarantines']} quarantine(s), {probations:.0f} probation(s), warm step "
+            f"{', '.join(f'{w:.3f}' for w in warm_ms)} ms at {warm} buckets); {n} "
+            f"transactions after the flip on the device tier, builds on serving labels "
+            f"{serving1}; ccfd_device_health healthy 1; audit {tx} offline equal to "
+            f"/decisions; B1 launches {launched} = dispatches {dispatched} + {warm} x "
+            f"{probations:.0f} warm steps on {self.card}")
+        log("heal", f"{tag}: the canary ({len(sup._probe_x)} rows, bucket "
+            f"{scorer.bucket(len(sup._probe_x))}) wall p50 {np.median(walls_a):.3f} ms p99 "
+            f"{np.quantile(walls_a, 0.99):.3f} ms over {HEAL_CANARIES}; B1's device time "
+            f"inside it {dev_ms if dev_ms is None else f'{dev_ms:.6f}'} ms; router bursts of "
+            f"{HEAL_BURST}, the audit on and off in turns, {AUDIT_ROUNDS} each: "
+            + "; ".join(f"{'services GC tuning' if tuned else 'default GC'}: on {on:.1f} "
+                        f"tx/s, off {off:.1f} tx/s (collections by generation on {c_on}, "
+                        f"off {c_off})" for tuned, (on, off, c_on, c_off) in cost.items())
+            + f"; stamping {stamp_us:.3f} us a row "
+            f"(record_batch of {AUDIT_ROWS}); a flush of {landed} records {flush_ms:.3f} ms, "
+            f"{seg_bytes / max(1, landed):.1f} bytes a record on {self.card}")
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    @staticmethod
+    def heal_wait(pred, what: str, timeout: float = 120.0) -> None:
+        deadline = time.monotonic() + timeout
+        while not pred():
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{what} not reached in {timeout} s")
+            time.sleep(0.005)
+
+    def heal_signals(self) -> None:
+        """(b) Each of the other signals on the card at the tick() surface:
+        ``put_fail`` through ``h2d_failures()``, ``device_oom:ratio=0.99``,
+        ``compile_stall`` as a build storm; each quarantines and heals once
+        the fault is off. Then one hang-and-heal cycle on an ``mlp_q8``
+        scorer on each wire (B3, then B2)."""
+        from ccfd_tpu_torch.config import Config
+        from ccfd_tpu_torch.metrics.prom import Registry
+        from ccfd_tpu_torch.observability.device import DeviceTelemetry
+        from ccfd_tpu_torch.observability.profile import StageProfiler, compile_stage
+        from ccfd_tpu_torch.runtime import faults
+        from ccfd_tpu_torch.runtime.heal import DeviceSupervisor
+        from ccfd_tpu_torch.serving.scorer import Scorer
+
+        tag = "heal (b)"
+        cfg = Config.from_env()
+        x = self.rows[:300]
+        kw = dict(suspect_strikes=1, probation_canaries=2, canary_deadline_ms=HEAL_CANARY_MS,
+                  backoff_base_s=0.05, backoff_cap_s=0.2)
+
+        def heal_back(sup, what: str) -> float:
+            t = time.perf_counter()
+            for _ in range(400):
+                if sup.tick() == "healthy":
+                    return time.perf_counter() - t
+                time.sleep(0.02)
+            raise AssertionError(f"{tag}: {what}: not healthy again: {sup.status()}")
+
+        counters = self.counters()
+        for c in counters.values():
+            c.reset()
+        tele = DeviceTelemetry(registry=Registry())
+        prof = StageProfiler(registry=Registry())
+        prof.arm_compile_listener()
+        sc = Scorer(model_name="mlp", params=self.params("checkpoint"),
+                    batch_sizes=cfg.batch_sizes, device=self.dev, telemetry=tele)
+        sc.warmup()
+        results = []
+        try:
+            # put_fail: the failed staging copy counts, adds no bytes
+            sup = DeviceSupervisor(sc, telemetry=tele, **kw)
+            assert sup.tick() == "healthy"
+            f0, b0 = tele.h2d_failures(), tele.h2d_bytes()
+            faults.install_device_faults(faults.DeviceFaultPlan.from_string("put_fail"))
+            try:
+                sc.score_pipelined(x)
+                raise AssertionError(f"{tag}: put_fail: the staging copy did not fail")
+            except faults.InjectedFault:
+                pass
+            state = sup.tick()
+            reasons = sup.status()["reasons"]
+            fails_n, bytes_n = tele.h2d_failures() - f0, tele.h2d_bytes() - b0
+            faults.install_device_faults(None)
+            if state != "quarantined" or not any("put_fail" in r for r in reasons) \
+                    or fails_n < 1 or bytes_n:
+                raise AssertionError(f"{tag}: put_fail: {state}, {reasons}, failures "
+                                     f"{fails_n}, bytes {bytes_n}")
+            results.append(f"put_fail: {fails_n} failed copies (0 bytes) -> quarantined, "
+                           f"healthy {heal_back(sup, 'put_fail'):.3f} s after")
+            # device_oom: the overlay on cuda:0's real limit
+            sup = DeviceSupervisor(sc, telemetry=tele, **kw)
+            faults.install_device_faults(
+                faults.DeviceFaultPlan.from_string("device_oom:ratio=0.99"))
+            mem = tele.device_memory()
+            state, reasons = sup.tick(), sup.status()["reasons"]
+            faults.install_device_faults(None)
+            if state != "quarantined" or not any("device_oom" in r for r in reasons):
+                raise AssertionError(f"{tag}: device_oom: {state}, {reasons}")
+            results.append(f"device_oom:ratio=0.99 ({reasons[0]}; the card's limit "
+                           f"{max(e['bytes_limit'] for e in mem.values())} bytes) -> "
+                           f"quarantined, healthy "
+                           f"{heal_back(sup, 'device_oom'):.3f} s after")
+            # compile_stall: synthetic builds billed to a serving label
+            sup = DeviceSupervisor(sc, profiler=prof, compile_storm_per_s=2.0, **kw)
+            assert sup.tick() == "healthy"
+            faults.install_device_faults(
+                faults.DeviceFaultPlan.from_string("compile_stall:ms=1"))
+            with compile_stage("router.score"):
+                for _ in range(10):
+                    sc.score_pipelined(x[:16])
+            state, reasons = sup.tick(), sup.status()["reasons"]
+            faults.install_device_faults(None)
+            if state != "quarantined" or not any("compile_storm" in r for r in reasons):
+                raise AssertionError(f"{tag}: compile_stall: {state}, {reasons}")
+            results.append(f"compile_stall ({[r for r in reasons if 'compile' in r][0]}) -> "
+                           f"quarantined, healthy {heal_back(sup, 'compile_stall'):.3f} s after")
+        finally:
+            faults.install_device_faults(None)
+        b1 = counters["fused_mlp_bf16"].value
+        if b1 == 0:
+            raise AssertionError(f"{tag}: B1 never launched")
+        self.reports["fused_mlp_bf16"]["launches"] += b1
+        log("heal", f"ok: {tag}: " + "; ".join(results) + f"; B1 launches {b1} on {self.card}")
+        for wire, kernel in (("int8", "fused_mlp_q8_preq"), ("f32", "fused_mlp_q8")):
+            for c in counters.values():
+                c.reset()
+            q8 = Scorer(model_name="mlp_q8", params=self.q8_params("checkpoint"),
+                        batch_sizes=cfg.batch_sizes, device=self.dev, q8_wire=wire)
+            q8.warmup()
+            reg = Registry()
+            sup = DeviceSupervisor(q8, registry=reg, **kw)
+            faults.install_device_faults(faults.DeviceFaultPlan.from_string(HEAL_HANG))
+            try:
+                t = time.perf_counter()
+                state = sup.tick()
+            finally:
+                faults.install_device_faults(None)
+            quarantined_s = time.perf_counter() - t
+            back = heal_back(sup, kernel)
+            time.sleep(0.5)  # the abandoned hung canary launches once it wakes
+            launched = counters[kernel].value
+            probations = reg.counter("ccfd_heal_transitions_total").value({"to": "probation"})
+            warm = len(q8.batch_sizes)
+            others = sum(c.value for k, c in counters.items() if k != kernel)
+            if state != "quarantined" or launched != q8.dispatch_total() + warm * (
+                    1 + probations) or others:
+                raise AssertionError(f"{tag} {kernel}: {state}; launches {launched}, "
+                                     f"dispatches {q8.dispatch_total()}, {probations} "
+                                     f"probations, other kernels {others}")
+            self.reports[kernel]["launches"] += launched
+            log("heal", f"ok: {tag}: mlp_q8 on the {wire} wire ({kernel}): {HEAL_HANG} -> "
+                f"quarantined in {quarantined_s:.3f} s, healthy {back:.3f} s after the fault "
+                f"off (parity within {sup.parity_tol} of the host forward); launches "
+                f"{launched} = dispatches {q8.dispatch_total()} + {warm} x "
+                f"{1 + probations:.0f} warmups on {self.card}")
+
+    def heal_operator(self) -> None:
+        """(c) ``up`` of the port's CR in process with chaos on: the monkey
+        kills the router on a seeded schedule while ``device_hang`` storms
+        run; every produced transaction started once, at least one
+        quarantine and one re-promotion, one audit record a routed
+        transaction; the chaos run's tx/s."""
+        from ccfd_tpu_torch.config import Config
+        from ccfd_tpu_torch.platform.operator import Platform, PlatformSpec
+
+        tag = "heal (c) chaos"
+        tmp = tempfile.mkdtemp(prefix="ccfd_chaos_")
+        n = CHAOS_ROWS
+        cr = self.platform_cr(tmp, store={"enabled": False}, retrain={"enabled": False},
+                              scorer={"model": "mlp", "train_steps": 0, "rest": False},
+                              producer={"transactions": n, "rate": CHAOS_RATE},
+                              heal={"interval_s": HEAL_INTERVAL_S,
+                                    "backoff_base_s": HEAL_INTERVAL_S, "backoff_cap_s": 1.0},
+                              chaos={"enabled": True, "interval_s": CHAOS_KILL_S,
+                                     "seed": SEED, "targets": ["router"],
+                                     "device_faults": HEAL_HANG,
+                                     "fault_interval_s": CHAOS_STORM_EVERY_S,
+                                     "fault_duration_s": CHAOS_STORM_S})
+        cfg = Config.from_env()
+        counters = self.counters()
+        for c in counters.values():
+            c.reset()
+        p = Platform(PlatformSpec.from_cr(cr, cfg=cfg)).up(wait_ready_s=120)
+        try:
+            t0 = time.perf_counter()
+            if not p.wait_producer(n / CHAOS_RATE * 3 + 60):
+                raise AssertionError(f"{tag}: the producer did not finish")
+            if not p.wait_routed(120):
+                raise AssertionError(f"{tag}: the router did not drain")
+            wall = time.perf_counter() - t0
+            p.chaos.stop()  # closes a storm window in flight
+            self.heal_wait(lambda: p.heal.state == "healthy", f"{tag}: healthy at the end", 60)
+            # the route seam stamps a batch after its starts are counted
+            self.heal_wait(lambda: p.audit.counts()["recorded"] >= n, f"{tag}: every record",
+                           30)
+            rr = p.registries["router"]
+            incoming = rr.counter("transaction_incoming_total").value()
+            routed = rr.counter("transaction_outgoing_total").total()
+            deg = rr.counter("router_degraded_total")
+            host, rules = deg.value({"tier": "host"}), deg.value({"tier": "rules"})
+            started = p.engine.snapshot()["next_pid"] - 1
+            hs = p.heal.status()
+            kills = [v for _, v in p.chaos.history]
+            windows = len(p.chaos.fault_windows)
+            recorded, ring = p.audit.counts()["recorded"], p.audit.ring_size
+            by_tier: dict = {}
+            for rec in p.audit.list(limit=4096):
+                by_tier[rec["tier"]] = by_tier.get(rec["tier"], 0) + 1
+            probations = p.registries["heal"].counter("ccfd_heal_transitions_total").value(
+                {"to": "probation"})
+            warm = len(p.scorer.batch_sizes)
+        finally:
+            p.down()
+        dispatched, launched = settled_launches(p.scorer.dispatch_total,
+                                                counters["fused_mlp_bf16"],
+                                                warm * (1 + probations))
+        fails = []
+        if not incoming == routed == started == n:
+            fails.append(f"incoming {incoming}, routed {routed}, started {started} of {n}")
+        if hs["quarantines"] < 1 or hs["repromotions"] < 1 or not kills or not windows:
+            fails.append(f"heal {hs}, kills {kills}, storm windows {windows}")
+        if recorded != routed or ring != routed:
+            fails.append(f"audit recorded {recorded}, ring {ring}, routed {routed}")
+        if launched != dispatched + warm * (1 + probations):
+            fails.append(f"B1 launches {launched} != dispatches {dispatched} + {warm} x "
+                         f"{1 + probations:.0f} warmups")
+        if fails:
+            raise AssertionError(f"{tag}: " + "; ".join(fails))
+        self.reports["fused_mlp_bf16"]["launches"] += launched
+        log("heal", f"ok: {tag}: {n} transactions at {CHAOS_RATE}/s, all routed in "
+            f"{wall:.3f} s ({n / wall:.1f} tx/s) while the monkey killed the router "
+            f"{len(kills)} times and ran {windows} {HEAL_HANG} storms: incoming = routed = "
+            f"started = {started}; {hs['quarantines']} quarantine(s), {hs['repromotions']} "
+            f"re-promotion(s); host tier {host:.0f}, rules tier {rules:.0f} rows; audit "
+            f"{recorded} records = routed, the newest 4,096 by tier {by_tier}; B1 launches "
+            f"{launched} = dispatches {dispatched} + {warm} x {1 + probations:.0f} warmups "
+            f"on {self.card}")
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    def heal_bitrot(self) -> None:
+        """(c) The engine's state file under CCFD_STORAGE_FAULTS=bitrot: a
+        platform routes and saves cleanly at ``down()``; a second one under
+        the bitrot plan routes more and saves (the periodic save's call)
+        and stops without its shutdown save, as a killed process would; a
+        third comes up on the file: the corrupt file is quarantined to
+        ``*.corrupt`` and the last good generation loads."""
+        from ccfd_tpu_torch.config import Config
+        from ccfd_tpu_torch.data.ccfd import Dataset, iter_transactions
+        from ccfd_tpu_torch.data.surrogate import kaggle_surrogate
+        from ccfd_tpu_torch.platform.operator import Platform, PlatformSpec
+        from ccfd_tpu_torch.runtime import durability
+
+        tag = "heal (c) bitrot"
+        tmp = tempfile.mkdtemp(prefix="ccfd_bitrot_")
+        state = os.path.join(tmp, "engine.state")
+        cr = self.platform_cr(tmp, store={"enabled": False}, retrain={"enabled": False},
+                              producer={"enabled": False}, bus={"log_dir": None},
+                              scorer={"model": "mlp", "train_steps": 0, "rest": False},
+                              engine={"crash_recovery": False, "state_file": state,
+                                      "save_interval_s": 3600.0})
+        ds = kaggle_surrogate(n=2 * BITROT_ROWS, seed=SEED + 1)
+        rows = list(iter_transactions(Dataset(X=ds.X, y=ds.y)))
+        pids = []
+        before = {k: durability.counts().get(k, {}).get("engine_snapshot", 0)
+                  for k in ("corrupt", "fallback")}
+        for k, env in enumerate(({}, {"CCFD_STORAGE_FAULTS": "bitrot"}, {})):
+            cfg = Config.from_env({**os.environ, **env})
+            p = Platform(PlatformSpec.from_cr(cr, cfg=cfg)).up(wait_ready_s=120)
+            try:
+                loaded = p.engine.snapshot()["next_pid"]
+                if k < 2:
+                    part = rows[k * BITROT_ROWS:(k + 1) * BITROT_ROWS]
+                    p.broker.produce_batch(cfg.kafka_topic, part, [r["id"] for r in part])
+                    if not p.wait_routed(120):
+                        raise AssertionError(f"{tag}: run {k} did not drain")
+                if k == 1:
+                    p._save_engine_state()  # under the bitrot plan
+                    p._engine_state_file = None  # stopped without the shutdown save
+                pids.append((loaded, p.engine.snapshot()["next_pid"]))
+            finally:
+                p.down()
+        counts = {k: durability.counts().get(k, {}).get("engine_snapshot", 0) - v
+                  for k, v in before.items()}
+        fails = []
+        if counts["corrupt"] < 1 or counts["fallback"] < 1:
+            fails.append(f"engine_snapshot tallies {counts}")
+        if not os.path.exists(state + ".corrupt"):
+            fails.append(f"no {state}.corrupt: {sorted(os.listdir(tmp))}")
+        if pids[2][0] != pids[0][1] or pids[1][1] != pids[0][1] + BITROT_ROWS:
+            fails.append(f"next_pid by run (at load, at the end): {pids}")
+        if fails:
+            raise AssertionError(f"{tag}: " + "; ".join(fails))
+        log("heal", f"ok: {tag}: the engine's state file written under "
+            f"CCFD_STORAGE_FAULTS=bitrot was quarantined to *.corrupt at the next bring-up "
+            f"and the last good generation loaded (next_pid {pids[2][0]}, the first run's "
+            f"end; the {BITROT_ROWS} starts saved only into bitrotted copies are the loss); "
+            f"engine_snapshot tallies: {counts['corrupt']} corrupt, {counts['fallback']} "
+            f"served from a retained generation")
+        shutil.rmtree(tmp, ignore_errors=True)
 
     def models(self) -> None:
         """The reference's other Seldon models on the card: parity card

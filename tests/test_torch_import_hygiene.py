@@ -58,7 +58,8 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
               "bus.kafka_adapter", "runtime.faults", "process.usertask_model",
               "process.investigator", "serving.batcher", "data.sequences",
               "ops.ring_attention", "models.seq", "ops.seq_quant", "serving.history",
-              "observability.device"):
+              "observability.device", "runtime.heal", "runtime.chaos",
+              "observability.audit"):
         assert f"ccfd_tpu_torch.{m}" in res["mods"], m
     bad = [n for n in res["loaded"] if _forbidden(n)]
     assert bad == [], bad
@@ -134,7 +135,8 @@ def test_the_model_modules_import_alone_without_the_reference(mod):
 
 
 @pytest.mark.parametrize("mod", ["bus.log", "bus.kafka_adapter", "runtime.faults",
-                                 "runtime.durability"])
+                                 "runtime.durability", "runtime.heal", "runtime.chaos",
+                                 "observability.audit"])
 def test_the_durable_and_fault_modules_import_alone(mod):
     """The slice's modules load by themselves with nothing of JAX or the
     reference, and the Kafka adapter does not import kafka-python until a

@@ -16,7 +16,7 @@
 - **Refusals.** Each component or option the port does not have, on in the
   CR (or left on by default), makes ``Platform.up`` and ``up -f`` raise one
   error naming it with its ROADMAP item; the reference's own CR names all
-  seven it leaves on, at once.
+  four it leaves on, at once.
 - **The port's CR** differs from the reference's only in those blocks'
   ``enabled``.
 - **Crash recovery** on the CPU as the reference's TestCrashRecovery: an
@@ -49,6 +49,7 @@ from ccfd_tpu.platform.operator import Platform as RefPlatform
 from ccfd_tpu.platform.operator import PlatformSpec as RefSpec
 from ccfd_tpu_torch.config import Config
 from ccfd_tpu_torch.platform.operator import REFUSED_COMPONENTS, Platform, PlatformSpec
+from tests import torch_helpers
 from tests.test_platform import minimal_cr
 
 REPO = Path(__file__).resolve().parents[1]
@@ -56,6 +57,7 @@ REF_CR = REPO / "deploy" / "platform_cr.yaml"
 PORT_CR = REPO / "ccfd_tpu_torch" / "assets" / "platform_cr.yaml"
 OFF = {name: {"enabled": False} for name in REFUSED_COMPONENTS}
 ENV = {"CCFD_BATCH_SIZES": "16,128,1024", "CCFD_NATIVE_FRONT": "0"}
+_keep_logging = pytest.fixture(autouse=True)(torch_helpers.keep_port_logging)
 KIE = ("fraud_approved_amount", "fraud_rejected_amount", "fraud_approved_low_amount",
        "fraud_investigation_amount")
 N = 300
@@ -168,7 +170,8 @@ def test_same_platform_same_counters_and_health(both):
     assert p_cnt["fraud"] and p_cnt["standard"] and p_cnt["approved"]
     assert set(p_st["services"]) == set(r_st["services"])
     assert set(p_st["endpoints"]) == set(r_st["endpoints"]) == {"store", "metrics", "health"}
-    assert p_h == r_h == (200, {"supervisor": True, "storage": True, "scorer_edge": True})
+    assert p_h == r_h == (200, {"supervisor": True, "device": True, "storage": True,
+                                "scorer_edge": True})
 
 
 def test_spec_parsing_of_the_references_cr():
@@ -220,8 +223,11 @@ REFUSALS = [(name, {name: {"enabled": True}}, {}, name) for name in REFUSED_COMP
      "retrain with scorer.model: seq"),
     ("seq_q8", {"scorer": {"model": "seq_q8", "fused_decision": True}}, {},
      "scorer.fused_decision with scorer.model: seq_q8"),
-    ("CCFD_DEVICE_FAULTS", {}, {"CCFD_DEVICE_FAULTS": "oom"}, "CCFD_DEVICE_FAULTS"),
-    ("CCFD_STORAGE_FAULTS", {}, {"CCFD_STORAGE_FAULTS": "bitrot"}, "CCFD_STORAGE_FAULTS"),
+    # the fault plans are served since A6: the plan beside a knob still refused
+    ("CCFD_DEVICE_FAULTS", {}, {"CCFD_DEVICE_FAULTS": "device_hang",
+                                "CCFD_HOST_TIER_ROWS": "64"}, "CCFD_HOST_TIER_ROWS"),
+    ("CCFD_STORAGE_FAULTS", {}, {"CCFD_STORAGE_FAULTS": "bitrot",
+                                 "CCFD_INLINE_ROWS": "64"}, "CCFD_INLINE_ROWS"),
     ("overload.rest_queue_rows", {"overload": {"rest_queue_rows": 64}},
      {"CCFD_LIFECYCLE_DIR": "/tmp/lc"}, "CCFD_LIFECYCLE_DIR"),
 ]
@@ -249,9 +255,9 @@ def test_the_references_cr_is_refused_with_every_name_at_once(tmp_path):
     msg = str(err.value)
     on = [n for n in REFUSED_COMPONENTS
           if yaml.safe_load(REF_CR.read_text())["spec"].get(n, {}).get("enabled")]
-    assert len(on) == 6 and all(f"{n} (" in msg for n in on)
+    assert len(on) == 4 and all(f"{n} (" in msg for n in on)
     # the default-on blocks are refused when absent too
-    with pytest.raises(NotImplementedError, match="lifecycle.*heal"):
+    with pytest.raises(NotImplementedError, match="lifecycle.*capacity"):
         Platform(PlatformSpec.from_cr({"spec": {}}, cfg=Config()), device="cpu").up()
 
 

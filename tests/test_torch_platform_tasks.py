@@ -38,12 +38,13 @@ from ccfd_tpu.platform.operator import Platform as RefPlatform
 from ccfd_tpu.platform.operator import PlatformSpec as RefSpec
 from ccfd_tpu_torch.config import Config
 from ccfd_tpu_torch.platform.operator import REFUSED_COMPONENTS, Platform, PlatformSpec
-from tests import torch_helpers  # noqa: F401  (one intra-op thread)
+from tests import torch_helpers
 from tests.test_platform import minimal_cr
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
 import export_torch_seq_assets as assets  # noqa: E402
 
+_keep_logging = pytest.fixture(autouse=True)(torch_helpers.keep_port_logging)
 OFF = {name: {"enabled": False} for name in REFUSED_COMPONENTS}
 ENV = {"CCFD_BATCH_SIZES": "16,128,1024", "CCFD_NATIVE_FRONT": "0",
        "FRAUD_THRESHOLD": "0.4"}
@@ -236,7 +237,10 @@ def _tasks_run(cls_platform, cls_spec, cls_cfg, state_file: str, records) -> dic
     try:
         p.broker.produce_batch(p.cfg.kafka_topic, records)
         _wait(lambda: _counters(p)["fraud"] >= len(records))
-        _wait(lambda: p.investigator.completed > 0 and not p.engine.tasks("open"))
+        # quiescent: every fraud instance has ended, so no reply timer can
+        # still open a task after the queue looked empty
+        _wait(lambda: p.investigator.completed > 0 and not p.engine.tasks("open")
+              and not p.engine.instances("active"))
         _wait(lambda: p.usertask_model.n_examples == p.investigator.completed)
         inv = p.registries["investigator"].counter("investigator_tasks_completed_total")
         done = sorted((t.task_id, t.outcome) for t in p.engine.tasks("completed"))

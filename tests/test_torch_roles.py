@@ -178,13 +178,21 @@ def test_five_roles_route_as_the_in_process_pipeline(inputs):
     (["router"], {"CCFD_LIFECYCLE_DIR": "/tmp/lc"}, "CCFD_LIFECYCLE_DIR"),
     (["serve", "--device", "cpu"], {"CCFD_HOST_TIER_ROWS": "64"},
      "CCFD_HOST_TIER_ROWS"),
-    (["producer"], {"CCFD_DEVICE_FAULTS": "oom"}, "CCFD_DEVICE_FAULTS"),
-    (["bus", "--port", "0"], {"CCFD_STORAGE_FAULTS": "enospc"},
-     "CCFD_STORAGE_FAULTS"),
+    # the device and storage fault plans, the provenance plane's
+    # ``audit <tx_id>`` and its storage-fault knob are served since A6, A7
+    # and A9: these cases keep their ids and now pair the served knob with
+    # one still refused
+    pytest.param(["producer"], {"CCFD_DEVICE_FAULTS": "device_hang", "CCFD_INLINE_ROWS": "64"},
+                 "CCFD_INLINE_ROWS", id="argv2-env2-CCFD_DEVICE_FAULTS"),
+    pytest.param(["bus", "--port", "0"], {"CCFD_STORAGE_FAULTS": "enospc",
+                                          "CCFD_LIFECYCLE_DIR": "/tmp/lc"},
+                 "CCFD_LIFECYCLE_DIR", id="argv3-env3-CCFD_STORAGE_FAULTS"),
     (["engine", "--port", "0"], {"CCFD_LIFECYCLE_DIR": "/tmp/lc"}, "CCFD_LIFECYCLE_DIR"),
     (["notify"], {"CCFD_INLINE_ROWS": "64"}, "CCFD_INLINE_ROWS"),
-    (["audit", "tx-1"], {}, "provenance plane"),
-    (["audit"], {"CCFD_STORAGE_FAULTS": "bitrot"}, "CCFD_STORAGE_FAULTS"),
+    pytest.param(["audit"], {"CCFD_AUDIT_DIR": "/tmp/audit", "CCFD_HOST_TIER_ROWS": "64"},
+                 "CCFD_HOST_TIER_ROWS", id="argv6-env6-provenance plane"),
+    pytest.param(["audit"], {"CCFD_STORAGE_FAULTS": "bitrot", "CCFD_INLINE_ROWS": "64"},
+                 "CCFD_INLINE_ROWS", id="argv7-env7-CCFD_STORAGE_FAULTS"),
 ])
 def test_roles_refuse_unported_knobs_by_name(monkeypatch, argv, env, match):
     from ccfd_tpu_torch.cli import main
@@ -242,9 +250,13 @@ def test_config_reads_the_roles_knobs_as_the_reference():
 # the GC as the reference does (C2), the router on SELDON_URL falls to the
 # rules tier as the reference's role does (C3)
 
+# the fault plans are ported (A6); their cases keep their ids and set a
+# knob still refused beside the plan, which only the operator installs
 UNPORTED = [("CCFD_STORAGE_FAULTS", "bitrot"), ("CCFD_DEVICE_FAULTS", "oom"),
             ("CCFD_DEVICE_FAULTS", "device_hang:ms=5"), ("CCFD_LIFECYCLE_DIR", "/tmp/lc"),
             ("CCFD_HOST_TIER_ROWS", "256"), ("CCFD_INLINE_ROWS", "64")]
+STILL_REFUSED = {"CCFD_STORAGE_FAULTS": ("CCFD_LIFECYCLE_DIR", "/tmp/lc"),
+                 "CCFD_DEVICE_FAULTS": ("CCFD_HOST_TIER_ROWS", "256")}
 
 
 @pytest.mark.parametrize("key,value", UNPORTED)
@@ -253,7 +265,12 @@ def test_serve_refuses_each_unported_knob_by_name(key, value):
 
     from ccfd_tpu_torch.cli import build_server
 
-    cfg = Config.from_env({key: value, "CCFD_BATCH_SIZES": "16"})
+    env = {key: value, "CCFD_BATCH_SIZES": "16"}
+    if key in STILL_REFUSED:
+        assert Config.from_env(env).unported() == []
+        key, value = STILL_REFUSED[key]
+        env[key] = value
+    cfg = Config.from_env(env)
     with pytest.raises(NotImplementedError, match=re.escape(key) + ".*") as err:
         build_server(cfg, device="cpu")
     assert "unset to run serve" in str(err.value)
@@ -397,7 +414,7 @@ def test_config_takes_this_slices_knobs_as_the_reference():
     # what is left names only parts still to port
     left = Config.from_env({**SLICE9, "CCFD_DEVICE_FAULTS": "oom",
                             "CCFD_LIFECYCLE_DIR": "/tmp/lc"}).unported()
-    assert [x.split(" ")[0] for x in left] == ["CCFD_LIFECYCLE_DIR", "CCFD_DEVICE_FAULTS"]
+    assert [x.split(" ")[0] for x in left] == ["CCFD_LIFECYCLE_DIR"]
 
 
 @pytest.mark.parametrize("argv", [["notify"], ["producer", "--limit", "1"],

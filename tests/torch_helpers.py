@@ -42,3 +42,18 @@ def assert_matches_jax(got: np.ndarray, eager: np.ndarray, jitted: np.ndarray) -
     same = np.abs(jitted - eager) <= 1e-6
     assert same.mean() >= 0.99
     np.testing.assert_allclose(got[same], jitted[same], rtol=0, atol=1e-5)
+
+
+def keep_port_logging():
+    """A generator fixture body: restores the ``ccfd_tpu_torch`` logger's
+    handlers, level and propagation after a test whose platform's tracing
+    block switched on the JSON logs (``slog.configure`` stops propagation,
+    which would hide later tests' warnings from ``caplog``)."""
+    import logging
+
+    log = logging.getLogger("ccfd_tpu_torch")
+    saved = (list(log.handlers), log.level, log.propagate)
+    yield
+    log.handlers[:] = saved[0]
+    log.setLevel(saved[1])
+    log.propagate = saved[2]
