@@ -29,6 +29,15 @@
   python -m ccfd_tpu_torch audit [--topic T] [--group G] [--limit N]
                                  [--follow]
   python -m ccfd_tpu_torch audit TX_ID [--url URL] [--dir D] [--json]
+                                 [--lifecycle-dir D]
+  python -m ccfd_tpu_torch lifecycle [--dir D] [--audit] [--version N] [--json]
+  python -m ccfd_tpu_torch replay [--dir D] [--since-seq N] [--until-seq N]
+                                  [--from-incident BUNDLE.json]
+                                  [--what-if-threshold T | --live [--cr CR]
+                                   [--device cuda|cpu]] [--state-dir D]
+                                  [--window-id W] [--no-resume] [--json]
+  python -m ccfd_tpu_torch analyze [--nbins 32] [--top-corr 8] [--drift-split]
+                                   [--device cuda|cpu]
   python -m ccfd_tpu_torch investigate [--engine-url URL] [--rate 50]
                                        [--trust 0.9] [--fraud-rate 0.05]
                                        [--seed N] [--metrics-port 8082]
@@ -153,8 +162,14 @@ keyed by pid, and ``audit`` tails them (one JSON event a line; ``--follow``
 keeps consuming). ``audit <tx_id>`` reconstructs one decision of the
 provenance plane (observability/audit.py): from a live exporter with
 ``--url``, else offline, read-only, from the audit segments under ``--dir``
-(CCFD_AUDIT_DIR); the lineage and incident joins are reported absent by
-name (ROADMAP A12, A14). CCFD_FAULTS arms the router role's standing
+(CCFD_AUDIT_DIR); the lineage join reads the model lifecycle's version
+store (``--lifecycle-dir``, CCFD_LIFECYCLE_DIR) with the hash parity of the
+decision's champion, and the incident join is reported absent by name
+(ROADMAP A14). ``lifecycle`` prints that store's lineage and audit trail;
+``replay`` summarizes a recorded window of the audit segments, backtests a
+threshold on it host-side (``--what-if-threshold``) or re-drives it through
+a live platform on the card (``--live``); ``analyze`` summarizes the
+dataset on the card (``analytics/engine.py``). CCFD_FAULTS arms the router role's standing
 fault plan (``runtime/faults.py``): a ``scorer`` injector around the
 ``SeldonClient`` or the local score function, an ``engine`` injector around
 ``start_process``, ``start_process_batch`` and ``signal``, counted in
@@ -951,7 +966,6 @@ def _audit_fetch_json(url: str):
 # the reconstruction's joins whose planes are not ported: reported absent
 # by name, never faked
 _ABSENT_JOINS = {
-    "lineage": "the model lifecycle's version lineage (ROADMAP A12) is not ported",
     "incident": "the incident flight recorder (ROADMAP A14) is not ported",
 }
 
@@ -960,9 +974,11 @@ def cmd_audit_reconstruct(args: argparse.Namespace, cfg: Config) -> int:
     """``audit <tx_id>``: the decision record stamped at the route seam,
     read from the live exporter with ``--url`` (``/decisions/<tx_id>``) or
     OFFLINE from the audit segments under ``--dir`` (CCFD_AUDIT_DIR),
-    read-only, as the reference's. The trace join asks the live exporter
-    for the kept trace; the lineage and incident joins name their planes as
-    absent."""
+    read-only, as the reference's. The lineage join reads the version that
+    scored it from the lifecycle's store (``--lifecycle-dir``,
+    CCFD_LIFECYCLE_DIR; read-only) with the hash parity of the decision's
+    stamp against the lineage's; the trace join asks the live exporter for
+    the kept trace; the incident join names its plane as absent."""
     doc: dict = {"tx_id": args.tx_id}
     record = None
     base = args.url.rstrip("/") if args.url else ""
@@ -983,6 +999,23 @@ def cmd_audit_reconstruct(args: argparse.Namespace, cfg: Config) -> int:
               + f"dir={args.dir or cfg.audit_dir or '<unset>'})", file=sys.stderr)
         return 2
     doc["record"] = record
+    lc_dir = args.lifecycle_dir or cfg.lifecycle_dir
+    if lc_dir and record.get("version") is not None:
+        from ccfd_tpu_torch.lifecycle.versions import VersionStore
+
+        try:
+            store = VersionStore(os.path.join(lc_dir, "versions.json"), recover=False)
+            v = store.get(int(record["version"]))
+            doc["lineage"] = {
+                "version": v.to_dict(),
+                "events": store.audit_trail(v.version),
+                # the compliance check: the hash stamped on the decision is
+                # the hash the lineage records for that version
+                "hash_parity": (record.get("hash") is not None
+                                and v.checkpoint_hash == record.get("hash")),
+            }
+        except (OSError, ValueError, KeyError, TypeError) as e:
+            doc["lineage"] = {"error": repr(e)}
     for join, why in _ABSENT_JOINS.items():
         doc[join] = {"absent": why}
     trace_id = record.get("trace")
@@ -1004,6 +1037,13 @@ def cmd_audit_reconstruct(args: argparse.Namespace, cfg: Config) -> int:
     print(f"  served by: {r.get('tier', '?')} tier{cause}  priority={r.get('priority')}"
           + (f"  events={r['events']}" if r.get("events") else ""))
     print(f"  model: version={r.get('version')} hash={r.get('hash')}")
+    lin = doc.get("lineage")
+    if lin and "version" in lin:
+        v = lin["version"]
+        print(f"  lineage: v{v['version']} stage={v['stage']} parent={v['parent']} "
+              f"labels@{v['label_watermark']} hash_parity={lin['hash_parity']}")
+    elif lin:
+        print(f"  lineage: unreadable ({lin['error']})")
     for join in _ABSENT_JOINS:
         print(f"  {join}: absent ({doc[join]['absent']})")
     trc = doc.get("trace")
@@ -1049,6 +1089,170 @@ def cmd_audit(args: argparse.Namespace) -> int:
         return 0
     finally:
         consumer.close()
+
+
+def cmd_replay(args: argparse.Namespace) -> int:
+    """``replay``: the bulk replay & backtest console (replay/).
+
+    Offline (default): scan the recorded window out of the audit segments
+    read-only and summarize it; with ``--what-if-threshold`` run the
+    host-side backtest (which recorded decisions flip under the new
+    threshold): no platform, no bus. With ``--live``: bring a platform up
+    (on the card unless ``--device cpu``), re-produce the window through
+    the real bus -> router -> scorer path under ``bulk`` admission, and
+    print the verdict-parity report (divergences classified by cause);
+    exit 1 when parity does not hold."""
+    cfg = Config.from_env()
+    audit_dir = args.dir or cfg.audit_dir
+    if not audit_dir:
+        print("[replay] no audit dir: pass --dir or set CCFD_AUDIT_DIR (windows are "
+              "reconstructed from the audit segments)", file=sys.stderr)
+        return 2
+    since, until = args.since_seq, args.until_seq
+    if args.from_incident:
+        from ccfd_tpu_torch.replay.service import bundle_window
+
+        with open(args.from_incident) as f:
+            rng = bundle_window(json.load(f))
+        if rng is None:
+            print(f"[replay] {args.from_incident} embeds no decision summaries; "
+                  "nothing to re-drive", file=sys.stderr)
+            return 2
+        since, until = rng
+    if args.live:
+        from ccfd_tpu_torch.platform.operator import Platform, PlatformSpec
+
+        if args.cr:
+            spec = PlatformSpec.from_yaml(args.cr, cfg=cfg)
+        else:
+            # a minimal replay platform: bus + scorer + engine + router +
+            # the audit and replay planes over the recorded segments (and,
+            # unlike the reference's, without the incident and capacity
+            # planes, which the port does not have: ROADMAP A14)
+            spec = PlatformSpec.from_cr({"spec": {
+                "audit": {"dir": audit_dir},
+                "replay": {"enabled": True, "dir": args.state_dir or cfg.replay_dir},
+                "monitoring": {"enabled": False}, "health": {"enabled": False},
+                "analytics": {"enabled": False}, "retrain": {"enabled": False},
+                "notify": {"enabled": False}, "incident": {"enabled": False},
+                "capacity": {"enabled": False},
+            }}, cfg=cfg)
+        p = Platform(spec, device=args.device).up()
+        try:
+            if p.replay is None:
+                print("[replay] the platform came up without the replay component "
+                      "(CR replay.enabled / audit plane off?)", file=sys.stderr)
+                return 2
+            report = p.replay.run_window(since, until, window_id=(args.window_id or None),
+                                         resume=not args.no_resume)
+        finally:
+            p.down()
+        print(json.dumps(report if args.json else {
+            k: report[k] for k in ("window_id", "total", "replayed", "match", "divergence",
+                                   "drop", "ghost", "causes", "parity", "rows_per_s")}))
+        return 0 if report.get("parity") else 1
+
+    from ccfd_tpu_torch.observability.audit import AuditLog
+    from ccfd_tpu_torch.replay.service import ReplayService
+
+    audit = AuditLog(dir=audit_dir, readonly=True, max_records=cfg.audit_ring)
+    if args.what_if_threshold is not None:
+        svc = ReplayService(cfg, None, audit, state_dir=(args.state_dir or None))
+        report = svc.run_window(since, until, mode="whatif", threshold=args.what_if_threshold,
+                                window_id=(args.window_id or None))
+        print(json.dumps(report if args.json else {
+            k: report[k] for k in ("window_id", "total", "threshold", "flips", "flip_rate",
+                                   "mean_abs_delta")}))
+        return 0
+    recs = audit.scan_window(since, until)
+    tiers: dict[str, int] = {}
+    for r in recs:
+        t = str(r.get("tier", "device"))
+        tiers[t] = tiers.get(t, 0) + 1
+    print(json.dumps({
+        "records": len(recs),
+        "rescorable": sum(1 for r in recs if r.get("row") is not None),
+        "seq": ([int(recs[0].get("seq", -1)), int(recs[-1].get("seq", -1))]
+                if recs else None),
+        "tiers": tiers,
+    }))
+    return 0
+
+
+def cmd_lifecycle(args: argparse.Namespace) -> int:
+    """``lifecycle``: the model lifecycle's versioned lineage and transition
+    audit trail (lifecycle/versions.py), read-only from the store the
+    platform's ``lifecycle.state_dir`` (or CCFD_LIFECYCLE_DIR) points at: no
+    running platform needed. Reads the reference's store too."""
+    from ccfd_tpu_torch.lifecycle.versions import VersionStore
+
+    cfg = Config.from_env()
+    state_dir = args.dir or cfg.lifecycle_dir
+    if not state_dir:
+        print("[lifecycle] no state dir: pass --dir or set CCFD_LIFECYCLE_DIR (the CR's "
+              "lifecycle.state_dir)", file=sys.stderr)
+        return 2
+    path = os.path.join(state_dir, "versions.json")
+    if not os.path.exists(path):
+        print(f"[lifecycle] no lineage at {path}", file=sys.stderr)
+        return 2
+    try:
+        # recover=False: an inspection never quarantines the live lineage
+        # out from under a running platform
+        store = VersionStore(path, recover=False)
+    except (OSError, ValueError, KeyError, TypeError) as e:
+        print(f"[lifecycle] lineage at {path} is unreadable ({e!r}); the controller "
+              "quarantines and re-bootstraps it at next bring-up", file=sys.stderr)
+        return 2
+    if args.json:
+        print(json.dumps({"versions": [v.to_dict() for v in store.versions()],
+                          "audit": store.audit_trail(args.version or None)}, indent=1))
+        return 0
+    champ = store.champion()
+    print(f"champion: v{champ.version}" if champ else "champion: none")
+    for v in store.versions():
+        mark = "*" if champ and v.version == champ.version else " "
+        print(f"{mark} v{v.version:<4} stage={v.stage:<12} "
+              f"parent={v.parent if v.parent is not None else '-':<4} "
+              f"labels@{v.label_watermark:<8} "
+              f"ckpt={v.checkpoint_step if v.checkpoint_step is not None else '-'}")
+    if args.audit:
+        for e in store.audit_trail(args.version or None):
+            detail = json.dumps(e["detail"], sort_keys=True)
+            print(f"  {e['ts']:.3f} v{e['version']} {e['event']}: {detail}")
+    return 0
+
+
+def cmd_analyze(args: argparse.Namespace) -> int:
+    """``analyze``: the dataset analytics report (the reference's
+    JupyterHub + Spark notebook workflow) as one command, summarized on the
+    card unless ``--device cpu``; ``workers`` is 1 (one device, no mesh)."""
+    import numpy as np
+
+    from ccfd_tpu_torch.analytics.engine import AnalyticsEngine
+    from ccfd_tpu_torch.data.ccfd import FEATURE_NAMES, load_dataset
+
+    ds = load_dataset()
+    engine = AnalyticsEngine(device=args.device, nbins=args.nbins)
+    report = engine.summarize(ds.X, ds.y)
+    out = report.to_dict()
+    out["workers"] = 1
+    # the strongest off-diagonal correlations
+    corr = report.corr.copy()
+    idx = np.triu_indices_from(corr, k=1)
+    order = np.argsort(-np.abs(corr[idx]))[: args.top_corr]
+    out["top_correlations"] = [
+        {"a": FEATURE_NAMES[idx[0][k]], "b": FEATURE_NAMES[idx[1][k]],
+         "corr": float(corr[idx][k])}
+        for k in order]
+    if args.drift_split:
+        half = ds.n // 2
+        scores = engine.drift(engine.summarize(ds.X[:half]), ds.X[half:])
+        worst = int(np.argmax(scores))
+        out["drift_self_check"] = {"max_psi": float(scores[worst]),
+                                   "worst_feature": FEATURE_NAMES[worst]}
+    print(json.dumps(out))
+    return 0
 
 
 PORT_CR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets",
@@ -1473,6 +1677,9 @@ def build_parser() -> argparse.ArgumentParser:
                     "over HTTP before the on-disk segments")
     au.add_argument("--json", action="store_true",
                     help="emit the full reconstruction document as JSON")
+    au.add_argument("--lifecycle-dir", default="",
+                    help="lifecycle state dir for the lineage join (default: "
+                    "CCFD_LIFECYCLE_DIR)")
     au.add_argument("--topic", default="", help="default: CCFD_AUDIT_TOPIC")
     au.add_argument("--group", default="audit-tail",
                     help="consumer group (offsets persist per group)")
@@ -1499,6 +1706,52 @@ def build_parser() -> argparse.ArgumentParser:
     tk.add_argument("--complete", type=int, default=None, metavar="TASK_ID")
     tk.add_argument("--outcome", default=None, help="approved | rejected (with --complete)")
     tk.set_defaults(fn=cmd_tasks)
+    rp = sub.add_parser("replay", help="bulk replay & backtest: re-score a recorded audit "
+                        "window with verdict-parity conservation (replay plane)")
+    rp.add_argument("--dir", default="",
+                    help="audit log dir holding the recorded window (default: CCFD_AUDIT_DIR)")
+    rp.add_argument("--since-seq", type=int, default=None,
+                    help="window start (DecisionRecord seq, inclusive)")
+    rp.add_argument("--until-seq", type=int, default=None,
+                    help="window end (DecisionRecord seq, inclusive)")
+    rp.add_argument("--from-incident", default="",
+                    help="incident bundle JSON: re-drive the decisions in flight across "
+                    "the breach window")
+    rp.add_argument("--what-if-threshold", type=float, default=None,
+                    help="host-side backtest: which recorded decisions flip under this "
+                    "FRAUD_THRESHOLD (never touches the live path)")
+    rp.add_argument("--live", action="store_true",
+                    help="bring the platform up and re-produce the window through the live "
+                    "serving path under bulk admission")
+    rp.add_argument("--cr", default="",
+                    help="CR file for --live (default: a minimal replay platform over --dir)")
+    rp.add_argument("--state-dir", default="",
+                    help="durable replay-cursor dir (default: CCFD_REPLAY_DIR)")
+    rp.add_argument("--window-id", default="",
+                    help="explicit window id (cursor key; default: the seq range)")
+    rp.add_argument("--no-resume", action="store_true",
+                    help="ignore an existing cursor and restart the window from its first row")
+    rp.add_argument("--json", action="store_true",
+                    help="emit the full report (bounded findings included) as JSON")
+    rp.add_argument("--device", choices=("cuda", "cpu"), default=None,
+                    help="where --live's scorer scores (default: the card)")
+    rp.set_defaults(fn=cmd_replay)
+    lc = sub.add_parser("lifecycle",
+                        help="model-lifecycle lineage + audit trail (versions console)")
+    lc.add_argument("--dir", default="", help="lifecycle state dir (default: CCFD_LIFECYCLE_DIR)")
+    lc.add_argument("--audit", action="store_true", help="print the transition audit trail too")
+    lc.add_argument("--version", type=int, default=0,
+                    help="restrict the audit trail to one version id")
+    lc.add_argument("--json", action="store_true", help="emit the full lineage+audit as JSON")
+    lc.set_defaults(fn=cmd_lifecycle)
+    an = sub.add_parser("analyze", help="dataset analytics report (Spark/notebook analog)")
+    an.add_argument("--nbins", type=int, default=32)
+    an.add_argument("--top-corr", type=int, default=8)
+    an.add_argument("--drift-split", action="store_true",
+                    help="also run a first-half vs second-half drift self-check")
+    an.add_argument("--device", choices=("cuda", "cpu"), default=None,
+                    help="where the summary runs (default: the card)")
+    an.set_defaults(fn=cmd_analyze)
     up = sub.add_parser("up", help="bring up the platform from a CR file")
     up.add_argument("-f", "--file", default=PORT_CR)
     up.add_argument("--exit-after-producer", action="store_true")

@@ -126,10 +126,27 @@ as ccfd_tpu/config.py, with the same defaults:
     CCFD_AUDIT_FLUSH_INTERVAL_S                         the operator's decision
                                                         provenance plane
                                                         (observability/audit.py)
+    CCFD_LIFECYCLE_SHADOW_TOPIC, CCFD_LIFECYCLE_DIR,
+    CCFD_LIFECYCLE_MIN_LABELS,
+    CCFD_LIFECYCLE_MIN_SHADOW_ROWS,
+    CCFD_LIFECYCLE_AUC_MARGIN,
+    CCFD_LIFECYCLE_MAX_ALERT_DELTA,
+    CCFD_LIFECYCLE_MAX_PSI,
+    CCFD_LIFECYCLE_CANARY_WEIGHT,
+    CCFD_LIFECYCLE_CANARY_MIN_LABELS,
+    CCFD_LIFECYCLE_MIN_SUBMIT_INTERVAL_S                the model lifecycle's
+                                                        topic, lineage store
+                                                        and guardrails
+                                                        (lifecycle/)
+    CCFD_REPLAY, CCFD_REPLAY_BATCH,
+    CCFD_REPLAY_TIMEOUT_S, CCFD_REPLAY_RETRIES,
+    CCFD_REPLAY_BULK_CEILING, CCFD_REPLAY_PACING,
+    CCFD_REPLAY_DIR                                     the bulk replay plane
+                                                        (replay/)
 
 Knobs that select a part of the reference this port does not have are read
 too, so that setting one is refused by name rather than ignored
-(``unported``): the model lifecycle's lineage store (CCFD_LIFECYCLE_DIR), and the two ways
+(``unported``): the two ways
 the reference scores small requests round the kernel: the Scorer's host
 latency tier (CCFD_HOST_TIER_ROWS > 0) and the REST front's in-IO-thread
 host model (CCFD_INLINE_ROWS > 0). Their auto value (-1, or unset) is off
@@ -300,9 +317,29 @@ class Config:
     audit_segment_bytes: int = 4 * 1024 * 1024
     audit_segments: int = 8
     audit_flush_interval_s: float = 0.25
+    # --- the model lifecycle (lifecycle/; the governed rollout of retrain
+    # candidates: shadow -> canary -> gated promotion with auto-rollback) ---
+    shadow_topic: str = "ccd-shadow-scores"  # paired champion/challenger scores
+    lifecycle_dir: str = ""  # lineage + candidate checkpoints; "" = in memory
+    lifecycle_min_labels: int = 128
+    lifecycle_min_shadow_rows: int = 1024
+    lifecycle_auc_margin: float = 0.01
+    lifecycle_max_alert_delta: float = 0.10
+    lifecycle_max_psi: float = 0.25
+    lifecycle_canary_weight: float = 0.10
+    lifecycle_canary_min_labels: int = 64
+    lifecycle_min_submit_interval_s: float = 30.0
+    # --- bulk replay and backtest (replay/; CR block `replay:`); CCFD_REPLAY
+    # arms row capture, the verdict tap and the replay worker ---
+    replay_enabled: bool = False
+    replay_batch: int = 256  # rows a batch (one cursor commit each)
+    replay_timeout_s: float = 10.0  # the verdict join's wait an attempt
+    replay_retries: int = 3  # re-productions of a batch's unanswered rows
+    replay_bulk_ceiling: float = 0.5  # bulk share of the admission budget
+    replay_pacing_rows_s: float = 0.0  # 0 = saturate the bulk share
+    replay_dir: str = ""  # the durable cursors; "" = no resume
     # --- parts of the reference not ported yet: set, they are refused ---
     graph_cr: str = ""
-    lifecycle_dir: str = ""
     host_tier_rows: int = -1  # -1 = auto, which is off in the port
     inline_rows: int = -1  # -1 = auto, which is off in the port
 
@@ -435,7 +472,28 @@ class Config:
             overload_rest_queue_rows=num("CCFD_OVERLOAD_REST_QUEUE_ROWS",
                                          "overload_rest_queue_rows", int),
             graph_cr=e.get("CCFD_GRAPH_CR", Config.graph_cr),
+            shadow_topic=e.get("CCFD_LIFECYCLE_SHADOW_TOPIC", Config.shadow_topic),
             lifecycle_dir=e.get("CCFD_LIFECYCLE_DIR", Config.lifecycle_dir),
+            lifecycle_min_labels=num("CCFD_LIFECYCLE_MIN_LABELS", "lifecycle_min_labels", int),
+            lifecycle_min_shadow_rows=num("CCFD_LIFECYCLE_MIN_SHADOW_ROWS",
+                                          "lifecycle_min_shadow_rows", int),
+            lifecycle_auc_margin=num("CCFD_LIFECYCLE_AUC_MARGIN", "lifecycle_auc_margin"),
+            lifecycle_max_alert_delta=num("CCFD_LIFECYCLE_MAX_ALERT_DELTA",
+                                          "lifecycle_max_alert_delta"),
+            lifecycle_max_psi=num("CCFD_LIFECYCLE_MAX_PSI", "lifecycle_max_psi"),
+            lifecycle_canary_weight=num("CCFD_LIFECYCLE_CANARY_WEIGHT",
+                                        "lifecycle_canary_weight"),
+            lifecycle_canary_min_labels=num("CCFD_LIFECYCLE_CANARY_MIN_LABELS",
+                                            "lifecycle_canary_min_labels", int),
+            lifecycle_min_submit_interval_s=num("CCFD_LIFECYCLE_MIN_SUBMIT_INTERVAL_S",
+                                                "lifecycle_min_submit_interval_s"),
+            replay_enabled=_flag(e.get("CCFD_REPLAY", "0")),
+            replay_batch=num("CCFD_REPLAY_BATCH", "replay_batch", int),
+            replay_timeout_s=num("CCFD_REPLAY_TIMEOUT_S", "replay_timeout_s"),
+            replay_retries=num("CCFD_REPLAY_RETRIES", "replay_retries", int),
+            replay_bulk_ceiling=num("CCFD_REPLAY_BULK_CEILING", "replay_bulk_ceiling"),
+            replay_pacing_rows_s=num("CCFD_REPLAY_PACING", "replay_pacing_rows_s"),
+            replay_dir=e.get("CCFD_REPLAY_DIR", Config.replay_dir),
             host_tier_rows=num("CCFD_HOST_TIER_ROWS", "host_tier_rows", int),
             inline_rows=int(e.get("CCFD_INLINE_ROWS", "").strip() or Config.inline_rows),
         )
@@ -484,8 +542,6 @@ class Config:
         the port does not have yet (the pipeline and the roles refuse to
         start on any)."""
         out = []
-        if self.lifecycle_dir:
-            out.append("CCFD_LIFECYCLE_DIR (the model lifecycle's lineage store)")
         if self.host_tier_rows > 0:
             out.append("CCFD_HOST_TIER_ROWS > 0 (the Scorer's host latency tier: "
                        "requests that skip the kernel)")

@@ -1,0 +1,231 @@
+"""Shadow scoring: the challenger sees live traffic off the critical path.
+
+The port's copy of ccfd_tpu/lifecycle/shadow.py.
+
+``wrap()`` interposes on the router's score lane (for the parallel router
+the wrap sits UNDER the coalescing :class:`~ccfd_tpu_torch.serving.batcher.
+DynamicBatcher`, so the tap observes the same coalesced batches the device
+scores). The hot-path cost is one flag read when no challenger is armed and
+one bounded-deque append when one is: the challenger's own forward runs on
+the tap's worker thread against the scorer's double-buffered challenger
+slot (:meth:`ccfd_tpu_torch.serving.scorer.Scorer.challenger_score` — a host
+numpy forward, so shadow scoring never contends for the device).
+
+Each drained batch produces ONE paired record onto the shadow topic::
+
+    {"version": <challenger id>, "champion": [...], "challenger": [...]}
+
+which the evaluator folds into score-distribution histograms (PSI) and
+alert-rate deltas. Shadow evaluation is a SAMPLE by design, bounded two
+ways so the live pipeline never pays for it: a token-bucket row budget
+(``max_rows_per_s``; on a saturated host the worker thread's numpy
+forwards and pair production would otherwise steal cores from the routing
+loop) and a bounded queue (challenger slower than the admitted stream). Batches past
+either bound drop OLDEST-first, counted in
+``ccfd_lifecycle_shadow_dropped_total`` — the evaluator's verdict just
+accumulates over a slightly longer window.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from typing import Any, Callable
+
+import numpy as np
+
+
+class ShadowTap:
+    def __init__(
+        self,
+        scorer: Any,
+        broker: Any,
+        topic: str,
+        registry: Any = None,
+        max_queued_batches: int = 64,
+        max_rows_per_s: float = 2048.0,
+        max_queued_rows: int = 8192,
+    ):
+        self.scorer = scorer
+        self.broker = broker
+        self.topic = topic
+        self.max_queued_batches = int(max_queued_batches)
+        # row-denominated queue bound: the seq lane offers full (B, L, F)
+        # history batches (~L x the row lane's bytes per row-batch), so a
+        # batch-count bound alone would admit gigabytes of resident
+        # tapped state behind a slow challenger; oldest batches drop
+        # first past either bound
+        self.max_queued_rows = int(max_queued_rows)
+        self._queued_rows = 0
+        # sampling budget: rows/s admitted into the shadow queue. Deficit
+        # token bucket — a batch is admitted whenever the balance is
+        # positive and then charged in full, so batches BIGGER than one
+        # second's budget still sample through (at a proportionally lower
+        # batch rate) instead of starving. 0 = unlimited.
+        self.max_rows_per_s = float(max_rows_per_s)
+        self._tokens = self.max_rows_per_s
+        self._t_refill = time.monotonic()
+        # hot-path gate: plain attribute read (GIL-atomic), no lock
+        self._armed_version: int | None = None
+        self._mu = threading.Lock()
+        self._queue: deque[tuple[int, np.ndarray, np.ndarray]] = deque()
+        self._stop = threading.Event()
+        self._c_batches = self._c_rows = self._c_dropped = None
+        self._c_pairs = self._c_errors = None
+        if registry is not None:
+            self._c_batches = registry.counter(
+                "ccfd_lifecycle_shadow_batches_total",
+                "live batches tapped for challenger shadow scoring",
+            )
+            self._c_rows = registry.counter(
+                "ccfd_lifecycle_shadow_rows_total",
+                "rows shadow-scored by the challenger",
+            )
+            self._c_dropped = registry.counter(
+                "ccfd_lifecycle_shadow_dropped_total",
+                "tapped ROWS dropped by the sampling budget or a full "
+                "shadow queue (same unit as shadow_rows_total, so the "
+                "board's scored-vs-dropped panel compares like for like; "
+                "the hot path never blocks on shadow scoring)",
+            )
+            self._c_pairs = registry.counter(
+                "ccfd_lifecycle_shadow_pairs_produced_total",
+                "paired champion/challenger score records produced to the "
+                "shadow topic",
+            )
+            self._c_errors = registry.counter(
+                "ccfd_lifecycle_shadow_errors_total",
+                "challenger shadow-score failures (batch skipped)",
+            )
+
+    # -- hot path ----------------------------------------------------------
+    def wrap(self, score_fn: Callable[[np.ndarray], np.ndarray]) -> Callable:
+        """Interpose on the champion score lane. The returned callable is
+        what the router (or the parallel router's coalescing batcher)
+        dispatches; with no challenger armed it adds one attribute read."""
+
+        def tapped(x: np.ndarray) -> np.ndarray:
+            proba = score_fn(x)
+            version = self._armed_version
+            if version is not None:
+                self._offer(version, x, proba)
+            return proba
+
+        tapped.__wrapped__ = score_fn  # introspection/debugging
+        return tapped
+
+    def offer(self, x: np.ndarray, proba: Any) -> None:
+        """Direct tap entry for scorers the router calls as an OBJECT
+        (``score_with_ids`` — serving/history.py SeqScorer): there is no
+        score_fn to :meth:`wrap`, so the scorer offers each resolved
+        batch itself. Same budget/queue bounds, same no-challenger cost
+        (one attribute read)."""
+        version = self._armed_version
+        if version is not None:
+            self._offer(version, x, proba)
+
+    def _offer(self, version: int, x: np.ndarray, proba: Any) -> None:
+        with self._mu:
+            if self.max_rows_per_s > 0:
+                now = time.monotonic()
+                self._tokens = min(
+                    self.max_rows_per_s,
+                    self._tokens
+                    + (now - self._t_refill) * self.max_rows_per_s,
+                )
+                self._t_refill = now
+                if self._tokens <= 0:
+                    # over the sampling budget: this batch is not shadow-
+                    # scored (the verdict window just grows), and the hot
+                    # path paid one clock read + one compare for it
+                    if self._c_dropped is not None:
+                        self._c_dropped.inc(len(x))
+                    return
+                self._tokens -= len(x)  # may go negative: deficit charge
+            if self.max_queued_rows > 0 and len(x) > self.max_queued_rows:
+                # an offer that can NEVER fit drops itself: evicting the
+                # whole queue of serviceable pairs for it would starve the
+                # verdict (the window just grows)
+                if self._c_dropped is not None:
+                    self._c_dropped.inc(len(x))
+                return
+            while self._queue and (
+                    len(self._queue) >= self.max_queued_batches
+                    or (self.max_queued_rows > 0
+                        and self._queued_rows + len(x)
+                        > self.max_queued_rows)):
+                _, x_old, _ = self._queue.popleft()
+                self._queued_rows -= len(x_old)
+                if self._c_dropped is not None:
+                    self._c_dropped.inc(len(x_old))
+            self._queue.append((version, x, np.asarray(proba)))
+            self._queued_rows += len(x)
+        if self._c_batches is not None:
+            self._c_batches.inc()
+
+    # -- control (the lifecycle controller drives these) -------------------
+    def arm(self, version: int) -> None:
+        with self._mu:
+            self._queue.clear()  # pairs from an older candidate are noise
+            self._queued_rows = 0
+            self._armed_version = int(version)
+
+    def disarm(self) -> None:
+        with self._mu:
+            self._armed_version = None
+            self._queue.clear()
+            self._queued_rows = 0
+
+    @property
+    def armed_version(self) -> int | None:
+        return self._armed_version
+
+    def qsize(self) -> int:
+        with self._mu:
+            return len(self._queue)
+
+    # -- worker ------------------------------------------------------------
+    def step(self, max_batches: int = 16) -> int:
+        """Drain up to ``max_batches`` tapped batches: challenger-score each
+        and produce the paired record. Returns rows shadow-scored."""
+        rows = 0
+        for _ in range(max_batches):
+            with self._mu:
+                if not self._queue:
+                    return rows
+                version, x, champ = self._queue.popleft()
+                self._queued_rows -= len(x)
+            if version != self._armed_version:
+                continue  # stale pair from a superseded candidate
+            try:
+                chall = self.scorer.challenger_score(x)
+            except Exception:  # noqa: BLE001 - challenger gone/broken: skip
+                if self._c_errors is not None:
+                    self._c_errors.inc()
+                continue
+            self.broker.produce(
+                self.topic,
+                {
+                    "version": int(version),
+                    "champion": np.asarray(champ, np.float32).tolist(),
+                    "challenger": np.asarray(chall, np.float32).tolist(),
+                },
+            )
+            rows += len(chall)
+            if self._c_rows is not None:
+                self._c_rows.inc(len(chall))
+                self._c_pairs.inc()
+        return rows
+
+    # -- supervisor-shaped daemon surface ----------------------------------
+    def reset(self) -> None:
+        self._stop.clear()
+
+    def run(self, interval_s: float = 0.05) -> None:
+        while not self._stop.is_set():
+            if self.step() == 0:
+                self._stop.wait(interval_s)
+
+    def stop(self) -> None:
+        self._stop.set()

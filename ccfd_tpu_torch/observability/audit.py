@@ -31,8 +31,11 @@ key             meaning
                 (``breaker_open``, ``watchdog_timeout``, ``score_error``)
 ``priority``    admission class (``bulk`` | ``normal`` | ``critical``)
 ``version``     champion model version id (the lifecycle's lineage,
-                ROADMAP A12: absent until it is ported)
+                sampled once per batch through ``lineage_fn``)
 ``hash``        the champion's checkpoint hash, from the same sample
+``row``         the decoded feature row, while the replay plane has
+                ``capture_rows`` armed (so a window scanned off the
+                segments is re-scorable)
 ``incident``    the open incident bundle id (the flight recorder, ROADMAP
                 A14: absent until it is ported)
 ``trace``       trace id (joins ``/traces/<id>`` when the tail sampler
@@ -128,6 +131,9 @@ class AuditLog:
         self.retain_segments = max(1, int(retain_segments))
         self._fsync = fsync
         self.readonly = bool(readonly)
+        # armed by the replay plane: the route seam then embeds each
+        # record's decoded feature row (``row``)
+        self.capture_rows = False
         self.lineage_fn = lineage_fn
         self.incident_fn = incident_fn
         self._clock = clock

@@ -9,20 +9,21 @@ The port of ccfd_tpu/parallel/online.py's ``OnlineTrainer``:
    ``retrain_min_labels`` are buffered and new ones arrived, run
    ``steps_per_round`` train steps on ``retrain_batch``-row batches
    sampled from it (``parallel/train.py``);
-3. publish the result into the serving Scorer with ``swap_params``, which
-   stages fresh device copies (and, with the decision plane, runs its
-   prepublish grid) before flipping: serving never pauses, and the
-   Scorer's tensors never alias the trainer's.
+3. hand the candidate to the model lifecycle's controller
+   (``lifecycle=``, lifecycle/controller.py: checkpointed, versioned,
+   shadowed, canaried and only then swapped into serving, or rejected and
+   the trainer re-based onto the champion by ``rebase``); or, with no
+   lifecycle (the direct swap), publish it into the serving Scorer with
+   ``swap_params``, which stages fresh device copies (and, with the
+   decision plane, runs its prepublish grid) before flipping: serving never
+   pauses, and the Scorer's tensors never alias the trainer's.
 
 Sampling uses a seeded rng that ``reset()`` re-seeds, so a re-run on the
 same label stream reproduces the same candidates. The trainer trains on
 the device its params lie on (the Scorer's, in the demo); the loss is read
 back once a round, for ``retrain_last_loss``.
 
-Not ported: the lifecycle's governed rollout (``lifecycle=``: shadow,
-canary, gated promotion; ROADMAP A12's lifecycle half, which comes with
-the platform operator) and the sharded step (``mesh=``, ``partitioner=``;
-ROADMAP A15).
+Not ported: the sharded step (``mesh=``, ``partitioner=``; ROADMAP A15).
 """
 
 from __future__ import annotations
@@ -63,15 +64,13 @@ class OnlineTrainer:
         lifecycle: Any = None,
         partitioner: Any = None,
     ):
-        if lifecycle is not None:
-            raise NotImplementedError(
-                "lifecycle=: the governed rollout (shadow, canary, gated promotion) "
-                "is not ported yet (ROADMAP A12's lifecycle half); the trainer "
-                "publishes with Scorer.swap_params")
         refuse_sharding(mesh, partitioner)
         self.cfg = cfg
         self.broker = broker
         self.scorer = scorer
+        # the governed rollout (lifecycle/controller.py): when set, every
+        # candidate goes to it; None keeps the direct swap
+        self.lifecycle = lifecycle
         self.tc = tc or TrainConfig()
         self.registry = registry or Registry()
         self.checkpoints = checkpoints
@@ -152,8 +151,8 @@ class OnlineTrainer:
 
     # -- one retrain round -------------------------------------------------
     def step(self) -> bool:
-        """Ingest labels; train and swap only when new labels arrived and
-        the buffer is warm. Returns whether a swap happened (so the run loop
+        """Ingest labels; train and publish (submit or swap) only when new
+        labels arrived and the buffer is warm. Returns whether it published (so the run loop
         sleeps instead of re-training a stale buffer in a tight loop)."""
         pending = self._rebase_params
         if pending is not None:
@@ -173,8 +172,14 @@ class OnlineTrainer:
         if loss is not None:
             self._g_loss.set(float(loss))
         new_params = self.params
-        self.scorer.swap_params(new_params)
-        self._c_swaps.inc()
+        if self.lifecycle is not None:
+            # the controller copies, checkpoints and versions the candidate
+            # and walks it through shadow and canary before any params
+            # reach serving
+            self.lifecycle.submit_candidate(new_params, label_watermark=self.labels_seen)
+        else:
+            self.scorer.swap_params(new_params)
+            self._c_swaps.inc()
         if self.checkpoints is not None:
             self.checkpoints.save(int(self._state["step"]), new_params)
         return True

@@ -201,3 +201,37 @@ def load_params(path: "str | Path" = DEFAULT_PARAMS,
                        for i in range(depth)],
         }
     return (from_jax_q8_params if q8 else from_jax_params)(tree, device=device)
+
+
+def params_fingerprint(tree: Any) -> str:
+    """sha256 hex over a param tree's bytes: the checkpoint-lineage hash of
+    the model lifecycle (lifecycle/versions.py), byte for byte the
+    reference's ``parallel/partition.py::params_fingerprint``. Leaves hash
+    in sorted-path order (``/``-joined dict keys and list indices), each
+    framed with its path, dtype and shape, so either package's version
+    store audits the other's champion as the same bytes. A leaf keeps its
+    dtype (a tensor is copied to the host as is); unlike ``digest`` nothing
+    is cast."""
+    import hashlib
+
+    leaves: list[tuple[str, np.ndarray]] = []
+
+    def walk(node: Any, path: str) -> None:
+        if isinstance(node, Mapping):
+            for k, v in node.items():
+                walk(v, f"{path}/{k}" if path else str(k))
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, f"{path}/{i}" if path else str(i))
+        elif node is not None:
+            a = node.detach().cpu().numpy() if isinstance(node, torch.Tensor) else np.asarray(node)
+            leaves.append((path, a))
+
+    walk(tree, "")
+    h = hashlib.sha256()
+    for path, a in sorted(leaves, key=lambda pl: pl[0]):
+        h.update(path.encode())
+        h.update(str(a.dtype).encode())
+        h.update(str(a.shape).encode())
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()

@@ -26,15 +26,28 @@ crash), with health probes and one Prometheus exporter:
       ``SeqScorer`` on the committed ``assets/seq_init.npz`` (the
       reference's ``seq.init(PRNGKey(0))`` with its normalizer), which the
       router feeds records and the REST front does not serve
+  3b  the model lifecycle (``lifecycle``: version store, candidate
+      checkpoints, shadow tap, evaluator, canary gate; default on, as the
+      reference's CR has it): the router's score lane is wrapped with the
+      shadow tap inside and the canary gate outside, one scorer-edge
+      breaker is shared by the ladder and the canary guardrail, the audit
+      records join the champion's lineage, the heal ladder's respawn rung
+      restores the champion checkpoint, and the trainer (7) hands its
+      candidates to the controller
    4  engine (``state_file``, ``rest``; ``usertask_model``: the learned
       user-task model as its prediction service and task listener, saved
       to ``usertask_state_file``), 5 notify, 6 router (the decision
-      plane with ``scorer.fused_decision``), 6b crash recovery
+      plane with ``scorer.fused_decision``; the replay plane's verdict tap
+      on the audit seam and the supervised ``ReplayService`` with
+      ``replay`` or CCFD_REPLAY), 6b crash recovery
       (``engine.crash_recovery``: the ``CheckpointCoordinator``; a seq
       scorer's histories join the cut as ``history``), 6c the
       investigator (re-pointed at a restored engine)
-   7  retrain (the ``OnlineTrainer``, publishing by ``swap_params``),
-      7c the SLO engine, 7e the device heal supervisor (``heal``: default
+   7  retrain (the ``OnlineTrainer``: candidates to the lifecycle, or
+      ``swap_params`` with ``retrain.direct_swap`` or the lifecycle off),
+      7b analytics (``analytics``: the drift monitor on the transaction
+      topic, its reference summarized on the card from the dataset), 7c
+      the SLO engine, 7e the device heal supervisor (``heal``: default
       on with a local scorer, CCFD_HEAL=0 kills it; the router's gate is
       the storage pin composed with it)
    8  monitoring (the exporter: /prometheus, /profile, /healthz,
@@ -49,8 +62,11 @@ port does not have are refused by name, all at once, before anything
 starts (``refused``): the reference builds them only here, and the port
 never skips one with a warning, clamps it or moves it to the CPU where the
 reference would: the online retrain under a seq scorer (the reference
-skips it with a warning) and the decision plane without a row scorer are
-refused.
+skips it with a warning), the decision plane without a row scorer, and
+the decision plane with the lifecycle (the reference serves the staged
+path with a warning: the canary gate overrides scores after a fused
+verdict fired) are refused, and so is the lifecycle under a seq scorer
+(ROADMAP A12b: the SeqScorer's challenger slot is not ported).
 """
 
 from __future__ import annotations
@@ -87,12 +103,9 @@ _OFF_BY_DEFAULT = ("producer", "store", "chaos", "investigator", "fleet", "repla
 # components the reference's operator builds that the port does not have,
 # with the ROADMAP item that ports each
 REFUSED_COMPONENTS: Mapping[str, str] = {
-    "lifecycle": "A12 (the model lifecycle: shadow, canary, gated promotion)",
-    "analytics": "A14 (batch analytics and the drift monitor)",
     "incident": "A14 (the incident flight recorder)",
     "capacity": "A14 (the capacity observatory)",
     "fleet": "A10 (the multi-host fleet)",
-    "replay": "A9 (bulk replay and backtest)",
 }
 # scorer models the operator serves (every other is refused or unknown)
 SCORER_MODELS = ("mlp", "mlp_q8", "logreg", "modelfull", "gbt", "gbt_mxu", "seq", "seq_q8")
@@ -152,6 +165,15 @@ class PlatformSpec:
             if bool(scorer.opt("fused_decision", self.cfg.fused_decision)):
                 out.append(f"scorer.fused_decision with scorer.model: {model} (a seq "
                            "scorer has no fusable decision program)")
+            if self.component("lifecycle").enabled:
+                out.append(f"lifecycle with scorer.model: {model} (A12b (the seq "
+                           "family's lifecycle: the SeqScorer's challenger slot, shadow "
+                           "tap and canary gate); disable lifecycle)")
+        elif (scorer.enabled and self.component("lifecycle").enabled
+              and bool(scorer.opt("fused_decision", self.cfg.fused_decision))):
+            # the reference serves the staged path with a warning
+            out.append("scorer.fused_decision with lifecycle (the canary gate overrides "
+                       "scores after the fused verdict fires; disable one of them)")
         mesh = self.component("mesh")
         if mesh.enabled:
             n = int(mesh.opt("devices", self.cfg.mesh_devices))
@@ -213,6 +235,10 @@ class Platform:
         self.recovery = None  # CheckpointCoordinator when crash_recovery on
         self.investigator = None  # process/investigator.InvestigatorService
         self.usertask_model = None  # process/usertask_model.OnlineUserTaskModel
+        self.lifecycle = None   # lifecycle.LifecycleController when enabled
+        self.analytics = None   # analytics/engine.DriftMonitor when enabled
+        self.replay = None      # replay/service.ReplayService when enabled
+        self.replay_tap = None  # replay/service.ReplayVerdictTap (replay on)
         self._usertask_state_file = None
         self._engine_factory = None
         self._engine_state_file = None
@@ -339,6 +365,13 @@ class Platform:
         if spec.component("scorer").enabled:
             self._up_scorer()
 
+        # 3b. the model lifecycle: before the router, whose score lane it
+        # wraps, and before retrain, whose candidates it governs; needs the
+        # local scorer and the bus (shadow pairs and labels ride topics)
+        if (spec.component("lifecycle").enabled and self.scorer is not None
+                and self.broker is not None):
+            self._up_lifecycle()
+
         # 4. process engine (KIE, README.md:345-408)
         if spec.component("engine").enabled:
             self._up_engine()
@@ -362,10 +395,14 @@ class Platform:
         if spec.component("investigator").enabled and self.engine is not None:
             self._up_investigator()
 
-        # 7. online retrain: the OnlineTrainer's direct swap (the governed
-        # rollout is the lifecycle's, refused above)
+        # 7. online retrain: candidates to the lifecycle (3b), or the direct
+        # swap with the lifecycle off or retrain.direct_swap
         if spec.component("retrain").enabled and self.scorer is not None:
             self._up_retrain()
+
+        # 7b. analytics: the drift monitor (the notebooks + Spark analog)
+        if spec.component("analytics").enabled and self.broker is not None:
+            self._up_analytics()
 
         # 7c. SLO engine over the components whose histograms it reads
         if self.profiler is not None:
@@ -497,9 +534,11 @@ class Platform:
         to the host tier (the gate sits above the breaker), and the
         re-promotion is warm. The router's gate composes it with the storage
         pin: an unverifiable-params pin blocks the host tier too, the
-        supervisor only the card. No flight recorder (ROADMAP A14) and no
-        lifecycle champion restore (A12): the respawn rung re-publishes the
-        scorer's own params."""
+        supervisor only the card. With the lifecycle up the respawn rung
+        restores the champion's checkpoint (under the controller's lock, so
+        a respawn racing a rollback leaves one consistent tree); without it
+        the rung re-publishes the scorer's own params. No flight recorder
+        (ROADMAP A14)."""
         from ccfd_tpu_torch.runtime.heal import DeviceSupervisor
         from ccfd_tpu_torch.runtime.supervisor import RestartPolicy
 
@@ -524,7 +563,9 @@ class Platform:
                                             cfg.heal_compile_storm_per_s)),
             backoff_base_s=float(c.opt("backoff_base_s", cfg.heal_backoff_base_s)),
             backoff_cap_s=float(c.opt("backoff_cap_s", cfg.heal_backoff_cap_s)),
-            flap_window_s=float(c.opt("flap_window_s", cfg.heal_flap_window_s)))
+            flap_window_s=float(c.opt("flap_window_s", cfg.heal_flap_window_s)),
+            respawn_fn=(self.lifecycle.restore_champion
+                        if self.lifecycle is not None else None))
         if self.router is not None:
             if self.storage_gate is not None:
                 from ccfd_tpu_torch.runtime.durability import ComposedHealGate
@@ -809,6 +850,20 @@ class Platform:
                 cfg, faults=(self.fault_plan.injector("scorer", reg)
                              if self.fault_plan else None),
                 tracer=router_tracer).score
+        breaker = None
+        if self.lifecycle is not None:
+            # the lifecycle's serving lane: the shadow tap inside (pure
+            # champion pairs), the canary gate outside (the challenger arm's
+            # override), under a ParallelRouter's coalescing batcher; an
+            # injected scorer fault stays inside the wrap. One scorer-edge
+            # breaker is shared by the ladder and the canary guardrail (a
+            # breaker leaving CLOSED mid-canary rolls back)
+            score_fn = self.lifecycle.wrap_score(score_fn)
+            if bool(c.opt("degrade", True)):
+                from ccfd_tpu_torch.router.router import default_scorer_breaker
+
+                breaker = default_scorer_breaker(reg)
+                self.lifecycle.breaker = breaker
         engine = self.engine
         if engine is None and cfg.kie_server_url.startswith("http"):
             from ccfd_tpu_torch.process.client import EngineRestClient
@@ -840,6 +895,18 @@ class Platform:
                 b.min_limit = min(b.min_limit, int(mi))
                 b.limit = min(b.limit, int(mi))
         self._overload = overload
+        # the replay plane: its verdict tap wraps the audit seam (live
+        # decisions pass through to the provenance log, replay-marked ones
+        # divert to the parity join) and answers capture_rows for it
+        audit_sink = self.audit
+        replay_spec = self.spec.component("replay")
+        if ((replay_spec.enabled or cfg.replay_enabled)
+                and self.audit is not None and self.broker is not None):
+            from ccfd_tpu_torch.replay.service import ReplayVerdictTap
+
+            self.replay_tap = ReplayVerdictTap(inner=self.audit,
+                                               registry=self._registry("replay"))
+            audit_sink = self.replay_tap
         decision_fn = None
         rules = None
         sc_spec = self.spec.component("scorer")
@@ -870,11 +937,11 @@ class Platform:
                 rules = None
         common = dict(
             rules=rules, decision_fn=decision_fn, host_score_fn=host_score_fn,
-            degrade=bool(c.opt("degrade", True)),
+            breaker=breaker, degrade=bool(c.opt("degrade", True)),
             max_inflight=(int(c.opt("max_inflight"))
                           if c.opt("max_inflight") is not None else None),
             tracer=router_tracer, overload=overload, profiler=self.profiler,
-            audit=self.audit)
+            audit=audit_sink)
         if workers == 1:
             router = Router(cfg, self.broker, score_fn, engine, reg, **common)
         else:
@@ -884,6 +951,8 @@ class Platform:
                                     coalesce=bool(c.opt("coalesce", cfg.router_coalesce)),
                                     **common)
         self.router = router
+        if self.replay_tap is not None:
+            self._up_replay(replay_spec, overload)
         if self.storage_gate is not None:
             # the storage pin binds whether or not anything arms it
             router.set_heal_gate(self.storage_gate)
@@ -945,12 +1014,141 @@ class Platform:
         from ccfd_tpu_torch.runtime.supervisor import RestartPolicy
 
         c = self.spec.component("retrain")
+        # the governed rollout when the lifecycle is up; retrain.direct_swap
+        # keeps the unvalidated hot swap
+        lifecycle = None if bool(c.opt("direct_swap", False)) else self.lifecycle
         trainer = OnlineTrainer(self.cfg, self.broker, self.scorer, self.scorer.params,
-                                registry=self._registry("retrain"), seed=int(c.opt("seed", 0)))
+                                registry=self._registry("retrain"), seed=int(c.opt("seed", 0)),
+                                lifecycle=lifecycle)
+        if lifecycle is not None:
+            # a reject or rollback re-bases the trainer onto the champion, so
+            # the next candidate descends from its recorded parent
+            lifecycle.trainer_rebase = trainer.rebase
         interval = float(c.opt("interval_s", 0.5))
         self.supervisor.add_thread_service(
             "retrain", lambda: trainer.run(interval_s=interval), trainer.stop,
             policy=RestartPolicy.ALWAYS, reset=trainer.reset)
+
+    def _up_lifecycle(self) -> None:
+        """The governed rollout over the local row scorer: the version store
+        and candidate checkpoints (under ``state_dir``, else in memory with
+        the checkpoints in a temporary dir), the shadow tap and the
+        evaluator on the bus, the guardrails from the CR over the
+        CCFD_LIFECYCLE_* knobs, the controller and the shadow worker as
+        supervised services. The audit records join the champion's lineage
+        (one sample a batch)."""
+        from ccfd_tpu_torch.lifecycle.controller import Guardrails, LifecycleController
+        from ccfd_tpu_torch.lifecycle.evaluator import ShadowEvaluator
+        from ccfd_tpu_torch.lifecycle.shadow import ShadowTap
+        from ccfd_tpu_torch.lifecycle.versions import VersionStore
+        from ccfd_tpu_torch.parallel.checkpoint import CheckpointManager
+        from ccfd_tpu_torch.runtime.supervisor import RestartPolicy
+
+        c = self.spec.component("lifecycle")
+        cfg = self.cfg
+        registry = self._registry("lifecycle")
+        state_dir = c.opt("state_dir", cfg.lifecycle_dir) or ""
+        store = VersionStore(os.path.join(state_dir, "versions.json") if state_dir else None)
+        if state_dir:
+            ckpt_dir = os.path.join(state_dir, "checkpoints")
+        else:
+            # an in-memory lineage still needs its rollback checkpoints
+            import tempfile
+
+            ckpt_dir = tempfile.mkdtemp(prefix="ccfd_lifecycle_")
+        checkpoints = CheckpointManager(ckpt_dir, keep=int(c.opt("keep_checkpoints", 8)))
+        shadow = ShadowTap(self.scorer, self.broker, cfg.shadow_topic, registry,
+                           max_queued_batches=int(c.opt("shadow_queue_batches", 64)))
+        evaluator = ShadowEvaluator(cfg, self.broker, self.scorer, registry,
+                                    k_frac=float(c.opt("precision_k_frac", 0.05)))
+        guardrails = Guardrails(
+            min_labels=int(c.opt("min_labels", cfg.lifecycle_min_labels)),
+            min_shadow_rows=int(c.opt("min_shadow_rows", cfg.lifecycle_min_shadow_rows)),
+            auc_margin=float(c.opt("auc_margin", cfg.lifecycle_auc_margin)),
+            max_alert_rate_delta=float(c.opt("max_alert_rate_delta",
+                                             cfg.lifecycle_max_alert_delta)),
+            max_score_psi=float(c.opt("max_score_psi", cfg.lifecycle_max_psi)),
+            canary_weight=float(c.opt("canary_weight", cfg.lifecycle_canary_weight)),
+            canary_min_labels=int(c.opt("canary_min_labels", cfg.lifecycle_canary_min_labels)),
+            min_submit_interval_s=float(c.opt("min_submit_interval_s",
+                                              cfg.lifecycle_min_submit_interval_s)))
+        self.lifecycle = LifecycleController(
+            cfg, self.scorer, store=store, checkpoints=checkpoints, shadow=shadow,
+            evaluator=evaluator, guardrails=guardrails, registry=registry,
+            # no verifiable champion checkpoint at a restore pins serving to
+            # the rules tier through the router's heal-gate seam
+            storage_pin=(self.storage_gate.pin if self.storage_gate is not None else None),
+            storage_unpin=(self.storage_gate.unpin if self.storage_gate is not None else None))
+        if self.audit is not None:
+            def lineage_sample(store=store):
+                v = store.champion()
+                return (v.version, v.checkpoint_hash) if v is not None else (None, None)
+
+            self.audit.lineage_fn = lineage_sample
+        interval = float(c.opt("interval_s", 0.25))
+        lc = self.lifecycle
+        self.supervisor.add_thread_service(
+            "lifecycle", lambda: lc.run(interval_s=interval), lc.stop,
+            policy=RestartPolicy.ALWAYS, reset=lc.reset)
+        self.supervisor.add_thread_service(
+            "lifecycle-shadow", lambda: shadow.run(interval_s=0.05), shadow.stop,
+            policy=RestartPolicy.ALWAYS, reset=shadow.reset)
+
+    def _up_replay(self, c: ComponentSpec, overload: Any) -> None:
+        """The replay plane's worker: re-produces recorded windows through
+        this router under bulk admission (the bulk ceiling on ``overload``)
+        and joins their verdicts from the tap; supervised, so a crashed
+        worker restarts and resumes from its durable cursor."""
+        from ccfd_tpu_torch.replay.service import ReplayService
+        from ccfd_tpu_torch.runtime.supervisor import RestartPolicy
+
+        cfg = self.cfg
+
+        def lineage():
+            fn = getattr(self.audit, "lineage_fn", None)
+            return fn() if fn is not None else (None, None)
+
+        rep = ReplayService(cfg, self.broker, self.audit, tap=self.replay_tap,
+                            registry=self._registry("replay"),
+                            state_dir=(str(c.opt("dir", cfg.replay_dir)) or None),
+                            overload=overload, lineage_fn=lineage)
+        rep.batch = max(1, int(c.opt("batch", cfg.replay_batch)))
+        rep.timeout_s = float(c.opt("timeout_s", cfg.replay_timeout_s))
+        rep.retries = max(0, int(c.opt("retries", cfg.replay_retries)))
+        rep.bulk_ceiling = min(1.0, max(0.0, float(c.opt("bulk_ceiling",
+                                                         cfg.replay_bulk_ceiling))))
+        rep.set_pacing(float(c.opt("pacing_rows_s", cfg.replay_pacing_rows_s)))
+        self.replay = rep
+        self.supervisor.add_thread_service("replay", rep.run, rep.stop,
+                                           policy=RestartPolicy.ALWAYS, reset=rep.reset)
+
+    def _up_analytics(self) -> None:
+        """The drift monitor on the transaction topic; its reference is the
+        dataset summarized on the card, built on the monitor's own thread
+        (bring-up is not held) and persisted to ``reference_file``."""
+        from ccfd_tpu_torch.analytics.engine import AnalyticsEngine, DriftMonitor
+        from ccfd_tpu_torch.runtime.supervisor import RestartPolicy
+
+        c = self.spec.component("analytics")
+        registry = self._registry("analytics")
+        engine = AnalyticsEngine(device=self.device, nbins=int(c.opt("nbins", 32)),
+                                 registry=registry)
+
+        def build_reference():
+            from ccfd_tpu_torch.data.ccfd import load_dataset
+
+            ds = load_dataset()
+            return engine.summarize(ds.X, ds.y)
+
+        monitor = DriftMonitor(self.cfg, self.broker, None, engine=engine, registry=registry,
+                               window=int(c.opt("window", 4096)),
+                               reference_builder=build_reference,
+                               reference_path=c.opt("reference_file", "") or None)
+        self.analytics = monitor
+        interval = float(c.opt("interval_s", 0.25))
+        self.supervisor.add_thread_service(
+            "analytics", lambda: monitor.run(interval_s=interval), monitor.stop,
+            policy=RestartPolicy.ALWAYS, reset=monitor.reset)
 
     def _up_producer(self) -> None:
         from ccfd_tpu_torch.producer.producer import Producer
@@ -1038,6 +1236,13 @@ class Platform:
             out["endpoints"]["health"] = self.health_server.endpoint
         if self.heal is not None:
             out["heal"] = self.heal.status()
+        if self.replay is not None:
+            out["replay"] = {
+                "bulk_ceiling": self.replay.bulk_ceiling,
+                "pacing_rows_s": self.replay.pacing_rows_s,
+                "batch": self.replay.batch,
+                "last_report": self.replay.last_report,
+            }
         return out
 
     def _health_verdict(self) -> dict[str, Any]:
@@ -1115,6 +1320,11 @@ class Platform:
             # covers a platform torn down before the supervisor ran
             try:
                 self.audit.flush()
+            except Exception:  # noqa: BLE001 - teardown must not raise
+                pass
+        if self.lifecycle is not None:
+            try:
+                self.lifecycle.close()  # releases the evaluator's consumers
             except Exception:  # noqa: BLE001 - teardown must not raise
                 pass
         if self._broker_is_client and self.broker is not None:

@@ -67,9 +67,14 @@ the tier that produced the score (``device``, ``host`` or ``rules``) and,
 on a degraded tier, its cause (``quarantine``, ``storage_pin``,
 ``breaker_open``, ``score_error``, ``watchdog_timeout``). A failed start is
 not recorded. One ``AuditLog`` is shared by every ``ParallelRouter``
-worker.
+worker. For the replay plane (replay/service.py) the seam also embeds the
+decoded feature row while the sink's ``capture_rows`` is armed, and
+carries a replayed transaction's ``_replay`` marker onto its record as
+``replay``, so the ``ReplayVerdictTap`` diverts the verdict to its join;
+the replayed rows' ``bulk`` priority header rides into the record's
+``priority`` as any other row's.
 
-Not ported: replay (ROADMAP A9) and commit-after-route (A10).
+Not ported: commit-after-route (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -784,6 +789,10 @@ class Router:
             {} if (self._audit is not None and meta is not None) else None)
         audit_rows: list[dict] = []
         ts_list = ts.tolist() if gidx is not None and ts is not None else None
+        # the replay plane armed: embed the DECODED feature row per record
+        # (one tolist outside the loop; off, nothing)
+        x_list = (x.tolist() if gidx is not None
+                  and getattr(self._audit, "capture_rows", False) else None)
         for i, (tx, p, ridx) in enumerate(zip(txs, plist, fired.tolist())):
             variables = {"transaction": tx, "proba": p, "customer_id": tx.get("id")}
             set_vars = rules[ridx].set_vars
@@ -835,6 +844,13 @@ class Router:
                             "pid": pid,
                             "priority": meta["pris"][i],
                         }
+                        # a replayed transaction's origin marker, so the
+                        # verdict tap diverts it to the parity join
+                        mk = txs[i].get("_replay")
+                        if mk is not None:
+                            row["replay"] = mk
+                        if x_list is not None:
+                            row["row"] = x_list[i]
                         audit_rows.append(row)
         if audit_rows:
             self._audit.record_batch(

@@ -521,7 +521,8 @@ class StoragePinGate:
     """Heal-gate-shaped pin (``device_allowed`` + ``host_allowed``): while
     it is pinned the router serves from the rules tier only, since the host
     tier would forward the very same unverified params. ``pin``/``unpin``
-    are the surface a params restore arms (the lifecycle's, ROADMAP A12);
+    are the surface a params restore arms (the lifecycle controller's,
+    when no champion checkpoint verifies);
     the operator binds the gate to the router whether or not anything pins
     it, as the reference's does."""
 

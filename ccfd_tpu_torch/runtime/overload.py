@@ -22,8 +22,11 @@ the router, the REST front and the ``router`` role:
 Priorities ride as data: a bus record's ``priority`` header, a REST
 request's ``x-ccfd-priority`` header (``bulk`` / ``normal`` /
 ``critical``); anything else is normal. The bus deadline is off by default
-(``CCFD_OVERLOAD_CODEL_TARGET_MS=0``). Not ported: the replay plane's bulk
-ceiling, the fleet's ceiling rescale and the incident recorder hook.
+(``CCFD_OVERLOAD_CODEL_TARGET_MS=0``). The bulk ceiling
+(``set_bulk_ceiling`` on the router's plane and the REST gate, gauge
+``ccfd_bulk_ceiling{stage}``) is the replay plane's actuator: the share of
+a stage's adaptive budget bulk work may occupy. Not ported: the fleet's
+ceiling rescale (ROADMAP A10) and the incident recorder hook (A14).
 """
 
 from __future__ import annotations
@@ -197,6 +200,14 @@ def _admission_counter(registry):
         "admission decisions in rows by stage, priority and decision")
 
 
+def _bulk_ceiling_gauge(registry):
+    return registry.gauge(
+        "ccfd_bulk_ceiling",
+        "operator-settable bulk admission ceiling by stage: the fraction of "
+        "the stage's adaptive budget bulk-class work (replay re-drives, "
+        "backtests) may occupy; 1.0 = bounded only by priority shedding")
+
+
 class OverloadControl:
     """The router's overload plane; one instance per router pool (every
     ParallelRouter worker shares it): the adaptive budget, the bus deadline
@@ -231,6 +242,12 @@ class OverloadControl:
             "router scorer dispatches killed by the watchdog deadline")
         self._dispatcher = None
         self._mu = threading.Lock()
+        # the bulk ceiling (the replay plane's pacing actuator): the share
+        # of the adaptive limit bulk rows may occupy in one poll's
+        # admission, so live traffic keeps the rest of the stage
+        self._bulk_ceiling = 1.0
+        self._g_bulk_ceiling = _bulk_ceiling_gauge(registry)
+        self._g_bulk_ceiling.set(1.0, labels={"stage": "bus"})
 
     @staticmethod
     def from_config(cfg, registry, max_batch: int = 4096, workers: int = 1,
@@ -292,6 +309,23 @@ class OverloadControl:
                 keep_idx = kept
 
         keep_idx = list(keep_idx)
+        frac = self._bulk_ceiling
+        if frac < 1.0 and keep_idx:
+            # bulk occupancy capped at frac x the CURRENT adaptive limit: a
+            # stage that slows under live load tightens the replay share
+            cap = max(0, int(frac * self.budget.limit))
+            kept = []
+            bulk_kept = 0
+            for i in keep_idx:
+                if pris[i] == PRIORITY_BULK:
+                    if bulk_kept >= cap:
+                        key = (pris[i], "bulk_ceiling")
+                        shed_by[key] = shed_by.get(key, 0) + 1
+                        shed_rows += 1
+                        continue
+                    bulk_kept += 1
+                kept.append(i)
+            keep_idx = kept
         if prepaid:
             if shed_rows:
                 self.budget.release(shed_rows)
@@ -328,6 +362,18 @@ class OverloadControl:
         if len(keep_idx) == n:
             return records, 0
         return [records[i] for i in keep_idx], shed_rows
+
+    # -- the bulk ceiling (the replay plane's pacing actuator) -------------
+    def set_bulk_ceiling(self, frac: float) -> None:
+        """Clamp bulk-class bus admission to ``frac`` of the adaptive limit
+        (0..1); 1.0 restores shed-order-only semantics."""
+        frac = min(1.0, max(0.0, float(frac)))
+        self._bulk_ceiling = frac
+        self._g_bulk_ceiling.set(frac, labels={"stage": "bus"})
+
+    @property
+    def bulk_ceiling(self) -> float:
+        return self._bulk_ceiling
 
     # -- stage feedback ----------------------------------------------------
     def observe_stage(self, latency_s: float) -> None:
@@ -376,6 +422,11 @@ class AdmissionGate:
         self.retry_after_s = float(retry_after_s)
         self._c_admit = _admission_counter(registry)
         self._c_shed = _shed_counter(registry)
+        # per-instance ceilings, so the replay plane moves the bulk share
+        # live without touching the class default
+        self._ceilings = dict(self.UTIL_CEILING)
+        self._g_bulk_ceiling = _bulk_ceiling_gauge(registry)
+        self._g_bulk_ceiling.set(self._ceilings[PRIORITY_BULK], labels={"stage": self.stage})
 
     @staticmethod
     def from_config(cfg, registry, max_rows: int) -> "AdmissionGate | None":
@@ -387,8 +438,19 @@ class AdmissionGate:
             registry=registry, stage="serving")
         return AdmissionGate(budget, registry)
 
+    def set_bulk_ceiling(self, frac: float) -> None:
+        """Move the bulk utilization ceiling live (0..1): the serving half of
+        the replay pacing knob."""
+        frac = min(1.0, max(0.0, float(frac)))
+        self._ceilings[PRIORITY_BULK] = frac
+        self._g_bulk_ceiling.set(frac, labels={"stage": self.stage})
+
+    @property
+    def bulk_ceiling(self) -> float:
+        return self._ceilings[PRIORITY_BULK]
+
     def try_admit(self, rows: int, priority: int = PRIORITY_NORMAL) -> bool:
-        ok = self.budget.try_reserve(rows, ceiling=self.UTIL_CEILING.get(priority, 0.9))
+        ok = self.budget.try_reserve(rows, ceiling=self._ceilings.get(priority, 0.9))
         name = PRIORITY_NAMES.get(priority, "normal")
         self._c_admit.inc(rows, labels={
             "stage": self.stage, "priority": name,

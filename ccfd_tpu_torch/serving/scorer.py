@@ -56,6 +56,15 @@ port of ccfd_tpu/serving/scorer.py's ``Scorer``.
   serving/fused.py) run every bucket against the staged params between
   the staging and the flip; a hook that raises fails the swap before the
   flip, as params that do not fold do.
+- **The challenger slot** (the model lifecycle, lifecycle/):
+  ``install_challenger`` stages a candidate's host numpy copy beside the
+  champion, double-buffered like ``swap_params``, and ``challenger_score``
+  scores rows on the model's numpy host forward (``spec.apply_numpy``, the
+  one ``host_score`` uses). This is the reference's own design for a
+  second model off the device's critical path, not a fallback: the shadow
+  tap and the canary gate score the candidate there, while the champion's
+  path never leaves the kernel, and a promoted candidate serves only
+  through ``swap_params``.
 - **Fault seams** (runtime/faults.py, as the reference's):
   ``device_seam("dispatch")`` before each launch of ``score_pipelined``
   (``device_hang``, ``compile_stall``) and ``device_seam("put")`` inside
@@ -147,6 +156,8 @@ class Scorer:
         # the host copy the router's host tier forwards through
         # (``host_score``); refreshed by every swap
         self._host_params = to_numpy(params)
+        # the lifecycle's challenger slot: (version, host numpy params)
+        self._challenger: tuple[int, Any] | None = None
         # -- the dispatch deadline (module docstring) --
         self.dispatch_deadline_s = max(0.0, float(dispatch_deadline_ms)) / 1e3
         self.dispatch_timeouts = 0
@@ -393,3 +404,37 @@ class Scorer:
             host_params = self._host_params
         return np.asarray(self.spec.apply_numpy(host_params, np.asarray(x, np.float32)),
                           np.float32)
+
+    # -- the challenger slot (model lifecycle: shadow and canary scoring) ----
+    def install_challenger(self, version: int, params: Any) -> None:
+        """Stage a challenger's host copy beside the champion: the copy is
+        made before the slot flips under the lock, so an in-flight
+        ``challenger_score`` keeps the old tree and the next call sees the
+        new one. Needs the model's numpy host forward."""
+        if self.spec.apply_numpy is None:
+            raise RuntimeError(f"model {self.spec.name!r} has no host forward; the "
+                               "challenger slot scores on the host by design")
+        staged = to_numpy(params)
+        with self._lock:
+            self._challenger = (int(version), staged)
+
+    def clear_challenger(self, version: int | None = None) -> None:
+        """Remove the challenger; with ``version``, only that one (a stale
+        clear must not evict a newer candidate)."""
+        with self._lock:
+            if self._challenger is not None and (
+                    version is None or self._challenger[0] == int(version)):
+                self._challenger = None
+
+    @property
+    def challenger_version(self) -> int | None:
+        ch = self._challenger
+        return ch[0] if ch is not None else None
+
+    def challenger_score(self, x: np.ndarray) -> np.ndarray:
+        """(n, F) -> (n,) proba_1 on the challenger slot's host params: no
+        device round trip, never touches the champion's path."""
+        ch = self._challenger
+        if ch is None:
+            raise RuntimeError("no challenger installed")
+        return np.asarray(self.spec.apply_numpy(ch[1], np.asarray(x, np.float32)), np.float32)

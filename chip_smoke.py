@@ -366,7 +366,7 @@ import time
 import urllib.request
 
 PHASES = ("device", "build", "parity", "train", "serve", "decision", "demo", "services",
-          "platform", "seq", "tasks", "heal", "models", "timing")
+          "platform", "seq", "tasks", "heal", "rollout", "models", "timing")
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 7
 PARITY_BATCHES = (1, 16, 100, 1024, 16384)
@@ -536,6 +536,32 @@ CHAOS_KILL_S = 2.0  # the monkey kills the router this often
 CHAOS_STORM_EVERY_S = 2.0
 CHAOS_STORM_S = 2.0
 BITROT_ROWS = 1_000
+# the rollout phase (lifecycle/, replay/, analytics/): the producer's rate
+# (live rows: the platform's own dataset, load_dataset(), as its producer
+# sends); FRAUD_THRESHOLD 0.1 routes ~1% of them to the fraud process, whose
+# simulated customers' replies are the labels the trainer and the evaluator
+# read (the notify service answers at random, approve 0.7, so a
+# label AUC sits at 0.5 +- noise for any model: the smoke widens auc_margin,
+# and the distribution gates decide); the trainer's bar lowered to match
+ROLLOUT_RATE = 1_000
+ROLLOUT_ENV = {"FRAUD_THRESHOLD": "0.1", "CCFD_RETRAIN_MIN_LABELS": "32"}
+ROLLOUT_GUARDRAILS = {"min_labels": 64, "min_shadow_rows": 1024, "canary_min_labels": 32,
+                      "min_submit_interval_s": 20.0, "auc_margin": 0.25}
+ROLLOUT_PROMOTE_S = 150  # the first promotion's deadline after ready
+ROLLOUT_OFF_S = 20  # the lifecycle-off run
+ROLLOUT_BUCKET_ROWS = 4_096
+ROLLOUT_BUCKETS = (16, 1024, 16384)
+REPLAY_ROWS = 20_000
+REPLAY_BATCH = 256
+REPLAY_KILL_BATCH = 40
+REPLAY_BEFORE_S = 3.0  # live traffic alone before the replay
+# (b)'s promotion needs only a champion with other params: lenient gates
+REPLAY_GUARDRAILS = {"min_labels": 16, "min_shadow_rows": 256, "canary_min_labels": 8,
+                     "min_submit_interval_s": 0.0, "auc_margin": 1.0,
+                     "max_alert_rate_delta": 1.0, "max_score_psi": 100.0}
+ANALYTICS_ROWS = 284_807  # the Kaggle table's rows
+ANALYTICS_TOL = 1e-5  # of the magnitudes summed (float32 sums in two orders)
+ANALYTICS_TIMED = 10
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12  # float32 outside the tensor cores, NVIDIA data sheet
 BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, NVIDIA data sheet
@@ -2549,6 +2575,11 @@ class Smoke:
         s["health"]["port"] = free_port()
         s["bus"]["log_dir"] = os.path.join(tmp, "buslog")
         s["engine"]["checkpoint_file"] = os.path.join(tmp, "cut.json")
+        # the lifecycle's lineage and the drift baseline persist across
+        # restarts: each platform gets its own, or a later one would
+        # restore an earlier one's champion into its scorer
+        s["lifecycle"]["state_dir"] = os.path.join(tmp, "lifecycle")
+        s["analytics"]["reference_file"] = os.path.join(tmp, "drift_reference.npz")
         for name, opts in blocks.items():
             s.setdefault(name, {}).update(opts)
         return cr
@@ -3623,6 +3654,575 @@ class Smoke:
             f"served from a retained generation")
         shutil.rmtree(tmp, ignore_errors=True)
 
+    # -- rollout: the model lifecycle, replay, analytics (slice 13) -------
+    def rollout(self) -> None:
+        """The governed rollout and replay on the card: (a) the lifecycle
+        over the port's CR with retrain on (a promotion served bit for bit
+        through B1, a degraded candidate rejected in shadow, a breaker
+        rollback mid-canary, every transaction started once, the counters
+        against the audit trail, and the cost against a lifecycle-off run),
+        (b) a recorded window replayed at bulk priority beside live traffic
+        (parity, a kill and resume, a promotion's divergences classified)
+        after B1's per-row bucket invariance, (c) ``analyze`` at the Kaggle
+        table's size, card against CPU, and the drift monitor."""
+        self.rollout_buckets()
+        b1 = self.rollout_lifecycle()
+        b1 += self.rollout_replay()
+        self.reports["fused_mlp_bf16"]["launches"] += b1
+        self.rollout_analytics()
+
+    def rollout_paced(self, p, rows: list, rate: float, stop: threading.Event) -> threading.Thread:
+        """A thread producing ``rows`` (cycled, fresh ids) onto ``p``'s
+        transaction topic at ``rate`` rows/s in 100-row batches on an
+        absolute schedule, until ``stop``; ``thread.sent`` counts them."""
+        topic = p.cfg.kafka_topic
+        batch = 100
+
+        def run() -> None:
+            t0 = time.perf_counter()
+            i = 0
+            while not stop.is_set():
+                part = [dict(rows[(i + j) % len(rows)], id=f"live-{i + j}")
+                        for j in range(batch)]
+                p.broker.produce_batch(topic, part, [r["id"] for r in part])
+                i += batch
+                th.sent = i
+                ahead = i / rate - (time.perf_counter() - t0)
+                if ahead > 0:
+                    stop.wait(ahead)
+
+        th = threading.Thread(target=run, daemon=True, name="smoke-live")
+        th.sent = 0
+        th.start()
+        return th
+
+    @staticmethod
+    def rollout_records(p) -> list:
+        """Every decision record in ``p``'s audit ring (the listing caps at
+        4,096)."""
+        with p.audit._mu:
+            return list(p.audit._ring.values())
+
+    @staticmethod
+    def rollout_latency(records: list, t0: float = 0.0, t1: float = float("inf")) -> tuple:
+        """Exact decision latency (ms, route-seam stamp minus produce
+        stamp) p50/p99 of the live records decided in [t0, t1]."""
+        import numpy as np
+
+        lat = [(r["decided_ts"] - r["ts"]) * 1e3 for r in records
+               if r.get("ts") and t0 <= r["decided_ts"] <= t1
+               and str(r.get("tx", "")).startswith("live-")]
+        if not lat:
+            return float("nan"), float("nan"), 0
+        a = np.asarray(lat)
+        return float(np.percentile(a, 50)), float(np.percentile(a, 99)), len(lat)
+
+    def rollout_buckets(self) -> None:
+        """B1 gives a row the same p bit for bit in every bucket: 4,096 rows
+        scored as 256 chunks at bucket 16, 4 at 1,024 and one padded to
+        16,384, on the committed checkpoint and on seeded params. A
+        replay's byte-stable parity rests on it (the live batch and its
+        replay land in different buckets and row positions). These
+        launches compare the kernel with itself: counted in no main path."""
+        from ccfd_tpu_torch.ops.fused_mlp import fused_mlp_score
+
+        torch = self.torch
+        tag = "rollout (b) buckets"
+        n = ROLLOUT_BUCKET_ROWS
+        x = self.x_rows(n)
+        for which in ("checkpoint", "seeded"):
+            kp = self.kernel_params(which)
+            got = {}
+            for b in ROLLOUT_BUCKETS:
+                out = []
+                for s in range(0, n, min(b, n)):
+                    chunk = x[s:s + min(b, n)]
+                    pad = torch.zeros((b, x.shape[1]), dtype=x.dtype, device=self.dev)
+                    pad[:chunk.shape[0]] = chunk
+                    out.append(fused_mlp_score(kp, pad)[:chunk.shape[0]])
+                got[b] = torch.cat(out).cpu()
+            base = got[ROLLOUT_BUCKETS[0]]
+            diff = {b: int((got[b] != base).sum()) for b in ROLLOUT_BUCKETS[1:]}
+            if any(diff.values()):
+                worst = max(float((got[b] - base).abs().max()) for b in ROLLOUT_BUCKETS)
+                raise AssertionError(f"{tag}: {which} params: rows whose p differs from "
+                                     f"bucket {ROLLOUT_BUCKETS[0]}'s: {diff} (max |dp| "
+                                     f"{worst:.3e})")
+            log("rollout", f"ok: {tag}: {which} params, {n} rows: p bit-equal at buckets "
+                f"{', '.join(map(str, ROLLOUT_BUCKETS))} (p spans "
+                f"{float(base.min()):.3e}..{float(base.max()):.6f}) on {self.card}")
+
+    def rollout_lifecycle(self) -> int:
+        """(a) The port's CR in process with retrain and the lifecycle on,
+        the producer paced at ROLLOUT_RATE: the trainer's candidates walk
+        shadow -> canary -> promote; after the first promotion the served
+        params are the promoted checkpoint bit for bit and B1 on them holds
+        its plain version; a degraded candidate (the trainer's params with
+        w3 negated) submitted directly is rejected in shadow, the champion
+        untouched; a candidate in canary rolls back when the scorer-edge
+        breaker opens; every transaction started once; the lifecycle
+        counters equal the audit trail's transitions. Then the same CR
+        with the lifecycle off for ROLLOUT_OFF_S: decision p50/p99 and tx/s
+        on against off, and the shadow worker's, controller's and drift
+        monitor's CPU seconds. Returns B1's launches."""
+        from ccfd_tpu_torch.config import Config
+        from ccfd_tpu_torch.data.ccfd import iter_transactions, load_dataset
+        from ccfd_tpu_torch.ops.fused_mlp import fused_mlp_reference, fused_mlp_score
+        from ccfd_tpu_torch.params import params_fingerprint
+        from ccfd_tpu_torch.platform.operator import Platform, PlatformSpec
+
+        tag = "rollout (a) lifecycle"
+        tmp = tempfile.mkdtemp(prefix="ccfd_rollout_")
+        rows = list(iter_transactions(load_dataset()))
+        cfg = Config.from_env({**os.environ, **ROLLOUT_ENV})
+        wait = self.heal_wait
+        launched = 0
+        runs = {}
+        for arm in ("on", "off"):
+            cr = self.platform_cr(
+                os.path.join(tmp, arm), store={"enabled": False}, producer={"enabled": False},
+                scorer={"model": "mlp", "train_steps": PLATFORM_TRAIN_STEPS, "rest": False},
+                retrain={"enabled": True, "interval_s": 0.5},
+                lifecycle={"enabled": arm == "on", **ROLLOUT_GUARDRAILS})
+            counters = self.counters()
+            for c in counters.values():
+                c.reset()
+            p = Platform(PlatformSpec.from_cr(cr, cfg=cfg)).up(wait_ready_s=120)
+            stop = threading.Event()
+            cpu = {}
+            try:
+                lc = p.lifecycle
+                if lc is not None:
+                    for name, obj in (("shadow", lc.shadow), ("controller", lc),
+                                      ("drift", p.analytics)):
+                        cpu[name] = [0.0]
+                        self.rollout_cpu_clock(obj, cpu[name])
+                t0 = time.perf_counter()
+                live = self.rollout_paced(p, rows, ROLLOUT_RATE, stop)
+                if arm == "off":
+                    time.sleep(ROLLOUT_OFF_S)
+                else:
+                    runs["checks"] = self.rollout_drive(p, lc, tag, wait)
+                stop.set()
+                live.join()
+                sent = live.sent
+                if not p.wait_routed(120):
+                    raise AssertionError(f"{tag} ({arm}): the router did not drain")
+                wall = time.perf_counter() - t0
+                wait(lambda: p.audit.counts()["recorded"] >= sent, f"{tag}: every record", 30)
+                rr = p.registries["router"]
+                incoming = rr.counter("transaction_incoming_total").value()
+                routed = rr.counter("transaction_outgoing_total").total()
+                started = p.engine.snapshot()["next_pid"] - 1
+                recs = self.rollout_records(p)
+                probations = p.registries["heal"].counter(
+                    "ccfd_heal_transitions_total").value({"to": "probation"})
+                warm = len(p.scorer.batch_sizes)
+                if lc is not None:
+                    # under the controller's lock: a transition stamps the
+                    # trail, then bumps its counter, and a promotion swaps
+                    # the params before it stamps CHAMPION; read between
+                    # two of those steps, counters, trail and served params
+                    # would disagree although the controller is right
+                    reg = p.registries["lifecycle"]
+                    with lc._mu:
+                        got = {n: reg.counter(f"ccfd_lifecycle_{n}_total").value()
+                               for n in ("promotions", "rejections", "rollbacks", "candidates",
+                                         "submissions_coalesced")}
+                        trail = lc.store.audit_trail()
+                        kp = p.scorer._live[1]
+                        served_fp = params_fingerprint(p.scorer.params)
+                        champ = lc.store.champion()
+            finally:
+                stop.set()
+                p.down()
+            dispatched, n_launch = settled_launches(p.scorer.dispatch_total,
+                                                    counters["fused_mlp_bf16"],
+                                                    warm * (1 + probations))
+            fails = []
+            if not sent == incoming == routed == started:
+                fails.append(f"produced {sent}, incoming {incoming}, routed {routed}, "
+                             f"started {started}")
+            if n_launch != dispatched + warm * (1 + probations):
+                fails.append(f"B1 launches {n_launch} != dispatches {dispatched} + {warm} x "
+                             f"{1 + probations:.0f} warmups")
+            p50, p99, n_lat = self.rollout_latency(recs)
+            runs[arm] = {"sent": sent, "wall": wall, "tx_s": routed / wall, "p50": p50,
+                         "p99": p99, "n_lat": n_lat, "cpu": {k: v[0] for k, v in cpu.items()}}
+            if lc is not None:
+                want = {
+                    "promotions": sum(1 for e in trail if e["event"] == "stage"
+                                      and e["detail"].get("to") == "CHAMPION"
+                                      and e["detail"].get("reason") != "bootstrap"),
+                    "rejections": sum(1 for e in trail if e["event"] == "stage"
+                                      and e["detail"].get("to") == "REJECTED"),
+                    "rollbacks": sum(1 for e in trail if e["event"] == "stage"
+                                     and e["detail"].get("to") == "ROLLED_BACK"),
+                    "candidates": sum(1 for e in trail if e["event"] == "created") - 1,
+                }
+                if any(got[k] != want[k] for k in want):
+                    fails.append(f"counters {got} != audit trail {want}")
+                if served_fp != champ.checkpoint_hash:
+                    fails.append(f"served params {served_fp[:12]} are not champion "
+                                 f"v{champ.version}'s checkpoint {champ.checkpoint_hash[:12]}")
+                runs["counters"] = got
+                runs["champion"] = champ.version
+            if fails:
+                raise AssertionError(f"{tag} ({arm}): " + "; ".join(fails))
+            launched += n_launch
+            if lc is not None:
+                # B1 on the final champion's kernel params against its plain
+                # version (compare launches, after the count was read)
+                x = self.x_rows(16384)
+                worst = self.compare("fused_mlp_bf16", f"{tag}: champion",
+                                     *fused_mlp_score(kp, x, with_logits=True),
+                                     *fused_mlp_reference(kp, x), tol_p=b1_tol_p(256))
+                runs["b1_err"] = worst
+        c, on, off = runs["checks"], runs["on"], runs["off"]
+        log("rollout", f"ok: {tag}: first promotion (v{c['promoted']}) {c['promote_s']:.3f} s "
+            f"after ready, served params = its checkpoint bit for bit (sha256 "
+            f"{c['promoted_fp'][:16]}); degraded candidate v{c['bad']} REJECTED in "
+            f"{c['reject_s']:.3f} s ({c['bad_reason']}), champion untouched; candidate "
+            f"v{c['canary']} ROLLED_BACK {c['rollback_s']:.3f} s after the breaker opened "
+            f"mid-canary, the champion's checkpoint restored; counters {runs['counters']} = "
+            f"the audit trail; final champion v{runs['champion']}: B1 vs plain max |dp| "
+            f"{runs['b1_err']:.3e}; {on['sent']} transactions each started once on {self.card}")
+        log("rollout", f"{tag}: at {ROLLOUT_RATE}/s asked: lifecycle on {on['tx_s']:.1f} tx/s, "
+            f"decision p50 {on['p50']:.3f} ms p99 {on['p99']:.3f} ms ({on['n_lat']} records, "
+            f"{on['wall']:.3f} s); off {off['tx_s']:.1f} tx/s, p50 {off['p50']:.3f} ms p99 "
+            f"{off['p99']:.3f} ms ({off['n_lat']} records, {off['wall']:.3f} s); thread CPU "
+            f"seconds while on: " + ", ".join(f"{k} {v:.3f} s ({v / on['wall'] * 100:.2f}% of "
+                                             f"a core)" for k, v in on["cpu"].items())
+            + f" on {self.card}")
+        shutil.rmtree(tmp, ignore_errors=True)
+        return int(launched)
+
+    @staticmethod
+    def rollout_cpu_clock(obj, acc: list) -> None:
+        """Accumulate the calling thread's CPU seconds spent in ``obj.step``
+        (a supervised service's loop body) into ``acc[0]``."""
+        fn = obj.step
+
+        def step(*a, **kw):
+            t0 = time.thread_time()
+            try:
+                return fn(*a, **kw)
+            finally:
+                acc[0] += time.thread_time() - t0
+
+        obj.step = step
+
+    def rollout_drive(self, p, lc, tag: str, wait) -> dict:
+        """(a)'s checks on the live platform; returns what the log reports."""
+        import dataclasses
+
+        import numpy as np
+
+        from ccfd_tpu_torch.lifecycle.controller import STAGE_CANARY
+        from ccfd_tpu_torch.params import params_fingerprint, to_numpy
+
+        out = {}
+        reg = p.registries["lifecycle"]
+        promotions = reg.counter("ccfd_lifecycle_promotions_total")
+        t0 = time.perf_counter()
+        wait(lambda: promotions.value() >= 1, f"{tag}: a promotion", ROLLOUT_PROMOTE_S)
+        out["promote_s"] = time.perf_counter() - t0
+        with lc._mu:  # the promotion's state, before the next candidate moves it
+            champ = lc.store.champion()
+            out["promoted"] = champ.version
+            out["promoted_fp"] = params_fingerprint(p.scorer.params)
+            restored = lc.checkpoints.restore(lc._host_copy(p.scorer.params),
+                                              step=champ.checkpoint_step)[0]
+        if not out["promoted_fp"] == champ.checkpoint_hash == params_fingerprint(restored):
+            raise AssertionError(f"{tag}: served {out['promoted_fp'][:12]}, champion "
+                                 f"v{champ.version} recorded {champ.checkpoint_hash[:12]}, "
+                                 f"checkpoint {params_fingerprint(restored)[:12]}")
+        trainer = lc.trainer_rebase.__self__
+        g = lc.guardrails
+
+        def submit(params) -> int:
+            # accepted now (superseding a trainer candidate in flight); the
+            # trainer's own submissions coalesce into it until its verdict
+            with lc._mu:
+                lc.guardrails = dataclasses.replace(g, min_submit_interval_s=0.0)
+                v = lc.submit_candidate(params, label_watermark=trainer.labels_seen)
+                lc.guardrails = dataclasses.replace(g, min_submit_interval_s=1e9)
+            return v
+
+        def settled(v: int, stages: tuple, what: str) -> float:
+            t = time.perf_counter()
+            wait(lambda: lc.store.get(v).stage in stages, f"{tag}: {what}", 120)
+            return time.perf_counter() - t
+
+        # a degraded candidate: rejected in shadow, the champion untouched
+        bad = to_numpy(trainer.params)
+        bad["layers"][-1]["w"] = -bad["layers"][-1]["w"]
+        champ_v, champ_fp = lc.champion, params_fingerprint(p.scorer.params)
+        out["bad"] = submit(bad)
+        out["reject_s"] = settled(out["bad"], ("REJECTED", "CANARY", "CHAMPION"),
+                                  "the degraded candidate's verdict")
+        rec = lc.store.get(out["bad"])
+        if rec.stage != "REJECTED" or lc.champion != champ_v or params_fingerprint(
+                p.scorer.params) != champ_fp:
+            raise AssertionError(f"{tag}: the degraded candidate ended {rec.stage}, champion "
+                                 f"v{lc.champion} (was v{champ_v})")
+        out["bad_reason"] = [e["detail"].get("reason") for e in lc.store.audit_trail(rec.version)
+                             if e["detail"].get("to") == "REJECTED"][0]
+        # a candidate in canary when the scorer-edge breaker opens: rollback
+        good = to_numpy(p.scorer.params)
+        good["layers"][-1]["b"] = good["layers"][-1]["b"] + np.float32(0.01)
+        out["canary"] = submit(good)
+        wait(lambda: lc.stage == STAGE_CANARY and lc.candidate == out["canary"],
+             f"{tag}: candidate v{out['canary']} in canary", 120)
+        champ = lc.store.champion()
+        breaker = lc.breaker
+        t = time.perf_counter()
+        while breaker.state == "closed":
+            breaker.record_failure()  # a sick edge's failures trip it
+        wait(lambda: lc.store.get(out["canary"]).stage == "ROLLED_BACK",
+             f"{tag}: the rollback", 60)
+        out["rollback_s"] = time.perf_counter() - t
+        breaker.force_close()
+        if params_fingerprint(p.scorer.params) != champ.checkpoint_hash:
+            raise AssertionError(f"{tag}: after the rollback the served params are not "
+                                 f"champion v{champ.version}'s checkpoint")
+        lc.guardrails = g
+        return out
+
+    def rollout_replay(self) -> int:
+        """(b) A platform on the port's CR with the replay plane armed (row
+        capture on the audit seam, the verdict tap, the service) and the
+        lifecycle on: REPLAY_ROWS transactions recorded, then replayed at
+        bulk priority while live traffic runs at ROLLOUT_RATE: every row
+        holds parity (no divergence, drop or ghost); a second replay killed
+        at a batch's production and resumed joins exactly once; after a
+        promotion a third replay's divergences are all ``champion_hash``.
+        Rows/s, and live decision p50/p99 before and during the replay.
+        Returns B1's launches."""
+        import numpy as np
+
+        from ccfd_tpu_torch.config import Config
+        from ccfd_tpu_torch.data.ccfd import Dataset, iter_transactions, load_dataset
+        from ccfd_tpu_torch.data.surrogate import kaggle_surrogate
+        from ccfd_tpu_torch.params import to_numpy
+        from ccfd_tpu_torch.platform.operator import Platform, PlatformSpec
+        from ccfd_tpu_torch.replay.service import CAUSE_CHAMPION_HASH, ReplayKilled
+
+        tag = "rollout (b) replay"
+        tmp = tempfile.mkdtemp(prefix="ccfd_replay_")
+        n = REPLAY_ROWS
+        ds = kaggle_surrogate(n=n, seed=SEED)
+        window_rows = list(iter_transactions(Dataset(X=ds.X, y=ds.y)))
+        live_rows = list(iter_transactions(load_dataset()))
+        cr = self.platform_cr(
+            tmp, store={"enabled": False}, producer={"enabled": False},
+            retrain={"enabled": False},
+            scorer={"model": "mlp", "train_steps": PLATFORM_TRAIN_STEPS, "rest": False},
+            lifecycle={"enabled": True, **REPLAY_GUARDRAILS},
+            audit={"dir": os.path.join(tmp, "audit"), "ring": 1 << 18},
+            replay={"enabled": True, "dir": os.path.join(tmp, "cursor"),
+                    "batch": REPLAY_BATCH, "timeout_s": 30.0})
+        cfg = Config.from_env({**os.environ, **ROLLOUT_ENV})
+        wait = self.heal_wait
+        counters = self.counters()
+        for c in counters.values():
+            c.reset()
+        p = Platform(PlatformSpec.from_cr(cr, cfg=cfg)).up(wait_ready_s=120)
+        stop = threading.Event()
+        live = None
+        out = {}
+        try:
+            topic = cfg.kafka_topic
+            t0 = time.perf_counter()
+            for i in range(0, n, 500):
+                p.broker.produce_batch(topic, window_rows[i:i + 500],
+                                       [r["id"] for r in window_rows[i:i + 500]])
+                time.sleep(0.02)
+            if not p.wait_routed(120):
+                raise AssertionError(f"{tag}: the recorded window did not drain")
+            out["record_s"] = time.perf_counter() - t0
+            wait(lambda: p.audit.counts()["recorded"] >= n, f"{tag}: every record", 30)
+            p.audit.flush()
+            recs = p.audit.scan_window()
+            if len(recs) != n or any(r.get("row") is None for r in recs):
+                raise AssertionError(f"{tag}: {len(recs)} records of {n}, rows captured on "
+                                     f"{sum(r.get('row') is not None for r in recs)}")
+            lo, hi = recs[0]["seq"], recs[-1]["seq"]
+            live = self.rollout_paced(p, live_rows, ROLLOUT_RATE, stop)
+            time.sleep(REPLAY_BEFORE_S)
+            t_b = time.time()
+            rep = p.replay.run_window(lo, hi, window_id="parity")
+            t_e = time.time()
+            out["parity"] = rep
+            # kill a window at a batch's production, then resume it
+            def kill(ev, bi):
+                if ev == "produced" and bi == REPLAY_KILL_BATCH:
+                    raise ReplayKilled()
+
+            p.replay.crash_hook = kill
+            try:
+                p.replay.run_window(lo, hi, window_id="killed")
+                raise AssertionError(f"{tag}: the kill did not fire")
+            except ReplayKilled:
+                pass
+            p.replay.crash_hook = None
+            time.sleep(1.0)  # the dead worker's batch lands in its join
+            out["resumed"] = p.replay.run_window(lo, hi, window_id="killed")
+            # a promotion through the gates (lenient here: (a) holds the
+            # gates; this part needs a champion with other params)
+            lc = p.lifecycle
+            new = to_numpy(p.scorer.params)
+            new["layers"][-1]["b"] = new["layers"][-1]["b"] + np.float32(0.25)
+            v = lc.submit_candidate(new)
+            wait(lambda: lc.store.get(v).stage in ("CHAMPION", "REJECTED", "ROLLED_BACK"),
+                 f"{tag}: the promotion", 120)
+            if lc.store.get(v).stage != "CHAMPION":
+                raise AssertionError(f"{tag}: the candidate ended {lc.store.get(v).stage}")
+            out["promoted"] = p.replay.run_window(lo, hi, window_id="after-promotion")
+            stop.set()
+            live.join()
+            if not p.wait_routed(120):
+                raise AssertionError(f"{tag}: the router did not drain")
+            rr = p.registries["router"]
+            produced = sum(p.broker.end_offsets(topic))
+            incoming = rr.counter("transaction_incoming_total").value()
+            routed = rr.counter("transaction_outgoing_total").total()
+            started = p.engine.snapshot()["next_pid"] - 1
+            ring = self.rollout_records(p)
+            probations = p.registries["heal"].counter(
+                "ccfd_heal_transitions_total").value({"to": "probation"})
+            warm = len(p.scorer.batch_sizes)
+            sent = live.sent
+        finally:
+            stop.set()
+            p.down()
+        dispatched, launched = settled_launches(p.scorer.dispatch_total,
+                                                counters["fused_mlp_bf16"],
+                                                warm * (1 + probations))
+        par, res, pro = out["parity"], out["resumed"], out["promoted"]
+        before = self.rollout_latency(ring, 0.0, t_b)
+        during = self.rollout_latency(ring, t_b, t_e)
+        fails = []
+        if not (par["parity"] and par["match"] == n and par["ghost"] == 0):
+            fails.append(f"parity window: {({k: par[k] for k in ('match', 'divergence', 'drop', 'ghost', 'causes')})}, "
+                         f"first findings {par['findings'][:3]}")
+        if not (res["resumed_at"] == REPLAY_KILL_BATCH * REPLAY_BATCH and res["parity"]
+                and res["match"] == n):
+            fails.append(f"the resumed window: resumed_at {res['resumed_at']}, "
+                         f"{({k: res[k] for k in ('match', 'divergence', 'drop', 'ghost', 'dup')})}")
+        if not (pro["divergence"] > 0 and set(pro["causes"]) == {CAUSE_CHAMPION_HASH}
+                and pro["drop"] == pro["ghost"] == 0):
+            fails.append(f"after the promotion: causes {pro['causes']}, drops {pro['drop']}, "
+                         f"ghosts {pro['ghost']}")
+        if not produced == incoming == routed == started:
+            fails.append(f"produced {produced}, incoming {incoming}, routed {routed}, "
+                         f"started {started}")
+        if launched != dispatched + warm * (1 + probations):
+            fails.append(f"B1 launches {launched} != dispatches {dispatched} + {warm} x "
+                         f"{1 + probations:.0f} warmups")
+        if fails:
+            raise AssertionError(f"{tag}: " + "; ".join(fails))
+        log("rollout", f"ok: {tag}: {n} transactions recorded in {out['record_s']:.3f} s with "
+            f"their rows captured; replayed at bulk priority beside {ROLLOUT_RATE}/s live "
+            f"({sent} live rows): {par['match']} of {n} rows at parity (0 divergences, drops, "
+            f"ghosts) at {par['rows_per_s']:.1f} rows/s; killed at batch {REPLAY_KILL_BATCH}'s "
+            f"production and resumed at row {res['resumed_at']}: {res['match']} matched, "
+            f"{res['dup']} late duplicates ignored; after promoting v{v}: {pro['divergence']} "
+            f"divergences, all champion_hash, {pro['match']} rows unchanged; live decision "
+            f"p50/p99 before the replay {before[0]:.3f}/{before[1]:.3f} ms ({before[2]} "
+            f"records), during it {during[0]:.3f}/{during[1]:.3f} ms ({during[2]}); "
+            f"produced {produced:.0f} = incoming = routed = started; B1 launches {launched} = "
+            f"dispatches {dispatched} + {warm} x {1 + probations:.0f} warmups on {self.card}")
+        shutil.rmtree(tmp, ignore_errors=True)
+        return int(launched)
+
+    def rollout_analytics(self) -> None:
+        """(c) ``analyze``'s summary at the Kaggle table's size on the card
+        against the port's CPU run: counts, extrema and edges exact, the
+        moments within 1e-5 of the magnitudes summed, PSI within 1e-6; the
+        drift monitor flags a shifted window and passes a stable one;
+        summarize's device ms (CUDA events, the two passes on rows already
+        on the card) and wall ms."""
+        import numpy as np
+
+        from ccfd_tpu_torch.analytics.engine import (
+            AnalyticsEngine, DriftMonitor, hist_job, moments_job)
+        from ccfd_tpu_torch.bus.broker import Broker
+        from ccfd_tpu_torch.config import Config
+        from ccfd_tpu_torch.data.ccfd import FEATURE_NAMES, synthetic_dataset
+        from ccfd_tpu_torch.metrics.prom import Registry
+
+        torch = self.torch
+        tag = "rollout (c) analytics"
+        ds = synthetic_dataset(n=ANALYTICS_ROWS, seed=0)
+        card, cpu = AnalyticsEngine(device=self.dev), AnalyticsEngine(device="cpu")
+        card.summarize(ds.X[:4096], ds.y[:4096])  # first use off the clock
+        t0 = time.perf_counter()
+        got = card.summarize(ds.X, ds.y)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        want = cpu.summarize(ds.X, ds.y)
+        x64 = ds.X.astype(np.float64)
+        s_mean, s_sq = np.abs(x64).mean(0), (x64 * x64).mean(0)
+        fails = []
+        for k in ("min", "max", "hist", "edges", "class_counts"):
+            if not np.array_equal(getattr(got, k), getattr(want, k)):
+                fails.append(f"{k} differs")
+        if got.n != want.n:
+            fails.append(f"n {got.n} != {want.n}")
+        e_mean = float(np.max(np.abs(got.mean - want.mean) / s_mean))
+        e_var = float(np.max(np.abs(got.std**2 - want.std**2) / s_sq))
+        bound = np.sqrt(np.outer(s_sq, s_sq)) / np.maximum(np.outer(want.std, want.std), 1e-6)
+        e_corr = float(np.max(np.abs(got.corr - want.corr) / np.maximum(bound, 1.0)))
+        if max(e_mean, e_var, e_corr) > ANALYTICS_TOL:
+            fails.append(f"moments: mean {e_mean:.3e}, var {e_var:.3e}, corr {e_corr:.3e} "
+                         f"of the magnitudes summed")
+        rng = np.random.default_rng(SEED)
+        stable = ds.X[rng.permutation(ds.n)[:4096]]
+        shifted = stable.copy()
+        shifted[:, FEATURE_NAMES.index("Amount")] *= 25.0
+        e_psi = max(float(np.max(np.abs(card.drift(got, w) - cpu.drift(want, w))))
+                    for w in (stable, shifted))
+        if e_psi > 1e-6:
+            fails.append(f"PSI card vs CPU {e_psi:.3e}")
+        cfg = Config.from_env()
+        scores = {}
+        for name, win in (("stable", stable), ("shifted", shifted)):
+            broker, reg = Broker(), Registry()
+            mon = DriftMonitor(cfg, broker, got, engine=card, registry=reg, window=4096)
+            try:
+                broker.produce_batch(cfg.kafka_topic,
+                                     [dict(zip(FEATURE_NAMES, map(float, r))) for r in win])
+                mon.step()
+                scores[name] = reg.gauge("analytics_drift_max_psi").value()
+            finally:
+                mon.stop()
+        if not (scores["stable"] < 0.1 and scores["shifted"] > 0.25):
+            fails.append(f"drift monitor: stable max PSI {scores['stable']:.4f}, shifted "
+                         f"{scores['shifted']:.4f}")
+        if fails:
+            raise AssertionError(f"{tag}: " + "; ".join(fails))
+        xd = torch.from_numpy(ds.X).to(self.dev)
+        yd = torch.from_numpy(ds.y.astype(np.int64)).to(self.dev)
+        lo, hi = (torch.from_numpy(a).to(self.dev) for a in (got.min, got.max))
+        ms = []
+        for _ in range(ANALYTICS_TIMED):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            moments_job(xd, yd)
+            hist_job(xd, lo, hi, card.nbins)
+            b.record()
+            b.synchronize()
+            ms.append(a.elapsed_time(b))
+        nbytes = ds.X.nbytes + ds.y.astype(np.int64).nbytes
+        log("rollout", f"ok: {tag}: {ds.n} rows x {ds.X.shape[1]} features, card against "
+            f"CPU: counts, extrema, edges exact; mean {e_mean:.3e}, var {e_var:.3e}, corr "
+            f"{e_corr:.3e} of the magnitudes summed, PSI {e_psi:.3e}; drift monitor max PSI "
+            f"stable {scores['stable']:.4f}, Amount x25 {scores['shifted']:.4f}; summarize "
+            f"{wall_ms:.3f} ms wall, the two device passes {min(ms):.3f} ms (median "
+            f"{sorted(ms)[len(ms) // 2]:.3f}; the rows' {nbytes} bytes at "
+            f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s take {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms) "
+            f"on {self.card}")
+
     def models(self) -> None:
         """The reference's other Seldon models on the card: parity card
         against CPU, the committed tree ensemble's held-out AUC, REST and
@@ -4486,6 +5086,8 @@ class Smoke:
                                            "train_steps": 0},
                               retrain={"enabled": False}, producer={"enabled": False},
                               investigator={"enabled": False}, store={"enabled": False},
+                              # the seq family's lifecycle is not ported (A12b)
+                              lifecycle={"enabled": False},
                               engine={"crash_recovery": True, "checkpoint_interval_s": 0.5})
         cust = np.random.default_rng(SEED).integers(0, SEQ_CUSTOMERS, size=SEQ_OP_ROWS)
         rows = self.rows[np.arange(SEQ_OP_ROWS) % len(self.rows)]

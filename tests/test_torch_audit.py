@@ -401,14 +401,16 @@ def test_audit_tx_id_offline_and_live_returns_the_endpoints_record(tmp_path, cap
         assert main(["audit", "tx-2", "--dir", str(tmp_path), "--json"]) == 0
         offline = json.loads(capsys.readouterr().out)
         assert offline["record"] == live
-        assert "A12" in offline["lineage"]["absent"] and "A14" in offline["incident"]["absent"]
+        # no lifecycle store to join (the lineage join: test_torch_lifecycle.py);
+        # the incident plane is named absent
+        assert "lineage" not in offline and "A14" in offline["incident"]["absent"]
         assert offline["trace"] == {"trace_id": "ab" * 16, "kept": None}
         assert main(["audit", "tx-2", "--url", ex.endpoint, "--json"]) == 0
         assert json.loads(capsys.readouterr().out)["record"] == live
         monkeypatch.setenv("CCFD_AUDIT_DIR", str(tmp_path))
         assert main(["audit", "tx-2"]) == 0
         text = capsys.readouterr().out
-        assert "served by: host tier (quarantine)" in text and "lineage: absent" in text
+        assert "served by: host tier (quarantine)" in text and "incident: absent" in text
         assert main(["audit", "tx-404", "--dir", str(tmp_path)]) == 2
     finally:
         ex.stop()
@@ -421,14 +423,18 @@ def test_audit_tx_id_offline_and_live_returns_the_endpoints_record(tmp_path, cap
 
 @pytest.mark.parametrize("flag", ["--lifecycle-dir", "--incident-dir"])
 def test_audit_refuses_the_unported_joins_dirs_by_name(tmp_path, capsys, flag):
-    """The reference's join directories select planes the port does not
-    have (A12, A14): the command refuses the flag by name and reads
-    nothing."""
+    """The incident join's directory selects a plane the port does not have
+    (A14): the command refuses the flag by name and reads nothing. The
+    lineage join is served since A12: its case keeps its id and passes
+    ``--lifecycle-dir`` beside the flag still refused."""
     from ccfd_tpu_torch.cli import main
 
+    argv = ["audit", "tx-2", "--dir", str(tmp_path), flag, str(tmp_path)]
+    if flag == "--lifecycle-dir":
+        argv += ["--incident-dir", str(tmp_path)]
     with pytest.raises(SystemExit) as e:
-        main(["audit", "tx-2", "--dir", str(tmp_path), flag, str(tmp_path)])
-    assert e.value.code == 2 and flag in capsys.readouterr().err
+        main(argv)
+    assert e.value.code == 2 and "--incident-dir" in capsys.readouterr().err
 
 
 def _operator_cr(tmp_path, audit=None):

@@ -59,7 +59,9 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
               "process.investigator", "serving.batcher", "data.sequences",
               "ops.ring_attention", "models.seq", "ops.seq_quant", "serving.history",
               "observability.device", "runtime.heal", "runtime.chaos",
-              "observability.audit"):
+              "observability.audit", "analytics", "analytics.engine", "lifecycle",
+              "lifecycle.versions", "lifecycle.shadow", "lifecycle.evaluator",
+              "lifecycle.controller", "replay", "replay.service"):
         assert f"ccfd_tpu_torch.{m}" in res["mods"], m
     bad = [n for n in res["loaded"] if _forbidden(n)]
     assert bad == [], bad
@@ -153,3 +155,25 @@ def test_the_durable_and_fault_modules_import_alone(mod):
     assert out.returncode == 0, out.stderr
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert [n for n in loaded if _forbidden(n) or n == "kafka" or n.startswith("kafka.")] == []
+
+
+@pytest.mark.parametrize("mod", ["analytics", "analytics.engine", "lifecycle",
+                                 "lifecycle.versions", "lifecycle.shadow",
+                                 "lifecycle.evaluator", "lifecycle.controller", "replay",
+                                 "replay.service"])
+def test_the_rollout_and_replay_modules_import_alone(mod):
+    """The model lifecycle, the analytics engine and the replay plane each
+    load by themselves with nothing of JAX or the reference (the reference's
+    controller and engine import jax; the port's are torch and numpy)."""
+    code = (
+        "import importlib, json, sys\n"
+        f"importlib.import_module('ccfd_tpu_torch.{mod}')\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert [n for n in loaded if _forbidden(n)] == []

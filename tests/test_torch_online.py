@@ -227,8 +227,7 @@ def test_daemon_trains_on_arriving_labels_and_stops(ds):
 def test_unported_options_are_refused_by_name(ds):
     cfg = Config()
     scorer = _scorer(_params(ds))
-    with pytest.raises(NotImplementedError, match="lifecycle.*A12"):
-        OnlineTrainer(cfg, Broker(), scorer, scorer.params, lifecycle=object())
+    # the lifecycle (lifecycle=) is ported: tests/test_torch_lifecycle.py
     with pytest.raises(NotImplementedError, match="A15"):
         OnlineTrainer(cfg, Broker(), scorer, scorer.params, mesh=object())
     with pytest.raises(NotImplementedError, match="A15"):
@@ -241,5 +240,7 @@ def test_config_reads_the_retrain_knobs_as_the_reference():
         got, want = Config.from_env(e), RefConfig.from_env(e)
         assert (got.retrain_batch, got.retrain_min_labels) == (
             want.retrain_batch, want.retrain_min_labels)
-    assert Config.from_env({"CCFD_LIFECYCLE_DIR": "/tmp/lc"}).unported() == [
-        "CCFD_LIFECYCLE_DIR (the model lifecycle's lineage store)"]
+    # the lifecycle's lineage store is ported: read as the reference reads it
+    env = {"CCFD_LIFECYCLE_DIR": "/tmp/lc"}
+    assert Config.from_env(env).lifecycle_dir == RefConfig.from_env(env).lifecycle_dir
+    assert Config.from_env(env).unported() == []

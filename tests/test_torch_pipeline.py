@@ -193,10 +193,11 @@ def test_both_pipelines_route_every_transaction_alike(data, ref_scorer, wire, pl
 
 def test_pipeline_refuses_the_knobs_it_does_not_port(data):
     ds, tree = data
-    # the fault plans are ported (A6; only the operator installs them):
-    # their entries now pair the plan with a knob still refused
+    # the fault plans (A6; only the operator installs them) and the
+    # lifecycle's lineage store (A12) are ported: their entries now pair
+    # the knob with one still refused
     for env in ({"CCFD_STORAGE_FAULTS": "bitrot", "CCFD_HOST_TIER_ROWS": "64"},
-                {"CCFD_LIFECYCLE_DIR": "/tmp/lc"},
+                {"CCFD_LIFECYCLE_DIR": "/tmp/lc", "CCFD_HOST_TIER_ROWS": "64"},
                 {"CCFD_DEVICE_FAULTS": "oom", "CCFD_INLINE_ROWS": "64"}):
         with pytest.raises(NotImplementedError, match=list(env)[-1]):
             build_pipeline(Config.from_env(env), ds, device="cpu", params=tree)

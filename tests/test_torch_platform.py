@@ -55,7 +55,11 @@ from tests.test_platform import minimal_cr
 REPO = Path(__file__).resolve().parents[1]
 REF_CR = REPO / "deploy" / "platform_cr.yaml"
 PORT_CR = REPO / "ccfd_tpu_torch" / "assets" / "platform_cr.yaml"
-OFF = {name: {"enabled": False} for name in REFUSED_COMPONENTS}
+# the blocks the tests' CRs switch off: the parts still refused and (since
+# A9, A12 and A14's analytics) the lifecycle, the analytics and the replay
+# planes, which these tests do not drive
+OFF = {name: {"enabled": False}
+       for name in (*REFUSED_COMPONENTS, "lifecycle", "analytics", "replay")}
 ENV = {"CCFD_BATCH_SIZES": "16,128,1024", "CCFD_NATIVE_FRONT": "0"}
 _keep_logging = pytest.fixture(autouse=True)(torch_helpers.keep_port_logging)
 KIE = ("fraud_approved_amount", "fraud_rejected_amount", "fraud_approved_low_amount",
@@ -205,18 +209,24 @@ def test_port_cr_differs_only_in_the_refused_blocks_enabled():
     assert PlatformSpec.from_yaml(str(PORT_CR), cfg=Config()).refused() == []
 
 
-# investigator, engine.usertask_model, scorer.model: seq|seq_q8 and the
-# batcher's queue policies are served since A11, A13 and A15a: their cases
-# keep their ids and now pair the served part with one still refused (the
-# investigator and the user-task model beside fleet and lifecycle, seq under
-# retrain and seq_q8 under the decision plane, which the port refuses where
-# the reference skips them with a warning, the queue rows beside
-# CCFD_LIFECYCLE_DIR)
+# investigator, engine.usertask_model, scorer.model: seq|seq_q8, the
+# batcher's queue policies, the lifecycle, the analytics and the replay
+# planes are served since A11, A13, A15a, A12, A14 and A9: their cases keep
+# their ids and now pair the served part with one still refused (the
+# investigator, the user-task model, the lifecycle, analytics and replay
+# beside fleet, incident and capacity, seq under retrain and seq_q8 under the
+# decision plane, which the port refuses where the reference skips them with
+# a warning, the queue rows beside CCFD_INLINE_ROWS)
 REFUSALS = [(name, {name: {"enabled": True}}, {}, name) for name in REFUSED_COMPONENTS] + [
+    ("lifecycle", {"lifecycle": {"enabled": True}, "incident": {"enabled": True}}, {},
+     "incident"),
+    ("analytics", {"analytics": {"enabled": True}, "capacity": {"enabled": True}}, {},
+     "capacity"),
+    ("replay", {"replay": {"enabled": True}, "fleet": {"enabled": True}}, {}, "fleet"),
     ("investigator", {"investigator": {"enabled": True}, "fleet": {"enabled": True}}, {},
      "fleet"),
     ("engine.usertask_model", {"engine": {"usertask_model": True},
-                               "lifecycle": {"enabled": True}}, {}, "lifecycle"),
+                               "incident": {"enabled": True}}, {}, "incident"),
     ("mesh.devices", {"mesh": {"devices": 2}}, {}, "mesh.devices: 2"),
     ("mesh.devices=0", {"mesh": {"devices": 0}}, {}, "mesh.devices: 0"),
     ("seq", {"scorer": {"model": "seq"}, "retrain": {"enabled": True}}, {},
@@ -229,7 +239,17 @@ REFUSALS = [(name, {name: {"enabled": True}}, {}, name) for name in REFUSED_COMP
     ("CCFD_STORAGE_FAULTS", {}, {"CCFD_STORAGE_FAULTS": "bitrot",
                                  "CCFD_INLINE_ROWS": "64"}, "CCFD_INLINE_ROWS"),
     ("overload.rest_queue_rows", {"overload": {"rest_queue_rows": 64}},
-     {"CCFD_LIFECYCLE_DIR": "/tmp/lc"}, "CCFD_LIFECYCLE_DIR"),
+     {"CCFD_INLINE_ROWS": "64"}, "CCFD_INLINE_ROWS"),
+    # the seq family's lifecycle is A12b's; the decision plane with the
+    # lifecycle is refused where the reference serves the staged path with
+    # a warning
+    ("lifecycle.seq", {"scorer": {"model": "seq"}, "lifecycle": {"enabled": True}}, {},
+     "lifecycle with scorer.model: seq (A12b"),
+    ("lifecycle.seq_q8", {"scorer": {"model": "seq_q8"}, "lifecycle": {"enabled": True}}, {},
+     "lifecycle with scorer.model: seq_q8 (A12b"),
+    ("lifecycle.fused_decision", {"scorer": {"model": "mlp", "fused_decision": True},
+                                  "lifecycle": {"enabled": True}}, {},
+     "scorer.fused_decision with lifecycle"),
 ]
 
 
@@ -255,9 +275,12 @@ def test_the_references_cr_is_refused_with_every_name_at_once(tmp_path):
     msg = str(err.value)
     on = [n for n in REFUSED_COMPONENTS
           if yaml.safe_load(REF_CR.read_text())["spec"].get(n, {}).get("enabled")]
-    assert len(on) == 4 and all(f"{n} (" in msg for n in on)
+    assert len(on) == 2 and all(f"{n} (" in msg for n in on)
+    # exactly those two: the lifecycle and analytics blocks come up
+    assert [r.split(" (")[0] for r in PlatformSpec.from_yaml(str(REF_CR), cfg=Config())
+            .refused()] == ["incident", "capacity"]
     # the default-on blocks are refused when absent too
-    with pytest.raises(NotImplementedError, match="lifecycle.*capacity"):
+    with pytest.raises(NotImplementedError, match="incident.*capacity"):
         Platform(PlatformSpec.from_cr({"spec": {}}, cfg=Config()), device="cpu").up()
 
 

@@ -45,7 +45,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
 import export_torch_seq_assets as assets  # noqa: E402
 
 _keep_logging = pytest.fixture(autouse=True)(torch_helpers.keep_port_logging)
-OFF = {name: {"enabled": False} for name in REFUSED_COMPONENTS}
+# the blocks the tests' CRs switch off: the parts still refused and (since
+# A9, A12 and A14's analytics) the lifecycle, the analytics and the replay
+# planes, which these tests do not drive
+OFF = {name: {"enabled": False}
+       for name in (*REFUSED_COMPONENTS, "lifecycle", "analytics", "replay")}
 ENV = {"CCFD_BATCH_SIZES": "16,128,1024", "CCFD_NATIVE_FRONT": "0",
        "FRAUD_THRESHOLD": "0.4"}
 N = 240
@@ -298,8 +302,8 @@ def test_investigator_and_usertask_model_match_the_reference(tmp_path):
 
 
 def test_up_command_serves_seq_and_names_no_kernel(tmp_path, capsys, monkeypatch):
-    """``up -f`` of the port's CR with ``scorer.model: seq`` (retrain off, as
-    the port requires): the ready line names the seq model and no hand
+    """``up -f`` of the port's CR with ``scorer.model: seq`` (retrain and the
+    lifecycle off, as the port requires): the ready line names the seq model and no hand
     kernel, every produced row is routed, the investigator runs."""
     import yaml
 
@@ -312,7 +316,7 @@ def test_up_command_serves_seq_and_names_no_kernel(tmp_path, capsys, monkeypatch
     s["monitoring"]["port"] = s["health"]["port"] = 0
     s["bus"]["log_dir"] = str(tmp_path / "buslog")
     s["engine"]["checkpoint_file"] = str(tmp_path / "cut.json")
-    s["retrain"]["enabled"] = s["store"]["enabled"] = False
+    s["retrain"]["enabled"] = s["lifecycle"]["enabled"] = s["store"]["enabled"] = False
     s["producer"]["transactions"] = 300
     path = tmp_path / "cr.yaml"
     path.write_text(yaml.safe_dump(cr))

@@ -175,7 +175,10 @@ def test_five_roles_route_as_the_in_process_pipeline(inputs):
 
 
 @pytest.mark.parametrize("argv,env,match", [
-    (["router"], {"CCFD_LIFECYCLE_DIR": "/tmp/lc"}, "CCFD_LIFECYCLE_DIR"),
+    # the lifecycle's lineage store is served since A12: its cases keep
+    # their ids and pair it with a knob still refused
+    pytest.param(["router"], {"CCFD_LIFECYCLE_DIR": "/tmp/lc", "CCFD_HOST_TIER_ROWS": "64"},
+                 "CCFD_HOST_TIER_ROWS", id="argv0-env0-CCFD_LIFECYCLE_DIR"),
     (["serve", "--device", "cpu"], {"CCFD_HOST_TIER_ROWS": "64"},
      "CCFD_HOST_TIER_ROWS"),
     # the device and storage fault plans, the provenance plane's
@@ -185,9 +188,11 @@ def test_five_roles_route_as_the_in_process_pipeline(inputs):
     pytest.param(["producer"], {"CCFD_DEVICE_FAULTS": "device_hang", "CCFD_INLINE_ROWS": "64"},
                  "CCFD_INLINE_ROWS", id="argv2-env2-CCFD_DEVICE_FAULTS"),
     pytest.param(["bus", "--port", "0"], {"CCFD_STORAGE_FAULTS": "enospc",
-                                          "CCFD_LIFECYCLE_DIR": "/tmp/lc"},
-                 "CCFD_LIFECYCLE_DIR", id="argv3-env3-CCFD_STORAGE_FAULTS"),
-    (["engine", "--port", "0"], {"CCFD_LIFECYCLE_DIR": "/tmp/lc"}, "CCFD_LIFECYCLE_DIR"),
+                                          "CCFD_INLINE_ROWS": "64"},
+                 "CCFD_INLINE_ROWS", id="argv3-env3-CCFD_STORAGE_FAULTS"),
+    pytest.param(["engine", "--port", "0"], {"CCFD_LIFECYCLE_DIR": "/tmp/lc",
+                                             "CCFD_INLINE_ROWS": "64"},
+                 "CCFD_INLINE_ROWS", id="argv4-env4-CCFD_LIFECYCLE_DIR"),
     (["notify"], {"CCFD_INLINE_ROWS": "64"}, "CCFD_INLINE_ROWS"),
     pytest.param(["audit"], {"CCFD_AUDIT_DIR": "/tmp/audit", "CCFD_HOST_TIER_ROWS": "64"},
                  "CCFD_HOST_TIER_ROWS", id="argv6-env6-provenance plane"),
@@ -250,13 +255,15 @@ def test_config_reads_the_roles_knobs_as_the_reference():
 # the GC as the reference does (C2), the router on SELDON_URL falls to the
 # rules tier as the reference's role does (C3)
 
-# the fault plans are ported (A6); their cases keep their ids and set a
-# knob still refused beside the plan, which only the operator installs
+# the fault plans (A6) and the lifecycle's lineage store (A12) are ported;
+# their cases keep their ids and set a knob still refused beside the
+# served one (the plans only the operator installs)
 UNPORTED = [("CCFD_STORAGE_FAULTS", "bitrot"), ("CCFD_DEVICE_FAULTS", "oom"),
             ("CCFD_DEVICE_FAULTS", "device_hang:ms=5"), ("CCFD_LIFECYCLE_DIR", "/tmp/lc"),
             ("CCFD_HOST_TIER_ROWS", "256"), ("CCFD_INLINE_ROWS", "64")]
-STILL_REFUSED = {"CCFD_STORAGE_FAULTS": ("CCFD_LIFECYCLE_DIR", "/tmp/lc"),
-                 "CCFD_DEVICE_FAULTS": ("CCFD_HOST_TIER_ROWS", "256")}
+STILL_REFUSED = {"CCFD_STORAGE_FAULTS": ("CCFD_INLINE_ROWS", "64"),
+                 "CCFD_DEVICE_FAULTS": ("CCFD_HOST_TIER_ROWS", "256"),
+                 "CCFD_LIFECYCLE_DIR": ("CCFD_INLINE_ROWS", "64")}
 
 
 @pytest.mark.parametrize("key,value", UNPORTED)
@@ -413,8 +420,9 @@ def test_config_takes_this_slices_knobs_as_the_reference():
     assert got.unported() == []
     # what is left names only parts still to port
     left = Config.from_env({**SLICE9, "CCFD_DEVICE_FAULTS": "oom",
-                            "CCFD_LIFECYCLE_DIR": "/tmp/lc"}).unported()
-    assert [x.split(" ")[0] for x in left] == ["CCFD_LIFECYCLE_DIR"]
+                            "CCFD_LIFECYCLE_DIR": "/tmp/lc",
+                            "CCFD_INLINE_ROWS": "64"}).unported()
+    assert [x.split(" ")[0] for x in left] == ["CCFD_INLINE_ROWS"]
 
 
 @pytest.mark.parametrize("argv", [["notify"], ["producer", "--limit", "1"],

@@ -11,6 +11,7 @@ counts, last errors and backoff deadlines must be equal pass for pass.
 from __future__ import annotations
 
 import json
+import sys
 import threading
 import time as real_time
 import urllib.request
@@ -56,7 +57,10 @@ class _Clock:
     """The module's ``time``: each ``sleep`` is one monitor pass; it waits
     (in real time) until every spawned service has ended or is blocking,
     advances the clock, records the status and fires the scripted
-    injections."""
+    injections. The monitor's own clock read at the top of each pass
+    settles the services the same way, so the first pass (right after
+    ``start()`` spawned them) and a pass after an injection see every
+    service where its script put it, never mid-run."""
 
     def __init__(self, sup, scripts: dict, inject: dict[int, str]):
         self.t = 1000.0
@@ -67,12 +71,16 @@ class _Clock:
         self.trace: list = []
 
     def monotonic(self) -> float:
+        # only the pass's read, not the spawn's (which holds the lock and
+        # stamps a thread that has not started yet)
+        if sys._getframe(1).f_code.co_name == "_monitor_loop":
+            self._settle()
         return self.t
 
     def perf_counter(self) -> float:
         return self.t
 
-    def sleep(self, s: float) -> None:
+    def _settle(self) -> None:
         for name, svc in list(self.sup._services.items()):
             th = svc._thread
             sc = self.scripts[name]
@@ -82,6 +90,9 @@ class _Clock:
                 real_time.sleep(0.0002)
             if th is not None and not th.is_alive():
                 th.join()
+
+    def sleep(self, s: float) -> None:
+        self._settle()
         self.t += s
         self.passes += 1
         status = self.sup.status()

@@ -114,14 +114,18 @@ def test_unported_training_parts_are_refused_by_name(tmp_path, monkeypatch):
                  "--checkpoint-dir", str(tmp_path)]) == 2
     with pytest.raises(NotImplementedError, match="--from-store"):
         main(["train", "--device", "cpu", "--from-store", "--checkpoint-dir", str(tmp_path)])
-    cfg = Config.from_env({"CCFD_LIFECYCLE_DIR": str(tmp_path / "lc")})
-    with pytest.raises(NotImplementedError, match="CCFD_LIFECYCLE_DIR"):
+    # the lifecycle's lineage store is ported (A12): a knob still refused
+    # stands beside it, and the refusal comes before anything is written
+    env = {"CCFD_LIFECYCLE_DIR": str(tmp_path / "lc"), "CCFD_HOST_TIER_ROWS": "64"}
+    cfg = Config.from_env(env)
+    with pytest.raises(NotImplementedError, match="CCFD_HOST_TIER_ROWS"):
         build_pipeline(cfg, synthetic_dataset(n=64), device="cpu",
                        params=load_params(DEFAULT_PARAMS))
-    with pytest.raises(NotImplementedError, match="CCFD_LIFECYCLE_DIR"):
+    with pytest.raises(NotImplementedError, match="CCFD_HOST_TIER_ROWS"):
         build_server(cfg, device="cpu")
-    monkeypatch.setenv("CCFD_LIFECYCLE_DIR", str(tmp_path / "lc"))
-    with pytest.raises(NotImplementedError, match="CCFD_LIFECYCLE_DIR"):
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(NotImplementedError, match="CCFD_HOST_TIER_ROWS"):
         main(["demo", "--device", "cpu", "--transactions", "10"])
     assert not (tmp_path / "lc").exists()
 
