@@ -29,7 +29,7 @@
   python -m ccfd_tpu_torch audit [--topic T] [--group G] [--limit N]
                                  [--follow]
   python -m ccfd_tpu_torch audit TX_ID [--url URL] [--dir D] [--json]
-                                 [--lifecycle-dir D]
+                                 [--lifecycle-dir D] [--incident-dir D]
   python -m ccfd_tpu_torch lifecycle [--dir D] [--audit] [--version N] [--json]
   python -m ccfd_tpu_torch replay [--dir D] [--since-seq N] [--until-seq N]
                                   [--from-incident BUNDLE.json]
@@ -48,6 +48,10 @@
   python -m ccfd_tpu_torch manifests [-f CR.yaml] --out DIR
   python -m ccfd_tpu_torch store serve|put|ls [--root D] [--host H]
                                  [--port 9000] [--endpoint URL] [--file F]
+  python -m ccfd_tpu_torch loadgen [--url URL] [--clients 8] [--rows 16]
+                                   [--seconds 10] [--path P]
+  python -m ccfd_tpu_torch doctor [--probe-s 30] [--device cuda|cpu]
+                                  [--checkpoint-dir D] [--quantized-dir D]
 
 ``train`` is the reference's ``cmd_train`` for the MLP family: the dataset
 of ``training_dataset`` (the CSV at CCFD_CSV, else the Kaggle-shaped
@@ -59,7 +63,7 @@ default), the held-out ``auc_mlp``, and a ``CheckpointManager`` step at
 scikit-learn (the port does not import it). ``--family hgb`` exits 2 with
 the reference's message for a missing scikit-learn (the port fits no tree
 ensemble: ``checkpoints_gbt/params.npz`` is the reference's ``train
---family hgb`` output), and ``--from-store`` (training on the store, A14) is
+--family hgb`` output), and ``--from-store`` (training on the store, A14b) is
 refused by name.
 
 ``serve`` is the Seldon-contract REST scorer of the reference's
@@ -164,8 +168,9 @@ provenance plane (observability/audit.py): from a live exporter with
 ``--url``, else offline, read-only, from the audit segments under ``--dir``
 (CCFD_AUDIT_DIR); the lineage join reads the model lifecycle's version
 store (``--lifecycle-dir``, CCFD_LIFECYCLE_DIR) with the hash parity of the
-decision's champion, and the incident join is reported absent by name
-(ROADMAP A14). ``lifecycle`` prints that store's lineage and audit trail;
+decision's champion, and the incident join the bundle open when it was
+made (``--incident-dir``, CCFD_INCIDENT_DIR, or the exporter's
+``/incidents/<id>``). ``lifecycle`` prints that store's lineage and audit trail;
 ``replay`` summarizes a recorded window of the audit segments, backtests a
 threshold on it host-side (``--what-if-threshold``) or re-drives it through
 a live platform on the card (``--live``); ``analyze`` summarizes the
@@ -207,6 +212,14 @@ ready line names the served model, device, kernel and the params' sha256
 ``store`` is the reference's object-store command: ``serve`` the S3-shaped
 store, ``put`` the dataset (or ``--file``) as ``filename`` in ``s3bucket``,
 ``ls`` the bucket; the producer reads from it when ``s3endpoint`` is set.
+``loadgen`` drives a running ``serve`` (or any Seldon-contract endpoint)
+with subprocess raw-socket clients (``utils/loadgen.py``) and prints one
+JSON report; it exits 3 on any error. ``doctor`` prints one JSON health
+report: the device probed in a subprocess under ``--probe-s`` (a wedged
+card times out instead of hanging it), the kernel libraries built and
+current for their sources, the toolchain, the bus and store, the
+checkpoints and the environment in effect; it exits 3 unless the device
+answered.
 
 ``investigate`` and ``tasks`` are the reference's investigator commands
 over the engine's KIE-shaped REST contract (``--engine-url``, else
@@ -963,13 +976,6 @@ def _audit_fetch_json(url: str):
         return None
 
 
-# the reconstruction's joins whose planes are not ported: reported absent
-# by name, never faked
-_ABSENT_JOINS = {
-    "incident": "the incident flight recorder (ROADMAP A14) is not ported",
-}
-
-
 def cmd_audit_reconstruct(args: argparse.Namespace, cfg: Config) -> int:
     """``audit <tx_id>``: the decision record stamped at the route seam,
     read from the live exporter with ``--url`` (``/decisions/<tx_id>``) or
@@ -977,8 +983,10 @@ def cmd_audit_reconstruct(args: argparse.Namespace, cfg: Config) -> int:
     read-only, as the reference's. The lineage join reads the version that
     scored it from the lifecycle's store (``--lifecycle-dir``,
     CCFD_LIFECYCLE_DIR; read-only) with the hash parity of the decision's
-    stamp against the lineage's; the trace join asks the live exporter for
-    the kept trace; the incident join names its plane as absent."""
+    stamp against the lineage's; the incident join finds the bundle that
+    was open when the decision was made (the live exporter's
+    ``/incidents/<id>``, else ``--incident-dir``, CCFD_INCIDENT_DIR); the
+    trace join asks the live exporter for the kept trace."""
     doc: dict = {"tx_id": args.tx_id}
     record = None
     base = args.url.rstrip("/") if args.url else ""
@@ -1016,8 +1024,21 @@ def cmd_audit_reconstruct(args: argparse.Namespace, cfg: Config) -> int:
             }
         except (OSError, ValueError, KeyError, TypeError) as e:
             doc["lineage"] = {"error": repr(e)}
-    for join, why in _ABSENT_JOINS.items():
-        doc[join] = {"absent": why}
+    # the incident join: what was burning while this decision was made
+    inc_id = record.get("incident")
+    if inc_id:
+        bundle = _audit_fetch_json(f"{base}/incidents/{inc_id}") if base else None
+        if bundle is None:
+            inc_dir = args.incident_dir or cfg.incident_dir
+            if inc_dir:
+                try:
+                    with open(os.path.join(inc_dir, f"{inc_id}.json")) as f:
+                        bundle = json.load(f)
+                except (OSError, ValueError):
+                    bundle = None
+        doc["incident"] = ({"id": bundle.get("id"), "trigger": bundle.get("trigger"),
+                            "generated_unix": bundle.get("generated_unix"), "found": True}
+                           if bundle is not None else {"id": inc_id, "found": False})
     trace_id = record.get("trace")
     if trace_id and base:
         tr = _audit_fetch_json(f"{base}/traces/{trace_id}")
@@ -1044,8 +1065,11 @@ def cmd_audit_reconstruct(args: argparse.Namespace, cfg: Config) -> int:
               f"labels@{v['label_watermark']} hash_parity={lin['hash_parity']}")
     elif lin:
         print(f"  lineage: unreadable ({lin['error']})")
-    for join in _ABSENT_JOINS:
-        print(f"  {join}: absent ({doc[join]['absent']})")
+    inc = doc.get("incident")
+    if inc:
+        mark = "" if inc.get("found") else " (bundle not found)"
+        print(f"  incident: {inc['id']}{mark}"
+              + (f" trigger={inc['trigger']}" if inc.get("trigger") else ""))
     trc = doc.get("trace")
     if trc:
         kept = {True: "kept", False: "not retained",
@@ -1126,16 +1150,13 @@ def cmd_replay(args: argparse.Namespace) -> int:
             spec = PlatformSpec.from_yaml(args.cr, cfg=cfg)
         else:
             # a minimal replay platform: bus + scorer + engine + router +
-            # the audit and replay planes over the recorded segments (and,
-            # unlike the reference's, without the incident and capacity
-            # planes, which the port does not have: ROADMAP A14)
+            # the audit and replay planes over the recorded segments
             spec = PlatformSpec.from_cr({"spec": {
                 "audit": {"dir": audit_dir},
                 "replay": {"enabled": True, "dir": args.state_dir or cfg.replay_dir},
                 "monitoring": {"enabled": False}, "health": {"enabled": False},
                 "analytics": {"enabled": False}, "retrain": {"enabled": False},
-                "notify": {"enabled": False}, "incident": {"enabled": False},
-                "capacity": {"enabled": False},
+                "notify": {"enabled": False},
             }}, cfg=cfg)
         p = Platform(spec, device=args.device).up()
         try:
@@ -1446,7 +1467,7 @@ def cmd_train(args: argparse.Namespace) -> int:
         return 2
     if args.from_store:
         raise NotImplementedError(
-            "train --from-store (training on the object store's CSV, ROADMAP A14) is not "
+            "train --from-store (training on the object store's CSV, ROADMAP A14b) is not "
             "ported yet; the store itself is (`store`, the producer's s3endpoint)")
     dev = resolve(args.device)
     ds, source = training_dataset()
@@ -1557,6 +1578,157 @@ def cmd_score(args: argparse.Namespace) -> int:
         "checkpoint": params is not None,
     }))
     return 0
+
+
+def cmd_loadgen(args: argparse.Namespace) -> int:
+    """Drive a RUNNING scorer endpoint (local or remote) with the
+    subprocess raw-socket clients of ``utils/loadgen.py``; one JSON report
+    on stdout. Exits 3 when any request errored or a client failed, so it
+    serves as a smoke gate in a deploy pipeline."""
+    from ccfd_tpu_torch.utils.loadgen import run_loadgen
+
+    cfg = Config.from_env()
+    report = run_loadgen(args.url, clients=args.clients, rows_per_request=args.rows,
+                         seconds=args.seconds, path=args.path, token=cfg.seldon_token)
+    print(json.dumps(report))
+    return 0 if report["errors"] == 0 and report["failed_clients"] == 0 else 3
+
+
+# the doctor's device probe, run in a subprocess under --probe-s: a wedged
+# card (a CUDA context that never answers) times the probe out
+# instead of hanging the doctor. It names the device, times a small
+# product's round trip and reads the card's name and power limit.
+DOCTOR_PROBE = r"""
+import json, subprocess, sys, time
+import torch
+dev = sys.argv[1]
+out = {"torch": torch.__version__, "cuda": torch.version.cuda}
+if dev == "cuda":
+    if not torch.cuda.is_available():
+        print(json.dumps({**out, "error": "torch.cuda.is_available() is False"}))
+        raise SystemExit(1)
+    out.update(platform="gpu", devices=torch.cuda.device_count(),
+               name=torch.cuda.get_device_name(0),
+               capability=list(torch.cuda.get_device_capability(0)))
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=20)
+        out["nvidia_smi"] = smi.stdout.strip().splitlines() if smi.returncode == 0 else None
+    except (OSError, subprocess.TimeoutExpired):
+        out["nvidia_smi"] = None
+else:
+    out.update(platform="cpu", devices=1, name="cpu")
+x = torch.zeros((16, 30), device=dev)
+(x @ x.T).sum().item()
+t0 = time.perf_counter()
+for _ in range(5):
+    (x @ x.T).sum().item()
+out["dispatch_rtt_ms"] = round((time.perf_counter() - t0) / 5 * 1e3, 3)
+print(json.dumps(out))
+"""
+
+
+def cmd_doctor(args: argparse.Namespace) -> int:
+    """One-shot operational health report, one JSON object on stdout; exit
+    0 only when the device answered (the card unless ``--device cpu``).
+    Everything that could hang on a wedged card runs in a SUBPROCESS under
+    ``--probe-s``. Sections: the device (name, count, the card's name and
+    power limit as nvidia-smi reports them, torch and CUDA versions, a
+    small product's round trip), the kernel libraries (built under
+    ``build/`` and current for their sources: the library name carries the
+    sources' hash), the toolchain, the bus and store reachability for
+    networked URLs, the checkpoints, and the environment contract in
+    effect."""
+    import subprocess
+
+    cfg = Config.from_env()
+    dev = args.device or "cuda"
+    report: dict[str, Any] = {"ok": True}
+    t0 = time.perf_counter()
+    try:
+        r = subprocess.run([sys.executable, "-c", DOCTOR_PROBE, dev], timeout=args.probe_s,
+                           capture_output=True, text=True)
+        lines = r.stdout.strip().splitlines()
+        if r.returncode == 0 and lines:
+            report["device"] = json.loads(lines[-1])
+            report["device"]["probe_s"] = round(time.perf_counter() - t0, 2)
+        else:
+            try:  # the probe's own verdict (no CUDA), else its stderr's tail
+                report["device"] = dict(json.loads(lines[-1]))
+            except (IndexError, ValueError, TypeError):
+                report["device"] = {"error": (r.stderr or "probe failed").strip()[-300:]}
+            report["ok"] = False
+    except subprocess.TimeoutExpired:
+        report["device"] = {
+            "error": f"WEDGED: no answer within {args.probe_s:.0f}s (the device probe "
+                     "hangs: the card is stuck; restart the process "
+                     "that holds it)"}
+        report["ok"] = False
+
+    # the kernel libraries: built and current for their sources
+    from ccfd_tpu_torch import native
+    from ccfd_tpu_torch.ops import _build
+
+    kernels: dict[str, Any] = {}
+    for name in _build.SOURCES:
+        target = _build._target(name)
+        kernels[name] = {"built": target.exists(), "path": str(target)}
+    try:
+        target = native.library_path()
+        kernels["native"] = {"built": target.exists(), "path": str(target)}
+    except Exception as e:  # noqa: BLE001 - report, don't crash the doctor
+        kernels["native"] = {"built": False, "error": str(e)[-300:]}
+    report["kernels"] = kernels
+    try:
+        report["nvcc"] = _build.nvcc_path()
+    except RuntimeError as e:
+        report["nvcc"] = f"absent: {e}"
+
+    def tcp_check(url: str) -> str:
+        import socket
+        from urllib.parse import urlparse
+
+        if not url.startswith(("http://", "https://", "kafka://")):
+            return "in-process (nothing to dial)"
+        p = urlparse(url)
+        port = p.port or {"kafka": 9092, "https": 443}.get(p.scheme, 80)
+        try:
+            with socket.create_connection((p.hostname, port), timeout=3):
+                return "reachable"
+        except OSError as e:
+            return f"unreachable: {e}"
+
+    report["bus"] = {"url": cfg.broker_url, "status": tcp_check(cfg.broker_url)}
+    if cfg.s3_endpoint:
+        report["store"] = {"url": cfg.s3_endpoint, "status": tcp_check(cfg.s3_endpoint)}
+
+    from ccfd_tpu_torch.parallel.checkpoint import CheckpointManager
+
+    for label, d in (("checkpoint", args.checkpoint_dir), ("quantized", args.quantized_dir)):
+        try:
+            step = CheckpointManager(d).latest_step() if d else None
+        except Exception:  # noqa: BLE001 - an unreadable dir reads as absent
+            step = None
+        report[label] = {"dir": d, "latest_step": step}
+    report["gbt"] = {"dir": GBT_DIR,
+                     "present": os.path.exists(os.path.join(GBT_DIR, "params.npz"))}
+    on_card = report["device"].get("platform") == "gpu"
+    report["config"] = {
+        "model": cfg.model_name,
+        "compute_dtype": cfg.compute_dtype,
+        "fraud_threshold": cfg.fraud_threshold,
+        "seldon_timeout_ms": cfg.seldon_timeout_ms,
+        "dispatch_deadline_ms": cfg.dispatch_deadline_ms,
+        # what serving would arm, resolved from the SUBPROCESS probe's
+        # platform: this process never touches the device
+        "dispatch_deadline_ms_effective": cfg.scorer_dispatch_deadline_ms(on_card),
+        "host_tier_rows": cfg.host_tier_rows,
+        "batch_sizes": list(cfg.batch_sizes),
+        "unported": cfg.unported(),
+    }
+    print(json.dumps(report))
+    return 0 if report["ok"] else 3
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -1673,13 +1845,16 @@ def build_parser() -> argparse.ArgumentParser:
                     "omit to tail the engine's audit stream")
     au.add_argument("--dir", default="", help="audit log dir (default: CCFD_AUDIT_DIR)")
     au.add_argument("--url", default="",
-                    help="live exporter endpoint: fetch the record (and the kept trace) "
-                    "over HTTP before the on-disk segments")
+                    help="live exporter endpoint: fetch the record, the incident bundle "
+                    "and the kept trace over HTTP before the on-disk artifacts")
     au.add_argument("--json", action="store_true",
                     help="emit the full reconstruction document as JSON")
     au.add_argument("--lifecycle-dir", default="",
                     help="lifecycle state dir for the lineage join (default: "
                     "CCFD_LIFECYCLE_DIR)")
+    au.add_argument("--incident-dir", default="",
+                    help="incident bundle dir for the incident join (default: "
+                    "CCFD_INCIDENT_DIR)")
     au.add_argument("--topic", default="", help="default: CCFD_AUDIT_TOPIC")
     au.add_argument("--group", default="audit-tail",
                     help="consumer group (offsets persist per group)")
@@ -1772,6 +1947,23 @@ def build_parser() -> argparse.ArgumentParser:
                     help="store endpoint (overrides the s3endpoint env)")
     st.add_argument("--file", default=None, help="local file to upload (put)")
     st.set_defaults(fn=cmd_store)
+    lg = sub.add_parser("loadgen", help="drive a deployed scorer's REST endpoint "
+                        "(JSON report)")
+    lg.add_argument("--url", default="http://127.0.0.1:8000")
+    lg.add_argument("--clients", type=int, default=8)
+    lg.add_argument("--rows", type=int, default=16)
+    lg.add_argument("--seconds", type=float, default=10.0)
+    lg.add_argument("--path", default=None, help="request path (default: the URL's own "
+                    "path, else /api/v0.1/predictions)")
+    lg.set_defaults(fn=cmd_loadgen)
+    dr = sub.add_parser("doctor", help="environment and device health report (JSON)")
+    dr.add_argument("--probe-s", type=float, default=30.0,
+                    help="device probe timeout (the probe runs in a subprocess)")
+    dr.add_argument("--checkpoint-dir", default=DEFAULT_CHECKPOINT_DIR)
+    dr.add_argument("--quantized-dir", default=None)
+    dr.add_argument("--device", choices=("cuda", "cpu"), default=None,
+                    help="the device to probe (default: the card)")
+    dr.set_defaults(fn=cmd_doctor)
     return ap
 
 

@@ -126,6 +126,16 @@ as ccfd_tpu/config.py, with the same defaults:
     CCFD_AUDIT_FLUSH_INTERVAL_S                         the operator's decision
                                                         provenance plane
                                                         (observability/audit.py)
+    CCFD_INCIDENT, CCFD_INCIDENT_INTERVAL_S,
+    CCFD_INCIDENT_RING, CCFD_INCIDENT_DIR               the operator's incident
+                                                        flight recorder
+                                                        (observability/incident.py)
+    CCFD_CAPACITY, CCFD_CAPACITY_INTERVAL_S,
+    CCFD_CAPACITY_BASELINE,
+    CCFD_CAPACITY_REGRESSION_TOL,
+    CCFD_CAPACITY_MIN_SAMPLES                           the operator's capacity
+                                                        observatory
+                                                        (observability/capacity.py)
     CCFD_LIFECYCLE_SHADOW_TOPIC, CCFD_LIFECYCLE_DIR,
     CCFD_LIFECYCLE_MIN_LABELS,
     CCFD_LIFECYCLE_MIN_SHADOW_ROWS,
@@ -317,6 +327,21 @@ class Config:
     audit_segment_bytes: int = 4 * 1024 * 1024
     audit_segments: int = 8
     audit_flush_interval_s: float = 0.25
+    # --- the incident flight recorder (observability/incident.py; CR block
+    # `incident:`); CCFD_INCIDENT=0 kills the plane (breaches still page,
+    # they stop dumping bundles) ---
+    incident_enabled: bool = True
+    incident_interval_s: float = 5.0       # ring-snapshot cadence
+    incident_ring: int = 64                # snapshot-ring depth
+    incident_dir: str = ""                 # "" = bundles in memory only
+    # --- the capacity observatory (observability/capacity.py; CR block
+    # `capacity:`); CCFD_CAPACITY=0 kills it (both endpoints 404) ---
+    capacity_enabled: bool = True
+    capacity_interval_s: float = 2.0       # fit-window tick
+    capacity_baseline_file: str = ""       # "" = baseline in memory only
+    # the sentinel's fractional departure from baseline: 1.0 fires past 2x
+    capacity_regression_tolerance: float = 1.0
+    capacity_min_samples: int = 50         # samples before the baseline
     # --- the model lifecycle (lifecycle/; the governed rollout of retrain
     # candidates: shadow -> canary -> gated promotion with auto-rollback) ---
     shadow_topic: str = "ccd-shadow-scores"  # paired champion/challenger scores
@@ -462,6 +487,17 @@ class Config:
             audit_segments=num("CCFD_AUDIT_SEGMENTS", "audit_segments", int),
             audit_flush_interval_s=num("CCFD_AUDIT_FLUSH_INTERVAL_S",
                                        "audit_flush_interval_s"),
+            incident_enabled=_on_unless_off(e.get("CCFD_INCIDENT", "1")),
+            incident_interval_s=num("CCFD_INCIDENT_INTERVAL_S", "incident_interval_s"),
+            incident_ring=num("CCFD_INCIDENT_RING", "incident_ring", int),
+            incident_dir=e.get("CCFD_INCIDENT_DIR", Config.incident_dir),
+            capacity_enabled=_on_unless_off(e.get("CCFD_CAPACITY", "1")),
+            capacity_interval_s=num("CCFD_CAPACITY_INTERVAL_S", "capacity_interval_s"),
+            capacity_baseline_file=e.get("CCFD_CAPACITY_BASELINE",
+                                         Config.capacity_baseline_file),
+            capacity_regression_tolerance=num("CCFD_CAPACITY_REGRESSION_TOL",
+                                              "capacity_regression_tolerance"),
+            capacity_min_samples=num("CCFD_CAPACITY_MIN_SAMPLES", "capacity_min_samples", int),
             faults_spec=e.get("CCFD_FAULTS", Config.faults_spec),
             seq_stripes=num("CCFD_SEQ_STRIPES", "seq_stripes", int),
             seq_inflight=num("CCFD_SEQ_INFLIGHT", "seq_inflight", int),

@@ -19,11 +19,14 @@ on a guardrail breach or an open scorer-edge breaker:
 - :mod:`~ccfd_tpu_torch.lifecycle.controller`: the guardrailed state
   machine and the canary gate (``serving/graph.py`` ``hash_split``).
 
-The challenger scores on the model's numpy host forward (the scorer's
-challenger slot), which is the reference's own design for a second model
-off the device's critical path; the champion never leaves the kernel.
-The seq family's lifecycle (the SeqScorer's challenger slot, ROADMAP A12b)
-is not ported: the operator refuses ``lifecycle`` under a seq scorer.
+A row model's challenger scores on the model's numpy host forward (the
+Scorer's challenger slot), which is the reference's own design for a second
+model off the device's critical path; the champion never leaves the kernel.
+The seq family's challenger (the SeqScorer's slot, typically the int8
+``seq_q8`` tree) runs the same torch forward as its champion on the
+scorer's device, as the reference's seq challenger is its device program;
+the scorer offers its assembled histories to the tap and serves the canary
+slice on the same contexts itself.
 """
 
 from ccfd_tpu_torch.lifecycle.controller import (  # noqa: F401

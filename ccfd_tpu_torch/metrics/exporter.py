@@ -31,6 +31,22 @@ platform operator, which serves every component registry from one port.
                                 (or "partition:offset" uid); unknown ids
                                 404, and both endpoints 404 when the audit
                                 plane is off (CCFD_AUDIT=0)
+    GET /incidents              incident-bundle summaries (JSON), newest
+                                first (observability/incident.py)
+    GET /incidents/<id>         one full incident bundle (JSON); unknown ids
+                                404, and both endpoints 404 when the plane
+                                is off (CCFD_INCIDENT=0)
+    GET /capacity               the fitted capacity-model document (JSON,
+                                schema ccfd.capacity.v1): per-stage
+                                utilization, headroom and knee, predicted
+                                against observed p50/p99, the bottleneck
+                                (observability/capacity.py)
+    GET /capacity/whatif?workers=&batch=&deadline_ms=&max_inflight=
+                                the same document re-evaluated under the
+                                requested actuator overrides, with a
+                                ``whatif`` section carrying the predicted-p99
+                                delta; nothing live is touched. Both 404
+                                when the plane is off (CCFD_CAPACITY=0)
 
 Metric paths answer ``text/plain; version=0.0.4``; unknown paths 404; HEAD
 mirrors GET with no body. Every scrape refreshes the ``process`` registry's
@@ -38,8 +54,7 @@ mirrors GET with no body. Every scrape refreshes the ``process`` registry's
 the profiler's stage gauges and the telemetry's memory gauges, and first
 calls each ``collectors`` callable (the router role and the operator
 publish kernel launches and scorer dispatches this way). Not ported:
-OpenMetrics negotiation, and the /incidents and /capacity planes (their
-components are refused by the operator; ROADMAP A14).
+OpenMetrics negotiation.
 """
 
 from __future__ import annotations
@@ -122,9 +137,12 @@ class MetricsExporter:
                  memory_probes: dict[str, Callable[[], float]] | None = None,
                  collectors: list[Callable[[], None]] | None = None,
                  profiler=None, telemetry=None,
-                 health: Callable[[], dict] | None = None, audit=None):
+                 health: Callable[[], dict] | None = None, audit=None,
+                 recorder=None, capacity=None):
         self._registries = dict(registries)
         self._audit = audit  # observability.audit.AuditLog (or None)
+        self._recorder = recorder  # observability.incident.FlightRecorder
+        self._capacity = capacity  # observability.capacity.CapacityModel
         self._sink = sink  # observability.trace.SpanSink (or None)
         self._profiler = profiler  # observability.profile.StageProfiler
         self._telemetry = telemetry  # observability.device.DeviceTelemetry
@@ -229,6 +247,10 @@ class MetricsExporter:
             return self._device_capture(query), "application/json"
         if path == "/decisions" or path.startswith("/decisions/"):
             return self._decisions(path, query), "application/json"
+        if path == "/incidents" or path.startswith("/incidents/"):
+            return self._incidents(path), "application/json"
+        if path in ("/capacity", "/capacity/whatif"):
+            return self._capacity_doc(path, query), "application/json"
         if path == "/memory":
             from urllib.parse import parse_qs
 
@@ -240,6 +262,37 @@ class MetricsExporter:
                 probes = dict(self._memory_probes)
             return json.dumps(memory_report(probes)), "application/json"
         return self.render_path(path), _TEXT_CTYPE
+
+    def _incidents(self, path: str) -> str | None:
+        """Incident bundles (observability/incident.py); None (404) with
+        the plane off or for an unknown id."""
+        if self._recorder is None:
+            return None
+        if path.rstrip("/") == "/incidents":
+            return json.dumps({"incidents": self._recorder.incidents()})
+        doc = self._recorder.incident_doc(path[len("/incidents/"):])
+        return None if doc is None else json.dumps(doc)
+
+    def _capacity_doc(self, path: str, query: str) -> str | None:
+        """Capacity-model documents (observability/capacity.py). With the
+        plane off (CCFD_CAPACITY=0: no model wired) BOTH endpoints 404."""
+        if self._capacity is None:
+            return None
+        if path == "/capacity":
+            return json.dumps(self._capacity.snapshot())
+        from urllib.parse import parse_qs
+
+        q = parse_qs(query or "")
+
+        def num(name: str, kind: type):
+            try:
+                return kind(q[name][0]) if q.get(name) else None
+            except ValueError:
+                return None
+
+        return json.dumps(self._capacity.whatif(
+            workers=num("workers", int), batch=num("batch", int),
+            deadline_ms=num("deadline_ms", float), max_inflight=num("max_inflight", int)))
 
     def _decisions(self, path: str, query: str) -> str | None:
         """Decision-provenance queries (observability/audit.py). With the

@@ -26,8 +26,9 @@ for the last token only. ``init(generator, num_features)`` draws from a
 seeded ``torch.Generator``: the reference's ``PRNGKey`` stream cannot be
 reproduced, so the operator serves the committed ``assets/seq_init.npz``
 (the reference's ``init(PRNGKey(0))`` with its normalizer), carried across
-by ``params.from_jax_model_params``. ``loss_fn`` (training) waits for
-ROADMAP A12.
+by ``params.from_jax_model_params``. ``loss_fn`` is the reference's
+weighted BCE on ``logits`` (``models/losses.py``); the registry entry stays
+untrainable, as the reference's.
 """
 
 from __future__ import annotations
@@ -188,7 +189,9 @@ def trunk(params: Params, h: torch.Tensor, compute_dtype: torch.dtype, dense: De
 
 
 def _normalized(params: Params, x: torch.Tensor) -> torch.Tensor:
-    return (x.float() - params["norm"]["mu"]) / params["norm"]["sigma"]
+    # the normalizer is data, not a weight: no gradient reaches it (the
+    # reference's stop_gradient)
+    return (x.float() - params["norm"]["mu"].detach()) / params["norm"]["sigma"].detach()
 
 
 def _logits(params: Params, x: torch.Tensor, compute_dtype: torch.dtype, readout: bool,
@@ -231,3 +234,14 @@ def apply_serving(params: Params, x: torch.Tensor,
     """Serving twin of ``apply`` on ``logits_readout``: what
     ``serving/history.py::SeqScorer`` dispatches."""
     return torch.sigmoid(logits_readout(params, x, compute_dtype, pos_length=pos_length))
+
+
+def loss_fn(params: Params, x: torch.Tensor, y: torch.Tensor,
+            pos_weight: float = 8.0, compute_dtype: torch.dtype = torch.bfloat16,
+            attention_fn: Callable | None = None) -> torch.Tensor:
+    """Weighted binary cross-entropy of the newest transaction's logit
+    (numerically stable), differentiable in ``params``."""
+    from ccfd_tpu_torch.models.losses import weighted_bce_from_logits
+
+    return weighted_bce_from_logits(logits(params, x, compute_dtype, attention_fn=attention_fn),
+                                    y, pos_weight)

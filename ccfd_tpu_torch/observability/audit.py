@@ -36,8 +36,8 @@ key             meaning
 ``row``         the decoded feature row, while the replay plane has
                 ``capture_rows`` armed (so a window scanned off the
                 segments is re-scorable)
-``incident``    the open incident bundle id (the flight recorder, ROADMAP
-                A14: absent until it is ported)
+``incident``    the open incident bundle id (the flight recorder,
+                observability/incident.py, while an SLO breaches)
 ``trace``       trace id (joins ``/traces/<id>`` when the tail sampler
                 kept it)
 ``worker``      router worker that routed the batch
@@ -578,6 +578,11 @@ class AuditLog:
                         len(out), limit)
             out = out[:limit]
         return out
+
+    def recent_summaries(self, n: int = 16, since: float | None = None) -> list[dict]:
+        """The flight recorder's embed: the last ``n`` decisions (newest
+        first), the transactions in flight when an incident bundle dumped."""
+        return self.list(since=since, limit=n)
 
     @property
     def ring_size(self) -> int:

@@ -29,8 +29,10 @@ crash), with health probes and one Prometheus exporter:
   3b  the model lifecycle (``lifecycle``: version store, candidate
       checkpoints, shadow tap, evaluator, canary gate; default on, as the
       reference's CR has it): the router's score lane is wrapped with the
-      shadow tap inside and the canary gate outside, one scorer-edge
-      breaker is shared by the ladder and the canary guardrail, the audit
+      shadow tap inside and the canary gate outside (a ``SeqScorer``
+      offers its assembled histories to the tap and serves the canary
+      slice itself), one scorer-edge breaker is shared by the ladder and
+      the canary guardrail, the audit
       records join the champion's lineage, the heal ladder's respawn rung
       restores the champion checkpoint, and the trainer (7) hands its
       candidates to the controller
@@ -47,11 +49,17 @@ crash), with health probes and one Prometheus exporter:
       ``swap_params`` with ``retrain.direct_swap`` or the lifecycle off),
       7b analytics (``analytics``: the drift monitor on the transaction
       topic, its reference summarized on the card from the dataset), 7c
-      the SLO engine, 7e the device heal supervisor (``heal``: default
-      on with a local scorer, CCFD_HEAL=0 kills it; the router's gate is
-      the storage pin composed with it)
+      the SLO engine, 7c2 the capacity observatory (``capacity``: the
+      queueing model over the stage profile, seeded with the live
+      actuators), 7d the incident flight recorder (``incident``: the
+      snapshot ring; bundles on the SLO breach edge, the heal supervisor's
+      quarantines, the storage quarantines; watchdog kills snapshot; the
+      audit records carry the open bundle's id), 7e the device heal
+      supervisor (``heal``: default on with a local scorer, CCFD_HEAL=0
+      kills it; the router's gate is the storage pin composed with it)
    8  monitoring (the exporter: /prometheus, /profile, /healthz,
-      /debug/device, /debug/profile) and health (/healthz, /readyz)
+      /debug/device, /debug/profile, /decisions, /incidents, /capacity)
+      and health (/healthz, /readyz)
    9  the supervisor starts, readiness is awaited, then the producer;
   10  chaos (opt-in): the monkey's seeded kills of supervised services and
       its fault storms.
@@ -65,8 +73,7 @@ reference would: the online retrain under a seq scorer (the reference
 skips it with a warning), the decision plane without a row scorer, and
 the decision plane with the lifecycle (the reference serves the staged
 path with a warning: the canary gate overrides scores after a fused
-verdict fired) are refused, and so is the lifecycle under a seq scorer
-(ROADMAP A12b: the SeqScorer's challenger slot is not ported).
+verdict fired) are refused.
 """
 
 from __future__ import annotations
@@ -103,8 +110,6 @@ _OFF_BY_DEFAULT = ("producer", "store", "chaos", "investigator", "fleet", "repla
 # components the reference's operator builds that the port does not have,
 # with the ROADMAP item that ports each
 REFUSED_COMPONENTS: Mapping[str, str] = {
-    "incident": "A14 (the incident flight recorder)",
-    "capacity": "A14 (the capacity observatory)",
     "fleet": "A10 (the multi-host fleet)",
 }
 # scorer models the operator serves (every other is refused or unknown)
@@ -165,10 +170,6 @@ class PlatformSpec:
             if bool(scorer.opt("fused_decision", self.cfg.fused_decision)):
                 out.append(f"scorer.fused_decision with scorer.model: {model} (a seq "
                            "scorer has no fusable decision program)")
-            if self.component("lifecycle").enabled:
-                out.append(f"lifecycle with scorer.model: {model} (A12b (the seq "
-                           "family's lifecycle: the SeqScorer's challenger slot, shadow "
-                           "tap and canary gate); disable lifecycle)")
         elif (scorer.enabled and self.component("lifecycle").enabled
               and bool(scorer.opt("fused_decision", self.cfg.fused_decision))):
             # the reference serves the staged path with a warning
@@ -227,6 +228,8 @@ class Platform:
         self.trace_sink = None  # observability/trace.SpanSink when enabled
         self.profiler = None    # observability/profile.StageProfiler
         self.slo = None         # observability/slo.SLOEngine when enabled
+        self.capacity = None    # observability/capacity.CapacityModel when enabled
+        self.recorder = None    # observability/incident.FlightRecorder when enabled
         self.device_telemetry = None  # observability/device.DeviceTelemetry
         self.storage_gate = None  # runtime/durability.StoragePinGate
         self.fused_decision = None  # serving/fused.FusedDecisionScorer
@@ -417,6 +420,21 @@ class Platform:
                 "slo", lambda: self.slo.run(interval_s=interval), self.slo.stop,
                 policy=RestartPolicy.ALWAYS, reset=self.slo.reset)
 
+        # 7c2. the capacity observatory: the queueing model fitted over the
+        # live stage profile, served at /capacity and /capacity/whatif;
+        # CCFD_CAPACITY=0 (or capacity.enabled: false) kills it
+        cap_spec = spec.component("capacity")
+        if cap_spec.enabled and cfg.capacity_enabled and self.profiler is not None:
+            self._up_capacity(cap_spec)
+
+        # 7d. the incident flight recorder: the snapshot ring as a
+        # supervised service; the SLO breach edge, the heal supervisor, the
+        # dispatch watchdog and the storage quarantines feed it; served at
+        # /incidents. CCFD_INCIDENT=0 (or incident.enabled: false) kills it
+        inc_spec = spec.component("incident")
+        if inc_spec.enabled and cfg.incident_enabled:
+            self._up_incident(inc_spec)
+
         # 7e. the device heal supervisor: default on with a local scorer;
         # CCFD_HEAL=0 (or heal.enabled: false) kills the plane
         heal_spec = spec.component("heal")
@@ -433,7 +451,8 @@ class Platform:
                 port=int(mon.opt("port", 0)), sink=self.trace_sink,
                 collectors=self._collectors, profiler=self.profiler,
                 telemetry=self.device_telemetry, health=self._health_verdict,
-                audit=self.audit).start()
+                audit=self.audit, recorder=self.recorder,
+                capacity=self.capacity).start()
             self._wire_memory_probes()
 
         if spec.component("health").enabled:
@@ -537,8 +556,8 @@ class Platform:
         supervisor only the card. With the lifecycle up the respawn rung
         restores the champion's checkpoint (under the controller's lock, so
         a respawn racing a rollback leaves one consistent tree); without it
-        the rung re-publishes the scorer's own params. No flight recorder
-        (ROADMAP A14)."""
+        the rung re-publishes the scorer's own params. With the incident
+        plane on, quarantines and re-promotions dump bundles."""
         from ccfd_tpu_torch.runtime.heal import DeviceSupervisor
         from ccfd_tpu_torch.runtime.supervisor import RestartPolicy
 
@@ -549,7 +568,7 @@ class Platform:
             breaker=getattr(self.router, "_breaker", None),
             telemetry=self.device_telemetry,
             profiler=self.profiler,
-            recorder=None,
+            recorder=self.recorder,
             overload=self._overload,
             canary_rows=int(c.opt("canary_rows", 16)),
             canary_deadline_ms=float(c.opt("canary_deadline_ms",
@@ -578,6 +597,74 @@ class Platform:
         self.supervisor.add_thread_service(
             "heal", lambda: heal.run(interval_s=interval), heal.stop,
             policy=RestartPolicy.ALWAYS, reset=heal.reset)
+
+    def _up_capacity(self, c: ComponentSpec) -> None:
+        """The CapacityModel over the stage profiler, seeded with the live
+        actuators (router workers, the largest batch bucket, the batcher
+        deadline, the router's admission limit) so a what-if is a delta
+        against what runs; its refresh is a supervised service."""
+        from ccfd_tpu_torch.observability.capacity import CapacityModel
+        from ccfd_tpu_torch.runtime.supervisor import RestartPolicy
+
+        cfg = self.cfg
+        self.capacity = CapacityModel(
+            self.profiler, registry=self._registry("capacity"),
+            baseline_path=(c.opt("baseline_file", cfg.capacity_baseline_file) or None),
+            regression_tolerance=float(c.opt("regression_tolerance",
+                                             cfg.capacity_regression_tolerance)),
+            min_samples=int(c.opt("min_samples", cfg.capacity_min_samples)))
+        workers = int(self.spec.component("router").opt("workers", cfg.router_workers))
+        self.capacity.set_actuators(
+            workers=max(1, workers),
+            batch=(max(cfg.batch_sizes) if cfg.batch_sizes else None),
+            deadline_ms=cfg.batch_deadline_ms,
+            max_inflight=(int(self._overload.budget.limit)
+                          if self._overload is not None else None))
+        interval = float(c.opt("interval_s", cfg.capacity_interval_s))
+        cap = self.capacity
+        self.supervisor.add_thread_service(
+            "capacity", lambda: cap.run(interval_s=interval), cap.stop,
+            policy=RestartPolicy.ALWAYS, reset=cap.reset)
+
+    def _up_incident(self, c: ComponentSpec) -> None:
+        """The FlightRecorder: bundles embed the in-flight decisions (audit)
+        and the capacity model's breach-time verdict. It listens on the SLO
+        engine's breach edge, snapshots on the router's watchdog kills,
+        dumps on storage quarantines, and stamps the open bundle's id on
+        the decisions routed while an SLO breaches (with no SLO engine
+        there is no notion of "still open", so nothing is stamped)."""
+        from ccfd_tpu_torch.observability.incident import FlightRecorder
+        from ccfd_tpu_torch.runtime.supervisor import RestartPolicy
+
+        cfg = self.cfg
+        rec = self.recorder = FlightRecorder(
+            self.registries, registry=self._registry("incident"), profiler=self.profiler,
+            telemetry=self.device_telemetry, sink=self.trace_sink,
+            ring=int(c.opt("ring", cfg.incident_ring)),
+            out_dir=(c.opt("dir", cfg.incident_dir) or None),
+            max_bundles=int(c.opt("max_bundles", 16)),
+            timeout_debounce_s=float(c.opt("timeout_debounce_s", 2.0)),
+            audit=self.audit, capacity=self.capacity)
+        eng = self.slo
+        if eng is not None:
+            eng.add_breach_listener(rec.on_breach)
+        if self.audit is not None:
+            def open_incident():
+                if eng is None or not eng.any_breaching():
+                    return None
+                return rec.last_incident_id()
+
+            self.audit.incident_fn = open_incident
+        if self._overload is not None:
+            self._overload.recorder = rec
+        if self.storage_gate is not None:
+            from ccfd_tpu_torch.runtime import durability
+
+            durability.set_recorder(rec.incident)
+        interval = float(c.opt("interval_s", cfg.incident_interval_s))
+        self.supervisor.add_thread_service(
+            "incident", lambda: rec.run(interval_s=interval), rec.stop,
+            policy=RestartPolicy.ALWAYS, reset=rec.reset)
 
     def _up_chaos(self) -> None:
         from ccfd_tpu_torch.runtime.chaos import ChaosMonkey
@@ -829,6 +916,7 @@ class Platform:
         reg = self._registry("router")
         router_tracer = self._tracer("router")
         host_score_fn = None
+        seq = False
         if self.scorer is not None:
             from ccfd_tpu_torch.serving.history import SeqScorer
 
@@ -851,7 +939,7 @@ class Platform:
                              if self.fault_plan else None),
                 tracer=router_tracer).score
         breaker = None
-        if self.lifecycle is not None:
+        if self.lifecycle is not None and not seq:
             # the lifecycle's serving lane: the shadow tap inside (pure
             # champion pairs), the canary gate outside (the challenger arm's
             # override), under a ParallelRouter's coalescing batcher; an
@@ -1030,13 +1118,16 @@ class Platform:
             policy=RestartPolicy.ALWAYS, reset=trainer.reset)
 
     def _up_lifecycle(self) -> None:
-        """The governed rollout over the local row scorer: the version store
+        """The governed rollout over the local scorer: the version store
         and candidate checkpoints (under ``state_dir``, else in memory with
         the checkpoints in a temporary dir), the shadow tap and the
         evaluator on the bus, the guardrails from the CR over the
         CCFD_LIFECYCLE_* knobs, the controller and the shadow worker as
         supervised services. The audit records join the champion's lineage
-        (one sample a batch)."""
+        (one sample a batch). A SeqScorer is called by the router as an
+        object, so there is no score lane to wrap: the scorer offers each
+        assembled chunk to the tap and serves the canary gate's challenger
+        slice on the same contexts itself."""
         from ccfd_tpu_torch.lifecycle.controller import Guardrails, LifecycleController
         from ccfd_tpu_torch.lifecycle.evaluator import ShadowEvaluator
         from ccfd_tpu_torch.lifecycle.shadow import ShadowTap
@@ -1079,6 +1170,20 @@ class Platform:
             # the rules tier through the router's heal-gate seam
             storage_pin=(self.storage_gate.pin if self.storage_gate is not None else None),
             storage_unpin=(self.storage_gate.unpin if self.storage_gate is not None else None))
+        from ccfd_tpu_torch.serving.history import SeqScorer
+
+        if isinstance(self.scorer, SeqScorer):
+            self.scorer.shadow_tap = shadow
+            self.scorer.canary_gate = self.lifecycle.gate
+            if len(self.scorer.len_buckets) > 1:
+                # tapped champion scores come from short-L rungs while the
+                # challenger re-scores the full-L contexts: the PSI/alert
+                # evidence absorbs rung noise on cold rows (conservative)
+                logging.getLogger(__name__).warning(
+                    "lifecycle shadow evaluation with seq len_buckets=%s armed: "
+                    "champion scores ride short-L rungs while the challenger "
+                    "scores full-L contexts; distribution gates will include "
+                    "ladder-rung noise (conservative)", self.scorer.len_buckets)
         if self.audit is not None:
             def lineage_sample(store=store):
                 v = store.champion()
@@ -1311,6 +1416,9 @@ class Platform:
         if self.storage_fault_plan is not None:
             faults.install_storage_faults(None)
             self.storage_fault_plan = None
+        from ccfd_tpu_torch.runtime import durability
+
+        durability.set_recorder(None)
         if self.recovery is not None:
             self.recovery.stop()
         if self.supervisor:

@@ -32,8 +32,8 @@ Mechanics — the SAME path, not a parallel scorer:
 - The window source is :meth:`AuditLog.scan_window` over the on-disk
   segments (read-only by contract), or an incident bundle's embedded
   decision summaries read as a plain mapping (:func:`bundle_window` ->
-  seq range -> the same segment scan; the flight recorder that writes
-  such bundles is ROADMAP A14's). Windows are re-scorable because the route
+  seq range -> the same segment scan; observability/incident.py writes
+  such bundles). Windows are re-scorable because the route
   seam embeds the decoded feature row in each record while the replay
   plane is armed (``AuditLog.capture_rows``).
 - Re-production goes through the live bus: each recorded row becomes a

@@ -40,8 +40,13 @@ and the engine's snapshots (``process/engine.py``):
   generation verifies) composed with the device heal supervisor
   (runtime/heal.py; it closes the card only, so the host tier serves).
 
-Still to port (ROADMAP A14): the flight-recorder hook and directory
-manifests.
+- :func:`set_recorder`: the incident flight recorder's hook
+  (observability/incident.py), called on every quarantine so a corrupt
+  artifact lands a post-mortem bundle; :func:`verify_interchange`: the
+  sidecar check the capacity observatory's baseline reads through.
+
+Still to port: directory manifests (the reference frames orbax checkpoint
+directories; the port writes no orbax checkpoint).
 """
 
 from __future__ import annotations
@@ -54,7 +59,7 @@ import logging
 import os
 import threading
 import time
-from typing import Any
+from typing import Any, Callable, Mapping
 
 log = logging.getLogger(__name__)
 
@@ -90,6 +95,7 @@ _counts: dict[tuple[str, str], int] = {}  # (metric, artifact|"") -> n
 _prom: dict[str, Any] = {}
 _tmp_seq = itertools.count()
 _defaults = {"retain": 3, "fsync": True, "sweep": True}
+_recorder: Callable[[Mapping[str, Any]], Any] | None = None
 
 
 def configure(retain: int | None = None, fsync: bool | None = None,
@@ -147,6 +153,25 @@ def counts() -> dict[str, dict[str, int]]:
         for (metric, artifact), n in _counts.items():
             out.setdefault(metric, {})[artifact] = n
         return out
+
+
+def set_recorder(fn: Callable[[Mapping[str, Any]], Any] | None) -> None:
+    """FlightRecorder hook: called with a trigger mapping (``type``,
+    ``artifact``, ``path``) on every quarantine, so corruption lands a
+    post-mortem bundle like any other incident."""
+    global _recorder
+    _recorder = fn
+
+
+def _notify_quarantine(artifact: str, path: str, dest: str) -> None:
+    rec = _recorder
+    if rec is None:
+        return
+    try:
+        rec({"type": "storage_corrupt", "artifact": artifact,
+             "path": path, "quarantined_to": dest})
+    except Exception:  # noqa: BLE001 - post-mortem plumbing must not mask the quarantine
+        log.exception("storage quarantine recorder hook failed")
 
 
 def _storage_plan():
@@ -367,6 +392,7 @@ def _quarantine(path: str, artifact: str) -> None:
         dest = "<unmovable>"
     note("corrupt", artifact=artifact)
     log.error("corrupt %s artifact %s quarantined to %s", artifact, path, dest)
+    _notify_quarantine(artifact, path, dest)
 
 
 def read_artifact(path: str, artifact: str = "artifact",
@@ -515,6 +541,21 @@ def write_json_interchange(path: str, doc: Any, artifact: str = "interchange",
             raise
         return False
     return True
+
+
+def verify_interchange(path: str) -> bool | None:
+    """True/False per the sidecar; None when the file or its sidecar is
+    missing (legacy / mid-crash window: accept unverified)."""
+    try:
+        with open(path, "rb") as f:
+            body = f.read()
+        with open(path + ".sha256", "rb") as f:
+            want = f.read().strip().decode("ascii", "replace")
+    except FileNotFoundError:
+        return None
+    except OSError:
+        return False
+    return hashlib.sha256(body).hexdigest() == want
 
 
 class StoragePinGate:

@@ -60,8 +60,9 @@ A **sticky CUDA error** (``cudaErrorIllegalAddress`` and its kind) poisons
 the process's context and cannot be cleared inside the process: every rung
 then keeps failing, the card stays quarantined and the counted host tier
 serves until the process restarts. The supervisor does not pretend to heal
-it. The flight recorder (``recorder=``, ROADMAP A14) is not ported; the
-operator passes None, as the reference does without an incident block.
+it. With the incident plane on, the operator passes the flight recorder
+(``recorder=``, observability/incident.py): each quarantine and each
+re-promotion dumps a bundle, as the reference's.
 The state machine, signals, rungs and backoff draws are the reference's,
 tick for tick under the same seed and clock.
 """

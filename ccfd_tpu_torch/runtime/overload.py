@@ -25,8 +25,10 @@ request's ``x-ccfd-priority`` header (``bulk`` / ``normal`` /
 (``CCFD_OVERLOAD_CODEL_TARGET_MS=0``). The bulk ceiling
 (``set_bulk_ceiling`` on the router's plane and the REST gate, gauge
 ``ccfd_bulk_ceiling{stage}``) is the replay plane's actuator: the share of
-a stage's adaptive budget bulk work may occupy. Not ported: the fleet's
-ceiling rescale (ROADMAP A10) and the incident recorder hook (A14).
+a stage's adaptive budget bulk work may occupy. ``recorder`` (the incident
+flight recorder, wired by the operator) snapshots the system into its ring
+on every watchdog kill. Not ported: the fleet's ceiling rescale (ROADMAP
+A10).
 """
 
 from __future__ import annotations
@@ -248,6 +250,9 @@ class OverloadControl:
         self._bulk_ceiling = 1.0
         self._g_bulk_ceiling = _bulk_ceiling_gauge(registry)
         self._g_bulk_ceiling.set(1.0, labels={"stage": "bus"})
+        # the incident flight recorder (observability/incident.py): when the
+        # operator wires one, every watchdog kill snapshots into its ring
+        self.recorder = None
 
     @staticmethod
     def from_config(cfg, registry, max_batch: int = 4096, workers: int = 1,
@@ -386,7 +391,8 @@ class OverloadControl:
         """Run a scorer dispatch under the watchdog deadline. On expiry it
         raises ``ScorerTimeout`` (the router's ladder records a scorer-edge
         failure and scores the batch on a counted lower tier), the timeout
-        is counted, and the deadline is fed to AIMD as a latency sample."""
+        is counted, the deadline is fed to AIMD as a latency sample, and a
+        wired flight recorder snapshots the system."""
         if deadline_s is None:
             deadline_s = self.dispatch_deadline_s
         if deadline_s <= 0:
@@ -404,6 +410,11 @@ class OverloadControl:
         except ScorerTimeout:
             self._c_dispatch_timeout.inc()
             self.budget.observe(deadline_s + self.budget.target_s)
+            if self.recorder is not None:
+                try:
+                    self.recorder.note_dispatch_timeout()
+                except Exception:  # noqa: BLE001 - evidence capture must never mask the timeout
+                    pass
             raise
 
 

@@ -36,10 +36,22 @@ routing tier, which sees every transaction in arrival order.
   and ``device_seam("put")`` before each history copy (runtime/faults.py),
   as the reference's: the heal ladder drills the seq path too.
 
+- **The lifecycle lane.** A challenger slot (``install_challenger``: a
+  second params tree, typically the int8 ``seq_q8`` tree, with its own
+  forward), the ``shadow_tap`` offer and the ``canary_gate``. The router
+  calls ``score_with_ids`` on this object, so there is no score lane to
+  wrap: when a tap is armed each assembled chunk's (full-L histories, PURE
+  champion probabilities) pair is offered to it, and an active canary gate
+  re-scores its challenger slice on the SAME assembled contexts through
+  ``rescore(mask)``. The challenger runs the same torch forward as the
+  champion (``models/seq.py`` or ``ops/seq_quant.py``, at ``pos_length =
+  store.length``) on the scorer's device, as the reference's challenger is
+  its device program too; ``host_score`` is the champion's cold-context
+  score, the paired half of the evaluator's label join.
+
 Not carried over here: a ``mesh``, a ``partitioner`` and ``seq_parallel``
 other than ``none`` (the sharded seq path, ROADMAP A15b) are refused by
-name; the challenger slot, the shadow tap and the canary gate wait for the
-model lifecycle (A12).
+name.
 """
 from __future__ import annotations
 
@@ -482,6 +494,12 @@ class SeqScorer:
         self._quantized = self._is_quantized(self.params)
         self._apply = self._make_apply(self._quantized)
         self._params_lock = threading.Lock()
+        # challenger slot (lifecycle/): (version, params, forward), scored
+        # off the hot path by the shadow tap's worker and the canary gate
+        self._challenger: tuple[int, Any, Any] | None = None
+        # shadow tap + canary gate (lifecycle/), wired by the operator
+        self.shadow_tap: Any = None
+        self.canary_gate: Any = None
         self.dispatches = 0  # forward launches (every (L, B) group)
         self._g_customers = None
         self._h_assembly = self._h_dispatch = None
@@ -530,6 +548,8 @@ class SeqScorer:
         return seq_quant.is_quantized(params)
 
     def _make_apply(self, quantized: bool):
+        """The forward for a float (``models/seq.py``) or an int8
+        (``ops/seq_quant.py``) tree, at the store's full-L positions."""
         from ccfd_tpu_torch.models import seq as seq_mod
         from ccfd_tpu_torch.ops import seq_quant
 
@@ -645,6 +665,17 @@ class SeqScorer:
         merged: dict = {}
         gen = None
         pending: deque = deque()  # (event, probabilities, global row idx)
+        # shadow/canary lane: with a challenger armed (tap) or a canary
+        # slice live (gate), keep each chunk's assembled full-L histories
+        # so the challenger scores the SAME contexts the champion did
+        tap = self.shadow_tap
+        if tap is not None and tap.armed_version is None:
+            tap = None
+        gate = self.canary_gate
+        if gate is not None and not gate.active:
+            gate = None
+        tap_chunks: list[tuple[np.ndarray, int, int]] = []
+        keep_hist = tap is not None or gate is not None
         t_asm = 0.0
         t_disp = 0.0
         n_anon = 0
@@ -668,6 +699,8 @@ class SeqScorer:
             merged.update(staged)
             n_anon += chunk_ids.count(None)
             li = self._len_bucket_index(filled)
+            if keep_hist:
+                tap_chunks.append((hist, start, stop))
             t_asm += time.perf_counter() - t0
             for bi in np.unique(li):
                 lb = ladder[bi]
@@ -723,6 +756,21 @@ class SeqScorer:
             if not self.store.commit((gen, merged)):
                 if self._c_stale is not None:
                     self._c_stale.inc()
+        if tap is not None:
+            # the tap pairs PURE champion scores, offered before any
+            # canary override (the row lane's tap-inside/gate-outside)
+            for hist, s0, s1 in tap_chunks:
+                tap.offer(hist, out[s0:s1])
+        if gate is not None and tap_chunks:
+            # the canary slice: the challenger arm re-scores on the SAME
+            # assembled contexts (a challenger failure keeps the
+            # champion's scores and is counted by the gate)
+            def rescore(mask: np.ndarray) -> np.ndarray:
+                parts = [h[mask[s0:s1]] for h, s0, s1 in tap_chunks]
+                sel = parts[0] if len(parts) == 1 else np.concatenate(parts)
+                return self.challenger_score(sel)
+
+            out = gate.apply(np.ascontiguousarray(x, np.float32), out, rescore=rescore)
         if self._g_customers is not None:
             self._g_customers.set(float(len(self.store)))
         if self._h_assembly is not None:
@@ -764,3 +812,68 @@ class SeqScorer:
                     key = t.get("id")
             ids.append(key)
         return self.score(x, ids)
+
+    # -- challenger slot (the model lifecycle's shadow scoring of seq_q8) --
+    def install_challenger(self, version: int, params: Any) -> None:
+        """Stage a challenger (typically the int8 ``seq_q8`` tree) beside
+        the champion, on the scorer's device. Its forwards run on the
+        shadow tap's worker and in the canary gate's slice, bounded by the
+        tap's sampling budget and the gate's weight."""
+        params = self._to_device(params)
+        fn = self._make_apply(self._is_quantized(params))
+        with self._params_lock:
+            self._challenger = (int(version), params, fn)
+
+    def clear_challenger(self, version: int | None = None) -> None:
+        with self._params_lock:
+            if (self._challenger is not None
+                    and (version is None or self._challenger[0] == int(version))):
+                self._challenger = None
+
+    @property
+    def challenger_version(self) -> int | None:
+        ch = self._challenger
+        return None if ch is None else ch[0]
+
+    def challenger_score(self, x: np.ndarray) -> np.ndarray:
+        """(n, F) rows (scored against a COLD context: the evaluator's
+        label joins carry no history) or (n, L', F) histories (tapped
+        batches) -> (n,) probabilities on the challenger params."""
+        ch = self._challenger
+        if ch is None:
+            raise RuntimeError("no challenger installed")
+        _, params, fn = ch
+        return self._score_direct(np.asarray(x, np.float32), params, fn)
+
+    def host_score(self, x: np.ndarray) -> np.ndarray:
+        """The champion's cold-context score for (n, F) rows: the paired
+        half of the evaluator's label join (same rows, same cold context,
+        champion against challenger)."""
+        with self._params_lock:
+            params, fn = self.params, self._apply
+        return self._score_direct(np.asarray(x, np.float32), params, fn)
+
+    def _score_direct(self, x: np.ndarray, params: Any, fn: Any) -> np.ndarray:
+        """Bucketed forwards of ``x`` with no history store involved: a
+        2-D ``x`` becomes the newest row of an otherwise empty window of
+        the ladder's shortest rung."""
+        if x.ndim == 2:
+            lb = self.len_buckets[0]
+            h = np.zeros((len(x), lb, self.store.num_features), np.float32)
+            h[:, -1] = x
+            x = h
+        n = len(x)
+        out = np.empty((n,), np.float32)
+        largest = self.batch_sizes[-1]
+        start = 0
+        while start < n:
+            stop = min(start + largest, n)
+            m = stop - start
+            sub = x[start:stop]
+            bucket = self._bucket(m)
+            if m < bucket:
+                sub = np.concatenate([sub, np.zeros((bucket - m, *sub.shape[1:]), np.float32)])
+            xs = torch.from_numpy(np.ascontiguousarray(sub)).to(self.device)
+            out[start:stop] = fn(params, xs)[:m].float().cpu().numpy()
+            start = stop
+        return out

@@ -7,8 +7,10 @@ pipeline of ``python -m ccfd_tpu_torch demo`` with and without its online
 trainer, the service roles as separate processes, and the reference's
 other Seldon models: logreg/modelfull, the tree family, the inference
 graph and the ``score`` command, the seq family with its history store, the
-user-task model and the investigator, and the card as a fallible component:
-the heal supervisor, the fault plans, the chaos monkey and the audit plane) and holds each CUDA kernel against
+user-task model and the investigator, the card as a fallible component:
+the heal supervisor, the fault plans, the chaos monkey and the audit plane,
+governed rollouts and replay (the seq family's too), the incident and
+capacity planes, and the loadgen and doctor tools) and holds each CUDA kernel against
 its plain PyTorch version. Each kernel's ``launches`` in the
 kernels line sum the runs of the paths through it (train, serve, demo and
 services; in each role process, its dispatches, read off its scrape). The
@@ -250,7 +252,22 @@ wire).
                equal to one pass of the records without the failure, the
                served p of 64 sampled customers against the CPU on the
                histories the store holds; tx/s, decision p50/p99 against 10
-               ms, history assembly against dispatch, the card's busy share
+               ms, history assembly against dispatch, the card's busy share;
+           (d) the seq family's governed rollout: the port's CR with
+               scorer.model seq, history_length 64 and the lifecycle on
+               (retrain, producer and investigator off), live records of
+               seeded customers at SEQ_LC_RATE/s and labels on the labels
+               topic: quantize_seq(champion) submitted passes shadow,
+               serves a canary with rows on both arms and is promoted; the
+               served tree's params_fingerprint is the candidate's and its
+               p on 512 fixed histories is the port's CPU seq_q8 within
+               SEQ_TOL["q8"]; a broken quantization (head scale zeroed,
+               bias 4) is REJECTED with the champion's fingerprint
+               unchanged; no hand-kernel launch; every transaction started
+               once; then the same CR with the lifecycle off: decision
+               p50/p99 and tx/s on against off, the challenger forward's
+               device ms a tapped batch (CUDA events), the shadow worker's
+               and the controller's CPU share
   tasks    (a) the user-task model on the card and on the CPU from one
                init over 200 seeded human completions: after every fit the
                params and the confidence within 1e-5 (TF32 off); predict
@@ -308,6 +325,33 @@ wire).
                a second saves under the plan and stops without its
                shutdown save, a third quarantines the file to *.corrupt
                and loads the last good generation
+  observatory the evidence planes on the card (observability/incident.py,
+           observability/capacity.py, observability/dashboards.py) and the
+           tools: the port's CR in process with incident and capacity on
+           (store, producer and retrain off; heal off, so the SLO's bundle
+           is the only one: the heal supervisor's own bundles are held on
+           the CPU) and its SLO block judged on OBS_SLO's short windows,
+           OBS_RATE transactions a second:
+           (a) after OBS_WINDOW_S: /capacity validates, names its bottleneck
+               stage with the headroom, /capacity/whatif?workers=2 answers
+               and validates, ccfd_capacity_model_error_ratio;
+           (b) device_hang:ms=400 on B1 until the e2e SLO breaches: exactly
+               one bundle, valid at /incidents/<id>, embedding the decisions
+               in flight and the capacity snapshot, ccfd_build_events_total
+               among its watched counters; the decisions routed while the
+               SLO breaches carry its id and `audit <tx_id>` joins it; the
+               fault off, the SLO recovers; every transaction started once,
+               B1 launches = dispatches + a bucket's warmup;
+           (c) the same platform with both planes off over the same
+               window: tx/s and decision p50/p99 on against off; the
+               recorder's and the model's thread CPU; the breach-to-bundle
+               time and the bundle's bytes;
+           (d) every family the written dashboards read (Fleet is not
+               written) is in the scrape or on OBS_ABSENT with its reason;
+           the tools: `loadgen --clients 4 --rows 16 --seconds 5` against
+           `serve` on the card (B1): no error, p50/p99 beside the serve
+           phase's own 16-row POSTs, launches = dispatches + warmup; and
+           `doctor` exits 0 naming the card with every kernel built
   models   the reference's other Seldon models, torch code on the card (no
            hand kernel: the reference leaves them to XLA):
            (a) card against CPU, the same port function, B=16 and 16,384:
@@ -366,7 +410,7 @@ import time
 import urllib.request
 
 PHASES = ("device", "build", "parity", "train", "serve", "decision", "demo", "services",
-          "platform", "seq", "tasks", "heal", "rollout", "models", "timing")
+          "platform", "seq", "tasks", "heal", "rollout", "observatory", "models", "timing")
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 7
 PARITY_BATCHES = (1, 16, 100, 1024, 16384)
@@ -503,6 +547,15 @@ SEQ_CALLS = 100
 SEQ_OP_ROWS = 20_000
 SEQ_CUSTOMERS = 1_000
 SEQ_SAMPLED = 64
+SEQ_LC_RATE = 1_000  # live records a second while the seq lifecycle judges
+SEQ_LC_LABELS = 100  # labelled transactions a second on the labels topic
+SEQ_LC_FRAUD = 0.2  # the share of fraud rows among them
+SEQ_LC_GUARDRAILS = {"min_labels": 64, "min_shadow_rows": 2048, "auc_margin": 0.2,
+                     "max_alert_rate_delta": 0.5, "max_score_psi": 0.5,
+                     "canary_min_labels": 32, "min_submit_interval_s": 0.0}
+SEQ_LC_VERDICT_S = 120  # each candidate's verdict deadline
+SEQ_LC_OFF_S = 8  # the lifecycle-off run
+SEQ_LC_CHECK = 512  # fixed histories the promoted graph scores
 # tasks: the user-task model and the investigator
 TASK_COMPLETIONS = 200
 TASK_PREDICTS = 500
@@ -562,6 +615,69 @@ REPLAY_GUARDRAILS = {"min_labels": 16, "min_shadow_rows": 256, "canary_min_label
 ANALYTICS_ROWS = 284_807  # the Kaggle table's rows
 ANALYTICS_TOL = 1e-5  # of the magnitudes summed (float32 sums in two orders)
 ANALYTICS_TIMED = 10
+OBS_RATE = 2_000  # producer rows/s for the evidence planes' platform
+OBS_WINDOW_S = 10  # the fault-free window each arm is timed over
+# the SLO block's overlay: the CR's objectives judged on short windows and
+# ticks, so a hang of seconds breaches within the phase, with e2e-p99's
+# target at 200 ms (the CR's is 50 ms): far above the healthy card's p99
+# and below a decision that waits out one 400 ms hung dispatch
+OBS_SLO = {"interval_s": 0.25, "windows": "2,4,30", "specs": [
+    {"name": "e2e-p99", "kind": "latency", "metric": "router_decision_seconds",
+     "target_ms": 200.0, "objective": 0.99},
+    {"name": "rest-p99", "kind": "latency",
+     "metric": "seldon_api_executor_client_requests_seconds", "target_ms": 25.0,
+     "objective": 0.99},
+    {"name": "error-rate", "kind": "error_rate", "metric": "transaction_incoming_total",
+     "error_metric": "router_process_start_errors_total", "max_error_rate": 0.01}]}
+OBS_BREACH_S = 60  # the breach bundle's deadline after the fault
+OBS_STAMPED = 200  # decisions carrying the bundle id before the fault goes
+OBS_RECOVER_S = 60
+LOADGEN_ARGS = ("--clients", "4", "--rows", "16", "--seconds", "5")
+# families the written dashboards read that this phase's scrape may lack
+OBS_ABSENT = {
+    **{f: "the sharded serving mesh (ROADMAP A15b)"
+       for f in ("ccfd_mesh_devices", "ccfd_mesh_axis_size", "ccfd_mesh_publishes_total",
+                 "ccfd_mesh_publish_pause_timeouts_total")},
+    **{f: "a real Kafka cluster's exporter (the KafkaCluster board), no module of the port"
+       for f in ("kafka_consumergroup_lag",
+                 "kafka_controller_kafkacontroller_offlinepartitionscount",
+                 "kafka_server_brokertopicmetrics_bytesin_total",
+                 "kafka_server_brokertopicmetrics_bytesout_total",
+                 "kafka_server_brokertopicmetrics_messagesin_total",
+                 "kafka_server_replicamanager_leadercount",
+                 "kafka_server_replicamanager_partitioncount",
+                 "kafka_server_replicamanager_underreplicatedpartitions")},
+    "ccfd_host_fallback_scores_total": "the Scorer's host latency tier (refused, A5)",
+    **{f: "the networked bus role's server (bus/server.py); the operator's bus is in process"
+       for f in ("bus_consumers", "bus_records_delivered_total", "bus_records_produced_total",
+                 "bus_records_trimmed_total", "bus_topic_backlog", "bus_topic_end_offset",
+                 "bus_topic_log_start_offset", "bus_topic_records_in_total",
+                 "bus_topic_retained_records")},
+    **{f: "the heal supervisor, off in this phase (the heal phase runs it)"
+       for f in ("ccfd_device_health", "ccfd_heal_attempts_total", "ccfd_heal_canary_total",
+                 "ccfd_heal_transitions_total")},
+    **{f: "the replay plane, opt-in (off in the CR)"
+       for f in ("ccfd_replay_cursor_seq", "ccfd_replay_divergence_total",
+                 "ccfd_replay_rows_per_s", "ccfd_replay_rows_total", "ccfd_replay_verdicts_total",
+                 "ccfd_replay_windows_total")},
+    **{f: "the chaos monkey, opt-in (off in the CR)"
+       for f in ("chaos_fault_windows_total", "chaos_injections_total")},
+    "faults_injected_total": "the edge fault plan, armed only by CCFD_FAULTS or chaos.faults",
+    "kafka_adapter_send_errors_total": "the Kafka adapter, built only for a kafka:// bus",
+    "producer_rows_total": "the producer component, off here (the phase paces its own rows)",
+    **{f: "the online trainer, off in this phase (the rollout phase runs it)"
+       for f in ("retrain_labels_total", "retrain_last_loss", "retrain_param_swaps_total",
+                 "retrain_steps_total")},
+    **{f: "a ParallelRouter's coalescing batcher (router.workers > 1; the CR runs one)"
+       for f in ("router_coalesced_dispatches_total", "router_coalesced_rows_total")},
+    **{f: "the SeqScorer's (scorer.model seq; the seq phase runs it)"
+       for f in ("seq_anonymous_rows_total", "seq_assembly_seconds", "seq_bucket_dispatch_total",
+                 "seq_bucket_rows_total", "seq_dispatch_seconds", "seq_history_customers",
+                 "seq_inflight_dispatches", "seq_stale_commits_total")},
+}
+PROMQL_WORDS = {"rate", "sum", "by", "min", "max", "histogram_quantile", "increase", "avg",
+                "irate", "without", "group_left", "group_right", "on", "ignoring", "bool",
+                "and", "or", "unless", "offset", "count", "topk", "clamp_min", "abs"}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12  # float32 outside the tensor cores, NVIDIA data sheet
 BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, NVIDIA data sheet
@@ -980,6 +1096,7 @@ class Smoke:
         ds = kaggle_surrogate(n=20_000)  # what the checkpoint saw
         self.rows, self.labels = ds.X, ds.y
         self.card = ""
+        self.serve16: dict = {}  # kernel -> the serve phase's 16-row POST latencies (ms)
         self.reports = {
             name: {"name": name, "route": "cuda", "source": k["source"],
                    "replaces": k["replaces"], "launches": 0, "max_abs_err": None,
@@ -1718,6 +1835,7 @@ class Smoke:
             log(tag, "8 concurrent clients x 8 requests of 16 rows: all agree with plain")
             # sequential latency of a small request, the REST front's common case
             seq, lat_native = sequential(conn, SEQ_POSTS)
+            self.serve16[kernel] = lat_native
             for x, p in seq:
                 check(x, p, "sequential 16-row POST")
             log(tag, f"native front: {SEQ_POSTS} sequential POSTs of 16 rows: "
@@ -3671,10 +3789,12 @@ class Smoke:
         self.reports["fused_mlp_bf16"]["launches"] += b1
         self.rollout_analytics()
 
-    def rollout_paced(self, p, rows: list, rate: float, stop: threading.Event) -> threading.Thread:
+    def rollout_paced(self, p, rows: list, rate: float, stop: threading.Event,
+                      key: str = "id") -> threading.Thread:
         """A thread producing ``rows`` (cycled, fresh ids) onto ``p``'s
         transaction topic at ``rate`` rows/s in 100-row batches on an
-        absolute schedule, until ``stop``; ``thread.sent`` counts them."""
+        absolute schedule, until ``stop``, keyed by each row's ``key``;
+        ``thread.sent`` counts them."""
         topic = p.cfg.kafka_topic
         batch = 100
 
@@ -3684,7 +3804,7 @@ class Smoke:
             while not stop.is_set():
                 part = [dict(rows[(i + j) % len(rows)], id=f"live-{i + j}")
                         for j in range(batch)]
-                p.broker.produce_batch(topic, part, [r["id"] for r in part])
+                p.broker.produce_batch(topic, part, [r[key] for r in part])
                 i += batch
                 th.sent = i
                 ahead = i / rate - (time.perf_counter() - t0)
@@ -3898,10 +4018,10 @@ class Smoke:
         return int(launched)
 
     @staticmethod
-    def rollout_cpu_clock(obj, acc: list) -> None:
-        """Accumulate the calling thread's CPU seconds spent in ``obj.step``
-        (a supervised service's loop body) into ``acc[0]``."""
-        fn = obj.step
+    def rollout_cpu_clock(obj, acc: list, attr: str = "step") -> None:
+        """Accumulate the calling thread's CPU seconds spent in
+        ``obj.<attr>`` (a supervised service's loop body) into ``acc[0]``."""
+        fn = getattr(obj, attr)
 
         def step(*a, **kw):
             t0 = time.thread_time()
@@ -3910,7 +4030,7 @@ class Smoke:
             finally:
                 acc[0] += time.thread_time() - t0
 
-        obj.step = step
+        setattr(obj, attr, step)
 
     def rollout_drive(self, p, lc, tag: str, wait) -> dict:
         """(a)'s checks on the live platform; returns what the log reports."""
@@ -4222,6 +4342,336 @@ class Smoke:
             f"{sorted(ms)[len(ms) // 2]:.3f}; the rows' {nbytes} bytes at "
             f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s take {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms) "
             f"on {self.card}")
+
+    # -- observatory: the evidence planes and the tools ---------------------
+    def observatory(self) -> None:
+        """(a)-(d) the incident and capacity planes on the operator, then
+        ``loadgen`` and ``doctor`` (see the module docstring)."""
+        b1 = self.observatory_planes()
+        b1 += self.observatory_tools()
+        self.reports["fused_mlp_bf16"]["launches"] += b1
+
+    @staticmethod
+    def dashboard_families() -> set:
+        """The metric families the written dashboards' expressions read."""
+        import re
+
+        from ccfd_tpu_torch.observability import build_all_dashboards
+
+        out = set()
+        for board in build_all_dashboards().values():
+            for panel in board["panels"]:
+                for t in panel["targets"]:
+                    e = re.sub(r"\{[^}]*\}", "", t["expr"])
+                    e = re.sub(r"\[[^\]]*\]", "", e)
+                    e = re.sub(r"\b(by|without|on|ignoring|group_left|group_right)"
+                               r"\s*\([^)]*\)", "", e)
+                    out |= {w for w in re.findall(r"[a-zA-Z_][a-zA-Z0-9_]*", e)
+                            if w not in PROMQL_WORDS}
+        return out
+
+    def observatory_planes(self) -> int:
+        """(a)-(d); returns B1's launches."""
+        from ccfd_tpu_torch.config import Config
+        from ccfd_tpu_torch.data.ccfd import iter_transactions, load_dataset
+        from ccfd_tpu_torch.platform.operator import Platform, PlatformSpec
+
+        tag = "observatory"
+        tmp = tempfile.mkdtemp(prefix="ccfd_obs_")
+        rows = list(iter_transactions(load_dataset()))
+        cfg = Config.from_env()
+        launched = 0
+        runs: dict = {}
+        for arm in ("on", "off"):
+            cr = self.platform_cr(
+                os.path.join(tmp, arm), store={"enabled": False}, producer={"enabled": False},
+                scorer={"model": "mlp", "train_steps": 0, "rest": True},
+                retrain={"enabled": False}, heal={"enabled": False}, slo=OBS_SLO,
+                incident={"enabled": arm == "on", "interval_s": 1.0,
+                          "dir": os.path.join(tmp, arm, "incidents")},
+                capacity={"enabled": arm == "on", "interval_s": 1.0})
+            counters = self.counters()
+            for c in counters.values():
+                c.reset()
+            p = Platform(PlatformSpec.from_cr(cr, cfg=cfg)).up(wait_ready_s=120)
+            stop = threading.Event()
+            cpu_s: dict = {}
+            out: dict = {}
+            try:
+                if arm == "on":
+                    cpu_s["recorder"], cpu_s["capacity"] = [0.0], [0.0]
+                    self.rollout_cpu_clock(p.recorder, cpu_s["recorder"], "snapshot")
+                    self.rollout_cpu_clock(p.capacity, cpu_s["capacity"], "refresh")
+                    breach_ms: list = []
+                    on_breach = p.recorder.on_breach
+
+                    def timed_breach(*a, **kw):
+                        t = time.perf_counter()
+                        try:
+                            return on_breach(*a, **kw)
+                        finally:
+                            breach_ms.append((time.perf_counter() - t) * 1e3)
+
+                    # the SLO engine holds the bound method: re-point it
+                    p.slo._breach_listeners[:] = [
+                        timed_breach if fn == on_breach else fn for fn in p.slo._breach_listeners]
+                    out["breach_ms"] = breach_ms
+                rr = p.registries["router"]
+                t0, u0 = time.perf_counter(), time.time()
+                live = self.rollout_paced(p, rows, OBS_RATE, stop)
+                time.sleep(OBS_WINDOW_S)
+                window = time.perf_counter() - t0
+                routed_w, u1 = rr.counter("transaction_outgoing_total").total(), time.time()
+                if arm == "on":
+                    out.update(self.observatory_capacity(p, tag))
+                    out.update(self.observatory_breach(p, tag))
+                    out.update(self.observatory_families(p, tag))
+                stop.set()
+                live.join()
+                sent = live.sent
+                if not p.wait_routed(120):
+                    raise AssertionError(f"{tag} ({arm}): the router did not drain")
+                self.heal_wait(lambda: p.audit.counts()["recorded"] >= sent,
+                               f"{tag}: every record", 30)
+                incoming = rr.counter("transaction_incoming_total").value()
+                routed = rr.counter("transaction_outgoing_total").total()
+                started = p.engine.snapshot()["next_pid"] - 1
+                recs = self.rollout_records(p)
+                warm = len(p.scorer.batch_sizes)
+            finally:
+                stop.set()
+                p.down()
+            dispatched, n_launch = settled_launches(p.scorer.dispatch_total,
+                                                    counters["fused_mlp_bf16"], warm)
+            fails = []
+            if not sent == incoming == routed == started:
+                fails.append(f"produced {sent}, incoming {incoming}, routed {routed}, "
+                             f"started {started}")
+            if n_launch != dispatched + warm:
+                fails.append(f"B1 launches {n_launch} != dispatches {dispatched} + {warm} "
+                             "warmups")
+            if fails:
+                raise AssertionError(f"{tag} ({arm}): " + "; ".join(fails))
+            launched += n_launch
+            p50, p99, n_lat = self.rollout_latency(recs, u0, u1)
+            runs[arm] = {"sent": sent, "tx_s": routed_w / window, "p50": p50, "p99": p99,
+                         "n_lat": n_lat, "window": window,
+                         "cpu": {k: v[0] for k, v in cpu_s.items()}, **out}
+        on, off = runs["on"], runs["off"]
+        log(tag, f"ok: (a) at {OBS_RATE}/s asked: /capacity valid, bottleneck "
+            f"{on['bottleneck']['stage']} ({on['bottleneck']['layer']}) headroom "
+            f"{on['bottleneck']['headroom_ratio']} at {on['bottleneck']['admitted_rows_per_s']} "
+            f"rows/s; /capacity/whatif?workers=2 valid, predicted e2e p99 "
+            f"{on['whatif']['base_predicted_p99_ms']} -> {on['whatif']['predicted_p99_ms']} ms; "
+            f"ccfd_capacity_model_error_ratio {on['error_ratio']}; stages "
+            f"{on['cap_stages']} on {self.card}")
+        log(tag, f"ok: (b) {HEAL_HANG} on B1: the e2e SLO breached, bundle {on['bundle']} "
+            f"{on['fault_to_bundle_s']:.3f} s after the fault (bundles of the healthy window "
+            f"before it: {on['bundles_before'] or 'none'}; on_breach took "
+            f"{max(on['breach_ms'] or [float('nan')]):.3f} ms), {on['bundle_bytes']} bytes, "
+            f"valid; it embeds {on['decisions']} decisions and the capacity snapshot "
+            f"(bottleneck {on['bundle_bottleneck']}), ccfd_build_events_total "
+            f"{on['build_events']} among its watched counters; {on['stamped']} decisions "
+            f"carry its id, `audit {on['joined_tx']}` joins it; the SLO recovered "
+            f"{on['recover_s']:.3f} s after the fault went; {on['sent']} + {off['sent']} "
+            f"transactions each started once on {self.card}")
+        log(tag, f"(c) at {OBS_RATE}/s asked over {OBS_WINDOW_S} s: planes on "
+            f"{on['tx_s']:.1f} tx/s, decision p50 {on['p50']:.3f} ms p99 {on['p99']:.3f} ms "
+            f"({on['n_lat']} records); off {off['tx_s']:.1f} tx/s, p50 {off['p50']:.3f} ms "
+            f"p99 {off['p99']:.3f} ms ({off['n_lat']} records); thread CPU while on (the whole "
+            f"run): " + ", ".join(f"{k} {v:.3f} s" for k, v in on["cpu"].items())
+            + f" on {self.card}")
+        log(tag, f"ok: (d) {on['families_read']} families read by the dashboards: "
+            f"{on['families_seen']} in the scrape, absent with a named reason: "
+            f"{sorted(on['families_absent'])}; listed absent but present: "
+            f"{sorted(on['families_listed_present'])}")
+        shutil.rmtree(tmp, ignore_errors=True)
+        return int(launched)
+
+    def observatory_capacity(self, p, tag: str) -> dict:
+        """(a): /capacity and a what-if over HTTP, both valid."""
+        from ccfd_tpu_torch.observability.capacity import validate_capacity
+
+        base = p.exporter.endpoint
+        self.heal_wait(lambda: (p.capacity.snapshot().get("bottleneck") or {}).get("stage"),
+                       f"{tag}: a bottleneck", 30)
+        cap = json.loads(urllib.request.urlopen(base + "/capacity", timeout=10).read())
+        wi = json.loads(urllib.request.urlopen(base + "/capacity/whatif?workers=2",
+                                               timeout=10).read())
+        errs = validate_capacity(cap) + [f"whatif: {e}" for e in validate_capacity(wi)]
+        bn = cap.get("bottleneck") or {}
+        if errs or "headroom_ratio" not in bn or wi.get("whatif", {}).get(
+                "requested") != {"workers": 2}:
+            raise AssertionError(f"{tag} (a): /capacity {errs}, bottleneck {bn}, whatif "
+                                 f"{wi.get('whatif')}")
+        m = scrape(base + "/prometheus")
+        return {"bottleneck": bn, "whatif": wi["whatif"],
+                "error_ratio": m.get("ccfd_capacity_model_error_ratio"),
+                "cap_stages": {k: (v["layer"], v["utilization"], v["headroom_ratio"])
+                               for k, v in cap["stages"].items() if v["samples"]}}
+
+    def observatory_breach(self, p, tag: str) -> dict:
+        """(b): the forced breach, its bundle and the incident join."""
+        import contextlib
+        import io
+
+        from ccfd_tpu_torch import cli
+        from ccfd_tpu_torch.observability.incident import validate_incident
+        from ccfd_tpu_torch.runtime import faults
+
+        rec, base = p.recorder, p.exporter.endpoint
+        # a healthy window's own breach is a finding, reported; the fault
+        # starts from a closed breach so that its edge is a new one
+        before = {s["id"] for s in rec.incidents()}
+        self.heal_wait(lambda: not p.slo.any_breaching(), f"{tag} (b): no open breach", 60)
+        t_fault = time.perf_counter()
+        faults.install_device_faults(faults.DeviceFaultPlan.from_string(HEAL_HANG))
+        try:
+            self.heal_wait(lambda: len(rec.incidents()) > len(before), f"{tag} (b): a bundle",
+                           OBS_BREACH_S)
+            fault_to_bundle = time.perf_counter() - t_fault
+            inc_id = rec.incidents()[0]["id"]
+
+            def stamped() -> list:
+                return [r for r in p.audit.list(limit=4096) if r.get("incident") == inc_id]
+
+            self.heal_wait(lambda: len(stamped()) >= OBS_STAMPED,
+                           f"{tag} (b): {OBS_STAMPED} decisions carrying {inc_id}", 60)
+        finally:
+            faults.install_device_faults(None)
+        t_off = time.perf_counter()
+        self.heal_wait(lambda: not p.slo.any_breaching(), f"{tag} (b): the SLO's recovery",
+                       OBS_RECOVER_S)
+        recover_s = time.perf_counter() - t_off
+        listing = json.loads(urllib.request.urlopen(base + "/incidents", timeout=10).read())
+        doc = json.loads(urllib.request.urlopen(f"{base}/incidents/{inc_id}",
+                                                timeout=10).read())
+        carried = stamped()
+        tx = carried[0]["tx"]
+        p.audit.flush()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["audit", str(tx), "--url", base, "--json"])
+        joined = json.loads(buf.getvalue()) if rc == 0 else {}
+        fails = []
+        if [s["id"] for s in listing["incidents"] if s["id"] not in before] != [inc_id]:
+            fails.append(f"bundles {listing['incidents']} (want exactly one new)")
+        if doc.get("trigger", {}).get("type") != "slo_breach" or validate_incident(doc):
+            fails.append(f"bundle trigger {doc.get('trigger')}, invalid "
+                         f"{validate_incident(doc)}")
+        if not doc.get("decisions") or not isinstance(doc.get("capacity"), dict):
+            fails.append(f"bundle decisions {len(doc.get('decisions') or [])}, capacity "
+                         f"{doc.get('capacity')}")
+        if "ccfd_build_events_total" not in doc["snapshot"]["counters"]:
+            fails.append(f"watched counters {sorted(doc['snapshot']['counters'])}")
+        if (joined.get("incident") or {}).get("id") != inc_id or not joined["incident"]["found"]:
+            fails.append(f"audit {tx}: incident join {joined.get('incident')} (rc {rc})")
+        if fails:
+            raise AssertionError(f"{tag} (b): " + "; ".join(fails))
+        return {"bundle": inc_id, "fault_to_bundle_s": fault_to_bundle,
+                "bundles_before": sorted(before),
+                "bundle_bytes": len(json.dumps(doc).encode()),
+                "decisions": len(doc["decisions"]),
+                "bundle_bottleneck": (doc["capacity"].get("bottleneck") or {}).get("stage"),
+                "build_events": doc["snapshot"]["counters"]["ccfd_build_events_total"],
+                "stamped": len(carried), "joined_tx": tx, "recover_s": recover_s}
+
+    def observatory_families(self, p, tag: str) -> dict:
+        """(d): every family the dashboards read is in the scrape or named
+        absent with its reason."""
+        import re
+
+        text = urllib.request.urlopen(p.exporter.endpoint + "/prometheus",
+                                      timeout=10).read().decode()
+        seen = set(re.findall(r"^# TYPE (\S+) ", text, flags=re.M))
+        read = self.dashboard_families()
+
+        def present(f: str) -> bool:
+            return f in seen or re.sub(r"_(bucket|count|sum)$", "", f) in seen
+
+        missing = {f for f in read if not present(f)}
+        unexplained = sorted(f for f in missing
+                             if re.sub(r"_(bucket|count|sum)$", "", f) not in OBS_ABSENT
+                             and f not in OBS_ABSENT)
+        if unexplained:
+            raise AssertionError(f"{tag} (d): families the dashboards read, absent from the "
+                                 f"scrape with no named reason: {unexplained}")
+        return {"families_read": len(read), "families_seen": len(read - missing),
+                "families_absent": missing,
+                "families_listed_present": {f for f in OBS_ABSENT if present(f)}}
+
+    def observatory_tools(self) -> int:
+        """``loadgen`` against ``serve`` on the card and ``doctor``; returns
+        the serve process's B1 launches."""
+        from ccfd_tpu_torch.config import Config
+
+        tag = "observatory tools"
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env["PYTHONPATH"] = REPO
+        port = free_port()
+        url = f"http://127.0.0.1:{port}"
+        logf = tempfile.NamedTemporaryFile("w+", prefix="ccfd_serve_", suffix=".log",
+                                           delete=False)
+        serve = subprocess.Popen([sys.executable, "-m", "ccfd_tpu_torch", "serve", "--host",
+                                  "127.0.0.1", "--port", str(port), "--device", "cuda"],
+                                 cwd=REPO, env=env, stdout=logf, stderr=subprocess.STDOUT)
+        try:
+            Roles.wait(f"{url}/health/status", serve, 180)
+            t0 = time.perf_counter()
+            lg = subprocess.run([sys.executable, "-m", "ccfd_tpu_torch", "loadgen", "--url",
+                                 url, *LOADGEN_ARGS], cwd=REPO, env=env, capture_output=True,
+                                text=True, timeout=120)
+            lg_wall = time.perf_counter() - t0
+            m = scrape(f"{url}/prometheus")
+        finally:
+            serve.send_signal(signal.SIGTERM)
+            try:
+                serve.wait(timeout=20)
+            except subprocess.TimeoutExpired:
+                serve.kill()
+                serve.wait()
+            logf.seek(0)
+            serve_log = logf.read()[-3000:]
+            logf.close()
+            os.unlink(logf.name)
+        try:
+            rep = json.loads(lg.stdout.strip().splitlines()[-1])
+        except (IndexError, ValueError):
+            rep = {}
+        warm = len(Config.from_env().batch_sizes)
+        b1, disp = launches_of(m), m.get("ccfd_scorer_dispatches", 0.0)
+        if lg.returncode != 0 or rep.get("errors") != 0 or rep.get("failed_clients") != 0:
+            print(f"--- serve log (tail) ---\n{serve_log}", flush=True)
+            raise AssertionError(f"{tag}: loadgen exited {lg.returncode}: {rep or lg.stderr[-2000:]}")
+        if b1 != disp + warm or not disp:
+            raise AssertionError(f"{tag}: serve B1 launches {b1} != dispatches {disp} + "
+                                 f"{warm} warmups")
+        own = self.serve16.get("fused_mlp_bf16")
+        log(tag, f"ok: `loadgen {' '.join(LOADGEN_ARGS)}` against `serve` (B1) in "
+            f"{lg_wall:.3f} s: {rep['requests_s']} requests/s, {rep['tx_s']} tx/s, p50 "
+            f"{rep['p50_ms']} ms, p99 {rep['p99_ms']} ms, 0 errors; the serve phase's own "
+            f"200 sequential 16-row POSTs (one client): "
+            + (quantiles(own) if own is not None else "not run")
+            + f"; serve B1 launches {b1:.0f} = dispatches {disp:.0f} + {warm} warmups on "
+            f"{self.card}")
+        t0 = time.perf_counter()
+        dr = subprocess.run([sys.executable, "-m", "ccfd_tpu_torch", "doctor"], cwd=REPO,
+                            env=env, capture_output=True, text=True, timeout=180)
+        try:
+            doc = json.loads(dr.stdout.strip().splitlines()[-1])
+        except (IndexError, ValueError):
+            doc = {}
+        dev = doc.get("device", {})
+        name = self.torch.cuda.get_device_name(0)
+        built = {k: v.get("built") for k, v in doc.get("kernels", {}).items()}
+        if dr.returncode != 0 or dev.get("name") != name or not all(built.values()):
+            raise AssertionError(f"{tag}: doctor exited {dr.returncode}: device {dev}, "
+                                 f"kernels built {built}; {dr.stderr[-2000:]}")
+        log(tag, f"ok: `doctor` exit 0 in {time.perf_counter() - t0:.3f} s: {dev.get('name')} "
+            f"x{dev.get('devices')}, nvidia-smi {dev.get('nvidia_smi')}, torch "
+            f"{dev.get('torch')} CUDA {dev.get('cuda')}, dispatch round trip "
+            f"{dev.get('dispatch_rtt_ms')} ms; kernels built and current {built}")
+        return int(disp)
 
     def models(self) -> None:
         """The reference's other Seldon models on the card: parity card
@@ -4885,6 +5335,7 @@ class Smoke:
         self.seq_timing()
         for model in ("seq", "seq_q8"):
             self.seq_operator(model)
+        self.seq_lifecycle()
 
     def seq_histories(self, b: int, length: int, seed: int = SEED):
         """``b`` (length, 30) histories of surrogate rows, each of a seeded
@@ -5086,7 +5537,7 @@ class Smoke:
                                            "train_steps": 0},
                               retrain={"enabled": False}, producer={"enabled": False},
                               investigator={"enabled": False}, store={"enabled": False},
-                              # the seq family's lifecycle is not ported (A12b)
+                              # (d) drives the seq family's lifecycle
                               lifecycle={"enabled": False},
                               engine={"crash_recovery": True, "checkpoint_interval_s": 0.5})
         cust = np.random.default_rng(SEED).integers(0, SEQ_CUSTOMERS, size=SEQ_OP_ROWS)
@@ -5201,6 +5652,211 @@ class Smoke:
             f"{asm / max(asm + disp, 1e-9):.4f}); the card busy "
             + (f"{busy:.3f} s, {busy / window:.4f} of the window" if busy
                else "not measured (no device events)") + f" on {self.card}")
+
+    def seq_labels(self, p, stop: threading.Event) -> threading.Thread:
+        """A thread producing SEQ_LC_LABELS labelled transactions a second
+        (SEQ_LC_FRAUD of them fraud rows of the surrogate) onto ``p``'s
+        labels topic, until ``stop``: the evaluator's label joins."""
+        import numpy as np
+
+        from ccfd_tpu_torch.data.ccfd import FEATURE_NAMES
+
+        rng = np.random.default_rng(SEED + 1)
+        fraud, legit = np.nonzero(self.labels == 1)[0], np.nonzero(self.labels == 0)[0]
+        topic = p.cfg.labels_topic
+
+        def run() -> None:
+            while not stop.wait(0.1):
+                for _ in range(SEQ_LC_LABELS // 10):
+                    y = int(rng.uniform() < SEQ_LC_FRAUD)
+                    j = int(rng.choice(fraud if y else legit))
+                    p.broker.produce(topic, {"transaction": dict(zip(
+                        FEATURE_NAMES, map(float, self.rows[j]))), "label": y})
+
+        th = threading.Thread(target=run, daemon=True, name="smoke-labels")
+        th.start()
+        return th
+
+    def seq_lifecycle(self) -> None:
+        """(d) The seq family's governed rollout on the operator (see the
+        module docstring): a faithful int8 candidate promoted through
+        shadow and canary and served as the int8 graph, a broken one
+        rejected, then the lifecycle's cost against a lifecycle-off run."""
+        import numpy as np
+
+        from ccfd_tpu_torch.config import Config
+        from ccfd_tpu_torch.data.ccfd import FEATURE_NAMES
+        from ccfd_tpu_torch.ops import seq_quant
+        from ccfd_tpu_torch.params import load_tree, params_fingerprint, to_numpy
+        from ccfd_tpu_torch.platform.operator import SEQ_INIT, Platform, PlatformSpec
+
+        torch = self.torch
+        tag = "seq (d) lifecycle"
+        tmp = tempfile.mkdtemp(prefix="ccfd_seqlc_")
+        cpu = load_tree(SEQ_INIT)  # the operator's champion
+        cand = seq_quant.quantize_seq(cpu)
+        cand_fp = params_fingerprint(cand)
+        broken = to_numpy(cand)
+        broken["head"] = dict(broken["head"])
+        broken["head"]["scale"] = np.zeros_like(broken["head"]["scale"])
+        broken["head"]["b"] = np.asarray([4.0], np.float32)
+        n_pool = 50_000
+        cust = np.random.default_rng(SEED).integers(0, SEQ_CUSTOMERS, size=n_pool)
+        pool = self.rows[np.arange(n_pool) % len(self.rows)]
+        records = [{**dict(zip(FEATURE_NAMES, map(float, pool[i]))),
+                    "customer_id": int(cust[i])} for i in range(n_pool)]
+        hists = self.seq_histories(SEQ_LC_CHECK, SEQ_L)
+        cfg = Config.from_env()
+        wait = self.heal_wait
+        runs: dict = {}
+        for arm in ("on", "off"):
+            cr = self.platform_cr(
+                os.path.join(tmp, arm), scorer={"model": "seq", "history_length": SEQ_L,
+                                                "train_steps": 0},
+                retrain={"enabled": False}, producer={"enabled": False},
+                investigator={"enabled": False}, store={"enabled": False},
+                lifecycle={"enabled": arm == "on", **SEQ_LC_GUARDRAILS})
+            counters = self.counters()
+            for c in counters.values():
+                c.reset()
+            p = Platform(PlatformSpec.from_cr(cr, cfg=cfg)).up(wait_ready_s=120)
+            stop = threading.Event()
+            cpu_s: dict = {}
+            taps: list = []
+            out: dict = {}
+            try:
+                lc = p.lifecycle
+                if lc is not None:
+                    for name, obj in (("shadow", lc.shadow), ("controller", lc)):
+                        cpu_s[name] = [0.0]
+                        self.rollout_cpu_clock(obj, cpu_s[name])
+                    chall = p.scorer.challenger_score
+
+                    def timed(x, chall=chall):
+                        # the challenger's forward on tapped (and canary)
+                        # histories, CUDA events around the whole call
+                        if np.ndim(x) != 3:
+                            return chall(x)
+                        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                        a.record()
+                        res = chall(x)
+                        b.record()
+                        b.synchronize()
+                        taps.append((len(x), a.elapsed_time(b)))
+                        return res
+
+                    p.scorer.challenger_score = timed
+                t0 = time.perf_counter()
+                live = self.rollout_paced(p, records, SEQ_LC_RATE, stop, key="customer_id")
+                labels = self.seq_labels(p, stop)
+                if lc is None:
+                    time.sleep(SEQ_LC_OFF_S)
+                else:
+                    out = self.seq_lifecycle_drive(p, lc, cand, cand_fp, broken, hists, tag,
+                                                   wait)
+                stop.set()
+                live.join()
+                labels.join()
+                sent = live.sent
+                if not p.wait_routed(120):
+                    raise AssertionError(f"{tag} ({arm}): the router did not drain")
+                wall = time.perf_counter() - t0
+                wait(lambda: p.audit.counts()["recorded"] >= sent, f"{tag}: every record", 30)
+                rr = p.registries["router"]
+                incoming = rr.counter("transaction_incoming_total").value()
+                routed = rr.counter("transaction_outgoing_total").total()
+                started = p.engine.snapshot()["next_pid"] - 1
+                recs = self.rollout_records(p)
+                launched = {k: c.value for k, c in counters.items()}
+            finally:
+                stop.set()
+                p.down()
+            if not sent == incoming == routed == started or any(launched.values()):
+                raise AssertionError(f"{tag} ({arm}): produced {sent}, incoming {incoming}, "
+                                     f"routed {routed}, started {started}; hand-kernel "
+                                     f"launches {launched} (want none)")
+            p50, p99, n_lat = self.rollout_latency(recs)
+            runs[arm] = {"sent": sent, "wall": wall, "tx_s": routed / wall, "p50": p50,
+                         "p99": p99, "n_lat": n_lat, "cpu": {k: v[0] for k, v in cpu_s.items()},
+                         "taps": taps, **out}
+        on, off = runs["on"], runs["off"]
+        tap_rows = np.asarray([r for r, _ in on["taps"]] or [0])
+        tap_ms = np.asarray([m for _, m in on["taps"]] or [float("nan")])
+        log("seq", f"ok: {tag}: quantize_seq(champion) v{on['v']} PROMOTED "
+            f"{on['promote_s']:.3f} s after its submission (canary rows champion "
+            f"{on['canary'][0]:.0f}, challenger {on['canary'][1]:.0f}); served "
+            f"params_fingerprint = the candidate's = the lineage's ({cand_fp[:16]}), the int8 "
+            f"graph; its p on {SEQ_LC_CHECK} histories vs the CPU seq_q8 max|dp| "
+            f"{on['dp']:.3e} (bar {SEQ_TOL['q8']:.0e}); broken quantization v{on['bad']} "
+            f"REJECTED in {on['reject_s']:.3f} s ({on['bad_reason']}), the champion's "
+            f"fingerprint unchanged; no hand-kernel launch; {on['sent']} + {off['sent']} "
+            f"transactions each started once on {self.card}")
+        log("seq", f"{tag}: at {SEQ_LC_RATE}/s asked: lifecycle on {on['tx_s']:.1f} tx/s, "
+            f"decision p50 {on['p50']:.3f} ms p99 {on['p99']:.3f} ms ({on['n_lat']} records, "
+            f"{on['wall']:.3f} s); off {off['tx_s']:.1f} tx/s, p50 {off['p50']:.3f} ms p99 "
+            f"{off['p99']:.3f} ms ({off['n_lat']} records, {off['wall']:.3f} s); the "
+            f"challenger's forward a tapped batch: {len(on['taps'])} batches of "
+            f"{tap_rows.mean():.1f} rows mean, median {float(np.median(tap_ms)):.3f} ms, mean "
+            f"{float(tap_ms.mean()):.3f} ms (CUDA events); thread CPU while on: "
+            + ", ".join(f"{k} {v:.3f} s ({v / on['wall'] * 100:.2f}% of a core)"
+                        for k, v in on["cpu"].items()) + f" on {self.card}")
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    def seq_lifecycle_drive(self, p, lc, cand, cand_fp: str, broken, hists, tag: str,
+                            wait) -> dict:
+        """(d)'s checks on the live seq platform; returns what the log
+        reports."""
+        import numpy as np
+
+        from ccfd_tpu_torch.ops import seq_quant
+        from ccfd_tpu_torch.params import params_fingerprint
+
+        torch = self.torch
+        out: dict = {}
+        canary = p.registries["lifecycle"].counter("ccfd_lifecycle_canary_rows_total")
+
+        def verdict(v: int, what: str) -> float:
+            t = time.perf_counter()
+            wait(lambda: lc.store.get(v).stage in ("CHAMPION", "REJECTED", "ROLLED_BACK"),
+                 f"{tag}: {what}", SEQ_LC_VERDICT_S)
+            return time.perf_counter() - t
+
+        out["v"] = lc.submit_candidate(cand, label_watermark=0)
+        out["promote_s"] = verdict(out["v"], "the int8 candidate's verdict")
+        with lc._mu:
+            rec = lc.store.get(out["v"])
+            champ = lc.store.champion()
+            served_fp = params_fingerprint(p.scorer.params)
+            quantized = seq_quant.is_quantized(p.scorer.params)
+        out["canary"] = (canary.value({"arm": "champion"}), canary.value({"arm": "challenger"}))
+        if rec.stage != "CHAMPION" or not min(out["canary"]) > 0:
+            raise AssertionError(f"{tag}: the int8 candidate ended {rec.stage}, canary rows "
+                                 f"{out['canary']}; trail {lc.store.audit_trail(rec.version)}")
+        if not (served_fp == cand_fp == champ.checkpoint_hash and quantized):
+            raise AssertionError(f"{tag}: served {served_fp[:12]} (int8 {quantized}), "
+                                 f"candidate {cand_fp[:12]}, champion v{champ.version} "
+                                 f"{champ.checkpoint_hash[:12]}")
+        # the promoted serving graph on fixed histories against the CPU
+        with p.scorer._params_lock:
+            params, fn = p.scorer.params, p.scorer._apply
+        got = p.scorer._score_direct(hists, params, fn)
+        want = seq_quant.apply_serving(cand, torch.from_numpy(hists), p.scorer.compute_dtype,
+                                       pos_length=SEQ_L).float().numpy()
+        out["dp"] = float(np.abs(got - want).max())
+        if not out["dp"] <= SEQ_TOL["q8"]:
+            raise AssertionError(f"{tag}: the promoted graph's p {out['dp']:.3e} from the CPU "
+                                 f"seq_q8 (bar {SEQ_TOL['q8']:.0e})")
+        # a broken quantization: rejected, the champion untouched
+        out["bad"] = lc.submit_candidate(broken, label_watermark=0)
+        out["reject_s"] = verdict(out["bad"], "the broken candidate's verdict")
+        rec = lc.store.get(out["bad"])
+        if (rec.stage != "REJECTED" or lc.champion != out["v"]
+                or params_fingerprint(p.scorer.params) != cand_fp):
+            raise AssertionError(f"{tag}: the broken candidate ended {rec.stage}, champion "
+                                 f"v{lc.champion} (want v{out['v']}, fingerprint unchanged)")
+        out["bad_reason"] = [e["detail"].get("reason") for e in lc.store.audit_trail(rec.version)
+                             if e["detail"].get("to") == "REJECTED"][0]
+        return out
 
     @staticmethod
     def seq_wait(pred, tag: str, what: str, timeout: float = 180.0) -> None:

@@ -26,7 +26,9 @@ from ccfd_tpu_torch.bus.broker import Broker
 from ccfd_tpu_torch.config import Config
 from ccfd_tpu_torch.data.ccfd import FEATURE_NAMES, NUM_FEATURES, synthetic_dataset
 from ccfd_tpu_torch.metrics.prom import Registry
+from tests import torch_helpers
 
+_keep_logging = pytest.fixture(autouse=True)(torch_helpers.keep_port_logging)
 TOL = 1e-5
 
 

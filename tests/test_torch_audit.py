@@ -15,7 +15,8 @@ and the route seam's stamping in router/router.py) against the reference's
   the append seam behave as the reference's, counted the same.
 - **The surfaces**: ``/decisions`` and ``/decisions/<tx_id>`` over HTTP
   (404 with the kill switch), ``audit <tx_id>`` offline from the segments
-  and live from the exporter (the lineage and incident joins named absent),
+  and live from the exporter (with the incident join to the bundle open
+  when the decision was made, the reference's document for document),
   one ``AuditLog`` shared by a ``ParallelRouter``'s workers, and the
   operator's default-on plane landing at ``/decisions``.
 """
@@ -401,16 +402,16 @@ def test_audit_tx_id_offline_and_live_returns_the_endpoints_record(tmp_path, cap
         assert main(["audit", "tx-2", "--dir", str(tmp_path), "--json"]) == 0
         offline = json.loads(capsys.readouterr().out)
         assert offline["record"] == live
-        # no lifecycle store to join (the lineage join: test_torch_lifecycle.py);
-        # the incident plane is named absent
-        assert "lineage" not in offline and "A14" in offline["incident"]["absent"]
+        # no lifecycle store to join (the lineage join: test_torch_lifecycle.py)
+        # and no incident open when the records were stamped: no join
+        assert "lineage" not in offline and "incident" not in offline
         assert offline["trace"] == {"trace_id": "ab" * 16, "kept": None}
         assert main(["audit", "tx-2", "--url", ex.endpoint, "--json"]) == 0
         assert json.loads(capsys.readouterr().out)["record"] == live
         monkeypatch.setenv("CCFD_AUDIT_DIR", str(tmp_path))
         assert main(["audit", "tx-2"]) == 0
         text = capsys.readouterr().out
-        assert "served by: host tier (quarantine)" in text and "incident: absent" in text
+        assert "served by: host tier (quarantine)" in text and "incident:" not in text
         assert main(["audit", "tx-404", "--dir", str(tmp_path)]) == 2
     finally:
         ex.stop()
@@ -423,18 +424,39 @@ def test_audit_tx_id_offline_and_live_returns_the_endpoints_record(tmp_path, cap
 
 @pytest.mark.parametrize("flag", ["--lifecycle-dir", "--incident-dir"])
 def test_audit_refuses_the_unported_joins_dirs_by_name(tmp_path, capsys, flag):
-    """The incident join's directory selects a plane the port does not have
-    (A14): the command refuses the flag by name and reads nothing. The
-    lineage join is served since A12: its case keeps its id and passes
-    ``--lifecycle-dir`` beside the flag still refused."""
+    """No join directory is refused any longer: the lineage join is served
+    since A12 and the incident join since A14a. Each case passes its flag
+    (the lineage case beside ``--incident-dir``, as before) and the
+    command joins the record to the bundle that was open when it was made,
+    as the reference's command does on the same directories; a bundle that
+    is not there reads ``found: false``."""
+    from ccfd_tpu.cli import main as ref_main
     from ccfd_tpu_torch.cli import main
 
-    argv = ["audit", "tx-2", "--dir", str(tmp_path), flag, str(tmp_path)]
+    audit_dir, inc_dir = tmp_path / "audit", tmp_path / "incidents"
+    inc_dir.mkdir()
+    audit = AuditLog(dir=str(audit_dir), fsync=False, incident_fn=lambda: "inc-0001-e2e-p99")
+    audit.record_batch(_rows(range(4)))
+    audit.flush()
+    bundle = {"id": "inc-0001-e2e-p99", "trigger": {"type": "slo_breach", "slo": "e2e-p99"},
+              "generated_unix": CLOCK}
+    (inc_dir / "inc-0001-e2e-p99.json").write_text(json.dumps(bundle))
+    argv = ["audit", "tx-2", "--dir", str(audit_dir), flag, str(inc_dir)]
     if flag == "--lifecycle-dir":
-        argv += ["--incident-dir", str(tmp_path)]
-    with pytest.raises(SystemExit) as e:
-        main(argv)
-    assert e.value.code == 2 and "--incident-dir" in capsys.readouterr().err
+        argv += ["--incident-dir", str(inc_dir)]
+    docs = []
+    for fn in (main, ref_main):
+        assert fn(argv + ["--json"]) == 0
+        docs.append(json.loads(capsys.readouterr().out))
+    assert docs[0]["incident"] == docs[1]["incident"] == {
+        "id": "inc-0001-e2e-p99", "trigger": bundle["trigger"], "generated_unix": CLOCK,
+        "found": True}
+    assert main(argv) == 0
+    assert "incident: inc-0001-e2e-p99 trigger=" in capsys.readouterr().out
+    (inc_dir / "inc-0001-e2e-p99.json").unlink()
+    assert main(argv + ["--json"]) == 0
+    assert json.loads(capsys.readouterr().out)["incident"] == {
+        "id": "inc-0001-e2e-p99", "found": False}
 
 
 def _operator_cr(tmp_path, audit=None):

@@ -15,7 +15,7 @@ reference's (ccfd_tpu/runtime/heal.py, runtime/faults.py).
   breaker, with the same seed: after every tick the state, ``status()``,
   the next heal time (the jittered backoff) and the lifetime counters are
   equal, for each scenario of the reference's test_heal.py that exists in
-  the port (the flight-recorder bundles wait for ROADMAP A14).
+  the port (the flight-recorder bundles: test_torch_observatory.py).
 - **The port on its own Scorer** (the CPU): hang, quarantine, warm
   re-promotion with no serving-label build, the canary on the router's
   watchdog, the seq scorer healing through its own seam; the router pinned

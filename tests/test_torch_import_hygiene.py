@@ -61,7 +61,9 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
               "observability.device", "runtime.heal", "runtime.chaos",
               "observability.audit", "analytics", "analytics.engine", "lifecycle",
               "lifecycle.versions", "lifecycle.shadow", "lifecycle.evaluator",
-              "lifecycle.controller", "replay", "replay.service"):
+              "lifecycle.controller", "replay", "replay.service",
+              "observability.incident", "observability.capacity",
+              "observability.dashboards", "utils.loadgen"):
         assert f"ccfd_tpu_torch.{m}" in res["mods"], m
     bad = [n for n in res["loaded"] if _forbidden(n)]
     assert bad == [], bad
@@ -165,6 +167,26 @@ def test_the_rollout_and_replay_modules_import_alone(mod):
     """The model lifecycle, the analytics engine and the replay plane each
     load by themselves with nothing of JAX or the reference (the reference's
     controller and engine import jax; the port's are torch and numpy)."""
+    code = (
+        "import importlib, json, sys\n"
+        f"importlib.import_module('ccfd_tpu_torch.{mod}')\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert [n for n in loaded if _forbidden(n)] == []
+
+
+@pytest.mark.parametrize("mod", ["observability.incident", "observability.capacity",
+                                 "observability.dashboards", "utils.loadgen"])
+def test_the_evidence_plane_modules_import_alone(mod):
+    """The flight recorder, the capacity observatory, the dashboards and the
+    load generator each load by themselves with nothing of JAX or the
+    reference."""
     code = (
         "import importlib, json, sys\n"
         f"importlib.import_module('ccfd_tpu_torch.{mod}')\n"

@@ -56,10 +56,11 @@ REPO = Path(__file__).resolve().parents[1]
 REF_CR = REPO / "deploy" / "platform_cr.yaml"
 PORT_CR = REPO / "ccfd_tpu_torch" / "assets" / "platform_cr.yaml"
 # the blocks the tests' CRs switch off: the parts still refused and (since
-# A9, A12 and A14's analytics) the lifecycle, the analytics and the replay
-# planes, which these tests do not drive
+# A9, A12 and A14) the lifecycle, the analytics, the replay, the incident
+# and the capacity planes, which these tests do not drive
 OFF = {name: {"enabled": False}
-       for name in (*REFUSED_COMPONENTS, "lifecycle", "analytics", "replay")}
+       for name in (*REFUSED_COMPONENTS, "lifecycle", "analytics", "replay", "incident",
+                    "capacity")}
 ENV = {"CCFD_BATCH_SIZES": "16,128,1024", "CCFD_NATIVE_FRONT": "0"}
 _keep_logging = pytest.fixture(autouse=True)(torch_helpers.keep_port_logging)
 KIE = ("fraud_approved_amount", "fraud_rejected_amount", "fraud_approved_low_amount",
@@ -197,36 +198,42 @@ def test_spec_parsing_of_the_references_cr():
 
 
 def test_port_cr_differs_only_in_the_refused_blocks_enabled():
+    """Since A14a the reference's CR turns on no block the port refuses, so
+    the port's CR is the reference's line for line."""
     ref_lines = REF_CR.read_text().splitlines()
     port_lines = PORT_CR.read_text().splitlines()
     assert len(ref_lines) == len(port_lines)
     diff = [(a, b) for a, b in zip(ref_lines, port_lines) if a != b]
-    assert diff and all(a.strip() == "enabled: true" and b.strip() == "enabled: false"
-                        for a, b in diff)
+    assert all(a.strip() == "enabled: true" and b.strip() == "enabled: false"
+               for a, b in diff)
     ref, port = (yaml.safe_load(p.read_text())["spec"] for p in (REF_CR, PORT_CR))
     changed = {k for k in ref if ref[k] != port[k]}
     assert changed == {k for k in REFUSED_COMPONENTS if ref.get(k, {}).get("enabled")}
+    assert changed == set() and port["incident"]["enabled"] and port["capacity"]["enabled"]
     assert PlatformSpec.from_yaml(str(PORT_CR), cfg=Config()).refused() == []
 
 
 # investigator, engine.usertask_model, scorer.model: seq|seq_q8, the
-# batcher's queue policies, the lifecycle, the analytics and the replay
-# planes are served since A11, A13, A15a, A12, A14 and A9: their cases keep
-# their ids and now pair the served part with one still refused (the
-# investigator, the user-task model, the lifecycle, analytics and replay
-# beside fleet, incident and capacity, seq under retrain and seq_q8 under the
-# decision plane, which the port refuses where the reference skips them with
-# a warning, the queue rows beside CCFD_INLINE_ROWS)
+# batcher's queue policies, the lifecycle (the seq family's too), the
+# analytics, the replay, the incident and the capacity planes are served
+# since A11, A13, A15a, A12, A12b, A14, A14a and A9: their cases keep their
+# ids and now pair the served part with one still refused (each plane beside
+# fleet or mesh.devices, seq under retrain and seq_q8 under the decision
+# plane, which the port refuses where the reference skips them with a
+# warning, the queue rows beside CCFD_INLINE_ROWS)
 REFUSALS = [(name, {name: {"enabled": True}}, {}, name) for name in REFUSED_COMPONENTS] + [
-    ("lifecycle", {"lifecycle": {"enabled": True}, "incident": {"enabled": True}}, {},
-     "incident"),
-    ("analytics", {"analytics": {"enabled": True}, "capacity": {"enabled": True}}, {},
-     "capacity"),
+    ("incident", {"incident": {"enabled": True}, "fleet": {"enabled": True}}, {}, "fleet"),
+    ("capacity", {"capacity": {"enabled": True}, "mesh": {"devices": 2}}, {},
+     "mesh.devices: 2"),
+    ("lifecycle", {"lifecycle": {"enabled": True}, "fleet": {"enabled": True}}, {},
+     "fleet"),
+    ("analytics", {"analytics": {"enabled": True}, "mesh": {"devices": 2}}, {},
+     "mesh.devices: 2"),
     ("replay", {"replay": {"enabled": True}, "fleet": {"enabled": True}}, {}, "fleet"),
     ("investigator", {"investigator": {"enabled": True}, "fleet": {"enabled": True}}, {},
      "fleet"),
     ("engine.usertask_model", {"engine": {"usertask_model": True},
-                               "incident": {"enabled": True}}, {}, "incident"),
+                               "fleet": {"enabled": True}}, {}, "fleet"),
     ("mesh.devices", {"mesh": {"devices": 2}}, {}, "mesh.devices: 2"),
     ("mesh.devices=0", {"mesh": {"devices": 0}}, {}, "mesh.devices: 0"),
     ("seq", {"scorer": {"model": "seq"}, "retrain": {"enabled": True}}, {},
@@ -240,13 +247,13 @@ REFUSALS = [(name, {name: {"enabled": True}}, {}, name) for name in REFUSED_COMP
                                  "CCFD_INLINE_ROWS": "64"}, "CCFD_INLINE_ROWS"),
     ("overload.rest_queue_rows", {"overload": {"rest_queue_rows": 64}},
      {"CCFD_INLINE_ROWS": "64"}, "CCFD_INLINE_ROWS"),
-    # the seq family's lifecycle is A12b's; the decision plane with the
-    # lifecycle is refused where the reference serves the staged path with
-    # a warning
-    ("lifecycle.seq", {"scorer": {"model": "seq"}, "lifecycle": {"enabled": True}}, {},
-     "lifecycle with scorer.model: seq (A12b"),
-    ("lifecycle.seq_q8", {"scorer": {"model": "seq_q8"}, "lifecycle": {"enabled": True}}, {},
-     "lifecycle with scorer.model: seq_q8 (A12b"),
+    # the decision plane with the lifecycle is refused where the reference
+    # serves the staged path with a warning
+    ("lifecycle.seq", {"scorer": {"model": "seq"}, "lifecycle": {"enabled": True},
+                       "retrain": {"enabled": True}}, {}, "retrain with scorer.model: seq"),
+    ("lifecycle.seq_q8", {"scorer": {"model": "seq_q8", "fused_decision": True},
+                          "lifecycle": {"enabled": True}}, {},
+     "scorer.fused_decision with scorer.model: seq_q8"),
     ("lifecycle.fused_decision", {"scorer": {"model": "mlp", "fused_decision": True},
                                   "lifecycle": {"enabled": True}}, {},
      "scorer.fused_decision with lifecycle"),
@@ -268,20 +275,27 @@ def test_each_refused_part_is_named(name, blocks, env, match):
 
 
 def test_the_references_cr_is_refused_with_every_name_at_once(tmp_path):
+    """The reference's CR as shipped comes up whole since A14a; switched to
+    the parts still refused (fleet and a mesh), it is refused with every
+    name in one error and nothing starts."""
     from ccfd_tpu_torch.cli import main
 
+    assert PlatformSpec.from_yaml(str(REF_CR), cfg=Config()).refused() == []
+    cr = yaml.safe_load(REF_CR.read_text())
+    cr["spec"]["fleet"]["enabled"] = True
+    cr["spec"]["mesh"]["devices"] = 2
+    path = tmp_path / "cr.yaml"
+    path.write_text(yaml.safe_dump(cr))
     with pytest.raises(NotImplementedError) as err:
-        main(["up", "-f", str(REF_CR), "--device", "cpu"])
+        main(["up", "-f", str(path), "--device", "cpu"])
     msg = str(err.value)
-    on = [n for n in REFUSED_COMPONENTS
-          if yaml.safe_load(REF_CR.read_text())["spec"].get(n, {}).get("enabled")]
-    assert len(on) == 2 and all(f"{n} (" in msg for n in on)
-    # exactly those two: the lifecycle and analytics blocks come up
-    assert [r.split(" (")[0] for r in PlatformSpec.from_yaml(str(REF_CR), cfg=Config())
-            .refused()] == ["incident", "capacity"]
-    # the default-on blocks are refused when absent too
-    with pytest.raises(NotImplementedError, match="incident.*capacity"):
-        Platform(PlatformSpec.from_cr({"spec": {}}, cfg=Config()), device="cpu").up()
+    assert "fleet (A10" in msg and "mesh.devices: 2 (A15b" in msg
+    assert [r.split(" (")[0] for r in PlatformSpec.from_yaml(str(path), cfg=Config())
+            .refused()] == ["fleet", "mesh.devices: 2"]
+    # a default-on block is no longer refused when absent; the opt-in fleet is
+    with pytest.raises(NotImplementedError, match="fleet.*mesh.devices"):
+        Platform(PlatformSpec.from_cr({"spec": {"fleet": True, "mesh": {"devices": 2}}},
+                                      cfg=Config()), device="cpu").up()
 
 
 def _recovery_cr(tmp, **engine):

@@ -46,10 +46,11 @@ import export_torch_seq_assets as assets  # noqa: E402
 
 _keep_logging = pytest.fixture(autouse=True)(torch_helpers.keep_port_logging)
 # the blocks the tests' CRs switch off: the parts still refused and (since
-# A9, A12 and A14's analytics) the lifecycle, the analytics and the replay
-# planes, which these tests do not drive
+# A9, A12 and A14) the lifecycle, the analytics, the replay, the incident
+# and the capacity planes, which these tests do not drive
 OFF = {name: {"enabled": False}
-       for name in (*REFUSED_COMPONENTS, "lifecycle", "analytics", "replay")}
+       for name in (*REFUSED_COMPONENTS, "lifecycle", "analytics", "replay", "incident",
+                    "capacity")}
 ENV = {"CCFD_BATCH_SIZES": "16,128,1024", "CCFD_NATIVE_FRONT": "0",
        "FRAUD_THRESHOLD": "0.4"}
 N = 240

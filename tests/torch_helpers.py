@@ -48,12 +48,19 @@ def keep_port_logging():
     """A generator fixture body: restores the ``ccfd_tpu_torch`` logger's
     handlers, level and propagation after a test whose platform's tracing
     block switched on the JSON logs (``slog.configure`` stops propagation,
-    which would hide later tests' warnings from ``caplog``)."""
+    which would hide later tests' warnings from ``caplog``), and the
+    process-wide hooks a platform installs: the storage quarantine's
+    incident recorder (``durability.set_recorder``), which would otherwise
+    dump bundles into a torn-down platform's recorder from later tests."""
     import logging
+
+    from ccfd_tpu_torch.runtime import durability
 
     log = logging.getLogger("ccfd_tpu_torch")
     saved = (list(log.handlers), log.level, log.propagate)
+    saved_recorder = durability._recorder
     yield
     log.handlers[:] = saved[0]
     log.setLevel(saved[1])
     log.propagate = saved[2]
+    durability.set_recorder(saved_recorder)
