@@ -1,0 +1,624 @@
+"""The seven ccfd-lint rules: review findings as named invariants.
+
+The port's copy of ccfd_tpu/analysis/rules.py. Each rule's ``invariant``
+is the one-line law; ``motivated_by`` names the review finding that kept
+re-finding the defect class by hand. One deviation from the reference:
+``hot-path-sync`` names torch's device-to-host syncs (``.item()``,
+``.tolist()``, ``.cpu()``, ``.numpy()``, ``.to("cpu")``,
+``torch.cuda.synchronize()``, ``np.asarray``/``np.array`` of a tensor,
+``float()``) where the reference's names JAX's.
+"""
+
+from __future__ import annotations
+
+import ast
+from typing import Iterable, Iterator
+
+from ccfd_tpu_torch.analysis.core import FileContext, Finding, Rule, register
+
+# -- shared AST helpers ------------------------------------------------------
+
+
+def _dotted(node: ast.AST) -> str:
+    """Best-effort dotted name of an expression: ``self._breaker.allow``,
+    ``np.savez``, ``time.time``. Unresolvable parts render as ``?``."""
+    parts: list[str] = []
+    while isinstance(node, ast.Attribute):
+        parts.append(node.attr)
+        node = node.value
+    if isinstance(node, ast.Name):
+        parts.append(node.id)
+    elif isinstance(node, ast.Call):
+        parts.append("()")
+    else:
+        parts.append("?")
+    return ".".join(reversed(parts))
+
+
+def _is_time_time(node: ast.AST) -> bool:
+    if not isinstance(node, ast.Call):
+        return False
+    d = _dotted(node.func)
+    # "_time.time" (the local-alias idiom) ends with "time.time" too;
+    # "datetime.time" is a constructor, not a clock read
+    return d.endswith("time.time") and not d.endswith("datetime.time")
+
+
+def _functions(tree: ast.AST) -> Iterator[ast.AST]:
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            yield node
+
+
+# -- rule 1: durability-seam -------------------------------------------------
+
+# modules that ARE the durability layer (or predate it with their own
+# integrity discipline) — writes inside them are the seam, not a bypass
+_SEAM_FILES = (
+    "runtime/durability.py",
+    # the CRC-framed segment log is the durability seam's own ancestor
+    # ("the bus log already shows the house style" — durability.py
+    # docstring); its tmp+fsync+rename compaction is the idiom itself
+    "bus/log.py",
+)
+# interchange documents read by humans/Grafana/kubectl keep plain bodies
+# by design (durability.write_json_interchange exists for the checksummed
+# variant; generated dashboards and k8s manifests are build artifacts
+# reviewed in git, not runtime state)
+_INTERCHANGE_FILES = ("observability/dashboards.py", "platform/k8s.py")
+
+
+@register
+class DurabilitySeamRule(Rule):
+    name = "durability-seam"
+    invariant = ("every persistent artifact is written/renamed through "
+                 "runtime/durability.py (atomic tmp+fsync+rename, "
+                 "checksummed frame, last-good generations)")
+    motivated_by = ("eight hand-rolled tmp+rename copies all skipped the "
+                    "fsync, so a power loss could lose both the old and "
+                    "the new artifact")
+
+    _WRITE_MODES = {"w", "wb", "w+", "wb+", "w+b"}
+
+    def check(self, ctx: FileContext) -> Iterable[Finding]:
+        if ctx.path.endswith(_SEAM_FILES) or ctx.path.endswith(
+                _INTERCHANGE_FILES):
+            return []
+        out: list[Finding] = []
+        # names bound to io.BytesIO(): np.savez into a memory buffer is
+        # the SANCTIONED pattern (buffer bytes then durability.write_artifact)
+        membuf_names: set[str] = set()
+        for node in ast.walk(ctx.tree):
+            if (isinstance(node, ast.Assign) and len(node.targets) == 1
+                    and isinstance(node.targets[0], ast.Name)
+                    and isinstance(node.value, ast.Call)
+                    and _dotted(node.value.func) in ("io.BytesIO", "BytesIO")):
+                membuf_names.add(node.targets[0].id)
+        for node in ast.walk(ctx.tree):
+            if not isinstance(node, ast.Call):
+                continue
+            fn = _dotted(node.func)
+            if fn == "open":
+                mode = None
+                if len(node.args) >= 2 and isinstance(node.args[1], ast.Constant):
+                    mode = node.args[1].value
+                for kw in node.keywords:
+                    if kw.arg == "mode" and isinstance(kw.value, ast.Constant):
+                        mode = kw.value.value
+                if isinstance(mode, str) and mode in self._WRITE_MODES:
+                    out.append(ctx.finding(
+                        self.name, node,
+                        f"open(mode={mode!r}) writes a persistent file "
+                        "outside the durability seam; use "
+                        "durability.atomic_write_bytes/write_artifact (or "
+                        "write_json_interchange for human/Grafana docs)"))
+            elif fn in ("os.rename", "os.replace"):
+                out.append(ctx.finding(
+                    self.name, node,
+                    f"{fn}() outside the durability seam: atomic swaps "
+                    "belong to durability.write_artifact (quarantine "
+                    "renames are the sanctioned exception — say so in a "
+                    "pragma)"))
+            elif fn == "json.dump":
+                out.append(ctx.finding(
+                    self.name, node,
+                    "json.dump() to a file handle bypasses the durability "
+                    "seam; use durability.write_json_artifact or "
+                    "write_json_interchange"))
+            elif fn.split(".")[-1] in ("savez", "savez_compressed") and (
+                    fn.split(".")[0] in ("np", "numpy", "onp")):
+                first = node.args[0] if node.args else None
+                if isinstance(first, ast.Name) and first.id in membuf_names:
+                    continue  # buffered-then-write_artifact pattern
+                out.append(ctx.finding(
+                    self.name, node,
+                    f"{fn}() straight to a path skips the checksummed "
+                    "frame; savez into io.BytesIO() and hand the bytes to "
+                    "durability.write_artifact"))
+        return out
+
+
+# -- rule 2: monotonic-durations ---------------------------------------------
+
+
+@register
+class MonotonicDurationsRule(Rule):
+    name = "monotonic-durations"
+    invariant = ("durations are measured with perf_counter/monotonic "
+                 "pairs; time.time() is for wall-clock timestamps that "
+                 "ride records and artifacts, never for interval math")
+    motivated_by = ("an NTP step mid-benchmark produced a negative "
+                    "router batch latency and a corrupted histogram")
+
+    def check(self, ctx: FileContext) -> Iterable[Finding]:
+        out: list[Finding] = []
+        wall_names: set[str] = set()
+        for node in ast.walk(ctx.tree):
+            if (isinstance(node, ast.Assign) and len(node.targets) == 1
+                    and isinstance(node.targets[0], ast.Name)
+                    and isinstance(node.value, ast.Call)
+                    and _is_time_time(node.value)):
+                wall_names.add(node.targets[0].id)
+        for node in ast.walk(ctx.tree):
+            if not (isinstance(node, ast.BinOp)
+                    and isinstance(node.op, ast.Sub)):
+                continue
+            sides = (node.left, node.right)
+            direct = any(
+                isinstance(s, ast.Call) and _is_time_time(s) for s in sides)
+            both_wall = all(
+                isinstance(s, ast.Name) and s.id in wall_names for s in sides)
+            if direct or both_wall:
+                out.append(ctx.finding(
+                    self.name, node,
+                    "time.time() pair used as a duration (NTP step = "
+                    "negative latency); use time.perf_counter() — if this "
+                    "is wall-clock math against a record/artifact "
+                    "timestamp, say so in a pragma"))
+        return out
+
+
+# -- rule 3: counted-drops ---------------------------------------------------
+
+_DROP_SCOPES = ("/router/", "/bus/", "/serving/", "/observability/",
+                "/fleet/")
+_LOG_METHODS = frozenset(
+    ("debug", "info", "warning", "error", "exception", "critical", "log"))
+
+
+def _handler_is_broad(handler: ast.ExceptHandler) -> bool:
+    t = handler.type
+    if t is None:
+        return True
+    names = []
+    if isinstance(t, ast.Tuple):
+        names = [_dotted(e) for e in t.elts]
+    else:
+        names = [_dotted(t)]
+    return any(n.split(".")[-1] in ("Exception", "BaseException")
+               for n in names)
+
+
+def _body_accounts(handler: ast.ExceptHandler) -> bool:
+    for node in ast.walk(handler):
+        if isinstance(node, ast.Raise):
+            return True
+        if isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute):
+            attr = node.func.attr
+            # set_exception delivers the error to a waiter's future — it
+            # re-raises at the await point, the opposite of a swallow
+            if (attr in ("inc", "observe", "set_exception")
+                    or attr in _LOG_METHODS):
+                return True
+    return False
+
+
+@register
+class CountedDropsRule(Rule):
+    name = "counted-drops"
+    invariant = ("no silent caps: a broad except that drops work in "
+                 "router/bus/serving/observability/fleet must re-raise, "
+                 "log via slog, or increment a *_total counter")
+    motivated_by = ("a recurring review finding; the overload plane made "
+                    "it a core guarantee (every shed is counted by "
+                    "priority) and reviews still kept finding bare "
+                    "swallows")
+
+    def check(self, ctx: FileContext) -> Iterable[Finding]:
+        if not any(s in f"/{ctx.path}" for s in _DROP_SCOPES):
+            return []
+        out: list[Finding] = []
+        for node in ast.walk(ctx.tree):
+            if not isinstance(node, ast.ExceptHandler):
+                continue
+            if not _handler_is_broad(node):
+                continue
+            if _body_accounts(node):
+                continue
+            out.append(ctx.finding(
+                self.name, node,
+                "broad except swallows without accounting: re-raise, log "
+                "via slog (trace-correlated), or increment a named "
+                "*_dropped_total/*_errors_total counter"))
+        return out
+
+
+# -- rule 4: metric-naming ---------------------------------------------------
+
+# Names mirrored verbatim from the reference's Grafana boards: the
+# dashboards are the contract, so these keep their reference
+# spelling. They are gauges, which the convention already admits — the
+# set is exported for the contract test's registered-name cross-check
+# and as documentation of WHY these names look nothing like the rest.
+REFERENCE_BOARD_NAMES = frozenset((
+    "proba_1", "Amount", "V17", "V10",  # ModelPrediction.json:96-322
+))
+# Kind-keyed exemptions: a (kind, name) pair predating the rule whose
+# rename would break checked-in dashboards and recorded bench history.
+# Keyed by kind so the exemption cannot silently re-admit a FUTURE
+# metric registered under the same name as a different kind.
+GRANDFATHERED_NAMES = frozenset((
+    # Router board; a rows-count histogram predating the suffix rule
+    ("histogram", "router_batch_size"),
+))
+
+_HISTOGRAM_SUFFIXES = ("_seconds", "_bytes", "_amount", "_rows", "_ms")
+
+
+def metric_name_ok(kind: str, name: str) -> str | None:
+    """None when ``name`` satisfies the convention for ``kind``, else the
+    violation message; a helper shared by the linter and the tests, so the
+    conventions cannot drift between them."""
+    if (kind, name) in GRANDFATHERED_NAMES:
+        return None
+    if kind == "counter" and not name.endswith("_total"):
+        return f"counter {name!r} must end _total"
+    if kind == "gauge" and name.endswith("_total"):
+        return f"gauge {name!r} must not end _total (that suffix promises monotonicity)"
+    if kind == "histogram" and not name.endswith(_HISTOGRAM_SUFFIXES):
+        return (f"histogram {name!r} needs a unit suffix "
+                f"({'/'.join(_HISTOGRAM_SUFFIXES)})")
+    return None
+
+
+@register
+class MetricNamingRule(Rule):
+    name = "metric-naming"
+    invariant = ("counters end _total, histograms carry a unit suffix, "
+                 "gauges never claim _total; reference-board names are "
+                 "the only exemption")
+    motivated_by = ("the dashboard-to-metric contract test kept "
+                    "catching misnamed series only AFTER a board "
+                    "referenced them; this moves the check to the "
+                    "registration site")
+
+    def check(self, ctx: FileContext) -> Iterable[Finding]:
+        out: list[Finding] = []
+        for node in ast.walk(ctx.tree):
+            if not (isinstance(node, ast.Call)
+                    and isinstance(node.func, ast.Attribute)
+                    and node.func.attr in ("counter", "gauge", "histogram")
+                    and node.args
+                    and isinstance(node.args[0], ast.Constant)
+                    and isinstance(node.args[0].value, str)):
+                continue
+            err = metric_name_ok(node.func.attr, node.args[0].value)
+            if err:
+                out.append(ctx.finding(self.name, node, err))
+        return out
+
+
+# -- rule 5: breaker-outcome -------------------------------------------------
+
+
+def _is_breaker_receiver(dotted: str) -> bool:
+    last = dotted.split(".")[-1]
+    return "breaker" in last or last == "br"
+
+
+def _stmt_records_unconditionally(stmt: ast.stmt) -> bool:
+    """Does this statement contain a record_success/record_failure call
+    NOT nested under further branching? (A record inside an If/Try within
+    the statement is conditional — a different path.)"""
+    def scan(node: ast.AST) -> bool:
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.If, ast.Try, ast.While, ast.For,
+                                  ast.FunctionDef, ast.AsyncFunctionDef,
+                                  ast.ExceptHandler)):
+                continue
+            if (isinstance(child, ast.Call)
+                    and isinstance(child.func, ast.Attribute)
+                    and child.func.attr in ("record_success",
+                                            "record_failure")):
+                return True
+            if scan(child):
+                return True
+        return False
+
+    return scan(stmt)
+
+
+@register
+class BreakerOutcomeRule(Rule):
+    name = "breaker-outcome"
+    invariant = ("a breaker-gated call path records exactly one outcome: "
+                 "an admitted HALF_OPEN probe that records zero outcomes "
+                 "wedges the circuit open; two outcomes double-count the "
+                 "window")
+    motivated_by = ("a non-200 response path recorded no outcome, "
+                    "leaking the probe slot and wedging the scorer edge "
+                    "open until restart")
+
+    def check(self, ctx: FileContext) -> Iterable[Finding]:
+        out: list[Finding] = []
+        for fn in _functions(ctx.tree):
+            gates = [
+                n for n in ast.walk(fn)
+                if isinstance(n, ast.Call)
+                and isinstance(n.func, ast.Attribute)
+                and n.func.attr == "allow"
+                and _is_breaker_receiver(_dotted(n.func.value))
+            ]
+            if not gates:
+                continue
+            successes = failures = 0
+            for n in ast.walk(fn):
+                if (isinstance(n, ast.Call)
+                        and isinstance(n.func, ast.Attribute)):
+                    if n.func.attr == "record_success":
+                        successes += 1
+                    elif n.func.attr == "record_failure":
+                        failures += 1
+            if successes == 0 and failures == 0:
+                out.append(ctx.finding(
+                    self.name, gates[0],
+                    f"{fn.name}() gates on breaker.allow() but never "
+                    "records an outcome: an admitted HALF_OPEN probe "
+                    "leaks and the circuit wedges open"))
+                continue
+            if successes == 0 or failures == 0:
+                missing = "record_success" if successes == 0 else "record_failure"
+                out.append(ctx.finding(
+                    self.name, gates[0],
+                    f"{fn.name}() gates on breaker.allow() but has no "
+                    f"{missing} path: one outcome class is never fed back "
+                    "into the window"))
+            # double-record: two unconditional records in one straight-line
+            # body means some path records twice
+            for node in ast.walk(fn):
+                body = getattr(node, "body", None)
+                if not isinstance(body, list):
+                    continue
+                hits = [s for s in body
+                        if isinstance(s, ast.stmt)
+                        and _stmt_records_unconditionally(s)]
+                if len(hits) >= 2:
+                    out.append(ctx.finding(
+                        self.name, hits[1],
+                        f"{fn.name}() records two breaker outcomes on one "
+                        "straight-line path: the window double-counts "
+                        "this call"))
+        return out
+
+
+# -- rule 6: hot-path-sync ---------------------------------------------------
+
+# torch's device->host syncs: a numpy view of a CUDA tensor, a Python
+# scalar or list out of one, a copy to the host, an explicit synchronize
+_SYNC_CALLS = frozenset((
+    "np.asarray", "numpy.asarray", "onp.asarray", "np.array", "numpy.array",
+    "torch.cuda.synchronize",
+))
+_SYNC_ATTRS = frozenset(("item", "tolist", "cpu", "numpy", "synchronize"))
+# the router's score->route seam (the functions between the device
+# dispatch and _route): the only sync these functions may contain is
+# materializing a dispatch result, np.asarray(<call>()). Any sync on an
+# already-bound name (np.asarray(proba), proba.tolist()) is a NEW host
+# round trip sneaking in between score and route.
+_SEAM_FUNCS = frozenset(("_score_tiered", "_score_direct", "_score_batch"))
+
+
+def _is_host_copy(node: ast.Call) -> bool:
+    """``t.to("cpu")`` / ``t.to(device="cpu")``: a device->host copy."""
+    if not (isinstance(node.func, ast.Attribute) and node.func.attr == "to"):
+        return False
+    args = list(node.args) + [k.value for k in node.keywords if k.arg == "device"]
+    return any(isinstance(a, ast.Constant) and a.value == "cpu" for a in args)
+
+
+@register
+class HotPathSyncRule(Rule):
+    name = "hot-path-sync"
+    invariant = ("functions marked `# ccfd-lint: hot-path` must not "
+                 "force a device->host sync (np.asarray/np.array of a "
+                 "tensor, .item()/.tolist()/.cpu()/.numpy()/.to('cpu'), "
+                 "float(), torch.cuda.synchronize()): the overlap IS the "
+                 "throughput. The router's score->route seam "
+                 "(_score_tiered/_score_direct/_score_batch in "
+                 "router/router.py) is implicitly hot, with ONE allowed "
+                 "sync shape: np.asarray(<dispatch call>), the transfer "
+                 "itself")
+    motivated_by = ("one stray float(proba) in the seq dispatch loop "
+                    "serialized the whole overlapped dataflow; with the "
+                    "decision plane the verdict crosses in ONE transfer, "
+                    "and the seam check keeps a second sync from growing "
+                    "back between score and route")
+
+    def check(self, ctx: FileContext) -> Iterable[Finding]:
+        out: list[Finding] = []
+        seam_file = ctx.path.endswith("router/router.py")
+        for fn in _functions(ctx.tree):
+            marked = (fn.lineno in ctx.hot_path_lines
+                      or (fn.lineno - 1) in ctx.hot_path_lines
+                      or any(d.lineno - 1 in ctx.hot_path_lines
+                             or d.lineno in ctx.hot_path_lines
+                             for d in fn.decorator_list))
+            seam = seam_file and fn.name in _SEAM_FUNCS
+            if not marked and not seam:
+                continue
+            where = ("score->route seam" if seam and not marked
+                     else "hot-path")
+            for node in ast.walk(fn):
+                if not isinstance(node, ast.Call):
+                    continue
+                fname = _dotted(node.func)
+                if fname in _SYNC_CALLS:
+                    if (seam and not marked and fname != "torch.cuda.synchronize"
+                            and node.args and isinstance(node.args[0], ast.Call)):
+                        # the single allowed seam sync: materializing a
+                        # dispatch result as it crosses to the host
+                        continue
+                    out.append(ctx.finding(
+                        self.name, node,
+                        f"{fname}() inside {where} {fn.name}(): forces a "
+                        "device->host sync"))
+                elif (isinstance(node.func, ast.Attribute)
+                        and node.func.attr in _SYNC_ATTRS
+                        and not node.args):
+                    out.append(ctx.finding(
+                        self.name, node,
+                        f".{node.func.attr}() inside {where} {fn.name}():"
+                        " forces a device->host sync"))
+                elif _is_host_copy(node):
+                    out.append(ctx.finding(
+                        self.name, node,
+                        f".to('cpu') inside {where} {fn.name}(): copies "
+                        "the tensor to the host"))
+                elif (fname == "float" and node.args
+                        and not isinstance(node.args[0], ast.Constant)):
+                    out.append(ctx.finding(
+                        self.name, node,
+                        f"float(...) inside {where} {fn.name}(): on a "
+                        "device tensor this blocks on the transfer"))
+        return out
+
+
+# -- rule 7: lock-order (static half) ----------------------------------------
+
+_LOCK_ATTRS = ("lock", "locks", "mu", "mutex")
+
+
+def _lock_label(ctx: FileContext, classname: str, expr: ast.expr) -> str | None:
+    """A stable node label for a lock-acquiring ``with`` item, or None
+    when the expression isn't lock-shaped. ``self._lock`` ->
+    ``path::Class._lock``; ``self._locks[i]`` -> ``path::Class._locks[]``."""
+    suffix = ""
+    if isinstance(expr, ast.Subscript):
+        expr = expr.value
+        suffix = "[]"
+    if not isinstance(expr, ast.Attribute):
+        return None
+    attr = expr.attr
+    base = attr.lstrip("_").lower()
+    if not any(base == a or base.endswith("_" + a) for a in _LOCK_ATTRS):
+        return None
+    return f"{ctx.path}::{classname}.{attr}{suffix}"
+
+
+class _LockNestingVisitor(ast.NodeVisitor):
+    def __init__(self, ctx: FileContext):
+        self.ctx = ctx
+        self.class_stack: list[str] = []
+        self.held: list[str] = []
+        # (src, dst) -> (path, line) of an example acquisition site
+        self.edges: dict[tuple[str, str], tuple[str, int]] = {}
+
+    def visit_ClassDef(self, node: ast.ClassDef) -> None:
+        self.class_stack.append(node.name)
+        self.generic_visit(node)
+        self.class_stack.pop()
+
+    def _visit_with(self, node) -> None:
+        n_added = 0
+        for item in node.items:
+            label = _lock_label(
+                self.ctx, self.class_stack[-1] if self.class_stack else "<module>",
+                item.context_expr)
+            if label is None:
+                continue
+            for h in self.held:
+                if h != label:
+                    self.edges.setdefault(
+                        (h, label), (self.ctx.path, node.lineno))
+            # push IMMEDIATELY: `with a, b:` acquires a then b at runtime,
+            # so item i must see items < i as held — appending after the
+            # loop would miss every edge inside one multi-item with
+            self.held.append(label)
+            n_added += 1
+        self.generic_visit(node)
+        if n_added:
+            del self.held[-n_added:]
+
+    visit_With = _visit_with
+    visit_AsyncWith = _visit_with
+
+
+@register
+class LockOrderRule(Rule):
+    name = "lock-order"
+    invariant = ("the lexical lock-acquisition graph over `with <lock>` "
+                 "sites is acyclic: a cycle is a deadlock waiting for the "
+                 "right interleaving (the runtime sanitizer extends this "
+                 "through method calls and across modules)")
+    motivated_by = ("an eviction-stamp race and a publish-gate leak were "
+                    "both lock-order bugs that only live kill-storm "
+                    "drills caught; the runtime sanitizer "
+                    "(analysis/lockcheck.py) is this rule's dynamic half")
+    scope = "project"
+
+    def check_project(self, ctxs: list[FileContext]) -> Iterable[Finding]:
+        edges: dict[tuple[str, str], tuple[str, int]] = {}
+        for ctx in ctxs:
+            v = _LockNestingVisitor(ctx)
+            v.visit(ctx.tree)
+            for k, site in v.edges.items():
+                edges.setdefault(k, site)
+        adj: dict[str, set[str]] = {}
+        for (a, b) in edges:
+            adj.setdefault(a, set()).add(b)
+        cycles = self._find_cycles(adj)
+        by_path = {c.path: c for c in ctxs}
+        out: list[Finding] = []
+        for cycle in cycles:
+            pairs = list(zip(cycle, cycle[1:] + cycle[:1]))
+            site_path, site_line = edges[pairs[-1]]
+            ctx = by_path.get(site_path)
+            where = " -> ".join(cycle + [cycle[0]])
+            f = Finding(
+                rule=self.name, path=site_path, line=site_line, col=0,
+                message=(f"lock-order cycle: {where} — some path acquires "
+                         "these in the opposite order; pick one global "
+                         "order or drop to a lock-free handoff (cross-"
+                         "module inversions through method calls are the "
+                         "runtime sanitizer's job: CCFD_LOCKCHECK=1)"),
+                snippet=(ctx.snippet_at(site_line) if ctx else ""))
+            out.append(f)
+        return out
+
+    @staticmethod
+    def _find_cycles(adj: dict[str, set[str]]) -> list[list[str]]:
+        """Elementary cycles via DFS, deduplicated by node set. The graph
+        is tiny (dozens of nodes), so simple beats clever."""
+        cycles: list[list[str]] = []
+        seen_sets: set[frozenset[str]] = set()
+
+        def dfs(start: str, node: str, path: list[str],
+                visiting: set[str]) -> None:
+            for nxt in sorted(adj.get(node, ())):
+                if nxt == start and len(path) >= 2:
+                    key = frozenset(path)
+                    if key not in seen_sets:
+                        seen_sets.add(key)
+                        # canonical rotation: start at the smallest node
+                        i = path.index(min(path))
+                        cycles.append(path[i:] + path[:i])
+                elif nxt not in visiting and nxt > start:
+                    # only explore nodes > start: each cycle found once,
+                    # from its smallest member
+                    visiting.add(nxt)
+                    dfs(start, nxt, path + [nxt], visiting)
+                    visiting.discard(nxt)
+
+        for start in sorted(adj):
+            dfs(start, start, [start], {start})
+        return cycles

@@ -1,6 +1,7 @@
 """Command-line entry points of the port.
 
   python -m ccfd_tpu_torch train [--steps 500] [--checkpoint-dir DIR]
+                                 [--from-store [--store-url URL]]
                                  [--test-frac F] [--device cuda|cpu]
   python -m ccfd_tpu_torch serve [--device cuda|cpu] [--params PATH]
                                  [--checkpoint-dir DIR] [--gbt-dir DIR]
@@ -52,6 +53,15 @@
                                    [--seconds 10] [--path P]
   python -m ccfd_tpu_torch doctor [--probe-s 30] [--device cuda|cpu]
                                   [--checkpoint-dir D] [--quantized-dir D]
+  python -m ccfd_tpu_torch fleet member --spec SPEC.json [--device cuda|cpu]
+  python -m ccfd_tpu_torch fleet up [--members 2] [--bus URL] [--state-dir D]
+                                    [--partitions 4] [--ttl-s 3]
+                                    [--global-max-inflight N] [--device cuda|cpu]
+  python -m ccfd_tpu_torch fleet status --peers URL[,URL...] [--json]
+  python -m ccfd_tpu_torch lint [PATHS...] [--root R] [--json] [--rules R,..]
+                                [--baseline F | --no-baseline]
+                                [--write-baseline]
+  python -m ccfd_tpu_torch bench                  (refused: exit 2)
 
 ``train`` is the reference's ``cmd_train`` for the MLP family: the dataset
 of ``training_dataset`` (the CSV at CCFD_CSV, else the Kaggle-shaped
@@ -63,8 +73,23 @@ default), the held-out ``auc_mlp``, and a ``CheckpointManager`` step at
 scikit-learn (the port does not import it). ``--family hgb`` exits 2 with
 the reference's message for a missing scikit-learn (the port fits no tree
 ensemble: ``checkpoints_gbt/params.npz`` is the reference's ``train
---family hgb`` output), and ``--from-store`` (training on the store, A14b) is
-refused by name.
+--family hgb`` output). ``--from-store`` reads creditcard.csv from the
+object store (``--store-url``, else the s3endpoint env) through
+``store/client.py::S3Client`` and ``data/ccfd.py::load_csv_bytes``, and
+prints ``source`` as ``store:<bucket>/<file>``, as the reference's does.
+
+``fleet member`` brings up one fleet member from a CR-shaped JSON spec
+(``fleet/supervisor.py::build_member_cr``) on ``--device`` (else the spec's
+``fleet.device``; the card by default) and serves until SIGTERM or SIGKILL.
+``fleet up`` starts an N-member fleet over one bus (an embedded ``bus``
+server unless ``--bus`` names one), passing ``--device`` to every member.
+``fleet status`` reads the members' heartbeat endpoints and exits 1 on an
+ownership violation. ``lint`` is the reference's AST invariant checker over
+``ccfd_tpu_torch/`` against the port's own baseline
+(``assets/lint_baseline.json``); its ``hot-path-sync`` rule names torch's
+device-to-host syncs (analysis/rules.py). ``bench`` is refused: the root
+``bench.py`` is the JAX package's benchmark, and the port's benchmark is
+the ``BENCHMARK.json`` a benchmark change writes.
 
 ``serve`` is the Seldon-contract REST scorer of the reference's
 ``python -m ccfd_tpu serve``, on the card unless ``--device cpu`` is given.
@@ -1441,6 +1466,21 @@ def training_dataset():
     return kaggle_surrogate(), f"surrogate:{SURROGATE_VERSION}"
 
 
+def store_dataset(cfg: Config, store_url: str = ""):
+    """(dataset, source) read from the object store, as the reference's
+    ``train --from-store``: creditcard.csv of the configured bucket at
+    ``store_url`` (else the s3endpoint env)."""
+    from ccfd_tpu_torch.data.ccfd import load_csv_bytes
+    from ccfd_tpu_torch.store.client import S3Client
+    from ccfd_tpu_torch.store.objectstore import Credentials
+
+    client = S3Client(store_url or cfg.s3_endpoint or "http://127.0.0.1:9000",
+                      Credentials(cfg.access_key_id or "ccfd-access",
+                                  cfg.secret_access_key or "ccfd-secret"))
+    ds = load_csv_bytes(client.get(cfg.s3_bucket, cfg.filename))
+    return ds, f"store:{cfg.s3_bucket}/{cfg.filename}"
+
+
 def held_out_split(n: int, test_frac: float):
     """(test, train) row indices: the reference's held-out split, a
     ``default_rng(0)`` permutation whose first ``test_frac`` is held out."""
@@ -1465,12 +1505,11 @@ def cmd_train(args: argparse.Namespace) -> int:
         print("[train] --family hgb needs scikit-learn (the port does not import it)",
               file=sys.stderr)
         return 2
-    if args.from_store:
-        raise NotImplementedError(
-            "train --from-store (training on the object store's CSV, ROADMAP A14b) is not "
-            "ported yet; the store itself is (`store`, the producer's s3endpoint)")
     dev = resolve(args.device)
-    ds, source = training_dataset()
+    if args.from_store:
+        ds, source = store_dataset(Config.from_env(), args.store_url)
+    else:
+        ds, source = training_dataset()
     test, train = held_out_split(ds.n, args.test_frac)
     t0 = time.perf_counter()
     params = train_mlp(ds.X[train], ds.y[train], args.steps, dev)
@@ -1563,6 +1602,7 @@ def cmd_score(args: argparse.Namespace) -> int:
     proba = scorer.score_pipelined(ds.X, depth=args.depth)
     elapsed = time.perf_counter() - t0
     if args.output:
+        # ccfd-lint: disable=durability-seam -- user-requested CSV export to the path THEY named; not a platform artifact
         with open(args.output, "w") as f:
             f.write("proba_1\n")
             f.write("\n".join(repr(float(p)) for p in proba) + "\n")
@@ -1731,6 +1771,166 @@ def cmd_doctor(args: argparse.Namespace) -> int:
     return 0 if report["ok"] else 3
 
 
+def cmd_fleet_member(args: argparse.Namespace) -> int:
+    """One fleet member: a full operator Platform from a CR-shaped JSON
+    spec (written by fleet/supervisor.py), sharing the networked bus named
+    in its ``bus.url``. Runs until SIGTERM/SIGINT, or SIGKILL, which is the
+    point: the fleet drill proves the FLEET survives that."""
+    from ccfd_tpu_torch.platform.operator import Platform, PlatformSpec
+
+    with open(args.spec) as f:
+        cr = json.load(f)
+    spec = PlatformSpec.from_cr(cr)
+    device = args.device or spec.component("fleet").opt("device")
+    _sigterm_as_interrupt()
+    platform = Platform(spec, device=device)
+    try:
+        platform.up()
+        fleet = platform.fleet
+        print(json.dumps({
+            "member": fleet.member if fleet is not None else None,
+            "heartbeat": fleet.endpoint if fleet is not None else None,
+            "device": str(platform.scorer.device) if platform.scorer is not None else None,
+            "status": platform.status(),
+        }, indent=2), file=sys.stderr, flush=True)
+        _tune_gc()
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        platform.down()
+    return 0
+
+
+def cmd_fleet_up(args: argparse.Namespace) -> int:
+    """An N-member fleet on this box: one shared bus server (embedded unless
+    --bus names one) and N member processes on ``--device``, babysat until
+    interrupted. tools/torch_fleet_drill.py is the drill form."""
+    from ccfd_tpu_torch.fleet.supervisor import FleetSupervisor, _free_port, build_member_cr
+
+    bus_url = args.bus
+    bus_srv = None
+    if not bus_url:
+        from ccfd_tpu_torch.bus.broker import Broker
+        from ccfd_tpu_torch.bus.server import BrokerServer
+
+        bus_srv = BrokerServer(Broker(default_partitions=args.partitions))
+        bus_url = f"http://127.0.0.1:{bus_srv.start('127.0.0.1', 0)}"
+        print(f"[fleet] embedded bus on {bus_url}", file=sys.stderr)
+    names = [f"m{i:02d}" for i in range(args.members)]
+    ports = {n: _free_port() for n in names}
+    endpoints = {n: f"http://127.0.0.1:{p}" for n, p in ports.items()}
+    device = args.device or "cuda"
+    sup = FleetSupervisor(bus_url, args.state_dir, device=device)
+    _sigterm_as_interrupt()
+    try:
+        for n in names:
+            sup.add_member(n, build_member_cr(
+                n, bus_url, ports[n], [endpoints[o] for o in names if o != n],
+                args.state_dir, ttl_s=args.ttl_s,
+                global_max_inflight=args.global_max_inflight, device=device))
+            sup.spawn(n)
+        sup.wait_ready(timeout_s=120.0)
+        print(json.dumps(sup.status(), indent=2), file=sys.stderr, flush=True)
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        sup.stop_all()
+        if bus_srv is not None:
+            bus_srv.stop()
+    return 0
+
+
+def cmd_fleet_status(args: argparse.Namespace) -> int:
+    """Fleet health by heartbeat endpoint: membership, partition ownership
+    (with the disjointness verdict) and champion parity; exit 1 on an
+    ownership violation."""
+    from urllib.error import URLError
+    from urllib.request import urlopen
+
+    from ccfd_tpu_torch.fleet.member import HEALTH_PATH
+    from ccfd_tpu_torch.fleet.protocol import check_disjoint_ownership, check_fingerprint_parity
+
+    health: dict[str, Any] = {}
+    for peer in [p.strip() for p in args.peers.split(",") if p.strip()]:
+        try:
+            with urlopen(peer.rstrip("/") + HEALTH_PATH, timeout=2.0) as r:
+                health[peer] = json.loads(r.read().decode())
+        except (URLError, OSError, ValueError):
+            health[peer] = None
+    up = {p: h for p, h in health.items() if h is not None}
+    owners = {h["member"]: h.get("partitions", []) for h in up.values()}
+    n_partitions = max((max(ps) for ps in owners.values() if ps), default=-1) + 1
+    doc = {
+        "members": health,
+        "ownership_violations": check_disjoint_ownership(owners, n_partitions),
+        "parity": check_fingerprint_parity(
+            {h["member"]: h.get("fingerprint") for h in up.values()}),
+    }
+    if args.json:
+        print(json.dumps(doc, indent=2))
+    else:
+        for peer, h in health.items():
+            if h is None:
+                print(f"{peer}: DOWN")
+            else:
+                print(f"{peer}: {h['member']} partitions={h.get('partitions')} "
+                      f"epoch={h.get('epoch')} quarantined={h.get('quarantined')}")
+        print(f"ownership: {doc['ownership_violations'] or 'disjoint, all owned'}")
+        print(f"parity: {doc['parity']}")
+    return 0 if not doc["ownership_violations"] else 1
+
+
+def cmd_lint(args: argparse.Namespace) -> int:
+    """The review findings as a machine-checked gate over ``ccfd_tpu_torch``
+    (analysis/: AST rules, suppression pragmas, the port's baseline). Exit 0
+    only when every finding is fixed, suppressed with an inline
+    justification, or grandfathered in the baseline."""
+    from ccfd_tpu_torch.analysis import core as lint_core
+
+    root = args.root or os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    baseline_path = args.baseline
+    if baseline_path is None:
+        baseline_path = lint_core.DEFAULT_BASELINE
+    if args.write_baseline and args.rules:
+        # a subset run sees only that subset's findings: writing them out
+        # would drop every other rule's grandfathered entries
+        print("[lint] --write-baseline regenerates the FULL baseline; combining it "
+              "with --rules would drop the other rules' entries", file=sys.stderr)
+        return 2
+    try:
+        report = lint_core.run_lint(
+            root, paths=args.paths or None,
+            # --write-baseline must see every finding, the grandfathered too
+            baseline_path=(None if (args.no_baseline or args.write_baseline)
+                           else baseline_path),
+            rule_names=args.rules.split(",") if args.rules else None)
+    except ValueError as e:  # unknown rule, bad target, malformed baseline
+        print(f"[lint] {e}", file=sys.stderr)
+        return 2
+    if args.write_baseline:
+        lint_core.write_baseline(baseline_path, report.findings)
+        print(f"[lint] wrote {len(report.findings)} finding(s) to {baseline_path}",
+              file=sys.stderr)
+        return 0
+    if args.json:
+        print(json.dumps(report.to_json(), indent=1, sort_keys=True))
+    else:
+        for line in report.human_lines():
+            print(line)
+    return report.exit_code
+
+
+def cmd_bench(args: argparse.Namespace) -> int:  # noqa: ARG001
+    print("[bench] not in the port: the root bench.py is the JAX package's "
+          "benchmark; the port's benchmark is the BENCHMARK.json that a "
+          "benchmark change writes", file=sys.stderr)
+    return 2
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="ccfd_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -1740,7 +1940,10 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--family", choices=("mlp", "hgb"), default="mlp",
                    help="hgb needs scikit-learn, which the port does not import (exit 2)")
     t.add_argument("--from-store", action="store_true",
-                   help="read the CSV from the object store (not ported)")
+                   help="fetch creditcard.csv from the object store (the reference's "
+                   "S3 data path)")
+    t.add_argument("--store-url", default="",
+                   help="store endpoint (default: the s3endpoint env)")
     t.add_argument("--test-frac", type=float, default=0.2)
     t.add_argument("--device", choices=("cuda", "cpu"), default=None,
                    help="where to train (default: the card)")
@@ -1964,6 +2167,51 @@ def build_parser() -> argparse.ArgumentParser:
     dr.add_argument("--device", choices=("cuda", "cpu"), default=None,
                     help="the device to probe (default: the card)")
     dr.set_defaults(fn=cmd_doctor)
+    fl = sub.add_parser("fleet", help="multi-host fleet: N operator processes over one "
+                        "shared bus (membership, admission shares, champion parity)")
+    flsub = fl.add_subparsers(dest="action", required=True)
+    flm = flsub.add_parser("member", help="run ONE fleet member from a CR-shaped JSON "
+                           "spec (normally started by the fleet supervisor)")
+    flm.add_argument("--spec", required=True,
+                     help="member spec file (fleet/supervisor.py build_member_cr shape)")
+    flm.add_argument("--device", choices=("cuda", "cpu"), default=None,
+                     help="where the member scores (default: the spec's fleet.device, "
+                     "else the card)")
+    flm.set_defaults(fn=cmd_fleet_member)
+    flu = flsub.add_parser("up", help="spawn an N-member fleet (embedded bus unless --bus)")
+    flu.add_argument("--members", type=int, default=2)
+    flu.add_argument("--bus", default="", help="shared bus URL (default: an embedded "
+                     "bus server on a free port)")
+    flu.add_argument("--state-dir", default="./fleet-state")
+    flu.add_argument("--partitions", type=int, default=4,
+                     help="tx-topic partitions for the embedded bus")
+    flu.add_argument("--ttl-s", type=float, default=3.0, help="membership lease")
+    flu.add_argument("--global-max-inflight", type=int, default=0,
+                     help="fleet-wide admission ceiling (0 = per-member budgets alone)")
+    flu.add_argument("--device", choices=("cuda", "cpu"), default=None,
+                     help="where every member scores (default: the card)")
+    flu.set_defaults(fn=cmd_fleet_up)
+    fls = flsub.add_parser("status", help="fleet health by peer heartbeat endpoints")
+    fls.add_argument("--peers", required=True, help="comma-separated heartbeat endpoints")
+    fls.add_argument("--json", action="store_true")
+    fls.set_defaults(fn=cmd_fleet_status)
+    li = sub.add_parser("lint", help="AST invariant checker over ccfd_tpu_torch/ (review "
+                        "findings as machine-checked rules; see analysis/)")
+    li.add_argument("paths", nargs="*", help="files/dirs to lint (default: ccfd_tpu_torch/)")
+    li.add_argument("--root", default="", help="repo root (default: the package's parent)")
+    li.add_argument("--json", action="store_true",
+                    help="strict-JSON report instead of human lines")
+    li.add_argument("--rules", default="", help="comma-separated rule subset (default: all)")
+    li.add_argument("--baseline", default=None,
+                    help="baseline file (default: ccfd_tpu_torch/assets/lint_baseline.json)")
+    li.add_argument("--no-baseline", action="store_true",
+                    help="ignore the baseline (report everything)")
+    li.add_argument("--write-baseline", action="store_true",
+                    help="grandfather the current findings into the baseline file")
+    li.set_defaults(fn=cmd_lint)
+    be = sub.add_parser("bench", help="refused: the root bench.py is the JAX package's")
+    be.add_argument("rest", nargs=argparse.REMAINDER)
+    be.set_defaults(fn=cmd_bench)
     return ap
 
 

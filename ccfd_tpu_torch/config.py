@@ -136,6 +136,12 @@ as ccfd_tpu/config.py, with the same defaults:
     CCFD_CAPACITY_MIN_SAMPLES                           the operator's capacity
                                                         observatory
                                                         (observability/capacity.py)
+    CCFD_FLEET_MEMBER, CCFD_FLEET_HEARTBEAT_PORT,
+    CCFD_FLEET_PEERS, CCFD_FLEET_TTL_S,
+    CCFD_FLEET_GOSSIP_INTERVAL_S,
+    CCFD_FLEET_GLOBAL_MAX_INFLIGHT,
+    CCFD_FLEET_LEDGER_TOPIC                             the operator's fleet
+                                                        member (fleet/)
     CCFD_LIFECYCLE_SHADOW_TOPIC, CCFD_LIFECYCLE_DIR,
     CCFD_LIFECYCLE_MIN_LABELS,
     CCFD_LIFECYCLE_MIN_SHADOW_ROWS,
@@ -342,6 +348,15 @@ class Config:
     # the sentinel's fractional departure from baseline: 1.0 fires past 2x
     capacity_regression_tolerance: float = 1.0
     capacity_min_samples: int = 50         # samples before the baseline
+    # --- the fleet (fleet/; CR block `fleet:`): N operator processes over
+    # one networked bus ---
+    fleet_member: str = ""                 # "" = member-<pid>
+    fleet_heartbeat_port: int = 0          # 0 = ephemeral
+    fleet_peers: str = ""                  # comma-separated heartbeat URLs
+    fleet_ttl_s: float = 3.0               # membership lease
+    fleet_gossip_interval_s: float = 0.5   # peer dial + actuator cadence
+    fleet_global_max_inflight: int = 0     # 0 = no fleet-wide bound
+    fleet_ledger_topic: str = "fleet.ledger"  # per-tx route dispositions
     # --- the model lifecycle (lifecycle/; the governed rollout of retrain
     # candidates: shadow -> canary -> gated promotion with auto-rollback) ---
     shadow_topic: str = "ccd-shadow-scores"  # paired champion/challenger scores
@@ -498,6 +513,15 @@ class Config:
             capacity_regression_tolerance=num("CCFD_CAPACITY_REGRESSION_TOL",
                                               "capacity_regression_tolerance"),
             capacity_min_samples=num("CCFD_CAPACITY_MIN_SAMPLES", "capacity_min_samples", int),
+            fleet_member=e.get("CCFD_FLEET_MEMBER", Config.fleet_member),
+            fleet_heartbeat_port=num("CCFD_FLEET_HEARTBEAT_PORT", "fleet_heartbeat_port", int),
+            fleet_peers=e.get("CCFD_FLEET_PEERS", Config.fleet_peers),
+            fleet_ttl_s=num("CCFD_FLEET_TTL_S", "fleet_ttl_s"),
+            fleet_gossip_interval_s=num("CCFD_FLEET_GOSSIP_INTERVAL_S",
+                                        "fleet_gossip_interval_s"),
+            fleet_global_max_inflight=num("CCFD_FLEET_GLOBAL_MAX_INFLIGHT",
+                                          "fleet_global_max_inflight", int),
+            fleet_ledger_topic=e.get("CCFD_FLEET_LEDGER_TOPIC", Config.fleet_ledger_topic),
             faults_spec=e.get("CCFD_FAULTS", Config.faults_spec),
             seq_stripes=num("CCFD_SEQ_STRIPES", "seq_stripes", int),
             seq_inflight=num("CCFD_SEQ_INFLIGHT", "seq_inflight", int),

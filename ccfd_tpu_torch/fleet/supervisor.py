@@ -1,0 +1,337 @@
+"""FleetSupervisor: spawn / kill / fence / respawn operator member processes.
+
+The port's copy of ccfd_tpu/fleet/supervisor.py. The fleet's failure model
+is a HARD host kill (SIGKILL: no atexit, no socket close, no offset
+commit), so members must be real OS processes:
+``python -m ccfd_tpu_torch fleet member --spec <json> --device <d>`` each
+brings up a full ``platform.operator`` Platform from a CR-shaped spec file
+written here, started by ``subprocess`` (a fresh interpreter: nothing of a
+CUDA context crosses into a member). The supervisor is the drill/ops actor
+around them:
+
+* **spawn**: write the member's CR spec under ``state_dir`` and exec the
+  member entrypoint (stdout/stderr captured to per-member log files);
+* **kill**: SIGKILL the process, then **fence** the dead member's bus
+  consumers (``POST /groups/<g>/fence`` with an idle threshold so the
+  SURVIVORS' actively-polling consumers are spared): the group rebalance
+  bumps the epoch, survivors re-adopt the dead member's partitions, and
+  any in-flight commit from the corpse is refused by the epoch fence;
+* **respawn**: start a fresh incarnation under jittered backoff
+  (runtime/breaker.backoff_s) and wait for its heartbeat endpoint.
+
+Nothing here runs inside a member: the supervisor is bus client and
+process babysitter only, so killing IT loses no fleet state (membership is
+gossip, ownership is the bus's consumer group).
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import signal
+import socket
+import subprocess
+import sys
+import time
+from typing import Any, Mapping
+
+from ccfd_tpu_torch.fleet.ledger import LEDGER_TOPIC
+from ccfd_tpu_torch.fleet.member import HEALTH_PATH
+from ccfd_tpu_torch.runtime.breaker import backoff_s
+from ccfd_tpu_torch.runtime.durability import write_json_interchange
+
+log = logging.getLogger(__name__)
+
+ROUTER_GROUP = "router"
+
+
+def _free_port(host: str = "127.0.0.1") -> int:
+    """Bind-probe a free TCP port. Racy by nature (the port is free only
+    until someone binds it) — good enough for drills on a quiet loopback;
+    production CRs pin real ports."""
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        s.bind((host, 0))
+        return s.getsockname()[1]
+
+
+def build_member_cr(
+    member: str,
+    bus_url: str,
+    heartbeat_port: int,
+    peers: list[str],
+    state_dir: str,
+    *,
+    ttl_s: float = 3.0,
+    gossip_interval_s: float = 0.25,
+    global_max_inflight: int = 0,
+    ledger_topic: str = LEDGER_TOPIC,
+    monitoring_port: int = 0,
+    overrides: Mapping[str, Any] | None = None,
+    device: str = "cuda",
+) -> dict[str, Any]:
+    """CR-shaped spec for one fleet member: a routing-only operator slice
+    (scorer + engine + router + overload + incident + fleet) over the
+    SHARED networked bus. Heavy/irrelevant planes are off: members must
+    come up in seconds, and planes that write shared files (audit dir,
+    lifecycle state) would collide across processes. ``fleet.device`` is
+    where the member's scorer runs (the card unless ``cpu``; the supervisor
+    also passes it as ``--device``). ``overrides`` deep-merges
+    per-component blocks on top (drills tighten knobs with it)."""
+    spec: dict[str, Any] = {
+        "bus": {"url": bus_url},
+        "fleet": {
+            "enabled": True,
+            "member": member,
+            "heartbeat_port": int(heartbeat_port),
+            "peers": list(peers),
+            "ttl_s": float(ttl_s),
+            "gossip_interval_s": float(gossip_interval_s),
+            "global_max_inflight": int(global_max_inflight),
+            "ledger_topic": ledger_topic,
+            "device": str(device),
+        },
+        # commit-after-route + the ledger tap need the single-Router shape
+        # (one tx consumer whose poll epoch stamps the batch)
+        "router": {"workers": 1},
+        "monitoring": {"port": int(monitoring_port)},
+        "incident": {"dir": os.path.join(state_dir, f"incidents-{member}")},
+        # identical fingerprints across members come from the scorer's
+        # deterministic seed-0 init (drawn from a CPU generator, so equal on
+        # every process); anything that retrains or restores per-member
+        # state would fork the champion, so it stays off
+        "retrain": False,
+        "lifecycle": False,
+        "analytics": False,
+        "notify": False,
+        "engine": {"enabled": True},
+        "health": False,
+        "audit": False,
+        "heal": False,
+        "slo": False,
+        "device": False,
+        "tracing": False,
+        "mesh": False,
+        "durability": False,
+    }
+    for name, block in (overrides or {}).items():
+        if isinstance(block, Mapping) and isinstance(spec.get(name), dict):
+            spec[name].update(block)
+        else:
+            spec[name] = block
+    return {"spec": spec}
+
+
+class FleetSupervisor:
+    """Babysits N member processes over one shared bus (module docstring).
+
+    ``registry`` (optional metrics.prom.Registry) lands the supervisor's
+    own counters: ``fleet_spawns_total{member}``,
+    ``fleet_kills_total{member}``, ``fleet_fences_total``.
+    """
+
+    def __init__(
+        self,
+        bus_url: str,
+        state_dir: str,
+        group: str = ROUTER_GROUP,
+        registry: Any = None,
+        python: str | None = None,
+        env: Mapping[str, str] | None = None,
+        device: str | None = None,
+    ):
+        self.bus_url = bus_url.rstrip("/")
+        # passed to every member as --device; None leaves each member to
+        # its CR's fleet.device
+        self.device = device
+        self.state_dir = state_dir
+        self.group = group
+        self.python = python or sys.executable
+        self.env = dict(env) if env is not None else None
+        os.makedirs(state_dir, exist_ok=True)
+        self.members: dict[str, dict[str, Any]] = {}
+        self._clients: dict[str, Any] = {}
+        self._c_spawns = self._c_kills = self._c_fences = None
+        if registry is not None:
+            self._c_spawns = registry.counter(
+                "fleet_spawns_total", "member processes started")
+            self._c_kills = registry.counter(
+                "fleet_kills_total", "member processes hard-killed")
+            self._c_fences = registry.counter(
+                "fleet_fences_total",
+                "bus consumer-group fences issued after a kill")
+
+    # -- membership --------------------------------------------------------
+    def add_member(self, name: str, cr: Mapping[str, Any]) -> str:
+        """Register a member and persist its CR spec file; returns the
+        spec path. The heartbeat endpoint is read back out of the CR so
+        callers build it once (build_member_cr)."""
+        spec = cr.get("spec", cr)
+        port = int(spec.get("fleet", {}).get("heartbeat_port", 0))
+        if port <= 0:
+            raise ValueError(f"member {name}: CR must pin a heartbeat_port")
+        path = os.path.join(self.state_dir, f"member-{name}.json")
+        write_json_interchange(path, cr, artifact="fleet_member_cr",
+                               indent=2)
+        self.members[name] = {
+            "spec_path": path,
+            "endpoint": f"http://127.0.0.1:{port}",
+            "proc": None,
+            "spawns": 0,
+        }
+        return path
+
+    def spawn(self, name: str) -> int:
+        """Start (or restart) the member process; returns its pid."""
+        m = self.members[name]
+        if m["proc"] is not None and m["proc"].poll() is None:
+            return m["proc"].pid
+        logf = open(  # noqa: SIM115 - handed to the child, closed on kill
+            os.path.join(self.state_dir, f"member-{name}.log"), "ab")
+        m["log"] = logf
+        argv = [self.python, "-m", "ccfd_tpu_torch", "fleet", "member",
+                "--spec", m["spec_path"]]
+        if self.device is not None:
+            argv += ["--device", self.device]
+        m["proc"] = subprocess.Popen(
+            argv,
+            stdout=logf, stderr=subprocess.STDOUT,
+            env=self.env,
+        )
+        m["spawns"] += 1
+        if self._c_spawns is not None:
+            self._c_spawns.inc(labels={"member": name})
+        log.info("fleet member %s spawned pid=%d", name, m["proc"].pid)
+        return m["proc"].pid
+
+    def kill(self, name: str, fence_idle_s: float = 0.5,
+             settle_s: float = 1.0) -> None:
+        """HARD kill: SIGKILL the member, give the survivors ``settle_s``
+        of active polling, then fence the group — the bus closes consumers
+        idle longer than ``fence_idle_s`` (the corpse's), rebalances, and
+        bumps the epoch so the dead member's partitions re-home with its
+        in-flight commits refused."""
+        m = self.members[name]
+        proc = m["proc"]
+        if proc is not None and proc.poll() is None:
+            proc.send_signal(signal.SIGKILL)
+            proc.wait(timeout=10)
+        if m.get("log") is not None:
+            m["log"].close()
+            m["log"] = None
+        if self._c_kills is not None:
+            self._c_kills.inc(labels={"member": name})
+        time.sleep(settle_s)
+        self.fence(idle_s=fence_idle_s)
+
+    def fence(self, idle_s: float = 0.5) -> dict[str, Any]:
+        from ccfd_tpu_torch.bus.client import RemoteBroker
+
+        broker = RemoteBroker(self.bus_url)
+        try:
+            out = broker.fence_group(self.group, idle_s=idle_s)
+        finally:
+            broker.close()
+        if self._c_fences is not None:
+            self._c_fences.inc()
+        log.info("fenced group %s: %s", self.group, out)
+        return out
+
+    def respawn(self, name: str, timeout_s: float = 30.0) -> int:
+        """Fresh incarnation under jittered backoff until its heartbeat
+        answers; raises TimeoutError if it never does."""
+        deadline = time.monotonic() + timeout_s
+        attempt = 0
+        pid = self.spawn(name)
+        while time.monotonic() < deadline:
+            if self.health(name) is not None:
+                return pid
+            if self.members[name]["proc"].poll() is not None:
+                # the incarnation died during bring-up: try another
+                pid = self.spawn(name)
+            time.sleep(backoff_s(attempt, base_s=0.2, cap_s=2.0))
+            attempt += 1
+        raise TimeoutError(f"member {name} did not become ready "
+                           f"in {timeout_s}s")
+
+    # -- health ------------------------------------------------------------
+    def _client(self, name: str):
+        cl = self._clients.get(name)
+        if cl is None:
+            from ccfd_tpu_torch.utils.httpclient import PooledHTTPClient
+
+            cl = PooledHTTPClient(self.members[name]["endpoint"],
+                                  default_port=80, pool_size=1,
+                                  timeout_s=2.0, retries=0)
+            self._clients[name] = cl
+        return cl
+
+    def health(self, name: str) -> dict[str, Any] | None:
+        try:
+            status, body = self._client(name).request("GET", HEALTH_PATH)
+        except (ConnectionError, OSError):
+            return None
+        return body if status == 200 and isinstance(body, dict) else None
+
+    def wait_ready(self, names: list[str] | None = None,
+                   timeout_s: float = 60.0) -> None:
+        deadline = time.monotonic() + timeout_s
+        pending = list(names if names is not None else self.members)
+        while pending and time.monotonic() < deadline:
+            pending = [n for n in pending if self.health(n) is None]
+            if pending:
+                time.sleep(0.2)
+        if pending:
+            raise TimeoutError(f"members not ready in {timeout_s}s: "
+                               f"{pending}")
+
+    def ownership(self) -> dict[str, list[int]]:
+        """{member: owned partitions} over members that answer health —
+        check with protocol.check_disjoint_ownership."""
+        out: dict[str, list[int]] = {}
+        for name in self.members:
+            h = self.health(name)
+            if h is not None:
+                out[name] = [int(p) for p in h.get("partitions", [])]
+        return out
+
+    def status(self) -> dict[str, Any]:
+        return {
+            name: {
+                "pid": (m["proc"].pid if m["proc"] is not None else None),
+                "alive": (m["proc"] is not None
+                          and m["proc"].poll() is None),
+                "spawns": m["spawns"],
+                "endpoint": m["endpoint"],
+                "health": self.health(name),
+            }
+            for name, m in self.members.items()
+        }
+
+    # -- teardown ----------------------------------------------------------
+    def stop_all(self, grace_s: float = 10.0) -> None:
+        for name, m in self.members.items():
+            proc = m["proc"]
+            if proc is not None and proc.poll() is None:
+                proc.terminate()  # SIGTERM -> the member's graceful path
+        deadline = time.monotonic() + grace_s
+        for name, m in self.members.items():
+            proc = m["proc"]
+            if proc is None:
+                continue
+            try:
+                proc.wait(timeout=max(0.1, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                log.warning("member %s ignored SIGTERM; killing", name)
+                proc.kill()
+                proc.wait(timeout=10)
+            if m.get("log") is not None:
+                m["log"].close()
+                m["log"] = None
+        for cl in self._clients.values():
+            try:
+                cl.close()
+            except Exception:  # noqa: BLE001 - teardown must not raise;
+                # nothing to account, the supervisor is exiting
+                log.debug("health client close failed", exc_info=True)
+        self._clients.clear()

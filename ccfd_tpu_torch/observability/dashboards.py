@@ -1,14 +1,13 @@
 """Grafana dashboard generation: the reference's metrics contract, regenerated.
 
 The port's copy of ccfd_tpu/observability/dashboards.py, over the metric
-families the port exports. Two differences from the reference's boards:
+families the port exports. One difference from the reference's boards:
 the build panels read ``ccfd_build_events_total`` and
 ``ccfd_build_seconds_total`` (kernel and native-library builds,
 ``observability/profile.py``) where the reference's read
-``ccfd_xla_compile_*`` (:data:`NAME_MAP`); and there is no Fleet board,
-since the fleet (ROADMAP A10) is not ported and its families do not exist.
-The Device board's mesh row reads families only the sharded path (ROADMAP
-A15b) would export, as the reference's does on a single device.
+``ccfd_xla_compile_*`` (:data:`NAME_MAP`). The Device board's mesh row
+reads families only the sharded path (ROADMAP A15b) would export, as the
+reference's does on a single device.
 
 The reference ships six hand-exported Grafana dashboards
 (reference deploy/grafana/{KIE,Kafka,ModelPrediction,Router,SeldonCore,
@@ -758,6 +757,47 @@ def audit_dashboard() -> dict:
     return _dashboard("CCFD Audit", "ccfd-audit", p)
 
 
+def fleet_dashboard() -> dict:
+    """Multi-host fleet board (fleet/).
+
+    The host-as-fallible-component surface: live membership vs the lease
+    TTL (a dip is a dead or partitioned member), the bus group epoch each
+    member sees (divergence = a member serving a stale assignment),
+    per-partition ownership (the fleet-wide sum per partition must be
+    EXACTLY 1 — >1 is a double-route, 0 is an orphan), champion
+    fingerprint parity with the self-quarantine alert, the per-member
+    share of the fleet admission ceiling, fenced commits refused by the
+    bus epoch fence (each one is an at-least-once redelivery that would
+    otherwise have been a silent double-apply), fleet-ledger publish
+    health, and the aggregator's member-kill incident bundles."""
+    p = [
+        _alert_stat(0, "Live members (lease not expired)",
+                    ["min(ccfd_fleet_members)"], red_below=2),
+        _alert_stat(1, "Members self-quarantined (stale champion)",
+                    ["sum(ccfd_fleet_quarantined)"], red_above=1),
+        _alert_stat(2, "Champion fingerprint parity (fleet-wide)",
+                    ["min(ccfd_fleet_parity)"], red_below=1),
+        _panel(3, "Partition ownership (sum per partition must be 1)",
+               ["sum by (partition) (ccfd_fleet_partition_owner)"]),
+        _panel(4, "Bus group epoch by member (divergence = stale view)",
+               ["ccfd_fleet_epoch"]),
+        _panel(5, "Per-member admission ceiling (AIMD share of global)",
+               ["ccfd_fleet_admission_ceiling"]),
+        _alert_stat(6, "Fenced commits refused (stale-epoch evidence)",
+                    ["sum(router_fenced_commits_total)"], red_above=10),
+        _panel(7, "Fleet-ledger entries vs publish errors / s",
+               ["sum(rate(fleet_ledger_entries_total[5m]))",
+                "sum(rate(fleet_ledger_publish_errors_total[5m]))"]),
+        _panel(8, "Gossip dial failures / s (by peer)",
+               ["rate(fleet_gossip_errors_total[5m])"]),
+        _panel(9, "Member-kill incident bundles (aggregator)",
+               ["sum(fleet_member_kill_bundles_total)"], "stat"),
+        _panel(10, "Elected aggregator (1 on exactly one member)",
+               ["ccfd_fleet_aggregator"]),
+    ]
+    return _dashboard("CCFD Fleet", "ccfd-fleet", p)
+
+
 def replay_dashboard() -> dict:
     """Bulk replay & backtest board (replay/).
 
@@ -866,6 +906,7 @@ def build_all_dashboards() -> dict[str, dict]:
         "Heal": heal_dashboard(),
         "Storage": storage_dashboard(),
         "Audit": audit_dashboard(),
+        "Fleet": fleet_dashboard(),
         "Replay": replay_dashboard(),
         "Capacity": capacity_dashboard(),
     }

@@ -60,6 +60,7 @@ def memory_report(probes: Mapping[str, Callable[[], float]] | None = None,
     for name, fn in (probes or {}).items():
         try:
             components[name] = float(fn())
+        # ccfd-lint: disable=counted-drops -- the -1 sentinel lands in the scraped gauge: a dead component is visible evidence, not a swallow
         except Exception:  # noqa: BLE001 - a broken probe reads -1, visibly
             components[name] = -1.0
     report: dict[str, Any] = {

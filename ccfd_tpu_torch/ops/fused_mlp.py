@@ -275,6 +275,7 @@ def _check_cuda_args(kp: Mapping[str, torch.Tensor], x: torch.Tensor) -> int:
     return hidden
 
 
+# ccfd-lint: hot-path
 def fused_mlp_score(kp: Mapping[str, torch.Tensor], x: torch.Tensor,
                     with_logits: bool = False):
     """(B, F<=128) bf16 rows -> (B,) float32 proba (and logits when

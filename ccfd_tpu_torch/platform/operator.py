@@ -41,7 +41,8 @@ crash), with health probes and one Prometheus exporter:
       to ``usertask_state_file``), 5 notify, 6 router (the decision
       plane with ``scorer.fused_decision``; the replay plane's verdict tap
       on the audit seam and the supervised ``ReplayService`` with
-      ``replay`` or CCFD_REPLAY), 6b crash recovery
+      ``replay`` or CCFD_REPLAY; with ``fleet`` the ledger tap inside it
+      and commit-after-route on the tx consumer), 6b crash recovery
       (``engine.crash_recovery``: the ``CheckpointCoordinator``; a seq
       scorer's histories join the cut as ``history``), 6c the
       investigator (re-pointed at a restored engine)
@@ -59,7 +60,10 @@ crash), with health probes and one Prometheus exporter:
       kills it; the router's gate is the storage pin composed with it)
    8  monitoring (the exporter: /prometheus, /profile, /healthz,
       /debug/device, /debug/profile, /decisions, /incidents, /capacity)
-      and health (/healthz, /readyz)
+      and health (/healthz, /readyz); 8b the fleet member (``fleet``, off
+      by default, over a networked ``bus.url``: heartbeat endpoint, gossip
+      loop, admission share, parity gate composed into the router's gate,
+      the aggregator's member-kill bundles)
    9  the supervisor starts, readiness is awaited, then the producer;
   10  chaos (opt-in): the monkey's seeded kills of supervised services and
       its fault storms.
@@ -108,10 +112,9 @@ _COMPONENTS = (
 _OFF_BY_DEFAULT = ("producer", "store", "chaos", "investigator", "fleet", "replay")
 
 # components the reference's operator builds that the port does not have,
-# with the ROADMAP item that ports each
-REFUSED_COMPONENTS: Mapping[str, str] = {
-    "fleet": "A10 (the multi-host fleet)",
-}
+# with the ROADMAP item that ports each (none: `mesh.devices` other than 1
+# is refused by name in PlatformSpec.refused)
+REFUSED_COMPONENTS: Mapping[str, str] = {}
 # scorer models the operator serves (every other is refused or unknown)
 SCORER_MODELS = ("mlp", "mlp_q8", "logreg", "modelfull", "gbt", "gbt_mxu", "seq", "seq_q8")
 SEQ_MODELS = ("seq", "seq_q8")
@@ -242,6 +245,8 @@ class Platform:
         self.analytics = None   # analytics/engine.DriftMonitor when enabled
         self.replay = None      # replay/service.ReplayService when enabled
         self.replay_tap = None  # replay/service.ReplayVerdictTap (replay on)
+        self.fleet = None       # fleet/member.FleetMember when fleet is on
+        self.fleet_ledger = None  # fleet/ledger.FleetLedgerTap (fleet on)
         self._usertask_state_file = None
         self._engine_factory = None
         self._engine_state_file = None
@@ -463,6 +468,15 @@ class Platform:
                 self.supervisor, host=h.opt("host", "127.0.0.1"),
                 port=int(h.opt("port", 0))).start()
 
+        # 8b. the fleet member (fleet/member.py): heartbeat endpoint, gossip
+        # loop and the fleet actuators (admission rescale, parity
+        # quarantine, aggregator duty). Built after everything it observes
+        # (router, overload, scorer, recorder) and before the supervisor
+        # starts, so the gossip loop runs supervised
+        fl_spec = spec.component("fleet")
+        if fl_spec.enabled and self.broker is not None:
+            self._up_fleet(fl_spec)
+
         self.supervisor.start()
         if not self.supervisor.wait_ready(timeout_s=wait_ready_s):
             raise TimeoutError(f"platform not ready after {wait_ready_s}s: "
@@ -597,6 +611,81 @@ class Platform:
         self.supervisor.add_thread_service(
             "heal", lambda: heal.run(interval_s=interval), heal.stop,
             policy=RestartPolicy.ALWAYS, reset=heal.reset)
+
+    def _up_fleet(self, c: ComponentSpec) -> None:
+        """The FleetMember over this platform: the router's tx consumers
+        (ownership and epoch), the router registry's accounting counters,
+        the served params' fingerprint, the flight recorder (the
+        aggregator's kill bundles) and, with a fleet-wide bound, the
+        overload plane's budget. Its parity gate composes with the storage
+        pin and the heal supervisor on the router's gate: any quarantine
+        pins down, and a stale champion blocks the host tier too."""
+        from ccfd_tpu_torch.fleet.member import FleetMember
+        from ccfd_tpu_torch.runtime.supervisor import RestartPolicy
+
+        cfg = self.cfg
+        member = str(c.opt("member", cfg.fleet_member) or f"member-{os.getpid()}")
+        peers = c.opt("peers", None)
+        if peers is None:
+            peers = [p.strip() for p in cfg.fleet_peers.split(",") if p.strip()]
+        fingerprint_fn = None
+        if self.scorer is not None and hasattr(self.scorer, "params"):
+            from ccfd_tpu_torch.params import params_fingerprint
+
+            scorer = self.scorer
+            fingerprint_fn = lambda: params_fingerprint(scorer.params)  # noqa: E731
+        router = self.router
+
+        def consumers_fn():
+            if router is None:
+                return []
+            if hasattr(router, "workers"):  # ParallelRouter pool
+                return [w._tx_consumer for w in router.workers
+                        if getattr(w, "_tx_consumer", None) is not None]
+            tx = getattr(router, "_tx_consumer", None)
+            return [tx] if tx is not None else []
+
+        router_reg = self.registries.get("router")
+
+        def counters_fn():
+            def tot(name):
+                m = router_reg.get(name) if router_reg is not None else None
+                return int(m.total()) if m is not None else 0
+
+            return {
+                "incoming": tot("transaction_incoming_total"),
+                "routed": tot("transaction_outgoing_total"),
+                "shed": tot("router_shed_total"),
+                "errors": (tot("router_score_errors_total")
+                           + tot("router_process_start_errors_total")
+                           + tot("transaction_decode_errors_total")),
+            }
+
+        gmi = int(c.opt("global_max_inflight", cfg.fleet_global_max_inflight))
+        self.fleet = FleetMember(
+            member, self._registry("fleet"), peers=peers,
+            heartbeat_host=c.opt("heartbeat_host", "127.0.0.1"),
+            heartbeat_port=int(c.opt("heartbeat_port", cfg.fleet_heartbeat_port)),
+            ttl_s=float(c.opt("ttl_s", cfg.fleet_ttl_s)),
+            overload=self._overload if gmi > 0 else None,
+            recorder=self.recorder, fingerprint_fn=fingerprint_fn,
+            consumers_fn=consumers_fn, counters_fn=counters_fn,
+            global_max_inflight=gmi or None)
+        self.fleet.start_server()
+        if router is not None:
+            gates = [g for g in (self.storage_gate, self.heal, self.fleet.parity_gate)
+                     if g is not None]
+            if len(gates) > 1:
+                from ccfd_tpu_torch.runtime.durability import ComposedHealGate
+
+                router.set_heal_gate(ComposedHealGate(*gates))
+            else:
+                router.set_heal_gate(gates[0])
+        interval = float(c.opt("gossip_interval_s", cfg.fleet_gossip_interval_s))
+        fleet = self.fleet
+        self.supervisor.add_thread_service(
+            "fleet", lambda: fleet.run(interval_s=interval), fleet.stop,
+            policy=RestartPolicy.ALWAYS, reset=fleet.reset)
 
     def _up_capacity(self, c: ComponentSpec) -> None:
         """The CapacityModel over the stage profiler, seeded with the live
@@ -983,16 +1072,35 @@ class Platform:
                 b.min_limit = min(b.min_limit, int(mi))
                 b.limit = min(b.limit, int(mi))
         self._overload = overload
-        # the replay plane: its verdict tap wraps the audit seam (live
-        # decisions pass through to the provenance log, replay-marked ones
-        # divert to the parity join) and answers capture_rows for it
+        # fleet mode: the audit seam is wrapped with the ledger tap (per-tx
+        # dispositions onto the shared bus, stamped with the poll epoch) and
+        # offsets move to commit-after-route: a member SIGKILLed mid-batch
+        # leaves the batch uncommitted for a survivor to redeliver, and its
+        # own late commit is fenced by the bus
         audit_sink = self.audit
+        commit_after_route = False
+        fleet_spec = self.spec.component("fleet")
+        if fleet_spec.enabled and self.broker is not None:
+            from ccfd_tpu_torch.fleet.ledger import FleetLedgerTap
+
+            member_name = str(fleet_spec.opt("member", cfg.fleet_member)
+                              or f"member-{os.getpid()}")
+            self.fleet_ledger = FleetLedgerTap(
+                self.broker, member_name,
+                topic=str(fleet_spec.opt("ledger_topic", cfg.fleet_ledger_topic)),
+                inner=self.audit, registry=self._registry("fleet"))
+            audit_sink = self.fleet_ledger
+            commit_after_route = True
+        # the replay plane: its verdict tap wraps the (possibly fleet-wrapped)
+        # audit seam (live decisions pass through to the provenance log,
+        # replay-marked ones divert to the parity join) and answers
+        # capture_rows for it
         replay_spec = self.spec.component("replay")
         if ((replay_spec.enabled or cfg.replay_enabled)
                 and self.audit is not None and self.broker is not None):
             from ccfd_tpu_torch.replay.service import ReplayVerdictTap
 
-            self.replay_tap = ReplayVerdictTap(inner=self.audit,
+            self.replay_tap = ReplayVerdictTap(inner=audit_sink,
                                                registry=self._registry("replay"))
             audit_sink = self.replay_tap
         decision_fn = None
@@ -1029,7 +1137,7 @@ class Platform:
             max_inflight=(int(c.opt("max_inflight"))
                           if c.opt("max_inflight") is not None else None),
             tracer=router_tracer, overload=overload, profiler=self.profiler,
-            audit=audit_sink)
+            audit=audit_sink, commit_after_route=commit_after_route)
         if workers == 1:
             router = Router(cfg, self.broker, score_fn, engine, reg, **common)
         else:
@@ -1039,6 +1147,12 @@ class Platform:
                                     coalesce=bool(c.opt("coalesce", cfg.router_coalesce)),
                                     **common)
         self.router = router
+        if self.fleet_ledger is not None:
+            # entries stamp the epoch their batch was polled under, which
+            # the router hands the audit seam with the batch; a
+            # ParallelRouter has no single batch stream, so its entries stay
+            # epoch=None, which the conservation check treats conservatively
+            self.fleet_ledger.epoch_fn = lambda: getattr(router, "batch_epoch", None)
         if self.replay_tap is not None:
             self._up_replay(replay_spec, overload)
         if self.storage_gate is not None:
@@ -1341,6 +1455,10 @@ class Platform:
             out["endpoints"]["health"] = self.health_server.endpoint
         if self.heal is not None:
             out["heal"] = self.heal.status()
+        if self.fleet is not None:
+            gate = self.fleet.parity_gate
+            out["fleet"] = {"member": self.fleet.member, "heartbeat": self.fleet.endpoint,
+                            "quarantined": gate.quarantined, "reason": gate.reason}
         if self.replay is not None:
             out["replay"] = {
                 "bulk_ceiling": self.replay.bulk_ceiling,
@@ -1353,8 +1471,8 @@ class Platform:
     def _health_verdict(self) -> dict[str, Any]:
         """The exporter's /healthz verdict: every health-bearing plane that
         is up contributes a source with a cause string (the supervisor, the
-        storage pin, the device heal supervisor, the scorer edge's
-        breaker)."""
+        storage pin, the device heal supervisor, the fleet's parity gate,
+        the scorer edge's breaker)."""
         sources: dict[str, dict[str, Any]] = {}
 
         def add(name: str, healthy: bool, cause: str) -> None:
@@ -1379,6 +1497,10 @@ class Platform:
             add("storage", not self.storage_gate.pinned,
                 (f"pinned to rules tier: {self.storage_gate.reason}"
                  if self.storage_gate.pinned else "verified"))
+        if self.fleet is not None:
+            gate = self.fleet.parity_gate
+            add("fleet", not gate.quarantined,
+                "parity quarantined" if gate.quarantined else "parity clean")
         breaker = getattr(self.router, "_breaker", None)
         if breaker is not None:
             add("scorer_edge", breaker.state != "open", f"breaker={breaker.state}")
@@ -1433,6 +1555,11 @@ class Platform:
         if self.lifecycle is not None:
             try:
                 self.lifecycle.close()  # releases the evaluator's consumers
+            except Exception:  # noqa: BLE001 - teardown must not raise
+                pass
+        if self.fleet is not None:
+            try:
+                self.fleet.close()  # the heartbeat server and peer clients
             except Exception:  # noqa: BLE001 - teardown must not raise
                 pass
         if self._broker_is_client and self.broker is not None:

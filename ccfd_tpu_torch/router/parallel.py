@@ -27,7 +27,9 @@ The workers share the control plane:
   ``heal_gate`` / ``set_heal_gate``, ``audit``), handed to every worker;
   the coalescing batcher also feeds the profiler's
   ``router.coalesce.batcher`` (queue) and ``router.coalesce.dispatch``
-  stages, which the reference's leaves unprofiled.
+  stages, which the reference's leaves unprofiled;
+- **commit-after-route** (``commit_after_route``): each worker's tx consumer
+  commits its own batches after they are routed.
 """
 
 from __future__ import annotations
@@ -67,6 +69,7 @@ class ParallelRouter:
         profiler: Any = None,
         heal_gate: Any = None,
         audit: Any = None,
+        commit_after_route: bool = False,
     ):
         self.cfg = cfg
         self.broker = broker
@@ -126,7 +129,7 @@ class ParallelRouter:
                    degrade=degrade, max_inflight=self.max_inflight, tracer=tracer,
                    inflight_budget=self._budget, worker_id=i, overload=overload,
                    decision_fn=decision_fn, profiler=profiler, heal_gate=heal_gate,
-                   audit=audit)
+                   audit=audit, commit_after_route=commit_after_route)
             for i in range(workers)
         ]
         self._stop = threading.Event()
@@ -186,6 +189,7 @@ class ParallelRouter:
                 while not self._stop.is_set():
                     w.reset()
                     w.run(poll_timeout_s)
+            # ccfd-lint: disable=counted-drops -- not a drop: the crash is collected and re-raised out of run() for the supervisor
             except BaseException as e:  # noqa: BLE001 - re-raised from run()
                 crashes.append(e)
                 self.stop()

@@ -74,7 +74,15 @@ carries a replayed transaction's ``_replay`` marker onto its record as
 the replayed rows' ``bulk`` priority header rides into the record's
 ``priority`` as any other row's.
 
-Not ported: commit-after-route (ROADMAP A10).
+**Commit-after-route** (``commit_after_route``, the fleet's discipline):
+the tx consumer runs manual-commit, and a batch's offsets commit only once
+every record has a terminal disposition (routed, shed or counted error).
+The positions are taken BEFORE admission, so shed rows commit with their
+batch. A member killed mid-batch leaves the batch uncommitted, and it
+redelivers to the partitions' next owner; the bus's epoch fence refuses a
+deposed member's commit (``router_fenced_commits_total``), and a transport
+error leaves the batch to redeliver (``router_commit_errors_total``). Off by
+default: the single-process platform keeps the commit-on-poll hand-off.
 """
 
 from __future__ import annotations
@@ -89,7 +97,7 @@ from typing import Any, Callable, Mapping
 import numpy as np
 
 from ccfd_tpu_torch import native
-from ccfd_tpu_torch.bus.broker import Broker
+from ccfd_tpu_torch.bus.broker import Broker, StaleEpochError
 from ccfd_tpu_torch.config import Config
 from ccfd_tpu_torch.data.ccfd import FEATURE_NAMES
 from ccfd_tpu_torch.metrics.prom import Registry
@@ -320,6 +328,7 @@ class Router:
         profiler: Any = None,
         heal_gate: Any = None,
         audit: Any = None,
+        commit_after_route: bool = False,
     ):
         self.cfg = cfg
         self._profiler = profiler
@@ -372,13 +381,20 @@ class Router:
                 self._score2 = lambda x, txs: dec(x)
         self._decision_fn = decision_fn
         self._check_rule_targets(engine)
+        self._commit_after_route = bool(commit_after_route)
+        # the poll epoch of the batch whose rows the audit seam is recording
+        # (read by the fleet ledger tap during record_batch)
+        self.batch_epoch: int | None = None
+        # manual=True marks the consumer built auto_commit=False when
+        # commit-after-route is armed (here and in recycle_consumers)
         self._consumer_specs = (
-            ("_tx_consumer", "router", (cfg.kafka_topic,)),
-            ("_resp_consumer", "router-responses", (cfg.customer_response_topic,)),
-            ("_notif_watcher", "router-notifications", (cfg.customer_notification_topic,)),
+            ("_tx_consumer", "router", (cfg.kafka_topic,), True),
+            ("_resp_consumer", "router-responses", (cfg.customer_response_topic,), False),
+            ("_notif_watcher", "router-notifications",
+             (cfg.customer_notification_topic,), False),
         )
-        for attr, group, topics in self._consumer_specs:
-            setattr(self, attr, broker.consumer(group, topics))
+        for attr, group, topics, manual in self._consumer_specs:
+            setattr(self, attr, self._build_consumer(group, topics, manual))
 
         r = self.registry
         self._c_in = r.counter("transaction_incoming_total", "transactions consumed")
@@ -418,6 +434,15 @@ class Router:
         self._c_worker_batch = r.counter(
             "router_worker_batches_total",
             "scoring batches per router worker loop (worker 0 == a single router)")
+        self._c_fenced = r.counter(
+            "router_fenced_commits_total",
+            "post-route offset commits refused by the bus epoch fence (group "
+            "rebalanced mid-batch): the batch redelivers to the partitions' new "
+            "owners — an at-least-once duplicate, never a drop")
+        self._c_commit_err = r.counter(
+            "router_commit_errors_total",
+            "post-route offset commits lost to bus transport errors (not fences): "
+            "the batch stays uncommitted and redelivers")
         # -- degradation ladder --------------------------------------------
         self._host_score = host_score_fn
         self._degrade = (degrade if degrade is not None
@@ -446,6 +471,42 @@ class Router:
         self._pause_ack = threading.Event()
         self._pause_mu = threading.Lock()
         self._pause_holders = 0
+
+    # -- commit-after-route ------------------------------------------------
+    def _build_consumer(self, group: str, topics: tuple, manual: bool):
+        """One bus consumer; the tx consumer (``manual``) is built
+        ``auto_commit=False`` when commit-after-route is armed."""
+        if manual and self._commit_after_route:
+            return self.broker.consumer(group, topics, auto_commit=False)
+        return self.broker.consumer(group, topics)
+
+    def _tx_offsets(self, records: list) -> dict[tuple[str, int], int] | None:
+        """Commit positions of one poll's records (max offset + 1 per topic
+        partition), taken before admission: shed records are disposed and
+        commit with their batch. None when commit-after-route is off (the
+        hot loop pays nothing for it)."""
+        if not records or not self._commit_after_route:
+            return None
+        offs: dict[tuple[str, int], int] = {}
+        for r in records:
+            tp = (r.topic, r.partition)
+            nxt = r.offset + 1
+            if nxt > offs.get(tp, 0):
+                offs[tp] = nxt
+        return offs
+
+    def _commit_routed(self, offs: dict | None) -> None:
+        """Commit a fully disposed batch (manual mode only). A fence is
+        counted and absorbed: the records redeliver to the partitions'
+        current owners. A transport error leaves the batch uncommitted."""
+        if not self._commit_after_route or offs is None:
+            return
+        try:
+            self._tx_consumer.commit(offs)
+        except StaleEpochError:
+            self._c_fenced.inc()
+        except Exception:  # noqa: BLE001 - bus edge down: counted, the batch redelivers
+            self._c_commit_err.inc()
 
     def _check_rule_targets(self, engine: Any) -> None:
         """Fail fast on a rule naming a process the engine lacks (a REST
@@ -545,6 +606,7 @@ class Router:
         ts = np.fromiter((r.timestamp for r in records), np.float64, n)
         if self._profiler is not None or batch_span is not None:
             # bus queueing delay: mean wait of the batch's rows on the topic
+            # ccfd-lint: disable=monotonic-durations -- record timestamps are wall-clock by contract (cross-process); max(0,...) clamps an NTP step
             queue_s = max(0.0, time.time() - float(ts.mean()))
             if batch_span is not None:
                 batch_span.attrs["queue_s"] = queue_s
@@ -568,6 +630,10 @@ class Router:
             "events": [],
             "tier": "device",
             "cause": None,
+            # the group epoch this batch was polled under (the fleet ledger's
+            # stamp); a pipelined loop may poll, and adopt a newer epoch,
+            # before this batch routes
+            "epoch": getattr(self._tx_consumer, "epoch", None),
         }
 
     # -- admission -----------------------------------------------------------
@@ -731,8 +797,10 @@ class Router:
         records = self._poll_batch(poll_timeout_s)
         if not records:
             return 0
+        offs = self._tx_offsets(records)
         records = self._admit(records)
         if not records:
+            self._commit_routed(offs)  # fully shed: every record disposed
             return 0
         batch_sp = None
         meta = self._audit_meta(records)
@@ -740,7 +808,11 @@ class Router:
             batch_sp = self._begin_batch_span(records)
             x, txs, ts = self._decode_batch(records, batch_sp)
             proba, fired = self._timed_score(x, txs, batch_sp, meta)
-            return self._route(x, txs, proba, ts, batch_sp, fired, meta)
+            n = self._route(x, txs, proba, ts, batch_sp, fired, meta)
+            # only after every record has a terminal disposition: a crash
+            # above leaves the batch uncommitted, so it redelivers
+            self._commit_routed(offs)
+            return n
         except BaseException:
             if batch_sp is not None:  # a crashed batch: keep its trace
                 batch_sp.status = "error"
@@ -853,6 +925,7 @@ class Router:
                             row["row"] = x_list[i]
                         audit_rows.append(row)
         if audit_rows:
+            self.batch_epoch = meta.get("epoch")
             self._audit.record_batch(
                 audit_rows,
                 tier=meta.get("tier", "device"),
@@ -864,6 +937,7 @@ class Router:
             )
         if ts is not None and len(ts):
             # produce stamps are wall-clock record timestamps
+            # ccfd-lint: disable=monotonic-durations -- produce stamps are wall-clock record timestamps (cross-process decision latency)
             self._h_decision_s.observe_many(time.time() - ts)
         return len(txs)
 
@@ -901,14 +975,14 @@ class Router:
     def recycle_consumers(self) -> None:
         """Close and recreate the bus consumers (loop parked or stopped);
         they resume at the committed offsets, like any group member."""
-        for attr, group, topics in self._consumer_specs:
+        for attr, group, topics, manual in self._consumer_specs:
             try:
                 getattr(self, attr).close()
             except Exception:  # noqa: BLE001 - a dead consumer is fine here
                 logging.getLogger("ccfd_tpu_torch.router").debug(
                     "stale consumer %s failed to close during recycle", attr,
                     exc_info=True)
-            setattr(self, attr, self.broker.consumer(group, topics))
+            setattr(self, attr, self._build_consumer(group, topics, manual))
 
     def set_heal_gate(self, gate: Any) -> None:
         """Arm (or, with None, disarm) the heal gate after construction; the
@@ -935,7 +1009,7 @@ class Router:
         from concurrent.futures import ThreadPoolExecutor
 
         def finish(pending: tuple) -> None:
-            pfut, px, ptxs, pts, psp, pmeta = pending
+            pfut, px, ptxs, pts, psp, pmeta, poffs = pending
             try:
                 try:
                     proba, fired = pfut.result()
@@ -943,8 +1017,12 @@ class Router:
                     self._c_score_err.inc(len(ptxs))
                     if psp is not None:
                         psp.status = "error"
+                    # the counted drop is a terminal disposition: commit,
+                    # or the redelivery would count the error twice
+                    self._commit_routed(poffs)
                     return
                 self._route(px, ptxs, proba, pts, psp, fired, pmeta)
+                self._commit_routed(poffs)
             except BaseException:
                 if psp is not None:
                     psp.status = "error"
@@ -955,7 +1033,7 @@ class Router:
                     self.tracer.finish(psp)
 
         ex = ThreadPoolExecutor(1, thread_name_prefix="ccfd-router-score")
-        pending: tuple | None = None  # (future, x, txs, ts, batch span, audit meta)
+        pending: tuple | None = None  # (future, x, txs, ts, span, audit meta, offsets)
         try:
             while not self._stop.is_set():
                 if self._pause_req.is_set():
@@ -969,8 +1047,11 @@ class Router:
                 self._drain_signals()
                 # with a batch in flight, do not sleep on an empty topic
                 records = self._poll_batch(0.0 if pending is not None else poll_timeout_s)
+                offs = self._tx_offsets(records)
                 if records:
                     records = self._admit(records)
+                    if not records:
+                        self._commit_routed(offs)  # fully shed: disposed
                 fut = None
                 if records:
                     batch_sp = None
@@ -986,7 +1067,7 @@ class Router:
                             self.tracer.finish(batch_sp)
                         raise
                 done, pending = pending, (
-                    (fut, x, txs, ts, batch_sp, meta) if fut is not None else None)
+                    (fut, x, txs, ts, batch_sp, meta, offs) if fut is not None else None)
                 if done is not None:
                     try:
                         finish(done)

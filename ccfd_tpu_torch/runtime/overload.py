@@ -27,8 +27,9 @@ request's ``x-ccfd-priority`` header (``bulk`` / ``normal`` /
 ``ccfd_bulk_ceiling{stage}``) is the replay plane's actuator: the share of
 a stage's adaptive budget bulk work may occupy. ``recorder`` (the incident
 flight recorder, wired by the operator) snapshots the system into its ring
-on every watchdog kill. Not ported: the fleet's ceiling rescale (ROADMAP
-A10).
+on every watchdog kill. ``AdaptiveInflightBudget.rescale_ceiling`` is the
+fleet's admission actuator: each member's AIMD range under its equal share
+of the fleet-wide ceiling (fleet/member.py).
 """
 
 from __future__ import annotations
@@ -138,6 +139,18 @@ class AdaptiveInflightBudget(InflightBudget):
         self._good = 0
         self._cooldown_until = 0.0
         self._inc_next = 0.0
+
+    def rescale_ceiling(self, max_limit: int, min_limit: int | None = None) -> None:
+        """Re-bound the AIMD range live (the fleet's per-member admission
+        actuator): the current limit clamps into the new range and AIMD
+        moves it from there, so a sick member still sheds below its share."""
+        with self._mu:
+            self.max_limit = max(1, int(max_limit))
+            if min_limit is not None:
+                self.min_limit = max(1, int(min_limit))
+            self.min_limit = min(self.min_limit, self.max_limit)
+            self.limit = max(self.min_limit, min(self.limit, self.max_limit))
+            self._set_gauges_locked()
 
     def observe(self, latency_s: float) -> None:
         """Feed one stage-latency sample; adjusts the limit AIMD-style."""

@@ -140,6 +140,7 @@ class HistoryStore:
             return self._total
 
     # -- staging ------------------------------------------------------------
+    # ccfd-lint: hot-path
     def prepare(
         self, ids: list, rows: np.ndarray, overlay: dict | None = None
     ) -> tuple[np.ndarray, tuple[int, dict, np.ndarray]]:
@@ -273,6 +274,7 @@ class HistoryStore:
         return staged
 
     # -- publication --------------------------------------------------------
+    # ccfd-lint: hot-path
     def commit(self, token: tuple) -> bool:
         """Publish a prepared chunk (call only after every dispatch of the
         batch resolved). Evicts the globally-coldest keys past the cap.

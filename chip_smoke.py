@@ -10,8 +10,9 @@ graph and the ``score`` command, the seq family with its history store, the
 user-task model and the investigator, the card as a fallible component:
 the heal supervisor, the fault plans, the chaos monkey and the audit plane,
 governed rollouts and replay (the seq family's too), the incident and
-capacity planes, and the loadgen and doctor tools) and holds each CUDA kernel against
-its plain PyTorch version. Each kernel's ``launches`` in the
+capacity planes, and the loadgen and doctor tools, the fleet of operator
+processes on one bus with its kill drill, ``train --from-store`` and the
+``lint`` gate) and holds each CUDA kernel against its plain PyTorch version. Each kernel's ``launches`` in the
 kernels line sum the runs of the paths through it (train, serve, demo and
 services; in each role process, its dispatches, read off its scrape). The
 kernels: B1
@@ -25,7 +26,9 @@ wire).
            printed: registers, shared memory, spills), while g++ builds the
            native host library (ccfd_tpu_torch/native: the CSV and payload
            decoders and the REST front; its time is printed); each kernel
-           library's layout plan is held against its Python mirror
+           library's layout plan is held against its Python mirror; then
+           `python -m ccfd_tpu_torch lint` exits 0 on this machine, where
+           no JAX is installed
   parity   each kernel vs its plain version on the card (B1 within
            b1_tol_p, no flip at p = 0.5; in its wide layout also within the
            bar of an f64 evaluation with its rounding points, and a flip at
@@ -61,7 +64,12 @@ wire).
            dispatches + the swaps' prepublish launches; tx/s per burst, the
            router's score-stage p99, retrain_steps_total, retrain_last_loss
            and the card's idle share over the second burst (device-only
-           trace)
+           trace); (e) the port's `store serve` on an ephemeral port holding
+           the full surrogate as creditcard.csv, then `python -m
+           ccfd_tpu_torch train --from-store --steps 500` on the card: its
+           `source` names the store, its `rows` are the surrogate's, and its
+           step's held-out AUC on that split, served through B1, lies within
+           AUC_BAR of the committed checkpoint's through B1
   serve    the port's Seldon REST server on the card through its default
            transport, the C++ REST front, one path after the other, each
            with every launch count set to 0 just before it and read just
@@ -346,12 +354,30 @@ wire).
                window: tx/s and decision p50/p99 on against off; the
                recorder's and the model's thread CPU; the breach-to-bundle
                time and the bundle's bytes;
-           (d) every family the written dashboards read (Fleet is not
-               written) is in the scrape or on OBS_ABSENT with its reason;
+           (d) every family the written dashboards read is in the scrape
+               or on OBS_ABSENT with its reason (the Fleet board's are the
+               fleet phase's);
            the tools: `loadgen --clients 4 --rows 16 --seconds 5` against
            `serve` on the card (B1): no error, p50/p99 beside the serve
            phase's own 16-row POSTs, launches = dispatches + warmup; and
            `doctor` exits 0 naming the card with every kernel built
+  fleet    the fleet (fleet/, tools/torch_fleet_drill.py): one embedded
+           networked bus with FLEET_PARTITIONS partitions and FLEET_MEMBERS
+           `python -m ccfd_tpu_torch fleet member --device cuda` processes
+           on the one card (each its own CUDA context, serving the seeded
+           `mlp` through B1; TTL FLEET_TTL_S), FLEET_TXS transactions, one
+           member SIGKILLed mid-traffic and its consumers fenced,
+           FLEET_TXS more, the victim respawned after its lease expired:
+           ownership disjoint and total after each rebalance, the ledger
+           conserved (every transaction disposed, no ghost, no same-epoch
+           double route; cross-epoch redeliveries counted), fingerprint
+           parity and nobody quarantined, per-member accounting, exactly
+           one valid fleet_member_kill bundle, a survivor's ccfd_fleet_*
+           gauges over HTTP, each member's B1 launches = its dispatches +
+           its warmup with no kernel build, and B1 on the members' served
+           params against its plain version at B=16 and 16,384; recorded:
+           the tx/s of a FLEET_BURST burst at 3, 2 and 1 members, kill to
+           re-adoption, the redeliveries and each member's device memory
   models   the reference's other Seldon models, torch code on the card (no
            hand kernel: the reference leaves them to XLA):
            (a) card against CPU, the same port function, B=16 and 16,384:
@@ -410,7 +436,8 @@ import time
 import urllib.request
 
 PHASES = ("device", "build", "parity", "train", "serve", "decision", "demo", "services",
-          "platform", "seq", "tasks", "heal", "rollout", "observatory", "models", "timing")
+          "platform", "seq", "tasks", "heal", "rollout", "observatory", "fleet", "models",
+          "timing")
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 7
 PARITY_BATCHES = (1, 16, 100, 1024, 16384)
@@ -471,7 +498,7 @@ PLATFORM_TRAIN_STEPS = 200
 PLATFORM_POSTS = 50  # 16-row POSTs while `up` serves
 RECOVERY_ROWS = (20_000, 10_000)  # before and after the engine failure
 FIXED_RATES = (2_000, 8_000)  # producer rows/s
-FIXED_SECONDS = 10
+FIXED_SECONDS = 5  # each rate's window (10 before the fleet phase joined the smoke)
 # the train phase: `train`'s default steps and fit_mlp's batch; the steps
 # timed on the card; the steps run on the card and on the CPU from one init
 TRAIN_STEPS = 500
@@ -633,8 +660,23 @@ OBS_BREACH_S = 60  # the breach bundle's deadline after the fault
 OBS_STAMPED = 200  # decisions carrying the bundle id before the fault goes
 OBS_RECOVER_S = 60
 LOADGEN_ARGS = ("--clients", "4", "--rows", "16", "--seconds", "5")
+FLEET_MEMBERS = 3
+FLEET_PARTITIONS = 6
+FLEET_TXS = 10_000  # before the kill, and as many after it
+FLEET_TTL_S = 2.0
+FLEET_BURST = 20_000  # the scaling row's burst at each fleet size
+# the members' planes beyond the routing slice: the stage profiler (its
+# ccfd_build_events_total shows any kernel build a member ran) and the
+# device telemetry (/debug/device: each member's allocator on the card)
+FLEET_MEMBER_OVERRIDES = {"slo": {"enabled": True}, "device": {"enabled": True}}
 # families the written dashboards read that this phase's scrape may lack
 OBS_ABSENT = {
+    **{f: "the fleet member, off on this platform (the fleet phase scrapes a member's)"
+       for f in ("ccfd_fleet_members", "ccfd_fleet_quarantined", "ccfd_fleet_parity",
+                 "ccfd_fleet_partition_owner", "ccfd_fleet_epoch",
+                 "ccfd_fleet_admission_ceiling", "ccfd_fleet_aggregator",
+                 "fleet_ledger_entries_total", "fleet_ledger_publish_errors_total",
+                 "fleet_gossip_errors_total", "fleet_member_kill_bundles_total")},
     **{f: "the sharded serving mesh (ROADMAP A15b)"
        for f in ("ccfd_mesh_devices", "ccfd_mesh_axis_size", "ccfd_mesh_publishes_total",
                  "ccfd_mesh_publish_pause_timeouts_total")},
@@ -1271,6 +1313,18 @@ class Smoke:
                 if got != want:
                     raise AssertionError(f"{mod.__name__} plan F={f} H={h}: {got} != {want}")
                 log("build", f"{mod.__name__.rsplit('.', 1)[-1]} F={f} H={h}: {got}")
+        # the lint gate runs here, where no JAX is installed
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env["PYTHONPATH"] = REPO
+        t0 = time.perf_counter()
+        lint = subprocess.run([sys.executable, "-m", "ccfd_tpu_torch", "lint"], cwd=REPO,
+                              env=env, capture_output=True, text=True, timeout=120)
+        tail = (lint.stdout.strip().splitlines() or [""])[-1]
+        if lint.returncode != 0:
+            raise AssertionError(f"lint exited {lint.returncode}: {lint.stdout[-3000:]}"
+                                 f"{lint.stderr[-2000:]}")
+        log("build", f"ok: python -m ccfd_tpu_torch lint exit 0 in "
+            f"{time.perf_counter() - t0:.3f} s: {tail}")
 
     def parity(self) -> None:
         from ccfd_tpu_torch.ops import fused_mlp_q8 as q8
@@ -1354,6 +1408,7 @@ class Smoke:
             self.train_step_timing()
             self.train_card_vs_cpu()
             self.train_served(ck, os.path.join(tmp, "q8.npz"))
+            self.train_store(tmp)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
         self.train_demo()
@@ -1403,6 +1458,83 @@ class Smoke:
         if abs(auc["trained"] - doc["auc_mlp"]) > 1e-4 or \
                 abs(auc["trained"] - auc["committed"]) > AUC_BAR:
             raise AssertionError(f"held-out AUC {auc} against train's {doc['auc_mlp']}")
+
+    def train_store(self, tmp: str) -> None:
+        """(e) ``train --from-store`` on the card against the port's ``store
+        serve`` on an ephemeral port holding the full surrogate."""
+        import numpy as np
+
+        from ccfd_tpu_torch.cli import held_out_split
+        from ccfd_tpu_torch.config import Config
+        from ccfd_tpu_torch.data.ccfd import load_csv_bytes, to_csv_bytes
+        from ccfd_tpu_torch.data.surrogate import kaggle_surrogate
+        from ccfd_tpu_torch.ops.fused_mlp import (fold_for_kernel, fused_mlp_score,
+                                                  pack_for_kernel)
+        from ccfd_tpu_torch.parallel.checkpoint import CheckpointManager
+        from ccfd_tpu_torch.params import MLP_LIKE, load_params
+        from ccfd_tpu_torch.store.client import S3Client
+        from ccfd_tpu_torch.store.objectstore import Credentials
+        from ccfd_tpu_torch.utils.metrics_math import roc_auc
+
+        torch = self.torch
+        tag = "train (e) --from-store"
+        cfg = Config.from_env()
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("PYTHONPATH", "CCFD_SURROGATE_ROWS", "CCFD_CSV")}
+        env["PYTHONPATH"] = REPO
+        t0 = time.perf_counter()
+        csv = to_csv_bytes(kaggle_surrogate())  # train (a)'s table, from the same seed
+        store = subprocess.Popen([sys.executable, "-m", "ccfd_tpu_torch", "store", "serve",
+                                  "--port", "0", "--root", os.path.join(tmp, "store")],
+                                 cwd=REPO, env=env, stdout=subprocess.PIPE, text=True)
+        try:
+            url = json.loads(store.stdout.readline())["endpoint"]
+            client = S3Client(url, Credentials(cfg.access_key_id or "ccfd-access",
+                                               cfg.secret_access_key or "ccfd-secret"))
+            client.create_bucket(cfg.s3_bucket)
+            client.put(cfg.s3_bucket, cfg.filename, csv)
+            put_s = time.perf_counter() - t0
+            ck = os.path.join(tmp, "checkpoints_store")
+            cmd = ["train", "--from-store", "--store-url", url, "--steps", str(TRAIN_STEPS),
+                   "--checkpoint-dir", ck]
+            t1 = time.perf_counter()
+            out = subprocess.run([sys.executable, "-m", "ccfd_tpu_torch", *cmd], cwd=REPO,
+                                 env=env, capture_output=True, text=True, timeout=600)
+            wall = time.perf_counter() - t1
+        finally:
+            store.terminate()
+            try:
+                store.wait(timeout=20)
+            except subprocess.TimeoutExpired:
+                store.kill()
+                store.wait()
+        if out.returncode != 0:
+            raise AssertionError(f"{tag}: train exited {out.returncode}: {out.stderr[-3000:]}")
+        doc = json.loads(out.stdout.strip().splitlines()[-1])
+        log("train", f"{tag}: the surrogate's {len(csv)} CSV bytes made and put into the "
+            f"store at {url} in {put_s:.3f} s; python -m ccfd_tpu_torch {' '.join(cmd)}: "
+            f"{json.dumps(doc)} in {wall:.3f} s")
+        source = f"store:{cfg.s3_bucket}/{cfg.filename}"
+        if (doc["source"] != source or doc["rows"] != 284_807 or doc["steps"] != TRAIN_STEPS
+                or set(doc) != TRAIN_KEYS):
+            raise AssertionError(f"{tag}: printed {doc}, expected source {source} and "
+                                 "284807 rows")
+        # both steps through B1 on the held-out split of the rows the store served
+        ds = load_csv_bytes(csv)
+        test = held_out_split(ds.n, 0.2)[0]
+        x = torch.from_numpy(ds.X[test]).to(torch.bfloat16).to(self.dev)
+        trained, step = CheckpointManager(ck).restore(MLP_LIKE)
+        auc = {}
+        for name, params in (("trained", trained), ("committed", load_params())):
+            kp = pack_for_kernel(fold_for_kernel(params), self.dev)
+            p = fused_mlp_score(kp, x)
+            auc[name] = roc_auc(ds.y[test], p.float().cpu().numpy().astype(np.float64))
+        log("train", f"{tag}: held-out AUC on {len(test)} rows through B1 on the card: step "
+            f"{step} {auc['trained']:.6f} (train printed {doc['auc_mlp']}), the committed "
+            f"checkpoint {auc['committed']:.6f} (|d| "
+            f"{abs(auc['trained'] - auc['committed']):.6f}, bar {AUC_BAR}) on {self.card}")
+        if abs(auc["trained"] - auc["committed"]) > AUC_BAR:
+            raise AssertionError(f"{tag}: held-out AUC {auc}")
 
     def train_batches(self, n: int, seed: int = SEED) -> list:
         """``n`` class-balanced batches of TRAIN_BATCH surrogate rows (CPU
@@ -4672,6 +4804,163 @@ class Smoke:
             f"{dev.get('torch')} CUDA {dev.get('cuda')}, dispatch round trip "
             f"{dev.get('dispatch_rtt_ms')} ms; kernels built and current {built}")
         return int(disp)
+
+    def fleet(self) -> None:
+        """The fleet on the one card through the port's kill drill (see the
+        module docstring); B1's launches are the members' own, read off
+        each member's scrape."""
+        sys.path.insert(0, os.path.join(REPO, "tools"))
+        import torch_fleet_drill as drill
+
+        from ccfd_tpu_torch.config import Config
+        from ccfd_tpu_torch.observability.incident import validate_incident
+        from ccfd_tpu_torch.ops.fused_mlp import (fold_for_kernel, fused_mlp_reference,
+                                                  fused_mlp_score, pack_for_kernel)
+        from ccfd_tpu_torch.params import params_fingerprint
+        from ccfd_tpu_torch.serving.scorer import Scorer
+
+        torch = self.torch
+        tag = "fleet"
+
+        def inspect(sup, names) -> dict:
+            """Each member's device memory: nvidia-smi's per-process use, and
+            the member's own allocator and the card's free bytes from its
+            /debug/device."""
+            pids = {sup.members[n]["proc"].pid: n for n in names}
+            try:
+                smi = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                                      "--format=csv,noheader"], capture_output=True,
+                                     text=True, timeout=30)
+                rc, text = smi.returncode, smi.stdout
+            except (OSError, subprocess.TimeoutExpired) as e:
+                rc, text = repr(e), ""
+            apps = {}
+            for line in text.strip().splitlines():
+                parts = [c.strip() for c in line.split(",")]
+                if len(parts) == 2 and parts[0].isdigit():
+                    apps[int(parts[0])] = parts[1]
+            # the processes nvidia-smi lists (pids of the card's host, which
+            # may not be this machine's pid namespace)
+            out = {"nvidia_smi_rc": rc, "nvidia_smi_apps": apps}
+            for pid, n in pids.items():
+                h = sup.health(n) or {}
+                with open(sup.members[n]["spec_path"]) as f:
+                    port = json.load(f)["spec"]["monitoring"]["port"]
+                try:
+                    dev = json.loads(urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}/debug/device", timeout=10).read())
+                    mem = dev["memory"].get("cuda:0", {})
+                except (OSError, ValueError, KeyError):
+                    mem = {}
+                out[n] = {"pid": pid, "nvidia_smi_used": apps.get(pid, "not listed"),
+                          "reserved_bytes": mem.get("reserved_bytes"),
+                          "peak_bytes_in_use": mem.get("peak_bytes_in_use"),
+                          "card_used_bytes": (mem["bytes_limit"] - mem["free_bytes"]
+                                              if "free_bytes" in mem else None),
+                          "routed": (h.get("counters") or {}).get("routed")}
+            return out
+
+        # the card's use before any member holds a context: the members'
+        # share is the difference while all of them are up
+        free, total = torch.cuda.mem_get_info(self.dev)
+        used_before = total - free
+        state = tempfile.mkdtemp(prefix="ccfd_fleet_")
+        t0 = time.perf_counter()
+        try:
+            out = drill.run_drill(members=FLEET_MEMBERS, partitions=FLEET_PARTITIONS,
+                                  txs_before=FLEET_TXS, txs_after=FLEET_TXS,
+                                  ttl_s=FLEET_TTL_S, state_dir=state, device="cuda",
+                                  scaling_burst=FLEET_BURST, inspect=inspect,
+                                  member_overrides=FLEET_MEMBER_OVERRIDES)
+            wall = time.perf_counter() - t0
+            failed = sorted(k for k, v in out["checks"].items() if not v)
+            bundles = []
+            for path in out.get("kill_bundles", []):
+                with open(path) as f:
+                    bundles.append(json.load(f))
+        finally:
+            logs = {}
+            for f in sorted(os.listdir(state)) if os.path.isdir(state) else ():
+                if f.endswith(".log"):
+                    with open(os.path.join(state, f), errors="replace") as fh:
+                        logs[f] = fh.read()[-2000:]
+            shutil.rmtree(state, ignore_errors=True)
+        if failed or not out["ok"]:
+            for f, text in logs.items():
+                print(f"--- {f} (tail) ---\n{text}", flush=True)
+            raise AssertionError(f"{tag}: failed checks {failed}; conservation "
+                                 f"{out.get('conservation')}; parity {out.get('parity')}; "
+                                 f"accounting {out.get('accounting_violations')}")
+        errs = [validate_incident(b) for b in bundles]
+        if len(bundles) != 1 or errs[0] or bundles[0]["trigger"]["type"] != "fleet_member_kill":
+            raise AssertionError(f"{tag}: kill bundles {len(bundles)}, validation {errs}")
+        gauges = out["fleet_gauges"]
+        if gauges.get("ccfd_fleet_members") != FLEET_MEMBERS or \
+                gauges.get("ccfd_fleet_parity") != 1.0:
+            raise AssertionError(f"{tag}: a survivor's ccfd_fleet_* gauges {gauges}")
+        # each member: B1 launches = its dispatches + its warmup, no build
+        warm = len(Config.from_env().batch_sizes)
+        b1_total = 0.0
+        per = {}
+        for name, m in out["member_metrics"].items():
+            if m is None:
+                raise AssertionError(f"{tag}: member {name} answered no scrape")
+            b1, disp = launches_of(m), m.get("ccfd_scorer_dispatches", 0.0)
+            builds = m.get("ccfd_build_events_total")
+            others = {k: v for k, v in m.items()
+                      if k.startswith("ccfd_kernel_launches") and "fused_mlp_bf16" not in k
+                      and v}
+            if b1 != disp + warm or others or builds != 0.0:
+                raise AssertionError(f"{tag}: member {name}: B1 launches {b1} != dispatches "
+                                     f"{disp} + {warm} warmups, other kernels {others}, "
+                                     f"builds {builds}")
+            per[name] = (b1, disp)
+            b1_total += b1
+        if not any(d for _, d in per.values()):
+            raise AssertionError(f"{tag}: no member dispatched B1: {per}")
+        self.reports["fused_mlp_bf16"]["launches"] += b1_total
+        # B1 on the params every member serves: the seeded init, whose
+        # fingerprint is the fleet's majority
+        params = Scorer(model_name="mlp", params=None, device="cpu").params
+        fp = params_fingerprint(params)
+        if fp != out["parity"]["majority"]:
+            raise AssertionError(f"{tag}: the seeded mlp's fingerprint {fp[:16]} is not the "
+                                 f"fleet's {str(out['parity']['majority'])[:16]}")
+        kp = pack_for_kernel(fold_for_kernel(params), self.dev)
+        for b in (16, 16384):
+            x = self.x_rows(b)
+            p, z = fused_mlp_score(kp, x, with_logits=True)
+            self.compare("fused_mlp_bf16", f"{tag} members' served params B={b}", p, z,
+                         *fused_mlp_reference(kp, x), b1_tol_p(256))
+        c = out["conservation"]
+        mem = out.get("inspect", {})
+        log(tag, f"ok: {FLEET_MEMBERS} members on the card ready in {out['ready_s']:.3f} s; "
+            f"{c['produced']} transactions produced, {c['disposed']} disposed, dropped "
+            f"{len(c['dropped'])}, ghosts {len(c['ghosts'])}, same-epoch double routes "
+            f"{len(c['same_epoch_dupes'])}, cross-epoch redeliveries {out['redeliveries']}; "
+            f"kill to re-adoption {out['kill_to_readoption_s']:.3f} s, to the lease's expiry "
+            f"in every survivor {out['kill_to_lease_expiry_s']:.3f} s; one valid kill bundle; "
+            f"B1 launches (dispatches) per member {per} = dispatches + {warm} warmups, no "
+            f"build; the drill took {wall:.3f} s on {self.card}")
+        fenced = {n: (m or {}).get("router_fenced_commits_total", 0.0)
+                  for n, m in out["member_metrics"].items()}
+        log(tag, f"commits the bus fenced over the run: {out['bus']['fenced_commits']} "
+            f"(the live members' router_fenced_commits_total {fenced}); the router group's "
+            f"epoch at the end {out['bus']['group_epoch']}")
+        log(tag, f"fleet tx/s over the drill window (kill and respawn included): "
+            f"{out['bench']['tx_s']:.1f} ({out['bench']['transactions']} transactions in "
+            f"{out['bench']['wall_s']:.3f} s)")
+        for row in out.get("scaling", []):
+            log(tag, f"scaling: {row['members']} member(s), a {row['transactions']}-row "
+                f"burst in {row['wall_s']:.3f} s: {row['tx_s']:.1f} tx/s on {self.card}")
+        used = [v["card_used_bytes"] for v in mem.values()
+                if isinstance(v, dict) and v.get("card_used_bytes")]
+        per_member = ((max(used) - used_before) / FLEET_MEMBERS) if used else None
+        log(tag, f"device memory: the card used {used_before} bytes before the members, "
+            f"{max(used) if used else 'not measured'} with {FLEET_MEMBERS} up: "
+            + (f"{per_member:.0f} bytes a member (the mean of the three contexts)"
+               if per_member is not None else "a member's share not measured")
+            + f"; each member's report {json.dumps(mem)} on {self.card}")
 
     def models(self) -> None:
         """The reference's other Seldon models on the card: parity card

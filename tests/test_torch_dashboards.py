@@ -1,8 +1,9 @@
 """The port's Grafana boards against the reference's.
 
 ``ccfd_tpu_torch/observability/dashboards.py::build_all_dashboards`` gives
-the reference's boards minus Fleet (the fleet, ROADMAP A10, is not ported:
-no panel is emitted over its families), with the same panels (ids, types,
+the reference's boards in full, Fleet included (the fleet's families are
+registered by ``ccfd_tpu_torch/fleet/`` and the router's commit-after-route
+counters), with the same panels (ids, types,
 grid, thresholds, legend) and the same expressions once the reference's
 build families are renamed (``NAME_MAP``: ``ccfd_xla_compile_*`` ->
 ``ccfd_build_*``). Every metric family a port board reads is registered
@@ -94,14 +95,16 @@ def _without_titles(board: dict) -> dict:
 
 
 def test_the_boards_are_the_references_minus_fleet():
+    """Named for the boards before the fleet was ported; since then the
+    port has every reference board, Fleet included, in the same order."""
     ref, port = ref_dash.build_all_dashboards(), build_all_dashboards()
-    assert list(port) == [n for n in ref if n != "Fleet"]
-    assert "Fleet" not in port and len(port) == 20
+    assert list(port) == list(ref)
+    assert "Fleet" in port and len(port) == 21
     assert port_dash.NAME_MAP == {"ccfd_xla_compile_events_total": "ccfd_build_events_total",
                                   "ccfd_xla_compile_seconds_total": "ccfd_build_seconds_total"}
 
 
-@pytest.mark.parametrize("name", [n for n in ref_dash.build_all_dashboards() if n != "Fleet"])
+@pytest.mark.parametrize("name", list(ref_dash.build_all_dashboards()))
 def test_each_board_is_the_references_after_the_name_map(name):
     ref = _mapped(ref_dash.build_all_dashboards()[name])
     port = build_all_dashboards()[name]
@@ -133,7 +136,10 @@ def test_every_family_read_is_registered_or_named_absent():
     read = {f for b in build_all_dashboards().values() for p in b["panels"]
             for t in p["targets"] for f in families(t["expr"])}
     for fam in ("ccfd_build_events_total", "ccfd_incidents_total",
-                "ccfd_capacity_model_error_ratio", "ccfd_capacity_bottleneck"):
+                "ccfd_capacity_model_error_ratio", "ccfd_capacity_bottleneck",
+                "ccfd_fleet_members", "ccfd_fleet_partition_owner",
+                "router_fenced_commits_total", "fleet_ledger_entries_total",
+                "fleet_member_kill_bundles_total"):
         assert fam in read and fam in reg, fam
 
 

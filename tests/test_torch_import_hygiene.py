@@ -63,7 +63,9 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
               "lifecycle.versions", "lifecycle.shadow", "lifecycle.evaluator",
               "lifecycle.controller", "replay", "replay.service",
               "observability.incident", "observability.capacity",
-              "observability.dashboards", "utils.loadgen"):
+              "observability.dashboards", "utils.loadgen", "fleet", "fleet.protocol",
+              "fleet.ledger", "fleet.member", "fleet.supervisor", "analysis",
+              "analysis.core", "analysis.rules", "analysis.lockcheck"):
         assert f"ccfd_tpu_torch.{m}" in res["mods"], m
     bad = [n for n in res["loaded"] if _forbidden(n)]
     assert bad == [], bad
@@ -83,7 +85,8 @@ def _named_modules(path: Path):
 
 
 def test_no_source_file_names_jax_or_the_reference():
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                          REPO / "tools" / "torch_fleet_drill.py"]
     assert len(files) > 10
     bad = [(str(f.relative_to(REPO)), name) for f in files
            for name in _named_modules(f) if _forbidden(name)]
@@ -190,6 +193,51 @@ def test_the_evidence_plane_modules_import_alone(mod):
     code = (
         "import importlib, json, sys\n"
         f"importlib.import_module('ccfd_tpu_torch.{mod}')\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert [n for n in loaded if _forbidden(n)] == []
+
+
+@pytest.mark.parametrize("mod", ["fleet", "fleet.protocol", "fleet.ledger", "fleet.member",
+                                 "fleet.supervisor", "analysis", "analysis.core",
+                                 "analysis.rules", "analysis.lockcheck"])
+def test_the_fleet_and_lint_modules_import_alone(mod):
+    """The fleet plane and the linter each load by themselves with nothing
+    of JAX or the reference (the reference's fleet/protocol.py and
+    analysis/ load no JAX either: the port keeps its own copies). The
+    linter loads no torch: it runs where no accelerator stack is."""
+    code = (
+        "import importlib, json, sys\n"
+        f"importlib.import_module('ccfd_tpu_torch.{mod}')\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert [n for n in loaded if _forbidden(n)] == []
+    if mod.startswith("analysis"):
+        assert "torch" not in loaded and "numpy" not in loaded
+
+
+def test_the_port_drill_tool_loads_no_jax_and_no_reference():
+    """tools/torch_fleet_drill.py imports the port alone: loading it (and
+    every module its drill imports) pulls in nothing of JAX or the
+    reference."""
+    code = (
+        "import importlib.util, json, sys\n"
+        "spec = importlib.util.spec_from_file_location('drill', 'tools/torch_fleet_drill.py')\n"
+        "mod = importlib.util.module_from_spec(spec); spec.loader.exec_module(mod)\n"
+        "import ccfd_tpu_torch.bus.server, ccfd_tpu_torch.fleet.supervisor\n"
+        "import ccfd_tpu_torch.platform.operator, ccfd_tpu_torch.cli\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

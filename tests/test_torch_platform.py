@@ -216,24 +216,27 @@ def test_port_cr_differs_only_in_the_refused_blocks_enabled():
 # investigator, engine.usertask_model, scorer.model: seq|seq_q8, the
 # batcher's queue policies, the lifecycle (the seq family's too), the
 # analytics, the replay, the incident and the capacity planes are served
-# since A11, A13, A15a, A12, A12b, A14, A14a and A9: their cases keep their
-# ids and now pair the served part with one still refused (each plane beside
-# fleet or mesh.devices, seq under retrain and seq_q8 under the decision
-# plane, which the port refuses where the reference skips them with a
-# warning, the queue rows beside CCFD_INLINE_ROWS)
+# since A11, A13, A15a, A12, A12b, A14, A14a and A9, and the fleet since A10:
+# their cases keep their ids and now pair the served part with one still
+# refused (each plane beside mesh.devices, seq under retrain and seq_q8
+# under the decision plane, which the port refuses where the reference
+# skips them with a warning, the queue rows beside CCFD_INLINE_ROWS)
 REFUSALS = [(name, {name: {"enabled": True}}, {}, name) for name in REFUSED_COMPONENTS] + [
-    ("incident", {"incident": {"enabled": True}, "fleet": {"enabled": True}}, {}, "fleet"),
+    ("fleet", {"fleet": {"enabled": True}, "mesh": {"devices": 2}}, {}, "mesh.devices: 2"),
+    ("incident", {"incident": {"enabled": True}, "mesh": {"devices": 2}}, {},
+     "mesh.devices: 2"),
     ("capacity", {"capacity": {"enabled": True}, "mesh": {"devices": 2}}, {},
      "mesh.devices: 2"),
-    ("lifecycle", {"lifecycle": {"enabled": True}, "fleet": {"enabled": True}}, {},
-     "fleet"),
+    ("lifecycle", {"lifecycle": {"enabled": True}, "mesh": {"devices": 2}}, {},
+     "mesh.devices: 2"),
     ("analytics", {"analytics": {"enabled": True}, "mesh": {"devices": 2}}, {},
      "mesh.devices: 2"),
-    ("replay", {"replay": {"enabled": True}, "fleet": {"enabled": True}}, {}, "fleet"),
-    ("investigator", {"investigator": {"enabled": True}, "fleet": {"enabled": True}}, {},
-     "fleet"),
+    ("replay", {"replay": {"enabled": True}, "mesh": {"devices": 2}}, {},
+     "mesh.devices: 2"),
+    ("investigator", {"investigator": {"enabled": True}, "mesh": {"devices": 2}}, {},
+     "mesh.devices: 2"),
     ("engine.usertask_model", {"engine": {"usertask_model": True},
-                               "fleet": {"enabled": True}}, {}, "fleet"),
+                               "mesh": {"devices": 2}}, {}, "mesh.devices: 2"),
     ("mesh.devices", {"mesh": {"devices": 2}}, {}, "mesh.devices: 2"),
     ("mesh.devices=0", {"mesh": {"devices": 0}}, {}, "mesh.devices: 0"),
     ("seq", {"scorer": {"model": "seq"}, "retrain": {"enabled": True}}, {},
@@ -276,8 +279,8 @@ def test_each_refused_part_is_named(name, blocks, env, match):
 
 def test_the_references_cr_is_refused_with_every_name_at_once(tmp_path):
     """The reference's CR as shipped comes up whole since A14a; switched to
-    the parts still refused (fleet and a mesh), it is refused with every
-    name in one error and nothing starts."""
+    a mesh (the part still refused) and the fleet (served since A10), it is
+    refused with every refused name in one error and nothing starts."""
     from ccfd_tpu_torch.cli import main
 
     assert PlatformSpec.from_yaml(str(REF_CR), cfg=Config()).refused() == []
@@ -289,13 +292,15 @@ def test_the_references_cr_is_refused_with_every_name_at_once(tmp_path):
     with pytest.raises(NotImplementedError) as err:
         main(["up", "-f", str(path), "--device", "cpu"])
     msg = str(err.value)
-    assert "fleet (A10" in msg and "mesh.devices: 2 (A15b" in msg
+    assert "fleet" not in msg and "mesh.devices: 2 (A15b" in msg
     assert [r.split(" (")[0] for r in PlatformSpec.from_yaml(str(path), cfg=Config())
-            .refused()] == ["fleet", "mesh.devices: 2"]
-    # a default-on block is no longer refused when absent; the opt-in fleet is
-    with pytest.raises(NotImplementedError, match="fleet.*mesh.devices"):
+            .refused()] == ["mesh.devices: 2"]
+    # a default-on block is no longer refused when absent, and the opt-in
+    # fleet is served: the mesh alone is named
+    with pytest.raises(NotImplementedError, match="mesh.devices") as err:
         Platform(PlatformSpec.from_cr({"spec": {"fleet": True, "mesh": {"devices": 2}}},
                                       cfg=Config()), device="cpu").up()
+    assert "fleet" not in str(err.value)
 
 
 def _recovery_cr(tmp, **engine):
@@ -362,8 +367,12 @@ def test_exporter_planes_and_no_build_while_serving(tmp_path):
     try:
         warm = builds_total()
         incoming = p.registries["router"].counter("transaction_incoming_total")
+        routed = p.registries["router"].counter("transaction_outgoing_total")
         p.broker.produce_batch(cfg.kafka_topic, _rows(0, 200))
-        _wait(lambda: incoming.value() >= 200)
+        # routed, not only consumed: the route stage's profile lands after
+        # the batch's last start
+        _wait(lambda: incoming.value() >= 200 and routed.total() >= 200
+              and "router.route" in p.profiler.snapshot()["stages"])
         import http.client
 
         conn = http.client.HTTPConnection("127.0.0.1", p.prediction_port, timeout=10)

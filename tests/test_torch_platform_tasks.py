@@ -230,7 +230,12 @@ def _tasks_cr(state_file: str) -> dict:
                                     "seed": 4})
 
 
-TASK_ENV = {**ENV, "FRAUD_THRESHOLD": "0.0", "CCFD_REPLY_TIMEOUT_S": "0.05",
+# A task opens where the no-reply timer beats notify's reply. Notify's
+# seeded draw decides who replies; the timer must not race a reply that
+# is merely late under a loaded host, or the task count follows the
+# host's scheduling. So the timer is set far above any scheduling delay,
+# and only the seeded silent customers reach it.
+TASK_ENV = {**ENV, "FRAUD_THRESHOLD": "0.0", "CCFD_REPLY_TIMEOUT_S": "5.0",
             "CCFD_LOW_AMOUNT": "0", "CCFD_LOW_PROBA": "0.0"}
 
 

@@ -7,8 +7,9 @@ plane on installs the storage quarantine's recorder hook
 file in the same worker then sees no warnings in ``caplog`` and a recorder
 of a torn-down platform. ``tests/torch_helpers.py::keep_port_logging``
 restores both; every file that brings a platform up (``Platform(...)``,
-the ``up`` command, or ``replay --live``, whose minimal platform is one)
-must carry it as an autouse fixture. Read by AST, so a new file is held
+the ``up`` command, ``replay --live``, whose minimal platform is one, or a
+fleet member: ``FleetMember(...)`` or the ``fleet member`` command) must
+carry it as an autouse fixture. Read by AST, so a new file is held
 to it the day it is added.
 """
 
@@ -36,6 +37,8 @@ def _argv_commands(tree: ast.AST) -> set[str]:
                 out.add("up")
             if "replay" in words and "--live" in words:
                 out.add("replay --live")
+            if "fleet" in words and "member" in words:
+                out.add("fleet member")
     return out
 
 
@@ -45,8 +48,8 @@ def _builds_platform(tree: ast.AST) -> list[str]:
         if isinstance(node, ast.Call):
             f = node.func
             name = f.id if isinstance(f, ast.Name) else getattr(f, "attr", None)
-            if name == "Platform":
-                what.append("Platform(")
+            if name in ("Platform", "FleetMember"):
+                what.append(f"{name}(")
                 break
     return what
 
@@ -97,6 +100,9 @@ def test_every_file_that_brings_a_platform_up_restores_the_process_state():
     ("rc = cli.main(('replay', '--dir', d, '--live'))", ["replay --live"]),
     ("rc = cli.main(['replay', '--dir', d])", []),
     ("x = ['upper', 'down']", []),
+    ("m = FleetMember('a', Registry())", ["FleetMember("]),
+    ("argv = [py, '-m', 'ccfd_tpu_torch', 'fleet', 'member', '--spec', s]",
+     ["fleet member"]),
 ])
 def test_the_scan_names_what_raises_a_platform(src, expect):
     assert _builds_platform(ast.parse(src)) == expect

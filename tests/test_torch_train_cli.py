@@ -112,8 +112,12 @@ def test_unported_training_parts_are_refused_by_name(tmp_path, monkeypatch):
     # the tree family needs scikit-learn: exit 2, as the reference without it
     assert main(["train", "--device", "cpu", "--family", "hgb",
                  "--checkpoint-dir", str(tmp_path)]) == 2
-    with pytest.raises(NotImplementedError, match="--from-store"):
-        main(["train", "--device", "cpu", "--from-store", "--checkpoint-dir", str(tmp_path)])
+    # --from-store is served since A14b: with no store at its endpoint it
+    # fails before anything trains or is written
+    with pytest.raises(OSError):
+        main(["train", "--device", "cpu", "--from-store", "--store-url", "http://127.0.0.1:1",
+              "--checkpoint-dir", str(tmp_path)])
+    assert not list(tmp_path.iterdir())
     # the lifecycle's lineage store is ported (A12): a knob still refused
     # stands beside it, and the refusal comes before anything is written
     env = {"CCFD_LIFECYCLE_DIR": str(tmp_path / "lc"), "CCFD_HOST_TIER_ROWS": "64"}
