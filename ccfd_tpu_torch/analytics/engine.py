@@ -5,8 +5,12 @@ passes over the feature matrix: the first reduces the moments, extrema,
 the feature Gram matrix and the per-class aggregates; the second counts
 each feature's rows into ``nbins`` linear bins once the extrema fix the
 edges. The reference runs both as jitted XLA programs over rows sharded on
-its mesh's data axis; here they are torch functions on one device (the
-mesh is ROADMAP A15b's), with the reference's rounding points:
+its mesh's data axis; here they are torch functions, on one device or,
+with ``mesh=`` (parallel/mesh.py), once a data shard: the rows split into
+contiguous slices over the data axis, each shard runs both passes on its
+device, and the shards' partial results are reduced in shard order (sums
+added in float32, extrema by min and max, counts added exactly). The
+rounding points are the reference's:
 
 - sums, squares and the per-class amount in float32;
 - the Gram matrix a full-float32 product with TF32 off (the reference's
@@ -29,7 +33,7 @@ reference's numpy on the host.
   (``reference_path``, the reference's npz keys, so either package reads
   the other's file).
 
-``analytics_workers`` reports 1 where the reference reports its mesh size.
+``analytics_workers`` reports the mesh's size (1 without a mesh).
 """
 
 from __future__ import annotations
@@ -160,12 +164,37 @@ def psi(p_hist: np.ndarray, q_hist: np.ndarray) -> np.ndarray:
     return np.sum((p - q) * np.log(p / q), axis=-1)
 
 
+def _reduce(parts: list[dict[str, torch.Tensor]], home: torch.device) -> dict[str, torch.Tensor]:
+    """The data shards' first-pass results combined, in shard order."""
+    out = {k: v.to(home) for k, v in parts[0].items()}
+    for part in parts[1:]:
+        for k, v in part.items():
+            v = v.to(home)
+            if k == "min":
+                out[k] = torch.minimum(out[k], v)
+            elif k == "max":
+                out[k] = torch.maximum(out[k], v)
+            else:
+                out[k] = out[k] + v
+    return out
+
+
 class AnalyticsEngine:
     """Batch analytics over CCFD feature matrices on one device (the card
-    unless ``device`` names the CPU)."""
+    unless ``device`` names the CPU) or over a mesh's data shards."""
 
     def __init__(self, device: "str | torch.device | None" = None,
-                 nbins: int = DEFAULT_NBINS, registry=None):
+                 nbins: int = DEFAULT_NBINS, registry=None, mesh: Any = None):
+        self.mesh = mesh
+        self._shards: list[torch.device] = []
+        if mesh is not None:
+            from ccfd_tpu_torch.parallel.mesh import DATA_AXIS
+
+            self._shards = [mesh.devices[p] for p in mesh.along(DATA_AXIS)]
+            if device is not None and torch.device(device).type != self._shards[0].type:
+                raise ValueError(f"device={device!r} but the mesh's shards lie on "
+                                 f"{self._shards[0]}")
+            device = self._shards[0]
         self.device = resolve(device)
         self.nbins = int(nbins)
         self._c_jobs = self._h_job_s = self._c_rows = None
@@ -176,7 +205,8 @@ class AnalyticsEngine:
                                                "analytics job wall time")
             self._c_rows = registry.counter("analytics_rows_processed_total",
                                             "rows aggregated")
-            registry.gauge("analytics_workers", "devices the analytics jobs run on").set(1)
+            registry.gauge("analytics_workers", "devices in the analytics mesh").set(
+                mesh.size if mesh is not None else 1)
 
     def _account(self, job: str, n_rows: int, t0: float) -> None:
         if self._c_jobs is not None:
@@ -187,10 +217,21 @@ class AnalyticsEngine:
     def _rows(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(self.device)
 
-    def _hist(self, xd: torch.Tensor, lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
-        counts = hist_job(xd, torch.from_numpy(np.asarray(lo, np.float32)).to(self.device),
-                          torch.from_numpy(np.asarray(hi, np.float32)).to(self.device),
-                          self.nbins)
+    def _split(self, x: np.ndarray) -> list[torch.Tensor]:
+        """The rows on the device, or one contiguous slice a data shard."""
+        if self.mesh is None:
+            return [self._rows(x)]
+        return [torch.from_numpy(np.ascontiguousarray(part, np.float32)).to(dev)
+                for part, dev in zip(np.array_split(np.asarray(x), len(self._shards)),
+                                     self._shards)]
+
+    def _hist(self, xds: list[torch.Tensor], lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
+        counts = None
+        for xd in xds:
+            c = hist_job(xd, torch.from_numpy(np.asarray(lo, np.float32)).to(xd.device),
+                         torch.from_numpy(np.asarray(hi, np.float32)).to(xd.device),
+                         self.nbins).to(self.device)
+            counts = c if counts is None else counts + c
         return counts.cpu().numpy().astype(np.float32)
 
     # -- jobs --------------------------------------------------------------
@@ -200,15 +241,17 @@ class AnalyticsEngine:
         n = x.shape[0]
         if y is None:
             y = np.zeros(n, np.int32)
-        xd = self._rows(x)
-        yd = torch.from_numpy(np.asarray(y, np.int64)).to(self.device)
-        mom = {k: v.cpu().numpy() for k, v in moments_job(xd, yd).items()}
+        xds = self._split(x)
+        yds = [torch.from_numpy(np.ascontiguousarray(part, np.int64)).to(xd.device)
+               for part, xd in zip(np.array_split(np.asarray(y), len(xds)), xds)]
+        parts = [moments_job(xd, yd) for xd, yd in zip(xds, yds) if xd.shape[0]]
+        mom = {k: v.cpu().numpy() for k, v in _reduce(parts, self.device).items()}
         nf = max(float(mom["n"]), 1.0)
         mean = mom["sum"] / nf
         var = np.maximum(mom["sumsq"] / nf - mean**2, 0.0)
         std = np.sqrt(var)
         lo, hi = mom["min"], mom["max"]
-        hist = self._hist(xd, lo, hi)
+        hist = self._hist(xds, lo, hi)
         edges = lo[:, None] + (hi - lo)[:, None] * np.linspace(
             0.0, 1.0, self.nbins + 1)[None, :].astype(np.float32)
         cov = mom["gram"] / nf - np.outer(mean, mean)
@@ -223,7 +266,7 @@ class AnalyticsEngine:
 
     def window_hist(self, reference: Report, x: np.ndarray) -> np.ndarray:
         """Histogram a serving window on the reference's bin edges."""
-        return self._hist(self._rows(x), reference.min, reference.max)
+        return self._hist(self._split(x), reference.min, reference.max)
 
     def drift(self, reference: Report, x: np.ndarray) -> np.ndarray:
         """Per-feature PSI of a serving window against the reference."""

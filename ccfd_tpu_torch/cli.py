@@ -1311,7 +1311,7 @@ def cmd_up(args: argparse.Namespace) -> int:
     from ccfd_tpu_torch.platform.operator import Platform, PlatformSpec, refuse
 
     spec = PlatformSpec.from_yaml(args.file)
-    refuse(spec)  # before anything starts
+    refuse(spec, args.device)  # before anything starts
     if args.exit_after_producer and not spec.component("producer").enabled:
         print("[up] --exit-after-producer given but producer is disabled in the CR",
               file=sys.stderr)

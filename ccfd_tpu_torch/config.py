@@ -102,8 +102,10 @@ as ccfd_tpu/config.py, with the same defaults:
     CCFD_STORAGE_RETAIN, CCFD_STORAGE_FSYNC,
     CCFD_STORAGE_SWEEP                                  the operator's
                                                         durability block
-    CCFD_MESH_DEVICES                                   the operator's mesh
-                                                        block (1 only)
+    CCFD_MESH_DEVICES, CCFD_MESH_FSDP, CCFD_MESH_TP,
+    CCFD_MESH_PARAM_PARTITION,
+    CCFD_MESH_SEQ_PARALLEL                              the operator's mesh
+                                                        block
 
     CCFD_HEAL, CCFD_HEAL_INTERVAL_S,
     CCFD_HEAL_CANARY_DEADLINE_MS,
@@ -307,7 +309,20 @@ class Config:
     storage_retain: int = 3
     storage_fsync: bool = True
     storage_sweep: bool = True
+    # --- the multi-device mesh (parallel/partition.py; CR block `mesh:`) ---
+    # logical shards of the serving and retrain mesh: 1 = single-device,
+    # 0 = every visible CUDA device, N = N shards (on a CPU platform N
+    # logical CPU shards; on CUDA at most the device count)
     mesh_devices: int = 1
+    # fsdp / tensor-parallel axis sizes; the data axis absorbs the rest
+    mesh_fsdp: int = 1
+    mesh_tp: int = 1
+    # param layout: "replicated" (data parallel) or "rules" (the family's
+    # rule table over fsdp/tp)
+    mesh_param_partition: str = "replicated"
+    # sequence-parallel attention of the seq family: none | ring | ulysses
+    # (shards attention's L over the tp axis)
+    mesh_seq_parallel: str = "none"
     # --- the device heal supervisor (runtime/heal.py; CR block `heal:`),
     # on by default with a local scorer; CCFD_HEAL=0 is the kill switch ---
     heal_enabled: bool = True
@@ -478,6 +493,11 @@ class Config:
             storage_fsync=_on_unless_off(e.get("CCFD_STORAGE_FSYNC", "1")),
             storage_sweep=_on_unless_off(e.get("CCFD_STORAGE_SWEEP", "1")),
             mesh_devices=num("CCFD_MESH_DEVICES", "mesh_devices", int),
+            mesh_fsdp=num("CCFD_MESH_FSDP", "mesh_fsdp", int),
+            mesh_tp=num("CCFD_MESH_TP", "mesh_tp", int),
+            mesh_param_partition=e.get("CCFD_MESH_PARAM_PARTITION",
+                                       Config.mesh_param_partition),
+            mesh_seq_parallel=e.get("CCFD_MESH_SEQ_PARALLEL", Config.mesh_seq_parallel),
             heal_enabled=_on_unless_off(e.get("CCFD_HEAL", "1")),
             heal_interval_s=num("CCFD_HEAL_INTERVAL_S", "heal_interval_s"),
             heal_canary_deadline_ms=num("CCFD_HEAL_CANARY_DEADLINE_MS",

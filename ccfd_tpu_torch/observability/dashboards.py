@@ -6,8 +6,9 @@ the build panels read ``ccfd_build_events_total`` and
 ``ccfd_build_seconds_total`` (kernel and native-library builds,
 ``observability/profile.py``) where the reference's read
 ``ccfd_xla_compile_*`` (:data:`NAME_MAP`). The Device board's mesh row
-reads families only the sharded path (ROADMAP A15b) would export, as the
-reference's does on a single device.
+reads the families the operator's mesh block and the partitioner's publish
+gate export (parallel/partition.py), absent on a single device as in the
+reference.
 
 The reference ships six hand-exported Grafana dashboards
 (reference deploy/grafana/{KIE,Kafka,ModelPrediction,Router,SeldonCore,

@@ -23,7 +23,11 @@ same label stream reproduces the same candidates. The trainer trains on
 the device its params lie on (the Scorer's, in the demo); the loss is read
 back once a round, for ``retrain_last_loss``.
 
-Not ported: the sharded step (``mesh=``, ``partitioner=``; ROADMAP A15).
+With a ``partitioner`` (parallel/partition.py) or a bare ``mesh`` the train
+step is the sharded one (``parallel/train.py``): the state is laid out per
+the partitioner, and each round's batch size rounds UP to a multiple of
+the data axis (``round_batch``; sampling is with replacement), so every
+data shard gets the same number of rows.
 """
 
 from __future__ import annotations
@@ -42,7 +46,6 @@ from ccfd_tpu_torch.parallel.train import (
     detached,
     init_state,
     make_train_step,
-    refuse_sharding,
 )
 
 
@@ -64,8 +67,15 @@ class OnlineTrainer:
         lifecycle: Any = None,
         partitioner: Any = None,
     ):
-        refuse_sharding(mesh, partitioner)
         self.cfg = cfg
+        self.mesh = mesh if partitioner is None else partitioner.mesh
+        self.partitioner = partitioner
+        # the layout the batch rounds to (a bare mesh's is the legacy one)
+        self._layout = partitioner
+        if partitioner is None and mesh is not None:
+            from ccfd_tpu_torch.parallel.partition import legacy_partitioner
+
+            self._layout = legacy_partitioner(mesh)
         self.broker = broker
         self.scorer = scorer
         # the governed rollout (lifecycle/controller.py): when set, every
@@ -93,7 +103,7 @@ class OnlineTrainer:
         # rebase request (any thread -> trainer thread): applied at the top
         # of the next step(), never mid-round
         self._rebase_params: Any = None
-        self._step_fn = make_train_step(self.tc)
+        self._step_fn = make_train_step(self.tc, mesh=mesh, partitioner=partitioner)
         self._stop = threading.Event()
 
         r = self.registry
@@ -163,6 +173,10 @@ class OnlineTrainer:
             return False
         self._new_labels = 0
         batch = min(self.cfg.retrain_batch, len(self._y))
+        if self._layout is not None:
+            # every data shard gets the same rows (sampling with
+            # replacement, so rounding UP is always satisfiable)
+            batch = self._layout.round_batch(batch)
         loss = None
         for _ in range(self.steps_per_round):
             idx = self._rng.integers(0, len(self._y), size=batch)

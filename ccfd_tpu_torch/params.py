@@ -77,7 +77,10 @@ def tree_map(fn: Any, tree: Any) -> Any:
 
 def host_leaf(a: Any) -> np.ndarray:
     """One leaf as a fresh host numpy array: floats float32, integers (int8
-    ``wq``, int32 ``feature``) their own type."""
+    ``wq``, int32 ``feature``) their own type. A leaf laid out over a mesh
+    (parallel/sharding.py's ``ShardedTensor``) is gathered whole."""
+    if hasattr(a, "blocks") and hasattr(a, "gather"):
+        a = a.numpy()
     if isinstance(a, torch.Tensor):
         a = a.detach().cpu().numpy()
     a = np.asarray(a)
@@ -87,6 +90,8 @@ def host_leaf(a: Any) -> np.ndarray:
 def tensor_leaf(a: Any, device: "str | torch.device" = "cpu", copy: bool = False) -> torch.Tensor:
     """One leaf as a tensor on ``device``: floats float32, integers their
     own type; the same tensor when nothing changes, unless ``copy``."""
+    if hasattr(a, "blocks") and hasattr(a, "gather"):  # a ShardedTensor
+        a = a.gather().detach()
     t = a if isinstance(a, torch.Tensor) else torch.from_numpy(host_leaf(a))
     return t.to(device, torch.float32 if t.is_floating_point() else t.dtype, copy=copy)
 
@@ -225,7 +230,10 @@ def params_fingerprint(tree: Any) -> str:
             for i, v in enumerate(node):
                 walk(v, f"{path}/{i}" if path else str(i))
         elif node is not None:
-            a = node.detach().cpu().numpy() if isinstance(node, torch.Tensor) else np.asarray(node)
+            a = node
+            if hasattr(a, "blocks") and hasattr(a, "gather"):  # a ShardedTensor
+                a = a.gather()
+            a = a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
             leaves.append((path, a))
 
     walk(tree, "")

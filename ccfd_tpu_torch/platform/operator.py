@@ -21,6 +21,12 @@ crash), with health probes and one Prometheus exporter:
    1  store (the S3-shaped object store, seeded with the dataset)
    2  bus (in process, durable with ``log_dir``; or a client of ``url``:
       ``http://`` for a ``bus`` role, ``kafka://`` for a cluster)
+  2b  mesh (``mesh.devices`` > 1: the named (data, fsdp, tp) mesh of
+      logical shards, N CPU shards on a CPU platform or the first N
+      cards, and its partitioner from ``param_partition``; the scorer, the
+      seq scorer (``seq_parallel``), the trainer and the analytics engine
+      are built against it, and the router pool's pause barrier arms the
+      partitioner's publish gate (6); 1 is inert)
    3  scorer (``train_steps`` of ``fit_mlp`` on the card first; the REST
       front with ``rest``); for ``model: seq|seq_q8`` the history-aware
       ``SeqScorer`` on the committed ``assets/seq_init.npz`` (the
@@ -77,7 +83,10 @@ reference would: the online retrain under a seq scorer (the reference
 skips it with a warning), the decision plane without a row scorer, and
 the decision plane with the lifecycle (the reference serves the staged
 path with a warning: the canary gate overrides scores after a fused
-verdict fired) are refused.
+verdict fired) are refused. So are a mesh of more shards than visible
+CUDA devices (the reference clamps it), ``mesh.devices: 0`` on a CPU
+platform, and the decision plane with a mesh (the reference serves it
+staged: its decision program has no shard_map composition).
 """
 
 from __future__ import annotations
@@ -112,8 +121,9 @@ _COMPONENTS = (
 _OFF_BY_DEFAULT = ("producer", "store", "chaos", "investigator", "fleet", "replay")
 
 # components the reference's operator builds that the port does not have,
-# with the ROADMAP item that ports each (none: `mesh.devices` other than 1
-# is refused by name in PlatformSpec.refused)
+# with the ROADMAP item that ports each (none since A15b; PlatformSpec.refused
+# names the deviations: `mesh.devices` above the visible CUDA devices, 0 on
+# a CPU platform, and the decision plane with a mesh)
 REFUSED_COMPONENTS: Mapping[str, str] = {}
 # scorer models the operator serves (every other is refused or unknown)
 SCORER_MODELS = ("mlp", "mlp_q8", "logreg", "modelfull", "gbt", "gbt_mxu", "seq", "seq_q8")
@@ -156,10 +166,11 @@ class PlatformSpec:
     def component(self, name: str) -> ComponentSpec:
         return self.components.get(name, ComponentSpec(enabled=False))
 
-    def refused(self) -> list[str]:
+    def refused(self, device: Any = None) -> list[str]:
         """Every part of this spec (and of its config's environment) the
-        port does not have, each named with the ROADMAP item that ports
-        it; [] when the platform can come up."""
+        port does not have or refuses where the reference degrades, each
+        named; [] when the platform can come up on ``device`` (the
+        scorer's: None is the card)."""
         out = [f"{name} ({item})" for name, item in REFUSED_COMPONENTS.items()
                if self.component(name).enabled]
         scorer = self.component("scorer")
@@ -181,9 +192,24 @@ class PlatformSpec:
         mesh = self.component("mesh")
         if mesh.enabled:
             n = int(mesh.opt("devices", self.cfg.mesh_devices))
-            if n != 1:
-                out.append(f"mesh.devices: {n} (A15b (multi-GPU serving); "
-                           "1 is the single-device platform)")
+            on_cpu = device is not None and str(device).startswith("cpu")
+            if n != 1 and on_cpu:
+                if n == 0:
+                    out.append("mesh.devices: 0 (every visible CUDA device; a CPU platform "
+                               "serves N logical CPU shards: name N)")
+            elif n != 1:
+                import torch
+
+                avail = torch.cuda.device_count() if torch.cuda.is_available() else 0
+                if n > avail or n == 0 == avail:
+                    # the reference clamps an oversized mesh with a warning
+                    out.append(f"mesh.devices: {n} (above the {avail} visible CUDA "
+                               "devices; the port refuses where the reference clamps)")
+            if n != 1 and bool(scorer.opt("fused_decision", self.cfg.fused_decision)):
+                # the reference serves it staged, with a warning: its decision
+                # program has no shard_map composition
+                out.append("scorer.fused_decision with a mesh (the decision plane "
+                           "serves one device; disable one of them)")
         if self.cfg.graph_cr:
             out.append("CCFD_GRAPH_CR (the operator's scorer serves scorer.model; "
                        "`serve` serves a graph)")
@@ -191,12 +217,13 @@ class PlatformSpec:
         return out
 
 
-def refuse(spec: PlatformSpec) -> None:
-    """Raise ``NotImplementedError`` naming every refused part of ``spec``."""
-    refused = spec.refused()
+def refuse(spec: PlatformSpec, device: Any = None) -> None:
+    """Raise ``NotImplementedError`` naming every refused part of ``spec``
+    on ``device``."""
+    refused = spec.refused(device)
     if refused:
         raise NotImplementedError(
-            "not ported yet; disable or unset each to bring the platform up: "
+            "refused by the port; disable or unset each to bring the platform up: "
             + "; ".join(refused))
 
 
@@ -247,6 +274,10 @@ class Platform:
         self.replay_tap = None  # replay/service.ReplayVerdictTap (replay on)
         self.fleet = None       # fleet/member.FleetMember when fleet is on
         self.fleet_ledger = None  # fleet/ledger.FleetLedgerTap (fleet on)
+        self.mesh = None         # parallel/mesh.Mesh when the mesh is on (devices > 1)
+        self.partitioner = None  # parallel/partition.Partitioner over it
+        self._mesh_param_partition = "replicated"
+        self._mesh_seq_parallel = "none"
         self._usertask_state_file = None
         self._engine_factory = None
         self._engine_state_file = None
@@ -261,7 +292,7 @@ class Platform:
 
         if self._up:
             return self
-        refuse(self.spec)
+        refuse(self.spec, self.device)
         spec, cfg = self.spec, self.cfg
         self.supervisor = Supervisor()
 
@@ -310,7 +341,7 @@ class Platform:
         if ov_overrides:
             self.cfg = cfg = dataclasses.replace(cfg, **ov_overrides)
             # the CR may select the batcher's queue policies: still refused
-            refuse(dataclasses.replace(spec, cfg=cfg))
+            refuse(dataclasses.replace(spec, cfg=cfg), self.device)
 
         # 0b. distributed tracing: one tail-sampling sink for every
         # component tracer, and the trace-correlated JSON logs
@@ -368,6 +399,11 @@ class Platform:
                          if spec.component(n).enabled]
             if needs_bus:
                 raise ValueError(f"bus disabled in CR but required by: {needs_bus}")
+
+        # 2b. the mesh and its partitioner (parallel/partition.py): the
+        # scorer, the seq scorer and the trainer are built against it
+        if spec.component("mesh").enabled:
+            self._up_mesh(spec.component("mesh"))
 
         # 3. model serving (Seldon, README.md:271-301)
         if spec.component("scorer").enabled:
@@ -823,6 +859,54 @@ class Platform:
                              log_dir=bus_spec.opt("log_dir", "") or None,
                              fsync=bool(bus_spec.opt("fsync", False)))
 
+    def _up_mesh(self, c: ComponentSpec) -> None:
+        """Build the serving mesh and its partitioner from the CR ``mesh:``
+        block over the ``CCFD_MESH_*`` knobs: ``devices`` (1 = single
+        device, inert; 0 = every visible CUDA device; N = N logical shards:
+        N CPU shards on a CPU platform, the first N cards on CUDA, where N
+        above the device count is refused), ``fsdp``/``tp`` (data absorbs
+        the rest), ``param_partition`` (replicated | rules) and
+        ``seq_parallel`` (none | ring | ulysses). The ``ccfd_mesh_devices``
+        and ``ccfd_mesh_axis_size`` gauges land in the ``mesh`` registry."""
+        import torch
+
+        from ccfd_tpu_torch.device import resolve
+
+        cfg = self.cfg
+        n = int(c.opt("devices", cfg.mesh_devices))
+        fsdp = max(1, int(c.opt("fsdp", cfg.mesh_fsdp)))
+        tp = max(1, int(c.opt("tp", cfg.mesh_tp)))
+        self._mesh_seq_parallel = str(c.opt("seq_parallel", cfg.mesh_seq_parallel) or "none")
+        if tp <= 1 and self._mesh_seq_parallel != "none":
+            if n > 1:
+                logging.getLogger(__name__).warning(
+                    "mesh.seq_parallel=%s needs a tp axis > 1 (have tp=%d); disabling "
+                    "sequence parallelism", self._mesh_seq_parallel, tp)
+            self._mesh_seq_parallel = "none"
+        if n == 1:
+            self._mesh_seq_parallel = "none"
+            return
+        from ccfd_tpu_torch.parallel.mesh import make_named_mesh
+        from ccfd_tpu_torch.parallel.partition import partitioner_from_config
+
+        dev = resolve(self.device)
+        if dev.type == "cpu":
+            devices = [dev] * n
+        else:
+            devices = [torch.device("cuda", i) for i in range(n or torch.cuda.device_count())]
+        model = self.spec.component("scorer").opt("model", cfg.model_name)
+        self.mesh = make_named_mesh(devices, fsdp=fsdp, tp=tp)
+        self._mesh_param_partition = str(c.opt("param_partition", cfg.mesh_param_partition))
+        self.partitioner = partitioner_from_config(self.mesh, self._mesh_param_partition,
+                                                   model=str(model))
+        reg = self._registry("mesh")
+        reg.gauge("ccfd_mesh_devices",
+                  "devices in the live serving mesh (absent/0 = unsharded)").set(
+            float(self.mesh.size))
+        g_axis = reg.gauge("ccfd_mesh_axis_size", "named serving-mesh axis sizes")
+        for axis, size in self.mesh.shape.items():
+            g_axis.set(float(size), labels={"axis": str(axis)})
+
     def _up_scorer(self) -> None:
         from ccfd_tpu_torch.serving.scorer import Scorer
 
@@ -853,9 +937,9 @@ class Platform:
         self.scorer = Scorer(
             model_name=model, params=params,
             compute_dtype=c.opt("dtype", cfg.compute_dtype), batch_sizes=cfg.batch_sizes,
-            device=dev, q8_wire=cfg.q8_wire,
+            device=None if self.mesh is not None else dev, q8_wire=cfg.q8_wire,
             dispatch_deadline_ms=cfg.scorer_dispatch_deadline_ms(dev.type == "cuda"),
-            telemetry=self.device_telemetry)
+            telemetry=self.device_telemetry, partitioner=self.partitioner)
         self.scorer.warmup()
         if self.device_telemetry is not None:
             self.device_telemetry.register_executable_source(
@@ -893,7 +977,9 @@ class Platform:
             stripes=int(c.opt("seq_stripes", cfg.seq_stripes)),
             inflight=int(c.opt("seq_inflight", cfg.seq_inflight)),
             len_buckets=tuple(c.opt("seq_len_buckets", cfg.seq_len_buckets)),
-            telemetry=self.device_telemetry, device=resolve(self.device))
+            telemetry=self.device_telemetry,
+            device=None if self.mesh is not None else resolve(self.device),
+            partitioner=self.partitioner, seq_parallel=self._mesh_seq_parallel)
         self.scorer.warmup()
         if self.device_telemetry is not None:
             self.device_telemetry.register_executable_source(
@@ -1158,6 +1244,12 @@ class Platform:
         if self.storage_gate is not None:
             # the storage pin binds whether or not anything arms it
             router.set_heal_gate(self.storage_gate)
+        if self.partitioner is not None and self.scorer is not None:
+            # the publish path: every swap_params (retrain, lifecycle
+            # promote or rollback, heal respawn) pauses this router pool at
+            # a batch boundary for the flip
+            self.partitioner.set_barrier(router, registry=self._registry("mesh"))
+            self.scorer.set_swap_gate(self.partitioner.gate)
         self.supervisor.add_thread_service(
             "router", lambda: router.run(poll_timeout_s=0.02), router.stop,
             policy=RestartPolicy.ALWAYS, reset=router.reset)
@@ -1221,7 +1313,7 @@ class Platform:
         lifecycle = None if bool(c.opt("direct_swap", False)) else self.lifecycle
         trainer = OnlineTrainer(self.cfg, self.broker, self.scorer, self.scorer.params,
                                 registry=self._registry("retrain"), seed=int(c.opt("seed", 0)),
-                                lifecycle=lifecycle)
+                                lifecycle=lifecycle, partitioner=self.partitioner)
         if lifecycle is not None:
             # a reject or rollback re-bases the trainer onto the champion, so
             # the next candidate descends from its recorded parent
@@ -1350,8 +1442,9 @@ class Platform:
 
         c = self.spec.component("analytics")
         registry = self._registry("analytics")
-        engine = AnalyticsEngine(device=self.device, nbins=int(c.opt("nbins", 32)),
-                                 registry=registry)
+        engine = AnalyticsEngine(device=None if self.mesh is not None else self.device,
+                                 nbins=int(c.opt("nbins", 32)), registry=registry,
+                                 mesh=self.mesh)
 
         def build_reference():
             from ccfd_tpu_torch.data.ccfd import load_dataset
@@ -1455,6 +1548,11 @@ class Platform:
             out["endpoints"]["health"] = self.health_server.endpoint
         if self.heal is not None:
             out["heal"] = self.heal.status()
+        if self.mesh is not None:
+            out["mesh"] = {"devices": int(self.mesh.size), "axes": dict(self.mesh.shape),
+                           "platform": self.mesh.platform,
+                           "param_partition": self._mesh_param_partition,
+                           "seq_parallel": self._mesh_seq_parallel}
         if self.fleet is not None:
             gate = self.fleet.parity_gate
             out["fleet"] = {"member": self.fleet.member, "heartbeat": self.fleet.endpoint,

@@ -46,7 +46,7 @@ backoff:
   ``torch.cuda.synchronize`` (a pending asynchronous error surfaces here
   as a raised, failed rung), ``torch.cuda.empty_cache()`` and the
   scorer's ``drop_device_state()``. It builds nothing: builds happen only
-  under the ``heal.warm`` or ``scorer.warm`` labels;
+  under the ``heal.warm`` or ``scorer.warmup`` labels;
 - ``respawn``: ``swap_params`` of the scorer's own params into fresh
   device buffers.
 
@@ -90,14 +90,30 @@ STATE_NAMES = {HEALTHY: "healthy", SUSPECT: "suspect",
 RUNGS = ("canary_retry", "reinit", "respawn")
 
 # build-stage labels that legitimately build OUTSIDE the serving hot path:
-# warmups and the heal ladder's own steps (the reference's set, plus the
-# port's row-scorer warmup label ``scorer.warm``). Everything else counting
-# a build while serving is a storm signal, and after a re-promotion flip it
-# would mean the re-promotion was cold.
+# warmups and the heal ladder's own steps (the reference's set; the row
+# scorer's warmup bills ``scorer.warmup``, as the reference's does).
+# Everything else counting a build while serving is a storm signal, and
+# after a re-promotion flip it would mean the re-promotion was cold.
 NON_SERVING_COMPILE_STAGES = frozenset({
-    "total", "heal.warm", "heal.canary", "scorer.warm", "scorer.warmup",
+    "total", "heal.warm", "heal.canary", "scorer.warmup",
     "seq.warmup", "seq.swap", "fused.warm",
 })
+
+
+def mesh_domain_label(mesh: Any) -> str:
+    """``mesh:<platform>x<n>`` (platform ``cuda`` or ``cpu``): the health
+    domain of a mesh-sharded scorer.
+
+    **The mesh is ONE health domain.** Every sharded dispatch spans every
+    shard of the mesh, so there is no per-shard traffic to steer away from
+    a sick one: a canary failure on any shard fails the whole dispatch. The
+    supervisor therefore quarantines the MESH TIER (the router's ladder
+    serves from the host tier for the whole heal cycle) and re-promotes the
+    mesh as a unit after the warm gate."""
+    try:
+        return f"mesh:{mesh.platform}x{int(mesh.size)}"
+    except Exception:  # noqa: BLE001 - a label, never a failure
+        return "mesh:unknown"
 
 
 def default_device_label(device: Any = None) -> str:
@@ -163,11 +179,14 @@ class DeviceSupervisor:
         self.profiler = profiler
         self.recorder = recorder
         self.overload = overload
-        # one card is one health domain (the sharded mesh, ROADMAP A15b,
-        # is not ported)
-        self.domain = "device"
+        # a mesh-sharded scorer is ONE health domain (mesh_domain_label):
+        # quarantine, heal and re-promotion act on the mesh tier, never on
+        # one shard
+        scorer_mesh = getattr(scorer, "mesh", None)
+        self.domain = "mesh" if scorer_mesh is not None else "device"
         if device is None:
-            device = default_device_label(getattr(scorer, "device", None))
+            device = (mesh_domain_label(scorer_mesh) if scorer_mesh is not None
+                      else default_device_label(getattr(scorer, "device", None)))
         self.device = device
         self.canary_deadline_s = max(1e-3, float(canary_deadline_ms) / 1e3)
         self.suspect_strikes = max(1, int(suspect_strikes))

@@ -49,12 +49,30 @@ routing tier, which sees every transaction in arrival order.
   its device program too; ``host_score`` is the champion's cold-context
   score, the paired half of the evaluator's label join.
 
-Not carried over here: a ``mesh``, a ``partitioner`` and ``seq_parallel``
-other than ``none`` (the sharded seq path, ROADMAP A15b) are refused by
-name.
+- **The mesh** (``mesh=`` or ``partitioner=``, parallel/partition.py):
+  history batches split over the mesh's partitioned axes (every axis of
+  size > 1 but the sequence-parallel one), and B buckets round up to the
+  number of batch groups. The params lie on the mesh as the partitioner
+  lays them out (the rule table under ``param_partition: rules``,
+  replicated under data parallelism; a tree the table does not cover, such
+  as the int8 ``seq_q8`` tree, replicates with a warning), and each batch
+  group runs the forward on its device with the params gathered there.
+  History assembly stays on the host either way.
+- **Sequence parallelism** (``seq_parallel``: ``none`` | ``ring`` |
+  ``ulysses``): the attention's L dim shards over the mesh's ``tp`` (or
+  legacy ``model``) axis through ops/ring_attention.py or ops/ulysses.py,
+  within each batch group. The gate is static: a block that cannot shard
+  (the readout block's single query; an L the axis does not divide;
+  ulysses also a head count it does not divide) takes
+  ``reference_attention``, and a full-attention block that cannot shard
+  warns once. The inventory's ``seq_parallel_engaged`` says whether any
+  attention block was actually sharded.
+- **The publish gate**: ``swap_params`` enters the partitioner's
+  ``PublishGate`` (``set_swap_gate``) for the flip, as the row Scorer does.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import threading
 import time
@@ -75,6 +93,15 @@ DEFAULT_STRIPES = 8
 # padding mask), so scores for cold rows differ between rungs
 DEFAULT_LEN_BUCKETS: tuple = ()
 DEFAULT_INFLIGHT = 2
+
+
+class _PlacedTree(dict):
+    """A mesh SeqScorer's params: the laid-out tree (dict items) and, by
+    batch-group device, the params gathered there (``local``)."""
+
+    def __init__(self, tree: dict):
+        super().__init__(tree)
+        self.local: dict = {}
 
 
 class _Stripe:
@@ -468,12 +495,44 @@ class SeqScorer:
         sp = str(seq_parallel or "none").lower()
         if sp not in ("none", "ring", "ulysses"):
             raise ValueError(f"seq_parallel={seq_parallel!r}: expected none|ring|ulysses")
-        for what, on in (("mesh", mesh is not None), ("partitioner", partitioner is not None),
-                         (f"seq_parallel={sp!r}", sp != "none")):
-            if on:
-                raise NotImplementedError(
-                    f"SeqScorer {what}: the sharded seq path (ROADMAP A15b) is not "
-                    "ported yet; the port serves seq on one card")
+        self.partitioner = partitioner
+        if partitioner is not None:
+            mesh = partitioner.mesh
+        self.mesh = mesh
+        self.seq_parallel = sp
+        self._sp_axis = None
+        self._groups: list | None = None
+        self._sp_engaged = 0
+        self._sp_fallback = 0
+        self._sp_warned = False
+        self._swap_gate: Any = None
+        if sp != "none" and mesh is None:
+            raise ValueError("seq_parallel needs a mesh")
+        if mesh is not None:
+            home = mesh.flat[0]
+            if device is not None and torch.device(device).type != home.type:
+                raise ValueError(f"device={device!r} but the mesh's shards lie on {home}")
+            device = home
+            if sp != "none":
+                # L shards over the tensor-parallel axis (named mesh "tp";
+                # legacy 2-D mesh "model"): the batch must not split over it
+                for a in ("tp", "model"):
+                    if mesh.shape.get(a, 1) > 1:
+                        self._sp_axis = a
+                        break
+                if self._sp_axis is None:
+                    raise ValueError(
+                        f"seq_parallel={sp!r} needs a tp/model mesh axis of size > 1; "
+                        f"mesh axes are {dict(mesh.shape)}")
+            # the batch splits over EVERY non-sp axis the mesh has
+            part_axes = tuple(a for a in ("data", "fsdp", "tp", "model")
+                              if mesh.shape.get(a, 1) > 1 and a != self._sp_axis) \
+                or tuple(a for a in mesh.axis_names if a != self._sp_axis)[:1]
+            self._groups = [pos for pos in mesh.positions()
+                            if all(c == 0 for a, c in zip(mesh.axis_names, pos)
+                                   if a not in part_axes)]
+            dsize = len(self._groups)
+            batch_sizes = tuple(max(1, -(-int(b) // dsize)) * dsize for b in batch_sizes)
         self.device = resolve(device)
         self.store = HistoryStore(length=length, max_customers=max_customers,
                                   stripes=stripes)
@@ -539,9 +598,83 @@ class SeqScorer:
 
     # -- variant dispatch ---------------------------------------------------
     def _to_device(self, params: Any) -> dict:
-        from ccfd_tpu_torch.params import to_device
+        """The params on the scorer's device; on a mesh, laid out per
+        ``_param_layout`` (a tree of ``ShardedTensor``, with each batch
+        group's gathered copy in ``.local``)."""
+        from ccfd_tpu_torch.params import tensor_leaf, to_device, tree_map
 
-        return to_device(params, self.device)
+        if self.mesh is None:
+            return to_device(params, self.device)
+        from ccfd_tpu_torch.parallel.sharding import shard_params
+
+        host = tree_map(lambda a: tensor_leaf(a, "cpu"), params)
+        placed = _PlacedTree(shard_params(host, self._param_layout(host)))
+        for pos in self._groups:
+            dev = self.mesh.devices[pos]
+            if str(dev) not in placed.local:
+                placed.local[str(dev)] = to_device(placed, dev)
+        return placed
+
+    def _param_layout(self, params: Any) -> Any:
+        """``NamedSharding`` tree for the seq params on the mesh: the
+        partitioner's layout when one is given, else replicated; a tree
+        the rule table does not cover replicates with a warning."""
+        from ccfd_tpu_torch.parallel.partition import DataParallelPartitioner
+
+        rep = DataParallelPartitioner(self.mesh)
+        if self.partitioner is None:
+            return rep.param_sharding(params)
+        try:
+            return self.partitioner.param_sharding(params)
+        except ValueError as e:
+            import logging
+
+            logging.getLogger(__name__).warning(
+                "seq param layout: rule table does not cover this tree (%s); "
+                "replicating instead", e)
+            return rep.param_sharding(params)
+
+    def set_swap_gate(self, gate: Any) -> None:
+        """Arm the partitioner's publish gate: every ``swap_params`` then
+        pauses the router pool at a batch boundary for the flip, as the row
+        Scorer's."""
+        self._swap_gate = gate
+
+    def _sp_attention(self, pos: tuple) -> Any:
+        """The selected sequence-parallel attention over the sp axis of the
+        batch group at ``pos``, or None (module docstring's static gate)."""
+        if self._sp_axis is None:
+            return None
+        from ccfd_tpu_torch.ops.ring_attention import reference_attention
+
+        mesh, axis = self.mesh, self._sp_axis
+        n = int(mesh.shape[axis])
+        at = {a: c for a, c in zip(mesh.axis_names, pos) if a != axis}
+        if self.seq_parallel == "ring":
+            from ccfd_tpu_torch.ops.ring_attention import ring_attention as sp_fn
+        else:
+            from ccfd_tpu_torch.ops.ulysses import ulysses_attention as sp_fn
+        needs_heads = self.seq_parallel == "ulysses"
+
+        def attn(q, k, v):
+            shardable = (q.shape[2] == k.shape[2]  # not the readout query
+                         and q.shape[2] % n == 0
+                         and (not needs_heads or q.shape[1] % n == 0))
+            if not shardable:
+                self._sp_fallback += 1
+                if q.shape[2] == k.shape[2] and not self._sp_warned:
+                    self._sp_warned = True
+                    import logging
+
+                    logging.getLogger(__name__).warning(
+                        "seq_parallel=%s cannot shard a (heads=%d, L=%d) attention over "
+                        "the %d-way %r axis; that shape serves reference attention",
+                        self.seq_parallel, q.shape[1], q.shape[2], n, axis)
+                return reference_attention(q, k, v)
+            self._sp_engaged += 1
+            return sp_fn(q, k, v, mesh, axis, at=at)
+
+        return attn
 
     @staticmethod
     def _is_quantized(params: Any) -> bool:
@@ -559,9 +692,23 @@ class SeqScorer:
         # positions anchor at the store's FULL length: a short L-bucket
         # window's tokens keep the positions the full-L path gives them
         plen = self.store.length
-        if quantized:
-            return lambda p, xs: seq_quant.apply_serving(p, xs, dtype, pos_length=plen)
-        return lambda p, xs: seq_mod.apply_serving(p, xs, dtype, pos_length=plen)
+        if self.mesh is None:
+            if quantized:
+                return lambda p, xs: seq_quant.apply_serving(p, xs, dtype, pos_length=plen)
+            return lambda p, xs: seq_mod.apply_serving(p, xs, dtype, pos_length=plen)
+        fn = seq_quant.logits if quantized else seq_mod.logits_readout
+        groups = [(self.mesh.devices[pos], self._sp_attention(pos)) for pos in self._groups]
+
+        @torch.no_grad()
+        def sharded(p: Any, xs: torch.Tensor) -> torch.Tensor:
+            # one forward a batch group, on its device with its copy of
+            # the params; the attention shards over the group's sp axis
+            outs = [torch.sigmoid(fn(p.local[str(dev)], part.to(dev), dtype,
+                                     attention_fn=attn, pos_length=plen)).to(xs.device)
+                    for (dev, attn), part in zip(groups, xs.chunk(len(groups)))]
+            return torch.cat(outs)
+
+        return sharded
 
     def swap_params(self, params: Any) -> None:
         """Hot-swap model weights. A variant change (the float tree
@@ -574,11 +721,13 @@ class SeqScorer:
         if quantized != self._quantized:
             new_apply = self._make_apply(quantized)
             self._run_grid(params, new_apply)
-        with self._params_lock:
-            self.params = params
-            if new_apply is not None:
-                self._quantized = quantized
-                self._apply = new_apply
+        gate = self._swap_gate
+        with gate if gate is not None else contextlib.nullcontext():
+            with self._params_lock:
+                self.params = params
+                if new_apply is not None:
+                    self._quantized = quantized
+                    self._apply = new_apply
 
     def _run_grid(self, params: Any, apply_fn: Any) -> None:
         for b in self.batch_sizes:
@@ -606,8 +755,15 @@ class SeqScorer:
                     entry["dispatches"] = int(self._c_bucket.value(
                         {"l_bucket": str(lb), "b_bucket": str(b)}))
                 grid.append(entry)
-        return {"model": "seq_q8" if self._quantized else "seq",
-                "length": int(self.store.length), "grid": grid}
+        out = {"model": "seq_q8" if self._quantized else "seq",
+               "length": int(self.store.length), "grid": grid}
+        if self.mesh is not None:
+            out["mesh_devices"] = int(self.mesh.size)
+            out["seq_parallel"] = self.seq_parallel
+            if self.seq_parallel != "none":
+                # configured is not engaged: did any block actually shard?
+                out["seq_parallel_engaged"] = self._sp_engaged > 0
+        return out
 
     def dispatch_total(self) -> int:
         """Forward launches so far (the operator's ``ccfd_scorer_dispatches``)."""

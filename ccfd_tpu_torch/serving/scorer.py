@@ -65,6 +65,26 @@ port of ccfd_tpu/serving/scorer.py's ``Scorer``.
   tap and the canary gate score the candidate there, while the champion's
   path never leaves the kernel, and a promoted candidate serves only
   through ``swap_params``.
+- **Mesh-sharded dispatch** (``partitioner=``, parallel/partition.py, or a
+  bare ``mesh=`` with ``param_partition`` ``replicated`` or ``model``):
+  one scorer whose batch shards over the mesh's ``data`` axis, as the
+  reference's. Buckets round up to multiples of the data-axis size, and
+  each staged chunk is copied shard by shard: shard j's rows go to shard
+  j's device on shard j's CUDA stream (``Mesh.stream``), each copy timed
+  and counted as its own put. On a kernel path B1 (``mlp``) or B2
+  (``mlp_q8``) then launches once a shard on that stream, with the folded
+  weights replicated (one packed copy a distinct device), and the shard's
+  probabilities are copied back on the same stream, after which an event
+  is recorded on it; ``_collect`` waits on every shard's event. The params
+  themselves lie on the mesh as the layout says (``params`` is a tree of
+  ``ShardedTensor``); a plain torch graph (``mlp`` in f32, the other
+  models) runs on each shard with the params gathered onto its device
+  (the all-gather schedule, where the reference lets XLA pick one). A mesh
+  keeps the f32 wire, as the reference does: B3's int8 wire stays
+  single-device, so ``mlp_q8`` on a mesh serves through B2.
+  ``swap_params`` enters the partitioner's ``PublishGate`` (``set_swap_gate``)
+  for the flip. The executable grid's ``dispatches`` count the bucketed
+  dispatches; ``shard_launches`` count the launches, a shard each.
 - **Fault seams** (runtime/faults.py, as the reference's):
   ``device_seam("dispatch")`` before each launch of ``score_pipelined``
   (``device_hang``, ``compile_stall``) and ``device_seam("put")`` inside
@@ -76,6 +96,7 @@ port of ccfd_tpu/serving/scorer.py's ``Scorer``.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from collections import deque
 from typing import Any, Sequence
@@ -101,6 +122,16 @@ _DTYPES = {
 _Q8_WIRES = ("int8", "f32")
 
 
+class _Placed:
+    """A mesh scorer's staged params: the laid-out tree and, by shard
+    device, what a shard's launch reads (packed kernel weights, or the
+    params gathered there)."""
+
+    def __init__(self, tree: Any, local: dict):
+        self.tree = tree
+        self.local = local
+
+
 class Scorer:
     def __init__(
         self,
@@ -114,7 +145,37 @@ class Scorer:
         q8_wire: str = "int8",
         dispatch_deadline_ms: float = 0.0,
         telemetry: Any = None,
+        mesh: Any = None,
+        param_partition: str = "replicated",
+        partitioner: Any = None,
     ):
+        # the partitioning layer (parallel/partition.py): a partitioner owns
+        # every layout decision; a bare mesh takes the reference's
+        # hand-rolled layouts (replicated, or the megatron "model" layout)
+        self.partitioner = partitioner
+        if partitioner is not None:
+            mesh = partitioner.mesh
+        self.mesh = mesh
+        if param_partition not in ("replicated", "model"):
+            raise ValueError(f"unknown param_partition {param_partition!r}")
+        if param_partition == "model" and model_name != "mlp":
+            raise ValueError(f"param_partition='model' has a layout only for 'mlp', "
+                             f"not {model_name!r}")
+        self._layout = None
+        if mesh is not None:
+            from ccfd_tpu_torch.parallel.partition import (
+                DataParallelPartitioner,
+                legacy_partitioner,
+            )
+
+            self._layout = partitioner or (legacy_partitioner(mesh) if param_partition == "model"
+                                           else DataParallelPartitioner(mesh))
+            home = mesh.flat[0]
+            if device is not None and torch.device(device).type != home.type:
+                raise ValueError(f"device={device!r} but the mesh's shards lie on {home}")
+            device = home
+            batch_sizes = {self._layout.round_batch(b) for b in batch_sizes}
+        self._swap_gate: Any = None
         self.device = resolve(device)
         if telemetry is None:
             # the process default (observability/device.set_default), as
@@ -143,7 +204,8 @@ class Scorer:
         self._kmod = fused_mlp_q8 if self._q8 else (
             fused_mlp if self.spec.name == "mlp"
             and self.compute_dtype == torch.bfloat16 else None)
-        self.int8_wire = self._q8 and q8_wire == "int8"
+        # a mesh keeps the f32 wire (B2), as the reference does
+        self.int8_wire = self._q8 and q8_wire == "int8" and mesh is None
         if params is None:
             params = self.spec.init(torch.Generator().manual_seed(seed))
         self._lock = threading.Lock()
@@ -176,6 +238,8 @@ class Scorer:
         are quantized with; committed before return. ``params`` may hold
         tensors or numpy arrays, in any tree. Raises ``ValueError`` for
         params the kernel does not take."""
+        if self.mesh is not None:
+            return self._stage_mesh(params)
         staged = tree_map(lambda a: tensor_leaf(a, self.device, copy=True), params)
         kp = host_norm = None
         if self._kmod is not None:
@@ -188,9 +252,36 @@ class Scorer:
             torch.cuda.current_stream(self.device).synchronize()
         return staged, kp, host_norm
 
+    def _stage_mesh(self, params: Any) -> tuple:
+        """The mesh's staging: the params laid out per the layout, and for
+        each distinct shard device either the packed kernel weights
+        (folded once, on the host) or the params gathered there."""
+        host = tree_map(lambda a: tensor_leaf(a, "cpu"), params)
+        tree = self._layout.shard_params(host)
+        devices = {str(self.mesh.devices[p]): self.mesh.devices[p]
+                   for p in self._layout.data_positions()}
+        if self._kmod is not None:
+            folded = self._kmod.fold_for_kernel(host)
+            local = {k: self._kmod.pack_for_kernel(folded, d) for k, d in devices.items()}
+        else:
+            local = {k: tree_map(lambda a: tensor_leaf(a, d, copy=True), tree)
+                     for k, d in devices.items()}
+        for d in devices.values():
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+        return _Placed(tree, local), (local if self._kmod is not None else None), None
+
     @property
     def params(self) -> dict:
-        return self._live[0]
+        """The served params; on a mesh, a tree of ``ShardedTensor``."""
+        live = self._live[0]
+        return live.tree if isinstance(live, _Placed) else live
+
+    def set_swap_gate(self, gate: Any) -> None:
+        """Arm the partitioner's publish gate: every ``swap_params`` then
+        pauses the router pool at a batch boundary for the flip
+        (parallel/partition.py ``PublishGate``; None disarms)."""
+        self._swap_gate = gate
 
     def swap_params(self, new_params: Any) -> None:
         """Publish new params without pausing serving: stage everything, run
@@ -203,9 +294,11 @@ class Scorer:
             hooks = list(self._prepublish_hooks)
         for hook in hooks:
             hook(live)
-        with self._lock:
-            self._live = live
-            self._host_params = host
+        gate = self._swap_gate
+        with gate if gate is not None else contextlib.nullcontext():
+            with self._lock:
+                self._live = live
+                self._host_params = host
 
     def add_prepublish_hook(self, fn: Any) -> None:
         """``fn(staged)`` runs inside every ``swap_params`` after staging and
@@ -238,13 +331,18 @@ class Scorer:
         with self._lock:
             return sum(self._dispatch_counts.values())
 
+    @property
+    def shards(self) -> int:
+        """Launches a dispatch: the data axis's size on a mesh, else 1."""
+        return len(self._layout.data_positions()) if self._layout is not None else 1
+
     def executable_grid(self) -> dict:
         """The bucket grid this scorer serves from, with dispatches per
         bucket."""
         with self._lock:
             counts = dict(self._dispatch_counts)
             warmed = sorted(self._warmed)
-        return {
+        out = {
             "model": self.spec.name,
             "kernel": self.kernel_name,
             "batch_sizes": list(self.batch_sizes),
@@ -255,11 +353,19 @@ class Scorer:
             "dispatch_deadline_ms": self.dispatch_deadline_s * 1e3,
             "dispatches": {str(b): int(n) for b, n in sorted(counts.items())},
         }
+        if self.mesh is not None:
+            out["mesh_devices"] = int(self.mesh.size)
+            out["mesh_axes"] = dict(self.mesh.shape)
+            out["shard_launches"] = {str(b): int(n) * self.shards
+                                     for b, n in sorted(counts.items())}
+        return out
 
     # -- dispatch ------------------------------------------------------------
     def _launch(self, live: tuple, chunk: np.ndarray, b: int) -> tuple:
         """Stage one chunk padded to bucket ``b``, score it, and queue the
         copy back; returns what ``_collect`` needs."""
+        if self.mesh is not None:
+            return self._launch_sharded(live, chunk, b)
         params, kp, host_norm = live
         take = chunk.shape[0]
         pin = self.device.type == "cuda"
@@ -297,9 +403,49 @@ class Scorer:
             done.record(torch.cuda.current_stream(self.device))
         return staging, oh, take, done, copies
 
+    def _launch_sharded(self, live: tuple, chunk: np.ndarray, b: int) -> tuple:
+        """One bucketed dispatch over the data shards (module docstring):
+        shard j copies its rows, launches and copies back on its own
+        stream; one event a shard."""
+        placed = live[0]
+        take = chunk.shape[0]
+        positions = self._layout.data_positions()
+        rows = b // len(positions)
+        pin = self.device.type == "cuda"
+        wire = self._kmod.INPUT_DTYPE if self._kmod is not None else torch.float32
+        xh = torch.empty((b, self.num_features), dtype=wire, pin_memory=pin)
+        xh[:take].copy_(torch.from_numpy(chunk))  # host cast to the wire
+        xh[take:].zero_()
+        oh = torch.empty((b,), dtype=torch.float32, pin_memory=pin)
+        events, copies = [], []
+        for j, pos in enumerate(positions):
+            dev = self.mesh.devices[pos]
+            local = placed.local[str(dev)]
+            stream = self.mesh.stream(self.mesh.flat_index(pos))
+            with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+                xd, tok = timed_copy(self.telemetry, xh[j * rows:(j + 1) * rows], dev)
+                copies.append(tok)
+                if self._q8:
+                    out = fused_mlp_q8.fused_mlp_q8_score(local, xd)
+                elif self._kmod is not None:
+                    out = fused_mlp.fused_mlp_score(local, xd)
+                else:
+                    out = self.spec.apply(local, xd, self.compute_dtype)
+                oh[j * rows:(j + 1) * rows].copy_(out, non_blocking=True)
+                if stream is not None:
+                    ev = torch.cuda.Event()
+                    ev.record(stream)
+                    events.append(ev)
+        # the live snapshot rides along: nothing it holds is freed while a
+        # shard's stream may still read it
+        return (xh, live), oh, take, events, copies
+
     def _collect(self, pending: tuple) -> np.ndarray:
         _staging, oh, take, done, copies = pending
-        if done is not None:
+        if isinstance(done, list):
+            for ev in done:
+                ev.synchronize()
+        elif done is not None:
             done.synchronize()
         settle_copies(self.telemetry, copies)
         return oh[:take].numpy().copy()
@@ -312,7 +458,7 @@ class Scorer:
             live = self._live
         for b in self.batch_sizes:
             zeros = np.zeros((b, self.num_features), np.float32)
-            with compile_stage("scorer.warm"):
+            with compile_stage("scorer.warmup"):
                 self._collect(self._launch(live, zeros, b))
             with self._lock:
                 self._warmed.add(b)

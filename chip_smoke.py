@@ -12,7 +12,8 @@ the heal supervisor, the fault plans, the chaos monkey and the audit plane,
 governed rollouts and replay (the seq family's too), the incident and
 capacity planes, and the loadgen and doctor tools, the fleet of operator
 processes on one bus with its kill drill, ``train --from-store`` and the
-``lint`` gate) and holds each CUDA kernel against its plain PyTorch version. Each kernel's ``launches`` in the
+``lint`` gate, the partitioning layer over logical shards of the card, and
+the traffic-shape harness) and holds each CUDA kernel against its plain PyTorch version. Each kernel's ``launches`` in the
 kernels line sum the runs of the paths through it (train, serve, demo and
 services; in each role process, its dispatches, read off its scrape). The
 kernels: B1
@@ -160,16 +161,16 @@ wire).
                router on the card (one worker, a rule base that also sends
                amounts of 500 and more to the fraud process, so the engine
                holds open processes and investigator tasks) and notify;
-               4,000 rows; the bus SIGKILLed and restarted on the same port
+               2,000 rows; the bus SIGKILLed and restarted on the same port
                and D: the topic's end offsets and the router group's
                committed offsets equal to theirs before the kill, the router
                and notify having exited on the dead bus as the reference's
                roles do (their restart policy brings them back: the drill
-               restarts them); 4,000 rows; the engine SIGTERMed and
+               restarts them); 2,000 rows; the engine SIGTERMed and
                restarted on S: its active instances and open tasks (REST)
-               equal to theirs before the stop; 4,000 rows; then the bus
+               equal to theirs before the stop; 2,000 rows; then the bus
                killed once more and restarted with CCFD_BUS_FSYNC=1 for a
-               last 4,000-row burst. Every row routed once and started once
+               last 2,000-row burst. Every row routed once and started once
                (summed over the processes' lifetimes), no score error,
                degraded row or shed, each router process's B1 launches = its
                dispatches + its warmup; the bus's reopen time (to its health
@@ -181,7 +182,7 @@ wire).
                corrupt=0.05;engine:latency=1,jitter=2" (and
                CCFD_CLIENT_RETRIES=0, so every injected fault reaches the
                ladder): the router on SELDON_URL -> a `serve` process on the
-               card, 10,000 rows at 2,000/s: every row routed once and started once,
+               card, 5,000 rows at 2,000/s: every row routed once and started once,
                the rules tier took exactly the rows whose scorer call failed
                or was refused, the host tier none (the reference's role has
                none on SELDON_URL; a local Scorer's router would send them
@@ -247,7 +248,7 @@ wire).
                (assets/seq_golden.npz) within the same bars; seq_q8's int32
                accumulators for every dense layer bit-equal to the CPU's;
            (b) for seq (bf16) and seq_q8 at each shape of (a) and B=16,384:
-               ms a call (CUDA events around 100 calls), the bound (dense
+               ms a call (CUDA events around 50 calls), the bound (dense
                operations over the bf16 or int8 peak and the attention's
                over the bf16 peak, against bytes over the memory rate) and
                its share, and the card's busy share from a device-only trace;
@@ -378,6 +379,31 @@ wire).
            params against its plain version at B=16 and 16,384; recorded:
            the tx/s of a FLEET_BURST burst at 3, 2 and 1 members, kill to
            re-adoption, the redeliveries and each member's device memory
+  mesh     the partitioning layer (parallel/, ops/shard_compat.py,
+           ops/ulysses.py) on MESH_SHARDS logical shards of the one card,
+           a CUDA stream each: (a) `Scorer(partitioner=DataParallel...)`
+           for mlp (B1) and mlp_q8 on the f32 wire (B2) at buckets 16,
+           1,024 and 16,384, the surrogate's 20,000 rows three times each,
+           every row bit-equal to the single-device kernel, launches =
+           shards x dispatches; (b) two ParallelRouter workers routing
+           20,000 transactions through the sharded B1 scorer while a
+           thread swaps params through the PublishGate: zero pause
+           timeouts, the accounting conserved, the fingerprint of the
+           served params the unsharded tree's; (c) the sharded train
+           step, data = 4, 20 steps against one device within the loss
+           path's tolerance; (d) SeqScorer with seq_parallel=ring and then
+           ulysses on a (1, 1, 4) mesh at the served seq width (the
+           committed seq_init, L=64), within 1e-2 in p of the unsharded
+           SeqScorer, the attention sharded; (e) a canary hang quarantining
+           the mesh tier as one domain, the router on the host tier; (f)
+           the operator with mesh.devices: 1 (inert) and 2 (refused by
+           name)
+  load_shape tools/torch_load_shape.py's flash, diurnal and hotkey
+           regimes at 8 s each with B1 on the card, in a process of their
+           own (its exit code and JSON line): every invariant, each
+           regime's p50/p99, shed shares by priority, the AIMD limit's
+           path and the flash crowd's capacity document; B1's launches in
+           that process = dispatches + warmups
   models   the reference's other Seldon models, torch code on the card (no
            hand kernel: the reference leaves them to XLA):
            (a) card against CPU, the same port function, B=16 and 16,384:
@@ -436,8 +462,8 @@ import time
 import urllib.request
 
 PHASES = ("device", "build", "parity", "train", "serve", "decision", "demo", "services",
-          "platform", "seq", "tasks", "heal", "rollout", "observatory", "fleet", "models",
-          "timing")
+          "platform", "seq", "tasks", "heal", "rollout", "observatory", "fleet", "mesh",
+          "load_shape", "models", "timing")
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 7
 PARITY_BATCHES = (1, 16, 100, 1024, 16384)
@@ -477,7 +503,7 @@ LADDER_RATE_ROWS, LADDER_RATE = 6_000, 2_000.0
 # customer's case reaches the DMN and an investigator task within a burst's
 # quiet time; the rule base (the default threshold rule, and amounts of 500
 # and more to the fraud process as well: an issuer's large-amount rule)
-DURABLE_ROWS = 4_000
+DURABLE_ROWS = 2_000
 DURABLE_REPLY_TIMEOUT_S = 2.0
 DURABLE_RULES = [
     {"name": "fraud", "process": "fraud", "salience": 10,
@@ -488,7 +514,7 @@ DURABLE_RULES = [
 ]
 # part (e): rows, paced (many small batches, so the plan draws on many
 # scorer calls), and the router's standing fault plan
-FAULT_ROWS, FAULT_RATE = 10_000, 2_000.0
+FAULT_ROWS, FAULT_RATE = 5_000, 2_000.0
 FAULT_PLAN = "scorer:error=0.1,corrupt=0.05;engine:latency=1,jitter=2"
 # the platform phase: the port's CR, `up -f` of it, its crash drill and
 # its fixed-rate runs
@@ -570,7 +596,7 @@ SEQ_CPU_ROWS = 256  # of each (a) batch, scored on the CPU too
 # near its boundary flips between the two orders; seq_q8, an ulp apart
 # before a token's rint(h / s) moves it to the next integer
 SEQ_TOL = {"f32": 1e-4, "bf16": 2e-2, "q8": 3e-2}
-SEQ_CALLS = 100
+SEQ_CALLS = 50
 SEQ_OP_ROWS = 20_000
 SEQ_CUSTOMERS = 1_000
 SEQ_SAMPLED = 64
@@ -664,7 +690,7 @@ FLEET_MEMBERS = 3
 FLEET_PARTITIONS = 6
 FLEET_TXS = 10_000  # before the kill, and as many after it
 FLEET_TTL_S = 2.0
-FLEET_BURST = 20_000  # the scaling row's burst at each fleet size
+FLEET_BURST = 10_000  # the scaling row's burst at each fleet size
 # the members' planes beyond the routing slice: the stage profiler (its
 # ccfd_build_events_total shows any kernel build a member ran) and the
 # device telemetry (/debug/device: each member's allocator on the card)
@@ -720,6 +746,24 @@ OBS_ABSENT = {
 PROMQL_WORDS = {"rate", "sum", "by", "min", "max", "histogram_quantile", "increase", "avg",
                 "irate", "without", "group_left", "group_right", "on", "ignoring", "bool",
                 "and", "or", "unless", "offset", "count", "topk", "clamp_min", "abs"}
+MESH_SHARDS = 4  # logical shards of the one card, a CUDA stream each
+MESH_BUCKETS = (16, 1024, 16384)
+MESH_ROWS = 20_000  # the surrogate's rows, each sharded run
+MESH_REPEATS = 3  # a missing stream wait reads a stale output only now and then
+MESH_SWAP_ROWS = 20_000
+MESH_SWAP_RATE = 10_000  # rows/s produced while the swaps run
+MESH_SWAP_EVERY_S = 0.02
+MESH_TRAIN_STEPS = 20
+# the loss path's bar (the reference test's dp=8 tolerances): the shards'
+# partial sums add in another order than one device's
+MESH_TRAIN_TOL = {"loss_rtol": 5e-4, "rtol": 5e-4, "atol": 5e-5}
+MESH_SEQ_ROWS = 2_048
+MESH_SEQ_CUSTOMERS = 256
+MESH_SEQ_CHUNK = 256
+MESH_SEQ_TOL = 1e-2  # in p, bf16 (the seq family's bar)
+LOAD_SHAPE_SECONDS = 8.0  # each regime's duration (the harness's --short)
+LOAD_SHAPE_SLO_MS = 1200.0
+LOAD_SHAPE_RATE = 4000.0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12  # float32 outside the tensor cores, NVIDIA data sheet
 BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, NVIDIA data sheet
@@ -2448,7 +2492,7 @@ class Smoke:
             durable = self.services_durable(d)
             d.stop()
             log("services", f"part (d) took {time.perf_counter() - t0:.1f} s")
-            log("services", "tx/s of a 4,000-row burst on the durable bus (after each "
+            log("services", f"tx/s of a {DURABLE_ROWS:,}-row burst on the durable bus (after each "
                 f"start): {[round(x, 1) for x in durable['tx_s']]}, with "
                 f"CCFD_BUS_FSYNC=1: {durable['tx_s_fsync']:.1f}; part (a)'s memory bus "
                 f"(20,000 rows): {one['tx_s']:.1f}; on {self.card}")
@@ -4961,6 +5005,426 @@ class Smoke:
             + (f"{per_member:.0f} bytes a member (the mean of the three contexts)"
                if per_member is not None else "a member's share not measured")
             + f"; each member's report {json.dumps(mem)} on {self.card}")
+
+    def mesh(self) -> None:
+        """The partitioning layer on MESH_SHARDS logical shards of the one
+        card (module docstring, parts (a)-(f)). B1's and B2's launches in
+        (a) and B1's in (b) are this phase's main-path launches."""
+        b1, b2 = self.mesh_buckets()
+        b1 += self.mesh_swap()
+        self.mesh_train()
+        self.mesh_seq()
+        self.mesh_heal()
+        self.mesh_operator()
+        self.reports["fused_mlp_bf16"]["launches"] += b1
+        self.reports["fused_mlp_q8"]["launches"] += b2
+
+    def mesh_partitioner(self, **axes):
+        from ccfd_tpu_torch.parallel.mesh import make_named_mesh
+        from ccfd_tpu_torch.parallel.partition import DataParallelPartitioner
+
+        return DataParallelPartitioner(make_named_mesh([self.dev] * MESH_SHARDS, **axes))
+
+    def mesh_buckets(self) -> tuple[int, int]:
+        """(a) ``Scorer(partitioner=)`` over the shards, B1 (``mlp``) and
+        B2 (``mlp_q8`` on the f32 wire) at buckets 16, 1,024 and 16,384:
+        MESH_REPEATS runs of the surrogate's rows each, every row bit-equal
+        to the single-device kernel's, the kernel's launches = shards x
+        dispatches (counts set to 0 just before each run, read just
+        after). The single-device scores are the comparison's, counted in
+        no main path."""
+        import numpy as np
+
+        from ccfd_tpu_torch.params import to_numpy
+        from ccfd_tpu_torch.serving.scorer import Scorer
+
+        torch = self.torch
+        tag = "mesh (a)"
+        counters = self.counters()
+        x = self.rows[:MESH_ROWS]
+        part = self.mesh_partitioner()
+        launched = {"fused_mlp_bf16": 0, "fused_mlp_q8": 0}
+        for model, kernel, params, kw in (
+                ("mlp", "fused_mlp_bf16", to_numpy(self.params("checkpoint")), {}),
+                ("mlp_q8", "fused_mlp_q8", to_numpy(self.q8_params("checkpoint")),
+                 {"q8_wire": "f32"})):
+            for b in MESH_BUCKETS:
+                single = Scorer(model, params=params, batch_sizes=(b,), device=self.dev, **kw)
+                single.warmup()
+                single_walls = []
+                for _ in range(MESH_REPEATS):
+                    t0 = time.perf_counter()
+                    want = single.score_pipelined(x, depth=2)
+                    single_walls.append(time.perf_counter() - t0)
+                sharded = Scorer(model, params=params, batch_sizes=(b,), partitioner=part, **kw)
+                if sharded.kernel_name != kernel or sharded.shards != MESH_SHARDS:
+                    raise AssertionError(f"{tag}: {model} serves {sharded.kernel_name} over "
+                                         f"{sharded.shards} shards")
+                sharded.warmup()
+                walls = []
+                for rep in range(MESH_REPEATS):
+                    torch.cuda.synchronize()
+                    for c in counters.values():
+                        c.reset()
+                    d0 = sharded.dispatch_total()
+                    t0 = time.perf_counter()
+                    got = sharded.score_pipelined(x, depth=2)
+                    walls.append(time.perf_counter() - t0)
+                    dispatched = sharded.dispatch_total() - d0
+                    launches = {k: c.value for k, c in counters.items()}
+                    others = {k: v for k, v in launches.items() if k != kernel and v}
+                    if launches[kernel] != MESH_SHARDS * dispatched or others or not dispatched:
+                        raise AssertionError(f"{tag}: {model} bucket {b}: launches {launches} "
+                                             f"for {dispatched} dispatches over {MESH_SHARDS} "
+                                             "shards")
+                    diff = int((got != want).sum())
+                    if diff or got.shape != want.shape:
+                        raise AssertionError(
+                            f"{tag}: {model} bucket {b} run {rep}: {diff} of {len(x)} rows "
+                            f"differ from the single-device {kernel} (max |dp| "
+                            f"{float(np.abs(got - want).max()):.3e})")
+                    launched[kernel] += launches[kernel]
+                grid = sharded.executable_grid()
+                log("mesh", f"ok: {tag}: {model} ({kernel}) bucket {b}: {len(x)} rows x "
+                    f"{MESH_REPEATS} runs over {MESH_SHARDS} shards of {self.dev} bit-equal to "
+                    f"the single-device kernel; {dispatched} dispatches a run, {kernel} "
+                    f"launches {MESH_SHARDS} x dispatches; grid {grid['shard_launches']}; "
+                    f"host wall a run (copies and D2H included, min of {MESH_REPEATS}) "
+                    f"sharded {min(walls) * 1e3:.3f} ms vs single-device "
+                    f"{min(single_walls) * 1e3:.3f} ms on {self.card}")
+        return launched["fused_mlp_bf16"], launched["fused_mlp_q8"]
+
+    def mesh_swap(self) -> int:
+        """(b) two ParallelRouter workers score MESH_SWAP_ROWS transactions
+        through the sharded B1 scorer while a thread swaps params through
+        the partitioner's PublishGate: no pause times out, every
+        transaction is routed once, the gathered params' fingerprint is the
+        unsharded one's, and B1's launches = shards x dispatches."""
+        from ccfd_tpu_torch.bus.broker import Broker
+        from ccfd_tpu_torch.config import Config
+        from ccfd_tpu_torch.metrics.prom import Registry
+        from ccfd_tpu_torch.params import to_numpy
+        from ccfd_tpu_torch.parallel.partition import params_fingerprint
+        from ccfd_tpu_torch.process.fraud import build_engine
+        from ccfd_tpu_torch.router.parallel import ParallelRouter
+        from ccfd_tpu_torch.serving.scorer import Scorer
+
+        tag = "mesh (b)"
+        counters = self.counters()
+        part = self.mesh_partitioner()
+        final, other = to_numpy(self.params("checkpoint")), to_numpy(self.params("seeded"))
+        scorer = Scorer("mlp", params=final, partitioner=part)
+        scorer.warmup()
+        cfg = Config(confidence_threshold=1.0)
+        broker = Broker(default_partitions=2)
+        reg, mesh_reg = Registry(), Registry()
+        engine = build_engine(cfg, broker, reg, None)
+        pr = ParallelRouter(cfg, broker, scorer.score, engine, reg, workers=2, max_batch=1024)
+        part.set_barrier(pr, registry=mesh_reg)
+        scorer.set_swap_gate(part.gate)
+        for c in counters.values():
+            c.reset()
+        d0 = scorer.dispatch_total()
+        stop = threading.Event()
+        errors: list = []
+        swaps = [0]
+
+        def swapper() -> None:
+            while not stop.is_set():
+                try:
+                    scorer.swap_params(other if swaps[0] % 2 == 0 else final)
+                    swaps[0] += 1
+                except BaseException as e:  # noqa: BLE001 - reported below
+                    errors.append(e)
+                    return
+                stop.wait(MESH_SWAP_EVERY_S)
+
+        lines = [",".join(f"{v:.6g}" for v in row).encode() for row in self.rows]
+        t = pr.start(poll_timeout_s=0.01)
+        sw = threading.Thread(target=swapper, daemon=True, name="smoke-swapper")
+        sw.start()
+        t0 = time.perf_counter()
+        try:
+            n = MESH_SWAP_ROWS
+            for s in range(0, n, 1000):  # paced: the swaps race live dispatches
+                broker.produce_batch(cfg.kafka_topic, [lines[i % len(lines)] for i in
+                                                       range(s, min(n, s + 1000))],
+                                     list(range(s, min(n, s + 1000))))
+                ahead = (s + 1000) / MESH_SWAP_RATE - (time.perf_counter() - t0)
+                if ahead > 0:
+                    time.sleep(ahead)
+            c_in = reg.counter("transaction_incoming_total")
+            deadline = time.monotonic() + 120
+            while c_in.value() < n and time.monotonic() < deadline:
+                time.sleep(0.02)
+            wall = time.perf_counter() - t0
+        finally:
+            stop.set()
+            sw.join(timeout=30)
+            scorer.swap_params(final)  # the last publish: the tree the check reads
+            pr.close()
+            t.join(timeout=30)
+        dispatched = scorer.dispatch_total() - d0
+        launches = {k: c.value for k, c in counters.items()}
+        c = reg.counter
+        counts = {"incoming": c("transaction_incoming_total").value(),
+                  "outgoing": c("transaction_outgoing_total").total(),
+                  "shed": c("router_shed_total").value(),
+                  "start_errors": c("router_process_start_errors_total").total(),
+                  "score_err": c("router_score_errors_total").value()}
+        gate = part.gate
+        same = params_fingerprint(scorer.params) == params_fingerprint(final)
+        log("mesh", f"{tag}: {counts} over {wall:.3f} s; {swaps[0]} swaps, the gate's "
+            f"publishes {gate.publishes} (ccfd_mesh_publishes_total "
+            f"{mesh_reg.counter('ccfd_mesh_publishes_total').value():.0f}), pause timeouts "
+            f"{gate.pause_timeouts}; B1 launches {launches['fused_mlp_bf16']} for "
+            f"{dispatched} dispatches; fingerprint equal to the unsharded one: {same} on "
+            f"{self.card}")
+        if errors or not swaps[0] or gate.pause_timeouts or gate.publishes < swaps[0]:
+            raise AssertionError(f"{tag}: swap errors {errors}, {swaps[0]} swaps, "
+                                 f"{gate.publishes} publishes, {gate.pause_timeouts} timeouts")
+        if counts["incoming"] != MESH_SWAP_ROWS or counts["incoming"] != sum(
+                v for k, v in counts.items() if k != "incoming"):
+            raise AssertionError(f"{tag}: accounting {counts} for {MESH_SWAP_ROWS} rows")
+        if launches["fused_mlp_bf16"] != MESH_SHARDS * dispatched or not dispatched:
+            raise AssertionError(f"{tag}: B1 launches {launches} for {dispatched} dispatches")
+        if not same:
+            raise AssertionError(f"{tag}: the served params' fingerprint is not the "
+                                 "unsharded tree's")
+        return launches["fused_mlp_bf16"]
+
+    def mesh_train(self) -> None:
+        """(c) the sharded train step, data = MESH_SHARDS, for
+        MESH_TRAIN_STEPS steps on the card against the single-device step
+        from the same init over the same batches (f32, TF32 off): every
+        step's loss within MESH_TRAIN_TOL's rtol, the last params within
+        its rtol/atol (the shards' sums add in another order)."""
+        import numpy as np
+
+        from ccfd_tpu_torch.params import to_device
+        from ccfd_tpu_torch.parallel.partition import gather_params
+        from ccfd_tpu_torch.parallel.train import TrainConfig, init_state, make_train_step
+
+        torch = self.torch
+        tag = "mesh (c)"
+        tc = TrainConfig(compute_dtype="float32", learning_rate=0.01)
+        batches = self.train_batches(MESH_TRAIN_STEPS)
+        out = {}
+        for arm, part in (("single", None), ("sharded", self.mesh_partitioner())):
+            state = init_state(to_device(self.params("seeded"), self.dev), tc)
+            step = make_train_step(tc, partitioner=part)
+            losses = []
+            for i, (x, y) in enumerate(batches):
+                if i == 1:  # the first step lays the state out and warms up
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                state, loss = step(state, x, y)
+                losses.append(float(loss))
+            torch.cuda.synchronize()
+            out[arm] = (np.asarray(losses), gather_params(state["params"]),
+                        (time.perf_counter() - t0) / (len(batches) - 1))
+        (l1, p1, s1), (l4, p4, s4) = out["single"], out["sharded"]
+        rel = float(np.max(np.abs(l4 - l1) / np.maximum(np.abs(l1), 1e-12)))
+        for i, (a, b) in enumerate(zip(p1["layers"], p4["layers"])):
+            for k in ("w", "b"):
+                if not np.allclose(b[k], a[k], rtol=MESH_TRAIN_TOL["rtol"],
+                                   atol=MESH_TRAIN_TOL["atol"]):
+                    raise AssertionError(
+                        f"{tag}: layers/{i}/{k} past rtol {MESH_TRAIN_TOL['rtol']} atol "
+                        f"{MESH_TRAIN_TOL['atol']} (max |d| {np.abs(b[k] - a[k]).max():.3e})")
+        if rel > MESH_TRAIN_TOL["loss_rtol"] or not np.isfinite(l4).all():
+            raise AssertionError(f"{tag}: losses {l4} vs {l1}: max rel {rel}")
+        log("mesh", f"ok: {tag}: {MESH_TRAIN_STEPS} steps of {TRAIN_BATCH} rows, data = "
+            f"{MESH_SHARDS} shards vs one device: max relative loss difference {rel:.3e} "
+            f"(bar {MESH_TRAIN_TOL['loss_rtol']}), last loss {l4[-1]:.6f} vs {l1[-1]:.6f}, "
+            f"params within rtol {MESH_TRAIN_TOL['rtol']} atol {MESH_TRAIN_TOL['atol']}; "
+            f"host wall a step (loss read back each step, steps 2-{MESH_TRAIN_STEPS}) "
+            f"{s4 * 1e3:.3f} ms sharded vs {s1 * 1e3:.3f} ms on {self.card}")
+
+    def mesh_seq(self) -> None:
+        """(d) ``SeqScorer`` with ``seq_parallel=ring`` and then ``ulysses``
+        on a (1, 1, MESH_SHARDS) mesh at the served seq width (the
+        committed seq_init params, L=64): the same stream of surrogate rows
+        over MESH_SEQ_CUSTOMERS customers through it and through the
+        unsharded SeqScorer, every p within MESH_SEQ_TOL, the attention
+        actually sharded."""
+        import numpy as np
+
+        from ccfd_tpu_torch.params import load_tree
+        from ccfd_tpu_torch.platform.operator import SEQ_INIT
+        from ccfd_tpu_torch.serving.history import SeqScorer
+
+        tag = "mesh (d)"
+        params = load_tree(SEQ_INIT)
+        rows = self.rows[:MESH_SEQ_ROWS]
+        ids = [f"c{i % MESH_SEQ_CUSTOMERS}" for i in range(len(rows))]
+        for sp in ("ring", "ulysses"):
+            single = SeqScorer(params, length=SEQ_L, batch_sizes=(16, 128, 1024),
+                               device=self.dev)
+            sharded = SeqScorer(params, length=SEQ_L, batch_sizes=(16, 128, 1024),
+                                partitioner=self.mesh_partitioner(tp=MESH_SHARDS),
+                                seq_parallel=sp)
+            worst, walls = 0.0, {"single": 0.0, "sharded": 0.0}
+            for s in range(0, len(rows), MESH_SEQ_CHUNK):
+                chunk, cids = rows[s:s + MESH_SEQ_CHUNK], ids[s:s + MESH_SEQ_CHUNK]
+                got = {}
+                for arm, sc in (("single", single), ("sharded", sharded)):
+                    t0 = time.perf_counter()
+                    got[arm] = sc.score(chunk, cids)
+                    walls[arm] += time.perf_counter() - t0
+                if not np.isfinite(got["sharded"]).all():
+                    raise AssertionError(f"{tag}: {sp}: non-finite p")
+                worst = max(worst, float(np.abs(got["sharded"] - got["single"]).max()))
+            grid = sharded.executable_grid()
+            log("mesh", f"{tag}: seq_parallel={sp} over {MESH_SHARDS} shards: {len(rows)} rows "
+                f"({MESH_SEQ_CUSTOMERS} customers, L={SEQ_L}) max |dp| vs the unsharded "
+                f"SeqScorer {worst:.3e} (bar {MESH_SEQ_TOL}); engaged "
+                f"{grid.get('seq_parallel_engaged')} ({sharded._sp_engaged} attention blocks "
+                f"sharded, {sharded._sp_fallback} readout blocks dense); host wall "
+                f"{walls['sharded']:.3f} s sharded vs {walls['single']:.3f} s on {self.card}")
+            if worst > MESH_SEQ_TOL or not grid.get("seq_parallel_engaged"):
+                raise AssertionError(f"{tag}: {sp}: max |dp| {worst}, grid {grid}")
+
+    def mesh_heal(self) -> None:
+        """(e) a canary hang on the mesh scorer quarantines the MESH TIER as
+        one domain (``mesh:cudax<n>``), and the router's ladder then serves
+        the host tier."""
+        from ccfd_tpu_torch.bus.broker import Broker
+        from ccfd_tpu_torch.config import Config
+        from ccfd_tpu_torch.metrics.prom import Registry
+        from ccfd_tpu_torch.process.fraud import build_engine
+        from ccfd_tpu_torch.router.router import Router
+        from ccfd_tpu_torch.runtime import faults
+        from ccfd_tpu_torch.runtime.heal import DeviceSupervisor
+        from ccfd_tpu_torch.serving.scorer import Scorer
+
+        tag = "mesh (e)"
+        scorer = Scorer("mlp", params=self.params("checkpoint"), batch_sizes=(16, 128),
+                        partitioner=self.mesh_partitioner())
+        scorer.warmup()
+        sup = DeviceSupervisor(scorer, canary_deadline_ms=HEAL_CANARY_MS, suspect_strikes=2,
+                               backoff_base_s=5.0, backoff_cap_s=5.0)
+        faults.install_device_faults(faults.DeviceFaultPlan.from_string(HEAL_HANG))
+        try:
+            states = [sup.tick() for _ in range(6)]
+            quarantined = sup.state == "quarantined"
+            allowed = sup.device_allowed()
+        finally:
+            faults.install_device_faults(None)
+        # a canary the supervisor abandoned at its deadline still launches
+        # once its hang ends: let it, so no later phase counts its launches
+        time.sleep(1.0)
+        cfg = Config(confidence_threshold=1.0)
+        broker = Broker(default_partitions=1)
+        reg = Registry()
+        r = Router(cfg, broker, scorer.score, build_engine(cfg, broker, reg, None), reg,
+                   max_batch=256, host_score_fn=scorer.host_score, degrade=True, heal_gate=sup)
+        try:
+            broker.produce_batch(cfg.kafka_topic, [b"0," * 29 + b"0"] * 32, list(range(32)))
+            routed = r.step()
+            host = reg.counter("router_degraded_total").value({"tier": "host"})
+        finally:
+            r.close()
+        want = f"mesh:{self.dev.type}x{MESH_SHARDS}"
+        log("mesh", f"{tag}: {HEAL_HANG} on the mesh scorer: ticks {states}; domain "
+            f"{sup.domain!r}, label {sup.device!r}; the router routed {routed} rows, "
+            f"{host:.0f} on the host tier, on {self.card}")
+        if not quarantined or allowed or sup.domain != "mesh" or sup.device != want:
+            raise AssertionError(f"{tag}: state {sup.state}, allowed {allowed}, domain "
+                                 f"{sup.domain}, label {sup.device} (want {want})")
+        if routed != 32 or host != 32:
+            raise AssertionError(f"{tag}: {routed} routed, {host} on the host tier")
+
+    def mesh_operator(self) -> None:
+        """(f) the operator: ``mesh.devices: 1`` is inert (no mesh, the
+        single-device scorer), and ``mesh.devices: 2`` on the one card is
+        refused by name before anything starts."""
+        from ccfd_tpu_torch.config import Config
+        from ccfd_tpu_torch.platform.operator import Platform, PlatformSpec
+
+        tag = "mesh (f)"
+        off = {n: {"enabled": False} for n in (
+            "router", "engine", "notify", "retrain", "producer", "monitoring", "health",
+            "investigator", "analytics", "lifecycle", "heal", "replay", "fleet")}
+        cfg = Config(batch_sizes=(16, 128, 1024))
+        p = Platform(PlatformSpec.from_cr({"spec": {**off, "mesh": {"devices": 1},
+                                                    "scorer": {"model": "mlp"}}}, cfg=cfg))
+        p.up(wait_ready_s=60)
+        try:
+            inert = p.mesh is None and p.scorer.mesh is None and "mesh" not in p.status()
+            device = str(p.scorer.device)
+        finally:
+            p.down()
+        spec = PlatformSpec.from_cr({"spec": {**off, "mesh": {"devices": 2},
+                                              "scorer": {"model": "mlp"}}}, cfg=cfg)
+        refused = spec.refused()
+        try:
+            Platform(spec).up()
+            raised = ""
+        except NotImplementedError as e:
+            raised = str(e)
+        log("mesh", f"{tag}: mesh.devices: 1 inert ({inert}, the scorer on {device}); "
+            f"mesh.devices: 2 refused: {refused} (up() raised: {bool(raised)}) with "
+            f"{self.torch.cuda.device_count()} visible card(s)")
+        if not inert or not any(r.startswith("mesh.devices: 2 (above the") for r in refused) \
+                or "mesh.devices: 2" not in raised:
+            raise AssertionError(f"{tag}: inert {inert}, refused {refused}, raised {raised!r}")
+
+    def load_shape(self) -> None:
+        """``python tools/torch_load_shape.py --short`` on the card: its
+        three regimes, LOAD_SHAPE_SECONDS each, B1 behind the port's live
+        pipeline, in a process of their own (its exit code 0 iff every
+        invariant held; no limit on the speeds). Each regime's p50/p99, shed
+        shares by priority, the AIMD limit's path, and the flash crowd's
+        capacity document; B1's launches, counted in that process from the
+        scorer's construction, = its dispatches + one warmup launch a
+        bucket."""
+        tag = "load_shape"
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env["PYTHONPATH"] = REPO
+        cmd = [sys.executable, os.path.join(REPO, "tools", "torch_load_shape.py"),
+               "--seconds", str(LOAD_SHAPE_SECONDS), "--slo-ms", str(LOAD_SHAPE_SLO_MS),
+               "--base-rate", str(LOAD_SHAPE_RATE)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True,
+                              timeout=300)
+        wall = time.perf_counter() - t0
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+        if not lines:
+            raise AssertionError(f"{tag}: exit {proc.returncode}, no result: "
+                                 f"{proc.stderr[-3000:]}")
+        doc = json.loads(lines[-1])
+        for name in ("flash", "diurnal", "hotkey"):
+            res = doc["regimes"][name]
+            sc, c = res["scorer"], res["counts"]
+            shed = res.get("shed_fraction_by_priority") or {
+                k.split(":")[0]: v for k, v in c["shed_by_priority_stage"].items() if v}
+            log(tag, f"{name}: base {res['base_rate']:.0f} rows/s for {LOAD_SHAPE_SECONDS} s: "
+                f"p50 {res['p50_ms']} ms p99 {res['p99_ms']} ms (SLO {LOAD_SHAPE_SLO_MS} ms); "
+                f"incoming {c['incoming']}, outgoing {c['outgoing']}, shed {c['shed']} "
+                f"(shares by priority {shed}); AIMD limit min {res['limit_min']} end "
+                f"{res['limit_end']}, path {res['limit_path']}; e2e SLO breaches "
+                f"{res['slo']['breaches']}, stage shares {res['slo']['stage_shares']}; "
+                f"window inversions {res['window_inversions']}; B1 launches "
+                f"{sc['launches']} = {sc['dispatches']} dispatches + {sc['warmups']} warmups "
+                f"on {self.card}")
+            if name == "flash":
+                cap = res["capacity"]
+                fields = ("utilization", "mean_service_ms", "arrival_rows_per_s")
+                stages = {k: {f: v.get(f) for f in fields}
+                          for k, v in (cap.get("stages") or {}).items()}
+                log(tag, f"flash: the capacity document mid-crowd: bottleneck "
+                    f"{json.dumps(cap.get('bottleneck'))}; stages {json.dumps(stages)}")
+                if not stages:
+                    raise AssertionError(f"{tag}: flash: no capacity document mid-crowd")
+            if res["violations"] or sc["kernel"] != "fused_mlp_bf16":
+                raise AssertionError(f"{tag}: {name}: violations {res['violations']}")
+            if sc["launches"] != sc["dispatches"] + sc["warmups"] or not sc["dispatches"]:
+                raise AssertionError(f"{tag}: {name}: B1 launches for {sc}")
+            self.reports["fused_mlp_bf16"]["launches"] += sc["launches"]
+        if proc.returncode != 0 or not doc.get("ok"):
+            raise AssertionError(f"{tag}: exit {proc.returncode}, ok {doc.get('ok')}")
+        log(tag, f"the three regimes in {wall:.1f} s (a process of their own)")
 
     def models(self) -> None:
         """The reference's other Seldon models on the card: parity card

@@ -29,10 +29,6 @@ PORT = Path(__file__).resolve().parents[1] / "ccfd_tpu_torch"
 
 # families a port board reads that no port module registers, with why
 ABSENT = {
-    **{f: "the sharded serving mesh (ROADMAP A15b); the reference's single-device "
-          "platform leaves them absent too"
-       for f in ("ccfd_mesh_devices", "ccfd_mesh_axis_size", "ccfd_mesh_publishes_total",
-                 "ccfd_mesh_publish_pause_timeouts_total")},
     **{f: "exported by a real Kafka cluster's exporter (the KafkaCluster board's "
           "deployment mode), by no module of either package"
        for f in ("kafka_consumergroup_lag",
@@ -139,8 +135,42 @@ def test_every_family_read_is_registered_or_named_absent():
                 "ccfd_capacity_model_error_ratio", "ccfd_capacity_bottleneck",
                 "ccfd_fleet_members", "ccfd_fleet_partition_owner",
                 "router_fenced_commits_total", "fleet_ledger_entries_total",
-                "fleet_member_kill_bundles_total"):
+                "fleet_member_kill_bundles_total", "ccfd_mesh_devices", "ccfd_mesh_axis_size",
+                "ccfd_mesh_publishes_total", "ccfd_mesh_publish_pause_timeouts_total",
+                "analytics_workers"):
         assert fam in read and fam in reg, fam
+
+
+def test_a_build_under_the_scorers_warmup_leaves_the_heal_boards_serving_compiles_at_0(
+        monkeypatch):
+    """The row scorer's warmup bills its builds to ``scorer.warmup``, the
+    label the Heal board's serving-compile expression (the reference's)
+    excludes: a kernel build on first use during warmup reads 0 there."""
+    from ccfd_tpu_torch.metrics.prom import Registry
+    from ccfd_tpu_torch.observability import profile
+    from ccfd_tpu_torch.ops import fused_mlp
+    from ccfd_tpu_torch.serving.scorer import Scorer
+
+    reg = Registry()
+    prof = profile.StageProfiler(registry=reg)
+    assert prof.arm_compile_listener()
+    real = fused_mlp.fused_mlp_score
+
+    def building(kp, x):  # a build at each bucket's first launch
+        profile.record_build(0.25)
+        return real(kp, x)
+
+    monkeypatch.setattr(fused_mlp, "fused_mlp_score", building)
+    Scorer("mlp", device="cpu", batch_sizes=(16, 128)).warmup()
+    expr, = [t["expr"] for p in build_all_dashboards()["Heal"]["panels"]
+             for t in p["targets"] if "ccfd_compile_stage_seconds_total{stage!~" in t["expr"]]
+    excluded = re.search(r'stage!~"([^"]*)"', expr).group(1).replace("\\\\", "\\")
+    by_stage = {dict(k)["stage"]: v for k, v in
+                reg.counter("ccfd_compile_stage_seconds_total").items()}
+    assert by_stage.get("scorer.warmup") == 0.5
+    serving = sum(v for stage, v in by_stage.items() if not re.fullmatch(excluded, stage))
+    assert serving == 0
+    assert not re.fullmatch(excluded, "scorer.warm")  # the label the port used to bill
 
 
 def test_the_families_parse_from_promql():

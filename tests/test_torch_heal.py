@@ -594,8 +594,8 @@ def test_labels_and_the_non_serving_stages():
     assert port_heal.STATE_NAMES == ref_heal.STATE_NAMES
     assert port_heal.RUNGS == ref_heal.RUNGS
     assert ref_heal.NON_SERVING_COMPILE_STAGES <= port_heal.NON_SERVING_COMPILE_STAGES
-    assert port_heal.NON_SERVING_COMPILE_STAGES - ref_heal.NON_SERVING_COMPILE_STAGES == {
-        "scorer.warm"}  # the port's row-scorer warmup label
+    # the port's row scorer bills its warmup to the reference's label
+    assert port_heal.NON_SERVING_COMPILE_STAGES == ref_heal.NON_SERVING_COMPILE_STAGES
     assert port_heal.default_device_label("cpu") == "cpu:0"
     assert port_heal.default_device_label() == ref_heal.default_device_label() == "cpu:0"
 

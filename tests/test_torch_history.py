@@ -15,7 +15,9 @@ reference's, on the CPU.
   bucket, row, anonymous and stale-commit counters. ``swap_params`` to the
   int8 tree re-binds the forward to ``seq_q8`` (held against the
   reference's ``seq_q8``). A ``mesh``, a ``partitioner`` and
-  ``seq_parallel`` other than ``none`` are refused by name (A15b).
+  ``seq_parallel`` ``ring``/``ulysses`` serve the same stream on logical
+  CPU shards (A15b; tests/test_torch_partition.py and
+  tests/test_torch_ring_ulysses.py hold the sharded path in depth).
 """
 
 from __future__ import annotations
@@ -253,16 +255,41 @@ def test_swap_to_the_int8_tree_rebinds_to_seq_q8(tree):
     assert port.executable_grid()["model"] == "seq"
 
 
-@pytest.mark.parametrize("kw,match", [
-    ({"mesh": object()}, "mesh"),
-    ({"partitioner": object()}, "partitioner"),
-    ({"seq_parallel": "ring"}, "seq_parallel='ring'"),
-    ({"seq_parallel": "ulysses"}, "seq_parallel='ulysses'"),
+def _cpu_mesh_kw(which: str) -> dict:
+    """The sharded path's arguments over logical CPU shards (A15b)."""
+    from ccfd_tpu_torch.parallel.mesh import make_named_mesh
+    from ccfd_tpu_torch.parallel.partition import DataParallelPartitioner
+
+    cpu = [torch.device("cpu")] * 4
+    if which == "mesh":
+        return {"mesh": make_named_mesh(cpu)}
+    if which == "partitioner":
+        return {"partitioner": DataParallelPartitioner(make_named_mesh(cpu))}
+    return {"partitioner": DataParallelPartitioner(make_named_mesh(cpu, tp=2)),
+            "seq_parallel": which}
+
+
+@pytest.mark.parametrize("which,match", [
+    ("mesh", "mesh"),
+    ("partitioner", "partitioner"),
+    ("ring", "seq_parallel='ring'"),
+    ("ulysses", "seq_parallel='ulysses'"),
 ])
-def test_the_sharded_path_is_refused_by_name(tree, kw, match):
-    with pytest.raises(NotImplementedError, match=match) as err:
-        SeqScorer(from_jax_model_params("seq", tree), device="cpu", **kw)
-    assert "A15b" in str(err.value)
+def test_the_sharded_path_is_refused_by_name(tree, which, match):
+    """Named for the refusal before A15b: the sharded seq path is served
+    since, so each case now scores the reference's stream through it on
+    logical CPU shards, within the f32 bar of the reference's single-device
+    scorer (the batch split over the mesh, L over tp for ring and
+    Ulysses); an unknown mode is still refused by name."""
+    kw = dict(length=8, batch_sizes=(4, 16, 64), compute_dtype="float32")
+    ref = RefSeqScorer(tree, **kw)
+    port = SeqScorer(from_jax_model_params("seq", tree), **kw, **_cpu_mesh_kw(which))
+    assert port.mesh is not None and all(b % 4 == 0 or b % 2 == 0 for b in port.batch_sizes)
+    for txs, x in _stream(2):
+        np.testing.assert_allclose(port.score_with_ids(txs, x), ref.score_with_ids(txs, x),
+                                   rtol=0, atol=1e-5, err_msg=match)
+    if which in ("ring", "ulysses"):
+        assert port.executable_grid()["seq_parallel"] == which
     with pytest.raises(ValueError, match="none|ring|ulysses"):
         SeqScorer(from_jax_model_params("seq", tree), device="cpu", seq_parallel="tree")
 

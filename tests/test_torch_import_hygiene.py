@@ -65,7 +65,9 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
               "observability.incident", "observability.capacity",
               "observability.dashboards", "utils.loadgen", "fleet", "fleet.protocol",
               "fleet.ledger", "fleet.member", "fleet.supervisor", "analysis",
-              "analysis.core", "analysis.rules", "analysis.lockcheck"):
+              "analysis.core", "analysis.rules", "analysis.lockcheck", "parallel.mesh",
+              "parallel.sharding", "parallel.partition", "parallel.multihost",
+              "ops.shard_compat", "ops.ulysses"):
         assert f"ccfd_tpu_torch.{m}" in res["mods"], m
     bad = [n for n in res["loaded"] if _forbidden(n)]
     assert bad == [], bad
@@ -86,7 +88,9 @@ def _named_modules(path: Path):
 
 def test_no_source_file_names_jax_or_the_reference():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
-                                          REPO / "tools" / "torch_fleet_drill.py"]
+                                          REPO / "tools" / "torch_fleet_drill.py",
+                                          REPO / "tools" / "torch_load_shape.py",
+                                          REPO / "tools" / "torch_multihost_drill.py"]
     assert len(files) > 10
     bad = [(str(f.relative_to(REPO)), name) for f in files
            for name in _named_modules(f) if _forbidden(name)]
@@ -238,6 +242,46 @@ def test_the_port_drill_tool_loads_no_jax_and_no_reference():
         "mod = importlib.util.module_from_spec(spec); spec.loader.exec_module(mod)\n"
         "import ccfd_tpu_torch.bus.server, ccfd_tpu_torch.fleet.supervisor\n"
         "import ccfd_tpu_torch.platform.operator, ccfd_tpu_torch.cli\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert [n for n in loaded if _forbidden(n)] == []
+
+
+@pytest.mark.parametrize("mod", ["parallel.mesh", "parallel.sharding", "parallel.partition",
+                                 "parallel.multihost", "ops.shard_compat", "ops.ulysses"])
+def test_the_partitioning_modules_import_alone(mod):
+    """The mesh, the placement specs, the partitioners, the multi-process
+    runtime, the single-controller shard_map and Ulysses each load by
+    themselves with nothing of JAX or the reference."""
+    code = (
+        "import importlib, json, sys\n"
+        f"importlib.import_module('ccfd_tpu_torch.{mod}')\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert [n for n in loaded if _forbidden(n)] == []
+
+
+@pytest.mark.parametrize("tool", ["torch_load_shape", "torch_multihost_drill"])
+def test_the_port_tools_import_no_jax(tool):
+    """The traffic-shape harness and the multi-process drill load (their
+    whole import graph, the port's pipeline included) with nothing of JAX or
+    the reference."""
+    code = (
+        "import importlib, json, sys\n"
+        f"sys.path.insert(0, {str(REPO / 'tools')!r})\n"
+        f"importlib.import_module({tool!r})\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -225,13 +225,30 @@ def test_daemon_trains_on_arriving_labels_and_stops(ds):
 
 
 def test_unported_options_are_refused_by_name(ds):
-    cfg = Config()
-    scorer = _scorer(_params(ds))
-    # the lifecycle (lifecycle=) is ported: tests/test_torch_lifecycle.py
-    with pytest.raises(NotImplementedError, match="A15"):
-        OnlineTrainer(cfg, Broker(), scorer, scorer.params, mesh=object())
-    with pytest.raises(NotImplementedError, match="A15"):
-        OnlineTrainer(cfg, Broker(), scorer, scorer.params, partitioner=object())
+    """Named for the refusal before A15b: ``mesh=`` and ``partitioner=``
+    are served since (the sharded step over logical CPU shards), so each
+    builds a trainer whose round trains on the mesh and swaps the scorer;
+    the lifecycle (lifecycle=) is tests/test_torch_lifecycle.py's."""
+    from ccfd_tpu_torch.parallel.mesh import make_mesh, make_named_mesh
+    from ccfd_tpu_torch.parallel.partition import DataParallelPartitioner
+    from ccfd_tpu_torch.parallel.sharding import ShardedTensor
+
+    cpu = [torch.device("cpu")] * 4
+    cfg = Config(retrain_min_labels=8, retrain_batch=10)
+    for kw in ({"mesh": make_mesh(cpu)},
+               {"partitioner": DataParallelPartitioner(make_named_mesh(cpu))}):
+        broker = Broker()
+        scorer = _scorer(_params(ds))
+        before = scorer.score(ds.X[:16])
+        trainer = OnlineTrainer(cfg, broker, scorer, scorer.params,
+                                tc=TrainConfig(compute_dtype="float32"), steps_per_round=2,
+                                **kw)
+        _labels(broker, cfg, ds, 32)
+        assert trainer.step() is True
+        assert isinstance(trainer._state["params"]["layers"][0]["w"], ShardedTensor)
+        assert int(trainer._state["step"]) == 2
+        assert not np.allclose(scorer.score(ds.X[:16]), before)
+        trainer.close()
 
 
 def test_config_reads_the_retrain_knobs_as_the_reference():

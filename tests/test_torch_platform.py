@@ -218,26 +218,32 @@ def test_port_cr_differs_only_in_the_refused_blocks_enabled():
 # analytics, the replay, the incident and the capacity planes are served
 # since A11, A13, A15a, A12, A12b, A14, A14a and A9, and the fleet since A10:
 # their cases keep their ids and now pair the served part with one still
-# refused (each plane beside mesh.devices, seq under retrain and seq_q8
+# refused (each plane beside mesh.devices: 0 on the CPU platform, which
+# serves N > 0 logical shards since A15b, seq under retrain and seq_q8
 # under the decision plane, which the port refuses where the reference
 # skips them with a warning, the queue rows beside CCFD_INLINE_ROWS)
 REFUSALS = [(name, {name: {"enabled": True}}, {}, name) for name in REFUSED_COMPONENTS] + [
-    ("fleet", {"fleet": {"enabled": True}, "mesh": {"devices": 2}}, {}, "mesh.devices: 2"),
-    ("incident", {"incident": {"enabled": True}, "mesh": {"devices": 2}}, {},
-     "mesh.devices: 2"),
-    ("capacity", {"capacity": {"enabled": True}, "mesh": {"devices": 2}}, {},
-     "mesh.devices: 2"),
-    ("lifecycle", {"lifecycle": {"enabled": True}, "mesh": {"devices": 2}}, {},
-     "mesh.devices: 2"),
-    ("analytics", {"analytics": {"enabled": True}, "mesh": {"devices": 2}}, {},
-     "mesh.devices: 2"),
-    ("replay", {"replay": {"enabled": True}, "mesh": {"devices": 2}}, {},
-     "mesh.devices: 2"),
-    ("investigator", {"investigator": {"enabled": True}, "mesh": {"devices": 2}}, {},
-     "mesh.devices: 2"),
+    ("fleet", {"fleet": {"enabled": True}, "mesh": {"devices": 0}}, {}, "mesh.devices: 0"),
+    ("incident", {"incident": {"enabled": True}, "mesh": {"devices": 0}}, {},
+     "mesh.devices: 0"),
+    ("capacity", {"capacity": {"enabled": True}, "mesh": {"devices": 0}}, {},
+     "mesh.devices: 0"),
+    ("lifecycle", {"lifecycle": {"enabled": True}, "mesh": {"devices": 0}}, {},
+     "mesh.devices: 0"),
+    ("analytics", {"analytics": {"enabled": True}, "mesh": {"devices": 0}}, {},
+     "mesh.devices: 0"),
+    ("replay", {"replay": {"enabled": True}, "mesh": {"devices": 0}}, {},
+     "mesh.devices: 0"),
+    ("investigator", {"investigator": {"enabled": True}, "mesh": {"devices": 0}}, {},
+     "mesh.devices: 0"),
     ("engine.usertask_model", {"engine": {"usertask_model": True},
-                               "mesh": {"devices": 2}}, {}, "mesh.devices: 2"),
-    ("mesh.devices", {"mesh": {"devices": 2}}, {}, "mesh.devices: 2"),
+                               "mesh": {"devices": 0}}, {}, "mesh.devices: 0"),
+    # a CPU platform serves N logical CPU shards since A15b: the mesh's
+    # cases are its deviations still refused (the decision plane with a
+    # mesh; 0 = every CUDA device, none on a CPU platform)
+    ("mesh.devices", {"mesh": {"devices": 2}, "scorer": {"fused_decision": True},
+                      "lifecycle": {"enabled": False}}, {},
+     "scorer.fused_decision with a mesh"),
     ("mesh.devices=0", {"mesh": {"devices": 0}}, {}, "mesh.devices: 0"),
     ("seq", {"scorer": {"model": "seq"}, "retrain": {"enabled": True}}, {},
      "retrain with scorer.model: seq"),
@@ -279,26 +285,28 @@ def test_each_refused_part_is_named(name, blocks, env, match):
 
 def test_the_references_cr_is_refused_with_every_name_at_once(tmp_path):
     """The reference's CR as shipped comes up whole since A14a; switched to
-    a mesh (the part still refused) and the fleet (served since A10), it is
-    refused with every refused name in one error and nothing starts."""
+    a mesh the platform cannot serve (0 = every CUDA device, on the CPU
+    platform; the mesh itself is served since A15b) and the fleet (served
+    since A10), it is refused with every refused name in one error and
+    nothing starts."""
     from ccfd_tpu_torch.cli import main
 
     assert PlatformSpec.from_yaml(str(REF_CR), cfg=Config()).refused() == []
     cr = yaml.safe_load(REF_CR.read_text())
     cr["spec"]["fleet"]["enabled"] = True
-    cr["spec"]["mesh"]["devices"] = 2
+    cr["spec"]["mesh"]["devices"] = 0
     path = tmp_path / "cr.yaml"
     path.write_text(yaml.safe_dump(cr))
     with pytest.raises(NotImplementedError) as err:
         main(["up", "-f", str(path), "--device", "cpu"])
     msg = str(err.value)
-    assert "fleet" not in msg and "mesh.devices: 2 (A15b" in msg
+    assert "fleet" not in msg and "mesh.devices: 0 (every visible CUDA device" in msg
     assert [r.split(" (")[0] for r in PlatformSpec.from_yaml(str(path), cfg=Config())
-            .refused()] == ["mesh.devices: 2"]
+            .refused("cpu")] == ["mesh.devices: 0"]
     # a default-on block is no longer refused when absent, and the opt-in
     # fleet is served: the mesh alone is named
     with pytest.raises(NotImplementedError, match="mesh.devices") as err:
-        Platform(PlatformSpec.from_cr({"spec": {"fleet": True, "mesh": {"devices": 2}}},
+        Platform(PlatformSpec.from_cr({"spec": {"fleet": True, "mesh": {"devices": 0}}},
                                       cfg=Config()), device="cpu").up()
     assert "fleet" not in str(err.value)
 

@@ -68,7 +68,7 @@ def _feed(mod, registry_cls, compile_fn, stream):
             prof.observe(item[1], **item[2])
         else:
             prof.on_span(_Span(item[1], item[2]))
-    for label, secs in (("scorer.warm", 2.5), ("scorer.warm", 0.25), ("fused.warm", 1.0)):
+    for label, secs in (("scorer.warmup", 2.5), ("scorer.warmup", 0.25), ("fused.warm", 1.0)):
         with mod.compile_stage(label):
             compile_fn(secs)
     compile_fn(0.125)  # outside any label: "untagged"
@@ -108,10 +108,10 @@ def test_builds_count_process_wide_and_bill_the_armed_profiler():
     before = port.builds_total()
     prof = port.StageProfiler(registry=PortRegistry())
     prof.arm_compile_listener()
-    with port.compile_stage("scorer.warm"):
+    with port.compile_stage("scorer.warmup"):
         port.record_build(0.5)
     assert port.builds_total() == before + 1
-    assert prof.compile_counts() == {"scorer.warm": 1, "total": 1}
+    assert prof.compile_counts() == {"scorer.warmup": 1, "total": 1}
     # a newer profiler takes the hook (newest wins, as in the reference)
     newer = port.StageProfiler()
     newer.arm_compile_listener()

@@ -1,0 +1,620 @@
+"""Traffic-shape SLO harness for the port: drive the port's live pipeline
+through load regimes and check that its overload plane holds the line.
+
+The port's counterpart of tools/load_shape.py (the reference file stays as
+it is), with the same regimes, parameters, exit invariants and result keys.
+Each regime runs against a LIVE in-process pipeline: a producer-shaped
+feeder -> ``bus`` -> ``router/parallel.py::ParallelRouter`` with the
+overload plane armed (``runtime/overload.py``) -> the row ``Scorer`` on
+kernel B1 (``mlp`` in bf16) -> the engine, with the stage profiler and a
+burn-rate SLO engine armed (``observability/{profile,slo}.py``) and the
+traffic stamped across the three priority classes (bulk / normal /
+critical, record headers):
+
+- ``diurnal``  — a sinusoidal ramp around the base rate: nothing should
+  shed and the e2e SLO stays green;
+- ``flash``    — a 5x step flash crowd with a 200 ms scorer-latency fault
+  (``runtime/faults.py``) during the crowd, so the stage saturates: the
+  AIMD limit must collapse and recover, shedding must take bulk first and
+  critical never, admitted traffic must stay inside the SLO, and the burn
+  must show in the queueing layer;
+- ``hotkey``   — partition-skewed traffic (most records on one key) that
+  the global budget must keep from blowing the pool's p99.
+
+Exit 0 only when EVERY regime holds its invariants (admitted decision p99
+within ``--slo-ms``; zero accounting violations; zero priority
+inversions). The scorer runs on the card unless ``--device cpu`` is given.
+Besides the reference's keys, each result carries ``limit_path`` (the AIMD
+limit at every 0.5 s window), ``scorer`` (its kernel, bucketed dispatches
+and warmed buckets, and B1's launches in the process since it was built)
+and, for the flash crowd, ``capacity``: one
+capacity-observatory document (``observability/capacity.py``) taken in the
+middle of the crowd.
+
+    python tools/torch_load_shape.py [--device cpu]              # all regimes
+    python tools/torch_load_shape.py --regime flash --short --device cpu
+
+Prints one JSON line. The command applies the port's service GC tuning
+(``utils/gctune.py``, CCFD_GC_THRESHOLD) and collects the heap before each
+regime.
+"""
+from __future__ import annotations
+
+import argparse
+import gc
+import json
+import math
+import os
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from ccfd_tpu_torch.bus.broker import Broker  # noqa: E402
+from ccfd_tpu_torch.config import Config  # noqa: E402
+from ccfd_tpu_torch.data.ccfd import synthetic_dataset  # noqa: E402
+from ccfd_tpu_torch.metrics.prom import Registry  # noqa: E402
+from ccfd_tpu_torch.observability.capacity import CapacityModel  # noqa: E402
+from ccfd_tpu_torch.observability.profile import StageProfiler  # noqa: E402
+from ccfd_tpu_torch.observability.slo import SLOEngine, SLOSpec  # noqa: E402
+from ccfd_tpu_torch.ops import fused_mlp  # noqa: E402
+from ccfd_tpu_torch.process.fraud import build_engine  # noqa: E402
+from ccfd_tpu_torch.router.parallel import ParallelRouter  # noqa: E402
+from ccfd_tpu_torch.runtime.faults import FaultPlan, FaultSpec  # noqa: E402
+from ccfd_tpu_torch.runtime.overload import (  # noqa: E402
+    PRIORITY_NAMES,
+    AdaptiveInflightBudget,
+    DeadlinePolicy,
+    OverloadControl,
+)
+from ccfd_tpu_torch.serving.scorer import Scorer  # noqa: E402
+from ccfd_tpu_torch.utils import gctune  # noqa: E402
+
+# traffic mix: the priority classes every regime stamps onto its chunks
+# (bulk = re-score backfill, critical = fraud-suspect / canary-eval lane)
+MIX = (("bulk", 0.2), ("normal", 0.7), ("critical", 0.1))
+
+
+class Pipeline:
+    """One live pipeline with the overload plane armed, plus the knobs the
+    regimes drive (fault plan on the scorer edge, priority-aware feeder)."""
+
+    def __init__(self, workers: int = 2, partitions: int = 4,
+                 limit_floor: int = 2048, codel_target_ms: float = 100.0,
+                 burn_target_ms: float = 150.0, device: str | None = None):
+        self.cfg = Config()
+        self.broker = Broker(default_partitions=partitions)
+        self.reg = Registry()
+        # stage profiler + burn-rate SLO over the same live run
+        # (observability/profile.py + slo.py): the regimes assert the
+        # OBJECTIVE side of what the overload mechanisms defend — the
+        # flash crowd must burn the e2e budget with the damage
+        # concentrated in the QUEUEING layer (backpressure parks the
+        # crowd in the bus), diurnal must stay green. Fast windows are
+        # CI-scale (2 s confirms 4 s); the burn target is a production-
+        # shaped decision bound, not the regime's hard --slo-ms ceiling.
+        self.profiler = StageProfiler()
+        self.slo = SLOEngine(
+            [SLOSpec("e2e-p99", metric="router_decision_seconds",
+                     target_ms=burn_target_ms, objective=0.99)],
+            {"router": self.reg}, registry=self.reg,
+            windows=((2.0, 14.4), (4.0, 14.4), (12.0, 1.0)),
+        )
+        self.engine = build_engine(self.cfg, self.broker, self.reg, None)
+        # the row scorer on kernel B1 (mlp in bf16), on the card unless the
+        # caller names the CPU (there it runs B1's plain version)
+        scorer = Scorer(model_name="mlp", batch_sizes=(128, 1024, 4096, 8192),
+                        device=device)
+        # B1's launches in this process from here on (the counter counts
+        # only kernel launches on the card; the CPU's plain version adds 0)
+        self._launches0 = fused_mlp.launches.value
+        scorer.warmup()
+        self.scorer = scorer
+        # the capacity observatory over the same profiler: the flash regime
+        # keeps one document from the middle of the crowd
+        self.capacity = CapacityModel(self.profiler)
+        # scorer-edge latency fault, storm-toggled by the flash regime so
+        # the stage saturates on cue (the same injection surface the
+        # breaker/ladder drills use)
+        self.fault_plan = FaultPlan(
+            {"scorer": FaultSpec(latency_ms=200.0)}, active=False)
+        score_fn = self.fault_plan.injector("scorer", self.reg).wrap_fn(
+            scorer.score)
+        self.budget = AdaptiveInflightBudget(
+            8192, min_limit=limit_floor, max_limit=16384,
+            target_s=0.025, step=512, good_window=4,
+            decrease_cooldown_s=0.2, registry=self.reg,
+        )
+        self.overload = OverloadControl(
+            self.reg, self.budget,
+            codel=DeadlinePolicy(codel_target_ms / 1e3),
+        )
+        self.router = ParallelRouter(
+            self.cfg, self.broker, score_fn, self.engine, self.reg,
+            # the coalescer takes up to max_batch * workers = 8192 rows a
+            # dispatch (the reference's coalesce_max_batch)
+            workers=workers, max_batch=4096,
+            overload=self.overload, profiler=self.profiler,
+        )
+        ds = synthetic_dataset(n=8192, fraud_rate=0.01, seed=7)
+        self._rows = [
+            ",".join(f"{v:.6g}" for v in ds.X[i]).encode()
+            for i in range(len(ds.X))
+        ]
+        self.produced = 0
+        self._limit_min = self._limit_max = self.budget.limit
+        self.limit_path: list[tuple[float, int]] = []
+        self._thread = None
+
+    def start(self) -> None:
+        self._thread = self.router.start(poll_timeout_s=0.02)
+
+    # -- feeder -----------------------------------------------------------
+    def produce_tick(self, n_rows: int, hot_key: int | None = None) -> None:
+        """Produce one tick's rows split across the priority mix — one
+        chunk per class, because produce_batch stamps ONE headers dict
+        per chunk (exactly how a real producer stamps its lanes)."""
+        base = self.produced
+        for name, frac in MIX:
+            n = max(1, int(n_rows * frac))
+            idx = [(base + i) % len(self._rows) for i in range(n)]
+            keys = ([hot_key] * n if hot_key is not None
+                    else [(base + i) % 997 for i in range(n)])
+            self.broker.produce_batch(
+                self.cfg.kafka_topic,
+                [self._rows[i] for i in idx], keys,
+                headers={"priority": name},
+            )
+            base += n
+        self.produced = base
+
+    def track_limit(self) -> None:
+        lim = self.budget.limit
+        self._limit_min = min(self._limit_min, lim)
+        self._limit_max = max(self._limit_max, lim)
+
+    # -- counters ---------------------------------------------------------
+    def counts(self) -> dict:
+        c = self.reg.counter
+        shed_by = {
+            f"{name}:{stage}": int(c("ccfd_shed_total").value(
+                labels={"priority": name, "stage": stage}))
+            for name in PRIORITY_NAMES.values()
+            for stage in ("deadline", "budget")
+        }
+        admit_by = {
+            name: int(c("ccfd_admission_total").value(
+                labels={"stage": "bus", "priority": name,
+                        "decision": "admit"}))
+            for name in PRIORITY_NAMES.values()
+        }
+        return {
+            "incoming": int(c("transaction_incoming_total").value()),
+            "outgoing": int(c("transaction_outgoing_total").total()),
+            "shed": int(c("router_shed_total").value()),
+            "start_errors": int(
+                c("router_process_start_errors_total").total()),
+            "score_err": int(c("router_score_errors_total").value()),
+            "inversions": int(
+                c("ccfd_priority_inversions_total").value()),
+            "shed_by_priority_stage": shed_by,
+            "admitted_by_priority": admit_by,
+        }
+
+    def drain_and_stop(self, timeout_s: float = 30.0) -> bool:
+        c_in = self.reg.counter("transaction_incoming_total")
+        deadline = time.monotonic() + timeout_s
+        drained = False
+        while time.monotonic() < deadline:
+            if c_in.value() >= self.produced:
+                drained = True
+                break
+            time.sleep(0.1)
+        self.router.stop()
+        if self._thread is not None:
+            self._thread.join(timeout=30)
+        self.router.close()
+        return drained
+
+    def settled_scorer(self, quiet_s: float = 0.5, timeout_s: float = 10.0) -> dict:
+        """The scorer's dispatches and B1's launches once neither has moved
+        for ``quiet_s``: a score call the router abandoned at its deadline
+        (the crowd's injected latency) still dispatches after the drain."""
+        last, since = None, time.monotonic()
+        deadline = since + timeout_s
+        while True:
+            cur = (self.scorer.dispatch_total(), fused_mlp.launches.value - self._launches0)
+            now = time.monotonic()
+            if cur != last:
+                last, since = cur, now
+            elif now - since >= quiet_s or now > deadline:
+                break
+            time.sleep(0.05)
+        return {"kernel": self.scorer.kernel_name, "dispatches": last[0],
+                "warmups": len(self.scorer.batch_sizes), "launches": last[1]}
+
+    def stage_shares(self) -> dict[str, float]:
+        """Where the run's decision latency went, from the stage profiler:
+        each component's share of the summed wall time across queueing
+        (bus wait), decode, device dispatch and route/engine. The flash
+        regime's claim — backpressure parks the crowd in the BUS — reads
+        directly off the queue share."""
+        comps = {
+            "queue": ("bus", "queue"),
+            "decode": ("router.decode", "service"),
+            "dispatch": ("router.score", "dispatch"),
+            "route": ("router.route", "service"),
+        }
+        sums: dict[str, float] = {}
+        for name, (stage, comp) in comps.items():
+            d = self.profiler.digest(stage, comp)
+            sums[name] = d.sum if d is not None else 0.0
+        total = sum(sums.values())
+        if total <= 0:
+            return {k: 0.0 for k in sums}
+        return {k: round(v / total, 4) for k, v in sums.items()}
+
+    def verdict(self, slo_ms: float, p99_robust: bool = False) -> dict:
+        """Shared invariant checks every regime asserts after its drain.
+
+        ``p99_robust`` is the in-suite (pytest) form of the admitted-p99
+        claim: under full-suite host contention the raw tail flips past
+        the SLO with no admission failure behind it (the queueing-
+        layer lesson — a strict threshold on a noise-coupled statistic
+        flips on a busy CI box). The robust form demands the BODY of the
+        distribution corroborate a tail breach before calling it a
+        violation: a genuine admission failure (nothing shed, the crowd
+        admitted after waiting out the backlog) inflates p50 toward the
+        crowd duration right along with p99, while scheduler noise
+        stretches only the tail. A tail-only breach is recorded as
+        ``p99_soft_breach`` instead of a violation. The CLI regimes keep
+        the strict claim — they run in isolation."""
+        self.slo.tick()
+        cts = self.counts()
+        dec = self.reg.histogram("router_decision_seconds")
+        p50 = dec.quantile(0.5) * 1e3
+        p99 = dec.quantile(0.99) * 1e3
+        violations = []
+        p99_soft_breach = False
+        # accounting conservation: consumed == routed + shed + counted
+        # errors (the degrade ladder absorbs scorer faults, so scoring
+        # errors only drop rows when the ladder is off — it is on here)
+        routed_or_lost = (cts["outgoing"] + cts["shed"]
+                          + cts["start_errors"] + cts["score_err"])
+        if cts["incoming"] != routed_or_lost:
+            violations.append(
+                f"accounting: incoming {cts['incoming']} != outgoing "
+                f"{cts['outgoing']} + shed {cts['shed']} + start_err "
+                f"{cts['start_errors']} + score_err {cts['score_err']}")
+        if self.budget.inflight != 0:
+            violations.append(
+                f"budget leak: {self.budget.inflight} rows still reserved "
+                "after drain")
+        if cts["inversions"] != 0:
+            violations.append(
+                f"priority inversions: {cts['inversions']}")
+        if not math.isnan(p99) and p99 > slo_ms:
+            if (p99_robust and not math.isnan(p50)
+                    and p50 <= 0.5 * slo_ms):
+                p99_soft_breach = True
+            else:
+                violations.append(
+                    f"admitted p99 {p99:.1f} ms > SLO {slo_ms:.0f} ms")
+        return {
+            "p50_ms": round(p50, 2) if not math.isnan(p50) else None,
+            "p99_ms": round(p99, 2) if not math.isnan(p99) else None,
+            "p99_soft_breach": p99_soft_breach,
+            "slo_ms": slo_ms,
+            "counts": cts,
+            "limit_min": self._limit_min,
+            "limit_max": self._limit_max,
+            "limit_end": self.budget.limit,
+            "limit_path": self.limit_path,
+            # the scorer's bucketed dispatches and warmed buckets, and B1's
+            # launches since the scorer was built: on the card their sum
+            "scorer": self.settled_scorer(),
+            "slo": {
+                "breaches": self.slo.breaches("e2e-p99"),
+                "target_ms": self.slo.specs[0].target_ms,
+                "stage_shares": self.stage_shares(),
+            },
+            "violations": violations,
+        }
+
+
+def _run_windows(pipe: Pipeline, seconds: float, rate_fn,
+                 hot_key_fn=None, on_window=None) -> list[dict]:
+    """Drive the feeder at rate_fn(t) rows/s on a 20 ms tick, sampling
+    per-window shed/admit deltas every 0.5 s for the inversion evidence."""
+    tick = 0.02
+    windows: list[dict] = []
+    prev = pipe.counts()
+    next_window = time.monotonic() + 0.5
+    t0 = time.monotonic()
+    next_emit = t0
+    while True:
+        t = time.monotonic() - t0
+        if t >= seconds:
+            break
+        rate = rate_fn(t)
+        n = max(0, int(rate * tick))
+        if n:
+            pipe.produce_tick(
+                n, hot_key=hot_key_fn(t) if hot_key_fn else None)
+        pipe.track_limit()
+        if on_window is not None:
+            on_window(t)
+        now = time.monotonic()
+        if now >= next_window:
+            pipe.slo.tick()  # burn-rate evaluation rides the window clock
+            pipe.capacity.refresh()
+            pipe.limit_path.append((round(t, 2), int(pipe.budget.limit)))
+            cur = pipe.counts()
+            win = {
+                "t_s": round(t, 1),
+                "shed": {k: cur["shed_by_priority_stage"].get(k, 0)
+                         - prev["shed_by_priority_stage"].get(k, 0)
+                         for k in set(cur["shed_by_priority_stage"])
+                         | set(prev["shed_by_priority_stage"])},
+                "admit": {k: cur["admitted_by_priority"][k]
+                          - prev["admitted_by_priority"][k]
+                          for k in cur["admitted_by_priority"]},
+            }
+            windows.append(win)
+            prev = cur
+            next_window = now + 0.5
+        next_emit += tick
+        sleep = next_emit - time.monotonic()
+        if sleep > 0:
+            time.sleep(sleep)
+    return windows
+
+
+def _window_inversions(windows: list[dict]) -> int:
+    """Windows where a HIGHER class was budget-shed while a LOWER class
+    was admitted — the window-granular form of the per-batch tripwire.
+
+    Judged on BUDGET sheds only: a deadline (CoDel) shed is a fate, not a
+    choice — the row went stale waiting (critical rows get 4x the grace),
+    and serving it anyway would burn device time on work that already
+    blew its SLO while live work queued behind it."""
+    order = ["bulk", "normal", "critical"]
+    bad = 0
+    for w in windows:
+        for hi in (2, 1):
+            hi_shed = w["shed"].get(f"{order[hi]}:budget", 0)
+            lo_admit = sum(w["admit"].get(order[lo], 0)
+                           for lo in range(hi))
+            if hi_shed > 0 and lo_admit > 0:
+                bad += 1
+                break
+    return bad
+
+
+# -- regimes ---------------------------------------------------------------
+def run_flash(seconds: float, slo_ms: float, base_rate: float,
+              p99_robust: bool = False, device: str | None = None) -> dict:
+    """5x step flash crowd + injected scorer latency step: the saturation
+    regime where priority shedding, AIMD collapse/recovery and the SLO
+    bound all have to show up at once. ``p99_robust`` relaxes ONLY the
+    admitted-p99 tail claim to its body-corroborated form (see
+    ``Pipeline.verdict``) for in-suite runs under host contention."""
+    pipe = Pipeline(device=device)
+    pipe.start()
+    warm = seconds * 0.25
+    crowd = seconds * 0.5
+    crowd_end = warm + crowd
+    capacity: dict = {}
+
+    def rate(t: float) -> float:
+        return base_rate * (5.0 if warm <= t < crowd_end else 1.0)
+
+    def storm(t: float) -> None:
+        if warm <= t < crowd_end:
+            if not pipe.fault_plan.active:
+                pipe.fault_plan.activate()
+            if not capacity and t >= warm + crowd / 2:
+                pipe.capacity.refresh()
+                capacity.update(pipe.capacity.snapshot())
+        elif pipe.fault_plan.active:
+            pipe.fault_plan.deactivate()
+
+    windows = _run_windows(pipe, seconds, rate, on_window=storm)
+    pipe.fault_plan.deactivate()
+    drained = pipe.drain_and_stop()
+    out = pipe.verdict(slo_ms, p99_robust=p99_robust)
+    out["regime"] = "flash"
+    out["base_rate"] = base_rate
+    out["capacity"] = capacity
+    out["drained"] = drained
+    out["window_inversions"] = _window_inversions(windows)
+    total_shed = out["counts"]["shed"]
+    if not drained:
+        out["violations"].append("backlog failed to drain after the crowd")
+    if total_shed == 0:
+        out["violations"].append(
+            "flash crowd produced zero sheds — the regime did not "
+            "saturate the stage; nothing was exercised")
+    # budget-stage sheds are CHOICES and must never pick critical while
+    # cheaper work exists (the per-batch tripwire is the strict form)
+    crit_budget = out["counts"]["shed_by_priority_stage"].get(
+        "critical:budget", 0)
+    if crit_budget != 0:
+        out["violations"].append(
+            f"{crit_budget} critical rows budget-shed while bulk/normal "
+            "traffic existed to shed first")
+    # deadline sheds are fates, but the priority-scaled cutoffs must
+    # still order them: the loss RATE per class has to fall strictly as
+    # priority rises (bulk absorbs the crowd, critical barely feels it)
+    frac = {}
+    for name in ("bulk", "normal", "critical"):
+        shed_c = sum(v for k, v in
+                     out["counts"]["shed_by_priority_stage"].items()
+                     if k.startswith(name + ":"))
+        admitted = out["counts"]["admitted_by_priority"][name]
+        frac[name] = shed_c / max(1, shed_c + admitted)
+    out["shed_fraction_by_priority"] = {
+        k: round(v, 3) for k, v in frac.items()}
+    if not (frac["bulk"] >= frac["normal"] >= frac["critical"]):
+        out["violations"].append(
+            f"shed fractions not priority-ordered: {frac}")
+    if frac["critical"] >= frac["bulk"] or frac["critical"] > 0.5:
+        out["violations"].append(
+            f"critical lost {frac['critical']:.0%} of its rows — the "
+            "priority scheme failed to protect the lane it exists for")
+    if out["window_inversions"] != 0:
+        out["violations"].append(
+            f"{out['window_inversions']} windows served low-priority "
+            "work while shedding higher-priority work")
+    if out["limit_min"] >= 8192:
+        out["violations"].append(
+            "AIMD limit never decreased under the injected latency step")
+    if out["limit_end"] <= out["limit_min"]:
+        out["violations"].append(
+            "AIMD limit did not recover after the crowd")
+    # the SLO layer's flash claims: the crowd must burn the e2e
+    # fast windows, and the stage profile must show the damage living in
+    # the QUEUEING layer — backpressure parked the crowd in the bus, it
+    # didn't inflate service time
+    if out["slo"]["breaches"] == 0:
+        out["violations"].append(
+            "flash crowd never burned the e2e SLO's fast windows — the "
+            "burn-rate layer saw no saturation")
+    shares = out["slo"]["stage_shares"]
+    if sum(shares.values()) <= 0:
+        # an all-zero share map means the profiler never sampled — the
+        # claim below would pass vacuously on a broken feed
+        out["violations"].append(
+            "stage profiler recorded no samples — the queueing-layer "
+            "claim has no evidence")
+    elif (shares["queue"] < 0.30
+          or shares["queue"] < 2.0 * (shares["decode"] + shares["route"])):
+        # the claim is "backpressure parked the crowd in the BUS and the
+        # service layers didn't inflate" — NOT "bus wait outweighs device
+        # compute": on CPU CI the dispatch share tracks host scheduling
+        # load (a strict arg-max over all four shares flips on a busy
+        # machine with no backpressure failure behind it). A real failure
+        # still trips this form: crowd not parked -> the queue share
+        # collapses toward zero; service-time inflation -> decode/route
+        # swallow the budget (and the p99 check catches the rest)
+        out["violations"].append(
+            f"flash budget burn not concentrated in the queueing layer: "
+            f"{shares}")
+    return out
+
+
+def run_diurnal(seconds: float, slo_ms: float, base_rate: float,
+                device: str | None = None) -> dict:
+    """Sinusoidal daily ramp: the no-drama regime — the plane must stay
+    out of the way (no sheds, flat p99) while the rate doubles and halves."""
+    pipe = Pipeline(device=device)
+    pipe.start()
+
+    def rate(t: float) -> float:
+        return base_rate * (1.0 + 0.6 * math.sin(2 * math.pi * t / seconds))
+
+    windows = _run_windows(pipe, seconds, rate)
+    drained = pipe.drain_and_stop()
+    out = pipe.verdict(slo_ms)
+    out["regime"] = "diurnal"
+    out["base_rate"] = base_rate
+    out["drained"] = drained
+    out["window_inversions"] = _window_inversions(windows)
+    if not drained:
+        out["violations"].append("diurnal backlog failed to drain")
+    if out["counts"]["shed"] > 0:
+        out["violations"].append(
+            f"diurnal ramp shed {out['counts']['shed']} rows — the plane "
+            "interfered with a load it should absorb")
+    if out["slo"]["breaches"] > 0:
+        out["violations"].append(
+            f"diurnal ramp burned the e2e SLO ({out['slo']['breaches']} "
+            "breaches) — the daily shape must stay green")
+    return out
+
+
+def run_hotkey(seconds: float, slo_ms: float, base_rate: float,
+               device: str | None = None) -> dict:
+    """Partition-skewed hot key: ~85% of traffic rides one key (one
+    partition, one worker). The shared global budget and the coalesced
+    dispatch must keep the skewed worker from blowing the pool's p99."""
+    pipe = Pipeline(device=device)
+    pipe.start()
+
+    def hot(t: float):
+        # 85% of ticks pin the hot key; the rest spread
+        return 0 if (int(t / 0.02) % 20) < 17 else None
+
+    windows = _run_windows(pipe, seconds, lambda t: base_rate * 2,
+                           hot_key_fn=hot)
+    drained = pipe.drain_and_stop()
+    out = pipe.verdict(slo_ms)
+    out["regime"] = "hotkey"
+    out["base_rate"] = base_rate * 2
+    out["drained"] = drained
+    out["window_inversions"] = _window_inversions(windows)
+    c = pipe.reg.counter("router_worker_batches_total")
+    out["worker_batches"] = {
+        str(i): int(c.value(labels={"worker": str(i)}))
+        for i in range(pipe.router.n_workers)
+    }
+    if not drained:
+        out["violations"].append("hot-key backlog failed to drain")
+    if out["window_inversions"] != 0:
+        out["violations"].append("hot-key regime served low-priority work "
+                                 "while shedding higher-priority work")
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--regime", default="all",
+                    choices=("all", "flash", "diurnal", "hotkey"))
+    ap.add_argument("--seconds", type=float, default=30.0,
+                    help="duration per regime")
+    ap.add_argument("--short", action="store_true",
+                    help="CI smoke: ~8 s flash-crowd-scale regimes")
+    ap.add_argument("--slo-ms", type=float, default=1200.0,
+                    help="admitted-traffic decision p99 SLO. Default is "
+                    "derived from the harness's own overload config: the "
+                    "worst admitted bus age (4x the 100 ms CoDel target) "
+                    "+ the injected 200 ms crowd dispatch latency + "
+                    "routing/engine time + CI-box margin")
+    ap.add_argument("--base-rate", type=float, default=4000.0,
+                    help="base traffic rate, rows/s")
+    ap.add_argument("--device", default=None,
+                    help="the scorer's device: the card by default, cpu when asked")
+    args = ap.parse_args()
+    seconds = 8.0 if args.short else args.seconds
+
+    regimes = {
+        "flash": run_flash, "diurnal": run_diurnal, "hotkey": run_hotkey,
+    }
+    names = list(regimes) if args.regime == "all" else [args.regime]
+    results = {}
+    ok = True
+    # the port's service GC tuning (utils/gctune.py), as its roles and `up`
+    # run the pipeline; each regime starts on a collected heap, so the last
+    # regime's garbage is not scanned in the middle of the next one
+    gctune.tune_for_service()
+    for name in names:
+        gc.collect()
+        res = regimes[name](seconds, args.slo_ms, args.base_rate, device=args.device)
+        results[name] = res
+        ok = ok and not res["violations"]
+        print(f"[torch_load_shape] {name}: p99={res['p99_ms']} ms "
+              f"shed={res['counts']['shed']} "
+              f"violations={len(res['violations'])}", file=sys.stderr)
+    print(json.dumps({
+        "harness": "torch_load_shape",
+        "device": args.device or "cuda",
+        "seconds_per_regime": seconds,
+        "slo_ms": args.slo_ms,
+        "ok": ok,
+        "regimes": results,
+    }))
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
