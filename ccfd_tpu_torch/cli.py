@@ -1,17 +1,20 @@
 """Command-line entry points of the port.
 
   python -m ccfd_tpu_torch train [--steps 500] [--checkpoint-dir DIR]
+                                 [--family mlp|hgb] [--hgb-depth 8]
+                                 [--gbt-dir DIR]
                                  [--from-store [--store-url URL]]
                                  [--test-frac F] [--device cuda|cpu]
   python -m ccfd_tpu_torch serve [--device cuda|cpu] [--params PATH]
-                                 [--checkpoint-dir DIR] [--gbt-dir DIR]
+                                 [--checkpoint-dir DIR] [--quantized-dir DIR]
+                                 [--gbt-dir DIR]
                                  [--train [--train-steps 300]]
                                  [--host H] [--port N]
   python -m ccfd_tpu_torch score [--input CSV] [--output PATH] [--depth 2]
                                  [--checkpoint-dir DIR] [--quantized-dir DIR]
                                  [--gbt-dir DIR] [--device cuda|cpu]
-  python -m ccfd_tpu_torch quantize --out PATH [--params PATH]
-                                    [--checkpoint-dir DIR]
+  python -m ccfd_tpu_torch quantize [--out-dir DIR] [--out PATH]
+                                    [--params PATH] [--checkpoint-dir DIR]
                                     [--test-frac F] [--device cuda|cpu]
   python -m ccfd_tpu_torch demo [--transactions N] [--rate R]
                                 [--reply-timeout S] [--drain-s S]
@@ -73,7 +76,8 @@ default), the held-out ``auc_mlp``, and a ``CheckpointManager`` step at
 scikit-learn (the port does not import it). ``--family hgb`` exits 2 with
 the reference's message for a missing scikit-learn (the port fits no tree
 ensemble: ``checkpoints_gbt/params.npz`` is the reference's ``train
---family hgb`` output). ``--from-store`` reads creditcard.csv from the
+--family hgb`` output); its ``--hgb-depth`` and ``--gbt-dir`` are the
+reference's flags with its defaults. ``--from-store`` reads creditcard.csv from the
 object store (``--store-url``, else the s3endpoint env) through
 ``store/client.py::S3Client`` and ``data/ccfd.py::load_csv_bytes``, and
 prints ``source`` as ``store:<bucket>/<file>``, as the reference's does.
@@ -102,10 +106,12 @@ The knobs of ``config.Config`` come from the environment (CCFD_MODEL,
 CCFD_DTYPE, CCFD_BATCH_SIZES, CCFD_Q8_WIRE, ...). It answers through the C++
 REST front (``serving/native_front.py``) unless CCFD_NATIVE_FRONT=0 selects
 the Python server; its start-up line names the payload decoder and the
-transport. With ``CCFD_MODEL=mlp_q8`` it serves int8 params: those of a q8
-``.npz`` (``quantize``'s output), or ``quantize_mlp`` of an f32 one, which
-for the committed checkpoint equals the reference's
-``checkpoints_q8/step_1200``.
+transport. With ``CCFD_MODEL=mlp_q8`` it serves int8 params: the newest ``quantize``
+step in ``--quantized-dir`` (default ``./checkpoints_q8_torch``), which is
+the reference's int8 lifecycle ``train -> quantize -> CCFD_MODEL=mlp_q8
+serve``; else those of ``--params`` (a q8 ``.npz``, or ``quantize_mlp`` of
+an f32 one); else the committed checkpoint quantized, which equals the
+reference's ``checkpoints_q8/step_1200``.
 
 The model is any registered one (``CCFD_MODEL``: ``mlp``, ``mlp_q8``,
 ``logreg``, ``modelfull``, ``gbt``, ``gbt_mxu``). ``CCFD_GRAPH_CR`` names a
@@ -124,15 +130,16 @@ of ``--input`` (else CCFD_CSV, else the synthetic stream) through
 probabilities written to ``--output`` as the reference's CSV, and its JSON
 line (``rows``, ``seconds``, ``tx_s``, ``flagged_fraud``,
 ``fraud_threshold``, ``mean_proba``, ``output``, ``checkpoint``). It reads
-the model and its params as ``serve`` does; for ``mlp_q8``,
-``--quantized-dir`` names a directory of int8 checkpoint steps in the npz
-form.
+the model and its params as ``serve`` does, ``--quantized-dir`` included.
 
 Deviations in where params come from. The default ``--checkpoint-dir`` of
-``train``, ``serve`` and ``quantize`` is ``./checkpoints_torch``, where the
-reference's is ``./checkpoints``: that directory holds the reference's
-orbax steps, which the port does not read (``parallel/checkpoint.py``
-reads and writes the reference's npz form). Where the reference's ``serve``
+``train``, ``serve``, ``quantize``, ``score`` and ``doctor`` is
+``./checkpoints_torch``, where the reference's is ``./checkpoints``, and
+the default int8 directory (``quantize --out-dir``, ``--quantized-dir``) is
+``./checkpoints_q8_torch``, where the reference's is ``./checkpoints_q8``:
+those directories hold the reference's orbax steps, which the port does
+not read (``parallel/checkpoint.py`` reads and writes the reference's npz
+form). Where the reference's ``serve``
 without a ``train`` step serves ``PRNGKey(0)`` params, the port serves the
 committed checkpoint. The port's ``fit_mlp`` draws its init from a seeded
 ``torch.Generator`` (``parallel/train.py``), so its trained params differ
@@ -140,9 +147,11 @@ from the reference's, drawn from the same distribution.
 
 ``quantize`` is the reference's ``cmd_quantize``: f32 params in (``--params``,
 else the newest step in ``--checkpoint-dir``, else the committed
-checkpoint), a q8 ``.npz`` out, and one JSON line of evidence that
-quantization kept the model's quality: the f32-to-int8 delta (AUC and
-probability) on a seeded sample of the training dataset. The f32 side runs
+checkpoint, step 1,200), the int8 step out through ``CheckpointManager``
+in ``--out-dir`` under the source step's number (0 for a ``--params``
+file), or with ``--out`` alone a q8 ``.npz`` instead, and one JSON line of
+evidence that quantization kept the model's quality: the f32-to-int8
+delta (AUC and probability) on a seeded sample of the training dataset. The f32 side runs
 the served ``mlp`` graph on ``--device`` (the card by default), the int8
 side the host-tier forward, as the reference does.
 
@@ -275,6 +284,11 @@ from ccfd_tpu_torch.config import Config
 
 
 DEFAULT_CHECKPOINT_DIR = "./checkpoints_torch"
+# `quantize` writes its int8 steps here, and `serve`, `score` and `doctor`
+# read them (the reference's ./checkpoints_q8 holds orbax steps)
+Q8_DIR = "./checkpoints_q8_torch"
+# assets/mlp_step_1200.npz is the reference's checkpoints/step_1200
+COMMITTED_STEP = 1200
 GBT_DIR = "./checkpoints_gbt"  # the reference's `train --family hgb` writes here
 MLP_FAMILY = ("mlp", "mlp_q8")
 RETRAIN_INTERVAL_S = 0.5  # the demo's OnlineTrainer poll, as the reference's
@@ -282,19 +296,20 @@ RETRAIN_INTERVAL_S = 0.5  # the demo's OnlineTrainer poll, as the reference's
 
 def build_server(cfg: Config, device: str | None = None,
                  params_path: str | None = None, checkpoint_dir: str | None = None,
-                 params: Any = None, gbt_dir: str | None = None):
+                 params: Any = None, gbt_dir: str | None = None,
+                 quantized_dir: str | None = None):
     """The warmed-up ``PredictionServer`` that ``serve`` runs (not yet
     listening): a ``Scorer`` on ``device`` (default: the card) for the
     config's model, or the CCFD_GRAPH_CR graph (``with_graph``), serving
     ``params`` when given, else ``served_params(cfg, params_path,
-    checkpoint_dir, gbt_dir)``. Raises ``NotImplementedError`` naming any
-    knob set to an unported part."""
+    checkpoint_dir, gbt_dir, quantized_dir)``. Raises
+    ``NotImplementedError`` naming any knob set to an unported part."""
     from ccfd_tpu_torch.serving.server import PredictionServer
 
     _refuse_unported(cfg, "serve")
     cfg = with_graph(cfg)
     if params is None:
-        params = served_params(cfg, params_path, checkpoint_dir, gbt_dir)
+        params = served_params(cfg, params_path, checkpoint_dir, gbt_dir, quantized_dir)
     return PredictionServer(make_scorer(cfg, params, device), cfg)
 
 
@@ -1311,7 +1326,7 @@ def cmd_up(args: argparse.Namespace) -> int:
     from ccfd_tpu_torch.platform.operator import Platform, PlatformSpec, refuse
 
     spec = PlatformSpec.from_yaml(args.file)
-    refuse(spec, args.device)  # before anything starts
+    refuse(spec)  # before anything starts
     if args.exit_after_producer and not spec.component("producer").enabled:
         print("[up] --exit-after-producer given but producer is disabled in the CR",
               file=sys.stderr)
@@ -1431,7 +1446,7 @@ def cmd_serve(args: argparse.Namespace) -> int:
         params = train_mlp(ds.X, ds.y, args.train_steps, args.device)
     srv = build_server(cfg, device=args.device, params_path=args.params,
                        checkpoint_dir=args.checkpoint_dir, params=params,
-                       gbt_dir=args.gbt_dir)
+                       gbt_dir=args.gbt_dir, quantized_dir=args.quantized_dir)
     gc0 = _tune_gc()
     host = args.host if args.host is not None else cfg.serve_host
     port = srv.start(host, args.port if args.port is not None else cfg.serve_port)
@@ -1540,6 +1555,7 @@ def cmd_quantize(args: argparse.Namespace) -> int:
     from ccfd_tpu_torch.device import resolve
     from ccfd_tpu_torch.models import mlp
     from ccfd_tpu_torch.ops import quant
+    from ccfd_tpu_torch.parallel.checkpoint import CheckpointManager
     from ccfd_tpu_torch.params import (
         DEFAULT_PARAMS,
         MLP_LIKE,
@@ -1557,7 +1573,7 @@ def cmd_quantize(args: argparse.Namespace) -> int:
             params, step = restored
             src = os.path.join(args.checkpoint_dir, f"step_{step}")
         else:
-            src = DEFAULT_PARAMS
+            src, step = DEFAULT_PARAMS, COMMITTED_STEP
     if params is None:
         params = load_params(src)
     if quant.is_quantized(params):
@@ -1569,7 +1585,17 @@ def cmd_quantize(args: argparse.Namespace) -> int:
     te = held_out_split(ds.n, args.test_frac)[0]
     p32 = mlp.apply(to_device(params, dev), torch.from_numpy(ds.X[te]).to(dev)).cpu().numpy()
     p8 = quant.apply_numpy(qp, ds.X[te])
-    save_params(qp, args.out)
+    if args.out:
+        save_params(qp, args.out)
+    out_dir = args.out_dir or (None if args.out else Q8_DIR)
+    # the quantized step under the source step's number, as the reference
+    # writes it (an explicit --params file has no step: 0)
+    path = CheckpointManager(out_dir).save(step or 0, qp) if out_dir else None
+    if path is not None:
+        serve_with = "CCFD_MODEL=mlp_q8 python -m ccfd_tpu_torch serve" + (
+            "" if out_dir == Q8_DIR else f" --quantized-dir {out_dir}")
+    else:
+        serve_with = f"CCFD_MODEL=mlp_q8 python -m ccfd_tpu_torch serve --params {args.out}"
     print(json.dumps({
         "source": str(src),
         "source_step": step,
@@ -1578,8 +1604,9 @@ def cmd_quantize(args: argparse.Namespace) -> int:
         "auc_int8": round(roc_auc(ds.y[te], p8), 6),
         "max_prob_delta": round(float(np.abs(p8 - p32).max()), 6),
         "evidence": "f32-to-int8 delta on a sampled evaluation set",
-        "out": str(args.out),
-        "serve_with": f"CCFD_MODEL=mlp_q8 python -m ccfd_tpu_torch serve --params {args.out}",
+        "checkpoint": path,
+        "out": args.out,
+        "serve_with": serve_with,
     }))
     return 0
 
@@ -1747,7 +1774,7 @@ def cmd_doctor(args: argparse.Namespace) -> int:
 
     for label, d in (("checkpoint", args.checkpoint_dir), ("quantized", args.quantized_dir)):
         try:
-            step = CheckpointManager(d).latest_step() if d else None
+            step = CheckpointManager(d).latest_step() if d and os.path.isdir(d) else None
         except Exception:  # noqa: BLE001 - an unreadable dir reads as absent
             step = None
         report[label] = {"dir": d, "latest_step": step}
@@ -1939,6 +1966,10 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--checkpoint-dir", default=DEFAULT_CHECKPOINT_DIR)
     t.add_argument("--family", choices=("mlp", "hgb"), default="mlp",
                    help="hgb needs scikit-learn, which the port does not import (exit 2)")
+    t.add_argument("--hgb-depth", type=int, default=8,
+                   help="max tree depth for --family hgb (the reference's flag)")
+    t.add_argument("--gbt-dir", default=GBT_DIR,
+                   help="output dir for --family hgb params (the reference's flag)")
     t.add_argument("--from-store", action="store_true",
                    help="fetch creditcard.csv from the object store (the reference's "
                    "S3 data path)")
@@ -1959,6 +1990,9 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--train-steps", type=int, default=300)
     s.add_argument("--checkpoint-dir", default=DEFAULT_CHECKPOINT_DIR,
                    help="serve the newest `train` step there when present (the MLP)")
+    s.add_argument("--quantized-dir", default=Q8_DIR,
+                   help="int8 checkpoint dir used when CCFD_MODEL=mlp_q8: its newest "
+                   "`quantize` step (none: the committed checkpoint, quantized)")
     s.add_argument("--gbt-dir", default=GBT_DIR,
                    help="tree params dir used when CCFD_MODEL=gbt "
                    "(written by the reference's `train --family hgb`)")
@@ -1970,7 +2004,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="f32 .npz to quantize (default: the newest step in "
                    "--checkpoint-dir, else the committed checkpoint)")
     q.add_argument("--checkpoint-dir", default=DEFAULT_CHECKPOINT_DIR)
-    q.add_argument("--out", required=True, help="where to write the int8 .npz")
+    q.add_argument("--out-dir", default=None,
+                   help="int8 checkpoint dir to write the step to, under the source "
+                   f"step's number (default: {Q8_DIR} unless --out is given)")
+    q.add_argument("--out", default=None, help="an int8 .npz to write as well or instead")
     q.add_argument("--test-frac", type=float, default=0.2)
     q.add_argument("--device", choices=("cuda", "cpu"), default=None,
                    help="where the f32 evidence forward runs (default: the card)")
@@ -1982,9 +2019,9 @@ def build_parser() -> argparse.ArgumentParser:
     sc.add_argument("--depth", type=int, default=2, help="pipelined dispatch depth")
     sc.add_argument("--checkpoint-dir", default=DEFAULT_CHECKPOINT_DIR,
                     help="the newest `train` step there when present (the MLP)")
-    sc.add_argument("--quantized-dir", default=None,
+    sc.add_argument("--quantized-dir", default=Q8_DIR,
                     help="int8 checkpoint dir (npz steps) used when CCFD_MODEL=mlp_q8 "
-                    "(default: the committed checkpoint, quantized)")
+                    "(none there: the committed checkpoint, quantized)")
     sc.add_argument("--gbt-dir", default=GBT_DIR,
                     help="tree params dir used when CCFD_MODEL=gbt")
     sc.add_argument("--device", choices=("cuda", "cpu"), default=None,
@@ -2163,7 +2200,7 @@ def build_parser() -> argparse.ArgumentParser:
     dr.add_argument("--probe-s", type=float, default=30.0,
                     help="device probe timeout (the probe runs in a subprocess)")
     dr.add_argument("--checkpoint-dir", default=DEFAULT_CHECKPOINT_DIR)
-    dr.add_argument("--quantized-dir", default=None)
+    dr.add_argument("--quantized-dir", default=Q8_DIR)
     dr.add_argument("--device", choices=("cuda", "cpu"), default=None,
                     help="the device to probe (default: the card)")
     dr.set_defaults(fn=cmd_doctor)

@@ -23,7 +23,8 @@ crash), with health probes and one Prometheus exporter:
       ``http://`` for a ``bus`` role, ``kafka://`` for a cluster)
   2b  mesh (``mesh.devices`` > 1: the named (data, fsdp, tp) mesh of
       logical shards, N CPU shards on a CPU platform or the first N
-      cards, and its partitioner from ``param_partition``; the scorer, the
+      cards, clamped to those visible, and its partitioner from
+      ``param_partition``; the scorer, the
       seq scorer (``seq_parallel``), the trainer and the analytics engine
       are built against it, and the router pool's pause barrier arms the
       partitioner's publish gate (6); 1 is inert)
@@ -75,18 +76,29 @@ crash), with health probes and one Prometheus exporter:
       its fault storms.
 
 The scorer serves on the card (``device=None``) unless the caller names
-the CPU, as every entry point of the port. The components and options the
-port does not have are refused by name, all at once, before anything
-starts (``refused``): the reference builds them only here, and the port
-never skips one with a warning, clamps it or moves it to the CPU where the
-reference would: the online retrain under a seq scorer (the reference
-skips it with a warning), the decision plane without a row scorer, and
-the decision plane with the lifecycle (the reference serves the staged
-path with a warning: the canary gate overrides scores after a fused
-verdict fired) are refused. So are a mesh of more shards than visible
-CUDA devices (the reference clamps it), ``mesh.devices: 0`` on a CPU
-platform, and the decision plane with a mesh (the reference serves it
-staged: its decision program has no shard_map composition).
+the CPU, as every entry point of the port. The knobs that select a part
+the port does not have are refused by name, all at once, before anything
+starts (``refused``). Where the reference degrades a CR with a warning,
+the port degrades it the same way, with the reference's warning:
+
+- retrain under a seq scorer is skipped: no ``retrain`` service;
+- ``scorer.fused_decision`` without an in-process row scorer (remote or
+  seq), with the lifecycle (the canary gate overrides scores after a fused
+  verdict fired), or over a mesh scorer (``serving/fused.py``: its decision
+  program has no sharded composition) serves the staged path, B1 and the
+  host rules; ``scorer.fused_decision_strict`` raises instead, before any
+  service starts;
+- ``mesh.devices`` above the visible CUDA devices clamps to them, drops
+  to pure data parallel when the clamped count breaks ``fsdp`` x ``tp``
+  and turns sequence parallelism off where it cannot run
+  (``resolve_mesh_shape``); 0 means every visible CUDA device, and one
+  device serves unsharded. On a CPU platform N names N logical CPU shards
+  (the reference's virtual CPU devices), and 0 serves unsharded;
+- ``CCFD_GRAPH_CR`` is not read: the operator serves ``scorer.model``
+  (``serve`` loads graphs).
+
+None of these moves a request off the card: a clamped mesh is the card,
+the staged path is B1.
 """
 
 from __future__ import annotations
@@ -121,9 +133,7 @@ _COMPONENTS = (
 _OFF_BY_DEFAULT = ("producer", "store", "chaos", "investigator", "fleet", "replay")
 
 # components the reference's operator builds that the port does not have,
-# with the ROADMAP item that ports each (none since A15b; PlatformSpec.refused
-# names the deviations: `mesh.devices` above the visible CUDA devices, 0 on
-# a CPU platform, and the decision plane with a mesh)
+# with the ROADMAP item that ports each (none since A15b)
 REFUSED_COMPONENTS: Mapping[str, str] = {}
 # scorer models the operator serves (every other is refused or unknown)
 SCORER_MODELS = ("mlp", "mlp_q8", "logreg", "modelfull", "gbt", "gbt_mxu", "seq", "seq_q8")
@@ -166,65 +176,54 @@ class PlatformSpec:
     def component(self, name: str) -> ComponentSpec:
         return self.components.get(name, ComponentSpec(enabled=False))
 
-    def refused(self, device: Any = None) -> list[str]:
+    def refused(self) -> list[str]:
         """Every part of this spec (and of its config's environment) the
-        port does not have or refuses where the reference degrades, each
-        named; [] when the platform can come up on ``device`` (the
-        scorer's: None is the card)."""
+        port does not have, each named; [] when the platform can come up."""
         out = [f"{name} ({item})" for name, item in REFUSED_COMPONENTS.items()
                if self.component(name).enabled]
-        scorer = self.component("scorer")
-        model = scorer.opt("model", self.cfg.model_name)
-        if scorer.enabled and model in SEQ_MODELS:
-            if self.component("retrain").enabled:
-                # the online trainer's step is the MLP's: the reference
-                # skips retrain with a warning under a seq scorer
-                out.append(f"retrain with scorer.model: {model} (the online trainer "
-                           "trains the MLP family; disable retrain)")
-            if bool(scorer.opt("fused_decision", self.cfg.fused_decision)):
-                out.append(f"scorer.fused_decision with scorer.model: {model} (a seq "
-                           "scorer has no fusable decision program)")
-        elif (scorer.enabled and self.component("lifecycle").enabled
-              and bool(scorer.opt("fused_decision", self.cfg.fused_decision))):
-            # the reference serves the staged path with a warning
-            out.append("scorer.fused_decision with lifecycle (the canary gate overrides "
-                       "scores after the fused verdict fires; disable one of them)")
-        mesh = self.component("mesh")
-        if mesh.enabled:
-            n = int(mesh.opt("devices", self.cfg.mesh_devices))
-            on_cpu = device is not None and str(device).startswith("cpu")
-            if n != 1 and on_cpu:
-                if n == 0:
-                    out.append("mesh.devices: 0 (every visible CUDA device; a CPU platform "
-                               "serves N logical CPU shards: name N)")
-            elif n != 1:
-                import torch
-
-                avail = torch.cuda.device_count() if torch.cuda.is_available() else 0
-                if n > avail or n == 0 == avail:
-                    # the reference clamps an oversized mesh with a warning
-                    out.append(f"mesh.devices: {n} (above the {avail} visible CUDA "
-                               "devices; the port refuses where the reference clamps)")
-            if n != 1 and bool(scorer.opt("fused_decision", self.cfg.fused_decision)):
-                # the reference serves it staged, with a warning: its decision
-                # program has no shard_map composition
-                out.append("scorer.fused_decision with a mesh (the decision plane "
-                           "serves one device; disable one of them)")
-        if self.cfg.graph_cr:
-            out.append("CCFD_GRAPH_CR (the operator's scorer serves scorer.model; "
-                       "`serve` serves a graph)")
         out.extend(self.cfg.unported())
         return out
 
 
-def refuse(spec: PlatformSpec, device: Any = None) -> None:
-    """Raise ``NotImplementedError`` naming every refused part of ``spec``
-    on ``device``."""
-    refused = spec.refused(device)
+def refuse(spec: PlatformSpec) -> None:
+    """Raise ``NotImplementedError`` naming every refused part of ``spec``."""
+    refused = spec.refused()
     if refused:
         raise NotImplementedError(
             "refused by the port; disable or unset each to bring the platform up: "
             + "; ".join(refused))
+
+
+def resolve_mesh_shape(n: int, avail: int, fsdp: int, tp: int,
+                       seq_parallel: str) -> tuple[int, int, int, str]:
+    """(devices, fsdp, tp, seq_parallel) that ``avail`` devices can serve
+    for a CR's ``mesh:`` block, as the reference's operator resolves it
+    (``ccfd_tpu/platform/operator.py:825-860``), each change logged with
+    the reference's warning: 0 is every device; a count above ``avail``
+    clamps to it, and drops to pure data parallel (fsdp = tp = 1) when
+    the clamped count is not a multiple of fsdp x tp; sequence
+    parallelism needs a tp axis > 1 and more than one device. A result of
+    1 device serves unsharded."""
+    log_ = logging.getLogger(__name__)
+    if n == 0:
+        n = avail
+    if n > avail:
+        # a CR sized for a larger machine still serves, clamped, loudly
+        log_.warning("mesh.devices=%d but only %d local devices; clamping (a CPU "
+                     "platform serves N logical CPU shards)", n, avail)
+        n = avail
+        if n % (fsdp * tp) != 0:
+            log_.warning("clamped mesh: %d devices not divisible by fsdp*tp=%d; "
+                         "serving pure data-parallel instead", n, fsdp * tp)
+            fsdp = tp = 1
+    if tp <= 1 and seq_parallel != "none":
+        if n > 1:
+            log_.warning("mesh.seq_parallel=%s needs a tp axis > 1 (have tp=%d); "
+                         "disabling sequence parallelism", seq_parallel, tp)
+        seq_parallel = "none"
+    if n <= 1:
+        seq_parallel = "none"
+    return n, fsdp, tp, seq_parallel
 
 
 class Platform:
@@ -292,8 +291,13 @@ class Platform:
 
         if self._up:
             return self
-        refuse(self.spec, self.device)
+        refuse(self.spec)
         spec, cfg = self.spec, self.cfg
+        self._refuse_strict_decision()
+        if cfg.graph_cr:
+            logging.getLogger(__name__).warning(
+                "CCFD_GRAPH_CR=%s is not read by the operator: it serves scorer.model "
+                "(`serve` loads the graph)", cfg.graph_cr)
         self.supervisor = Supervisor()
 
         # 0. fault plans (runtime/faults.py), the reference's opt-in rules:
@@ -341,7 +345,7 @@ class Platform:
         if ov_overrides:
             self.cfg = cfg = dataclasses.replace(cfg, **ov_overrides)
             # the CR may select the batcher's queue policies: still refused
-            refuse(dataclasses.replace(spec, cfg=cfg), self.device)
+            refuse(dataclasses.replace(spec, cfg=cfg))
 
         # 0b. distributed tracing: one tail-sampling sink for every
         # component tracer, and the trace-correlated JSON logs
@@ -440,9 +444,18 @@ class Platform:
             self._up_investigator()
 
         # 7. online retrain: candidates to the lifecycle (3b), or the direct
-        # swap with the lifecycle off or retrain.direct_swap
+        # swap with the lifecycle off or retrain.direct_swap. The trainer's
+        # step is the MLP's: under a seq scorer retrain is skipped, as the
+        # reference skips it
         if spec.component("retrain").enabled and self.scorer is not None:
-            self._up_retrain()
+            from ccfd_tpu_torch.serving.history import SeqScorer
+
+            if isinstance(self.scorer, SeqScorer):
+                logging.getLogger(__name__).warning(
+                    "retrain enabled but scorer model is 'seq': online retrain targets "
+                    "the MLP family; skipping retrain")
+            else:
+                self._up_retrain()
 
         # 7b. analytics: the drift monitor (the notebooks + Spark analog)
         if spec.component("analytics").enabled and self.broker is not None:
@@ -859,32 +872,83 @@ class Platform:
                              log_dir=bus_spec.opt("log_dir", "") or None,
                              fsync=bool(bus_spec.opt("fsync", False)))
 
+    def _staged_decision(self) -> str | None:
+        """The reference's words for why ``scorer.fused_decision`` serves
+        the staged path on this spec: no in-process row scorer (remote or
+        seq), or the lifecycle's serving lane; None when the plane is
+        built (which still declines a mesh scorer, serving/fused.py)."""
+        spec = self.spec
+        scorer = spec.component("scorer")
+        if not scorer.enabled or scorer.opt("model", self.cfg.model_name) in SEQ_MODELS:
+            return ("scorer.fused_decision needs an in-process row Scorer (remote and seq "
+                    "scorers have no fusable decision program); serving the staged path")
+        if spec.component("lifecycle").enabled and spec.component("bus").enabled:
+            return ("scorer.fused_decision is incompatible with the lifecycle serving lane "
+                    "(the canary gate overrides scores after the fused verdict fires); "
+                    "serving the staged path")
+        return None
+
+    def _refuse_strict_decision(self) -> None:
+        """Under ``scorer.fused_decision_strict`` raise, before anything
+        starts, the RuntimeError the reference raises in its router step
+        where the plane would serve the staged path."""
+        spec, cfg = self.spec, self.cfg
+        sc = spec.component("scorer")
+        if not (spec.component("router").enabled
+                and bool(sc.opt("fused_decision", cfg.fused_decision))
+                and bool(sc.opt("fused_decision_strict", cfg.fused_decision_strict))):
+            return
+        reason = self._staged_decision()
+        mesh = spec.component("mesh")
+        if reason is None and mesh.enabled:
+            n = int(mesh.opt("devices", cfg.mesh_devices))
+            avail = self._mesh_avail(n)
+            if min(n or avail, avail) > 1:
+                from ccfd_tpu_torch.serving.fused import MESH_DECLINED
+
+                reason = f"fused decision refused: {MESH_DECLINED}"
+        if reason is not None:
+            raise RuntimeError(reason)
+
+    def _mesh_avail(self, n: int) -> int:
+        """The devices a ``mesh.devices: n`` block can have: the visible
+        CUDA devices, or on a CPU platform n logical CPU shards (the
+        reference's virtual CPU devices; for 0, the one CPU device)."""
+        import torch
+
+        from ccfd_tpu_torch.device import resolve
+
+        if resolve(self.device).type == "cpu":
+            return n if n > 0 else 1
+        return torch.cuda.device_count()
+
     def _up_mesh(self, c: ComponentSpec) -> None:
         """Build the serving mesh and its partitioner from the CR ``mesh:``
-        block over the ``CCFD_MESH_*`` knobs: ``devices`` (1 = single
-        device, inert; 0 = every visible CUDA device; N = N logical shards:
-        N CPU shards on a CPU platform, the first N cards on CUDA, where N
-        above the device count is refused), ``fsdp``/``tp`` (data absorbs
-        the rest), ``param_partition`` (replicated | rules) and
-        ``seq_parallel`` (none | ring | ulysses). The ``ccfd_mesh_devices``
-        and ``ccfd_mesh_axis_size`` gauges land in the ``mesh`` registry."""
+        block over the ``CCFD_MESH_*`` knobs: ``devices`` (0 = every visible
+        CUDA device, N = the first N cards; on a CPU platform N logical CPU
+        shards, and 0 the one CPU device), ``fsdp``/``tp`` (data absorbs the
+        rest), ``param_partition`` (replicated | rules) and ``seq_parallel``
+        (none | ring | ulysses), resolved by ``resolve_mesh_shape``: a count
+        above the visible devices clamps with the reference's warnings, and
+        one device serves unsharded, with no mesh and no gauges. The
+        ``ccfd_mesh_devices`` and ``ccfd_mesh_axis_size`` gauges land in the
+        ``mesh`` registry."""
         import torch
 
         from ccfd_tpu_torch.device import resolve
 
         cfg = self.cfg
         n = int(c.opt("devices", cfg.mesh_devices))
-        fsdp = max(1, int(c.opt("fsdp", cfg.mesh_fsdp)))
-        tp = max(1, int(c.opt("tp", cfg.mesh_tp)))
-        self._mesh_seq_parallel = str(c.opt("seq_parallel", cfg.mesh_seq_parallel) or "none")
-        if tp <= 1 and self._mesh_seq_parallel != "none":
-            if n > 1:
-                logging.getLogger(__name__).warning(
-                    "mesh.seq_parallel=%s needs a tp axis > 1 (have tp=%d); disabling "
-                    "sequence parallelism", self._mesh_seq_parallel, tp)
-            self._mesh_seq_parallel = "none"
-        if n == 1:
-            self._mesh_seq_parallel = "none"
+        avail = self._mesh_avail(n)
+        if n == 0 and resolve(self.device).type == "cpu":
+            logging.getLogger(__name__).warning(
+                "mesh.devices=0 on a CPU platform: one CPU device, serving unsharded "
+                "(name N for N logical CPU shards)")
+        n, fsdp, tp, self._mesh_seq_parallel = resolve_mesh_shape(
+            n, avail, max(1, int(c.opt("fsdp", cfg.mesh_fsdp))),
+            max(1, int(c.opt("tp", cfg.mesh_tp))),
+            str(c.opt("seq_parallel", cfg.mesh_seq_parallel) or "none"))
+        if n <= 1:
             return
         from ccfd_tpu_torch.parallel.mesh import make_named_mesh
         from ccfd_tpu_torch.parallel.partition import partitioner_from_config
@@ -893,7 +957,7 @@ class Platform:
         if dev.type == "cpu":
             devices = [dev] * n
         else:
-            devices = [torch.device("cuda", i) for i in range(n or torch.cuda.device_count())]
+            devices = [torch.device("cuda", i) for i in range(n)]
         model = self.spec.component("scorer").opt("model", cfg.model_name)
         self.mesh = make_named_mesh(devices, fsdp=fsdp, tp=tp)
         self._mesh_param_partition = str(c.opt("param_partition", cfg.mesh_param_partition))
@@ -1192,13 +1256,14 @@ class Platform:
         decision_fn = None
         rules = None
         sc_spec = self.spec.component("scorer")
-        if bool(sc_spec.opt("fused_decision", cfg.fused_decision)):
+        fused = bool(sc_spec.opt("fused_decision", cfg.fused_decision))
+        staged = self._staged_decision() if fused else None
+        if staged is not None:
+            # the reference's warning; under strict up() raised it before
+            # anything started
+            logging.getLogger(__name__).warning(staged)
+        elif fused:
             strict = bool(sc_spec.opt("fused_decision_strict", cfg.fused_decision_strict))
-            if self.scorer is None:
-                # the port never serves the staged path where the reference
-                # would fall back to it with a warning
-                raise RuntimeError("scorer.fused_decision needs an in-process row Scorer "
-                                   "(a remote scorer has no fusable decision program)")
             from ccfd_tpu_torch.router.rules import RuleSet, default_rules
             from ccfd_tpu_torch.serving.fused import FusedDecisionScorer
 
@@ -1215,7 +1280,7 @@ class Platform:
                 self.scorer.add_prepublish_hook(fds.prepublish)
                 decision_fn = fds
                 self.fused_decision = fds
-            else:  # unvectorizable rules: the warning said why; staged
+            else:  # a mesh scorer or unvectorizable rules: the warning said why
                 rules = None
         common = dict(
             rules=rules, decision_fn=decision_fn, host_score_fn=host_score_fn,

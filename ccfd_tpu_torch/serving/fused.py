@@ -21,7 +21,9 @@ bucket, so the probabilities equal ``Scorer.score``'s bit for bit:
 
 Contracts:
 
-- **Rules that cannot compile refuse the plane loudly.** A rule base
+- **A scorer on a mesh, or rules that cannot compile, refuse the plane
+  loudly**, as the reference's do. A Scorer with a ``mesh`` (its dispatch
+  spans shards; the plane's program runs one device) or a rule base
   holding a ``when_fn`` gives one warning at construction, ``enabled``
   stays False and the whole set serves staged (``decide`` then returns
   ``(proba, None)`` and counts ``staged_fallbacks``), or it raises under
@@ -63,6 +65,9 @@ from ccfd_tpu_torch.ops.fused_decision import (
 from ccfd_tpu_torch.router.rules import RuleSet
 
 log = logging.getLogger(__name__)
+# why the plane declines a Scorer on a mesh, in the reference's words: its
+# decision program runs one device
+MESH_DECLINED = "mesh-sharded scorer: the decision program has no shard_map composition yet"
 
 
 class FusedDecisionScorer:
@@ -90,13 +95,17 @@ class FusedDecisionScorer:
         self._c_fallback = c and c(
             "fused_decision_fallbacks_total",
             "decide() rows served by the staged path because the plane was refused")
-        try:
-            self._plan = compile_rules(rules)
-        except UnvectorizableRuleSet as e:
-            # ONE loud compile-time decision for the whole rule set
+        reason = MESH_DECLINED if getattr(scorer, "mesh", None) is not None else None
+        if reason is None:
+            try:
+                self._plan = compile_rules(rules)
+            except UnvectorizableRuleSet as e:
+                reason = str(e)
+        if reason is not None:
+            # ONE loud compile-time decision for the whole scorer and rule set
             if strict:
-                raise RuntimeError(f"fused decision refused: {e}") from e
-            log.warning("fused decision disabled; serving the STAGED path: %s", e)
+                raise RuntimeError(f"fused decision refused: {reason}")
+            log.warning("fused decision disabled; serving the STAGED path: %s", reason)
             return
         self._tensors = self._plan.tensors(scorer.device)
         self._decide_rows = build_decision_fn(self._forward, self._plan)

@@ -651,20 +651,39 @@ def test_operator_single_device_mesh_stays_unsharded():
         p.down()
 
 
-def test_operator_refuses_what_it_cannot_serve():
-    """The deliberate deviations: more shards than visible CUDA devices (the
-    reference clamps), 0 shards on a CPU platform, and the decision plane
-    with a mesh (the reference serves it staged)."""
+# the deviations the operator refused until A17, each now served as the
+# reference's operator serves it: a CPU platform's N logical shards, its
+# devices: 0 unsharded, and the decision plane declining a mesh scorer
+DEGRADED_MESHES = [
+    ("devices=4", {"devices": 4}, {}, 4, None),
+    ("devices=0", {"devices": 0}, {}, None, "serving unsharded"),
+    ("fused_decision", {"devices": 4}, {"fused_decision": True}, 4, "mesh-sharded scorer"),
+]
+
+
+@pytest.mark.parametrize("mesh,scorer,shards,warning",
+                         [c[1:] for c in DEGRADED_MESHES], ids=[c[0] for c in DEGRADED_MESHES])
+def test_operator_degrades_what_it_cannot_serve(mesh, scorer, shards, warning):
+    """Nothing of the mesh block is refused; the CPU platform comes up with
+    ``shards`` logical shards (None: unsharded) and the decision plane over
+    a mesh scorer serves the staged path, each with the reference's
+    warning."""
     from ccfd_tpu_torch.config import Config
-    from ccfd_tpu_torch.platform.operator import PlatformSpec
+    from ccfd_tpu_torch.platform.operator import Platform, PlatformSpec
+    from tests.torch_helpers import warnings_of
 
-    def refused(mesh, device, **scorer):
-        return PlatformSpec.from_cr({"spec": {"mesh": mesh, "lifecycle": False,
-                                              "scorer": scorer}}, cfg=Config()).refused(device)
-
-    assert refused({"devices": 4}, "cpu") == []
-    assert refused({"devices": 1}, None) == []
-    assert [r.split(" (")[0] for r in refused({"devices": 2}, None)] == ["mesh.devices: 2"]
-    assert [r.split(" (")[0] for r in refused({"devices": 0}, "cpu")] == ["mesh.devices: 0"]
-    assert [r.split(" (")[0] for r in refused({"devices": 4}, "cpu", fused_decision=True)] \
-        == ["scorer.fused_decision with a mesh"]
+    cr = {"spec": {**_OFF, "mesh": mesh, "lifecycle": False, "retrain": False,
+                   "analytics": False, "heal": False,
+                   "scorer": {"enabled": True, "model": "mlp", **scorer},
+                   "bus": {"partitions": 1}}}
+    spec = PlatformSpec.from_cr(cr, cfg=Config(batch_sizes=(16, 128)))
+    assert spec.refused() == []
+    with warnings_of("ccfd_tpu_torch.platform.operator", "ccfd_tpu_torch.serving.fused") as said:
+        p = Platform(spec, device="cpu").up()
+    try:
+        assert (p.mesh.size if p.mesh is not None else None) == shards
+        assert p.fused_decision is None and p.router._decision_fn is None
+        if warning is not None:
+            assert any(warning in m for m in said), said
+    finally:
+        p.down()

@@ -13,10 +13,11 @@
   within 1e-5 of FRAUD_THRESHOLD (there are none on this data).
 - **Parsing.** ``PlatformSpec`` of ``deploy/platform_cr.yaml`` equals the
   reference's, block for block.
-- **Refusals.** Each component or option the port does not have, on in the
-  CR (or left on by default), makes ``Platform.up`` and ``up -f`` raise one
-  error naming it with its ROADMAP item; the reference's own CR names all
-  four it leaves on, at once.
+- **Refusals.** Each knob that selects a part the port does not have
+  makes ``Platform.up`` and ``up -f`` raise one error naming it; the
+  reference's own CR with both set names both at once. What the port
+  refused until A17 where the reference degrades now degrades as the
+  reference's does, with its warning.
 - **The port's CR** differs from the reference's only in those blocks'
   ``enabled``.
 - **Crash recovery** on the CPU as the reference's TestCrashRecovery: an
@@ -152,7 +153,9 @@ def both():
             p_ref = np.asarray(ref.scorer.score(x), np.float32)
         finally:
             ref.down()
-    with _serving(port_registry, {"w": torch.from_numpy(w), "b": torch.from_numpy(b)}):
+    # a module fixture runs before the autouse guard saves anything
+    with _serving(port_registry, {"w": torch.from_numpy(w), "b": torch.from_numpy(b)}), \
+            torch_helpers.port_process_state():
         port = Platform(PlatformSpec.from_cr(cr, cfg=Config.from_env(ENV)), device="cpu")
         port.up(wait_ready_s=60)
         try:
@@ -217,38 +220,21 @@ def test_port_cr_differs_only_in_the_refused_blocks_enabled():
 # batcher's queue policies, the lifecycle (the seq family's too), the
 # analytics, the replay, the incident and the capacity planes are served
 # since A11, A13, A15a, A12, A12b, A14, A14a and A9, and the fleet since A10:
-# their cases keep their ids and now pair the served part with one still
-# refused (each plane beside mesh.devices: 0 on the CPU platform, which
-# serves N > 0 logical shards since A15b, seq under retrain and seq_q8
-# under the decision plane, which the port refuses where the reference
-# skips them with a warning, the queue rows beside CCFD_INLINE_ROWS)
+# their cases keep their ids and now pair the served part with a knob still
+# refused (CCFD_HOST_TIER_ROWS or CCFD_INLINE_ROWS > 0; until A17 the
+# vehicle was mesh.devices: 0 on the CPU platform, which now serves
+# unsharded as the reference does)
+_HOST_TIER = ({"CCFD_HOST_TIER_ROWS": "64"}, "CCFD_HOST_TIER_ROWS")
+_INLINE = ({"CCFD_INLINE_ROWS": "64"}, "CCFD_INLINE_ROWS")
 REFUSALS = [(name, {name: {"enabled": True}}, {}, name) for name in REFUSED_COMPONENTS] + [
-    ("fleet", {"fleet": {"enabled": True}, "mesh": {"devices": 0}}, {}, "mesh.devices: 0"),
-    ("incident", {"incident": {"enabled": True}, "mesh": {"devices": 0}}, {},
-     "mesh.devices: 0"),
-    ("capacity", {"capacity": {"enabled": True}, "mesh": {"devices": 0}}, {},
-     "mesh.devices: 0"),
-    ("lifecycle", {"lifecycle": {"enabled": True}, "mesh": {"devices": 0}}, {},
-     "mesh.devices: 0"),
-    ("analytics", {"analytics": {"enabled": True}, "mesh": {"devices": 0}}, {},
-     "mesh.devices: 0"),
-    ("replay", {"replay": {"enabled": True}, "mesh": {"devices": 0}}, {},
-     "mesh.devices: 0"),
-    ("investigator", {"investigator": {"enabled": True}, "mesh": {"devices": 0}}, {},
-     "mesh.devices: 0"),
-    ("engine.usertask_model", {"engine": {"usertask_model": True},
-                               "mesh": {"devices": 0}}, {}, "mesh.devices: 0"),
-    # a CPU platform serves N logical CPU shards since A15b: the mesh's
-    # cases are its deviations still refused (the decision plane with a
-    # mesh; 0 = every CUDA device, none on a CPU platform)
-    ("mesh.devices", {"mesh": {"devices": 2}, "scorer": {"fused_decision": True},
-                      "lifecycle": {"enabled": False}}, {},
-     "scorer.fused_decision with a mesh"),
-    ("mesh.devices=0", {"mesh": {"devices": 0}}, {}, "mesh.devices: 0"),
-    ("seq", {"scorer": {"model": "seq"}, "retrain": {"enabled": True}}, {},
-     "retrain with scorer.model: seq"),
-    ("seq_q8", {"scorer": {"model": "seq_q8", "fused_decision": True}}, {},
-     "scorer.fused_decision with scorer.model: seq_q8"),
+    ("fleet", {"fleet": {"enabled": True}}, *_HOST_TIER),
+    ("incident", {"incident": {"enabled": True}}, *_INLINE),
+    ("capacity", {"capacity": {"enabled": True}}, *_HOST_TIER),
+    ("lifecycle", {"lifecycle": {"enabled": True}}, *_INLINE),
+    ("analytics", {"analytics": {"enabled": True}}, *_HOST_TIER),
+    ("replay", {"replay": {"enabled": True}}, *_INLINE),
+    ("investigator", {"investigator": {"enabled": True}}, *_HOST_TIER),
+    ("engine.usertask_model", {"engine": {"usertask_model": True}}, *_INLINE),
     # the fault plans are served since A6: the plan beside a knob still refused
     ("CCFD_DEVICE_FAULTS", {}, {"CCFD_DEVICE_FAULTS": "device_hang",
                                 "CCFD_HOST_TIER_ROWS": "64"}, "CCFD_HOST_TIER_ROWS"),
@@ -256,16 +242,6 @@ REFUSALS = [(name, {name: {"enabled": True}}, {}, name) for name in REFUSED_COMP
                                  "CCFD_INLINE_ROWS": "64"}, "CCFD_INLINE_ROWS"),
     ("overload.rest_queue_rows", {"overload": {"rest_queue_rows": 64}},
      {"CCFD_INLINE_ROWS": "64"}, "CCFD_INLINE_ROWS"),
-    # the decision plane with the lifecycle is refused where the reference
-    # serves the staged path with a warning
-    ("lifecycle.seq", {"scorer": {"model": "seq"}, "lifecycle": {"enabled": True},
-                       "retrain": {"enabled": True}}, {}, "retrain with scorer.model: seq"),
-    ("lifecycle.seq_q8", {"scorer": {"model": "seq_q8", "fused_decision": True},
-                          "lifecycle": {"enabled": True}}, {},
-     "scorer.fused_decision with scorer.model: seq_q8"),
-    ("lifecycle.fused_decision", {"scorer": {"model": "mlp", "fused_decision": True},
-                                  "lifecycle": {"enabled": True}}, {},
-     "scorer.fused_decision with lifecycle"),
 ]
 
 
@@ -283,12 +259,68 @@ def test_each_refused_part_is_named(name, blocks, env, match):
     assert p.supervisor is None or not p.supervisor.status()  # nothing started
 
 
-def test_the_references_cr_is_refused_with_every_name_at_once(tmp_path):
-    """The reference's CR as shipped comes up whole since A14a; switched to
-    a mesh the platform cannot serve (0 = every CUDA device, on the CPU
-    platform; the mesh itself is served since A15b) and the fleet (served
-    since A10), it is refused with every refused name in one error and
-    nothing starts."""
+_SEQ = {"history_length": 8, "dtype": "float32"}
+# the parts the port refused until A17 where the reference degrades: each
+# keeps its id and now comes up as the reference's does, with its warning
+DEGRADED = [
+    # a mesh of two logical CPU shards: the decision plane declines the
+    # mesh scorer and the router serves the staged path
+    ("mesh.devices", {"mesh": {"devices": 2}, "scorer": {"fused_decision": True},
+                      "lifecycle": {"enabled": False}},
+     "mesh-sharded scorer", {"mesh": 2, "fused": False}),
+    # 0 on a CPU platform: the one CPU device, unsharded
+    ("mesh.devices=0", {"mesh": {"devices": 0}}, "mesh.devices=0 on a CPU platform",
+     {"mesh": None}),
+    ("seq", {"scorer": {"model": "seq", **_SEQ}, "retrain": {"enabled": True}},
+     "skipping retrain", {"retrain": False}),
+    ("seq_q8", {"scorer": {"model": "seq_q8", "fused_decision": True, **_SEQ}},
+     "remote and seq scorers have no fusable decision program", {"fused": False}),
+    ("lifecycle.seq", {"scorer": {"model": "seq", **_SEQ}, "lifecycle": {"enabled": True},
+                       "retrain": {"enabled": True}},
+     "skipping retrain", {"retrain": False, "lifecycle": True}),
+    ("lifecycle.seq_q8", {"scorer": {"model": "seq_q8", "fused_decision": True, **_SEQ},
+                          "lifecycle": {"enabled": True}},
+     "remote and seq scorers have no fusable decision program",
+     {"fused": False, "lifecycle": True}),
+    ("lifecycle.fused_decision", {"scorer": {"model": "mlp", "fused_decision": True},
+                                  "lifecycle": {"enabled": True}},
+     "incompatible with the lifecycle serving lane", {"fused": False, "lifecycle": True}),
+]
+
+
+@pytest.mark.parametrize("name,blocks,warning,want", DEGRADED, ids=[r[0] for r in DEGRADED])
+def test_each_degraded_part_serves_as_the_reference(name, blocks, warning, want):
+    """No longer refused: the platform comes up, logs the reference's
+    warning, and degrades as the reference's operator does (no retrain
+    service under a seq scorer, the staged path for the decision plane, a
+    CPU platform's mesh.devices: 0 unsharded)."""
+    cfg = Config.from_env({**ENV, "CCFD_SEQ_LEN_BUCKETS": "4"})
+    spec = PlatformSpec.from_cr(minimal_cr(**{**OFF, **blocks}), cfg=cfg)
+    assert spec.refused() == []
+    with torch_helpers.warnings_of("ccfd_tpu_torch.platform.operator",
+                                   "ccfd_tpu_torch.serving.fused") as said:
+        p = Platform(spec, device="cpu").up(wait_ready_s=60)
+    try:
+        assert any(warning in m for m in said), (name, said)
+        services = set(p.status()["services"])
+        if "retrain" in want:
+            assert ("retrain" in services) == want["retrain"]
+        if "fused" in want:
+            assert p.fused_decision is None and p.router._decision_fn is None
+        if "mesh" in want:
+            got = p.mesh.size if p.mesh is not None else None
+            assert got == want["mesh"] and (p.scorer.mesh is None) == (got is None)
+        if "lifecycle" in want:
+            assert (p.lifecycle is not None) == want["lifecycle"]
+    finally:
+        p.down()
+
+
+def test_the_references_cr_is_refused_with_every_name_at_once(tmp_path, monkeypatch):
+    """The reference's CR as shipped comes up whole since A14a; with the
+    fleet on (served since A10), a mesh the CPU platform serves unsharded
+    (0; the mesh is served since A15b) and both unported knobs set, it is
+    refused with every refused name in one error and nothing starts."""
     from ccfd_tpu_torch.cli import main
 
     assert PlatformSpec.from_yaml(str(REF_CR), cfg=Config()).refused() == []
@@ -297,18 +329,22 @@ def test_the_references_cr_is_refused_with_every_name_at_once(tmp_path):
     cr["spec"]["mesh"]["devices"] = 0
     path = tmp_path / "cr.yaml"
     path.write_text(yaml.safe_dump(cr))
+    assert PlatformSpec.from_yaml(str(path), cfg=Config()).refused() == []
+    monkeypatch.setenv("CCFD_HOST_TIER_ROWS", "64")
+    monkeypatch.setenv("CCFD_INLINE_ROWS", "64")
     with pytest.raises(NotImplementedError) as err:
         main(["up", "-f", str(path), "--device", "cpu"])
     msg = str(err.value)
-    assert "fleet" not in msg and "mesh.devices: 0 (every visible CUDA device" in msg
-    assert [r.split(" (")[0] for r in PlatformSpec.from_yaml(str(path), cfg=Config())
-            .refused("cpu")] == ["mesh.devices: 0"]
+    assert "fleet" not in msg and "mesh" not in msg
+    assert [r.split(" (")[0] for r in PlatformSpec.from_yaml(str(path)).refused()] == \
+        ["CCFD_HOST_TIER_ROWS > 0", "CCFD_INLINE_ROWS > 0"]
     # a default-on block is no longer refused when absent, and the opt-in
-    # fleet is served: the mesh alone is named
-    with pytest.raises(NotImplementedError, match="mesh.devices") as err:
-        Platform(PlatformSpec.from_cr({"spec": {"fleet": True, "mesh": {"devices": 0}}},
-                                      cfg=Config()), device="cpu").up()
-    assert "fleet" not in str(err.value)
+    # fleet is served: the knobs alone are named
+    p = Platform(PlatformSpec.from_cr({"spec": {"fleet": True, "mesh": {"devices": 0}}}),
+                 device="cpu")
+    with pytest.raises(NotImplementedError, match="CCFD_HOST_TIER_ROWS") as err:
+        p.up()
+    assert "fleet" not in str(err.value) and p.supervisor is None
 
 
 def _recovery_cr(tmp, **engine):

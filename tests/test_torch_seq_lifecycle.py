@@ -414,7 +414,8 @@ def test_the_operator_governs_a_seq_scorer(tmp_path, caplog, model):
     tap and the gate are set on the SeqScorer, the router's score lane is
     the scorer object itself, and a ladder of more than one rung warns as
     the reference's operator does. Retrain and the decision plane under
-    seq stay refused."""
+    seq degrade as the reference's do: retrain is skipped and the router
+    serves the staged path, each with the reference's warning."""
     from ccfd_tpu_torch.config import Config
     from ccfd_tpu_torch.platform.operator import Platform, PlatformSpec
     from ccfd_tpu_torch.serving.history import SeqScorer
@@ -435,9 +436,21 @@ def test_the_operator_governs_a_seq_scorer(tmp_path, caplog, model):
         assert p.scorer.challenger_version is None
     finally:
         p.down()
-    for blocks, match in (({"retrain": {"enabled": True}}, "retrain with scorer.model"),
-                          ({"scorer": {"enabled": True, "model": model,
-                                       "fused_decision": True}},
-                           "scorer.fused_decision with scorer.model")):
-        refused = PlatformSpec.from_cr(_seq_cr(tmp_path, **blocks), cfg=cfg).refused()
-        assert any(match in r for r in refused), refused
+    cr = _seq_cr(tmp_path, retrain={"enabled": True},
+                 scorer={"enabled": True, "model": model, "history_length": L,
+                         "fused_decision": True})
+    cr["spec"]["lifecycle"]["state_dir"] = str(tmp_path / "lc2")
+    assert PlatformSpec.from_cr(cr, cfg=cfg).refused() == []
+    caplog.clear()
+    with caplog.at_level(logging.WARNING, logger="ccfd_tpu_torch"):
+        p = Platform(PlatformSpec.from_cr(cr, cfg=cfg), device="cpu").up()
+    try:
+        assert isinstance(p.scorer, SeqScorer) and p.lifecycle is not None
+        assert "retrain" not in p.status()["services"]
+        assert p.fused_decision is None and p.router._decision_fn is None
+        said = [r.getMessage() for r in caplog.records]
+        assert any("skipping retrain" in m for m in said)
+        assert any("remote and seq scorers have no fusable decision program" in m
+                   for m in said)
+    finally:
+        p.down()

@@ -9,8 +9,10 @@ of a torn-down platform. ``tests/torch_helpers.py::keep_port_logging``
 restores both; every file that brings a platform up (``Platform(...)``,
 the ``up`` command, ``replay --live``, whose minimal platform is one, or a
 fleet member: ``FleetMember(...)`` or the ``fleet member`` command) must
-carry it as an autouse fixture. Read by AST, so a new file is held
-to it the day it is added.
+carry it as an autouse fixture. A fixture scoped wider than a function
+runs before that guard saves anything, so one that brings a platform up
+wraps it in ``torch_helpers.port_process_state`` itself. Read by AST, so a
+new file is held to it the day it is added.
 """
 
 from __future__ import annotations
@@ -113,6 +115,45 @@ def test_the_guard_is_recognised_only_when_autouse():
     off = ast.parse("_k = pytest.fixture()(torch_helpers.keep_port_logging)")
     other = ast.parse("_k = pytest.fixture(autouse=True)(torch_helpers.mlp_tree)")
     assert _has_guard(on) and not _has_guard(off) and not _has_guard(other)
+
+
+def _wide_fixtures_without_guard(tree: ast.Module) -> list[str]:
+    """Fixtures scoped wider than a function that bring a platform up
+    outside ``port_process_state``: they run before the autouse guard saves
+    anything, so the guard would restore the state they left."""
+    out = []
+    for node in tree.body:
+        if not isinstance(node, ast.FunctionDef):
+            continue
+        wide = any(isinstance(d, ast.Call) and getattr(d.func, "attr", None) == "fixture"
+                   and any(k.arg == "scope" and isinstance(k.value, ast.Constant)
+                           and k.value.value != "function" for k in d.keywords)
+                   for d in node.decorator_list)
+        guarded = any(getattr(n, "attr", getattr(n, "id", None)) == "port_process_state"
+                      for n in ast.walk(node))
+        if wide and _builds_platform(node) and not guarded:
+            out.append(node.name)
+    return out
+
+
+def test_no_wide_fixture_brings_a_platform_up_unguarded():
+    missing = {}
+    for path in _port_test_files():
+        names = _wide_fixtures_without_guard(ast.parse(path.read_text(), filename=str(path)))
+        if names:
+            missing[path.name] = names
+    assert missing == {}, missing
+
+
+@pytest.mark.parametrize("src,expect", [
+    ("@pytest.fixture(scope='module')\ndef f():\n    Platform(s).up()", ["f"]),
+    ("@pytest.fixture(scope='module')\ndef f():\n"
+     "    with torch_helpers.port_process_state():\n        Platform(s).up()", []),
+    ("@pytest.fixture\ndef f():\n    Platform(s).up()", []),
+    ("@pytest.fixture(scope='module')\ndef f():\n    return 1", []),
+])
+def test_the_wide_fixture_scan(src, expect):
+    assert _wide_fixtures_without_guard(ast.parse(src)) == expect
 
 
 def test_the_helper_restores_the_logger_and_the_recorder_hook():

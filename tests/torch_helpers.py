@@ -6,6 +6,9 @@ and the port, so the two see the same numbers.
 
 from __future__ import annotations
 
+import contextlib
+import logging
+
 import numpy as np
 import torch
 
@@ -51,16 +54,47 @@ def keep_port_logging():
     which would hide later tests' warnings from ``caplog``), and the
     process-wide hooks a platform installs: the storage quarantine's
     incident recorder (``durability.set_recorder``), which would otherwise
-    dump bundles into a torn-down platform's recorder from later tests."""
-    import logging
+    dump bundles into a torn-down platform's recorder from later tests.
+    A fixture wider than a function runs before this one saves anything,
+    so one that brings a platform up wraps it in ``port_process_state``."""
+    with port_process_state():
+        yield
 
+
+@contextlib.contextmanager
+def port_process_state():
+    """What ``keep_port_logging`` restores, around any block of code."""
     from ccfd_tpu_torch.runtime import durability
 
     log = logging.getLogger("ccfd_tpu_torch")
     saved = (list(log.handlers), log.level, log.propagate)
     saved_recorder = durability._recorder
-    yield
-    log.handlers[:] = saved[0]
-    log.setLevel(saved[1])
-    log.propagate = saved[2]
-    durability.set_recorder(saved_recorder)
+    try:
+        yield
+    finally:
+        log.handlers[:] = saved[0]
+        log.setLevel(saved[1])
+        log.propagate = saved[2]
+        durability.set_recorder(saved_recorder)
+
+
+@contextlib.contextmanager
+def warnings_of(*names: str):
+    """The messages of the WARNING records of the loggers ``names``, caught
+    at each logger: a platform's JSON logs (``slog.configure``) stop the
+    package logger's propagation, which hides them from ``caplog``."""
+    got: list[str] = []
+
+    class Tap(logging.Handler):
+        def emit(self, record):
+            got.append(record.getMessage())
+
+    tap = Tap(level=logging.WARNING)
+    loggers = [logging.getLogger(n) for n in names]
+    for lg in loggers:
+        lg.addHandler(tap)
+    try:
+        yield got
+    finally:
+        for lg in loggers:
+            lg.removeHandler(tap)
