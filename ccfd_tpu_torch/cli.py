@@ -297,12 +297,13 @@ RETRAIN_INTERVAL_S = 0.5  # the demo's OnlineTrainer poll, as the reference's
 def build_server(cfg: Config, device: str | None = None,
                  params_path: str | None = None, checkpoint_dir: str | None = None,
                  params: Any = None, gbt_dir: str | None = None,
-                 quantized_dir: str | None = None):
+                 quantized_dir: str | None = None, tracer: Any = None):
     """The warmed-up ``PredictionServer`` that ``serve`` runs (not yet
     listening): a ``Scorer`` on ``device`` (default: the card) for the
     config's model, or the CCFD_GRAPH_CR graph (``with_graph``), serving
     ``params`` when given, else ``served_params(cfg, params_path,
-    checkpoint_dir, gbt_dir, quantized_dir)``. Raises
+    checkpoint_dir, gbt_dir, quantized_dir)``, traced by ``tracer``
+    (observability/trace.Tracer; ``serve`` passes none). Raises
     ``NotImplementedError`` naming any knob set to an unported part."""
     from ccfd_tpu_torch.serving.server import PredictionServer
 
@@ -310,7 +311,7 @@ def build_server(cfg: Config, device: str | None = None,
     cfg = with_graph(cfg)
     if params is None:
         params = served_params(cfg, params_path, checkpoint_dir, gbt_dir, quantized_dir)
-    return PredictionServer(make_scorer(cfg, params, device), cfg)
+    return PredictionServer(make_scorer(cfg, params, device), cfg, tracer=tracer)
 
 
 def with_graph(cfg: Config) -> Config:
@@ -807,7 +808,12 @@ def build_router(cfg: Config, device: str | None = None, params_path: str | None
         host_score_fn = None  # the ladder falls from the remote edge to rules
         on_card = False
     else:
-        from ccfd_tpu_torch.serving.server import DeadlineCounters, publish_launches
+        from ccfd_tpu_torch.serving.server import (
+            SCORER_ROWS,
+            DeadlineCounters,
+            publish_launches,
+            publish_rows,
+        )
 
         scorer = make_scorer(cfg, served_params(cfg, params_path), device)
         score_fn = scorer.score
@@ -819,11 +825,13 @@ def build_router(cfg: Config, device: str | None = None, params_path: str | None
             "ccfd_kernel_launches", "CUDA kernel launches in this process")
         g_dispatches = registry.gauge(
             "ccfd_scorer_dispatches", "the Scorer's bucket dispatches in this process")
+        g_rows = registry.gauge(*SCORER_ROWS)
         deadline = DeadlineCounters(registry, scorer)
 
         def publish() -> None:
             publish_launches(g_launches)
             g_dispatches.set(scorer.dispatch_total())
+            publish_rows(g_rows, scorer)
             deadline.sync()
         collectors.append(publish)
     engine = EngineRestClient(cfg.kie_server_url, timeout_s=cfg.seldon_timeout_ms / 1000.0,

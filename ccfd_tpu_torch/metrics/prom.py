@@ -16,6 +16,7 @@ from __future__ import annotations
 import math
 import threading
 import time
+from bisect import bisect_left
 from typing import Iterable, Mapping, Sequence
 
 import numpy as np
@@ -168,17 +169,18 @@ class Histogram(_Metric):
     def observe(self, value: float, labels: Mapping[str, str] | None = None,
                 exemplar: Mapping[str, str] | None = None) -> None:
         key = _labelkey(labels)
+        n = len(self.buckets)
+        # the counts are cumulative: every bucket from the first that holds
+        # the value on counts it (none for NaN)
+        first = bisect_left(self.buckets, value) if value == value else n
         with self._lock:
             key = self._admit(key, self._counts)
-            counts = self._counts.setdefault(key, [0] * len(self.buckets))
-            bucket_i = len(self.buckets) - 1
-            for i, ub in enumerate(self.buckets):
-                if value <= ub:
-                    counts[i] += 1
-                    bucket_i = min(bucket_i, i)
+            counts = self._counts.setdefault(key, [0] * n)
+            for i in range(first, n):
+                counts[i] += 1
             self._sums[key] = self._sums.get(key, 0.0) + float(value)
             if exemplar:
-                self._exemplars.setdefault(key, {})[bucket_i] = (
+                self._exemplars.setdefault(key, {})[min(first, n - 1)] = (
                     dict(exemplar), float(value), time.time())
 
     def observe_many(self, values, labels: Mapping[str, str] | None = None) -> None:

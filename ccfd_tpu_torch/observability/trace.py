@@ -19,8 +19,15 @@ The port's copy of ccfd_tpu/observability/trace.py:
 Span context is per thread (``contextvars``); code that hops threads (the
 router's score worker) passes ``parent=`` explicitly. Span listeners
 (``SpanSink.add_listener``: the stage profiler's span ingestion) see every
-finished span before sampling. Not ported: the debug ring and the device
-profile.
+finished span before sampling.
+
+**One clock.** A span stamps its start and end with ``time.monotonic_ns``
+(CLOCK_MONOTONIC, the clock of the C++ front's enqueue stamps), and its
+wall ``start`` is that start plus one process offset (:data:`WALL_OFFSET_NS`),
+so spans line up with a device trace on the host's wall clock.
+:class:`SpanRecorder` keeps every finished span in memory, and the
+interpreter's collections as ``host.gc`` spans: it stands where the
+reference's debug ring does. Not ported: the device profile.
 """
 
 from __future__ import annotations
@@ -28,7 +35,9 @@ from __future__ import annotations
 import collections
 import contextlib
 import contextvars
+import gc
 import os
+import random
 import threading
 import time
 import zlib
@@ -55,12 +64,18 @@ def current_context() -> SpanContext | None:
     return _current.get()
 
 
+# ids come from one generator the OS seeds, not from a system call each (a
+# traced take makes a span a step); a forked child reseeds it
+_ids = random.Random()
+os.register_at_fork(after_in_child=_ids.seed)
+
+
 def new_trace_id() -> str:
-    return os.urandom(16).hex()
+    return f"{_ids.getrandbits(128) or 1:032x}"
 
 
 def new_span_id() -> str:
-    return os.urandom(8).hex()
+    return f"{_ids.getrandbits(64) or 1:016x}"
 
 
 def format_traceparent(ctx: SpanContext | None) -> str | None:
@@ -123,22 +138,46 @@ def extract_context(headers: Mapping | None) -> SpanContext | None:
     return parse_traceparent(v)
 
 
+def _wall_offset_ns(reads: int = 5) -> int:
+    """``time.time_ns()`` minus ``time.monotonic_ns()``: the wall clock
+    read between two monotonic reads, from the narrowest of ``reads``
+    pairs."""
+    best = None
+    for _ in range(reads):
+        a = time.monotonic_ns()
+        w = time.time_ns()
+        b = time.monotonic_ns()
+        if best is None or b - a < best[0]:
+            best = (b - a, w - (a + b) // 2)
+    return best[1]
+
+
+# the process's one offset from CLOCK_MONOTONIC to the wall clock
+WALL_OFFSET_NS = _wall_offset_ns()
+
+
 class Span:
-    """One timed operation; ``attrs`` may change until it is finished."""
+    """One timed operation; ``attrs`` may change until it is finished.
+    ``start_ns`` is on CLOCK_MONOTONIC; ``start`` is the wall clock, from
+    ``start_ns`` and :data:`WALL_OFFSET_NS` unless given."""
 
     __slots__ = ("trace_id", "span_id", "parent_id", "name", "component",
-                 "start", "duration_s", "status", "attrs", "_t0")
+                 "start", "duration_s", "status", "attrs", "start_ns")
 
     def __init__(self, trace_id: str, span_id: str, parent_id: str | None,
-                 name: str, component: str, start: float,
-                 attrs: dict | None = None):
+                 name: str, component: str, start: float | None = None,
+                 attrs: dict | None = None, start_ns: int | None = None):
         self.trace_id = trace_id
         self.span_id = span_id
         self.parent_id = parent_id
         self.name = name
         self.component = component
-        self.start = start              # wall clock: cross-process alignment
-        self._t0 = time.perf_counter()  # monotonic: the duration
+        if start_ns is None:
+            start_ns = (time.monotonic_ns() if start is None
+                        else round(start * 1e9) - WALL_OFFSET_NS)
+        self.start_ns = start_ns
+        # wall clock: cross-process alignment, and a device trace's clock
+        self.start = (start_ns + WALL_OFFSET_NS) / 1e9 if start is None else start
         self.duration_s = 0.0
         self.status = "ok"
         self.attrs = attrs if attrs is not None else {}
@@ -330,24 +369,38 @@ class Tracer:
         self._hist = self.registry.histogram("trace_span_seconds", "span durations by name")
 
     def start(self, name: str, parent: SpanContext | None = None,
-              attrs: dict | None = None) -> Span:
+              attrs: dict | None = None, start_ns: int | None = None) -> Span:
         """Begin a span without activating it on this thread (pair with
-        :meth:`finish`); the parent defaults to the current context."""
+        :meth:`finish`); the parent defaults to the current context, the
+        start (``time.monotonic_ns``) to now."""
         if parent is None:
             parent = current_context()
         trace_id = parent.trace_id if parent is not None else new_trace_id()
         parent_id = parent.span_id if parent is not None else None
         return Span(trace_id, new_span_id(), parent_id, name, self.component,
-                    time.time(), attrs)
+                    attrs=attrs, start_ns=start_ns)
 
-    def finish(self, span: Span, status: str | None = None) -> None:
-        span.duration_s = max(0.0, time.perf_counter() - span._t0)
+    def finish(self, span: Span, status: str | None = None,
+               end_ns: int | None = None) -> None:
+        """End ``span`` at ``end_ns`` (``time.monotonic_ns``; default now)
+        and hand it to the histogram and the sink."""
+        if end_ns is None:
+            end_ns = time.monotonic_ns()
+        span.duration_s = max(0, end_ns - span.start_ns) / 1e9
         if status is not None:
             span.status = status
         self._hist.observe(span.duration_s, labels={"span": span.name},
                            exemplar={"trace_id": span.trace_id})
         if self.sink is not None:
             self.sink.add(span)
+
+    def record(self, name: str, start_ns: int, end_ns: int,
+               parent: SpanContext | None = None, attrs: dict | None = None) -> Span:
+        """A finished span between two ``time.monotonic_ns`` stamps the
+        caller took (or, as the C++ front's enqueue stamps, was handed)."""
+        sp = self.start(name, parent=parent, attrs=attrs, start_ns=start_ns)
+        self.finish(sp, end_ns=end_ns)
+        return sp
 
     @contextlib.contextmanager
     def span(self, name: str, parent: SpanContext | None = None,
@@ -371,3 +424,75 @@ class Tracer:
             yield
         finally:
             _current.reset(token)
+
+
+class SpanRecorder:
+    """Every finished span handed to :meth:`add`, kept in memory up to
+    ``max_spans`` (later ones only counted in ``dropped``): a
+    :class:`Tracer`'s ``sink``, or a :class:`SpanSink` listener. Armed
+    (:meth:`arm`), it also records each collection of the interpreter's
+    collector as a ``host.gc`` span with no parent (attrs ``generation``,
+    ``collected``). It writes no file and serves no endpoint: its reader
+    takes :meth:`spans` in the same process."""
+
+    def __init__(self, max_spans: int = 500_000):
+        self.max_spans = int(max_spans)
+        self.dropped = 0
+        # each span as a tuple of its fields: once their attrs hold plain
+        # values the collector stops tracking them, so what the recorder
+        # keeps does not lengthen the pauses it records. No lock:
+        # list.append is atomic, and a collection (so the gc callback,
+        # which adds) may start inside add on the same thread
+        self._spans: list[tuple] = []
+        self._gc_start_ns: int | None = None
+
+    def add(self, span: Span) -> None:
+        if len(self._spans) < self.max_spans:
+            self._spans.append((span.trace_id, span.span_id, span.parent_id, span.name,
+                                span.component, span.start, span.duration_s, span.status,
+                                span.attrs, span.start_ns))
+        else:
+            self.dropped += 1
+
+    def arm(self) -> None:
+        """Record the collector's pauses from now on."""
+        if self._on_gc not in gc.callbacks:
+            gc.callbacks.append(self._on_gc)
+
+    def disarm(self) -> None:
+        with contextlib.suppress(ValueError):
+            gc.callbacks.remove(self._on_gc)
+        self._gc_start_ns = None
+
+    def _on_gc(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._gc_start_ns = time.monotonic_ns()
+            return
+        t0, self._gc_start_ns = self._gc_start_ns, None
+        if t0 is None:
+            return  # armed during a collection
+        self.record("host.gc", t0, time.monotonic_ns(), "host",
+                    attrs={"generation": info.get("generation"),
+                           "collected": info.get("collected")})
+
+    def record(self, name: str, start_ns: int, end_ns: int, component: str,
+               attrs: dict | None = None) -> None:
+        """Keep a span with no parent between two ``time.monotonic_ns``
+        stamps that no tracer or sink sees: what only a recorder's reader
+        wants (the collector's pauses, the native front's idle takers)."""
+        sp = Span(new_trace_id(), new_span_id(), None, name, component, attrs=attrs,
+                  start_ns=start_ns)
+        sp.duration_s = max(0, end_ns - start_ns) / 1e9
+        self.add(sp)
+
+    def spans(self) -> list[dict[str, Any]]:
+        """The recorded spans as ``Span.to_dict`` plus ``end`` (the wall
+        clock, as ``start``) and ``start_ns``/``end_ns``
+        (CLOCK_MONOTONIC), in the order they finished."""
+        out = []
+        for tid, sid, pid, name, comp, start, dur, status, attrs, start_ns in list(self._spans):
+            out.append({"trace_id": tid, "span_id": sid, "parent_id": pid, "name": name,
+                        "component": comp, "start": start, "duration_s": dur,
+                        "status": status, "attrs": dict(attrs), "end": start + dur,
+                        "start_ns": start_ns, "end_ns": start_ns + round(dur * 1e9)})
+        return out

@@ -1009,11 +1009,16 @@ class Platform:
             self.device_telemetry.register_executable_source(
                 "scorer", self.scorer.executable_grid)
         self._publish_launches(self._registry("seldon"))
+        from ccfd_tpu_torch.serving.server import SCORER_ROWS, publish_rows
+
+        g_rows, scorer = self._registry("seldon").gauge(*SCORER_ROWS), self.scorer
+        self._collectors.append(lambda: publish_rows(g_rows, scorer))
         if c.opt("rest", False):
             from ccfd_tpu_torch.serving.server import PredictionServer
 
             self.prediction_server = PredictionServer(
-                self.scorer, self.cfg, self._registry("seldon"), profiler=self.profiler)
+                self.scorer, self.cfg, self._registry("seldon"),
+                tracer=self._tracer("seldon"), profiler=self.profiler)
             self.prediction_host = c.opt("host", "127.0.0.1")
             self.prediction_port = self.prediction_server.start(
                 self.prediction_host, int(c.opt("port", 0)))

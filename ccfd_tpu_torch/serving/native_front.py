@@ -27,6 +27,21 @@ the Python route). With the server's stage ``profiler`` each take feeds
 call) and each request ``rest`` (end to end in the front), the stages the
 reference's batcher and spans fill on its Python transport.
 
+With the server's ``tracer`` each take is one trace on CLOCK_MONOTONIC
+(observability/trace.py), rooted at ``serve.take`` (attrs ``requests``,
+``rows``, ``ids``: the C++ request ids) from its earliest enqueue stamp to
+the end of its reply: ``front.queue`` (that stamp to the take's return;
+attr ``wait_ms``, the row-weighted mean wait), the Scorer's
+``scorer.prep``/``launch``/``wait``/``readback`` (the take hands the
+Scorer its span to record them under) and ``front.respond``
+(``ccfd_front_respond``, the latency histogram, the gauges). Where the
+tracer's sink is a ``SpanRecorder``, a taker inside ``ccfd_front_take``
+with nothing to take goes to the recorder alone as ``front.take_wait`` (no
+parent): a take that times out, or the part of one before its first
+request was enqueued. A tail-sampling sink never sees those: each 200 ms
+timeout would be kept as a slow trace. None of these names is a profiler
+stage: the stage feeds above stay the profiler's only source on this path.
+
 Every canonical request goes to the takers and the Scorer: the reference's
 in-IO-thread host model (small requests scored in C++ on a host copy of
 the params, CCFD_INLINE_ROWS) is not carried over, since it would let a
@@ -40,15 +55,38 @@ import json
 import logging
 import threading
 import time
+from functools import partial
 
 import numpy as np
 
 from ccfd_tpu_torch import native
+from ccfd_tpu_torch.observability.trace import SpanRecorder
 from ccfd_tpu_torch.serving.dispatch import ScorerTimeout
+from ccfd_tpu_torch.serving.scorer import Scorer
 
 MAX_BATCH_ROWS = 16384  # a taker's row block: >= the C++ side's 8,192-row cap
 MAX_REQS_PER_TAKE = 1024
 _FP = ctypes.POINTER(ctypes.c_float)
+
+
+def _open_take(tracer, idle, t_take: int, t_got: int, enq, ids, counts, n_reqs: int,
+               total: int):
+    """The ``serve.take`` span of a take entered at ``t_take`` that returned
+    at ``t_got`` (``time.monotonic_ns``), started at its earliest enqueue
+    stamp, with its finished ``front.queue`` child; a ``front.take_wait``
+    first on the ``idle`` recorder, if any, where the taker waited for that
+    request."""
+    first_ns = int(min(enq[i] for i in range(n_reqs)) * 1e6)
+    if idle is not None and first_ns > t_take:
+        idle.record("front.take_wait", t_take, first_ns, "seldon")
+    sp = tracer.start("serve.take", start_ns=first_ns,
+                      attrs={"requests": n_reqs, "rows": total,
+                             "ids": tuple(ids[i] for i in range(n_reqs))})
+    got_ms = t_got / 1e6
+    wait_ms = sum((got_ms - enq[i]) * counts[i] for i in range(n_reqs)) / max(1, total)
+    tracer.record("front.queue", first_ns, t_got, parent=sp.context,
+                  attrs={"wait_ms": wait_ms})
+    return sp
 
 
 class NativeFront:
@@ -123,15 +161,25 @@ class NativeFront:
         meta = (ctypes.c_int * (3 * MAX_REQS_PER_TAKE))()
         enq = (ctypes.c_double * MAX_REQS_PER_TAKE)()
         model = srv.scorer.spec.name.encode()
+        tracer = srv.tracer
+        # idle takers go to a span recorder alone (module docstring); the
+        # row Scorer records its steps under the take's span
+        idle = tracer.sink if tracer is not None and isinstance(tracer.sink,
+                                                                 SpanRecorder) else None
+        stamped = tracer is not None and isinstance(srv.scorer, Scorer)
         while not self._stopping.is_set():
             handle = self._handle
             if handle is None:
                 return
+            t_take = time.monotonic_ns() if tracer is not None else 0
             n_reqs = self._lib.ccfd_front_take(handle, rows_ptr, MAX_BATCH_ROWS, meta, enq,
                                                MAX_REQS_PER_TAKE, 200)
+            t_got = time.monotonic_ns() if tracer is not None else 0
             if n_reqs <= 0:
                 if n_reqs < 0:
                     return  # stopping
+                if idle is not None:
+                    idle.record("front.take_wait", t_take, t_got, "seldon")
                 continue
             ids = (ctypes.c_int * n_reqs)()
             counts = (ctypes.c_int * n_reqs)()
@@ -164,6 +212,9 @@ class NativeFront:
                     if n_reqs == 0:
                         continue
             x = rows_buf[:total]
+            sp = None
+            if tracer is not None:
+                sp = _open_take(tracer, idle, t_take, t_got, enq, ids, counts, n_reqs, total)
             t_sc = time.monotonic()
             prof = srv.profiler
             if prof is not None:
@@ -176,7 +227,12 @@ class NativeFront:
                              rows=total)
             status, err = 200, b""
             try:
-                proba = np.ascontiguousarray(srv.scorer.score(x), np.float32)
+                if sp is None or not stamped:
+                    proba = srv.scorer.score(x)
+                else:
+                    proba = srv.scorer.score(
+                        x, record_span=partial(tracer.record, parent=sp.context))
+                proba = np.ascontiguousarray(proba, np.float32)
             except ScorerTimeout as e:
                 # the dispatch deadline expired or the device is wedged: 503
                 status = 503
@@ -192,12 +248,15 @@ class NativeFront:
                     self._lib.ccfd_front_respond_misc(handle, ids[i], status,
                                                       b"application/json", err, len(err))
                 srv._c_requests.inc(n_reqs, labels={"code": str(status)})
+                if sp is not None:
+                    tracer.finish(sp, status="error")
                 continue
             if gate is not None:
                 gate.observe(time.monotonic() - t_sc)
             if prof is not None:
                 prof.observe("rest.dispatch", dispatch_s=time.monotonic() - t_sc,
                              batch=total, rows=total)
+            t_resp = time.monotonic_ns() if sp is not None else 0
             self._lib.ccfd_front_respond(handle, ids, counts, n_reqs,
                                          proba.ctypes.data_as(_FP), model)
             if self._on_dispatch is not None:
@@ -219,6 +278,10 @@ class NativeFront:
                 srv._g_amount.set(float(x[total - 1, _AMOUNT_COL]))
                 srv._g_v17.set(float(x[total - 1, _V17_COL]))
                 srv._g_v10.set(float(x[total - 1, _V10_COL]))
+            if sp is not None:
+                t_end = time.monotonic_ns()
+                tracer.record("front.respond", t_resp, t_end, parent=sp.context)
+                tracer.finish(sp, end_ns=t_end)
 
     # -- everything else ------------------------------------------------------
     def _misc_loop(self) -> None:

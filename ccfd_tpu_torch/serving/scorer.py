@@ -85,6 +85,18 @@ port of ccfd_tpu/serving/scorer.py's ``Scorer``.
   ``swap_params`` enters the partitioner's ``PublishGate`` (``set_swap_gate``)
   for the flip. The executable grid's ``dispatches`` count the bucketed
   dispatches; ``shard_launches`` count the launches, a shard each.
+- **Spans and counters.** A caller that hands ``score`` a ``record_span``
+  (``Tracer.record`` with its parent bound: the native front's traced
+  takes) gets each dispatch's steps as spans: ``scorer.prep`` (pad, host
+  cast or int8 quantization, pinned staging), ``scorer.launch`` (H2D,
+  kernel, D2H and event enqueued), ``scorer.wait`` (the event's
+  synchronize) and ``scorer.readback`` (the copies settled, the answers to
+  numpy), each with ``cpu_us``, the dispatching thread's CPU time inside
+  it (``time.thread_time_ns``; where that clock steps by a scheduler tick
+  only a sum over many dispatches means anything), beside its wall time;
+  other callers of the same Scorer (the router, the canary) record none.
+  Beside the per-bucket dispatch tally, ``row_totals`` counts the rows
+  handed in and the bucket rows launched for them.
 - **Fault seams** (runtime/faults.py, as the reference's):
   ``device_seam("dispatch")`` before each launch of ``score_pipelined``
   (``device_hang``, ``compile_stall``) and ``device_seam("put")`` inside
@@ -97,8 +109,11 @@ port of ccfd_tpu/serving/scorer.py's ``Scorer``.
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import threading
+import time
 from collections import deque
+from functools import partial
 from typing import Any, Sequence
 
 import numpy as np
@@ -120,6 +135,13 @@ _DTYPES = {
     "float16": torch.float16,
 }
 _Q8_WIRES = ("int8", "f32")
+
+
+# the ``record_span`` of the dispatch running on this thread (``score``):
+# ``_launch`` and ``_collect`` read it here, and keep the signatures of a
+# plain dispatch
+_STEP_SPANS: contextvars.ContextVar = contextvars.ContextVar("scorer_step_spans",
+                                                             default=None)
 
 
 class _Placed:
@@ -210,8 +232,10 @@ class Scorer:
             params = self.spec.init(torch.Generator().manual_seed(seed))
         self._lock = threading.Lock()
         # per-bucket dispatch tally and warmed buckets for the executable
-        # inventory
+        # inventory; the rows handed in and the bucket rows launched for
+        # them (their ratio is the share of a launch that is not padding)
         self._dispatch_counts: dict[int, int] = {}
+        self._rows_in = self._rows_launched = 0
         self._warmed: set[int] = set()
         self._prepublish_hooks: list[Any] = []
         self._live = self._stage(params)
@@ -331,6 +355,11 @@ class Scorer:
         with self._lock:
             return sum(self._dispatch_counts.values())
 
+    def row_totals(self) -> tuple[int, int]:
+        """(rows handed to the dispatches, bucket rows launched for them)."""
+        with self._lock:
+            return self._rows_in, self._rows_launched
+
     @property
     def shards(self) -> int:
         """Launches a dispatch: the data axis's size on a mesh, else 1."""
@@ -363,10 +392,29 @@ class Scorer:
     # -- dispatch ------------------------------------------------------------
     def _launch(self, live: tuple, chunk: np.ndarray, b: int) -> tuple:
         """Stage one chunk padded to bucket ``b``, score it, and queue the
-        copy back; returns what ``_collect`` needs."""
-        if self.mesh is not None:
-            return self._launch_sharded(live, chunk, b)
-        params, kp, host_norm = live
+        copy back; returns what ``_collect`` needs. Inside a recorded
+        ``score``, the staging is the ``scorer.prep`` span and the rest
+        ``scorer.launch``."""
+        record_span = _STEP_SPANS.get()
+        if record_span is None:
+            return self._enqueue(live, self._prep(live, chunk, b), chunk.shape[0], b)
+        rows = int(chunk.shape[0])
+        t0, c0 = time.monotonic_ns(), time.thread_time_ns()
+        staging = self._prep(live, chunk, b)
+        t1, c1 = time.monotonic_ns(), time.thread_time_ns()
+        pending = self._enqueue(live, staging, rows, b)
+        t2, c2 = time.monotonic_ns(), time.thread_time_ns()
+        record_span("scorer.prep", t0, t1,
+                    attrs={"rows": rows, "bucket": b, "cpu_us": (c1 - c0) / 1e3})
+        record_span("scorer.launch", t1, t2,
+                    attrs={"kernel": self.kernel_name, "bucket": b, "rows": rows,
+                           "cpu_us": (c2 - c1) / 1e3})
+        return pending
+
+    def _prep(self, live: tuple, chunk: np.ndarray, b: int) -> tuple:
+        """The host's part of a dispatch: the chunk padded to bucket ``b``,
+        cast to the wire (or, on the int8 wire, quantized), in pinned
+        staging buffers on the card's path."""
         take = chunk.shape[0]
         pin = self.device.type == "cuda"
         if self.int8_wire:
@@ -374,20 +422,29 @@ class Scorer:
             # reference does; padded rows quantize to zeros
             padded = np.zeros((b, self.num_features), np.float32)
             padded[:take] = chunk
-            q, s = fused_mlp_q8.prequantize_rows_numpy(host_norm, padded)
-            staging = tuple(torch.from_numpy(a).pin_memory() if pin else torch.from_numpy(a)
-                            for a in (q, s))
+            q, s = fused_mlp_q8.prequantize_rows_numpy(live[2], padded)
+            return tuple(torch.from_numpy(a).pin_memory() if pin else torch.from_numpy(a)
+                         for a in (q, s))
+        wire = self._kmod.INPUT_DTYPE if self._kmod is not None else torch.float32
+        xh = torch.empty((b, self.num_features), dtype=wire, pin_memory=pin)
+        xh[:take].copy_(torch.from_numpy(chunk))  # host cast to the wire
+        xh[take:].zero_()
+        return (xh,)
+
+    def _enqueue(self, live: tuple, staging: tuple, take: int, b: int) -> tuple:
+        """Copy the staged rows to the card, launch, queue the copy back
+        and record the event ``_collect`` waits on."""
+        if self.mesh is not None:
+            return self._enqueue_sharded(live, staging[0], take, b)
+        params, kp, _ = live
+        pin = self.device.type == "cuda"
+        if self.int8_wire:
             (qd, tq), (sd, ts) = (timed_copy(self.telemetry, t, self.device)
                                   for t in staging)
             copies = (tq, ts)
             out = fused_mlp_q8.fused_mlp_q8_score_preq(kp, qd, sd)
         else:
-            wire = self._kmod.INPUT_DTYPE if self._kmod is not None else torch.float32
-            xh = torch.empty((b, self.num_features), dtype=wire, pin_memory=pin)
-            xh[:take].copy_(torch.from_numpy(chunk))  # host cast to the wire
-            xh[take:].zero_()
-            staging = (xh,)
-            xd, tx = timed_copy(self.telemetry, xh, self.device)
+            xd, tx = timed_copy(self.telemetry, staging[0], self.device)
             copies = (tx,)
             if self._q8:
                 out = fused_mlp_q8.fused_mlp_q8_score(kp, xd)
@@ -403,19 +460,14 @@ class Scorer:
             done.record(torch.cuda.current_stream(self.device))
         return staging, oh, take, done, copies
 
-    def _launch_sharded(self, live: tuple, chunk: np.ndarray, b: int) -> tuple:
+    def _enqueue_sharded(self, live: tuple, xh: torch.Tensor, take: int, b: int) -> tuple:
         """One bucketed dispatch over the data shards (module docstring):
         shard j copies its rows, launches and copies back on its own
         stream; one event a shard."""
         placed = live[0]
-        take = chunk.shape[0]
         positions = self._layout.data_positions()
         rows = b // len(positions)
         pin = self.device.type == "cuda"
-        wire = self._kmod.INPUT_DTYPE if self._kmod is not None else torch.float32
-        xh = torch.empty((b, self.num_features), dtype=wire, pin_memory=pin)
-        xh[:take].copy_(torch.from_numpy(chunk))  # host cast to the wire
-        xh[take:].zero_()
         oh = torch.empty((b,), dtype=torch.float32, pin_memory=pin)
         events, copies = [], []
         for j, pos in enumerate(positions):
@@ -441,12 +493,33 @@ class Scorer:
         return (xh, live), oh, take, events, copies
 
     def _collect(self, pending: tuple) -> np.ndarray:
-        _staging, oh, take, done, copies = pending
+        """Wait for a launch's copy back and hand its rows' answers over;
+        inside a recorded ``score``, the ``scorer.wait`` and
+        ``scorer.readback`` spans."""
+        record_span = _STEP_SPANS.get()
+        if record_span is None:
+            self._wait(pending)
+            return self._readback(pending)
+        t0, c0 = time.monotonic_ns(), time.thread_time_ns()
+        self._wait(pending)
+        t1, c1 = time.monotonic_ns(), time.thread_time_ns()
+        out = self._readback(pending)
+        t2, c2 = time.monotonic_ns(), time.thread_time_ns()
+        record_span("scorer.wait", t0, t1, attrs={"cpu_us": (c1 - c0) / 1e3})
+        record_span("scorer.readback", t1, t2, attrs={"cpu_us": (c2 - c1) / 1e3})
+        return out
+
+    @staticmethod
+    def _wait(pending: tuple) -> None:
+        done = pending[3]
         if isinstance(done, list):
             for ev in done:
                 ev.synchronize()
         elif done is not None:
             done.synchronize()
+
+    def _readback(self, pending: tuple) -> np.ndarray:
+        _staging, oh, take, _done, copies = pending
         settle_copies(self.telemetry, copies)
         return oh[:take].numpy().copy()
 
@@ -492,6 +565,8 @@ class Scorer:
             device_seam("dispatch")
             with self._lock:  # batcher workers share this scorer
                 self._dispatch_counts[b] = self._dispatch_counts.get(b, 0) + 1
+                self._rows_in += take
+                self._rows_launched += b
             pending.append(self._launch(live, x[start:start + take], b))
             if len(pending) >= depth:
                 chunks.append(self._collect(pending.popleft()))
@@ -500,20 +575,30 @@ class Scorer:
             chunks.append(self._collect(pending.popleft()))
         return np.concatenate(chunks)
 
-    def score(self, x: np.ndarray) -> np.ndarray:
+    def _score_recorded(self, x: np.ndarray, record_span: Any) -> np.ndarray:
+        token = _STEP_SPANS.set(record_span)
+        try:
+            return self.score_pipelined(x, depth=1)
+        finally:
+            _STEP_SPANS.reset(token)
+
+    def score(self, x: np.ndarray, record_span: Any = None) -> np.ndarray:
         """(n, F) float32 -> (n,) float32 proba_1: the synchronous latency
         path, one chunk in flight, within the dispatch deadline where one
-        is set (module docstring)."""
+        is set (module docstring). ``record_span(name, start_ns, end_ns,
+        attrs=)`` (a ``Tracer.record`` with the caller's span bound as
+        parent) gets each dispatch's steps as spans; None records none."""
+        run = (partial(self.score_pipelined, x, 1) if record_span is None
+               else partial(self._score_recorded, x, record_span))
         if self._dispatcher is None:
-            return self.score_pipelined(x, depth=1)
+            return run()
         if self._wedge.wedged:
             raise ScorerTimeout(f"device wedged for {self._wedge.wedged_for_s:.1f}s")
         # the deadline is for one bucketed dispatch: a request of many chunks
         # gets one deadline a chunk
         n_chunks = max(1, -(-len(x) // self.batch_sizes[-1]))
         try:
-            return self._dispatcher.call(lambda: self.score_pipelined(x, depth=1),
-                                         self.dispatch_deadline_s * n_chunks)
+            return self._dispatcher.call(run, self.dispatch_deadline_s * n_chunks)
         except ScorerTimeout:
             with self._lock:
                 self.dispatch_timeouts += 1

@@ -12,7 +12,9 @@ scorer. The port of ccfd_tpu/serving/server.py's ``PredictionServer``.
   status-coded request counter, the per-request gauges
   ``proba_1``/``Amount``/``V17``/``V10``, the batcher's dispatch counters
   and ``ccfd_kernel_launches{kernel=...}``, the process's launches of each
-  CUDA kernel.
+  CUDA kernel, beside the Scorer's dispatches (``ccfd_scorer_dispatches``)
+  and the rows handed to them and launched, padding included
+  (``ccfd_scorer_rows{rows="handed"|"launched"}``).
 - ``GET /health/status`` — Seldon-style readiness.
 - Overload admission (CCFD_OVERLOAD, on by default, as in the reference):
   each predict reserves its rows against an adaptive serving budget
@@ -39,6 +41,12 @@ Decode: the canonical payload's matrix parses natively
 (``native.decode_ndarray_json``, C++ strtof straight into float32); a
 ``names`` key, ragged or non-numeric rows, bad JSON and oversize bodies
 bail to ``json.loads``, with the same status codes.
+
+Tracing (``tracer=``, as the reference's): the native front records one
+trace a take, the Scorer's steps of its dispatch among its children
+(serving/native_front.py, serving/scorer.py). The Scorer, which the
+operator shares with the router, is not handed the tracer: only the
+front's takes record its steps. The Python transport records none.
 
 Transport: the C++ epoll front (``serving/native_front.py``) when
 ``cfg.native_front`` is on (CCFD_NATIVE_FRONT, default 1, as in the
@@ -71,6 +79,20 @@ _V10_COL = FEATURE_NAMES.index("V10")
 # every CUDA kernel of the port, by its gauge label: B1, B2, B3
 KERNEL_LAUNCHES = (fused_mlp.launches, fused_mlp_q8.launches,
                    fused_mlp_q8.launches_preq)
+
+
+# the gauge ``publish_rows`` sets: name and help
+SCORER_ROWS = ("ccfd_scorer_rows",
+               "rows handed to the Scorer's dispatches, and bucket rows launched for them")
+
+
+def publish_rows(gauge, scorer: Scorer) -> None:
+    """Set ``ccfd_scorer_rows{rows="handed"|"launched"}``: the rows handed
+    to the Scorer's dispatches and the bucket rows launched for them, so
+    their ratio reads how much of each launch is padding."""
+    handed, launched = scorer.row_totals()
+    gauge.set(handed, labels={"rows": "handed"})
+    gauge.set(launched, labels={"rows": "launched"})
 
 
 def publish_launches(gauge) -> None:
@@ -111,9 +133,14 @@ class PredictionServer:
         scorer: Scorer,
         cfg: Config | None = None,
         registry: Registry | None = None,
+        tracer=None,
         profiler=None,
     ):
         self.scorer = scorer
+        # observability/trace.Tracer: the native front's spans of each take
+        # (serve.take and its children, the Scorer's steps among them);
+        # None (what ``serve`` runs) makes no span
+        self.tracer = tracer
         # stage profiler (observability/profile.py): the batcher (Python
         # transport) and the native front's scorer threads feed the REST
         # path's rest.batcher / rest.dispatch stages
@@ -136,6 +163,7 @@ class PredictionServer:
             "ccfd_kernel_launches", "CUDA kernel launches in this process")
         self._g_dispatches = r.gauge(
             "ccfd_scorer_dispatches", "the Scorer's bucket dispatches in this process")
+        self._g_rows = r.gauge(*SCORER_ROWS)
         self.deadline_counters = DeadlineCounters(r, scorer)
         self.admission = None
         if self.cfg.overload_enabled:
@@ -274,6 +302,7 @@ class PredictionServer:
                 self._c_requests.inc(labels={"code": "200"})
                 publish_launches(self._g_launches)
                 self._g_dispatches.set(self.scorer.dispatch_total())
+                publish_rows(self._g_rows, self.scorer)
                 self.deadline_counters.sync()
                 return 200, "text/plain", self.registry.render().encode()
             if path in ("/health/status", "/health", "/healthz"):

@@ -7,7 +7,8 @@ tracing registry sharing a family with the router's) in each package's
 ``/rest/metrics``, HEAD, 404s and the content type must be the same, apart
 from the process registry's RSS reading. ``_merge_renders`` gives the same
 exposition on the same bodies, and ``/traces`` serves the same summaries
-of the same spans.
+of the same spans. A histogram counts and keeps exemplars as the
+reference's does.
 """
 
 import http.client
@@ -117,3 +118,21 @@ def test_merge_renders_matches_the_reference():
     assert merged == ref_exporter._merge_renders(bodies[0], openmetrics=False)
     assert merged.count("# TYPE trace_span_seconds histogram") == 1
     assert 'trace_span_seconds_count{span="router.batch"} 2' in merged
+
+
+def test_histogram_counts_and_exemplars_match_the_reference():
+    """The port's bucket search against the reference's scan: edges, both
+    infinities and NaN, with an exemplar each."""
+    values = [0.0, 0.0005, 0.001, 0.0025, 0.003, 0.1, 1.0, 7.5, 10.0, 1e9,
+              float("inf"), float("-inf"), float("nan"), -3.0, 2.5]
+    hists = [mod.Registry().histogram("h", "help") for mod in (ref_prom, port_prom)]
+    for i, v in enumerate(values):
+        for h in hists:
+            h.observe(v, labels={"k": str(i % 3)}, exemplar={"trace_id": f"t{i}"})
+    want, got = hists
+    assert got.buckets == want.buckets
+    assert got._counts == want._counts
+    strip = {k: {b: (ex, val) for b, (ex, val, _t) in d.items()}
+             for k, d in want._exemplars.items()}
+    assert {k: {b: (ex, val) for b, (ex, val, _t) in d.items()}
+            for k, d in got._exemplars.items()} == strip

@@ -10,12 +10,17 @@ small requests inline on the CPU, so its inline cap is set explicitly
 (CCFD_INLINE_ROWS=0) wherever the two are compared. The port's front has
 no inline model: every canonical request, however small, reaches the
 Scorer. Every client call has a timeout and every server stops in a
-``finally``.
+``finally``. Traced (the server's ``tracer``), each take is one
+``serve.take`` trace on the C++ front's clock, the Scorer's steps among
+its children, while the same Scorer called by anyone else (the router)
+records none; untraced, no span is made. An idle traced front keeps no
+trace in a tail-sampling sink.
 """
 
 import json
 import socket
 import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -29,6 +34,8 @@ from ccfd_tpu_torch import native
 from ccfd_tpu_torch.config import Config
 from ccfd_tpu_torch.data.ccfd import FEATURE_NAMES
 from ccfd_tpu_torch.data.surrogate import kaggle_surrogate
+from ccfd_tpu_torch.metrics.prom import Registry
+from ccfd_tpu_torch.observability import trace
 from ccfd_tpu_torch.ops import quant
 from ccfd_tpu_torch.params import from_jax_params
 from ccfd_tpu_torch.serving.native_front import NativeFront
@@ -266,3 +273,144 @@ def test_concurrent_clients_through_the_takers(port_scorer, rows):
         assert 0 < m["serving_batcher_dispatches_total"] <= port_scorer.dispatch_total() - d0
     finally:
         srv.stop()
+
+
+class _TakeLog:
+    """The native library with each take's C++ request ids and enqueue
+    stamps (CLOCK_MONOTONIC ms) logged."""
+
+    def __init__(self, lib):
+        self._lib = lib
+        self.takes: list[tuple[list[int], list[float]]] = []
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
+
+    def ccfd_front_take(self, h, rows, max_rows, meta, enq, max_reqs, timeout_ms):
+        n = self._lib.ccfd_front_take(h, rows, max_rows, meta, enq, max_reqs, timeout_ms)
+        if n > 0:
+            self.takes.append(([meta[3 * i] for i in range(n)], [enq[i] for i in range(n)]))
+        return n
+
+
+def _post_concurrently(port, rows, clients=6, each=5):
+    """``clients`` threads posting ``each`` requests of 1-16 rows; returns
+    the rows posted."""
+    errs, posted = [], []
+
+    def worker(i):
+        try:
+            for j in range(each):
+                n = 1 + (i * each + j) % 16
+                x = rows[(i * 40 + j) % 300:(i * 40 + j) % 300 + n]
+                status, _ = _call(port, "POST", "/api/v0.1/predictions",
+                                  {"data": {"ndarray": x.tolist()}})
+                assert status == 200
+                posted.append(len(x))
+        except Exception as e:  # noqa: BLE001 - reported below
+            errs.append(repr(e))
+
+    ths = [threading.Thread(target=worker, args=(i,)) for i in range(clients)]
+    for t in ths:
+        t.start()
+    for t in ths:
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in ths) and not errs, errs[:3]
+    return sum(posted)
+
+
+TAKE_CHILDREN = {"front.queue", "scorer.prep", "scorer.launch", "scorer.wait",
+                 "scorer.readback", "front.respond"}
+
+
+def test_each_take_of_a_traced_serve_is_one_trace_on_the_fronts_clock(tree, rows, monkeypatch):
+    log = _TakeLog(native.lib())
+    monkeypatch.setattr(native, "lib", lambda: log)
+    scorer = Scorer(params=from_jax_params(tree), batch_sizes=BUCKETS, device="cpu")
+    rec = trace.SpanRecorder()
+    srv = PredictionServer(scorer, Config(batch_workers=2),
+                           tracer=trace.Tracer(Registry(), "seldon", sink=rec))
+    cpu0 = time.process_time_ns()
+    port = srv.start("127.0.0.1", 0)
+    try:
+        posted = _post_concurrently(port, rows)
+        text = _call(port, "GET", "/prometheus")[1].decode()
+    finally:
+        srv.stop()
+    cpu1 = time.process_time_ns()
+    spans = rec.spans()
+    # the same Scorer called as the router calls it records nothing
+    scorer.score(rows[:16])
+    assert len(rec.spans()) == len(spans)
+    by_trace: dict = {}
+    for s in spans:
+        by_trace.setdefault(s["trace_id"], []).append(s)
+    roots = [s for s in spans if s["name"] == "serve.take"]
+    assert len(roots) == len(log.takes) > 0
+    assert sum(r["attrs"]["rows"] for r in roots) == posted
+    by_ids = {tuple(r["attrs"]["ids"]): r for r in roots}
+    launched, steps_cpu_us = 0, []
+    for ids, enq in log.takes:
+        root = by_ids[tuple(ids)]
+        assert root["parent_id"] is None and root["attrs"]["requests"] == len(ids)
+        children = [s for s in by_trace[root["trace_id"]] if s is not root]
+        assert {c["name"] for c in children} == TAKE_CHILDREN and len(children) == 6
+        assert all(c["parent_id"] == root["span_id"] for c in children)
+        named = {c["name"]: c for c in children}
+        assert named["scorer.prep"]["attrs"]["rows"] == root["attrs"]["rows"]
+        # each Scorer step carries its thread's CPU time
+        steps_cpu_us += [named[n]["attrs"]["cpu_us"] for n in
+                         ("scorer.prep", "scorer.launch", "scorer.wait", "scorer.readback")]
+        assert named["scorer.launch"]["attrs"]["bucket"] == scorer.bucket(root["attrs"]["rows"])
+        launched += named["scorer.launch"]["attrs"]["bucket"]
+        queue = named["front.queue"]
+        for stamp_ms in enq:
+            assert queue["start_ns"] <= int(stamp_ms * 1e6) <= queue["end_ns"]
+        assert queue["start_ns"] == root["start_ns"] and queue["attrs"]["wait_ms"] >= 0
+        # the take's steps in order, inside the take
+        order = [named[n] for n in ("front.queue", "scorer.prep", "scorer.launch",
+                                    "scorer.wait", "scorer.readback", "front.respond")]
+        assert all(a["end_ns"] <= b["start_ns"] for a, b in zip(order, order[1:]))
+        assert order[-1]["end_ns"] == root["end_ns"]
+    # the steps' CPU time is part of the process's (a thread CPU clock may
+    # step by a scheduler tick, so one step may read more than its wall)
+    assert min(steps_cpu_us) >= 0 and sum(steps_cpu_us) * 1e3 <= cpu1 - cpu0
+    # a taker with nothing to take has no parent
+    assert all(s["parent_id"] is None for s in spans if s["name"] == "front.take_wait")
+    assert f'ccfd_scorer_rows{{rows="handed"}} {float(posted)}' in text
+    assert f'ccfd_scorer_rows{{rows="launched"}} {float(launched)}' in text
+
+
+def test_without_a_tracer_no_span_is_made(port_scorer, rows, monkeypatch):
+    made = []
+    init = trace.Span.__init__
+
+    def counted(self, *a, **kw):
+        made.append(1)
+        init(self, *a, **kw)
+
+    monkeypatch.setattr(trace.Span, "__init__", counted)
+    srv = PredictionServer(port_scorer, Config(batch_workers=2))
+    assert srv.tracer is None
+    port = srv.start("127.0.0.1", 0)
+    try:
+        assert _post_concurrently(port, rows, clients=3, each=3) > 0
+    finally:
+        srv.stop()
+    assert made == []
+
+
+def test_an_idle_traced_front_keeps_no_trace_in_a_tail_sampling_sink(port_scorer):
+    """The operator's sink keeps any span over ``slow_s`` as a slow trace:
+    a taker's 200 ms take timeouts reach it as no span at all."""
+    sink = trace.SpanSink(sample=0.0, slow_s=0.05, registry=Registry())
+    srv = PredictionServer(port_scorer, Config(batch_workers=2),
+                           tracer=trace.Tracer(Registry(), "seldon", sink=sink))
+    port = srv.start("127.0.0.1", 0)
+    try:
+        time.sleep(0.7)  # each taker times out three times
+        assert _call(port, "GET", "/health/status")[0] == 200
+    finally:
+        srv.stop()
+    sink.flush(0.0)
+    assert sink.traces() == []

@@ -27,6 +27,8 @@
 - **The exporter's planes**: /profile (bus, router.* and the batcher's
   stages), /debug/device, /debug/profile, the SLO gauges and the build
   counter at zero while serving.
+- **Tracing the REST front**: with tracing and ``rest: true`` on, an idle
+  native front leaves the tail-sampling sink without a trace.
 """
 
 from __future__ import annotations
@@ -445,6 +447,20 @@ def test_exporter_planes_and_no_build_while_serving(tmp_path):
         assert prof["compile"]["count"] == 0
     finally:
         p.down()
+
+
+def test_an_idle_traced_rest_front_keeps_no_trace():
+    cr = minimal_cr(**OFF, scorer={"enabled": True, "model": "logreg", "rest": True},
+                    tracing={"sample": 1.0})
+    cfg = Config.from_env({**ENV, "CCFD_NATIVE_FRONT": "1"})
+    p = Platform(PlatformSpec.from_cr(cr, cfg=cfg), device="cpu").up(wait_ready_s=30)
+    try:
+        assert p.prediction_server.tracer is not None and p.trace_sink.slow_s <= 0.2
+        time.sleep(0.7)  # each of the front's takers times out three times
+    finally:
+        p.down()
+    p.trace_sink.flush(0.0)
+    assert [t for t in p.trace_sink.traces() if "seldon" in t["components"]] == []
 
 
 def test_up_command_drains_and_exits(tmp_path):

@@ -9,7 +9,13 @@
   once: the same span names under the same parents with the same
   attributes (``queue_s`` is a wall-clock reading and only checked to be
   there), and the same kept-trace reasons.
+- The port's one clock: a span is stamped on CLOCK_MONOTONIC and its wall
+  start is that stamp plus the process's offset; the span recorder keeps
+  the collector's pauses while armed, and none once disarmed.
 """
+
+import gc
+import time
 
 import numpy as np
 import pytest
@@ -163,3 +169,60 @@ def test_pipeline_spans_match_the_reference():
             "router.route", "notify.handle"} <= names
     # the batch scored on the host tier carries the degraded flag
     assert any(("degraded", "host") in span[4] for t in trees for span in t)
+
+
+def _mono_ns() -> int:
+    return time.clock_gettime_ns(time.CLOCK_MONOTONIC)
+
+
+def test_a_span_is_stamped_on_clock_monotonic_and_its_wall_start_adds_the_offset():
+    rec = port.SpanRecorder()
+    tracer = port.Tracer(Registry(), "x", sink=rec)
+    before = _mono_ns()
+    with tracer.span("outer"):
+        inside = _mono_ns()
+        time.sleep(0.002)
+    after = _mono_ns()
+    given = tracer.record("given", inside, inside + 1_500_000)
+    a, b = rec.spans()
+    assert a["name"] == "outer" and a["parent_id"] is None
+    assert before <= a["start_ns"] <= inside < a["end_ns"] <= after
+    assert a["end_ns"] - a["start_ns"] >= 2_000_000
+    assert b["start_ns"] == given.start_ns == inside
+    assert b["end_ns"] == inside + 1_500_000 and b["duration_s"] == 1.5e-3
+    for d in (a, b):
+        assert d["start"] == (d["start_ns"] + port.WALL_OFFSET_NS) / 1e9
+        assert d["end"] == d["start"] + d["duration_s"]
+    # the offset is the wall clock's, read once: within a few ms of a read now
+    assert abs(time.time_ns() - _mono_ns() - port.WALL_OFFSET_NS) < 5_000_000
+    # /traces and the incident bundle read the keys they read before
+    ref_keys = set(ref.Span("a" * 32, "b" * 16, None, "n", "c", 1.0).to_dict())
+    assert set(given.to_dict()) == ref_keys
+
+
+def test_an_armed_recorder_records_the_collector_and_a_disarmed_one_does_not():
+    rec = port.SpanRecorder()
+    rec.arm()
+    try:
+        before = _mono_ns()
+        gc.collect()
+        after = _mono_ns()
+    finally:
+        rec.disarm()
+    gcs = [s for s in rec.spans() if s["name"] == "host.gc"]
+    full = [s for s in gcs if s["attrs"]["generation"] == 2]
+    assert full and all(s["parent_id"] is None and s["component"] == "host" for s in gcs)
+    assert before <= full[-1]["start_ns"] <= full[-1]["end_ns"] <= after
+    assert full[-1]["attrs"]["collected"] >= 0
+    n = len(rec.spans())
+    gc.collect()
+    assert len(rec.spans()) == n
+    assert rec._on_gc not in gc.callbacks
+
+
+def test_the_recorder_keeps_at_most_its_bound_and_counts_the_rest():
+    rec = port.SpanRecorder(max_spans=3)
+    tracer = port.Tracer(Registry(), "x", sink=rec)
+    for i in range(5):
+        tracer.record(f"s{i}", i, i + 1)
+    assert [s["name"] for s in rec.spans()] == ["s0", "s1", "s2"] and rec.dropped == 2
