@@ -2,9 +2,11 @@
 //
 // Replaces the Pallas TPU kernels of ccfd_tpu/ops/fused_mlp_q8.py:
 //   B2  _kernel       (entry fused_mlp_q8_score)       -> fused_mlp_q8_kernel
-//   B3  _kernel_preq  (entry fused_mlp_q8_score_preq)  -> fused_mlp_q8_preq_kernel
+//   B3  _kernel_preq  (entry fused_mlp_q8_score_preq)  -> fused_mlp_q8_preq_kernel,
+//                     and fused_mlp_q8_preq_kernel_cluster for small batches
 // Both compute the served int8 graph (ccfd_tpu/ops/quant.py logits) with
-// its rounding points, in one device function q8_body<kPreq>:
+// its rounding points, in one device function q8_body<kPreq> (and B3's
+// cluster kernel, which keeps every rounding point):
 //
 //   B2 only:  h0 = x - mu, h = h0 / sigma             IEEE division by raw sigma
 //   before each layer, per row:
@@ -81,10 +83,59 @@
 //   each row against w3 in one pass (__dp4a), with an exact integer warp
 //   sum. Rows past the batch in a ragged tile are skipped.
 //
-// Entries: ccfd_fused_mlp_q8 (B2), ccfd_fused_mlp_q8_preq (B3) and
-// ccfd_fused_mlp_q8_plan (the layout both use, which ops/fused_mlp_q8.py
-// mirrors), plain C functions bound with ctypes. The launches return
-// cudaGetLastError(); 1 (cudaErrorInvalidValue) for a shape they do not take.
+// B3 at small batches, on a thread-block cluster. At the REST buckets (16
+// and 128 rows) the persistent grid above is one or two blocks, and each
+// walks a tile's whole chain alone on one SM: 0.0111 ms at B = 16 and
+// 0.0146 ms at 128 on the H100, against a bound of 0.00002 ms. Latency,
+// not bytes or operations, bounds it. So for batch <= kClusterMaxBatch
+// where hp / 64 <= 8 (a portable cluster), ccfd_fused_mlp_q8_preq launches
+// fused_mlp_q8_preq_kernel_cluster instead (cudaLaunchKernelEx with a
+// cluster dimension of hp / 64): one cluster a 64-row tile, one CTA of 8
+// warps a 64-column group.
+// - Loads, by bulk copies on mbarriers from the stream pack_stream lays
+//   out (nothing repacked): every CTA the tile's int8 rows, all of W1's
+//   chunk with s1 and b1 (about 14 KB at H = 256), and its own group of
+//   W2's chunk with its columns of s2, b2 and w3. The input scales, s3 and
+//   b3 are read while the copies fly.
+// - Layer 1 reads its A fragments from the rows as copied (unpadded,
+//   unaligned: two words and a funnel shift). A tile of one 16-row slab
+//   (bucket 16) computes all hp columns of layer 1 in every CTA, 4x the
+//   products of its share but no crossing between SMs before layer 2;
+//   a larger tile splits layer 1's columns like layer 2's, and the rows'
+//   maxima and q(h1) cross between the CTAs.
+// - Layer 2: each CTA its 64 columns over the whole K from its own q(h1);
+//   one slab's warps split K in two, so no warp reads all of it. The rows'
+//   maxima go to every CTA (each takes the max of the CTAs' maxima:
+//   order-free, the scale bit for bit), and layer 3's exact int32 partial
+//   dots of each CTA's columns to rank 0, which stores z and p.
+// - Crossings: st.async stores into the receiver's shared memory, counted
+//   on the receiver's mbarrier, so a CTA waits for its own data and not
+//   for a barrier over the cluster; one barrier.cluster arrive (early) and
+//   wait (before the first remote store) only see that every CTA's
+//   mbarriers are initialised.
+// - Requantizations and layer 1's int-to-float run on the FP32 pipes, not
+//   the conversion unit (an eighth of their rate), through the bits of
+//   1.5 * 2^23 + x: exact, so the same integers and floats bit for bit.
+// What bounds it: the chain of dependent steps. SM-clock stamps at B = 16
+// on the H100 (NVIDIA H100 80GB HBM3, 700 W) put each copy wait, product
+// chain, crossing and requantization at 200-900 cycles and the kernel at
+// ~7,700 cycles; a launch adds ~1 us. B3 takes 0.0047 ms at B = 16 and
+// 0.0086 ms at 128 (chip_smoke.py).
+// Crossover, measured on that card with tools/torch_q8_crossover.py (the
+// two paths bit-equal at every batch; ms a launch, persistent / cluster):
+// at H = 256, B = 16 0.0110 / 0.0048, 128 0.0146 / 0.0085, 1024
+// 0.0145 / 0.0087, 2048 0.0150 / 0.0101, 4096 0.0152 / 0.0163, 16384
+// 0.0274 / 0.0428; at H = 512, 2048 0.0283 / 0.0259, 4096 0.0286 / 0.0433.
+// The cluster path takes batches up to 2048, the largest measured batch at
+// which it is the faster.
+//
+// Entries: ccfd_fused_mlp_q8 (B2), ccfd_fused_mlp_q8_preq (B3, either
+// launch), ccfd_fused_mlp_q8_preq_path (B3's choice, which
+// ops/fused_mlp_q8.py path_for mirrors) and ccfd_fused_mlp_q8_plan (the
+// layout both use, which ops/fused_mlp_q8.py mirrors), plain C functions
+// bound with ctypes. The launches return cudaGetLastError() (B3's cluster
+// launch the error of cudaLaunchKernelEx); 1 (cudaErrorInvalidValue) for a
+// shape they do not take.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -644,16 +695,590 @@ fused_mlp_q8_preq_kernel(const int8_t* __restrict__ q, const float* __restrict__
                 batch, features, hidden);
 }
 
+// ---- B3 on a thread-block cluster: the small batches ----
+
+constexpr int kClusterRows = 64;     // rows of a cluster's tile
+constexpr int kClusterMaxCtas = 8;   // the portable cluster size: H <= 512
+constexpr int kClusterWarps = 8;
+constexpr int kClusterThreads = 32 * kClusterWarps;
+constexpr int kLdc = kGroup + 8;     // row stride of a CTA's f32 tile (its 64 columns)
+// the largest batch the cluster path takes: the crossover measured on the
+// H100 (see the head of this file)
+constexpr int kClusterMaxBatch = 2048;
+
+struct ClusterLayout {
+  int k1p, hp, ld1, ldh, ldf, ctas, slices;
+  uint32_t w1_bytes, w2_bytes;  // all of W1's chunk; a CTA's group of W2's
+  // byte offsets into the dynamic shared memory, each a multiple of 128
+  size_t w1, w2, vec1, vec2, hf, hq, xraw, sx, rcp, amax, slots, bars, total;
+};
+
+__host__ __device__ inline ClusterLayout cluster_layout(int features, int hidden) {
+  ClusterLayout C;
+  C.k1p = (features + 31) / 32 * 32;
+  C.hp = (hidden + kGroup - 1) / kGroup * kGroup;
+  C.ld1 = C.k1p + 16;
+  C.ldh = C.hp + 16;
+  C.ldf = C.hp + 8;
+  C.ctas = C.hp / kGroup;
+  C.slices = (C.hp + kSlice - 1) / kSlice;
+  C.w1_bytes = static_cast<uint32_t>(C.hp * C.ld1);
+  C.w2_bytes = static_cast<uint32_t>(kGroup * (C.hp + 16 * C.slices));
+  const size_t R = kClusterRows, col = align128(sizeof(float) * R);
+  size_t off = 0;
+  C.w1 = off;    off += align128(C.w1_bytes);
+  C.w2 = off;    off += align128(C.w2_bytes);
+  C.vec1 = off;  off += align128(sizeof(float) * 2 * C.hp);  // s1, b1
+  C.vec2 = off;  off += align128(sizeof(float) * 2 * kGroup + kGroup);  // s2, b2, w3: its columns
+  // the f32 tile: all hp columns of one slab's rows, or 64 columns of R
+  C.hf = off;    off += align128(sizeof(float) * max(16 * C.ldf, static_cast<int>(R) * kLdc));
+  C.hq = off;    off += align128(R * C.ldh);
+  C.xraw = off;  off += align128(R * features + 36);  // and what load4 reads past the rows
+  C.sx = off;    off += col;
+  C.rcp = off;   off += col;
+  C.amax = off;  off += col;
+  C.slots = off; off += align128(3 * sizeof(unsigned) * kClusterMaxCtas * R);
+  C.bars = off;  off += 128;
+  C.total = off;
+  return C;
+}
+
+__device__ __forceinline__ int cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+
+// the address of ``p``'s offset in the shared memory of CTA ``rank`` of the cluster
+__device__ __forceinline__ uint32_t peer_addr(const void* p, int rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a)
+               : "r"(hopper::smem_addr(p)), "r"(rank));
+  return a;
+}
+
+// st.async: a store into the shared memory of a CTA of the cluster that
+// counts its bytes on that CTA's mbarrier ``bar`` (both addresses from
+// peer_addr), so the receiver waits for its data alone, not for a barrier
+// over the whole cluster
+__device__ __forceinline__ void st_async(uint32_t addr, unsigned v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.u32 [%0], %1, [%2];\n" ::"r"(
+                   addr),
+               "r"(v), "r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_async4(uint32_t addr, uint4 v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.u32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(addr),
+      "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(bar)
+      : "memory");
+}
+
+// hopper::mbar_wait with cluster scope: what other CTAs stored (st.async)
+// before completing the phase is visible after it
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = hopper::smem_addr(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// the cluster barrier, in two halves: the arrive only says this CTA's
+// mbarriers are initialised (fence.mbarrier_init made them visible), and a
+// CTA waits before its first store into another CTA's shared memory
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
+// four int8 values from shared memory at any byte offset (two aligned
+// words and a funnel shift), the bytes from the ``avail``-th on zero;
+// without a branch, so the words are read even where none is kept (inside
+// the tile's allocation)
+__device__ __forceinline__ unsigned load4(const int8_t* p, int avail) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  const unsigned* w = reinterpret_cast<const unsigned*>(a & ~uintptr_t{3});
+  const unsigned v = __funnelshift_r(w[0], w[1], static_cast<unsigned>(a & 3) * 8);
+  return v & static_cast<unsigned>((1ull << (8 * min(max(avail, 0), 4))) - 1ull);
+}
+
+// mma_slab with A the row tile as its copy left it: int8 rows of
+// ``features`` bytes, neither padded nor aligned. Each A register is the
+// four bytes of row r0 (+8) at column k0 + 4t (+16), read directly, so no
+// pass lays the tile out first; columns past the features and rows past
+// ``rows`` read as 0 (their bytes are read and dropped: the tile's region
+// has room past its last row for the reads of a 64-row tile)
+__device__ __forceinline__ void mma_rows(int (&acc)[4][4], const int8_t* X, int features,
+                                         int rows, const int8_t* Bt, int ldb, int K, int nj,
+                                         int r0, int g, int t) {
+  const int lane = 4 * g + t, m = lane / 8, i = lane % 8;
+  const int8_t* brow[2];
+#pragma unroll
+  for (int jp = 0; jp < 2; ++jp) {
+    const int j = min(2 * jp + (m >> 1), nj - 1);  // a lone block loads twice
+    brow[jp] = Bt + (8 * j + i) * ldb + 16 * (m & 1);
+  }
+  for (int k0 = 0; k0 < K; k0 += 32) {
+    unsigned a[4];
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const int row = r0 + 8 * (h & 1), k = k0 + 16 * (h >> 1) + 4 * t;
+      a[h] = load4(X + row * features + k, row < rows ? features - k : 0);
+    }
+#pragma unroll
+    for (int jp = 0; jp < 2; ++jp) {
+      if (2 * jp < nj) {
+        unsigned b[4];
+        ldmatrix_x4(b, brow[jp] + k0);
+        const unsigned b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
+        mma_s8(acc[2 * jp], a, b0);
+        if (2 * jp + 1 < nj) mma_s8(acc[2 * jp + 1], a, b1);
+      }
+    }
+  }
+}
+
+// Without the conversion unit, which issues 16 a cycle on an SM where the
+// FP32 pipes issue 128 and which the requantizations of a small tile wait
+// on: an int32 below 2^22 in magnitude to float, and rint(t) for |t| below
+// 2^22, through the bits of 1.5 * 2^23 + x. Both are exact, so the results
+// are (float)acc's and quantize4's bit for bit.
+constexpr float kMagic = 12582912.0f;  // 1.5 * 2^23
+constexpr int kMagicBits = 0x4B400000;
+
+__device__ __forceinline__ float small_int_to_float(int v) {
+  return __fsub_rn(__int_as_float(v + kMagicBits), kMagic);
+}
+
+// quantize4 for 0 <= h <= 127 s (every element of the row whose scale s
+// is, after relu): t = h / s then lies in [0, 127 + 3e-5], so rint(t) needs
+// no clamp, and the low byte of 1.5 * 2^23 + rint(t)'s bits is its int8.
+// In two halves: the multiply and round, which raises ``tie`` where a t
+// lies within 1e-4 of a half-integer, and the true divisions for that case
+__device__ __forceinline__ unsigned pack4_small(float4 h, float rcp, bool& tie) {
+  const float t[4] = {__fmul_rn(h.x, rcp), __fmul_rn(h.y, rcp), __fmul_rn(h.z, rcp),
+                      __fmul_rn(h.w, rcp)};
+  int v[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float m = __fadd_rn(t[i], kMagic);
+    tie |= near_tie(t[i], __fsub_rn(m, kMagic));
+    v[i] = __float_as_int(m);
+  }
+  return __byte_perm(__byte_perm(v[0], v[1], 0x0040), __byte_perm(v[2], v[3], 0x0040),
+                     0x5410);
+}
+
+__device__ __noinline__ unsigned pack4_exact(float4 h, float s) {
+  return __byte_perm(__byte_perm(quantize_exact(h.x, s), quantize_exact(h.y, s), 0x0040),
+                     __byte_perm(quantize_exact(h.z, s), quantize_exact(h.w, s), 0x0040),
+                     0x5410);
+}
+
+__device__ __forceinline__ unsigned quantize4_small(float4 h, float s, float rcp) {
+  bool tie = false;
+  const unsigned q = pack4_small(h, rcp, tie);
+  return __builtin_expect(tie, 0) ? pack4_exact(h, s) : q;
+}
+
+// dequant for layer 1, whose sums (K <= 128) lie below 2^22 in magnitude
+__device__ __forceinline__ void dequant_small(const int (&acc)[4][4], int nj, int col0,
+                                              const Epilogue& e, float* hf, int ldf, int r0,
+                                              float sx0, float sx1, float& m0, float& m1) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (j >= nj) continue;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = i < 2 ? r0 : r0 + 8;
+      const int col = col0 + j * 8 + (i & 1);
+      float h = __fmul_rn(small_int_to_float(acc[j][i]), i < 2 ? sx0 : sx1);
+      h = __fadd_rn(__fmul_rn(h, (i & 1) ? e.scale[j].y : e.scale[j].x),
+                    (i & 1) ? e.bias[j].y : e.bias[j].x);
+      h = h > 0.0f ? h : 0.0f;
+      hf[row * ldf + col] = h;
+      if (i < 2) m0 = fmaxf(m0, h); else m1 = fmaxf(m1, h);
+    }
+  }
+}
+
+// mma_slab with the even and the odd k-steps summed apart: two chains of
+// dependent products in flight in place of one (the int32 sums are exact)
+__device__ __forceinline__ void mma_slab2(int (&acc)[4][4], const int8_t* A, int lda,
+                                          const int8_t* Bt, int ldb, int K, int nj, int r0,
+                                          int g, int t) {
+  const int lane = 4 * g + t, m = lane / 8, i = lane % 8;
+  const int8_t* arow = A + (r0 - g + i + 8 * (m & 1)) * lda + 16 * (m >> 1);
+  const int8_t* brow[2];
+#pragma unroll
+  for (int jp = 0; jp < 2; ++jp) {
+    const int j = min(2 * jp + (m >> 1), nj - 1);  // a lone block loads twice
+    brow[jp] = Bt + (8 * j + i) * ldb + 16 * (m & 1);
+  }
+  int odd[4][4] = {};
+  auto step = [&](int (&d)[4][4], int k) {
+    unsigned a[4];
+    ldmatrix_x4(a, arow + k);
+#pragma unroll
+    for (int jp = 0; jp < 2; ++jp) {
+      if (2 * jp < nj) {
+        unsigned b[4];
+        ldmatrix_x4(b, brow[jp] + k);
+        const unsigned b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
+        mma_s8(d[2 * jp], a, b0);
+        if (2 * jp + 1 < nj) mma_s8(d[2 * jp + 1], a, b1);
+      }
+    }
+  };
+  if (K == kSlice) {  // a whole slice: every fragment load can be issued ahead
+#pragma unroll
+    for (int k0 = 0; k0 < kSlice; k0 += 64) {
+      step(acc, k0);
+      step(odd, k0 + 32);
+    }
+  } else {  // K is a multiple of 32 below a slice
+    int k0 = 0;
+    for (; k0 + 32 < K; k0 += 64) {
+      step(acc, k0);
+      step(odd, k0 + 32);
+    }
+    if (k0 < K) step(acc, k0);
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] += odd[j][e];
+}
+
+// acc += q(h1)[:, k_begin : k_begin + len] x this CTA's W2 group's rows
+// [c0, c0 + 8 nj) over the same K, across the group's 256-deep slices (a
+// row of a slice is its K, contiguous); k_begin and len multiples of 32
+__device__ __forceinline__ void mma_w2(int (&acc)[4][4], const int8_t* hq, int ldh,
+                                       const int8_t* w2s, int hp, int c0, int k_begin, int len,
+                                       int nj, int r0, int g, int t) {
+  for (int k = k_begin; k < k_begin + len;) {
+    const int sl = k / kSlice, ks = min(kSlice, hp - sl * kSlice);
+    const int n = min(k_begin + len, sl * kSlice + ks) - k;
+    mma_slab2(acc, hq + k, ldh, w2s + sl * kGroup * (kSlice + 16) + c0 * (ks + 16) +
+              (k - sl * kSlice), ks + 16, n, nj, r0, g, t);
+    k += n;
+  }
+}
+
+// load_epilogue from shared memory
+__device__ __forceinline__ Epilogue load_epilogue_smem(const float* scale, const float* bias,
+                                                       int col0, int nj) {
+  Epilogue e;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (j < nj) {
+      e.scale[j] = *reinterpret_cast<const float2*>(scale + col0 + j * 8);
+      e.bias[j] = *reinterpret_cast<const float2*>(bias + col0 + j * 8);
+    }
+  }
+  return e;
+}
+
+// The mbarriers of a cluster CTA: the row tile with W1, s1 and b1; its
+// group of W2 with its columns of s2, b2 and w3; and what the other CTAs
+// send it
+enum ClusterBar { kBarIn, kBarW2, kBarMax1, kBarH1, kBarMax2, kBarPart, kClusterBars };
+
+// each row's max over all H columns: this CTA's maxima (amax, reset here)
+// go to slot ``rank`` of ``slots`` in every CTA of the cluster, each CTA
+// waiting for the ctas x rows values it receives; then each row's scale
+// and reciprocal from the maximum of its slots (order-free: every CTA takes
+// the bits one block's atomicMax gives)
+__device__ __forceinline__ void exchange_row_scales(unsigned* amax, unsigned* slots,
+                                                    uint64_t* bar, float* sx, float* rcp,
+                                                    int rows, int rank, int ctas) {
+  const int tid = threadIdx.x;
+  __syncthreads();  // every warp's maxima are in amax
+  if (tid < rows) {
+    const unsigned m = amax[tid];
+    amax[tid] = 0u;
+    for (int p = 0; p < ctas; ++p)
+      st_async(peer_addr(slots + rank * kClusterRows + tid, p), m, peer_addr(bar, p));
+  }
+  mbar_wait_cluster(bar, 0);
+  if (tid < rows) {
+    unsigned m = 0u;
+    for (int p = 0; p < ctas; ++p) m = max(m, slots[p * kClusterRows + tid]);
+    sx[tid] = row_scale(m);
+    rcp[tid] = __frcp_rn(sx[tid]);
+  }
+  __syncthreads();
+}
+
+// One cluster scores one tile of up to 64 rows; CTA r of its hp / 64 owns
+// columns [64 r, 64 r + 64) of layer 2. A tile of one 16-row slab computes
+// all of layer 1 (K = F is small) in every CTA; a larger tile splits it
+// like layer 2, and the rows' maxima and q(h1) cross between the CTAs.
+// Layer 2's row maxima go to every CTA and layer 3's integer partial sums
+// to rank 0, through distributed shared memory.
+__global__ void __launch_bounds__(kClusterThreads, 1)
+fused_mlp_q8_preq_kernel_cluster(const int8_t* __restrict__ q, const float* __restrict__ s,
+                                 const unsigned char* __restrict__ wstream,
+                                 const float* __restrict__ vec, const int8_t* __restrict__ w3,
+                                 const float* __restrict__ s3, const float* __restrict__ b3,
+                                 float* __restrict__ proba, float* __restrict__ logits,
+                                 int batch, int features, int hidden) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const ClusterLayout C = cluster_layout(features, hidden);
+  constexpr int R = kClusterRows;
+  const int rank = cluster_rank();
+  const int row0 = static_cast<int>(blockIdx.x) / C.ctas * R;
+  const int rows = min(R, batch - row0);
+  const int8_t* w1s = reinterpret_cast<const int8_t*>(smem + C.w1);
+  const int8_t* w2s = reinterpret_cast<const int8_t*>(smem + C.w2);
+  const float* s1v = reinterpret_cast<const float*>(smem + C.vec1);
+  const float* b1v = s1v + C.hp;
+  const float* s2v = reinterpret_cast<const float*>(smem + C.vec2);
+  const float* b2v = s2v + kGroup;
+  const int* w3v = reinterpret_cast<const int*>(b2v + kGroup);
+  float* hf = reinterpret_cast<float*>(smem + C.hf);
+  int8_t* hq = reinterpret_cast<int8_t*>(smem + C.hq);
+  int8_t* xs = reinterpret_cast<int8_t*>(smem + C.xraw);
+  float* sx = reinterpret_cast<float*>(smem + C.sx);
+  float* rcp = reinterpret_cast<float*>(smem + C.rcp);
+  unsigned* amax = reinterpret_cast<unsigned*>(smem + C.amax);
+  unsigned* slots1 = reinterpret_cast<unsigned*>(smem + C.slots);  // layer 1's maxima
+  unsigned* slots2 = slots1 + kClusterMaxCtas * R;                    // layer 2's
+  unsigned* part = slots2 + kClusterMaxCtas * R;                      // layer 3's sums
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + C.bars);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const uint32_t qb = (static_cast<uint32_t>(rows) * features) & ~15u;
+  const uint32_t from_all = static_cast<uint32_t>(C.ctas * rows * 4);  // a 4-byte value a row
+  // one 16-row slab takes all of layer 1 in every CTA; more split it too
+  const bool split = rows > 16;
+
+  // ---- the copies: thread 0 the row tile and layer 1's operands, warp 1
+  // this CTA's group of layer 2's; warp 7 arms the barriers of what the
+  // other CTAs will send, and their cluster-wide fence is off the copies'
+  // path ----
+  if (tid == 0) {
+    hopper::mbar_init(&bar[kBarIn], 1);
+    hopper::fence_proxy_async();  // the barrier, to this CTA's copies
+    hopper::mbar_arrive_expect_tx(&bar[kBarIn], qb + C.w1_bytes + 8 * C.hp);
+    if (qb)
+      hopper::bulk_g2s(xs, q + static_cast<size_t>(row0) * features, qb, &bar[kBarIn]);
+    hopper::bulk_g2s(smem + C.w1, wstream, C.w1_bytes, &bar[kBarIn]);
+    hopper::bulk_g2s(smem + C.vec1, vec, 8 * C.hp, &bar[kBarIn]);
+  } else if (tid == 32) {
+    hopper::mbar_init(&bar[kBarW2], 1);
+    hopper::fence_proxy_async();
+  } else if (tid == kClusterThreads - 32) {
+    for (int i = kBarMax1; i < kClusterBars; ++i) hopper::mbar_init(&bar[i], 1);
+    if (split) {
+      hopper::mbar_arrive_expect_tx(&bar[kBarMax1], from_all);
+      hopper::mbar_arrive_expect_tx(&bar[kBarH1], static_cast<uint32_t>(rows * C.hp));
+    }
+    hopper::mbar_arrive_expect_tx(&bar[kBarMax2], from_all);
+    hopper::mbar_arrive_expect_tx(&bar[kBarPart], rank == 0 ? from_all : 0u);
+  }
+  if (tid < R) amax[tid] = 0u;
+  // the ragged tail past the row copy (under 16 bytes) comes directly
+  if (tid < rows * features - static_cast<int>(qb))
+    xs[qb + tid] = q[static_cast<size_t>(row0) * features + qb + tid];
+  __syncthreads();
+  if (tid == 32) {
+    const size_t c = static_cast<size_t>(rank) * kGroup;
+    hopper::mbar_arrive_expect_tx(&bar[kBarW2], C.w2_bytes + 9 * kGroup);
+    hopper::bulk_g2s(smem + C.w2, wstream + static_cast<size_t>(C.w1_bytes) + rank * C.w2_bytes,
+                     C.w2_bytes, &bar[kBarW2]);
+    hopper::bulk_g2s(smem + C.vec2, vec + 2 * C.hp + c, 4 * kGroup, &bar[kBarW2]);
+    hopper::bulk_g2s(smem + C.vec2 + 4 * kGroup, vec + 3 * C.hp + c, 4 * kGroup, &bar[kBarW2]);
+    hopper::bulk_g2s(smem + C.vec2 + 8 * kGroup, w3 + c, kGroup, &bar[kBarW2]);
+  }
+  if (tid == kClusterThreads - 32) hopper::mbar_init_fence();  // to the other CTAs
+  cluster_arrive_relaxed();
+
+  // every warp takes a share of the live 16-row slabs: one slab over 8
+  // warps, two over 4 each, four over 2 each
+  const int need = (rows + 15) / 16;
+  const int nslab = need == 3 ? 4 : need;
+  const int wps = kClusterWarps / nslab;  // warps a slab
+  const int g = lane >> 2, t = lane & 3;
+  const int slab = warp % nslab;
+  const int r0 = slab * 16 + g;
+  const bool live = slab * 16 < rows;
+  // the scales of this thread's two rows, s3 and b3 while the copies fly
+  const float sx0 = r0 < rows ? __ldg(s + row0 + r0) : 0.0f;
+  const float sx1 = r0 + 8 < rows ? __ldg(s + row0 + r0 + 8) : 0.0f;
+  const float s3v = __ldg(s3), b3v = __ldg(b3);
+
+  // ---- layer 1 ----
+  const int share = kGroup / wps, nj = share / 8;  // a slab's warps split 64 columns
+  const int cw = (warp / nslab) * share;  // the warp's first column in the CTA's group
+  hopper::mbar_wait(&bar[kBarIn], 0);
+  float m0 = 0.0f, m1 = 0.0f;
+  if (!split) {
+    // one slab: all hp columns in every CTA, 32 a warp at a time, so the
+    // CTAs exchange nothing before layer 2
+    for (int c = warp * 32; c < C.hp; c += 32 * kClusterWarps) {
+      const Epilogue e1 = load_epilogue_smem(s1v, b1v, c + 2 * t, 4);
+      int acc[4][4] = {};
+      mma_rows(acc, xs, features, rows, w1s + c * C.ld1, C.ld1, C.k1p, 4, r0, g, t);
+      dequant_small(acc, 4, c + 2 * t, e1, hf, C.ldf, r0, sx0, sx1, m0, m1);
+    }
+    publish_max(m0, m1, amax, r0, t);
+    __syncthreads();
+    if (tid < rows) {
+      sx[tid] = row_scale(amax[tid]);
+      rcp[tid] = __frcp_rn(sx[tid]);
+      amax[tid] = 0u;
+    }
+    __syncthreads();
+    // q(h1): a warp two rows at a time (r and r + 8), four columns a lane
+    for (int r = warp; r < rows; r += 2 * kClusterWarps) {
+      const int r2 = r + kClusterWarps < rows ? r + kClusterWarps : r;
+      const float s_a = sx[r], rc_a = rcp[r], s_b = sx[r2], rc_b = rcp[r2];
+      const float4* a = reinterpret_cast<const float4*>(hf + r * C.ldf);
+      const float4* b = reinterpret_cast<const float4*>(hf + r2 * C.ldf);
+      unsigned* oa = reinterpret_cast<unsigned*>(hq + r * C.ldh);
+      unsigned* ob = reinterpret_cast<unsigned*>(hq + r2 * C.ldh);
+#pragma unroll 2
+      for (int v = lane; v < C.hp / 4; v += 32) {
+        const float4 ha = a[v], hb = b[v];
+        bool tie = false;  // one branch for both words
+        unsigned qa = pack4_small(ha, rc_a, tie), qb_ = pack4_small(hb, rc_b, tie);
+        if (__builtin_expect(tie, 0)) {
+          qa = pack4_exact(ha, s_a);
+          qb_ = pack4_exact(hb, s_b);
+        }
+        oa[v] = qa;
+        ob[v] = qb_;  // r2 == r on a lone last row: the same word twice
+      }
+    }
+  } else {
+    // more slabs: this CTA's 64 columns; the rows' maxima and q(h1) cross
+    // between the CTAs
+    if (live) {
+      const int c = rank * kGroup + cw;
+      const Epilogue e1 = load_epilogue_smem(s1v, b1v, c + 2 * t, nj);
+      int acc[4][4] = {};
+      mma_rows(acc, xs, features, rows, w1s + c * C.ld1, C.ld1, C.k1p, nj, r0, g, t);
+      dequant_small(acc, nj, cw + 2 * t, e1, hf, kLdc, r0, sx0, sx1, m0, m1);
+      publish_max(m0, m1, amax, r0, t);
+    }
+    cluster_wait();  // every CTA's barriers are initialised
+    exchange_row_scales(amax, slots1, &bar[kBarMax1], sx, rcp, rows, rank, C.ctas);
+    // q(h1) of this CTA's columns into every CTA's hq: a row over 16
+    // threads of four columns each; each four gather their 16 bytes in one
+    // lane, which stores them to every CTA
+    for (int base = 0; base < rows * 16; base += kClusterThreads) {
+      const int r = (base + tid) / 16, wd = tid % 16;
+      unsigned v = 0u;
+      if (r < rows)
+        v = quantize4_small(reinterpret_cast<const float4*>(hf + r * kLdc)[wd], sx[r], rcp[r]);
+      const uint4 w = make_uint4(v, __shfl_down_sync(0xffffffffu, v, 1),
+                                 __shfl_down_sync(0xffffffffu, v, 2),
+                                 __shfl_down_sync(0xffffffffu, v, 3));
+      if (r < rows && wd % 4 == 0) {
+        const int8_t* dst = hq + r * C.ldh + rank * kGroup + wd * 4;
+        for (int p = 0; p < C.ctas; ++p)
+          st_async4(peer_addr(dst, p), w, peer_addr(&bar[kBarH1], p));
+      }
+    }
+    mbar_wait_cluster(&bar[kBarH1], 0);
+  }
+  __syncthreads();  // hq is whole; the f32 tile is free for layer 2
+
+  // ---- layer 2: this CTA's 64 columns x the whole K ----
+  m0 = 0.0f;
+  m1 = 0.0f;
+  if (!split) {
+    // one slab: warps w and w + 4 take the same 16 columns over the two
+    // halves of K (each warp reads a quarter of what 8 columns over all of
+    // K would cost it), and w adds w + 4's sums
+    hopper::mbar_wait(&bar[kBarW2], 0);
+    const int c16 = (warp % 4) * 16, kh = C.hp / 2;
+    int acc[4][4] = {};
+    mma_w2(acc, hq, C.ldh, w2s, C.hp, c16, (warp / 4) * kh, kh, 2, r0, g, t);
+    int* half = reinterpret_cast<int*>(hf + 16 * kLdc) + (warp % 4) * 256 + lane;
+    if (warp >= 4) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) half[(4 * j + i) * 32] = acc[j][i];
+    }
+    __syncthreads();
+    if (warp < 4) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[j][i] += half[(4 * j + i) * 32];
+      const Epilogue e2 = load_epilogue_smem(s2v, b2v, c16 + 2 * t, 2);  // its columns
+      dequant(acc, 2, c16 + 2 * t, e2, hf, kLdc, r0, sx[r0], sx[r0 + 8], m0, m1);
+      publish_max(m0, m1, amax, r0, t);
+    }
+  } else if (live) {
+    hopper::mbar_wait(&bar[kBarW2], 0);
+    const Epilogue e2 = load_epilogue_smem(s2v, b2v, cw + 2 * t, nj);  // its columns
+    int acc[4][4] = {};
+    mma_w2(acc, hq, C.ldh, w2s, C.hp, cw, 0, C.hp, nj, r0, g, t);
+    dequant(acc, nj, cw + 2 * t, e2, hf, kLdc, r0, sx[r0], sx[r0 + 8], m0, m1);
+    publish_max(m0, m1, amax, r0, t);
+  }
+  if (!split) cluster_wait();  // every CTA's barriers are initialised
+  exchange_row_scales(amax, slots2, &bar[kBarMax2], sx, rcp, rows, rank, C.ctas);
+  hopper::mbar_wait(&bar[kBarW2], 0);  // w3's columns, where no warp of this CTA was live
+
+  // ---- layer 3: q(h2) of this CTA's columns . its slice of w3, two rows a
+  // warp (a half-warp a row, four columns a lane); the exact int32 partial
+  // sums go to rank 0 ----
+  const int w3w = w3v[lane & 15];
+  for (int base = 2 * warp; base < rows; base += 2 * kClusterWarps) {
+    const int r = base + (lane >> 4);
+    int acc = 0;
+    if (r < rows) {
+      const float4 h = reinterpret_cast<const float4*>(hf + r * kLdc)[lane & 15];
+      acc = __dp4a(static_cast<int>(quantize4_small(h, sx[r], rcp[r])), w3w, 0);
+    }
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if ((lane & 15) == 0 && r < rows)
+      st_async(peer_addr(part + rank * R + r, 0), static_cast<unsigned>(acc),
+               peer_addr(&bar[kBarPart], 0));
+  }
+  if (rank == 0) {
+    mbar_wait_cluster(&bar[kBarPart], 0);
+    if (tid < rows) {
+      int dot = 0;
+      for (int p = 0; p < C.ctas; ++p) dot += static_cast<int>(part[p * R + tid]);
+      const float z =
+          __fadd_rn(__fmul_rn(__fmul_rn(static_cast<float>(dot), sx[tid]), s3v), b3v);
+      // __frcp_rn is the correctly rounded 1 / x, so the bits of 1.0f / x
+      proba[row0 + tid] = __frcp_rn(1.0f + expf(-z));
+      if (logits != nullptr) logits[row0 + tid] = z;
+    }
+  }
+}
+
 std::once_flag g_once;
 cudaError_t g_init_err = cudaSuccess;
 int g_sms = 0;
 
-// the shared-memory attribute of both kernels and the SM count, once per
+// the shared-memory attribute of the kernels and the SM count, once per
 // library load
 cudaError_t init_once() {
   std::call_once(g_once, [] {
     const void* kernels[] = {reinterpret_cast<const void*>(fused_mlp_q8_kernel),
-                             reinterpret_cast<const void*>(fused_mlp_q8_preq_kernel)};
+                             reinterpret_cast<const void*>(fused_mlp_q8_preq_kernel),
+                             reinterpret_cast<const void*>(fused_mlp_q8_preq_kernel_cluster)};
     for (const void* k : kernels) {
       if (g_init_err == cudaSuccess)
         g_init_err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -687,6 +1312,39 @@ int launch_grid(int batch, int features, int hidden, size_t* smem, cudaError_t* 
   *smem = L.total;
   const int tiles = (batch + L.rows - 1) / L.rows;
   return tiles < g_sms ? tiles : g_sms;
+}
+
+// B3's choice of launch, from the shape alone: the cluster path for a
+// batch up to kClusterMaxBatch whose hidden width needs at most a portable
+// cluster of CTAs; ops/fused_mlp_q8.py path_for mirrors it
+bool takes_cluster(int batch, int features, int hidden) {
+  return batch > 0 && batch <= kClusterMaxBatch && takes(features, hidden) &&
+         cluster_layout(features, hidden).ctas <= kClusterMaxCtas;
+}
+
+cudaError_t launch_cluster(const int8_t* q, const float* s, const unsigned char* wstream,
+                           const float* vec, const int8_t* w3, const float* s3,
+                           const float* b3, float* proba, float* logits, int batch,
+                           int features, int hidden, cudaStream_t stream) {
+  cudaError_t err = init_once();
+  if (err != cudaSuccess) return err;
+  const ClusterLayout C = cluster_layout(features, hidden);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(C.ctas);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>((batch + kClusterRows - 1) / kClusterRows * C.ctas));
+  cfg.blockDim = dim3(kClusterThreads);
+  cfg.dynamicSmemBytes = C.total;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, fused_mlp_q8_preq_kernel_cluster, q, s, wstream, vec, w3, s3,
+                           b3, proba, logits, batch, features, hidden);
+  const cudaError_t last = cudaGetLastError();
+  return err != cudaSuccess ? err : last;
 }
 
 }  // namespace
@@ -723,10 +1381,24 @@ extern "C" int ccfd_fused_mlp_q8(const void* x, const void* mu, const void* sigm
   return static_cast<int>(cudaGetLastError());
 }
 
+// 1 where B3 takes the cluster path at this shape, 0 where the persistent
+// grid, -1 for a shape the kernels do not take
+extern "C" int ccfd_fused_mlp_q8_preq_path(int batch, int features, int hidden) {
+  if (!takes(features, hidden)) return -1;
+  return takes_cluster(batch, features, hidden) ? 1 : 0;
+}
+
 extern "C" int ccfd_fused_mlp_q8_preq(const void* q, const void* s, const void* wstream,
                                       const void* vec, const void* w3, const void* s3,
                                       const void* b3, void* proba, void* logits, int batch,
                                       int features, int hidden, void* stream) {
+  if (takes_cluster(batch, features, hidden))
+    return static_cast<int>(launch_cluster(
+        static_cast<const int8_t*>(q), static_cast<const float*>(s),
+        static_cast<const unsigned char*>(wstream), static_cast<const float*>(vec),
+        static_cast<const int8_t*>(w3), static_cast<const float*>(s3),
+        static_cast<const float*>(b3), static_cast<float*>(proba), static_cast<float*>(logits),
+        batch, features, hidden, static_cast<cudaStream_t>(stream)));
   cudaError_t err;
   size_t smem = 0;
   const int blocks = launch_grid(batch, features, hidden, &smem, &err);

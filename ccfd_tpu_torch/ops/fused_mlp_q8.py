@@ -23,7 +23,9 @@ ring of shared-memory stages. This module holds what surrounds them:
 - ``pack_for_kernel`` puts them on a device, once per params publish, with
   the kernels' own operands: the weight stream (``pack_stream``), the
   scales and biases zero-padded to the kernels' width, and w3 likewise;
-- ``plan`` mirrors the CUDA source's shared-memory layout;
+- ``plan`` mirrors the CUDA source's shared-memory layout, and
+  ``path_for`` B3's choice between its persistent grid and its cluster
+  launch for small batches;
 - ``prequantize_rows_numpy`` is B3's host half, bit for bit the
   reference's;
 - ``fused_mlp_q8_reference`` and ``fused_mlp_q8_preq_reference`` are the
@@ -58,9 +60,15 @@ SLICE = 256  # layer-2 K-slice of one chunk
 STAGE_BYTES = GROUP * (SLICE + 16)
 MAX_STAGES = 8
 SMEM_LIMIT = 232_448  # dynamic shared memory one block may have on Hopper
+# B3's cluster path (the CUDA source's kClusterMaxCtas, kClusterMaxBatch): a
+# cluster of hp / 64 CTAs, at most the portable 8, for batches up to the
+# measured crossover
+CLUSTER_MAX_CTAS = 8
+CLUSTER_MAX_BATCH = 2048
 
 launches = LaunchCounter("fused_mlp_q8")  # B2
-launches_preq = LaunchCounter("fused_mlp_q8_preq")  # B3
+launches_preq = LaunchCounter("fused_mlp_q8_preq")  # B3, either path
+launches_preq_cluster = LaunchCounter("fused_mlp_q8_preq.cluster")  # B3's cluster path
 
 
 def _a128(n: int) -> int:
@@ -99,6 +107,20 @@ def plan(features: int, hidden: int) -> dict[str, int]:
         if p["stages"] >= 2:
             break
     return p
+
+
+def path_for(batch: int, features: int, hidden: int) -> str:
+    """Which launch B3's entry takes at this shape, as
+    ``takes_cluster`` in the CUDA source decides it: ``"cluster"`` (a
+    cluster of ``hp / 64`` CTAs a 64-row tile) for ``0 < batch <=
+    CLUSTER_MAX_BATCH`` where ``hp / 64 <= CLUSTER_MAX_CTAS``, else
+    ``"persistent"``. Raises ``ValueError`` for a shape the kernels do not
+    take."""
+    check_shapes(features, hidden)
+    ctas = plan(features, hidden)["hp"] // GROUP
+    if 0 < batch <= CLUSTER_MAX_BATCH and ctas <= CLUSTER_MAX_CTAS:
+        return "cluster"
+    return "persistent"
 
 
 def stream_offset(layer: int, k, n, features: int, hidden: int):
@@ -311,6 +333,26 @@ def _kernel_entries():
     return full, preq, plan_fn, err
 
 
+@functools.cache
+def _path_entry():
+    from ccfd_tpu_torch.ops import _build
+
+    fn = _build.load("fused_mlp_q8").ccfd_fused_mlp_q8_preq_path
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def kernel_path(batch: int, features: int, hidden: int) -> str:
+    """``path_for`` as the built CUDA library decides it (needs nvcc; the
+    card is not touched): the card tests and ``chip_smoke.py`` hold it
+    against ``path_for``."""
+    got = _path_entry()(batch, features, hidden)
+    if got < 0:
+        raise ValueError(f"the kernels do not take F={features}, H={hidden}")
+    return "cluster" if got else "persistent"
+
+
 def kernel_plan(features: int, hidden: int) -> dict[str, int]:
     """``plan`` as the built CUDA library computes it (needs nvcc; the card
     is not touched): ``chip_smoke.py`` holds it against ``plan``."""
@@ -393,7 +435,9 @@ def fused_mlp_q8_score_preq(kp: Mapping[str, torch.Tensor], q: torch.Tensor,
     ``prequantize_rows_numpy``) -> (B,) float32 proba (and logits).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel on the current stream, or raises."""
+    kernel on the current stream, or raises. The entry picks the launch
+    from the shape (``path_for``); a launch on the cluster path also
+    counts in ``launches_preq_cluster``."""
     if q.device.type == "cpu" and s.device.type == "cpu":
         proba, z = fused_mlp_q8_preq_reference(kp, q, s)
         return (proba, z) if with_logits else proba
@@ -418,4 +462,6 @@ def fused_mlp_q8_score_preq(kp: Mapping[str, torch.Tensor], q: torch.Tensor,
                   batch, features, hidden, stream)
         _raise_on(rc, err, "fused_mlp_q8_preq")
         launches_preq.inc()
+        if path_for(batch, features, hidden) == "cluster":
+            launches_preq_cluster.inc()
     return (proba, z) if with_logits else proba

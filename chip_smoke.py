@@ -28,7 +28,8 @@ wire).
            printed: registers, shared memory, spills), while g++ builds the
            native host library (ccfd_tpu_torch/native: the CSV and payload
            decoders and the REST front; its time is printed); each kernel
-           library's layout plan is held against its Python mirror; then
+           library's layout plan (and B3's choice between its persistent
+           grid and its cluster launch) is held against its Python mirror; then
            `python -m ccfd_tpu_torch lint` exits 0 on this machine, where
            no JAX is installed
   parity   each kernel vs its plain version on the card (B1 within
@@ -454,7 +455,7 @@ wire).
                bound from bytes and operations; gbt_mxu's peak memory; and
                B1 on the ensemble's mlp node params, the yardstick for
                that node
-  timing   each kernel and its plain version at B=16 and B=16384 at the
+  timing   each kernel and its plain version at B=16, 128 and 16384 at the
            served H=256, beside the roofline bound: the kernel's device
            time from CUDA events around a CUDA graph of back-to-back
            launches (and torch.profiler's by the kernel's own name), its
@@ -577,7 +578,7 @@ TRAIN_KEYS = {"checkpoint", "rows", "steps", "source", "test_rows", "auc_mlp",
 # burst's labels (the fraud cases the customers answer) clear it
 RETRAIN_PARTS = (10_000, 10_000)
 RETRAIN_MIN_LABELS = 8
-TIMING_BATCHES = (16, 16384)
+TIMING_BATCHES = (16, 128, 16384)  # the REST buckets (B3's cluster path) and a full one
 SEQ_POSTS = 200  # sequential 16-row POSTs a serving run times
 DEADLINE_MS = 1000  # the serve phase's run with the dispatch deadline armed
 DEADLINE_SERIES = ("ccfd_dispatch_timeouts_total", "ccfd_device_wedged")
@@ -1312,9 +1313,11 @@ class Smoke:
         return torch.sigmoid((d(h) * d(kp["w3"])).sum(1) + d(kp["b3"]))
 
     def counters(self) -> dict:
+        """Each kernel's launch counter (B3's cluster-path count, a share
+        of B3's own, is not a kernel of its own)."""
         from ccfd_tpu_torch.serving.server import KERNEL_LAUNCHES
 
-        return {c.kernel: c for c in KERNEL_LAUNCHES}
+        return {c.kernel: c for c in KERNEL_LAUNCHES if c.kernel in KERNELS}
 
     def device_ms(self, fn, kernel: str, n: int = 50) -> float | None:
         """Mean device time per launch of the device kernel named
@@ -1416,6 +1419,15 @@ class Smoke:
                 if got != want:
                     raise AssertionError(f"{mod.__name__} plan F={f} H={h}: {got} != {want}")
                 log("build", f"{mod.__name__.rsplit('.', 1)[-1]} F={f} H={h}: {got}")
+        # B3's choice of launch, against its Python mirror
+        top = fused_mlp_q8.CLUSTER_MAX_BATCH
+        for f, h in ((30, 256), (30, 512), (30, 1040), (128, 512)):
+            for b in (1, 16, 128, top, top + 1, 16384):
+                got, want = fused_mlp_q8.kernel_path(b, f, h), fused_mlp_q8.path_for(b, f, h)
+                if got != want:
+                    raise AssertionError(f"B3's path B={b} F={f} H={h}: {got} != {want}")
+        log("build", f"B3's path matches path_for: the cluster launch up to B={top} at "
+            f"H <= {fused_mlp_q8.CLUSTER_MAX_CTAS * fused_mlp_q8.GROUP}")
         # the lint gate runs here, where no JAX is installed
         env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
         env["PYTHONPATH"] = REPO
@@ -1885,8 +1897,11 @@ class Smoke:
     def served_run(self, kernel: str, what: str, srv, plain) -> None:
         """SEQ_POSTS sequential 16-row POSTs to ``srv`` on its default
         transport: every answer against ``plain``, the kernel's launches
-        equal to the scorer's dispatches, no other kernel launched."""
+        equal to the scorer's dispatches, no other kernel launched; B3's
+        16-row launches all on its cluster path."""
         import http.client
+
+        from ccfd_tpu_torch.ops import fused_mlp_q8
 
         grid = srv.scorer.executable_grid()
         if not srv.scorer.fused or grid["int8_wire"] != (kernel == "fused_mlp_q8_preq"):
@@ -1895,11 +1910,12 @@ class Smoke:
         port = srv.start("127.0.0.1", 0)
         try:
             conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
-            for c in counters.values():
+            for c in (*counters.values(), fused_mlp_q8.launches_preq_cluster):
                 c.reset()
             d0 = srv.scorer.dispatch_total()
             seq, lat = sequential_posts(conn, self.rows, SEQ_POSTS)
             launched = {k: c.value for k, c in counters.items()}
+            cluster = fused_mlp_q8.launches_preq_cluster.value
             dispatched = srv.scorer.dispatch_total() - d0
             conn.close()
         finally:
@@ -1908,6 +1924,9 @@ class Smoke:
         if launched[kernel] != dispatched or dispatched != SEQ_POSTS or any(
                 v for k, v in launched.items() if k != kernel):
             raise AssertionError(f"{what}: launches {launched} for {dispatched} dispatches")
+        if cluster != (launched[kernel] if kernel == "fused_mlp_q8_preq" else 0):
+            raise AssertionError(f"{what}: {cluster} launches on B3's cluster path of "
+                                 f"{launched}")
         self.reports[kernel]["launches"] += launched[kernel]
         log("train", f"{what} ({kernel}, {srv.transport}): {SEQ_POSTS} sequential POSTs of 16 "
             f"rows, {quantiles(lat)}; max |dp| vs plain {worst:.3e}; launches "

@@ -256,3 +256,78 @@ def test_cpu_tensors_take_plain_versions_without_counting(rows):
         fused_mlp_q8.fused_mlp_q8_score(kp, x.to("meta"))
     with pytest.raises(ValueError, match="cuda or cpu"):
         fused_mlp_q8.fused_mlp_q8_score_preq(kp, q.to("meta"), s.to("meta"))
+
+
+@pytest.mark.parametrize("batch,features,hidden,path", [
+    (16, 30, 256, "cluster"), (128, 30, 256, "cluster"),
+    (16384, 30, 256, "persistent"), (16, 30, 1040, "persistent"),
+])
+def test_path_for_takes_the_cluster_at_the_rest_buckets(batch, features, hidden, path):
+    """B3's cluster launch covers the REST buckets of the served width; a
+    full bucket and a width past a portable cluster keep the persistent
+    grid."""
+    assert fused_mlp_q8.path_for(batch, features, hidden) == path
+
+
+def test_path_for_edges():
+    """The crossover and the cluster bound (hp / 64 CTAs, at most 8) are
+    inclusive; a shape the kernels do not take raises."""
+    top = fused_mlp_q8.CLUSTER_MAX_BATCH
+    assert top >= 128
+    assert fused_mlp_q8.path_for(1, 30, 256) == "cluster"
+    assert fused_mlp_q8.path_for(top, 30, 256) == "cluster"
+    assert fused_mlp_q8.path_for(top + 1, 30, 256) == "persistent"
+    assert fused_mlp_q8.path_for(0, 30, 256) == "persistent"
+    assert fused_mlp_q8.path_for(16, 128, 512) == "cluster"  # a cluster of 8
+    assert fused_mlp_q8.path_for(16, 30, 513) == "persistent"  # hp 576: 9 CTAs
+    assert fused_mlp_q8.path_for(16, 1, 16) == "cluster"  # one CTA
+    with pytest.raises(ValueError, match="features"):
+        fused_mlp_q8.path_for(16, 129, 256)
+    with pytest.raises(ValueError, match="1040"):
+        fused_mlp_q8.path_for(16, 30, 1041)
+
+
+def test_cluster_counter_is_on_the_gauge_and_cpu_tensors_do_not_move_it(rows):
+    from ccfd_tpu_torch.serving.server import KERNEL_LAUNCHES
+
+    counter = fused_mlp_q8.launches_preq_cluster
+    assert counter in KERNEL_LAUNCHES
+    assert counter.kernel == "fused_mlp_q8_preq.cluster"
+    assert len({c.kernel for c in KERNEL_LAUNCHES}) == len(KERNEL_LAUNCHES)
+    kp = fused_mlp_q8.pack_for_kernel(
+        fused_mlp_q8.fold_for_kernel(quant.quantize_mlp(mlp_tree(rows, hidden=256))), "cpu")
+    q, s = (torch.from_numpy(a) for a in fused_mlp_q8.prequantize_rows_numpy(kp, rows[:16]))
+    before = (counter.value, fused_mlp_q8.launches_preq.value)
+    fused_mlp_q8.fused_mlp_q8_score_preq(kp, q, s)
+    assert (counter.value, fused_mlp_q8.launches_preq.value) == before
+
+
+def _tool(name):
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "tools" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_the_card_tools_find_what_they_edit_in_the_source():
+    """tools/torch_q8_crossover.py rewrites the crossover constant and
+    tools/torch_q8_phase_trace.py stamps the persistent body (with the
+    cluster launch off): both find their anchors, and the source's
+    constants are the Python mirror's."""
+    from ccfd_tpu_torch.ops import _build
+
+    src = (_build.CSRC / "fused_mlp_q8.cu").read_text()
+    crossover = _tool("torch_q8_crossover")
+    found = crossover.CONSTANT.findall(src)
+    assert found == [f"constexpr int kClusterMaxBatch = {fused_mlp_q8.CLUSTER_MAX_BATCH};"]
+    import re
+
+    ctas = re.search(r"constexpr int kClusterMaxCtas = (\d+);", src)
+    assert ctas and int(ctas.group(1)) == fused_mlp_q8.CLUSTER_MAX_CTAS
+    stamped = _tool("torch_q8_phase_trace").stamped_source(src)
+    assert "constexpr int kClusterMaxBatch = 0;" in stamped
+    assert stamped.count("STAMP(") > len(_tool("torch_q8_phase_trace").ANCHORS)

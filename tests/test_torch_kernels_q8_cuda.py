@@ -12,7 +12,10 @@ bit equality (the reference's own bars, tests/test_fused_q8.py, are 1e-5
 in probability and 1e-6 for B3 against B2). Hidden widths cover the
 padding to the kernels' multiple of 64 and the 32-row tiles of the widest
 models (up to the reference's bound of 1,040), batches the ragged last tile
-and enough tiles for every persistent block to walk more than one.
+and enough tiles for every persistent block to walk more than one. B3
+takes a cluster launch up to ``CLUSTER_MAX_BATCH`` rows where H needs at
+most 8 CTAs (``path_for``); batches on both sides of each 16-row slab, of
+the 64-row tile and of the crossover hold it to the same bits.
 """
 
 import numpy as np
@@ -196,3 +199,69 @@ def test_scorer_on_the_card_goes_through_the_kernel(dev, rows, wire):
     assert other.value == other_before
     cpu = Scorer(model_name="mlp_q8", params=qp, device="cpu", q8_wire=wire).score(rows[:5000])
     np.testing.assert_allclose(got, cpu, rtol=0, atol=1e-5)
+
+
+CROSSOVER = fused_mlp_q8.CLUSTER_MAX_BATCH
+CLUSTER_BATCHES = [1, 15, 16, 17, 63, 64, 65, 127, 128, 129, CROSSOVER - 1, CROSSOVER,
+                   CROSSOVER + 1]
+
+
+@pytest.mark.parametrize("params,hidden", [("committed", 256), ("seeded", 256),
+                                           ("seeded", 512), ("seeded", 1040)])
+@pytest.mark.parametrize("batch", CLUSTER_BATCHES)
+def test_b3_on_both_paths_matches_plain_and_b2(dev, rows, batch, params, hidden):
+    """B3 equals its plain version and B2 bit for bit on each side of the
+    slabs, the tile and the crossover: the cluster path at H=256 (4 CTAs)
+    and H=512 (8), the persistent grid at H=1,040 and past the crossover.
+    The committed model is H=256."""
+    if params == "committed":
+        qp = quant.quantize_mlp(load_params())
+    else:
+        qp = _qp(rows, hidden, seed=hidden + 21)
+    _check_bit_equal(_kp(qp, dev), rows[:batch], dev)
+
+
+@pytest.mark.parametrize("hidden", [256, 512])
+def test_a_row_scores_the_same_alone_and_in_every_bucket(dev, rows, hidden):
+    """A row alone, in a 16-, a 128- and a 16,384-row batch: the same bits
+    on the cluster path and on the persistent grid."""
+    kp = _kp(_qp(rows, hidden, seed=9), dev)
+    q_np, s_np = fused_mlp_q8.prequantize_rows_numpy(
+        {k: kp[k].cpu() for k in ("mu", "sigma")}, rows[:16384])
+    q, s = torch.from_numpy(q_np).to(dev), torch.from_numpy(s_np).to(dev)
+    assert [fused_mlp_q8.path_for(b, 30, hidden) for b in (1, 16, 128, 16384)] == [
+        "cluster", "cluster", "cluster", "persistent"]
+    got = [fused_mlp_q8.fused_mlp_q8_score_preq(kp, q[:b].contiguous(), s[:b].contiguous(),
+                                                with_logits=True) for b in (1, 16, 128, 16384)]
+    torch.cuda.synchronize()
+    for p, z in got[1:]:
+        assert torch.equal(p[:1], got[0][0]) and torch.equal(z[:1], got[0][1])
+    for p, z in got[2:]:
+        assert torch.equal(p[:16], got[1][0]) and torch.equal(z[:16], got[1][1])
+    assert torch.equal(got[3][0][:128], got[2][0]) and torch.equal(got[3][1][:128], got[2][1])
+
+
+def test_the_cluster_counter_moves_as_path_for_says(dev, rows):
+    kp = _kp(quant.quantize_mlp(load_params()), dev)
+    q_np, s_np = fused_mlp_q8.prequantize_rows_numpy(
+        {k: kp[k].cpu() for k in ("mu", "sigma")}, rows[:CROSSOVER + 1])
+    for b in (16, 128, CROSSOVER, CROSSOVER + 1):
+        q, s = torch.from_numpy(q_np[:b]).to(dev), torch.from_numpy(s_np[:b]).to(dev)
+        before = (fused_mlp_q8.launches_preq.value, fused_mlp_q8.launches_preq_cluster.value)
+        fused_mlp_q8.fused_mlp_q8_score_preq(kp, q, s)
+        cluster = fused_mlp_q8.path_for(b, 30, 256) == "cluster"
+        assert (fused_mlp_q8.launches_preq.value,
+                fused_mlp_q8.launches_preq_cluster.value) == (before[0] + 1,
+                                                              before[1] + cluster)
+    torch.cuda.synchronize()
+    assert fused_mlp_q8.path_for(CROSSOVER + 1, 30, 256) == "persistent"
+
+
+def test_path_of_the_built_kernels_matches_the_python_mirror(dev):
+    for features, hidden in ((30, 256), (30, 512), (128, 512), (30, 513), (30, 1040),
+                             (1, 16)):
+        for batch in (1, 16, 128, CROSSOVER, CROSSOVER + 1, 16384):
+            assert fused_mlp_q8.kernel_path(batch, features, hidden) == \
+                fused_mlp_q8.path_for(batch, features, hidden), (batch, features, hidden)
+    with pytest.raises(ValueError, match="do not take"):
+        fused_mlp_q8.kernel_path(16, 30, 1041)

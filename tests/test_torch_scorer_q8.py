@@ -152,7 +152,8 @@ def test_rest_post_to_the_q8_server(wire):
                                    rtol=0, atol=1e-5)
         status, body = _post(port, None, "/prometheus")
         text = body.decode()
-        for kernel in ("fused_mlp_bf16", "fused_mlp_q8", "fused_mlp_q8_preq"):
+        for kernel in ("fused_mlp_bf16", "fused_mlp_q8", "fused_mlp_q8_preq",
+                       "fused_mlp_q8_preq.cluster"):
             assert f'ccfd_kernel_launches{{kernel="{kernel}"}}' in text, kernel
     finally:
         srv.stop()
@@ -216,6 +217,7 @@ def test_unquantized_server_reports_all_kernel_gauges(data):
                   if ln.startswith("ccfd_kernel_launches{")}
         assert sorted(gauges) == sorted(
             f'ccfd_kernel_launches{{kernel="{k}"}}'
-            for k in ("fused_mlp_bf16", "fused_mlp_q8", "fused_mlp_q8_preq"))
+            for k in ("fused_mlp_bf16", "fused_mlp_q8", "fused_mlp_q8_preq",
+                      "fused_mlp_q8_preq.cluster"))
     finally:
         srv.stop()

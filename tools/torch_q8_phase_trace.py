@@ -5,6 +5,8 @@ Builds a copy of ``ccfd_tpu_torch/ops/csrc/fused_mlp_q8.cu`` with
 ``clock64()`` stamps at the phase boundaries of the first tile of block 0
 (thread 0, a consumer), runs B2 and B3 through the port's wrappers on
 seeded random params, and prints the SM cycles at which each phase ended.
+The copy's B3 takes the persistent grid at every batch (its cluster launch
+for small batches, ``kClusterMaxBatch``, is set to 0 there).
 The copy is built into ``build/ccfd_tpu_torch/trace/``; the shipped library
 is untouched. ``ncu`` does not run on the card's machine; this is the
 kernel's own clock.
@@ -18,6 +20,7 @@ source (the kernel was edited: update ANCHORS).
 from __future__ import annotations
 
 import ctypes
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -63,6 +66,9 @@ def stamped_source(src: str) -> str:
     if start not in src:
         raise SystemExit("anchor for the kernel's start not found: update the tool")
     src = src.replace(start, start + "\nSTAMP(0);", 1)
+    # the stamps are in the persistent body: the copy's B3 takes it at every batch
+    src = re.sub(r"constexpr int kClusterMaxBatch = [^;]+;", "constexpr int kClusterMaxBatch = 0;",
+                 src)
     for i, (phase, anchor, nth) in enumerate(ANCHORS, start=1):
         at = -1
         for _ in range(max(nth, 1)):
