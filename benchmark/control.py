@@ -1,8 +1,10 @@
 """The control of a cell's correctness check: the plain reference one
 precision step below the configuration's (int8 for bf16, int4 for int8),
-put in the program's place where the scorer hands back its answers, and the
-cell run and judged at its own size exactly as ``benchmark/run.py`` runs and
-judges it. A sound check reads the control as not correct.
+put in the program's place where its scorer hands back its answers (the row
+Scorer's collected probabilities for a REST cell, each seq launch's for a
+keyed stream), and the cell run and judged at its own size exactly as
+``benchmark/run.py`` runs and judges it. A sound check reads the control as
+not correct.
 
     python3 benchmark/control.py --workload mlp_bf16.rest16 --seeds 1,2,3
 
@@ -13,46 +15,26 @@ run this.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import os
 import sys
 import time
-
-import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from benchmark.harness import runner, spec  # noqa: E402
 
 
-@contextlib.contextmanager
-def in_place(config: dict):
-    """While open, every answer the program's scorer hands back is the
-    control's for the rows it was handed; the launch still runs."""
-    from ccfd_tpu_torch.serving.scorer import Scorer
-
-    ref = spec.reference(config["name"])
-    state = ref.load(config)
-    launch, collect = Scorer._launch, Scorer._collect
-
-    def control_launch(self, live, chunk, b):
-        return launch(self, live, chunk, b), np.array(chunk, np.float32)
-
-    def control_collect(self, pending):
-        inner, rows = pending
-        collect(self, inner)
-        return ref.control(state, rows).astype(np.float32)
-
-    Scorer._launch, Scorer._collect = control_launch, control_collect
-    try:
-        yield
-    finally:
-        Scorer._launch, Scorer._collect = launch, collect
+def in_place(config: dict, kind: str = "closed_loop_rest"):
+    """While open, the control answers in the program's place: where the
+    driver of mix kind ``kind`` says (``in_place`` of
+    ``benchmark/harness/drivers/<kind>.py``); the program's launches still
+    run."""
+    return spec.driver(kind).in_place(config)
 
 
 def reading(cell: spec.Cell, seed: int, seconds: float, device: str) -> dict:
-    with in_place(cell.config):
+    with in_place(cell.config, cell.mix["kind"]):
         res = runner.run_cell(cell, seed, seconds, False, device, time.perf_counter())
     return {"workload": cell.name, "seed": seed, "correct": res["correct"],
             "attempted": res["attempted"], "failed": res["failed"], "checks": res["checks"]}

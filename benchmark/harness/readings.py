@@ -22,6 +22,9 @@ class Readings:
     rows_per_s: float = 0.0   # rows answered a second of it, by the clients' clock
     trace: object = None      # harness.devtrace.DeviceTrace, clipped to the window
     kernel: str | None = None  # the scorer's kernel, as the program names it
+    # a driver's own window readings for its readers, by name (a keyed
+    # stream's: the seq launches a bucket, the history assembly's time)
+    counters: dict = dataclasses.field(default_factory=dict)
 
     @property
     def window_s(self) -> float:
@@ -61,3 +64,33 @@ def device_ms_per_1k_rows(r: Readings) -> float | None:
 def rows_per_dispatch(r: Readings) -> float | None:
     return r.rows / r.dispatches if r.dispatches else None
 
+
+def seq_roofline_pct(r: Readings) -> float | None:
+    """The window's seq launches' least time (``roofline_seq.py``) over the
+    time of every kernel the card ran in it, in %."""
+    from benchmark import roofline_seq
+
+    launches = r.counters.get("seq_launches")
+    if r.trace is None or not launches:
+        return None
+    kernel_s = sum(b - a for _, a, b in r.trace.kernels)
+    if kernel_s <= 0:
+        return None
+    return 100.0 * roofline_seq.bound_s(r.config, launches) / kernel_s
+
+
+def seq_mfu_pct(r: Readings) -> float | None:
+    """The model operations of the decisions in the window, each over the
+    store's full history, over the window at the chip's peak, in %."""
+    from benchmark import roofline_seq
+
+    if not r.rows:
+        return None
+    length = int(r.config["cr"]["scorer"]["history_length"])
+    return 100.0 * roofline_seq.mfu(r.config, r.rows, length, r.window_s)
+
+
+def assembly_ms_per_batch(r: Readings) -> float | None:
+    """The history assembly's host time a router batch in the window, in ms."""
+    n = r.counters.get("assembly_batches")
+    return 1e3 * r.counters["assembly_s"] / n if n else None

@@ -16,7 +16,7 @@ from pathlib import Path
 
 import numpy as np
 
-from benchmark.harness import judge, readings, spec
+from benchmark.harness import readings, spec
 from benchmark.harness.readings import Readings
 
 # top-level module names no run may hold once its window has closed: JAX
@@ -68,41 +68,40 @@ def card() -> tuple[str, str]:
 
 def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device,
              t_start: float) -> dict:
-    """Run ``cell`` on ``device`` and judge it; returns the result object
-    (without ``device``'s card fields)."""
-    from benchmark.harness import rest
-
-    if cell.mix["kind"] != "closed_loop_rest":
-        raise ValueError(f"the harness runs no mix of kind {cell.mix['kind']!r}")
+    """Run ``cell`` on ``device`` with the driver of its mix's kind and
+    judge it; returns the result object (without ``device``'s card fields)."""
+    drv = spec.driver(cell.mix["kind"])
     state = state_dir()
     shutil.rmtree(state, ignore_errors=True)
     state.mkdir(parents=True)
     # an end-to-end metric of the device's trace has every run traced
     record = trace or any(m["source"] == "device_trace" for m in cell.end_to_end)
     try:
-        out = rest.run(cell, seed, seconds, trace, device, str(state), record)
+        out = drv.run(cell, seed, seconds, trace, device, str(state), record)
     finally:
         shutil.rmtree(state, ignore_errors=True)
     setup_s = out["setup_end"] - t_start
     log(out["host_cpu"])
     if out.get("trace") is not None:
         log(out["trace"].note)
-    done = np.concatenate([r["t_done"][r["status"] == 200] for r in out["requests"]])
-    per_s = np.histogram(done, bins=np.arange(out["t0_mono"], out["t0_mono"] + seconds
-                                              + 1e-9, 1.0))[0]
-    log(f"replies a second in the window: {per_s.tolist()}")
+    for note in out.get("notes", ()):
+        log(note)
     config, mix = cell.config, cell.mix
     ref_mod = spec.reference(config["name"])
     t_ref = time.perf_counter()
-    ref = ref_mod.reference(ref_mod.load(config), out["pool"])
-    j = judge.rest(out, mix, ref, seconds, config["limits"])
+    # a driver that hands over the params the program served has the
+    # reference hold them against its own read of the configuration's file
+    served = {"served": out["served"]} if out.get("served") is not None else {}
+    ref = ref_mod.reference(ref_mod.load(config, **served), out["traffic"])
+    j = drv.judge(out, mix, ref, seconds, config["limits"])
     log(f"judged {j['judged']} answers against the reference in "
         f"{time.perf_counter() - t_ref:.3f} s")
     checks = {k: {"value": v, "limit": lim} for k, (v, lim) in j["checks"].items()}
     correct = all(c["value"] <= c["limit"] for c in checks.values())
     r = Readings(config=config, mix=mix, t0=out["t0"], t1=out["t1"], rows=j["rows"],
                  dispatches=out["dispatches"], launches=out["launches"],
-                 rows_per_s=j["rows_per_s"], trace=out["trace"], kernel=out.get("kernel"))
+                 rows_per_s=j["rows_per_s"], trace=out["trace"], kernel=out.get("kernel"),
+                 counters=out.get("counters", {}))
     units = {m["name"]: m["unit"] for m in cell.end_to_end + cell.per_layer}
     metrics: dict = {}
     if not trace:

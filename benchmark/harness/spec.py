@@ -2,7 +2,9 @@
 
 - its configuration: the ``file`` of its entry under ``configs``, and the
   plain reference beside it, ``benchmark/reference/<config>.py``;
-- its traffic mix: ``benchmark/mixes/<traffic>.json``;
+- its traffic mix: ``benchmark/mixes/<traffic>.json``, and the driver of
+  the mix's ``kind``, ``benchmark/harness/drivers/<kind>.py``, which runs
+  the cell and judges its answers;
 - its metrics: the end-to-end metrics whose ``workloads`` name it (or that
   have none), and the per-layer metrics whose ``workloads`` name it (or
   that have none and move one of its end-to-end metrics), each read by
@@ -40,6 +42,24 @@ class Cell:
 def load_benchmark(root: Path = ROOT) -> dict:
     with open(root / "BENCHMARK.json") as f:
         return json.load(f)
+
+
+def with_pending(bench: dict, bench_dir: Path = BENCH_DIR) -> dict:
+    """``bench`` with every cell under ``benchmark/pending/`` added: a
+    pending file holds the ``configs``, ``workloads`` and ``per_layer``
+    entries of a cell measured and left out, and the ``end_to_end`` metrics
+    whose ``workloads`` would name it (PERF.md says why each waits)."""
+    out = json.loads(json.dumps(bench))
+    for path in sorted((bench_dir / "pending").glob("*.json")):
+        with open(path) as f:
+            extra = json.load(f)
+        for key in ("configs", "workloads", "per_layer"):
+            out[key] += extra[key]
+        cells = [w["name"] for w in extra["workloads"]]
+        for m in out["end_to_end"]:
+            if m["name"] in extra["end_to_end"]:
+                m["workloads"] = m["workloads"] + cells
+    return out
 
 
 def _applies(metric: dict, cell: str, e2e: set | None = None) -> bool:
@@ -84,9 +104,23 @@ def reader(metric: str, bench_dir: Path = BENCH_DIR) -> ModuleType:
                  "benchmark_metric_" + metric.replace(".", "_").replace("-", "_"))
 
 
+def driver(kind: str, bench_dir: Path = BENCH_DIR) -> ModuleType:
+    """The driver of mix kind ``kind``: a module with ``run(cell, seed,
+    seconds, trace, device, state, record) -> out`` and ``judge(out, mix,
+    ref, seconds, limits) -> {checks, attempted, failed, rows, judged,
+    rows_per_s}``; raises ``FileNotFoundError`` naming the file for a kind
+    with none."""
+    path = bench_dir / "harness" / "drivers" / f"{kind}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"no driver for mix kind {kind!r}: {path} does not exist")
+    return _load(path, "benchmark_driver_" + kind.replace(".", "_").replace("-", "_"))
+
+
 def reference(config: str) -> ModuleType:
     """The plain reference of configuration ``config``: a module with
-    ``load(config) -> state``, ``reference(state, rows)`` and
-    ``control(state, rows)``, each giving the probabilities of ``rows``."""
+    ``load(config[, served=...]) -> state``, ``reference(state, traffic)``
+    and ``control(state, traffic)``, each giving the probabilities of the
+    answers the driver's ``traffic`` asks for (a REST cell's pool rows; a
+    keyed stream's records in produce order with their customers' keys)."""
     return _load(BENCH_DIR / "reference" / f"{config}.py",
                  "benchmark_reference_" + config.replace(".", "_").replace("-", "_"))

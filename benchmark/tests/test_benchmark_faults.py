@@ -1,5 +1,5 @@
-"""A whole run on the CPU (the harness's look for a card skipped), sound and
-with the timed path broken underneath: the control (the reference one
+"""A whole run of each REST cell on the CPU (the harness's look for a card
+skipped), sound and with the timed path broken underneath: the control (the reference one
 precision step below) in the scorer's place, an answer altered where the
 scorer produces it, half of each dispatch's answers left out, and a card
 that serves nothing. Each must read ``correct: false``; the sound run
@@ -27,7 +27,10 @@ SMALL = {"clients": 2, "requests_per_client": 32, "pool_rows": 2048, "warmup_s":
 # the control's widest gap grows with the rows compared: at a pool of 2,048
 # rows it can stay under the bf16 limit, at 8,192 it does not (PERF.md)
 CONTROL_SIZE = {"clients": 4, "requests_per_client": 128, "pool_rows": 8192, "warmup_s": 0.5}
-CELLS = [w["name"] for w in BENCH["workloads"]]
+# the cells of mix kind closed_loop_rest (the keyed stream's are
+# test_benchmark_stream.py's)
+CELLS = [w["name"] for w in BENCH["workloads"]
+         if spec.resolve(BENCH, w["name"]).mix["kind"] == "closed_loop_rest"]
 
 
 def _run(cell_name: str, trace: bool = False, size: dict = SMALL,

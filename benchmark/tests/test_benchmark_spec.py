@@ -34,7 +34,13 @@ def test_a_full_check_fits_with_24_cells():
     assert runs * (s + 60) + 24 * 2 * 90 + 1200 <= 43200
 
 
-def test_entries_carry_just_their_keys_and_legal_names():
+# the committed file, and it with the cells measured and left out added
+BENCHES = {"committed": BENCH, "with_pending": spec.with_pending(BENCH)}
+
+
+@pytest.mark.parametrize("which", BENCHES)
+def test_entries_carry_just_their_keys_and_legal_names(which):
+    BENCH = BENCHES[which]
     keys = {"configs": {"name", "source", "file", "reduced", "why"},
             "workloads": {"name", "config", "traffic", "chips", "why"},
             "end_to_end": {"name", "unit", "better", "bound", "source"},
@@ -68,9 +74,12 @@ def test_cells_configs_and_bounds():
         assert 0.01 <= m["bound"] <= 0.25 and m["source"] in ("host_clock", "device_trace")
 
 
-@pytest.mark.parametrize("cell", CELLS)
+PENDING = [w["name"] for w in BENCHES["with_pending"]["workloads"]]
+
+
+@pytest.mark.parametrize("cell", PENDING)
 def test_every_cell_resolves_to_its_files(cell):
-    c = spec.resolve(BENCH, cell)
+    c = spec.resolve(BENCHES["with_pending"], cell)
     assert c.config["name"] and c.mix["kind"]
     assert "setup_s" in c.e2e_names and len(c.e2e_names) >= 2
     assert c.per_layer
@@ -81,7 +90,9 @@ def test_every_cell_resolves_to_its_files(cell):
     assert callable(ref.reference) and callable(ref.control)
 
 
-def test_every_per_layer_metric_has_a_reader_and_one_layer_name():
+@pytest.mark.parametrize("which", BENCHES)
+def test_every_per_layer_metric_has_a_reader_and_one_layer_name(which):
+    BENCH = BENCHES[which]
     layers = {}
     for m in BENCH["per_layer"]:
         assert (spec.BENCH_DIR / "metrics" / f"{m['name']}.py").is_file()
@@ -122,7 +133,14 @@ def test_a_cell_added_as_files_alone_is_found(tmp_path: Path):
     assert spec.resolve(bench, CELLS[0], root=tmp_path, bench_dir=bench_dir).per_layer
 
 
-def test_the_checkpoint_is_the_programs_committed_one():
-    a = (ROOT / "benchmark" / "configs" / "mlp_step_1200.npz").read_bytes()
-    b = (ROOT / "ccfd_tpu_torch" / "assets" / "mlp_step_1200.npz").read_bytes()
+@pytest.mark.parametrize("name", ["mlp_step_1200.npz", "seq_init.npz"])
+def test_the_checkpoint_is_the_programs_committed_one(name):
+    a = (ROOT / "benchmark" / "configs" / name).read_bytes()
+    b = (ROOT / "ccfd_tpu_torch" / "assets" / name).read_bytes()
     assert a == b
+
+
+@pytest.mark.parametrize("cell", PENDING)
+def test_every_cell_has_a_driver_for_its_mix_kind(cell):
+    drv = spec.driver(spec.resolve(BENCHES["with_pending"], cell).mix["kind"])
+    assert callable(drv.run) and callable(drv.judge) and callable(drv.in_place)

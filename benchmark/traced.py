@@ -1,4 +1,5 @@
-"""One ``--trace 1`` run of one cell with the program's own spans read:
+"""One ``--trace 1`` run of one REST cell (mix kind ``closed_loop_rest``)
+with the program's own spans read:
 ``run.py``'s traced result line, with the server built as ``serve``
 builds it plus a tracer on an armed span recorder.
 
