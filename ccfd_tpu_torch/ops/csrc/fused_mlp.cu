@@ -7,7 +7,7 @@
 //   h1 = bf16_rn(relu(x @ W1 + b1))        x (B, F<=128) bf16, W1 (F, H) bf16
 //   h2 = bf16_rn(relu(h1 @ W2 + b2))       W2 (H, H) bf16, f32 accumulation
 //   z  = sum_j f32(h2_j) * f32(w3_j) + b3  w3 (H) bf16, an f32 reduce in a
-//                                          fixed column order
+//                                          fixed column order (below)
 //   p  = sigmoid(z)
 //
 // The standardizer is folded into W1/b1 on the host (ops/fused_mlp.py
@@ -44,10 +44,14 @@
 //   [128w, 128w + 128) of each 256-column part. Layer 1's epilogue adds b1,
 //   applies relu, rounds to bf16 and writes h1 into the swizzled layout
 //   layer 2's A operand reads (a 64 x H tile: 128 KB at H = 1,024). Layer
-//   2's epilogue rounds h2 to bf16, multiplies by w3 and sums each row's
-//   columns in a fixed order into a per-(row, part, warpgroup) partial; the
-//   partials are summed in a fixed order, so a row's result does not depend
-//   on the batch or on which block scored it;
+//   2's epilogue rounds h2 to bf16 and multiplies by w3;
+// - layer 3's order, one for every launch: each row's h2 * w3 is summed
+//   per 64-column group (a thread's 16 columns of the group in column
+//   order, then over the group's 4 lanes: shfl_xor 1, then 2); each pair
+//   of groups 2i and 2i + 1 (a 128-column half) is added, g(2i) + g(2i+1);
+//   the halves are summed in order from 0, then + b3. So a row's result
+//   does not depend on the batch, on which block scored it, or on the
+//   launch (the cluster path below sums the same way);
 // - wider than H = 1,024 the h1 tile no longer fits beside two stages
 //   ("wide" layout). Layer 1's epilogue then writes h1, in bf16 and already
 //   swizzled, to a per-block scratch in global memory that the wrapper
@@ -56,16 +60,64 @@
 //   producer, once that barrier completes, streams each 64-column K block
 //   of h1 (8 KB) through the ring beside the W2 chunk it multiplies: a
 //   stage is then 32 KB of chunk + 8 KB of A block. Each warpgroup keeps a
-//   running sum of its columns' h2 * w3 over the parts, in part order. The
-//   h1 blocks are read once per part (H / 256 times a tile), from L2;
+//   running sum of its halves over the parts, in part order, and the two
+//   sums are added. The h1 blocks are read once per part (H / 256 times a
+//   tile), from L2;
 // - shared memory: the ring, h1 (not in the wide layout), the two x tiles,
 //   the partials and the barriers; 232,448 bytes at most, set once per
 //   library load.
 //
-// Entries: ccfd_fused_mlp_bf16 (the launch) and ccfd_fused_mlp_bf16_plan
-// (the layout the launch uses, which ops/fused_mlp.py mirrors), plain C
-// functions bound with ctypes. The launch returns cudaGetLastError(); 1
-// (cudaErrorInvalidValue) for a shape it does not take.
+// B1 at small batches, on a thread-block cluster. At the REST buckets (16
+// and 128 rows) the persistent grid is one or two blocks, and each walks a
+// tile's whole chain alone on one SM: 0.0072 ms at B = 16 and 0.0078 ms at
+// 128 on the H100, against a bound of 0.00002 ms. Latency, not bytes or
+// operations, bounds it. So for batch <= kClusterMaxBatch where hp / 64 <=
+// 8 (a portable cluster), ccfd_fused_mlp_bf16 launches
+// fused_mlp_bf16_kernel_cluster instead (cudaLaunchKernelEx with a cluster
+// dimension of hp / 64): one cluster a 64-row tile, one CTA of one
+// warpgroup a 64-column group.
+// - Loads, by bulk copies on mbarriers from the stream pack_stream lays
+//   out (nothing repacked): every CTA the tile's rows, all of layer 1's
+//   chunks (32 KB at H = 256) with b1, and its own 64 rows of each layer-2
+//   chunk (one contiguous 8 KB slice a K block) with its columns of b2 and
+//   w3. b3 is read while the copies fly.
+// - Layer 1 whole in every CTA, so no crossing between SMs before layer
+//   2: wgmma m64n64k16 with A from registers, each thread's fragments read
+//   straight from the rows as copied (unpadded; no swizzled tile, no
+//   layout pass), 16-deep steps past the features skipped.
+// - h1 stays in registers: the accumulator fragment of a product is laid
+//   out as the A fragment of the next, so layer 1's epilogue (b1, relu,
+//   bf16) writes layer 2's A operand with no trip through shared memory.
+// - Layer 2: each CTA its 64 columns over the whole K, one m64n64k16
+//   chain in the persistent path's K order (f32 sums are not associative:
+//   K is not split).
+// - Layer 3: each CTA's group sum of a row goes to rank 0 by st.async,
+//   counted on rank 0's mbarrier; one barrier.cluster arrive (early) and
+//   wait (before the first remote store) only see that every CTA's
+//   mbarriers are initialised. Rank 0 sums the groups in the order above
+//   and stores p (and z).
+// The two paths give the same bits for a row at every batch (the
+// products of a column do not depend on the product's width or on where
+// its A operand comes from, and layer 3 has one order).
+// What bounds it: the chain of dependent steps; a launch takes 0.0031 ms
+// at B = 16 and 128 (H = 256) on the H100 (NVIDIA H100 80GB HBM3, 700 W).
+// Crossover, measured on that card with tools/torch_q8_crossover.py
+// --kernel b1 (the two paths bit-equal at every batch; ms a launch,
+// persistent / cluster): at H = 256, B = 16 0.0074 / 0.0031, 128
+// 0.0079 / 0.0031, 1024 0.0080 / 0.0032, 2048 0.0080 / 0.0041, 4096
+// 0.0081 / 0.0061, 16384 0.0144 / 0.0141; at H = 512, 16 0.0141 / 0.0057,
+// 128 0.0147 / 0.0058, 1024 0.0148 / 0.0103, 2048 0.0146 / 0.0151, 4096
+// 0.0148 / 0.0242. The cluster path takes batches up to 1024, the largest
+// measured batch at which it is the faster at both widths (the buckets 16,
+// 128 and 1024 of the Scorer's ladder).
+//
+// Entries: ccfd_fused_mlp_bf16 (the launch, either path),
+// ccfd_fused_mlp_bf16_path (its choice, which ops/fused_mlp.py path_for
+// mirrors) and ccfd_fused_mlp_bf16_plan (the persistent layout, which
+// ops/fused_mlp.py plan mirrors), plain C functions bound with ctypes. The
+// launch returns cudaGetLastError() (the cluster launch the error of
+// cudaLaunchKernelEx); 1 (cudaErrorInvalidValue) for a shape it does not
+// take.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -81,6 +133,7 @@ constexpr int kTileRows = 64;
 constexpr int kKBlock = 64;                 // bf16 in one 128-byte swizzle row
 constexpr int kPart = 256;                  // output columns of one chunk
 constexpr int kHalf = 128;                  // columns one warpgroup owns in a part
+constexpr int kGroup = 64;                  // columns of one term of layer 3's order
 constexpr int kStageBytes = kPart * 128;    // one chunk: 256 rows x 128 bytes
 constexpr int kAtomBytes = kTileRows * 128;  // a 64-row x 64-input A block
 constexpr int kMaxFeatures = 128;
@@ -151,9 +204,10 @@ __device__ __forceinline__ void wgmma_wait_all() {
 }
 // keep the compiler from moving reads or writes of the accumulators across
 // the asynchronous product's issue and wait
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d (64 x 128 f32, the warpgroup's fragment) += A (64 x 16) * B (16 x 128),
@@ -186,6 +240,61 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
 __device__ __forceinline__ uint32_t a_offset(int row, int k, int rows) {
   return static_cast<uint32_t>((k / kKBlock) * rows * 128 + row * 128 +
                                ((((k % kKBlock) / 8) ^ (row % 8)) * 16) + (k % 8) * 2);
+}
+
+// two f32 of an epilogue vector: through the read-only cache from global
+// memory, or from a copy in shared memory
+template <bool kGlobal>
+__device__ __forceinline__ float2 load2(const float* p) {
+  if constexpr (kGlobal) return __ldg(reinterpret_cast<const float2*>(p));
+  return *reinterpret_cast<const float2*>(p);
+}
+
+// layer 3 of kG 64-column groups of a fragment, group g its pairs 8g ..
+// 8g + 7 (columns col0 + 64g + 8j, b2 and w3 indexed alike): h2 =
+// bf16(relu(acc + b2)); each row's sum of h2 * w3 over the thread's 16
+// columns of a group in column order, then over the group's 4 lanes
+// (shfl_xor 1, then 2). Every launch sums a group this way; the groups run
+// side by side, for the instruction-level parallelism.
+template <bool kGlobal, int kG, int N>
+__device__ __forceinline__ void group_dots(const float (&acc)[N], const float* b2,
+                                           const float* w3, int col0, float (&s0)[kG],
+                                           float (&s1)[kG]) {
+#pragma unroll
+  for (int g = 0; g < kG; ++g) s0[g] = s1[g] = 0.0f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int g = 0; g < kG; ++g) {
+      const int col = col0 + g * kGroup + j * 8, a = 4 * (8 * g + j);
+      const float2 b = load2<kGlobal>(b2 + col);
+      const float2 w = load2<kGlobal>(w3 + col);
+      const float2 top = __bfloat1622float2(
+          __floats2bfloat162_rn(fmaxf(acc[a] + b.x, 0.0f), fmaxf(acc[a + 1] + b.y, 0.0f)));
+      const float2 bot = __bfloat1622float2(
+          __floats2bfloat162_rn(fmaxf(acc[a + 2] + b.x, 0.0f), fmaxf(acc[a + 3] + b.y, 0.0f)));
+      s0[g] = __fadd_rn(s0[g], __fmul_rn(top.x, w.x));
+      s0[g] = __fadd_rn(s0[g], __fmul_rn(top.y, w.y));
+      s1[g] = __fadd_rn(s1[g], __fmul_rn(bot.x, w.x));
+      s1[g] = __fadd_rn(s1[g], __fmul_rn(bot.y, w.y));
+    }
+  }
+#pragma unroll
+  for (int m = 1; m <= 2; m *= 2) {
+#pragma unroll
+    for (int g = 0; g < kG; ++g) {
+      s0[g] += __shfl_xor_sync(0xffffffffu, s0[g], m);
+      s1[g] += __shfl_xor_sync(0xffffffffu, s1[g], m);
+    }
+  }
+}
+
+// a row's z (its halves' sum, in order) + b3, and its probability
+__device__ __forceinline__ void store_row(float z, float b3, float* proba, float* logits,
+                                          int row) {
+  z += b3;
+  proba[row] = 1.0f / (1.0f + expf(-z));
+  if (logits != nullptr) logits[row] = z;
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -328,7 +437,7 @@ fused_mlp_bf16_kernel(const __nv_bfloat16* __restrict__ x,
     hopper::fence_proxy_async();
     hopper::named_sync(kConsumers);
 
-    float zw0 = 0.0f, zw1 = 0.0f;  // wide: this warpgroup's running sums of h2 * w3
+    float zw0 = 0.0f, zw1 = 0.0f;  // wide: this warpgroup's running sums of its halves
     for (int layer = 0; layer < 2; ++layer) {
       const int kblocks = layer == 0 ? L.k1b : L.hb;
       const uint32_t a_addr = layer == 0 ? xa_addr : h1_addr;
@@ -379,27 +488,10 @@ fused_mlp_bf16_kernel(const __nv_bfloat16* __restrict__ x,
             *reinterpret_cast<__nv_bfloat162*>(h1w + a_offset(r1, col, kTileRows)) = bot;
           }
         } else {
-          // h2 = bf16(relu(acc + b2)); each row's sum of h2 * w3 over this
-          // warpgroup's columns, in column order, then over the 4 lanes
-          float s0 = 0.0f, s1 = 0.0f;
-#pragma unroll
-          for (int j = 0; j < 16; ++j) {
-            const int col = col0 + j * 8;
-            const float2 b = __ldg(reinterpret_cast<const float2*>(vec + L.hp + col));
-            const float2 w = __ldg(reinterpret_cast<const float2*>(vec + 2 * L.hp + col));
-            const float2 top = __bfloat1622float2(__floats2bfloat162_rn(
-                fmaxf(acc[4 * j] + b.x, 0.0f), fmaxf(acc[4 * j + 1] + b.y, 0.0f)));
-            const float2 bot = __bfloat1622float2(__floats2bfloat162_rn(
-                fmaxf(acc[4 * j + 2] + b.x, 0.0f), fmaxf(acc[4 * j + 3] + b.y, 0.0f)));
-            s0 = __fadd_rn(s0, __fmul_rn(top.x, w.x));
-            s0 = __fadd_rn(s0, __fmul_rn(top.y, w.y));
-            s1 = __fadd_rn(s1, __fmul_rn(bot.x, w.x));
-            s1 = __fadd_rn(s1, __fmul_rn(bot.y, w.y));
-          }
-          s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
-          s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
-          s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
-          s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
+          // each row's sum over this half: its two 64-column groups, added
+          float g0[2], g1[2];
+          group_dots<true>(acc, vec + L.hp, vec + 2 * L.hp, col0, g0, g1);
+          const float s0 = g0[0] + g0[1], s1 = g1[0] + g1[1];
           if (L.wide) {
             zw0 += s0;
             zw1 += s1;
@@ -424,7 +516,7 @@ fused_mlp_bf16_kernel(const __nv_bfloat16* __restrict__ x,
       hopper::named_sync(kConsumers);
     }
 
-    // each row's partials in (part, warpgroup) order, + b3, sigmoid
+    // each row's halves in (part, warpgroup) order, + b3, sigmoid
     if (tid < rows) {
       float z = 0.0f;
       if (L.wide) {
@@ -435,9 +527,270 @@ fused_mlp_bf16_kernel(const __nv_bfloat16* __restrict__ x,
           for (int w = 0; w * kHalf < prow; ++w) z += partial[tid * 2 * kMaxParts + 2 * p + w];
         }
       }
-      z += b3[0];
-      proba[row0 + tid] = 1.0f / (1.0f + expf(-z));
-      if (logits != nullptr) logits[row0 + tid] = z;
+      store_row(z, b3[0], proba, logits, row0 + tid);
+    }
+  }
+}
+
+// ---- B1 on a thread-block cluster: the small batches ----
+
+constexpr int kClusterMaxCtas = 8;  // the portable cluster size: H <= 512
+constexpr int kClusterThreads = 128;  // one warpgroup
+constexpr int kSliceBytes = kGroup * 128;  // a CTA's 64 rows of one layer-2 chunk
+// the largest batch the cluster path takes: the crossover measured on the
+// H100 (see the head of this file)
+constexpr int kClusterMaxBatch = 1024;
+
+struct ClusterLayout {
+  int k1p, hp, ctas;
+  uint32_t w1_bytes, w2_bytes;  // all of layer 1's chunks; the CTA's slices of layer 2's
+  // byte offsets into the dynamic shared memory, the chunks 1,024-aligned;
+  // 217,728 bytes at most (F = 128, H = 512)
+  size_t w1, w2, xraw, b1, vec2, part, bars, total;
+};
+
+__host__ __device__ inline ClusterLayout cluster_layout(int features, int hidden) {
+  ClusterLayout C;
+  C.k1p = (features + kKBlock - 1) / kKBlock * kKBlock;
+  C.hp = (hidden + kHalf - 1) / kHalf * kHalf;
+  C.ctas = C.hp / kGroup;
+  C.w1_bytes = static_cast<uint32_t>(C.hp * C.k1p * 2);
+  C.w2_bytes = static_cast<uint32_t>(C.hp / kKBlock * kSliceBytes);
+  C.w1 = 0;
+  C.w2 = C.w1 + C.w1_bytes;
+  C.xraw = C.w2 + C.w2_bytes;
+  C.b1 = C.xraw + align128(static_cast<size_t>(kTileRows) * features * 2);
+  C.vec2 = C.b1 + sizeof(float) * C.hp;  // b2 and w3 of the CTA's columns
+  C.part = C.vec2 + sizeof(float) * 2 * kGroup;  // rank 0: each CTA's group sum of a row
+  C.bars = C.part + sizeof(float) * kClusterMaxCtas * kTileRows;
+  C.total = C.bars + 128;
+  return C;
+}
+
+// d (64 x 64 f32) += A (64 x 16, bf16 from registers: the warp's 16 rows,
+// a[0..3] as for mma.sync m16n8k16) * B (16 x 64 bf16, from shared memory)
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// two bf16 of row r, inputs k and k + 1 (k even), of the row tile as its
+// copy left it (rows of ``features`` values, unpadded), 0 past the rows
+// and the features
+__device__ __forceinline__ uint32_t x_pair(const unsigned short* xs, int r, int k, int rows,
+                                           int features) {
+  if (r >= rows || k >= features) return 0u;
+  const int idx = r * features + k;
+  if ((features & 1) == 0) return *reinterpret_cast<const uint32_t*>(xs + idx);
+  return static_cast<uint32_t>(xs[idx]) |
+         (k + 1 < features ? static_cast<uint32_t>(xs[idx + 1]) << 16 : 0u);
+}
+
+// bf16(relu(acc + b)) of a fragment's column pair, packed as wgmma's A
+// register takes it (the lower column in the low half)
+__device__ __forceinline__ uint32_t h_pair(float a, float b, float2 bias) {
+  const __nv_bfloat162 h =
+      __floats2bfloat162_rn(fmaxf(a + bias.x, 0.0f), fmaxf(b + bias.y, 0.0f));
+  return static_cast<uint32_t>(__bfloat16_as_ushort(h.x)) |
+         static_cast<uint32_t>(__bfloat16_as_ushort(h.y)) << 16;
+}
+
+// The mbarriers of a cluster CTA: the row tile; layer 1's chunks with b1;
+// its slices of layer 2 with its columns of b2 and w3; and (rank 0) what
+// the CTAs send it
+enum ClusterBar { kBarX, kBarW1, kBarW2, kBarPart };
+
+// layer 1's 64-column groups a CTA computes at once: at most 128
+// accumulator registers beside h1's fragments
+__host__ __device__ constexpr int layer1_batch(int ctas) {
+  return ctas <= 4 ? ctas : (ctas == 6 ? 3 : 2);
+}
+
+// One cluster of kCtas = hp / 64 CTAs of one warpgroup scores one tile of
+// up to 64 rows: CTA r computes all of layer 1, keeps h1 in registers as
+// the A operand of layer 2 (the layout of a product's accumulator is that
+// of the next product's A fragments), computes columns [64 r, 64 r + 64)
+// of layer 2, and sends each row's sum of those columns' h2 * w3 to rank 0.
+template <int kCtas>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+fused_mlp_bf16_kernel_cluster(const __nv_bfloat16* __restrict__ x,
+                              const unsigned char* __restrict__ wstream,
+                              const float* __restrict__ vec, const float* __restrict__ b3,
+                              float* __restrict__ proba, float* __restrict__ logits, int batch,
+                              int features, int hidden) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const ClusterLayout C = cluster_layout(features, hidden);
+  if (hopper::smem_addr(smem) % 1024 != 0) __trap();  // the swizzle needs it
+  const int rank = hopper::cluster_rank();
+  const int row0 = static_cast<int>(blockIdx.x) / kCtas * kTileRows;
+  const int rows = min(kTileRows, batch - row0);
+  unsigned short* xs = reinterpret_cast<unsigned short*>(smem + C.xraw);
+  const float* b1s = reinterpret_cast<const float*>(smem + C.b1);
+  const float* b2s = reinterpret_cast<const float*>(smem + C.vec2);
+  const float* w3s = b2s + kGroup;
+  float* part = reinterpret_cast<float*>(smem + C.part);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + C.bars);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const uint32_t xbytes = (static_cast<uint32_t>(rows) * features * 2) & ~15u;
+
+  // ---- the copies: thread 0 the row tile and layer 1's operands, warp 1
+  // this CTA's slices of layer 2's; warp 2 arms the barrier of what the
+  // CTAs send rank 0, and its cluster-wide fence is off the copies' path ----
+  if (tid == 0) {
+    hopper::mbar_init(&bar[kBarX], 1);
+    hopper::mbar_init(&bar[kBarW1], 1);
+    hopper::fence_proxy_async();  // the barriers, to this CTA's copies
+    hopper::mbar_arrive_expect_tx(&bar[kBarX], xbytes);
+    if (xbytes)
+      hopper::bulk_g2s(xs, x + static_cast<size_t>(row0) * features, xbytes, &bar[kBarX]);
+    hopper::mbar_arrive_expect_tx(&bar[kBarW1], C.w1_bytes + 4 * C.hp);
+    hopper::bulk_g2s(smem + C.w1, wstream, C.w1_bytes, &bar[kBarW1]);
+    hopper::bulk_g2s(smem + C.b1, vec, 4 * C.hp, &bar[kBarW1]);
+  } else if (tid == 32) {
+    hopper::mbar_init(&bar[kBarW2], 1);
+    hopper::fence_proxy_async();
+    hopper::mbar_arrive_expect_tx(&bar[kBarW2], C.w2_bytes + 8 * kGroup);
+    // in each K block's chunk of the part holding its columns, rows
+    // [64 r, 64 r + 64) are one contiguous 8 KB slice
+    const int p = rank * kGroup / kPart;
+    const int prow = min(kPart, C.hp - p * kPart);
+    const unsigned char* src = wstream + C.w1_bytes + static_cast<size_t>(p) * kPart * C.hp * 2 +
+                               static_cast<size_t>(rank * kGroup - p * kPart) * 128;
+    for (int kb = 0; kb < kCtas; ++kb)  // hp / 64 K blocks
+      hopper::bulk_g2s(smem + C.w2 + kb * kSliceBytes, src + static_cast<size_t>(kb) * prow * 128,
+                       kSliceBytes, &bar[kBarW2]);
+    hopper::bulk_g2s(smem + C.vec2, vec + C.hp + rank * kGroup, 4 * kGroup, &bar[kBarW2]);
+    hopper::bulk_g2s(smem + C.vec2 + 4 * kGroup, vec + 2 * C.hp + rank * kGroup, 4 * kGroup,
+                     &bar[kBarW2]);
+  } else if (tid == 64) {
+    hopper::mbar_init(&bar[kBarPart], 1);
+    hopper::mbar_arrive_expect_tx(&bar[kBarPart],
+                                  rank == 0 ? static_cast<uint32_t>(kCtas * rows * 4) : 0u);
+  }
+  // the ragged tail past the row copy (under 16 bytes) comes directly
+  const int tail = rows * features - static_cast<int>(xbytes / 2);
+  if (tid < tail)
+    xs[xbytes / 2 + tid] = reinterpret_cast<const unsigned short*>(
+        x)[static_cast<size_t>(row0) * features + xbytes / 2 + tid];
+  __syncthreads();
+  if (tid == 64) hopper::mbar_init_fence();  // to the other CTAs
+  hopper::cluster_arrive_relaxed();
+  const float b3v = __ldg(b3);
+
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = warp * 16 + g, r1 = r0 + 8;  // this thread's fragment rows
+  const uint32_t w1_addr = hopper::smem_addr(smem + C.w1);
+  const uint32_t w2_addr = hopper::smem_addr(smem + C.w2);
+
+  // ---- layer 1: the row tile's A fragments straight from its copy; a
+  // 16-deep step past the features is all zeros and is skipped (adding a
+  // zero product to an accumulator that is never -0 leaves its bits) ----
+  hopper::mbar_wait(&bar[kBarX], 0);
+  uint32_t xf[kMaxFeatures / 16][4];
+#pragma unroll
+  for (int s = 0; s < kMaxFeatures / 16; ++s) {
+    if (16 * s < features) {
+      xf[s][0] = x_pair(xs, r0, 16 * s + 2 * t, rows, features);
+      xf[s][1] = x_pair(xs, r1, 16 * s + 2 * t, rows, features);
+      xf[s][2] = x_pair(xs, r0, 16 * s + 8 + 2 * t, rows, features);
+      xf[s][3] = x_pair(xs, r1, 16 * s + 8 + 2 * t, rows, features);
+    }
+  }
+  // all hp columns, layer1_batch groups at a time, each group's K in the
+  // persistent path's order; h1 = bf16(relu(acc + b1)) into the A
+  // fragments of layer 2: its K step 4c + 2i + e is group c's column pairs
+  // j = 2i + e
+  constexpr int kBatch = layer1_batch(kCtas);
+  uint32_t hf[4 * kCtas][4];
+  hopper::mbar_wait(&bar[kBarW1], 0);
+#pragma unroll
+  for (int c0 = 0; c0 < kCtas; c0 += kBatch) {
+    float acc[kBatch][32];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[i][e] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) fence_acc(acc[i]);
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < kMaxFeatures / 16; ++s) {
+      if (16 * s < features) {
+        const int kb = s / 4;
+#pragma unroll
+        for (int i = 0; i < kBatch; ++i) {
+          // group c's rows of layer 1's chunk (part c / 4, K block kb)
+          const int c = c0 + i, p = c * kGroup / kPart;
+          const int prow = min(kPart, C.hp - p * kPart);
+          const uint32_t b_addr = w1_addr + p * kPart * C.k1p * 2 + kb * prow * 128 +
+                                  (c * kGroup - p * kPart) * 128 + (s % 4) * 32;
+          wgmma_m64n64k16_rs(acc[i], xf[s], sw128_desc(b_addr));
+        }
+      }
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      fence_acc(acc[i]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = (c0 + i) * kGroup + 8 * j + 2 * t;
+        const float2 b = *reinterpret_cast<const float2*>(b1s + col);
+        uint32_t* a = hf[4 * (c0 + i) + j / 2];
+        a[2 * (j % 2)] = h_pair(acc[i][4 * j], acc[i][4 * j + 1], b);
+        a[2 * (j % 2) + 1] = h_pair(acc[i][4 * j + 2], acc[i][4 * j + 3], b);
+      }
+    }
+  }
+
+  // ---- layer 2: this CTA's 64 columns over the whole K, in the persistent
+  // path's order; layer 3's group sums to rank 0 ----
+  float acc[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) acc[e] = 0.0f;
+  hopper::mbar_wait(&bar[kBarW2], 0);
+  fence_acc(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < 4 * kCtas; ++s)
+    wgmma_m64n64k16_rs(acc, hf[s], sw128_desc(w2_addr + (s / 4) * kSliceBytes + (s % 4) * 32));
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_acc(acc);
+  float g0[1], g1[1];
+  group_dots<false>(acc, b2s, w3s, 2 * t, g0, g1);
+  const float s0 = g0[0], s1 = g1[0];
+  hopper::cluster_wait();  // every CTA's barriers are initialised
+  if (t == 0) {
+    const uint32_t bar0 = hopper::peer_addr(&bar[kBarPart], 0);
+    if (r0 < rows)
+      hopper::st_async(hopper::peer_addr(part + rank * kTileRows + r0, 0), __float_as_uint(s0),
+                       bar0);
+    if (r1 < rows)
+      hopper::st_async(hopper::peer_addr(part + rank * kTileRows + r1, 0), __float_as_uint(s1),
+                       bar0);
+  }
+  if (rank == 0) {
+    hopper::mbar_wait_cluster(&bar[kBarPart], 0);
+    if (tid < rows) {
+      float z = 0.0f;
+#pragma unroll
+      for (int c = 0; c < kCtas; c += 2)
+        z += part[c * kTileRows + tid] + part[(c + 1) * kTileRows + tid];
+      store_row(z, b3v, proba, logits, row0 + tid);
     }
   }
 }
@@ -446,12 +799,29 @@ std::once_flag g_once;
 cudaError_t g_init_err = cudaSuccess;
 int g_sms = 0;
 
-// the shared-memory attribute and the SM count, once per library load
+// the kernels at each cluster size the cluster path launches (hp / 64)
+const void* cluster_kernel(int ctas) {
+  switch (ctas) {
+    case 2: return reinterpret_cast<const void*>(fused_mlp_bf16_kernel_cluster<2>);
+    case 4: return reinterpret_cast<const void*>(fused_mlp_bf16_kernel_cluster<4>);
+    case 6: return reinterpret_cast<const void*>(fused_mlp_bf16_kernel_cluster<6>);
+    case 8: return reinterpret_cast<const void*>(fused_mlp_bf16_kernel_cluster<8>);
+    default: return nullptr;
+  }
+}
+
+// the shared-memory attribute of the kernels and the SM count, once per
+// library load
 cudaError_t init_once() {
   std::call_once(g_once, [] {
-    g_init_err = cudaFuncSetAttribute(fused_mlp_bf16_kernel,
-                                      cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                      static_cast<int>(kSmemLimit));
+    const void* kernels[] = {reinterpret_cast<const void*>(fused_mlp_bf16_kernel),
+                             cluster_kernel(2), cluster_kernel(4), cluster_kernel(6),
+                             cluster_kernel(8)};
+    for (const void* k : kernels) {
+      if (g_init_err == cudaSuccess)
+        g_init_err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                          static_cast<int>(kSmemLimit));
+    }
     int dev = 0;
     if (g_init_err == cudaSuccess) g_init_err = cudaGetDevice(&dev);
     if (g_init_err == cudaSuccess)
@@ -466,10 +836,43 @@ bool takes(int features, int hidden) {
   return L.stages >= 2 && L.total <= kSmemLimit;
 }
 
+// B1's choice of launch, from the shape alone: the cluster path for a
+// batch up to kClusterMaxBatch whose hidden width needs at most a portable
+// cluster of CTAs; ops/fused_mlp.py path_for mirrors it
+bool takes_cluster(int batch, int features, int hidden) {
+  return batch > 0 && batch <= kClusterMaxBatch && takes(features, hidden) &&
+         cluster_layout(features, hidden).ctas <= kClusterMaxCtas;
+}
+
+cudaError_t launch_cluster(const __nv_bfloat16* x, const unsigned char* wstream,
+                           const float* vec, const float* b3, float* proba, float* logits,
+                           int batch, int features, int hidden, cudaStream_t stream) {
+  cudaError_t err = init_once();
+  if (err != cudaSuccess) return err;
+  const ClusterLayout C = cluster_layout(features, hidden);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(C.ctas);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>((batch + kTileRows - 1) / kTileRows * C.ctas));
+  cfg.blockDim = dim3(kClusterThreads);
+  cfg.dynamicSmemBytes = C.total;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  void* args[] = {&x, &wstream, &vec, &b3, &proba, &logits, &batch, &features, &hidden};
+  err = cudaLaunchKernelExC(&cfg, cluster_kernel(C.ctas), args);
+  const cudaError_t last = cudaGetLastError();
+  return err != cudaSuccess ? err : last;
+}
+
 }  // namespace
 
-// out: k1p, hp, chunks, stages, resident, wide, shared-memory bytes; returns
-// 0, or 1 for a shape the kernel does not take
+// out: k1p, hp, chunks, stages, resident, wide, shared-memory bytes of the
+// persistent grid's block; returns 0, or 1 for a shape the kernel does not
+// take
 extern "C" int ccfd_fused_mlp_bf16_plan(int features, int hidden, int* out) {
   if (!takes(features, hidden)) return static_cast<int>(cudaErrorInvalidValue);
   const Layout L = make_layout(features, hidden);
@@ -483,8 +886,16 @@ extern "C" int ccfd_fused_mlp_bf16_plan(int features, int hidden, int* out) {
   return 0;
 }
 
-// the blocks a launch of ``batch`` rows runs (0 before the first launch
-// has read the SM count): the wide layout's scratch holds one h1 tile each
+// 1 where B1 takes the cluster path at this shape, 0 where the persistent
+// grid, -1 for a shape the kernels do not take
+extern "C" int ccfd_fused_mlp_bf16_path(int batch, int features, int hidden) {
+  if (!takes(features, hidden)) return -1;
+  return takes_cluster(batch, features, hidden) ? 1 : 0;
+}
+
+// the blocks a launch of ``batch`` rows runs on the persistent grid (0
+// before the first launch has read the SM count): the wide layout's
+// scratch holds one h1 tile each
 extern "C" int ccfd_fused_mlp_bf16_blocks(int batch) {
   if (init_once() != cudaSuccess) return 0;
   const int tiles = (batch + kTileRows - 1) / kTileRows;
@@ -498,6 +909,12 @@ extern "C" int ccfd_fused_mlp_bf16(const void* x, const void* wstream, const voi
                                    long long scratch_bytes, int batch, int features, int hidden,
                                    void* stream) {
   if (batch <= 0 || !takes(features, hidden)) return static_cast<int>(cudaErrorInvalidValue);
+  if (takes_cluster(batch, features, hidden))
+    return static_cast<int>(launch_cluster(
+        static_cast<const __nv_bfloat16*>(x), static_cast<const unsigned char*>(wstream),
+        static_cast<const float*>(vec), static_cast<const float*>(b3),
+        static_cast<float*>(proba), static_cast<float*>(logits), batch, features, hidden,
+        static_cast<cudaStream_t>(stream)));
   const cudaError_t err = init_once();
   if (err != cudaSuccess) return static_cast<int>(err);
   const Layout L = make_layout(features, hidden);

@@ -1,6 +1,7 @@
 // Hopper building blocks the port's kernels share: mbarriers, the
 // asynchronous bulk copy from global to shared memory that completes on an
-// mbarrier, the async-proxy fence and a named barrier. sm_90 and later.
+// mbarrier, the async-proxy fence, a named barrier, and a thread-block
+// cluster's rank, remote stores and barrier. sm_90 and later.
 //
 // The copy and barrier protocol (a ring of stages, each with a "full" and
 // an "empty" mbarrier): the producer waits for "empty" with the parity
@@ -84,6 +85,59 @@ __device__ __forceinline__ void fence_proxy_async_all() {
 // __syncthreads), so the producer warp never has to join
 __device__ __forceinline__ void named_sync(uint32_t threads) {
   asm volatile("bar.sync 1, %0;\n" ::"r"(threads) : "memory");
+}
+
+// ---- thread-block clusters: distributed shared memory ----
+
+__device__ __forceinline__ int cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+
+// the address of ``p``'s offset in the shared memory of CTA ``rank`` of the cluster
+__device__ __forceinline__ uint32_t peer_addr(const void* p, int rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(smem_addr(p)), "r"(rank));
+  return a;
+}
+
+// st.async: a store into the shared memory of a CTA of the cluster that
+// counts its bytes on that CTA's mbarrier ``bar`` (both addresses from
+// peer_addr), so the receiver waits for its data alone, not for a barrier
+// over the whole cluster
+__device__ __forceinline__ void st_async(uint32_t addr, unsigned v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.u32 [%0], %1, [%2];\n" ::"r"(
+                   addr),
+               "r"(v), "r"(bar)
+               : "memory");
+}
+
+// mbar_wait with cluster scope: what other CTAs stored (st.async) before
+// completing the phase is visible after it
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// the cluster barrier, in two halves: the arrive only says this CTA's
+// mbarriers are initialised (fence.mbarrier_init made them visible), and a
+// CTA waits before its first store into another CTA's shared memory
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
 }
 
 }  // namespace hopper

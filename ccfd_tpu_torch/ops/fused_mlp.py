@@ -17,12 +17,16 @@ wrapper allocates, and layer 2 streams it back through the ring.
   and biases in f32, and the kernel's own operands: the weight stream
   (``pack_stream``, W1^T and W2^T in wgmma's swizzled shared-memory layout)
   and the epilogue vectors b1, b2, w3 zero-padded to the kernel's width.
-- ``plan`` mirrors the CUDA source's shared-memory layout.
+- ``plan`` mirrors the CUDA source's shared-memory layout, and
+  ``path_for`` its choice between the persistent grid and the cluster
+  launch (small batches at H <= 512: one cluster of ``hp / 64`` CTAs a
+  64-row tile).
 - ``fused_mlp_reference`` is the plain PyTorch version of the kernel's
   arithmetic, with the same rounding points.
 - ``fused_mlp_score`` is the wrapper: the plain version for a CPU tensor,
   the kernel for a CUDA tensor (or an error: there is no fallback), with a
-  launch count.
+  launch count (``launches``; ``launches_cluster`` those of them on the
+  cluster path).
 """
 
 from __future__ import annotations
@@ -49,8 +53,15 @@ STAGE_BYTES = PART * 128
 ATOM_BYTES = TILE_ROWS * 128  # a 64-row x 64-input block of an A operand
 MAX_STAGES = 8
 SMEM_LIMIT = 232_448
+# the cluster path (the CUDA source's kGroup, kClusterMaxCtas,
+# kClusterMaxBatch): a cluster of hp / 64 CTAs, at most the portable 8, for
+# batches up to the measured crossover
+GROUP = 64
+CLUSTER_MAX_CTAS = 8
+CLUSTER_MAX_BATCH = 1024
 
-launches = LaunchCounter("fused_mlp_bf16")
+launches = LaunchCounter("fused_mlp_bf16")  # either path
+launches_cluster = LaunchCounter("fused_mlp_bf16.cluster")  # the cluster path's
 
 
 def check_shapes(features: int, hidden: int) -> None:
@@ -85,6 +96,18 @@ def plan(features: int, hidden: int) -> dict[str, int]:
     return {"k1p": k1p, "hp": hp, "chunks": chunks, "stages": stages,
             "resident": int(stages == chunks), "wide": int(wide),
             "smem": fixed + stages * sbytes}
+
+
+def path_for(batch: int, features: int, hidden: int) -> str:
+    """Which launch B1's entry takes at this shape, as ``takes_cluster``
+    in the CUDA source decides it: ``"cluster"`` (a cluster of ``hp / 64``
+    CTAs a 64-row tile) for ``0 < batch <= CLUSTER_MAX_BATCH`` where ``hp /
+    64 <= CLUSTER_MAX_CTAS``, else ``"persistent"``. Raises ``ValueError``
+    for a shape the kernel does not take."""
+    check_shapes(features, hidden)
+    if 0 < batch <= CLUSTER_MAX_BATCH and plan(features, hidden)["hp"] // GROUP <= CLUSTER_MAX_CTAS:
+        return "cluster"
+    return "persistent"
 
 
 def stream_offset(layer: int, k, n, features: int, hidden: int):
@@ -215,8 +238,8 @@ def fused_mlp_reference(kp: Mapping[str, torch.Tensor],
 
 @functools.cache
 def _kernel_entry():
-    """The bound C entries (launch, plan) and CUDA's error-string lookup;
-    builds the kernel library on first use."""
+    """The bound C entries (launch, plan, blocks) and CUDA's error-string
+    lookup; builds the kernel library on first use."""
     from ccfd_tpu_torch.ops import _build
 
     lib = _build.load("fused_mlp")
@@ -244,6 +267,26 @@ def kernel_plan(features: int, hidden: int) -> dict[str, int]:
     if plan_fn(features, hidden, out) != 0:
         raise ValueError(f"the kernel does not take F={features}, H={hidden}")
     return dict(zip(("k1p", "hp", "chunks", "stages", "resident", "wide", "smem"), out))
+
+
+@functools.cache
+def _path_entry():
+    from ccfd_tpu_torch.ops import _build
+
+    fn = _build.load("fused_mlp").ccfd_fused_mlp_bf16_path
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def kernel_path(batch: int, features: int, hidden: int) -> str:
+    """``path_for`` as the built CUDA library decides it (needs nvcc; the
+    card is not touched): the card tests and ``chip_smoke.py`` hold it
+    against ``path_for``."""
+    got = _path_entry()(batch, features, hidden)
+    if got < 0:
+        raise ValueError(f"the kernel does not take F={features}, H={hidden}")
+    return "cluster" if got else "persistent"
 
 
 def _check_cuda_args(kp: Mapping[str, torch.Tensor], x: torch.Tensor) -> int:
@@ -282,7 +325,9 @@ def fused_mlp_score(kp: Mapping[str, torch.Tensor], x: torch.Tensor,
     ``with_logits``). Any B: the kernel masks the ragged last tile.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel on the current stream, or raises."""
+    kernel on the current stream, or raises. The entry picks the launch
+    from the shape (``path_for``); a launch on the cluster path also counts
+    in ``launches_cluster``."""
     if x.device.type == "cpu":
         proba, z = fused_mlp_reference(kp, x)
         return (proba, z) if with_logits else proba
@@ -316,4 +361,6 @@ def fused_mlp_score(kp: Mapping[str, torch.Tensor], x: torch.Tensor,
                 f"fused_mlp kernel launch failed: CUDA error {rc} "
                 f"({err(rc).decode()})")
         launches.inc()
+        if path_for(batch, features, hidden) == "cluster":
+            launches_cluster.inc()
     return (proba, z) if with_logits else proba

@@ -77,9 +77,10 @@ _AMOUNT_COL = FEATURE_NAMES.index("Amount")
 _V17_COL = FEATURE_NAMES.index("V17")
 _V10_COL = FEATURE_NAMES.index("V10")
 # every CUDA kernel of the port, by its gauge label: B1, B2, B3, and B3's
-# launches on its cluster path (counted in B3's too)
+# and B1's launches on their cluster paths (counted in the kernel's too)
 KERNEL_LAUNCHES = (fused_mlp.launches, fused_mlp_q8.launches,
-                   fused_mlp_q8.launches_preq, fused_mlp_q8.launches_preq_cluster)
+                   fused_mlp_q8.launches_preq, fused_mlp_q8.launches_preq_cluster,
+                   fused_mlp.launches_cluster)
 
 
 # the gauge ``publish_rows`` sets: name and help

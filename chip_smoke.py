@@ -28,8 +28,9 @@ wire).
            printed: registers, shared memory, spills), while g++ builds the
            native host library (ccfd_tpu_torch/native: the CSV and payload
            decoders and the REST front; its time is printed); each kernel
-           library's layout plan (and B3's choice between its persistent
-           grid and its cluster launch) is held against its Python mirror; then
+           library's layout plan (and B1's and B3's choice between the
+           persistent grid and the cluster launch) is held against its
+           Python mirror; then
            `python -m ccfd_tpu_torch lint` exits 0 on this machine, where
            no JAX is installed
   parity   each kernel vs its plain version on the card (B1 within
@@ -56,7 +57,8 @@ wire).
            through B1, `quantize --checkpoint-dir` and CCFD_MODEL=mlp_q8
            `serve` of its output through B3 and, with CCFD_Q8_WIRE=f32, B2:
            200 sequential 16-row POSTs each, every answer held against the
-           plain version, launches = dispatches; then the reference's int8
+           plain version, launches = dispatches, every B1 and B3 launch on
+           its cluster path; then the reference's int8
            lifecycle through the quantized checkpoint directory: `quantize
            --checkpoint-dir --out-dir D` and CCFD_MODEL=mlp_q8 `serve
            --quantized-dir D`, and bare `quantize` and `serve` in a fresh
@@ -460,8 +462,10 @@ wire).
            time from CUDA events around a CUDA graph of back-to-back
            launches (and torch.profiler's by the kernel's own name), its
            time a call through the Python wrapper, and the plain version's
-           a call; and at B=16384 B1 at H=1,024, 2,048 and 4,096 and B2/B3
-           at their widest H (1,040)
+           a call; B1 at the same batches on each of its launches (the
+           persistent grid and the cluster, from the two copies of its
+           source that tools/torch_q8_crossover.py builds); and at B=16384
+           B1 at H=1,024, 2,048 and 4,096 and B2/B3 at their widest H (1,040)
 
 Run from the repository root:  python3 chip_smoke.py
 It exits non-zero on any failure. On success its last two lines are a JSON
@@ -578,7 +582,7 @@ TRAIN_KEYS = {"checkpoint", "rows", "steps", "source", "test_rows", "auc_mlp",
 # burst's labels (the fraud cases the customers answer) clear it
 RETRAIN_PARTS = (10_000, 10_000)
 RETRAIN_MIN_LABELS = 8
-TIMING_BATCHES = (16, 128, 16384)  # the REST buckets (B3's cluster path) and a full one
+TIMING_BATCHES = (16, 128, 16384)  # the REST buckets (B1's and B3's cluster paths) and a full one
 SEQ_POSTS = 200  # sequential 16-row POSTs a serving run times
 DEADLINE_MS = 1000  # the serve phase's run with the dispatch deadline armed
 DEADLINE_SERIES = ("ccfd_dispatch_timeouts_total", "ccfd_device_wedged")
@@ -1313,8 +1317,8 @@ class Smoke:
         return torch.sigmoid((d(h) * d(kp["w3"])).sum(1) + d(kp["b3"]))
 
     def counters(self) -> dict:
-        """Each kernel's launch counter (B3's cluster-path count, a share
-        of B3's own, is not a kernel of its own)."""
+        """Each kernel's launch counter (B1's and B3's cluster-path counts,
+        shares of the kernel's own, are not kernels of their own)."""
         from ccfd_tpu_torch.serving.server import KERNEL_LAUNCHES
 
         return {c.kernel: c for c in KERNEL_LAUNCHES if c.kernel in KERNELS}
@@ -1419,15 +1423,19 @@ class Smoke:
                 if got != want:
                     raise AssertionError(f"{mod.__name__} plan F={f} H={h}: {got} != {want}")
                 log("build", f"{mod.__name__.rsplit('.', 1)[-1]} F={f} H={h}: {got}")
-        # B3's choice of launch, against its Python mirror
-        top = fused_mlp_q8.CLUSTER_MAX_BATCH
-        for f, h in ((30, 256), (30, 512), (30, 1040), (128, 512)):
-            for b in (1, 16, 128, top, top + 1, 16384):
-                got, want = fused_mlp_q8.kernel_path(b, f, h), fused_mlp_q8.path_for(b, f, h)
-                if got != want:
-                    raise AssertionError(f"B3's path B={b} F={f} H={h}: {got} != {want}")
-        log("build", f"B3's path matches path_for: the cluster launch up to B={top} at "
-            f"H <= {fused_mlp_q8.CLUSTER_MAX_CTAS * fused_mlp_q8.GROUP}")
+        # B1's and B3's choice of launch, against their Python mirrors
+        for mod, name, shapes in (
+                (fused_mlp, "B1", ((30, 256), (30, 512), (30, 640), (64, 512), (65, 512),
+                                   (128, 384), (128, 512), (30, 1024))),
+                (fused_mlp_q8, "B3", ((30, 256), (30, 512), (30, 1040), (128, 512)))):
+            top = mod.CLUSTER_MAX_BATCH
+            for f, h in shapes:
+                for b in (1, 16, 128, top, top + 1, 16384):
+                    got, want = mod.kernel_path(b, f, h), mod.path_for(b, f, h)
+                    if got != want:
+                        raise AssertionError(f"{name}'s path B={b} F={f} H={h}: {got} != {want}")
+            log("build", f"{name}'s path matches path_for: the cluster launch up to B={top} "
+                f"at H <= {mod.CLUSTER_MAX_CTAS * mod.GROUP}")
         # the lint gate runs here, where no JAX is installed
         env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
         env["PYTHONPATH"] = REPO
@@ -1897,25 +1905,27 @@ class Smoke:
     def served_run(self, kernel: str, what: str, srv, plain) -> None:
         """SEQ_POSTS sequential 16-row POSTs to ``srv`` on its default
         transport: every answer against ``plain``, the kernel's launches
-        equal to the scorer's dispatches, no other kernel launched; B3's
-        16-row launches all on its cluster path."""
+        equal to the scorer's dispatches, no other kernel launched; B1's
+        and B3's 16-row launches all on their cluster paths."""
         import http.client
 
-        from ccfd_tpu_torch.ops import fused_mlp_q8
+        from ccfd_tpu_torch.ops import fused_mlp, fused_mlp_q8
 
         grid = srv.scorer.executable_grid()
         if not srv.scorer.fused or grid["int8_wire"] != (kernel == "fused_mlp_q8_preq"):
             raise AssertionError(f"{what}: the scorer is not on the {kernel} path: {grid}")
         counters = self.counters()
+        clusters = {"fused_mlp_bf16": fused_mlp.launches_cluster,
+                    "fused_mlp_q8_preq": fused_mlp_q8.launches_preq_cluster}
         port = srv.start("127.0.0.1", 0)
         try:
             conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
-            for c in (*counters.values(), fused_mlp_q8.launches_preq_cluster):
+            for c in (*counters.values(), *clusters.values()):
                 c.reset()
             d0 = srv.scorer.dispatch_total()
             seq, lat = sequential_posts(conn, self.rows, SEQ_POSTS)
             launched = {k: c.value for k, c in counters.items()}
-            cluster = fused_mlp_q8.launches_preq_cluster.value
+            cluster = {k: c.value for k, c in clusters.items()}
             dispatched = srv.scorer.dispatch_total() - d0
             conn.close()
         finally:
@@ -1924,9 +1934,8 @@ class Smoke:
         if launched[kernel] != dispatched or dispatched != SEQ_POSTS or any(
                 v for k, v in launched.items() if k != kernel):
             raise AssertionError(f"{what}: launches {launched} for {dispatched} dispatches")
-        if cluster != (launched[kernel] if kernel == "fused_mlp_q8_preq" else 0):
-            raise AssertionError(f"{what}: {cluster} launches on B3's cluster path of "
-                                 f"{launched}")
+        if cluster != {k: launched[kernel] if k == kernel else 0 for k in clusters}:
+            raise AssertionError(f"{what}: cluster-path launches {cluster} of {launched}")
         self.reports[kernel]["launches"] += launched[kernel]
         log("train", f"{what} ({kernel}, {srv.transport}): {SEQ_POSTS} sequential POSTs of 16 "
             f"rows, {quantiles(lat)}; max |dp| vs plain {worst:.3e}; launches "
@@ -6211,6 +6220,19 @@ class Smoke:
                     kernel_ms, plain_ms, bound_ms, bound_by = got
                     self.reports[name].update(ms=kernel_ms, plain_ms=plain_ms,
                                               bound_ms=bound_ms, bound_by=bound_by)
+        # B1 on each of its launches at the same batches: the two copies of
+        # its source that tools/torch_q8_crossover.py builds, one taking
+        # the persistent grid at every batch, one the cluster launch
+        sys.path.insert(0, os.path.join(REPO, "tools"))
+        import torch_q8_crossover as crossover
+
+        from ccfd_tpu_torch.ops import fused_mlp
+
+        for v, ent in crossover.b1_variants().items():
+            with crossover.launching(fused_mlp, "_kernel_entry", ent):
+                for b in TIMING_BATCHES:
+                    run("fused_mlp_bf16", cases(kp, kq, b)["fused_mlp_bf16"], b, 256,
+                        f"H=256 {v} path", profile=False)
         # wider models on seeded random params: B1 up to its wide layout
         # (H > 1,024), B2/B3 at the widest H they take
         b = TIMING_BATCHES[-1]

@@ -240,3 +240,92 @@ def test_launch_counter_loses_no_increment():
     assert counter.value == 16 * 5000
     counter.reset()
     assert counter.value == 0
+
+
+@pytest.mark.parametrize("batch,features,hidden,path", [
+    (16, 30, 256, "cluster"), (128, 30, 256, "cluster"),
+    (16384, 30, 256, "persistent"), (16, 30, 1024, "persistent"),
+])
+def test_path_for_takes_the_cluster_at_the_rest_buckets(batch, features, hidden, path):
+    """B1's cluster launch covers the REST buckets of the served width; a
+    full bucket and a width past a portable cluster keep the persistent
+    grid."""
+    assert fused_mlp.path_for(batch, features, hidden) == path
+
+
+def test_path_for_edges():
+    """The crossover and the cluster bound (hp / 64 CTAs, at most 8) are
+    inclusive, at every F; a shape the kernel does not take raises."""
+    top = fused_mlp.CLUSTER_MAX_BATCH
+    assert top >= 128
+    assert fused_mlp.path_for(0, 30, 256) == "persistent"
+    assert fused_mlp.path_for(1, 30, 256) == "cluster"
+    assert fused_mlp.path_for(top, 30, 256) == "cluster"
+    assert fused_mlp.path_for(top + 1, 30, 256) == "persistent"
+    assert fused_mlp.path_for(16, 30, 512) == "cluster"  # a cluster of 8
+    assert fused_mlp.path_for(16, 30, 640) == "persistent"  # 10 CTAs
+    assert fused_mlp.path_for(16, 30, 513) == "persistent"  # hp 640
+    assert fused_mlp.path_for(16, 1, 1) == "cluster"  # hp 128: 2 CTAs
+    assert fused_mlp.path_for(16, 128, 512) == "cluster"
+    with pytest.raises(ValueError, match="features"):
+        fused_mlp.path_for(16, 129, 256)
+
+
+@pytest.mark.parametrize("features,hidden", [(30, 256), (30, 384), (128, 512), (1, 128)])
+def test_a_ctas_slice_of_each_layer_two_chunk_is_contiguous(features, hidden):
+    """The cluster CTA of rank r bulk-copies rows [64 r, 64 r + 64) of each
+    layer-2 K block as one 8 KB slice: in the stream those rows' 64 inputs
+    fill exactly the bytes [start, start + 8192) that the CUDA source
+    computes, and layer 1 is the stream's first hp * k1p * 2 bytes."""
+    plan = fused_mlp.plan(features, hidden)
+    k1p, hp = plan["k1p"], plan["hp"]
+    k, n = np.meshgrid(np.arange(k1p), np.arange(hp), indexing="ij")
+    assert fused_mlp.stream_offset(1, k, n, features, hidden).max() < hp * k1p * 2
+    for rank in range(hp // fused_mlp.GROUP):
+        p = rank * fused_mlp.GROUP // fused_mlp.PART
+        prow = min(fused_mlp.PART, hp - p * fused_mlp.PART)
+        for kb in range(hp // fused_mlp.K_BLOCK):
+            k, n = np.meshgrid(np.arange(kb * 64, kb * 64 + 64),
+                               np.arange(rank * 64, rank * 64 + 64), indexing="ij")
+            off = fused_mlp.stream_offset(2, k, n, features, hidden)
+            start = (hp * k1p * 2 + p * fused_mlp.PART * hp * 2 + kb * prow * 128
+                     + (rank * 64 - p * fused_mlp.PART) * 128)
+            assert sorted(set((off // 2).ravel().tolist())) == list(
+                range(start // 2, start // 2 + 4096))
+
+
+def test_cluster_counter_is_on_the_gauge_and_cpu_tensors_do_not_move_it(rows):
+    from ccfd_tpu_torch.serving.server import KERNEL_LAUNCHES
+
+    counter = fused_mlp.launches_cluster
+    assert counter in KERNEL_LAUNCHES
+    assert counter.kernel == "fused_mlp_bf16.cluster"
+    assert len({c.kernel for c in KERNEL_LAUNCHES}) == len(KERNEL_LAUNCHES)
+    kp = fused_mlp.pack_for_kernel(
+        fused_mlp.fold_for_kernel(from_jax_params(mlp_tree(rows, hidden=256))), "cpu")
+    before = (counter.value, fused_mlp.launches.value)
+    fused_mlp.fused_mlp_score(kp, torch.from_numpy(rows[:16]).to(torch.bfloat16))
+    assert (counter.value, fused_mlp.launches.value) == before
+
+
+def test_the_crossover_tool_finds_what_it_edits_in_b1s_source():
+    """tools/torch_q8_crossover.py --kernel b1 rewrites B1's crossover
+    constant: it finds it once, and the source's constants are the Python
+    mirror's."""
+    import importlib.util
+    import re
+    from pathlib import Path
+
+    from ccfd_tpu_torch.ops import _build
+
+    path = Path(__file__).resolve().parents[1] / "tools" / "torch_q8_crossover.py"
+    spec = importlib.util.spec_from_file_location("torch_q8_crossover", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    src = (_build.CSRC / f"{tool.SOURCES['b1']}.cu").read_text()
+    assert tool.CONSTANT.findall(src) == [
+        f"constexpr int kClusterMaxBatch = {fused_mlp.CLUSTER_MAX_BATCH};"]
+    for name, value in (("kClusterMaxCtas", fused_mlp.CLUSTER_MAX_CTAS),
+                        ("kGroup", fused_mlp.GROUP)):
+        found = re.search(rf"constexpr int {name} = (\d+);", src)
+        assert found and int(found.group(1)) == value, name

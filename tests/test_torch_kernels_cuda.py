@@ -9,6 +9,10 @@ Tolerance 1e-3 in probability up to H=256: the kernel sums in another
 order than the plain version, and a bf16 rounding of h may then flip one
 ulp. Wider, the flips grow with H and add to z like a random walk, so the
 bar grows as sqrt(H / 256) (chip_smoke.py b1_tol_p).
+
+B1 takes a cluster launch up to ``CLUSTER_MAX_BATCH`` rows where H needs at
+most 8 CTAs of 64 columns (``path_for``); the two launches sum each row in
+one order, so a row's p and z are the same bits on either.
 """
 
 import numpy as np
@@ -170,3 +174,85 @@ def test_scorer_on_the_card_goes_through_the_kernel(dev, rows):
     assert fused_mlp.launches.value - before == s.dispatch_total() == 1
     cpu = Scorer(params=load_params(), device="cpu").score(rows[:5000])
     np.testing.assert_allclose(got, cpu, rtol=0, atol=1e-3)
+
+
+CROSSOVER = fused_mlp.CLUSTER_MAX_BATCH
+
+
+@pytest.mark.parametrize("hidden", [128, 256, 384, 512])
+@pytest.mark.parametrize("batch", [1, 16, 17, 77, 128, 1000, 2048])
+def test_cluster_path_matches_plain_version(dev, rows, hidden, batch):
+    """The cluster launch (2, 4, 6 and 8 CTAs) on ragged batches, p and z
+    against the plain version; 2,048 rows lie past the crossover, on the
+    persistent grid."""
+    assert fused_mlp.path_for(batch, 30, hidden) == (
+        "cluster" if batch <= CROSSOVER else "persistent")
+    kp = _kp(_random_params(rows, hidden, seed=hidden + 5), dev)
+    _check(kp, torch.from_numpy(rows[:batch]).to(torch.bfloat16).to(dev))
+
+
+@pytest.mark.parametrize("hidden", [128, 256, 384, 512])
+def test_a_row_scores_the_same_bits_on_both_paths(dev, rows, hidden):
+    """The first 77 rows at B=77 (the cluster launch) and at B=4,096 (the
+    persistent grid): the same bits of p and z."""
+    kp = _kp(_random_params(rows, hidden, seed=hidden + 11), dev)
+    x = torch.from_numpy(rows[:4096]).to(torch.bfloat16).to(dev)
+    assert [fused_mlp.path_for(b, 30, hidden) for b in (77, 4096)] == ["cluster", "persistent"]
+    p_c, z_c = fused_mlp.fused_mlp_score(kp, x[:77].contiguous(), with_logits=True)
+    p_p, z_p = fused_mlp.fused_mlp_score(kp, x, with_logits=True)
+    torch.cuda.synchronize()
+    assert torch.equal(p_c, p_p[:77]) and torch.equal(z_c, z_p[:77])
+
+
+@pytest.mark.parametrize("features,hidden", [(64, 512), (65, 384), (128, 512)])
+def test_cluster_path_at_wide_features(dev, rows, features, hidden):
+    """Two K blocks of layer 1 (F > 64), and F at the 128-lane bound with
+    a cluster of 8, on the cluster launch: against the plain version, and
+    bit-equal to the persistent grid."""
+    x_np = _wide(rows[:4096], features)
+    kp = _kp(_random_params(x_np, hidden, seed=features), dev)
+    x = torch.from_numpy(x_np).to(torch.bfloat16).to(dev)
+    assert fused_mlp.path_for(100, features, hidden) == "cluster"
+    _check(kp, x[:100].contiguous(), tol_p=2e-3)
+    p_c, z_c = fused_mlp.fused_mlp_score(kp, x[:100].contiguous(), with_logits=True)
+    p_p, z_p = fused_mlp.fused_mlp_score(kp, x, with_logits=True)
+    torch.cuda.synchronize()
+    assert torch.equal(p_c, p_p[:100]) and torch.equal(z_c, z_p[:100])
+
+
+def test_a_row_slice_at_an_odd_offset_on_the_cluster_path(dev, rows):
+    """Rows from an odd row offset (a start the bulk copies cannot take)
+    scored on the cluster launch equal the same rows inside a batch on the
+    persistent grid."""
+    kp = _kp(load_params(), dev)
+    x = torch.from_numpy(rows[:4096]).to(torch.bfloat16).to(dev)
+    part = x[33:49]
+    assert part.data_ptr() % 16 and fused_mlp.path_for(16, 30, 256) == "cluster"
+    got = fused_mlp.fused_mlp_score(kp, part, with_logits=True)
+    whole = fused_mlp.fused_mlp_score(kp, x, with_logits=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], whole[0][33:49]) and torch.equal(got[1], whole[1][33:49])
+
+
+def test_the_cluster_counter_moves_as_path_for_says(dev, rows):
+    """A launch at B=16 adds one to ``launches`` and one to
+    ``launches_cluster``; past the crossover only ``launches`` moves."""
+    kp = _kp(load_params(), dev)
+    for b in (16, 128, CROSSOVER, CROSSOVER + 1):
+        x = torch.from_numpy(rows[:b]).to(torch.bfloat16).to(dev)
+        before = (fused_mlp.launches.value, fused_mlp.launches_cluster.value)
+        fused_mlp.fused_mlp_score(kp, x)
+        cluster = fused_mlp.path_for(b, 30, 256) == "cluster"
+        assert cluster == (b <= CROSSOVER)
+        assert (fused_mlp.launches.value, fused_mlp.launches_cluster.value) == (
+            before[0] + 1, before[1] + cluster)
+    torch.cuda.synchronize()
+
+
+def test_path_of_the_built_kernel_matches_the_python_mirror(dev):
+    for features, hidden in ((30, 256), (30, 128), (30, 512), (30, 513), (30, 640),
+                             (64, 512), (65, 512), (128, 384), (128, 512), (1, 1),
+                             (30, 1024), (30, 4096)):
+        for batch in (0, 1, 16, 128, CROSSOVER, CROSSOVER + 1, 16384):
+            assert fused_mlp.kernel_path(batch, features, hidden) == \
+                fused_mlp.path_for(batch, features, hidden), (batch, features, hidden)

@@ -218,6 +218,6 @@ def test_unquantized_server_reports_all_kernel_gauges(data):
         assert sorted(gauges) == sorted(
             f'ccfd_kernel_launches{{kernel="{k}"}}'
             for k in ("fused_mlp_bf16", "fused_mlp_q8", "fused_mlp_q8_preq",
-                      "fused_mlp_q8_preq.cluster"))
+                      "fused_mlp_q8_preq.cluster", "fused_mlp_bf16.cluster"))
     finally:
         srv.stop()
