@@ -71,11 +71,12 @@
 // and 128 rows) the persistent grid is one or two blocks, and each walks a
 // tile's whole chain alone on one SM: 0.0072 ms at B = 16 and 0.0078 ms at
 // 128 on the H100, against a bound of 0.00002 ms. Latency, not bytes or
-// operations, bounds it. So for batch <= kClusterMaxBatch where hp / 64 <=
-// 8 (a portable cluster), ccfd_fused_mlp_bf16 launches
-// fused_mlp_bf16_kernel_cluster instead (cudaLaunchKernelEx with a cluster
-// dimension of hp / 64): one cluster a 64-row tile, one CTA of one
-// warpgroup a 64-column group.
+// operations, bounds it. So where hp / 64 <= 8 (a portable cluster),
+// ccfd_fused_mlp_bf16 can launch fused_mlp_bf16_kernel_cluster instead
+// (cudaLaunchKernelEx with a cluster dimension of hp / 64): one cluster a
+// 64-row tile, one CTA of one warpgroup a 64-column group. The entry
+// launches what its caller names; the choice by batch lives in the Python
+// wrapper alone (ops/fused_mlp.py path_for, CLUSTER_MAX_BATCH).
 // - Loads, by bulk copies on mbarriers from the stream pack_stream lays
 //   out (nothing repacked): every CTA the tile's rows, all of layer 1's
 //   chunks (32 KB at H = 256) with b1, and its own 64 rows of each layer-2
@@ -107,17 +108,18 @@
 // 0.0079 / 0.0031, 1024 0.0080 / 0.0032, 2048 0.0080 / 0.0041, 4096
 // 0.0081 / 0.0061, 16384 0.0144 / 0.0141; at H = 512, 16 0.0141 / 0.0057,
 // 128 0.0147 / 0.0058, 1024 0.0148 / 0.0103, 2048 0.0146 / 0.0151, 4096
-// 0.0148 / 0.0242. The cluster path takes batches up to 1024, the largest
-// measured batch at which it is the faster at both widths (the buckets 16,
-// 128 and 1024 of the Scorer's ladder).
+// 0.0148 / 0.0242. The wrapper takes the cluster path for batches up to
+// 1024 (CLUSTER_MAX_BATCH), the largest measured batch at which it is the
+// faster at both widths (the buckets 16, 128 and 1024 of the Scorer's
+// ladder).
 //
-// Entries: ccfd_fused_mlp_bf16 (the launch, either path),
-// ccfd_fused_mlp_bf16_path (its choice, which ops/fused_mlp.py path_for
-// mirrors) and ccfd_fused_mlp_bf16_plan (the persistent layout, which
-// ops/fused_mlp.py plan mirrors), plain C functions bound with ctypes. The
-// launch returns cudaGetLastError() (the cluster launch the error of
-// cudaLaunchKernelEx); 1 (cudaErrorInvalidValue) for a shape it does not
-// take.
+// Entries: ccfd_fused_mlp_bf16 (the launch its argument names: 0 the
+// persistent grid, 1 the cluster) and ccfd_fused_mlp_bf16_plan (the
+// persistent layout, which ops/fused_mlp.py plan mirrors), plain C
+// functions bound with ctypes. The launch returns cudaGetLastError() (the
+// cluster launch the error of cudaLaunchKernelEx); 1
+// (cudaErrorInvalidValue) for what it cannot run: a shape it does not
+// take, no rows, or a cluster of more than kClusterMaxCtas CTAs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -537,9 +539,6 @@ fused_mlp_bf16_kernel(const __nv_bfloat16* __restrict__ x,
 constexpr int kClusterMaxCtas = 8;  // the portable cluster size: H <= 512
 constexpr int kClusterThreads = 128;  // one warpgroup
 constexpr int kSliceBytes = kGroup * 128;  // a CTA's 64 rows of one layer-2 chunk
-// the largest batch the cluster path takes: the crossover measured on the
-// H100 (see the head of this file)
-constexpr int kClusterMaxBatch = 1024;
 
 struct ClusterLayout {
   int k1p, hp, ctas;
@@ -836,14 +835,6 @@ bool takes(int features, int hidden) {
   return L.stages >= 2 && L.total <= kSmemLimit;
 }
 
-// B1's choice of launch, from the shape alone: the cluster path for a
-// batch up to kClusterMaxBatch whose hidden width needs at most a portable
-// cluster of CTAs; ops/fused_mlp.py path_for mirrors it
-bool takes_cluster(int batch, int features, int hidden) {
-  return batch > 0 && batch <= kClusterMaxBatch && takes(features, hidden) &&
-         cluster_layout(features, hidden).ctas <= kClusterMaxCtas;
-}
-
 cudaError_t launch_cluster(const __nv_bfloat16* x, const unsigned char* wstream,
                            const float* vec, const float* b3, float* proba, float* logits,
                            int batch, int features, int hidden, cudaStream_t stream) {
@@ -886,13 +877,6 @@ extern "C" int ccfd_fused_mlp_bf16_plan(int features, int hidden, int* out) {
   return 0;
 }
 
-// 1 where B1 takes the cluster path at this shape, 0 where the persistent
-// grid, -1 for a shape the kernels do not take
-extern "C" int ccfd_fused_mlp_bf16_path(int batch, int features, int hidden) {
-  if (!takes(features, hidden)) return -1;
-  return takes_cluster(batch, features, hidden) ? 1 : 0;
-}
-
 // the blocks a launch of ``batch`` rows runs on the persistent grid (0
 // before the first launch has read the SM count): the wide layout's
 // scratch holds one h1 tile each
@@ -903,13 +887,17 @@ extern "C" int ccfd_fused_mlp_bf16_blocks(int batch) {
 }
 
 // h1_scratch: the wide layout's per-block h1 tiles, scratch_bytes long (at
-// least blocks * 64 * hp * 2); unused, and may be null, up to H = 1,024
+// least blocks * 64 * hp * 2); unused, and may be null, up to H = 1,024 and
+// on the cluster. launch: 0 the persistent grid (any batch), 1 the cluster
+// (where hp / 64 <= kClusterMaxCtas)
 extern "C" int ccfd_fused_mlp_bf16(const void* x, const void* wstream, const void* vec,
                                    const void* b3, void* proba, void* logits, void* h1_scratch,
                                    long long scratch_bytes, int batch, int features, int hidden,
-                                   void* stream) {
-  if (batch <= 0 || !takes(features, hidden)) return static_cast<int>(cudaErrorInvalidValue);
-  if (takes_cluster(batch, features, hidden))
+                                   int launch, void* stream) {
+  if (batch <= 0 || !takes(features, hidden) || launch < 0 || launch > 1 ||
+      (launch == 1 && cluster_layout(features, hidden).ctas > kClusterMaxCtas))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (launch == 1)
     return static_cast<int>(launch_cluster(
         static_cast<const __nv_bfloat16*>(x), static_cast<const unsigned char*>(wstream),
         static_cast<const float*>(vec), static_cast<const float*>(b3),

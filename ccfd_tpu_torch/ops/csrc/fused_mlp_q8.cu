@@ -87,11 +87,13 @@
 // and 128 rows) the persistent grid above is one or two blocks, and each
 // walks a tile's whole chain alone on one SM: 0.0111 ms at B = 16 and
 // 0.0146 ms at 128 on the H100, against a bound of 0.00002 ms. Latency,
-// not bytes or operations, bounds it. So for batch <= kClusterMaxBatch
-// where hp / 64 <= 8 (a portable cluster), ccfd_fused_mlp_q8_preq launches
+// not bytes or operations, bounds it. So where hp / 64 <= 8 (a portable
+// cluster), ccfd_fused_mlp_q8_preq can launch
 // fused_mlp_q8_preq_kernel_cluster instead (cudaLaunchKernelEx with a
 // cluster dimension of hp / 64): one cluster a 64-row tile, one CTA of 8
-// warps a 64-column group.
+// warps a 64-column group. The entry launches what its caller names; the
+// choice by batch lives in the Python wrapper alone (ops/fused_mlp_q8.py
+// path_for, CLUSTER_MAX_BATCH).
 // - Loads, by bulk copies on mbarriers from the stream pack_stream lays
 //   out (nothing repacked): every CTA the tile's int8 rows, all of W1's
 //   chunk with s1 and b1 (about 14 KB at H = 256), and its own group of
@@ -126,16 +128,17 @@
 // at H = 256, B = 16 0.0110 / 0.0048, 128 0.0146 / 0.0085, 1024
 // 0.0145 / 0.0087, 2048 0.0150 / 0.0101, 4096 0.0152 / 0.0163, 16384
 // 0.0274 / 0.0428; at H = 512, 2048 0.0283 / 0.0259, 4096 0.0286 / 0.0433.
-// The cluster path takes batches up to 2048, the largest measured batch at
-// which it is the faster.
+// The wrapper takes the cluster path for batches up to 2048
+// (CLUSTER_MAX_BATCH), the largest measured batch at which it is the
+// faster.
 //
-// Entries: ccfd_fused_mlp_q8 (B2), ccfd_fused_mlp_q8_preq (B3, either
-// launch), ccfd_fused_mlp_q8_preq_path (B3's choice, which
-// ops/fused_mlp_q8.py path_for mirrors) and ccfd_fused_mlp_q8_plan (the
-// layout both use, which ops/fused_mlp_q8.py mirrors), plain C functions
-// bound with ctypes. The launches return cudaGetLastError() (B3's cluster
-// launch the error of cudaLaunchKernelEx); 1 (cudaErrorInvalidValue) for a
-// shape they do not take.
+// Entries: ccfd_fused_mlp_q8 (B2), ccfd_fused_mlp_q8_preq (B3, on the
+// launch its argument names: 0 the persistent grid, 1 the cluster) and
+// ccfd_fused_mlp_q8_plan (the layout both use, which ops/fused_mlp_q8.py
+// mirrors), plain C functions bound with ctypes. The launches return
+// cudaGetLastError() (B3's cluster launch the error of cudaLaunchKernelEx);
+// 1 (cudaErrorInvalidValue) for what they cannot run: a shape they do not
+// take, no rows, or a cluster of more than kClusterMaxCtas CTAs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -702,9 +705,6 @@ constexpr int kClusterMaxCtas = 8;   // the portable cluster size: H <= 512
 constexpr int kClusterWarps = 8;
 constexpr int kClusterThreads = 32 * kClusterWarps;
 constexpr int kLdc = kGroup + 8;     // row stride of a CTA's f32 tile (its 64 columns)
-// the largest batch the cluster path takes: the crossover measured on the
-// H100 (see the head of this file)
-constexpr int kClusterMaxBatch = 2048;
 
 struct ClusterLayout {
   int k1p, hp, ld1, ldh, ldf, ctas, slices;
@@ -741,67 +741,6 @@ __host__ __device__ inline ClusterLayout cluster_layout(int features, int hidden
   C.bars = off;  off += 128;
   C.total = off;
   return C;
-}
-
-__device__ __forceinline__ int cluster_rank() {
-  unsigned r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return static_cast<int>(r);
-}
-
-// the address of ``p``'s offset in the shared memory of CTA ``rank`` of the cluster
-__device__ __forceinline__ uint32_t peer_addr(const void* p, int rank) {
-  uint32_t a;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(a)
-               : "r"(hopper::smem_addr(p)), "r"(rank));
-  return a;
-}
-
-// st.async: a store into the shared memory of a CTA of the cluster that
-// counts its bytes on that CTA's mbarrier ``bar`` (both addresses from
-// peer_addr), so the receiver waits for its data alone, not for a barrier
-// over the whole cluster
-__device__ __forceinline__ void st_async(uint32_t addr, unsigned v, uint32_t bar) {
-  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.u32 [%0], %1, [%2];\n" ::"r"(
-                   addr),
-               "r"(v), "r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void st_async4(uint32_t addr, uint4 v, uint32_t bar) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.u32 [%0], {%1, %2, %3, %4}, "
-      "[%5];\n" ::"r"(addr),
-      "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(bar)
-      : "memory");
-}
-
-// hopper::mbar_wait with cluster scope: what other CTAs stored (st.async)
-// before completing the phase is visible after it
-__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = hopper::smem_addr(bar);
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// the cluster barrier, in two halves: the arrive only says this CTA's
-// mbarriers are initialised (fence.mbarrier_init made them visible), and a
-// CTA waits before its first store into another CTA's shared memory
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait;\n" ::: "memory");
 }
 
 // four int8 values from shared memory at any byte offset (two aligned
@@ -1011,9 +950,10 @@ __device__ __forceinline__ void exchange_row_scales(unsigned* amax, unsigned* sl
     const unsigned m = amax[tid];
     amax[tid] = 0u;
     for (int p = 0; p < ctas; ++p)
-      st_async(peer_addr(slots + rank * kClusterRows + tid, p), m, peer_addr(bar, p));
+      hopper::st_async(hopper::peer_addr(slots + rank * kClusterRows + tid, p), m,
+                       hopper::peer_addr(bar, p));
   }
-  mbar_wait_cluster(bar, 0);
+  hopper::mbar_wait_cluster(bar, 0);
   if (tid < rows) {
     unsigned m = 0u;
     for (int p = 0; p < ctas; ++p) m = max(m, slots[p * kClusterRows + tid]);
@@ -1039,7 +979,7 @@ fused_mlp_q8_preq_kernel_cluster(const int8_t* __restrict__ q, const float* __re
   extern __shared__ __align__(128) unsigned char smem[];
   const ClusterLayout C = cluster_layout(features, hidden);
   constexpr int R = kClusterRows;
-  const int rank = cluster_rank();
+  const int rank = hopper::cluster_rank();
   const int row0 = static_cast<int>(blockIdx.x) / C.ctas * R;
   const int rows = min(R, batch - row0);
   const int8_t* w1s = reinterpret_cast<const int8_t*>(smem + C.w1);
@@ -1104,7 +1044,7 @@ fused_mlp_q8_preq_kernel_cluster(const int8_t* __restrict__ q, const float* __re
     hopper::bulk_g2s(smem + C.vec2 + 8 * kGroup, w3 + c, kGroup, &bar[kBarW2]);
   }
   if (tid == kClusterThreads - 32) hopper::mbar_init_fence();  // to the other CTAs
-  cluster_arrive_relaxed();
+  hopper::cluster_arrive_relaxed();
 
   // every warp takes a share of the live 16-row slabs: one slab over 8
   // warps, two over 4 each, four over 2 each
@@ -1174,7 +1114,7 @@ fused_mlp_q8_preq_kernel_cluster(const int8_t* __restrict__ q, const float* __re
       dequant_small(acc, nj, cw + 2 * t, e1, hf, kLdc, r0, sx0, sx1, m0, m1);
       publish_max(m0, m1, amax, r0, t);
     }
-    cluster_wait();  // every CTA's barriers are initialised
+    hopper::cluster_wait();  // every CTA's barriers are initialised
     exchange_row_scales(amax, slots1, &bar[kBarMax1], sx, rcp, rows, rank, C.ctas);
     // q(h1) of this CTA's columns into every CTA's hq: a row over 16
     // threads of four columns each; each four gather their 16 bytes in one
@@ -1190,10 +1130,11 @@ fused_mlp_q8_preq_kernel_cluster(const int8_t* __restrict__ q, const float* __re
       if (r < rows && wd % 4 == 0) {
         const int8_t* dst = hq + r * C.ldh + rank * kGroup + wd * 4;
         for (int p = 0; p < C.ctas; ++p)
-          st_async4(peer_addr(dst, p), w, peer_addr(&bar[kBarH1], p));
+          hopper::st_async4(hopper::peer_addr(dst, p), w,
+                            hopper::peer_addr(&bar[kBarH1], p));
       }
     }
-    mbar_wait_cluster(&bar[kBarH1], 0);
+    hopper::mbar_wait_cluster(&bar[kBarH1], 0);
   }
   __syncthreads();  // hq is whole; the f32 tile is free for layer 2
 
@@ -1233,7 +1174,7 @@ fused_mlp_q8_preq_kernel_cluster(const int8_t* __restrict__ q, const float* __re
     dequant(acc, nj, cw + 2 * t, e2, hf, kLdc, r0, sx[r0], sx[r0 + 8], m0, m1);
     publish_max(m0, m1, amax, r0, t);
   }
-  if (!split) cluster_wait();  // every CTA's barriers are initialised
+  if (!split) hopper::cluster_wait();  // every CTA's barriers are initialised
   exchange_row_scales(amax, slots2, &bar[kBarMax2], sx, rcp, rows, rank, C.ctas);
   hopper::mbar_wait(&bar[kBarW2], 0);  // w3's columns, where no warp of this CTA was live
 
@@ -1251,11 +1192,11 @@ fused_mlp_q8_preq_kernel_cluster(const int8_t* __restrict__ q, const float* __re
 #pragma unroll
     for (int off = 8; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
     if ((lane & 15) == 0 && r < rows)
-      st_async(peer_addr(part + rank * R + r, 0), static_cast<unsigned>(acc),
-               peer_addr(&bar[kBarPart], 0));
+      hopper::st_async(hopper::peer_addr(part + rank * R + r, 0), static_cast<unsigned>(acc),
+                       hopper::peer_addr(&bar[kBarPart], 0));
   }
   if (rank == 0) {
-    mbar_wait_cluster(&bar[kBarPart], 0);
+    hopper::mbar_wait_cluster(&bar[kBarPart], 0);
     if (tid < rows) {
       int dot = 0;
       for (int p = 0; p < C.ctas; ++p) dot += static_cast<int>(part[p * R + tid]);
@@ -1312,14 +1253,6 @@ int launch_grid(int batch, int features, int hidden, size_t* smem, cudaError_t* 
   *smem = L.total;
   const int tiles = (batch + L.rows - 1) / L.rows;
   return tiles < g_sms ? tiles : g_sms;
-}
-
-// B3's choice of launch, from the shape alone: the cluster path for a
-// batch up to kClusterMaxBatch whose hidden width needs at most a portable
-// cluster of CTAs; ops/fused_mlp_q8.py path_for mirrors it
-bool takes_cluster(int batch, int features, int hidden) {
-  return batch > 0 && batch <= kClusterMaxBatch && takes(features, hidden) &&
-         cluster_layout(features, hidden).ctas <= kClusterMaxCtas;
 }
 
 cudaError_t launch_cluster(const int8_t* q, const float* s, const unsigned char* wstream,
@@ -1381,18 +1314,16 @@ extern "C" int ccfd_fused_mlp_q8(const void* x, const void* mu, const void* sigm
   return static_cast<int>(cudaGetLastError());
 }
 
-// 1 where B3 takes the cluster path at this shape, 0 where the persistent
-// grid, -1 for a shape the kernels do not take
-extern "C" int ccfd_fused_mlp_q8_preq_path(int batch, int features, int hidden) {
-  if (!takes(features, hidden)) return -1;
-  return takes_cluster(batch, features, hidden) ? 1 : 0;
-}
-
+// launch: 0 the persistent grid (any batch), 1 the cluster (where hp / 64
+// <= kClusterMaxCtas)
 extern "C" int ccfd_fused_mlp_q8_preq(const void* q, const void* s, const void* wstream,
                                       const void* vec, const void* w3, const void* s3,
                                       const void* b3, void* proba, void* logits, int batch,
-                                      int features, int hidden, void* stream) {
-  if (takes_cluster(batch, features, hidden))
+                                      int features, int hidden, int launch, void* stream) {
+  if (batch <= 0 || !takes(features, hidden) || launch < 0 || launch > 1 ||
+      (launch == 1 && cluster_layout(features, hidden).ctas > kClusterMaxCtas))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (launch == 1)
     return static_cast<int>(launch_cluster(
         static_cast<const int8_t*>(q), static_cast<const float*>(s),
         static_cast<const unsigned char*>(wstream), static_cast<const float*>(vec),

@@ -113,6 +113,15 @@ __device__ __forceinline__ void st_async(uint32_t addr, unsigned v, uint32_t bar
                : "memory");
 }
 
+// st_async of 16 bytes (``addr`` 16-byte aligned)
+__device__ __forceinline__ void st_async4(uint32_t addr, uint4 v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.u32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(addr),
+      "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(bar)
+      : "memory");
+}
+
 // mbar_wait with cluster scope: what other CTAs stored (st.async) before
 // completing the phase is visible after it
 __device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {

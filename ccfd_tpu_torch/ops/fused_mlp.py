@@ -17,16 +17,16 @@ wrapper allocates, and layer 2 streams it back through the ring.
   and biases in f32, and the kernel's own operands: the weight stream
   (``pack_stream``, W1^T and W2^T in wgmma's swizzled shared-memory layout)
   and the epilogue vectors b1, b2, w3 zero-padded to the kernel's width.
-- ``plan`` mirrors the CUDA source's shared-memory layout, and
-  ``path_for`` its choice between the persistent grid and the cluster
-  launch (small batches at H <= 512: one cluster of ``hp / 64`` CTAs a
-  64-row tile).
+- ``plan`` mirrors the CUDA source's shared-memory layout.
+- ``path_for`` chooses between the persistent grid and the cluster launch
+  (small batches at H <= 512: one cluster of ``hp / 64`` CTAs a 64-row
+  tile); the CUDA entry launches what it is told.
 - ``fused_mlp_reference`` is the plain PyTorch version of the kernel's
   arithmetic, with the same rounding points.
 - ``fused_mlp_score`` is the wrapper: the plain version for a CPU tensor,
-  the kernel for a CUDA tensor (or an error: there is no fallback), with a
-  launch count (``launches``; ``launches_cluster`` those of them on the
-  cluster path).
+  the kernel for a CUDA tensor on ``path_for``'s launch (or an error: there
+  is no fallback). ``launch`` runs the kernel on a named launch, and counts
+  it (``launches``; ``launches_cluster`` those on the cluster path).
 """
 
 from __future__ import annotations
@@ -53,12 +53,14 @@ STAGE_BYTES = PART * 128
 ATOM_BYTES = TILE_ROWS * 128  # a 64-row x 64-input block of an A operand
 MAX_STAGES = 8
 SMEM_LIMIT = 232_448
-# the cluster path (the CUDA source's kGroup, kClusterMaxCtas,
-# kClusterMaxBatch): a cluster of hp / 64 CTAs, at most the portable 8, for
-# batches up to the measured crossover
+# the cluster path (the CUDA source's kGroup, kClusterMaxCtas): a cluster
+# of hp / 64 CTAs, at most the portable 8; path_for takes it for batches up
+# to the crossover measured on the H100 (tools/torch_q8_crossover.py
+# --kernel b1; the figures are in the CUDA source's head)
 GROUP = 64
 CLUSTER_MAX_CTAS = 8
 CLUSTER_MAX_BATCH = 1024
+PATHS = ("persistent", "cluster")  # the CUDA entry's launch argument, by index
 
 launches = LaunchCounter("fused_mlp_bf16")  # either path
 launches_cluster = LaunchCounter("fused_mlp_bf16.cluster")  # the cluster path's
@@ -99,11 +101,11 @@ def plan(features: int, hidden: int) -> dict[str, int]:
 
 
 def path_for(batch: int, features: int, hidden: int) -> str:
-    """Which launch B1's entry takes at this shape, as ``takes_cluster``
-    in the CUDA source decides it: ``"cluster"`` (a cluster of ``hp / 64``
-    CTAs a 64-row tile) for ``0 < batch <= CLUSTER_MAX_BATCH`` where ``hp /
-    64 <= CLUSTER_MAX_CTAS``, else ``"persistent"``. Raises ``ValueError``
-    for a shape the kernel does not take."""
+    """The launch ``fused_mlp_score`` hands B1's entry at this shape, the
+    one place it is chosen: ``"cluster"`` (a cluster of ``hp / 64`` CTAs a
+    64-row tile) for ``0 < batch <= CLUSTER_MAX_BATCH`` where ``hp / 64 <=
+    CLUSTER_MAX_CTAS``, else ``"persistent"``. Raises ``ValueError`` for a
+    shape the kernel does not take."""
     check_shapes(features, hidden)
     if 0 < batch <= CLUSTER_MAX_BATCH and plan(features, hidden)["hp"] // GROUP <= CLUSTER_MAX_CTAS:
         return "cluster"
@@ -245,7 +247,7 @@ def _kernel_entry():
     lib = _build.load("fused_mlp")
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = lib.ccfd_fused_mlp_bf16
-    fn.argtypes = [p] * 7 + [ctypes.c_longlong] + [i] * 3 + [p]
+    fn.argtypes = [p] * 7 + [ctypes.c_longlong] + [i] * 4 + [p]
     fn.restype = i
     plan_fn = lib.ccfd_fused_mlp_bf16_plan
     plan_fn.argtypes = [i, i, ctypes.POINTER(ctypes.c_int)]
@@ -267,26 +269,6 @@ def kernel_plan(features: int, hidden: int) -> dict[str, int]:
     if plan_fn(features, hidden, out) != 0:
         raise ValueError(f"the kernel does not take F={features}, H={hidden}")
     return dict(zip(("k1p", "hp", "chunks", "stages", "resident", "wide", "smem"), out))
-
-
-@functools.cache
-def _path_entry():
-    from ccfd_tpu_torch.ops import _build
-
-    fn = _build.load("fused_mlp").ccfd_fused_mlp_bf16_path
-    fn.argtypes = [ctypes.c_int] * 3
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def kernel_path(batch: int, features: int, hidden: int) -> str:
-    """``path_for`` as the built CUDA library decides it (needs nvcc; the
-    card is not touched): the card tests and ``chip_smoke.py`` hold it
-    against ``path_for``."""
-    got = _path_entry()(batch, features, hidden)
-    if got < 0:
-        raise ValueError(f"the kernel does not take F={features}, H={hidden}")
-    return "cluster" if got else "persistent"
 
 
 def _check_cuda_args(kp: Mapping[str, torch.Tensor], x: torch.Tensor) -> int:
@@ -319,20 +301,18 @@ def _check_cuda_args(kp: Mapping[str, torch.Tensor], x: torch.Tensor) -> int:
 
 
 # ccfd-lint: hot-path
-def fused_mlp_score(kp: Mapping[str, torch.Tensor], x: torch.Tensor,
-                    with_logits: bool = False):
-    """(B, F<=128) bf16 rows -> (B,) float32 proba (and logits when
-    ``with_logits``). Any B: the kernel masks the ragged last tile.
-
-    A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel on the current stream, or raises. The entry picks the launch
-    from the shape (``path_for``); a launch on the cluster path also counts
-    in ``launches_cluster``."""
-    if x.device.type == "cpu":
-        proba, z = fused_mlp_reference(kp, x)
-        return (proba, z) if with_logits else proba
+def launch(kp: Mapping[str, torch.Tensor], x: torch.Tensor, path: str,
+           with_logits: bool = False):
+    """B1 on the card on the launch ``path`` names (one of ``PATHS``), at
+    any batch: (B, F<=128) bf16 CUDA rows -> (B,) float32 proba (and
+    logits), on the current stream. Both launches give a row the same bits.
+    ``fused_mlp_score`` calls it with ``path_for``'s answer; the card tests
+    and tools run the other. Counts the launch in ``launches`` and, on the
+    cluster, in ``launches_cluster``. Raises ``ValueError`` for rows or
+    weights the kernel does not take, ``RuntimeError`` when the entry
+    refuses (a cluster of more than ``CLUSTER_MAX_CTAS`` CTAs)."""
     if x.device.type != "cuda":
-        raise ValueError(f"fused_mlp_score runs on cuda or cpu, not {x.device}")
+        raise ValueError(f"B1's launch runs on cuda, not {x.device}")
     hidden = _check_cuda_args(kp, x)
     if x.data_ptr() % 16:  # a row slice at any offset: the tiles are bulk-copied
         x = x.clone()
@@ -355,12 +335,29 @@ def fused_mlp_score(kp: Mapping[str, torch.Tensor], x: torch.Tensor,
                 z.data_ptr() if z is not None else None,
                 scratch.data_ptr() if scratch is not None else None,
                 scratch.numel() if scratch is not None else 0,
-                batch, features, hidden, stream)
+                batch, features, hidden, PATHS.index(path), stream)
         if rc != 0:
             raise RuntimeError(
                 f"fused_mlp kernel launch failed: CUDA error {rc} "
                 f"({err(rc).decode()})")
         launches.inc()
-        if path_for(batch, features, hidden) == "cluster":
+        if path == "cluster":
             launches_cluster.inc()
     return (proba, z) if with_logits else proba
+
+
+# ccfd-lint: hot-path
+def fused_mlp_score(kp: Mapping[str, torch.Tensor], x: torch.Tensor,
+                    with_logits: bool = False):
+    """(B, F<=128) bf16 rows -> (B,) float32 proba (and logits when
+    ``with_logits``). Any B: the kernel masks the ragged last tile.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel (``launch``) on the launch ``path_for`` picks from the shape,
+    or raises."""
+    if x.device.type == "cpu":
+        proba, z = fused_mlp_reference(kp, x)
+        return (proba, z) if with_logits else proba
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_mlp_score runs on cuda or cpu, not {x.device}")
+    return launch(kp, x, path_for(len(x), x.shape[-1], kp["w2"].shape[0]), with_logits)

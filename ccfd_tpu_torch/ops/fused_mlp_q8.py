@@ -23,9 +23,9 @@ ring of shared-memory stages. This module holds what surrounds them:
 - ``pack_for_kernel`` puts them on a device, once per params publish, with
   the kernels' own operands: the weight stream (``pack_stream``), the
   scales and biases zero-padded to the kernels' width, and w3 likewise;
-- ``plan`` mirrors the CUDA source's shared-memory layout, and
-  ``path_for`` B3's choice between its persistent grid and its cluster
-  launch for small batches;
+- ``plan`` mirrors the CUDA source's shared-memory layout;
+- ``path_for`` chooses between B3's persistent grid and its cluster launch
+  for small batches; the CUDA entry launches what it is told;
 - ``prequantize_rows_numpy`` is B3's host half, bit for bit the
   reference's;
 - ``fused_mlp_q8_reference`` and ``fused_mlp_q8_preq_reference`` are the
@@ -33,7 +33,8 @@ ring of shared-memory stages. This module holds what surrounds them:
   ``(proba, logits)``;
 - ``fused_mlp_q8_score`` and ``fused_mlp_q8_score_preq`` are the wrappers:
   the plain version for a CPU tensor, the kernel for a CUDA tensor (or an
-  error: there is no fallback), each with its launch count.
+  error: there is no fallback), each with its launch count;
+  ``launch_preq`` runs B3 on a named launch.
 """
 
 from __future__ import annotations
@@ -60,11 +61,13 @@ SLICE = 256  # layer-2 K-slice of one chunk
 STAGE_BYTES = GROUP * (SLICE + 16)
 MAX_STAGES = 8
 SMEM_LIMIT = 232_448  # dynamic shared memory one block may have on Hopper
-# B3's cluster path (the CUDA source's kClusterMaxCtas, kClusterMaxBatch): a
-# cluster of hp / 64 CTAs, at most the portable 8, for batches up to the
-# measured crossover
+# B3's cluster path (the CUDA source's kClusterMaxCtas): a cluster of hp / 64
+# CTAs, at most the portable 8; path_for takes it for batches up to the
+# crossover measured on the H100 (tools/torch_q8_crossover.py; the figures
+# are in the CUDA source's head)
 CLUSTER_MAX_CTAS = 8
 CLUSTER_MAX_BATCH = 2048
+PATHS = ("persistent", "cluster")  # B3's entry's launch argument, by index
 
 launches = LaunchCounter("fused_mlp_q8")  # B2
 launches_preq = LaunchCounter("fused_mlp_q8_preq")  # B3, either path
@@ -110,12 +113,11 @@ def plan(features: int, hidden: int) -> dict[str, int]:
 
 
 def path_for(batch: int, features: int, hidden: int) -> str:
-    """Which launch B3's entry takes at this shape, as
-    ``takes_cluster`` in the CUDA source decides it: ``"cluster"`` (a
-    cluster of ``hp / 64`` CTAs a 64-row tile) for ``0 < batch <=
-    CLUSTER_MAX_BATCH`` where ``hp / 64 <= CLUSTER_MAX_CTAS``, else
-    ``"persistent"``. Raises ``ValueError`` for a shape the kernels do not
-    take."""
+    """The launch ``fused_mlp_q8_score_preq`` hands B3's entry at this
+    shape, the one place it is chosen: ``"cluster"`` (a cluster of ``hp /
+    64`` CTAs a 64-row tile) for ``0 < batch <= CLUSTER_MAX_BATCH`` where
+    ``hp / 64 <= CLUSTER_MAX_CTAS``, else ``"persistent"``. Raises
+    ``ValueError`` for a shape the kernels do not take."""
     check_shapes(features, hidden)
     ctas = plan(features, hidden)["hp"] // GROUP
     if 0 < batch <= CLUSTER_MAX_BATCH and ctas <= CLUSTER_MAX_CTAS:
@@ -310,19 +312,15 @@ def fused_mlp_q8_preq_reference(kp: Mapping[str, torch.Tensor], q: torch.Tensor,
     return _from_layer1(kp, q, s.reshape(-1).float())
 
 
-@functools.cache
-def _kernel_entries():
-    """The bound C entries (B2, B3, plan) and CUDA's error-string lookup;
-    builds the kernel library on first use."""
-    from ccfd_tpu_torch.ops import _build
-
-    lib = _build.load("fused_mlp_q8")
+def bind_entries(lib: ctypes.CDLL):
+    """The C entries of a build of the CUDA source (B2, B3, plan) and
+    CUDA's error-string lookup, bound with their types."""
     p, i = ctypes.c_void_p, ctypes.c_int
     full = lib.ccfd_fused_mlp_q8
     full.argtypes = [p] * 10 + [i] * 3 + [p]
     full.restype = i
     preq = lib.ccfd_fused_mlp_q8_preq
-    preq.argtypes = [p] * 9 + [i] * 3 + [p]
+    preq.argtypes = [p] * 9 + [i] * 4 + [p]
     preq.restype = i
     plan_fn = lib.ccfd_fused_mlp_q8_plan
     plan_fn.argtypes = [i, i, ctypes.POINTER(ctypes.c_int)]
@@ -334,23 +332,11 @@ def _kernel_entries():
 
 
 @functools.cache
-def _path_entry():
+def _kernel_entries():
+    """``bind_entries`` of the shipped library; builds it on first use."""
     from ccfd_tpu_torch.ops import _build
 
-    fn = _build.load("fused_mlp_q8").ccfd_fused_mlp_q8_preq_path
-    fn.argtypes = [ctypes.c_int] * 3
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def kernel_path(batch: int, features: int, hidden: int) -> str:
-    """``path_for`` as the built CUDA library decides it (needs nvcc; the
-    card is not touched): the card tests and ``chip_smoke.py`` hold it
-    against ``path_for``."""
-    got = _path_entry()(batch, features, hidden)
-    if got < 0:
-        raise ValueError(f"the kernels do not take F={features}, H={hidden}")
-    return "cluster" if got else "persistent"
+    return bind_entries(_build.load("fused_mlp_q8"))
 
 
 def kernel_plan(features: int, hidden: int) -> dict[str, int]:
@@ -429,22 +415,21 @@ def fused_mlp_q8_score(kp: Mapping[str, torch.Tensor], x: torch.Tensor,
     return (proba, z) if with_logits else proba
 
 
-def fused_mlp_q8_score_preq(kp: Mapping[str, torch.Tensor], q: torch.Tensor,
-                            s: torch.Tensor, with_logits: bool = False):
-    """B3: (B, F<=128) int8 rows and their (B, 1) f32 scales (from
-    ``prequantize_rows_numpy``) -> (B,) float32 proba (and logits).
-
-    A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel on the current stream, or raises. The entry picks the launch
-    from the shape (``path_for``); a launch on the cluster path also
-    counts in ``launches_preq_cluster``."""
-    if q.device.type == "cpu" and s.device.type == "cpu":
-        proba, z = fused_mlp_q8_preq_reference(kp, q, s)
-        return (proba, z) if with_logits else proba
+def launch_preq(kp: Mapping[str, torch.Tensor], q: torch.Tensor, s: torch.Tensor,
+                path: str, with_logits: bool = False):
+    """B3 on the card on the launch ``path`` names (one of ``PATHS``), at
+    any batch: (B, F<=128) int8 CUDA rows and their (B, 1) f32 scales ->
+    (B,) float32 proba (and logits), on the current stream. Both launches
+    give a row the same bits. ``fused_mlp_q8_score_preq`` calls it with
+    ``path_for``'s answer; the card tests and tools run the other. Counts
+    the launch in ``launches_preq`` and, on the cluster, in
+    ``launches_preq_cluster``. Raises ``ValueError`` for rows or weights
+    the kernel does not take, ``RuntimeError`` when the entry refuses (a
+    cluster of more than ``CLUSTER_MAX_CTAS`` CTAs)."""
     if q.device.type != "cuda" or s.device != q.device:
         raise ValueError(
-            f"fused_mlp_q8_score_preq runs on cuda or cpu, with q and s on one "
-            f"device, not {q.device} and {s.device}")
+            f"B3's launch runs on cuda, with q and s on one device, not {q.device} "
+            f"and {s.device}")
     features, hidden = _check_weights(kp, q.device)
     q = _check_rows(q, "q", torch.int8, features)
     s = _check_rows(s, "s", torch.float32, 1)
@@ -459,9 +444,28 @@ def fused_mlp_q8_score_preq(kp: Mapping[str, torch.Tensor], q: torch.Tensor,
                   kp["vec"].data_ptr(), kp["w3p"].data_ptr(), kp["s3"].data_ptr(),
                   kp["b3"].data_ptr(), proba.data_ptr(),
                   z.data_ptr() if z is not None else None,
-                  batch, features, hidden, stream)
+                  batch, features, hidden, PATHS.index(path), stream)
         _raise_on(rc, err, "fused_mlp_q8_preq")
         launches_preq.inc()
-        if path_for(batch, features, hidden) == "cluster":
+        if path == "cluster":
             launches_preq_cluster.inc()
     return (proba, z) if with_logits else proba
+
+
+def fused_mlp_q8_score_preq(kp: Mapping[str, torch.Tensor], q: torch.Tensor,
+                            s: torch.Tensor, with_logits: bool = False):
+    """B3: (B, F<=128) int8 rows and their (B, 1) f32 scales (from
+    ``prequantize_rows_numpy``) -> (B,) float32 proba (and logits).
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel (``launch_preq``) on the launch ``path_for`` picks from the
+    shape, or raises."""
+    if q.device.type == "cpu" and s.device.type == "cpu":
+        proba, z = fused_mlp_q8_preq_reference(kp, q, s)
+        return (proba, z) if with_logits else proba
+    if q.device.type != "cuda" or s.device != q.device:
+        raise ValueError(
+            f"fused_mlp_q8_score_preq runs on cuda or cpu, with q and s on one "
+            f"device, not {q.device} and {s.device}")
+    return launch_preq(kp, q, s, path_for(len(q), q.shape[-1], kp["w2t"].shape[0]),
+                       with_logits)

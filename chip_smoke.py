@@ -463,9 +463,9 @@ wire).
            launches (and torch.profiler's by the kernel's own name), its
            time a call through the Python wrapper, and the plain version's
            a call; B1 at the same batches on each of its launches (the
-           persistent grid and the cluster, from the two copies of its
-           source that tools/torch_q8_crossover.py builds); and at B=16384
-           B1 at H=1,024, 2,048 and 4,096 and B2/B3 at their widest H (1,040)
+           persistent grid and the cluster, through fused_mlp.launch); and
+           at B=16384 B1 at H=1,024, 2,048 and 4,096 and B2/B3 at their
+           widest H (1,040)
 
 Run from the repository root:  python3 chip_smoke.py
 It exits non-zero on any failure. On success its last two lines are a JSON
@@ -476,6 +476,7 @@ object describing each kernel and then
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -1423,19 +1424,6 @@ class Smoke:
                 if got != want:
                     raise AssertionError(f"{mod.__name__} plan F={f} H={h}: {got} != {want}")
                 log("build", f"{mod.__name__.rsplit('.', 1)[-1]} F={f} H={h}: {got}")
-        # B1's and B3's choice of launch, against their Python mirrors
-        for mod, name, shapes in (
-                (fused_mlp, "B1", ((30, 256), (30, 512), (30, 640), (64, 512), (65, 512),
-                                   (128, 384), (128, 512), (30, 1024))),
-                (fused_mlp_q8, "B3", ((30, 256), (30, 512), (30, 1040), (128, 512)))):
-            top = mod.CLUSTER_MAX_BATCH
-            for f, h in shapes:
-                for b in (1, 16, 128, top, top + 1, 16384):
-                    got, want = mod.kernel_path(b, f, h), mod.path_for(b, f, h)
-                    if got != want:
-                        raise AssertionError(f"{name}'s path B={b} F={f} H={h}: {got} != {want}")
-            log("build", f"{name}'s path matches path_for: the cluster launch up to B={top} "
-                f"at H <= {mod.CLUSTER_MAX_CTAS * mod.GROUP}")
         # the lint gate runs here, where no JAX is installed
         env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
         env["PYTHONPATH"] = REPO
@@ -6220,19 +6208,15 @@ class Smoke:
                     kernel_ms, plain_ms, bound_ms, bound_by = got
                     self.reports[name].update(ms=kernel_ms, plain_ms=plain_ms,
                                               bound_ms=bound_ms, bound_by=bound_by)
-        # B1 on each of its launches at the same batches: the two copies of
-        # its source that tools/torch_q8_crossover.py builds, one taking
-        # the persistent grid at every batch, one the cluster launch
-        sys.path.insert(0, os.path.join(REPO, "tools"))
-        import torch_q8_crossover as crossover
-
+        # B1 on each of its launches at the same batches
         from ccfd_tpu_torch.ops import fused_mlp
 
-        for v, ent in crossover.b1_variants().items():
-            with crossover.launching(fused_mlp, "_kernel_entry", ent):
-                for b in TIMING_BATCHES:
-                    run("fused_mlp_bf16", cases(kp, kq, b)["fused_mlp_bf16"], b, 256,
-                        f"H=256 {v} path", profile=False)
+        for path in fused_mlp.PATHS:
+            for b in TIMING_BATCHES:
+                x = self.x_rows(b)
+                _launch, plain, nbyte, peak = cases(kp, kq, b)["fused_mlp_bf16"]
+                run("fused_mlp_bf16", (functools.partial(fused_mlp.launch, kp, x, path), plain,
+                                       nbyte, peak), b, 256, f"H=256 {path} path", profile=False)
         # wider models on seeded random params: B1 up to its wide layout
         # (H > 1,024), B2/B3 at the widest H they take
         b = TIMING_BATCHES[-1]

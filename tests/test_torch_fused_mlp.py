@@ -309,22 +309,16 @@ def test_cluster_counter_is_on_the_gauge_and_cpu_tensors_do_not_move_it(rows):
 
 
 def test_the_crossover_tool_finds_what_it_edits_in_b1s_source():
-    """tools/torch_q8_crossover.py --kernel b1 rewrites B1's crossover
-    constant: it finds it once, and the source's constants are the Python
-    mirror's."""
-    import importlib.util
+    """B1's source holds the cluster's bounds that ``path_for`` mirrors
+    (kClusterMaxCtas, kGroup) and no batch crossover: the choice by batch
+    is ``CLUSTER_MAX_BATCH`` alone, and tools/torch_q8_crossover.py runs
+    both launches of the shipped library instead of editing the source."""
     import re
-    from pathlib import Path
 
     from ccfd_tpu_torch.ops import _build
 
-    path = Path(__file__).resolve().parents[1] / "tools" / "torch_q8_crossover.py"
-    spec = importlib.util.spec_from_file_location("torch_q8_crossover", path)
-    tool = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(tool)
-    src = (_build.CSRC / f"{tool.SOURCES['b1']}.cu").read_text()
-    assert tool.CONSTANT.findall(src) == [
-        f"constexpr int kClusterMaxBatch = {fused_mlp.CLUSTER_MAX_BATCH};"]
+    src = (_build.CSRC / "fused_mlp.cu").read_text()
+    assert "kClusterMaxBatch" not in src
     for name, value in (("kClusterMaxCtas", fused_mlp.CLUSTER_MAX_CTAS),
                         ("kGroup", fused_mlp.GROUP)):
         found = re.search(rf"constexpr int {name} = (\d+);", src)

@@ -314,20 +314,16 @@ def _tool(name):
 
 
 def test_the_card_tools_find_what_they_edit_in_the_source():
-    """tools/torch_q8_crossover.py rewrites the crossover constant and
-    tools/torch_q8_phase_trace.py stamps the persistent body (with the
-    cluster launch off): both find their anchors, and the source's
-    constants are the Python mirror's."""
+    """tools/torch_q8_phase_trace.py stamps the persistent body: it finds
+    its anchors. The source's cluster bound is the Python mirror's, and it
+    has no batch crossover (``CLUSTER_MAX_BATCH`` alone chooses)."""
+    import re
+
     from ccfd_tpu_torch.ops import _build
 
     src = (_build.CSRC / "fused_mlp_q8.cu").read_text()
-    crossover = _tool("torch_q8_crossover")
-    found = crossover.CONSTANT.findall(src)
-    assert found == [f"constexpr int kClusterMaxBatch = {fused_mlp_q8.CLUSTER_MAX_BATCH};"]
-    import re
-
+    assert "kClusterMaxBatch" not in src
     ctas = re.search(r"constexpr int kClusterMaxCtas = (\d+);", src)
     assert ctas and int(ctas.group(1)) == fused_mlp_q8.CLUSTER_MAX_CTAS
-    stamped = _tool("torch_q8_phase_trace").stamped_source(src)
-    assert "constexpr int kClusterMaxBatch = 0;" in stamped
-    assert stamped.count("STAMP(") > len(_tool("torch_q8_phase_trace").ANCHORS)
+    trace = _tool("torch_q8_phase_trace")
+    assert trace.stamped_source(src).count("STAMP(") > len(trace.ANCHORS)

@@ -11,8 +11,9 @@ ulp. Wider, the flips grow with H and add to z like a random walk, so the
 bar grows as sqrt(H / 256) (chip_smoke.py b1_tol_p).
 
 B1 takes a cluster launch up to ``CLUSTER_MAX_BATCH`` rows where H needs at
-most 8 CTAs of 64 columns (``path_for``); the two launches sum each row in
-one order, so a row's p and z are the same bits on either.
+most 8 CTAs of 64 columns (``path_for``); ``fused_mlp.launch`` runs either
+launch at any batch. The two sum each row in one order, so a row's p and z
+are the same bits on either.
 """
 
 import numpy as np
@@ -236,7 +237,9 @@ def test_a_row_slice_at_an_odd_offset_on_the_cluster_path(dev, rows):
 
 def test_the_cluster_counter_moves_as_path_for_says(dev, rows):
     """A launch at B=16 adds one to ``launches`` and one to
-    ``launches_cluster``; past the crossover only ``launches`` moves."""
+    ``launches_cluster``; past the crossover only ``launches`` moves. The
+    counter follows the launch handed to the entry: a named launch counts
+    as what it names, at any batch."""
     kp = _kp(load_params(), dev)
     for b in (16, 128, CROSSOVER, CROSSOVER + 1):
         x = torch.from_numpy(rows[:b]).to(torch.bfloat16).to(dev)
@@ -246,13 +249,40 @@ def test_the_cluster_counter_moves_as_path_for_says(dev, rows):
         assert cluster == (b <= CROSSOVER)
         assert (fused_mlp.launches.value, fused_mlp.launches_cluster.value) == (
             before[0] + 1, before[1] + cluster)
+        for path in fused_mlp.PATHS:
+            before = (fused_mlp.launches.value, fused_mlp.launches_cluster.value)
+            fused_mlp.launch(kp, x, path)
+            assert (fused_mlp.launches.value, fused_mlp.launches_cluster.value) == (
+                before[0] + 1, before[1] + (path == "cluster"))
     torch.cuda.synchronize()
 
 
-def test_path_of_the_built_kernel_matches_the_python_mirror(dev):
-    for features, hidden in ((30, 256), (30, 128), (30, 512), (30, 513), (30, 640),
-                             (64, 512), (65, 512), (128, 384), (128, 512), (1, 1),
-                             (30, 1024), (30, 4096)):
-        for batch in (0, 1, 16, 128, CROSSOVER, CROSSOVER + 1, 16384):
-            assert fused_mlp.kernel_path(batch, features, hidden) == \
-                fused_mlp.path_for(batch, features, hidden), (batch, features, hidden)
+@pytest.mark.parametrize("hidden", [128, 256, 384, 512])
+@pytest.mark.parametrize("batch", sorted({1, 16, 17, 128, CROSSOVER, CROSSOVER + 1, 2048}))
+def test_both_launches_give_the_same_bits(dev, rows, hidden, batch):
+    """The same rows on the persistent grid and on the cluster (2, 4, 6
+    and 8 CTAs), on either side of the crossover: the same bits of p and
+    z."""
+    kp = _kp(_random_params(rows, hidden, seed=hidden + 3), dev)
+    x = torch.from_numpy(rows[:batch]).to(torch.bfloat16).to(dev)
+    got = [fused_mlp.launch(kp, x, path, with_logits=True) for path in fused_mlp.PATHS]
+    torch.cuda.synchronize()
+    (p_p, z_p), (p_c, z_c) = got
+    assert torch.equal(p_p, p_c) and torch.equal(z_p, z_c)
+
+
+def test_the_entry_refuses_what_it_cannot_run(dev, rows):
+    """B1's entry refuses a cluster launch of no rows and one of more than
+    8 CTAs (H=640: 10), and a launch it does not name; the persistent grid
+    takes H=640."""
+    fn, _plan, _blocks, _err = fused_mlp._kernel_entry()
+    invalid = 1  # cudaErrorInvalidValue
+    assert fn(None, None, None, None, None, None, None, 0, 0, 30, 256, 1, None) == invalid
+    assert fn(None, None, None, None, None, None, None, 0, 16, 30, 256, 2, None) == invalid
+    kp = _kp(_random_params(rows, 640, seed=640), dev)
+    x = torch.from_numpy(rows[:16]).to(torch.bfloat16).to(dev)
+    before = fused_mlp.launches.value
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        fused_mlp.launch(kp, x, "cluster")
+    assert fused_mlp.launches.value == before
+    _check(kp, x)  # on path_for's launch, the persistent grid

@@ -14,8 +14,9 @@ padding to the kernels' multiple of 64 and the 32-row tiles of the widest
 models (up to the reference's bound of 1,040), batches the ragged last tile
 and enough tiles for every persistent block to walk more than one. B3
 takes a cluster launch up to ``CLUSTER_MAX_BATCH`` rows where H needs at
-most 8 CTAs (``path_for``); batches on both sides of each 16-row slab, of
-the 64-row tile and of the crossover hold it to the same bits.
+most 8 CTAs (``path_for``), and ``fused_mlp_q8.launch_preq`` runs either
+launch at any batch; batches on both sides of each 16-row slab, of the
+64-row tile and of the crossover hold it to the same bits.
 """
 
 import numpy as np
@@ -242,6 +243,8 @@ def test_a_row_scores_the_same_alone_and_in_every_bucket(dev, rows, hidden):
 
 
 def test_the_cluster_counter_moves_as_path_for_says(dev, rows):
+    """The counter follows the launch handed to the entry: ``path_for``'s
+    answer through the wrapper, and a named launch as what it names."""
     kp = _kp(quant.quantize_mlp(load_params()), dev)
     q_np, s_np = fused_mlp_q8.prequantize_rows_numpy(
         {k: kp[k].cpu() for k in ("mu", "sigma")}, rows[:CROSSOVER + 1])
@@ -253,15 +256,52 @@ def test_the_cluster_counter_moves_as_path_for_says(dev, rows):
         assert (fused_mlp_q8.launches_preq.value,
                 fused_mlp_q8.launches_preq_cluster.value) == (before[0] + 1,
                                                               before[1] + cluster)
+        for path in fused_mlp_q8.PATHS:
+            before = (fused_mlp_q8.launches_preq.value,
+                      fused_mlp_q8.launches_preq_cluster.value)
+            fused_mlp_q8.launch_preq(kp, q, s, path)
+            assert (fused_mlp_q8.launches_preq.value,
+                    fused_mlp_q8.launches_preq_cluster.value) == (
+                before[0] + 1, before[1] + (path == "cluster"))
     torch.cuda.synchronize()
     assert fused_mlp_q8.path_for(CROSSOVER + 1, 30, 256) == "persistent"
 
 
-def test_path_of_the_built_kernels_matches_the_python_mirror(dev):
-    for features, hidden in ((30, 256), (30, 512), (128, 512), (30, 513), (30, 1040),
-                             (1, 16)):
-        for batch in (1, 16, 128, CROSSOVER, CROSSOVER + 1, 16384):
-            assert fused_mlp_q8.kernel_path(batch, features, hidden) == \
-                fused_mlp_q8.path_for(batch, features, hidden), (batch, features, hidden)
-    with pytest.raises(ValueError, match="do not take"):
-        fused_mlp_q8.kernel_path(16, 30, 1041)
+@pytest.mark.parametrize("hidden", [256, 512])
+@pytest.mark.parametrize("batch", sorted({1, 16, 17, 128, CROSSOVER, CROSSOVER + 1, 2048}))
+def test_both_launches_give_the_same_bits(dev, rows, hidden, batch):
+    """The same rows on B3's persistent grid and on its cluster (4 and 8
+    CTAs), on either side of the crossover: the same bits of p and z, and
+    B2's on the f32 rows."""
+    kp = _kp(_qp(rows, hidden, seed=hidden + 3), dev)
+    q_np, s_np = fused_mlp_q8.prequantize_rows_numpy(
+        {k: kp[k].cpu() for k in ("mu", "sigma")}, rows[:batch])
+    q, s = torch.from_numpy(q_np).to(dev), torch.from_numpy(s_np).to(dev)
+    got = [fused_mlp_q8.launch_preq(kp, q, s, path, with_logits=True)
+           for path in fused_mlp_q8.PATHS]
+    p2, z2 = fused_mlp_q8.fused_mlp_q8_score(kp, torch.from_numpy(rows[:batch]).to(dev),
+                                             with_logits=True)
+    torch.cuda.synchronize()
+    for p, z in got:
+        assert torch.equal(p, p2) and torch.equal(z, z2)
+
+
+def test_the_entry_refuses_what_it_cannot_run(dev, rows):
+    """B3's entry refuses a cluster launch of no rows and one of more than
+    8 CTAs (H=513: hp 576, 9), and a launch it does not name; the
+    persistent grid takes H=513."""
+    _full, preq, _plan, _err = fused_mlp_q8._kernel_entries()
+    invalid = 1  # cudaErrorInvalidValue
+    assert preq(None, None, None, None, None, None, None, None, None, 0, 30, 256, 1,
+                None) == invalid
+    assert preq(None, None, None, None, None, None, None, None, None, 16, 30, 256, 2,
+                None) == invalid
+    kp = _kp(_qp(rows, 513, seed=513), dev)
+    q_np, s_np = fused_mlp_q8.prequantize_rows_numpy(
+        {k: kp[k].cpu() for k in ("mu", "sigma")}, rows[:16])
+    q, s = torch.from_numpy(q_np).to(dev), torch.from_numpy(s_np).to(dev)
+    before = fused_mlp_q8.launches_preq.value
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        fused_mlp_q8.launch_preq(kp, q, s, "cluster")
+    assert fused_mlp_q8.launches_preq.value == before
+    _check_bit_equal(kp, rows[:16], dev)  # on path_for's launch, the persistent grid

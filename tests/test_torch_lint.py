@@ -202,7 +202,9 @@ def test_the_seam_refuses_a_synchronize_even_on_a_call():
 
 def test_the_ports_hot_paths_are_marked_where_the_references_are():
     """The reference marks its kernel entry and the history store's
-    prepare/commit; the port marks their counterparts."""
+    prepare/commit; the port marks their counterparts (its kernel entry
+    and the named-path launch that entry calls, which holds the launch's
+    code)."""
     import ast
 
     def marked(path: Path) -> set[str]:
@@ -211,7 +213,8 @@ def test_the_ports_hot_paths_are_marked_where_the_references_are():
                 if isinstance(fn, ast.FunctionDef)
                 and (fn.lineno - 1) in ctx.hot_path_lines}
 
-    assert marked(REPO / "ccfd_tpu_torch" / "ops" / "fused_mlp.py") == {"fused_mlp_score"}
+    assert marked(REPO / "ccfd_tpu_torch" / "ops" / "fused_mlp.py") == {"fused_mlp_score",
+                                                                         "launch"}
     assert marked(REPO / "ccfd_tpu_torch" / "serving" / "history.py") == {"prepare", "commit"}
     assert {"fused_mlp_score"} <= marked(REPO / "ccfd_tpu" / "ops" / "fused_mlp.py")
 

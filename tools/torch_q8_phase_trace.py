@@ -5,11 +5,11 @@ Builds a copy of ``ccfd_tpu_torch/ops/csrc/fused_mlp_q8.cu`` with
 ``clock64()`` stamps at the phase boundaries of the first tile of block 0
 (thread 0, a consumer), runs B2 and B3 through the port's wrappers on
 seeded random params, and prints the SM cycles at which each phase ended.
-The copy's B3 takes the persistent grid at every batch (its cluster launch
-for small batches, ``kClusterMaxBatch``, is set to 0 there).
-The copy is built into ``build/ccfd_tpu_torch/trace/``; the shipped library
-is untouched. ``ncu`` does not run on the card's machine; this is the
-kernel's own clock.
+B3 runs on its persistent grid at every batch (``launch_preq`` with
+``"persistent"``), where the stamps are. The copy is built into
+``build/ccfd_tpu_torch/trace/``; the shipped library is untouched.
+``ncu`` does not run on the card's machine; this is the kernel's own
+clock.
 
     python tools/torch_q8_phase_trace.py        (from the repository root)
 
@@ -20,7 +20,6 @@ source (the kernel was edited: update ANCHORS).
 from __future__ import annotations
 
 import ctypes
-import re
 import subprocess
 import sys
 from pathlib import Path
@@ -66,9 +65,6 @@ def stamped_source(src: str) -> str:
     if start not in src:
         raise SystemExit("anchor for the kernel's start not found: update the tool")
     src = src.replace(start, start + "\nSTAMP(0);", 1)
-    # the stamps are in the persistent body: the copy's B3 takes it at every batch
-    src = re.sub(r"constexpr int kClusterMaxBatch = [^;]+;", "constexpr int kClusterMaxBatch = 0;",
-                 src)
     for i, (phase, anchor, nth) in enumerate(ANCHORS, start=1):
         at = -1
         for _ in range(max(nth, 1)):
@@ -101,13 +97,8 @@ def main() -> int:
         print(built.stdout + built.stderr, file=sys.stderr)
         return 1
     lib = ctypes.CDLL(str(so))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    full, preq = lib.ccfd_fused_mlp_q8, lib.ccfd_fused_mlp_q8_preq
-    full.argtypes, preq.argtypes = [p] * 10 + [i] * 3 + [p], [p] * 9 + [i] * 3 + [p]
-    full.restype = preq.restype = i
-    err = lib.ccfd_q8_cuda_error_string
-    err.argtypes, err.restype = [i], ctypes.c_char_p
-    q8._kernel_entries = lambda: (full, preq, None, err)  # the wrappers launch the copy
+    entries = q8.bind_entries(lib)
+    q8._kernel_entries = lambda: entries  # the wrappers launch the copy
 
     dev = torch.device("cuda:0")
     rows = kaggle_surrogate(n=20_000).X
@@ -124,7 +115,7 @@ def main() -> int:
                                                rows[:b])
             qd, sd = torch.from_numpy(qh).to(dev), torch.from_numpy(sh).to(dev)
             for label, fn in (("B2", lambda: q8.fused_mlp_q8_score(kp, x)),
-                              ("B3", lambda: q8.fused_mlp_q8_score_preq(kp, qd, sd))):
+                              ("B3", lambda: q8.launch_preq(kp, qd, sd, "persistent"))):
                 for _ in range(3):
                     fn()
                 torch.cuda.synchronize()
